@@ -1,0 +1,1 @@
+"""models of the PyTorch port (see the JAX package's module of the same path)."""

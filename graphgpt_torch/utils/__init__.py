@@ -1,0 +1,1 @@
+"""utils of the PyTorch port (see the JAX package's module of the same path)."""
