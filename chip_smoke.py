@@ -3,22 +3,30 @@
     python3 chip_smoke.py
 
 1. Fails unless a CUDA card is present; prints its name and power limit.
-2. Builds every kernel of the inference path from graphgpt_torch/csrc with
-   nvcc (one process per source, all at once) and prints the build time.
-3. Kernel phase: at GraphGPT-base shapes, each kernel against its plain
-   PyTorch version in bf16 (max error beside its tolerance), timed with CUDA
-   events beside the plain version, one PyTorch library call where one
+2. Builds every kernel from graphgpt_torch/csrc with nvcc (one process per
+   source, all at once) and prints the build time.
+3. Kernel phase: each of the four kernels (flash_fwd, norm_mlp, flash_bwd,
+   rmsnorm_bwd) against its plain PyTorch version in bf16 (errors beside
+   their tolerances) at the shapes both main paths give it, 8 x 1024 rows
+   for serving and 64 x 1024 for training, timed three times with
+   CUDA events beside the plain version, one PyTorch library call where one
    computes the same function, and the card's bound for the same work.
 4. Eval phase: GraphGPT-base at full width (seeded random weights), the
    SMTP eval loss of a packed 8 x 1024 batch, against the same model run
-   with the plain versions; each kernel launches once per layer.
+   with the plain versions; each forward kernel launches once per layer.
 5. Generation phase: dLLM unmasking of a 30-40% masked band with the
    default GenerationConfig (64 steps, entropy confidence).
-6. Prints one JSON line listing every kernel, then the device line last.
+6. Train phase: a fresh GraphGPT-base, twelve SMTP training steps (forward,
+   backward, clip, AdamW, EMA) on one packed 64 x 1024 batch; the first
+   step's loss and every gradient against the same step run with the plain
+   versions, on the whole batch; launch counts per step; ms per step,
+   trained tokens/s and peak memory.
+7. Prints one JSON line listing every kernel, then the device line last.
 
 Any failed check raises, so the script exits non-zero. The launch counts
-are set to 0 just before the eval phase and read after the generation
-phase: that window is the main path.
+are set to 0 just before each main path (eval + generation; training) and
+read just after it; launches made to compare a kernel with its plain
+version fall outside those windows.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 # bf16 out, fp32 lse. out is held twice: elementwise, and by the relative
@@ -44,7 +53,25 @@ PEAK_BYTES = 3.35e12
 # wrong V row, a dropped key tile, a misrounded P).
 FLASH_TOL = dict(out_atol=3e-2, out_rel=4e-3, lse_atol=1e-3)
 MLP_TOL = dict(atol=1e-2, rtol=1e-2)  # about 2.5 bf16 ulps of the output
+# dq, dk, dv in bf16 against the plain version, which rounds p and ds at the
+# same points: what is left is the order of the fp32 sums, which flips a
+# bf16 rounding here and there (1 ulp of the largest values, ~4, is 0.03).
+# The relative Frobenius error over the whole tensor is held much tighter,
+# so that a dropped tile or a wrong row cannot hide under the elementwise
+# bound. Padded rows must be exactly 0.
+FLASH_BWD_TOL = dict(atol=3.2e-2, rel=2e-3)
+# dx bf16 (1 ulp of the largest values), dw fp32 summed over 65536 rows in
+# another order than torch.sum's
+RMS_BWD_TOL = dict(dx_atol=3.2e-2, dx_rel=2e-3, dw_rtol=1e-3)
 LOSS_ATOL = 5e-3
+# Gradients of the whole model, kernels against plain versions, in bf16: the
+# two paths round at the same points but sum in another order, and through
+# twelve layers forward and back a flipped bf16 rounding moves what follows.
+# Relative Frobenius error per parameter on the 64 x 1024 batch; on an H100
+# the worst of the 112 reads 3.8e-2 (a q_proj or k_proj weight of the last
+# layer, whose gradient is small) and the median 1.7e-2. The limit is twice
+# the worst reading.
+GRAD_REL = 8e-2
 HIDDEN_REL = 3e-2  # Frobenius norm of the difference over that of the plain run
 
 
@@ -61,23 +88,113 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over `iters` back-to-back calls (CUDA events)."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, repeats: int = 3) -> float:
+    """Device time of fn() by CUDA events: the median of `repeats` readings,
+    each the mean over `iters` back-to-back calls. The readings are kept in
+    `cuda_ms.last` so that the caller can print the spread."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    readings = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        readings.append(start.elapsed_time(end) / iters)
+    cuda_ms.last = readings
+    return float(np.median(readings))
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+cuda_ms.last = []
+
+
+def spread() -> str:
+    """The last cuda_ms readings as 'min-max'."""
+    return f"{min(cuda_ms.last):.4f}-{max(cuda_ms.last):.4f}"
+
+
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """|a - b| / |b| in the Frobenius norm, in fp32."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def plain_in_row_chunks(ops, fn, tensors, rows: int = 8):
+    """fn(*tensors) with the plain versions, `rows` rows of the leading axis
+    at a time (None entries pass through), each output concatenated: keeps
+    the plain attention's [rows, H, P, P] fp32 score tensors small."""
+    n = next(t for t in tensors if t is not None).shape[0]
+    parts = []
+    with ops.reference_mode():
+        for i in range(0, n, rows):
+            parts.append(fn(*(None if t is None else t[i : i + rows] for t in tensors)))
+    return tuple(torch.cat(outs) for outs in zip(*parts))
+
+
+def check_flash_fwd(tag, out, lse, rout, rlse, seg):
+    """(out, lse) of flash_fwd against the plain version's; returns the
+    larger of the two elementwise errors."""
+    valid = seg > 0
+    err_out = (out.float() - rout.float()).abs().max().item()
+    rel_out = ((out.float() - rout.float())[valid].norm() / rout.float()[valid].norm()).item()
+    err_lse = (lse - rlse).abs().amax(dim=1)[valid].max().item()
+    pad_ok = bool((out[~valid] == 0).all()) and bool((lse.transpose(1, 2)[~valid] == -1e30).all())
+    print(
+        f"flash_fwd[{tag}] max|out-plain| {err_out:.3e} (tol {FLASH_TOL['out_atol']}) "
+        f"|out-plain|/|plain| {rel_out:.3e} (tol {FLASH_TOL['out_rel']}) "
+        f"max|lse-plain| {err_lse:.3e} (tol {FLASH_TOL['lse_atol']}) padded rows ok {pad_ok}",
+        flush=True,
+    )
+    if not (err_out <= FLASH_TOL["out_atol"] and rel_out <= FLASH_TOL["out_rel"]
+            and err_lse <= FLASH_TOL["lse_atol"] and pad_ok):
+        fail(f"flash_fwd[{tag}] disagrees with its plain version")
+    return max(err_out, err_lse)
+
+
+def check_flash_bwd(tag, got, ref, seg):
+    """(dq, dk, dv) of flash_bwd against the plain version's; returns the
+    largest elementwise and the largest relative error."""
+    valid = seg > 0
+    errs, rels, pad_ok = [], [], True
+    for g, r in zip(got, ref):
+        errs.append((g.float() - r.float()).abs().max().item())
+        rels.append(rel_err(g, r))
+        pad_ok = pad_ok and bool((g[~valid] == 0).all())
+    finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+    print(
+        f"flash_bwd[{tag}] max|d-plain| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
+        f"(tol {FLASH_BWD_TOL['atol']}) |d-plain|/|plain| dq {rels[0]:.3e} dk {rels[1]:.3e} "
+        f"dv {rels[2]:.3e} (tol {FLASH_BWD_TOL['rel']}) padded rows exactly 0: {pad_ok}",
+        flush=True,
+    )
+    if not (max(errs) <= FLASH_BWD_TOL["atol"] and max(rels) <= FLASH_BWD_TOL["rel"]
+            and pad_ok and finite):
+        fail(f"flash_bwd[{tag}] disagrees with its plain version")
+    return max(errs), max(rels)
+
+
+def check_norm_mlp(tag, out, ref):
+    """norm_mlp's output against the plain version's; returns the largest
+    elementwise error."""
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    excess = (diff - MLP_TOL["atol"] - MLP_TOL["rtol"] * ref.float().abs()).max().item()
+    print(
+        f"norm_mlp[{tag}] max|out-plain| {err:.3e} (tol atol {MLP_TOL['atol']} + rtol "
+        f"{MLP_TOL['rtol']} * |plain|, worst excess {excess:.3e})",
+        flush=True,
+    )
+    if not (excess <= 0 and torch.isfinite(out.float()).all()):
+        fail(f"norm_mlp[{tag}] disagrees with its plain version")
+    return err
 
 
 def flash_phase(dev, fa, ops, synthetic, rope_cos_sin):
@@ -104,23 +221,11 @@ def flash_phase(dev, fa, ops, synthetic, rope_cos_sin):
         torch.cuda.synchronize()
         with ops.reference_mode():
             rout, rlse = fa.flash_fwd(*args)
-        valid = seg > 0
-        err_out = (out.float() - rout.float()).abs().max().item()
-        rel_out = ((out.float() - rout.float())[valid].norm() / rout.float()[valid].norm()).item()
-        err_lse = (lse - rlse).abs().amax(dim=1)[valid].max().item()
-        pad_ok = bool((out[~valid] == 0).all()) and bool((lse.transpose(1, 2)[~valid] == -1e30).all())
         tag = "causal" if causal else "bidirectional"
-        print(
-            f"flash_fwd[{tag}] max|out-plain| {err_out:.3e} (tol {FLASH_TOL['out_atol']}) "
-            f"|out-plain|/|plain| {rel_out:.3e} (tol {FLASH_TOL['out_rel']}) "
-            f"max|lse-plain| {err_lse:.3e} (tol {FLASH_TOL['lse_atol']}) padded rows ok {pad_ok}",
-            flush=True,
-        )
-        if not (err_out <= FLASH_TOL["out_atol"] and rel_out <= FLASH_TOL["out_rel"]
-                and err_lse <= FLASH_TOL["lse_atol"] and pad_ok):
-            fail(f"flash_fwd[{tag}] disagrees with its plain version")
+        err = check_flash_fwd(f"{tag}, B={b}", out, lse, rout, rlse, seg)
 
         ms = cuda_ms(lambda: fa.flash_fwd(*args))
+        ms_spread = spread()
         with ops.reference_mode():
             plain_ms = cuda_ms(lambda: fa.flash_fwd(*args), iters=5)
         # library yardstick: SDPA with a boolean block-diagonal mask on the
@@ -142,12 +247,13 @@ def flash_phase(dev, fa, ops, synthetic, rope_cos_sin):
         nbytes = 4 * b * p * h * dh * 2 + b * p * 4 + 2 * b * p * dh * 2 + b * h * p * 4
         bms, by = bound(nbytes, flops)
         print(
-            f"flash_fwd[{tag}] B={b} P={p} H={h} Dh={dh}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"flash_fwd[{tag}] B={b} P={p} H={h} Dh={dh}: kernel {ms:.4f} ms (3 readings "
+            f"{ms_spread}), plain {plain_ms:.4f} ms, "
             f"SDPA {lib_ms:.4f} ms, bound {bms * 1e3:.2f} us ({by}: {nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.3f} GFLOP)",
             flush=True,
         )
-        res[tag] = dict(err=max(err_out, err_lse), ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+        res[tag] = dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
                         bound_ms=bms, bound_by=by)
     return res
 
@@ -166,29 +272,296 @@ def mlp_phase(dev, mlp, ops):
     torch.cuda.synchronize()
     with ops.reference_mode():
         ref = mlp.norm_mlp(*args)
-    diff = (out.float() - ref.float()).abs()
-    err = diff.max().item()
-    excess = (diff - MLP_TOL["atol"] - MLP_TOL["rtol"] * ref.float().abs()).max().item()
-    print(
-        f"norm_mlp max|out-plain| {err:.3e} (tol atol {MLP_TOL['atol']} + rtol {MLP_TOL['rtol']}"
-        f" * |plain|, worst excess {excess:.3e})",
-        flush=True,
-    )
-    if not (excess <= 0 and torch.isfinite(out.float()).all()):
-        fail("norm_mlp disagrees with its plain version")
+    err = check_norm_mlp(f"N={n}", out, ref)
     ms = cuda_ms(lambda: mlp.norm_mlp(*args))
+    ms_spread = spread()
     with ops.reference_mode():
         plain_ms = cuda_ms(lambda: mlp.norm_mlp(*args), iters=5)
     flops = 2.0 * n * d * f * 3
     nbytes = 2 * n * d * 2 + d * 4 + 3 * d * f * 2
     bms, by = bound(nbytes, flops)
     print(
-        f"norm_mlp N={n} D={d} F={f} gelu: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"norm_mlp N={n} D={d} F={f} gelu: kernel {ms:.4f} ms (3 readings {ms_spread}), "
+        f"plain {plain_ms:.4f} ms, "
         f"library none, bound {bms * 1e3:.2f} us ({by}: {nbytes / 1e6:.1f} MB, "
         f"{flops / 1e9:.1f} GFLOP)",
         flush=True,
     )
-    return dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=None, bound_ms=bms, bound_by=by)
+    # the training batch: N = 64 x 1024 rows, against the plain version too
+    n64 = 65536
+    x64 = torch.randn(n64, d, generator=gen, device=dev).to(torch.bfloat16)
+    out64 = mlp.norm_mlp(x64, wn, wg, wu, wd, 1e-6, "gelu")
+    torch.cuda.synchronize()
+    with ops.reference_mode():
+        ref64 = mlp.norm_mlp(x64, wn, wg, wu, wd, 1e-6, "gelu")
+    train_err = check_norm_mlp(f"train shape, N={n64}", out64, ref64)
+    del out64, ref64
+    train_ms = cuda_ms(lambda: mlp.norm_mlp(x64, wn, wg, wu, wd, 1e-6, "gelu"), iters=5)
+    tb, _ = bound(2 * n64 * d * 2 + d * 4 + 3 * d * f * 2, 2.0 * n64 * d * f * 3)
+    print(f"norm_mlp[train shape] N={n64}: kernel {train_ms:.4f} ms (3 readings {spread()}), "
+          f"bound {tb:.4f} ms (operations)", flush=True)
+    return dict(err=max(err, train_err), ms=ms, plain_ms=plain_ms, lib_ms=None, bound_ms=bms,
+                bound_by=by, train_ms=train_ms, train_bound_ms=tb)
+
+
+def flash_bwd_phase(dev, fa, ops, synthetic, rope_cos_sin):
+    """flash_bwd against flash_bwd_ref at B 8 (bidirectional and causal, a
+    padded tail) with its times; then, at the training batch B 64,
+    flash_fwd and flash_bwd against their plain versions (run 8 rows at a
+    time) and their times."""
+    p, h, dh = 1024, 12, 64
+
+    def inputs(b):
+        rng = np.random.default_rng(0)
+        seg_np = synthetic.packed_segments(b, p, rng)
+        seg_np[-1, p - 40 :] = 0  # a padded tail
+        seg = torch.from_numpy(seg_np).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def randn(*shape):
+            return (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+
+        qs = (randn(b, p, h * dh) * torch.tensor(dh**-0.5, dtype=torch.bfloat16)).contiguous()
+        k, v, do = randn(b, p, h * dh), randn(b, p, h * dh), randn(b, p, h * dh)
+        pos = torch.arange(p, device=dev).expand(b, p)
+        cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(pos, dh))
+        return qs, k, v, seg, cos, sin, do
+
+    def work(b, seg, causal):
+        # each (query, valid key) pair costs five products of Dh multiply-adds
+        # per head: S, dP, dv, dq, dk
+        pairs = int(fa._valid_mask(seg, causal).sum().item())
+        flops = 10.0 * dh * h * pairs
+        nbytes = 8 * b * p * h * dh * 2 + b * p * 4 + 2 * b * p * dh * 2 + b * h * p * 4
+        return nbytes, flops
+
+    res = {}
+    b = 8
+    qs, k, v, seg, cos, sin, do = inputs(b)
+    for causal in (False, True):
+        tag = "causal" if causal else "bidirectional"
+        out, lse = fa.flash_fwd(qs, k, v, seg, cos, sin, causal, dh)
+        args = (qs, k, v, seg, cos, sin, out, lse, do, None, causal, dh)
+        got = fa.flash_bwd(*args)
+        torch.cuda.synchronize()
+        with ops.reference_mode():
+            ref = fa.flash_bwd(*args)
+        err, rel = check_flash_bwd(f"{tag}, B={b}", got, ref, seg)
+
+        ms = cuda_ms(lambda: fa.flash_bwd(*args))
+        ms_spread = spread()
+        with ops.reference_mode():
+            plain_ms = cuda_ms(lambda: fa.flash_bwd(*args), iters=3)
+        # library yardstick: the backward of SDPA with a boolean block-diagonal
+        # mask on the rotated q, k (rotation and forward are not timed)
+        rq = fa.rotate_tokens(qs, cos, sin, dh).view(b, p, h, dh).transpose(1, 2)
+        rk = fa.rotate_tokens(k, cos, sin, dh).view(b, p, h, dh).transpose(1, 2)
+        leaves = [t.detach().requires_grad_() for t in (rq, rk, v.view(b, p, h, dh).transpose(1, 2))]
+        mask = fa._valid_mask(seg, causal)
+        sd = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=1.0)
+        do4 = do.view(b, p, h, dh).transpose(1, 2)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(sd, leaves, do4, retain_graph=True), iters=5)
+        del sd, leaves
+        nbytes, flops = work(b, seg, causal)
+        bms, by = bound(nbytes, flops)
+        print(
+            f"flash_bwd[{tag}] B={b} P={p} H={h} Dh={dh}: kernel {ms:.4f} ms (3 readings "
+            f"{ms_spread}), plain {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, bound "
+            f"{bms * 1e3:.2f} us ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)",
+            flush=True,
+        )
+        res[tag] = dict(err=err, rel=rel, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                        bound_ms=bms, bound_by=by)
+    del qs, k, v, seg, cos, sin, do, got, ref
+
+    # the training batch: B 64, bidirectional. Both kernels against their
+    # plain versions, whose score tensors are held to 8 rows at a time.
+    b = 64
+    qs, k, v, seg, cos, sin, do = inputs(b)
+    out, lse = fa.flash_fwd(qs, k, v, seg, cos, sin, False, dh)
+    args = (qs, k, v, seg, cos, sin, out, lse, do, None, False, dh)
+    got = fa.flash_bwd(*args)
+    torch.cuda.synchronize()
+    rout, rlse = plain_in_row_chunks(
+        ops, lambda *t: fa.flash_fwd(*t, False, dh), (qs, k, v, seg, cos, sin))
+    fwd_err = check_flash_fwd(f"train shape, B={b}", out, lse, rout, rlse, seg)
+    ref = plain_in_row_chunks(
+        ops, lambda *t: fa.flash_bwd(*t, False, dh),
+        (qs, k, v, seg, cos, sin, out, lse, do, None))
+    err, rel = check_flash_bwd(f"train shape, B={b}", got, ref, seg)
+    del got, ref, rout, rlse
+    ms = cuda_ms(lambda: fa.flash_bwd(*args), iters=10)
+    ms_spread = spread()
+    fwd_ms = cuda_ms(lambda: fa.flash_fwd(qs, k, v, seg, cos, sin, False, dh), iters=10)
+    nbytes, flops = work(b, seg, False)
+    bms, by = bound(nbytes, flops)
+    print(
+        f"flash_bwd[train shape] B={b} P={p} H={h}: kernel {ms:.4f} ms (3 readings {ms_spread}), "
+        f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+        f"flash_fwd at the same shape {fwd_ms:.4f} ms",
+        flush=True,
+    )
+    res["train"] = dict(err=err, rel=rel, fwd_err=fwd_err, ms=ms, bound_ms=bms, bound_by=by,
+                        fwd_ms=fwd_ms)
+    return res
+
+
+def rms_bwd_phase(dev, mlp, ops):
+    n, d = 65536, 768
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
+    w = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    eps = 1e-6
+    dx, dw = mlp.rmsnorm_bwd(x, g, w, eps)
+    torch.cuda.synchronize()
+    with ops.reference_mode():
+        rdx, rdw = mlp.rmsnorm_bwd(x, g, w, eps)
+    err_dx = (dx.float() - rdx.float()).abs().max().item()
+    rel_dx = rel_err(dx, rdx)
+    rel_dw = ((dw - rdw).abs() / (rdw.abs() + 1.0)).max().item()
+    print(
+        f"rmsnorm_bwd max|dx-plain| {err_dx:.3e} (tol {RMS_BWD_TOL['dx_atol']}) |dx-plain|/|plain| "
+        f"{rel_dx:.3e} (tol {RMS_BWD_TOL['dx_rel']}) max|dw-plain|/(|plain|+1) {rel_dw:.3e} "
+        f"(tol {RMS_BWD_TOL['dw_rtol']})",
+        flush=True,
+    )
+    if not (err_dx <= RMS_BWD_TOL["dx_atol"] and rel_dx <= RMS_BWD_TOL["dx_rel"]
+            and rel_dw <= RMS_BWD_TOL["dw_rtol"] and bool(torch.isfinite(dw).all())):
+        fail("rmsnorm_bwd disagrees with its plain version")
+    ms = cuda_ms(lambda: mlp.rmsnorm_bwd(x, g, w, eps))
+    ms_spread = spread()
+    with ops.reference_mode():
+        plain_ms = cuda_ms(lambda: mlp.rmsnorm_bwd(x, g, w, eps), iters=5)
+    # library yardstick: autograd's backward of torch.nn.functional.rms_norm,
+    # with the weight in bf16 (with an fp32 weight it leaves its fused kernel)
+    xl, wl = x.detach().requires_grad_(), w.to(torch.bfloat16).requires_grad_()
+    y = torch.nn.functional.rms_norm(xl, (d,), wl, eps)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(y, (xl, wl), g.to(y.dtype), retain_graph=True),
+                     iters=5)
+    nbytes = 3 * n * d * 2 + 2 * d * 4
+    flops = 12.0 * n * d  # a dozen fp32 operations an element, outside the tensor cores
+    bms, by = bound(nbytes, flops, PEAK_F32_FLOPS)
+    print(
+        f"rmsnorm_bwd N={n} D={d}: kernel {ms:.4f} ms (3 readings {ms_spread}), plain "
+        f"{plain_ms:.4f} ms, F.rms_norm backward {lib_ms:.4f} ms (bf16 weight), bound "
+        f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB)",
+        flush=True,
+    )
+    return dict(err=max(err_dx, rel_dw), ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms,
+                bound_by=by)
+
+
+def loss_and_grads(model, batch):
+    """One training forward and backward: (loss, {name: gradient})."""
+    model.zero_grad(set_to_none=True)
+    loss = model(batch, train=True)["loss"]
+    loss.backward()
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def compare_grads(model, batch, ops) -> float:
+    """The training step's loss and every parameter's gradient with the
+    kernels against the same step with the plain versions. Returns the worst
+    relative error."""
+    loss_k, grads_k = loss_and_grads(model, batch)
+    if model.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with ops.reference_mode():
+        loss_p, grads_p = loss_and_grads(model, batch)
+    if model.device.type == "cuda":
+        print(f"plain training step: max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB", flush=True)
+    rels = {k: rel_err(grads_k[k], grads_p[k]) for k in grads_k}
+    worst = max(rels, key=rels.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values())
+    print(
+        f"train vs plain (first step's weights, {batch['input_ids'].shape[0]} rows): loss "
+        f"{loss_k:.6f} vs {loss_p:.6f} (|diff| {abs(loss_k - loss_p):.3e}, tol {LOSS_ATOL}); "
+        f"{len(rels)} gradients, worst |g-plain|/|plain| {rels[worst]:.3e} at {worst} "
+        f"(tol {GRAD_REL}), median {float(np.median(list(rels.values()))):.3e}",
+        flush=True,
+    )
+    if not (abs(loss_k - loss_p) <= LOSS_ATOL and rels[worst] <= GRAD_REL and finite):
+        fail("the training step with kernels disagrees with the plain run")
+    return rels[worst]
+
+
+def train_phase(model, nb, counters, steps: int = 12):
+    """`steps` SMTP training steps on one batch repeated: AdamW at lr 3e-4
+    with warmup_decay over 20 steps (2 of warm-up), EMA on. `counters` maps
+    a kernel's name to its wrapper; the launch counts are set to 0 here,
+    read after every step and returned."""
+    from graphgpt_torch import synthetic
+    from graphgpt_torch.config import OptimizerConfig
+    from graphgpt_torch.training.optimizer import make_optimizer, make_schedule
+    from graphgpt_torch.training.steps import init_train_state, make_train_step
+
+    cfg, dev = model.cfg, model.device
+    batch = synthetic.to_torch(nb, dev)
+    opt_cfg = OptimizerConfig(lr=3e-4, use_ema=True)
+    schedule = make_schedule(opt_cfg, 20, 2)
+    tx = make_optimizer(opt_cfg, 20, 2, schedule=schedule)
+    state = init_train_state(model, tx, use_ema=True)
+    step_fn = make_train_step(tx, opt_cfg, schedule)
+    L = cfg.num_hidden_layers
+    want = {"flash_fwd": L, "flash_bwd": L, "norm_mlp": L, "rmsnorm_bwd": L + 1}
+    for fn in counters.values():
+        fn.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    timed_from = 2
+    start = end = None
+    if dev.type == "cuda":
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    metrics = []
+    before = {k: 0 for k in counters}
+    for i in range(steps):
+        if i == timed_from and start is not None:
+            start.record()
+        state, m = step_fn(state, batch, seed=0)
+        metrics.append(m)
+        now = {k: fn.launches for k, fn in counters.items()}
+        per_step = {k: now[k] - before[k] for k in now}
+        before = now
+        if per_step != want:
+            fail(f"training step {i} launched {per_step}, expected {want}")
+    if end is not None:
+        end.record()
+        torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    lrs = [m["lr"] for m in metrics]
+    print("train losses: " + " ".join(f"{x:.4f}" for x in losses), flush=True)
+    print("train grad norms: " + " ".join(f"{x:.4f}" for x in norms), flush=True)
+    print("train lr: " + " ".join(f"{x:.2e}" for x in lrs), flush=True)
+    print(f"train launches per step: {want}; over {steps} steps: {launches}", flush=True)
+    if not (all(np.isfinite(losses)) and all(np.isfinite(norms))):
+        fail("a training loss or gradient norm is not finite")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    ema_moved = any(
+        not torch.equal(e, p.detach().float())
+        for e, p in zip(state.ema_params.values(), model.parameters())
+    )
+    if not ema_moved:
+        fail("the EMA copy is the parameters themselves")
+    if start is not None:
+        ms = start.elapsed_time(end) / (steps - timed_from)
+        b, p = nb["segment_ids"].shape
+        valid = int((nb["segment_ids"] > 0).sum())
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        print(
+            f"train: B={b} P={p}, {L} layers, remat {cfg.remat_policy if cfg.remat else 'off'}: "
+            f"{ms:.2f} ms/step (CUDA events over steps {timed_from + 1}-{steps}), "
+            f"{valid / ms * 1e3:.0f} trained tokens/s ({valid} valid of {b * p} positions), "
+            f"max_memory_allocated {peak:.0f} MiB",
+            flush=True,
+        )
+    return launches
 
 
 def sync(dev) -> None:
@@ -255,9 +628,16 @@ def generation_phase(model, nb) -> int:
         torch.cuda.reset_peak_memory_stats()
     sync(dev)
     t0 = time.perf_counter()
+    if dev.type == "cuda":
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
     xg = sampler(x0, gen, batch["position_ids"], batch["segment_ids"])
-    sync(dev)
-    gen_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        end.record()
+        torch.cuda.synchronize()
+        gen_s = start.elapsed_time(end) / 1e3
+    else:
+        gen_s = time.perf_counter() - t0
     steps = sampler.forwards
     peak = torch.cuda.max_memory_allocated() / 2**20 if dev.type == "cuda" else float("nan")
     left = int((xg == mask_id).sum())
@@ -275,6 +655,20 @@ def generation_phase(model, nb) -> int:
     if left != 0 or bool((xg[~mask_t] != x0[~mask_t]).any()):
         fail("generation left masked cells or changed unmasked ones")
     return steps
+
+
+def timing_phase(model, nb) -> None:
+    """The eval forward and one generation step's model forward, each timed
+    seven times with CUDA events: median and spread. Runs outside the
+    counted windows."""
+    from graphgpt_torch import synthetic
+
+    batch = synthetic.to_torch(nb, model.device)
+    ms = cuda_ms(lambda: model.loss(batch), iters=1, warmup=2, repeats=7)
+    print(f"eval forward + loss: median {ms:.2f} ms over 7 runs (spread {spread()})", flush=True)
+    ms = cuda_ms(lambda: model.logits(batch), iters=1, warmup=2, repeats=7)
+    print(f"generation step's forward (logits): median {ms:.2f} ms over 7 runs "
+          f"(spread {spread()})", flush=True)
 
 
 def compare_plain(model, nb, ops) -> None:
@@ -326,6 +720,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     print(card_line(), flush=True)  # name, power limit
     print(
         f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
@@ -344,49 +739,72 @@ def main() -> None:
     # ---- kernel phase
     fres = flash_phase(dev, fa, ops, synthetic, rope_cos_sin)
     mres = mlp_phase(dev, mlp, ops)
+    bres = flash_bwd_phase(dev, fa, ops, synthetic, rope_cos_sin)
+    rres = rms_bwd_phase(dev, mlp, ops)
+    counters = {"flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
+                "norm_mlp": mlp.norm_mlp, "rmsnorm_bwd": mlp.rmsnorm_bwd}
 
-    # ---- eval and generation phases: the main path, counted from 0
+    # ---- eval and generation phases: the serving path, counted from 0
     cfg = flagship_config()
     model = GraphGPTPretrain(cfg, device=dev, seed=0)
     nb = synthetic.fake_batch(8, cfg.max_position_embeddings, cfg.stacked_feat, cfg.vocab_size,
                               np.random.default_rng(2))
     L = cfg.num_hidden_layers
-    fa.flash_fwd.launches = 0
-    mlp.norm_mlp.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     eval_phase(model, nb)
     counts = (fa.flash_fwd.launches, mlp.norm_mlp.launches)
     print(f"eval launches: flash_fwd {counts[0]} norm_mlp {counts[1]} (want {L} each)", flush=True)
     if counts != (L, L):
         fail(f"expected {L} launches of each kernel per forward, got {counts}")
     steps = generation_phase(model, nb)
-    counts = (fa.flash_fwd.launches, mlp.norm_mlp.launches)
+    serve = {k: fn.launches for k, fn in counters.items()}
     want = L * (1 + steps)
-    print(f"main path launches: flash_fwd {counts[0]} norm_mlp {counts[1]} (want {want} each)",
-          flush=True)
-    if counts != (want, want):
-        fail(f"expected {want} launches of each kernel, got {counts}")
-    launches = {"flash_fwd": counts[0], "norm_mlp": counts[1]}
+    print(f"serving path launches: {serve} (want {want} of each forward kernel, 0 of the "
+          f"backward ones)", flush=True)
+    if serve != {"flash_fwd": want, "norm_mlp": want, "flash_bwd": 0, "rmsnorm_bwd": 0}:
+        fail(f"expected {want} launches of each forward kernel, got {serve}")
     compare_plain(model, nb, ops)
+    timing_phase(model, nb)
+    del model
+
+    # ---- train phase: a fresh model; first the step against the plain run
+    # (outside the counted window), then twelve counted steps
+    model = GraphGPTPretrain(cfg, device=dev, seed=0)
+    nb64 = synthetic.fake_batch(64, cfg.max_position_embeddings, cfg.stacked_feat,
+                                cfg.vocab_size, np.random.default_rng(5))
+    grad_rel = compare_grads(model, synthetic.to_torch(nb64, dev), ops)
+    torch.cuda.empty_cache()
+    train = train_phase(model, nb64, counters)
+    launches = {k: serve[k] + train[k] for k in counters}
 
     base = "graphgpt_tpu/ops/"
+
+    def entry(name, source, replaces, r, tol, **extra):
+        return dict(
+            name=name, route="cuda", source=f"graphgpt_torch/csrc/{source}",
+            replaces=base + replaces, launches=launches[name], launches_serving=serve[name],
+            launches_training=train[name], max_abs_err=r["err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["lib_ms"], tol=tol, status="ok", **extra,
+        )
+
+    fb, bb = fres["bidirectional"], bres["bidirectional"]
     kernels = [
-        dict(
-            name="flash_fwd", route="cuda", source="graphgpt_torch/csrc/flash_fwd.cu",
-            replaces=base + "flash_attention.py:124", launches=launches["flash_fwd"],
-            max_abs_err=max(r["err"] for r in fres.values()),
-            ms=fres["bidirectional"]["ms"], plain_ms=fres["bidirectional"]["plain_ms"],
-            bound_ms=fres["bidirectional"]["bound_ms"], bound_by=fres["bidirectional"]["bound_by"],
-            library_ms=fres["bidirectional"]["lib_ms"], causal_ms=fres["causal"]["ms"],
-            tol=FLASH_TOL, status="ok",
-        ),
-        dict(
-            name="norm_mlp", route="cuda", source="graphgpt_torch/csrc/norm_mlp.cu",
-            replaces=base + "mlp.py:203", launches=launches["norm_mlp"],
-            max_abs_err=mres["err"], ms=mres["ms"], plain_ms=mres["plain_ms"],
-            bound_ms=mres["bound_ms"], bound_by=mres["bound_by"], library_ms=None,
-            tol=MLP_TOL, status="ok",
-        ),
+        entry("flash_fwd", "flash_fwd.cu", "flash_attention.py:124",
+              dict(fb, err=max([r["err"] for r in fres.values()] + [bres["train"]["fwd_err"]])),
+              FLASH_TOL,
+              causal_ms=fres["causal"]["ms"], train_shape_ms=bres["train"]["fwd_ms"]),
+        entry("norm_mlp", "norm_mlp.cu", "mlp.py:203", mres, MLP_TOL,
+              train_shape_ms=mres["train_ms"], train_shape_bound_ms=mres["train_bound_ms"]),
+        entry("flash_bwd", "flash_bwd.cu", "flash_attention.py:706",
+              dict(bb, err=max(r["err"] for r in bres.values())),
+              FLASH_BWD_TOL, causal_ms=bres["causal"]["ms"],
+              train_shape_ms=bres["train"]["ms"], train_shape_bound_ms=bres["train"]["bound_ms"]),
+        entry("rmsnorm_bwd", "rmsnorm_bwd.cu", "mlp.py:414", rres, RMS_BWD_TOL),
     ]
+    print(f"whole-model gradients, kernels vs plain: worst relative error {grad_rel:.3e}; "
+          f"the whole script took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(
         json.dumps(

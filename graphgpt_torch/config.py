@@ -1,14 +1,14 @@
-"""Model and generation configs (the fields the inference path reads).
+"""Model, optimizer and generation configs (the fields the port reads).
 
-A copy of `graphgpt_tpu/config.py`'s `_MODEL_SIZES`, `ModelConfig` and
-`GenerationConfig`, trimmed to what the port runs; `finalize` resolves the
-derived fields the same way.
+A copy of `graphgpt_tpu/config.py`'s `_MODEL_SIZES`, `ModelConfig`,
+`OptimizerConfig` and `GenerationConfig`, trimmed to what the port runs;
+`finalize` resolves the derived fields the same way.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 # the reference's published architecture matrix
 # (examples/graph_lvl/pcqm4m_v2_pretrain.sh:158-233 of the reference repo)
@@ -56,6 +56,12 @@ class ModelConfig:
     rope_scaling: Optional[dict] = None
     tie_word_embeddings: bool = False
     causal_attention: bool = False
+
+    # dropout trio + stochastic depth + layer scale
+    attention_dropout: float = 0.0
+    embed_dropout: float = 0.0
+    mlp_dropout: float = 0.0
+    path_dropout: float = 0.0  # DropPath max rate, linearly increasing per layer
     layer_scale_init_value: float = 0.0
 
     stacked_feat: int = 1
@@ -65,13 +71,18 @@ class ModelConfig:
 
     next_n_token: int = 1
     use_generative: bool = True
+    use_discriminative: bool = False
     focal_gamma: float = 0.0
+    smtp_inside: bool = False
+    smtp_power: float = 1.0
 
     task_type: str = "pretrain-mlm"
     pad_token_id: int = 0
     mask_token_id: int = 0
 
     dtype: str = "bfloat16"  # activation dtype; weights stay fp32
+    remat: bool = False  # activation rematerialisation per layer
+    remat_policy: str = "full"  # full|pairs|quads|save_attn
     attn_block: int = 0
     bi_causal_split: int = 0
 
@@ -102,6 +113,26 @@ class ModelConfig:
 
 
 @dataclass
+class OptimizerConfig:
+    name: str = "adamw"  # adamw|muon
+    lr: float = 3e-4
+    min_lr: float = 0.0
+    betas: Tuple[float, float] = (0.9, 0.95)
+    weight_decay: float = 0.1
+    eps: float = 1e-6
+    max_grad_norm: float = 1.0
+    gradient_accumulation_steps: int = 1
+    # warmup_decay|onecycle|cosine|constant|cyclic|cosine_wr|lr_range_test
+    scheduler: str = "warmup_decay"
+    cycle_steps: int = 0  # 0 => total_steps // 4
+    cycle_mult: float = 1.0  # T_mult for cosine_wr
+    use_ema: bool = False
+    ema_decay: float = 0.9999
+    # >0 engages layer-wise LR decay: layer i scaled by decay^(L-1-i)
+    layerwise_lr_decay: float = 0.0
+
+
+@dataclass
 class GenerationConfig:
     steps: int = 64
     alg: str = "entropy"  # origin|maskgit_plus|topk_margin|entropy
@@ -116,7 +147,8 @@ def flagship_config(layers: int = 12) -> ModelConfig:
     """GraphGPT-base as the JAX package's `__graft_entry__.py` builds it: hidden 768,
     12 heads of 64, FFN 3072, stacked_feat and next_n 13 (PCQM4M-v2: 1 + 9
     node attrs + 3 edge attrs), vocab 754, mpe 1024, bidirectional SMTP,
-    bf16 activations over fp32 weights. `layers` cuts the depth only."""
+    bf16 activations over fp32 weights, per-layer rematerialisation that
+    keeps the attention outputs. `layers` cuts the depth only."""
     return ModelConfig(
         vocab_size=754,
         hidden_size=768,
@@ -127,4 +159,6 @@ def flagship_config(layers: int = 12) -> ModelConfig:
         task_type="pretrain-mlm",
         max_position_embeddings=1024,
         dtype="bfloat16",
+        remat=True,
+        remat_policy="save_attn",
     ).finalize()

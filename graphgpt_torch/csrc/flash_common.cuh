@@ -1,0 +1,83 @@
+// What the flash forward and backward kernels share: the tile sizes, the
+// segment-range test that lets a kernel skip a fully masked tile pair, and
+// the tile load that applies RoPE in bf16 on the way into shared memory.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int DH = 64;
+constexpr int BQ = 64;
+constexpr int BK = 64;
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int LDH = DH + 8;  // bf16 row stride in shared memory
+constexpr float NEG = -1e30f;
+
+
+// Min over positive ids and max of seg[t0 : t0+64) (each warp, redundantly).
+__device__ __forceinline__ void tile_range(const int* seg, int t0, int P, int lane,
+                                           int* lo, int* hi) {
+  int mn = 0x7fffffff, mx = 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    int p = t0 + lane + 32 * i;
+    int s = p < P ? seg[p] : 0;
+    if (s > 0) mn = min(mn, s);
+    mx = max(mx, s);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  }
+  *lo = mn;
+  *hi = mx;
+}
+
+// Copy a [64, 64] head tile of rows t0.. into shared memory, zero past P,
+// rotating it by RoPE when cos is given: y = x*c + rotate_half(x)*s in bf16.
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long rs,
+                                          int t0, int P, const bf16* cos,
+                                          const bf16* sin, int tid) {
+#pragma unroll
+  for (int it = 0; it < (BQ * DH / 8) / THREADS; ++it) {
+    int i = tid + it * THREADS;
+    int row = i >> 3, d0 = (i & 7) * 8;
+    int gr = t0 + row;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (gr < P) {
+      val = *reinterpret_cast<const uint4*>(src + gr * rs + d0);
+      if (cos != nullptr) {
+        uint4 pv = *reinterpret_cast<const uint4*>(src + gr * rs + ((d0 + 32) & 63));
+        uint4 cv = *reinterpret_cast<const uint4*>(cos + (long long)gr * DH + d0);
+        uint4 sv = *reinterpret_cast<const uint4*>(sin + (long long)gr * DH + d0);
+        const bf16* x = reinterpret_cast<const bf16*>(&val);
+        const bf16* pr = reinterpret_cast<const bf16*>(&pv);
+        const bf16* c = reinterpret_cast<const bf16*>(&cv);
+        const bf16* s = reinterpret_cast<const bf16*>(&sv);
+        uint4 outv;
+        bf16* y = reinterpret_cast<bf16*>(&outv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          float r = __bfloat162float(pr[e]);
+          if (d0 < 32) r = -r;
+          bf16 t1 = __float2bfloat16(__bfloat162float(x[e]) * __bfloat162float(c[e]));
+          bf16 t2 = __float2bfloat16(r * __bfloat162float(s[e]));
+          y[e] = __float2bfloat16(__bfloat162float(t1) + __bfloat162float(t2));
+        }
+        val = outv;
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + row * LDH + d0) = val;
+  }
+}
+
+}  // namespace

@@ -1,8 +1,8 @@
-"""SMTP pretrain model for inference: eval loss and generation logits.
+"""SMTP pretrain model: training forward, eval loss and generation logits.
 
 Counterpart of `graphgpt_tpu/models/heads.py` (`init_pretrain_params` :29,
-`last_token_pool` :77, `pretrain_forward` :128 in eval without
-`smtp_inside` or CL, `pretrain_logits` :203).
+`last_token_pool` :77, `smtp_inside_mask` :95, `pretrain_forward` :128,
+`pretrain_logits` :203).
 """
 
 from __future__ import annotations
@@ -25,6 +25,52 @@ def last_token_pool(hidden: torch.Tensor, segment_ids: torch.Tensor) -> torch.Te
     return hidden[torch.arange(hidden.shape[0], device=hidden.device), last]
 
 
+def smtp_inside_mask_from_draws(
+    input_ids: torch.Tensor,  # [B, P, F]
+    node_idx: torch.Tensor,  # [B, P] int; row to draw the mask from (>= 0)
+    t: torch.Tensor,  # [B, 1, 1] uniform draws: one mask ratio per sample
+    u: torch.Tensor,  # [B, P, F] uniform draws: one per (node, feature)
+    *,
+    power: float = 1.0,
+    mask_token_id: int = 1,
+    replace_rate: float = 0.0,
+    replace_u: Optional[torch.Tensor] = None,  # [B, P, F] uniform draws
+    replace_tokens: Optional[torch.Tensor] = None,  # [B, P, F] ids in [1, vocab)
+):
+    """SMTP masking as a pure function of its random draws: a cell is masked
+    where u > t**power, read at slot node_idx so that all visits of a node
+    share one mask; labels are the original ids at masked cells, else -100."""
+    b = input_ids.shape[0]
+    mask_per_node = u > t**power
+    rows = torch.arange(b, device=input_ids.device)[:, None]
+    mask_per_token = mask_per_node[rows, node_idx.long()] & (input_ids > 0)
+    labels = torch.where(mask_per_token, input_ids, -100)
+    masked = torch.where(mask_per_token, mask_token_id, input_ids)
+    if replace_rate > 0:
+        replace = (replace_u < replace_rate) & mask_per_token
+        masked = torch.where(replace, replace_tokens.to(masked.dtype), masked)
+    return masked, labels
+
+
+def smtp_inside_mask(
+    input_ids, node_idx, generator: torch.Generator, *, power: float = 1.0,
+    mask_token_id: int = 1, replace_rate: float = 0.0, vocab_size: int = 2,
+):
+    """`smtp_inside_mask_from_draws` with the draws taken from `generator`."""
+    b, p, f = input_ids.shape
+    dev = input_ids.device
+    t = torch.rand((b, 1, 1), generator=generator, device=dev)
+    u = torch.rand((b, p, f), generator=generator, device=dev)
+    ru = rtok = None
+    if replace_rate > 0:
+        ru = torch.rand((b, p, f), generator=generator, device=dev)
+        rtok = torch.randint(1, vocab_size, (b, p, f), generator=generator, device=dev)
+    return smtp_inside_mask_from_draws(
+        input_ids, node_idx, t, u, power=power, mask_token_id=mask_token_id,
+        replace_rate=replace_rate, replace_u=ru, replace_tokens=rtok,
+    )
+
+
 class _Weight(nn.Module):
     def __init__(self, shape, device):
         super().__init__()
@@ -32,8 +78,9 @@ class _Weight(nn.Module):
 
 
 class GraphGPTPretrain(nn.Module):
-    """Backbone plus the generative SMTP head, under HF-Llama names
-    (`model.*`, `lm_head`, `n_token_proj`, `stacked_feat_agg`).
+    """Backbone plus the generative SMTP head and the optional contrastive
+    one, under HF-Llama names (`model.*`, `lm_head`, `n_token_proj`,
+    `stacked_feat_agg`, `cl_proj`).
 
     Weights are fp32, drawn from `seed` with the JAX init's distributions
     (normal(0, initializer_range) for the matrices, ones for the norms,
@@ -53,6 +100,8 @@ class GraphGPTPretrain(nn.Module):
             self.lm_head = _linear(dev, d, cfg.vocab_size)
             if cfg.next_n_token > 1:
                 self.n_token_proj = _linear(dev, d, d * cfg.next_n_token)
+        if cfg.use_discriminative:
+            self.cl_proj = _linear(dev, d, d)
         self.reset_parameters(seed)
 
     @torch.no_grad()
@@ -89,13 +138,35 @@ class GraphGPTPretrain(nn.Module):
             batch["segment_ids"], self._agg_w(), raw_embeds=batch.get("embed"),
         )
 
-    @torch.no_grad()
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Eval SMTP forward: {"hidden_states", "gen_loss", "loss"}."""
+    def forward(
+        self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+        train: bool = False,
+    ) -> Dict[str, torch.Tensor]:
+        """SMTP (and optional contrastive) forward with its loss:
+        {"hidden_states", "gen_loss", "dis_loss", "loss"}. Differentiable;
+        `generator` feeds the in-model SMTP masking and, in training, the
+        dropout masks."""
         cfg = self.cfg
-        hidden = self.hidden_states(batch)
+        input_ids, labels = batch["input_ids"], batch.get("labels")
+        if cfg.smtp_inside:
+            if generator is None:
+                raise ValueError("smtp_inside draws its masks from `generator`")
+            input_ids, labels = smtp_inside_mask(
+                input_ids, batch["node_idx"], generator, power=cfg.smtp_power,
+                mask_token_id=cfg.mask_token_id, vocab_size=cfg.vocab_size,
+            )
+        seed = None
+        stochastic = max(cfg.attention_dropout, cfg.embed_dropout, cfg.mlp_dropout,
+                         cfg.path_dropout) > 0
+        if train and generator is not None and stochastic:
+            # one draw a step; the per-layer generators derive from it
+            seed = int(torch.randint(2**62, (1,), generator=generator,
+                                     device=generator.device).item())
+        hidden = model_hidden_states(
+            self.model, cfg, input_ids, batch["position_ids"], batch["segment_ids"],
+            self._agg_w(), raw_embeds=batch.get("embed"), seed=seed, train=train,
+        )
         out = {"hidden_states": hidden}
-        labels = batch.get("labels")
         total = hidden.new_zeros((), dtype=torch.float32)
         if cfg.use_generative and labels is not None:
             lab3 = labels if labels.dim() == 3 else labels[..., None]
@@ -103,7 +174,7 @@ class GraphGPTPretrain(nn.Module):
             token_wgt = dlm_norm = None
             if "wgt" in batch:
                 token_wgt = batch["wgt"][:, None, None].float().expand(b, p, n)
-                dlm_norm = float(b * p * n)
+                dlm_norm = None if cfg.smtp_inside else float(b * p * n)
             gen_loss = losses.chunked_stacked_ce(
                 hidden, lab3,
                 self.n_token_proj.weight if cfg.next_n_token > 1 else None,
@@ -112,10 +183,20 @@ class GraphGPTPretrain(nn.Module):
             )
             out["gen_loss"] = gen_loss
             total = total + gen_loss
+        if cfg.use_discriminative:
+            pooled = last_token_pool(hidden, batch["segment_ids"])
+            proj = F.linear(pooled.float(), self.cl_proj.weight.float())
+            embeds = proj / (proj.norm(dim=-1, keepdim=True) + 1e-7)
+            ratio = 0.5 if cfg.use_generative else 1.0
+            dis_loss = losses.info_nce(embeds[0::2], embeds[1::2]) * ratio
+            out["dis_loss"] = dis_loss
+            total = total + dis_loss
         out["loss"] = total
         return out
 
+    @torch.no_grad()
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The eval loss (no dropout, no graph)."""
         return self.forward(batch)["loss"]
 
     @torch.no_grad()

@@ -2,7 +2,8 @@
 
 Each source becomes its own shared library with a plain C interface,
 compiled for `sm_90a` into `build/graphgpt_torch/` beside the package,
-named by a hash of the source so that an edit rebuilds it. `build_all()`
+named by a hash of the source and of the headers (`*.cuh`) beside it so
+that an edit rebuilds it. `build_all()`
 starts one nvcc per source, all at once. Every C entry returns its
 `cudaGetLastError()`; `check()` raises when that is not 0. A missing nvcc or
 a failed build raises.
@@ -44,6 +45,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

@@ -42,13 +42,14 @@ def attention_ref(
 def attention(
     q, k, v, segment_ids, causal: bool = False,
     softmax_scale: Optional[float] = None, bi_causal_split: int = 0,
-    attn_block: int = 0, rope=None,
+    attn_block: int = 0, rope=None, stash=None,
 ):
     """The flash path for every device: the kernel for a CUDA tensor (no
     length crossover), its plain version for a CPU tensor.
 
     attn_block > 0 declares that no packed segment crosses an attn_block
-    boundary, so rows are cut into [B*P/G, G] windows first."""
+    boundary, so rows are cut into [B*P/G, G] windows first. `stash` keeps the
+    kernel's (out, lse) across a rematerialised region (flash_attention)."""
     b, p, h, dh = q.shape
     if attn_block and p > attn_block and p % attn_block == 0 and bi_causal_split == 0:
         g = attn_block
@@ -59,10 +60,10 @@ def attention(
         out = attention(
             rs(q), rs(k), rs(v), rs(segment_ids), causal=causal,
             softmax_scale=softmax_scale,
-            rope=None if rope is None else (rs(rope[0]), rs(rope[1])),
+            rope=None if rope is None else (rs(rope[0]), rs(rope[1])), stash=stash,
         )
         return out.reshape(b, p, h, dh)
     return flash_attention(
         q, k, v, segment_ids, causal=causal, softmax_scale=softmax_scale,
-        bi_causal_split=bi_causal_split, rope=rope,
+        bi_causal_split=bi_causal_split, rope=rope, stash=stash,
     )

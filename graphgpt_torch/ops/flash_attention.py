@@ -1,14 +1,19 @@
-"""Segment-masked flash attention forward: CUDA kernel and plain version.
+"""Segment-masked flash attention, forward and backward: CUDA kernels and
+their plain versions.
 
 Counterpart of `graphgpt_tpu/ops/flash_attention.py` (`_prep` :1205,
-`flash_attention` :1231, `_fwd_kernel_single` :124). The kernel lives in
-`csrc/flash_fwd.cu`. Conventions kept from the JAX package: q, k, v are
+`flash_attention` :1231, `_fwd_kernel_single` :124, `_bwd_kernel_fused`
+:706, `_attach_grad_rope` :1144). The kernels live in `csrc/flash_fwd.cu`
+and `csrc/flash_bwd.cu`. Conventions kept from the JAX package: q, k, v are
 token-major `[B, P, H*Dh]` at the kernel boundary; GQA is expanded and the
 softmax scale folded into q (in q's dtype) before the kernel; RoPE cos/sin
 `[B, P, Dh]` are cast to q's dtype and applied in-kernel; lse is
 `[B, H, P]` fp32; padded rows (segment 0) give out = 0 and lse = -1e30.
-The wrapper returns lse too: the backward of the training slice consumes
-the saved (out, lse).
+The autograd Function saves the un-rotated (qs, k, v) with (out, lse); the
+backward rotates again in-kernel and brings dq, dk back through the inverse
+rotation. One difference from the JAX package: a padded row takes no part
+in the backward even when a non-zero `dlse` reaches it (there its
+exp(S - lse) = 1 would spread dlse over every key of the row).
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ NEG_INF = -1e30
 MAX_P = 2048  # the JAX package's single-block limit; longer rows stream (#6)
 # q, k, v, seg, cos, sin, out, lse; B, P, H, causal; stream
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# q, k, v, seg, cos, sin, out, lse, do, dlse, delta, dq, dk, dv; B, P, H, causal; stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _valid_mask(seg: torch.Tensor, causal: bool, bi_causal_split: int = 0):
@@ -137,6 +144,161 @@ def flash_fwd(qs, k, v, seg, cos, sin, causal: bool, dh: int, bi_causal_split: i
 flash_fwd.launches = 0
 
 
+def unrotate_tokens(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, dh: int):
+    """The inverse (transposed) rotation of a token-major fp32 [B, P, H*Dh]
+    cotangent: x*cos - rotate_half(x)*sin in fp32 (`_rot_head(inv=True)`)."""
+    b, p, hd = x.shape
+    x4 = x.view(b, p, hd // dh, dh)
+    c = cos.float()[:, :, None, :]
+    s = sin.float()[:, :, None, :]
+    half = dh // 2
+    r = torch.cat([-x4[..., half:], x4[..., :half]], dim=-1)
+    return (x4 * c - r * s).reshape(b, p, hd)
+
+
+def flash_bwd_ref(
+    qs, k, v, seg, cos, sin, out, lse, do, dlse, causal: bool, dh: int,
+    bi_causal_split: int = 0,
+):
+    """Plain version of the backward kernel, from `_bwd_kernel_fused`'s
+    formula with its rounding points: (dq, dk, dv) token-major in qs's dtype.
+    p = exp(S - lse); delta = rowsum(do*out) - dlse in fp32; p rounded to the
+    working dtype for dv = p^T do; ds = p*(do v^T - delta) rounded for
+    dq = ds rot(k) and dk = ds^T rot(q); the inverse rotation on the fp32
+    sums, rounded once. Padded rows take no part."""
+    b, p, hd = qs.shape
+    h = hd // dh
+    dt = qs.dtype
+    if cos is not None:
+        cos, sin = cos.to(dt), sin.to(dt)
+        qs, k = rotate_tokens(qs, cos, sin, dh), rotate_tokens(k, cos, sin, dh)
+
+    def heads(t):
+        return t.reshape(b, p, h, dh).transpose(1, 2).float()
+
+    rowvalid = seg > 0
+    do = torch.where(rowvalid[..., None], do, torch.zeros((), dtype=do.dtype, device=do.device))
+    q4, k4, v4, do4, o4 = heads(qs), heads(k), heads(v), heads(do.to(dt)), heads(out)
+    s = q4 @ k4.transpose(-1, -2)
+    s = s + torch.where(_valid_mask(seg, causal, bi_causal_split), 0.0, NEG_INF)
+    pij = torch.exp(s - lse[..., None])
+    pij = torch.where(rowvalid[:, None, :, None], pij, 0.0)
+    delta = (do4 * o4).sum(dim=-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    dv = pij.to(dt).float().transpose(-1, -2) @ do4
+    ds = (pij * (do4 @ v4.transpose(-1, -2) - delta[..., None])).to(dt).float()
+    dq = ds @ k4
+    dk = ds.transpose(-1, -2) @ q4
+
+    def tokens(t):
+        return t.transpose(1, 2).reshape(b, p, hd)
+
+    dq, dk, dv = tokens(dq), tokens(dk), tokens(dv)
+    if cos is not None:
+        dq, dk = unrotate_tokens(dq, cos, sin, dh), unrotate_tokens(dk, cos, sin, dh)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def flash_bwd(
+    qs, k, v, seg, cos, sin, out, lse, do, dlse, causal: bool, dh: int,
+    bi_causal_split: int = 0,
+):
+    """(dq, dk, dv): the CUDA kernel (a small delta kernel and the main one,
+    counted as one call) for a CUDA tensor, the plain version for a CPU
+    tensor (or inside ops.reference_mode()). dlse [B, H, P] is the optional
+    cotangent of lse; None means zeros."""
+    if not use_kernel(qs, k, v, seg, out, lse, do):
+        return flash_bwd_ref(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh,
+                             bi_causal_split)
+    b, p, hd = qs.shape
+    h = hd // dh
+    if bi_causal_split > 0:
+        raise NotImplementedError(
+            "bi-causal split needs the split backward kernels (_dq_kernel_single, "
+            "_dkv_kernel_single), a later slice"
+        )
+    if p > MAX_P:
+        raise NotImplementedError(
+            f"P={p} > {MAX_P} needs the streamed backward kernels, a later slice"
+        )
+    if dh != 64 or any(t.dtype != torch.bfloat16 for t in (qs, k, v, out, do)):
+        raise NotImplementedError(
+            f"the flash backward kernel takes bf16 with head_dim 64, got {qs.dtype}, {dh}"
+        )
+    qs, k, v, out, do = (t.contiguous() for t in (qs, k, v, out, do))
+    seg = seg.to(torch.int32).contiguous()
+    lse = lse.float().contiguous()
+    if any(t.shape != qs.shape for t in (k, v, out, do)) or seg.shape != (b, p):
+        raise ValueError(
+            f"shapes q {qs.shape} k {k.shape} v {v.shape} out {out.shape} do {do.shape} "
+            f"seg {seg.shape}"
+        )
+    if lse.shape != (b, h, p) or (dlse is not None and dlse.shape != (b, h, p)):
+        raise ValueError(f"lse and dlse must be [B, H, P] = {(b, h, p)}, got {lse.shape}")
+    if cos is not None:
+        cos = cos.to(torch.bfloat16).contiguous()
+        sin = sin.to(torch.bfloat16).contiguous()
+        if cos.shape != (b, p, dh) or sin.shape != (b, p, dh):
+            raise ValueError(f"cos/sin must be [B, P, {dh}], got {cos.shape}")
+    if dlse is not None:
+        dlse = dlse.float().contiguous()
+    # the kernel moves 16 bytes a thread
+    if any(t.data_ptr() % 16 for t in (qs, k, v, out, do) + ((cos, sin) if cos is not None else ())):
+        raise ValueError("flash_bwd needs 16-byte aligned q, k, v, out, do, cos and sin")
+    dq, dk, dv = torch.empty_like(qs), torch.empty_like(qs), torch.empty_like(qs)
+    delta = torch.empty((b, h, p), dtype=torch.float32, device=qs.device)
+    fn = _build.entry("flash_bwd", "ggt_flash_bwd", _BWD_ARGTYPES)
+    null = ctypes.c_void_p(0)
+    err = fn(
+        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg),
+        _build.ptr(cos) if cos is not None else null,
+        _build.ptr(sin) if sin is not None else null,
+        _build.ptr(out), _build.ptr(lse), _build.ptr(do),
+        _build.ptr(dlse) if dlse is not None else null,
+        _build.ptr(delta), _build.ptr(dq), _build.ptr(dk), _build.ptr(dv),
+        b, p, h, int(causal), _build.stream_ptr(qs.device),
+    )
+    flash_bwd.launches += 1
+    _build.check(err, "flash_bwd")
+    return dq, dk, dv
+
+
+flash_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(out, lse) of the forward kernel with the backward kernel attached
+    (`_attach_grad_rope`, and `_attach_grad_lse` for the cotangent of lse):
+    saves the un-rotated (qs, k, v), seg, cos, sin, out and lse. Both
+    outputs are differentiable; a cotangent that autograd does not have
+    (lse unused, the common case) stays None, which the backward kernel
+    reads as zeros. `stash`, when given, is a dict that keeps (out, lse)
+    across a rematerialised region: the first call fills it, the recompute
+    takes them from it and does not run the forward kernel again."""
+
+    @staticmethod
+    def forward(ctx, qs, k, v, seg, cos, sin, causal, dh, bi_causal_split, stash):
+        ctx.set_materialize_grads(False)
+        if stash is not None and "out" in stash:
+            out, lse = stash.pop("out"), stash.pop("lse")
+        else:
+            out, lse = flash_fwd(qs, k, v, seg, cos, sin, causal, dh, bi_causal_split)
+            if stash is not None:
+                stash["out"], stash["lse"] = out.detach(), lse.detach()
+        ctx.save_for_backward(qs, k, v, seg, cos, sin, out, lse)
+        ctx.args = (causal, dh, bi_causal_split)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        qs, k, v, seg, cos, sin, out, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(out)
+        dq, dk, dv = flash_bwd(qs, k, v, seg, cos, sin, out, lse, do, dlse, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, P, H, Dh]
     k: torch.Tensor,  # [B, P, Hkv, Dh]
@@ -147,9 +309,11 @@ def flash_attention(
     bi_causal_split: int = 0,
     rope: Optional[tuple] = None,  # (cos, sin) [B, P, Dh]
     return_lse: bool = False,
+    stash: Optional[dict] = None,
 ):
     """[B, P, H, Dh] (and lse [B, H, P] when asked): GQA expansion and the
-    scale fold as `_prep`, then the kernel with in-kernel RoPE."""
+    scale fold as `_prep` (autograd carries their gradients), then the
+    kernels with in-kernel RoPE. `stash`: see `_FlashAttention`."""
     b, p, h, dh = q.shape
     hkv = k.shape[2]
     if hkv != h:
@@ -160,9 +324,9 @@ def flash_attention(
     cos = sin = None
     if rope is not None:
         cos, sin = rope[0].to(qs.dtype), rope[1].to(qs.dtype)
-    out, lse = flash_fwd(
+    out, lse = _FlashAttention.apply(
         qs.reshape(b, p, h * dh), k.reshape(b, p, h * dh), v.reshape(b, p, h * dh),
-        segment_ids, cos, sin, causal, dh, bi_causal_split,
+        segment_ids, cos, sin, causal, dh, bi_causal_split, stash,
     )
     out = out.view(b, p, h, dh)
     return (out, lse) if return_lse else out

@@ -1,8 +1,9 @@
-"""Masked cross-entropy over stacked next-n labels (forward only).
+"""Masked cross-entropy over stacked next-n labels, and InfoNCE.
 
-Counterpart of `graphgpt_tpu/ops/losses.py:20-115`. Logits are formed chunk
-by chunk along P, so the largest logits tensor is one chunk of
-[B, c, N, V].
+Counterpart of `graphgpt_tpu/ops/losses.py` (`chunked_stacked_ce` :39,
+`masked_mean_ce` :118, `info_nce` :176 on one process). Logits are formed
+chunk by chunk along P, each chunk rematerialised in the backward, so the
+largest logits tensor is one chunk of [B, c, N, V] in either direction.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 _EPS = 1e-7
 
@@ -32,6 +34,7 @@ def chunked_stacked_ce(
     token_wgt: Optional[torch.Tensor] = None,  # [B, P, N]
     dlm_normalizer: Optional[float] = None,
     focal_gamma: float = 0.0,
+    label_smoothing: float = 0.0,
     chunk: int = 128,
 ) -> torch.Tensor:
     """Masked (optionally dLM-normalised) mean CE; weights cast to the
@@ -41,26 +44,62 @@ def chunked_stacked_ce(
     if p % chunk:
         chunk = p
     dt = hidden.dtype
-    proj = n_token_proj.to(dt) if n_token_proj is not None else None
-    head = lm_head.to(dt)
     if token_wgt is None:
         token_wgt = torch.ones((b, p, n), dtype=torch.float32, device=hidden.device)
     token_wgt = token_wgt.float().expand(b, p, n)
+
+    def chunk_fn(h, lab, w):
+        # h [B, c, D] -> logits [B, c, N, V]. The casts sit inside the chunk
+        # so that each chunk's weight gradient reaches the fp32 master on
+        # its own and the chunks are summed in fp32.
+        if n_token_proj is not None:
+            h = F.linear(h, n_token_proj.to(dt)).reshape(b, chunk, n, d)
+        else:
+            h = h[:, :, None, :]
+        logits = F.linear(h, lm_head.to(dt))
+        ce = _ce_from_logits(logits, lab)
+        if label_smoothing > 0:
+            smooth = -F.log_softmax(logits.float(), dim=-1).mean(dim=-1)
+            ce = (1 - label_smoothing) * ce + label_smoothing * smooth
+        if focal_gamma > 0:
+            ce = ((1 - torch.exp(-ce)) ** focal_gamma) * ce
+        w = (lab != -100).float() * w
+        return (ce * w).sum(), w.sum()
+
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (hidden, lm_head, n_token_proj)
+    )
     loss_sum = hidden.new_zeros((), dtype=torch.float32)
     wgt_sum = hidden.new_zeros((), dtype=torch.float32)
     for c0 in range(0, p, chunk):
-        h = hidden[:, c0 : c0 + chunk]
-        lab = labels[:, c0 : c0 + chunk]
-        if proj is not None:
-            h = F.linear(h, proj).reshape(b, chunk, n, d)
+        args = (hidden[:, c0 : c0 + chunk], labels[:, c0 : c0 + chunk],
+                token_wgt[:, c0 : c0 + chunk])
+        if needs_grad:
+            ls, ws = torch.utils.checkpoint.checkpoint(
+                chunk_fn, *args, use_reentrant=False, preserve_rng_state=False
+            )
         else:
-            h = h[:, :, None, :]
-        ce = _ce_from_logits(F.linear(h, head), lab)
-        if focal_gamma > 0:
-            ce = ((1 - torch.exp(-ce)) ** focal_gamma) * ce
-        w = (lab != -100).float() * token_wgt[:, c0 : c0 + chunk]
-        loss_sum = loss_sum + (ce * w).sum()
-        wgt_sum = wgt_sum + w.sum()
+            ls, ws = chunk_fn(*args)
+        loss_sum = loss_sum + ls
+        wgt_sum = wgt_sum + ws
     if dlm_normalizer is not None:
         return loss_sum / dlm_normalizer
     return loss_sum / (wgt_sum + _EPS)
+
+
+def masked_mean_ce(
+    logits: torch.Tensor, labels: torch.Tensor, wgt: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Plain masked-mean CE for small logit tensors."""
+    ce = _ce_from_logits(logits, labels)
+    valid = (labels != -100).float()
+    w = valid if wgt is None else valid * wgt
+    return (ce * w).sum() / (w.sum() + _EPS)
+
+
+def info_nce(left: torch.Tensor, right: torch.Tensor, temperature: float = 0.07) -> torch.Tensor:
+    """Symmetric InfoNCE between normalised [B/2, D] embeddings over this
+    process's batch (the JAX package's `axis_name=None`)."""
+    logits = (left @ right.t()).float() / temperature
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    return 0.5 * (masked_mean_ce(logits, labels) + masked_mean_ce(logits.t(), labels))

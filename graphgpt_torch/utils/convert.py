@@ -12,10 +12,12 @@ nn.Linear's [out, in] layout (the mapping of graphgpt_tpu/utils/convert.py):
     layers.{gate,up,down}[i]  model.layers.{i}.mlp.{gate,up,down}_proj.weight (T)
     layers.ls{1,2}[i]         model.layers.{i}.lambda_{1,2}
     lm_head, n_token_proj     lm_head.weight, n_token_proj.weight (T)
+    cl_proj                   cl_proj.weight (T)
     stacked_agg_w             stacked_feat_agg.weight
 
 Arrays cross as numpy: the tree may hold numpy arrays or anything that
-`np.asarray` reads.
+`np.asarray` reads. A gradient tree, or a tree of optimizer moments, has
+the weights' layout, so the same mapping carries it (`tree_from_jax`).
 """
 
 from __future__ import annotations
@@ -42,7 +44,11 @@ _NORMS = (
     ("ls1", "lambda_1"),
     ("ls2", "lambda_2"),
 )
-_HEADS = (("lm_head", "lm_head.weight"), ("n_token_proj", "n_token_proj.weight"))
+_HEADS = (
+    ("lm_head", "lm_head.weight"),
+    ("n_token_proj", "n_token_proj.weight"),
+    ("cl_proj", "cl_proj.weight"),
+)
 
 
 def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
@@ -71,6 +77,12 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor
     if "stacked_agg_w" in tree:
         sd["stacked_feat_agg.weight"] = t(tree["stacked_agg_w"])
     return sd
+
+
+def tree_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """A JAX tree shaped like the params (gradients, Adam moments, an EMA
+    copy) -> a dict by the port's parameter names."""
+    return params_from_jax(tree, device)
 
 
 def params_to_jax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:

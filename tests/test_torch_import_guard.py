@@ -3,8 +3,8 @@
 An AST scan of every module of `graphgpt_torch/` and of `chip_smoke.py`
 finds no import of jax, jaxlib, optax, flax, orbax or graphgpt_tpu, at any
 depth (inside functions too). A subprocess that blocks `jax` in
-`sys.modules` imports every module of the port and runs a tiny CPU forward
-and a few sampler steps.
+`sys.modules` imports every module of the port and runs a tiny CPU forward,
+a few sampler steps and one training step.
 """
 
 import ast
@@ -43,10 +43,11 @@ def test_the_scan_sees_every_module():
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for must in ("graphgpt_torch/ops/flash_attention.py", "graphgpt_torch/ops/mlp.py",
                  "graphgpt_torch/models/heads.py", "graphgpt_torch/generation/dllm.py",
+                 "graphgpt_torch/training/optimizer.py", "graphgpt_torch/training/steps.py",
                  "chip_smoke.py"):
         assert must in names
     assert sorted(p.name for p in (ROOT / "graphgpt_torch" / "csrc").glob("*.cu")) == [
-        "flash_fwd.cu", "norm_mlp.cu",
+        "flash_bwd.cu", "flash_fwd.cu", "norm_mlp.cu", "rmsnorm_bwd.cu",
     ]
 
 
@@ -75,6 +76,12 @@ fn = lambda x, pos, seg: model.logits(
 out = dllm.make_unmask_sampler(fn, GenerationConfig(steps=4), 1, device="cpu")(
     x, None, batch["position_ids"], batch["segment_ids"])
 assert out.shape == x.shape
+from graphgpt_torch.config import OptimizerConfig
+from graphgpt_torch.training.optimizer import make_optimizer
+from graphgpt_torch.training.steps import init_train_state, make_train_step
+tx = make_optimizer(OptimizerConfig(), 10, 1)
+state, metrics = make_train_step(tx)(init_train_state(model, tx), batch)
+assert state.step == 1 and torch.isfinite(metrics["grad_norm"]), metrics
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "graphgpt_tpu")
              and sys.modules[m] is not None)
 assert not bad, bad
