@@ -1,14 +1,97 @@
-"""Model, optimizer and generation configs (the fields the port reads).
+"""Tokenization, model, training and generation configs.
 
-A copy of `graphgpt_tpu/config.py`'s `_MODEL_SIZES`, `ModelConfig`,
-`OptimizerConfig` and `GenerationConfig`, trimmed to what the port runs;
-`finalize` resolves the derived fields the same way.
+A copy of `graphgpt_tpu/config.py` (`_MODEL_SIZES`, the config groups,
+`Config.sync`, `load_config` with `key.subkey=value` overrides), trimmed to
+what the port runs: the mesh and the partitioned corpus wait for the
+multi-GPU slice. `finalize` and `sync` resolve the derived fields the same
+way. YAML is read only when `load_config` is given a file.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Tuple
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+TASK_TYPES = {
+    "pretrain", "pretrain-mlm", "pretrain-smtp", "pretrain-cl", "pretrain-ltp",
+    "pretrain-euler", "pretrain-coord", "pretrain-coord-cl", "pretrain-mlm-coord",
+    "graph", "edge", "node", "nodev2",
+}
+PRETRAIN_TASKS = {t for t in TASK_TYPES if t.startswith("pretrain")}
+
+
+# ---------------------------------------------------------------------------
+# Tokenization
+# ---------------------------------------------------------------------------
+@dataclass
+class SemanticsAttrConfig:
+    discrete: Optional[str] = None  # attr field name, e.g. "node_attr"
+    dim: int = 0  # number of discrete columns
+    continuous: Optional[str] = None
+    ignored_val: Optional[int] = None
+    embed: Optional[str] = None
+    embed_dim: int = 0
+    share_vocab: bool = False
+
+
+@dataclass
+class SemanticsConfig:
+    attr_assignment: str = "first"
+    node: SemanticsAttrConfig = field(default_factory=SemanticsAttrConfig)
+    edge: SemanticsAttrConfig = field(default_factory=SemanticsAttrConfig)
+    graph: SemanticsAttrConfig = field(default_factory=SemanticsAttrConfig)
+    reserved_tokens: Tuple[str, ...] = tuple(f"semantics_{i}" for i in range(10))
+
+
+@dataclass
+class StructureNodeConfig:
+    bos_token: str = "<bos>"
+    eos_token: str = "<eos>"
+    new_node_token: str = "<new>"
+    node_scope: int = 512
+    scope_base: int = 512
+    cyclic: int = 1  # 0 normal / 1 cyclic / 2 random
+
+
+@dataclass
+class StructureEdgeConfig:
+    remove_edge_type_token: bool = True
+    in_token: str = "<edge_in>"
+    out_token: str = "<edge_out>"
+    bi_token: str = "<edge_bi>"
+    jump_token: str = "<edge_jump>"
+
+
+@dataclass
+class StructureConfig:
+    node: StructureNodeConfig = field(default_factory=StructureNodeConfig)
+    edge: StructureEdgeConfig = field(default_factory=StructureEdgeConfig)
+    summary_token: str = "<gsum>"
+    mask_token: str = "<mask>"
+    icl_token: str = "<icl>"
+    sep_token: str = "<sep>"
+    reserved_tokens: Tuple[str, ...] = tuple(f"structure_{i}" for i in range(10))
+
+
+@dataclass
+class TokenizationConfig:
+    tokenizer_class: str = "StackedGSTTokenizer"
+    dataset: str = "synthetic_mol"
+    data_dir: str = "./data"
+    vocab_file: str = "vocab"
+    attr_world_identifier: str = "molecule"
+    add_eos: bool = True  # the trailing eos row on task sequences
+    stack_method: str = "short"  # short|long
+    semantics: SemanticsConfig = field(default_factory=SemanticsConfig)
+    structure: StructureConfig = field(default_factory=StructureConfig)
+
+    @property
+    def stacked_feat(self) -> int:
+        """1 (short) or 2 (long) structural slots + attr dims."""
+        base = 1 if self.stack_method == "short" else 2
+        return base + self.semantics.node.dim + self.semantics.edge.dim
 
 # the reference's published architecture matrix
 # (examples/graph_lvl/pcqm4m_v2_pretrain.sh:158-233 of the reference repo)
@@ -76,8 +159,20 @@ class ModelConfig:
     smtp_inside: bool = False
     smtp_power: float = 1.0
 
+    # fine-tune head
     task_type: str = "pretrain-mlm"
+    problem_type: str = ""  # regression|single_label_classification|multi_label_classification
+    pooling_method: str = "last"  # last|mean|sum
+    mlp: Tuple[int, ...] = ()  # hidden sizes of the score MLP (empty: one linear)
+    head_dropout: float = 0.0
+    loss_type: str = ""  # l1|mse|auc|token_ce|token_ce_intra|ce
+    num_labels: int = 1
+    num_neg: int = 1
+    use_aux: bool = False  # auxiliary NTP head during fine-tuning
+
     pad_token_id: int = 0
+    bos_token_id: int = 1
+    eos_token_id: int = 2
     mask_token_id: int = 0
 
     dtype: str = "bfloat16"  # activation dtype; weights stay fp32
@@ -112,6 +207,30 @@ class ModelConfig:
         return self
 
 
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+@dataclass
+class MlmScheduleConfig:
+    name: str = "polynomial"  # polynomial|cosine|fixed
+    power: float = 1.0
+    mtp: Tuple[float, float, float] = (1.0, 0.0, 0.0)
+    umr_clip: Tuple[float, float] = (0.01, 0.99)
+    dlm_wgt: bool = True
+
+
+@dataclass
+class ScheduleConfig:
+    epochs: int = 0
+    warmup_epochs: float = 0.0
+    total_tokens: float = 1e9
+    warmup_tokens: float = 1e8
+    total_num_steps: int = 0
+    warmup_num_steps: int = 0
+    logging_steps: int = 100
+    steps_per_saving: int = 0
+
+
 @dataclass
 class OptimizerConfig:
     name: str = "adamw"  # adamw|muon
@@ -130,6 +249,33 @@ class OptimizerConfig:
     ema_decay: float = 0.9999
     # >0 engages layer-wise LR decay: layer i scaled by decay^(L-1-i)
     layerwise_lr_decay: float = 0.0
+
+
+@dataclass
+class TrainingConfig:
+    output_dir: str = "./exp/run"
+    pretrain_cpt: str = ""
+    task_type: str = "pretrain-mlm"
+    pretrain_mlm: MlmScheduleConfig = field(default_factory=MlmScheduleConfig)
+    schedule: ScheduleConfig = field(default_factory=ScheduleConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    batch_size: int = 128
+    batch_size_eval: int = 0  # 0: batch_size
+    max_length: int = 1024
+    pad_to_multiple_of: int = 8
+    pack_tokens: float = 0.0
+    pack_block: int = 0
+    num_workers: int = 8
+    valid_percent: float = 0.0
+    do_valid: bool = False
+    do_test: bool = True  # evaluate the test split each eval epoch
+    seed: int = 42
+    freeze: int = -1  # >= 0: freeze the embeddings and the first `freeze` layers
+    epoch_per_eval: int = 1
+    eval_only: bool = False
+    k_samplers: int = 256  # train-subset eval size
+    save_pred: bool = False  # dump per-split prediction csv at each eval
+    dump_infer: bool = False  # dump test pooled hidden states
 
 
 @dataclass
@@ -162,3 +308,90 @@ def flagship_config(layers: int = 12) -> ModelConfig:
         remat=True,
         remat_policy="save_attn",
     ).finalize()
+
+
+# ---------------------------------------------------------------------------
+# The composed config, dicts, YAML and overrides
+# ---------------------------------------------------------------------------
+@dataclass
+class Config:
+    tokenization: TokenizationConfig = field(default_factory=TokenizationConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    training: TrainingConfig = field(default_factory=TrainingConfig)
+    generation: GenerationConfig = field(default_factory=GenerationConfig)
+
+    def sync(self) -> "Config":
+        """Propagate the cross-group derived fields."""
+        tok, m = self.tokenization, self.model
+        m.task_type = self.training.task_type
+        m.stack_method = tok.stack_method
+        m.stacked_feat = 1 if tok.tokenizer_class == "GSTTokenizer" else tok.stacked_feat
+        m.next_n_token = m.stacked_feat if self.training.task_type in PRETRAIN_TASKS else 1
+        m.embed_dim = tok.semantics.node.embed_dim + tok.semantics.edge.embed_dim
+        m.max_position_embeddings = max(m.max_position_embeddings, self.training.max_length)
+        m.finalize()
+        return self
+
+
+def _from_dict(cls, data: Dict[str, Any]):
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for key, val in data.items():
+        if key not in fields:
+            raise KeyError(f"Unknown config key {key!r} for {cls.__name__}")
+        f = fields[key]
+        default = f.default_factory() if f.default_factory is not dataclasses.MISSING else None
+        if isinstance(val, dict) and dataclasses.is_dataclass(default):
+            kwargs[key] = _from_dict(type(default), val)
+        elif isinstance(val, list):
+            kwargs[key] = tuple(val)
+        else:
+            kwargs[key] = val
+    return cls(**kwargs)
+
+
+def config_from_dict(data: Dict[str, Any]) -> Config:
+    return _from_dict(Config, data)
+
+
+def config_to_dict(cfg) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)
+
+
+def _parse_value(raw: str) -> Any:
+    try:
+        return json.loads(raw)
+    except ValueError:
+        return raw
+
+
+def apply_overrides(cfg: Config, overrides: List[str]) -> Config:
+    """Apply `group.key.subkey=value` overrides in place."""
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"Override {item!r} must be key=value")
+        path, raw = item.split("=", 1)
+        parts = path.split(".")
+        obj = cfg
+        for part in parts[:-1]:
+            obj = getattr(obj, part)
+        if not hasattr(obj, parts[-1]):
+            raise AttributeError(
+                f"Unknown config key {path!r} ({type(obj).__name__} has no field {parts[-1]!r})"
+            )
+        val = _parse_value(raw)
+        setattr(obj, parts[-1], tuple(val) if isinstance(val, list) else val)
+    return cfg
+
+
+def load_config(yaml_path: Optional[str] = None, overrides: Optional[List[str]] = None) -> Config:
+    if yaml_path:
+        import yaml  # only for a config file
+
+        with open(yaml_path) as f:
+            cfg = config_from_dict(yaml.safe_load(f) or {})
+    else:
+        cfg = Config()
+    if overrides:
+        apply_overrides(cfg, overrides)
+    return cfg.sync()

@@ -1,8 +1,11 @@
-"""SMTP pretrain model: training forward, eval loss and generation logits.
+"""The SMTP pretrain model (training forward, eval loss, generation logits)
+and the fine-tune task model (score head, pooling, task losses, the
+auxiliary NTP head).
 
 Counterpart of `graphgpt_tpu/models/heads.py` (`init_pretrain_params` :29,
-`last_token_pool` :77, `smtp_inside_mask` :95, `pretrain_forward` :128,
-`pretrain_logits` :203).
+`init_task_params` :47, `last_token_pool` :77, `pool_hidden` :86,
+`smtp_inside_mask` :95, `pretrain_forward` :128, `pretrain_logits` :203,
+`score_apply` :226, `task_forward` :247, `_auc_loss_from_labels` :343).
 """
 
 from __future__ import annotations
@@ -16,13 +19,33 @@ import torch.nn.functional as F
 from .. import resolve_device
 from ..config import ModelConfig
 from ..ops import losses
-from .modeling import Backbone, _linear, compute_dtype, model_hidden_states
+from ..ops.mlp import act_fn
+from .modeling import (
+    Backbone,
+    _dropout,
+    _linear,
+    compute_dtype,
+    derive_generator,
+    model_hidden_states,
+)
 
 
 def last_token_pool(hidden: torch.Tensor, segment_ids: torch.Tensor) -> torch.Tensor:
     """Hidden state at the last non-pad position of each row."""
     last = ((segment_ids > 0).sum(dim=-1) - 1).clamp(min=0)
     return hidden[torch.arange(hidden.shape[0], device=hidden.device), last]
+
+
+def pool_hidden(hidden: torch.Tensor, segment_ids: torch.Tensor, method: str) -> torch.Tensor:
+    """The last non-pad position (`last`), or the sum or mean over the
+    non-pad positions of each row."""
+    if method == "last":
+        return last_token_pool(hidden, segment_ids)
+    valid = (segment_ids > 0).to(hidden.dtype)[..., None]
+    summed = (hidden * valid).sum(dim=1)
+    if method == "sum":
+        return summed
+    return summed / (valid.sum(dim=1) + 1e-7)
 
 
 def smtp_inside_mask_from_draws(
@@ -77,32 +100,20 @@ class _Weight(nn.Module):
         self.weight = nn.Parameter(torch.empty(shape, device=device))
 
 
-class GraphGPTPretrain(nn.Module):
-    """Backbone plus the generative SMTP head and the optional contrastive
-    one, under HF-Llama names (`model.*`, `lm_head`, `n_token_proj`,
-    `stacked_feat_agg`, `cl_proj`).
-
-    Weights are fp32, drawn from `seed` with the JAX init's distributions
-    (normal(0, initializer_range) for the matrices, ones for the norms,
+class _GraphGPTBase(nn.Module):
+    """The backbone and the gated aggregation weight, with the init and the
+    per-step seed that both models share. Weights are fp32, drawn from
+    `seed` with the JAX init's distributions (normal(0, initializer_range)
+    for the matrices, ones for the norms, zeros for the biases,
     uniform(+-1/sqrt(D)) for the gated aggregation). They are not the JAX
-    init's numbers: load those with `load_state_dict(params_from_jax(...))`.
-    """
+    init's numbers: load those with `load_state_dict(params_from_jax(...))`."""
 
-    def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
+    def __init__(self, cfg: ModelConfig, dev: torch.device):
         super().__init__()
-        dev = resolve_device(device)
         self.cfg = cfg
-        d = cfg.hidden_size
         self.model = Backbone(cfg, dev)
         if cfg.stacked_feat_agg_method == "gated" and cfg.stacked_feat > 1:
-            self.stacked_feat_agg = _Weight((cfg.stacked_feat, d), dev)
-        if cfg.use_generative:
-            self.lm_head = _linear(dev, d, cfg.vocab_size)
-            if cfg.next_n_token > 1:
-                self.n_token_proj = _linear(dev, d, d * cfg.next_n_token)
-        if cfg.use_discriminative:
-            self.cl_proj = _linear(dev, d, d)
-        self.reset_parameters(seed)
+            self.stacked_feat_agg = _Weight((cfg.stacked_feat, cfg.hidden_size), dev)
 
     @torch.no_grad()
     def reset_parameters(self, seed: int) -> None:
@@ -114,14 +125,13 @@ class GraphGPTPretrain(nn.Module):
                 p.fill_(1.0)
             elif ".lambda_" in name:
                 p.fill_(self.cfg.layer_scale_init_value)
+            elif name.endswith(".bias"):
+                p.zero_()
             elif name == "stacked_feat_agg.weight":
                 bound = 1.0 / (self.cfg.hidden_size**0.5)
                 p.uniform_(-bound, bound, generator=gen)
             else:
                 p.normal_(0.0, std, generator=gen)
-        if self.cfg.use_generative and self.cfg.tie_word_embeddings:
-            # the JAX init copies the table (the two are not shared)
-            self.lm_head.weight.copy_(self.model.embed_tokens.weight)
 
     @property
     def device(self) -> torch.device:
@@ -130,6 +140,40 @@ class GraphGPTPretrain(nn.Module):
     def _agg_w(self) -> Optional[torch.Tensor]:
         agg = getattr(self, "stacked_feat_agg", None)
         return None if agg is None else agg.weight
+
+    def _step_seed(self, generator: Optional[torch.Generator], train: bool,
+                   rates) -> Optional[int]:
+        """One draw a step when a stochastic rate is on; the per-layer
+        generators derive from it."""
+        if train and generator is not None and max(rates) > 0:
+            return int(torch.randint(2**62, (1,), generator=generator,
+                                     device=generator.device).item())
+        return None
+
+
+class GraphGPTPretrain(_GraphGPTBase):
+    """Backbone plus the generative SMTP head and the optional contrastive
+    one, under HF-Llama names (`model.*`, `lm_head`, `n_token_proj`,
+    `stacked_feat_agg`, `cl_proj`)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
+        dev = resolve_device(device)
+        super().__init__(cfg, dev)
+        d = cfg.hidden_size
+        if cfg.use_generative:
+            self.lm_head = _linear(dev, d, cfg.vocab_size)
+            if cfg.next_n_token > 1:
+                self.n_token_proj = _linear(dev, d, d * cfg.next_n_token)
+        if cfg.use_discriminative:
+            self.cl_proj = _linear(dev, d, d)
+        self.reset_parameters(seed)
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int) -> None:
+        super().reset_parameters(seed)
+        if self.cfg.use_generative and self.cfg.tie_word_embeddings:
+            # the JAX init copies the table (the two are not shared)
+            self.lm_head.weight.copy_(self.model.embed_tokens.weight)
 
     @torch.no_grad()
     def hidden_states(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -155,13 +199,8 @@ class GraphGPTPretrain(nn.Module):
                 input_ids, batch["node_idx"], generator, power=cfg.smtp_power,
                 mask_token_id=cfg.mask_token_id, vocab_size=cfg.vocab_size,
             )
-        seed = None
-        stochastic = max(cfg.attention_dropout, cfg.embed_dropout, cfg.mlp_dropout,
-                         cfg.path_dropout) > 0
-        if train and generator is not None and stochastic:
-            # one draw a step; the per-layer generators derive from it
-            seed = int(torch.randint(2**62, (1,), generator=generator,
-                                     device=generator.device).item())
+        seed = self._step_seed(generator, train, (cfg.attention_dropout, cfg.embed_dropout,
+                                                  cfg.mlp_dropout, cfg.path_dropout))
         hidden = model_hidden_states(
             self.model, cfg, input_ids, batch["position_ids"], batch["segment_ids"],
             self._agg_w(), raw_embeds=batch.get("embed"), seed=seed, train=train,
@@ -211,3 +250,142 @@ class GraphGPTPretrain(nn.Module):
         else:
             h = hidden[:, :, None, :]
         return F.linear(h, self.lm_head.weight.to(dt)).float()
+
+
+def auc_neg_idx(n: int, num_neg: int, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """The [n, num_neg] negative candidates of the AUC loss, uniform over the
+    batch. Without a generator the draw is fixed (a generator seeded 0), as
+    the JAX package's `PRNGKey(0)` fallback is: its train step passes no
+    loss key, so every step pairs the same positions."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    idx = torch.randint(0, n, (n, num_neg), generator=generator, device=generator.device)
+    return idx.to(device)
+
+
+def auc_loss_from_labels(y_pred: torch.Tensor, y_true: torch.Tensor,
+                         neg_idx: torch.Tensor) -> torch.Tensor:
+    """Squared pairwise AUC surrogate with the positives and negatives split
+    by label: every position is paired with its `neg_idx` candidates, and a
+    pair counts when the first is positive and the second negative."""
+    y_pred = y_pred.float().reshape(-1)
+    y_true = y_true.reshape(-1) > 0.5
+    neg_scores = y_pred[neg_idx]
+    w = (y_true[:, None] & ~y_true[neg_idx]).float()
+    per = (1.0 - (y_pred[:, None] - neg_scores)).square()
+    return (per * w).sum() / (w.sum() + 1e-7)
+
+
+_LABEL_KEYS = ("graph_labels", "node_labels", "edge_labels", "task_labels")
+
+
+class GraphGPTTask(_GraphGPTBase):
+    """Backbone plus the fine-tune score head, under HF-Llama names
+    (`model.*`, `stacked_feat_agg`, `score` (a linear layer, with a bias for
+    regression) or `score_mlp.{i}`, and with `use_aux` the NTP head
+    `lm_head`, `n_token_proj`)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
+        dev = resolve_device(device)
+        super().__init__(cfg, dev)
+        d = cfg.hidden_size
+        bias = cfg.problem_type == "regression"
+        if cfg.mlp:
+            sizes = [d, *cfg.mlp, cfg.num_labels]
+            self.score_mlp = nn.ModuleList(
+                nn.utils.skip_init(nn.Linear, a, b, bias=bias, device=dev)
+                for a, b in zip(sizes[:-1], sizes[1:])
+            )
+        else:
+            self.score = nn.utils.skip_init(nn.Linear, d, cfg.num_labels, bias=bias, device=dev)
+        if cfg.use_aux:
+            self.lm_head = _linear(dev, d, cfg.vocab_size)
+            if cfg.next_n_token > 1:
+                self.n_token_proj = _linear(dev, d, d * cfg.next_n_token)
+        self.reset_parameters(seed)
+
+    def score_apply(self, x: torch.Tensor, gen: Optional[torch.Generator], train: bool):
+        """Per-position scores [..., num_labels] in x's dtype; the score MLP
+        applies act -> dropout -> linear per block."""
+        dt = x.dtype
+        layers = self.score_mlp if self.cfg.mlp else [self.score]
+        for layer in layers:
+            if self.cfg.mlp:
+                x = act_fn(self.cfg.hidden_act)(x)
+                x = _dropout(x, self.cfg.head_dropout, gen, train)
+            x = F.linear(x, layer.weight.to(dt))
+            if layer.bias is not None:
+                x = x + layer.bias.to(dt)
+        return x
+
+    def forward(
+        self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+        train: bool = False, loss_generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Score every position, then pool; the problem type's loss where the
+        batch has labels: {"task_logits", "task_hidden_states",
+        "hidden_states", and "task_loss", "loss" (and "pretrain_loss" with
+        the auxiliary head)}. `generator` feeds the dropout masks in
+        training; `loss_generator` the AUC loss's negatives."""
+        cfg = self.cfg
+        seed = self._step_seed(generator, train, (cfg.attention_dropout, cfg.embed_dropout,
+                                                  cfg.mlp_dropout, cfg.path_dropout,
+                                                  cfg.head_dropout))
+        hidden = model_hidden_states(
+            self.model, cfg, batch["input_ids"], batch["position_ids"], batch["segment_ids"],
+            self._agg_w(), raw_embeds=batch.get("embed"), seed=seed, train=train,
+        )
+        gen = derive_generator(seed, -2, hidden.device) if seed is not None else None
+        logits_all = self.score_apply(hidden, gen, train)  # [B, P, C]
+        seg = batch["segment_ids"]
+        pooled = pool_hidden(logits_all, seg, cfg.pooling_method)
+        out = {
+            "task_logits": pooled.float(),
+            "task_hidden_states": pool_hidden(hidden, seg, cfg.pooling_method),
+            "hidden_states": hidden,
+        }
+        c = cfg.num_labels
+        if cfg.task_type == "nodev2" and "nodev2_labels" in batch:
+            # token-level node classification
+            if cfg.loss_type == "token_ce_intra":
+                h = hidden.float()
+                h = h / (h.norm(dim=-1, keepdim=True) + 1e-7)
+                offs = batch["cls_idx"].reshape(-1, 1).long() + torch.arange(c, device=h.device)
+                lle = h[torch.arange(h.shape[0], device=h.device)[:, None], offs]  # [B, C, D]
+                logits_tok = torch.einsum("bpd,bcd->bpc", h, lle) * 20.0
+            else:  # token_ce
+                logits_tok = logits_all.float()
+            loss = losses.masked_mean_ce(
+                logits_tok.reshape(-1, c), batch["nodev2_labels"].reshape(-1).long()
+            )
+            out.update(task_logits=logits_tok, task_loss=loss, loss=loss)
+            return out
+        labels = next((batch[k] for k in _LABEL_KEYS if k in batch), None)
+        if labels is None:
+            return out
+        sample_wgt = batch.get("sample_wgt", batch.get("wgt"))
+        if cfg.problem_type == "regression":
+            loss = losses.regression_loss(pooled, labels, "l1" if cfg.loss_type == "l1" else "mse")
+        elif cfg.problem_type == "single_label_classification":
+            if cfg.loss_type == "auc":
+                y_true = labels.reshape(-1)
+                neg = auc_neg_idx(y_true.shape[0], cfg.num_neg, loss_generator, y_true.device)
+                loss = auc_loss_from_labels(pooled[:, 1] - pooled[:, 0], y_true, neg)
+            else:
+                loss = losses.single_label_ce(
+                    pooled.reshape(-1, c), labels.reshape(-1).long(), sample_wgt
+                )
+        else:  # multi_label_classification
+            loss = losses.multi_label_bce(pooled.reshape(-1, c), labels.reshape(-1, c), sample_wgt)
+        out["task_loss"] = loss
+        total = loss
+        if cfg.use_aux and "labels" in batch:
+            lab3 = batch["labels"] if batch["labels"].dim() == 3 else batch["labels"][..., None]
+            aux = losses.chunked_stacked_ce(
+                hidden, lab3, self.n_token_proj.weight if cfg.next_n_token > 1 else None,
+                self.lm_head.weight,
+            )
+            out["pretrain_loss"] = aux
+            total = total + aux
+        out["loss"] = total
+        return out

@@ -5,10 +5,10 @@ Counterpart of `graphgpt_tpu/models/modeling.py` (`_rms_norm_vjp` :101,
 `backbone_apply` :360 with its rematerialisation :545-612,
 `model_hidden_states` :618). Parameters are fp32 master copies under
 HF-Llama names; activations run in `cfg.dtype`. Attention goes through
-`ops.attention` (the flash kernels); the MLP through the norm-fused kernel
-unless LayerScale, DropPath or MLP dropout sit between the MLP and the
-residual: those raise on a CUDA tensor (the split MLP kernel is a later
-slice's) and run the plain split path on the CPU.
+`ops.attention` (the flash kernels); the MLP through the norm-fused kernel,
+or, when LayerScale or DropPath sit between the MLP and the residual,
+through the RMSNorm and the split MLP kernel; under MLP dropout through the
+plain `xla_mlp`, as the JAX package's dispatch (:478-521) does.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import torch.utils.checkpoint
 from ..config import ModelConfig
 from ..ops import mm_f32
 from ..ops.attention import attention
-from ..ops.mlp import fused_norm_mlp, mlp_ref, rmsnorm_bwd
+from ..ops.mlp import fused_mlp, fused_norm_mlp, rmsnorm_bwd, xla_mlp
 from .rope import reset_position_ids, rope_cos_sin
 
 
@@ -156,30 +156,25 @@ class DecoderLayer(nn.Module):
 
     def mlp_half(self, x, cfg: ModelConfig, b, p, gen=None, dp_rate: float = 0.0,
                  train: bool = False):
-        """x + mlp(norm(x)): the norm-fused kernel, or the plain split path
-        (CPU tensors only) when LayerScale, DropPath or MLP dropout sit
-        between the MLP and the residual."""
+        """x + mlp(norm(x)): the norm-fused kernel; with LayerScale or
+        DropPath between the MLP and the residual, the RMSNorm and the split
+        MLP kernel; with MLP dropout, the plain `xla_mlp`."""
         dt = x.dtype
         m = self.mlp
         use_ls = hasattr(self, "lambda_1")
         use_dp = train and gen is not None and cfg.path_dropout > 0
         use_mdrop = train and gen is not None and cfg.mlp_dropout > 0
+        weights = (m.gate_proj.weight, m.up_proj.weight, m.down_proj.weight)
         if not (use_ls or use_dp or use_mdrop):
             return fused_norm_mlp(
-                x, self.post_attention_layernorm.weight, m.gate_proj.weight,
-                m.up_proj.weight, m.down_proj.weight, cfg.rms_norm_eps, cfg.hidden_act,
+                x, self.post_attention_layernorm.weight, *weights, cfg.rms_norm_eps,
+                cfg.hidden_act,
             )
-        if x.is_cuda:
-            raise NotImplementedError(
-                "LayerScale, DropPath (path_dropout) and MLP dropout take the split "
-                "MLP kernel (_mlp_kernel), which a later slice ports"
-            )
-        # the plain split path (the twin of xla_mlp)
         hpre = rms_norm(x, self.post_attention_layernorm.weight, cfg.rms_norm_eps)
-        out = mlp_ref(hpre, m.gate_proj.weight, m.up_proj.weight, m.down_proj.weight,
-                      cfg.hidden_act)
         if use_mdrop:
-            out = _dropout(out, cfg.mlp_dropout, gen, train)
+            out = _dropout(xla_mlp(hpre, *weights, cfg.hidden_act), cfg.mlp_dropout, gen, train)
+        else:
+            out = fused_mlp(hpre, *weights, cfg.hidden_act)
         if use_ls:
             out = out * self.lambda_2.to(dt)
         if use_dp:

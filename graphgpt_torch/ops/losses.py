@@ -1,7 +1,10 @@
-"""Masked cross-entropy over stacked next-n labels, and InfoNCE.
+"""Masked cross-entropy over stacked next-n labels, InfoNCE and the
+fine-tune losses.
 
 Counterpart of `graphgpt_tpu/ops/losses.py` (`chunked_stacked_ce` :39,
-`masked_mean_ce` :118, `info_nce` :176 on one process). Logits are formed
+`masked_mean_ce` :118, `regression_loss` :131, `single_label_ce` :142,
+`multi_label_bce` :150, `pairwise_auc_loss` :164, `info_nce` :176 on one
+process). Logits are formed
 chunk by chunk along P, each chunk rematerialised in the backward, so the
 largest logits tensor is one chunk of [B, c, N, V] in either direction.
 """
@@ -95,6 +98,48 @@ def masked_mean_ce(
     valid = (labels != -100).float()
     w = valid if wgt is None else valid * wgt
     return (ce * w).sum() / (w.sum() + _EPS)
+
+
+def regression_loss(preds, targets, kind: str = "l1", sample_wgt=None) -> torch.Tensor:
+    """Mean absolute (l1) or squared error in fp32, optionally weighted per
+    sample."""
+    preds = preds.float().reshape(targets.shape)
+    err = preds - targets.float()
+    per = err.abs() if kind == "l1" else err * err
+    if sample_wgt is not None:
+        w = sample_wgt.reshape(-1, *([1] * (per.dim() - 1))).float()
+        return (per * w).sum() / (w.expand(per.shape).sum() + _EPS)
+    return per.mean()
+
+
+def single_label_ce(logits, labels, sample_wgt=None) -> torch.Tensor:
+    ce = _ce_from_logits(logits, labels)
+    if sample_wgt is not None:
+        w = sample_wgt.float()
+        return (ce * w).sum() / (w.sum() + _EPS)
+    return ce.mean()
+
+
+def multi_label_bce(logits, labels, sample_wgt=None) -> torch.Tensor:
+    """BCE with logits over several binary tasks; NaN labels are masked out."""
+    logits, labels = logits.float(), labels.float()
+    valid = torch.isfinite(labels)
+    y = torch.where(valid, labels, 0.0)
+    per = logits.clamp(min=0) - logits * y + torch.log1p(torch.exp(-logits.abs()))
+    w = valid.float()
+    if sample_wgt is not None:
+        w = w * sample_wgt.reshape(-1, 1).float()
+    return (per * w).sum() / (w.sum() + _EPS)
+
+
+def pairwise_auc_loss(logits, labels, num_neg: int = 1) -> torch.Tensor:
+    """Squared pairwise AUC surrogate over groups of one positive followed by
+    its `num_neg` negatives: mean((1 - (s+ - s-))^2)."""
+    scores = logits.float().reshape(-1)
+    group = num_neg + 1
+    n_group = scores.shape[0] // group
+    s = scores[: n_group * group].reshape(n_group, group)
+    return (1.0 - (s[:, :1] - s[:, 1:])).square().mean()
 
 
 def info_nce(left: torch.Tensor, right: torch.Tensor, temperature: float = 0.07) -> torch.Tensor:

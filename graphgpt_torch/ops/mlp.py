@@ -1,9 +1,10 @@
-"""Norm-fused gated MLP (CUDA kernel, plain versions, plain backward) and
-the RMSNorm backward (CUDA kernel and plain version).
+"""Gated MLPs (CUDA kernels, plain versions, plain backwards) and the
+RMSNorm backward (CUDA kernel and plain version).
 
-Counterpart of `graphgpt_tpu/ops/mlp.py` (`_norm_mlp_kernel` :203,
-`fused_norm_mlp` :253 with `_fused_norm_mlp_bwd` :267, `_rmsnorm_bwd_kernel`
-:414, `xla_mlp` :468). The kernels live in `csrc/norm_mlp.cu` and
+Counterpart of `graphgpt_tpu/ops/mlp.py` (`_mlp_kernel` :82, `fused_mlp`
+:158 with `_fused_mlp_bwd` :170, `_norm_mlp_kernel` :203, `fused_norm_mlp`
+:253 with `_fused_norm_mlp_bwd` :267, `_rmsnorm_bwd_kernel` :414, `xla_mlp`
+:468). The kernels live in `csrc/mlp.cu`, `csrc/norm_mlp.cu` and
 `csrc/rmsnorm_bwd.cu`. Weights are in nn.Linear layout (`[out, in]`): the
 JAX package's `[in, out]` matrices transposed.
 """
@@ -18,6 +19,8 @@ import torch.nn.functional as F
 from . import _build, mm_f32, use_kernel
 
 _ACT_IDS = {"gelu": 0, "gelu_new": 1, "gelu_pytorch_tanh": 1, "silu": 2}
+# x, wg, wu, wd, g, out; N, D, F; act; stream
+_MLP_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 # x, wn, wg, wu, wd, g, out; N, D, F; eps; act; stream
 _ARGTYPES = (
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -67,12 +70,113 @@ def act_grad_fn(name: str):
     raise ValueError(f"unsupported hidden_act {name!r}")
 
 
-def mlp_ref(x, wg, wu, wd, act: str):
-    """act(x @ wg^T) * (x @ wu^T) @ wd^T in x's dtype (the twin of
-    `xla_mlp`; the activation runs in fp32 and is rounded back)."""
+def xla_mlp(x, wg, wu, wd, act: str):
+    """act(x @ wg^T) * (x @ wu^T) @ wd^T in x's dtype: the JAX package's
+    plain path (`xla_mlp`), which the backbone takes under MLP dropout; the
+    activation runs in fp32 and is rounded back. Differentiable by autograd."""
     dt = x.dtype
     a = act_fn(act)(F.linear(x, wg.to(dt)).float()).to(dt)
     return F.linear(a * F.linear(x, wu.to(dt)), wd.to(dt))
+
+
+def mlp_kernel_ref(x, wg, wu, wd, act: str):
+    """Plain version of the mlp kernel, with its rounding points: xg and xu
+    rounded to x's dtype, the activation in fp32 and rounded, g = a * xu in
+    x's dtype, the down product summed in fp32 and rounded once."""
+    dt = x.dtype
+    x32 = x.float()
+    xg = F.linear(x32, wg.float()).to(dt)
+    xu = F.linear(x32, wu.float()).to(dt)
+    a = act_fn(act)(xg.float()).to(dt)
+    g = a * xu
+    return F.linear(g.float(), wd.float()).to(dt)
+
+
+def _check_mlp_args(name, x, wg, wu, wd, act):
+    n, d = x.shape
+    f = wg.shape[0]
+    if x.dtype != torch.bfloat16 or any(w.dtype != torch.bfloat16 for w in (wg, wu, wd)):
+        raise NotImplementedError(f"the {name} kernel takes bf16 activations and weights")
+    if wg.shape != (f, d) or wu.shape != (f, d) or wd.shape != (d, f):
+        raise ValueError(f"weight shapes {wg.shape} {wu.shape} {wd.shape}")
+    if d % 64 or f % 64:
+        raise NotImplementedError(f"the {name} kernel needs D and F % 64 == 0, got {d}, {f}")
+    if act not in _ACT_IDS:
+        raise ValueError(f"unsupported hidden_act {act!r}")
+
+
+def mlp(x, wg, wu, wd, act: str):
+    """act(x @ wg^T) * (x @ wu^T) @ wd^T for x [N, D] in bf16 and bf16
+    weights: the CUDA kernel (two launches, counted as one call) for a CUDA
+    tensor, the plain version for a CPU tensor (or inside
+    ops.reference_mode())."""
+    if not use_kernel(x, wg, wu, wd):
+        return mlp_kernel_ref(x, wg, wu, wd, act)
+    _check_mlp_args("mlp", x, wg, wu, wd, act)
+    n, d = x.shape
+    f = wg.shape[0]
+    x, wg, wu, wd = (t.contiguous() for t in (x, wg, wu, wd))
+    # the kernel moves 16 bytes a thread
+    if any(t.data_ptr() % 16 for t in (x, wg, wu, wd)):
+        raise ValueError("mlp needs 16-byte aligned x and weights")
+    g = torch.empty((n, f), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    fn = _build.entry("mlp", "ggt_mlp", _MLP_ARGTYPES)
+    err = fn(
+        _build.ptr(x), _build.ptr(wg), _build.ptr(wu), _build.ptr(wd), _build.ptr(g),
+        _build.ptr(out), n, d, f, _ACT_IDS[act], _build.stream_ptr(x.device),
+    )
+    mlp.launches += 1
+    _build.check(err, "mlp")
+    return out
+
+
+mlp.launches = 0
+
+
+def mlp_bwd_ref(x, wg, wu, wd, dout, act: str):
+    """(dx, dwg, dwu, dwd) of `fused_mlp`, the formula of `_fused_mlp_bwd` in
+    plain ops: xg, xu, a, g computed again from x (rounded to x's dtype),
+    dg and dxg rounded, the three weight gradients summed in fp32. The
+    matrix products are `torch.matmul`, as the JAX package leaves them to
+    XLA."""
+    dt = x.dtype
+    wg_c, wu_c, wd_c = wg.to(dt), wu.to(dt), wd.to(dt)
+    xg = F.linear(x, wg_c)
+    xu = F.linear(x, wu_c)
+    a = act_fn(act)(xg.float()).to(dt)
+    g = a * xu
+    do = dout.to(dt)
+    dg = do @ wd_c
+    dwd = mm_f32(do.t(), g)
+    dxu = dg * a
+    dxg = ((dg * xu).float() * act_grad_fn(act)(xg.float())).to(dt)
+    dwg = mm_f32(dxg.t(), x)
+    dwu = mm_f32(dxu.t(), x)
+    dx = dxg @ wg_c + dxu @ wu_c
+    return dx, dwg.to(wg.dtype), dwu.to(wu.dtype), dwd.to(wd.dtype)
+
+
+class _FusedMLP(torch.autograd.Function):
+    """The mlp kernel forward; backward `mlp_bwd_ref`. Saves (x, wg, wu, wd)
+    only: the backward recomputes the intermediates."""
+
+    @staticmethod
+    def forward(ctx, x, wg, wu, wd, act):
+        dt = x.dtype
+        ctx.save_for_backward(x, wg, wu, wd)
+        ctx.act = act
+        return mlp(x, wg.to(dt), wu.to(dt), wd.to(dt), act)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*mlp_bwd_ref(*ctx.saved_tensors, dout, ctx.act), None)
+
+
+def fused_mlp(x, wg, wu, wd, act: str):
+    """act(x @ wg^T) * (x @ wu^T) @ wd^T: fp32 master weights cast to x's
+    dtype once per call, then `mlp`; differentiable in x and every weight."""
+    return _FusedMLP.apply(x, wg, wu, wd, act)
 
 
 def norm_mlp_ref(x, wn, wg, wu, wd, eps: float, act: str):
@@ -96,16 +200,11 @@ def norm_mlp(x, wn, wg, wu, wd, eps: float, act: str):
     version for a CPU tensor (or inside ops.reference_mode())."""
     if not use_kernel(x, wn, wg, wu, wd):
         return norm_mlp_ref(x, wn, wg, wu, wd, eps, act)
+    _check_mlp_args("norm_mlp", x, wg, wu, wd, act)
+    if wn.shape != x.shape[-1:]:
+        raise ValueError(f"norm weight shape {wn.shape}")
     n, d = x.shape
     f = wg.shape[0]
-    if x.dtype != torch.bfloat16 or any(w.dtype != torch.bfloat16 for w in (wg, wu, wd)):
-        raise NotImplementedError("the norm_mlp kernel takes bf16 activations and weights")
-    if wg.shape != (f, d) or wu.shape != (f, d) or wd.shape != (d, f) or wn.shape != (d,):
-        raise ValueError(f"weight shapes {wg.shape} {wu.shape} {wd.shape} {wn.shape}")
-    if d % 64 or f % 64:
-        raise NotImplementedError(f"the norm_mlp kernel needs D and F % 64 == 0, got {d}, {f}")
-    if act not in _ACT_IDS:
-        raise ValueError(f"unsupported hidden_act {act!r}")
     x, wg, wu, wd = (t.contiguous() for t in (x, wg, wu, wd))
     wn = wn.float().contiguous()
     # the kernel moves 16 bytes a thread

@@ -5,7 +5,8 @@ Counterpart of `graphgpt_tpu/training/optimizer.py` (`make_schedule` :24,
 flat dicts from the port's parameter names to tensors. The optimizer is a
 chain like the JAX package's: clip by global norm, AdamW (or Muon on the
 decoder's matrices and AdamW elsewhere), layer-wise LR scales on the
-updates, all under gradient accumulation. `update` is a function of
+updates, then an optional transform of the updates (the fine-tune freeze,
+`optax.chain(tx, freeze)` there), all under gradient accumulation. `update` is a function of
 (grads, state, params) and returns new tensors; `apply_updates` adds the
 updates to the parameters in place.
 
@@ -207,14 +208,17 @@ class OptState:
 
 
 class Optimizer:
-    """clip -> AdamW | Muon -> layer-wise scales, under accumulation."""
+    """clip -> AdamW | Muon -> layer-wise scales -> post_update, under
+    accumulation."""
 
-    def __init__(self, cfg: OptimizerConfig, schedule: Schedule, num_layers: Optional[int] = None):
+    def __init__(self, cfg: OptimizerConfig, schedule: Schedule, num_layers: Optional[int] = None,
+                 post_update: Optional[Callable[[Tree], Tree]] = None):
         if cfg.name not in ("adamw", "muon"):
             raise ValueError(f"unknown optimizer {cfg.name!r}")
         if cfg.layerwise_lr_decay > 0 and num_layers is None:
             raise ValueError("layerwise_lr_decay>0 requires num_layers")
         self.cfg, self.schedule, self.num_layers = cfg, schedule, num_layers
+        self.post_update = post_update
 
     def _is_muon(self, name: str, t: torch.Tensor) -> bool:
         """Muon takes the decoder layers' matrices; AdamW everything else."""
@@ -244,6 +248,8 @@ class Optimizer:
                 return None, dataclasses.replace(state, mini_step=n + 1, acc_grads=acc)
             grads = acc
         updates, new_state = self._inner(grads, state, params)
+        if self.post_update is not None:
+            updates = self.post_update(updates)
         if k > 1:
             new_state.mini_step = 0
             new_state.acc_grads = {key: torch.zeros_like(a) for key, a in grads.items()}
@@ -295,8 +301,10 @@ def apply_updates(params: Tree, updates: Optional[Tree]) -> None:
 def make_optimizer(
     cfg: OptimizerConfig, total_steps: int, warmup_steps: int,
     schedule: Optional[Schedule] = None, num_layers: Optional[int] = None,
+    post_update: Optional[Callable[[Tree], Tree]] = None,
 ) -> Optimizer:
-    return Optimizer(cfg, schedule or make_schedule(cfg, total_steps, warmup_steps), num_layers)
+    return Optimizer(cfg, schedule or make_schedule(cfg, total_steps, warmup_steps), num_layers,
+                     post_update)
 
 
 def compute_total_steps(

@@ -41,10 +41,12 @@ def make_train_step(
     schedule: Optional[Callable[[int], float]] = None,
 ):
     """step_fn(state, batch, seed) -> (state, metrics) with metrics "loss",
-    "grad_norm" (before the clip), "gen_loss" / "dis_loss" where the model
-    has them (0-d tensors on the model's device) and "lr" (a float, when a
-    schedule is given). EMA is a lerp of the fp32 copy toward the new
-    parameters."""
+    "grad_norm" (before the clip), "gen_loss" / "dis_loss" / "task_loss" /
+    "pretrain_loss" where the model has them (0-d tensors on the model's
+    device) and "lr" (a float, when a schedule is given). EMA is a lerp of
+    the fp32 copy toward the new parameters. Like the JAX package's step, it
+    hands the model no loss generator (the AUC loss then draws a fixed set
+    of negatives)."""
     ema_decay = opt_cfg.ema_decay if (opt_cfg and opt_cfg.use_ema) else None
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], seed: int = 0):
@@ -60,7 +62,7 @@ def make_train_step(
             k: p.grad if p.grad is not None else torch.zeros_like(p) for k, p in params.items()
         }
         metrics: Dict[str, Any] = {"loss": out["loss"].detach(), "grad_norm": global_norm(grads)}
-        for key in ("gen_loss", "dis_loss"):
+        for key in ("gen_loss", "dis_loss", "task_loss", "pretrain_loss"):
             if key in out:
                 metrics[key] = out[key].detach()
         if schedule is not None:
@@ -78,9 +80,14 @@ def make_train_step(
     return step_fn
 
 
+_EVAL_KEYS = ("loss", "gen_loss", "task_loss", "task_logits", "task_hidden_states",
+              "hidden_states")
+
+
 def make_eval_step(use_ema: bool = False):
-    """eval_fn(state, batch) -> {"loss", "gen_loss", "hidden_states"}, run
-    with the EMA copy in place of the parameters when asked."""
+    """eval_fn(state, batch) -> those of "loss", "gen_loss", "task_loss",
+    "task_logits", "task_hidden_states", "hidden_states" the model returns,
+    run with the EMA copy in place of the parameters when asked."""
 
     @torch.no_grad()
     def eval_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -88,6 +95,6 @@ def make_eval_step(use_ema: bool = False):
             out = torch.func.functional_call(state.model, state.ema_params, (batch,))
         else:
             out = state.model(batch)
-        return {k: out[k] for k in ("loss", "gen_loss", "hidden_states") if k in out}
+        return {k: out[k] for k in _EVAL_KEYS if k in out}
 
     return eval_fn

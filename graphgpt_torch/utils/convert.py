@@ -13,6 +13,8 @@ nn.Linear's [out, in] layout (the mapping of graphgpt_tpu/utils/convert.py):
     layers.ls{1,2}[i]         model.layers.{i}.lambda_{1,2}
     lm_head, n_token_proj     lm_head.weight, n_token_proj.weight (T)
     cl_proj                   cl_proj.weight (T)
+    score_w, score_b          score.weight (T), score.bias
+    score_mlp[i].{w,b}        score_mlp.{i}.weight (T), score_mlp.{i}.bias
     stacked_agg_w             stacked_feat_agg.weight
 
 Arrays cross as numpy: the tree may hold numpy arrays or anything that
@@ -76,6 +78,14 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor
             sd[theirs] = t(np.asarray(tree[ours]).T)
     if "stacked_agg_w" in tree:
         sd["stacked_feat_agg.weight"] = t(tree["stacked_agg_w"])
+    if "score_w" in tree:
+        sd["score.weight"] = t(np.asarray(tree["score_w"]).T)
+    if "score_b" in tree:
+        sd["score.bias"] = t(tree["score_b"])
+    for i, layer in enumerate(tree.get("score_mlp", ())):
+        sd[f"score_mlp.{i}.weight"] = t(np.asarray(layer["w"]).T)
+        if "b" in layer:
+            sd[f"score_mlp.{i}.bias"] = t(layer["b"])
     return sd
 
 
@@ -112,4 +122,15 @@ def params_to_jax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             tree[ours] = a(sd[theirs]).T
     if "stacked_feat_agg.weight" in sd:
         tree["stacked_agg_w"] = a(sd["stacked_feat_agg.weight"])
+    if "score.weight" in sd:
+        tree["score_w"] = a(sd["score.weight"]).T
+    if "score.bias" in sd:
+        tree["score_b"] = a(sd["score.bias"])
+    n_mlp = sum(1 for k in sd if k.startswith("score_mlp.") and k.endswith(".weight"))
+    if n_mlp:
+        tree["score_mlp"] = [
+            {"w": a(sd[f"score_mlp.{i}.weight"]).T,
+             **({"b": a(sd[f"score_mlp.{i}.bias"])} if f"score_mlp.{i}.bias" in sd else {})}
+            for i in range(n_mlp)
+        ]
     return tree

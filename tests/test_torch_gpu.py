@@ -17,7 +17,7 @@ import torch
 
 from graphgpt_torch import ops
 from graphgpt_torch.config import ModelConfig, OptimizerConfig, flagship_config
-from graphgpt_torch.models.heads import GraphGPTPretrain
+from graphgpt_torch.models.heads import GraphGPTPretrain, GraphGPTTask
 from graphgpt_torch.models.rope import rope_cos_sin
 from graphgpt_torch.ops import flash_attention as tfa
 from graphgpt_torch.ops import mlp as tmlp
@@ -109,10 +109,10 @@ def test_norm_mlp_kernel_matches_plain(cuda_device, act, n):
 
 
 def _tiny_cfg(**kw):
-    return ModelConfig(
-        vocab_size=50, hidden_size=128, num_hidden_layers=2, stacked_feat=3,
-        next_n_token=3, mask_token_id=1, **kw,
-    ).finalize()
+    return ModelConfig(**{
+        **dict(vocab_size=50, hidden_size=128, num_hidden_layers=2, stacked_feat=3,
+               next_n_token=3, mask_token_id=1), **kw,
+    }).finalize()
 
 
 @pytest.mark.gpu
@@ -134,11 +134,63 @@ def test_model_forward_launches_each_kernel_once_per_layer(cuda_device):
 
 
 @pytest.mark.gpu
-def test_layer_scale_model_raises_on_cuda(cuda_device):
-    model = GraphGPTPretrain(_tiny_cfg(layer_scale_init_value=0.1), device=cuda_device)
-    batch = to_torch(fake_batch(1, 64, 3, 50, np.random.default_rng(1)), cuda_device)
-    with pytest.raises(NotImplementedError, match="LayerScale"):
-        model.loss(batch)
+def test_layer_scale_model_goes_through_the_split_kernel_on_cuda(cuda_device):
+    """With LayerScale the eval forward takes kernel #11 once a layer and
+    the norm-fused kernel never, and agrees with the plain run."""
+    cfg = _tiny_cfg(layer_scale_init_value=0.1)
+    model = GraphGPTPretrain(cfg, device=cuda_device)
+    batch = to_torch(fake_batch(2, 128, 3, 50, np.random.default_rng(1)), cuda_device)
+    mlp0, norm0 = tmlp.mlp.launches, tmlp.norm_mlp.launches
+    out = model(batch)
+    torch.cuda.synchronize()
+    assert tmlp.mlp.launches - mlp0 == cfg.num_hidden_layers
+    assert tmlp.norm_mlp.launches == norm0
+    with ops.reference_mode():
+        ref = model(batch)
+    assert abs(out["loss"].item() - ref["loss"].item()) < 5e-3
+    assert _rel(out["hidden_states"], ref["hidden_states"]) < 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["gelu", "gelu_pytorch_tanh", "silu"])
+@pytest.mark.parametrize("shape", [(200, 128, 512), (512, 128, 512), (18432, 768, 3072)],
+                         ids=["ragged", "small", "finetune"])
+def test_mlp_kernel_matches_plain(cuda_device, act, shape):
+    """Kernel #11 against its plain version in bf16: the same rounding
+    points, fp32 sums in another order (1 ulp of the output). The weights
+    are drawn at about 0.55 / sqrt(D) (0.02 at D 768, the model's init), so
+    that the outputs have the model's magnitude."""
+    dev = cuda_device
+    n, d, f = shape
+    rng = np.random.default_rng(12)
+    scale = 0.55 / d**0.5
+    x = _bf16(rng, (n, d), 1.0, dev)
+    wg, wu = _bf16(rng, (f, d), scale, dev), _bf16(rng, (f, d), scale, dev)
+    wd = _bf16(rng, (d, f), scale, dev)
+    before = tmlp.mlp.launches
+    out = tmlp.mlp(x, wg, wu, wd, act)
+    torch.cuda.synchronize()
+    assert tmlp.mlp.launches == before + 1
+    with ops.reference_mode():
+        ref = tmlp.mlp(x, wg, wu, wd, act)
+    assert tmlp.mlp.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+    assert _rel(out, ref) < 2e-3
+
+
+@pytest.mark.gpu
+def test_mlp_kernel_raises_outside_its_shapes(cuda_device):
+    dev = cuda_device
+    x = torch.zeros(8, 128, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(256, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        tmlp.mlp(x.float(), w.float(), w.float(), w.t().float(), "gelu")
+    with pytest.raises(NotImplementedError):
+        odd = torch.zeros(8, 100, device=dev, dtype=torch.bfloat16)
+        wo = torch.zeros(256, 100, device=dev, dtype=torch.bfloat16)
+        tmlp.mlp(odd, wo, wo, wo.t().contiguous(), "gelu")
+    with pytest.raises(ValueError):
+        tmlp.mlp(x, w, w, w.t().contiguous(), "relu")
 
 
 def _rel(a, b):
@@ -346,14 +398,61 @@ def test_training_gradients_match_the_plain_run(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kw", [dict(path_dropout=0.1), dict(mlp_dropout=0.1)],
+@pytest.mark.parametrize("kw,kernel", [(dict(path_dropout=0.1), "mlp"),
+                                       (dict(mlp_dropout=0.1), None)],
                          ids=["path_dropout", "mlp_dropout"])
-def test_split_mlp_models_raise_on_cuda_in_training(cuda_device, kw):
-    """DropPath and MLP dropout sit between the MLP and the residual: they
-    need the split MLP kernel, which is not ported. Eval (no masks) runs."""
-    model = GraphGPTPretrain(_tiny_cfg(**kw), device=cuda_device)
+def test_split_mlp_models_train_on_cuda(cuda_device, kw, kernel):
+    """DropPath takes kernel #11 in training; MLP dropout the plain
+    `xla_mlp`, as the JAX package does; eval (no masks) the norm-fused
+    kernel."""
+    cfg = _tiny_cfg(**kw)
+    model = GraphGPTPretrain(cfg, device=cuda_device)
     batch = to_torch(fake_batch(2, 64, 3, 50, np.random.default_rng(1)), cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    with pytest.raises(NotImplementedError, match="split"):
-        model(batch, generator=gen, train=True)
+    mlp0, norm0 = tmlp.mlp.launches, tmlp.norm_mlp.launches
+    out = model(batch, generator=gen, train=True)
+    out["loss"].backward()
+    torch.cuda.synchronize()
+    assert tmlp.mlp.launches - mlp0 == (cfg.num_hidden_layers if kernel else 0)
+    assert tmlp.norm_mlp.launches == norm0
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
     assert torch.isfinite(model.loss(batch))
+    assert tmlp.norm_mlp.launches - norm0 == cfg.num_hidden_layers
+
+
+@pytest.mark.gpu
+def test_finetune_step_launch_counts(cuda_device):
+    """A fine-tune step of a LayerScale model with DropPath under `pairs`:
+    per layer two mlp launches (forward and recompute; the backward is torch
+    ops), two flash forwards, one flash backward, two RMSNorm backwards, and
+    the final norm's; no norm_mlp. The EMA eval forward: one mlp a layer."""
+    cfg = _tiny_cfg(layer_scale_init_value=1.0, path_dropout=0.1, attention_dropout=0.1,
+                    remat=True, remat_policy="pairs", use_generative=False, task_type="graph",
+                    problem_type="regression", loss_type="l1", next_n_token=1)
+    model = GraphGPTTask(cfg, device=cuda_device, seed=0)
+    nb = fake_batch(4, 64, 3, 50, np.random.default_rng(1))
+    nb["graph_labels"] = np.random.default_rng(2).normal(5, 1, size=(4, 1)).astype(np.float32)
+    batch = to_torch(nb, cuda_device)
+    opt_cfg = OptimizerConfig(lr=1e-3, scheduler="constant", use_ema=True)
+    tx = make_optimizer(opt_cfg, 10, 1)
+    state = init_train_state(model, tx, use_ema=True)
+    step = make_train_step(tx, opt_cfg)
+    counters = {"mlp": tmlp.mlp, "flash_fwd": tfa.flash_fwd, "flash_bwd": tfa.flash_bwd,
+                "norm_mlp": tmlp.norm_mlp, "rmsnorm_bwd": tmlp.rmsnorm_bwd}
+    n = cfg.num_hidden_layers
+    for _ in range(2):
+        before = {k: f.launches for k, f in counters.items()}
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        got = {k: f.launches - before[k] for k, f in counters.items()}
+        assert got == {"mlp": 2 * n, "flash_fwd": 2 * n, "flash_bwd": n, "norm_mlp": 0,
+                       "rmsnorm_bwd": 2 * n + 1}
+        assert torch.isfinite(metrics["task_loss"])
+    from graphgpt_torch.training.steps import make_eval_step
+
+    before = {k: f.launches for k, f in counters.items()}
+    out = make_eval_step(use_ema=True)(state, batch)
+    torch.cuda.synchronize()
+    got = {k: f.launches - before[k] for k, f in counters.items()}
+    assert got == {"mlp": n, "flash_fwd": n, "flash_bwd": 0, "norm_mlp": 0, "rmsnorm_bwd": 0}
+    assert out["task_logits"].shape == (4, 1) and torch.isfinite(out["task_loss"])

@@ -4,7 +4,7 @@ An AST scan of every module of `graphgpt_torch/` and of `chip_smoke.py`
 finds no import of jax, jaxlib, optax, flax, orbax or graphgpt_tpu, at any
 depth (inside functions too). A subprocess that blocks `jax` in
 `sys.modules` imports every module of the port and runs a tiny CPU forward,
-a few sampler steps and one training step.
+a few sampler steps, one training step and a one-epoch fine-tune run.
 """
 
 import ast
@@ -44,10 +44,11 @@ def test_the_scan_sees_every_module():
     for must in ("graphgpt_torch/ops/flash_attention.py", "graphgpt_torch/ops/mlp.py",
                  "graphgpt_torch/models/heads.py", "graphgpt_torch/generation/dllm.py",
                  "graphgpt_torch/training/optimizer.py", "graphgpt_torch/training/steps.py",
-                 "chip_smoke.py"):
+                 "graphgpt_torch/training/finetune.py", "graphgpt_torch/data/tokenizer.py",
+                 "graphgpt_torch/utils/metrics.py", "chip_smoke.py"):
         assert must in names
     assert sorted(p.name for p in (ROOT / "graphgpt_torch" / "csrc").glob("*.cu")) == [
-        "flash_bwd.cu", "flash_fwd.cu", "norm_mlp.cu", "rmsnorm_bwd.cu",
+        "flash_bwd.cu", "flash_fwd.cu", "mlp.cu", "norm_mlp.cu", "rmsnorm_bwd.cu",
     ]
 
 
@@ -82,6 +83,24 @@ from graphgpt_torch.training.steps import init_train_state, make_train_step
 tx = make_optimizer(OptimizerConfig(), 10, 1)
 state, metrics = make_train_step(tx)(init_train_state(model, tx), batch)
 assert state.step == 1 and torch.isfinite(metrics["grad_norm"]), metrics
+import tempfile
+from graphgpt_torch.config import Config
+from graphgpt_torch.training.finetune import FinetunePipeline
+cfg = Config()
+cfg.tokenization.semantics.node.discrete, cfg.tokenization.semantics.node.dim = "node_attr", 9
+cfg.tokenization.semantics.edge.discrete, cfg.tokenization.semantics.edge.dim = "edge_attr", 3
+cfg.model.hidden_size, cfg.model.num_hidden_layers, cfg.model.dtype = 64, 1, "float32"
+cfg.model.problem_type, cfg.model.loss_type, cfg.model.layer_scale_init_value = "regression", "l1", 1.0
+cfg.training.task_type, cfg.training.batch_size, cfg.training.max_length = "graph", 8, 64
+cfg.training.schedule.epochs, cfg.training.k_samplers = 1, 0
+cfg.training.output_dir = tempfile.mkdtemp()
+import contextlib, io
+with contextlib.redirect_stdout(io.StringIO()):  # the pipeline's log lines
+    pipe = FinetunePipeline(cfg, device="cpu").setup()
+    pipe.train_idx, pipe.valid_idx = pipe.train_idx[:16], pipe.valid_idx[:8]
+    pipe.test_idx = pipe.valid_idx
+    best = pipe.run()
+assert np.isfinite(best["valid_mae"]), best
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "graphgpt_tpu")
              and sys.modules[m] is not None)
 assert not bad, bad

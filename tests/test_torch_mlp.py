@@ -67,7 +67,7 @@ def test_mlp_ref_matches_xla_mlp(act):
     x, _, wg, wu, wd = _inputs(seed=2)
     want = np.asarray(jmlp.xla_mlp(*(jnp.asarray(a) for a in (x, wg, wu, wd)), act))
     t = torch.from_numpy
-    got = tmlp.mlp_ref(t(x), t(wg.T.copy()), t(wu.T.copy()), t(wd.T.copy()), act).numpy()
+    got = tmlp.xla_mlp(t(x), t(wg.T.copy()), t(wu.T.copy()), t(wd.T.copy()), act).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
