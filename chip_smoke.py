@@ -10,7 +10,9 @@
    their tolerances) at the shapes both main paths give it, 8 x 1024 rows
    for serving and 64 x 1024 for training, timed three times with
    CUDA events beside the plain version, one PyTorch library call where one
-   computes the same function, and the card's bound for the same work.
+   computes the same function, and the card's bound for the same work;
+   the bi-causal flash_fwd and the split backward pair (flash_dq,
+   flash_dkv) the same way at 8 x 1024 with 16 bit slots.
 4. Eval phase: GraphGPT-base at full width (seeded random weights), the
    SMTP eval loss of a packed 8 x 1024 batch, against the same model run
    with the plain versions; each forward kernel launches once per layer.
@@ -34,12 +36,25 @@
    Then launch counts per training step and per EMA eval forward, the
    losses, the valid and EMA-valid MAE, ms per step, the loader's graphs/s
    and peak memory.
-8. Prints one JSON line listing every kernel, then the device line last.
+8. Denoise phase: a fresh GraphGPT-base denoising double-heads model
+   (configs/pcqm4m_v2_supervised.yaml's setup plus bi_causal_split 16, the
+   binary-energy decoding) on a 256 x 88 mol3d batch: every kernel of its
+   step at that batch's shape against its plain version (the bi-causal
+   flash_fwd, flash_dq with its delta, flash_dkv, norm_mlp and rmsnorm_bwd
+   at N 22,528), the first step against the plain run on the same draws,
+   eight AdamW + EMA steps with their launch counts, an EMA eval forward
+   that decodes the energies, ms per step and peak memory.
+9. Position-pretraining phase: a fresh GraphGPT-base pos-smtp-line model on
+   a 256 x 72 mol3d batch: flash_fwd, flash_bwd and norm_mlp at that
+   batch's shape against their plain versions, the first step against the
+   plain run, four steps with their launch counts.
+10. Prints one JSON line listing every kernel, then the device line last.
 
 Any failed check raises, so the script exits non-zero. The launch counts
 are set to 0 just before each main path (eval + generation; training;
-fine-tuning) and read just after it; launches made to compare a kernel
-with its plain version fall outside those windows.
+fine-tuning; denoising; position pretraining) and read just after it;
+launches made to compare a kernel with its plain version fall outside
+those windows.
 """
 
 from __future__ import annotations
@@ -77,6 +92,9 @@ MLP_TOL = dict(atol=1e-2, rtol=1e-2, rel=2e-3)
 # so that a dropped tile or a wrong row cannot hide under the elementwise
 # bound. Padded rows must be exactly 0.
 FLASH_BWD_TOL = dict(atol=3.2e-2, rel=2e-3)
+# delta = rowsum(do * out) in fp32 from bf16 inputs, whose products are exact
+# in fp32: only the order of 64 fp32 additions differs (|delta| ~1 here)
+DELTA_ATOL = 1e-5
 # dx bf16 (1 ulp of the largest values), dw fp32 summed over 65536 rows in
 # another order than torch.sum's
 RMS_BWD_TOL = dict(dx_atol=3.2e-2, dx_rel=2e-3, dw_rtol=1e-3)
@@ -99,6 +117,18 @@ HIDDEN_REL = 3e-2  # Frobenius norm of the difference over that of the plain run
 # the 1e-3 predicted for the loss.
 FT_GRAD_REL = 7e-2
 FT_LOSS_ATOL = 1e-3
+# The denoise step (bi-causal split 16, pairs remat, the force head's plain
+# attention and the 3D embeddings) and the position-pretraining step
+# (save_attn, the 2D and 3D CE heads) against their plain runs on the same
+# draws: the same rounding points, sums in another order through twelve
+# layers. On an H100 (two calls, the same digits) the denoise step reads
+# loss |diff| 4.4e-4 and worst gradient 3.162e-2, the position step 7.4e-5
+# and 4.926e-2 (both at layers.11.self_attn.k_proj); each limit is about
+# twice its reading, the loss limits the 1e-3 predicted.
+DN_GRAD_REL = 7e-2
+DN_LOSS_ATOL = 1e-3
+POS_GRAD_REL = 1e-1
+POS_LOSS_ATOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -185,9 +215,10 @@ def check_flash_fwd(tag, out, lse, rout, rlse, seg):
     return max(err_out, err_lse)
 
 
-def check_flash_bwd(tag, got, ref, seg):
-    """(dq, dk, dv) of flash_bwd against the plain version's; returns the
-    largest elementwise and the largest relative error."""
+def check_flash_bwd(tag, got, ref, seg, name="flash_bwd", parts=("dq", "dk", "dv")):
+    """(dq, dk, dv) of flash_bwd (or the outputs `parts` of another backward
+    kernel) against the plain version's; returns the largest elementwise and
+    the largest relative error."""
     valid = seg > 0
     errs, rels, pad_ok = [], [], True
     for g, r in zip(got, ref):
@@ -196,14 +227,16 @@ def check_flash_bwd(tag, got, ref, seg):
         pad_ok = pad_ok and bool((g[~valid] == 0).all())
     finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
     print(
-        f"flash_bwd[{tag}] max|d-plain| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
-        f"(tol {FLASH_BWD_TOL['atol']}) |d-plain|/|plain| dq {rels[0]:.3e} dk {rels[1]:.3e} "
-        f"dv {rels[2]:.3e} (tol {FLASH_BWD_TOL['rel']}) padded rows exactly 0: {pad_ok}",
+        f"{name}[{tag}] max|d-plain| "
+        + " ".join(f"{n} {e:.3e}" for n, e in zip(parts, errs))
+        + f" (tol {FLASH_BWD_TOL['atol']}) |d-plain|/|plain| "
+        + " ".join(f"{n} {r:.3e}" for n, r in zip(parts, rels))
+        + f" (tol {FLASH_BWD_TOL['rel']}) padded rows exactly 0: {pad_ok}",
         flush=True,
     )
     if not (max(errs) <= FLASH_BWD_TOL["atol"] and max(rels) <= FLASH_BWD_TOL["rel"]
             and pad_ok and finite):
-        fail(f"flash_bwd[{tag}] disagrees with its plain version")
+        fail(f"{name}[{tag}] disagrees with its plain version")
     return max(errs), max(rels)
 
 
@@ -241,18 +274,26 @@ def flash_tensors(seg, h: int, dh: int, seed: int = 0):
     return qs, k, v, do
 
 
-def flash_work(fa, seg, causal: bool, h: int, dh: int, backward: bool):
-    """(bytes, operations) of flash_fwd or flash_bwd on these inputs. Each
-    (query, valid key) pair costs a q.k and a p.v product of Dh
-    multiply-adds per head forward, five (S, dP, dv, dq, dk) backward; the
-    bytes are q, k, v, out (and do, dq, dk, dv) in bf16, the segment ids,
-    cos, sin and the lse."""
+# per kernel: the products a (query, visible key) pair costs (each 2*Dh
+# operations a head), the bf16 token-major tensors read or written, and the
+# fp32 [B, H, P] rows read or written
+_FLASH_WORK = {"fwd": (2, 4, 1), "bwd": (5, 8, 1), "dq": (3, 6, 2), "dkv": (4, 6, 2)}
+
+
+def flash_work(fa, seg, causal: bool, h: int, dh: int, kind: str, bi: int = 0):
+    """(bytes, operations) of flash_fwd ("fwd"), flash_bwd ("bwd"),
+    flash_dq ("dq") or flash_dkv ("dkv") on these inputs. The products are
+    q.k and p.v forward; S, dP, dv, dq, dk fused; S, dP, dq for dq; S, dP,
+    dv, dk for dkv, each over the visible pairs of this mask only. The bytes
+    are each bf16 tensor read or written once (q, k, v, out forward; q, k, v,
+    do, out and dq, dk, dv fused; q, k, v, do, out and dq for dq, which
+    computes delta too; q, k, v, do and dk, dv for dkv), the segment ids,
+    cos, sin and the fp32 rows (lse; lse and delta)."""
     b, p = seg.shape
-    pairs = int(fa._valid_mask(seg, causal).sum().item())
-    flops = (10.0 if backward else 4.0) * dh * h * pairs
-    nbytes = (8 if backward else 4) * b * p * h * dh * 2 + b * p * 4 + 2 * b * p * dh * 2 \
-        + b * h * p * 4
-    return nbytes, flops
+    products, tensors, rows = _FLASH_WORK[kind]
+    pairs = int(fa._valid_mask(seg, causal, bi).sum().item())
+    nbytes = tensors * b * p * h * dh * 2 + b * p * 4 + 2 * b * p * dh * 2 + rows * b * h * p * 4
+    return nbytes, 2.0 * products * dh * h * pairs
 
 
 def flash_at_shape(fa, ops, tag, seg, cos, sin, h: int, dh: int, causal: bool = False):
@@ -277,9 +318,9 @@ def flash_at_shape(fa, ops, tag, seg, cos, sin, h: int, dh: int, causal: bool = 
     ms_spread = spread()
     fwd_ms = cuda_ms(lambda: fa.flash_fwd(qs, k, v, seg, cos, sin, causal, dh), iters=10)
     fwd_spread = spread()
-    nbytes, flops = flash_work(fa, seg, causal, h, dh, backward=True)
+    nbytes, flops = flash_work(fa, seg, causal, h, dh, "bwd")
     bms, by = bound(nbytes, flops)
-    fbytes, fflops = flash_work(fa, seg, causal, h, dh, backward=False)
+    fbytes, fflops = flash_work(fa, seg, causal, h, dh, "fwd")
     fbms, fby = bound(fbytes, fflops)
     print(
         f"flash_bwd[{tag}] B={b} P={p} H={h}: kernel {ms:.4f} ms (3 readings {ms_spread}), "
@@ -290,6 +331,87 @@ def flash_at_shape(fa, ops, tag, seg, cos, sin, h: int, dh: int, causal: bool = 
     )
     return dict(err=err, rel=rel, fwd_err=fwd_err, ms=ms, bound_ms=bms, bound_by=by,
                 fwd_ms=fwd_ms, fwd_bound_ms=fbms)
+
+
+def split_at_shape(fa, ops, tag, seg, cos, sin, bi: int, h: int, dh: int):
+    """The bi-causal flash_fwd and the split backward pair flash_dq and
+    flash_dkv at one shape (seg [B, P], `bi` bit slots) against their plain
+    versions (8 rows at a time), then each one's time (three CUDA-event
+    readings) beside its bound, its plain version's time, and the time of
+    SDPA with the bi-causal boolean mask (forward; forward's backward for
+    the pair, which computes dq, dk and dv in one call). flash_dq's delta
+    is held against its plain version too."""
+    b, p = seg.shape
+    qs, k, v, do = flash_tensors(seg, h, dh, seed=3)
+    out, lse = fa.flash_fwd(qs, k, v, seg, cos, sin, False, dh, bi)
+    dq_args = (qs, k, v, seg, cos, sin, out, lse, do, None, False, dh, bi)
+    dq, delta = fa.flash_dq(*dq_args)
+    args = (qs, k, v, seg, cos, sin, lse, delta, do, False, dh, bi)
+    dk, dv = fa.flash_dkv(*args)
+    sync(seg.device)
+    shape = f"{tag}, B={b} P={p} split {p - bi}"
+    rout, rlse = plain_in_row_chunks(
+        ops, lambda *t: fa.flash_fwd(*t, False, dh, bi), (qs, k, v, seg, cos, sin))
+    fwd_err = check_flash_fwd(f"bi-causal, {shape}", out, lse, rout, rlse, seg)
+    del rout, rlse
+    rdq, rdelta = plain_in_row_chunks(ops, lambda *t: fa.flash_dq(*t, False, dh, bi),
+                                      (qs, k, v, seg, cos, sin, out, lse, do, None))
+    delta_err = (delta - rdelta).abs().max().item()
+    print(f"flash_dq[{shape}] max|delta-plain| {delta_err:.3e} (tol {DELTA_ATOL})", flush=True)
+    if not delta_err <= DELTA_ATOL:
+        fail(f"flash_dq[{shape}]'s delta disagrees with its plain version")
+    dq_err, dq_rel = check_flash_bwd(shape, (dq,), (rdq,), seg, "flash_dq", ("dq",))
+    rdk, rdv = plain_in_row_chunks(ops, lambda *t: fa.flash_dkv(*t, False, dh, bi),
+                                   (qs, k, v, seg, cos, sin, lse, delta, do))
+    dkv_err, dkv_rel = check_flash_bwd(shape, (dk, dv), (rdk, rdv), seg, "flash_dkv",
+                                       ("dk", "dv"))
+    del rdq, rdk, rdv
+
+    rq = fa.rotate_tokens(qs, cos, sin, dh).view(b, p, h, dh).transpose(1, 2)
+    rk = fa.rotate_tokens(k, cos, sin, dh).view(b, p, h, dh).transpose(1, 2)
+    mask = fa._valid_mask(seg, False, bi)
+    leaves = [t.detach().requires_grad_() for t in (rq, rk, v.view(b, p, h, dh).transpose(1, 2))]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = cuda_ms(lambda: sdpa(*leaves, attn_mask=mask, scale=1.0), iters=5)
+    sd = sdpa(*leaves, attn_mask=mask, scale=1.0)
+    do4 = do.view(b, p, h, dh).transpose(1, 2)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(sd, leaves, do4, retain_graph=True), iters=5)
+    del sd, leaves, mask
+    res = {}
+    for kind, fn in (("fwd", lambda: fa.flash_fwd(qs, k, v, seg, cos, sin, False, dh, bi)),
+                     ("dq", lambda: fa.flash_dq(*dq_args)), ("dkv", lambda: fa.flash_dkv(*args))):
+        ms = cuda_ms(fn, iters=10)
+        ms_spread = spread()
+        with ops.reference_mode():
+            plain_ms = cuda_ms(fn, iters=3)
+        lib_ms = lib_fwd if kind == "fwd" else lib_bwd
+        nbytes, flops = flash_work(fa, seg, False, h, dh, kind, bi)
+        bms, by = bound(nbytes, flops)
+        name = {"fwd": "flash_fwd[bi-causal]", "dq": "flash_dq", "dkv": "flash_dkv"}[kind]
+        lib = "SDPA" if kind == "fwd" else "SDPA backward (dq, dk, dv)"
+        print(
+            f"{name} {tag} B={b} P={p} H={h} split {p - bi}: kernel {ms:.4f} ms (3 readings "
+            f"{ms_spread}), plain {plain_ms:.4f} ms, {lib} {lib_ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)",
+            flush=True,
+        )
+        res[kind] = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms, bound_by=by)
+    res["fwd"]["err"] = fwd_err
+    res["dq"].update(err=dq_err, rel=dq_rel, delta_err=delta_err)
+    res["dkv"].update(err=dkv_err, rel=dkv_rel)
+    return res
+
+
+def split_phase(dev, fa, ops, synthetic, rope_cos_sin):
+    """The split pair and the bi-causal forward at B 8 x P 1024 with 16 bit
+    slots (split 1008, inside the sixteenth 64-row tile) on packed rows."""
+    b, p, h, dh, bi = 8, 1024, 12, 64, 16
+    seg_np = synthetic.packed_segments(b, p, np.random.default_rng(7))
+    seg_np[-1, p - 40 : p - bi] = 0  # a padded stretch before the last row's bit slots
+    seg = torch.from_numpy(seg_np).to(dev)
+    pos = torch.arange(p, device=dev).expand(b, p)
+    cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(pos, dh))
+    return split_at_shape(fa, ops, "P1024", seg, cos, sin, bi, h, dh)
 
 
 def flash_phase(dev, fa, ops, synthetic, rope_cos_sin):
@@ -328,7 +450,7 @@ def flash_phase(dev, fa, ops, synthetic, rope_cos_sin):
             ),
             iters=5,
         )
-        nbytes, flops = flash_work(fa, seg, causal, h, dh, backward=False)
+        nbytes, flops = flash_work(fa, seg, causal, h, dh, "fwd")
         bms, by = bound(nbytes, flops)
         print(
             f"flash_fwd[{tag}] B={b} P={p} H={h} Dh={dh}: kernel {ms:.4f} ms (3 readings "
@@ -342,50 +464,51 @@ def flash_phase(dev, fa, ops, synthetic, rope_cos_sin):
     return res
 
 
-def mlp_phase(dev, mlp, ops):
-    n, d, f = 8192, 768, 3072
+def norm_mlp_at_shape(dev, mlp, ops, n: int, tag: str, time_plain: bool = True):
+    """norm_mlp (gelu, D 768, F 3072, weights at 0.02) against its plain
+    version on N rows, then its time (three CUDA-event readings) beside the
+    plain version's, when asked, and the bound."""
+    d, f = 768, 3072
     gen = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
     wn = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
     wg, wu = (
         (torch.randn(f, d, generator=gen, device=dev) * 0.02).to(torch.bfloat16) for _ in range(2)
     )
     wd = (torch.randn(d, f, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    x = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
     args = (x, wn, wg, wu, wd, 1e-6, "gelu")
     out = mlp.norm_mlp(*args)
     torch.cuda.synchronize()
     with ops.reference_mode():
         ref = mlp.norm_mlp(*args)
-    err = check_mlp("norm_mlp", f"N={n}", out, ref)
-    ms = cuda_ms(lambda: mlp.norm_mlp(*args))
+    err = check_mlp("norm_mlp", f"{tag}, N={n}", out, ref)
+    del out, ref
+    ms = cuda_ms(lambda: mlp.norm_mlp(*args), iters=10)
     ms_spread = spread()
-    with ops.reference_mode():
-        plain_ms = cuda_ms(lambda: mlp.norm_mlp(*args), iters=5)
+    plain_ms = None
+    if time_plain:
+        with ops.reference_mode():
+            plain_ms = cuda_ms(lambda: mlp.norm_mlp(*args), iters=3)
     flops = 2.0 * n * d * f * 3
     nbytes = 2 * n * d * 2 + d * 4 + 3 * d * f * 2
     bms, by = bound(nbytes, flops)
+    plain = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
     print(
-        f"norm_mlp N={n} D={d} F={f} gelu: kernel {ms:.4f} ms (3 readings {ms_spread}), "
-        f"plain {plain_ms:.4f} ms, "
-        f"library none, bound {bms * 1e3:.2f} us ({by}: {nbytes / 1e6:.1f} MB, "
+        f"norm_mlp[{tag}] N={n} D={d} F={f} gelu: kernel {ms:.4f} ms (3 readings {ms_spread}), "
+        f"plain {plain}, library none, bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
         f"{flops / 1e9:.1f} GFLOP)",
         flush=True,
     )
-    # the training batch: N = 64 x 1024 rows, against the plain version too
-    n64 = 65536
-    x64 = torch.randn(n64, d, generator=gen, device=dev).to(torch.bfloat16)
-    out64 = mlp.norm_mlp(x64, wn, wg, wu, wd, 1e-6, "gelu")
-    torch.cuda.synchronize()
-    with ops.reference_mode():
-        ref64 = mlp.norm_mlp(x64, wn, wg, wu, wd, 1e-6, "gelu")
-    train_err = check_mlp("norm_mlp", f"train shape, N={n64}", out64, ref64)
-    del out64, ref64
-    train_ms = cuda_ms(lambda: mlp.norm_mlp(x64, wn, wg, wu, wd, 1e-6, "gelu"), iters=5)
-    tb, _ = bound(2 * n64 * d * 2 + d * 4 + 3 * d * f * 2, 2.0 * n64 * d * f * 3)
-    print(f"norm_mlp[train shape] N={n64}: kernel {train_ms:.4f} ms (3 readings {spread()}), "
-          f"bound {tb:.4f} ms (operations)", flush=True)
-    return dict(err=max(err, train_err), ms=ms, plain_ms=plain_ms, lib_ms=None, bound_ms=bms,
-                bound_by=by, train_ms=train_ms, train_bound_ms=tb)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+def mlp_phase(dev, mlp, ops):
+    """norm_mlp at the serving batch's N 8192 and the training batch's
+    N 65536 (64 x 1024 rows; the plain version is not timed there)."""
+    r = norm_mlp_at_shape(dev, mlp, ops, 8192, "serving shape")
+    t = norm_mlp_at_shape(dev, mlp, ops, 65536, "train shape", time_plain=False)
+    return dict(r, err=max(r["err"], t["err"]), lib_ms=None, train_ms=t["ms"],
+                train_bound_ms=t["bound_ms"])
 
 
 def flash_bwd_phase(dev, fa, ops, synthetic, rope_cos_sin):
@@ -431,7 +554,7 @@ def flash_bwd_phase(dev, fa, ops, synthetic, rope_cos_sin):
         do4 = do.view(b, p, h, dh).transpose(1, 2)
         lib_ms = cuda_ms(lambda: torch.autograd.grad(sd, leaves, do4, retain_graph=True), iters=5)
         del sd, leaves
-        nbytes, flops = flash_work(fa, seg, causal, h, dh, backward=True)
+        nbytes, flops = flash_work(fa, seg, causal, h, dh, "bwd")
         bms, by = bound(nbytes, flops)
         print(
             f"flash_bwd[{tag}] B={b} P={p} H={h} Dh={dh}: kernel {ms:.4f} ms (3 readings "
@@ -496,48 +619,82 @@ def rms_bwd_phase(dev, mlp, ops, n: int = 65536):
                 bound_by=by)
 
 
-def loss_and_grads(model, batch):
-    """One training forward and backward: (loss, {name: gradient})."""
-    model.zero_grad(set_to_none=True)
-    loss = model(batch, train=True)["loss"]
-    loss.backward()
-    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
-    model.zero_grad(set_to_none=True)
-    return loss.item(), grads
+def step_vs_plain(model, batch, ops, tag, loss_atol, grad_rel, call=dict):
+    """One training forward and backward with the kernels against the same
+    with the plain versions: the loss and every parameter's gradient.
+    `call()` gives the model call's other keyword arguments, made afresh for
+    each run so that both draw the same (dropout generators, draws). Prints
+    the plain run's peak memory; returns the worst relative error."""
 
+    def run():
+        model.zero_grad(set_to_none=True)
+        loss = model(batch, train=True, **call())["loss"]
+        loss.backward()
+        g = {k: q.grad.detach().clone() for k, q in model.named_parameters()
+             if q.grad is not None}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), g
 
-def compare_grads(model, batch, ops) -> float:
-    """The training step's loss and every parameter's gradient with the
-    kernels against the same step with the plain versions. Returns the worst
-    relative error."""
-    loss_k, grads_k = loss_and_grads(model, batch)
-    if model.device.type == "cuda":
+    cuda = model.device.type == "cuda"
+    loss_k, grads_k = run()
+    if cuda:
         torch.cuda.reset_peak_memory_stats()
     with ops.reference_mode():
-        loss_p, grads_p = loss_and_grads(model, batch)
-    if model.device.type == "cuda":
-        print(f"plain training step: max_memory_allocated "
-              f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB", flush=True)
-    rels = {k: rel_err(grads_k[k], grads_p[k]) for k in grads_k}
+        loss_p, grads_p = run()
+    peak = (f"; plain run's max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.0f}"
+            " MiB" if cuda else "")
+    rels = {k: rel_err(grads_k[k], grads_p[k]) for k in grads_p}
     worst = max(rels, key=rels.get)
-    finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values())
     print(
-        f"train vs plain (first step's weights, {batch['input_ids'].shape[0]} rows): loss "
-        f"{loss_k:.6f} vs {loss_p:.6f} (|diff| {abs(loss_k - loss_p):.3e}, tol {LOSS_ATOL}); "
+        f"{tag} step vs plain ({batch['input_ids'].shape[0]} rows, the same draws): loss "
+        f"{loss_k:.6f} vs {loss_p:.6f} (|diff| {abs(loss_k - loss_p):.3e}, tol {loss_atol}); "
         f"{len(rels)} gradients, worst |g-plain|/|plain| {rels[worst]:.3e} at {worst} "
-        f"(tol {GRAD_REL}), median {float(np.median(list(rels.values()))):.3e}",
+        f"(tol {grad_rel}), median {float(np.median(list(rels.values()))):.3e}{peak}",
         flush=True,
     )
-    if not (abs(loss_k - loss_p) <= LOSS_ATOL and rels[worst] <= GRAD_REL and finite):
-        fail("the training step with kernels disagrees with the plain run")
+    if not (set(grads_k) == set(grads_p) == {k for k, _ in model.named_parameters()}
+            and abs(loss_k - loss_p) <= loss_atol and rels[worst] <= grad_rel
+            and all(bool(torch.isfinite(g).all()) for g in grads_k.values())):
+        fail(f"the {tag} step with kernels disagrees with the plain run")
     return rels[worst]
+
+
+def counted_steps(tag, state, step_fn, batch, counters, want, steps, timed_from=1):
+    """`steps` training steps with the launch counts set to 0 first and
+    checked against `want` after each; returns (state, metrics, launches,
+    ms per step by CUDA events over the steps from `timed_from` on, peak
+    MiB), the last two None off the card."""
+    cuda = batch["input_ids"].is_cuda
+    for fn in counters.values():
+        fn.launches = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    metrics, before = [], {k: 0 for k in counters}
+    for i in range(steps):
+        if i == timed_from and cuda:
+            start.record()
+        state, m = step_fn(state, batch, seed=0)
+        metrics.append(m)
+        now = {k: fn.launches for k, fn in counters.items()}
+        per_step = {k: now[k] - before[k] for k in now}
+        before = now
+        if per_step != want:
+            fail(f"{tag} step {i} launched {per_step}, expected {want}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if not cuda:
+        return state, metrics, launches, None, None
+    end.record()
+    torch.cuda.synchronize()
+    return state, metrics, launches, start.elapsed_time(end) / (steps - timed_from), \
+        torch.cuda.max_memory_allocated() / 2**20
 
 
 def train_phase(model, nb, counters, steps: int = 12):
     """`steps` SMTP training steps on one batch repeated: AdamW at lr 3e-4
     with warmup_decay over 20 steps (2 of warm-up), EMA on. `counters` maps
-    a kernel's name to its wrapper; the launch counts are set to 0 here,
-    read after every step and returned."""
+    a kernel's name to its wrapper; the launch counts are set to 0 before
+    the steps, read after every step and returned."""
     from graphgpt_torch import synthetic
     from graphgpt_torch.config import OptimizerConfig
     from graphgpt_torch.training.optimizer import make_optimizer, make_schedule
@@ -551,31 +708,11 @@ def train_phase(model, nb, counters, steps: int = 12):
     state = init_train_state(model, tx, use_ema=True)
     step_fn = make_train_step(tx, opt_cfg, schedule)
     L = cfg.num_hidden_layers
-    want = {"flash_fwd": L, "flash_bwd": L, "norm_mlp": L, "rmsnorm_bwd": L + 1, "mlp": 0}
-    for fn in counters.values():
-        fn.launches = 0
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
+    want = {"flash_fwd": L, "flash_bwd": L, "norm_mlp": L, "rmsnorm_bwd": L + 1, "mlp": 0,
+            "flash_dq": 0, "flash_dkv": 0}
     timed_from = 2
-    start = end = None
-    if dev.type == "cuda":
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    metrics = []
-    before = {k: 0 for k in counters}
-    for i in range(steps):
-        if i == timed_from and start is not None:
-            start.record()
-        state, m = step_fn(state, batch, seed=0)
-        metrics.append(m)
-        now = {k: fn.launches for k, fn in counters.items()}
-        per_step = {k: now[k] - before[k] for k in now}
-        before = now
-        if per_step != want:
-            fail(f"training step {i} launched {per_step}, expected {want}")
-    if end is not None:
-        end.record()
-        torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    state, metrics, launches, ms, peak = counted_steps(
+        "training", state, step_fn, batch, counters, want, steps, timed_from)
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
     lrs = [m["lr"] for m in metrics]
@@ -593,11 +730,9 @@ def train_phase(model, nb, counters, steps: int = 12):
     )
     if not ema_moved:
         fail("the EMA copy is the parameters themselves")
-    if start is not None:
-        ms = start.elapsed_time(end) / (steps - timed_from)
+    if ms is not None:
         b, p = nb["segment_ids"].shape
         valid = int((nb["segment_ids"] > 0).sum())
-        peak = torch.cuda.max_memory_allocated() / 2**20
         print(
             f"train: B={b} P={p}, {L} layers, remat {cfg.remat_policy if cfg.remat else 'off'}: "
             f"{ms:.2f} ms/step (CUDA events over steps {timed_from + 1}-{steps}), "
@@ -896,32 +1031,8 @@ def finetune_phase(pretrain_model, counters, fa, mlp, ops):
 
         # the first step against the plain run: the same generator, so the
         # same dropout masks
-        def first_step():
-            model.zero_grad(set_to_none=True)
-            loss = model(batch, generator=derive_generator(seed, 0, dev), train=True)["loss"]
-            loss.backward()
-            g = {k: q.grad.detach().clone() for k, q in model.named_parameters()
-                 if q.grad is not None}
-            model.zero_grad(set_to_none=True)
-            return loss.item(), g
-
-        loss_k, grads_k = first_step()
-        with ops.reference_mode():
-            loss_p, grads_p = first_step()
-        rels = {k: rel_err(grads_k[k], grads_p[k]) for k in grads_p}
-        worst = max(rels, key=rels.get)
-        print(
-            f"finetune step vs plain (the first batch, the same masks): loss {loss_k:.6f} vs "
-            f"{loss_p:.6f} (|diff| {abs(loss_k - loss_p):.3e}, tol {FT_LOSS_ATOL}); "
-            f"{len(rels)} gradients, worst |g-plain|/|plain| {rels[worst]:.3e} at {worst} "
-            f"(tol {FT_GRAD_REL}), median {float(np.median(list(rels.values()))):.3e}",
-            flush=True,
-        )
-        if not (set(grads_k) == set(grads_p) == {k for k, _ in model.named_parameters()}
-                and abs(loss_k - loss_p) <= FT_LOSS_ATOL and rels[worst] <= FT_GRAD_REL
-                and all(bool(torch.isfinite(g).all()) for g in grads_k.values())):
-            fail("the fine-tune step with kernels disagrees with the plain run")
-        del grads_k, grads_p
+        step_vs_plain(model, batch, ops, "finetune", FT_LOSS_ATOL, FT_GRAD_REL,
+                      lambda: dict(generator=derive_generator(seed, 0, dev)))
 
         # the counted run
         L = cfg.model.num_hidden_layers
@@ -946,11 +1057,12 @@ def finetune_phase(pretrain_model, counters, fa, mlp, ops):
         peak = torch.cuda.max_memory_allocated() / 2**20
 
         want = {"mlp": 2 * L, "flash_fwd": 2 * L, "flash_bwd": L, "norm_mlp": 0,
-                "rmsnorm_bwd": 2 * L + 1}
+                "rmsnorm_bwd": 2 * L + 1, "flash_dq": 0, "flash_dkv": 0}
         for i, got in enumerate(train_log):
             if got != want:
                 fail(f"fine-tune step {i} launched {got}, expected {want}")
-        want_eval = {"mlp": L, "flash_fwd": L, "flash_bwd": 0, "norm_mlp": 0, "rmsnorm_bwd": 0}
+        want_eval = {"mlp": L, "flash_fwd": L, "flash_bwd": 0, "norm_mlp": 0, "rmsnorm_bwd": 0,
+                     "flash_dq": 0, "flash_dkv": 0}
         for i, got in enumerate(ema_log):
             if got != want_eval:
                 fail(f"EMA eval forward {i} launched {got}, expected {want_eval}")
@@ -995,6 +1107,154 @@ def finetune_phase(pretrain_model, counters, fa, mlp, ops):
     return shape, launches
 
 
+def mol3d_config(tok, **kw):
+    """GraphGPT-base over the synthetic molecules' tokenizer (vocab 755, 13
+    stacked features), bf16 over fp32 weights, with the fields in kw."""
+    from graphgpt_torch.config import ModelConfig
+
+    return ModelConfig(**{**dict(
+        vocab_size=tok.vocab_size, hidden_size=768, num_hidden_layers=12,
+        stacked_feat=tok.stacked_feat, mask_token_id=tok.mask_id,
+        max_position_embeddings=1024, dtype="bfloat16", remat=True), **kw}).finalize()
+
+
+def denoise_phase(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin, steps: int = 8):
+    """The denoise fine-tune path: GraphGPT-base as
+    configs/pcqm4m_v2_supervised.yaml sets it up (gated aggregation, pairs
+    remat, graph regression, L1) plus bi_causal_split 16 and the denoise
+    defaults, weights from seed 0, on a 256 x 88 mol3d batch (72 molecule
+    positions, 16 bit slots). Every kernel of the step at this batch's
+    shape against its plain version (the attention kernels on its segments
+    and RoPE table, norm_mlp and rmsnorm_bwd at N 256 x 88); the first step
+    against the plain run; then
+    `steps` AdamW + EMA steps with their launch counts, and an EMA eval
+    forward that decodes the energies. Returns (kernel results at this
+    shape, launches of the counted run)."""
+    from graphgpt_torch.config import OptimizerConfig
+    from graphgpt_torch.models.denoise import GraphGPTDenoise, denoise_draws
+    from graphgpt_torch.models.rope import reset_position_ids
+    from graphgpt_torch.training.optimizer import make_optimizer, make_schedule
+    from graphgpt_torch.training.steps import init_train_state, make_eval_step, make_train_step
+
+    tok = synthetic.mol3d_tokenizer()
+    cfg = mol3d_config(tok, stacked_feat_agg_method="gated", remat_policy="pairs",
+                       task_type="graph", problem_type="regression", loss_type="l1",
+                       num_labels=1, bi_causal_split=16)
+    model = GraphGPTDenoise(cfg, device=dev, seed=0)
+    nb = synthetic.mol3d_batch(256, 88, seed=0, bi_split=16, tokenizer=tok)
+    batch = synthetic.to_torch(nb, dev)
+    b, p = nb["segment_ids"].shape
+    print(f"denoise: hidden {cfg.hidden_size}, {cfg.num_hidden_layers} layers, "
+          f"{cfg.num_attention_heads} heads, vocab {cfg.vocab_size}, bi_causal_split "
+          f"{cfg.bi_causal_split}, noise_scale {cfg.noise_scale}, r_2d/r_3d/r_both "
+          f"{cfg.r_2d}/{cfg.r_3d}/{cfg.r_both}, remat {cfg.remat_policy}; batch {b} x {p}, "
+          f"{int((nb['segment_ids'] > 0).sum())} tokens", flush=True)
+    pos = reset_position_ids(batch["position_ids"], cfg.rope_range)
+    cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(
+        pos, cfg.head_dim, cfg.rope_theta, resonance=cfg.rope_resonance,
+        rope_scaling=cfg.rope_scaling, max_position_embeddings=cfg.max_position_embeddings))
+    shape = split_at_shape(fa, ops, "denoise shape", batch["segment_ids"], cos, sin,
+                           cfg.bi_causal_split, cfg.num_attention_heads, cfg.head_dim)
+    del cos, sin
+    shape["norm_mlp"] = norm_mlp_at_shape(dev, mlp, ops, b * p, "denoise shape")
+    shape["rms"] = rms_bwd_phase(dev, mlp, ops, b * p)
+    draws = denoise_draws(b, p, torch.Generator(device=dev).manual_seed(1), dev)
+    shape["grad_rel"] = step_vs_plain(model, batch, ops, "denoise", DN_LOSS_ATOL, DN_GRAD_REL,
+                                      lambda: dict(draws=draws))
+
+    opt_cfg = OptimizerConfig(lr=2e-4, scheduler="onecycle", use_ema=True, ema_decay=0.9999)
+    schedule = make_schedule(opt_cfg, steps, 1)
+    tx = make_optimizer(opt_cfg, steps, 1, schedule=schedule)
+    state = init_train_state(model, tx, use_ema=True)
+    L = cfg.num_hidden_layers
+    # pairs: each group of two layers recomputes both attentions and the
+    # first layer's norm-fused MLP; the split pair replaces the fused backward
+    want = {"flash_fwd": 2 * L, "flash_bwd": 0, "flash_dq": L, "flash_dkv": L,
+            "norm_mlp": L + L // 2, "rmsnorm_bwd": L + 1, "mlp": 0}
+    state, metrics, launches, ms, peak = counted_steps(
+        "denoise", state, make_train_step(tx, opt_cfg, schedule), batch, counters, want, steps)
+    for key in ("task_loss", "pretrain_loss", "loss"):
+        vals = [float(m[key]) for m in metrics]
+        print(f"denoise {key}: " + " ".join(f"{x:.4f}" for x in vals), flush=True)
+        if not all(np.isfinite(vals)):
+            fail(f"a denoise {key} is not finite: {vals}")
+    before = {k: fn.launches for k, fn in counters.items()}
+    out = make_eval_step(use_ema=True)(state, batch)
+    torch.cuda.synchronize()
+    ev = {k: fn.launches - before[k] for k, fn in counters.items()}
+    energy = out["task_logits"]
+    print(f"denoise launches per step: {want} (all {steps} steps); EMA eval forward: {ev}; "
+          f"decoded energies [{energy.shape[0]}, {energy.shape[1]}], first four "
+          f"{[round(float(x), 3) for x in energy[:4, 0]]}, labels "
+          f"{[round(float(x), 3) for x in nb['graph_labels'][:4, 0]]}", flush=True)
+    want_eval = {k: 0 for k in counters}
+    want_eval.update(flash_fwd=L, norm_mlp=L)
+    if ev != want_eval or tuple(energy.shape) != (b, 1) or not bool(torch.isfinite(energy).all()):
+        fail(f"the EMA eval forward launched {ev} (want {want_eval}) or gave {energy.shape}")
+    launches = {k: launches[k] + ev[k] for k in launches}
+    print(f"denoise: {ms:.2f} ms/step (CUDA events over steps 2-{steps}), "
+          f"{b / ms * 1e3:.0f} graphs/s, max_memory_allocated {peak:.0f} MiB", flush=True)
+    shape.update(step_ms=ms, peak_mib=peak)
+    del model, state
+    return shape, launches
+
+
+def pos_phase(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin, steps: int = 4):
+    """The 3D-position pretraining path: GraphGPT-base with pos-smtp-line
+    (next-13 2D SMTP, save_attn remat) on a 256 x 72 mol3d batch, weights
+    from seed 0. flash_fwd and flash_bwd on this batch's segments and RoPE
+    table and norm_mlp at N 256 x 72 against their plain versions
+    (rmsnorm_bwd runs at the fine-tune phase's N 18,432 already); the first
+    step against the plain run, then `steps` AdamW + EMA steps with their
+    launch counts. Returns (the launches of the counted run, results)."""
+    from graphgpt_torch.config import OptimizerConfig
+    from graphgpt_torch.models.pos_pretrain import GraphGPTPosPred, pos_draws
+    from graphgpt_torch.models.rope import reset_position_ids
+    from graphgpt_torch.training.optimizer import make_optimizer, make_schedule
+    from graphgpt_torch.training.steps import init_train_state, make_train_step
+
+    tok = synthetic.mol3d_tokenizer()
+    cfg = mol3d_config(tok, next_n_token=tok.stacked_feat, remat_policy="save_attn",
+                       task_type="pretrain-coord", pos_problem_type="pos-smtp-line")
+    model = GraphGPTPosPred(cfg, device=dev, seed=0)
+    nb = synthetic.mol3d_batch(256, 72, seed=1, tokenizer=tok)
+    batch = synthetic.to_torch(nb, dev)
+    b, p, f = nb["input_ids"].shape
+    pos = reset_position_ids(batch["position_ids"], cfg.rope_range)
+    cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(
+        pos, cfg.head_dim, cfg.rope_theta, resonance=cfg.rope_resonance,
+        rope_scaling=cfg.rope_scaling, max_position_embeddings=cfg.max_position_embeddings))
+    shape = dict(flash=flash_at_shape(fa, ops, "position shape", batch["segment_ids"], cos, sin,
+                                      cfg.num_attention_heads, cfg.head_dim,
+                                      cfg.causal_attention),
+                 norm_mlp=norm_mlp_at_shape(dev, mlp, ops, b * p, "position shape"))
+    del cos, sin
+    draws = pos_draws(b, p, f, torch.Generator(device=dev).manual_seed(2), dev)
+    grad_rel = step_vs_plain(model, batch, ops, "position-pretraining", POS_LOSS_ATOL,
+                             POS_GRAD_REL, lambda: dict(draws=draws))
+    opt_cfg = OptimizerConfig(lr=3e-4, use_ema=True)
+    schedule = make_schedule(opt_cfg, 20, 2)
+    tx = make_optimizer(opt_cfg, 20, 2, schedule=schedule)
+    state = init_train_state(model, tx, use_ema=True)
+    L = cfg.num_hidden_layers
+    want = {"flash_fwd": L, "flash_bwd": L, "flash_dq": 0, "flash_dkv": 0, "norm_mlp": L,
+            "rmsnorm_bwd": L + 1, "mlp": 0}
+    state, metrics, launches, ms, peak = counted_steps(
+        "position-pretraining", state, make_train_step(tx, opt_cfg, schedule), batch, counters,
+        want, steps)
+    for key in ("gen_loss", "pretrain_loss", "loss"):
+        vals = [float(m[key]) for m in metrics]
+        print(f"position-pretraining {key}: " + " ".join(f"{x:.4f}" for x in vals), flush=True)
+        if not all(np.isfinite(vals)):
+            fail(f"a position-pretraining {key} is not finite: {vals}")
+    print(f"position-pretraining launches per step: {want} (all {steps} steps); {b} x {p}, "
+          f"{ms:.2f} ms/step (CUDA events over steps 2-{steps}), max_memory_allocated "
+          f"{peak:.0f} MiB", flush=True)
+    del model, state
+    shape.update(grad_rel=grad_rel, step_ms=ms, peak_mib=peak)
+    return launches, shape
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script runs on a CUDA card")
@@ -1035,8 +1295,10 @@ def main() -> None:
     mres = mlp_phase(dev, mlp, ops)
     bres = flash_bwd_phase(dev, fa, ops, synthetic, rope_cos_sin)
     rres = rms_bwd_phase(dev, mlp, ops)
+    sp = split_phase(dev, fa, ops, synthetic, rope_cos_sin)
     counters = {"flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
-                "norm_mlp": mlp.norm_mlp, "rmsnorm_bwd": mlp.rmsnorm_bwd, "mlp": mlp.mlp}
+                "norm_mlp": mlp.norm_mlp, "rmsnorm_bwd": mlp.rmsnorm_bwd, "mlp": mlp.mlp,
+                "flash_dq": fa.flash_dq, "flash_dkv": fa.flash_dkv}
 
     # ---- eval and generation phases: the serving path, counted from 0
     cfg = flagship_config()
@@ -1056,7 +1318,8 @@ def main() -> None:
     want = L * (1 + steps)
     print(f"serving path launches: {serve} (want {want} of each forward kernel, 0 of the "
           f"backward ones)", flush=True)
-    if serve != {"flash_fwd": want, "norm_mlp": want, "flash_bwd": 0, "rmsnorm_bwd": 0, "mlp": 0}:
+    if serve != {"flash_fwd": want, "norm_mlp": want, "flash_bwd": 0, "rmsnorm_bwd": 0, "mlp": 0,
+                 "flash_dq": 0, "flash_dkv": 0}:
         fail(f"expected {want} launches of each forward kernel, got {serve}")
     compare_plain(model, nb, ops)
     timing_phase(model, nb)
@@ -1067,7 +1330,8 @@ def main() -> None:
     model = GraphGPTPretrain(cfg, device=dev, seed=0)
     nb64 = synthetic.fake_batch(64, cfg.max_position_embeddings, cfg.stacked_feat,
                                 cfg.vocab_size, np.random.default_rng(5))
-    grad_rel = compare_grads(model, synthetic.to_torch(nb64, dev), ops)
+    grad_rel = step_vs_plain(model, synthetic.to_torch(nb64, dev), ops, "train", LOSS_ATOL,
+                             GRAD_REL)
     torch.cuda.empty_cache()
     train = train_phase(model, nb64, counters)
 
@@ -1076,7 +1340,13 @@ def main() -> None:
     ft, tune = finetune_phase(model, counters, fa, mlp, ops)
     sres = ft["mlp"]
     del model
-    launches = {k: serve[k] + train[k] + tune[k] for k in counters}
+
+    # ---- denoise and position-pretraining phases: fresh models
+    torch.cuda.empty_cache()
+    dn, den = denoise_phase(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin)
+    torch.cuda.empty_cache()
+    posl, posr = pos_phase(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin)
+    launches = {k: serve[k] + train[k] + tune[k] + den[k] + posl[k] for k in counters}
 
     base = "graphgpt_tpu/ops/"
 
@@ -1084,7 +1354,8 @@ def main() -> None:
         return dict(
             name=name, route="cuda", source=f"graphgpt_torch/csrc/{source}",
             replaces=base + replaces, launches=launches[name], launches_serving=serve[name],
-            launches_training=train[name], launches_finetune=tune[name], max_abs_err=r["err"],
+            launches_training=train[name], launches_finetune=tune[name],
+            launches_denoise=den[name], launches_pos=posl[name], max_abs_err=r["err"],
             ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["lib_ms"], tol=tol, status="ok", **extra,
@@ -1092,31 +1363,57 @@ def main() -> None:
 
     fb, bb = fres["bidirectional"], bres["bidirectional"]
     tr, ftf, ftr = bres["train"], ft["flash"], ft["rms"]
+    psf, dnm, psm, dnr = posr["flash"], dn["norm_mlp"], posr["norm_mlp"], dn["rms"]
+
+    def at(prefix, r, keys=("ms", "plain_ms", "bound_ms")):
+        return {f"{prefix}_{k}": r[k] for k in keys}
+
     kernels = [
         entry("flash_fwd", "flash_fwd.cu", "flash_attention.py:124",
               dict(fb, err=max([r["err"] for r in fres.values()]
-                               + [tr["fwd_err"], ftf["fwd_err"]])),
+                               + [tr["fwd_err"], ftf["fwd_err"], psf["fwd_err"],
+                                  dn["fwd"]["err"], sp["fwd"]["err"]])),
               FLASH_TOL, causal_ms=fres["causal"]["ms"], train_shape_ms=tr["fwd_ms"],
               train_shape_bound_ms=tr["fwd_bound_ms"], finetune_shape_ms=ftf["fwd_ms"],
-              finetune_shape_bound_ms=ftf["fwd_bound_ms"]),
-        entry("norm_mlp", "norm_mlp.cu", "mlp.py:203", mres, MLP_TOL,
-              train_shape_ms=mres["train_ms"], train_shape_bound_ms=mres["train_bound_ms"]),
+              finetune_shape_bound_ms=ftf["fwd_bound_ms"], pos_shape_ms=psf["fwd_ms"],
+              pos_shape_bound_ms=psf["fwd_bound_ms"],
+              **{f"bicausal_{tag}_{k}": r["fwd"][k] for tag, r in (("denoise", dn), ("p1024", sp))
+                 for k in ("ms", "plain_ms", "lib_ms", "bound_ms")}),
+        entry("norm_mlp", "norm_mlp.cu", "mlp.py:203",
+              dict(mres, err=max(mres["err"], dnm["err"], psm["err"])), MLP_TOL,
+              train_shape_ms=mres["train_ms"], train_shape_bound_ms=mres["train_bound_ms"],
+              **at("denoise_shape", dnm), **at("pos_shape", psm)),
         entry("flash_bwd", "flash_bwd.cu", "flash_attention.py:706",
-              dict(bb, err=max([r["err"] for r in bres.values()] + [ftf["err"]])),
+              dict(bb, err=max([r["err"] for r in bres.values()] + [ftf["err"], psf["err"]])),
               FLASH_BWD_TOL, causal_ms=bres["causal"]["ms"],
               train_shape_ms=tr["ms"], train_shape_bound_ms=tr["bound_ms"],
-              finetune_shape_ms=ftf["ms"], finetune_shape_bound_ms=ftf["bound_ms"]),
+              finetune_shape_ms=ftf["ms"], finetune_shape_bound_ms=ftf["bound_ms"],
+              pos_shape_ms=psf["ms"], pos_shape_bound_ms=psf["bound_ms"]),
         entry("rmsnorm_bwd", "rmsnorm_bwd.cu", "mlp.py:414",
-              dict(rres, err=max(rres["err"], ftr["err"])), RMS_BWD_TOL,
-              finetune_shape_ms=ftr["ms"], finetune_shape_bound_ms=ftr["bound_ms"],
-              finetune_shape_plain_ms=ftr["plain_ms"], finetune_shape_library_ms=ftr["lib_ms"]),
+              dict(rres, err=max(rres["err"], ftr["err"], dnr["err"])), RMS_BWD_TOL,
+              **at("finetune_shape", ftr, ("ms", "bound_ms", "plain_ms", "lib_ms")),
+              **at("denoise_shape", dnr, ("ms", "bound_ms", "plain_ms", "lib_ms"))),
         entry("mlp", "mlp.cu", "mlp.py:82", sres, MLP_TOL,
               **{k: sres[k] for k in ("finetune_shape_n", "finetune_shape_ms",
                                       "finetune_shape_plain_ms", "finetune_shape_bound_ms",
                                       "step_ms", "loader_graphs_s", "peak_mib")}),
     ]
-    print(f"whole-model gradients, kernels vs plain: worst relative error {grad_rel:.3e}; "
-          f"the whole script took {time.perf_counter() - t_start:.1f} s", flush=True)
+    # the split pair: its main entry at the denoise batch's shape, B 256 x P 88
+    for name, kind, line in (("flash_dq", "dq", 602), ("flash_dkv", "dkv", 789)):
+        extra = {"delta_err": max(dn["dq"]["delta_err"], sp["dq"]["delta_err"])} \
+            if kind == "dq" else {}
+        kernels.append(entry(
+            name, "flash_bwd_split.cu", f"flash_attention.py:{line}",
+            dict(dn[kind], err=max(dn[kind]["err"], sp[kind]["err"])), FLASH_BWD_TOL,
+            rel_err=max(dn[kind]["rel"], sp[kind]["rel"]), denoise_step_ms=dn["step_ms"],
+            denoise_peak_mib=dn["peak_mib"], denoise_grad_rel=dn["grad_rel"],
+            **{f"p1024_{k}": sp[kind][k] for k in ("ms", "plain_ms", "lib_ms", "bound_ms")},
+            **extra))
+    print(f"whole-model gradients, kernels vs plain: worst relative error {grad_rel:.3e} "
+          f"(training), {dn['grad_rel']:.3e} (denoise), {posr['grad_rel']:.3e} (position "
+          f"pretraining); position-pretraining step {posr['step_ms']:.2f} ms, peak "
+          f"{posr['peak_mib']:.0f} MiB; the whole script took "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(
         json.dumps(

@@ -159,6 +159,34 @@ class ModelConfig:
     smtp_inside: bool = False
     smtp_power: float = 1.0
 
+    # 3D-position pretrain head (GraphGPTPosPred)
+    pos_problem_type: str = "pos-smtp-line"  # pos-smtp-line|pos-smtp-cube|pos-smtp-mix
+    pos_num_bins: int = 256  # line bins (or cube bins per axis)
+    pos_num_bins_line: int = 256  # mix: line-token bins
+    pos_num_bins_cube: int = 32  # mix: cube-token bins per axis
+    smtp_3d_power: float = 1.0  # -1 cosine, -2 arccos, else polynomial
+    smtp_3d_noise_scale: float = 0.2
+    coord_lvl_mask: bool = True
+    pos_agg_method: str = "sum"  # sum|gated for the 3-coord line tokens
+    smtp_2d_rate: float = 0.1
+    sep_2d3d_inputs: bool = True
+    pos_range: str = "p1p"
+    loss_agg: str = "token-lvl"  # token-lvl|sample-lvl
+
+    # denoising double-heads fine-tune head (GraphGPTDenoise)
+    noise_scale: float = 0.35
+    denoise_wgt: float = 1.0
+    denoise_schedule_pow: float = 0.0
+    r_2d: float = 4.0
+    r_3d: float = 0.0
+    r_both: float = 6.0
+    add_pos_type: bool = True
+    smtp_3d: bool = False
+    smtp_wgt: float = 1.0
+    smtp_vocab: int = 256
+    # label every valid position instead of only the schedule-masked ones
+    smtp_denoise: bool = False
+
     # fine-tune head
     task_type: str = "pretrain-mlm"
     problem_type: str = ""  # regression|single_label_classification|multi_label_classification
@@ -179,7 +207,7 @@ class ModelConfig:
     remat: bool = False  # activation rematerialisation per layer
     remat_policy: str = "full"  # full|pairs|quads|save_attn
     attn_block: int = 0
-    bi_causal_split: int = 0
+    bi_causal_split: int = 0  # >0: binary-energy decoding suffix length
 
     def finalize(self) -> "ModelConfig":
         assert self.pad_token_id == 0, "pad_token_id is pinned to 0"

@@ -1,6 +1,7 @@
 // What the flash forward and backward kernels share: the tile sizes, the
-// segment-range test that lets a kernel skip a fully masked tile pair, and
-// the tile load that applies RoPE in bf16 on the way into shared memory.
+// segment-range test that lets a kernel skip a fully masked tile pair, the
+// causal or bi-causal rule as per-row bounds, and the tile load that
+// applies RoPE in bf16 on the way into shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,6 +41,27 @@ __device__ __forceinline__ void tile_range(const int* seg, int t0, int P, int la
   }
   *lo = mn;
   *hi = mx;
+}
+
+// The position rule of graphgpt_tpu/ops/flash_attention.py:76 _tile_neg,
+// in absolute row and column indices within one segment. Each rule lets a
+// query row see a prefix of the columns, and a key column be seen by a
+// suffix of the rows, so a kernel computes the bound once per row and the
+// inner loop compares one index. bi_split > 0 is the bi-causal rule of the
+// binary-energy decoding: rows before split = P - bi_split see the prefix
+// [0, split), later rows every column up to their own (the split may fall
+// inside a 64-row tile). Else causal or bidirectional.
+
+// Query `row` sees the columns [0, visible_cols).
+__device__ __forceinline__ int visible_cols(int row, int causal, int bi_split, int P) {
+  if (bi_split > 0) return row < P - bi_split ? P - bi_split : row + 1;
+  return causal ? row + 1 : P;
+}
+
+// Key `col` is seen by the rows [first_row, P).
+__device__ __forceinline__ int first_row(int col, int causal, int bi_split, int P) {
+  if (bi_split > 0) return col < P - bi_split ? 0 : col;
+  return causal ? col : 0;
 }
 
 // Copy a [64, 64] head tile of rows t0.. into shared memory, zero past P,

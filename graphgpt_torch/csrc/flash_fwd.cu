@@ -8,7 +8,9 @@
 // in bf16 (each product and the sum rounded, as the plain version does);
 // out bf16 [B, P, H*64]; lse fp32 [B, H, P]. A row whose segment is 0 gives
 // out = 0 and lse = -1e30. Masked logits take the additive -1e30 of the JAX
-// kernel, never -inf, so a fully masked row cannot make NaN.
+// kernel, never -inf, so a fully masked row cannot make NaN. The mask is the
+// segment rule plus causal, or, with bi_split > 0, the bi-causal rule of the
+// denoise model's energy decoding (visible_cols in flash_common.cuh).
 //
 // What bounds it on the H100: bytes. On packed rows (~32-token segments) a
 // query meets a few dozen keys, so the masked work is ~1 GFLOP against
@@ -40,12 +42,16 @@ struct __align__(128) Smem {
   int segk[BK];
 };
 
-__global__ void __launch_bounds__(THREADS)
+// At least four CTAs an SM: without the bound nvcc gives this kernel 168
+// registers a thread, which leaves three CTAs an SM and made it slower on
+// the H100 at every shape; with it, 128 and no spills (chip_smoke.py prints
+// the counts).
+__global__ void __launch_bounds__(THREADS, 4)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ seg,
                  const bf16* __restrict__ cosb, const bf16* __restrict__ sinb,
                  bf16* __restrict__ out, float* __restrict__ lse, int P, int H,
-                 int causal) {
+                 int causal, int bi_split) {
   __shared__ Smem sm;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -72,6 +78,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int r = lane >> 1, c0 = (lane & 1) * 32;
   const int qrow = q0 + warp * 16 + r;
   const int sq = qrow < P ? segb[qrow] : 0;
+  const int lim = visible_cols(qrow, causal, bi_split, P);  // this row sees [0, lim)
   float m = NEG, l = 0.f, o[32];
 #pragma unroll
   for (int c = 0; c < 32; ++c) o[c] = 0.f;
@@ -79,7 +86,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* pbuf = reinterpret_cast<bf16*>(sbuf);
 
   const int nkt = (P + BK - 1) / BK;
-  const int kt_end = causal ? min(nkt, (min(q0 + BQ, P) - 1) / BK + 1) : nkt;
+  const int kt_end =
+      (causal && bi_split == 0) ? min(nkt, (min(q0 + BQ, P) - 1) / BK + 1) : nkt;
   for (int kt = 0; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     int kmin, kmax;
@@ -113,7 +121,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int c = 0; c < 32; ++c) {
       const int kc = c0 + c;
       const int sk = sm.segk[kc];
-      const bool ok = (sk == sq) && (sk > 0) && (!causal || k0 + kc <= qrow);
+      const bool ok = (sk == sq) && (sk > 0) && (k0 + kc < lim);
       s[c] = sbuf[r * LDS + kc] + (ok ? 0.f : NEG);
       mx = fmaxf(mx, s[c]);
     }
@@ -178,10 +186,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 extern "C" int ggt_flash_fwd(const void* q, const void* k, const void* v,
                              const void* seg, const void* cos, const void* sin,
                              void* out, void* lse, int B, int P, int H, int causal,
-                             void* stream) {
+                             int bi_split, void* stream) {
   dim3 grid((P + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg,
-      (const bf16*)cos, (const bf16*)sin, (bf16*)out, (float*)lse, P, H, causal);
+      (const bf16*)cos, (const bf16*)sin, (bf16*)out, (float*)lse, P, H, causal,
+      bi_split);
   return (int)cudaGetLastError();
 }

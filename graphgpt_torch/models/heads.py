@@ -105,7 +105,7 @@ class _GraphGPTBase(nn.Module):
     per-step seed that both models share. Weights are fp32, drawn from
     `seed` with the JAX init's distributions (normal(0, initializer_range)
     for the matrices, ones for the norms, zeros for the biases,
-    uniform(+-1/sqrt(D)) for the gated aggregation). They are not the JAX
+    uniform(+-1/sqrt(D)) for the gated aggregations). They are not the JAX
     init's numbers: load those with `load_state_dict(params_from_jax(...))`."""
 
     def __init__(self, cfg: ModelConfig, dev: torch.device):
@@ -125,9 +125,9 @@ class _GraphGPTBase(nn.Module):
                 p.fill_(1.0)
             elif ".lambda_" in name:
                 p.fill_(self.cfg.layer_scale_init_value)
-            elif name.endswith(".bias"):
+            elif name.endswith((".bias", "force_b")):
                 p.zero_()
-            elif name == "stacked_feat_agg.weight":
+            elif name in ("stacked_feat_agg.weight", "pos_token_agg_w"):
                 bound = 1.0 / (self.cfg.hidden_size**0.5)
                 p.uniform_(-bound, bound, generator=gen)
             else:

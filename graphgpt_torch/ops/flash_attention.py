@@ -3,17 +3,20 @@ their plain versions.
 
 Counterpart of `graphgpt_tpu/ops/flash_attention.py` (`_prep` :1205,
 `flash_attention` :1231, `_fwd_kernel_single` :124, `_bwd_kernel_fused`
-:706, `_attach_grad_rope` :1144). The kernels live in `csrc/flash_fwd.cu`
-and `csrc/flash_bwd.cu`. Conventions kept from the JAX package: q, k, v are
-token-major `[B, P, H*Dh]` at the kernel boundary; GQA is expanded and the
-softmax scale folded into q (in q's dtype) before the kernel; RoPE cos/sin
-`[B, P, Dh]` are cast to q's dtype and applied in-kernel; lse is
-`[B, H, P]` fp32; padded rows (segment 0) give out = 0 and lse = -1e30.
-The autograd Function saves the un-rotated (qs, k, v) with (out, lse); the
-backward rotates again in-kernel and brings dq, dk back through the inverse
-rotation. One difference from the JAX package: a padded row takes no part
-in the backward even when a non-zero `dlse` reaches it (there its
-exp(S - lse) = 1 would spread dlse over every key of the row).
+:706, `_dq_kernel_single` :602, `_dkv_kernel_single` :789, `_flash_bwd`
+:902, `_attach_grad_rope` :1144). The kernels live in `csrc/flash_fwd.cu`,
+`csrc/flash_bwd.cu` (fused backward) and `csrc/flash_bwd_split.cu` (the
+split pair flash_dq and flash_dkv, which the backward takes, as the JAX
+package does, when a bi-causal split is set). Conventions kept from the
+JAX package: q, k, v are token-major `[B, P, H*Dh]` at the kernel boundary;
+GQA is expanded and the softmax scale folded into q (in q's dtype) before
+the kernel; RoPE cos/sin `[B, P, Dh]` are cast to q's dtype and applied
+in-kernel; lse is `[B, H, P]` fp32; padded rows (segment 0) give out = 0
+and lse = -1e30. The autograd Function saves the un-rotated (qs, k, v) with
+(out, lse); the backward rotates again in-kernel and brings dq, dk back
+through the inverse rotation. One difference from the JAX package: a padded
+row takes no part in the backward even when a non-zero `dlse` reaches it
+(there its exp(S - lse) = 1 would spread dlse over every key of the row).
 """
 
 from __future__ import annotations
@@ -27,10 +30,16 @@ from . import _build, use_kernel
 
 NEG_INF = -1e30
 MAX_P = 2048  # the JAX package's single-block limit; longer rows stream (#6)
-# q, k, v, seg, cos, sin, out, lse; B, P, H, causal; stream
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# q, k, v, seg, cos, sin, out, lse; B, P, H, causal, bi_split; stream
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # q, k, v, seg, cos, sin, out, lse, do, dlse, delta, dq, dk, dv; B, P, H, causal; stream
 _BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# q, k, v, seg, cos, sin, out, lse, do, dlse, delta, dq; B, P, H, causal, bi_split; stream
+_DQ_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# q, k, v, seg, cos, sin, lse, delta, do, dk, dv; B, P, H, causal, bi_split; stream
+_DKV_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_STREAMED = "the streamed kernels (#6 _fwd_kernel_stream, #7 _dq_kernel_stream, " \
+    "#8 _dkv_kernel_stream), a later slice"
 
 
 def _valid_mask(seg: torch.Tensor, causal: bool, bi_causal_split: int = 0):
@@ -94,21 +103,35 @@ def flash_attention_ref(
     return out.transpose(1, 2).reshape(b, p, hd), lse
 
 
+def _check_rope(cos, sin, b, p, dh):
+    """cos, sin as contiguous bf16 [B, P, Dh] (None passes through)."""
+    if cos is None:
+        return None, None
+    cos = cos.to(torch.bfloat16).contiguous()
+    sin = sin.to(torch.bfloat16).contiguous()
+    if cos.shape != (b, p, dh) or sin.shape != (b, p, dh):
+        raise ValueError(f"cos/sin must be [B, P, {dh}], got {cos.shape}")
+    return cos, sin
+
+
+def _check_aligned(name, *tensors):
+    """The kernels move 16 bytes a thread."""
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} needs 16-byte aligned token-major inputs, cos and sin")
+
+
+def _opt_ptr(t):
+    return _build.ptr(t) if t is not None else ctypes.c_void_p(0)
+
+
 def flash_fwd(qs, k, v, seg, cos, sin, causal: bool, dh: int, bi_causal_split: int = 0):
     """(out, lse): the CUDA kernel for a CUDA tensor, the plain version for
     a CPU tensor (or inside ops.reference_mode())."""
     if not use_kernel(qs, k, v, seg):
         return flash_attention_ref(qs, k, v, seg, cos, sin, causal, dh, bi_causal_split)
     b, p, hd = qs.shape
-    if bi_causal_split > 0:
-        raise NotImplementedError(
-            "bi-causal split (the denoise decode path) needs the split backward "
-            "kernels, a later slice"
-        )
     if p > MAX_P:
-        raise NotImplementedError(
-            f"P={p} > {MAX_P} needs the streamed forward (_fwd_kernel_stream), a later slice"
-        )
+        raise NotImplementedError(f"P={p} > {MAX_P} needs {_STREAMED}")
     if dh != 64 or qs.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"the flash kernel takes bf16 with head_dim 64, got {qs.dtype}, {dh}"
@@ -117,24 +140,15 @@ def flash_fwd(qs, k, v, seg, cos, sin, causal: bool, dh: int, bi_causal_split: i
     seg = seg.to(torch.int32).contiguous()
     if k.shape != qs.shape or v.shape != qs.shape or seg.shape != (b, p):
         raise ValueError(f"shapes q {qs.shape} k {k.shape} v {v.shape} seg {seg.shape}")
-    if cos is not None:
-        cos = cos.to(torch.bfloat16).contiguous()
-        sin = sin.to(torch.bfloat16).contiguous()
-        if cos.shape != (b, p, dh) or sin.shape != (b, p, dh):
-            raise ValueError(f"cos/sin must be [B, P, {dh}], got {cos.shape}")
-    # the kernel moves 16 bytes a thread
-    if any(t.data_ptr() % 16 for t in (qs, k, v) + ((cos, sin) if cos is not None else ())):
-        raise ValueError("flash_fwd needs 16-byte aligned q, k, v, cos and sin")
+    cos, sin = _check_rope(cos, sin, b, p, dh)
+    _check_aligned("flash_fwd", qs, k, v, cos, sin)
     out = torch.empty_like(qs)
     lse = torch.empty((b, hd // dh, p), dtype=torch.float32, device=qs.device)
     fn = _build.entry("flash_fwd", "ggt_flash_fwd", _ARGTYPES)
-    null = ctypes.c_void_p(0)
     err = fn(
-        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg),
-        _build.ptr(cos) if cos is not None else null,
-        _build.ptr(sin) if sin is not None else null,
-        _build.ptr(out), _build.ptr(lse), b, p, hd // dh, int(causal),
-        _build.stream_ptr(qs.device),
+        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg), _opt_ptr(cos),
+        _opt_ptr(sin), _build.ptr(out), _build.ptr(lse), b, p, hd // dh, int(causal),
+        int(bi_causal_split), _build.stream_ptr(qs.device),
     )
     flash_fwd.launches += 1
     _build.check(err, "flash_fwd")
@@ -156,16 +170,25 @@ def unrotate_tokens(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, dh: i
     return (x4 * c - r * s).reshape(b, p, hd)
 
 
-def flash_bwd_ref(
-    qs, k, v, seg, cos, sin, out, lse, do, dlse, causal: bool, dh: int,
-    bi_causal_split: int = 0,
-):
-    """Plain version of the backward kernel, from `_bwd_kernel_fused`'s
-    formula with its rounding points: (dq, dk, dv) token-major in qs's dtype.
-    p = exp(S - lse); delta = rowsum(do*out) - dlse in fp32; p rounded to the
-    working dtype for dv = p^T do; ds = p*(do v^T - delta) rounded for
-    dq = ds rot(k) and dk = ds^T rot(q); the inverse rotation on the fp32
-    sums, rounded once. Padded rows take no part."""
+def flash_delta(do, out, dlse, dh: int) -> torch.Tensor:
+    """delta [B, H, P] fp32 = rowsum(do * out) - dlse in torch ops, as the
+    JAX package's split backward computes it outside the kernels
+    (`_flash_bwd` :933-940): the plain version of the delta kernel that
+    flash_bwd and flash_dq launch first. out is 0 on padded rows, which the
+    kernels leave out anyway."""
+    b, p, hd = do.shape
+    delta = (do.float() * out.float()).view(b, p, hd // dh, dh).sum(dim=-1).transpose(1, 2)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta.contiguous()
+
+
+def _bwd_terms(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int,
+               bi_causal_split: int):
+    """What every backward twin shares, at the kernels' rounding points:
+    rot(q), rot(k) and do (zero on padded rows) per head in fp32, p =
+    exp(S - lse) (zero on padded rows) and ds = p*(do v^T - delta) rounded
+    to the working dtype, with cos and sin in that dtype."""
     b, p, hd = qs.shape
     h = hd // dh
     dt = qs.dtype
@@ -178,86 +201,103 @@ def flash_bwd_ref(
 
     rowvalid = seg > 0
     do = torch.where(rowvalid[..., None], do, torch.zeros((), dtype=do.dtype, device=do.device))
-    q4, k4, v4, do4, o4 = heads(qs), heads(k), heads(v), heads(do.to(dt)), heads(out)
+    q4, k4, v4, do4 = heads(qs), heads(k), heads(v), heads(do.to(dt))
     s = q4 @ k4.transpose(-1, -2)
     s = s + torch.where(_valid_mask(seg, causal, bi_causal_split), 0.0, NEG_INF)
     pij = torch.exp(s - lse[..., None])
     pij = torch.where(rowvalid[:, None, :, None], pij, 0.0)
-    delta = (do4 * o4).sum(dim=-1)
-    if dlse is not None:
-        delta = delta - dlse.float()
-    dv = pij.to(dt).float().transpose(-1, -2) @ do4
-    ds = (pij * (do4 @ v4.transpose(-1, -2) - delta[..., None])).to(dt).float()
-    dq = ds @ k4
-    dk = ds.transpose(-1, -2) @ q4
+    ds = (pij * (do4 @ v4.transpose(-1, -2) - delta.float()[..., None])).to(dt).float()
+    return q4, k4, do4, pij, ds, cos, sin
 
-    def tokens(t):
-        return t.transpose(1, 2).reshape(b, p, hd)
 
-    dq, dk, dv = tokens(dq), tokens(dk), tokens(dv)
+def _tokens(t):
+    """[B, H, P, Dh] -> token-major [B, P, H*Dh]."""
+    b, h, p, dh = t.shape
+    return t.transpose(1, 2).reshape(b, p, h * dh)
+
+
+def _back(x, cos, sin, dh, dt):
+    """A token-major fp32 dq or dk through the inverse rotation, rounded once."""
+    x = _tokens(x)
     if cos is not None:
-        dq, dk = unrotate_tokens(dq, cos, sin, dh), unrotate_tokens(dk, cos, sin, dh)
-    return dq.to(dt), dk.to(dt), dv.to(dt)
+        x = unrotate_tokens(x, cos, sin, dh)
+    return x.to(dt)
+
+
+def flash_bwd_ref(
+    qs, k, v, seg, cos, sin, out, lse, do, dlse, causal: bool, dh: int,
+    bi_causal_split: int = 0,
+):
+    """Plain version of the backward kernel, from `_bwd_kernel_fused`'s
+    formula with its rounding points: (dq, dk, dv) token-major in qs's dtype.
+    p = exp(S - lse); delta = rowsum(do*out) - dlse in fp32; p rounded to the
+    working dtype for dv = p^T do; ds = p*(do v^T - delta) rounded for
+    dq = ds rot(k) and dk = ds^T rot(q); the inverse rotation on the fp32
+    sums, rounded once. Padded rows take no part."""
+    dt = qs.dtype
+    delta = flash_delta(do.to(dt), out, dlse, dh)
+    q4, k4, do4, pij, ds, cos, sin = _bwd_terms(
+        qs, k, v, seg, cos, sin, lse, delta, do, causal, dh, bi_causal_split)
+    dv = _tokens(pij.to(dt).float().transpose(-1, -2) @ do4).to(dt)
+    return (_back(ds @ k4, cos, sin, dh, dt), _back(ds.transpose(-1, -2) @ q4, cos, sin, dh, dt),
+            dv)
+
+
+def _check_bwd(name, dh, qs, k, v, seg, cos, sin, lse, do, extra=(), extra_rows=()):
+    """The checks and layouts every backward kernel needs: (qs, k, v, do,
+    extra..., seg, cos, sin, lse, extra_rows...) contiguous, seg int32, lse
+    and the extra [B, H, P] rows fp32. Raises on what the kernels do not
+    take."""
+    b, p, hd = qs.shape
+    if p > MAX_P:
+        raise NotImplementedError(f"P={p} > {MAX_P} needs {_STREAMED}")
+    tok = (qs, k, v, do) + tuple(extra)
+    if dh != 64 or any(t.dtype != torch.bfloat16 for t in tok):
+        raise NotImplementedError(f"{name} takes bf16 with head_dim 64, got {qs.dtype}, {dh}")
+    tok = tuple(t.contiguous() for t in tok)
+    seg = seg.to(torch.int32).contiguous()
+    if any(t.shape != qs.shape for t in tok) or seg.shape != (b, p):
+        raise ValueError(f"{name}: token-major shapes {[tuple(t.shape) for t in tok]}, "
+                         f"seg {tuple(seg.shape)}")
+    rows = tuple(r.float().contiguous() for r in (lse,) + tuple(extra_rows))
+    if any(r.shape != (b, hd // dh, p) for r in rows):
+        raise ValueError(f"{name}: lse and row statistics must be [B, H, P] = "
+                         f"{(b, hd // dh, p)}, got {[tuple(r.shape) for r in rows]}")
+    cos, sin = _check_rope(cos, sin, b, p, dh)
+    _check_aligned(name, *tok, cos, sin)
+    return tok, seg, cos, sin, rows
 
 
 def flash_bwd(
     qs, k, v, seg, cos, sin, out, lse, do, dlse, causal: bool, dh: int,
     bi_causal_split: int = 0,
 ):
-    """(dq, dk, dv): the CUDA kernel (a small delta kernel and the main one,
-    counted as one call) for a CUDA tensor, the plain version for a CPU
-    tensor (or inside ops.reference_mode()). dlse [B, H, P] is the optional
-    cotangent of lse; None means zeros."""
-    if not use_kernel(qs, k, v, seg, out, lse, do):
-        return flash_bwd_ref(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh,
-                             bi_causal_split)
-    b, p, hd = qs.shape
-    h = hd // dh
+    """(dq, dk, dv). With a bi-causal split the JAX package leaves the fused
+    kernel for the split pair (`_flash_bwd` :911): flash_dq, which gives
+    delta too, then flash_dkv. Else the fused CUDA kernel (a small delta
+    kernel and the main one, counted as one call) for a CUDA tensor, the
+    plain version for a CPU tensor (or inside ops.reference_mode()). dlse
+    [B, H, P] is the optional cotangent of lse; None means zeros."""
     if bi_causal_split > 0:
-        raise NotImplementedError(
-            "bi-causal split needs the split backward kernels (_dq_kernel_single, "
-            "_dkv_kernel_single), a later slice"
-        )
-    if p > MAX_P:
-        raise NotImplementedError(
-            f"P={p} > {MAX_P} needs the streamed backward kernels, a later slice"
-        )
-    if dh != 64 or any(t.dtype != torch.bfloat16 for t in (qs, k, v, out, do)):
-        raise NotImplementedError(
-            f"the flash backward kernel takes bf16 with head_dim 64, got {qs.dtype}, {dh}"
-        )
-    qs, k, v, out, do = (t.contiguous() for t in (qs, k, v, out, do))
-    seg = seg.to(torch.int32).contiguous()
-    lse = lse.float().contiguous()
-    if any(t.shape != qs.shape for t in (k, v, out, do)) or seg.shape != (b, p):
-        raise ValueError(
-            f"shapes q {qs.shape} k {k.shape} v {v.shape} out {out.shape} do {do.shape} "
-            f"seg {seg.shape}"
-        )
-    if lse.shape != (b, h, p) or (dlse is not None and dlse.shape != (b, h, p)):
-        raise ValueError(f"lse and dlse must be [B, H, P] = {(b, h, p)}, got {lse.shape}")
-    if cos is not None:
-        cos = cos.to(torch.bfloat16).contiguous()
-        sin = sin.to(torch.bfloat16).contiguous()
-        if cos.shape != (b, p, dh) or sin.shape != (b, p, dh):
-            raise ValueError(f"cos/sin must be [B, P, {dh}], got {cos.shape}")
-    if dlse is not None:
-        dlse = dlse.float().contiguous()
-    # the kernel moves 16 bytes a thread
-    if any(t.data_ptr() % 16 for t in (qs, k, v, out, do) + ((cos, sin) if cos is not None else ())):
-        raise ValueError("flash_bwd needs 16-byte aligned q, k, v, out, do, cos and sin")
+        dq, delta = flash_dq(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh,
+                             bi_causal_split)
+        dk, dv = flash_dkv(qs, k, v, seg, cos, sin, lse, delta, do, causal, dh, bi_causal_split)
+        return dq, dk, dv
+    if not use_kernel(qs, k, v, seg, out, lse, do):
+        return flash_bwd_ref(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh)
+    b, p, hd = qs.shape
+    extra_rows = () if dlse is None else (dlse,)
+    (qs, k, v, do, out), seg, cos, sin, rows = _check_bwd(
+        "flash_bwd", dh, qs, k, v, seg, cos, sin, lse, do, extra=(out,), extra_rows=extra_rows)
+    lse, dlse = rows[0], (rows[1] if dlse is not None else None)
     dq, dk, dv = torch.empty_like(qs), torch.empty_like(qs), torch.empty_like(qs)
-    delta = torch.empty((b, h, p), dtype=torch.float32, device=qs.device)
+    delta = torch.empty_like(lse)
     fn = _build.entry("flash_bwd", "ggt_flash_bwd", _BWD_ARGTYPES)
-    null = ctypes.c_void_p(0)
     err = fn(
-        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg),
-        _build.ptr(cos) if cos is not None else null,
-        _build.ptr(sin) if sin is not None else null,
-        _build.ptr(out), _build.ptr(lse), _build.ptr(do),
-        _build.ptr(dlse) if dlse is not None else null,
+        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg), _opt_ptr(cos),
+        _opt_ptr(sin), _build.ptr(out), _build.ptr(lse), _build.ptr(do), _opt_ptr(dlse),
         _build.ptr(delta), _build.ptr(dq), _build.ptr(dk), _build.ptr(dv),
-        b, p, h, int(causal), _build.stream_ptr(qs.device),
+        b, p, lse.shape[1], int(causal), _build.stream_ptr(qs.device),
     )
     flash_bwd.launches += 1
     _build.check(err, "flash_bwd")
@@ -265,6 +305,85 @@ def flash_bwd(
 
 
 flash_bwd.launches = 0
+
+
+def flash_dq_ref(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int,
+                 bi_causal_split: int = 0):
+    """Plain version of flash_dq (`_dq_kernel_single`): dq = ds rot(k) with
+    ds = p*(do v^T - delta) rounded to the working dtype, the inverse
+    rotation on the fp32 sum, rounded once; 0 on padded rows."""
+    _, k4, _, _, ds, cos, sin = _bwd_terms(
+        qs, k, v, seg, cos, sin, lse, delta, do, causal, dh, bi_causal_split)
+    return _back(ds @ k4, cos, sin, dh, qs.dtype)
+
+
+def flash_dkv_ref(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int,
+                  bi_causal_split: int = 0):
+    """Plain version of flash_dkv (`_dkv_kernel_single`): (dk, dv) with
+    dv = p^T do (p rounded to the working dtype) and dk = ds^T rot(q), dk
+    through the inverse rotation; padded rows take no part."""
+    dt = qs.dtype
+    q4, _, do4, pij, ds, cos, sin = _bwd_terms(
+        qs, k, v, seg, cos, sin, lse, delta, do, causal, dh, bi_causal_split)
+    dv = _tokens(pij.to(dt).float().transpose(-1, -2) @ do4).to(dt)
+    return _back(ds.transpose(-1, -2) @ q4, cos, sin, dh, dt), dv
+
+
+def flash_dq(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal: bool, dh: int,
+             bi_causal_split: int = 0):
+    """(dq, delta), delta = rowsum(do * out) - dlse [B, H, P] fp32 for
+    flash_dkv: the CUDA kernels (the delta kernel, then dq; counted as one
+    call) for a CUDA tensor, flash_delta and flash_dq_ref for a CPU tensor
+    (or inside ops.reference_mode()). dlse None means zeros."""
+    if not use_kernel(qs, k, v, seg, out, lse, do):
+        delta = flash_delta(do, out, dlse, dh)
+        return flash_dq_ref(qs, k, v, seg, cos, sin, lse, delta, do, causal, dh,
+                            bi_causal_split), delta
+    b, p, _ = qs.shape
+    extra_rows = () if dlse is None else (dlse,)
+    (qs, k, v, do, out), seg, cos, sin, rows = _check_bwd(
+        "flash_dq", dh, qs, k, v, seg, cos, sin, lse, do, extra=(out,), extra_rows=extra_rows)
+    lse, dlse = rows[0], (rows[1] if dlse is not None else None)
+    dq, delta = torch.empty_like(qs), torch.empty_like(lse)
+    fn = _build.entry("flash_bwd_split", "ggt_flash_dq", _DQ_ARGTYPES)
+    err = fn(
+        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg), _opt_ptr(cos),
+        _opt_ptr(sin), _build.ptr(out), _build.ptr(lse), _build.ptr(do), _opt_ptr(dlse),
+        _build.ptr(delta), _build.ptr(dq), b, p, lse.shape[1], int(causal),
+        int(bi_causal_split), _build.stream_ptr(qs.device),
+    )
+    flash_dq.launches += 1
+    _build.check(err, "flash_dq")
+    return dq, delta
+
+
+flash_dq.launches = 0
+
+
+def flash_dkv(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int,
+              bi_causal_split: int = 0):
+    """(dk, dv): the CUDA kernel for a CUDA tensor, the plain version for a
+    CPU tensor (or inside ops.reference_mode())."""
+    if not use_kernel(qs, k, v, seg, lse, delta, do):
+        return flash_dkv_ref(qs, k, v, seg, cos, sin, lse, delta, do, causal, dh,
+                             bi_causal_split)
+    b, p, _ = qs.shape
+    (qs, k, v, do), seg, cos, sin, (lse, delta) = _check_bwd(
+        "flash_dkv", dh, qs, k, v, seg, cos, sin, lse, do, extra_rows=(delta,))
+    dk, dv = torch.empty_like(qs), torch.empty_like(qs)
+    fn = _build.entry("flash_bwd_split", "ggt_flash_dkv", _DKV_ARGTYPES)
+    err = fn(
+        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg), _opt_ptr(cos),
+        _opt_ptr(sin), _build.ptr(lse), _build.ptr(delta), _build.ptr(do), _build.ptr(dk),
+        _build.ptr(dv), b, p, lse.shape[1], int(causal), int(bi_causal_split),
+        _build.stream_ptr(qs.device),
+    )
+    flash_dkv.launches += 1
+    _build.check(err, "flash_dkv")
+    return dk, dv
+
+
+flash_dkv.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

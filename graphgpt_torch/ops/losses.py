@@ -21,11 +21,16 @@ _EPS = 1e-7
 
 
 def _ce_from_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Per-element CE in fp32; labels < 0 read class 0 (weighted out later)."""
+    """Per-element CE in fp32; labels < 0 read class 0 (weighted out later).
+    A label past the last class picks no logit, so its CE is the logsumexp
+    alone, as the JAX package's compare-select gives it (the denoise
+    model's 3D-SMTP labels reach two past its head)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
-    return lse - picked
+    v = logits.shape[-1]
+    lab = labels.clamp(min=0).long()
+    picked = logits.gather(-1, lab.clamp(max=v - 1)[..., None])[..., 0]
+    return lse - torch.where(lab < v, picked, 0.0)
 
 
 def chunked_stacked_ce(

@@ -17,9 +17,25 @@ nn.Linear's [out, in] layout (the mapping of graphgpt_tpu/utils/convert.py):
     score_mlp[i].{w,b}        score_mlp.{i}.weight (T), score_mlp.{i}.bias
     stacked_agg_w             stacked_feat_agg.weight
 
+The 3D-molecule heads keep the JAX names (no HF name exists):
+
+    denoise.{q,k,v}           denoise.{q,k,v}.weight (T)
+    denoise.force_{w,b}       denoise.force_{w,b}
+    embed_pos_type            embed_pos_type.weight
+    embed_pos_token           embed_pos_token.weight
+    embed_line_token          embed_line_token.weight
+    embed_cube_token          embed_cube_token.weight
+    smtp_proj, smtp_head      smtp_proj.weight, smtp_head.weight (T)
+    pos_bins_proj, _head      pos_bins_proj.weight, pos_bins_head.weight (T)
+    line_token_proj, _head    line_token_proj.weight, line_token_head.weight (T)
+    cube_token_proj           cube_token_proj.weight (T)
+    pos_token_agg_w           pos_token_agg_w
+
 Arrays cross as numpy: the tree may hold numpy arrays or anything that
-`np.asarray` reads. A gradient tree, or a tree of optimizer moments, has
-the weights' layout, so the same mapping carries it (`tree_from_jax`).
+`np.asarray` reads. A key of the tree that this table does not name raises
+(a head left out would otherwise keep its random init). A gradient tree, or
+a tree of optimizer moments, has the weights' layout, so the same mapping
+carries it (`tree_from_jax`).
 """
 
 from __future__ import annotations
@@ -46,17 +62,50 @@ _NORMS = (
     ("ls1", "lambda_1"),
     ("ls2", "lambda_2"),
 )
+# top-level matrices [in, out] -> nn.Linear weights [out, in]
 _HEADS = (
     ("lm_head", "lm_head.weight"),
     ("n_token_proj", "n_token_proj.weight"),
     ("cl_proj", "cl_proj.weight"),
+    ("smtp_proj", "smtp_proj.weight"),
+    ("smtp_head", "smtp_head.weight"),
+    ("pos_bins_proj", "pos_bins_proj.weight"),
+    ("pos_bins_head", "pos_bins_head.weight"),
+    ("line_token_proj", "line_token_proj.weight"),
+    ("line_token_head", "line_token_head.weight"),
+    ("cube_token_proj", "cube_token_proj.weight"),
 )
+# top-level arrays kept as they are
+_ASIS = (
+    ("stacked_agg_w", "stacked_feat_agg.weight"),
+    ("score_b", "score.bias"),
+    ("embed_pos_type", "embed_pos_type.weight"),
+    ("embed_pos_token", "embed_pos_token.weight"),
+    ("embed_line_token", "embed_line_token.weight"),
+    ("embed_cube_token", "embed_cube_token.weight"),
+    ("pos_token_agg_w", "pos_token_agg_w"),
+)
+# the denoise force head: (key, transposed)
+_DENOISE = (("q", True), ("k", True), ("v", True), ("force_w", False), ("force_b", False))
+_MAPPED = ({"embed_tokens", "final_norm", "layers", "score_w", "score_mlp", "denoise"}
+           | {k for k, _ in _HEADS} | {k for k, _ in _ASIS})
+
+
+def _denoise_name(key: str) -> str:
+    return f"denoise.{key}.weight" if key in ("q", "k", "v") else f"denoise.{key}"
 
 
 def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
     """JAX params tree -> the port's fp32 state dict on `device` (cuda
-    unless named)."""
+    unless named). Raises on a key that the mapping does not name."""
     dev = resolve_device(device)
+    layer_keys = {o for o, _ in _PROJ + _NORMS}
+    unmapped = sorted(set(tree) - _MAPPED)
+    unmapped += [f"layers.{k}" for k in sorted(set(tree.get("layers", {})) - layer_keys)]
+    unmapped += [f"denoise.{k}" for k in sorted(set(tree.get("denoise", {}))
+                                                - {o for o, _ in _DENOISE})]
+    if unmapped:
+        raise KeyError(f"params_from_jax: no mapping for {unmapped}")
 
     def t(x):
         return torch.from_numpy(np.array(x, dtype=np.float32, order="C")).to(dev)
@@ -76,16 +125,19 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor
     for ours, theirs in _HEADS:
         if ours in tree:
             sd[theirs] = t(np.asarray(tree[ours]).T)
-    if "stacked_agg_w" in tree:
-        sd["stacked_feat_agg.weight"] = t(tree["stacked_agg_w"])
+    for ours, theirs in _ASIS:
+        if ours in tree:
+            sd[theirs] = t(tree[ours])
     if "score_w" in tree:
         sd["score.weight"] = t(np.asarray(tree["score_w"]).T)
-    if "score_b" in tree:
-        sd["score.bias"] = t(tree["score_b"])
     for i, layer in enumerate(tree.get("score_mlp", ())):
         sd[f"score_mlp.{i}.weight"] = t(np.asarray(layer["w"]).T)
         if "b" in layer:
             sd[f"score_mlp.{i}.bias"] = t(layer["b"])
+    for key, transposed in _DENOISE:
+        if key in tree.get("denoise", {}):
+            x = np.asarray(tree["denoise"][key])
+            sd[_denoise_name(key)] = t(x.T if transposed else x)
     return sd
 
 
@@ -120,12 +172,16 @@ def params_to_jax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     for ours, theirs in _HEADS:
         if theirs in sd:
             tree[ours] = a(sd[theirs]).T
-    if "stacked_feat_agg.weight" in sd:
-        tree["stacked_agg_w"] = a(sd["stacked_feat_agg.weight"])
+    for ours, theirs in _ASIS:
+        if theirs in sd:
+            tree[ours] = a(sd[theirs])
     if "score.weight" in sd:
         tree["score_w"] = a(sd["score.weight"]).T
-    if "score.bias" in sd:
-        tree["score_b"] = a(sd["score.bias"])
+    if any(k.startswith("denoise.") for k in sd):
+        tree["denoise"] = {
+            key: a(sd[_denoise_name(key)]).T if transposed else a(sd[_denoise_name(key)])
+            for key, transposed in _DENOISE
+        }
     n_mlp = sum(1 for k in sd if k.startswith("score_mlp.") and k.endswith(".weight"))
     if n_mlp:
         tree["score_mlp"] = [

@@ -76,16 +76,22 @@ def test_flash_kernel_matches_plain(cuda_device, causal, p):
 
 @pytest.mark.gpu
 def test_flash_kernel_raises_outside_this_slice(cuda_device):
+    """A bi-causal split runs on the card now (the split backward pair);
+    fp32 and P > 2048 (the streamed kernels #6-#8) still raise."""
     dev = cuda_device
-    x = torch.zeros(1, 64, 2, 64, device=dev, dtype=torch.bfloat16)
+    x = torch.zeros(1, 64, 2, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
     seg = torch.ones(1, 64, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention(x, x, x, seg, bi_causal_split=8)
+    out = tfa.flash_attention(x, x, x, seg, bi_causal_split=8)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(x.grad.float()).all()
     with pytest.raises(NotImplementedError):
         tfa.flash_attention(x.float(), x.float(), x.float(), seg)
     big = torch.zeros(1, 2112, 1, 64, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention(big, big, big, torch.ones(1, 2112, dtype=torch.int32, device=dev))
+    seg_big = torch.ones(1, 2112, dtype=torch.int32, device=dev)
+    for bi in (0, 16):
+        with pytest.raises(NotImplementedError, match="#6"):
+            tfa.flash_attention(big, big, big, seg_big, bi_causal_split=bi)
 
 
 @pytest.mark.gpu
@@ -232,6 +238,109 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, causal, shape):
             torch.testing.assert_close(g.float(), r.float(), atol=3.2e-2, rtol=2e-2)
             assert _rel(g, r) < 2e-3
             assert bool((g[-1, p - 30 :] == 0).all())
+
+
+def _denoise_row_segments(b, p, bi, rng):
+    """Rows laid out as the denoise batch lays them out: a molecule at the
+    front, padding, then `bi` bit slots in the molecule's segment."""
+    seg = np.zeros((b, p), np.int32)
+    for r in range(b):
+        seg[r, : int(rng.integers(10, p - bi))] = 1
+        seg[r, p - bi :] = 1
+    return seg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 88, 12), (2, 1024, 12), (2, 128, 3)],
+                         ids=["denoise", "P1024", "split-on-edge"])
+def test_split_backward_kernels_match_plain(cuda_device, shape):
+    """flash_dq (with its delta, a cotangent of lse folded in), flash_dkv
+    and the bi-causal flash_fwd against their plain versions (16 bit slots;
+    64 on the last shape, a split on a tile edge), at the tolerances of the
+    fused kernels; padded rows exactly 0. The
+    backward wrapper launches each split kernel once and the fused one not
+    at all."""
+    dev = cuda_device
+    b, p, h = shape
+    dh, bi = 64, (64 if p == 128 else 16)
+    rng = np.random.default_rng(11)
+    qs = _bf16(rng, (b, p, h * dh), 0.5 * dh**-0.5, dev)
+    k, v, do = (_bf16(rng, (b, p, h * dh), 0.5, dev) for _ in range(3))
+    seg_np = _denoise_row_segments(b, p, bi, rng) if p != 1024 else packed_segments(b, p, rng)
+    seg = torch.from_numpy(seg_np).to(dev)
+    pos = torch.arange(p, device=dev).expand(b, p)
+    cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(pos, dh))
+    out, lse = tfa.flash_fwd(qs, k, v, seg, cos, sin, False, dh, bi)
+    torch.cuda.synchronize()
+    with ops.reference_mode():
+        rout, rlse = tfa.flash_fwd(qs, k, v, seg, cos, sin, False, dh, bi)
+    valid = seg > 0
+    torch.testing.assert_close(out.float(), rout.float(), atol=3e-2, rtol=2e-2)
+    assert _rel(out[valid], rout[valid]) < 4e-3
+    torch.testing.assert_close(lse.transpose(1, 2)[valid], rlse.transpose(1, 2)[valid],
+                               atol=1e-3, rtol=1e-4)
+    assert bool((out[~valid] == 0).all())
+    dlse = torch.from_numpy(rng.normal(size=(b, h, p)).astype(np.float32) * 0.3).to(dev)
+    dlse = dlse * valid[:, None, :]  # padded rows take no part in the backward
+    dq_args = (qs, k, v, seg, cos, sin, out, lse, do, dlse, False, dh, bi)
+    dq, delta = tfa.flash_dq(*dq_args)
+    args = (qs, k, v, seg, cos, sin, lse, delta, do, False, dh, bi)
+    dk, dv = tfa.flash_dkv(*args)
+    torch.cuda.synchronize()
+    with ops.reference_mode():
+        rdq, rdelta = tfa.flash_dq(*dq_args)
+        rdk, rdv = tfa.flash_dkv(*args)
+    # the delta kernel sums 64 bf16 products in fp32 in another order
+    torch.testing.assert_close(delta, rdelta, atol=1e-5, rtol=1e-5)
+    for g, r in zip((dq, dk, dv), (rdq, rdk, rdv)):
+        torch.testing.assert_close(g.float(), r.float(), atol=3.2e-2, rtol=2e-2)
+        assert _rel(g, r) < 2e-3
+        assert bool((g[~valid] == 0).all())
+    before = (tfa.flash_dq.launches, tfa.flash_dkv.launches, tfa.flash_bwd.launches)
+    got = tfa.flash_bwd(qs, k, v, seg, cos, sin, out, lse, do, dlse, False, dh, bi)
+    torch.cuda.synchronize()
+    assert (tfa.flash_dq.launches, tfa.flash_dkv.launches, tfa.flash_bwd.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    for g, r in zip(got, (dq, dk, dv)):
+        assert torch.equal(g, r)  # no atomics: the same bits every run
+
+
+@pytest.mark.gpu
+def test_denoise_step_goes_through_the_split_kernels(cuda_device):
+    """One training step of a 2-layer denoise model at GraphGPT-base width
+    with 16 bit slots on a mol3d batch: per layer one flash_dq and one
+    flash_dkv, no fused backward; the step's gradients against the plain
+    run, the same draws, 5e-2 in the relative Frobenius norm."""
+    from graphgpt_torch.models.denoise import GraphGPTDenoise, denoise_draws
+    from graphgpt_torch.synthetic import mol3d_batch
+
+    cfg = ModelConfig(vocab_size=755, hidden_size=768, num_hidden_layers=2, stacked_feat=13,
+                      next_n_token=1, mask_token_id=1, task_type="graph",
+                      stacked_feat_agg_method="gated", problem_type="regression",
+                      loss_type="l1", bi_causal_split=16).finalize()
+    model = GraphGPTDenoise(cfg, device=cuda_device, seed=0)
+    batch = to_torch(mol3d_batch(8, 88, seed=0, bi_split=16), cuda_device)
+    draws = denoise_draws(8, 88, torch.Generator(device=cuda_device).manual_seed(1), cuda_device)
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        out = model(batch, train=True, draws=draws)
+        out["loss"].backward()
+        return out, {k: q.grad.clone() for k, q in model.named_parameters() if q.grad is not None}
+
+    counters = (tfa.flash_dq, tfa.flash_dkv, tfa.flash_bwd, tfa.flash_fwd)
+    before = [c.launches for c in counters]
+    out_k, grads_k = run()
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [2, 2, 0, 2]
+    with ops.reference_mode():
+        out_p, grads_p = run()
+    assert abs(out_k["loss"].item() - out_p["loss"].item()) < 5e-3
+    assert out_k["task_logits"].shape == (8, 1)
+    assert set(grads_k) == set(grads_p)
+    for name in grads_k:
+        assert torch.isfinite(grads_k[name]).all(), name
+        assert _rel(grads_k[name], grads_p[name]) < 5e-2, name
 
 
 @pytest.mark.gpu

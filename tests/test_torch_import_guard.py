@@ -4,7 +4,8 @@ An AST scan of every module of `graphgpt_torch/` and of `chip_smoke.py`
 finds no import of jax, jaxlib, optax, flax, orbax or graphgpt_tpu, at any
 depth (inside functions too). A subprocess that blocks `jax` in
 `sys.modules` imports every module of the port and runs a tiny CPU forward,
-a few sampler steps, one training step and a one-epoch fine-tune run.
+a few sampler steps, one training step, a one-epoch fine-tune run and the
+two 3D-molecule models' training forwards.
 """
 
 import ast
@@ -45,10 +46,13 @@ def test_the_scan_sees_every_module():
                  "graphgpt_torch/models/heads.py", "graphgpt_torch/generation/dllm.py",
                  "graphgpt_torch/training/optimizer.py", "graphgpt_torch/training/steps.py",
                  "graphgpt_torch/training/finetune.py", "graphgpt_torch/data/tokenizer.py",
-                 "graphgpt_torch/utils/metrics.py", "chip_smoke.py"):
+                 "graphgpt_torch/utils/metrics.py", "graphgpt_torch/models/denoise.py",
+                 "graphgpt_torch/models/pos_pretrain.py", "graphgpt_torch/data/mol3d.py",
+                 "chip_smoke.py"):
         assert must in names
     assert sorted(p.name for p in (ROOT / "graphgpt_torch" / "csrc").glob("*.cu")) == [
-        "flash_bwd.cu", "flash_fwd.cu", "mlp.cu", "norm_mlp.cu", "rmsnorm_bwd.cu",
+        "flash_bwd.cu", "flash_bwd_split.cu", "flash_fwd.cu", "mlp.cu", "norm_mlp.cu",
+        "rmsnorm_bwd.cu",
     ]
 
 
@@ -101,6 +105,17 @@ with contextlib.redirect_stdout(io.StringIO()):  # the pipeline's log lines
     pipe.test_idx = pipe.valid_idx
     best = pipe.run()
 assert np.isfinite(best["valid_mae"]), best
+from graphgpt_torch.models.denoise import GraphGPTDenoise
+from graphgpt_torch.models.pos_pretrain import GraphGPTPosPred
+from graphgpt_torch.synthetic import mol3d_batch
+mb = to_torch(mol3d_batch(2, 40, bi_split=16), "cpu")
+cfg3 = ModelConfig(vocab_size=755, hidden_size=64, num_hidden_layers=1, stacked_feat=13,
+                   next_n_token=13, mask_token_id=1, dtype="float32", pos_num_bins=8,
+                   problem_type="regression", loss_type="l1", bi_causal_split=16).finalize()
+out = GraphGPTDenoise(cfg3, device="cpu")(mb, torch.Generator().manual_seed(0), train=True)
+assert torch.isfinite(out["loss"]) and out["task_logits"].shape == (2, 1), out
+out = GraphGPTPosPred(cfg3, device="cpu")(mb, torch.Generator().manual_seed(0), train=True)
+assert torch.isfinite(out["loss"]), out
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "graphgpt_tpu")
              and sys.modules[m] is not None)
 assert not bad, bad
