@@ -5,7 +5,7 @@
 1. Fails unless a CUDA card is present; prints its name and power limit.
 2. Builds every kernel from graphgpt_torch/csrc with nvcc (one process per
    source, all at once) and prints the build time.
-3. Kernel phase: each of the four kernels (flash_fwd, norm_mlp, flash_bwd,
+3. Kernel phase: each of the kernels (flash_fwd, norm_mlp, flash_bwd,
    rmsnorm_bwd) against its plain PyTorch version in bf16 (errors beside
    their tolerances) at the shapes both main paths give it, 8 x 1024 rows
    for serving and 64 x 1024 for training, timed three times with
@@ -48,13 +48,30 @@
    a 256 x 72 mol3d batch: flash_fwd, flash_bwd and norm_mlp at that
    batch's shape against their plain versions, the first step against the
    plain run, four steps with their launch counts.
-10. Prints one JSON line listing every kernel, then the device line last.
+10. Long-context pretraining phase: GraphGPT-base SMTP pretraining through
+   the port's PretrainPipeline on configs/pcqm4m_v2_pretrain_long.yaml at
+   max_length 4096 without block-aligned packing, batch 16 (65,536 tokens
+   a step), synthetic_mol. First the streamed kernels #6 flash_fwd_stream,
+   #7 flash_dq_stream (with its delta) and #8 flash_dkv_stream against
+   their plain versions on 2 of the first batch's 16 rows, with its
+   segments and RoPE table, and again with another packed row's ids as the
+   key ids; each timed at the whole 16 x 4096 beside its bound, its plain
+   version's time and SDPA's, and #1's entry on the same rows. Then the
+   first step on 4 rows against the plain run; run A, eight steps with the
+   launch counts of each step and each eval forward, falling losses,
+   log.csv (tokens/s, mfu), result.csv (valid, EMA-valid, 2 generation
+   bands) and the checkpoint at step 8; a step on a batch on the card, the
+   loader's graphs/s with its worker pool, peak memory; auto-resume at
+   step 8 for two steps more; run B, the config as shipped (pack_block
+   256) for two steps: training in 256-token windows (#1, #3), the eval
+   and the generation sweep on whole rows (#6).
+11. Prints one JSON line listing every kernel, then the device line last.
 
 Any failed check raises, so the script exits non-zero. The launch counts
 are set to 0 just before each main path (eval + generation; training;
-fine-tuning; denoising; position pretraining) and read just after it;
-launches made to compare a kernel with its plain version fall outside
-those windows.
+fine-tuning; denoising; position pretraining; long-context pretraining)
+and read just after it; launches made to compare a kernel with its plain
+version fall outside those windows.
 """
 
 from __future__ import annotations
@@ -623,8 +640,10 @@ def step_vs_plain(model, batch, ops, tag, loss_atol, grad_rel, call=dict):
     """One training forward and backward with the kernels against the same
     with the plain versions: the loss and every parameter's gradient.
     `call()` gives the model call's other keyword arguments, made afresh for
-    each run so that both draw the same (dropout generators, draws). Prints
-    the plain run's peak memory; returns the worst relative error."""
+    each run so that both draw the same (dropout generators, draws).
+    `grad_rel` is one limit for every gradient, or a limit per parameter
+    name. Prints the plain run's peak memory; returns the worst relative
+    error (all of them in `step_vs_plain.last`)."""
 
     def run():
         model.zero_grad(set_to_none=True)
@@ -644,19 +663,24 @@ def step_vs_plain(model, batch, ops, tag, loss_atol, grad_rel, call=dict):
     peak = (f"; plain run's max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.0f}"
             " MiB" if cuda else "")
     rels = {k: rel_err(grads_k[k], grads_p[k]) for k in grads_p}
-    worst = max(rels, key=rels.get)
+    step_vs_plain.last = rels
+    limit = grad_rel if isinstance(grad_rel, dict) else {k: grad_rel for k in rels}
+    worst = max(rels, key=lambda k: rels[k] / limit[k])
     print(
         f"{tag} step vs plain ({batch['input_ids'].shape[0]} rows, the same draws): loss "
         f"{loss_k:.6f} vs {loss_p:.6f} (|diff| {abs(loss_k - loss_p):.3e}, tol {loss_atol}); "
         f"{len(rels)} gradients, worst |g-plain|/|plain| {rels[worst]:.3e} at {worst} "
-        f"(tol {grad_rel}), median {float(np.median(list(rels.values()))):.3e}{peak}",
+        f"(tol {limit[worst]:.3g}), median {float(np.median(list(rels.values()))):.3e}{peak}",
         flush=True,
     )
     if not (set(grads_k) == set(grads_p) == {k for k, _ in model.named_parameters()}
-            and abs(loss_k - loss_p) <= loss_atol and rels[worst] <= grad_rel
+            and abs(loss_k - loss_p) <= loss_atol and rels[worst] <= limit[worst]
             and all(bool(torch.isfinite(g).all()) for g in grads_k.values())):
         fail(f"the {tag} step with kernels disagrees with the plain run")
     return rels[worst]
+
+
+step_vs_plain.last = {}
 
 
 def counted_steps(tag, state, step_fn, batch, counters, want, steps, timed_from=1):
@@ -708,8 +732,8 @@ def train_phase(model, nb, counters, steps: int = 12):
     state = init_train_state(model, tx, use_ema=True)
     step_fn = make_train_step(tx, opt_cfg, schedule)
     L = cfg.num_hidden_layers
-    want = {"flash_fwd": L, "flash_bwd": L, "norm_mlp": L, "rmsnorm_bwd": L + 1, "mlp": 0,
-            "flash_dq": 0, "flash_dkv": 0}
+    want = {**{k: 0 for k in counters}, "flash_fwd": L, "flash_bwd": L, "norm_mlp": L,
+            "rmsnorm_bwd": L + 1}
     timed_from = 2
     state, metrics, launches, ms, peak = counted_steps(
         "training", state, step_fn, batch, counters, want, steps, timed_from)
@@ -1056,13 +1080,12 @@ def finetune_phase(pretrain_model, counters, fa, mlp, ops):
         launches = {k: fn.launches for k, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated() / 2**20
 
-        want = {"mlp": 2 * L, "flash_fwd": 2 * L, "flash_bwd": L, "norm_mlp": 0,
-                "rmsnorm_bwd": 2 * L + 1, "flash_dq": 0, "flash_dkv": 0}
+        want = {**{k: 0 for k in counters}, "mlp": 2 * L, "flash_fwd": 2 * L, "flash_bwd": L,
+                "rmsnorm_bwd": 2 * L + 1}
         for i, got in enumerate(train_log):
             if got != want:
                 fail(f"fine-tune step {i} launched {got}, expected {want}")
-        want_eval = {"mlp": L, "flash_fwd": L, "flash_bwd": 0, "norm_mlp": 0, "rmsnorm_bwd": 0,
-                     "flash_dq": 0, "flash_dkv": 0}
+        want_eval = {**{k: 0 for k in counters}, "mlp": L, "flash_fwd": L}
         for i, got in enumerate(ema_log):
             if got != want_eval:
                 fail(f"EMA eval forward {i} launched {got}, expected {want_eval}")
@@ -1169,8 +1192,8 @@ def denoise_phase(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin, steps: i
     L = cfg.num_hidden_layers
     # pairs: each group of two layers recomputes both attentions and the
     # first layer's norm-fused MLP; the split pair replaces the fused backward
-    want = {"flash_fwd": 2 * L, "flash_bwd": 0, "flash_dq": L, "flash_dkv": L,
-            "norm_mlp": L + L // 2, "rmsnorm_bwd": L + 1, "mlp": 0}
+    want = {**{k: 0 for k in counters}, "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
+            "norm_mlp": L + L // 2, "rmsnorm_bwd": L + 1}
     state, metrics, launches, ms, peak = counted_steps(
         "denoise", state, make_train_step(tx, opt_cfg, schedule), batch, counters, want, steps)
     for key in ("task_loss", "pretrain_loss", "loss"):
@@ -1237,8 +1260,8 @@ def pos_phase(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin, steps: int =
     tx = make_optimizer(opt_cfg, 20, 2, schedule=schedule)
     state = init_train_state(model, tx, use_ema=True)
     L = cfg.num_hidden_layers
-    want = {"flash_fwd": L, "flash_bwd": L, "flash_dq": 0, "flash_dkv": 0, "norm_mlp": L,
-            "rmsnorm_bwd": L + 1, "mlp": 0}
+    want = {**{k: 0 for k in counters}, "flash_fwd": L, "flash_bwd": L, "norm_mlp": L,
+            "rmsnorm_bwd": L + 1}
     state, metrics, launches, ms, peak = counted_steps(
         "position-pretraining", state, make_train_step(tx, opt_cfg, schedule), batch, counters,
         want, steps)
@@ -1253,6 +1276,346 @@ def pos_phase(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin, steps: int =
     del model, state
     shape.update(grad_rel=grad_rel, step_ms=ms, peak_mib=peak)
     return launches, shape
+
+
+def check_stream_rows(fa, ops, tag, qs, k, v, seg_q, seg_k, cos, sin, do, dh):
+    """#6, #7 (with its delta) and #8 on these rows against their plain
+    versions; padded query rows (and keys of no query) exactly 0. Returns
+    the largest elementwise error of each kernel and #7's delta error."""
+    out, lse = fa.flash_fwd_stream(qs, k, v, seg_q, seg_k, cos, sin, False, dh)
+    dq, delta = fa.flash_dq_stream(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, None, False,
+                                   dh)
+    dk, dv = fa.flash_dkv_stream(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, False, dh)
+    torch.cuda.synchronize()
+    with ops.reference_mode():
+        rout, rlse = fa.flash_fwd_stream(qs, k, v, seg_q, seg_k, cos, sin, False, dh)
+        rdq, rdelta = fa.flash_dq_stream(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, None,
+                                         False, dh)
+        rdk, rdv = fa.flash_dkv_stream(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, False,
+                                       dh)
+    b, p = seg_q.shape
+    shape = f"{tag}, {b} of the rows, P={p}"
+    fwd_err = check_flash_fwd(f"stream, {shape}", out, lse, rout, rlse, seg_q)
+    delta_err = (delta - rdelta).abs().max().item()
+    print(f"flash_dq_stream[{shape}] max|delta-plain| {delta_err:.3e} (tol {DELTA_ATOL})",
+          flush=True)
+    if not delta_err <= DELTA_ATOL:
+        fail(f"flash_dq_stream[{shape}]'s delta disagrees with its plain version")
+    dq_err, _ = check_flash_bwd(shape, (dq,), (rdq,), seg_q, "flash_dq_stream", ("dq",))
+    dkv_err, _ = check_flash_bwd(shape, (dk, dv), (rdk, rdv), seg_k, "flash_dkv_stream",
+                                 ("dk", "dv"))
+    return dict(fwd=fwd_err, dq=dq_err, dkv=dkv_err, delta=delta_err)
+
+
+def stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_rows: int = 2):
+    """The streamed kernels #6, #7 and #8 at the long-context path's shape
+    (seg [B, P], P 4096 on the first batch's packed segments): against their
+    plain versions on the first `check_rows` rows (the plain attention of all
+    16 rows would need [16, 12, 4096, 4096] fp32, 12.9 GB), once with the
+    query ids as key ids and once with another packed row's ids as key ids
+    (seg_k != seg_q: query rows whose segment that row lacks see no key);
+    then each kernel timed at the whole shape beside its bound, its plain
+    version's time and SDPA's (boolean mask; forward, and forward's backward
+    for #7 and #8), and #1's entry (ggt_flash_fwd) on the same rows, which
+    the dispatch never gives it above P 2048."""
+    b, p = seg.shape
+    qs, k, v, do = flash_tensors(seg, h, dh, seed=21)
+    r = slice(0, check_rows)
+    rows = lambda *ts: [None if t is None else t[r] for t in ts]  # noqa: E731
+    errs = check_stream_rows(fa, ops, "long-context", *rows(qs, k, v, seg, seg, cos, sin, do), dh)
+    swap = torch.arange(check_rows, device=seg.device).roll(1)
+    other = check_stream_rows(fa, ops, "keys of another packed row",
+                              *rows(qs, k, v, seg), seg[r][swap], *rows(cos, sin, do), dh)
+    errs = {key: max(errs[key], other[key]) for key in errs}
+
+    fwd_args = (qs, k, v, seg, seg, cos, sin, False, dh)
+    out, lse = fa.flash_fwd_stream(*fwd_args)
+    dq_args = (qs, k, v, seg, seg, cos, sin, out, lse, do, None, False, dh)
+    _, delta = fa.flash_dq_stream(*dq_args)
+    dkv_args = (qs, k, v, seg, seg, cos, sin, lse, delta, do, False, dh)
+    # kernel #1 on the same rows, through its C entry
+    seg32 = seg.to(torch.int32).contiguous()
+    out1, lse1 = torch.empty_like(out), torch.empty_like(lse)
+    one = _build.entry("flash_fwd", "ggt_flash_fwd", fa._ARGTYPES)
+
+    def single():
+        _build.check(one(_build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg32),
+                         _build.ptr(cos), _build.ptr(sin), _build.ptr(out1), _build.ptr(lse1), b,
+                         p, h, 0, 0, _build.stream_ptr(qs.device)), "ggt_flash_fwd")
+
+    single()
+    torch.cuda.synchronize()
+    same = (out1.float() - out.float()).abs().max().item()
+    print(f"flash_fwd (#1's entry) on the long-context rows: max|out - flash_fwd_stream| "
+          f"{same:.3e} (tol {FLASH_TOL['out_atol']})", flush=True)
+    if not same <= FLASH_TOL["out_atol"]:
+        fail("kernel #1 and kernel #6 disagree on the long-context rows")
+    single_ms = cuda_ms(single, iters=5)
+    single_spread = spread()
+
+    rq = fa.rotate_tokens(qs, cos, sin, dh).view(b, p, h, dh).transpose(1, 2)
+    rk = fa.rotate_tokens(k, cos, sin, dh).view(b, p, h, dh).transpose(1, 2)
+    mask = fa._valid_mask(seg, False)
+    leaves = [t.detach().requires_grad_() for t in (rq, rk, v.view(b, p, h, dh).transpose(1, 2))]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = cuda_ms(lambda: sdpa(*leaves, attn_mask=mask, scale=1.0), iters=3)
+    sd = sdpa(*leaves, attn_mask=mask, scale=1.0)
+    do4 = do.view(b, p, h, dh).transpose(1, 2)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(sd, leaves, do4, retain_graph=True), iters=3)
+    del sd, leaves, mask, rq, rk
+    res = {}
+    for kind, fn in (("fwd", lambda: fa.flash_fwd_stream(*fwd_args)),
+                     ("dq", lambda: fa.flash_dq_stream(*dq_args)),
+                     ("dkv", lambda: fa.flash_dkv_stream(*dkv_args))):
+        ms = cuda_ms(fn, iters=5)
+        ms_spread = spread()
+        with ops.reference_mode():
+            plain_ms = cuda_ms(fn, iters=1, warmup=1)
+        lib_ms = lib_fwd if kind == "fwd" else lib_bwd
+        nbytes, flops = flash_work(fa, seg, False, h, dh, kind)
+        bms, by = bound(nbytes, flops)
+        name = {"fwd": "flash_fwd_stream", "dq": "flash_dq_stream", "dkv": "flash_dkv_stream"}[kind]
+        lib = "SDPA" if kind == "fwd" else "SDPA backward (dq, dk, dv)"
+        extra = (f"; kernel #1 (ggt_flash_fwd) on the same rows {single_ms:.4f} ms (3 readings "
+                 f"{single_spread})") if kind == "fwd" else ""
+        print(f"{name} B={b} P={p} H={h}: kernel {ms:.4f} ms (3 readings {ms_spread}), plain "
+              f"{plain_ms:.4f} ms, {lib} {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP){extra}", flush=True)
+        res[kind] = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms, bound_by=by,
+                         err=errs[kind])
+    res["fwd"]["single_ms"] = single_ms
+    res["dq"]["delta_err"] = errs["delta"]
+    return res
+
+
+def long_config(out_dir: str, *overrides: str):
+    """configs/pcqm4m_v2_pretrain_long.yaml read by the port's load_config
+    (GraphGPT-base: 768 x 12, 12 heads of 64, gated aggregation, bf16,
+    save_attn, AdamW 0.9/0.95 with warmup_decay, pretrain-mlm with packing),
+    at max_length 4096 without block-aligned packing, batch 16 (65,536
+    tokens a step), on the synthetic molecules (PCQM4M-v2's schema); eight
+    steps, 2 of warm-up, EMA on for the EMA-valid loss, 550 valid graphs, a
+    generation sweep of 2 bands over 16 graphs in 16 steps. `overrides` go
+    after these."""
+    from graphgpt_torch.config import load_config
+
+    return load_config(os.path.join(HERE, "configs", "pcqm4m_v2_pretrain_long.yaml"), [
+        "tokenization.dataset=synthetic_mol", "model.max_position_embeddings=4096",
+        "training.max_length=4096", "training.pack_block=0", "training.batch_size=16",
+        "training.schedule.total_num_steps=8", "training.schedule.warmup_num_steps=2",
+        "training.schedule.logging_steps=1", "training.valid_percent=0.011",
+        "training.gen_eval_bands=2", "training.gen_eval_samples=16", "generation.steps=16",
+        "training.optimizer.use_ema=true", f"training.output_dir={out_dir}", *overrides])
+
+
+def csv_rows(path: str):
+    import csv
+
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def counted_pipeline(pipe, counters):
+    """Wrap pipe's train and eval steps so that each call logs its launches;
+    returns (train log, eval log, the train steps' metrics)."""
+    train_log, eval_log, metrics = [], [], []
+    step_fn = count_per_call(pipe.train_step, counters, train_log)
+
+    def train_step(*a, **kw):
+        state, m = step_fn(*a, **kw)
+        metrics.append(m)
+        return state, m
+
+    pipe.train_step = train_step
+    pipe.eval_step = count_per_call(pipe.eval_step, counters, eval_log)
+    if pipe.eval_step_ema is not None:
+        pipe.eval_step_ema = count_per_call(pipe.eval_step_ema, counters, eval_log)
+    return train_log, eval_log, metrics
+
+
+def check_logs(tag, train_log, eval_log, want, want_eval, steps):
+    if len(train_log) != steps:
+        fail(f"{tag}: {len(train_log)} training steps, expected {steps}")
+    for i, got in enumerate(train_log):
+        if got != want:
+            fail(f"{tag} step {i} launched {got}, expected {want}")
+    for i, got in enumerate(eval_log):
+        if got != want_eval:
+            fail(f"{tag} eval forward {i} launched {got}, expected {want_eval}")
+    print(f"{tag} launches per training step: {want} (all {len(train_log)} steps); per eval "
+          f"forward: {want_eval} (all {len(eval_log)})", flush=True)
+
+
+def long_context_phase(dev, counters, fa, mlp, ops, _build, rope_cos_sin):
+    """The long-context pretraining path (see the module docstring, 10).
+    Returns (the kernels' results at its shape, the launches of its runs)."""
+    from graphgpt_torch.models.rope import reset_position_ids
+    from graphgpt_torch.synthetic import to_torch
+    from graphgpt_torch.training.checkpoint import Checkpointer
+    from graphgpt_torch.training.pipeline import PretrainPipeline
+
+    launches = {k: 0 for k in counters}
+
+    def add(before):
+        for k, fn in counters.items():
+            launches[k] += fn.launches - before[k]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_a = os.path.join(tmp, "run_a")
+        t0 = time.perf_counter()
+        pipe = PretrainPipeline(long_config(out_a), device=dev).setup()
+        mc, tc = pipe.cfg.model, pipe.cfg.training
+        print(f"long-context setup {time.perf_counter() - t0:.1f} s: hidden {mc.hidden_size}, "
+              f"{mc.num_hidden_layers} layers, {mc.num_attention_heads} heads, vocab "
+              f"{mc.vocab_size}, mpe {mc.max_position_embeddings}, attn_block {mc.attn_block}, "
+              f"remat {mc.remat_policy}, {mc.dtype}; {pipe.total_steps} steps, batch "
+              f"{tc.batch_size} x {tc.max_length}, {tc.num_workers} loader workers, "
+              f"{len(pipe.train_idx)} train and {len(pipe.valid_idx)} valid graphs", flush=True)
+        if len(pipe.valid_idx) < 512 or mc.attn_block != 0 or tc.max_length != 4096:
+            fail("the long-context config is not the one asked for")
+        # the first batch, as run() draws it
+        idx0 = np.random.default_rng((tc.seed, 0)).permutation(pipe.train_idx)
+        t0 = time.perf_counter()
+        nb = next(pipe.loader.epoch_batches(idx0, 0)).data
+        first_s = time.perf_counter() - t0
+        batch = to_torch(nb, dev)
+        b, p = nb["segment_ids"].shape
+        n_seg = int(sum(len(np.unique(r[r > 0])) for r in nb["segment_ids"]))
+        # the loader alone, its worker pool started by the first batch
+        t0 = time.perf_counter()
+        n_graphs = 0
+        for bb in pipe.loader.epoch_batches(idx0[: 3 * n_seg], epoch=3):
+            n_graphs += sum(len(np.unique(r[r > 0])) for r in bb["segment_ids"])
+        loader_gs = n_graphs / (time.perf_counter() - t0)
+        print(f"long-context batch: {b} x {p}, {int((nb['segment_ids'] > 0).sum())} tokens, "
+              f"{n_seg} molecules (the first batch tokenized and packed in {first_s:.2f} s, the "
+              f"worker pool's start included); the loader alone {loader_gs:.0f} graphs/s with "
+              f"{tc.num_workers} workers", flush=True)
+        pos = reset_position_ids(batch["position_ids"], mc.rope_range)
+        cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(
+            pos, mc.head_dim, mc.rope_theta, resonance=mc.rope_resonance,
+            rope_scaling=mc.rope_scaling, max_position_embeddings=mc.max_position_embeddings))
+        shape = stream_at_shape(fa, ops, _build, batch["segment_ids"], cos, sin,
+                                mc.num_attention_heads, mc.head_dim)
+        del cos, sin
+        torch.cuda.empty_cache()
+        model = pipe.state.model
+        # the first step on 4 rows against the plain run. At random weights
+        # the q_proj and k_proj gradients of the deeper layers are ~1e-5 of
+        # the largest (their sum over a segment's keys cancels), and bf16
+        # roundings move them by up to ~70% on any kernel path (the same
+        # tokens through #1 and #3 read as much). So each gradient is held to
+        # GRAD_REL, or to twice what the same tokens in 8 rows of 2048 (#1,
+        # #3, already held to their plain versions) read on it, the larger.
+        rows4 = {k: v[:4] for k, v in batch.items()}
+        rows8 = {k: v.repeat_interleave(2, 0) if v.dim() == 1
+                 else v.reshape((2 * v.shape[0], p // 2) + tuple(v.shape[2:]))
+                 for k, v in rows4.items()}
+        step_vs_plain(model, rows8, ops, "long-context control (the same tokens in rows of "
+                      f"{p // 2}: #1, #3)", LOSS_ATOL, 1.0)
+        limits = {k: max(GRAD_REL, 2 * r) for k, r in step_vs_plain.last.items()}
+        shape["grad_rel"] = step_vs_plain(model, rows4, ops, "long-context", LOSS_ATOL, limits)
+        torch.cuda.empty_cache()
+
+        # run A: eight counted steps, the save point, the checkpoint
+        L = mc.num_hidden_layers
+        want = {k: 0 for k in counters}
+        want.update(flash_fwd_stream=L, flash_dq_stream=L, flash_dkv_stream=L, norm_mlp=L,
+                    rmsnorm_bwd=L + 1)
+        want_eval = {k: 0 for k in counters}
+        want_eval.update(flash_fwd_stream=L, norm_mlp=L)
+        train_log, eval_log, metrics = counted_pipeline(pipe, counters)
+        torch.cuda.reset_peak_memory_stats()
+        before = {k: fn.launches for k, fn in counters.items()}
+        t0 = time.perf_counter()
+        pipe.run()
+        run_s = time.perf_counter() - t0
+        add(before)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        check_logs("long-context run A", train_log, eval_log, want, want_eval, 8)
+        losses = [float(m["loss"]) for m in metrics]
+        print("long-context losses: " + " ".join(f"{x:.4f}" for x in losses), flush=True)
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"the long-context losses are not finite or did not fall: {losses}")
+        log = csv_rows(os.path.join(out_a, "log.csv"))
+        res = csv_rows(os.path.join(out_a, "result.csv"))
+        tok_s = [float(r["tokens_per_s"]) for r in log]
+        mfu = [float(r["mfu"]) for r in log if r.get("mfu")]
+        gen_keys = sorted(k for k in res[-1] if k.startswith("gen_acc"))
+        print(f"long-context log.csv: {len(log)} rows, tokens_per_s "
+              + " ".join(f"{x:.0f}" for x in tok_s) + ", mfu " + " ".join(f"{x:.4f}" for x in mfu)
+              + f"; result.csv: {res[-1]}", flush=True)
+        if (len(log) != 8 or len(mfu) != 8 or len(gen_keys) != 2
+                or not all(np.isfinite(float(res[-1][k]))
+                           for k in ["valid_loss", "ema_valid_loss", *gen_keys])):
+            fail("log.csv or result.csv lacks a column or a finite value")
+        if Checkpointer(os.path.join(out_a, "ckpt")).latest_step() != 8:
+            fail("no checkpoint at step 8")
+        # timed outside the counted window: a step on the first batch on the
+        # card (it trains on: run A's checkpoint is on disk already)
+        ms = cuda_ms(lambda: pipe.train_step(pipe.state, batch, seed=tc.seed), iters=1, warmup=1,
+                     repeats=3)
+        ms_spread = spread()
+        tokens = int((nb["segment_ids"] > 0).sum())
+        print(f"long-context run A: {run_s:.1f} s for 8 steps, the save-point eval of 512 valid "
+              f"graphs (EMA too), the generation sweep and a checkpoint; a step on a batch on "
+              f"the card {ms:.2f} ms (3 readings {ms_spread}), {tokens / ms * 1e3:.0f} trained "
+              f"tokens/s; max_memory_allocated {peak:.0f} MiB", flush=True)
+        shape.update(step_ms=ms, tokens_per_s=tokens / ms * 1e3, peak_mib=peak,
+                     loader_graphs_s=loader_gs, run_s=run_s,
+                     losses=[round(x, 4) for x in losses])
+        del pipe, model, batch
+        torch.cuda.empty_cache()
+
+        # auto-resume: the same output_dir, two steps more
+        pipe = PretrainPipeline(long_config(out_a, "training.schedule.total_num_steps=10",
+                                            "training.gen_eval_bands=0"), device=dev).setup()
+        if pipe.start_step != 8 or pipe.state.step != 8:
+            fail(f"auto-resume started at step {pipe.start_step}, not 8")
+        train_log, eval_log, _ = counted_pipeline(pipe, counters)
+        before = {k: fn.launches for k, fn in counters.items()}
+        pipe.run()
+        add(before)
+        check_logs("long-context resumed", train_log, eval_log, want, want_eval, 2)
+        steps = [int(r["step"]) for r in csv_rows(os.path.join(out_a, "log.csv"))]
+        if steps != list(range(1, 11)) or pipe.state.step != 10:
+            fail(f"the resumed run logged steps {steps}")
+        print("long-context auto-resume: started at step 8, took steps 9 and 10", flush=True)
+        del pipe
+        torch.cuda.empty_cache()
+
+        # run B: the config as shipped (pack_block 256) at 4096: training in
+        # 256-token windows (#1, #3), the save point's eval and the
+        # generation sweep on whole rows (#6)
+        out_b = os.path.join(tmp, "run_b")
+        pipe = PretrainPipeline(long_config(out_b, "training.pack_block=256",
+                                            "training.schedule.total_num_steps=2"),
+                                device=dev).setup()
+        train_log, eval_log, metrics = counted_pipeline(pipe, counters)
+        gen_log = []
+        model = pipe.state.model
+        model.logits = count_per_call(model.logits, counters, gen_log)
+        before = {k: fn.launches for k, fn in counters.items()}
+        pipe.run()
+        add(before)
+        want_b = {k: 0 for k in counters}
+        want_b.update(flash_fwd=L, flash_bwd=L, norm_mlp=L, rmsnorm_bwd=L + 1)
+        check_logs("long-context run B (pack_block 256)", train_log, eval_log, want_b,
+                   want_eval, 2)
+        for i, got in enumerate(gen_log):
+            if got != want_eval:
+                fail(f"run B's generation forward {i} launched {got}, expected {want_eval}")
+        res_b = csv_rows(os.path.join(out_b, "result.csv"))[-1]
+        print(f"long-context run B: attn_block {pipe.cfg.model.attn_block}, losses "
+              + " ".join(f"{float(m['loss']):.4f}" for m in metrics)
+              + f"; {len(gen_log)} generation forwards on whole rows; result.csv {res_b}",
+              flush=True)
+        if not all(np.isfinite(float(m["loss"])) for m in metrics) or not np.isfinite(
+                float(res_b["valid_loss"])):
+            fail("run B's losses are not finite")
+        del pipe, model
+        torch.cuda.empty_cache()
+    return shape, launches
 
 
 def main() -> None:
@@ -1298,7 +1661,9 @@ def main() -> None:
     sp = split_phase(dev, fa, ops, synthetic, rope_cos_sin)
     counters = {"flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
                 "norm_mlp": mlp.norm_mlp, "rmsnorm_bwd": mlp.rmsnorm_bwd, "mlp": mlp.mlp,
-                "flash_dq": fa.flash_dq, "flash_dkv": fa.flash_dkv}
+                "flash_dq": fa.flash_dq, "flash_dkv": fa.flash_dkv,
+                "flash_fwd_stream": fa.flash_fwd_stream, "flash_dq_stream": fa.flash_dq_stream,
+                "flash_dkv_stream": fa.flash_dkv_stream}
 
     # ---- eval and generation phases: the serving path, counted from 0
     cfg = flagship_config()
@@ -1318,8 +1683,7 @@ def main() -> None:
     want = L * (1 + steps)
     print(f"serving path launches: {serve} (want {want} of each forward kernel, 0 of the "
           f"backward ones)", flush=True)
-    if serve != {"flash_fwd": want, "norm_mlp": want, "flash_bwd": 0, "rmsnorm_bwd": 0, "mlp": 0,
-                 "flash_dq": 0, "flash_dkv": 0}:
+    if serve != {**{k: 0 for k in counters}, "flash_fwd": want, "norm_mlp": want}:
         fail(f"expected {want} launches of each forward kernel, got {serve}")
     compare_plain(model, nb, ops)
     timing_phase(model, nb)
@@ -1346,7 +1710,9 @@ def main() -> None:
     dn, den = denoise_phase(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin)
     torch.cuda.empty_cache()
     posl, posr = pos_phase(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin)
-    launches = {k: serve[k] + train[k] + tune[k] + den[k] + posl[k] for k in counters}
+    torch.cuda.empty_cache()
+    lc, lcl = long_context_phase(dev, counters, fa, mlp, ops, _build, rope_cos_sin)
+    launches = {k: serve[k] + train[k] + tune[k] + den[k] + posl[k] + lcl[k] for k in counters}
 
     base = "graphgpt_tpu/ops/"
 
@@ -1355,7 +1721,8 @@ def main() -> None:
             name=name, route="cuda", source=f"graphgpt_torch/csrc/{source}",
             replaces=base + replaces, launches=launches[name], launches_serving=serve[name],
             launches_training=train[name], launches_finetune=tune[name],
-            launches_denoise=den[name], launches_pos=posl[name], max_abs_err=r["err"],
+            launches_denoise=den[name], launches_pos=posl[name], launches_long=lcl[name],
+            max_abs_err=r["err"],
             ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["lib_ms"], tol=tol, status="ok", **extra,
@@ -1409,9 +1776,20 @@ def main() -> None:
             denoise_peak_mib=dn["peak_mib"], denoise_grad_rel=dn["grad_rel"],
             **{f"p1024_{k}": sp[kind][k] for k in ("ms", "plain_ms", "lib_ms", "bound_ms")},
             **extra))
+    # the streamed kernels: their main entry at the long-context shape, B 16 x P 4096
+    for name, kind, line in (("flash_fwd_stream", "fwd", 177), ("flash_dq_stream", "dq", 645),
+                             ("flash_dkv_stream", "dkv", 835)):
+        extra = {"delta_err": lc["dq"]["delta_err"]} if kind == "dq" else {}
+        if kind == "fwd":
+            extra["single_block_kernel_ms"] = lc["fwd"]["single_ms"]
+        kernels.append(entry(
+            name, "flash_stream.cu", f"flash_attention.py:{line}", lc[kind],
+            FLASH_TOL if kind == "fwd" else FLASH_BWD_TOL, long_step_ms=lc["step_ms"],
+            long_tokens_per_s=lc["tokens_per_s"], long_peak_mib=lc["peak_mib"],
+            long_grad_rel=lc["grad_rel"], long_loader_graphs_s=lc["loader_graphs_s"], **extra))
     print(f"whole-model gradients, kernels vs plain: worst relative error {grad_rel:.3e} "
           f"(training), {dn['grad_rel']:.3e} (denoise), {posr['grad_rel']:.3e} (position "
-          f"pretraining); position-pretraining step {posr['step_ms']:.2f} ms, peak "
+          f"pretraining), {lc['grad_rel']:.3e} (long context); position-pretraining step {posr['step_ms']:.2f} ms, peak "
           f"{posr['peak_mib']:.0f} MiB; the whole script took "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

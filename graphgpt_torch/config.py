@@ -241,10 +241,12 @@ class ModelConfig:
 @dataclass
 class MlmScheduleConfig:
     name: str = "polynomial"  # polynomial|cosine|fixed
+    fixed_ratio: float = 0.7
     power: float = 1.0
-    mtp: Tuple[float, float, float] = (1.0, 0.0, 0.0)
+    mtp: Tuple[float, float, float] = (1.0, 0.0, 0.0)  # mask/random/keep split
     umr_clip: Tuple[float, float] = (0.01, 0.99)
     dlm_wgt: bool = True
+    num_gen_samples: int = 128
 
 
 @dataclass
@@ -291,19 +293,30 @@ class TrainingConfig:
     batch_size_eval: int = 0  # 0: batch_size
     max_length: int = 1024
     pad_to_multiple_of: int = 8
-    pack_tokens: float = 0.0
+    pack_tokens: float = 0.0  # > 0: pack samples into rows of max_length
+    # block-aligned packing window (0 = off): no sample crosses a pack_block
+    # boundary, so attention may run at P = pack_block (ModelConfig.attn_block)
     pack_block: int = 0
+    # SMTP masking drawn once per packed row instead of per sample
+    mask_after_pack: bool = False
     num_workers: int = 8
     valid_percent: float = 0.0
     do_valid: bool = False
+    # pretraining's save-point generation sweep: bands of the unmask ratio
+    # (0: none) over the first gen_eval_samples valid graphs
+    gen_eval_bands: int = 4
+    gen_eval_samples: int = 32
     do_test: bool = True  # evaluate the test split each eval epoch
+    inspect_tokenization: bool = True  # one sample's rows and length percentiles at setup
     seed: int = 42
+    tot_samples: int = 10000  # caps the samples of the tokens-per-sample estimate
     freeze: int = -1  # >= 0: freeze the embeddings and the first `freeze` layers
     epoch_per_eval: int = 1
     eval_only: bool = False
     k_samplers: int = 256  # train-subset eval size
     save_pred: bool = False  # dump per-split prediction csv at each eval
     dump_infer: bool = False  # dump test pooled hidden states
+    use_tb_writer: bool = False  # TensorBoard event files: not in the port yet
 
 
 @dataclass
@@ -315,6 +328,7 @@ class GenerationConfig:
     top_k: int = 0  # 0 disables top-k filtering
     alg_temp: float = 0.0
     eps: float = 1e-3
+    batched: bool = True  # False: the sampler runs one example at a time
 
 
 def flagship_config(layers: int = 12) -> ModelConfig:
@@ -373,6 +387,9 @@ def _from_dict(cls, data: Dict[str, Any]):
             kwargs[key] = _from_dict(type(default), val)
         elif isinstance(val, list):
             kwargs[key] = tuple(val)
+        elif isinstance(f.default, float) and isinstance(val, str):
+            # YAML 1.1 reads an exponent without a sign (2.0e11) as a string
+            kwargs[key] = float(val)
         else:
             kwargs[key] = val
     return cls(**kwargs)

@@ -68,15 +68,15 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wmma::fill_fragment(acc1[j], 0.f);
     wmma::fill_fragment(acc2[j], 0.f);
   }
-  pass<true>(sm, q + base, k + base, v + base, dout + base, segb, lseb, deltab, cb, sb,
-             rs, t0, P, causal, 0, acc1, acc2);
+  pass<true, false>(sm, q + base, k + base, v + base, dout + base, segb, segb, nullptr,
+                    nullptr, lseb, deltab, cb, sb, rs, t0, P, causal, 0, acc1, acc2);
   write_rows(dk + base, rs, acc1, sm.s[warp], row, P, cb, sb, lane);
   write_rows(dv + base, rs, acc2, sm.s[warp], row, P, nullptr, nullptr, lane);
 
 #pragma unroll
   for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc1[j], 0.f);
-  pass<false>(sm, q + base, k + base, v + base, dout + base, segb, lseb, deltab, cb, sb,
-              rs, t0, P, causal, 0, acc1, acc2);
+  pass<false, false>(sm, q + base, k + base, v + base, dout + base, segb, segb, nullptr,
+                     nullptr, lseb, deltab, cb, sb, rs, t0, P, causal, 0, acc1, acc2);
   write_rows(dq + base, rs, acc1, sm.s[warp], row, P, cb, sb, lane);
 }
 

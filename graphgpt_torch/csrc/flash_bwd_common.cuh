@@ -1,19 +1,20 @@
 // The two passes of the flash backward over one 64-row tile, shared by the
-// fused kernel (flash_bwd.cu, both passes in one CTA) and the split pair
-// (flash_bwd_split.cu, one pass a kernel): as the owner of KEYS a CTA sums
-// dk and dv over the visiting query tiles; as the owner of QUERIES it sums
-// dq over the visiting key tiles. Each pass recomputes S and dP for a tile
-// pair from q, k, v, do, lse and delta, skips a pair whose segment-id ranges
-// do not meet, and masks by segment and by the per-row bounds of
-// flash_common.cuh (causal or bi-causal). Also the small kernel that both
-// backwards launch first for delta = rowsum(do * out) - dlse.
+// fused kernel (flash_bwd.cu, both passes in one CTA), the split pair
+// (flash_bwd_split.cu, one pass a kernel) and the streamed pair
+// (flash_stream.cu): as the owner of KEYS a CTA sums dk and dv over the
+// visiting query tiles; as the owner of QUERIES it sums dq over the visiting
+// key tiles. Each pass recomputes S and dP for a tile pair from q, k, v, do,
+// lse and delta, skips a pair whose segment-id ranges do not meet, and masks
+// by segment (seg_q[row] == seg_k[col] > 0) and by the per-row bounds of
+// flash_common.cuh (causal or bi-causal). The split and streamed pair are
+// the two kernels below, instantiated without and with STREAM (seg_k its own
+// array, tile ranges from a table). Also the small kernel that every
+// backward launches first for delta = rowsum(do * out) - dlse.
 #pragma once
 
 #include "flash_common.cuh"
 
 namespace {
-
-constexpr int LDS = 64 + 4;  // fp32 row stride of the per-warp scratch
 
 struct __align__(128) Smem {
   bf16 a1[64 * LDH];  // own tile: rot(k) as key owner, rot(q) as query owner
@@ -112,17 +113,22 @@ __device__ __forceinline__ void write_rows(bf16* dst, long long rs, AccFrag* acc
 }
 
 // One pass of the CTA over the visiting tiles. KEYS: the own tile holds keys
-// (sums dk, dv); else it holds queries (sums dq).
-template <bool KEYS>
+// (sums dk, dv); else it holds queries (sums dq). segq, segk: one batch
+// row's query and key segment ids (the same array but in the streamed
+// kernels); TABLE: the tiles' id ranges come from tabq, tabk.
+template <bool KEYS, bool TABLE>
 __device__ __forceinline__ void pass(Smem& sm, const bf16* qb, const bf16* kb,
-                                     const bf16* vb, const bf16* dob, const int* segb,
+                                     const bf16* vb, const bf16* dob, const int* segq,
+                                     const int* segk, const int2* tabq, const int2* tabk,
                                      const float* lseb, const float* deltab,
                                      const bf16* cb, const bf16* sb, long long rs,
                                      int t0, int P, int causal, int bi_split,
                                      AccFrag* acc1, AccFrag* acc2) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int* sego = KEYS ? segk : segq;  // the own tile's ids
+  const int* segv = KEYS ? segq : segk;  // the visiting tiles' ids
   int omin, omax;
-  tile_range(segb, t0, P, lane, &omin, &omax);
+  tile_bounds<TABLE>(KEYS ? tabk : tabq, sego, t0, P, lane, &omin, &omax);
   __syncthreads();  // the previous pass has read the own tiles
   if (KEYS) {
     load_tile(sm.a1, kb, rs, t0, P, cb, sb, tid);
@@ -130,12 +136,12 @@ __device__ __forceinline__ void pass(Smem& sm, const bf16* qb, const bf16* kb,
   } else {
     load_tile(sm.a1, qb, rs, t0, P, cb, sb, tid);
     load_tile(sm.a2, dob, rs, t0, P, nullptr, nullptr, tid);
-    zero_padded_rows(sm.a2, segb, t0, P, tid);
+    zero_padded_rows(sm.a2, segq, t0, P, tid);
   }
   // each lane pair owns one row of the own tile; each lane 32 columns
   const int r = lane >> 1, c0 = (lane & 1) * 32;
   const int orow = t0 + warp * 16 + r;
-  const int so = orow < P ? segb[orow] : 0;
+  const int so = orow < P ? sego[orow] : 0;
   // own keys: seen by the visiting rows [lim, P); own queries: see the
   // visiting columns [0, lim)
   const int lim = KEYS ? first_row(orow, causal, bi_split, P)
@@ -160,21 +166,20 @@ __device__ __forceinline__ void pass(Smem& sm, const bf16* qb, const bf16* kb,
   for (int vt = v_begin; vt < v_end; ++vt) {
     const int v0 = vt * 64;
     int vmin, vmax;
-    tile_range(segb, v0, P, lane, &vmin, &vmax);
-    // no segment id in common: every logit of the tile pair is masked
-    if (omax <= 0 || vmax <= 0 || omin > vmax || vmin > omax) continue;
+    tile_bounds<TABLE>(KEYS ? tabq : tabk, segv, v0, P, lane, &vmin, &vmax);
+    if (ranges_miss(omin, omax, vmin, vmax)) continue;
     __syncthreads();  // the previous tile's readers are done
     if (KEYS) {
       load_tile(sm.b1, qb, rs, v0, P, cb, sb, tid);
       load_tile(sm.b2, dob, rs, v0, P, nullptr, nullptr, tid);
-      zero_padded_rows(sm.b2, segb, v0, P, tid);
+      zero_padded_rows(sm.b2, segq, v0, P, tid);
     } else {
       load_tile(sm.b1, kb, rs, v0, P, cb, sb, tid);
       load_tile(sm.b2, vb, rs, v0, P, nullptr, nullptr, tid);
     }
     if (tid < 64) {
       const bool in = v0 + tid < P;
-      sm.seg_o[tid] = in ? segb[v0 + tid] : 0;
+      sm.seg_o[tid] = in ? segv[v0 + tid] : 0;
       if (KEYS) {
         sm.lse_o[tid] = in ? lseb[v0 + tid] : 0.f;
         sm.delta_o[tid] = in ? deltab[v0 + tid] : 0.f;
@@ -216,6 +221,92 @@ __device__ __forceinline__ void pass(Smem& sm, const bf16* qb, const bf16* kb,
     }
     __syncwarp();
   }
+}
+
+// The split backward's two kernels, one pass each; STREAM: the streamed
+// pair (kernels #7, #8), whose key ids are their own array and whose tile
+// ranges come from tables [B, ceil(P/64)] (tabq, tabk). Each CTA owns one
+// 64-row tile of one (batch row, head) and writes only that tile.
+template <bool STREAM>
+__global__ void __launch_bounds__(THREADS)
+flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const int* __restrict__ segq,
+                const int* __restrict__ segk, const int2* __restrict__ tabq,
+                const int2* __restrict__ tabk, const bf16* __restrict__ cosb,
+                const bf16* __restrict__ sinb, const float* __restrict__ lse,
+                const float* __restrict__ delta, const bf16* __restrict__ dout,
+                bf16* __restrict__ dq, int P, int H, int causal, int bi_split) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int t0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nt = (P + 63) / 64;
+  const long long rs = (long long)H * DH;
+  const long long base = (long long)b * P * rs + h * DH;
+  const long long rows = ((long long)b * H + h) * P;
+  const int* segqb = segq + (long long)b * P;
+  const int* segkb = STREAM ? segk + (long long)b * P : segqb;
+  const int2* tabqb = STREAM ? tabq + (long long)b * nt : nullptr;
+  const int2* tabkb = STREAM ? tabk + (long long)b * nt : nullptr;
+  const bf16* cb = cosb ? cosb + (long long)b * P * DH : nullptr;
+  const bf16* sb = sinb ? sinb + (long long)b * P * DH : nullptr;
+
+  AccFrag acc[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
+  pass<false, STREAM>(sm, q + base, k + base, v + base, dout + base, segqb, segkb, tabqb,
+                      tabkb, lse + rows, delta + rows, cb, sb, rs, t0, P, causal, bi_split,
+                      acc, nullptr);
+  write_rows(dq + base, rs, acc, sm.s[warp], t0 + warp * 16 + (lane >> 1), P, cb, sb, lane);
+}
+
+template <bool STREAM>
+__global__ void __launch_bounds__(THREADS)
+flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const int* __restrict__ segq,
+                 const int* __restrict__ segk, const int2* __restrict__ tabq,
+                 const int2* __restrict__ tabk, const bf16* __restrict__ cosb,
+                 const bf16* __restrict__ sinb, const float* __restrict__ lse,
+                 const float* __restrict__ delta, const bf16* __restrict__ dout,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, int P, int H, int causal,
+                 int bi_split) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int t0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nt = (P + 63) / 64;
+  const long long rs = (long long)H * DH;
+  const long long base = (long long)b * P * rs + h * DH;
+  const long long rows = ((long long)b * H + h) * P;
+  const int* segqb = segq + (long long)b * P;
+  const int* segkb = STREAM ? segk + (long long)b * P : segqb;
+  const int2* tabqb = STREAM ? tabq + (long long)b * nt : nullptr;
+  const int2* tabkb = STREAM ? tabk + (long long)b * nt : nullptr;
+  const bf16* cb = cosb ? cosb + (long long)b * P * DH : nullptr;
+  const bf16* sb = sinb ? sinb + (long long)b * P * DH : nullptr;
+  const int row = t0 + warp * 16 + (lane >> 1);
+
+  AccFrag acc_k[4], acc_v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    wmma::fill_fragment(acc_k[j], 0.f);
+    wmma::fill_fragment(acc_v[j], 0.f);
+  }
+  pass<true, STREAM>(sm, q + base, k + base, v + base, dout + base, segqb, segkb, tabqb,
+                     tabkb, lse + rows, delta + rows, cb, sb, rs, t0, P, causal, bi_split,
+                     acc_k, acc_v);
+  write_rows(dk + base, rs, acc_k, sm.s[warp], row, P, cb, sb, lane);
+  write_rows(dv + base, rs, acc_v, sm.s[warp], row, P, nullptr, nullptr, lane);
+}
+
+// The backward kernels need more than the 48 KB of static shared memory.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, bool* configured) {
+  if (*configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem));
+  if (err == cudaSuccess) *configured = true;
+  return err;
 }
 
 // delta[b, h, p] = sum_d do * out - dlse, one warp per (token, head); a

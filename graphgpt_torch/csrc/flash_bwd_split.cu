@@ -30,7 +30,8 @@
 // flash_dq its queries, looping over every key tile of the row; flash_dkv
 // its keys, looping over every query tile. Each CTA writes only its own
 // tile, so no atomics, and the result is the same from run to run. The
-// loop body is the fused kernel's pass (flash_bwd_common.cuh): a tile pair
+// kernels live in flash_bwd_common.cuh (shared with the streamed pair #7,
+// #8) and their loop body is the fused kernel's pass: a tile pair
 // whose segment-id ranges do not meet is skipped before it is loaded, S and
 // dP are recomputed per pair in WMMA bf16 tiles with fp32 accumulation, and
 // loads are 16 bytes a thread, single-buffered. Splitting costs S and dP
@@ -38,75 +39,6 @@
 // each is counted and timed on its own.
 
 #include "flash_bwd_common.cuh"
-
-namespace {
-
-__global__ void __launch_bounds__(THREADS)
-flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const int* __restrict__ seg,
-                const bf16* __restrict__ cosb, const bf16* __restrict__ sinb,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                const bf16* __restrict__ dout, bf16* __restrict__ dq, int P, int H,
-                int causal, int bi_split) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int t0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long rs = (long long)H * DH;
-  const long long base = (long long)b * P * rs + h * DH;
-  const long long rows = ((long long)b * H + h) * P;
-  const bf16* cb = cosb ? cosb + (long long)b * P * DH : nullptr;
-  const bf16* sb = sinb ? sinb + (long long)b * P * DH : nullptr;
-
-  AccFrag acc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-  pass<false>(sm, q + base, k + base, v + base, dout + base, seg + (long long)b * P,
-              lse + rows, delta + rows, cb, sb, rs, t0, P, causal, bi_split, acc, nullptr);
-  write_rows(dq + base, rs, acc, sm.s[warp], t0 + warp * 16 + (lane >> 1), P, cb, sb, lane);
-}
-
-__global__ void __launch_bounds__(THREADS)
-flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const int* __restrict__ seg,
-                 const bf16* __restrict__ cosb, const bf16* __restrict__ sinb,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 const bf16* __restrict__ dout, bf16* __restrict__ dk,
-                 bf16* __restrict__ dv, int P, int H, int causal, int bi_split) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int t0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long rs = (long long)H * DH;
-  const long long base = (long long)b * P * rs + h * DH;
-  const long long rows = ((long long)b * H + h) * P;
-  const bf16* cb = cosb ? cosb + (long long)b * P * DH : nullptr;
-  const bf16* sb = sinb ? sinb + (long long)b * P * DH : nullptr;
-  const int row = t0 + warp * 16 + (lane >> 1);
-
-  AccFrag acc_k[4], acc_v[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    wmma::fill_fragment(acc_k[j], 0.f);
-    wmma::fill_fragment(acc_v[j], 0.f);
-  }
-  pass<true>(sm, q + base, k + base, v + base, dout + base, seg + (long long)b * P,
-             lse + rows, delta + rows, cb, sb, rs, t0, P, causal, bi_split, acc_k, acc_v);
-  write_rows(dk + base, rs, acc_k, sm.s[warp], row, P, cb, sb, lane);
-  write_rows(dv + base, rs, acc_v, sm.s[warp], row, P, nullptr, nullptr, lane);
-}
-
-// Both kernels need more than the 48 KB of static shared memory.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, bool* configured) {
-  if (*configured) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem));
-  if (err == cudaSuccess) *configured = true;
-  return err;
-}
-
-}  // namespace
 
 // C entries for ctypes, on `stream`; each returns the first CUDA error (0
 // when its launches were accepted). flash_dq: the delta kernel into the
@@ -118,15 +50,15 @@ extern "C" int ggt_flash_dq(const void* q, const void* k, const void* v, const v
                             void* delta, void* dq, int B, int P, int H, int causal,
                             int bi_split, void* stream) {
   static bool configured = false;
-  cudaError_t err = allow_smem(flash_dq_kernel, &configured);
+  cudaError_t err = allow_smem(flash_dq_kernel<false>, &configured);
   if (err != cudaSuccess) return (int)err;
   err = launch_delta(dout, out, seg, dlse, delta, B, P, H, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((P + 63) / 64, H, B);
-  flash_dq_kernel<<<grid, THREADS, sizeof(Smem), (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg, (const bf16*)cos,
-      (const bf16*)sin, (const float*)lse, (const float*)delta, (const bf16*)dout,
-      (bf16*)dq, P, H, causal, bi_split);
+  flash_dq_kernel<false><<<grid, THREADS, sizeof(Smem), (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg, (const int*)seg,
+      nullptr, nullptr, (const bf16*)cos, (const bf16*)sin, (const float*)lse,
+      (const float*)delta, (const bf16*)dout, (bf16*)dq, P, H, causal, bi_split);
   return (int)cudaGetLastError();
 }
 
@@ -135,12 +67,12 @@ extern "C" int ggt_flash_dkv(const void* q, const void* k, const void* v, const 
                              const void* delta, const void* dout, void* dk, void* dv,
                              int B, int P, int H, int causal, int bi_split, void* stream) {
   static bool configured = false;
-  cudaError_t err = allow_smem(flash_dkv_kernel, &configured);
+  cudaError_t err = allow_smem(flash_dkv_kernel<false>, &configured);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((P + 63) / 64, H, B);
-  flash_dkv_kernel<<<grid, THREADS, sizeof(Smem), (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg, (const bf16*)cos,
-      (const bf16*)sin, (const float*)lse, (const float*)delta, (const bf16*)dout,
-      (bf16*)dk, (bf16*)dv, P, H, causal, bi_split);
+  flash_dkv_kernel<false><<<grid, THREADS, sizeof(Smem), (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg, (const int*)seg,
+      nullptr, nullptr, (const bf16*)cos, (const bf16*)sin, (const float*)lse,
+      (const float*)delta, (const bf16*)dout, (bf16*)dk, (bf16*)dv, P, H, causal, bi_split);
   return (int)cudaGetLastError();
 }

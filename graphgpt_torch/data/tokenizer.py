@@ -1,9 +1,14 @@
-"""Graph -> stacked token rows for the fine-tune tasks.
+"""Graph -> stacked token rows for the fine-tune tasks and SMTP pretraining.
 
 A copy of `graphgpt_tpu/data/tokenizer.py`'s `StackedGSTTokenizer`
-("short" stacking) with its task branches (graph, edge, node, nodev2). The
-pretrain branches (host-side SMTP masking, coordinates, instruction rows),
-`GSTTokenizer` and the `long` stacking wait for later slices. Row layout:
+("short" stacking) with its task branches (graph, edge, node, nodev2), the
+pretrain rows of `pretrain-mlm` (host-side SMTP masking) and `pretrain`
+(clean rows with next-row labels), and the masking helpers
+`_polynomial_mask_ratio`, `mask_packed_row`, `smtp_mask_stacked`; the rng
+draws come in the JAX package's order, so the rows are the same. The other
+pretrain tasks (contrastive, in-model SMTP and coordinate rows), instruction
+rows, `GSTTokenizer` and the `long` stacking wait for later slices. Row
+layout:
 
     [ node_idx_token | node_attr_0..node_attr_{Dn-1} | edge_attr_0..edge_attr_{De-1} ]
 
@@ -24,7 +29,7 @@ from .graph import Graph
 from .vocab import LABEL_PAD_ID
 
 PAD_ID = 0
-TASKS = ("graph", "edge", "node", "nodev2")
+TASKS = ("graph", "edge", "node", "nodev2", "pretrain-mlm", "pretrain")
 
 
 class AttrColumnLookup:
@@ -93,12 +98,13 @@ class StackedGSTTokenizer:
         cfg: TokenizationConfig,
         vocab_map: Dict[str, int],
         task_type: str = "graph",
+        mlm_cfg=None,
         num_intra_cls: int = 0,
     ):
         if task_type not in TASKS:
             raise NotImplementedError(
-                f"task_type {task_type!r}: the port tokenizes the fine-tune tasks {TASKS}; "
-                "the pretrain masking and packing wait for the pretrain slice"
+                f"task_type {task_type!r}: the port tokenizes {TASKS}; the other pretrain "
+                "tasks' rows (contrastive, in-model SMTP, coordinates) wait for a later slice"
             )
         assert cfg.stack_method == "short", "the long stacking waits for a later slice"
         assert cfg.structure.edge.remove_edge_type_token, (
@@ -108,6 +114,11 @@ class StackedGSTTokenizer:
         self.cfg = cfg
         self.vocab_map = vocab_map
         self.task_type = task_type
+        if mlm_cfg is None and task_type == "pretrain-mlm":
+            from ..config import MlmScheduleConfig
+
+            mlm_cfg = MlmScheduleConfig()
+        self.mlm_cfg = mlm_cfg
         self.vocab_size = max(vocab_map.values()) + 1
         s = cfg.structure
         node_cfg = s.node
@@ -118,6 +129,7 @@ class StackedGSTTokenizer:
         self.scope = node_cfg.node_scope
         self.cyclic = int(node_cfg.cyclic)
         self.eos_id = vocab_map[node_cfg.eos_token]
+        self.bos_id = vocab_map[node_cfg.bos_token]
         self.mask_id = vocab_map[s.mask_token]
         # structural node-idx token ids: str(i) for i in [0, scope)
         self.node_idx_ids = np.asarray(
@@ -138,8 +150,9 @@ class StackedGSTTokenizer:
             else None
         )
         self.stacked_feat = 1 + self.node_dim + self.edge_dim
-        # task rows append the trailing eos row under cfg.add_eos
-        self.append_eos = cfg.add_eos
+        # eos row policy (reference tokenizer.py:525-526): pretrain rows always
+        # carry the trailing eos row; task rows append it under cfg.add_eos
+        self.append_eos = ("pretrain" in task_type) or cfg.add_eos
         # intra-instance class tokens for nodev2 token_ce_intra
         # (reference reserved semantics tokens, tokenizer_utils.py:729-747)
         self.num_intra_cls = num_intra_cls
@@ -215,6 +228,30 @@ class StackedGSTTokenizer:
         position_ids = np.arange(p, dtype=np.int32)
         attention_mask = np.ones(p, np.int8)
         task = self.task_type
+        if task == "pretrain-mlm":
+            alpha_t, wgt = _polynomial_mask_ratio(self.mlm_cfg, rng)
+            masked, labels = smtp_mask_stacked(
+                ids, self.mask_id, alpha_t, rng, mtp=tuple(self.mlm_cfg.mtp),
+                vocab_size=self.vocab_size,
+            )
+            return TokenizedSample(
+                input_ids=masked,
+                labels=labels,
+                position_ids=position_ids,
+                attention_mask=attention_mask,
+                wgt=float(wgt) if self.mlm_cfg.dlm_wgt else None,
+                segment_lengths=[p],
+            )
+        if task == "pretrain":
+            # clean rows (the generation sweep's), labels the next row
+            labels = np.concatenate([ids[1:], np.full((1, ids.shape[1]), self.eos_id, np.int32)])
+            return TokenizedSample(
+                input_ids=ids,
+                labels=labels,
+                position_ids=position_ids,
+                attention_mask=attention_mask,
+                segment_lengths=[p],
+            )
         if task == "graph":
             labels = np.full_like(ids, LABEL_PAD_ID)
             y = np.asarray(graph.y, np.float32).reshape(-1)
@@ -331,3 +368,84 @@ class StackedGSTTokenizer:
                 extras=extras,
             )
         raise NotImplementedError(f"task_type {task!r}")
+
+
+def _polynomial_mask_ratio(mlm_cfg, rng: np.random.Generator) -> Tuple[float, float]:
+    """Draw (alpha_t, dlm_wgt) from the SMTP schedule
+    (reference tokenizer_utils.py:254-277)."""
+    import math
+
+    name = mlm_cfg.name
+    if name == "fixed":
+        return float(mlm_cfg.fixed_ratio), 1.0
+    if name == "polynomial":
+        power = float(mlm_cfg.power)
+        umr_min, umr_max = mlm_cfg.umr_clip
+        t = umr_min + (umr_max - umr_min) * float(rng.random())
+        return 1.0 - t**power, power / t
+    # cosine
+    return math.cos(float(rng.random()) * math.pi) * 0.5 + 0.5, 1.0
+
+
+def mask_packed_row(
+    sample: TokenizedSample,
+    mask_token_id: int,
+    mlm_cfg,
+    rng: np.random.Generator,
+    vocab_size: int,
+) -> TokenizedSample:
+    """SMTP masking of an already packed row of clean ids with ONE mask-ratio
+    draw shared by all its segments (the reference's packed-sequence
+    semantics, tokenizer_utils.py:282-325); padding rows get no label."""
+    alpha_t, wgt = _polynomial_mask_ratio(mlm_cfg, rng)
+    masked, labels = smtp_mask_stacked(
+        sample.input_ids, mask_token_id, alpha_t, rng, mtp=tuple(mlm_cfg.mtp),
+        vocab_size=vocab_size,
+    )
+    ids = sample.input_ids
+    pad = ids[..., 0] == PAD_ID if ids.ndim == 2 else ids == PAD_ID
+    labels = np.where(pad[..., None] if labels.ndim == 2 else pad, LABEL_PAD_ID, labels)
+    return TokenizedSample(
+        input_ids=masked,
+        labels=labels,
+        position_ids=sample.position_ids,
+        attention_mask=sample.attention_mask,
+        wgt=float(wgt) if mlm_cfg.dlm_wgt else None,
+        segment_lengths=sample.segment_lengths,
+        extras=sample.extras,
+    )
+
+
+def smtp_mask_stacked(
+    input_ids: np.ndarray,
+    mask_token_id: int,
+    alpha_t: float,
+    rng: np.random.Generator,
+    mtp: Tuple[float, float, float] = (1.0, 0.0, 0.0),
+    vocab_size: int = 0,
+    pad_token_id: int = PAD_ID,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Global element-wise SMTP masking over the [P, F] grid (reference
+    `_mask_stacked_input_ids_v2`, tokenizer_utils.py:112-148): exactly
+    ceil(P*F*alpha) cells are chosen without replacement; the chosen cells
+    become labels, and the non-pad ones are replaced by [mask], a random
+    token or kept, per the mtp split."""
+    p, f = input_ids.shape
+    total = p * f
+    k = int(np.ceil(total * alpha_t))
+    flat = input_ids.reshape(-1)
+    chosen = rng.choice(total, size=min(k, total), replace=False)
+    labels = np.full(total, LABEL_PAD_ID, np.int32)
+    labels[chosen] = flat[chosen]
+    new_flat = flat.copy()
+    maskable = chosen[flat[chosen] != pad_token_id]
+    r_mask, r_rand, _ = mtp
+    if r_rand > 0:
+        u = rng.random(len(maskable))
+        to_mask = maskable[u < r_mask]
+        to_rand = maskable[(u >= r_mask) & (u < r_mask + r_rand)]
+        new_flat[to_mask] = mask_token_id
+        new_flat[to_rand] = rng.integers(1, vocab_size, size=len(to_rand))
+    else:
+        new_flat[maskable] = mask_token_id
+    return new_flat.reshape(p, f), labels.reshape(p, f)

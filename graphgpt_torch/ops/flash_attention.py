@@ -2,21 +2,31 @@
 their plain versions.
 
 Counterpart of `graphgpt_tpu/ops/flash_attention.py` (`_prep` :1205,
-`flash_attention` :1231, `_fwd_kernel_single` :124, `_bwd_kernel_fused`
-:706, `_dq_kernel_single` :602, `_dkv_kernel_single` :789, `_flash_bwd`
-:902, `_attach_grad_rope` :1144). The kernels live in `csrc/flash_fwd.cu`,
-`csrc/flash_bwd.cu` (fused backward) and `csrc/flash_bwd_split.cu` (the
-split pair flash_dq and flash_dkv, which the backward takes, as the JAX
-package does, when a bi-causal split is set). Conventions kept from the
-JAX package: q, k, v are token-major `[B, P, H*Dh]` at the kernel boundary;
-GQA is expanded and the softmax scale folded into q (in q's dtype) before
-the kernel; RoPE cos/sin `[B, P, Dh]` are cast to q's dtype and applied
-in-kernel; lse is `[B, H, P]` fp32; padded rows (segment 0) give out = 0
-and lse = -1e30. The autograd Function saves the un-rotated (qs, k, v) with
-(out, lse); the backward rotates again in-kernel and brings dq, dk back
-through the inverse rotation. One difference from the JAX package: a padded
-row takes no part in the backward even when a non-zero `dlse` reaches it
-(there its exp(S - lse) = 1 would spread dlse over every key of the row).
+`flash_attention` :1231, `_flash_fwd` :409, `_flash_bwd` :902,
+`_attach_grad_rope` :1144) and its kernels: `_fwd_kernel_single` :124,
+`_bwd_kernel_fused` :706, `_dq_kernel_single` :602, `_dkv_kernel_single`
+:789, and the streamed `_fwd_kernel_stream` :177, `_dq_kernel_stream` :645,
+`_dkv_kernel_stream` :835. The kernels live in `csrc/flash_fwd.cu`,
+`csrc/flash_bwd.cu` (fused backward), `csrc/flash_bwd_split.cu` (the split
+pair flash_dq and flash_dkv) and `csrc/flash_stream.cu` (the streamed
+forward and pair, with separate query and key segment ids). The dispatch is
+the JAX package's: up to P = 2048 the single-block forward and the fused
+backward, or the split pair when a bi-causal split is set; above it the
+streamed forward and the streamed pair, whatever the split. Conventions
+kept from the JAX package: q, k, v are token-major `[B, P, H*Dh]` at the
+kernel boundary; GQA is expanded and the softmax scale folded into q (in
+q's dtype) before the kernel; RoPE cos/sin `[B, P, Dh]` are cast to q's
+dtype and applied in-kernel; lse is `[B, H, P]` fp32; padded rows (segment
+0) give out = 0 and lse = -1e30. The autograd Function saves the
+un-rotated (qs, k, v) with (out, lse); the backward rotates again
+in-kernel and brings dq, dk back through the inverse rotation. Two
+differences from the JAX package, both where the mask, not the exponent,
+should decide: a padded row takes no part in the backward even when a
+non-zero `dlse` reaches it (there its exp(S - lse) = 1 would spread dlse
+over every key of the row); and a query row that sees no key (possible
+only when the key ids are another array, a ring chunk's) gives out = 0,
+where the JAX stream kernel gives the mean of the visited values, and
+takes no part in the backward.
 """
 
 from __future__ import annotations
@@ -29,7 +39,8 @@ import torch
 from . import _build, use_kernel
 
 NEG_INF = -1e30
-MAX_P = 2048  # the JAX package's single-block limit; longer rows stream (#6)
+MAX_P = 2048  # the JAX package's single-block limit; longer rows stream (#6-#8)
+REF_ROWS = 512  # query rows at a time in the streamed kernels' plain versions
 # q, k, v, seg, cos, sin, out, lse; B, P, H, causal, bi_split; stream
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # q, k, v, seg, cos, sin, out, lse, do, dlse, delta, dq, dk, dv; B, P, H, causal; stream
@@ -38,22 +49,35 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DQ_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # q, k, v, seg, cos, sin, lse, delta, do, dk, dv; B, P, H, causal, bi_split; stream
 _DKV_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_STREAMED = "the streamed kernels (#6 _fwd_kernel_stream, #7 _dq_kernel_stream, " \
-    "#8 _dkv_kernel_stream), a later slice"
+# the streamed entries take seg_q, seg_k and the tile-table scratch `tab`:
+# q, k, v, seg_q, seg_k, cos, sin, out, lse, tab; B, P, H, causal, bi_split; stream
+_FWD_STREAM_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# q, k, v, seg_q, seg_k, cos, sin, out, lse, do, dlse, delta, dq, tab; B, P, H, causal,
+# bi_split; stream
+_DQ_STREAM_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# q, k, v, seg_q, seg_k, cos, sin, lse, delta, do, dk, dv, tab; B, P, H, causal,
+# bi_split; stream
+_DKV_STREAM_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def _valid_mask(seg: torch.Tensor, causal: bool, bi_causal_split: int = 0):
-    """[B, 1, P, P] bool: same nonzero segment, plus the causal or bi-causal
-    rule (graphgpt_tpu/ops/attention.py:22 _mask_logits)."""
+def _valid_mask(seg: torch.Tensor, causal: bool, bi_causal_split: int = 0,
+                seg_k: Optional[torch.Tensor] = None, rows: slice = slice(None)):
+    """[B, 1, Pq, P] bool for the query rows `rows` (all by default): the
+    query's segment equals the key's nonzero segment (seg_k, the keys' own
+    ids where given, else seg), plus the causal or bi-causal rule
+    (graphgpt_tpu/ops/attention.py:22 _mask_logits, flash_attention.py:76
+    _tile_neg)."""
     p = seg.shape[-1]
-    valid = (seg[:, None, :, None] == seg[:, None, None, :]) & (seg[:, None, None, :] > 0)
+    seg_k = seg if seg_k is None else seg_k
+    sq = seg[:, rows]
+    valid = (sq[:, None, :, None] == seg_k[:, None, None, :]) & (seg_k[:, None, None, :] > 0)
     idx = torch.arange(p, device=seg.device)
+    qi, kj = idx[rows][:, None], idx[None, :]
     if bi_causal_split > 0:
         split = p - bi_causal_split
-        qi, kj = idx[:, None], idx[None, :]
         valid = valid & (((qi < split) & (kj < split)) | ((qi >= split) & (kj <= qi)))
     elif causal:
-        valid = valid & (idx[:, None] >= idx[None, :])
+        valid = valid & (qi >= kj)
     return valid
 
 
@@ -69,6 +93,34 @@ def rotate_tokens(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, dh: int
     return (x4 * c + r * s).reshape(b, p, hd)
 
 
+def _heads(t: torch.Tensor, dh: int) -> torch.Tensor:
+    """Token-major [B, P, H*Dh] -> [B, H, P, Dh] fp32."""
+    b, p, hd = t.shape
+    return t.reshape(b, p, hd // dh, dh).transpose(1, 2).float()
+
+
+def _tokens(t):
+    """[B, H, P, Dh] -> token-major [B, P, H*Dh]."""
+    b, h, p, dh = t.shape
+    return t.transpose(1, 2).reshape(b, p, h * dh)
+
+
+def _fwd_rows(q4, k4, v4, seg, seg_k, causal, bi_causal_split, rows, vdt):
+    """(out [B, H, Pq, Dh] fp32, lse [B, H, Pq]) of the query rows `rows`:
+    fp32 logits, softmax over the whole row, probabilities rounded to v's
+    dtype `vdt` for the PV product; 0 and -1e30 on a padded row or one that
+    sees no key."""
+    s = q4[:, :, rows] @ k4.transpose(-1, -2)
+    s = s + torch.where(_valid_mask(seg, causal, bi_causal_split, seg_k, rows), 0.0, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    pij = torch.exp(s - m)
+    l = pij.sum(dim=-1, keepdim=True)
+    pv = pij.to(vdt).float() @ v4
+    rowvalid = (seg[:, rows] > 0)[:, None, :, None] & (m > NEG_INF)
+    lse = (m + torch.log(l))[..., 0]
+    return torch.where(rowvalid, pv / l, 0.0), torch.where(m[..., 0] <= NEG_INF, NEG_INF, lse)
+
+
 def flash_attention_ref(
     qs: torch.Tensor,  # [B, P, H*Dh], pre-scaled
     k: torch.Tensor,
@@ -79,28 +131,22 @@ def flash_attention_ref(
     causal: bool,
     dh: int,
     bi_causal_split: int = 0,
+    seg_k: Optional[torch.Tensor] = None,  # the keys' own ids; None: seg
+    row_chunk: int = 0,  # > 0: that many query rows at a time
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel: (out [B, P, H*Dh], lse [B, H, P] fp32).
-    fp32 logits, softmax over the whole row, probabilities rounded to v's
-    dtype for the PV product, as `_fwd_kernel_single` does."""
-    b, p, hd = qs.shape
-    h = hd // dh
+    """Plain version of the forward kernels: (out [B, P, H*Dh], lse [B, H, P]
+    fp32), as `_fwd_kernel_single` and `_fwd_kernel_stream` compute them
+    (the online softmax of the streamed kernel is exact up to fp32
+    rounding). `row_chunk` bounds the [B, H, rows, P] logits of long rows."""
+    p = qs.shape[1]
     if cos is not None:
         qs, k = rotate_tokens(qs, cos, sin, dh), rotate_tokens(k, cos, sin, dh)
-    q4 = qs.view(b, p, h, dh).transpose(1, 2).float()
-    k4 = k.view(b, p, h, dh).transpose(1, 2).float()
-    v4 = v.view(b, p, h, dh).transpose(1, 2)
-    s = q4 @ k4.transpose(-1, -2)
-    s = s + torch.where(_valid_mask(seg, causal, bi_causal_split), 0.0, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    pij = torch.exp(s - m)
-    l = pij.sum(dim=-1, keepdim=True)
-    pv = pij.to(v.dtype).float() @ v4.float()
-    rowvalid = (seg > 0)[:, None, :, None]
-    out = torch.where(rowvalid, pv / l, 0.0).to(qs.dtype)
-    lse = (m + torch.log(l))[..., 0]
-    lse = torch.where(m[..., 0] <= NEG_INF, NEG_INF, lse)
-    return out.transpose(1, 2).reshape(b, p, hd), lse
+    q4, k4, v4 = _heads(qs, dh), _heads(k, dh), _heads(v, dh)
+    step = row_chunk if row_chunk > 0 else p
+    parts = [_fwd_rows(q4, k4, v4, seg, seg_k, causal, bi_causal_split, slice(i, i + step),
+                       v.dtype) for i in range(0, p, step)]
+    out = torch.cat([o for o, _ in parts], dim=2).to(qs.dtype)
+    return _tokens(out), torch.cat([l for _, l in parts], dim=2)
 
 
 def _check_rope(cos, sin, b, p, dh):
@@ -125,23 +171,16 @@ def _opt_ptr(t):
 
 
 def flash_fwd(qs, k, v, seg, cos, sin, causal: bool, dh: int, bi_causal_split: int = 0):
-    """(out, lse): the CUDA kernel for a CUDA tensor, the plain version for
-    a CPU tensor (or inside ops.reference_mode())."""
-    if not use_kernel(qs, k, v, seg):
-        return flash_attention_ref(qs, k, v, seg, cos, sin, causal, dh, bi_causal_split)
+    """(out, lse), dispatched as `_flash_fwd` does: above P = 2048 the
+    streamed forward (flash_fwd_stream, #6); else the single-block kernel
+    (#1) for a CUDA tensor, its plain version for a CPU tensor (or inside
+    ops.reference_mode())."""
     b, p, hd = qs.shape
     if p > MAX_P:
-        raise NotImplementedError(f"P={p} > {MAX_P} needs {_STREAMED}")
-    if dh != 64 or qs.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"the flash kernel takes bf16 with head_dim 64, got {qs.dtype}, {dh}"
-        )
-    qs, k, v = (t.contiguous() for t in (qs, k, v))
-    seg = seg.to(torch.int32).contiguous()
-    if k.shape != qs.shape or v.shape != qs.shape or seg.shape != (b, p):
-        raise ValueError(f"shapes q {qs.shape} k {k.shape} v {v.shape} seg {seg.shape}")
-    cos, sin = _check_rope(cos, sin, b, p, dh)
-    _check_aligned("flash_fwd", qs, k, v, cos, sin)
+        return flash_fwd_stream(qs, k, v, seg, seg, cos, sin, causal, dh, bi_causal_split)
+    if not use_kernel(qs, k, v, seg):
+        return flash_attention_ref(qs, k, v, seg, cos, sin, causal, dh, bi_causal_split)
+    (qs, k, v), seg, _, cos, sin = _check_fwd("flash_fwd", dh, qs, k, v, seg, seg, cos, sin)
     out = torch.empty_like(qs)
     lse = torch.empty((b, hd // dh, p), dtype=torch.float32, device=qs.device)
     fn = _build.entry("flash_fwd", "ggt_flash_fwd", _ARGTYPES)
@@ -156,6 +195,50 @@ def flash_fwd(qs, k, v, seg, cos, sin, causal: bool, dh: int, bi_causal_split: i
 
 
 flash_fwd.launches = 0
+
+
+def _tile_scratch(seg_q):
+    """int32 scratch for the streamed kernels' two tile tables [B,
+    ceil(P/64)] of int2 (one when seg_q and seg_k are one array)."""
+    b, p = seg_q.shape
+    return torch.empty(4 * b * ((p + 63) // 64), dtype=torch.int32, device=seg_q.device)
+
+
+def flash_fwd_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, causal: bool, dh: int,
+                         bi_causal_split: int = 0):
+    """Plain version of flash_fwd_stream (`_fwd_kernel_stream`): the forward
+    with the keys' own segment ids, REF_ROWS query rows at a time."""
+    return flash_attention_ref(qs, k, v, seg_q, cos, sin, causal, dh, bi_causal_split,
+                               seg_k=seg_k, row_chunk=REF_ROWS)
+
+
+def flash_fwd_stream(qs, k, v, seg_q, seg_k, cos, sin, causal: bool, dh: int,
+                     bi_causal_split: int = 0):
+    """(out, lse) of the streamed forward (#6) with query ids seg_q and key
+    ids seg_k [B, P] (one tensor twice for a model's rows): the CUDA kernel
+    for a CUDA tensor, the plain version for a CPU tensor (or inside
+    ops.reference_mode()). Any P."""
+    if not use_kernel(qs, k, v, seg_q, seg_k):
+        return flash_fwd_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, causal, dh,
+                                    bi_causal_split)
+    b, p, hd = qs.shape
+    (qs, k, v), seg_q, seg_k, cos, sin = _check_fwd("flash_fwd_stream", dh, qs, k, v, seg_q,
+                                                    seg_k, cos, sin)
+    out = torch.empty_like(qs)
+    lse = torch.empty((b, hd // dh, p), dtype=torch.float32, device=qs.device)
+    fn = _build.entry("flash_stream", "ggt_flash_fwd_stream", _FWD_STREAM_ARGTYPES)
+    err = fn(
+        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
+        _opt_ptr(cos), _opt_ptr(sin), _build.ptr(out), _build.ptr(lse),
+        _build.ptr(_tile_scratch(seg_q)), b, p, hd // dh, int(causal), int(bi_causal_split),
+        _build.stream_ptr(qs.device),
+    )
+    flash_fwd_stream.launches += 1
+    _build.check(err, "flash_fwd_stream")
+    return out, lse
+
+
+flash_fwd_stream.launches = 0
 
 
 def unrotate_tokens(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, dh: int):
@@ -174,8 +257,8 @@ def flash_delta(do, out, dlse, dh: int) -> torch.Tensor:
     """delta [B, H, P] fp32 = rowsum(do * out) - dlse in torch ops, as the
     JAX package's split backward computes it outside the kernels
     (`_flash_bwd` :933-940): the plain version of the delta kernel that
-    flash_bwd and flash_dq launch first. out is 0 on padded rows, which the
-    kernels leave out anyway."""
+    flash_bwd, flash_dq and flash_dq_stream launch first. out is 0 on
+    padded rows, which the kernels leave out anyway."""
     b, p, hd = do.shape
     delta = (do.float() * out.float()).view(b, p, hd // dh, dh).sum(dim=-1).transpose(1, 2)
     if dlse is not None:
@@ -183,45 +266,46 @@ def flash_delta(do, out, dlse, dh: int) -> torch.Tensor:
     return delta.contiguous()
 
 
-def _bwd_terms(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int,
-               bi_causal_split: int):
-    """What every backward twin shares, at the kernels' rounding points:
-    rot(q), rot(k) and do (zero on padded rows) per head in fp32, p =
-    exp(S - lse) (zero on padded rows) and ds = p*(do v^T - delta) rounded
-    to the working dtype, with cos and sin in that dtype."""
-    b, p, hd = qs.shape
-    h = hd // dh
+def _bwd_grads(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int,
+               bi_causal_split: int, seg_k=None, want_dq: bool = True, want_dkv: bool = True,
+               row_chunk: int = 0):
+    """(dq, dk, dv) of every backward twin, None where not wanted, at the
+    kernels' rounding points: rot(q), rot(k), v and do (zero on padded
+    rows) per head in fp32 with cos and sin in the working dtype; for each
+    `row_chunk` query rows (all at once by default) p = exp(S - lse) where
+    the mask lets the pair through (zero elsewhere and on padded rows) and
+    ds = p*(do v^T - delta) rounded to the working dtype; dq = ds rot(k),
+    dv = bf16(p)^T do and dk = ds^T rot(q) summed in fp32, dq and dk through
+    the inverse rotation, each rounded once."""
     dt = qs.dtype
     if cos is not None:
         cos, sin = cos.to(dt), sin.to(dt)
         qs, k = rotate_tokens(qs, cos, sin, dh), rotate_tokens(k, cos, sin, dh)
+    do = torch.where((seg > 0)[..., None], do, torch.zeros((), dtype=do.dtype, device=do.device))
+    q4, k4, v4, do4 = _heads(qs, dh), _heads(k, dh), _heads(v, dh), _heads(do.to(dt), dh)
+    delta = delta.float()
 
-    def heads(t):
-        return t.reshape(b, p, h, dh).transpose(1, 2).float()
+    def back(x):
+        x = _tokens(x)
+        return (x if cos is None else unrotate_tokens(x, cos, sin, dh)).to(dt)
 
-    rowvalid = seg > 0
-    do = torch.where(rowvalid[..., None], do, torch.zeros((), dtype=do.dtype, device=do.device))
-    q4, k4, v4, do4 = heads(qs), heads(k), heads(v), heads(do.to(dt))
-    s = q4 @ k4.transpose(-1, -2)
-    s = s + torch.where(_valid_mask(seg, causal, bi_causal_split), 0.0, NEG_INF)
-    pij = torch.exp(s - lse[..., None])
-    pij = torch.where(rowvalid[:, None, :, None], pij, 0.0)
-    ds = (pij * (do4 @ v4.transpose(-1, -2) - delta.float()[..., None])).to(dt).float()
-    return q4, k4, do4, pij, ds, cos, sin
-
-
-def _tokens(t):
-    """[B, H, P, Dh] -> token-major [B, P, H*Dh]."""
-    b, h, p, dh = t.shape
-    return t.transpose(1, 2).reshape(b, p, h * dh)
-
-
-def _back(x, cos, sin, dh, dt):
-    """A token-major fp32 dq or dk through the inverse rotation, rounded once."""
-    x = _tokens(x)
-    if cos is not None:
-        x = unrotate_tokens(x, cos, sin, dh)
-    return x.to(dt)
+    p = qs.shape[1]
+    step = row_chunk or p
+    dq, dk, dv = [], 0.0, 0.0
+    for i in range(0, p, step):
+        sl = slice(i, i + step)
+        valid = _valid_mask(seg, causal, bi_causal_split, seg_k, sl)
+        valid = valid & (seg[:, sl] > 0)[:, None, :, None]
+        pij = torch.where(valid, torch.exp(q4[:, :, sl] @ k4.transpose(-1, -2)
+                                           - lse[:, :, sl, None]), 0.0)
+        ds = (pij * (do4[:, :, sl] @ v4.transpose(-1, -2) - delta[:, :, sl, None])).to(dt).float()
+        if want_dq:
+            dq.append(ds @ k4)
+        if want_dkv:
+            dv = dv + pij.to(dt).float().transpose(-1, -2) @ do4[:, :, sl]
+            dk = dk + ds.transpose(-1, -2) @ q4[:, :, sl]
+    return (back(torch.cat(dq, dim=2)) if want_dq else None,
+            back(dk) if want_dkv else None, _tokens(dv).to(dt) if want_dkv else None)
 
 
 def flash_bwd_ref(
@@ -234,50 +318,82 @@ def flash_bwd_ref(
     working dtype for dv = p^T do; ds = p*(do v^T - delta) rounded for
     dq = ds rot(k) and dk = ds^T rot(q); the inverse rotation on the fp32
     sums, rounded once. Padded rows take no part."""
-    dt = qs.dtype
-    delta = flash_delta(do.to(dt), out, dlse, dh)
-    q4, k4, do4, pij, ds, cos, sin = _bwd_terms(
-        qs, k, v, seg, cos, sin, lse, delta, do, causal, dh, bi_causal_split)
-    dv = _tokens(pij.to(dt).float().transpose(-1, -2) @ do4).to(dt)
-    return (_back(ds @ k4, cos, sin, dh, dt), _back(ds.transpose(-1, -2) @ q4, cos, sin, dh, dt),
-            dv)
+    delta = flash_delta(do.to(qs.dtype), out, dlse, dh)
+    return _bwd_grads(qs, k, v, seg, cos, sin, lse, delta, do, causal, dh, bi_causal_split)
 
 
-def _check_bwd(name, dh, qs, k, v, seg, cos, sin, lse, do, extra=(), extra_rows=()):
-    """The checks and layouts every backward kernel needs: (qs, k, v, do,
-    extra..., seg, cos, sin, lse, extra_rows...) contiguous, seg int32, lse
-    and the extra [B, H, P] rows fp32. Raises on what the kernels do not
+def _check_segs(name, seg_q, seg_k, b, p):
+    """seg_q and seg_k as contiguous int32 [B, P]; one tensor for both when
+    they were one array (the streamed kernels then build one tile table)."""
+    same = seg_k is seg_q or (seg_k.data_ptr() == seg_q.data_ptr()
+                              and seg_k.dtype == seg_q.dtype and seg_k.shape == seg_q.shape
+                              and seg_k.stride() == seg_q.stride())
+    seg_q = seg_q.to(torch.int32).contiguous()
+    seg_k = seg_q if same else seg_k.to(torch.int32).contiguous()
+    if seg_q.shape != (b, p) or seg_k.shape != (b, p):
+        raise ValueError(f"{name}: seg_q {tuple(seg_q.shape)} and seg_k "
+                         f"{tuple(seg_k.shape)} must be [B, P] = {(b, p)}")
+    return seg_q, seg_k
+
+
+def _check_fwd(name, dh, qs, k, v, seg_q, seg_k, cos, sin):
+    """The checks and layouts every forward kernel needs: ((qs, k, v)
+    contiguous, seg_q, seg_k, cos, sin). Raises on what the kernels do not
+    take."""
+    b, p, _ = qs.shape
+    if dh != 64 or qs.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"the flash kernel takes bf16 with head_dim 64, got {qs.dtype}, {dh}"
+        )
+    tok = tuple(t.contiguous() for t in (qs, k, v))
+    if any(t.shape != qs.shape for t in tok):
+        raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in tok]}")
+    seg_q, seg_k = _check_segs(name, seg_q, seg_k, b, p)
+    cos, sin = _check_rope(cos, sin, b, p, dh)
+    _check_aligned(name, *tok, cos, sin)
+    return tok, seg_q, seg_k, cos, sin
+
+
+def _check_bwd(name, dh, qs, k, v, seg, cos, sin, lse, do, extra=(), extra_rows=(),
+               seg_k=None):
+    """The checks and layouts every backward kernel needs: ((qs, k, v, do,
+    extra...) contiguous, seg and seg_k (seg unless given), cos, sin, (lse,
+    extra_rows...) fp32 [B, H, P]). Raises on what the kernels do not
     take."""
     b, p, hd = qs.shape
-    if p > MAX_P:
-        raise NotImplementedError(f"P={p} > {MAX_P} needs {_STREAMED}")
     tok = (qs, k, v, do) + tuple(extra)
     if dh != 64 or any(t.dtype != torch.bfloat16 for t in tok):
         raise NotImplementedError(f"{name} takes bf16 with head_dim 64, got {qs.dtype}, {dh}")
     tok = tuple(t.contiguous() for t in tok)
-    seg = seg.to(torch.int32).contiguous()
-    if any(t.shape != qs.shape for t in tok) or seg.shape != (b, p):
-        raise ValueError(f"{name}: token-major shapes {[tuple(t.shape) for t in tok]}, "
-                         f"seg {tuple(seg.shape)}")
+    if any(t.shape != qs.shape for t in tok):
+        raise ValueError(f"{name}: token-major shapes {[tuple(t.shape) for t in tok]}")
+    seg, seg_k = _check_segs(name, seg, seg if seg_k is None else seg_k, b, p)
     rows = tuple(r.float().contiguous() for r in (lse,) + tuple(extra_rows))
     if any(r.shape != (b, hd // dh, p) for r in rows):
         raise ValueError(f"{name}: lse and row statistics must be [B, H, P] = "
                          f"{(b, hd // dh, p)}, got {[tuple(r.shape) for r in rows]}")
     cos, sin = _check_rope(cos, sin, b, p, dh)
     _check_aligned(name, *tok, cos, sin)
-    return tok, seg, cos, sin, rows
+    return tok, seg, seg_k, cos, sin, rows
 
 
 def flash_bwd(
     qs, k, v, seg, cos, sin, out, lse, do, dlse, causal: bool, dh: int,
     bi_causal_split: int = 0,
 ):
-    """(dq, dk, dv). With a bi-causal split the JAX package leaves the fused
-    kernel for the split pair (`_flash_bwd` :911): flash_dq, which gives
-    delta too, then flash_dkv. Else the fused CUDA kernel (a small delta
-    kernel and the main one, counted as one call) for a CUDA tensor, the
-    plain version for a CPU tensor (or inside ops.reference_mode()). dlse
-    [B, H, P] is the optional cotangent of lse; None means zeros."""
+    """(dq, dk, dv), dispatched as `_flash_bwd` does (:911): above P = 2048
+    the streamed pair (flash_dq_stream, which gives delta too, then
+    flash_dkv_stream) whatever the split; else with a bi-causal split the
+    split pair flash_dq, flash_dkv; else the fused CUDA kernel (a small
+    delta kernel and the main one, counted as one call) for a CUDA tensor,
+    the plain version for a CPU tensor (or inside ops.reference_mode()).
+    dlse [B, H, P] is the optional cotangent of lse; None means zeros."""
+    if qs.shape[1] > MAX_P:
+        dq, delta = flash_dq_stream(qs, k, v, seg, seg, cos, sin, out, lse, do, dlse, causal,
+                                    dh, bi_causal_split)
+        dk, dv = flash_dkv_stream(qs, k, v, seg, seg, cos, sin, lse, delta, do, causal, dh,
+                                  bi_causal_split)
+        return dq, dk, dv
     if bi_causal_split > 0:
         dq, delta = flash_dq(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh,
                              bi_causal_split)
@@ -287,7 +403,7 @@ def flash_bwd(
         return flash_bwd_ref(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh)
     b, p, hd = qs.shape
     extra_rows = () if dlse is None else (dlse,)
-    (qs, k, v, do, out), seg, cos, sin, rows = _check_bwd(
+    (qs, k, v, do, out), seg, _, cos, sin, rows = _check_bwd(
         "flash_bwd", dh, qs, k, v, seg, cos, sin, lse, do, extra=(out,), extra_rows=extra_rows)
     lse, dlse = rows[0], (rows[1] if dlse is not None else None)
     dq, dk, dv = torch.empty_like(qs), torch.empty_like(qs), torch.empty_like(qs)
@@ -312,9 +428,8 @@ def flash_dq_ref(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int,
     """Plain version of flash_dq (`_dq_kernel_single`): dq = ds rot(k) with
     ds = p*(do v^T - delta) rounded to the working dtype, the inverse
     rotation on the fp32 sum, rounded once; 0 on padded rows."""
-    _, k4, _, _, ds, cos, sin = _bwd_terms(
-        qs, k, v, seg, cos, sin, lse, delta, do, causal, dh, bi_causal_split)
-    return _back(ds @ k4, cos, sin, dh, qs.dtype)
+    return _bwd_grads(qs, k, v, seg, cos, sin, lse, delta, do, causal, dh, bi_causal_split,
+                      want_dkv=False)[0]
 
 
 def flash_dkv_ref(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int,
@@ -322,11 +437,8 @@ def flash_dkv_ref(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int
     """Plain version of flash_dkv (`_dkv_kernel_single`): (dk, dv) with
     dv = p^T do (p rounded to the working dtype) and dk = ds^T rot(q), dk
     through the inverse rotation; padded rows take no part."""
-    dt = qs.dtype
-    q4, _, do4, pij, ds, cos, sin = _bwd_terms(
-        qs, k, v, seg, cos, sin, lse, delta, do, causal, dh, bi_causal_split)
-    dv = _tokens(pij.to(dt).float().transpose(-1, -2) @ do4).to(dt)
-    return _back(ds.transpose(-1, -2) @ q4, cos, sin, dh, dt), dv
+    return _bwd_grads(qs, k, v, seg, cos, sin, lse, delta, do, causal, dh, bi_causal_split,
+                      want_dq=False)[1:]
 
 
 def flash_dq(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal: bool, dh: int,
@@ -341,7 +453,7 @@ def flash_dq(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal: bool, dh: int,
                             bi_causal_split), delta
     b, p, _ = qs.shape
     extra_rows = () if dlse is None else (dlse,)
-    (qs, k, v, do, out), seg, cos, sin, rows = _check_bwd(
+    (qs, k, v, do, out), seg, _, cos, sin, rows = _check_bwd(
         "flash_dq", dh, qs, k, v, seg, cos, sin, lse, do, extra=(out,), extra_rows=extra_rows)
     lse, dlse = rows[0], (rows[1] if dlse is not None else None)
     dq, delta = torch.empty_like(qs), torch.empty_like(lse)
@@ -368,7 +480,7 @@ def flash_dkv(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int,
         return flash_dkv_ref(qs, k, v, seg, cos, sin, lse, delta, do, causal, dh,
                              bi_causal_split)
     b, p, _ = qs.shape
-    (qs, k, v, do), seg, cos, sin, (lse, delta) = _check_bwd(
+    (qs, k, v, do), seg, _, cos, sin, (lse, delta) = _check_bwd(
         "flash_dkv", dh, qs, k, v, seg, cos, sin, lse, do, extra_rows=(delta,))
     dk, dv = torch.empty_like(qs), torch.empty_like(qs)
     fn = _build.entry("flash_bwd_split", "ggt_flash_dkv", _DKV_ARGTYPES)
@@ -384,6 +496,83 @@ def flash_dkv(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int,
 
 
 flash_dkv.launches = 0
+
+
+def flash_dq_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal: bool,
+                        dh: int, bi_causal_split: int = 0):
+    """Plain version of flash_dq_stream (`_dq_kernel_stream`): flash_dq_ref's
+    formula with the keys' own segment ids, REF_ROWS query rows at a time."""
+    return _bwd_grads(qs, k, v, seg_q, cos, sin, lse, delta, do, causal, dh, bi_causal_split,
+                      seg_k, want_dkv=False, row_chunk=REF_ROWS)[0]
+
+
+def flash_dkv_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal: bool,
+                         dh: int, bi_causal_split: int = 0):
+    """Plain version of flash_dkv_stream (`_dkv_kernel_stream`):
+    flash_dkv_ref's formula with the keys' own segment ids, summed over
+    REF_ROWS query rows at a time."""
+    return _bwd_grads(qs, k, v, seg_q, cos, sin, lse, delta, do, causal, dh, bi_causal_split,
+                      seg_k, want_dq=False, row_chunk=REF_ROWS)[1:]
+
+
+def flash_dq_stream(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, dlse, causal: bool,
+                    dh: int, bi_causal_split: int = 0):
+    """(dq, delta) of the streamed pair's first kernel (#7): the CUDA
+    kernels (the tile tables, the delta kernel, then dq; counted as one
+    call) for a CUDA tensor, flash_delta and flash_dq_stream_ref for a CPU
+    tensor (or inside ops.reference_mode()). dlse None means zeros."""
+    if not use_kernel(qs, k, v, seg_q, seg_k, out, lse, do):
+        delta = flash_delta(do, out, dlse, dh)
+        return flash_dq_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal,
+                                   dh, bi_causal_split), delta
+    b, p, _ = qs.shape
+    extra_rows = () if dlse is None else (dlse,)
+    (qs, k, v, do, out), seg_q, seg_k, cos, sin, rows = _check_bwd(
+        "flash_dq_stream", dh, qs, k, v, seg_q, cos, sin, lse, do, extra=(out,),
+        extra_rows=extra_rows, seg_k=seg_k)
+    lse, dlse = rows[0], (rows[1] if dlse is not None else None)
+    dq, delta = torch.empty_like(qs), torch.empty_like(lse)
+    fn = _build.entry("flash_stream", "ggt_flash_dq_stream", _DQ_STREAM_ARGTYPES)
+    err = fn(
+        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
+        _opt_ptr(cos), _opt_ptr(sin), _build.ptr(out), _build.ptr(lse), _build.ptr(do),
+        _opt_ptr(dlse), _build.ptr(delta), _build.ptr(dq), _build.ptr(_tile_scratch(seg_q)),
+        b, p, lse.shape[1], int(causal), int(bi_causal_split), _build.stream_ptr(qs.device),
+    )
+    flash_dq_stream.launches += 1
+    _build.check(err, "flash_dq_stream")
+    return dq, delta
+
+
+flash_dq_stream.launches = 0
+
+
+def flash_dkv_stream(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal: bool,
+                     dh: int, bi_causal_split: int = 0):
+    """(dk, dv) of the streamed pair's second kernel (#8), reading
+    flash_dq_stream's delta: the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor (or inside ops.reference_mode())."""
+    if not use_kernel(qs, k, v, seg_q, seg_k, lse, delta, do):
+        return flash_dkv_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal,
+                                    dh, bi_causal_split)
+    b, p, _ = qs.shape
+    (qs, k, v, do), seg_q, seg_k, cos, sin, (lse, delta) = _check_bwd(
+        "flash_dkv_stream", dh, qs, k, v, seg_q, cos, sin, lse, do, extra_rows=(delta,),
+        seg_k=seg_k)
+    dk, dv = torch.empty_like(qs), torch.empty_like(qs)
+    fn = _build.entry("flash_stream", "ggt_flash_dkv_stream", _DKV_STREAM_ARGTYPES)
+    err = fn(
+        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
+        _opt_ptr(cos), _opt_ptr(sin), _build.ptr(lse), _build.ptr(delta), _build.ptr(do),
+        _build.ptr(dk), _build.ptr(dv), _build.ptr(_tile_scratch(seg_q)), b, p, lse.shape[1],
+        int(causal), int(bi_causal_split), _build.stream_ptr(qs.device),
+    )
+    flash_dkv_stream.launches += 1
+    _build.check(err, "flash_dkv_stream")
+    return dk, dv
+
+
+flash_dkv_stream.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

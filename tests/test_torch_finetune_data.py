@@ -58,11 +58,19 @@ def _shared_fields(a, b, path=""):
 
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
 def test_every_config_file_loads_as_in_jax(path):
+    """Every shared field as the JAX package loads it, but for one repair:
+    YAML 1.1 reads a float written with an unsigned exponent (the pretrain
+    configs' `total_tokens: 2.0e11`) as a string, which the JAX loader keeps
+    and the port makes the float the field holds
+    (tests/test_torch_pretrain_data.py::test_a_token_budget_in_yaml_loads_as_a_float)."""
     want = jconfig.load_config(path, ["training.seed=7"])
     got = tconfig.load_config(path, ["training.seed=7"])
     for group in ("tokenization", "model", "training", "generation"):
         for name, w, g in _shared_fields(getattr(want, group), getattr(got, group)):
-            assert g == w, f"{group}.{name}"
+            if isinstance(w, str) and isinstance(g, float):
+                assert g == float(w), f"{group}.{name}"
+            else:
+                assert g == w, f"{group}.{name}"
 
 
 def _vocab_map(task="graph"):
@@ -114,10 +122,15 @@ def test_tokenizer_task_rows_match_jax(task):
             np.testing.assert_array_equal(got.extras[key], want.extras[key], err_msg=key)
 
 
-def test_tokenizer_refuses_the_pretrain_tasks():
+@pytest.mark.parametrize("task", ["pretrain-cl", "pretrain-smtp", "pretrain-coord",
+                                  "pretrain-mlm-coord", "pretrain-ltp", "pretrain-euler"])
+def test_tokenizer_refuses_the_pretrain_tasks(task):
+    """The pretrain rows of pretrain-mlm and pretrain are ported
+    (tests/test_torch_pretrain_data.py); the other pretrain tasks' rows
+    still raise."""
     cfg, _, vm = _vocab_map()
     with pytest.raises(NotImplementedError, match="pretrain"):
-        ttok.StackedGSTTokenizer(cfg, vm, task_type="pretrain-mlm")
+        ttok.StackedGSTTokenizer(cfg, vm, task_type=task)
 
 
 def _loaders(bs=8, **kw):

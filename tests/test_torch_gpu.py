@@ -76,8 +76,9 @@ def test_flash_kernel_matches_plain(cuda_device, causal, p):
 
 @pytest.mark.gpu
 def test_flash_kernel_raises_outside_this_slice(cuda_device):
-    """A bi-causal split runs on the card now (the split backward pair);
-    fp32 and P > 2048 (the streamed kernels #6-#8) still raise."""
+    """A bi-causal split runs on the card (the split backward pair), and so
+    does P > 2048 (the streamed kernels #6-#8, whatever the split); fp32
+    still raises."""
     dev = cuda_device
     x = torch.zeros(1, 64, 2, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
     seg = torch.ones(1, 64, dtype=torch.int32, device=dev)
@@ -87,11 +88,84 @@ def test_flash_kernel_raises_outside_this_slice(cuda_device):
     assert torch.isfinite(x.grad.float()).all()
     with pytest.raises(NotImplementedError):
         tfa.flash_attention(x.float(), x.float(), x.float(), seg)
-    big = torch.zeros(1, 2112, 1, 64, device=dev, dtype=torch.bfloat16)
+    big = torch.zeros(1, 2112, 1, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
     seg_big = torch.ones(1, 2112, dtype=torch.int32, device=dev)
+    counters = (tfa.flash_fwd_stream, tfa.flash_dq_stream, tfa.flash_dkv_stream, tfa.flash_fwd,
+                tfa.flash_bwd, tfa.flash_dq, tfa.flash_dkv)
     for bi in (0, 16):
-        with pytest.raises(NotImplementedError, match="#6"):
-            tfa.flash_attention(big, big, big, seg_big, bi_causal_split=bi)
+        before = [c.launches for c in counters]
+        tfa.flash_attention(big, big, big, seg_big, bi_causal_split=bi).float().sum().backward()
+        torch.cuda.synchronize()
+        assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0, 0, 0, 0]
+        assert torch.isfinite(big.grad.float()).all()
+
+
+def _shifted(seg):
+    """Key ids from another array: the query ids one position to the left, so
+    that every query row still sees a key."""
+    out = torch.zeros_like(seg)
+    out[:, :-1] = seg[:, 1:]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,keys,mask", [
+    ((2, 4096, 12), "same", "bidirectional"), ((2, 320, 3), "other", "bidirectional"),
+    ((2, 320, 3), "other", "causal"), ((2, 320, 3), "other", "bi-causal"),
+    ((1, 4100, 2), "same", "causal")], ids=["P4096", "P320-other", "P320-other-causal",
+                                            "P320-other-bicausal", "P4100-causal"])
+def test_stream_kernels_match_plain(cuda_device, shape, keys, mask):
+    """flash_fwd_stream, flash_dq_stream (with its delta and a cotangent of
+    lse) and flash_dkv_stream against their plain versions, at the
+    tolerances of the single-block kernels; padded rows exactly 0; key ids
+    the query ids or another array (bi-causal: 16 bit slots); the same bits
+    from run to run."""
+    dev = cuda_device
+    b, p, h = shape
+    dh = 64
+    causal, bi = {"bidirectional": (False, 0), "causal": (True, 0), "bi-causal": (False, 16)}[mask]
+    rng = np.random.default_rng(13)
+    qs = _bf16(rng, (b, p, h * dh), 0.5 * dh**-0.5, dev)
+    k, v, do = (_bf16(rng, (b, p, h * dh), 0.5, dev) for _ in range(3))
+    seg_np = packed_segments(b, p, rng)
+    seg_np[-1, p - 100 : p - 20] = 0
+    seg = torch.from_numpy(seg_np).to(dev)
+    seg_k = seg if keys == "same" else _shifted(seg)
+    pos = torch.arange(p, device=dev).expand(b, p)
+    cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(pos, dh))
+    counts = [tfa.flash_fwd_stream.launches, tfa.flash_dq_stream.launches,
+              tfa.flash_dkv_stream.launches]
+    fwd_args = (qs, k, v, seg, seg_k, cos, sin, causal, dh, bi)
+    out, lse = tfa.flash_fwd_stream(*fwd_args)
+    torch.cuda.synchronize()
+    with ops.reference_mode():
+        rout, rlse = tfa.flash_fwd_stream(*fwd_args)
+    valid = seg > 0
+    torch.testing.assert_close(out.float(), rout.float(), atol=3e-2, rtol=2e-2)
+    assert _rel(out[valid], rout[valid]) < 4e-3
+    torch.testing.assert_close(lse.transpose(1, 2)[valid], rlse.transpose(1, 2)[valid],
+                               atol=1e-3, rtol=1e-4)
+    assert bool((out[~valid] == 0).all()) and bool((lse.transpose(1, 2)[~valid] == -1e30).all())
+    dlse = torch.from_numpy(rng.normal(size=(b, h, p)).astype(np.float32) * 0.3).to(dev)
+    dlse = dlse * valid[:, None, :]
+    dq_args = (qs, k, v, seg, seg_k, cos, sin, out, lse, do, dlse, causal, dh, bi)
+    dq, delta = tfa.flash_dq_stream(*dq_args)
+    dkv_args = (qs, k, v, seg, seg_k, cos, sin, lse, delta, do, causal, dh, bi)
+    dk, dv = tfa.flash_dkv_stream(*dkv_args)
+    torch.cuda.synchronize()
+    with ops.reference_mode():
+        rdq, rdelta = tfa.flash_dq_stream(*dq_args)
+        rdk, rdv = tfa.flash_dkv_stream(*dkv_args)
+    torch.testing.assert_close(delta, rdelta, atol=1e-5, rtol=1e-5)
+    for g, r in zip((dq, dk, dv), (rdq, rdk, rdv)):
+        torch.testing.assert_close(g.float(), r.float(), atol=3.2e-2, rtol=2e-2)
+        assert _rel(g, r) < 2e-3
+    assert bool((dq[~valid] == 0).all())
+    assert bool((dk[seg_k == 0] == 0).all()) and bool((dv[seg_k == 0] == 0).all())
+    assert [tfa.flash_fwd_stream.launches, tfa.flash_dq_stream.launches,
+            tfa.flash_dkv_stream.launches] == [c + 1 for c in counts]
+    again = tfa.flash_dkv_stream(*dkv_args)
+    assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
 
 
 @pytest.mark.gpu
@@ -565,3 +639,54 @@ def test_finetune_step_launch_counts(cuda_device):
     got = {k: f.launches - before[k] for k, f in counters.items()}
     assert got == {"mlp": n, "flash_fwd": n, "flash_bwd": 0, "norm_mlp": 0, "rmsnorm_bwd": 0}
     assert out["task_logits"].shape == (4, 1) and torch.isfinite(out["task_loss"])
+
+
+@pytest.mark.gpu
+def test_pretrain_pipeline_step_launch_counts(cuda_device, tmp_path):
+    """One PretrainPipeline step of a 2-layer GraphGPT-base-width model at
+    max_length 4096 without block-aligned packing: per layer one launch of
+    each streamed kernel (#6, #7, #8) and none of #1, #3, #4, #5; the
+    save point's eval forwards take #6 alone."""
+    from graphgpt_torch.config import Config
+    from graphgpt_torch.training.pipeline import PretrainPipeline
+
+    cfg = Config()
+    sem = cfg.tokenization.semantics
+    sem.node.discrete, sem.node.dim = "node_attr", 9
+    sem.edge.discrete, sem.edge.dim = "edge_attr", 3
+    cfg.model.hidden_size, cfg.model.num_hidden_layers = 768, 2
+    cfg.model.remat, cfg.model.remat_policy = True, "save_attn"
+    t = cfg.training
+    t.batch_size, t.max_length, t.pack_tokens, t.num_workers = 2, 4096, 1, 2
+    t.schedule.total_num_steps, t.schedule.warmup_num_steps, t.schedule.logging_steps = 2, 1, 1
+    t.valid_percent, t.do_valid, t.gen_eval_bands = 0.0004, True, 0
+    t.optimizer.use_ema, t.inspect_tokenization = True, False
+    t.output_dir = str(tmp_path)
+    pipe = PretrainPipeline(cfg, device=cuda_device).setup()
+    counters = {"fwd_stream": tfa.flash_fwd_stream, "dq_stream": tfa.flash_dq_stream,
+                "dkv_stream": tfa.flash_dkv_stream, "fwd": tfa.flash_fwd, "bwd": tfa.flash_bwd,
+                "dq": tfa.flash_dq, "dkv": tfa.flash_dkv, "norm_mlp": tmlp.norm_mlp}
+    logs = {"train": [], "eval": []}
+
+    def counted(fn, log):
+        def wrapped(*a, **kw):
+            before = {k: c.launches for k, c in counters.items()}
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            logs[log].append({k: c.launches - before[k] for k, c in counters.items()})
+            return out
+        return wrapped
+
+    pipe.train_step = counted(pipe.train_step, "train")
+    pipe.eval_step = counted(pipe.eval_step, "eval")
+    pipe.eval_step_ema = counted(pipe.eval_step_ema, "eval")
+    pipe.run()
+    n = cfg.model.num_hidden_layers
+    assert logs["train"] == [{"fwd_stream": n, "dq_stream": n, "dkv_stream": n, "fwd": 0, "bwd": 0,
+                              "dq": 0, "dkv": 0, "norm_mlp": n}] * 2
+    assert logs["eval"] and all(g == {**{k: 0 for k in counters}, "fwd_stream": n, "norm_mlp": n}
+                                for g in logs["eval"])
+    import csv
+
+    rows = list(csv.DictReader(open(tmp_path / "log.csv")))
+    assert len(rows) == 2 and all(float(r["mfu"]) > 0 for r in rows)

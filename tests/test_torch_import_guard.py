@@ -48,11 +48,12 @@ def test_the_scan_sees_every_module():
                  "graphgpt_torch/training/finetune.py", "graphgpt_torch/data/tokenizer.py",
                  "graphgpt_torch/utils/metrics.py", "graphgpt_torch/models/denoise.py",
                  "graphgpt_torch/models/pos_pretrain.py", "graphgpt_torch/data/mol3d.py",
-                 "chip_smoke.py"):
+                 "graphgpt_torch/training/pipeline.py", "graphgpt_torch/data/loader.py",
+                 "graphgpt_torch/utils/inspection.py", "chip_smoke.py"):
         assert must in names
     assert sorted(p.name for p in (ROOT / "graphgpt_torch" / "csrc").glob("*.cu")) == [
-        "flash_bwd.cu", "flash_bwd_split.cu", "flash_fwd.cu", "mlp.cu", "norm_mlp.cu",
-        "rmsnorm_bwd.cu",
+        "flash_bwd.cu", "flash_bwd_split.cu", "flash_fwd.cu", "flash_stream.cu", "mlp.cu",
+        "norm_mlp.cu", "rmsnorm_bwd.cu",
     ]
 
 
@@ -105,6 +106,22 @@ with contextlib.redirect_stdout(io.StringIO()):  # the pipeline's log lines
     pipe.test_idx = pipe.valid_idx
     best = pipe.run()
 assert np.isfinite(best["valid_mae"]), best
+from graphgpt_torch.training.pipeline import PretrainPipeline
+cfg = Config()
+cfg.tokenization.semantics.node.discrete, cfg.tokenization.semantics.node.dim = "node_attr", 9
+cfg.tokenization.semantics.edge.discrete, cfg.tokenization.semantics.edge.dim = "edge_attr", 3
+cfg.model.hidden_size, cfg.model.num_hidden_layers, cfg.model.dtype = 64, 1, "float32"
+t = cfg.training
+t.batch_size, t.max_length, t.pack_tokens, t.num_workers = 2, 64, 1, 2
+t.schedule.total_num_steps, t.schedule.logging_steps = 2, 1
+t.valid_percent, t.do_valid, t.gen_eval_bands, t.gen_eval_samples = 0.0002, True, 1, 2
+cfg.generation.steps = 2
+t.output_dir = tempfile.mkdtemp()
+with contextlib.redirect_stdout(io.StringIO()):
+    PretrainPipeline(cfg, device="cpu").setup().run()
+import csv, os
+row = list(csv.DictReader(open(os.path.join(t.output_dir, "result.csv"))))[-1]
+assert np.isfinite(float(row["valid_loss"])), row
 from graphgpt_torch.models.denoise import GraphGPTDenoise
 from graphgpt_torch.models.pos_pretrain import GraphGPTPosPred
 from graphgpt_torch.synthetic import mol3d_batch
