@@ -12,13 +12,16 @@ converter, the sampler) put it on `cuda` unless the caller passes
 
 from __future__ import annotations
 
-import torch
-
 __version__ = "0.1.0"
 
 
-def resolve_device(device=None) -> torch.device:
-    """`cuda` unless the caller names another device; raises without a card."""
+def resolve_device(device=None):
+    """`cuda` unless the caller names another device, as a torch.device;
+    raises without a card. torch is imported here, not with the package:
+    the loader's spawned workers import the package's data modules, which
+    need only numpy."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

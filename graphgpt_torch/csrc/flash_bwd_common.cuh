@@ -114,9 +114,12 @@ __device__ __forceinline__ void write_rows(bf16* dst, long long rs, AccFrag* acc
 
 // One pass of the CTA over the visiting tiles. KEYS: the own tile holds keys
 // (sums dk, dv); else it holds queries (sums dq). segq, segk: one batch
-// row's query and key segment ids (the same array but in the streamed
-// kernels); TABLE: the tiles' id ranges come from tabq, tabk.
-template <bool KEYS, bool TABLE>
+// row's query and key segment ids (the same array but in the streamed and
+// band kernels); TABLE: the tiles' id ranges come from tabq, tabk. BAND:
+// tabq holds each q tile's band of key positions and tabk each key tile's
+// band of query positions (flash_band.cu); the pass visits the tiles of its
+// own tile's band and tests no range.
+template <bool KEYS, bool TABLE, bool BAND = false>
 __device__ __forceinline__ void pass(Smem& sm, const bf16* qb, const bf16* kb,
                                      const bf16* vb, const bf16* dob, const int* segq,
                                      const int* segk, const int2* tabq, const int2* tabk,
@@ -127,8 +130,8 @@ __device__ __forceinline__ void pass(Smem& sm, const bf16* qb, const bf16* kb,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int* sego = KEYS ? segk : segq;  // the own tile's ids
   const int* segv = KEYS ? segq : segk;  // the visiting tiles' ids
-  int omin, omax;
-  tile_bounds<TABLE>(KEYS ? tabk : tabq, sego, t0, P, lane, &omin, &omax);
+  int omin = 0, omax = 0;
+  if constexpr (!BAND) tile_bounds<TABLE>(KEYS ? tabk : tabq, sego, t0, P, lane, &omin, &omax);
   __syncthreads();  // the previous pass has read the own tiles
   if (KEYS) {
     load_tile(sm.a1, kb, rs, t0, P, cb, sb, tid);
@@ -161,13 +164,30 @@ __device__ __forceinline__ void pass(Smem& sm, const bf16* qb, const bf16* kb,
   // causal: a key tile meets the q tiles from its own on; a q tile meets
   // the key tiles up to its own (bi-causal: every tile, the mask decides)
   const bool tri = causal && bi_split == 0;
-  const int v_begin = (KEYS && tri) ? ti : 0;
-  const int v_end = (!KEYS && tri) ? ti + 1 : nt;
+  int v_begin = (KEYS && tri) ? ti : 0;
+  int v_end = (!KEYS && tri) ? ti + 1 : nt;
+  if constexpr (BAND) {
+    // every pair with a matching id lies in the own tile's band (a query's
+    // key, or a key's query, carries an id inside the own tile's range)
+    const int2 band = (KEYS ? tabk : tabq)[ti];
+    if (band.y < band.x) {
+      v_end = v_begin;
+    } else {
+      v_begin = max(v_begin, band.x / 64);
+      v_end = min(v_end, band.y / 64 + 1);
+      if (!KEYS && bi_split > 0) {  // the forward's clip of a q tile's band
+        const int last = min(t0 + 64, P) - 1;
+        v_end = min(v_end, (last >= P - bi_split ? last : P - bi_split - 1) / 64 + 1);
+      }
+    }
+  }
   for (int vt = v_begin; vt < v_end; ++vt) {
     const int v0 = vt * 64;
-    int vmin, vmax;
-    tile_bounds<TABLE>(KEYS ? tabq : tabk, segv, v0, P, lane, &vmin, &vmax);
-    if (ranges_miss(omin, omax, vmin, vmax)) continue;
+    if constexpr (!BAND) {
+      int vmin, vmax;
+      tile_bounds<TABLE>(KEYS ? tabq : tabk, segv, v0, P, lane, &vmin, &vmax);
+      if (ranges_miss(omin, omax, vmin, vmax)) continue;
+    }
     __syncthreads();  // the previous tile's readers are done
     if (KEYS) {
       load_tile(sm.b1, qb, rs, v0, P, cb, sb, tid);

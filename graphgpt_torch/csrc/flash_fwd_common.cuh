@@ -1,11 +1,15 @@
 // The flash forward over one 64-row query tile, shared by the single-block
-// forward (flash_fwd.cu, kernel #1) and the streamed forward
-// (flash_stream.cu, kernel #6). STREAM selects what the streamed kernel adds:
-// the keys' segment ids come from their own array (seg_k, a ring chunk's
-// visiting keys) and each tile's segment-id range from a table written once
-// by a pre-pass, instead of from the ids, which every CTA would otherwise
-// re-read for every key tile of a long row. Without STREAM, seg_k is seg_q
-// and the tables are unused: kernel #1 compiles to what it was.
+// forward (flash_fwd.cu, kernel #1), the streamed forward (flash_stream.cu,
+// kernel #6) and the band forward (flash_band.cu, kernel #9). STREAM selects
+// what the streamed kernel adds: the keys' segment ids come from their own
+// array (seg_k, a ring chunk's visiting keys) and each tile's segment-id
+// range from a table written once by a pre-pass, instead of from the ids,
+// which every CTA would otherwise re-read for every key tile of a long row.
+// BAND (with STREAM) replaces the per-tile test by the q tile's band: tabq
+// holds, per q tile, the first and last key positions whose id lies in the
+// tile's [min positive id, max id] (band_table_kernel), and the loop visits
+// exactly the key tiles between them. Without either, seg_k is seg_q and the
+// tables are unused: kernel #1 compiles to what it was.
 #pragma once
 
 #include "flash_common.cuh"
@@ -30,7 +34,7 @@ struct __align__(128) FwdSmem {
 // instance 168 registers a thread, which leaves three CTAs an SM and made it
 // slower on the H100 at every shape; with it, 128 and no spills
 // (chip_smoke.py prints the counts).
-template <bool STREAM>
+template <bool STREAM, bool BAND = false>
 __global__ void __launch_bounds__(THREADS, 4)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ segq,
@@ -50,12 +54,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int* segqb = segq + (long long)b * P;
   const int* segkb = STREAM ? segk + (long long)b * P : segqb;
   const int2* tabqb = STREAM ? tabq + (long long)b * nkt : nullptr;
-  const int2* tabkb = STREAM ? tabk + (long long)b * nkt : nullptr;
+  const int2* tabkb = (STREAM && !BAND) ? tabk + (long long)b * nkt : nullptr;
   const bf16* cb = cosb ? cosb + (long long)b * P * DH : nullptr;
   const bf16* sb = sinb ? sinb + (long long)b * P * DH : nullptr;
 
-  int qmin, qmax;
-  tile_bounds<STREAM>(tabqb, segqb, q0, P, lane, &qmin, &qmax);
+  int qmin = 0, qmax = 0;
+  if constexpr (!BAND) tile_bounds<STREAM>(tabqb, segqb, q0, P, lane, &qmin, &qmax);
   load_tile(sm.q, qb, rs, q0, P, cb, sb, tid);
   __syncthreads();
 
@@ -75,13 +79,29 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* sbuf = sm.s[warp];
   bf16* pbuf = reinterpret_cast<bf16*>(sbuf);
 
-  const int kt_end =
-      (causal && bi_split == 0) ? min(nkt, (min(q0 + BQ, P) - 1) / BK + 1) : nkt;
-  for (int kt = 0; kt < kt_end; ++kt) {
+  int kt_begin = 0;
+  int kt_end = (causal && bi_split == 0) ? min(nkt, (min(q0 + BQ, P) - 1) / BK + 1) : nkt;
+  if constexpr (BAND) {
+    // the band's key tiles, its top clipped as the JAX kernel clips it
+    // (:293-303): a q tile without a causal row sees only the prefix
+    const int2 band = tabqb[blockIdx.x];
+    const int last = min(q0 + BQ, P) - 1;
+    if (band.y < band.x) {
+      kt_end = 0;  // a tile of padding, or no key of its ids
+    } else {
+      kt_begin = band.x / BK;
+      int top = band.y / BK;
+      if (bi_split > 0) top = min(top, (last >= P - bi_split ? last : P - bi_split - 1) / BK);
+      kt_end = min(kt_end, top + 1);
+    }
+  }
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
-    int kmin, kmax;
-    tile_bounds<STREAM>(tabkb, segkb, k0, P, lane, &kmin, &kmax);
-    if (ranges_miss(qmin, qmax, kmin, kmax)) continue;
+    if constexpr (!BAND) {
+      int kmin, kmax;
+      tile_bounds<STREAM>(tabkb, segkb, k0, P, lane, &kmin, &kmax);
+      if (ranges_miss(qmin, qmax, kmin, kmax)) continue;
+    }
     __syncthreads();  // the previous tile's readers are done
     load_tile(sm.k, kb, rs, k0, P, cb, sb, tid);
     load_tile(sm.v, vb, rs, k0, P, nullptr, nullptr, tid);

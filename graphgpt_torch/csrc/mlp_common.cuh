@@ -1,4 +1,6 @@
-// The two stages of the gated MLP, shared by norm_mlp.cu and mlp.cu.
+// The two stages of the gated MLP, shared by norm_mlp.cu and mlp.cu, and the
+// tile pieces (the RMS statistics of a row tile, the staged tiles, the
+// fragment types) that norm_qkv.cu takes as well.
 //
 //   stage 1 (gate_up_kernel): g = bf16(bf16(act(bf16(xg))) * bf16(xu)),
 //     xg = a @ Wg^T, xu = a @ Wu^T, where a = x, or a = bf16(rms(x) * wn)
@@ -59,6 +61,30 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* src, int ld, int r0
   }
 }
 
+// rrms[r] = 1 / sqrt(mean(x[m0 + r]^2) + eps) for the 64 rows of a tile,
+// fp32 statistics, 16 rows a warp (4 warps); 0 past N. The caller syncs.
+__device__ __forceinline__ void tile_rrms(const bf16* x, float* rrms, int m0, int N, int D,
+                                          float eps, int warp, int lane) {
+  for (int rr = 0; rr < 16; ++rr) {
+    const int row = warp * 16 + rr, gr = m0 + row;
+    float ss = 0.f;
+    if (gr < N) {
+      for (int c = lane * 8; c < D; c += 256) {
+        uint4 val = *reinterpret_cast<const uint4*>(x + (long long)gr * D + c);
+        const bf16* e = reinterpret_cast<const bf16*>(&val);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          float f = __bfloat162float(e[t]);
+          ss += f * f;
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if (lane == 0) rrms[row] = gr < N ? 1.f / sqrtf(ss / (float)D + eps) : 0.f;
+  }
+}
+
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragB;
@@ -78,25 +104,7 @@ gate_up_kernel(const bf16* __restrict__ x, const float* __restrict__ wn,
   const int wm = warp >> 1, wn_ = warp & 1;
 
   if (NORM) {
-    // RMS statistics of this tile's rows, fp32 (16 rows per warp)
-    for (int rr = 0; rr < 16; ++rr) {
-      const int row = warp * 16 + rr, gr = m0 + row;
-      float ss = 0.f;
-      if (gr < N) {
-        for (int c = lane * 8; c < D; c += 256) {
-          uint4 val = *reinterpret_cast<const uint4*>(x + (long long)gr * D + c);
-          const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            float f = __bfloat162float(e[t]);
-            ss += f * f;
-          }
-        }
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-      if (lane == 0) rrms[row] = gr < N ? 1.f / sqrtf(ss / (float)D + eps) : 0.f;
-    }
+    tile_rrms(x, rrms, m0, N, D, eps, warp, lane);
     __syncthreads();
   }
 

@@ -8,8 +8,9 @@ order; 0 tokenizes in the calling thread. Each sample's tokenization RNG
 is seeded by (seed, epoch, idx, position), so the batches are the same
 for any number of workers, and the same as the JAX loader's for the same
 indices. Three differences from the JAX loader: the workers are spawned
-(fresh interpreters, the dataset and the tokenizer pickled to them), not
-forked; at most four chunks a worker are in flight, where `Pool.imap`
+(fresh interpreters, the dataset and the tokenizer pickled to them, and
+the parent's main module left out, so that they import no torch), not
+forked (`start_method`); at most four chunks a worker are in flight, where `Pool.imap`
 queues a whole epoch's, so that a pass left early (a run's last steps)
 does not hold the pool for the next one (its save-point eval); and
 `prefetched` raises what its producer raised instead of ending the epoch
@@ -19,8 +20,10 @@ early.
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import queue
+import sys
 import threading
 from typing import Iterator, List, Optional
 
@@ -50,6 +53,30 @@ def _tokenize_chunk(args):
             for j, idx in enumerate(idx_chunk)]
 
 
+@contextlib.contextmanager
+def _main_left_out(*objs):
+    """While a pool starts: hide the parent's `__main__` module from the
+    workers, unless one of `objs` (what the workers unpickle) is of a class
+    defined there. A spawned worker otherwise runs the parent's main module
+    again before its first task (multiprocessing's `__mp_main__`), and the
+    port's entry points import torch, seconds of each worker's start; the
+    workers need only this package's data modules, which import numpy."""
+    main = sys.modules.get("__main__")
+    if main is None or any(type(o).__module__ == "__main__" for o in objs):
+        yield
+        return
+    keys = ("__spec__", "__file__")
+    saved = {k: main.__dict__[k] for k in keys if k in main.__dict__}
+    main.__spec__ = None
+    main.__dict__.pop("__file__", None)
+    try:
+        yield
+    finally:
+        for k in keys:
+            main.__dict__.pop(k, None)
+        main.__dict__.update(saved)
+
+
 class GraphTokenLoader:
     """Iterates batches for one epoch: packed rows of exactly mpe tokens when
     `pack` (block-aligned with `pack_block`), else one graph a row, padded to
@@ -72,6 +99,7 @@ class GraphTokenLoader:
         post_pack_fn=None,
         fixed_length: Optional[int] = None,
         pack_block: int = 0,
+        start_method: str = "spawn",
     ):
         self.dataset = dataset
         self.tokenizer = tokenizer
@@ -86,6 +114,7 @@ class GraphTokenLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.post_pack_fn = post_pack_fn
+        self.start_method = start_method
         self._pool = None
 
     def start(self):
@@ -93,12 +122,14 @@ class GraphTokenLoader:
         if self.num_workers > 0 and self._pool is None:
             import multiprocessing as mp
 
-            # spawn, not the JAX loader's fork: the pipeline's process holds
-            # threads (prefetch, CUDA), whose locks a forked child inherits
-            self._pool = mp.get_context("spawn").Pool(
-                self.num_workers, initializer=_init_worker,
-                initargs=(self.dataset, self.tokenizer, self.seed),
-            )
+            # spawn by default, not the JAX loader's fork: the pipeline's
+            # process holds threads (prefetch, CUDA), whose locks a forked
+            # child inherits; a spawned worker imports the data modules only
+            with _main_left_out(self.dataset, self.tokenizer):
+                self._pool = mp.get_context(self.start_method).Pool(
+                    self.num_workers, initializer=_init_worker,
+                    initargs=(self.dataset, self.tokenizer, self.seed),
+                )
         return self
 
     def _sample_stream(self, indices: np.ndarray, epoch: int) -> Iterator[TokenizedSample]:

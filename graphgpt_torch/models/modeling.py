@@ -5,7 +5,10 @@ Counterpart of `graphgpt_tpu/models/modeling.py` (`_rms_norm_vjp` :101,
 `backbone_apply` :360 with its rematerialisation :545-612,
 `model_hidden_states` :618). Parameters are fp32 master copies under
 HF-Llama names; activations run in `cfg.dtype`. Attention goes through
-`ops.attention` (the flash kernels); the MLP through the norm-fused kernel,
+`ops.attention` (the flash kernels), its pre-norm and q/k/v products
+through `rms_norm` and three products, or, under `GGT_ATTN_NORM_FUSE=1`
+(read on each call, as the JAX package reads it on each trace, :418), the
+norm-fused q/k/v kernel; the MLP through the norm-fused kernel,
 or, when LayerScale or DropPath sit between the MLP and the residual,
 through the RMSNorm and the split MLP kernel; under MLP dropout through the
 plain `xla_mlp`, as the JAX package's dispatch (:478-521) does.
@@ -13,6 +16,7 @@ plain `xla_mlp`, as the JAX package's dispatch (:478-521) does.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -23,7 +27,7 @@ import torch.utils.checkpoint
 from ..config import ModelConfig
 from ..ops import mm_f32
 from ..ops.attention import attention
-from ..ops.mlp import fused_mlp, fused_norm_mlp, rmsnorm_bwd, xla_mlp
+from ..ops.mlp import fused_mlp, fused_norm_mlp, fused_norm_qkv, rmsnorm_bwd, xla_mlp
 from .rope import reset_position_ids, rope_cos_sin
 
 
@@ -137,10 +141,14 @@ class DecoderLayer(nn.Module):
         dt = x.dtype
         h, hkv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         at = self.self_attn
-        hpre = rms_norm(x, self.input_layernorm.weight, cfg.rms_norm_eps)
-        q = F.linear(hpre, at.q_proj.weight.to(dt)).view(b, p, h, dh)
-        k = F.linear(hpre, at.k_proj.weight.to(dt)).view(b, p, hkv, dh)
-        v = F.linear(hpre, at.v_proj.weight.to(dt)).view(b, p, hkv, dh)
+        if os.environ.get("GGT_ATTN_NORM_FUSE", "0") == "1":
+            q, k, v = fused_norm_qkv(x, self.input_layernorm.weight, at.q_proj.weight,
+                                     at.k_proj.weight, at.v_proj.weight, cfg.rms_norm_eps)
+        else:
+            hpre = rms_norm(x, self.input_layernorm.weight, cfg.rms_norm_eps)
+            q, k, v = (F.linear(hpre, w.to(dt)) for w in (at.q_proj.weight, at.k_proj.weight,
+                                                          at.v_proj.weight))
+        q, k, v = q.view(b, p, h, dh), k.view(b, p, hkv, dh), v.view(b, p, hkv, dh)
         a = attention(
             q, k, v, segment_ids, causal=cfg.causal_attention,
             bi_causal_split=cfg.bi_causal_split, attn_block=cfg.attn_block, rope=rope,

@@ -100,7 +100,11 @@ def rope_cos_sin(
         two_pi = torch.tensor(2.0 * math.pi, dtype=torch.float32, device=inv_freq.device)
         inv_freq = two_pi / torch.round(two_pi / inv_freq)
     freqs = position_ids.to(torch.float32)[..., None] * inv_freq[None, None, :]
-    emb = torch.cat([freqs, freqs], dim=-1)
+    # the float32 phases, their cos and sin in float64, rounded once: on the
+    # CPU the first float32 cos of a fresh process came back ~1e-4 off on
+    # one thread's chunk of 2048 entries in ~2% of processes (not with one
+    # thread); float64 stays inside a float32 ulp whatever path a thread takes
+    emb = torch.cat([freqs, freqs], dim=-1).double()
     cos = torch.cos(emb) * attention_factor
     sin = torch.sin(emb) * attention_factor
     return cos.to(dtype), sin.to(dtype)

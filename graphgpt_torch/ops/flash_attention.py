@@ -27,11 +27,24 @@ over every key of the row); and a query row that sees no key (possible
 only when the key ids are another array, a ring chunk's) gives out = 0,
 where the JAX stream kernel gives the mean of the visited values, and
 takes no part in the backward.
+
+The kernel mode, `GGT_FLASH_MODE` read once at import into `_MODE` (tests
+set the attribute, as the JAX package's do), routes as `_flash_fwd` :418
+and `_flash_bwd` :911 do. `legacy` (the default): the dispatch above.
+`band`: up to `_MAX_BAND` = 4096 the band kernels #9 flash_fwd_band and
+#10 flash_bwd_band (`_fwd_kernel_band` :282, `_bwd_kernel_band` :484 in
+`csrc/flash_band.cu`), whatever the split, the streamed ones above it.
+`skip`: the streamed kernels at every P. Under `band` and `skip`
+flash_attention rotates q and k outside the kernels (:1249-1255), with
+`models/rope.apply_rope`, and autograd carries the rotation's gradient.
+Here the port differs: an unknown mode raises, where the JAX package takes
+any value it does not know for `legacy`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -41,6 +54,20 @@ from . import _build, use_kernel
 NEG_INF = -1e30
 MAX_P = 2048  # the JAX package's single-block limit; longer rows stream (#6-#8)
 REF_ROWS = 512  # query rows at a time in the streamed kernels' plain versions
+MODES = ("legacy", "skip", "band")
+_MODE = os.environ.get("GGT_FLASH_MODE", "legacy")
+_MAX_BAND = 4096  # the longest row the band kernels take (the JAX package's)
+BAND_TILE = 64  # the band kernels' q and key tile height
+
+
+def _mode() -> str:
+    """The kernel mode; raises on a value the JAX package does not know."""
+    if _MODE not in MODES:
+        raise ValueError(f"GGT_FLASH_MODE={_MODE!r}: the modes are {', '.join(MODES)}")
+    return _MODE
+
+
+_mode()
 # q, k, v, seg, cos, sin, out, lse; B, P, H, causal, bi_split; stream
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # q, k, v, seg, cos, sin, out, lse, do, dlse, delta, dq, dk, dv; B, P, H, causal; stream
@@ -58,15 +85,42 @@ _DQ_STREAM_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_vo
 # q, k, v, seg_q, seg_k, cos, sin, lse, delta, do, dk, dv, tab; B, P, H, causal,
 # bi_split; stream
 _DKV_STREAM_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# q, k, v, seg_q, seg_k, out, lse, tab; B, P, H, causal, bi_split; stream
+_FWD_BAND_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# q, k, v, seg_q, seg_k, out, lse, do, dlse, delta, dq, dk, dv, tab; B, P, H, causal,
+# bi_split; stream
+_BWD_BAND_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def band_limits(seg_q: torch.Tensor, seg_k: torch.Tensor, tile: int = BAND_TILE):
+    """int32 [B, ceil(P/tile), 2]: per tile of `tile` query rows, the first
+    and last key positions (lo, hi) whose id lies in the tile's [min
+    positive id, max id], or (P, -1) when none does (`_band_limits` :265 at
+    key-tile width 1). Every key that a row of the tile can see lies in
+    [lo, hi]; the band kernels write the same table and visit only the key
+    tiles of that range."""
+    b, p = seg_q.shape
+    nt = -(-p // tile)
+    sq = torch.nn.functional.pad(seg_q.long(), (0, nt * tile - p)).view(b, nt, tile)
+    qmax = sq.amax(dim=-1, keepdim=True)
+    qmin = torch.where(sq > 0, sq, 2**30).amin(dim=-1, keepdim=True)
+    sk = seg_k.long()[:, None, :]
+    match = (sk >= qmin) & (sk <= qmax) & (sk > 0)  # [B, nt, P]
+    pos = torch.arange(p, device=seg_q.device)
+    lo = torch.where(match, pos, p).amin(dim=-1)
+    hi = torch.where(match, pos, -1).amax(dim=-1)
+    return torch.stack([lo, hi], dim=-1).to(torch.int32)
 
 
 def _valid_mask(seg: torch.Tensor, causal: bool, bi_causal_split: int = 0,
-                seg_k: Optional[torch.Tensor] = None, rows: slice = slice(None)):
+                seg_k: Optional[torch.Tensor] = None, rows: slice = slice(None),
+                band: Optional[torch.Tensor] = None):
     """[B, 1, Pq, P] bool for the query rows `rows` (all by default): the
     query's segment equals the key's nonzero segment (seg_k, the keys' own
     ids where given, else seg), plus the causal or bi-causal rule
     (graphgpt_tpu/ops/attention.py:22 _mask_logits, flash_attention.py:76
-    _tile_neg)."""
+    _tile_neg); with a `band` table (band_limits) only the key tiles of
+    each query tile's band, as the band kernels visit them."""
     p = seg.shape[-1]
     seg_k = seg if seg_k is None else seg_k
     sq = seg[:, rows]
@@ -78,6 +132,11 @@ def _valid_mask(seg: torch.Tensor, causal: bool, bi_causal_split: int = 0,
         valid = valid & (((qi < split) & (kj < split)) | ((qi >= split) & (kj <= qi)))
     elif causal:
         valid = valid & (qi >= kj)
+    if band is not None:
+        tiles = torch.div(band.long(), BAND_TILE, rounding_mode="floor")  # [B, nt, 2]
+        row_band = tiles[:, idx[rows] // BAND_TILE]  # [B, Pq, 2]
+        kt = (idx // BAND_TILE)[None, None, :]
+        valid = valid & ((kt >= row_band[..., :1]) & (kt <= row_band[..., 1:]))[:, None]
     return valid
 
 
@@ -105,13 +164,14 @@ def _tokens(t):
     return t.transpose(1, 2).reshape(b, p, h * dh)
 
 
-def _fwd_rows(q4, k4, v4, seg, seg_k, causal, bi_causal_split, rows, vdt):
+def _fwd_rows(q4, k4, v4, seg, seg_k, causal, bi_causal_split, rows, vdt, band=None):
     """(out [B, H, Pq, Dh] fp32, lse [B, H, Pq]) of the query rows `rows`:
     fp32 logits, softmax over the whole row, probabilities rounded to v's
     dtype `vdt` for the PV product; 0 and -1e30 on a padded row or one that
     sees no key."""
     s = q4[:, :, rows] @ k4.transpose(-1, -2)
-    s = s + torch.where(_valid_mask(seg, causal, bi_causal_split, seg_k, rows), 0.0, NEG_INF)
+    valid = _valid_mask(seg, causal, bi_causal_split, seg_k, rows, band)
+    s = s + torch.where(valid, 0.0, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     pij = torch.exp(s - m)
     l = pij.sum(dim=-1, keepdim=True)
@@ -133,18 +193,20 @@ def flash_attention_ref(
     bi_causal_split: int = 0,
     seg_k: Optional[torch.Tensor] = None,  # the keys' own ids; None: seg
     row_chunk: int = 0,  # > 0: that many query rows at a time
+    band: Optional[torch.Tensor] = None,  # band_limits' table: keys of the band only
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the forward kernels: (out [B, P, H*Dh], lse [B, H, P]
-    fp32), as `_fwd_kernel_single` and `_fwd_kernel_stream` compute them
-    (the online softmax of the streamed kernel is exact up to fp32
-    rounding). `row_chunk` bounds the [B, H, rows, P] logits of long rows."""
+    fp32), as `_fwd_kernel_single`, `_fwd_kernel_stream` and
+    `_fwd_kernel_band` compute them (the online softmax of the streamed and
+    band kernels is exact up to fp32 rounding). `row_chunk` bounds the
+    [B, H, rows, P] logits of long rows."""
     p = qs.shape[1]
     if cos is not None:
         qs, k = rotate_tokens(qs, cos, sin, dh), rotate_tokens(k, cos, sin, dh)
     q4, k4, v4 = _heads(qs, dh), _heads(k, dh), _heads(v, dh)
     step = row_chunk if row_chunk > 0 else p
     parts = [_fwd_rows(q4, k4, v4, seg, seg_k, causal, bi_causal_split, slice(i, i + step),
-                       v.dtype) for i in range(0, p, step)]
+                       v.dtype, band) for i in range(0, p, step)]
     out = torch.cat([o for o, _ in parts], dim=2).to(qs.dtype)
     return _tokens(out), torch.cat([l for _, l in parts], dim=2)
 
@@ -171,12 +233,19 @@ def _opt_ptr(t):
 
 
 def flash_fwd(qs, k, v, seg, cos, sin, causal: bool, dh: int, bi_causal_split: int = 0):
-    """(out, lse), dispatched as `_flash_fwd` does: above P = 2048 the
-    streamed forward (flash_fwd_stream, #6); else the single-block kernel
-    (#1) for a CUDA tensor, its plain version for a CPU tensor (or inside
+    """(out, lse), dispatched as `_flash_fwd` does: under `band` up to
+    _MAX_BAND the band forward (flash_fwd_band, #9, which takes q and k
+    rotated: cos None); under `skip`, or above P = 2048, the streamed
+    forward (flash_fwd_stream, #6); else the single-block kernel (#1) for a
+    CUDA tensor, its plain version for a CPU tensor (or inside
     ops.reference_mode())."""
     b, p, hd = qs.shape
-    if p > MAX_P:
+    mode = _mode()
+    if mode == "band" and p <= _MAX_BAND:
+        if cos is not None:
+            raise ValueError("the band kernels take q and k rotated: cos and sin must be None")
+        return flash_fwd_band(qs, k, v, seg, seg, causal, dh, bi_causal_split)
+    if mode == "skip" or p > MAX_P:
         return flash_fwd_stream(qs, k, v, seg, seg, cos, sin, causal, dh, bi_causal_split)
     if not use_kernel(qs, k, v, seg):
         return flash_attention_ref(qs, k, v, seg, cos, sin, causal, dh, bi_causal_split)
@@ -198,10 +267,17 @@ flash_fwd.launches = 0
 
 
 def _tile_scratch(seg_q):
-    """int32 scratch for the streamed kernels' two tile tables [B,
+    """int32 scratch for the streamed and band kernels' two tile tables [B,
     ceil(P/64)] of int2 (one when seg_q and seg_k are one array)."""
     b, p = seg_q.shape
     return torch.empty(4 * b * ((p + 63) // 64), dtype=torch.int32, device=seg_q.device)
+
+
+def _table(tab, b: int, p: int, second: bool = False):
+    """The first (or the second) int2 table in _tile_scratch's `tab` as
+    int32 [B, ceil(P/64), 2], band_limits' layout."""
+    n = 2 * b * ((p + 63) // 64)
+    return (tab[n : 2 * n] if second else tab[:n]).view(b, -1, 2)
 
 
 def flash_fwd_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, causal: bool, dh: int,
@@ -268,7 +344,7 @@ def flash_delta(do, out, dlse, dh: int) -> torch.Tensor:
 
 def _bwd_grads(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int,
                bi_causal_split: int, seg_k=None, want_dq: bool = True, want_dkv: bool = True,
-               row_chunk: int = 0):
+               row_chunk: int = 0, band=None):
     """(dq, dk, dv) of every backward twin, None where not wanted, at the
     kernels' rounding points: rot(q), rot(k), v and do (zero on padded
     rows) per head in fp32 with cos and sin in the working dtype; for each
@@ -294,7 +370,7 @@ def _bwd_grads(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int,
     dq, dk, dv = [], 0.0, 0.0
     for i in range(0, p, step):
         sl = slice(i, i + step)
-        valid = _valid_mask(seg, causal, bi_causal_split, seg_k, sl)
+        valid = _valid_mask(seg, causal, bi_causal_split, seg_k, sl, band)
         valid = valid & (seg[:, sl] > 0)[:, None, :, None]
         pij = torch.where(valid, torch.exp(q4[:, :, sl] @ k4.transpose(-1, -2)
                                            - lse[:, :, sl, None]), 0.0)
@@ -381,20 +457,29 @@ def flash_bwd(
     qs, k, v, seg, cos, sin, out, lse, do, dlse, causal: bool, dh: int,
     bi_causal_split: int = 0,
 ):
-    """(dq, dk, dv), dispatched as `_flash_bwd` does (:911): above P = 2048
-    the streamed pair (flash_dq_stream, which gives delta too, then
-    flash_dkv_stream) whatever the split; else with a bi-causal split the
+    """(dq, dk, dv), dispatched as `_flash_bwd` does (:911, :941): under
+    `band` up to _MAX_BAND the band backward (flash_bwd_band, #10, with its
+    delta) whatever the split; under `skip`, or above P = 2048, the
+    streamed pair (flash_dq_stream, which gives delta too, then
+    flash_dkv_stream) whatever the split; else with a bi-causal split, or
+    under `band` above its limit (which never takes the fused kernel), the
     split pair flash_dq, flash_dkv; else the fused CUDA kernel (a small
     delta kernel and the main one, counted as one call) for a CUDA tensor,
     the plain version for a CPU tensor (or inside ops.reference_mode()).
     dlse [B, H, P] is the optional cotangent of lse; None means zeros."""
-    if qs.shape[1] > MAX_P:
+    mode = _mode()
+    if mode == "band" and qs.shape[1] <= _MAX_BAND:
+        if cos is not None:
+            raise ValueError("the band kernels take q and k rotated: cos and sin must be None")
+        return flash_bwd_band(qs, k, v, seg, seg, out, lse, do, dlse, causal, dh,
+                              bi_causal_split)
+    if mode == "skip" or qs.shape[1] > MAX_P:
         dq, delta = flash_dq_stream(qs, k, v, seg, seg, cos, sin, out, lse, do, dlse, causal,
                                     dh, bi_causal_split)
         dk, dv = flash_dkv_stream(qs, k, v, seg, seg, cos, sin, lse, delta, do, causal, dh,
                                   bi_causal_split)
         return dq, dk, dv
-    if bi_causal_split > 0:
+    if bi_causal_split > 0 or mode != "legacy":
         dq, delta = flash_dq(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh,
                              bi_causal_split)
         dk, dv = flash_dkv(qs, k, v, seg, cos, sin, lse, delta, do, causal, dh, bi_causal_split)
@@ -575,6 +660,101 @@ def flash_dkv_stream(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal: b
 flash_dkv_stream.launches = 0
 
 
+def flash_fwd_band_ref(qs, k, v, seg_q, seg_k, causal: bool, dh: int,
+                       bi_causal_split: int = 0):
+    """Plain version of flash_fwd_band (`_fwd_kernel_band`): the forward with
+    the keys' own segment ids over each query tile's band of keys
+    (band_limits), REF_ROWS query rows at a time; q and k come rotated."""
+    return flash_attention_ref(qs, k, v, seg_q, None, None, causal, dh, bi_causal_split,
+                               seg_k=seg_k, row_chunk=REF_ROWS, band=band_limits(seg_q, seg_k))
+
+
+def flash_fwd_band(qs, k, v, seg_q, seg_k, causal: bool, dh: int, bi_causal_split: int = 0,
+                   aux: Optional[dict] = None):
+    """(out, lse) of the band forward (#9) with query ids seg_q and key ids
+    seg_k [B, P] (one tensor twice for a model's rows), q pre-scaled and q,
+    k already rotated: the CUDA kernels (the band table, then the forward;
+    counted as one call) for a CUDA tensor, the plain version for a CPU
+    tensor (or inside ops.reference_mode()). `aux`, when given, receives
+    the band table the kernel used (int32 [B, ceil(P/64), 2], band_limits'
+    layout) under "table"."""
+    if not use_kernel(qs, k, v, seg_q, seg_k):
+        if aux is not None:
+            aux["table"] = band_limits(seg_q, seg_k)
+        return flash_fwd_band_ref(qs, k, v, seg_q, seg_k, causal, dh, bi_causal_split)
+    b, p, hd = qs.shape
+    (qs, k, v), seg_q, seg_k, _, _ = _check_fwd("flash_fwd_band", dh, qs, k, v, seg_q, seg_k,
+                                                None, None)
+    out = torch.empty_like(qs)
+    lse = torch.empty((b, hd // dh, p), dtype=torch.float32, device=qs.device)
+    tab = _tile_scratch(seg_q)
+    fn = _build.entry("flash_band", "ggt_flash_fwd_band", _FWD_BAND_ARGTYPES)
+    err = fn(
+        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
+        _build.ptr(out), _build.ptr(lse), _build.ptr(tab), b, p, hd // dh, int(causal),
+        int(bi_causal_split), _build.stream_ptr(qs.device),
+    )
+    flash_fwd_band.launches += 1
+    _build.check(err, "flash_fwd_band")
+    if aux is not None:
+        aux["table"] = _table(tab, b, p)
+    return out, lse
+
+
+flash_fwd_band.launches = 0
+
+
+def flash_bwd_band_ref(qs, k, v, seg_q, seg_k, lse, delta, do, causal: bool, dh: int,
+                       bi_causal_split: int = 0):
+    """Plain version of flash_bwd_band (`_bwd_kernel_band`): (dq, dk, dv)
+    with flash_bwd_ref's rounding points, the keys' own segment ids and each
+    query tile's band of keys, REF_ROWS query rows at a time; q and k come
+    rotated. Padded rows take no part."""
+    return _bwd_grads(qs, k, v, seg_q, None, None, lse, delta, do, causal, dh, bi_causal_split,
+                      seg_k, row_chunk=REF_ROWS, band=band_limits(seg_q, seg_k))
+
+
+def flash_bwd_band(qs, k, v, seg_q, seg_k, out, lse, do, dlse, causal: bool, dh: int,
+                   bi_causal_split: int = 0, aux: Optional[dict] = None):
+    """(dq, dk, dv) of the band backward (#10), q and k rotated, delta =
+    rowsum(do * out) - dlse computed outside its main kernel as the JAX
+    package does (:933-940): the CUDA kernels (both band tables, the delta
+    kernel, then dq, dk, dv; counted as one call) for a CUDA tensor,
+    flash_delta and the plain version for a CPU tensor (or inside
+    ops.reference_mode()). dlse None means zeros. `aux`, when given,
+    receives "delta" [B, H, P] and the key tiles' band table "table_k"."""
+    if not use_kernel(qs, k, v, seg_q, seg_k, out, lse, do):
+        delta = flash_delta(do, out, dlse, dh)
+        if aux is not None:
+            aux["delta"], aux["table_k"] = delta, band_limits(seg_k, seg_q)
+        return flash_bwd_band_ref(qs, k, v, seg_q, seg_k, lse, delta, do, causal, dh,
+                                  bi_causal_split)
+    b, p, _ = qs.shape
+    extra_rows = () if dlse is None else (dlse,)
+    (qs, k, v, do, out), seg_q, seg_k, _, _, rows = _check_bwd(
+        "flash_bwd_band", dh, qs, k, v, seg_q, None, None, lse, do, extra=(out,),
+        extra_rows=extra_rows, seg_k=seg_k)
+    lse, dlse = rows[0], (rows[1] if dlse is not None else None)
+    dq, dk, dv = torch.empty_like(qs), torch.empty_like(qs), torch.empty_like(qs)
+    delta = torch.empty_like(lse)
+    tab = _tile_scratch(seg_q)
+    fn = _build.entry("flash_band", "ggt_flash_bwd_band", _BWD_BAND_ARGTYPES)
+    err = fn(
+        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
+        _build.ptr(out), _build.ptr(lse), _build.ptr(do), _opt_ptr(dlse), _build.ptr(delta),
+        _build.ptr(dq), _build.ptr(dk), _build.ptr(dv), _build.ptr(tab), b, p, lse.shape[1],
+        int(causal), int(bi_causal_split), _build.stream_ptr(qs.device),
+    )
+    flash_bwd_band.launches += 1
+    _build.check(err, "flash_bwd_band")
+    if aux is not None:
+        aux["delta"], aux["table_k"] = delta, _table(tab, b, p, second=seg_k is not seg_q)
+    return dq, dk, dv
+
+
+flash_bwd_band.launches = 0
+
+
 class _FlashAttention(torch.autograd.Function):
     """(out, lse) of the forward kernel with the backward kernel attached
     (`_attach_grad_rope`, and `_attach_grad_lse` for the cotangent of lse):
@@ -621,7 +801,14 @@ def flash_attention(
 ):
     """[B, P, H, Dh] (and lse [B, H, P] when asked): GQA expansion and the
     scale fold as `_prep` (autograd carries their gradients), then the
-    kernels with in-kernel RoPE. `stash`: see `_FlashAttention`."""
+    kernels with in-kernel RoPE; under the `band` and `skip` modes q and k
+    are rotated first, outside the kernels (:1249-1255). `stash`: see
+    `_FlashAttention`."""
+    if rope is not None and _mode() in ("band", "skip"):
+        from ..models.rope import apply_rope
+
+        q, k = apply_rope(q, k, rope[0], rope[1])
+        rope = None
     b, p, h, dh = q.shape
     hkv = k.shape[2]
     if hkv != h:

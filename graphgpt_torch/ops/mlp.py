@@ -1,12 +1,15 @@
-"""Gated MLPs (CUDA kernels, plain versions, plain backwards) and the
-RMSNorm backward (CUDA kernel and plain version).
+"""Gated MLPs (CUDA kernels, plain versions, plain backwards), the
+norm-fused q/k/v projections (CUDA kernel, plain version and backward) and
+the RMSNorm backward (CUDA kernel and plain version).
 
 Counterpart of `graphgpt_tpu/ops/mlp.py` (`_mlp_kernel` :82, `fused_mlp`
 :158 with `_fused_mlp_bwd` :170, `_norm_mlp_kernel` :203, `fused_norm_mlp`
-:253 with `_fused_norm_mlp_bwd` :267, `_rmsnorm_bwd_kernel` :414, `xla_mlp`
-:468). The kernels live in `csrc/mlp.cu`, `csrc/norm_mlp.cu` and
-`csrc/rmsnorm_bwd.cu`. Weights are in nn.Linear layout (`[out, in]`): the
-JAX package's `[in, out]` matrices transposed.
+:253 with `_fused_norm_mlp_bwd` :267, `_norm_qkv_kernel` :315,
+`fused_norm_qkv` :363 with `_fused_norm_qkv_bwd` :376, `_rmsnorm_bwd_kernel`
+:414, `xla_mlp` :468). The kernels live in `csrc/mlp.cu`,
+`csrc/norm_mlp.cu`, `csrc/norm_qkv.cu` and `csrc/rmsnorm_bwd.cu`. Weights
+are in nn.Linear layout (`[out, in]`): the JAX package's `[in, out]`
+matrices transposed.
 """
 
 from __future__ import annotations
@@ -25,6 +28,9 @@ _MLP_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _ARGTYPES = (
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
+# x, wn, wq, wk, wv, q, k, v; N, D, Fq, Fk, Fv; eps; stream
+_QKV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+_QKV_MAX_D = 1600  # the widest hidden size of config._MODEL_SIZES (the kernel's shared memory)
 # x, g, w, dx, dw, partial; N, D; eps; blocks; stream
 _RMS_ARGTYPES = (
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -279,6 +285,97 @@ def fused_norm_mlp(x, wn, wg, wu, wd, eps: float, act: str):
     """x + mlp(rms(x) * wn): fp32 master weights cast to x's dtype once per
     call, then `norm_mlp`; differentiable in x and every weight."""
     return _FusedNormMLP.apply(x, wn, wg, wu, wd, eps, act)
+
+
+def norm_qkv_ref(x, wn, wq, wk, wv, eps: float):
+    """Plain version of the norm_qkv kernel, with its rounding points: RMS
+    statistics in fp32, hpre = x * rrms * wn rounded to x's dtype, each of
+    the three products summed in fp32 and rounded once."""
+    dt = x.dtype
+    x32 = x.float()
+    rrms = torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + eps)
+    hpre = (x32 * rrms * wn.float()).to(dt).float()
+    return tuple(F.linear(hpre, w.float()).to(dt) for w in (wq, wk, wv))
+
+
+def norm_qkv(x, wn, wq, wk, wv, eps: float):
+    """(q, k, v) = rms(x) * wn @ (wq|wk|wv)^T for x [N, D] in bf16, wn fp32
+    and bf16 weights [width, D] (widths multiples of 64, so GQA's narrower k
+    and v too): the CUDA kernel for a CUDA tensor, the plain version for a
+    CPU tensor (or inside ops.reference_mode())."""
+    if not use_kernel(x, wn, wq, wk, wv):
+        return norm_qkv_ref(x, wn, wq, wk, wv, eps)
+    n, d = x.shape
+    if x.dtype != torch.bfloat16 or any(w.dtype != torch.bfloat16 for w in (wq, wk, wv)):
+        raise NotImplementedError("the norm_qkv kernel takes bf16 activations and weights")
+    if wn.shape != (d,) or any(w.dim() != 2 or w.shape[1] != d for w in (wq, wk, wv)):
+        raise ValueError(f"shapes x {x.shape} wn {wn.shape} weights "
+                         f"{[tuple(w.shape) for w in (wq, wk, wv)]}")
+    if d % 64 or d > _QKV_MAX_D or any(w.shape[0] % 64 for w in (wq, wk, wv)):
+        raise NotImplementedError(
+            f"the norm_qkv kernel needs D % 64 == 0, D <= {_QKV_MAX_D} and widths % 64 == 0, "
+            f"got D {d}, widths {[w.shape[0] for w in (wq, wk, wv)]}")
+    x, wq, wk, wv = (t.contiguous() for t in (x, wq, wk, wv))
+    wn = wn.float().contiguous()
+    # the kernel moves 16 bytes a thread
+    if any(t.data_ptr() % 16 for t in (x, wq, wk, wv)):
+        raise ValueError("norm_qkv needs 16-byte aligned x and weights")
+    q, k, v = (torch.empty((n, w.shape[0]), dtype=x.dtype, device=x.device)
+               for w in (wq, wk, wv))
+    fn = _build.entry("norm_qkv", "ggt_norm_qkv", _QKV_ARGTYPES)
+    err = fn(
+        _build.ptr(x), _build.ptr(wn), _build.ptr(wq), _build.ptr(wk), _build.ptr(wv),
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), n, d, wq.shape[0], wk.shape[0],
+        wv.shape[0], float(eps), _build.stream_ptr(x.device),
+    )
+    norm_qkv.launches += 1
+    _build.check(err, "norm_qkv")
+    return q, k, v
+
+
+norm_qkv.launches = 0
+
+
+def norm_qkv_bwd(x, wn, wq, wk, wv, dq, dk, dv, eps: float):
+    """(dx, dwn, dwq, dwk, dwv) of `fused_norm_qkv`, the formula of
+    `_fused_norm_qkv_bwd`: hpre computed again from x (rounded to x's
+    dtype); the weight gradients summed in fp32; dhpre the three products
+    in x's dtype, each rounded, added in that dtype in the order q, k, v;
+    then the RMSNorm adjoint of that cotangent, which is exact in x's dtype,
+    through rmsnorm_bwd (kernel #13 on the card). The products are
+    `torch.matmul`, as the JAX package leaves them to XLA."""
+    dt = x.dtype
+    x32 = x.float()
+    rrms = torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + eps)
+    hpre = (x32 * rrms * wn.float()).to(dt)
+    dq, dk, dv = (g.to(dt) for g in (dq, dk, dv))
+    dws = [mm_f32(g.t(), hpre) for g in (dq, dk, dv)]
+    dhpre = dq @ wq.to(dt) + dk @ wk.to(dt) + dv @ wv.to(dt)
+    dx, dwn = rmsnorm_bwd(x, dhpre, wn, eps)
+    return (dx, dwn.to(wn.dtype), *(dw.to(w.dtype) for dw, w in zip(dws, (wq, wk, wv))))
+
+
+class _FusedNormQKV(torch.autograd.Function):
+    """The norm_qkv kernel forward; backward `norm_qkv_bwd`. Saves
+    (x, wn, wq, wk, wv) only: the backward computes hpre again."""
+
+    @staticmethod
+    def forward(ctx, x, wn, wq, wk, wv, eps):
+        dt = x.dtype
+        ctx.save_for_backward(x, wn, wq, wk, wv)
+        ctx.eps = eps
+        return norm_qkv(x, wn.float(), wq.to(dt), wk.to(dt), wv.to(dt), eps)
+
+    @staticmethod
+    def backward(ctx, dq, dk, dv):
+        return (*norm_qkv_bwd(*ctx.saved_tensors, dq, dk, dv, ctx.eps), None)
+
+
+def fused_norm_qkv(x, wn, wq, wk, wv, eps: float):
+    """(q, k, v) = rms(x) * wn @ (wq|wk|wv)^T: fp32 master weights cast to
+    x's dtype once per call, then `norm_qkv`; differentiable in x and every
+    weight."""
+    return _FusedNormQKV.apply(x, wn, wq, wk, wv, eps)
 
 
 def rmsnorm_bwd_ref(x, g, w, eps: float):

@@ -12,7 +12,9 @@ block, so the tests reach them at small sizes by
 - the backward with in-kernel RoPE: `_MAX_SINGLE_BLOCK` 1024 at P 2048
   (bk 1024, nk 2), B 1, H 1;
 - the backward at P 256: `_MODE = "skip"` with 64-row tiles, which takes
-  pre-rotated q and k.
+  pre-rotated q and k;
+- `flash_attention` itself with both sides in skip mode, which the port
+  routes to #6-#8 at every P with q and k rotated outside.
 
 Cases: bidirectional, causal and bi-causal (16 bit slots: the split inside
 a 64-row tile); key ids equal to the query ids, or another array (the
@@ -31,6 +33,7 @@ test_torch_flash_split_bwd.py. The CUDA kernels are held against these
 plain versions in tests/test_torch_gpu.py and chip_smoke.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -271,3 +274,42 @@ def test_the_port_routes_rows_longer_than_2048_to_the_stream_entries(bi, monkeyp
         assert calls["flash_bwd_ref"] == int(not want and not split)
         assert calls["flash_dq"] == calls["flash_dkv"] == int(split)
         assert torch.isfinite(x.grad).all()
+
+
+def test_skip_mode_matches_jax_skip_mode_through_the_stream_kernels(monkeypatch):
+    """GGT_FLASH_MODE=skip on both sides: flash_attention with RoPE at P 256
+    rotates q and k outside the kernels and takes the streamed kernels (the
+    JAX package's with 64-key tiles, the port's #6-#8 at every P): out and
+    the gradients of q, k, v, cos and sin."""
+    monkeypatch.setenv("GGT_PALLAS_INTERPRET", "1")
+    monkeypatch.setattr(jfa, "_MODE", "skip")
+    monkeypatch.setattr(tfa, "_MODE", "skip")
+    monkeypatch.setattr(jfa, "_BAND_BK", 64)
+    monkeypatch.setattr(jfa, "_BQ_BWD", 64)
+    jran = {n: _spy(monkeypatch, n) for n in ("_fwd_kernel_stream", "_dq_kernel_stream",
+                                              "_dkv_kernel_stream")}
+    names = ("flash_fwd_stream", "flash_dq_stream", "flash_dkv_stream")
+    tran = {n: [] for n in names}
+    for n in names:
+        def wrapped(*a, _fn=getattr(tfa, n), _n=n, **kw):
+            tran[_n].append(1)
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(tfa, n, wrapped)
+    b, p, h = 1, 256, 2
+    qs, k, v, do, seg, cos, sin = _inputs(b, p, h, seed=8)
+    q = (qs * DH**0.5).reshape(b, p, h, DH)
+    k, v, do = (a.reshape(b, p, h, DH) for a in (k, v, do))
+    jseg = jnp.asarray(seg)
+    want, vjp = jax.vjp(lambda *a: jfa.flash_attention(*a[:3], jseg, causal=True, rope=a[3:]),
+                        *(jnp.asarray(a) for a in (q, k, v, cos, sin)))
+    want_grads = vjp(jnp.asarray(do))
+    assert all(jran.values()), "the JAX dispatch did not reach the stream kernels"
+    leaves = [torch.from_numpy(np.array(a)).requires_grad_() for a in (q, k, v, cos, sin)]
+    got = tfa.flash_attention(*leaves[:3], torch.from_numpy(seg), causal=True,
+                              rope=tuple(leaves[3:]))
+    got.backward(torch.from_numpy(do))
+    assert all(len(c) == 1 for c in tran.values()), tran
+    _close(got.detach().numpy(), want, "float32", "out")
+    for name, g, w in zip(("dq", "dk", "dv", "dcos", "dsin"), leaves, want_grads):
+        _close(g.grad.numpy(), w, "float32", name)

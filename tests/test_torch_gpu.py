@@ -690,3 +690,151 @@ def test_pretrain_pipeline_step_launch_counts(cuda_device, tmp_path):
 
     rows = list(csv.DictReader(open(tmp_path / "log.csv")))
     assert len(rows) == 2 and all(float(r["mfu"]) > 0 for r in rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,keys,mask", [
+    ((2, 1024, 12), "same", "bidirectional"), ((2, 320, 3), "other", "causal"),
+    ((4, 88, 12), "same", "bi-causal"), ((1, 4096, 2), "same", "causal")],
+    ids=["P1024", "P320-other-causal", "P88-bicausal", "P4096-causal"])
+def test_band_kernels_match_plain(cuda_device, shape, keys, mask):
+    """flash_fwd_band (#9) and flash_bwd_band (#10, with its delta and a
+    cotangent of lse) against their plain versions, at the tolerances of the
+    streamed kernels; the band tables equal band_limits; padded rows exactly
+    0; the same bits from run to run."""
+    dev = cuda_device
+    b, p, h = shape
+    dh = 64
+    causal, bi = {"bidirectional": (False, 0), "causal": (True, 0), "bi-causal": (False, 16)}[mask]
+    rng = np.random.default_rng(17)
+    qs = _bf16(rng, (b, p, h * dh), 0.5 * dh**-0.5, dev)
+    k, v, do = (_bf16(rng, (b, p, h * dh), 0.5, dev) for _ in range(3))
+    seg_np = packed_segments(b, p, rng)
+    seg_np[-1, p - 40 : p - 20] = 0
+    seg = torch.from_numpy(seg_np).to(dev)
+    seg_k = seg if keys == "same" else _shifted(seg)
+    counts = [tfa.flash_fwd_band.launches, tfa.flash_bwd_band.launches]
+    aux = {}
+    out, lse = tfa.flash_fwd_band(qs, k, v, seg, seg_k, causal, dh, bi, aux=aux)
+    torch.cuda.synchronize()
+    assert torch.equal(aux["table"].cpu(), tfa.band_limits(seg, seg_k).cpu())
+    with ops.reference_mode():
+        rout, rlse = tfa.flash_fwd_band(qs, k, v, seg, seg_k, causal, dh, bi)
+    valid = seg > 0
+    torch.testing.assert_close(out.float(), rout.float(), atol=3e-2, rtol=2e-2)
+    assert _rel(out[valid], rout[valid]) < 4e-3
+    torch.testing.assert_close(lse.transpose(1, 2)[valid], rlse.transpose(1, 2)[valid],
+                               atol=1e-3, rtol=1e-4)
+    assert bool((out[~valid] == 0).all()) and bool((lse.transpose(1, 2)[~valid] == -1e30).all())
+    dlse = torch.from_numpy(rng.normal(size=(b, h, p)).astype(np.float32) * 0.3).to(dev)
+    dlse = dlse * valid[:, None, :]
+    args = (qs, k, v, seg, seg_k, out, lse, do, dlse, causal, dh, bi)
+    aux = {}
+    dq, dk, dv = tfa.flash_bwd_band(*args, aux=aux)
+    torch.cuda.synchronize()
+    assert torch.equal(aux["table_k"].cpu(), tfa.band_limits(seg_k, seg).cpu())
+    torch.testing.assert_close(aux["delta"], tfa.flash_delta(do, out, dlse, dh), atol=1e-5,
+                               rtol=1e-5)
+    with ops.reference_mode():
+        rdq, rdk, rdv = tfa.flash_bwd_band(*args)
+    for g, r in zip((dq, dk, dv), (rdq, rdk, rdv)):
+        torch.testing.assert_close(g.float(), r.float(), atol=3.2e-2, rtol=2e-2)
+        assert _rel(g, r) < 2e-3
+    assert bool((dq[~valid] == 0).all())
+    assert bool((dk[seg_k == 0] == 0).all()) and bool((dv[seg_k == 0] == 0).all())
+    assert [tfa.flash_fwd_band.launches, tfa.flash_bwd_band.launches] == [c + 1 for c in counts]
+    again = tfa.flash_bwd_band(*args)
+    assert all(torch.equal(a, g) for a, g in zip(again, (dq, dk, dv)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,widths", [(200, 128, (128, 64, 64)), (8192, 768, (768,) * 3),
+                                        (1000, 768, (768, 256, 256))],
+                         ids=["small-gqa", "serving", "gqa-ragged"])
+def test_norm_qkv_kernel_matches_plain(cuda_device, n, d, widths):
+    """norm_qkv (#12) against its plain version; fused_norm_qkv's backward
+    goes through rmsnorm_bwd (#13) and matches the plain run's."""
+    dev = cuda_device
+    rng = np.random.default_rng(19)
+    x = _bf16(rng, (n, d), 1.0, dev)
+    wn = torch.from_numpy((1.0 + 0.1 * rng.normal(size=(d,))).astype(np.float32)).to(dev)
+    ws = [_bf16(rng, (w, d), 0.02, dev) for w in widths]
+    before = tmlp.norm_qkv.launches
+    got = tmlp.norm_qkv(x, wn, *ws, 1e-6)
+    torch.cuda.synchronize()
+    assert tmlp.norm_qkv.launches == before + 1
+    with ops.reference_mode():
+        want = tmlp.norm_qkv(x, wn, *ws, 1e-6)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(), atol=1e-2, rtol=1e-2)
+        assert _rel(g, w) < 2e-3
+
+    def grads():
+        leaves = [t.detach().clone().requires_grad_() for t in [x, wn] + [w.float() for w in ws]]
+        outs = tmlp.fused_norm_qkv(*leaves, 1e-6)
+        torch.autograd.backward(outs, [torch.ones_like(o) * 0.1 for o in outs])
+        return [t.grad for t in leaves]
+
+    rms = tmlp.rmsnorm_bwd.launches
+    kern = grads()
+    assert tmlp.rmsnorm_bwd.launches == rms + 1
+    with ops.reference_mode():
+        plain = grads()
+    for g, w in zip(kern, plain):
+        assert _rel(g, w) < 1e-2
+
+
+@pytest.mark.gpu
+def test_training_step_under_both_knobs_launches_the_band_and_qkv_kernels(cuda_device,
+                                                                           monkeypatch):
+    """GGT_FLASH_MODE=band and GGT_ATTN_NORM_FUSE=1, save_attn: per layer one
+    flash_fwd_band, one flash_bwd_band, two norm_qkv (the forward and the
+    recompute), one norm_mlp; rmsnorm_bwd a layer plus the final norm's;
+    none of the legacy flash kernels. The gradients match the legacy route."""
+    monkeypatch.setattr(tfa, "_MODE", "band")
+    monkeypatch.setenv("GGT_ATTN_NORM_FUSE", "1")
+    cfg = _tiny_cfg(remat=True, remat_policy="save_attn")
+    model = GraphGPTPretrain(cfg, device=cuda_device, seed=0)
+    batch = to_torch(fake_batch(2, 256, 3, 50, np.random.default_rng(1)), cuda_device)
+    counters = {"flash_fwd_band": tfa.flash_fwd_band, "flash_bwd_band": tfa.flash_bwd_band,
+                "norm_qkv": tmlp.norm_qkv, "norm_mlp": tmlp.norm_mlp,
+                "rmsnorm_bwd": tmlp.rmsnorm_bwd, "flash_fwd": tfa.flash_fwd,
+                "flash_bwd": tfa.flash_bwd, "flash_fwd_stream": tfa.flash_fwd_stream}
+    before = {k: f.launches for k, f in counters.items()}
+    model(batch, train=True)["loss"].backward()
+    torch.cuda.synchronize()
+    got = {k: f.launches - before[k] for k, f in counters.items()}
+    n = cfg.num_hidden_layers
+    assert got == {"flash_fwd_band": n, "flash_bwd_band": n, "norm_qkv": 2 * n, "norm_mlp": n,
+                   "rmsnorm_bwd": n + 1, "flash_fwd": 0, "flash_bwd": 0, "flash_fwd_stream": 0}
+    band = {k: p.grad.clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    monkeypatch.setattr(tfa, "_MODE", "legacy")
+    monkeypatch.setenv("GGT_ATTN_NORM_FUSE", "0")
+    model(batch, train=True)["loss"].backward()
+    for k, p in model.named_parameters():
+        assert _rel(band[k], p.grad) < 5e-2, k
+
+
+@pytest.mark.gpu
+def test_skip_mode_goes_through_the_stream_kernels(cuda_device, monkeypatch):
+    """GGT_FLASH_MODE=skip: flash_attention at P 1024 rotates q and k outside
+    and launches #6, #7 and #8 once each; out matches the legacy route."""
+    dev = cuda_device
+    rng = np.random.default_rng(23)
+    b, p, h, dh = 2, 1024, 4, 64
+    q, k, v = (_bf16(rng, (b, p, h, dh), 0.5, dev).requires_grad_() for _ in range(3))
+    seg = torch.from_numpy(packed_segments(b, p, rng)).to(dev)
+    rope = rope_cos_sin(torch.arange(p, device=dev).expand(b, p), dh)
+    monkeypatch.setattr(tfa, "_MODE", "skip")
+    counters = [tfa.flash_fwd_stream, tfa.flash_dq_stream, tfa.flash_dkv_stream, tfa.flash_fwd,
+                tfa.flash_bwd]
+    before = [f.launches for f in counters]
+    out = tfa.flash_attention(q, k, v, seg, rope=rope)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert [f.launches - c for f, c in zip(counters, before)] == [1, 1, 1, 0, 0]
+    monkeypatch.setattr(tfa, "_MODE", "legacy")
+    ref = tfa.flash_attention(q, k, v, seg, rope=rope)
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=2e-2)
