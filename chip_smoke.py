@@ -80,7 +80,12 @@
    band_limits and padded rows exactly 0 on every row; timed at 8 x 1024,
    64 x 1024 and 16 x 4096 beside the bound, the plain version, SDPA and
    the legacy kernels at the same shape; #12 norm_qkv at N 8,192 and
-   65,536 beside F.rms_norm + one matmul. The skip mode's forward and
+   65,536 beside F.rms_norm + one matmul (its achieved TFLOP/s, share of
+   bound and the WMMA kernel's time beside it, its rrms pre-pass timed
+   alone), and
+   held to its plain version, untimed, at GQA widths 768/256/256, at a
+   ragged N 65,537, at D 1600 (N 4,096), and to itself on a second launch
+   (bit for bit). The skip mode's forward and
    backward at 8 x 1024 (#6-#8 once each). GraphGPT-base's training step
    at 64 x 1024 under both knobs against the plain run and the legacy
    kernel path, four counted steps; long-context pretraining through
@@ -100,8 +105,10 @@ version fall outside those windows.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -189,6 +196,12 @@ STEP32_F = 2e-3
 # in bf16 at other points (band against streamed kernels, the norm-fused
 # q/k/v against the norm and three products), through four AdamW steps.
 BAND_LOSS_ATOL = 5e-2
+# Pairs of training steps, one under both knobs and one on the legacy route,
+# alternated to compare the two routes' step times within one call.
+STEP_PAIRS = 6
+# The rrms pre-pass against the plain statistics: fp32 sums of 768 squares
+# in another order, and 1 / sqrtf against torch.rsqrt.
+RRMS_REL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -524,10 +537,23 @@ def flash_phase(dev, fa, ops, synthetic, rope_cos_sin):
     return res
 
 
+def gated_mlp_library(x, wgu, wd_t, f: int, norm=None):
+    """The PyTorch yardstick of the gated-MLP kernels: (F.rms_norm with a
+    bf16 weight, when norm = (wn16, eps)), one matmul against [Wg|Wu]^T,
+    the exact gelu of the first half times the second, one matmul against
+    Wd^T, (and the residual, with the norm). Timed beside #2 and #11, never
+    called by the port."""
+    h = x if norm is None else torch.nn.functional.rms_norm(x, x.shape[-1:], *norm)
+    gu = torch.matmul(h, wgu)
+    out = torch.matmul(torch.nn.functional.gelu(gu[:, :f]) * gu[:, f:], wd_t)
+    return out if norm is None else x + out
+
+
 def norm_mlp_at_shape(dev, mlp, ops, n: int, tag: str, time_plain: bool = True):
     """norm_mlp (gelu, D 768, F 3072, weights at 0.02) against its plain
     version on N rows, then its time (three CUDA-event readings) beside the
-    plain version's, when asked, and the bound."""
+    plain version's, when asked, the library composition's
+    (gated_mlp_library with the norm and the residual) and the bound."""
     d, f = 768, 3072
     gen = torch.Generator(device=dev).manual_seed(1)
     wn = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
@@ -549,17 +575,21 @@ def norm_mlp_at_shape(dev, mlp, ops, n: int, tag: str, time_plain: bool = True):
     if time_plain:
         with ops.reference_mode():
             plain_ms = cuda_ms(lambda: mlp.norm_mlp(*args), iters=3)
+    wgu, wd_t, wn16 = torch.cat([wg, wu]).t(), wd.t(), wn.to(torch.bfloat16)
+    lib_ms = cuda_ms(lambda: gated_mlp_library(x, wgu, wd_t, f, (wn16, 1e-6)), iters=10)
+    del wgu
     flops = 2.0 * n * d * f * 3
     nbytes = 2 * n * d * 2 + d * 4 + 3 * d * f * 2
     bms, by = bound(nbytes, flops)
     plain = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
     print(
         f"norm_mlp[{tag}] N={n} D={d} F={f} gelu: kernel {ms:.4f} ms (3 readings {ms_spread}), "
-        f"plain {plain}, library none, bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+        f"plain {plain}, F.rms_norm + matmul [Wg|Wu] + gelu * up + matmul Wd + residual "
+        f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
         f"{flops / 1e9:.1f} GFLOP)",
         flush=True,
     )
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms, bound_by=by)
 
 
 def mlp_phase(dev, mlp, ops):
@@ -567,8 +597,8 @@ def mlp_phase(dev, mlp, ops):
     N 65536 (64 x 1024 rows; the plain version is not timed there)."""
     r = norm_mlp_at_shape(dev, mlp, ops, 8192, "serving shape")
     t = norm_mlp_at_shape(dev, mlp, ops, 65536, "train shape", time_plain=False)
-    return dict(r, err=max(r["err"], t["err"]), lib_ms=None, train_ms=t["ms"],
-                train_bound_ms=t["bound_ms"])
+    return dict(r, err=max(r["err"], t["err"]), train_ms=t["ms"],
+                train_bound_ms=t["bound_ms"], train_lib_ms=t["lib_ms"])
 
 
 def flash_bwd_phase(dev, fa, ops, synthetic, rope_cos_sin):
@@ -951,14 +981,16 @@ def compare_plain(model, nb, ops) -> None:
 def split_mlp_phase(dev, mlp, ops, n_ft: int):
     """Kernel #11 against its plain version: gelu at N 8192 (the serving
     batch of a LayerScale model) and at the fine-tune batch's N, silu at a
-    small ragged N; three CUDA-event readings beside the plain time and the
-    bound at both large shapes."""
+    small ragged N; three CUDA-event readings beside the plain time, the
+    library composition's (gated_mlp_library without the norm and the
+    residual) and the bound at both large shapes."""
     d, f = 768, 3072
     gen = torch.Generator(device=dev).manual_seed(6)
     wg, wu = (
         (torch.randn(f, d, generator=gen, device=dev) * 0.02).to(torch.bfloat16) for _ in range(2)
     )
     wd = (torch.randn(d, f, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    wgu, wd_t = torch.cat([wg, wu]).t(), wd.t()
     res, err = {}, 0.0
     for n, act in ((200, "silu"), (8192, "gelu"), (n_ft, "gelu")):
         x = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
@@ -974,18 +1006,20 @@ def split_mlp_phase(dev, mlp, ops, n_ft: int):
         ms_spread = spread()
         with ops.reference_mode():
             plain_ms = cuda_ms(lambda: mlp.mlp(x, wg, wu, wd, act), iters=3)
+        lib_ms = cuda_ms(lambda: gated_mlp_library(x, wgu, wd_t, f), iters=10)
         flops = 2.0 * n * d * f * 3
         nbytes = 2 * n * d * 2 + 3 * d * f * 2
         bms, by = bound(nbytes, flops)
         print(
             f"mlp N={n} D={d} F={f} {act}: kernel {ms:.4f} ms (3 readings {ms_spread}), plain "
-            f"{plain_ms:.4f} ms, library none, bound {bms * 1e3:.2f} us ({by}: "
-            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)",
+            f"{plain_ms:.4f} ms, matmul [Wg|Wu] + gelu * up + matmul Wd {lib_ms:.4f} ms, bound "
+            f"{bms * 1e3:.2f} us ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)",
             flush=True,
         )
-        res[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
-    r = dict(res[8192], err=err, lib_ms=None, finetune_shape_n=n_ft,
+        res[n] = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms, bound_by=by)
+    r = dict(res[8192], err=err, finetune_shape_n=n_ft,
              finetune_shape_ms=res[n_ft]["ms"], finetune_shape_plain_ms=res[n_ft]["plain_ms"],
+             finetune_shape_lib_ms=res[n_ft]["lib_ms"],
              finetune_shape_bound_ms=res[n_ft]["bound_ms"])
     return r
 
@@ -1865,30 +1899,73 @@ def band_at_shape(fa, ops, tag, seg, seg_k, h: int, dh: int, causal: bool = Fals
     return res
 
 
-def norm_qkv_at_shape(dev, mlp, ops, n: int, tag: str, timed: bool = True):
-    """#12 norm_qkv (D 768, q, k, v 768 wide, weights at 0.02) against its
-    plain version on N rows; then its time (three CUDA-event readings)
-    beside the plain version's, the library call's (F.rms_norm with a bf16
-    weight, then one torch.matmul against [wq|wk|wv]) and the bound."""
-    d, w = 768, 768
-    gen = torch.Generator(device=dev).manual_seed(8)
+def qkv_inputs(dev, n: int, d: int, widths, seed: int = 8):
+    """x [n, d] bf16 at unit normal, wn fp32 near 1, weights bf16 at 0.02."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     wn = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
     ws = [(torch.randn(w, d, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
-          for _ in range(3)]
+          for w in widths]
     x = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
-    args = (x, wn, *ws, 1e-6)
+    return x, wn, ws
+
+
+def check_norm_qkv(mlp, ops, tag, args):
+    """#12 against its plain version on args; returns (outputs, largest
+    elementwise error)."""
     got = mlp.norm_qkv(*args)
     torch.cuda.synchronize()
     with ops.reference_mode():
         want = mlp.norm_qkv(*args)
-    err = max(check_mlp("norm_qkv", f"{tag}, N={n}, {name}", g, r)
-              for name, g, r in zip("qkv", got, want))
-    del got, want
-    res = dict(err=err)
-    if not timed:
-        return res
+    err = max(check_mlp("norm_qkv", f"{tag}, {name}", g, r) for name, g, r in zip("qkv", got, want))
+    return got, err
+
+
+def norm_qkv_contract(dev, mlp, ops):
+    """#12 outside the flagship's shape, untimed: GQA widths 768/256/256
+    at N 65,536, a ragged N 65,537 (the last 128-row tile one row deep), D
+    1600 (the widest hidden size; 64-wide tiles) at N 4,096; returns the
+    largest error."""
+    err = 0.0
+    for n, d, widths in ((65536, 768, (768, 256, 256)), (65537, 768, (768,) * 3),
+                         (4096, 1600, (1600,) * 3)):
+        x, wn, ws = qkv_inputs(dev, n, d, widths, seed=n)
+        tag = f"N={n} D={d} widths {'/'.join(map(str, widths))} (tile {mlp.qkv_block_n(widths)})"
+        got, e = check_norm_qkv(mlp, ops, tag, (x, wn, *ws, 1e-6))
+        err = max(err, e)
+        del got, x, ws
+    return err
+
+
+def norm_qkv_at_shape(dev, mlp, ops, n: int, tag: str, contract: bool = False):
+    """#12 norm_qkv (D 768, q, k, v 768 wide, weights at 0.02) against its
+    plain version on N rows, and bit for bit against a second launch; then
+    its time (three CUDA-event readings) beside the plain version's, the
+    library call's (F.rms_norm with a bf16 weight, then one torch.matmul
+    against [wq|wk|wv]) and the bound, and its rrms pre-pass timed alone.
+    With `contract`, norm_qkv_contract too."""
+    d, w = 768, 768
+    x, wn, ws = qkv_inputs(dev, n, d, (w, w, w))
+    args = (x, wn, *ws, 1e-6)
+    got, err = check_norm_qkv(mlp, ops, f"{tag}, N={n}", args)
+    again = mlp.norm_qkv(*args)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"norm_qkv[{tag}] N={n}: a second launch on the same inputs is bit-equal: {same}",
+          flush=True)
+    if not same:
+        fail(f"norm_qkv[{tag}] differs from launch to launch")
+    del got, again
+    if contract:
+        err = max(err, norm_qkv_contract(dev, mlp, ops))
     ms = cuda_ms(lambda: mlp.norm_qkv(*args), iters=10)
     ms_spread = spread()
+    # the host's time to issue one call (the wrapper, the tensor maps, two
+    # launches): when it exceeds the card's, the events above time the host
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        mlp.norm_qkv(*args)
+    host_ms = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize()
     with ops.reference_mode():
         plain_ms = cuda_ms(lambda: mlp.norm_qkv(*args), iters=3)
     wcat, wn16 = torch.cat(ws).t(), wn.to(torch.bfloat16)
@@ -1898,9 +1975,33 @@ def norm_qkv_at_shape(dev, mlp, ops, n: int, tag: str, timed: bool = True):
     nbytes = n * d * 2 + d * 4 + 3 * w * d * 2 + 3 * n * w * 2
     bms, by = bound(nbytes, flops)
     print(f"norm_qkv[{tag}] N={n} D={d} widths 3 x {w}: kernel {ms:.4f} ms (3 readings "
-          f"{ms_spread}), plain {plain_ms:.4f} ms, F.rms_norm + one matmul {lib_ms:.4f} ms, bound "
-          f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)", flush=True)
-    return dict(res, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms, bound_by=by)
+          f"{ms_spread}; {flops / ms / 1e9:.1f} TFLOP/s, {bms / ms:.1%} of the bound; the host "
+          f"issues a call in {host_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, F.rms_norm + one matmul {lib_ms:.4f} ms, "
+          f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)", flush=True)
+    # the rrms pre-pass alone, through its own C entry
+    rr_fn = mlp._build.entry("norm_qkv", "ggt_norm_qkv_rrms", [ctypes.c_void_p] * 2
+                             + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+    rr = torch.empty(n, dtype=torch.float32, device=dev)
+    stream = mlp._build.stream_ptr(dev)
+
+    def prepass():
+        mlp._build.check(rr_fn(mlp._build.ptr(x), mlp._build.ptr(rr), n, d, 1e-6, stream),
+                         "norm_qkv rrms pre-pass")
+
+    prepass()
+    x32 = x.float()
+    rr_rel = ((rr - torch.rsqrt(x32.pow(2).mean(-1) + 1e-6)).abs().max()
+              / torch.rsqrt(x32.pow(2).mean(-1) + 1e-6).abs().max()).item()
+    rr_ms = cuda_ms(prepass, iters=20)
+    rr_bound = (n * d * 2 + n * 4) / PEAK_BYTES * 1e3
+    print(f"norm_qkv rrms pre-pass[{tag}] N={n} D={d}: {rr_ms:.4f} ms (3 readings {spread()}; "
+          f"{rr_ms / ms:.1%} of the kernel's time), bound {rr_bound:.4f} ms (bytes); "
+          f"max|rrms-plain|/max|plain| {rr_rel:.2e} (tol {RRMS_REL})", flush=True)
+    if not rr_rel <= RRMS_REL:
+        fail(f"norm_qkv's rrms pre-pass[{tag}] disagrees with the plain statistics")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms, bound_by=by,
+                tflops=flops / ms / 1e9, bound_share=bms / ms, rrms_ms=rr_ms, host_ms=host_ms)
 
 
 def skip_check(dev, fa, ops, synthetic, rope_cos_sin):
@@ -1969,7 +2070,7 @@ def band_kernel_phase(dev, fa, mlp, ops, synthetic, long_seg):
     res["denoise"] = band_at_shape(fa, ops, "denoise batch, bi-causal", dn, dn, h, dh, bi=16)
     torch.cuda.empty_cache()
     res["qkv_serving"] = norm_qkv_at_shape(dev, mlp, ops, 8192, "serving shape")
-    res["qkv_train"] = norm_qkv_at_shape(dev, mlp, ops, 65536, "train shape")
+    res["qkv_train"] = norm_qkv_at_shape(dev, mlp, ops, 65536, "train shape", contract=True)
     return res
 
 
@@ -2037,9 +2138,9 @@ def band_train_phase(dev, counters, fa, ops, synthetic, nb, steps: int = 4):
     tx = make_optimizer(opt_cfg, 20, 2, schedule=schedule)
     state = init_train_state(model, tx, use_ema=True)
     want = band_want(counters, cfg.num_hidden_layers, train=True)
+    step_fn = make_train_step(tx, opt_cfg, schedule)
     state, metrics, launches, ms, peak = counted_steps(
-        "band + norm-fused training", state, make_train_step(tx, opt_cfg, schedule), batch,
-        counters, want, steps, timed_from=1)
+        "band + norm-fused training", state, step_fn, batch, counters, want, steps, timed_from=1)
     losses = [float(m["loss"]) for m in metrics]
     valid = int((nb["segment_ids"] > 0).sum())
     print(f"band + norm-fused train: losses " + " ".join(f"{x:.4f}" for x in losses)
@@ -2048,9 +2149,75 @@ def band_train_phase(dev, counters, fa, ops, synthetic, nb, steps: int = 4):
           flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"the band + norm-fused training losses are not finite or did not fall: {losses}")
+    alt = alternate_routes(fa, state, step_fn, batch)
     del model, state
     return launches, dict(grad_rel=grad_rel, legacy_rel=rels[worst], step_ms=ms,
-                          tokens_per_s=valid / ms * 1e3, peak_mib=peak)
+                          tokens_per_s=valid / ms * 1e3, peak_mib=peak, **alt)
+
+
+def alternate_routes(fa, state, step_fn, batch, pairs: int = STEP_PAIRS):
+    """The training step under both knobs against the legacy route's on the
+    same model and batch, in pairs that alternate their order (knob first,
+    then legacy first), queued back to back with a CUDA event between two
+    steps; after one untimed step of each. Prints and returns each route's
+    median and the median and range of the paired gaps (knob - legacy)."""
+    routes = {"knob": ("band", "1"), "legacy": ("legacy", "0")}
+    order = [r for i in range(pairs) for r in (("knob", "legacy") if i % 2 == 0
+                                              else ("legacy", "knob"))]
+    for route in routes:
+        with knobs(fa, *routes[route]):
+            state, _ = step_fn(state, batch, seed=0)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(len(order) + 1)]
+    events[0].record()
+    for route, end in zip(order, events[1:]):
+        with knobs(fa, *routes[route]):
+            state, _ = step_fn(state, batch, seed=0)
+        end.record()
+    torch.cuda.synchronize()
+    times = {r: [] for r in routes}
+    for route, a, b in zip(order, events, events[1:]):
+        times[route].append(a.elapsed_time(b))
+    gaps = sorted(k - g for k, g in zip(times["knob"], times["legacy"]))
+    res = dict(alt_knob_ms=float(np.median(times["knob"])),
+               alt_legacy_ms=float(np.median(times["legacy"])),
+               alt_gap_ms=float(np.median(gaps)), alt_gap_min_ms=gaps[0], alt_gap_max_ms=gaps[-1])
+    print(f"band + norm-fused vs legacy train step, {pairs} alternating pairs on the same model and "
+          f"batch: knob {res['alt_knob_ms']:.2f} ms (readings "
+          + " ".join(f"{x:.2f}" for x in times["knob"]) + f"), legacy {res['alt_legacy_ms']:.2f} ms "
+          f"(readings " + " ".join(f"{x:.2f}" for x in times["legacy"]) + f"); paired gap knob - "
+          f"legacy median {res['alt_gap_ms']:.2f} ms, range {gaps[0]:.2f} to {gaps[-1]:.2f}",
+          flush=True)
+    res.update(route_profiles(fa, state, step_fn, batch, routes))
+    return res
+
+
+def route_profiles(fa, state, step_fn, batch, routes, top: int = 14):
+    """One more step of each route under torch.profiler: each route's device
+    time in kernels, and the kernels (by name) whose time differs most
+    between the routes, so that the step gap can be placed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    per = {}
+    for route, kv in routes.items():
+        with knobs(fa, *kv):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                state, _ = step_fn(state, batch, seed=0)
+                torch.cuda.synchronize()
+        per[route] = {}
+        for e in prof.key_averages():
+            if e.device_time_total > 0:
+                per[route][e.key] = per[route].get(e.key, 0.0) + e.device_time_total / 1e3
+    a, b = routes
+    totals = {r: sum(v.values()) for r, v in per.items()}
+    print(f"{a} and {b} steps by kernel (torch.profiler, one step each): device time in kernels "
+          + ", ".join(f"{r} {t:.2f} ms" for r, t in totals.items())
+          + f"; the {top} largest differences ({a} - {b}, ms):", flush=True)
+    diff = {k: per[a].get(k, 0.0) - per[b].get(k, 0.0) for k in set(per[a]) | set(per[b])}
+    for k in sorted(diff, key=lambda k: -abs(diff[k]))[:top]:
+        print(f"  {diff[k]:+8.3f}  ({a} {per[a].get(k, 0.0):7.3f}, {b} {per[b].get(k, 0.0):7.3f})"
+              f"  {k[:100]}", flush=True)
+    return {f"prof_{r}_kernel_ms": t for r, t in totals.items()}
 
 
 def band_long_phase(dev, counters, rows4, run_a_losses, ops):
@@ -2149,8 +2316,12 @@ def main() -> None:
     print(f"build: {sorted(logs)} with nvcc for sm_90a in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
+    # #12 keeps no spill and lets ptxas pipeline its wgmma (no C7512/C7513)
+    qkv_log = logs.get("norm_qkv", "")
+    if re.search(r"[1-9]\d* bytes spill|C751[0-9]", qkv_log):
+        fail("ptxas spilled in norm_qkv.cu or serialised its wgmma (see the build lines above)")
 
     # ---- the long-context loader alone, before this process starts a pool
     loaders = loader_start_methods()
@@ -2267,7 +2438,9 @@ def main() -> None:
         entry("norm_mlp", "norm_mlp.cu", "mlp.py:203",
               dict(mres, err=max(mres["err"], dnm["err"], psm["err"])), MLP_TOL,
               train_shape_ms=mres["train_ms"], train_shape_bound_ms=mres["train_bound_ms"],
-              **at("denoise_shape", dnm), **at("pos_shape", psm)),
+              train_shape_library_ms=mres["train_lib_ms"],
+              **at("denoise_shape", dnm, ("ms", "plain_ms", "lib_ms", "bound_ms")),
+              **at("pos_shape", psm, ("ms", "plain_ms", "lib_ms", "bound_ms"))),
         entry("flash_bwd", "flash_bwd.cu", "flash_attention.py:706",
               dict(bb, err=max([r["err"] for r in bres.values()] + [ftf["err"], psf["err"]])),
               FLASH_BWD_TOL, causal_ms=bres["causal"]["ms"],
@@ -2280,7 +2453,8 @@ def main() -> None:
               **at("denoise_shape", dnr, ("ms", "bound_ms", "plain_ms", "lib_ms"))),
         entry("mlp", "mlp.cu", "mlp.py:82", sres, MLP_TOL,
               **{k: sres[k] for k in ("finetune_shape_n", "finetune_shape_ms",
-                                      "finetune_shape_plain_ms", "finetune_shape_bound_ms",
+                                      "finetune_shape_plain_ms", "finetune_shape_lib_ms",
+                                      "finetune_shape_bound_ms",
                                       "step_ms", "loader_graphs_s", "peak_mib")}),
     ]
     # the split pair: its main entry at the denoise batch's shape, B 256 x P 88
@@ -2321,13 +2495,18 @@ def main() -> None:
             legacy_kernel_ms=bk["train"][kind]["legacy_ms"],
             **{f"{t}_{k}": bk[t][kind][k] for t in ("serving", "long")
                for k in ("ms", "plain_ms", "lib_ms", "legacy_ms", "bound_ms")},
-            band_train_step_ms=btr["step_ms"], band_train_grad_rel=btr["grad_rel"],
+            band_train_step_ms=btr["step_ms"], band_train_alt_step_ms=btr["alt_knob_ms"],
+            legacy_train_alt_step_ms=btr["alt_legacy_ms"], band_train_alt_gap_ms=btr["alt_gap_ms"],
+            band_train_grad_rel=btr["grad_rel"],
             band_train_legacy_rel=btr["legacy_rel"], band_long_loss_diff=blr["loss_diff"],
             band_long_grad_ratio=blr["grad"]["ratio"], **extra))
     qs_, qt_ = bk["qkv_serving"], bk["qkv_train"]
     kernels.append(entry(
         "norm_qkv", "norm_qkv.cu", "mlp.py:315", dict(qt_, err=max(qs_["err"], qt_["err"])),
-        MLP_TOL, **at("serving_shape", qs_, ("ms", "plain_ms", "lib_ms", "bound_ms"))))
+        MLP_TOL, tflops=qt_["tflops"], bound_share=qt_["bound_share"], rrms_ms=qt_["rrms_ms"],
+        host_ms=qt_["host_ms"],
+        **at("serving_shape", qs_, ("ms", "plain_ms", "lib_ms", "bound_ms", "tflops",
+                                    "bound_share", "rrms_ms", "host_ms"))))
     print(f"whole-model gradients, kernels vs plain: worst relative error {grad_rel:.3e} "
           f"(training), {dn['grad_rel']:.3e} (denoise), {posr['grad_rel']:.3e} (position "
           f"pretraining), {btr['grad_rel']:.3e} (band + norm-fused training); against an fp32 "

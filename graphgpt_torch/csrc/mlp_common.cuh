@@ -1,6 +1,6 @@
-// The two stages of the gated MLP, shared by norm_mlp.cu and mlp.cu, and the
-// tile pieces (the RMS statistics of a row tile, the staged tiles, the
-// fragment types) that norm_qkv.cu takes as well.
+// The two stages of the gated MLP, shared by norm_mlp.cu and mlp.cu, and
+// their tile pieces (the RMS statistics of a row tile, the staged tiles, the
+// fragment types).
 //
 //   stage 1 (gate_up_kernel): g = bf16(bf16(act(bf16(xg))) * bf16(xu)),
 //     xg = a @ Wg^T, xu = a @ Wu^T, where a = x, or a = bf16(rms(x) * wn)

@@ -2,167 +2,576 @@
 //
 // Replaces graphgpt_tpu/ops/mlp.py:315 _norm_qkv_kernel (launched by
 // _norm_qkv_call :328 from fused_norm_qkv :363 under GGT_ATTN_NORM_FUSE=1):
-//   hpre = bf16(x * rrms(x) * wn),  q = bf16(hpre @ Wq^T),  k = bf16(hpre @ Wk^T),
+//   hpre = bf16((x * rrms(x)) * wn),  q = bf16(hpre @ Wq^T),  k = bf16(hpre @ Wk^T),
 //   v = bf16(hpre @ Wv^T)
 // with the TPU kernel's rounding points: RMS statistics in fp32, hpre
 // rounded to bf16, each product summed in fp32 and rounded once. x bf16
-// [N, D], wn fp32 [D], the weights bf16 in nn.Linear layout ([out, in],
-// row-major) with any widths that are multiples of 64 (GQA's k and v are
-// narrower than q); q, k, v bf16 [N, width].
+// [N, D], wn fp32 [D], the weights bf16 in nn.Linear layout ([width, D],
+// K-major) with D and every width a multiple of 64 (GQA's k and v are
+// narrower than q); q, k, v bf16 [N, width]. N is any count (0 launches
+// nothing).
 //
 // What bounds it on the H100: operations. At N 65,536, D 768 and widths
 // 3 x 768 the products are 2 x 65,536 x 768 x 2,304 = 231.9 GFLOP, 0.2345 ms
 // at 989 TFLOP/s, against 406.5 MB of x, weights and outputs (0.121 ms at
 // 3.35 TB/s).
 //
-// Design: one CTA of 4 warps per (64-row tile, group of 12 column tiles of
-// 64). It computes its rows' RMS statistics (mlp_common.cuh's tile_rrms, as
-// norm_mlp's first stage does), normalises the whole [64, D] row tile into
-// shared memory in bf16 once, then for each of its column tiles streams the
-// weight rows through shared memory in chunks of 64 and sums the product in
-// WMMA bf16 fragments (fp32 accumulation, each warp 32 x 32), rounding to
-// bf16 in the epilogue. hpre never reaches device memory. The column groups
-// of one row tile are neighbours in the launch order, so x is read from
-// device memory about once and from L2 after. Single-buffered, 16-byte
-// loads: wgmma, TMA and a pipelined weight ring are later work.
+// Design. A pre-pass (a warp a row, 16-byte loads) writes rrms [N] in fp32
+// to scratch: hpre is rounded to bf16 before the product, so the norm
+// cannot become a row scale in the epilogue and every row's rrms is needed
+// before its first product. The main kernel is persistent, one CTA an SM
+// walking output tiles of 128 rows x BN columns (BN 256, 128 or 64: the
+// largest that divides the three widths, so no tile straddles q, k and v),
+// the column index fastest, so that the CTAs in flight share a row tile of
+// x and all of W in L2. A CTA is three warpgroups:
+//  - one producer thread keeps a ring of stages full with TMA: a stage is
+//    the x tile [128, 64] and the W tile [BN, 64] (K-major, as nn.Linear
+//    holds it), both 128-byte swizzled; full and empty mbarriers; rows past
+//    N arrive as zeros;
+//  - two consumer warpgroups of 64 rows each take the landed x stage into
+//    registers (ldmatrix, the swizzle's XOR in the address), apply the norm
+//    there ((x * rrms[row]) * wn[k] in fp32, rounded to bf16) and issue
+//    wgmma m64nBNk16 with that A from registers and B from the W stage
+//    through a shared-memory descriptor: each k-step's norm runs while the
+//    stage's earlier wgmma do (in registers they do not read); one commit
+//    group a stage, waited for before the next stage's x is loaded (a
+//    register of a wgmma in flight written by another instruction makes
+//    ptxas serialise every wgmma); each warp then hands the stage back;
+//  - the epilogue rounds each sum to bf16 once into a swizzled staging tile
+//    that one thread stores by TMA (rows past N are not written) while the
+//    warpgroup goes on to its next tile.
+// setmaxnreg gives the consumers 232 registers (128 fp32 sums a thread at
+// BN 256) and the producer 40. The consumers spin on their barriers with no
+// clock: a timeout there left ptxas short of registers in the k-loop (a
+// spill, and C7512: every wgmma serialised). The producer keeps the timeout
+// and waits last for the whole ring, so a hang on the ring traps the
+// launch. No split-K and no atomics: two launches on the same inputs give
+// the same bits. Measured and not kept (PERF.md §6):
+// clusters of two CTAs multicasting W (L2 reads a stage 48 -> 32 KB: no
+// gain), the norm applied in shared memory with A read from there (by the
+// consumers or by the producer warpgroup's spare warps: slower), A
+// double-buffered across stages (serialised by ptxas).
 
-#include "mlp_common.cuh"
+#include <cuda.h>  // CUtensorMap and its enums; the driver is reached through the runtime
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 
-namespace gated_mlp {
+namespace norm_qkv {
 namespace {
 
-constexpr int KC = 64;        // depth of a staged weight chunk
-constexpr int LDW = KC + 8;   // its bf16 row stride in shared memory
-constexpr int TILES = 12;     // column tiles a CTA
-constexpr int MAX_D = 1600;   // the widest hidden size of config._MODEL_SIZES
+typedef __nv_bfloat16 bf16;
 
+constexpr int BM = 128;             // rows of an output tile: two consumer warpgroups of 64
+constexpr int KC = 64;              // depth of a stage: one 128-byte swizzled row of bf16
+constexpr int THREADS = 384;        // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int SMEM_MAX = 232448;    // shared memory a block can have on the H100
+constexpr int MAX_D = 4096;         // wn's row in shared memory beside the stages
+constexpr int RRMS_ROWS = 8;        // rows (warps) a block of the pre-pass
+
+// Shared memory: 1024 bytes of slack to align what follows for the 128-byte
+// swizzle; the ring of stages; the output tile staged for its TMA store
+// ([128, BN] bf16 as BN / 64 swizzled boxes of [64, 64] a warpgroup); wn;
+// the barriers.
+template <int BN>
+struct Tile {
+  static constexpr int X_BYTES = BM * KC * 2;  // 16 KB
+  static constexpr int W_BYTES = BN * KC * 2;
+  static constexpr int STAGE = X_BYTES + W_BYTES;
+  static constexpr int OUT_BYTES = BM * BN * 2;
+  static constexpr int FIT = (SMEM_MAX - 1024 - OUT_BYTES - MAX_D * 4 - 256) / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;  // 3, 5, 8 for BN 256, 128, 64
+  static constexpr int NACC = BN / 2;  // fp32 accumulators a thread: [64, BN] over 128 threads
+};
+
+template <int BN>
 inline size_t smem_bytes(int D) {
-  return (size_t)BM * (D + 8) * sizeof(bf16) + (size_t)BN * LDW * sizeof(bf16) +
-         4 * 256 * sizeof(float) + BM * sizeof(float);
+  return 1024 + (size_t)Tile<BN>::STAGES * Tile<BN>::STAGE + Tile<BN>::OUT_BYTES +
+         (size_t)D * sizeof(float) + 2 * Tile<BN>::STAGES * sizeof(uint64_t);
 }
 
-__global__ void __launch_bounds__(THREADS)
-norm_qkv_kernel(const bf16* __restrict__ x, const float* __restrict__ wn,
-                const bf16* __restrict__ wq, const bf16* __restrict__ wk,
-                const bf16* __restrict__ wv, bf16* __restrict__ q, bf16* __restrict__ k,
-                bf16* __restrict__ v, int N, int D, int Fq, int Fk, int Fv, float eps) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ldh = D + 8;
-  bf16* hn = reinterpret_cast<bf16*>(smem_raw);  // [64, D] normalised rows
-  bf16* sw = hn + BM * ldh;                       // [64, KC] weight chunk
-  float* scratch = reinterpret_cast<float*>(sw + BN * LDW);  // [4][256] epilogue
-  float* rrms = scratch + 4 * 256;
-  const int m0 = blockIdx.y * BM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn_ = warp & 1;
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  tile_rrms(x, rrms, m0, N, D, eps, warp, lane);
-  __syncthreads();
-  const int chunks = D / 8;  // 16-byte chunks a row
-  for (int i = tid; i < BM * chunks; i += THREADS) {
-    const int row = i / chunks, c = (i - row * chunks) * 8;
-    const int gr = m0 + row;
-    uint4 outv = make_uint4(0, 0, 0, 0);
-    if (gr < N) {
-      uint4 val = *reinterpret_cast<const uint4*>(x + (long long)gr * D + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-      bf16* y = reinterpret_cast<bf16*>(&outv);
-      const float rr = rrms[row];
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+__device__ __forceinline__ uint64_t globaltimer() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait for the phase of `bar` with this parity to complete (the consumers'
+// wait: a clock read in their k-loop costs the registers that let ptxas
+// keep a stage's four wgmma in flight).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try(bar, parity)) {
+  }
+}
+
+// The producer's wait: one of more than 4 s can only be a fault (a wrong
+// parity, a lost TMA), so trap and the launch fails instead of holding the
+// card. The producer waits last for every stage to be handed back, so a
+// consumer that hangs traps the kernel through it.
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const uint64_t t0 = globaltimer();
+  while (!mbar_try(bar, parity))
+    if (globaltimer() - t0 > 4000000000ull) __trap();
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// TMA: the box of `map` at (c0 innermost, c1) into shared memory at dst,
+// completing `bytes` of the transaction on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// TMA: the [64, 64] box of shared memory at src to `map` at (c0, c1); rows
+// past the tensor's end are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Barrier `id` (1, 2: one a consumer warpgroup) over `count` threads.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The descriptor of a K-major operand tile in shared memory, 128-byte
+// swizzled as TMA lays it: rows of 128 bytes, 8-row groups 1024 bytes apart
+// (SBO), LBO unused by this layout (1), layout type 1 (128B swizzle). A
+// k-step of 16 advances the start address by 32 bytes.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+// Keep the compiler from moving a read of a wgmma sum above the wait.
+__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// d[64, BN] (+)= a[64, 16] @ b[16, BN] for the warpgroup: a from registers
+// (4 x bf16x2 a thread, mma.m16n8k16's A layout a warp), b through its
+// descriptor; scale_d 0 overwrites d.
+template <int BN>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc, int scale_d);
+
+#define D8(i)                                                                              \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a, uint64_t desc,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56),
+        D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t desc,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t desc,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+#undef D8
+
+// bf16x2 (low: the lower column) -> ((x * rr) * w) in fp32, rounded to bf16x2.
+__device__ __forceinline__ uint32_t norm2(uint32_t v, float rr, float2 w) {
+  const float lo = __uint_as_float(v << 16) * rr * w.x;
+  const float hi = __uint_as_float(v & 0xFFFF0000u) * rr * w.y;
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// This warp's 16 rows x 64 of the x stage at xs, as four k-steps of
+// mma.m16n8k16's A layout. ldmatrix: lane l gives the address of row
+// (l & 7) + 8 ((l >> 3) & 1) of the warp's 16, 16-byte half l >> 4 of the
+// k-step; aoff holds that row's offset with the swizzle's XOR (l & 7) and
+// the half in bits 4-6, so k-step kk is aoff ^ 32 kk. Registers 0 and 2
+// hold row g, 1 and 3 row g + 8; 0 and 1 columns 2 tq, +1 of the k-step,
+// 2 and 3 those + 8.
+__device__ __forceinline__ void load_x(uint32_t (&a)[4][4], uint32_t xs, uint32_t aoff) {
 #pragma unroll
-      for (int t = 0; t < 8; ++t) y[t] = __float2bfloat16(__bfloat162float(e[t]) * rr * wn[c + t]);
+  for (int kk = 0; kk < 4; ++kk) ldmatrix_x4(a[kk], xs + (aoff ^ (32 * kk)));
+}
+
+// The norm on k-step kk's registers: (x * rrms[row]) * wn[k] in fp32,
+// rounded to bf16; rr0 is row g's rrms, rr1 row g + 8's; wk is wn at the
+// stage's first column + 2 tq.
+__device__ __forceinline__ void norm_a(uint32_t (&a)[4], int kk, const float* wk, float rr0,
+                                       float rr1) {
+  const float2 w0 = *reinterpret_cast<const float2*>(wk + 16 * kk);
+  const float2 w8 = *reinterpret_cast<const float2*>(wk + 16 * kk + 8);
+  a[0] = norm2(a[0], rr0, w0);
+  a[1] = norm2(a[1], rr1, w0);
+  a[2] = norm2(a[2], rr0, w8);
+  a[3] = norm2(a[3], rr1, w8);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+qkv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tq,
+           const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+           const __grid_constant__ CUtensorMap oq, const __grid_constant__ CUtensorMap ok,
+           const __grid_constant__ CUtensorMap ov, const float* __restrict__ wn,
+           const float* __restrict__ rrms, int N, int D, int Fq, int Fk, int Fv) {
+  using T = Tile<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
+  uint8_t* out_s = ring + T::STAGES * T::STAGE;
+  float* wn_s = reinterpret_cast<float*>(out_s + T::OUT_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(wn_s + D);  // full[STAGES], empty[STAGES]
+  const uint32_t sm_ring = saddr(ring), sm_bars = saddr(bars);
+  auto ring_full = [=](int s) { return sm_bars + 8 * s; };                // the stage landed
+  auto ring_empty = [=](int s) { return sm_bars + 8 * (T::STAGES + s); };  // the stage is free
+  const int tid = threadIdx.x;
+  for (int i = tid; i < D; i += THREADS) wn_s[i] = wn[i];
+  if (tid == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(ring_full(s), 1);   // the producer's arrive and the bytes
+      mbar_init(ring_empty(s), 8);  // every consumer warp
     }
-    *reinterpret_cast<uint4*>(hn + row * ldh + c) = outv;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int nq = Fq / BN, nk = Fk / BN, nv = Fv / BN;
-  const int ct_end = min(nq + nk + nv, (int)(blockIdx.x + 1) * TILES);
-  const int er = lane >> 1, ec = (lane & 1) * 8;
-  for (int ct = blockIdx.x * TILES; ct < ct_end; ++ct) {
-    const bf16* w;
-    bf16* o;
-    int F, n0;
-    if (ct < nq) {
-      w = wq, o = q, F = Fq, n0 = ct * BN;
-    } else if (ct < nq + nk) {
-      w = wk, o = k, F = Fk, n0 = (ct - nq) * BN;
-    } else {
-      w = wv, o = v, F = Fv, n0 = (ct - nq - nk) * BN;
-    }
-    Acc acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-    for (int k0 = 0; k0 < D; k0 += KC) {
-#pragma unroll
-      for (int it = 0; it < (BN * KC / 8) / THREADS; ++it) {
-        const int i = tid + it * THREADS;
-        const int row = i >> 3, c = (i & 7) * 8;
-        *reinterpret_cast<uint4*>(sw + row * LDW + c) =
-            *reinterpret_cast<const uint4*>(w + (long long)(n0 + row) * D + k0 + c);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KC / 16; ++kk) {
-        FragA a[2];
-        FragB bw[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], hn + (wm * 32 + i * 16) * ldh + k0 + kk * 16, ldh);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(bw[j], sw + (wn_ * 32 + j * 16) * LDW + kk * 16, LDW);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], bw[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-    // epilogue: each 16 x 16 fragment through the warp's scratch, 8 columns a lane
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float* sc = scratch + warp * 256;
-        wmma::store_matrix_sync(sc, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int gr = m0 + wm * 32 + i * 16 + er;
-        const int gc = n0 + wn_ * 32 + j * 16 + ec;
-        if (gr < N) {
-          uint4 outv;
-          bf16* y = reinterpret_cast<bf16*>(&outv);
-#pragma unroll
-          for (int t = 0; t < 8; ++t) y[t] = __float2bfloat16(sc[er * 16 + ec + t]);
-          *reinterpret_cast<uint4*>(o + (long long)gr * F + gc) = outv;
+  const int nq = Fq / BN, nk = Fk / BN;
+  const int cts = (Fq + Fk + Fv) / BN;
+  const int tiles = ((N + BM - 1) / BM) * cts;
+  const int kt = D / KC;
+  if (tid >= 256) {
+    // producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      auto next = [&] {
+        if (++stage == T::STAGES) {
+          stage = 0;
+          phase ^= 1;
         }
-        __syncwarp();
+      };
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int rt = t / cts, ct = t - rt * cts;
+        const CUtensorMap* tw = ct < nq ? &tq : ct < nq + nk ? &tk : &tv;
+        const int n0 = (ct < nq ? ct : ct < nq + nk ? ct - nq : ct - nq - nk) * BN;
+        for (int kc = 0; kc < kt; ++kc) {
+          mbar_wait_or_trap(ring_empty(stage), phase ^ 1);
+          const uint32_t bar = ring_full(stage);
+          mbar_expect_tx(bar, T::STAGE);
+          const uint32_t dst = sm_ring + stage * T::STAGE;
+          tma_load(dst, &tx, bar, kc * KC, rt * BM);
+          tma_load(dst + T::X_BYTES, tw, bar, kc * KC, n0);
+          next();
+        }
       }
+      // every stage handed back: the consumers are past their last product
+      for (int s = 0; s < T::STAGES; ++s, next()) mbar_wait_or_trap(ring_empty(stage), phase ^ 1);
+    }
+  } else {
+    // consumer warpgroups: rows [64 wg, 64 wg + 64) of each tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = tid & 31, warp = tid >> 5;  // warp 0-7: 16 rows each
+    const int g = lane >> 2, tq4 = lane & 3;
+    const uint32_t aoff = (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * 128 +
+                          (((lane >> 4) ^ (lane & 7)) << 4);
+    float acc[T::NACC];
+#pragma unroll
+    for (int i = 0; i < T::NACC; ++i) acc[i] = 0.f;
+    uint32_t a[4][4];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int rt = t / cts, ct = t - rt * cts;
+      const int row0 = rt * BM + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+      const float rr0 = row0 < N ? rrms[row0] : 0.f;
+      const float rr1 = row0 + 8 < N ? rrms[row0 + 8] : 0.f;
+      for (int kc = 0; kc < kt; ++kc) {
+        mbar_wait(ring_full(stage), phase);
+        const int cur = stage;
+        const uint32_t xs = sm_ring + cur * T::STAGE;
+        const float* wk = wn_s + kc * KC + 2 * tq4;
+        const uint64_t desc = desc_sw128(xs + T::X_BYTES);
+        // the stage's x into registers, then each k-step's norm and its wgmma:
+        // k-step kk's registers are written while the wgmma of the steps
+        // before it run, which read only their own
+        load_x(a, xs, aoff);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          norm_a(a[kk], kk, wk, rr0, rr1);
+          wgmma_fence();
+          wgmma_rs<BN>(acc, a[kk], desc + 2 * kk, kc + kk > 0);
+        }
+        wgmma_commit();
+        if (++stage == T::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+        wgmma_wait<0>();
+        // every warp hands the stage back once its products have retired
+        if (lane == 0) mbar_arrive(ring_empty(cur));
+      }
+#pragma unroll
+      for (int i = 0; i < T::NACC; ++i) pin(acc[i]);
+      // epilogue: round to bf16 into this warpgroup's staging boxes (fragment j
+      // holds columns 8j + 2 tq4, +1 of rows g and g + 8 of the warp's 16: box
+      // j / 8 of [64, 64], its 16-byte chunk j % 8 at chunk (j % 8) ^ g of the
+      // row, as the 128-byte swizzle puts it), then one thread stores the
+      // boxes by TMA and the warpgroup goes on. The boxes are written again
+      // only once the last tile's stores have read them.
+      const int wg = warp >> 2;
+      const uint32_t box0 = saddr(out_s) + wg * (BN / 64) * 8192;
+      if ((tid & 127) == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      bar_sync(1 + wg, 128);
+      // row g's address with its chunk bits holding g; row g + 8 is 1024 on
+      // (the same swizzle). XOR-ing j % 8 into bits 4-6 keeps the invariant
+      // part one register, not one per fragment.
+      const uint32_t rowg = (box0 + ((warp & 3) * 16 + g) * 128 + tq4 * 4) ^ (g << 4);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const uint32_t at = (rowg ^ ((j & 7) << 4)) + (j / 8) * 8192;
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at),
+                     "r"(*reinterpret_cast<const uint32_t*>(&lo)));
+        asm volatile("st.shared.b32 [%0+1024], %1;\n" ::"r"(at),
+                     "r"(*reinterpret_cast<const uint32_t*>(&hi)));
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bar_sync(1 + wg, 128);
+      if ((tid & 127) == 0 && rt * BM + wg * 64 < N) {
+        const CUtensorMap* om = ct < nq ? &oq : ct < nq + nk ? &ok : &ov;
+        const int n0 = (ct < nq ? ct : ct < nq + nk ? ct - nq : ct - nq - nk) * BN;
+#pragma unroll
+        for (int b = 0; b < BN / 64; ++b)
+          tma_store(om, box0 + b * 8192, n0 + 64 * b, rt * BM + wg * 64);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    }
+    if ((tid & 127) == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
+}
+
+// rrms[r] = 1 / sqrt(mean(x[r]^2) + eps) in fp32, a warp a row, 16-byte loads.
+__global__ void __launch_bounds__(32 * RRMS_ROWS)
+rrms_kernel(const bf16* __restrict__ x, float* __restrict__ rrms, int N, int D, float eps) {
+  const int row = blockIdx.x * RRMS_ROWS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= N) return;
+  const bf16* xr = x + (long long)row * D;
+  float ss = 0.f;
+  for (int c = lane * 8; c < D; c += 256) {
+    const uint4 val = *reinterpret_cast<const uint4*>(xr + c);
+    const bf16* e = reinterpret_cast<const bf16*>(&val);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const float f = __bfloat162float(e[t]);
+      ss += f * f;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  if (lane == 0) rrms[row] = 1.f / sqrtf(ss / (float)D + eps);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Error codes of the C entries beside CUDA's own (all below 1000).
+constexpr int ERR_NO_ENCODE = 1000;   // cuTensorMapEncodeTiled not found in the driver
+constexpr int ERR_ENCODE = 1001;      // a tensor map was refused
+constexpr int ERR_BN = 1002;          // a tile width other than 64, 128, 256
+constexpr int ERR_DEVICE = 1003;      // a device index past MAX_DEVICES
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A row-major bf16 [rows, cols] matrix in boxes of [box_rows, 64], 128-byte
+// swizzled; rows past the end read as zeros and are not written.
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int rows, int cols,
+            int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)KC, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// The SMs of the current device, read once a device.
+int sm_count(int dev) {
+  static int n[MAX_DEVICES] = {};
+  if (!n[dev]) cudaDeviceGetAttribute(&n[dev], cudaDevAttrMultiProcessorCount, dev);
+  return n[dev];
+}
+
+int launch_rrms(const void* x, void* rrms, int N, int D, float eps, cudaStream_t stream) {
+  rrms_kernel<<<(N + RRMS_ROWS - 1) / RRMS_ROWS, 32 * RRMS_ROWS, 0, stream>>>(
+      (const bf16*)x, (float*)rrms, N, D, eps);
+  return (int)cudaGetLastError();
+}
+
+template <int BN>
+int launch(const void* x, const void* wn, const void* wq, const void* wk, const void* wv,
+           void* q, void* k, void* v, const void* rrms, int N, int D, int Fq, int Fk, int Fv,
+           cudaStream_t stream) {
+  // the shared-memory limit is a property of the kernel on each device
+  static bool configured[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return ERR_DEVICE;
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(qkv_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_bytes<BN>(MAX_D));
+    if (err != cudaSuccess) return (int)err;
+    configured[dev] = true;
+  }
+  const EncodeTiled fn = encode_fn();
+  if (!fn) return ERR_NO_ENCODE;
+  CUtensorMap mx, mq, mk, mv, oq, ok, ov;
+  if (!encode(fn, &mx, x, N, D, BM) || !encode(fn, &mq, wq, Fq, D, BN) ||
+      !encode(fn, &mk, wk, Fk, D, BN) || !encode(fn, &mv, wv, Fv, D, BN) ||
+      !encode(fn, &oq, q, N, Fq, 64) || !encode(fn, &ok, k, N, Fk, 64) ||
+      !encode(fn, &ov, v, N, Fv, 64))
+    return ERR_ENCODE;
+  const int tiles = ((N + BM - 1) / BM) * ((Fq + Fk + Fv) / BN);
+  const int grid = tiles < sm_count(dev) ? tiles : sm_count(dev);
+  qkv_kernel<BN><<<grid, THREADS, smem_bytes<BN>(D), stream>>>(
+      mx, mq, mk, mv, oq, ok, ov, (const float*)wn, (const float*)rrms, N, D, Fq, Fk, Fv);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
-}  // namespace gated_mlp
+}  // namespace norm_qkv
 
-// C entry for ctypes: one launch on `stream`; returns the first CUDA error
-// (0 when the launch was accepted). D and the widths are multiples of 64,
-// D at most 1600.
+// C entries for ctypes; each returns the first CUDA error (0 when the
+// launches were accepted), or one of the codes above 999.
+//
+// ggt_norm_qkv: the rrms pre-pass into `rrms` (fp32 [N] scratch) and the
+// main kernel, on `stream`; nothing for N 0. D a multiple of 64, at most
+// 4096; the widths multiples of bn (256, 128 or 64); x and the weights
+// 16-byte aligned.
 extern "C" int ggt_norm_qkv(const void* x, const void* wn, const void* wq, const void* wk,
-                            const void* wv, void* q, void* k, void* v, int N, int D, int Fq,
-                            int Fk, int Fv, float eps, void* stream) {
-  using namespace gated_mlp;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        norm_qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes(MAX_D));
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
+                            const void* wv, void* q, void* k, void* v, void* rrms, int N, int D,
+                            int Fq, int Fk, int Fv, int bn, float eps, void* stream) {
+  using namespace norm_qkv;
+  if (N == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int err = launch_rrms(x, rrms, N, D, eps, s);
+  if (err) return err;
+  switch (bn) {
+    case 256: return launch<256>(x, wn, wq, wk, wv, q, k, v, rrms, N, D, Fq, Fk, Fv, s);
+    case 128: return launch<128>(x, wn, wq, wk, wv, q, k, v, rrms, N, D, Fq, Fk, Fv, s);
+    case 64: return launch<64>(x, wn, wq, wk, wv, q, k, v, rrms, N, D, Fq, Fk, Fv, s);
+    default: return ERR_BN;
   }
-  const int tiles = (Fq + Fk + Fv) / BN;
-  dim3 grid((tiles + TILES - 1) / TILES, (N + BM - 1) / BM);
-  norm_qkv_kernel<<<grid, THREADS, smem_bytes(D), (cudaStream_t)stream>>>(
-      (const bf16*)x, (const float*)wn, (const bf16*)wq, (const bf16*)wk, (const bf16*)wv,
-      (bf16*)q, (bf16*)k, (bf16*)v, N, D, Fq, Fk, Fv, eps);
-  return (int)cudaGetLastError();
+}
+
+// ggt_norm_qkv_rrms: the pre-pass alone, for timing it on its own.
+extern "C" int ggt_norm_qkv_rrms(const void* x, void* rrms, int N, int D, float eps,
+                                 void* stream) {
+  return norm_qkv::launch_rrms(x, rrms, N, D, eps, (cudaStream_t)stream);
 }

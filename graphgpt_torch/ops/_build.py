@@ -53,7 +53,8 @@ def _target(name: str) -> Path:
 def build_all(names: Iterable[str] = ()) -> Dict[str, str]:
     """Compile the named sources (default: all of csrc/) in parallel, one
     nvcc each; returns each one's compiler log (ptxas register and spill
-    report). Sources already built with the same hash are not rebuilt."""
+    report), kept beside the library. Sources already built with the same
+    hash are not rebuilt."""
     names = list(names) or sorted(p.stem for p in CSRC.glob("*.cu"))
     todo = {n: _target(n) for n in names if n not in _libs and not _target(n).exists()}
     if todo:
@@ -73,10 +74,17 @@ def build_all(names: Iterable[str] = ()) -> Dict[str, str]:
             if proc.returncode != 0:
                 failed.append(f"{n}.cu:\n{log}")
             else:
+                out.with_suffix(".log").write_text(log)
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("graphgpt_torch: nvcc failed\n" + "\n".join(failed))
-    return {n: _logs.get(n, "(already built)") for n in names}
+    return {n: _logs.get(n) or _saved_log(n) for n in names}
+
+
+def _saved_log(name: str) -> str:
+    """The compiler log kept beside an earlier build of csrc/<name>.cu."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else "(already built)"
 
 
 def lib(name: str) -> ctypes.CDLL:
@@ -98,8 +106,11 @@ def entry(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
 
 
 def check(err: int, what: str) -> None:
+    """Raise when a C entry returned other than 0: a CUDA error, or (1000
+    and above) a code of the entry's own, named in its source."""
     if err != 0:
-        raise RuntimeError(f"graphgpt_torch: {what} launch failed with CUDA error {err}")
+        kind = "CUDA error" if err < 1000 else "its entry's error"
+        raise RuntimeError(f"graphgpt_torch: {what} launch failed with {kind} {err}")
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -28,9 +28,10 @@ _MLP_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _ARGTYPES = (
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
-# x, wn, wq, wk, wv, q, k, v; N, D, Fq, Fk, Fv; eps; stream
-_QKV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-_QKV_MAX_D = 1600  # the widest hidden size of config._MODEL_SIZES (the kernel's shared memory)
+# x, wn, wq, wk, wv, q, k, v, rrms; N, D, Fq, Fk, Fv, bn; eps; stream
+_QKV_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+_QKV_MAX_D = 4096  # wn's row sits in the kernel's shared memory beside its stages
+_QKV_BLOCK_NS = (256, 128, 64)  # the kernel's output tile widths
 # x, g, w, dx, dw, partial; N, D; eps; blocks; stream
 _RMS_ARGTYPES = (
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -298,11 +299,19 @@ def norm_qkv_ref(x, wn, wq, wk, wv, eps: float):
     return tuple(F.linear(hpre, w.float()).to(dt) for w in (wq, wk, wv))
 
 
+def qkv_block_n(widths) -> int:
+    """The norm_qkv kernel's output tile width for these q, k, v widths: the
+    largest of 256, 128 and 64 that divides all three, so that no tile
+    straddles two outputs. 0 when none does."""
+    return next((bn for bn in _QKV_BLOCK_NS if all(w % bn == 0 for w in widths)), 0)
+
+
 def norm_qkv(x, wn, wq, wk, wv, eps: float):
     """(q, k, v) = rms(x) * wn @ (wq|wk|wv)^T for x [N, D] in bf16, wn fp32
     and bf16 weights [width, D] (widths multiples of 64, so GQA's narrower k
-    and v too): the CUDA kernel for a CUDA tensor, the plain version for a
-    CPU tensor (or inside ops.reference_mode())."""
+    and v too): the CUDA kernel (the rrms pre-pass and the main kernel,
+    counted as one call) for a CUDA tensor, the plain version for a CPU
+    tensor (or inside ops.reference_mode())."""
     if not use_kernel(x, wn, wq, wk, wv):
         return norm_qkv_ref(x, wn, wq, wk, wv, eps)
     n, d = x.shape
@@ -311,22 +320,26 @@ def norm_qkv(x, wn, wq, wk, wv, eps: float):
     if wn.shape != (d,) or any(w.dim() != 2 or w.shape[1] != d for w in (wq, wk, wv)):
         raise ValueError(f"shapes x {x.shape} wn {wn.shape} weights "
                          f"{[tuple(w.shape) for w in (wq, wk, wv)]}")
-    if d % 64 or d > _QKV_MAX_D or any(w.shape[0] % 64 for w in (wq, wk, wv)):
+    widths = [w.shape[0] for w in (wq, wk, wv)]
+    bn = qkv_block_n(widths)
+    if d % 64 or d > _QKV_MAX_D or not bn:
         raise NotImplementedError(
             f"the norm_qkv kernel needs D % 64 == 0, D <= {_QKV_MAX_D} and widths % 64 == 0, "
-            f"got D {d}, widths {[w.shape[0] for w in (wq, wk, wv)]}")
+            f"got D {d}, widths {widths}")
     x, wq, wk, wv = (t.contiguous() for t in (x, wq, wk, wv))
     wn = wn.float().contiguous()
-    # the kernel moves 16 bytes a thread
+    # TMA reads x and the weights from 16-byte aligned bases
     if any(t.data_ptr() % 16 for t in (x, wq, wk, wv)):
         raise ValueError("norm_qkv needs 16-byte aligned x and weights")
-    q, k, v = (torch.empty((n, w.shape[0]), dtype=x.dtype, device=x.device)
-               for w in (wq, wk, wv))
+    q, k, v = (torch.empty((n, w), dtype=x.dtype, device=x.device) for w in widths)
+    if n == 0:
+        return q, k, v
+    rrms = torch.empty((n,), dtype=torch.float32, device=x.device)
     fn = _build.entry("norm_qkv", "ggt_norm_qkv", _QKV_ARGTYPES)
     err = fn(
         _build.ptr(x), _build.ptr(wn), _build.ptr(wq), _build.ptr(wk), _build.ptr(wv),
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), n, d, wq.shape[0], wk.shape[0],
-        wv.shape[0], float(eps), _build.stream_ptr(x.device),
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(rrms), n, d, *widths, bn,
+        float(eps), _build.stream_ptr(x.device),
     )
     norm_qkv.launches += 1
     _build.check(err, "norm_qkv")

@@ -747,18 +747,27 @@ def test_band_kernels_match_plain(cuda_device, shape, keys, mask):
     assert all(torch.equal(a, g) for a, g in zip(again, (dq, dk, dv)))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n,d,widths", [(200, 128, (128, 64, 64)), (8192, 768, (768,) * 3),
-                                        (1000, 768, (768, 256, 256))],
-                         ids=["small-gqa", "serving", "gqa-ragged"])
-def test_norm_qkv_kernel_matches_plain(cuda_device, n, d, widths):
-    """norm_qkv (#12) against its plain version; fused_norm_qkv's backward
-    goes through rmsnorm_bwd (#13) and matches the plain run's."""
-    dev = cuda_device
-    rng = np.random.default_rng(19)
+def _qkv_inputs(n, d, widths, dev, seed=19):
+    rng = np.random.default_rng(seed)
     x = _bf16(rng, (n, d), 1.0, dev)
     wn = torch.from_numpy((1.0 + 0.1 * rng.normal(size=(d,))).astype(np.float32)).to(dev)
-    ws = [_bf16(rng, (w, d), 0.02, dev) for w in widths]
+    return x, wn, [_bf16(rng, (w, d), 0.02, dev) for w in widths]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,widths", [(200, 128, (128, 64, 64)), (8192, 768, (768,) * 3),
+                                        (1000, 768, (768, 256, 256)), (300, 1600, (1600,) * 3),
+                                        (1, 768, (768,) * 3), (129, 128, (128, 64, 64)),
+                                        (65537, 768, (768,) * 3), (3000, 1024, (640, 128, 128))],
+                         ids=["small-gqa", "serving", "gqa-ragged", "d1600", "n1", "n129",
+                              "n65537", "bn128"])
+def test_norm_qkv_kernel_matches_plain(cuda_device, n, d, widths):
+    """norm_qkv (#12) against its plain version, at each of its tile widths
+    (BN 64, 128, 256) and ragged row tiles (N 1, 129, 65,537: the last 128-row
+    tile mostly past N); fused_norm_qkv's backward goes through rmsnorm_bwd
+    (#13) and matches the plain run's."""
+    dev = cuda_device
+    x, wn, ws = _qkv_inputs(n, d, widths, dev)
     before = tmlp.norm_qkv.launches
     got = tmlp.norm_qkv(x, wn, *ws, 1e-6)
     torch.cuda.synchronize()
@@ -783,6 +792,43 @@ def test_norm_qkv_kernel_matches_plain(cuda_device, n, d, widths):
         plain = grads()
     for g, w in zip(kern, plain):
         assert _rel(g, w) < 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("widths", [(768,) * 3, (192, 64, 64)], ids=["bn256", "bn64"])
+def test_norm_qkv_kernel_is_the_same_from_run_to_run(cuda_device, widths):
+    """No split-K and no atomics: two launches on the same inputs give the
+    same bits."""
+    x, wn, ws = _qkv_inputs(4100, 768, widths, cuda_device, seed=23)
+    first = tmlp.norm_qkv(x, wn, *ws, 1e-6)
+    again = tmlp.norm_qkv(x, wn, *ws, 1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+def test_norm_qkv_kernel_raises_outside_its_contract(cuda_device):
+    dev = cuda_device
+    x, wn, ws = _qkv_inputs(64, 128, (128, 64, 64), dev)
+    with pytest.raises(NotImplementedError):  # fp32 activations
+        tmlp.norm_qkv(x.float(), wn, *ws, 1e-6)
+    with pytest.raises(NotImplementedError):  # D % 64 != 0
+        xo, wno, wso = _qkv_inputs(64, 96, (128, 64, 64), dev)
+        tmlp.norm_qkv(xo, wno, *wso, 1e-6)
+    with pytest.raises(NotImplementedError):  # a width % 64 != 0
+        tmlp.norm_qkv(x, wn, ws[0], ws[1], ws[2][:32], 1e-6)
+    with pytest.raises(ValueError):  # a contiguous view 2 bytes past an aligned base
+        flat = torch.zeros(64 * 128 + 1, device=dev, dtype=torch.bfloat16)
+        tmlp.norm_qkv(flat[1:].view(64, 128), wn, *ws, 1e-6)
+
+
+@pytest.mark.gpu
+def test_norm_qkv_kernel_takes_no_rows(cuda_device):
+    """N 0 gives empty q, k, v and launches nothing."""
+    x, wn, ws = _qkv_inputs(0, 768, (768, 256, 256), cuda_device)
+    before = tmlp.norm_qkv.launches
+    out = tmlp.norm_qkv(x, wn, *ws, 1e-6)
+    assert [tuple(o.shape) for o in out] == [(0, 768), (0, 256), (0, 256)]
+    assert tmlp.norm_qkv.launches == before
 
 
 @pytest.mark.gpu

@@ -7,7 +7,10 @@ Pallas kernel `_norm_qkv_kernel` run in the interpreter
 JAX package's [in, out] layout, transposed for the port's nn.Linear
 [out, in]. The forward and every gradient (dx, dwn, dwq, dwk, dwv) for a
 cotangent of each output; fp32 and bf16, multi-head and GQA widths, and an
-N that is no multiple of the kernel's 512-row tiles.
+N that is no multiple of the kernel's 512-row tiles; at the shapes the CUDA
+kernel's tiling must take too: D 1600 (the widest hidden size of
+`config._MODEL_SIZES`), widths 128/64/64 (its 64-wide tiles), N 1 and
+N 129 (one row past a 128-row tile).
 
 Tolerances: fp32, the sides differ in the order of fp32 sums, 2e-5
 relative to each tensor's largest value. bf16: both round hpre, the
@@ -39,13 +42,17 @@ def _inputs(n, d, widths, seed):
     return x, wn, ws, gs
 
 
-@pytest.mark.parametrize("dtype, n, widths", [
-    ("float32", 320, (128, 128, 128)),
-    ("bfloat16", 320, (128, 64, 64)),
-    ("bfloat16", 1024, (128, 128, 128)),
-    ("float32", 200, (128, 64, 64)),
-], ids=["fp32-mha", "bf16-gqa", "bf16-mha-n1024", "fp32-gqa-n200"])
-def test_fused_norm_qkv_and_gradients_match_jax(dtype, n, widths, monkeypatch):
+@pytest.mark.parametrize("dtype, n, d, widths", [
+    ("float32", 320, 128, (128, 128, 128)),
+    ("bfloat16", 320, 128, (128, 64, 64)),
+    ("bfloat16", 1024, 128, (128, 128, 128)),
+    ("float32", 200, 128, (128, 64, 64)),
+    ("bfloat16", 300, 1600, (1600, 1600, 1600)),
+    ("bfloat16", 1, 128, (128, 64, 64)),
+    ("bfloat16", 129, 128, (128, 64, 64)),
+], ids=["fp32-mha", "bf16-gqa", "bf16-mha-n1024", "fp32-gqa-n200", "bf16-d1600", "bf16-n1",
+        "bf16-n129"])
+def test_fused_norm_qkv_and_gradients_match_jax(dtype, n, d, widths, monkeypatch):
     monkeypatch.setenv("GGT_PALLAS_INTERPRET", "1")
     ran = []
     kernel = jmlp._norm_qkv_kernel
@@ -55,7 +62,6 @@ def test_fused_norm_qkv_and_gradients_match_jax(dtype, n, widths, monkeypatch):
         return kernel(*a, **kw)
 
     monkeypatch.setattr(jmlp, "_norm_qkv_kernel", spy)
-    d = 128
     x, wn, ws, gs = _inputs(n, d, widths, seed=n)
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
@@ -102,3 +108,18 @@ def test_norm_qkv_ref_rounds_hpre_and_each_output_once():
     for o, w in zip(got, ws):
         want = (hpre @ torch.from_numpy(w).to(torch.bfloat16).double()).to(torch.bfloat16)
         assert (o.float() - want.float()).abs().max() <= 2**-8 * want.float().abs().max()
+
+
+@pytest.mark.parametrize("widths, bn", [
+    ((768, 768, 768), 256),
+    ((768, 256, 256), 256),
+    ((128, 64, 64), 64),
+    ((192, 64, 64), 64),
+    ((1600, 1600, 1600), 64),
+    ((384, 128, 128), 128),
+    ((100, 64, 64), 0),
+])
+def test_qkv_block_n_is_the_widest_tile_dividing_every_width(widths, bn):
+    """The CUDA kernel's output tile width: the largest of 256, 128, 64 that
+    divides all three widths (no tile straddles q, k and v); 0 for none."""
+    assert tmlp.qkv_block_n(widths) == bn
