@@ -15,7 +15,9 @@
    CUDA events beside the plain version, one PyTorch library call where one
    computes the same function, and the card's bound for the same work;
    the bi-causal flash_fwd and the split backward pair (flash_dq,
-   flash_dkv) the same way at 8 x 1024 with 16 bit slots.
+   flash_dkv) the same way at 8 x 1024 with 16 bit slots, each with its
+   share of its bound; then the pair, untimed, at MAX_P (2 x 2048) and
+   with inf and NaN in do's padded rows, which must change no output bit.
 4. Eval phase: GraphGPT-base at full width (seeded random weights), the
    SMTP eval loss of a packed 8 x 1024 batch, against the same model run
    with the plain versions; each forward kernel launches once per layer.
@@ -33,7 +35,8 @@
    checkpoint with the heads skipped, one epoch of 8 x 256 graphs with EMA.
    Before it, every kernel of the fine-tune step against its plain version
    at the first batch's shape: mlp (also at N 8192), flash_fwd and
-   flash_bwd on that batch's segments and RoPE table, rmsnorm_bwd at its
+   flash_bwd on that batch's segments and RoPE table (SDPA's forward and
+   backward with that batch's mask timed beside them), rmsnorm_bwd at its
    N; then the first step's loss and every gradient against the plain run
    on the same batch and dropout masks.
    Then launch counts per training step and per EMA eval forward, the
@@ -369,10 +372,33 @@ def flash_work(fa, seg, causal: bool, h: int, dh: int, kind: str, bi: int = 0):
     return nbytes, 2.0 * products * dh * h * pairs
 
 
+def sdpa_ms(fa, seg, qs, k, v, do, cos, sin, causal: bool, h: int, dh: int, bi: int = 0):
+    """(forward ms, backward ms) of SDPA with this shape's boolean mask
+    (segments, then causal or bi-causal) on q and k rotated outside (the
+    rotation is not timed): the one PyTorch call that computes what the
+    flash kernels compute, a yardstick the port never calls. The backward
+    gives dq, dk and dv in one call."""
+    b, p = seg.shape
+
+    def heads(t):
+        return t.view(b, p, h, dh).transpose(1, 2)
+
+    if cos is not None:
+        qs, k = fa.rotate_tokens(qs, cos, sin, dh), fa.rotate_tokens(k, cos, sin, dh)
+    mask = fa._valid_mask(seg, causal, bi)
+    leaves = [heads(t).detach().requires_grad_() for t in (qs, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd = cuda_ms(lambda: sdpa(*leaves, attn_mask=mask, scale=1.0), iters=5)
+    out = sdpa(*leaves, attn_mask=mask, scale=1.0)
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, heads(do), retain_graph=True), iters=5)
+    return fwd, bwd
+
+
 def flash_at_shape(fa, ops, tag, seg, cos, sin, h: int, dh: int, causal: bool = False):
     """flash_fwd and flash_bwd at a path's own shape (seg [B, P]) against
     their plain versions, which run 8 rows at a time to keep their score
-    tensors small; then both kernels' times beside their bounds."""
+    tensors small; then both kernels' times beside their bounds and SDPA's
+    forward and backward with this shape's mask."""
     qs, k, v, do = flash_tensors(seg, h, dh)
     out, lse = fa.flash_fwd(qs, k, v, seg, cos, sin, causal, dh)
     args = (qs, k, v, seg, cos, sin, out, lse, do, None, causal, dh)
@@ -395,15 +421,17 @@ def flash_at_shape(fa, ops, tag, seg, cos, sin, h: int, dh: int, causal: bool = 
     bms, by = bound(nbytes, flops)
     fbytes, fflops = flash_work(fa, seg, causal, h, dh, "fwd")
     fbms, fby = bound(fbytes, fflops)
+    lib_fwd, lib_bwd = sdpa_ms(fa, seg, qs, k, v, do, cos, sin, causal, h, dh)
     print(
         f"flash_bwd[{tag}] B={b} P={p} H={h}: kernel {ms:.4f} ms (3 readings {ms_spread}), "
-        f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
-        f"flash_fwd[{tag}] kernel {fwd_ms:.4f} ms (3 readings {fwd_spread}), bound "
-        f"{fbms:.4f} ms ({fby}: {fbytes / 1e6:.1f} MB, {fflops / 1e9:.2f} GFLOP)",
+        f"SDPA backward {lib_bwd:.4f} ms, bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP); flash_fwd[{tag}] kernel {fwd_ms:.4f} ms (3 readings "
+        f"{fwd_spread}), SDPA {lib_fwd:.4f} ms, bound {fbms:.4f} ms ({fby}: "
+        f"{fbytes / 1e6:.1f} MB, {fflops / 1e9:.2f} GFLOP)",
         flush=True,
     )
     return dict(err=err, rel=rel, fwd_err=fwd_err, ms=ms, bound_ms=bms, bound_by=by,
-                fwd_ms=fwd_ms, fwd_bound_ms=fbms)
+                lib_ms=lib_bwd, fwd_ms=fwd_ms, fwd_bound_ms=fbms, fwd_lib_ms=lib_fwd)
 
 
 def split_at_shape(fa, ops, tag, seg, cos, sin, bi: int, h: int, dh: int):
@@ -440,16 +468,7 @@ def split_at_shape(fa, ops, tag, seg, cos, sin, bi: int, h: int, dh: int):
                                        ("dk", "dv"))
     del rdq, rdk, rdv
 
-    rq = fa.rotate_tokens(qs, cos, sin, dh).view(b, p, h, dh).transpose(1, 2)
-    rk = fa.rotate_tokens(k, cos, sin, dh).view(b, p, h, dh).transpose(1, 2)
-    mask = fa._valid_mask(seg, False, bi)
-    leaves = [t.detach().requires_grad_() for t in (rq, rk, v.view(b, p, h, dh).transpose(1, 2))]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_fwd = cuda_ms(lambda: sdpa(*leaves, attn_mask=mask, scale=1.0), iters=5)
-    sd = sdpa(*leaves, attn_mask=mask, scale=1.0)
-    do4 = do.view(b, p, h, dh).transpose(1, 2)
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(sd, leaves, do4, retain_graph=True), iters=5)
-    del sd, leaves, mask
+    lib_fwd, lib_bwd = sdpa_ms(fa, seg, qs, k, v, do, cos, sin, False, h, dh, bi)
     res = {}
     for kind, fn in (("fwd", lambda: fa.flash_fwd(qs, k, v, seg, cos, sin, False, dh, bi)),
                      ("dq", lambda: fa.flash_dq(*dq_args)), ("dkv", lambda: fa.flash_dkv(*args))):
@@ -465,10 +484,14 @@ def split_at_shape(fa, ops, tag, seg, cos, sin, bi: int, h: int, dh: int):
         print(
             f"{name} {tag} B={b} P={p} H={h} split {p - bi}: kernel {ms:.4f} ms (3 readings "
             f"{ms_spread}), plain {plain_ms:.4f} ms, {lib} {lib_ms:.4f} ms, bound {bms:.4f} ms "
-            f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)",
+            f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), {bms / ms:.1%} of the "
+            f"bound",
             flush=True,
         )
-        res[kind] = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms, bound_by=by)
+        res[kind] = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms, bound_by=by,
+                         bound_share=bms / ms)
+    print(f"flash_dq + flash_dkv {tag}: {res['dq']['ms'] + res['dkv']['ms']:.4f} ms against "
+          f"the SDPA backward's {lib_bwd:.4f} ms", flush=True)
     res["fwd"]["err"] = fwd_err
     res["dq"].update(err=dq_err, rel=dq_rel, delta_err=delta_err)
     res["dkv"].update(err=dkv_err, rel=dkv_rel)
@@ -484,7 +507,55 @@ def split_phase(dev, fa, ops, synthetic, rope_cos_sin):
     seg = torch.from_numpy(seg_np).to(dev)
     pos = torch.arange(p, device=dev).expand(b, p)
     cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(pos, dh))
-    return split_at_shape(fa, ops, "P1024", seg, cos, sin, bi, h, dh)
+    res = split_at_shape(fa, ops, "P1024", seg, cos, sin, bi, h, dh)
+    res["edge"] = split_edge_checks(dev, fa, ops, synthetic, rope_cos_sin)
+    return res
+
+
+def split_edge_checks(dev, fa, ops, synthetic, rope_cos_sin):
+    """The split pair, untimed: at MAX_P (B 2 x P 2048 packed rows, 16 bit
+    slots, a padded stretch) against its plain versions; then with inf and
+    NaN written into do's padded rows, which must change no bit of dq,
+    delta, dk or dv."""
+    b, p, h, dh, bi = 2, fa.MAX_P, 12, 64, 16
+    seg_np = synthetic.packed_segments(b, p, np.random.default_rng(9))
+    seg_np[-1, p - 48 : p - bi] = 0
+    seg = torch.from_numpy(seg_np).to(dev)
+    pos = torch.arange(p, device=dev).expand(b, p)
+    cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(pos, dh))
+    qs, k, v, do = flash_tensors(seg, h, dh, seed=4)
+    out, lse = fa.flash_fwd(qs, k, v, seg, cos, sin, False, dh, bi)
+
+    def pair(d):
+        dq, delta = fa.flash_dq(qs, k, v, seg, cos, sin, out, lse, d, None, False, dh, bi)
+        return (dq, delta) + fa.flash_dkv(qs, k, v, seg, cos, sin, lse, delta, d, False, dh, bi)
+
+    dq, delta, dk, dv = pair(do)
+    sync(dev)
+    shape = f"MAX_P, B={b} P={p} split {p - bi}"
+    rdq, rdelta = plain_in_row_chunks(ops, lambda *t: fa.flash_dq(*t, False, dh, bi),
+                                      (qs, k, v, seg, cos, sin, out, lse, do, None), rows=1)
+    delta_err = (delta - rdelta).abs().max().item()
+    print(f"flash_dq[{shape}] max|delta-plain| {delta_err:.3e} (tol {DELTA_ATOL})", flush=True)
+    if not delta_err <= DELTA_ATOL:
+        fail(f"flash_dq[{shape}]'s delta disagrees with its plain version")
+    dq_err, dq_rel = check_flash_bwd(shape, (dq,), (rdq,), seg, "flash_dq", ("dq",))
+    del rdq
+    rdk, rdv = plain_in_row_chunks(ops, lambda *t: fa.flash_dkv(*t, False, dh, bi),
+                                   (qs, k, v, seg, cos, sin, lse, delta, do), rows=1)
+    dkv_err, dkv_rel = check_flash_bwd(shape, (dk, dv), (rdk, rdv), seg, "flash_dkv",
+                                       ("dk", "dv"))
+    del rdk, rdv
+    pad = (seg == 0)[..., None].expand_as(do)
+    noisy = do.masked_fill(pad, float("nan"))
+    noisy[0].masked_fill_(pad[0], float("inf"))
+    same = all(torch.equal(a, n) for a, n in zip((dq, delta, dk, dv), pair(noisy)))
+    print(f"flash_dq, flash_dkv[{shape}] with inf and NaN in do's {int(pad[..., 0].sum())} padded "
+          f"rows: every output bit the same {same}", flush=True)
+    if not same:
+        fail(f"non-finite do in padded rows reached an output of the split pair ({shape})")
+    return dict(dq_err=dq_err, dq_rel=dq_rel, dkv_err=dkv_err, dkv_rel=dkv_rel,
+                delta_err=delta_err)
 
 
 def flash_phase(dev, fa, ops, synthetic, rope_cos_sin):
@@ -2318,10 +2389,11 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
-    # #12 keeps no spill and lets ptxas pipeline its wgmma (no C7512/C7513)
-    qkv_log = logs.get("norm_qkv", "")
-    if re.search(r"[1-9]\d* bytes spill|C751[0-9]", qkv_log):
-        fail("ptxas spilled in norm_qkv.cu or serialised its wgmma (see the build lines above)")
+    # the wgmma kernels (#12; #4, #5) keep no spill and let ptxas pipeline
+    # their wgmma (no C7512/C7513)
+    for name in ("norm_qkv", "flash_bwd_split"):
+        if re.search(r"[1-9]\d* bytes spill|C751[0-9]", logs.get(name, "")):
+            fail(f"ptxas spilled in {name}.cu or serialised its wgmma (see the build lines above)")
 
     # ---- the long-context loader alone, before this process starts a pool
     loaders = loader_start_methods()
@@ -2429,10 +2501,10 @@ def main() -> None:
               dict(fb, err=max([r["err"] for r in fres.values()]
                                + [tr["fwd_err"], ftf["fwd_err"], psf["fwd_err"],
                                   dn["fwd"]["err"], sp["fwd"]["err"]])),
-              FLASH_TOL, causal_ms=fres["causal"]["ms"], train_shape_ms=tr["fwd_ms"],
-              train_shape_bound_ms=tr["fwd_bound_ms"], finetune_shape_ms=ftf["fwd_ms"],
-              finetune_shape_bound_ms=ftf["fwd_bound_ms"], pos_shape_ms=psf["fwd_ms"],
-              pos_shape_bound_ms=psf["fwd_bound_ms"],
+              FLASH_TOL, causal_ms=fres["causal"]["ms"],
+              **{f"{tag}_shape_{k}": r[f"fwd_{k}"] for tag, r in (
+                  ("train", tr), ("finetune", ftf), ("pos", psf))
+                 for k in ("ms", "bound_ms", "lib_ms")},
               **{f"bicausal_{tag}_{k}": r["fwd"][k] for tag, r in (("denoise", dn), ("p1024", sp))
                  for k in ("ms", "plain_ms", "lib_ms", "bound_ms")}),
         entry("norm_mlp", "norm_mlp.cu", "mlp.py:203",
@@ -2444,9 +2516,9 @@ def main() -> None:
         entry("flash_bwd", "flash_bwd.cu", "flash_attention.py:706",
               dict(bb, err=max([r["err"] for r in bres.values()] + [ftf["err"], psf["err"]])),
               FLASH_BWD_TOL, causal_ms=bres["causal"]["ms"],
-              train_shape_ms=tr["ms"], train_shape_bound_ms=tr["bound_ms"],
-              finetune_shape_ms=ftf["ms"], finetune_shape_bound_ms=ftf["bound_ms"],
-              pos_shape_ms=psf["ms"], pos_shape_bound_ms=psf["bound_ms"]),
+              **{f"{tag}_shape_{k}": r[k] for tag, r in (
+                  ("train", tr), ("finetune", ftf), ("pos", psf))
+                 for k in ("ms", "bound_ms", "lib_ms")}),
         entry("rmsnorm_bwd", "rmsnorm_bwd.cu", "mlp.py:414",
               dict(rres, err=max(rres["err"], ftr["err"], dnr["err"])), RMS_BWD_TOL,
               **at("finetune_shape", ftr, ("ms", "bound_ms", "plain_ms", "lib_ms")),
@@ -2458,15 +2530,19 @@ def main() -> None:
                                       "step_ms", "loader_graphs_s", "peak_mib")}),
     ]
     # the split pair: its main entry at the denoise batch's shape, B 256 x P 88
+    edge = sp["edge"]
     for name, kind, line in (("flash_dq", "dq", 602), ("flash_dkv", "dkv", 789)):
-        extra = {"delta_err": max(dn["dq"]["delta_err"], sp["dq"]["delta_err"])} \
-            if kind == "dq" else {}
+        extra = {"delta_err": max(dn["dq"]["delta_err"], sp["dq"]["delta_err"],
+                                  edge["delta_err"])} if kind == "dq" else {}
         kernels.append(entry(
             name, "flash_bwd_split.cu", f"flash_attention.py:{line}",
-            dict(dn[kind], err=max(dn[kind]["err"], sp[kind]["err"])), FLASH_BWD_TOL,
-            rel_err=max(dn[kind]["rel"], sp[kind]["rel"]), denoise_step_ms=dn["step_ms"],
+            dict(dn[kind], err=max(dn[kind]["err"], sp[kind]["err"], edge[f"{kind}_err"])),
+            FLASH_BWD_TOL,
+            rel_err=max(dn[kind]["rel"], sp[kind]["rel"], edge[f"{kind}_rel"]),
+            bound_share=dn[kind]["bound_share"], denoise_step_ms=dn["step_ms"],
             denoise_peak_mib=dn["peak_mib"], denoise_grad_rel=dn["grad_rel"],
-            **{f"p1024_{k}": sp[kind][k] for k in ("ms", "plain_ms", "lib_ms", "bound_ms")},
+            **{f"p1024_{k}": sp[kind][k]
+               for k in ("ms", "plain_ms", "lib_ms", "bound_ms", "bound_share")},
             **extra))
     # the streamed kernels: their main entry at the long-context shape, B 16 x P 4096
     for name, kind, line in (("flash_fwd_stream", "fwd", 177), ("flash_dq_stream", "dq", 645),

@@ -1,15 +1,17 @@
 // The two passes of the flash backward over one 64-row tile, shared by the
-// fused kernel (flash_bwd.cu, both passes in one CTA), the split pair
-// (flash_bwd_split.cu, one pass a kernel) and the streamed pair
-// (flash_stream.cu): as the owner of KEYS a CTA sums dk and dv over the
+// fused kernel (flash_bwd.cu, both passes in one CTA), the streamed pair
+// (flash_stream.cu, one pass a kernel) and the band backward
+// (flash_band.cu); the split pair #4, #5 (flash_bwd_split.cu) has a body of
+// its own for Hopper: as the owner of KEYS a CTA sums dk and dv over the
 // visiting query tiles; as the owner of QUERIES it sums dq over the visiting
 // key tiles. Each pass recomputes S and dP for a tile pair from q, k, v, do,
 // lse and delta, skips a pair whose segment-id ranges do not meet, and masks
 // by segment (seg_q[row] == seg_k[col] > 0) and by the per-row bounds of
-// flash_common.cuh (causal or bi-causal). The split and streamed pair are
-// the two kernels below, instantiated without and with STREAM (seg_k its own
-// array, tile ranges from a table). Also the small kernel that every
-// backward launches first for delta = rowsum(do * out) - dlse.
+// flash_common.cuh (causal or bi-causal). The streamed pair is the two
+// kernels below, instantiated with STREAM (seg_k its own array, tile ranges
+// from a table). Also the small kernel that the fused, streamed and band
+// backwards launch first for delta = rowsum(do * out) - dlse (the split
+// pair's flash_dq sums delta itself).
 #pragma once
 
 #include "flash_common.cuh"
@@ -243,10 +245,11 @@ __device__ __forceinline__ void pass(Smem& sm, const bf16* qb, const bf16* kb,
   }
 }
 
-// The split backward's two kernels, one pass each; STREAM: the streamed
-// pair (kernels #7, #8), whose key ids are their own array and whose tile
-// ranges come from tables [B, ceil(P/64)] (tabq, tabk). Each CTA owns one
-// 64-row tile of one (batch row, head) and writes only that tile.
+// The split backward's two kernels, one pass each, as the streamed pair
+// (kernels #7, #8) instantiates them with STREAM: their key ids are their
+// own array and their tile ranges come from tables [B, ceil(P/64)] (tabq,
+// tabk). Each CTA owns one 64-row tile of one (batch row, head) and writes
+// only that tile.
 template <bool STREAM>
 __global__ void __launch_bounds__(THREADS)
 flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,

@@ -52,13 +52,14 @@
 // consumers or by the producer warpgroup's spare warps: slower), A
 // double-buffered across stages (serialised by ptxas).
 
-#include <cuda.h>  // CUtensorMap and its enums; the driver is reached through the runtime
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "sm90_common.cuh"  // TMA, mbarriers, wgmma descriptors, the tensor-map encoder
 
 namespace norm_qkv {
 namespace {
+
+using namespace sm90;
 
 typedef __nv_bfloat16 bf16;
 
@@ -89,113 +90,6 @@ inline size_t smem_bytes(int D) {
   return 1024 + (size_t)Tile<BN>::STAGES * Tile<BN>::STAGE + Tile<BN>::OUT_BYTES +
          (size_t)D * sizeof(float) + 2 * Tile<BN>::STAGES * sizeof(uint64_t);
 }
-
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-__device__ __forceinline__ uint64_t globaltimer() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Wait for the phase of `bar` with this parity to complete (the consumers'
-// wait: a clock read in their k-loop costs the registers that let ptxas
-// keep a stage's four wgmma in flight).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  while (!mbar_try(bar, parity)) {
-  }
-}
-
-// The producer's wait: one of more than 4 s can only be a fault (a wrong
-// parity, a lost TMA), so trap and the launch fails instead of holding the
-// card. The producer waits last for every stage to be handed back, so a
-// consumer that hangs traps the kernel through it.
-__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const uint64_t t0 = globaltimer();
-  while (!mbar_try(bar, parity))
-    if (globaltimer() - t0 > 4000000000ull) __trap();
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// TMA: the box of `map` at (c0 innermost, c1) into shared memory at dst,
-// completing `bytes` of the transaction on bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// TMA: the [64, 64] box of shared memory at src to `map` at (c0, c1); rows
-// past the tensor's end are not written.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// Barrier `id` (1, 2: one a consumer warpgroup) over `count` threads.
-__device__ __forceinline__ void bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// The descriptor of a K-major operand tile in shared memory, 128-byte
-// swizzled as TMA lays it: rows of 128 bytes, 8-row groups 1024 bytes apart
-// (SBO), LBO unused by this layout (1), layout type 1 (128B swizzle). A
-// k-step of 16 advances the start address by 32 bytes.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int PENDING>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
-}
-// Keep the compiler from moving a read of a wgmma sum above the wait.
-__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 
 // d[64, BN] (+)= a[64, 16] @ b[16, BN] for the warpgroup: a from registers
 // (4 x bf16x2 a thread, mma.m16n8k16's A layout a warp), b through its
@@ -455,34 +349,11 @@ rrms_kernel(const bf16* __restrict__ x, float* __restrict__ rrms, int N, int D, 
   if (lane == 0) rrms[row] = 1.f / sqrtf(ss / (float)D + eps);
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 // Error codes of the C entries beside CUDA's own (all below 1000).
 constexpr int ERR_NO_ENCODE = 1000;   // cuTensorMapEncodeTiled not found in the driver
 constexpr int ERR_ENCODE = 1001;      // a tensor map was refused
 constexpr int ERR_BN = 1002;          // a tile width other than 64, 128, 256
 constexpr int ERR_DEVICE = 1003;      // a device index past MAX_DEVICES
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
 
 // A row-major bf16 [rows, cols] matrix in boxes of [box_rows, 64], 128-byte
 // swizzled; rows past the end read as zeros and are not written.

@@ -333,8 +333,9 @@ def flash_delta(do, out, dlse, dh: int) -> torch.Tensor:
     """delta [B, H, P] fp32 = rowsum(do * out) - dlse in torch ops, as the
     JAX package's split backward computes it outside the kernels
     (`_flash_bwd` :933-940): the plain version of the delta kernel that
-    flash_bwd, flash_dq and flash_dq_stream launch first. out is 0 on
-    padded rows, which the kernels leave out anyway."""
+    flash_bwd and flash_dq_stream launch first, and of the sum flash_dq's
+    kernel takes for its own rows. out is 0 on padded rows, which the
+    kernels leave out anyway."""
     b, p, hd = do.shape
     delta = (do.float() * out.float()).view(b, p, hd // dh, dh).sum(dim=-1).transpose(1, 2)
     if dlse is not None:
@@ -508,6 +509,13 @@ def flash_bwd(
 flash_bwd.launches = 0
 
 
+def _check_split_p(name, p: int) -> None:
+    """The split pair's kernels hold an item's visiting tiles in one 32-bit
+    mask: P <= MAX_P (flash_bwd sends longer rows to the streamed pair)."""
+    if p > MAX_P:
+        raise NotImplementedError(f"{name} takes P <= {MAX_P}, got {p}")
+
+
 def flash_dq_ref(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int,
                  bi_causal_split: int = 0):
     """Plain version of flash_dq (`_dq_kernel_single`): dq = ds rot(k) with
@@ -529,14 +537,20 @@ def flash_dkv_ref(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int
 def flash_dq(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal: bool, dh: int,
              bi_causal_split: int = 0):
     """(dq, delta), delta = rowsum(do * out) - dlse [B, H, P] fp32 for
-    flash_dkv: the CUDA kernels (the delta kernel, then dq; counted as one
-    call) for a CUDA tensor, flash_delta and flash_dq_ref for a CPU tensor
-    (or inside ops.reference_mode()). dlse None means zeros."""
+    flash_dkv: the CUDA kernel (#4, which sums delta for its own rows and
+    writes it beside dq: one launch) for a CUDA tensor, flash_delta and
+    flash_dq_ref for a CPU tensor (or inside ops.reference_mode()). dlse
+    None means zeros. The kernel takes P <= MAX_P. Both take do as zero on
+    padded rows, so that a non-finite value there reaches neither dq nor
+    delta, nor flash_dkv's sums."""
     if not use_kernel(qs, k, v, seg, out, lse, do):
+        do = torch.where((seg > 0)[..., None], do, torch.zeros((), dtype=do.dtype,
+                                                                device=do.device))
         delta = flash_delta(do, out, dlse, dh)
         return flash_dq_ref(qs, k, v, seg, cos, sin, lse, delta, do, causal, dh,
                             bi_causal_split), delta
     b, p, _ = qs.shape
+    _check_split_p("flash_dq", p)
     extra_rows = () if dlse is None else (dlse,)
     (qs, k, v, do, out), seg, _, cos, sin, rows = _check_bwd(
         "flash_dq", dh, qs, k, v, seg, cos, sin, lse, do, extra=(out,), extra_rows=extra_rows)
@@ -559,12 +573,14 @@ flash_dq.launches = 0
 
 def flash_dkv(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int,
               bi_causal_split: int = 0):
-    """(dk, dv): the CUDA kernel for a CUDA tensor, the plain version for a
-    CPU tensor (or inside ops.reference_mode())."""
+    """(dk, dv): the CUDA kernel (#5, reading flash_dq's delta) for a CUDA
+    tensor, the plain version for a CPU tensor (or inside
+    ops.reference_mode()). The kernel takes P <= MAX_P."""
     if not use_kernel(qs, k, v, seg, lse, delta, do):
         return flash_dkv_ref(qs, k, v, seg, cos, sin, lse, delta, do, causal, dh,
                              bi_causal_split)
     b, p, _ = qs.shape
+    _check_split_p("flash_dkv", p)
     (qs, k, v, do), seg, _, cos, sin, (lse, delta) = _check_bwd(
         "flash_dkv", dh, qs, k, v, seg, cos, sin, lse, do, extra_rows=(delta,))
     dk, dv = torch.empty_like(qs), torch.empty_like(qs)

@@ -124,6 +124,103 @@ def test_split_twins_match_interpreted_kernels(dtype, layout, split, rope, with_
         assert torch.equal(g, w)
 
 
+# The denoise batch's width: 72 molecule positions and 16 bit slots, one
+# block for the JAX kernels (_pick_block takes P 88 whole) and one 128-row
+# item for the CUDA pair; rows with a short and a full molecule.
+P88, BI88 = 88, 16
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mols", [(30, 72), (52, 9)], ids=["short-full", "mid-shortest"])
+def test_split_twins_match_interpreted_kernels_at_the_denoise_width(dtype, mols, monkeypatch):
+    """flash_dq_ref, flash_dkv_ref and flash_delta at B 2 x P 88 with the
+    denoise layout (a molecule, a padded stretch, 16 bit slots), RoPE on
+    and a cotangent of lse, against the interpreted `_flash_bwd` and its
+    delta (`jnp.einsum` - dlse, :933-940); the file's tolerances."""
+    monkeypatch.setenv("GGT_PALLAS_INTERPRET", "1")
+    rng = np.random.default_rng(21)
+    q, k, v, do = ((rng.normal(size=(B, P88, H, DH)) * 0.5).astype(np.float32)
+                   for _ in range(4))
+    seg = np.zeros((B, P88), np.int32)
+    for r, mol in enumerate(mols):
+        seg[r, :mol] = 1
+        seg[r, P88 - BI88 :] = 1
+    pos = np.tile(np.arange(P88, dtype=np.int32), (B, 1))
+    cos, sin = (np.asarray(a) for a in j_rope_cos_sin(jnp.asarray(pos), DH))
+    dlse = (rng.normal(size=(B, H, P88)) * 0.3).astype(np.float32) * (seg > 0)[:, None, :]
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    flat = lambda a: a.reshape(B, P88, -1)  # noqa: E731
+    qs = flat(q) * DH**-0.5
+    j = lambda a: jnp.asarray(a, jdt)  # noqa: E731
+    jrope, jseg = (j(cos), j(sin)), jnp.asarray(seg)
+    bq, bk = jfa._fwd_blocks(P88)
+    assert (bq, bk, jfa._pick_block(P88)) == (P88, P88, P88)
+    out, lse = jfa._flash_fwd(j(qs), j(flat(k)), j(flat(v)), jseg, jseg, False, bq, bk, H, DH,
+                              bi_split=BI88, rope=jrope)
+    want = jfa._flash_bwd(j(qs), j(flat(k)), j(flat(v)), jseg, jseg, out, lse, j(flat(do)),
+                          False, H, DH, dlse=jnp.asarray(dlse), bi_split=BI88, rope=jrope)
+    want_delta = jnp.einsum("bphd,bphd->bhp", j(do), out.reshape(B, P88, H, DH),
+                            preferred_element_type=jnp.float32) - jnp.asarray(dlse)
+    t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(tdt)  # noqa: E731
+    tq, tk, tv, tdo, tout = t(qs), t(flat(k)), t(flat(v)), t(flat(do)), t(out)
+    tlse, tseg, tc, ts = torch.from_numpy(np.array(lse)), torch.from_numpy(seg), t(cos), t(sin)
+    delta = tfa.flash_delta(tdo, tout, torch.from_numpy(dlse), DH)
+    np.testing.assert_allclose(delta.numpy(), np.asarray(want_delta), atol=TOL, rtol=TOL)
+    dq = tfa.flash_dq_ref(tq, tk, tv, tseg, tc, ts, tlse, delta, tdo, False, DH, BI88)
+    dk, dv = tfa.flash_dkv_ref(tq, tk, tv, tseg, tc, ts, tlse, delta, tdo, False, DH, BI88)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert g.dtype == tdt, name
+        _close(g.float().numpy(), w, dtype, name)
+        assert np.all(g.float().numpy()[seg == 0] == 0), name
+    # the wrappers on CPU tensors take the same twins and the same delta
+    got_dq, got_delta = tfa.flash_dq(tq, tk, tv, tseg, tc, ts, tout, tlse, tdo,
+                                     torch.from_numpy(dlse), False, DH, BI88)
+    assert torch.equal(got_dq, dq) and torch.equal(got_delta, delta)
+    assert all(torch.equal(a, w) for a, w in zip(
+        tfa.flash_dkv(tq, tk, tv, tseg, tc, ts, tlse, got_delta, tdo, False, DH, BI88),
+        (dk, dv)))
+
+
+@pytest.mark.parametrize("layout", ["packed", "denoise-row"])
+def test_split_pair_ignores_non_finite_do_in_padded_rows(layout):
+    """The split route on CPU tensors, as the CUDA pair: inf and NaN in
+    do's padded rows change no bit of dq, delta, dk or dv (do is taken as
+    zero there, as `jnp.where(rowvalid, do, 0)` takes it)."""
+    bi = SPLITS["split-in-tile"]
+    q, k, v, do, seg, cos, sin = _inputs(layout, bi, seed=6)
+    pad = seg == 0
+    assert pad.any()
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)  # noqa: E731
+    tq, tk, tv, tc, ts = t(_flat(q) * DH**-0.5), t(_flat(k)), t(_flat(v)), t(cos), t(sin)
+    tseg = torch.from_numpy(seg)
+    out, lse = tfa.flash_fwd(tq, tk, tv, tseg, tc, ts, False, DH, bi)
+    noisy = _flat(do).copy()
+    noisy[pad] = np.nan
+    noisy[0][pad[0]] = np.inf
+    runs = []
+    for d in (t(_flat(do)), t(noisy)):
+        dq, delta = tfa.flash_dq(tq, tk, tv, tseg, tc, ts, out, lse, d, None, False, DH, bi)
+        runs.append((dq, delta) + tfa.flash_dkv(tq, tk, tv, tseg, tc, ts, lse, delta, d, False,
+                                                DH, bi))
+    for name, a, n in zip(("dq", "delta", "dk", "dv"), *runs):
+        assert bool(torch.isfinite(a.float()).all()), name
+        assert torch.equal(a, n), name
+
+
+@pytest.mark.parametrize("p", [1, 88, tfa.MAX_P, tfa.MAX_P + 1])
+def test_split_pair_takes_rows_up_to_max_p(p):
+    """The CUDA pair holds an item's visiting tiles in one 32-bit mask, so
+    its wrappers refuse P past MAX_P (flash_bwd sends such rows to the
+    streamed pair); the check is on the host, before any launch."""
+    for name in ("flash_dq", "flash_dkv"):
+        if p > tfa.MAX_P:
+            with pytest.raises(NotImplementedError, match=f"{name} takes P <= {tfa.MAX_P}"):
+                tfa._check_split_p(name, p)
+        else:
+            tfa._check_split_p(name, p)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("layout", ["packed", "denoise-row"])
 @pytest.mark.parametrize("split", sorted(SPLITS))

@@ -324,30 +324,57 @@ def _denoise_row_segments(b, p, bi, rng):
     return seg
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(4, 88, 12), (2, 1024, 12), (2, 128, 3)],
-                         ids=["denoise", "P1024", "split-on-edge"])
-def test_split_backward_kernels_match_plain(cuda_device, shape):
-    """flash_dq (with its delta, a cotangent of lse folded in), flash_dkv
-    and the bi-causal flash_fwd against their plain versions (16 bit slots;
-    64 on the last shape, a split on a tile edge), at the tolerances of the
-    fused kernels; padded rows exactly 0. The
-    backward wrapper launches each split kernel once and the fused one not
-    at all."""
-    dev = cuda_device
-    b, p, h = shape
-    dh, bi = 64, (64 if p == 128 else 16)
-    rng = np.random.default_rng(11)
+# (B, P, H, bit slots, causal, RoPE, row layout) of the split pair's cases
+_SPLIT_CASES = {
+    "denoise": (4, 88, 12, 16, False, True, "denoise"),
+    "P1024": (2, 1024, 12, 16, False, True, "packed"),
+    "split-on-edge": (2, 128, 3, 64, False, True, "denoise"),
+    "P72": (4, 72, 12, 16, False, True, "denoise"),
+    "P50": (2, 50, 3, 16, False, True, "denoise"),
+    "P1000": (2, 1000, 12, 16, False, True, "packed"),
+    "P2048": (1, 2048, 12, 16, False, True, "packed"),
+    "causal-split": (2, 200, 3, 16, True, True, "packed"),
+    "causal-no-split": (2, 300, 3, 0, True, True, "packed"),
+    "no-rope": (4, 88, 12, 16, False, False, "denoise"),
+}
+
+
+def _split_inputs(case, dev, seed=11):
+    """(qs, k, v, do, seg, cos, sin) of a _SPLIT_CASES case."""
+    b, p, h, bi, _, rope, layout = _SPLIT_CASES[case]
+    dh = 64
+    rng = np.random.default_rng(seed)
     qs = _bf16(rng, (b, p, h * dh), 0.5 * dh**-0.5, dev)
     k, v, do = (_bf16(rng, (b, p, h * dh), 0.5, dev) for _ in range(3))
-    seg_np = _denoise_row_segments(b, p, bi, rng) if p != 1024 else packed_segments(b, p, rng)
+    seg_np = _denoise_row_segments(b, p, bi, rng) if layout == "denoise" \
+        else packed_segments(b, p, rng)
     seg = torch.from_numpy(seg_np).to(dev)
-    pos = torch.arange(p, device=dev).expand(b, p)
-    cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(pos, dh))
-    out, lse = tfa.flash_fwd(qs, k, v, seg, cos, sin, False, dh, bi)
+    cos = sin = None
+    if rope:
+        pos = torch.arange(p, device=dev).expand(b, p)
+        cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(pos, dh))
+    return qs, k, v, do, seg, cos, sin, rng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_SPLIT_CASES))
+def test_split_backward_kernels_match_plain(cuda_device, case):
+    """flash_dq (with its delta, a cotangent of lse folded in), flash_dkv
+    and the forward against their plain versions, at the tolerances of the
+    fused kernels; padded rows exactly 0. Cases: 16 bit slots (64 on
+    split-on-edge, a split on a tile edge), P under one 128-row block (72;
+    50, whose block has one 64-row box), ragged long rows (1000), MAX_P,
+    causal with and without a split, no RoPE. With a split the backward
+    wrapper launches each split kernel once and the fused one not at all;
+    two launches give the same bits."""
+    dev = cuda_device
+    b, p, h, bi, causal, _, _ = _SPLIT_CASES[case]
+    dh = 64
+    qs, k, v, do, seg, cos, sin, rng = _split_inputs(case, dev)
+    out, lse = tfa.flash_fwd(qs, k, v, seg, cos, sin, causal, dh, bi)
     torch.cuda.synchronize()
     with ops.reference_mode():
-        rout, rlse = tfa.flash_fwd(qs, k, v, seg, cos, sin, False, dh, bi)
+        rout, rlse = tfa.flash_fwd(qs, k, v, seg, cos, sin, causal, dh, bi)
     valid = seg > 0
     torch.testing.assert_close(out.float(), rout.float(), atol=3e-2, rtol=2e-2)
     assert _rel(out[valid], rout[valid]) < 4e-3
@@ -356,27 +383,97 @@ def test_split_backward_kernels_match_plain(cuda_device, shape):
     assert bool((out[~valid] == 0).all())
     dlse = torch.from_numpy(rng.normal(size=(b, h, p)).astype(np.float32) * 0.3).to(dev)
     dlse = dlse * valid[:, None, :]  # padded rows take no part in the backward
-    dq_args = (qs, k, v, seg, cos, sin, out, lse, do, dlse, False, dh, bi)
+    dq_args = (qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh, bi)
+    before = (tfa.flash_dq.launches, tfa.flash_dkv.launches)
     dq, delta = tfa.flash_dq(*dq_args)
-    args = (qs, k, v, seg, cos, sin, lse, delta, do, False, dh, bi)
+    args = (qs, k, v, seg, cos, sin, lse, delta, do, causal, dh, bi)
     dk, dv = tfa.flash_dkv(*args)
     torch.cuda.synchronize()
+    assert (tfa.flash_dq.launches, tfa.flash_dkv.launches) == (before[0] + 1, before[1] + 1)
     with ops.reference_mode():
         rdq, rdelta = tfa.flash_dq(*dq_args)
         rdk, rdv = tfa.flash_dkv(*args)
-    # the delta kernel sums 64 bf16 products in fp32 in another order
+    # delta sums 64 bf16 products in fp32 in another order
     torch.testing.assert_close(delta, rdelta, atol=1e-5, rtol=1e-5)
     for g, r in zip((dq, dk, dv), (rdq, rdk, rdv)):
         torch.testing.assert_close(g.float(), r.float(), atol=3.2e-2, rtol=2e-2)
         assert _rel(g, r) < 2e-3
         assert bool((g[~valid] == 0).all())
-    before = (tfa.flash_dq.launches, tfa.flash_dkv.launches, tfa.flash_bwd.launches)
-    got = tfa.flash_bwd(qs, k, v, seg, cos, sin, out, lse, do, dlse, False, dh, bi)
-    torch.cuda.synchronize()
-    assert (tfa.flash_dq.launches, tfa.flash_dkv.launches, tfa.flash_bwd.launches) == (
-        before[0] + 1, before[1] + 1, before[2])
+    if bi > 0:
+        before = (tfa.flash_dq.launches, tfa.flash_dkv.launches, tfa.flash_bwd.launches)
+        got = tfa.flash_bwd(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh, bi)
+        torch.cuda.synchronize()
+        assert (tfa.flash_dq.launches, tfa.flash_dkv.launches, tfa.flash_bwd.launches) == (
+            before[0] + 1, before[1] + 1, before[2])
+    else:
+        got = tfa.flash_dq(*dq_args)[:1] + tfa.flash_dkv(*args)
     for g, r in zip(got, (dq, dk, dv)):
         assert torch.equal(g, r)  # no atomics: the same bits every run
+
+
+@pytest.mark.gpu
+def test_split_backward_ignores_non_finite_do_in_padded_rows(cuda_device):
+    """inf and NaN in do's padded rows (which TMA brings in raw) change no
+    bit of dq, delta, dk or dv."""
+    dev = cuda_device
+    b, p, h, bi, causal, _, _ = _SPLIT_CASES["denoise"]
+    dh = 64
+    qs, k, v, do, seg, cos, sin, _ = _split_inputs("denoise", dev, seed=13)
+    out, lse = tfa.flash_fwd(qs, k, v, seg, cos, sin, causal, dh, bi)
+    pad = (seg == 0)[..., None]
+    assert bool(pad.any())
+    clean = torch.where(pad, torch.zeros_like(do), do)
+    noisy = clean.clone()
+    noisy[pad.expand_as(noisy)] = float("nan")
+    noisy[0][pad[0, :, 0]] = float("inf")
+    runs = []
+    for d in (clean, noisy):
+        dq, delta = tfa.flash_dq(qs, k, v, seg, cos, sin, out, lse, d, None, causal, dh, bi)
+        dk, dv = tfa.flash_dkv(qs, k, v, seg, cos, sin, lse, delta, d, causal, dh, bi)
+        runs.append((dq, delta, dk, dv))
+    torch.cuda.synchronize()
+    for a, n in zip(*runs):
+        assert bool(torch.isfinite(a.float()).all())
+        assert torch.equal(a, n)
+
+
+@pytest.mark.gpu
+def test_split_backward_kernels_raise_outside_their_contract(cuda_device):
+    dev = cuda_device
+    qs, k, v, do, seg, cos, sin, _ = _split_inputs("P72", dev)
+    bi, dh = 16, 64
+    out, lse = tfa.flash_fwd(qs, k, v, seg, cos, sin, False, dh, bi)
+    delta = torch.zeros_like(lse)
+
+    def both(qs, k, v, do, out, dh=dh):
+        tfa.flash_dq(qs, k, v, seg, cos, sin, out, lse, do, None, False, dh, bi)
+        tfa.flash_dkv(qs, k, v, seg, cos, sin, lse, delta, do, False, dh, bi)
+
+    with pytest.raises(NotImplementedError):  # fp32
+        both(qs.float(), k.float(), v.float(), do.float(), out.float())
+    with pytest.raises(NotImplementedError):  # head dim 32
+        tfa.flash_dq(qs, k, v, seg, None, None, out, lse.repeat(1, 2, 1), do, None, False, 32,
+                     bi)
+    with pytest.raises(NotImplementedError):  # head dim 32
+        tfa.flash_dkv(qs, k, v, seg, None, None, lse.repeat(1, 2, 1), delta.repeat(1, 2, 1), do,
+                      False, 32, bi)
+    with pytest.raises(ValueError):  # a contiguous view 2 bytes past an aligned base
+        flat = torch.zeros(qs.numel() + 1, device=dev, dtype=torch.bfloat16)
+        view = flat[1:].view(qs.shape)
+        view.copy_(qs)
+        both(view, k, v, do, out)
+    with pytest.raises(ValueError):  # the same for flash_dkv alone
+        tfa.flash_dkv(qs, k, v, seg, cos, sin, lse, delta, view, False, dh, bi)
+    b, h = qs.shape[0], lse.shape[1]
+    long_rows = torch.zeros(b, 2112, h * dh, device=dev, dtype=torch.bfloat16)
+    long_seg = torch.ones(b, 2112, device=dev, dtype=torch.int32)
+    long_lse = torch.zeros(b, h, 2112, device=dev)
+    with pytest.raises(NotImplementedError):  # P past MAX_P
+        tfa.flash_dq(long_rows, long_rows, long_rows, long_seg, None, None, long_rows, long_lse,
+                     long_rows, None, False, dh, bi)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_dkv(long_rows, long_rows, long_rows, long_seg, None, None, long_lse, long_lse,
+                      long_rows, False, dh, bi)
 
 
 @pytest.mark.gpu
