@@ -424,14 +424,16 @@ def flash_at_shape(fa, ops, tag, seg, cos, sin, h: int, dh: int, causal: bool = 
     lib_fwd, lib_bwd = sdpa_ms(fa, seg, qs, k, v, do, cos, sin, causal, h, dh)
     print(
         f"flash_bwd[{tag}] B={b} P={p} H={h}: kernel {ms:.4f} ms (3 readings {ms_spread}), "
-        f"SDPA backward {lib_bwd:.4f} ms, bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.2f} GFLOP); flash_fwd[{tag}] kernel {fwd_ms:.4f} ms (3 readings "
-        f"{fwd_spread}), SDPA {lib_fwd:.4f} ms, bound {fbms:.4f} ms ({fby}: "
-        f"{fbytes / 1e6:.1f} MB, {fflops / 1e9:.2f} GFLOP)",
+        f"{bms / ms:.1%} of the bound, SDPA backward {lib_bwd:.4f} ms, bound {bms:.4f} ms "
+        f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); flash_fwd[{tag}] kernel "
+        f"{fwd_ms:.4f} ms (3 readings {fwd_spread}), {fbms / fwd_ms:.1%} of the bound, SDPA "
+        f"{lib_fwd:.4f} ms, bound {fbms:.4f} ms ({fby}: {fbytes / 1e6:.1f} MB, "
+        f"{fflops / 1e9:.2f} GFLOP)",
         flush=True,
     )
     return dict(err=err, rel=rel, fwd_err=fwd_err, ms=ms, bound_ms=bms, bound_by=by,
-                lib_ms=lib_bwd, fwd_ms=fwd_ms, fwd_bound_ms=fbms, fwd_lib_ms=lib_fwd)
+                lib_ms=lib_bwd, bound_share=bms / ms, fwd_ms=fwd_ms, fwd_bound_ms=fbms,
+                fwd_lib_ms=lib_fwd, fwd_bound_share=fbms / fwd_ms)
 
 
 def split_at_shape(fa, ops, tag, seg, cos, sin, bi: int, h: int, dh: int):
@@ -598,13 +600,13 @@ def flash_phase(dev, fa, ops, synthetic, rope_cos_sin):
         bms, by = bound(nbytes, flops)
         print(
             f"flash_fwd[{tag}] B={b} P={p} H={h} Dh={dh}: kernel {ms:.4f} ms (3 readings "
-            f"{ms_spread}), plain {plain_ms:.4f} ms, "
+            f"{ms_spread}), {bms / ms:.1%} of the bound, plain {plain_ms:.4f} ms, "
             f"SDPA {lib_ms:.4f} ms, bound {bms * 1e3:.2f} us ({by}: {nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.3f} GFLOP)",
             flush=True,
         )
         res[tag] = dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
-                        bound_ms=bms, bound_by=by)
+                        bound_ms=bms, bound_by=by, bound_share=bms / ms)
     return res
 
 
@@ -719,17 +721,42 @@ def flash_bwd_phase(dev, fa, ops, synthetic, rope_cos_sin):
         bms, by = bound(nbytes, flops)
         print(
             f"flash_bwd[{tag}] B={b} P={p} H={h} Dh={dh}: kernel {ms:.4f} ms (3 readings "
-            f"{ms_spread}), plain {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, bound "
-            f"{bms * 1e3:.2f} us ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)",
+            f"{ms_spread}), {bms / ms:.1%} of the bound, plain {plain_ms:.4f} ms, SDPA backward "
+            f"{lib_ms:.4f} ms, bound {bms * 1e3:.2f} us ({by}: {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.3f} GFLOP)",
             flush=True,
         )
         res[tag] = dict(err=err, rel=rel, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
-                        bound_ms=bms, bound_by=by)
+                        bound_ms=bms, bound_by=by, bound_share=bms / ms)
+    flash_bwd_non_finite_check(fa, qs, k, v, seg, cos, sin, do, dh)
     del qs, k, v, seg, cos, sin, do, got, ref
 
     # the training batch: B 64, bidirectional
     res["train"] = flash_at_shape(fa, ops, "train shape", *inputs(64), h, dh)
     return res
+
+
+def flash_bwd_non_finite_check(fa, qs, k, v, seg, cos, sin, do, dh: int):
+    """flash_bwd, untimed, with inf and NaN written into do's padded rows
+    (both masks): every bit of dq, dk and dv must stay as with zeros there."""
+    pad = (seg == 0)[..., None].expand_as(do)
+    if not bool(pad.any()):
+        fail("the non-finite check needs padded rows")
+    clean = do.masked_fill(pad, 0.0)
+    noisy = do.masked_fill(pad, float("nan"))
+    noisy[-1].masked_fill_(pad[-1], float("inf"))
+    for causal in (False, True):
+        out, lse = fa.flash_fwd(qs, k, v, seg, cos, sin, causal, dh)
+        runs = [fa.flash_bwd(qs, k, v, seg, cos, sin, out, lse, d, None, causal, dh)
+                for d in (clean, noisy)]
+        same = all(torch.equal(a, n) for a, n in zip(*runs))
+        finite = all(bool(torch.isfinite(a.float()).all()) for a in runs[1])
+        tag = "causal" if causal else "bidirectional"
+        print(f"flash_bwd[{tag}, B={seg.shape[0]}] with inf and NaN in do's "
+              f"{int(pad[..., 0].sum())} padded rows: every output bit the same {same}, "
+              f"finite {finite}", flush=True)
+        if not (same and finite):
+            fail(f"non-finite do in padded rows reached an output of flash_bwd ({tag})")
 
 
 def rms_bwd_phase(dev, mlp, ops, n: int = 65536):
@@ -1526,7 +1553,7 @@ def stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_rows:
         name = {"fwd": "flash_fwd_stream", "dq": "flash_dq_stream", "dkv": "flash_dkv_stream"}[kind]
         lib = "SDPA" if kind == "fwd" else "SDPA backward (dq, dk, dv)"
         extra = (f"; kernel #1 (ggt_flash_fwd) on the same rows {single_ms:.4f} ms (3 readings "
-                 f"{single_spread})") if kind == "fwd" else ""
+                 f"{single_spread}), {bms / single_ms:.1%} of the bound") if kind == "fwd" else ""
         print(f"{name} B={b} P={p} H={h}: kernel {ms:.4f} ms (3 readings {ms_spread}), plain "
               f"{plain_ms:.4f} ms, {lib} {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP){extra}", flush=True)
@@ -2389,9 +2416,9 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
-    # the wgmma kernels (#12; #4, #5) keep no spill and let ptxas pipeline
-    # their wgmma (no C7512/C7513)
-    for name in ("norm_qkv", "flash_bwd_split"):
+    # the wgmma kernels (#12; #4, #5; #1; #3) keep no spill and let ptxas
+    # pipeline their wgmma (no C7512/C7513)
+    for name in ("norm_qkv", "flash_bwd_split", "flash_fwd", "flash_bwd"):
         if re.search(r"[1-9]\d* bytes spill|C751[0-9]", logs.get(name, "")):
             fail(f"ptxas spilled in {name}.cu or serialised its wgmma (see the build lines above)")
 
@@ -2501,12 +2528,15 @@ def main() -> None:
               dict(fb, err=max([r["err"] for r in fres.values()]
                                + [tr["fwd_err"], ftf["fwd_err"], psf["fwd_err"],
                                   dn["fwd"]["err"], sp["fwd"]["err"]])),
-              FLASH_TOL, causal_ms=fres["causal"]["ms"],
+              FLASH_TOL, bound_share=fb["bound_share"], causal_ms=fres["causal"]["ms"],
+              causal_library_ms=fres["causal"]["lib_ms"],
+              causal_bound_share=fres["causal"]["bound_share"],
               **{f"{tag}_shape_{k}": r[f"fwd_{k}"] for tag, r in (
                   ("train", tr), ("finetune", ftf), ("pos", psf))
-                 for k in ("ms", "bound_ms", "lib_ms")},
+                 for k in ("ms", "bound_ms", "lib_ms", "bound_share")},
               **{f"bicausal_{tag}_{k}": r["fwd"][k] for tag, r in (("denoise", dn), ("p1024", sp))
-                 for k in ("ms", "plain_ms", "lib_ms", "bound_ms")}),
+                 for k in ("ms", "plain_ms", "lib_ms", "bound_ms", "bound_share")},
+              p4096_entry_ms=lc["fwd"]["single_ms"]),
         entry("norm_mlp", "norm_mlp.cu", "mlp.py:203",
               dict(mres, err=max(mres["err"], dnm["err"], psm["err"])), MLP_TOL,
               train_shape_ms=mres["train_ms"], train_shape_bound_ms=mres["train_bound_ms"],
@@ -2515,10 +2545,12 @@ def main() -> None:
               **at("pos_shape", psm, ("ms", "plain_ms", "lib_ms", "bound_ms"))),
         entry("flash_bwd", "flash_bwd.cu", "flash_attention.py:706",
               dict(bb, err=max([r["err"] for r in bres.values()] + [ftf["err"], psf["err"]])),
-              FLASH_BWD_TOL, causal_ms=bres["causal"]["ms"],
+              FLASH_BWD_TOL, bound_share=bb["bound_share"], causal_ms=bres["causal"]["ms"],
+              causal_library_ms=bres["causal"]["lib_ms"],
+              causal_bound_share=bres["causal"]["bound_share"],
               **{f"{tag}_shape_{k}": r[k] for tag, r in (
                   ("train", tr), ("finetune", ftf), ("pos", psf))
-                 for k in ("ms", "bound_ms", "lib_ms")}),
+                 for k in ("ms", "bound_ms", "lib_ms", "bound_share")}),
         entry("rmsnorm_bwd", "rmsnorm_bwd.cu", "mlp.py:414",
               dict(rres, err=max(rres["err"], ftr["err"], dnr["err"])), RMS_BWD_TOL,
               **at("finetune_shape", ftr, ("ms", "bound_ms", "plain_ms", "lib_ms")),

@@ -1,17 +1,17 @@
 // The two passes of the flash backward over one 64-row tile, shared by the
-// fused kernel (flash_bwd.cu, both passes in one CTA), the streamed pair
-// (flash_stream.cu, one pass a kernel) and the band backward
-// (flash_band.cu); the split pair #4, #5 (flash_bwd_split.cu) has a body of
-// its own for Hopper: as the owner of KEYS a CTA sums dk and dv over the
+// streamed pair (flash_stream.cu, one pass a kernel) and the band backward
+// (flash_band.cu, both passes in one CTA); the split pair #4, #5
+// (flash_bwd_split.cu) and the fused backward #3 (flash_bwd.cu) have bodies
+// of their own for Hopper: as the owner of KEYS a CTA sums dk and dv over the
 // visiting query tiles; as the owner of QUERIES it sums dq over the visiting
 // key tiles. Each pass recomputes S and dP for a tile pair from q, k, v, do,
 // lse and delta, skips a pair whose segment-id ranges do not meet, and masks
 // by segment (seg_q[row] == seg_k[col] > 0) and by the per-row bounds of
 // flash_common.cuh (causal or bi-causal). The streamed pair is the two
 // kernels below, instantiated with STREAM (seg_k its own array, tile ranges
-// from a table). Also the small kernel that the fused, streamed and band
+// from a table). Also the small kernel that the streamed and band
 // backwards launch first for delta = rowsum(do * out) - dlse (the split
-// pair's flash_dq sums delta itself).
+// pair's flash_dq sums delta itself; the fused backward has its own).
 #pragma once
 
 #include "flash_common.cuh"

@@ -72,6 +72,7 @@
 
 #include "flash_common.cuh"  // DH, the segment-range test, the causal and bi-causal bounds
 #include "sm90_common.cuh"   // TMA, mbarriers, wgmma descriptors, the tensor-map encoder
+#include "flash_sm90.cuh"    // wgmma64, desc_mn, ex2, bf16x2 RoPE, the visiting mask, encode3
 
 namespace split_bwd {
 namespace {
@@ -127,151 +128,6 @@ struct Args {
   float* delta;        // flash_dq writes it, flash_dkv reads it
   int B, P, H, causal, bi_split, rope;
 };
-
-#define D8(i)                                                                              \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d[64, 64] (+)= a[64, 16] @ b[16, 64] for the warpgroup: a from registers
-// (mma.m16n8k16's A layout a warp), b through its descriptor, K-major
-// (TB 0) or MN-major (TB 1: wgmma's transpose bit); scale_d 0 overwrites d.
-template <int TB>
-__device__ __forceinline__ void wgmma64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
-                                        int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : D8(0), D8(8), D8(16), D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TB));
-}
-
-#undef D8
-
-// The descriptor of a [64 rows, 64] 128-byte swizzled tile read MN-major:
-// a row holds 64 of N, 8-row groups of K lie 1024 bytes apart. Both offset
-// fields carry 1024 (the N extent is one 64-wide swizzle atom, so only the
-// K-group stride is read). A k-step of 16 rows advances 2048 bytes (+128).
-__device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// pin for every register of a wgmma sum or register A operand: the value
-// stays in its register across the asynchronous product (FlashAttention-3
-// fences its register operands so)
-__device__ __forceinline__ void pin_all(float (&d)[32]) {
-#pragma unroll
-  for (int j = 0; j < 32; ++j) pin(d[j]);
-}
-__device__ __forceinline__ void pin_all(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[k][r])::"memory");
-}
-
-__device__ __forceinline__ uint4 lds128(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(addr));
-  return v;
-}
-__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
-               "r"(v.z), "r"(v.w)
-               : "memory");
-}
-
-// 4 bytes global -> shared, zero-filled when !ok (nothing read).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr(dst)),
-               "l"((uint64_t)__cvta_generic_to_global(src)), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-// The mbarrier counts one arrival when this thread's earlier cp.async land.
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ float lo_f(uint32_t v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ float hi_f(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// bf16x2 products and sums, each rounded once to bf16: the product of two
-// bf16 is exact in fp32 and a sum of two bf16 rounds to the same bf16
-// either way, so these give load_tile's fp32 roundings bit for bit
-__device__ __forceinline__ uint32_t bmul(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-__device__ __forceinline__ uint32_t badd(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-// RoPE on bf16x2 pairs: x at column d < 32 and y at d + 32, with their cos
-// and sin: x' = bf16(bf16(x c_x) + bf16(-y s_x)), y' = bf16(bf16(y c_y) +
-// bf16(x s_y)), load_tile's roundings.
-__device__ __forceinline__ void rope2(uint32_t& x, uint32_t& y, uint32_t cx, uint32_t cy,
-                                      uint32_t sx, uint32_t sy) {
-  const uint32_t x0 = x;
-  x = badd(bmul(x0, cx), bmul(y ^ 0x80008000u, sx));
-  y = badd(bmul(y, cy), bmul(x0, sy));
-}
-
-// 2^x, flushing subnormals: one MUFU.EX2 (2^-inf = 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ void rope16(uint4& x, uint4& y, const uint4& cx, const uint4& cy,
-                                       const uint4& sx, const uint4& sy) {
-  rope2(x.x, y.x, cx.x, cy.x, sx.x, sy.x);
-  rope2(x.y, y.y, cx.y, cy.y, sx.y, sy.y);
-  rope2(x.z, y.z, cx.z, cy.z, sx.z, sy.z);
-  rope2(x.w, y.w, cx.w, cy.w, sx.w, sy.w);
-}
-
-// The visiting tiles that an item's own block [own0, own0 + 128) can meet,
-// bit vt for the tile of rows [64 vt, 64 vt + 64): their segment-id ranges
-// meet the own block's and, causal, they lie on its side of the diagonal
-// (an own query block meets the key tiles up to its last row, an own key
-// block the query tiles from its first on). Each warp that walks the ring
-// computes it (tile_range: a warp's lanes read 64 ids).
-__device__ __forceinline__ uint32_t visiting_mask(const int* segb, int own0, int P, bool tri,
-                                                  bool dkv, int lane) {
-  const int nt = (P + 63) / 64;
-  int olo, ohi, lo, hi;
-  tile_range(segb, own0, P, lane, &olo, &ohi);
-  tile_range(segb, own0 + 64, P, lane, &lo, &hi);
-  olo = min(olo, lo);
-  ohi = max(ohi, hi);
-  int vb = 0, ve = nt;
-  if (tri) {
-    if (dkv) vb = own0 / 64;
-    else ve = min(nt, (own0 + ROWS - 1) / 64 + 1);
-  }
-  uint32_t mask = 0;
-  for (int vt = vb; vt < ve; ++vt) {
-    tile_range(segb, vt * 64, P, lane, &lo, &hi);
-    if (!ranges_miss(olo, ohi, lo, hi)) mask |= 1u << vt;
-  }
-  return mask;
-}
 
 // The schedule: items (b, 128-row block, h), h fastest; CTA c takes the
 // contiguous run [c n / G, (c + 1) n / G).
@@ -773,26 +629,6 @@ split_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant__ C
     }
   }
   if ((tid & 127) == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// Error codes of the C entries beside CUDA's own (all below 1000).
-constexpr int ERR_NO_ENCODE = 1000;  // cuTensorMapEncodeTiled not found in the driver
-constexpr int ERR_ENCODE = 1001;     // a tensor map was refused
-constexpr int ERR_P = 1002;          // P past MAX_P
-constexpr int ERR_DEVICE = 1003;     // a device index past MAX_DEVICES
-constexpr int MAX_DEVICES = 64;
-
-// A bf16 [B, P, width] tensor as a 3D map {width, P, B} in [64, 64] boxes,
-// 128-byte swizzled; rows past P read as zeros and are not written.
-bool encode3(EncodeTiled fn, CUtensorMap* map, const void* base, int B, int P, int width) {
-  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)P, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)width * 2, (cuuint64_t)width * 2 * P};
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The launch: tensors in the roles of the DKV kernel (own1..3, vis1, vis2,

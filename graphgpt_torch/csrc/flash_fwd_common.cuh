@@ -1,6 +1,7 @@
-// The flash forward over one 64-row query tile, shared by the single-block
-// forward (flash_fwd.cu, kernel #1), the streamed forward (flash_stream.cu,
-// kernel #6) and the band forward (flash_band.cu, kernel #9). STREAM selects
+// The flash forward over one 64-row query tile, shared by the streamed
+// forward (flash_stream.cu, kernel #6) and the band forward (flash_band.cu,
+// kernel #9); the single-block forward #1 (flash_fwd.cu) instantiated it
+// without either switch until it took a Hopper body of its own. STREAM selects
 // what the streamed kernel adds: the keys' segment ids come from their own
 // array (seg_k, a ring chunk's visiting keys) and each tile's segment-id
 // range from a table written once by a pre-pass, instead of from the ids,
@@ -9,7 +10,7 @@
 // holds, per q tile, the first and last key positions whose id lies in the
 // tile's [min positive id, max id] (band_table_kernel), and the loop visits
 // exactly the key tiles between them. Without either, seg_k is seg_q and the
-// tables are unused: kernel #1 compiles to what it was.
+// tables are unused.
 #pragma once
 
 #include "flash_common.cuh"
@@ -30,8 +31,8 @@ struct __align__(128) FwdSmem {
 // skipped before it is loaded. A query row whose segment is 0, or which sees
 // no key, gives out = 0 and lse = -1e30.
 //
-// At least four CTAs an SM: without the bound nvcc gives the single-block
-// instance 168 registers a thread, which leaves three CTAs an SM and made it
+// At least four CTAs an SM: without the bound nvcc gave the single-block
+// instance 168 registers a thread, which left three CTAs an SM and made it
 // slower on the H100 at every shape; with it, 128 and no spills
 // (chip_smoke.py prints the counts).
 template <bool STREAM, bool BAND = false>

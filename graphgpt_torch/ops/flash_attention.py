@@ -329,6 +329,16 @@ def unrotate_tokens(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, dh: i
     return (x4 * c - r * s).reshape(b, p, hd)
 
 
+def zero_padded_rows(do: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """do with its padded rows (segment 0) taken as zero, as
+    `_bwd_kernel_fused` (:748-753) and the CUDA kernels take it before delta
+    and any product: a non-finite value there reaches no output. The plain
+    routes of flash_bwd and flash_dq take it from here; the streamed (#7)
+    and band (#10) plain routes sum delta from the raw do, as the JAX
+    package's outside-kernel delta (:933-940) does."""
+    return torch.where((seg > 0)[..., None], do, torch.zeros((), dtype=do.dtype, device=do.device))
+
+
 def flash_delta(do, out, dlse, dh: int) -> torch.Tensor:
     """delta [B, H, P] fp32 = rowsum(do * out) - dlse in torch ops, as the
     JAX package's split backward computes it outside the kernels
@@ -358,7 +368,7 @@ def _bwd_grads(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int,
     if cos is not None:
         cos, sin = cos.to(dt), sin.to(dt)
         qs, k = rotate_tokens(qs, cos, sin, dh), rotate_tokens(k, cos, sin, dh)
-    do = torch.where((seg > 0)[..., None], do, torch.zeros((), dtype=do.dtype, device=do.device))
+    do = zero_padded_rows(do, seg)
     q4, k4, v4, do4 = _heads(qs, dh), _heads(k, dh), _heads(v, dh), _heads(do.to(dt), dh)
     delta = delta.float()
 
@@ -394,7 +404,9 @@ def flash_bwd_ref(
     p = exp(S - lse); delta = rowsum(do*out) - dlse in fp32; p rounded to the
     working dtype for dv = p^T do; ds = p*(do v^T - delta) rounded for
     dq = ds rot(k) and dk = ds^T rot(q); the inverse rotation on the fp32
-    sums, rounded once. Padded rows take no part."""
+    sums, rounded once. Padded rows take no part: do is zero there before
+    delta is summed."""
+    do = zero_padded_rows(do, seg)
     delta = flash_delta(do.to(qs.dtype), out, dlse, dh)
     return _bwd_grads(qs, k, v, seg, cos, sin, lse, delta, do, causal, dh, bi_causal_split)
 
@@ -544,8 +556,7 @@ def flash_dq(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal: bool, dh: int,
     padded rows, so that a non-finite value there reaches neither dq nor
     delta, nor flash_dkv's sums."""
     if not use_kernel(qs, k, v, seg, out, lse, do):
-        do = torch.where((seg > 0)[..., None], do, torch.zeros((), dtype=do.dtype,
-                                                                device=do.device))
+        do = zero_padded_rows(do, seg)
         delta = flash_delta(do, out, dlse, dh)
         return flash_dq_ref(qs, k, v, seg, cos, sin, lse, delta, do, causal, dh,
                             bi_causal_split), delta

@@ -137,3 +137,47 @@ def test_cpu_wrapper_runs_the_plain_version():
     )
     assert tfa.flash_fwd.launches == before
     assert out.shape == (2, 128, 128) and lse.shape == (2, 2, 128)
+
+
+def _molecule_rows(b, p, bi, rng):
+    """Rows as the fine-tune, position and denoise batches lay them out: one
+    molecule (one segment) at the front, then padding; with `bi` bit slots,
+    the last `bi` positions belong to the molecule's segment too."""
+    seg = np.zeros((b, p), np.int32)
+    for r in range(b):
+        seg[r, : int(rng.integers(10, p - bi - 4))] = 1
+        if bi:
+            seg[r, p - bi :] = 1
+    return seg
+
+
+@pytest.mark.parametrize("p", [72, 88])
+@pytest.mark.parametrize("mask", ["bidirectional", "causal", "bi-causal"])
+def test_flash_plain_matches_interpreted_kernel_on_whole_molecules(p, mask, monkeypatch):
+    """flash_fwd's plain version against the interpreted
+    `_fwd_kernel_single` at the widths where #1 runs whole rows (the
+    fine-tune and position batches' P 72, the denoise batch's P 88): one
+    molecule a row and a padded stretch, bi-causal with 16 bit slots
+    (split 56 or 72, inside a 64-row tile); fp32, the file's tolerance."""
+    monkeypatch.setenv("GGT_PALLAS_INTERPRET", "1")
+    b, h, dh = 2, 2, 64
+    causal, bi = {"bidirectional": (False, 0), "causal": (True, 0), "bi-causal": (False, 16)}[mask]
+    rng = np.random.default_rng(31)
+    q, k, v = ((rng.normal(size=(b, p, h * dh)) * 0.5).astype(np.float32) for _ in range(3))
+    qs = q * dh**-0.5
+    seg = _molecule_rows(b, p, bi, rng)
+    cos, sin = (np.array(a) for a in _rope_np(np.tile(np.arange(p, dtype=np.int32), (b, 1)), dh))
+    bq, bk = jfa._fwd_blocks(p)
+    assert bk == p  # one key block: the single-block kernel
+    jseg = jnp.asarray(seg)
+    want_out, want_lse = jfa._flash_fwd(
+        jnp.asarray(qs), jnp.asarray(k), jnp.asarray(v), jseg, jseg, causal, bq, bk, h, dh,
+        bi_split=bi, rope=(jnp.asarray(cos), jnp.asarray(sin)))
+    t = torch.from_numpy
+    out, lse = tfa.flash_fwd(t(qs), t(k), t(v), t(seg), t(cos), t(sin), causal, dh, bi)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=TOL, rtol=TOL)
+    valid = np.broadcast_to((seg > 0)[:, None, :], lse.shape)
+    np.testing.assert_allclose(lse.numpy()[valid], np.asarray(want_lse)[valid], atol=TOL,
+                               rtol=TOL)
+    assert np.all(lse.numpy()[~valid] == -1e30)
+    assert np.all(out.numpy()[seg == 0] == 0)

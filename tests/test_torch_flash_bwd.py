@@ -245,3 +245,111 @@ def test_cpu_backward_wrapper_runs_the_plain_version():
     tfa.flash_attention(*leaves, t(seg)).sum().backward()
     assert tfa.flash_bwd.launches == before
     assert all(leaf.grad is not None and torch.isfinite(leaf.grad).all() for leaf in leaves)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rope", [True, False], ids=["rope", "norope"])
+def test_flash_bwd_ignores_non_finite_do_in_padded_rows(dtype, rope, monkeypatch):
+    """The fused route on CPU tensors, as `_bwd_kernel_fused` (:748-753) and
+    the CUDA kernel: do is taken as zero on padded rows before delta is
+    summed, so inf and NaN written there reach neither dq nor dk (through
+    delta) nor dv; against the interpreted fused backward on the same
+    inputs, the file's tolerances, padded rows exactly 0."""
+    monkeypatch.setenv("GGT_PALLAS_INTERPRET", "1")
+    q, k, v, do, seg, cos, sin = _inputs(seed=15)
+    pad = seg == 0
+    assert pad.any()
+    noisy = _flat(do).copy()
+    noisy[pad] = np.nan
+    rows = np.argwhere(pad)[::2]
+    noisy[rows[:, 0], rows[:, 1]] = np.inf
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    qs = _flat(q) * DH**-0.5
+    j = lambda a: jnp.asarray(a, jdt)  # noqa: E731
+    jrope = (j(cos), j(sin)) if rope else None
+    jseg = jnp.asarray(seg)
+    bq, bk = jfa._fwd_blocks(P)
+    out, lse = jfa._flash_fwd(j(qs), j(_flat(k)), j(_flat(v)), jseg, jseg, False, bq, bk, H, DH,
+                              rope=jrope)
+    want = jfa._flash_bwd(j(qs), j(_flat(k)), j(_flat(v)), jseg, jseg, out, lse, j(noisy),
+                          False, H, DH, rope=jrope)
+    t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(tdt)  # noqa: E731
+    got = tfa.flash_bwd(
+        t(qs), t(_flat(k)), t(_flat(v)), torch.from_numpy(seg),
+        t(cos) if rope else None, t(sin) if rope else None,
+        t(np.asarray(out, np.float32)), torch.from_numpy(np.array(lse)), t(noisy), None,
+        False, DH,
+    )
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float().numpy(), np.asarray(w, np.float32)
+        assert np.isfinite(w).all(), name
+        assert np.isfinite(g).all(), name
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, atol=TOL, rtol=TOL, err_msg=name)
+        else:
+            np.testing.assert_allclose(g, w, atol=3e-2, rtol=2e-2, err_msg=name)
+            assert np.linalg.norm(g - w) / np.linalg.norm(w) < 1e-2, name
+        assert np.all(g[pad] == 0), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p", [72, 88])
+@pytest.mark.parametrize("causal", [False, True], ids=["bidirectional", "causal"])
+def test_flash_bwd_ref_matches_interpreted_kernel_on_whole_molecules(dtype, p, causal,
+                                                                    monkeypatch):
+    """flash_bwd's plain version against the interpreted `_bwd_kernel_fused`
+    at the widths where #3 runs whole rows (the fine-tune and position
+    batches' P 72; P 88): one molecule a row, then a padded stretch; RoPE and
+    a cotangent of lse on the valid rows; the file's tolerances."""
+    monkeypatch.setenv("GGT_PALLAS_INTERPRET", "1")
+    b = 2
+    rng = np.random.default_rng(33)
+    q, k, v, do = ((rng.normal(size=(b, p, H * DH)) * 0.5).astype(np.float32)
+                   for _ in range(4))
+    seg = np.zeros((b, p), np.int32)
+    for r in range(b):
+        seg[r, : int(rng.integers(10, p - 4))] = 1
+    cos, sin = (np.asarray(a) for a in
+                j_rope_cos_sin(jnp.asarray(np.tile(np.arange(p, dtype=np.int32), (b, 1))), DH))
+    dlse = (rng.normal(size=(b, H, p)) * 0.3).astype(np.float32) * (seg > 0)[:, None, :]
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    qs = q * DH**-0.5
+    j = lambda a: jnp.asarray(a, jdt)  # noqa: E731
+    jrope, jseg = (j(cos), j(sin)), jnp.asarray(seg)
+    bq, bk = jfa._fwd_blocks(p)
+    assert bk == p  # whole rows: the fused kernel's single block
+    out, lse = jfa._flash_fwd(j(qs), j(k), j(v), jseg, jseg, causal, bq, bk, H, DH, rope=jrope)
+    want = jfa._flash_bwd(j(qs), j(k), j(v), jseg, jseg, out, lse, j(do), causal, H, DH,
+                          dlse=jnp.asarray(dlse), rope=jrope)
+    t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(tdt)  # noqa: E731
+    got = tfa.flash_bwd(t(qs), t(k), t(v), torch.from_numpy(seg), t(cos), t(sin),
+                        t(np.asarray(out, np.float32)), torch.from_numpy(np.array(lse)), t(do),
+                        torch.from_numpy(dlse), causal, DH)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float().numpy(), np.asarray(w, np.float32)
+        assert g.shape == w.shape, name
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, atol=TOL, rtol=TOL, err_msg=name)
+        else:
+            np.testing.assert_allclose(g, w, atol=3e-2, rtol=2e-2, err_msg=name)
+            assert np.linalg.norm(g - w) / np.linalg.norm(w) < 1e-2, name
+        assert np.all(g[seg == 0] == 0), name
+
+
+def test_zero_padded_rows_leaves_the_valid_rows_bit_for_bit():
+    """The one place both plain routes of the fused and split backward take
+    do as zero on padded rows: non-finite values there go, the valid rows
+    keep their bits, the dtype stays."""
+    rng = np.random.default_rng(35)
+    seg = torch.from_numpy(packed_segments(2, 40, rng))
+    seg[1, 30:] = 0
+    do = torch.from_numpy(rng.normal(size=(2, 40, 8)).astype(np.float32)).to(torch.bfloat16)
+    noisy = do.clone()
+    noisy[seg == 0] = float("nan")
+    noisy[1, 31] = float("inf")
+    got = tfa.zero_padded_rows(noisy, seg)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got[seg > 0], do[seg > 0])
+    assert bool((got[seg == 0] == 0).all())

@@ -41,37 +41,126 @@ def _bf16(rng, shape, scale, dev):
     )
 
 
+def _molecule_segments(b, p, rng):
+    """Rows laid out as the fine-tune and position batches lay them out: one
+    molecule (one segment) at the front, then padding."""
+    seg = np.zeros((b, p), np.int32)
+    for r in range(b):
+        seg[r, : int(rng.integers(10, p + 1))] = 1
+    return seg
+
+
+# (B, P, H, bit slots, RoPE, row layout) of #1's and #3's cases; "padded-row"
+# has a batch row of padding only, whose rows see no key
+_FLASH_CASES = {
+    "P128": (2, 128, 3, 0, True, "packed"),
+    "P200": (2, 200, 3, 0, True, "packed"),
+    "P50": (2, 50, 3, 0, True, "molecule"),
+    "P72": (4, 72, 12, 0, True, "molecule"),
+    "P88": (4, 88, 12, 0, True, "molecule"),
+    "P88-bicausal": (4, 88, 12, 16, True, "denoise"),
+    "P1000": (2, 1000, 12, 0, True, "packed"),
+    "P1024-bicausal": (2, 1024, 12, 16, True, "packed"),
+    "P2048": (1, 2048, 12, 0, True, "packed"),
+    "no-rope": (4, 88, 12, 0, False, "molecule"),
+    "padded-row": (3, 200, 3, 0, True, "padded-row"),
+}
+
+
+def _flash_inputs(case, dev, seed=5):
+    """(qs, k, v, do, seg, cos, sin, rng) of a _FLASH_CASES (or _BWD_CASES) case: q
+    pre-scaled, the last 30 positions of the last row padded on packed
+    rows."""
+    b, p, h, bi, rope, layout = _FLASH_CASES.get(case) or _BWD_CASES[case]
+    dh = 64
+    rng = np.random.default_rng(seed)
+    qs = _bf16(rng, (b, p, h * dh), 0.5 * dh**-0.5, dev)
+    k, v, do = (_bf16(rng, (b, p, h * dh), 0.5, dev) for _ in range(3))
+    if layout == "molecule":
+        seg_np = _molecule_segments(b, p, rng)
+    elif layout == "denoise":
+        seg_np = _denoise_row_segments(b, p, bi, rng)
+    else:
+        seg_np = packed_segments(b, p, rng)
+        seg_np[-1, p - 30 :] = 0
+        if layout == "padded-row":
+            seg_np[1] = 0
+    seg = torch.from_numpy(seg_np).to(dev)
+    cos = sin = None
+    if rope:
+        pos = torch.arange(p, device=dev).expand(b, p)
+        cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(pos, dh))
+    return qs, k, v, do, seg, cos, sin, rng
+
+
+def _check_fwd(out, lse, rout, rlse, seg):
+    """#1 against its plain version: bf16 out elementwise (the kernel rounds
+    the probabilities relative to a running max, the plain version relative
+    to the row max) and as a whole (a fault on the P.V side cannot hide under
+    the elementwise tolerance of small outputs); lse; padded rows exactly 0
+    and -1e30."""
+    valid = seg > 0
+    torch.testing.assert_close(out.float(), rout.float(), atol=2e-2, rtol=2e-2)
+    assert _rel(out[valid], rout[valid]) < 1e-2
+    torch.testing.assert_close(lse.transpose(1, 2)[valid], rlse.transpose(1, 2)[valid],
+                               atol=1e-3, rtol=1e-4)
+    assert bool((out[~valid] == 0).all())
+    assert bool((lse.transpose(1, 2)[~valid] == -1e30).all())
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("p", [128, 200])
-def test_flash_kernel_matches_plain(cuda_device, causal, p):
+@pytest.mark.parametrize("causal", [False, True], ids=["bidirectional", "causal"])
+@pytest.mark.parametrize("case", list(_FLASH_CASES))
+def test_flash_kernel_matches_plain(cuda_device, causal, case):
+    """#1 through its wrapper against the plain version, one launch a call,
+    the same bits on a relaunch. Cases: packed rows at P 128, 200 (ragged),
+    1000 and 2048 (MAX_P); whole molecules at the fine-tune and position
+    width 72 and the denoise width 88; bi-causal with 16 bit slots at 88
+    (split 72) and 1024 (split 1008, inside a tile; the causal flag then
+    changes nothing); P 50, whose 128-row item has one 64-row box; no RoPE;
+    a batch row of padding only."""
     dev = cuda_device
-    rng = np.random.default_rng(5)
-    b, h, dh = 2, 3, 64
-    q, k, v = (_bf16(rng, (b, p, h, dh), 0.5, dev) for _ in range(3))
-    seg = packed_segments(b, p, rng)
-    seg[-1, p - 30 :] = 0
-    seg = torch.from_numpy(seg).to(dev)
-    pos = torch.arange(p, device=dev).expand(b, p)
-    rope = rope_cos_sin(pos, dh)
+    _, p, h, bi, _, _ = _FLASH_CASES[case]
+    dh = 64
+    qs, k, v, _, seg, cos, sin, _ = _flash_inputs(case, dev)
+    args = (qs, k, v, seg, cos, sin, causal, dh, bi)
     before = tfa.flash_fwd.launches
-    out, lse = tfa.flash_attention(q, k, v, seg, causal=causal, rope=rope, return_lse=True)
+    out, lse = tfa.flash_fwd(*args)
     torch.cuda.synchronize()
     assert tfa.flash_fwd.launches == before + 1
     with ops.reference_mode():
-        rout, rlse = tfa.flash_attention(q, k, v, seg, causal=causal, rope=rope, return_lse=True)
+        rout, rlse = tfa.flash_fwd(*args)
     assert tfa.flash_fwd.launches == before + 1
-    # bf16 out: the kernel rounds the probabilities relative to a running
-    # max, the plain version relative to the row max
-    torch.testing.assert_close(out.float(), rout.float(), atol=2e-2, rtol=2e-2)
-    # and as a whole, so that a fault on the P.V side cannot hide under the
-    # elementwise tolerance of small outputs
-    valid = seg > 0
-    diff = (out.float() - rout.float())[valid].norm() / rout.float()[valid].norm()
-    assert diff.item() < 1e-2
-    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
-    assert bool((out[-1, p - 30 :] == 0).all())
-    assert bool((lse[-1, :, p - 30 :] == -1e30).all())
+    _check_fwd(out, lse, rout, rlse, seg)
+    again = tfa.flash_fwd(*args)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True], ids=["bidirectional", "causal"])
+def test_flash_kernel_entry_takes_p4096(cuda_device, causal):
+    """#1's C entry at P 4096 (two 64-bit masks of key tiles would be needed
+    past it; the dispatch sends such rows to #6) against the plain version
+    on 128 query rows a chunk."""
+    dev = cuda_device
+    b, p, h, dh = 1, 4096, 4, 64
+    rng = np.random.default_rng(17)
+    qs = _bf16(rng, (b, p, h * dh), 0.5 * dh**-0.5, dev)
+    k, v = (_bf16(rng, (b, p, h * dh), 0.5, dev) for _ in range(2))
+    seg_np = packed_segments(b, p, rng)
+    seg_np[-1, p - 100 :] = 0
+    seg = torch.from_numpy(seg_np).to(dev)
+    pos = torch.arange(p, device=dev).expand(b, p)
+    cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(pos, dh))
+    out, lse = torch.empty_like(qs), torch.empty(b, h, p, device=dev)
+    fn = tfa._build.entry("flash_fwd", "ggt_flash_fwd", tfa._ARGTYPES)
+    ptr = tfa._build.ptr
+    tfa._build.check(fn(ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(cos), ptr(sin), ptr(out), ptr(lse),
+                        b, p, h, int(causal), 0, tfa._build.stream_ptr(dev)), "ggt_flash_fwd")
+    torch.cuda.synchronize()
+    with ops.reference_mode():
+        rout, rlse = tfa.flash_attention_ref(qs, k, v, seg, cos, sin, causal, dh, row_chunk=128)
+    _check_fwd(out, lse, rout, rlse, seg)
 
 
 @pytest.mark.gpu
@@ -277,28 +366,30 @@ def _rel(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
+# #3's cases beyond _FLASH_CASES (which it takes without their bit slots):
+# the serving and a larger batch of packed rows
+_BWD_CASES = {**{c: v for c, v in _FLASH_CASES.items() if v[3] == 0},
+              "flagship": (8, 1024, 12, 0, True, "packed"),
+              "flagship-24-rows": (24, 1024, 12, 0, True, "packed")}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", [(2, 128, 3), (2, 200, 3), (8, 1024, 12), (24, 1024, 12)],
-                         ids=["small", "ragged", "flagship", "flagship-24-rows"])
-def test_flash_bwd_kernel_matches_plain(cuda_device, causal, shape):
+@pytest.mark.parametrize("causal", [False, True], ids=["bidirectional", "causal"])
+@pytest.mark.parametrize("case", list(_BWD_CASES))
+def test_flash_bwd_kernel_matches_plain(cuda_device, causal, case):
     """dq, dk, dv in bf16: the kernel rounds p and ds where the plain version
     does and sums in another order (2 ulps of the largest values, and 2e-3 in
     the relative Frobenius norm); padded rows exactly 0. A non-zero dlse on
-    the valid rows goes through the delta term."""
+    the valid rows goes through the delta term. One launch a call, the same
+    bits on a relaunch."""
     dev = cuda_device
-    b, p, h = shape
+    b, p, h, _, _, _ = _BWD_CASES[case]
     dh = 64
-    rng = np.random.default_rng(6)
-    qs = _bf16(rng, (b, p, h * dh), 0.5 * dh**-0.5, dev)
-    k, v, do = (_bf16(rng, (b, p, h * dh), 0.5, dev) for _ in range(3))
-    seg = packed_segments(b, p, rng)
-    seg[-1, p - 30 :] = 0
-    seg = torch.from_numpy(seg).to(dev)
-    cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(torch.arange(p, device=dev).expand(b, p), dh))
+    qs, k, v, do, seg, cos, sin, rng = _flash_inputs(case, dev, seed=6)
     out, lse = tfa.flash_fwd(qs, k, v, seg, cos, sin, causal, dh)
     dlse = torch.from_numpy(rng.normal(size=(b, h, p)).astype(np.float32) * 0.3).to(dev)
     dlse = dlse * (seg > 0)[:, None, :]
+    valid = seg > 0
     for dl in (None, dlse):
         args = (qs, k, v, seg, cos, sin, out, lse, do, dl, causal, dh)
         before = tfa.flash_bwd.launches
@@ -311,7 +402,69 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, causal, shape):
         for g, r in zip(got, ref):
             torch.testing.assert_close(g.float(), r.float(), atol=3.2e-2, rtol=2e-2)
             assert _rel(g, r) < 2e-3
-            assert bool((g[-1, p - 30 :] == 0).all())
+            assert bool((g[~valid] == 0).all())
+        again = tfa.flash_bwd(*args)
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["P88", "P1000"])
+def test_flash_bwd_ignores_non_finite_do_in_padded_rows(cuda_device, case):
+    """inf and NaN in do's padded rows (which TMA brings in raw) change no
+    bit of dq, dk or dv."""
+    dev = cuda_device
+    dh = 64
+    qs, k, v, do, seg, cos, sin, _ = _flash_inputs(case, dev, seed=13)
+    out, lse = tfa.flash_fwd(qs, k, v, seg, cos, sin, False, dh)
+    pad = (seg == 0)[..., None]
+    assert bool(pad.any())
+    clean = torch.where(pad, torch.zeros_like(do), do)
+    noisy = clean.clone()
+    noisy[pad.expand_as(noisy)] = float("nan")
+    noisy[-1][pad[-1, :, 0]] = float("inf")
+    runs = [tfa.flash_bwd(qs, k, v, seg, cos, sin, out, lse, d, None, False, dh)
+            for d in (clean, noisy)]
+    torch.cuda.synchronize()
+    for a, n in zip(*runs):
+        assert bool(torch.isfinite(a.float()).all())
+        assert torch.equal(a, n)
+
+
+@pytest.mark.gpu
+def test_flash_kernels_raise_outside_their_contract(cuda_device):
+    """#1 and #3 refuse fp32, head dim 32 and a misaligned view on the host;
+    #3's entry refuses P past MAX_P (the wrapper sends such rows to the
+    streamed pair) with its own code."""
+    dev = cuda_device
+    qs, k, v, do, seg, cos, sin, _ = _flash_inputs("P72", dev)
+    dh = 64
+    out, lse = tfa.flash_fwd(qs, k, v, seg, cos, sin, False, dh)
+    with pytest.raises(NotImplementedError):  # fp32
+        tfa.flash_fwd(qs.float(), k.float(), v.float(), seg, cos, sin, False, dh)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_bwd(qs.float(), k.float(), v.float(), seg, cos, sin, out.float(), lse,
+                      do.float(), None, False, dh)
+    with pytest.raises(NotImplementedError):  # head dim 32
+        tfa.flash_fwd(qs, k, v, seg, None, None, False, 32)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_bwd(qs, k, v, seg, None, None, out, lse.repeat(1, 2, 1), do, None, False, 32)
+    flat = torch.zeros(qs.numel() + 1, device=dev, dtype=torch.bfloat16)
+    view = flat[1:].view(qs.shape)  # a contiguous view 2 bytes past an aligned base
+    view.copy_(qs)
+    with pytest.raises(ValueError):
+        tfa.flash_fwd(view, k, v, seg, cos, sin, False, dh)
+    with pytest.raises(ValueError):
+        tfa.flash_bwd(qs, k, v, seg, cos, sin, out, lse, view, None, False, dh)
+    b, p, h = 1, tfa.MAX_P + 64, 2
+    big = torch.zeros(b, p, h * dh, device=dev, dtype=torch.bfloat16)
+    big_seg = torch.ones(b, p, device=dev, dtype=torch.int32)
+    big_rows = torch.zeros(b, h, p, device=dev)
+    fn = tfa._build.entry("flash_bwd", "ggt_flash_bwd", tfa._BWD_ARGTYPES)
+    ptr = tfa._build.ptr
+    err = fn(ptr(big), ptr(big), ptr(big), ptr(big_seg), None, None, ptr(big), ptr(big_rows),
+             ptr(big), None, ptr(big_rows), ptr(big), ptr(big), ptr(big), b, p, h, 0,
+             tfa._build.stream_ptr(dev))
+    assert err == 1002
 
 
 def _denoise_row_segments(b, p, bi, rng):
