@@ -18,6 +18,11 @@
    flash_dkv) the same way at 8 x 1024 with 16 bit slots, each with its
    share of its bound; then the pair, untimed, at MAX_P (2 x 2048) and
    with inf and NaN in do's padded rows, which must change no output bit.
+   norm_mlp also bit for bit against a second launch, its share of the
+   bound and its stages (the rrms pre-pass, gate/up, down) timed alone;
+   then norm_mlp and mlp, untimed, at a ragged N 65,537, at D 384 / F 384
+   and D 128 / F 512 (N 4,096), mlp also at N 65,536 and 22,528, each
+   against its plain version and a second launch.
 4. Eval phase: GraphGPT-base at full width (seeded random weights), the
    SMTP eval loss of a packed 8 x 1024 batch, against the same model run
    with the plain versions; each forward kernel launches once per layer.
@@ -34,7 +39,8 @@
    LayerScale, DropPath and attention dropout, warm-started from that
    checkpoint with the heads skipped, one epoch of 8 x 256 graphs with EMA.
    Before it, every kernel of the fine-tune step against its plain version
-   at the first batch's shape: mlp (also at N 8192), flash_fwd and
+   at the first batch's shape: mlp (also at N 8192; as norm_mlp above,
+   its gate/up and down stages timed alone), flash_fwd and
    flash_bwd on that batch's segments and RoPE table (SDPA's forward and
    backward with that batch's mask timed beside them), rmsnorm_bwd at its
    N; then the first step's loss and every gradient against the plain run
@@ -622,56 +628,154 @@ def gated_mlp_library(x, wgu, wd_t, f: int, norm=None):
     return out if norm is None else x + out
 
 
-def norm_mlp_at_shape(dev, mlp, ops, n: int, tag: str, time_plain: bool = True):
-    """norm_mlp (gelu, D 768, F 3072, weights at 0.02) against its plain
-    version on N rows, then its time (three CUDA-event readings) beside the
-    plain version's, when asked, the library composition's
-    (gated_mlp_library with the norm and the residual) and the bound."""
-    d, f = 768, 3072
-    gen = torch.Generator(device=dev).manual_seed(1)
+def mlp_inputs(dev, n: int, d: int, f: int, seed: int):
+    """x [n, d] bf16 at unit normal, wn fp32 near 1, Wg, Wu [f, d] and Wd
+    [d, f] bf16 at 0.55 / sqrt(d) (0.02 at D 768, the model's init)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scale = 0.55 / d**0.5
     wn = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
     wg, wu = (
-        (torch.randn(f, d, generator=gen, device=dev) * 0.02).to(torch.bfloat16) for _ in range(2)
+        (torch.randn(f, d, generator=gen, device=dev) * scale).to(torch.bfloat16) for _ in range(2)
     )
-    wd = (torch.randn(d, f, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    wd = (torch.randn(d, f, generator=gen, device=dev) * scale).to(torch.bfloat16)
     x = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
-    args = (x, wn, wg, wu, wd, 1e-6, "gelu")
+    return x, wn, wg, wu, wd
+
+
+def mlp_args(name, x, wn, wg, wu, wd, act="gelu"):
+    """The wrapper's arguments of MLP kernel `name` (norm_mlp or mlp)."""
+    return (x, wn, wg, wu, wd, 1e-6, act) if name == "norm_mlp" else (x, wg, wu, wd, act)
+
+
+def mlp_relaunch(mlp, name, tag, args, out):
+    """Fail unless a second launch of MLP kernel `name` on the same inputs
+    gives out's bits."""
+    same = torch.equal(getattr(mlp, name)(*args), out)
+    print(f"{name}[{tag}]: a second launch on the same inputs is bit-equal: {same}", flush=True)
+    if not same:
+        fail(f"{name}[{tag}] differs from launch to launch")
+
+
+def mlp_stages(mlp, name, x, wn, wg, wu, wd):
+    """Each stage of MLP kernel `name` alone (norm_mlp: the rrms pre-pass,
+    gate/up, down; mlp: gate/up, down), through its stage entry on the tiles
+    the wrapper picks, gelu: ({stage: ms}, (bh, bn)). One run of every stage
+    first leaves rrms and g in place for the stages that read them."""
+    b = mlp._build
+    n, d = x.shape
+    f = wg.shape[0]
+    tiles = mlp.mlp_tiles(n, d, f, mlp._sm_count(x.device))
+    g = torch.empty((n, f), dtype=x.dtype, device=x.device)
+    out, rr = torch.empty_like(x), torch.empty(n, dtype=torch.float32, device=x.device)
+    stream, act = b.stream_ptr(x.device), mlp._ACT_IDS["gelu"]
+    if name == "norm_mlp":
+        fn = b.entry("norm_mlp", "ggt_norm_mlp_stages", mlp._STAGE_ARGTYPES)
+        ptrs = [b.ptr(t) for t in (x, wn, wg, wu, wd, g, out, rr)]
+        run = lambda m: fn(*ptrs, n, d, f, *tiles, 1e-6, act, m, stream)  # noqa: E731
+        stages = {"rrms": mlp.MLP_RRMS, "gate_up": mlp.MLP_GATE_UP, "down": mlp.MLP_DOWN}
+    else:
+        fn = b.entry("mlp", "ggt_mlp_stages", mlp._MLP_STAGE_ARGTYPES)
+        ptrs = [b.ptr(t) for t in (x, wg, wu, wd, g, out)]
+        run = lambda m: fn(*ptrs, n, d, f, *tiles, act, m, stream)  # noqa: E731
+        stages = {"gate_up": mlp.MLP_GATE_UP, "down": mlp.MLP_DOWN}
+    b.check(run(sum(stages.values())), f"{name} stages")
+    ms = {}
+    for stage, mask in stages.items():
+        ms[stage] = cuda_ms(lambda m=mask: b.check(run(m), f"{name} {stage}"), iters=10)
+    return ms, tiles
+
+
+def mlp_timed(mlp, ops, name, tag, x, wn, wg, wu, wd, time_plain: bool = True):
+    """MLP kernel `name` (gelu) timed on these inputs: three CUDA-event
+    readings beside the plain version's (when asked), the library
+    composition's (gated_mlp_library, with the norm and the residual for
+    norm_mlp), each stage alone and the bound; returns the numbers."""
+    n, d = x.shape
+    f = wg.shape[0]
+    fn, args = getattr(mlp, name), mlp_args(name, x, wn, wg, wu, wd)
+    ms = cuda_ms(lambda: fn(*args), iters=10)
+    ms_spread = spread()
+    plain_ms = None
+    if time_plain:
+        with ops.reference_mode():
+            plain_ms = cuda_ms(lambda: fn(*args), iters=3)
+    wgu, wd_t = torch.cat([wg, wu]).t(), wd.t()
+    norm = (wn.to(torch.bfloat16), 1e-6) if name == "norm_mlp" else None
+    lib_ms = cuda_ms(lambda: gated_mlp_library(x, wgu, wd_t, f, norm), iters=10)
+    del wgu
+    stages, (bh, bn) = mlp_stages(mlp, name, x, wn, wg, wu, wd)
+    flops = 2.0 * n * d * f * 3
+    nbytes = 2 * n * d * 2 + 3 * d * f * 2 + (d * 4 if name == "norm_mlp" else 0)
+    bms, by = bound(nbytes, flops)
+    plain = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
+    lib = ("F.rms_norm + matmul [Wg|Wu] + gelu * up + matmul Wd + residual" if norm
+           else "matmul [Wg|Wu] + gelu * up + matmul Wd")
+    print(
+        f"{name}[{tag}] N={n} D={d} F={f} gelu: kernel {ms:.4f} ms (3 readings {ms_spread}; "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {bms / ms:.1%} of the bound), plain {plain}, {lib} "
+        f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.1f} GFLOP); tiles BH {bh}, BN {bn}; alone: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()),
+        flush=True,
+    )
+    return dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms, bound_by=by,
+                bound_share=bms / ms, **{f"{k}_ms": v for k, v in stages.items()})
+
+
+def norm_mlp_at_shape(dev, mlp, ops, n: int, tag: str, time_plain: bool = True):
+    """norm_mlp (gelu, D 768, F 3072, weights at 0.02) against its plain
+    version on N rows and bit for bit against a second launch, then timed
+    (mlp_timed)."""
+    x, wn, wg, wu, wd = mlp_inputs(dev, n, 768, 3072, seed=1)
+    args = mlp_args("norm_mlp", x, wn, wg, wu, wd)
     out = mlp.norm_mlp(*args)
     torch.cuda.synchronize()
     with ops.reference_mode():
         ref = mlp.norm_mlp(*args)
     err = check_mlp("norm_mlp", f"{tag}, N={n}", out, ref)
-    del out, ref
-    ms = cuda_ms(lambda: mlp.norm_mlp(*args), iters=10)
-    ms_spread = spread()
-    plain_ms = None
-    if time_plain:
-        with ops.reference_mode():
-            plain_ms = cuda_ms(lambda: mlp.norm_mlp(*args), iters=3)
-    wgu, wd_t, wn16 = torch.cat([wg, wu]).t(), wd.t(), wn.to(torch.bfloat16)
-    lib_ms = cuda_ms(lambda: gated_mlp_library(x, wgu, wd_t, f, (wn16, 1e-6)), iters=10)
-    del wgu
-    flops = 2.0 * n * d * f * 3
-    nbytes = 2 * n * d * 2 + d * 4 + 3 * d * f * 2
-    bms, by = bound(nbytes, flops)
-    plain = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
-    print(
-        f"norm_mlp[{tag}] N={n} D={d} F={f} gelu: kernel {ms:.4f} ms (3 readings {ms_spread}), "
-        f"plain {plain}, F.rms_norm + matmul [Wg|Wu] + gelu * up + matmul Wd + residual "
-        f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.1f} GFLOP)",
-        flush=True,
-    )
-    return dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms, bound_by=by)
+    del ref
+    mlp_relaunch(mlp, "norm_mlp", f"{tag}, N={n}", args, out)
+    del out
+    return dict(err=err, **mlp_timed(mlp, ops, "norm_mlp", tag, x, wn, wg, wu, wd, time_plain))
+
+
+# (N, D, F, kernels) held to their plain versions and to a relaunch, untimed:
+# a ragged N (the last 128-row tile one row deep), small12's D 384 / F 384,
+# the tiny configs' D 128 / F 512, and #11 at the training and denoise rows
+MLP_CONTRACT = ((65537, 768, 3072, ("norm_mlp", "mlp")), (4096, 384, 384, ("norm_mlp", "mlp")),
+                (4096, 128, 512, ("norm_mlp", "mlp")), (65536, 768, 3072, ("mlp",)),
+                (22528, 768, 3072, ("mlp",)))
+
+
+def mlp_contract(dev, mlp, ops):
+    """#2 and #11 at the MLP_CONTRACT shapes (gelu) against their plain
+    versions and bit for bit against a second launch; returns the largest
+    error."""
+    err = 0.0
+    for n, d, f, names in MLP_CONTRACT:
+        x, wn, wg, wu, wd = mlp_inputs(dev, n, d, f, seed=n + d)
+        tag = f"N={n} D={d} F={f} (tiles {mlp.mlp_tiles(n, d, f, mlp._sm_count(dev))})"
+        for name in names:
+            args = mlp_args(name, x, wn, wg, wu, wd)
+            out = getattr(mlp, name)(*args)
+            torch.cuda.synchronize()
+            with ops.reference_mode():
+                ref = getattr(mlp, name)(*args)
+            err = max(err, check_mlp(name, tag, out, ref))
+            del ref
+            mlp_relaunch(mlp, name, tag, args, out)
+            del out
+    return err
 
 
 def mlp_phase(dev, mlp, ops):
     """norm_mlp at the serving batch's N 8192 and the training batch's
-    N 65536 (64 x 1024 rows; the plain version is not timed there)."""
+    N 65536 (64 x 1024 rows; the plain version is not timed there), then
+    both MLP kernels at the MLP_CONTRACT shapes."""
     r = norm_mlp_at_shape(dev, mlp, ops, 8192, "serving shape")
     t = norm_mlp_at_shape(dev, mlp, ops, 65536, "train shape", time_plain=False)
-    return dict(r, err=max(r["err"], t["err"]), train_ms=t["ms"],
-                train_bound_ms=t["bound_ms"], train_lib_ms=t["lib_ms"])
+    err = max(r["err"], t["err"], mlp_contract(dev, mlp, ops))
+    return dict(r, err=err, train=t)
 
 
 def flash_bwd_phase(dev, fa, ops, synthetic, rope_cos_sin):
@@ -1079,47 +1183,24 @@ def compare_plain(model, nb, ops) -> None:
 def split_mlp_phase(dev, mlp, ops, n_ft: int):
     """Kernel #11 against its plain version: gelu at N 8192 (the serving
     batch of a LayerScale model) and at the fine-tune batch's N, silu at a
-    small ragged N; three CUDA-event readings beside the plain time, the
-    library composition's (gated_mlp_library without the norm and the
-    residual) and the bound at both large shapes."""
-    d, f = 768, 3072
-    gen = torch.Generator(device=dev).manual_seed(6)
-    wg, wu = (
-        (torch.randn(f, d, generator=gen, device=dev) * 0.02).to(torch.bfloat16) for _ in range(2)
-    )
-    wd = (torch.randn(d, f, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
-    wgu, wd_t = torch.cat([wg, wu]).t(), wd.t()
+    small ragged N, each bit for bit against a second launch; timed at both
+    large shapes (mlp_timed)."""
+    _, _, wg, wu, wd = mlp_inputs(dev, 1, 768, 3072, seed=6)
     res, err = {}, 0.0
     for n, act in ((200, "silu"), (8192, "gelu"), (n_ft, "gelu")):
-        x = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn(n, 768, generator=torch.Generator(device=dev).manual_seed(n),
+                        device=dev).to(torch.bfloat16)
         out = mlp.mlp(x, wg, wu, wd, act)
         torch.cuda.synchronize()
         with ops.reference_mode():
             ref = mlp.mlp(x, wg, wu, wd, act)
         err = max(err, check_mlp("mlp", f"N={n}, {act}", out, ref))
+        mlp_relaunch(mlp, "mlp", f"N={n}, {act}", (x, wg, wu, wd, act), out)
         del out, ref
-        if n == 200:
-            continue
-        ms = cuda_ms(lambda: mlp.mlp(x, wg, wu, wd, act), iters=10)
-        ms_spread = spread()
-        with ops.reference_mode():
-            plain_ms = cuda_ms(lambda: mlp.mlp(x, wg, wu, wd, act), iters=3)
-        lib_ms = cuda_ms(lambda: gated_mlp_library(x, wgu, wd_t, f), iters=10)
-        flops = 2.0 * n * d * f * 3
-        nbytes = 2 * n * d * 2 + 3 * d * f * 2
-        bms, by = bound(nbytes, flops)
-        print(
-            f"mlp N={n} D={d} F={f} {act}: kernel {ms:.4f} ms (3 readings {ms_spread}), plain "
-            f"{plain_ms:.4f} ms, matmul [Wg|Wu] + gelu * up + matmul Wd {lib_ms:.4f} ms, bound "
-            f"{bms * 1e3:.2f} us ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)",
-            flush=True,
-        )
-        res[n] = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms, bound_by=by)
-    r = dict(res[8192], err=err, finetune_shape_n=n_ft,
-             finetune_shape_ms=res[n_ft]["ms"], finetune_shape_plain_ms=res[n_ft]["plain_ms"],
-             finetune_shape_lib_ms=res[n_ft]["lib_ms"],
-             finetune_shape_bound_ms=res[n_ft]["bound_ms"])
-    return r
+        if n != 200:
+            res[n] = mlp_timed(mlp, ops, "mlp", f"N={n}", x, None, wg, wu, wd)
+    ft = {f"finetune_shape_{k}": v for k, v in res[n_ft].items() if k != "bound_by"}
+    return dict(res[8192], err=err, finetune_shape_n=n_ft, **ft)
 
 
 def finetune_config(out_dir: str, pretrain_dir: str):
@@ -2416,9 +2497,9 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
-    # the wgmma kernels (#12; #4, #5; #1; #3) keep no spill and let ptxas
+    # the wgmma kernels (#12; #2, #11; #4, #5; #1; #3) keep no spill and let ptxas
     # pipeline their wgmma (no C7512/C7513)
-    for name in ("norm_qkv", "flash_bwd_split", "flash_fwd", "flash_bwd"):
+    for name in ("norm_qkv", "norm_mlp", "mlp", "flash_bwd_split", "flash_fwd", "flash_bwd"):
         if re.search(r"[1-9]\d* bytes spill|C751[0-9]", logs.get(name, "")):
             fail(f"ptxas spilled in {name}.cu or serialised its wgmma (see the build lines above)")
 
@@ -2523,6 +2604,10 @@ def main() -> None:
     def at(prefix, r, keys=("ms", "plain_ms", "bound_ms")):
         return {f"{prefix}_{k}": r[k] for k in keys}
 
+    # the MLP kernels' numbers at each timed shape (mlp_timed; rrms_ms #2 only)
+    MLP_KEYS = ("ms", "plain_ms", "lib_ms", "bound_ms", "bound_share", "gate_up_ms", "down_ms",
+                "rrms_ms")
+
     kernels = [
         entry("flash_fwd", "flash_fwd.cu", "flash_attention.py:124",
               dict(fb, err=max([r["err"] for r in fres.values()]
@@ -2539,10 +2624,11 @@ def main() -> None:
               p4096_entry_ms=lc["fwd"]["single_ms"]),
         entry("norm_mlp", "norm_mlp.cu", "mlp.py:203",
               dict(mres, err=max(mres["err"], dnm["err"], psm["err"])), MLP_TOL,
-              train_shape_ms=mres["train_ms"], train_shape_bound_ms=mres["train_bound_ms"],
-              train_shape_library_ms=mres["train_lib_ms"],
-              **at("denoise_shape", dnm, ("ms", "plain_ms", "lib_ms", "bound_ms")),
-              **at("pos_shape", psm, ("ms", "plain_ms", "lib_ms", "bound_ms"))),
+              **{k: mres[k] for k in MLP_KEYS if k not in ("ms", "plain_ms", "lib_ms",
+                                                          "bound_ms")},
+              train_shape_library_ms=mres["train"]["lib_ms"],
+              **at("train_shape", mres["train"], ("ms", "bound_ms") + MLP_KEYS[4:]),
+              **at("denoise_shape", dnm, MLP_KEYS), **at("pos_shape", psm, MLP_KEYS)),
         entry("flash_bwd", "flash_bwd.cu", "flash_attention.py:706",
               dict(bb, err=max([r["err"] for r in bres.values()] + [ftf["err"], psf["err"]])),
               FLASH_BWD_TOL, bound_share=bb["bound_share"], causal_ms=bres["causal"]["ms"],
@@ -2556,10 +2642,9 @@ def main() -> None:
               **at("finetune_shape", ftr, ("ms", "bound_ms", "plain_ms", "lib_ms")),
               **at("denoise_shape", dnr, ("ms", "bound_ms", "plain_ms", "lib_ms"))),
         entry("mlp", "mlp.cu", "mlp.py:82", sres, MLP_TOL,
-              **{k: sres[k] for k in ("finetune_shape_n", "finetune_shape_ms",
-                                      "finetune_shape_plain_ms", "finetune_shape_lib_ms",
-                                      "finetune_shape_bound_ms",
-                                      "step_ms", "loader_graphs_s", "peak_mib")}),
+              **{k: sres[k] for k in ("bound_share", "gate_up_ms", "down_ms", "step_ms",
+                                      "loader_graphs_s", "peak_mib")},
+              **{k: v for k, v in sres.items() if k.startswith("finetune_shape_")}),
     ]
     # the split pair: its main entry at the denoise batch's shape, B 256 x P 88
     edge = sp["edge"]

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) primitives shared by the kernels written for it: kernel
-// #12 norm_qkv (norm_qkv.cu) and the split attention backward #4, #5
-// (flash_bwd_split.cu). Shared-memory addresses, mbarriers, TMA loads and
+// Hopper (sm_90a) primitives shared by the kernels written for it: the
+// dense products #12 norm_qkv, #2 norm_mlp and #11 mlp (through
+// gemm_sm90.cuh) and the attention kernels #1, #3, #4, #5 (through
+// flash_sm90.cuh). Shared-memory addresses, mbarriers, TMA loads and
 // stores through tensor maps, named barriers, ldmatrix, the wgmma
 // descriptor of a 128-byte swizzled tile and the wgmma fences, and the
 // host-side entry to cuTensorMapEncodeTiled, reached through the runtime so

@@ -22,12 +22,24 @@ import torch.nn.functional as F
 from . import _build, mm_f32, use_kernel
 
 _ACT_IDS = {"gelu": 0, "gelu_new": 1, "gelu_pytorch_tanh": 1, "silu": 2}
-# x, wg, wu, wd, g, out; N, D, F; act; stream
-_MLP_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-# x, wn, wg, wu, wd, g, out; N, D, F; eps; act; stream
+# x, wg, wu, wd, g, out; N, D, F, bh, bn; act; stream
+_MLP_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# x, wn, wg, wu, wd, g, out, rrms; N, D, F, bh, bn; eps; act; stream
 _ARGTYPES = (
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
+# the stage entries (ggt_mlp_stages, ggt_norm_mlp_stages): a stage mask before the stream
+_MLP_STAGE_ARGTYPES = _MLP_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
+_STAGE_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
+MLP_RRMS, MLP_GATE_UP, MLP_DOWN = 1, 2, 4  # the stage mask's bits
+_MLP_MAX_D = 8192  # norm_mlp: wn's row sits in the gate/up kernel's shared memory
+_MLP_BLOCK_HS = (128, 64)  # gate/up tile widths: BH gate and BH up columns of 128 rows
+_MLP_BLOCK_NS = (256, 192, 128, 64)  # down tile widths
+# What a tile costs beside its width, in columns: the A tile that every
+# tile of a row tile loads again (and, with the norm, normalises again), and
+# the epilogue. The down stage's 16 ranks BN 256, 192, 128 and 64 as the
+# stage alone read at N 8,192, 18,432, 22,528 and 65,536 (D 768) on an H100
+_MLP_TILE_EXTRA = {"gate_up": 64, "down": 16}
 # x, wn, wq, wk, wv, q, k, v, rrms; N, D, Fq, Fk, Fv, bn; eps; stream
 _QKV_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 _QKV_MAX_D = 4096  # wn's row sits in the kernel's shared memory beside its stages
@@ -112,6 +124,30 @@ def _check_mlp_args(name, x, wg, wu, wd, act):
         raise ValueError(f"unsupported hidden_act {act!r}")
 
 
+def mlp_tiles(n: int, d: int, f: int, sms: int):
+    """(bh, bn): the tile widths of the MLP kernels' gate/up and down stages
+    for N rows, D, F and the card's SM count. Each stage's tiles are 128
+    rows by a width that divides its output's (F for gate/up, D for down);
+    a persistent CTA an SM walks them, so the busiest SM runs
+    ceil(tiles / sms) tiles. Of the widths that divide, the one whose
+    busiest SM does the least work (its tiles times the width plus
+    _MLP_TILE_EXTRA) wins, the wider on a tie. 0 where none divides."""
+    rows = -(-n // 128)
+
+    def pick(widths, total, extra):
+        fits = [w for w in widths if total % w == 0]
+        if not fits:
+            return 0
+        return min(fits, key=lambda w: (-(-rows * (total // w) // sms) * (w + extra), -w))
+
+    return (pick(_MLP_BLOCK_HS, f, _MLP_TILE_EXTRA["gate_up"]),
+            pick(_MLP_BLOCK_NS, d, _MLP_TILE_EXTRA["down"]))
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def mlp(x, wg, wu, wd, act: str):
     """act(x @ wg^T) * (x @ wu^T) @ wd^T for x [N, D] in bf16 and bf16
     weights: the CUDA kernel (two launches, counted as one call) for a CUDA
@@ -123,15 +159,18 @@ def mlp(x, wg, wu, wd, act: str):
     n, d = x.shape
     f = wg.shape[0]
     x, wg, wu, wd = (t.contiguous() for t in (x, wg, wu, wd))
-    # the kernel moves 16 bytes a thread
+    # TMA reads x and the weights from 16-byte aligned bases
     if any(t.data_ptr() % 16 for t in (x, wg, wu, wd)):
         raise ValueError("mlp needs 16-byte aligned x and weights")
-    g = torch.empty((n, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
+    if n == 0:
+        return out
+    g = torch.empty((n, f), dtype=x.dtype, device=x.device)
+    bh, bn = mlp_tiles(n, d, f, _sm_count(x.device))
     fn = _build.entry("mlp", "ggt_mlp", _MLP_ARGTYPES)
     err = fn(
         _build.ptr(x), _build.ptr(wg), _build.ptr(wu), _build.ptr(wd), _build.ptr(g),
-        _build.ptr(out), n, d, f, _ACT_IDS[act], _build.stream_ptr(x.device),
+        _build.ptr(out), n, d, f, bh, bn, _ACT_IDS[act], _build.stream_ptr(x.device),
     )
     mlp.launches += 1
     _build.check(err, "mlp")
@@ -203,8 +242,9 @@ def norm_mlp_ref(x, wn, wg, wu, wd, eps: float, act: str):
 
 def norm_mlp(x, wn, wg, wu, wd, eps: float, act: str):
     """x + mlp(rms(x) * wn) for x [N, D] in bf16 and bf16 weights: the CUDA
-    kernel (two launches, counted as one call) for a CUDA tensor, the plain
-    version for a CPU tensor (or inside ops.reference_mode())."""
+    kernel (the rrms pre-pass and two stages, counted as one call) for a
+    CUDA tensor, the plain version for a CPU tensor (or inside
+    ops.reference_mode())."""
     if not use_kernel(x, wn, wg, wu, wd):
         return norm_mlp_ref(x, wn, wg, wu, wd, eps, act)
     _check_mlp_args("norm_mlp", x, wg, wu, wd, act)
@@ -212,18 +252,24 @@ def norm_mlp(x, wn, wg, wu, wd, eps: float, act: str):
         raise ValueError(f"norm weight shape {wn.shape}")
     n, d = x.shape
     f = wg.shape[0]
+    if d > _MLP_MAX_D:
+        raise NotImplementedError(f"the norm_mlp kernel needs D <= {_MLP_MAX_D}, got {d}")
     x, wg, wu, wd = (t.contiguous() for t in (x, wg, wu, wd))
     wn = wn.float().contiguous()
-    # the kernel moves 16 bytes a thread
+    # TMA reads x and the weights from 16-byte aligned bases
     if any(t.data_ptr() % 16 for t in (x, wg, wu, wd)):
         raise ValueError("norm_mlp needs 16-byte aligned x and weights")
-    g = torch.empty((n, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
+    if n == 0:
+        return out
+    g = torch.empty((n, f), dtype=x.dtype, device=x.device)
+    rrms = torch.empty((n,), dtype=torch.float32, device=x.device)
+    bh, bn = mlp_tiles(n, d, f, _sm_count(x.device))
     fn = _build.entry("norm_mlp", "ggt_norm_mlp", _ARGTYPES)
     err = fn(
         _build.ptr(x), _build.ptr(wn), _build.ptr(wg), _build.ptr(wu), _build.ptr(wd),
-        _build.ptr(g), _build.ptr(out), n, d, f, float(eps), _ACT_IDS[act],
-        _build.stream_ptr(x.device),
+        _build.ptr(g), _build.ptr(out), _build.ptr(rrms), n, d, f, bh, bn, float(eps),
+        _ACT_IDS[act], _build.stream_ptr(x.device),
     )
     norm_mlp.launches += 1
     _build.check(err, "norm_mlp")

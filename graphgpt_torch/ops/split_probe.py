@@ -1,11 +1,14 @@
-"""Where the time of the Hopper attention kernels goes: the split backward
-#4 flash_dq and #5 flash_dkv (`csrc/flash_bwd_split.cu`, the default), the
-forward #1 (`--kernel fwd`, `csrc/flash_fwd.cu`) and the fused backward #3
-(`--kernel bwd`, `csrc/flash_bwd.cu`), timed on the card whole and with one
-phase of their body left out at a time, at their paths' shapes: the denoise
-batch (B 256 x P 88, 16 bit slots, a molecule and a padded stretch a row),
-the fine-tune batch (B 256 x P 72, a molecule a row), B 8 and B 64 x P 1024
-(packed rows).
+"""Where the time of the Hopper kernels goes: the split backward #4
+flash_dq and #5 flash_dkv (`csrc/flash_bwd_split.cu`, the default), the
+forward #1 (`--kernel fwd`, `csrc/flash_fwd.cu`), the fused backward #3
+(`--kernel bwd`, `csrc/flash_bwd.cu`) and the gated MLPs #11 and #2
+(`--kernel mlp`, `--kernel norm_mlp`: `csrc/mlp.cu`, `csrc/norm_mlp.cu`
+with `csrc/mlp_common.cuh`), timed on the card whole and with one phase of
+their body left out at a time, at their paths' shapes: the denoise batch
+(B 256 x P 88, 16 bit slots, a molecule and a padded stretch a row), the
+fine-tune batch (B 256 x P 72, a molecule a row), B 8 and B 64 x P 1024
+(packed rows); the MLPs at N 8,192 and 65,536 rows (D 768, F 3,072, gelu),
+whole and each stage alone.
 
 A variant leaves a phase out by a text substitution in the source and is
 built beside the package's own builds. Its outputs are wrong by design;
@@ -29,8 +32,22 @@ the time it saves is that phase's share:
   stages3  a ring of 3 stages instead of 4 (fwd; outputs right)
   all      rope0, noepi, noexp and noglob, nomask or nodelta together
 
-    python3 -m graphgpt_torch.ops.split_probe [--kernel split|fwd|bwd] [--source FILE]
-        [--variants base,noexp]
+and for the MLPs (the header's text is put in place of its include, then
+substituted):
+
+  nocons   the consumers' products (both stages; what is left is the loads,
+           the norm, the barriers and the epilogues)
+  nonorm   the norm of the register A operand (norm_mlp)
+  noact    the activation of the gate/up epilogue (g = xg * xu)
+  nores    the residual (norm_mlp: the down stage without its x tile)
+  nopre    the rrms pre-pass (norm_mlp)
+  bf16x2   the gate/up epilogue on bf16x2 pairs, a * xu by mul.rn.bf16x2 (the
+           same bits)
+  wnglobal wn read from global memory, not shared: four gate/up stages, not
+           three (norm_mlp; the same bits)
+
+    python3 -m graphgpt_torch.ops.split_probe [--kernel split|fwd|bwd|mlp|norm_mlp]
+        [--source FILE] [--variants base,noexp]
 
 --source probes another body of the file (one unpacked from an earlier
 commit, say); a substitution that does not match it raises. Needs a CUDA
@@ -43,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 
 import numpy as np
@@ -51,6 +69,7 @@ import torch
 from graphgpt_torch.models.rope import rope_cos_sin
 from graphgpt_torch.ops import _build
 from graphgpt_torch.ops import flash_attention as fa
+from graphgpt_torch.ops import mlp as tmlp
 from graphgpt_torch.synthetic import packed_segments
 
 _ROPE0 = [("            if (args.rope) {\n              uint4 x = lds128",
@@ -94,6 +113,38 @@ def _drop(role):
             (f"    consume<{role}>(", f"    if (false) consume<{role}>(")]
 
 
+_MLP_NOCONS = [("wgmma_ss<N>(acc, da + 2 * kk, db + 2 * kk, kc + kk > 0);", "(void)0;"),
+               ("wgmma_rs<2 * BH>(acc, a[kk], desc + 2 * kk, kc + kk > 0);", "(void)0;")]
+_MLP_NONORM = [("norm_a(a[kk], kk, wk, rr0, rr1);", "(void)0;")]
+_MLP_NOACT = [("return bround(act_f32<ACT>(bround(sg))) * bround(su);",
+               "return bround(sg) * bround(su);")]
+_MLP_NORES = [(f"launch_down<{bn}, NORM>", f"launch_down<{bn}, false>")
+              for bn in (256, 192, 128, 64)]
+_MLP_NOPRE = [("if (NORM && (stages & RRMS))", "if (false)")]
+# the gate/up epilogue on bf16x2 pairs: one conversion a pair, a * xu by
+# mul.rn.bf16x2 (the product of two bf16 is exact in fp32: the same bits)
+_MLP_BF16X2 = [
+    ("template <int ACT>\n__device__ __forceinline__ float gated(",
+     "template <int ACT>\n__device__ __forceinline__ uint32_t gated2(float g0, float g1, float u0,"
+     " float u1) {\n  const uint32_t xg = bf2(g0, g1);\n  const uint32_t a = bf2(act_f32<ACT>("
+     "__uint_as_float(xg << 16)), act_f32<ACT>(__uint_as_float(xg & 0xFFFF0000u)));\n"
+     "  uint32_t d;\n  asm(\"mul.rn.bf16x2 %0, %1, %2;\\n\" : \"=r\"(d) : \"r\"(a), "
+     "\"r\"(bf2(u0, u1)));\n  return d;\n}\n\ntemplate <int ACT>\n"
+     "__device__ __forceinline__ float gated("),
+    ("sts32(at, bf2(gated<ACT>(acc[4 * j], acc[u]), gated<ACT>(acc[4 * j + 1], acc[u + 1])));",
+     "sts32(at, gated2<ACT>(acc[4 * j], acc[4 * j + 1], acc[u], acc[u + 1]));"),
+    ("bf2(gated<ACT>(acc[4 * j + 2], acc[u + 2]), gated<ACT>(acc[4 * j + 3], acc[u + 3])));",
+     "gated2<ACT>(acc[4 * j + 2], acc[4 * j + 3], acc[u + 2], acc[u + 3]));")]
+# wn read from global memory (L1) instead of shared: a 4th ring stage for gate/up with the norm
+_MLP_WNGLOBAL = [
+    ("using GateUp = Ring<2 * BH, BH, NORM ? MAX_D * 4 : 0>;",
+     "using GateUp = Ring<2 * BH, BH, 0>;"),
+    ("reinterpret_cast<uint64_t*>(wn_s + (NORM ? D : 0));", "reinterpret_cast<uint64_t*>(wn_s);"),
+    ("    for (int i = tid; i < D; i += THREADS) wn_s[i] = wn[i];", "    (void)0;"),
+    ("const float* wk = wn_s + kc * KC + 2 * tq4;", "const float* wk = wn + kc * KC + 2 * tq4;"),
+    ("smem_bytes<T>(NORM ? MAX_D : 0), configured", "smem_bytes<T>(0), configured"),
+    ("smem_bytes<T>(NORM ? a.D : 0), s>>>(", "smem_bytes<T>(0), s>>>(")]
+
 # per kernel: its source, its C entries, and its variants
 KERNELS = {
     "split": ("flash_bwd_split.cu", {
@@ -109,7 +160,15 @@ KERNELS = {
         "nodelta": _BWD_NODELTA, "dqonly": _drop("true"), "dkvonly": _drop("false"),
         "shfl": _BWD_SHFL,
         "stages2": _STAGES2, "all": _ROPE0_SM90 + _BWD_NOEPI + _NOEXP + _BWD_NODELTA}),
+    "mlp": ("mlp.cu", {"base": [], "nocons": _MLP_NOCONS, "noact": _MLP_NOACT,
+                       "bf16x2": _MLP_BF16X2}),
+    "norm_mlp": ("norm_mlp.cu", {
+        "base": [], "nocons": _MLP_NOCONS, "nonorm": _MLP_NONORM, "noact": _MLP_NOACT,
+        "nores": _MLP_NORES, "nopre": _MLP_NOPRE, "bf16x2": _MLP_BF16X2,
+        "wnglobal": _MLP_WNGLOBAL}),
 }
+# the header a kernel's source includes, put in place before the substitutions
+INLINE = {"mlp": "mlp_common.cuh", "norm_mlp": "mlp_common.cuh"}
 VARIANTS = KERNELS["split"][1]
 # (B, P, H, bit slots, row layout) of each kernel's shapes
 SHAPES = {
@@ -121,6 +180,7 @@ SHAPES = {
     "bwd": {"finetune B256 P72": (256, 72, 12, 0, "molecule"),
             "B8 P1024": (8, 1024, 12, 0, "packed"), "B64 P1024": (64, 1024, 12, 0, "packed")},
 }
+MLP_SHAPES = {"N8192": (8192, 768, 3072), "N65536": (65536, 768, 3072)}  # (N, D, F)
 DH = 64
 
 
@@ -129,6 +189,9 @@ def build(kernel: str, source: str, names) -> dict:
     out_dir = _build.BUILD_DIR.parent / "split_probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     variants = KERNELS[kernel][1]
+    if kernel in INLINE:
+        header = f'#include "{INLINE[kernel]}"'
+        source = source.replace(header, (_build.CSRC / INLINE[kernel]).read_text())
     procs = {}
     for name in names:
         text = source
@@ -146,15 +209,62 @@ def build(kernel: str, source: str, names) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"variant {name} did not build:\n{log}")
+        flagged = re.findall(r"[1-9]\d* bytes spill \w+|C751\d", log)
+        if flagged:
+            print(f"variant {name}: ptxas reports {sorted(set(flagged))}", flush=True)
         libs[name] = ctypes.CDLL(str(lib))
         if kernel == "split":
             libs[name].ggt_flash_dq.argtypes = fa._DQ_ARGTYPES
             libs[name].ggt_flash_dkv.argtypes = fa._DKV_ARGTYPES
         elif kernel == "fwd":
             libs[name].ggt_flash_fwd.argtypes = fa._ARGTYPES
-        else:
+        elif kernel == "bwd":
             libs[name].ggt_flash_bwd.argtypes = fa._BWD_ARGTYPES
+        elif kernel == "mlp":
+            libs[name].ggt_mlp_stages.argtypes = tmlp._MLP_STAGE_ARGTYPES
+        else:
+            libs[name].ggt_norm_mlp_stages.argtypes = tmlp._STAGE_ARGTYPES
     return libs
+
+
+def probe_mlp(kernel: str, libs, dev) -> None:
+    """Each MLP variant whole and stage by stage at MLP_SHAPES, every
+    variant of a shape in one turn, then again in the reverse order."""
+    stream, ptr = _build.stream_ptr(dev), _build.ptr
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for tag, (n, d, f) in MLP_SHAPES.items():
+        x = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
+        wn = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        wg, wu = ((torch.randn(f, d, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+                  for _ in range(2))
+        wd = (torch.randn(d, f, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        g = torch.empty(n, f, dtype=torch.bfloat16, device=dev)
+        out, rr = torch.empty_like(x), torch.empty(n, dtype=torch.float32, device=dev)
+        tiles = tmlp.mlp_tiles(n, d, f, torch.cuda.get_device_properties(dev).multi_processor_count)
+        stages = {"rrms": tmlp.MLP_RRMS} if kernel == "norm_mlp" else {}
+        stages.update(gate_up=tmlp.MLP_GATE_UP, down=tmlp.MLP_DOWN)
+        order = list(libs.items())
+        for turn in (order, order[::-1]):
+            for name, lib in turn:
+                def run(mask, lib=lib):
+                    if kernel == "mlp":
+                        err = lib.ggt_mlp_stages(ptr(x), ptr(wg), ptr(wu), ptr(wd), ptr(g),
+                                                 ptr(out), n, d, f, *tiles, 0, mask, stream)
+                    else:
+                        err = lib.ggt_norm_mlp_stages(ptr(x), ptr(wn), ptr(wg), ptr(wu), ptr(wd),
+                                                      ptr(g), ptr(out), ptr(rr), n, d, f, *tiles,
+                                                      1e-6, 0, mask, stream)
+                    _build.check(err, f"{kernel} {name}")
+
+                whole = cuda_ms(lambda: run(sum(stages.values())))
+                alone = "  ".join(f"{s} {cuda_ms(lambda m=m: run(m)):.4f}"
+                                  for s, m in stages.items())
+                # a digest of g and out after a whole run: a variant that
+                # should keep the bits (bf16x2, wnglobal) shows base's
+                run(sum(stages.values()))
+                digest = sum(t.view(torch.int16).long().sum().item() for t in (g, out))
+                print(f"{tag} tiles {tiles}: {name:8s} {kernel} {whole:.4f} ms  alone: {alone}  "
+                      f"digest {digest}", flush=True)
 
 
 def inputs(b, p, h, bi, layout, dev):
@@ -214,6 +324,9 @@ def main() -> None:
     print(torch.cuda.get_device_name(0), flush=True)
     libs = build(args.kernel, open(source).read(),
                  (args.variants or ",".join(variants)).split(","))
+    if args.kernel in INLINE:
+        probe_mlp(args.kernel, libs, dev)
+        return
     stream = _build.stream_ptr(dev)
     ptr = _build.ptr
     for tag, (b, p, h, bi, layout) in SHAPES[args.kernel].items():

@@ -257,17 +257,37 @@ def test_stream_kernels_match_plain(cuda_device, shape, keys, mask):
     assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("act", ["gelu", "gelu_pytorch_tanh", "silu"])
-@pytest.mark.parametrize("n", [200, 512])
-def test_norm_mlp_kernel_matches_plain(cuda_device, act, n):
-    dev = cuda_device
-    rng = np.random.default_rng(7)
-    d, f = 128, 512
+# (N, D, F) of the MLP kernels' cases: the tiny configs' widths, small12's
+# D 384 / F 384, GraphGPT-base's at a ragged N (the last 128-row tile one
+# row deep)
+_MLP_CASES = {
+    "ragged": (200, 128, 512),
+    "small": (512, 128, 512),
+    "d384": (1000, 384, 384),
+    "n65537": (65537, 768, 3072),
+}
+
+
+def _mlp_inputs(n, d, f, dev, seed=7):
+    """x at unit normal, wn near 1, the weights at 0.55 / sqrt(D) (0.02 at
+    D 768, the model's init) so that the outputs have the model's
+    magnitude."""
+    rng = np.random.default_rng(seed)
+    scale = 0.55 / d**0.5
     x = _bf16(rng, (n, d), 1.0, dev)
     wn = torch.from_numpy((1 + 0.1 * rng.normal(size=d)).astype(np.float32)).to(dev)
-    wg, wu = _bf16(rng, (f, d), 0.05, dev), _bf16(rng, (f, d), 0.05, dev)
-    wd = _bf16(rng, (d, f), 0.05, dev)
+    wg, wu = _bf16(rng, (f, d), scale, dev), _bf16(rng, (f, d), scale, dev)
+    return x, wn, wg, wu, _bf16(rng, (d, f), scale, dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["gelu", "gelu_pytorch_tanh", "silu"])
+@pytest.mark.parametrize("case", list(_MLP_CASES))
+def test_norm_mlp_kernel_matches_plain(cuda_device, act, case):
+    """Kernel #2 against its plain version in bf16 (the same rounding
+    points, fp32 sums in another order: 1 ulp of the output), one count a
+    call, and bit-equal on a second launch."""
+    x, wn, wg, wu, wd = _mlp_inputs(*_MLP_CASES[case], cuda_device)
     before = tmlp.norm_mlp.launches
     out = tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, act)
     torch.cuda.synchronize()
@@ -275,6 +295,38 @@ def test_norm_mlp_kernel_matches_plain(cuda_device, act, n):
     with ops.reference_mode():
         ref = tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, act)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+    assert _rel(out, ref) < 2e-3
+    assert torch.equal(tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, act), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["norm_mlp", "mlp"])
+@pytest.mark.parametrize("bh", [128, 64])
+@pytest.mark.parametrize("bn", [256, 192, 128, 64])
+def test_mlp_kernels_take_every_tile_width(cuda_device, monkeypatch, kernel, bh, bn):
+    """Each gate/up width BH and down width BN that the kernels are built
+    for, forced in place of mlp_tiles' choice, at D 768, F 3072 and a
+    ragged N, against the plain version."""
+    x, wn, wg, wu, wd = _mlp_inputs(1000, 768, 3072, cuda_device, seed=bh + bn)
+    monkeypatch.setattr(tmlp, "mlp_tiles", lambda *a: (bh, bn))
+    args = (x, wn, wg, wu, wd, 1e-6, "gelu") if kernel == "norm_mlp" else (x, wg, wu, wd, "gelu")
+    out = getattr(tmlp, kernel)(*args)
+    torch.cuda.synchronize()
+    with ops.reference_mode():
+        ref = getattr(tmlp, kernel)(*args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+    assert _rel(out, ref) < 2e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["norm_mlp", "mlp"])
+def test_mlp_kernels_take_no_rows(cuda_device, kernel):
+    """N 0 gives an empty output and launches nothing."""
+    x, wn, wg, wu, wd = _mlp_inputs(0, 128, 512, cuda_device)
+    fn = getattr(tmlp, kernel)
+    before = fn.launches
+    out = fn(x, wn, wg, wu, wd, 1e-6, "gelu") if kernel == "norm_mlp" else fn(x, wg, wu, wd, "gelu")
+    assert tuple(out.shape) == (0, 128) and fn.launches == before
 
 
 def _tiny_cfg(**kw):
@@ -322,20 +374,15 @@ def test_layer_scale_model_goes_through_the_split_kernel_on_cuda(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("act", ["gelu", "gelu_pytorch_tanh", "silu"])
-@pytest.mark.parametrize("shape", [(200, 128, 512), (512, 128, 512), (18432, 768, 3072)],
-                         ids=["ragged", "small", "finetune"])
-def test_mlp_kernel_matches_plain(cuda_device, act, shape):
+@pytest.mark.parametrize("case", [*_MLP_CASES, "finetune"])
+def test_mlp_kernel_matches_plain(cuda_device, act, case):
     """Kernel #11 against its plain version in bf16: the same rounding
-    points, fp32 sums in another order (1 ulp of the output). The weights
-    are drawn at about 0.55 / sqrt(D) (0.02 at D 768, the model's init), so
-    that the outputs have the model's magnitude."""
-    dev = cuda_device
-    n, d, f = shape
-    rng = np.random.default_rng(12)
-    scale = 0.55 / d**0.5
-    x = _bf16(rng, (n, d), 1.0, dev)
-    wg, wu = _bf16(rng, (f, d), scale, dev), _bf16(rng, (f, d), scale, dev)
-    wd = _bf16(rng, (d, f), scale, dev)
+    points, fp32 sums in another order (1 ulp of the output); one count a
+    call, and bit-equal on a second launch. The weights are drawn at about
+    0.55 / sqrt(D) (0.02 at D 768, the model's init), so that the outputs
+    have the model's magnitude."""
+    shape = (18432, 768, 3072) if case == "finetune" else _MLP_CASES[case]
+    x, _, wg, wu, wd = _mlp_inputs(*shape, cuda_device, seed=12)
     before = tmlp.mlp.launches
     out = tmlp.mlp(x, wg, wu, wd, act)
     torch.cuda.synchronize()
@@ -345,6 +392,7 @@ def test_mlp_kernel_matches_plain(cuda_device, act, shape):
     assert tmlp.mlp.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
     assert _rel(out, ref) < 2e-3
+    assert torch.equal(tmlp.mlp(x, wg, wu, wd, act), out)
 
 
 @pytest.mark.gpu
@@ -360,6 +408,11 @@ def test_mlp_kernel_raises_outside_its_shapes(cuda_device):
         tmlp.mlp(odd, wo, wo, wo.t().contiguous(), "gelu")
     with pytest.raises(ValueError):
         tmlp.mlp(x, w, w, w.t().contiguous(), "relu")
+    with pytest.raises(NotImplementedError):  # norm_mlp keeps wn's row in shared memory
+        wide = torch.zeros(8, 8256, device=dev, dtype=torch.bfloat16)
+        ww = torch.zeros(64, 8256, device=dev, dtype=torch.bfloat16)
+        tmlp.norm_mlp(wide, torch.ones(8256, device=dev), ww, ww, ww.t().contiguous(), 1e-6,
+                      "gelu")
 
 
 def _rel(a, b):

@@ -123,3 +123,28 @@ def test_cpu_wrapper_counts_no_launch():
 def test_unknown_activation_raises():
     with pytest.raises(ValueError):
         tmlp.act_fn("relu6")
+
+
+@pytest.mark.parametrize("n, d, f, tiles", [
+    (8192, 768, 3072, (128, 192)),     # GraphGPT-base, serving (8 x 1024 rows)
+    (18432, 768, 3072, (128, 128)),    # fine-tune and position batches (256 x 72)
+    (22528, 768, 3072, (128, 256)),    # denoise batch (256 x 88)
+    (65536, 768, 3072, (128, 256)),    # training (64 x 1024)
+    (65537, 768, 3072, (128, 256)),    # a ragged row tile
+    (8192, 384, 384, (128, 192)),      # small12
+    (65536, 384, 384, (128, 192)),
+    (8192, 128, 512, (128, 64)),       # the tiny configs
+    (65536, 128, 512, (128, 128)),
+    (8192, 256, 1024, (128, 128)),     # mini
+    (65536, 256, 1024, (128, 256)),
+    (8192, 768, 2112, (64, 192)),      # F a multiple of 64, not of 128
+    (200, 768, 3072, (64, 64)),        # one row tile: the narrowest tiles fill the most SMs
+    (8192, 100, 3072, (128, 0)),       # no width divides D
+])
+def test_mlp_tiles_spread_the_work_over_the_sms(n, d, f, tiles):
+    """The MLP kernels' tile widths on an H100's 132 SMs: of the widths that
+    divide F (gate/up: 128, 64) and D (down: 256, 192, 128, 64), the one
+    whose busiest SM does the least work, the wider on a tie; 0 for none."""
+    assert tmlp.mlp_tiles(n, d, f, 132) == tiles
+    bh, bn = tiles
+    assert (bh == 0 or f % bh == 0) and (bn == 0 or d % bn == 0)
