@@ -67,8 +67,10 @@
    #7 flash_dq_stream (with its delta) and #8 flash_dkv_stream against
    their plain versions on 2 of the first batch's 16 rows, with its
    segments and RoPE table, and again with another packed row's ids as the
-   key ids; each timed at the whole 16 x 4096 beside its bound, its plain
-   version's time and SDPA's, and #1's entry on the same rows. Then the
+   key ids; #7 and #8 also on the whole 16 x 4096 launch against their
+   plain versions run a row at a time, both ways, and against a relaunch
+   bit for bit; each timed at the whole 16 x 4096 beside its bound, its
+   plain version's time and SDPA's, and #1's entry on the same rows. Then the
    first step on 4 rows against an fp32 run of the plain versions (each
    gradient's error on the kernel path at most STEP32_K times the plain
    bf16 path's plus STEP32_F); run A, eight steps with the
@@ -1564,6 +1566,50 @@ def check_stream_rows(fa, ops, tag, qs, k, v, seg_q, seg_k, cos, sin, do, dh):
     return dict(fwd=fwd_err, dq=dq_err, dkv=dkv_err, delta=delta_err)
 
 
+def check_stream_batch(fa, ops, tag, qs, k, v, seg_q, seg_k, cos, sin, do, dh):
+    """#7 (with its delta) and #8 at the whole launch that the long-context
+    step makes, B 16 x P 4096 (a persistent kernel's schedule depends on B),
+    on #6's out and lse, against their plain versions run one row at a time:
+    errors as check_flash_bwd's; delta within DELTA_ATOL; padded query rows,
+    query rows that see no key and keys that no query sees exactly 0 (the
+    path is bidirectional: a pair is visible when the ids match); a second
+    launch of each gives the same bits. Returns (largest elementwise error
+    of dq, of dk and dv, largest relative error, delta error)."""
+    out, lse = fa.flash_fwd_stream(qs, k, v, seg_q, seg_k, cos, sin, False, dh)
+    dq, delta = fa.flash_dq_stream(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, None, False,
+                                   dh)
+    dk, dv = fa.flash_dkv_stream(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, False, dh)
+    again = (*fa.flash_dq_stream(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, None, False, dh),
+             *fa.flash_dkv_stream(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, False, dh))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(again, (dq, delta, dk, dv)))
+    parts = []
+    with ops.reference_mode():
+        for r in range(seg_q.shape[0]):
+            row = lambda *ts: [None if t is None else t[r : r + 1] for t in ts]  # noqa: E731
+            args = row(qs, k, v, seg_q, seg_k, cos, sin)
+            rdq, rdelta = fa.flash_dq_stream(*args, *row(out, lse, do), None, False, dh)
+            rdk, rdv = fa.flash_dkv_stream(*args, *row(lse, delta, do), False, dh)
+            parts.append((rdq, rdelta, rdk, rdv))
+    rdq, rdelta, rdk, rdv = (torch.cat(t) for t in zip(*parts))
+    # the ids that take part: a query row that sees a key, a key that a query sees
+    seen_q = torch.stack([torch.isin(a, b[b > 0]) for a, b in zip(seg_q, seg_k)]) & (seg_q > 0)
+    seen_k = torch.stack([torch.isin(b, a[a > 0]) for a, b in zip(seg_q, seg_k)]) & (seg_k > 0)
+    b, p = seg_q.shape
+    shape = f"{tag}, all {b} rows, P={p}, the plain versions one row at a time"
+    delta_err = (delta - rdelta).abs().max().item()
+    print(f"flash_dq_stream[{shape}] max|delta-plain| {delta_err:.3e} (tol {DELTA_ATOL}); "
+          f"{int((~seen_q).sum())} query rows see no key, {int((~seen_k).sum())} keys are seen "
+          f"by no query; a second launch of #7 and #8 bit for bit: {same}", flush=True)
+    if not (delta_err <= DELTA_ATOL and same):
+        fail(f"flash_dq_stream/flash_dkv_stream[{shape}]: delta or a relaunch disagrees")
+    dq_err, dq_rel = check_flash_bwd(shape, (dq,), (rdq,), seen_q.int(), "flash_dq_stream",
+                                     ("dq",))
+    dkv_err, dkv_rel = check_flash_bwd(shape, (dk, dv), (rdk, rdv), seen_k.int(),
+                                       "flash_dkv_stream", ("dk", "dv"))
+    return dq_err, dkv_err, max(dq_rel, dkv_rel), delta_err
+
+
 def stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_rows: int = 2):
     """The streamed kernels #6, #7 and #8 at the long-context path's shape
     (seg [B, P], P 4096 on the first batch's packed segments): against their
@@ -1574,7 +1620,8 @@ def stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_rows:
     then each kernel timed at the whole shape beside its bound, its plain
     version's time and SDPA's (boolean mask; forward, and forward's backward
     for #7 and #8), and #1's entry (ggt_flash_fwd) on the same rows, which
-    the dispatch never gives it above P 2048."""
+    the dispatch never gives it above P 2048. #7 and #8 are held on all the
+    rows too (check_stream_batch), with both kinds of key ids."""
     b, p = seg.shape
     qs, k, v, do = flash_tensors(seg, h, dh, seed=21)
     r = slice(0, check_rows)
@@ -1584,6 +1631,13 @@ def stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_rows:
     other = check_stream_rows(fa, ops, "keys of another packed row",
                               *rows(qs, k, v, seg), seg[r][swap], *rows(cos, sin, do), dh)
     errs = {key: max(errs[key], other[key]) for key in errs}
+    batch = [check_stream_batch(fa, ops, tag, qs, k, v, seg, seg_k, cos, sin, do, dh)
+             for tag, seg_k in (("long-context", seg),
+                                ("keys of another packed row", seg.roll(1, dims=0)))]
+    errs["dq"] = max([errs["dq"]] + [e[0] for e in batch])
+    errs["dkv"] = max([errs["dkv"]] + [e[1] for e in batch])
+    errs["delta"] = max([errs["delta"]] + [e[3] for e in batch])
+    torch.cuda.empty_cache()
 
     fwd_args = (qs, k, v, seg, seg, cos, sin, False, dh)
     out, lse = fa.flash_fwd_stream(*fwd_args)
@@ -1640,6 +1694,9 @@ def stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_rows:
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP){extra}", flush=True)
         res[kind] = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms, bound_by=by,
                          err=errs[kind])
+    for kind, i in (("dq", 0), ("dkv", 1)):
+        res[kind]["batch_err"] = max(e[i] for e in batch)
+        res[kind]["batch_rel"] = max(e[2] for e in batch)
     res["fwd"]["single_ms"] = single_ms
     res["dq"]["delta_err"] = errs["delta"]
     return res
@@ -2667,8 +2724,12 @@ def main() -> None:
         extra = {"delta_err": lc["dq"]["delta_err"]} if kind == "dq" else {}
         if kind == "fwd":
             extra["single_block_kernel_ms"] = lc["fwd"]["single_ms"]
+        else:  # held on all 16 rows of the launch, both kinds of key ids
+            extra.update(batch_max_abs_err=lc[kind]["batch_err"],
+                         batch_rel_err=lc[kind]["batch_rel"])
         kernels.append(entry(
-            name, "flash_stream.cu", f"flash_attention.py:{line}", lc[kind],
+            name, "flash_stream.cu" if kind == "fwd" else "flash_bwd_split.cu",
+            f"flash_attention.py:{line}", lc[kind],
             FLASH_TOL if kind == "fwd" else FLASH_BWD_TOL, long_step_ms=lc["step_ms"],
             long_tokens_per_s=lc["tokens_per_s"], long_peak_mib=lc["peak_mib"],
             long_grad_rel=lc["grad_rel"], long_grad_ratio=lc["grad"]["ratio"],

@@ -40,12 +40,12 @@
 // over the band's key tiles, the causal or bi-causal top clipped as the JAX
 // kernel clips it. #10 does not carry dk and dv across q tiles in scratch as
 // the TPU kernel does (blocks on this card run in any order): it is the
-// fused backward's two-role CTA (flash_bwd_common.cuh) with BAND, no
-// atomics. As the owner of a key tile it loops over the q tiles of that key
-// tile's band (a second table: the query positions whose ids fall in the key
-// tile's range) and sums dk and dv; as the owner of a q tile it loops over
-// the q tile's band and sums dq. S and dP are computed once more than the
-// TPU kernel's single pass, which costs little where bytes are the bound.
+// two-role CTA of flash_bwd_common.cuh, no atomics. As the owner of a key
+// tile it loops over the q tiles of that key tile's band (a second table:
+// the query positions whose ids fall in the key tile's range) and sums dk
+// and dv; as the owner of a q tile it loops over the q tile's band and sums
+// dq. S and dP are computed once more than the TPU kernel's single pass,
+// which costs little where bytes are the bound.
 // WMMA bf16 tiles with fp32 accumulation, 16-byte loads, single-buffered:
 // TMA, wgmma and pipelining are later work.
 
@@ -124,18 +124,16 @@ flash_bwd_band_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wmma::fill_fragment(acc1[j], 0.f);
     wmma::fill_fragment(acc2[j], 0.f);
   }
-  pass<true, false, true>(sm, q + base, k + base, v + base, dout + base, segqb, segkb, tabqb,
-                          tabkb, lse + rows, delta + rows, nullptr, nullptr, rs, t0, P, causal,
-                          bi_split, acc1, acc2);
-  write_rows(dk + base, rs, acc1, sm.s[warp], row, P, nullptr, nullptr, lane);
-  write_rows(dv + base, rs, acc2, sm.s[warp], row, P, nullptr, nullptr, lane);
+  pass<true>(sm, q + base, k + base, v + base, dout + base, segqb, segkb, tabqb, tabkb,
+             lse + rows, delta + rows, rs, t0, P, causal, bi_split, acc1, acc2);
+  write_rows(dk + base, rs, acc1, sm.s[warp], row, P, lane);
+  write_rows(dv + base, rs, acc2, sm.s[warp], row, P, lane);
 
 #pragma unroll
   for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc1[j], 0.f);
-  pass<false, false, true>(sm, q + base, k + base, v + base, dout + base, segqb, segkb, tabqb,
-                           tabkb, lse + rows, delta + rows, nullptr, nullptr, rs, t0, P, causal,
-                           bi_split, acc1, acc2);
-  write_rows(dq + base, rs, acc1, sm.s[warp], row, P, nullptr, nullptr, lane);
+  pass<false>(sm, q + base, k + base, v + base, dout + base, segqb, segkb, tabqb, tabkb,
+              lse + rows, delta + rows, rs, t0, P, causal, bi_split, acc1, acc2);
+  write_rows(dq + base, rs, acc1, sm.s[warp], row, P, lane);
 }
 
 }  // namespace

@@ -1,17 +1,14 @@
-// The two passes of the flash backward over one 64-row tile, shared by the
-// streamed pair (flash_stream.cu, one pass a kernel) and the band backward
-// (flash_band.cu, both passes in one CTA); the split pair #4, #5
-// (flash_bwd_split.cu) and the fused backward #3 (flash_bwd.cu) have bodies
-// of their own for Hopper: as the owner of KEYS a CTA sums dk and dv over the
-// visiting query tiles; as the owner of QUERIES it sums dq over the visiting
-// key tiles. Each pass recomputes S and dP for a tile pair from q, k, v, do,
-// lse and delta, skips a pair whose segment-id ranges do not meet, and masks
-// by segment (seg_q[row] == seg_k[col] > 0) and by the per-row bounds of
-// flash_common.cuh (causal or bi-causal). The streamed pair is the two
-// kernels below, instantiated with STREAM (seg_k its own array, tile ranges
-// from a table). Also the small kernel that the streamed and band
-// backwards launch first for delta = rowsum(do * out) - dlse (the split
-// pair's flash_dq sums delta itself; the fused backward has its own).
+// The two passes of the WMMA flash backward over one 64-row tile, which the
+// band backward #10 (flash_band.cu) runs both of in one CTA; the split and
+// streamed pairs #4, #5, #7, #8 (flash_bwd_split.cu) and the fused backward
+// #3 (flash_bwd.cu) have Hopper bodies of their own. As the owner of KEYS a
+// CTA sums dk and dv over the visiting query tiles; as the owner of QUERIES
+// it sums dq over the visiting key tiles. Each pass recomputes S and dP for
+// a tile pair from q, k, v, do, lse and delta, visits the tiles of its own
+// tile's band, and masks by segment (seg_q[row] == seg_k[col] > 0) and by
+// the per-row bounds of flash_common.cuh (causal or bi-causal). Also the
+// small kernel that the band backward launches first for delta =
+// rowsum(do * out) - dlse (the Hopper bodies sum delta themselves).
 #pragma once
 
 #include "flash_common.cuh"
@@ -19,9 +16,9 @@
 namespace {
 
 struct __align__(128) Smem {
-  bf16 a1[64 * LDH];  // own tile: rot(k) as key owner, rot(q) as query owner
+  bf16 a1[64 * LDH];  // own tile: k as key owner, q as query owner
   bf16 a2[64 * LDH];  // own tile: v, or do
-  bf16 b1[64 * LDH];  // visiting tile: rot(q), or rot(k)
+  bf16 b1[64 * LDH];  // visiting tile: q, or k
   bf16 b2[64 * LDH];  // visiting tile: do, or v
   float s[WARPS][16 * LDS];      // per warp: S, then dP, then the epilogue
   bf16 p[WARPS][2][16 * LDH];    // per warp: P and dS in bf16
@@ -81,12 +78,10 @@ __device__ __forceinline__ void accumulate(AccFrag* acc, const bf16* a, const bf
   }
 }
 
-// Write one warp's fp32 [16 x 64] sum as bf16 rows of a token-major tensor,
-// through the inverse rotation (x*c - rotate_half(x)*s in fp32) when cos is
-// given. Each lane pair owns a row, each lane 32 of its columns.
+// Write one warp's fp32 [16 x 64] sum as bf16 rows of a token-major tensor.
+// Each lane pair owns a row, each lane 32 of its columns.
 __device__ __forceinline__ void write_rows(bf16* dst, long long rs, AccFrag* acc,
-                                           float* sbuf, int row, int P,
-                                           const bf16* cos, const bf16* sin, int lane) {
+                                           float* sbuf, int row, int P, int lane) {
 #pragma unroll
   for (int j = 0; j < 4; ++j)
     wmma::store_matrix_sync(sbuf + j * 16, acc[j], LDS, wmma::mem_row_major);
@@ -96,17 +91,7 @@ __device__ __forceinline__ void write_rows(bf16* dst, long long rs, AccFrag* acc
     uint4 pack[4];
     bf16* y = reinterpret_cast<bf16*>(pack);
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int d = c0 + c;
-      float x = sbuf[r * LDS + d];
-      if (cos != nullptr) {
-        const float other = sbuf[r * LDS + ((d + 32) & 63)];
-        const float rot = d < 32 ? -other : other;
-        x = x * __bfloat162float(cos[(long long)row * DH + d]) -
-            rot * __bfloat162float(sin[(long long)row * DH + d]);
-      }
-      y[c] = __float2bfloat16(x);
-    }
+    for (int c = 0; c < 32; ++c) y[c] = __float2bfloat16(sbuf[r * LDS + c0 + c]);
     uint4* out = reinterpret_cast<uint4*>(dst + row * rs + c0);
 #pragma unroll
     for (int i = 0; i < 4; ++i) out[i] = pack[i];
@@ -114,32 +99,27 @@ __device__ __forceinline__ void write_rows(bf16* dst, long long rs, AccFrag* acc
   __syncwarp();
 }
 
-// One pass of the CTA over the visiting tiles. KEYS: the own tile holds keys
-// (sums dk, dv); else it holds queries (sums dq). segq, segk: one batch
-// row's query and key segment ids (the same array but in the streamed and
-// band kernels); TABLE: the tiles' id ranges come from tabq, tabk. BAND:
-// tabq holds each q tile's band of key positions and tabk each key tile's
-// band of query positions (flash_band.cu); the pass visits the tiles of its
-// own tile's band and tests no range.
-template <bool KEYS, bool TABLE, bool BAND = false>
+// One pass of the CTA over the visiting tiles of its own tile's band. KEYS:
+// the own tile holds keys (sums dk, dv); else it holds queries (sums dq).
+// segq, segk: one batch row's query and key segment ids; tabq holds each q
+// tile's band of key positions and tabk each key tile's band of query
+// positions (flash_band.cu). q and k come rotated.
+template <bool KEYS>
 __device__ __forceinline__ void pass(Smem& sm, const bf16* qb, const bf16* kb,
                                      const bf16* vb, const bf16* dob, const int* segq,
                                      const int* segk, const int2* tabq, const int2* tabk,
-                                     const float* lseb, const float* deltab,
-                                     const bf16* cb, const bf16* sb, long long rs,
+                                     const float* lseb, const float* deltab, long long rs,
                                      int t0, int P, int causal, int bi_split,
                                      AccFrag* acc1, AccFrag* acc2) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int* sego = KEYS ? segk : segq;  // the own tile's ids
   const int* segv = KEYS ? segq : segk;  // the visiting tiles' ids
-  int omin = 0, omax = 0;
-  if constexpr (!BAND) tile_bounds<TABLE>(KEYS ? tabk : tabq, sego, t0, P, lane, &omin, &omax);
   __syncthreads();  // the previous pass has read the own tiles
   if (KEYS) {
-    load_tile(sm.a1, kb, rs, t0, P, cb, sb, tid);
+    load_tile(sm.a1, kb, rs, t0, P, nullptr, nullptr, tid);
     load_tile(sm.a2, vb, rs, t0, P, nullptr, nullptr, tid);
   } else {
-    load_tile(sm.a1, qb, rs, t0, P, cb, sb, tid);
+    load_tile(sm.a1, qb, rs, t0, P, nullptr, nullptr, tid);
     load_tile(sm.a2, dob, rs, t0, P, nullptr, nullptr, tid);
     zero_padded_rows(sm.a2, segq, t0, P, tid);
   }
@@ -168,35 +148,28 @@ __device__ __forceinline__ void pass(Smem& sm, const bf16* qb, const bf16* kb,
   const bool tri = causal && bi_split == 0;
   int v_begin = (KEYS && tri) ? ti : 0;
   int v_end = (!KEYS && tri) ? ti + 1 : nt;
-  if constexpr (BAND) {
-    // every pair with a matching id lies in the own tile's band (a query's
-    // key, or a key's query, carries an id inside the own tile's range)
-    const int2 band = (KEYS ? tabk : tabq)[ti];
-    if (band.y < band.x) {
-      v_end = v_begin;
-    } else {
-      v_begin = max(v_begin, band.x / 64);
-      v_end = min(v_end, band.y / 64 + 1);
-      if (!KEYS && bi_split > 0) {  // the forward's clip of a q tile's band
-        const int last = min(t0 + 64, P) - 1;
-        v_end = min(v_end, (last >= P - bi_split ? last : P - bi_split - 1) / 64 + 1);
-      }
+  // every pair with a matching id lies in the own tile's band (a query's
+  // key, or a key's query, carries an id inside the own tile's range)
+  const int2 band = (KEYS ? tabk : tabq)[ti];
+  if (band.y < band.x) {
+    v_end = v_begin;
+  } else {
+    v_begin = max(v_begin, band.x / 64);
+    v_end = min(v_end, band.y / 64 + 1);
+    if (!KEYS && bi_split > 0) {  // the forward's clip of a q tile's band
+      const int last = min(t0 + 64, P) - 1;
+      v_end = min(v_end, (last >= P - bi_split ? last : P - bi_split - 1) / 64 + 1);
     }
   }
   for (int vt = v_begin; vt < v_end; ++vt) {
     const int v0 = vt * 64;
-    if constexpr (!BAND) {
-      int vmin, vmax;
-      tile_bounds<TABLE>(KEYS ? tabq : tabk, segv, v0, P, lane, &vmin, &vmax);
-      if (ranges_miss(omin, omax, vmin, vmax)) continue;
-    }
     __syncthreads();  // the previous tile's readers are done
     if (KEYS) {
-      load_tile(sm.b1, qb, rs, v0, P, cb, sb, tid);
+      load_tile(sm.b1, qb, rs, v0, P, nullptr, nullptr, tid);
       load_tile(sm.b2, dob, rs, v0, P, nullptr, nullptr, tid);
       zero_padded_rows(sm.b2, segq, v0, P, tid);
     } else {
-      load_tile(sm.b1, kb, rs, v0, P, cb, sb, tid);
+      load_tile(sm.b1, kb, rs, v0, P, nullptr, nullptr, tid);
       load_tile(sm.b2, vb, rs, v0, P, nullptr, nullptr, tid);
     }
     if (tid < 64) {
@@ -236,90 +209,13 @@ __device__ __forceinline__ void pass(Smem& sm, const bf16* qb, const bf16* kb,
     }
     __syncwarp();
     if (KEYS) {
-      accumulate(acc1, dsbuf, sm.b1);  // dk += dS^T rot(q)
+      accumulate(acc1, dsbuf, sm.b1);  // dk += dS^T q
       accumulate(acc2, pbuf, sm.b2);   // dv += P^T do
     } else {
-      accumulate(acc1, dsbuf, sm.b1);  // dq += dS rot(k)
+      accumulate(acc1, dsbuf, sm.b1);  // dq += dS k
     }
     __syncwarp();
   }
-}
-
-// The split backward's two kernels, one pass each, as the streamed pair
-// (kernels #7, #8) instantiates them with STREAM: their key ids are their
-// own array and their tile ranges come from tables [B, ceil(P/64)] (tabq,
-// tabk). Each CTA owns one 64-row tile of one (batch row, head) and writes
-// only that tile.
-template <bool STREAM>
-__global__ void __launch_bounds__(THREADS)
-flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const int* __restrict__ segq,
-                const int* __restrict__ segk, const int2* __restrict__ tabq,
-                const int2* __restrict__ tabk, const bf16* __restrict__ cosb,
-                const bf16* __restrict__ sinb, const float* __restrict__ lse,
-                const float* __restrict__ delta, const bf16* __restrict__ dout,
-                bf16* __restrict__ dq, int P, int H, int causal, int bi_split) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int t0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nt = (P + 63) / 64;
-  const long long rs = (long long)H * DH;
-  const long long base = (long long)b * P * rs + h * DH;
-  const long long rows = ((long long)b * H + h) * P;
-  const int* segqb = segq + (long long)b * P;
-  const int* segkb = STREAM ? segk + (long long)b * P : segqb;
-  const int2* tabqb = STREAM ? tabq + (long long)b * nt : nullptr;
-  const int2* tabkb = STREAM ? tabk + (long long)b * nt : nullptr;
-  const bf16* cb = cosb ? cosb + (long long)b * P * DH : nullptr;
-  const bf16* sb = sinb ? sinb + (long long)b * P * DH : nullptr;
-
-  AccFrag acc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-  pass<false, STREAM>(sm, q + base, k + base, v + base, dout + base, segqb, segkb, tabqb,
-                      tabkb, lse + rows, delta + rows, cb, sb, rs, t0, P, causal, bi_split,
-                      acc, nullptr);
-  write_rows(dq + base, rs, acc, sm.s[warp], t0 + warp * 16 + (lane >> 1), P, cb, sb, lane);
-}
-
-template <bool STREAM>
-__global__ void __launch_bounds__(THREADS)
-flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const int* __restrict__ segq,
-                 const int* __restrict__ segk, const int2* __restrict__ tabq,
-                 const int2* __restrict__ tabk, const bf16* __restrict__ cosb,
-                 const bf16* __restrict__ sinb, const float* __restrict__ lse,
-                 const float* __restrict__ delta, const bf16* __restrict__ dout,
-                 bf16* __restrict__ dk, bf16* __restrict__ dv, int P, int H, int causal,
-                 int bi_split) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int t0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nt = (P + 63) / 64;
-  const long long rs = (long long)H * DH;
-  const long long base = (long long)b * P * rs + h * DH;
-  const long long rows = ((long long)b * H + h) * P;
-  const int* segqb = segq + (long long)b * P;
-  const int* segkb = STREAM ? segk + (long long)b * P : segqb;
-  const int2* tabqb = STREAM ? tabq + (long long)b * nt : nullptr;
-  const int2* tabkb = STREAM ? tabk + (long long)b * nt : nullptr;
-  const bf16* cb = cosb ? cosb + (long long)b * P * DH : nullptr;
-  const bf16* sb = sinb ? sinb + (long long)b * P * DH : nullptr;
-  const int row = t0 + warp * 16 + (lane >> 1);
-
-  AccFrag acc_k[4], acc_v[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    wmma::fill_fragment(acc_k[j], 0.f);
-    wmma::fill_fragment(acc_v[j], 0.f);
-  }
-  pass<true, STREAM>(sm, q + base, k + base, v + base, dout + base, segqb, segkb, tabqb,
-                     tabkb, lse + rows, delta + rows, cb, sb, rs, t0, P, causal, bi_split,
-                     acc_k, acc_v);
-  write_rows(dk + base, rs, acc_k, sm.s[warp], row, P, cb, sb, lane);
-  write_rows(dv + base, rs, acc_v, sm.s[warp], row, P, nullptr, nullptr, lane);
 }
 
 // The backward kernels need more than the 48 KB of static shared memory.
@@ -333,7 +229,8 @@ cudaError_t allow_smem(Kernel kernel, bool* configured) {
 }
 
 // delta[b, h, p] = sum_d do * out - dlse, one warp per (token, head); a
-// padded row gives -dlse. Both backwards launch it before their main kernel.
+// padded row gives -dlse. The band backward launches it before its main
+// kernel.
 __global__ void flash_bwd_delta_kernel(const bf16* __restrict__ dout,
                                        const bf16* __restrict__ out,
                                        const int* __restrict__ seg,

@@ -1,39 +1,50 @@
-// The split flash attention backward with in-kernel RoPE, for Hopper: two
-// kernels, #4 flash_dq and #5 flash_dkv, launched one after the other.
+// The split flash attention backward with in-kernel RoPE, for Hopper: one
+// kernel body in two forms, each two kernels launched one after the other,
+// flash_dq (with delta) then flash_dkv.
 //
-// Replaces graphgpt_tpu/ops/flash_attention.py:602 _dq_kernel_single
-// (flash_dq) and :789 _dkv_kernel_single (flash_dkv), which _flash_bwd :902
-// launches instead of the fused kernel when bi_split > 0 (the denoise
-// model's bi-causal energy decoding) and P <= 2048. q (pre-scaled, not
-// rotated), k, v, do, out are token-major bf16 [B, P, H*64]; lse and the
-// optional dlse fp32 [B, H, P]; seg int32 [B, P]; optional cos/sin bf16
-// [B, P, 64]; P <= 2048. The JAX package computes
+// The single form, #4 flash_dq and #5 flash_dkv, replaces
+// graphgpt_tpu/ops/flash_attention.py:602 _dq_kernel_single and :789
+// _dkv_kernel_single, which _flash_bwd :902 launches instead of the fused
+// kernel when bi_split > 0 (the denoise model's bi-causal energy decoding)
+// and P <= 2048. The stream form (STREAM), #7 flash_dq_stream and #8
+// flash_dkv_stream, replaces :645 _dq_kernel_stream and :835
+// _dkv_kernel_stream, which _flash_bwd launches above P = 2048 (kv blocks of
+// 1024, so more than one; the port's long-context pretraining at P 4096) and
+// under GGT_FLASH_MODE=skip at every P. q (pre-scaled, not rotated), k, v,
+// do, out are token-major bf16 [B, P, H*64]; lse and the optional dlse fp32
+// [B, H, P]; optional cos/sin bf16 [B, P, 64]; the single form takes one
+// seg int32 [B, P] and P <= 2048, the stream form seg_q and seg_k, two
+// arrays (a ring chunk's keys carry another chunk's ids; the model passes
+// one array twice), and any P. The JAX package computes
 // delta = rowsum(do * out) - dlse outside its kernels (:933-940); here
 // flash_dq computes it for its own rows, uses it, and writes delta
-// [B, H, P] for flash_dkv. With S = rot(q) rot(k)^T + mask and
-// p = exp(S - lse):
+// [B, H, P] for flash_dkv (a padded row's delta is -dlse). With
+// S = rot(q) rot(k)^T + mask and p = exp(S - lse):
 //   flash_dq:  ds = p * (do v^T - delta) rounded to bf16, dq = ds rot(k)
 //   flash_dkv: dv = bf16(p)^T do,  dk = ds^T rot(q)
 // in fp32 sums, the inverse rotation applied to the fp32 dq and dk, each
 // rounded to bf16 once; the rotation keeps load_tile's roundings
-// (flash_common.cuh). The mask is the segment rule with the bi-causal (or
-// causal) rule of flash_common.cuh, whose split may fall inside a 64-row
-// tile. A padded row (segment 0) gives dq = 0 and takes no part in dk and
-// dv; its do is zeroed before any product, so that a non-finite value
-// there reaches no output.
+// (flash_common.cuh). The mask is the segment rule (seg_q[row] ==
+// seg_k[col] > 0) with the bi-causal (or causal) rule of flash_common.cuh,
+// whose split may fall inside a 64-row tile. A padded row (segment 0) gives
+// dq = 0 and takes no part in dk and dv; its do is zeroed before any
+// product, so that a non-finite value there reaches no output. A query row
+// that sees no key, or a key that no query sees, gives 0.
 //
 // What bounds it on the H100: bytes. At the denoise shape (B 256, P 88,
 // H 12) flash_dq reads q, k, v, do, out (5 x 34.6 MB), cos, sin and lse and
 // writes delta and dq; flash_dkv reads q, k, v, do, cos, sin, lse and delta
 // and writes dk and dv: ~216 MB each, 64 us of HBM time, against ~9 and
-// ~12 GFLOP of dense products (~10 us).
+// ~12 GFLOP of dense products (~10 us). At the long-context shape (B 16,
+// P 4096, H 12; 100.7 MB a token-major tensor) each moves ~627 MB, 0.187 ms,
+// against 12-16 GFLOP of products on ~32-token packed segments (~16 us).
 //
 // Design. One kernel body for both, DKV choosing the roles: a work item is
 // 128 own rows of one (batch row, head) (queries in flash_dq, keys in
 // flash_dkv), and the kernel is persistent: one CTA an SM walks a
 // contiguous run of items with the head fastest, so that one CTA reuses a
-// row's cos/sin and segment ids across its heads. A CTA is three
-// warpgroups:
+// row's cos/sin and segment ids across its heads (B 16 x P 4096 x H 12 is
+// 6,144 items on 132 SMs). A CTA is three warpgroups:
 //  - producer warp 8 computes which 64-row visiting tiles meet the item's
 //    segment-id range (and the causal range), then TMA-loads the item's own
 //    tiles (q, do, out; or k, v) once, and streams the visiting tiles
@@ -65,6 +76,16 @@
 //    j + 32 sit in fragments j/8 and j/8 + 4 of one thread), rounds once
 //    into a swizzled staging tile and stores it by TMA: rows past P are not
 //    written.
+// What the stream form changes: the own rows' ids and the visiting rows'
+// ids come from their two arrays (flash_dq: own seg_q, visiting seg_k;
+// flash_dkv: own seg_k, visiting seg_q), and every walker of the ring (the
+// producer, the pass warps, the consumers' per-tile and per-item ranges)
+// takes the tiles' segment-id ranges from the tile tables (tile_table.cuh),
+// which the entry writes first: one int2 a tile, where the single form's
+// walkers read a tile's 64 ids and reduce them by shuffles. The visiting
+// tiles of an item go in 64-bit masks of 64 tiles, counted over every chunk
+// first, so that no P limit applies; the single form keeps one 32-bit mask
+// (P <= MAX_P).
 // setmaxnreg gives the consumers 224 registers and the producers 56. Only
 // the producers' waits time out (4 s, then trap); they wait last for every
 // stage to be handed back. No split-K and no atomics: two launches on the
@@ -73,6 +94,7 @@
 #include "flash_common.cuh"  // DH, the segment-range test, the causal and bi-causal bounds
 #include "sm90_common.cuh"   // TMA, mbarriers, wgmma descriptors, the tensor-map encoder
 #include "flash_sm90.cuh"    // wgmma64, desc_mn, ex2, bf16x2 RoPE, the visiting mask, encode3
+#include "tile_table.cuh"    // the stream form's tile tables
 
 namespace split_bwd {
 namespace {
@@ -85,7 +107,7 @@ constexpr int CONSUMERS = 256;
 constexpr int STAGES = 3;
 constexpr int BOX = 64 * DH * 2;   // one [64, 64] bf16 box, 8 KB
 constexpr int HALF = ROWS * DH * 2;  // a [128, 64] own tile: two boxes
-constexpr int MAX_P = 2048;        // the visiting tiles of an item fit one 32-bit mask
+constexpr int MAX_P = 2048;        // the single form: an item's visiting tiles fit one 32-bit mask
 
 // A visiting tile's row data. seg, lse, delta arrive by cp.async (zeros
 // past P); v0, lo, hi, rope_own are written by producer lane 0.
@@ -94,7 +116,7 @@ struct Meta {
   float lse[64];
   float delta[64];
   int v0;        // the tile's first row
-  int lo, hi;    // its segment-id range (tile_range)
+  int lo, hi;    // its segment-id range (tile_range, or the stream form's table)
   int rope_own;  // 1: its rows lie in the own block, whose cos/sin are in the rope buffer
 };
 
@@ -122,11 +144,16 @@ struct Layout {
 };
 
 struct Args {
-  const int* seg;      // [B, P]
+  const int* seg;      // [B, P]: the own rows' ids (the single form: every row's)
   const float* lse;    // [B, H, P]
   const float* dlse;   // flash_dq: [B, H, P] or null
   float* delta;        // flash_dq writes it, flash_dkv reads it
   int B, P, H, causal, bi_split, rope;
+  // the stream form: the visiting rows' ids [B, P], and the own and the
+  // visiting rows' tile tables [B, ceil(P/64)] (tile_table_kernel)
+  const int* segv;
+  const int2* tabo;
+  const int2* tabv;
 };
 
 // The schedule: items (b, 128-row block, h), h fastest; CTA c takes the
@@ -144,7 +171,38 @@ __device__ __forceinline__ Item decode(int i, int H, int nblk) {
   return it;
 }
 
-template <bool DKV>
+// The stream form's visiting mask: bit vt - vt0 for each visiting tile vt
+// in [vt0, vt0 + 64) whose segment-id range meets the own block's [own0,
+// own0 + 128) and, causal, lies on its side of the diagonal (visiting_mask's
+// rule), from one batch row's tables: the own tiles' ranges in tabo, the
+// visiting tiles' in tabv, each lane testing two tiles. The warp's lanes
+// must all call it.
+__device__ __forceinline__ uint64_t table_mask(const int2* tabo, const int2* tabv, int own0,
+                                               int nt, bool tri, bool dkv, int lane, int vt0) {
+  const int ot = own0 / 64;
+  const int2 a = tabo[ot];
+  const int2 b = ot + 1 < nt ? tabo[ot + 1] : make_int2(0x7fffffff, 0);
+  const int olo = min(a.x, b.x), ohi = max(a.y, b.y);
+  int vb = 0, ve = nt;
+  if (tri) {
+    if (dkv) vb = ot;
+    else ve = min(nt, ot + 2);
+  }
+  uint32_t half[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int vt = vt0 + lane + 32 * e;
+    bool hit = false;
+    if (vt >= vb && vt < ve) {
+      const int2 r = tabv[vt];
+      hit = !ranges_miss(olo, ohi, r.x, r.y);
+    }
+    half[e] = __ballot_sync(0xffffffffu, hit);
+  }
+  return (uint64_t)half[0] | ((uint64_t)half[1] << 32);
+}
+
+template <bool DKV, bool STREAM>
 __global__ void __launch_bounds__(NTHREADS, 1)
 split_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant__ CUtensorMap own2,
              const __grid_constant__ CUtensorMap own3, const __grid_constant__ CUtensorMap vis1,
@@ -165,7 +223,7 @@ split_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant__ C
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int P = args.P, H = args.H;
-  const int nblk = (P + ROWS - 1) / ROWS;
+  const int nblk = (P + ROWS - 1) / ROWS, nt = (P + 63) / 64;
   const int items = args.B * nblk * H;
   const int first = (int)((long long)blockIdx.x * items / gridDim.x);
   const int last = (int)((long long)(blockIdx.x + 1) * items / gridDim.x);
@@ -197,12 +255,28 @@ split_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant__ C
       for (int i = first; i < last; ++i) {
         const Item it = decode(i, H, nblk);
         const int* segb = args.seg + (long long)it.b * P;
+        const int* segv = STREAM ? args.segv + (long long)it.b * P : segb;  // visiting ids
+        const int2* tabo = STREAM ? args.tabo + (long long)it.b * nt : nullptr;
+        const int2* tabv = STREAM ? args.tabv + (long long)it.b * nt : nullptr;
         const long long rowbase = ((long long)it.b * H + it.h) * P;
-        uint32_t mask = visiting_mask(segb, it.own0, P, tri, DKV, lane);
+        // the visiting tiles: one 32-bit mask (the single form), or 64-bit
+        // masks of 64 tiles from the tables, counted over every chunk first
+        uint32_t mask = 0;
+        uint64_t mask0 = 0;
+        int n;
+        if constexpr (STREAM) {
+          mask0 = table_mask(tabo, tabv, it.own0, nt, tri, DKV, lane, 0);
+          n = __popcll(mask0);
+          for (int c = 64; c < nt; c += 64)
+            n += __popcll(table_mask(tabo, tabv, it.own0, nt, tri, DKV, lane, c));
+        } else {
+          mask = visiting_mask(segb, it.own0, P, tri, DKV, lane);
+          n = __popc(mask);
+        }
         const bool two = it.own0 + 64 < P;  // the own block's second box holds rows
         mbar_wait_or_trap(own_empty, ophase ^ 1);
         if (lane == 0) {
-          hdr[0] = __popc(mask);
+          hdr[0] = n;
           mbar_expect_tx(own_full, L::NOWN * (two ? 2 : 1) * BOX);
           const CUtensorMap* maps[3] = {&own1, &own2, &own3};
 #pragma unroll
@@ -213,9 +287,8 @@ split_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant__ C
           }
         }
         ophase ^= 1;
-        while (mask) {
-          const int vt = __ffs(mask) - 1;
-          mask &= mask - 1;
+        // visiting tile vt into the next stage
+        auto visit = [&](int vt) {
           const int v0 = vt * 64;
           mbar_wait_or_trap(ring_empty(stage), phase ^ 1);
           Meta& m = meta[stage];
@@ -223,7 +296,7 @@ split_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant__ C
           for (int e = 0; e < 2; ++e) {
             const int r = lane + 32 * e, p = v0 + r;
             const bool ok = p < P;
-            cp_async4(&m.seg[r], segb + (ok ? p : 0), ok);
+            cp_async4(&m.seg[r], segv + (ok ? p : 0), ok);
             if (DKV) {
               cp_async4(&m.lse[r], args.lse + rowbase + (ok ? p : 0), ok);
               cp_async4(&m.delta[r], args.delta + rowbase + (ok ? p : 0), ok);
@@ -231,7 +304,12 @@ split_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant__ C
           }
           cp_async_arrive(ring_full(stage));
           int lo, hi;
-          tile_range(segb, v0, P, lane, &lo, &hi);
+          if constexpr (STREAM) {
+            lo = tabv[vt].x;
+            hi = tabv[vt].y;
+          } else {
+            tile_range(segb, v0, P, lane, &lo, &hi);
+          }
           const bool in_own = v0 >= it.own0 && v0 < it.own0 + ROWS;
           if (lane == 0) {
             m.v0 = v0;
@@ -254,6 +332,15 @@ split_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant__ C
             stage = 0;
             phase ^= 1;
           }
+        };
+        if constexpr (STREAM) {
+          for (int c = 0; c < nt; c += 64) {
+            uint64_t bits = mask0;
+            if (c > 0) bits = table_mask(tabo, tabv, it.own0, nt, tri, DKV, lane, c);
+            for (; bits; bits &= bits - 1) visit(c + __ffsll((long long)bits) - 1);
+          }
+        } else {
+          for (; mask; mask &= mask - 1) visit(__ffs(mask) - 1);
         }
       }
       // every stage and the own buffer handed back: the consumers are past
@@ -299,12 +386,20 @@ split_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant__ C
       uint32_t phase = 0, rphase = 0;
       for (int i = first; i < last; ++i) {
         const Item it = decode(i, H, nblk);
-        uint32_t mask = visiting_mask(args.seg + (long long)it.b * P, it.own0, P, tri, DKV, lane);
+        int n = 0;  // the item's visiting tiles, as the producer counts them
+        if constexpr (STREAM) {
+          const int2* tabo = args.tabo + (long long)it.b * nt;
+          const int2* tabv = args.tabv + (long long)it.b * nt;
+          for (int c = 0; c < nt; c += 64)
+            n += __popcll(table_mask(tabo, tabv, it.own0, nt, tri, DKV, lane, c));
+        } else {
+          n = __popc(visiting_mask(args.seg + (long long)it.b * P, it.own0, P, tri, DKV, lane));
+        }
         if (args.rope) {  // the own rows' cos and sin
           mbar_wait(rope_full, rphase);
           rphase ^= 1;
         }
-        for (; mask; mask &= mask - 1) {
+        for (; n > 0; --n) {
           mbar_wait(ring_full(stage), phase);
           const Meta& m = meta[stage];
           const uint32_t b1 = sbase + L::RING + stage * L::STAGE;
@@ -356,8 +451,9 @@ split_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant__ C
   uint32_t phase = 0, ophase = 0, rphase = 0;
 
   // the ids of this thread's own rows and of the warp's 64-row tile (two a
-  // lane), and (flash_dq) the rows' lse and dlse: loaded an item ahead, so
-  // that their latency hides under the item before
+  // lane; the stream form: the tile's range), and (flash_dq) the rows' lse
+  // and dlse: loaded an item ahead, so that their latency hides under the
+  // item before
   struct Rows {
     int s0, s1, t0, t1;
     float lse0, lse1, dlse0, dlse1;
@@ -370,8 +466,15 @@ split_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant__ C
     const int wrow0 = it.own0 + wg * 64, r0 = wrow0 + w4 * 16 + g, r1 = r0 + 8;
     r.s0 = r0 < P ? segb[r0] : 0;
     r.s1 = r1 < P ? segb[r1] : 0;
-    r.t0 = wrow0 + lane < P ? segb[wrow0 + lane] : 0;
-    r.t1 = wrow0 + lane + 32 < P ? segb[wrow0 + lane + 32] : 0;
+    if constexpr (STREAM) {  // the stream form: the tile's range from the own rows' table
+      const int2 tr = wrow0 < P ? args.tabo[(long long)it.b * nt + wrow0 / 64]
+                                : make_int2(0x7fffffff, 0);
+      r.t0 = tr.x;
+      r.t1 = tr.y;
+    } else {
+      r.t0 = wrow0 + lane < P ? segb[wrow0 + lane] : 0;
+      r.t1 = wrow0 + lane + 32 < P ? segb[wrow0 + lane + 32] : 0;
+    }
     if (!DKV) {
       r.lse0 = r0 < P ? args.lse[rowbase + r0] : 0.f;
       r.lse1 = r1 < P ? args.lse[rowbase + r1] : 0.f;
@@ -399,12 +502,18 @@ split_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant__ C
     const int lim1 = DKV ? first_row(r1, args.causal, args.bi_split, P)
                          : visible_cols(r1, args.causal, args.bi_split, P);
     // the segment-id range of this warpgroup's 64 rows (tile_range's)
-    int omin = min(rows.t0 > 0 ? rows.t0 : 0x7fffffff, rows.t1 > 0 ? rows.t1 : 0x7fffffff);
-    int omax = max(rows.t0, rows.t1);
+    int omin, omax;
+    if constexpr (STREAM) {
+      omin = rows.t0;
+      omax = rows.t1;
+    } else {
+      omin = min(rows.t0 > 0 ? rows.t0 : 0x7fffffff, rows.t1 > 0 ? rows.t1 : 0x7fffffff);
+      omax = max(rows.t0, rows.t1);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      omin = min(omin, __shfl_xor_sync(0xffffffffu, omin, o));
-      omax = max(omax, __shfl_xor_sync(0xffffffffu, omax, o));
+      for (int o = 16; o > 0; o >>= 1) {
+        omin = min(omin, __shfl_xor_sync(0xffffffffu, omin, o));
+        omax = max(omax, __shfl_xor_sync(0xffffffffu, omax, o));
+      }
     }
     // a row's segment id, the key a visiting column must match; -1 (no
     // match) for a padded row
@@ -633,11 +742,11 @@ split_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant__ C
 
 // The launch: tensors in the roles of the DKV kernel (own1..3, vis1, vis2,
 // st1, st2; null where unused); one CTA an SM, at most one an item.
-template <bool DKV>
+template <bool DKV, bool STREAM>
 int launch(const void* own1, const void* own2, const void* own3, const void* vis1,
            const void* vis2, const void* cos, const void* sin, void* st1, void* st2,
            const Args& args, cudaStream_t stream) {
-  if (args.P > MAX_P) return ERR_P;
+  if (!STREAM && args.P > MAX_P) return ERR_P;
   if (args.B == 0 || args.P == 0 || args.H == 0) return 0;
   static bool configured[MAX_DEVICES] = {};
   static int sms[MAX_DEVICES] = {};
@@ -646,7 +755,8 @@ int launch(const void* own1, const void* own2, const void* own3, const void* vis
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return ERR_DEVICE;
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(split_kernel<DKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(split_kernel<DKV, STREAM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)Layout<DKV>::BYTES);
     if (err != cudaSuccess) return (int)err;
     err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
@@ -667,9 +777,32 @@ int launch(const void* own1, const void* own2, const void* own3, const void* vis
     return ERR_ENCODE;
   const int items = B * ((P + ROWS - 1) / ROWS) * args.H;
   const int grid = items < sms[dev] ? items : sms[dev];
-  split_kernel<DKV><<<grid, NTHREADS, Layout<DKV>::BYTES, stream>>>(
+  split_kernel<DKV, STREAM><<<grid, NTHREADS, Layout<DKV>::BYTES, stream>>>(
       m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], m[8], args);
   return (int)cudaGetLastError();
+}
+
+// The stream form's entries take seg_q and seg_k and `tab`, int32 scratch of
+// 4 x B x ceil(P/64) from the caller; each first writes the tile tables of
+// seg_q and seg_k there (one when they are one array), then launches its
+// kernel. Any P.
+// flash_dq_stream: own rows are queries (ids seg_q), visiting rows keys
+// (seg_k). flash_dkv_stream: the other way round.
+int launch_stream(bool dkv, const void* own1, const void* own2, const void* own3,
+                  const void* vis1, const void* vis2, const void* segq, const void* segk,
+                  const void* cos, const void* sin, void* st1, void* st2, void* tab, Args args,
+                  cudaStream_t stream) {
+  if (args.B == 0 || args.P == 0 || args.H == 0) return 0;
+  const int2 *tq, *tk;
+  const cudaError_t err = launch_tables(segq, segk, tab, args.B, args.P, stream, &tq, &tk);
+  if (err != cudaSuccess) return (int)err;
+  args.seg = (const int*)(dkv ? segk : segq);
+  args.segv = (const int*)(dkv ? segq : segk);
+  args.tabo = dkv ? tk : tq;
+  args.tabv = dkv ? tq : tk;
+  return dkv ? launch<true, true>(own1, own2, own3, vis1, vis2, cos, sin, st1, st2, args, stream)
+             : launch<false, true>(own1, own2, own3, vis1, vis2, cos, sin, st1, st2, args,
+                                   stream);
 }
 
 }  // namespace
@@ -687,7 +820,8 @@ extern "C" int ggt_flash_dq(const void* q, const void* k, const void* v, const v
   using namespace split_bwd;
   const Args args{(const int*)seg, (const float*)lse, (const float*)dlse, (float*)delta,
                   B, P, H, causal, bi_split, cos != nullptr};
-  return launch<false>(q, dout, out, k, v, cos, sin, dq, nullptr, args, (cudaStream_t)stream);
+  return launch<false, false>(q, dout, out, k, v, cos, sin, dq, nullptr, args,
+                              (cudaStream_t)stream);
 }
 
 extern "C" int ggt_flash_dkv(const void* q, const void* k, const void* v, const void* seg,
@@ -697,5 +831,34 @@ extern "C" int ggt_flash_dkv(const void* q, const void* k, const void* v, const 
   using namespace split_bwd;
   const Args args{(const int*)seg, (const float*)lse, nullptr, (float*)delta,
                   B, P, H, causal, bi_split, cos != nullptr};
-  return launch<true>(k, v, nullptr, q, dout, cos, sin, dk, dv, args, (cudaStream_t)stream);
+  return launch<true, false>(k, v, nullptr, q, dout, cos, sin, dk, dv, args,
+                             (cudaStream_t)stream);
+}
+
+// #7: dq, and delta into the caller's fp32 [B, H, P] `delta` (dlse may be
+// null: zeros), summed in the kernel: one launch after the tables.
+extern "C" int ggt_flash_dq_stream(const void* q, const void* k, const void* v,
+                                   const void* segq, const void* segk, const void* cos,
+                                   const void* sin, const void* out, const void* lse,
+                                   const void* dout, const void* dlse, void* delta, void* dq,
+                                   void* tab, int B, int P, int H, int causal, int bi_split,
+                                   void* stream) {
+  using namespace split_bwd;
+  const Args args{nullptr, (const float*)lse, (const float*)dlse, (float*)delta,
+                  B, P, H, causal, bi_split, cos != nullptr};
+  return launch_stream(false, q, dout, out, k, v, segq, segk, cos, sin, dq, nullptr, tab, args,
+                       (cudaStream_t)stream);
+}
+
+// #8: dk, dv, reading flash_dq_stream's delta.
+extern "C" int ggt_flash_dkv_stream(const void* q, const void* k, const void* v,
+                                    const void* segq, const void* segk, const void* cos,
+                                    const void* sin, const void* lse, const void* delta,
+                                    const void* dout, void* dk, void* dv, void* tab, int B,
+                                    int P, int H, int causal, int bi_split, void* stream) {
+  using namespace split_bwd;
+  const Args args{nullptr, (const float*)lse, nullptr, (float*)delta,
+                  B, P, H, causal, bi_split, cos != nullptr};
+  return launch_stream(true, k, v, nullptr, q, dout, segq, segk, cos, sin, dk, dv, tab, args,
+                       (cudaStream_t)stream);
 }

@@ -47,7 +47,7 @@ __device__ __forceinline__ void tile_range(const int* seg, int t0, int P, int la
 
 // The segment-id range of the 64-row tile that starts at t0. TABLE: read
 // it from `tab` (one int2 (lo, hi) a tile, written once by the streamed
-// kernels' pre-pass, tile_table_kernel in flash_stream.cu); else each warp
+// kernels' pre-pass, tile_table_kernel in tile_table.cuh); else each warp
 // computes it from the ids with tile_range.
 template <bool TABLE>
 __device__ __forceinline__ void tile_bounds(const int2* tab, const int* seg, int t0, int P,

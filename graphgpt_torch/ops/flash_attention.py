@@ -8,8 +8,9 @@ Counterpart of `graphgpt_tpu/ops/flash_attention.py` (`_prep` :1205,
 :789, and the streamed `_fwd_kernel_stream` :177, `_dq_kernel_stream` :645,
 `_dkv_kernel_stream` :835. The kernels live in `csrc/flash_fwd.cu`,
 `csrc/flash_bwd.cu` (fused backward), `csrc/flash_bwd_split.cu` (the split
-pair flash_dq and flash_dkv) and `csrc/flash_stream.cu` (the streamed
-forward and pair, with separate query and key segment ids). The dispatch is
+pair flash_dq and flash_dkv, and in its stream form the streamed pair, with
+separate query and key segment ids) and `csrc/flash_stream.cu` (the
+streamed forward). The dispatch is
 the JAX package's: up to P = 2048 the single-block forward and the fused
 backward, or the split pair when a bi-causal split is set; above it the
 streamed forward and the streamed pair, whatever the split. Conventions
@@ -343,9 +344,9 @@ def flash_delta(do, out, dlse, dh: int) -> torch.Tensor:
     """delta [B, H, P] fp32 = rowsum(do * out) - dlse in torch ops, as the
     JAX package's split backward computes it outside the kernels
     (`_flash_bwd` :933-940): the plain version of the delta kernel that
-    flash_bwd and flash_dq_stream launch first, and of the sum flash_dq's
-    kernel takes for its own rows. out is 0 on padded rows, which the
-    kernels leave out anyway."""
+    flash_bwd and flash_bwd_band launch first, and of the sum that the
+    kernels of flash_dq and flash_dq_stream take for their own rows. out is
+    0 on padded rows, which the kernels leave out anyway."""
     b, p, hd = do.shape
     delta = (do.float() * out.float()).view(b, p, hd // dh, dh).sum(dim=-1).transpose(1, 2)
     if dlse is not None:
@@ -522,8 +523,9 @@ flash_bwd.launches = 0
 
 
 def _check_split_p(name, p: int) -> None:
-    """The split pair's kernels hold an item's visiting tiles in one 32-bit
-    mask: P <= MAX_P (flash_bwd sends longer rows to the streamed pair)."""
+    """The split pair's kernels (the single form) hold an item's visiting
+    tiles in one 32-bit mask: P <= MAX_P (flash_bwd sends longer rows to the
+    streamed pair, the same body's stream form)."""
     if p > MAX_P:
         raise NotImplementedError(f"{name} takes P <= {MAX_P}, got {p}")
 
@@ -630,9 +632,10 @@ def flash_dkv_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causa
 def flash_dq_stream(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, dlse, causal: bool,
                     dh: int, bi_causal_split: int = 0):
     """(dq, delta) of the streamed pair's first kernel (#7): the CUDA
-    kernels (the tile tables, the delta kernel, then dq; counted as one
-    call) for a CUDA tensor, flash_delta and flash_dq_stream_ref for a CPU
-    tensor (or inside ops.reference_mode()). dlse None means zeros."""
+    kernels (the tile tables, then dq with delta summed for its own rows;
+    counted as one call) for a CUDA tensor, flash_delta and
+    flash_dq_stream_ref for a CPU tensor (or inside ops.reference_mode()).
+    dlse None means zeros. Any P."""
     if not use_kernel(qs, k, v, seg_q, seg_k, out, lse, do):
         delta = flash_delta(do, out, dlse, dh)
         return flash_dq_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal,
@@ -644,7 +647,7 @@ def flash_dq_stream(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, dlse, causal
         extra_rows=extra_rows, seg_k=seg_k)
     lse, dlse = rows[0], (rows[1] if dlse is not None else None)
     dq, delta = torch.empty_like(qs), torch.empty_like(lse)
-    fn = _build.entry("flash_stream", "ggt_flash_dq_stream", _DQ_STREAM_ARGTYPES)
+    fn = _build.entry("flash_bwd_split", "ggt_flash_dq_stream", _DQ_STREAM_ARGTYPES)
     err = fn(
         _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
         _opt_ptr(cos), _opt_ptr(sin), _build.ptr(out), _build.ptr(lse), _build.ptr(do),
@@ -662,8 +665,9 @@ flash_dq_stream.launches = 0
 def flash_dkv_stream(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal: bool,
                      dh: int, bi_causal_split: int = 0):
     """(dk, dv) of the streamed pair's second kernel (#8), reading
-    flash_dq_stream's delta: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor (or inside ops.reference_mode())."""
+    flash_dq_stream's delta: the CUDA kernels (the tile tables, then dk and
+    dv; counted as one call) for a CUDA tensor, the plain version for a CPU
+    tensor (or inside ops.reference_mode()). Any P."""
     if not use_kernel(qs, k, v, seg_q, seg_k, lse, delta, do):
         return flash_dkv_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal,
                                     dh, bi_causal_split)
@@ -672,7 +676,7 @@ def flash_dkv_stream(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal: b
         "flash_dkv_stream", dh, qs, k, v, seg_q, cos, sin, lse, do, extra_rows=(delta,),
         seg_k=seg_k)
     dk, dv = torch.empty_like(qs), torch.empty_like(qs)
-    fn = _build.entry("flash_stream", "ggt_flash_dkv_stream", _DKV_STREAM_ARGTYPES)
+    fn = _build.entry("flash_bwd_split", "ggt_flash_dkv_stream", _DKV_STREAM_ARGTYPES)
     err = fn(
         _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
         _opt_ptr(cos), _opt_ptr(sin), _build.ptr(lse), _build.ptr(delta), _build.ptr(do),

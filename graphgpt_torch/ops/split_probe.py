@@ -1,14 +1,16 @@
 """Where the time of the Hopper kernels goes: the split backward #4
 flash_dq and #5 flash_dkv (`csrc/flash_bwd_split.cu`, the default), the
-forward #1 (`--kernel fwd`, `csrc/flash_fwd.cu`), the fused backward #3
-(`--kernel bwd`, `csrc/flash_bwd.cu`) and the gated MLPs #11 and #2
-(`--kernel mlp`, `--kernel norm_mlp`: `csrc/mlp.cu`, `csrc/norm_mlp.cu`
-with `csrc/mlp_common.cuh`), timed on the card whole and with one phase of
-their body left out at a time, at their paths' shapes: the denoise batch
-(B 256 x P 88, 16 bit slots, a molecule and a padded stretch a row), the
-fine-tune batch (B 256 x P 72, a molecule a row), B 8 and B 64 x P 1024
-(packed rows); the MLPs at N 8,192 and 65,536 rows (D 768, F 3,072, gelu),
-whole and each stage alone.
+same body's stream form #7 flash_dq_stream and #8 flash_dkv_stream
+(`--kernel stream`), the forward #1 (`--kernel fwd`, `csrc/flash_fwd.cu`),
+the fused backward #3 (`--kernel bwd`, `csrc/flash_bwd.cu`) and the gated
+MLPs #11 and #2 (`--kernel mlp`, `--kernel norm_mlp`: `csrc/mlp.cu`,
+`csrc/norm_mlp.cu` with `csrc/mlp_common.cuh`), timed on the card whole
+and with one phase of their body left out at a time, at their paths'
+shapes: the denoise batch (B 256 x P 88, 16 bit slots, a molecule and a
+padded stretch a row), the fine-tune batch (B 256 x P 72, a molecule a
+row), B 8 and B 64 x P 1024 and the long-context batch B 16 x P 4096
+(packed rows, the key ids the query ids); the MLPs at N 8,192 and 65,536
+rows (D 768, F 3,072, gelu), whole and each stage alone.
 
 A variant leaves a phase out by a text substitution in the source and is
 built beside the package's own builds. Its outputs are wrong by design;
@@ -27,7 +29,10 @@ the time it saves is that phase's share:
   dqonly   the query role alone (bwd: no dk, dv)
   dkvonly  the key role alone (bwd: no dq)
   shfl     the walkers' tile ranges by tile_range's shuffles instead of
-           redux.sync (fwd, bwd; outputs right)
+           redux.sync (fwd, bwd; outputs right); stream: the masks and the
+           visiting tiles' ranges from the ids by tile_range's shuffles (the
+           single form's way) instead of the tile tables (outputs right, the
+           key ids being the query ids)
   stages2  a ring of 2 stages instead of 3 (fwd: of 4) (outputs right)
   stages3  a ring of 3 stages instead of 4 (fwd; outputs right)
   all      rope0, noepi, noexp and noglob, nomask or nodelta together
@@ -46,14 +51,17 @@ substituted):
   wnglobal wn read from global memory, not shared: four gate/up stages, not
            three (norm_mlp; the same bits)
 
-    python3 -m graphgpt_torch.ops.split_probe [--kernel split|fwd|bwd|mlp|norm_mlp]
-        [--source FILE] [--variants base,noexp]
+    python3 -m graphgpt_torch.ops.split_probe
+        [--kernel split|stream|fwd|bwd|mlp|norm_mlp] [--source FILE]
+        [--variants base,noexp]
 
 --source probes another body of the file (one unpacked from an earlier
 commit, say); a substitution that does not match it raises. Needs a CUDA
 card and nvcc. Prints the card, then one line a shape and variant: the
 medians of five CUDA-event readings of 30 launches each, every variant of
-a shape in one turn, then again in the reverse order.
+a shape in one turn, then again in the reverse order; the split and stream
+lines end with a digest of dq, delta, dk and dv, so that two bodies that
+should give the same bits (one --source against another) show it.
 """
 
 from __future__ import annotations
@@ -98,6 +106,13 @@ _FWD_SHFL = [("visiting_mask<uint64_t, true>(", "visiting_mask<uint64_t, false>(
              ("tile_range_redux(segb, v0,", "tile_range(segb, v0,")]
 _BWD_SHFL = [("visiting_mask<uint32_t, true>(", "visiting_mask<uint32_t, false>("),
              ("tile_range_redux(segb, v0,", "tile_range(segb, v0,")]
+# the stream form's walkers: the masks and ranges from the ids (the
+# visiting ids for both sides: the probe's key ids are its query ids)
+_STREAM_SHFL = [("table_mask(tabo, tabv, it.own0, nt, tri, DKV, lane, ",
+                 "visiting_mask<uint64_t>(args.segv + (long long)it.b * P, it.own0, P, tri, DKV, "
+                 "lane, "),
+                ("lo = tabv[vt].x;\n            hi = tabv[vt].y;",
+                 "tile_range(segv, v0, P, lane, &lo, &hi);")]
 _FWD_NOMASK = [("sc[4 * j + e] = ok ? sc[4 * j + e] : -INFINITY;", "(void)ok;")]
 _BWD_NOEPI = [("    tma_store_3d(DKV ? &mp.dk : &mp.dq, box0, it.h * DH, wrow0, it.b);",
                "    (void)0;"),
@@ -150,6 +165,9 @@ KERNELS = {
     "split": ("flash_bwd_split.cu", {
         "base": [], "rope0": _ROPE0, "noglob": _NOGLOB, "noepi": _NOEPI, "noexp": _NOEXP,
         "stages2": _STAGES2, "all": _ROPE0 + _NOGLOB + _NOEPI + _NOEXP}),
+    "stream": ("flash_bwd_split.cu", {
+        "base": [], "rope0": _ROPE0, "noepi": _NOEPI, "noexp": _NOEXP, "stages2": _STAGES2,
+        "shfl": _STREAM_SHFL}),
     "fwd": ("flash_fwd.cu", {
         "base": [], "rope0": _ROPE0_SM90, "noepi": _FWD_NOEPI, "noexp": _FWD_NOEXP,
         "nomask": _FWD_NOMASK, "nocons": _FWD_NOCONS, "shfl": _FWD_SHFL,
@@ -174,6 +192,7 @@ VARIANTS = KERNELS["split"][1]
 SHAPES = {
     "split": {"denoise B256 P88": (256, 88, 12, 16, "denoise"),
               "B8 P1024": (8, 1024, 12, 16, "packed")},
+    "stream": {"B16 P4096": (16, 4096, 12, 0, "packed")},
     "fwd": {"denoise B256 P88": (256, 88, 12, 16, "denoise"),
             "finetune B256 P72": (256, 72, 12, 0, "molecule"),
             "B8 P1024": (8, 1024, 12, 0, "packed"), "B64 P1024": (64, 1024, 12, 0, "packed")},
@@ -216,6 +235,9 @@ def build(kernel: str, source: str, names) -> dict:
         if kernel == "split":
             libs[name].ggt_flash_dq.argtypes = fa._DQ_ARGTYPES
             libs[name].ggt_flash_dkv.argtypes = fa._DKV_ARGTYPES
+        elif kernel == "stream":
+            libs[name].ggt_flash_dq_stream.argtypes = fa._DQ_STREAM_ARGTYPES
+            libs[name].ggt_flash_dkv_stream.argtypes = fa._DKV_STREAM_ARGTYPES
         elif kernel == "fwd":
             libs[name].ggt_flash_fwd.argtypes = fa._ARGTYPES
         elif kernel == "bwd":
@@ -333,6 +355,7 @@ def main() -> None:
         qs, k, v, do, seg, cos, sin, out, lse = inputs(b, p, h, bi, layout, dev)
         delta = torch.zeros_like(lse)
         dq, dk, dv = (torch.empty_like(qs) for _ in range(3))
+        tab = fa._tile_scratch(seg)
         o2, l2 = torch.empty_like(out), torch.empty_like(lse)
         order = list(libs.items())
         for turn in (order, order[::-1]):
@@ -347,6 +370,16 @@ def main() -> None:
                                       ptr(lse), ptr(delta), ptr(do), ptr(dk), ptr(dv),
                                       b, p, h, 0, bi, stream)
 
+                def run_dq_stream(lib=lib):
+                    lib.ggt_flash_dq_stream(ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(seg), ptr(cos),
+                                            ptr(sin), ptr(out), ptr(lse), ptr(do), None,
+                                            ptr(delta), ptr(dq), ptr(tab), b, p, h, 0, bi, stream)
+
+                def run_dkv_stream(lib=lib):
+                    lib.ggt_flash_dkv_stream(ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(seg),
+                                             ptr(cos), ptr(sin), ptr(lse), ptr(delta), ptr(do),
+                                             ptr(dk), ptr(dv), ptr(tab), b, p, h, 0, bi, stream)
+
                 def run_fwd(lib=lib):
                     lib.ggt_flash_fwd(ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(cos), ptr(sin),
                                       ptr(o2), ptr(l2), b, p, h, 0, bi, stream)
@@ -356,10 +389,20 @@ def main() -> None:
                                       ptr(out), ptr(lse), ptr(do), None, ptr(delta), ptr(dq),
                                       ptr(dk), ptr(dv), b, p, h, 0, stream)
 
-                if args.kernel == "split":
-                    tq, tkv = cuda_ms(run_dq), cuda_ms(run_dkv)
-                    print(f"{tag}: {name:8s} flash_dq {tq:.4f} ms  flash_dkv {tkv:.4f} ms  "
-                          f"pair {tq + tkv:.4f} ms", flush=True)
+                if args.kernel in ("split", "stream"):
+                    one, two = ((run_dq, run_dkv) if args.kernel == "split"
+                                else (run_dq_stream, run_dkv_stream))
+                    tq, tkv = cuda_ms(one), cuda_ms(two)
+                    # the outputs of one launch of each on fresh buffers
+                    for t in (delta, dq, dk, dv):
+                        t.zero_()
+                    one()
+                    two()
+                    digest = sum(t.view(torch.int16).long().sum().item() for t in (dq, dk, dv))
+                    digest += delta.view(torch.int32).long().sum().item()
+                    kn = "flash_dq" if args.kernel == "split" else "flash_dq_stream"
+                    print(f"{tag}: {name:8s} {kn} {tq:.4f} ms  {kn.replace('dq', 'dkv')} "
+                          f"{tkv:.4f} ms  pair {tq + tkv:.4f} ms  digest {digest}", flush=True)
                 else:
                     t = cuda_ms(run_fwd if args.kernel == "fwd" else run_bwd)
                     kname = "flash_fwd" if args.kernel == "fwd" else "flash_bwd"

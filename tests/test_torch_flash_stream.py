@@ -42,6 +42,7 @@ import torch
 from graphgpt_tpu.models.rope import apply_rope as j_apply_rope
 from graphgpt_tpu.models.rope import rope_cos_sin as j_rope_cos_sin
 from graphgpt_tpu.ops import flash_attention as jfa
+from graphgpt_tpu.ops.attention import xla_attention
 from graphgpt_torch.ops import flash_attention as tfa
 from graphgpt_torch.synthetic import packed_segments
 
@@ -219,6 +220,46 @@ def test_backward_refs_with_rope_match_interpreted_stream_kernels(mask, dtype, m
         assert g.dtype == tdt, name
         _close(g.float().numpy(), w, dtype, name)
         assert np.all(g.float().numpy()[seg == 0] == 0), name
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["bidirectional", "causal"])
+def test_stream_pair_refs_past_one_mask_match_jax_grad_of_xla_attention(causal):
+    """The plain routes of #7 and #8, the yardstick of their card checks, at
+    P 4160: past the 4096 rows (64 tiles) that one 64-bit mask of visiting
+    tiles covers in the CUDA kernels, with a segment across tiles 63 and 64,
+    padding at the end and RoPE, against jax.grad of the JAX package's plain
+    attention on the same numpy inputs (fp32: the sides differ only in the
+    order of fp32 sums, TOL). xla_attention takes one id array, so the key
+    ids are the query ids. B 1, H 1: a few seconds, most of it JAX's
+    [P, P] scores."""
+    b, p = 1, 4160
+    rng = np.random.default_rng(12)
+    q, k, v, do = ((rng.normal(size=(b, p, 1, DH)) * 0.5).astype(np.float32) for _ in range(4))
+    seg = packed_segments(b, p, rng)
+    seg[:, 4096:4112] = seg[:, 4095:4096]  # one segment across tiles 63 and 64
+    seg[:, p - 40 :] = 0
+    pos = np.tile(np.arange(p, dtype=np.int32), (b, 1))
+    cos, sin = (np.array(t) for t in j_rope_cos_sin(jnp.asarray(pos), DH))
+    jseg = jnp.asarray(seg)
+
+    def f(q, k, v):
+        rq, rk = j_apply_rope(q, k, jnp.asarray(cos), jnp.asarray(sin))
+        return jnp.sum(xla_attention(rq, rk, v, jseg, causal) * jnp.asarray(do))
+
+    want = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).reshape(b, p, -1))  # noqa: E731
+    tseg, tc, ts = torch.from_numpy(seg), torch.from_numpy(cos), torch.from_numpy(sin)
+    qs = t(q) * DH**-0.5
+    out, lse = tfa.flash_fwd_stream(qs, t(k), t(v), tseg, tseg, tc, ts, causal, DH)
+    dq, delta = tfa.flash_dq_stream(qs, t(k), t(v), tseg, tseg, tc, ts, out, lse, t(do), None,
+                                    causal, DH)
+    dk, dv = tfa.flash_dkv_stream(qs, t(k), t(v), tseg, tseg, tc, ts, lse, delta, t(do), causal,
+                                  DH)
+    # dq is the gradient of the pre-scaled q
+    for name, g, w in (("dq", dq * DH**-0.5, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w).reshape(b, p, -1), atol=TOL,
+                                   rtol=TOL, err_msg=name)
+        assert np.all(g.numpy()[seg == 0] == 0), name
 
 
 def test_a_query_row_that_sees_no_key_gives_zero():

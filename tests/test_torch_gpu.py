@@ -201,14 +201,18 @@ def _shifted(seg):
 @pytest.mark.parametrize("shape,keys,mask", [
     ((2, 4096, 12), "same", "bidirectional"), ((2, 320, 3), "other", "bidirectional"),
     ((2, 320, 3), "other", "causal"), ((2, 320, 3), "other", "bi-causal"),
-    ((1, 4100, 2), "same", "causal")], ids=["P4096", "P320-other", "P320-other-causal",
-                                            "P320-other-bicausal", "P4100-causal"])
+    ((1, 4100, 2), "same", "causal"), ((2, 4160, 2), "other", "bidirectional"),
+    ((2, 4160, 2), "other", "bi-causal")],
+    ids=["P4096", "P320-other", "P320-other-causal", "P320-other-bicausal", "P4100-causal",
+         "P4160-other", "P4160-other-bicausal"])
 def test_stream_kernels_match_plain(cuda_device, shape, keys, mask):
     """flash_fwd_stream, flash_dq_stream (with its delta and a cotangent of
     lse) and flash_dkv_stream against their plain versions, at the
     tolerances of the single-block kernels; padded rows exactly 0; key ids
     the query ids or another array (bi-causal: 16 bit slots); the same bits
-    from run to run."""
+    from run to run. Past P 4096 (65 tiles: two 64-bit masks of visiting
+    tiles in #7 and #8) a segment straddles tiles 63 and 64 on the first
+    row."""
     dev = cuda_device
     b, p, h = shape
     dh = 64
@@ -217,6 +221,8 @@ def test_stream_kernels_match_plain(cuda_device, shape, keys, mask):
     qs = _bf16(rng, (b, p, h * dh), 0.5 * dh**-0.5, dev)
     k, v, do = (_bf16(rng, (b, p, h * dh), 0.5, dev) for _ in range(3))
     seg_np = packed_segments(b, p, rng)
+    if p > 4096:  # one segment across the edge of the first 64-bit mask
+        seg_np[:, 4096:4112] = seg_np[:, 4095:4096]
     seg_np[-1, p - 100 : p - 20] = 0
     seg = torch.from_numpy(seg_np).to(dev)
     seg_k = seg if keys == "same" else _shifted(seg)
@@ -255,6 +261,8 @@ def test_stream_kernels_match_plain(cuda_device, shape, keys, mask):
             tfa.flash_dkv_stream.launches] == [c + 1 for c in counts]
     again = tfa.flash_dkv_stream(*dkv_args)
     assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+    again = tfa.flash_dq_stream(*dq_args)
+    assert torch.equal(again[0], dq) and torch.equal(again[1], delta)
 
 
 # (N, D, F) of the MLP kernels' cases: the tiny configs' widths, small12's
