@@ -67,10 +67,11 @@
    #7 flash_dq_stream (with its delta) and #8 flash_dkv_stream against
    their plain versions on 2 of the first batch's 16 rows, with its
    segments and RoPE table, and again with another packed row's ids as the
-   key ids; #7 and #8 also on the whole 16 x 4096 launch against their
+   key ids; #6, #7 and #8 also on the whole 16 x 4096 launch against their
    plain versions run a row at a time, both ways, and against a relaunch
    bit for bit; each timed at the whole 16 x 4096 beside its bound, its
-   plain version's time and SDPA's, and #1's entry on the same rows. Then the
+   plain version's time and SDPA's, and #1's entry on the same rows, which
+   must give #6's bits (one body, one id array). Then the
    first step on 4 rows against an fp32 run of the plain versions (each
    gradient's error on the kernel path at most STEP32_K times the plain
    bf16 path's plus STEP32_F); run A, eight steps with the
@@ -85,10 +86,11 @@
    (the port's `_MODE` attribute and the environment variable): #9
    flash_fwd_band and #10 flash_bwd_band (with its delta) against their
    plain versions at B 8 x P 1024 (bidirectional, causal, and with another
-   packed row's ids as key ids), B 64 x P 1024 (4 rows checked), the
-   long-context batch's 16 x 4096 (2 rows) and the denoise batch's
-   256 x 88 (bi-causal, 16 bit slots), their band tables equal to
-   band_limits and padded rows exactly 0 on every row; timed at 8 x 1024,
+   packed row's ids as key ids), B 64 x P 1024 (#9 on every row, #10 on
+   4), the long-context batch's 16 x 4096 (#9 on every row, #10 on 2) and
+   the denoise batch's 256 x 88 (bi-causal, 16 bit slots), their band
+   tables equal to band_limits, padded rows exactly 0 on every row and #9
+   bit for bit against a relaunch; timed at 8 x 1024,
    64 x 1024 and 16 x 4096 beside the bound, the plain version, SDPA and
    the legacy kernels at the same shape; #12 norm_qkv at N 8,192 and
    65,536 beside F.rms_norm + one matmul (its achieved TFLOP/s, share of
@@ -1567,31 +1569,35 @@ def check_stream_rows(fa, ops, tag, qs, k, v, seg_q, seg_k, cos, sin, do, dh):
 
 
 def check_stream_batch(fa, ops, tag, qs, k, v, seg_q, seg_k, cos, sin, do, dh):
-    """#7 (with its delta) and #8 at the whole launch that the long-context
-    step makes, B 16 x P 4096 (a persistent kernel's schedule depends on B),
-    on #6's out and lse, against their plain versions run one row at a time:
-    errors as check_flash_bwd's; delta within DELTA_ATOL; padded query rows,
-    query rows that see no key and keys that no query sees exactly 0 (the
-    path is bidirectional: a pair is visible when the ids match); a second
-    launch of each gives the same bits. Returns (largest elementwise error
-    of dq, of dk and dv, largest relative error, delta error)."""
+    """#6, #7 (with its delta) and #8 at the whole launch that the
+    long-context step makes, B 16 x P 4096 (a persistent kernel's schedule
+    depends on B), #7 and #8 on #6's out and lse, against their plain
+    versions run one row at a time: #6's errors as check_flash_fwd's, #7's
+    and #8's as check_flash_bwd's; delta within DELTA_ATOL; padded query
+    rows, query rows that see no key (out 0, lse -1e30) and keys that no
+    query sees exactly 0 (the path is bidirectional: a pair is visible when
+    the ids match); a second launch of each gives the same bits. Returns the
+    largest elementwise errors of out and lse ("fwd"), dq, and dk and dv,
+    the largest relative error of the backward ("rel") and delta's."""
     out, lse = fa.flash_fwd_stream(qs, k, v, seg_q, seg_k, cos, sin, False, dh)
     dq, delta = fa.flash_dq_stream(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, None, False,
                                    dh)
     dk, dv = fa.flash_dkv_stream(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, False, dh)
-    again = (*fa.flash_dq_stream(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, None, False, dh),
+    again = (*fa.flash_fwd_stream(qs, k, v, seg_q, seg_k, cos, sin, False, dh),
+             *fa.flash_dq_stream(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, None, False, dh),
              *fa.flash_dkv_stream(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, False, dh))
     torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(again, (dq, delta, dk, dv)))
+    same = all(torch.equal(a, b) for a, b in zip(again, (out, lse, dq, delta, dk, dv)))
     parts = []
     with ops.reference_mode():
         for r in range(seg_q.shape[0]):
             row = lambda *ts: [None if t is None else t[r : r + 1] for t in ts]  # noqa: E731
             args = row(qs, k, v, seg_q, seg_k, cos, sin)
+            rout, rlse = fa.flash_fwd_stream(*args, False, dh)
             rdq, rdelta = fa.flash_dq_stream(*args, *row(out, lse, do), None, False, dh)
             rdk, rdv = fa.flash_dkv_stream(*args, *row(lse, delta, do), False, dh)
-            parts.append((rdq, rdelta, rdk, rdv))
-    rdq, rdelta, rdk, rdv = (torch.cat(t) for t in zip(*parts))
+            parts.append((rout, rlse, rdq, rdelta, rdk, rdv))
+    rout, rlse, rdq, rdelta, rdk, rdv = (torch.cat(t) for t in zip(*parts))
     # the ids that take part: a query row that sees a key, a key that a query sees
     seen_q = torch.stack([torch.isin(a, b[b > 0]) for a, b in zip(seg_q, seg_k)]) & (seg_q > 0)
     seen_k = torch.stack([torch.isin(b, a[a > 0]) for a, b in zip(seg_q, seg_k)]) & (seg_k > 0)
@@ -1600,14 +1606,16 @@ def check_stream_batch(fa, ops, tag, qs, k, v, seg_q, seg_k, cos, sin, do, dh):
     delta_err = (delta - rdelta).abs().max().item()
     print(f"flash_dq_stream[{shape}] max|delta-plain| {delta_err:.3e} (tol {DELTA_ATOL}); "
           f"{int((~seen_q).sum())} query rows see no key, {int((~seen_k).sum())} keys are seen "
-          f"by no query; a second launch of #7 and #8 bit for bit: {same}", flush=True)
+          f"by no query; a second launch of #6, #7 and #8 bit for bit: {same}", flush=True)
     if not (delta_err <= DELTA_ATOL and same):
-        fail(f"flash_dq_stream/flash_dkv_stream[{shape}]: delta or a relaunch disagrees")
+        fail(f"flash_fwd_stream/flash_dq_stream/flash_dkv_stream[{shape}]: delta or a relaunch "
+             f"disagrees")
+    fwd_err = check_flash_fwd(f"stream, {shape}", out, lse, rout, rlse, seen_q.int())
     dq_err, dq_rel = check_flash_bwd(shape, (dq,), (rdq,), seen_q.int(), "flash_dq_stream",
                                      ("dq",))
     dkv_err, dkv_rel = check_flash_bwd(shape, (dk, dv), (rdk, rdv), seen_k.int(),
                                        "flash_dkv_stream", ("dk", "dv"))
-    return dq_err, dkv_err, max(dq_rel, dkv_rel), delta_err
+    return dict(fwd=fwd_err, dq=dq_err, dkv=dkv_err, rel=max(dq_rel, dkv_rel), delta=delta_err)
 
 
 def stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_rows: int = 2):
@@ -1620,8 +1628,9 @@ def stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_rows:
     then each kernel timed at the whole shape beside its bound, its plain
     version's time and SDPA's (boolean mask; forward, and forward's backward
     for #7 and #8), and #1's entry (ggt_flash_fwd) on the same rows, which
-    the dispatch never gives it above P 2048. #7 and #8 are held on all the
-    rows too (check_stream_batch), with both kinds of key ids."""
+    the dispatch never gives it above P 2048: one body and one id array, it
+    must give #6's bits. #6, #7 and #8 are held on all the rows too
+    (check_stream_batch), with both kinds of key ids."""
     b, p = seg.shape
     qs, k, v, do = flash_tensors(seg, h, dh, seed=21)
     r = slice(0, check_rows)
@@ -1634,9 +1643,8 @@ def stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_rows:
     batch = [check_stream_batch(fa, ops, tag, qs, k, v, seg, seg_k, cos, sin, do, dh)
              for tag, seg_k in (("long-context", seg),
                                 ("keys of another packed row", seg.roll(1, dims=0)))]
-    errs["dq"] = max([errs["dq"]] + [e[0] for e in batch])
-    errs["dkv"] = max([errs["dkv"]] + [e[1] for e in batch])
-    errs["delta"] = max([errs["delta"]] + [e[3] for e in batch])
+    for key in ("fwd", "dq", "dkv", "delta"):
+        errs[key] = max([errs[key]] + [e[key] for e in batch])
     torch.cuda.empty_cache()
 
     fwd_args = (qs, k, v, seg, seg, cos, sin, False, dh)
@@ -1656,11 +1664,14 @@ def stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_rows:
 
     single()
     torch.cuda.synchronize()
-    same = (out1.float() - out.float()).abs().max().item()
+    diff = (out1.float() - out.float()).abs().max().item()
+    same = torch.equal(out1, out) and torch.equal(lse1, lse)
     print(f"flash_fwd (#1's entry) on the long-context rows: max|out - flash_fwd_stream| "
-          f"{same:.3e} (tol {FLASH_TOL['out_atol']})", flush=True)
-    if not same <= FLASH_TOL["out_atol"]:
-        fail("kernel #1 and kernel #6 disagree on the long-context rows")
+          f"{diff:.3e}, max|lse - flash_fwd_stream| {(lse1 - lse).abs().max().item():.3e}; "
+          f"bit for bit: {same}", flush=True)
+    if not same:
+        fail("kernel #1 and kernel #6 disagree on the long-context rows (one body, one id "
+             "array: the same bits)")
     single_ms = cuda_ms(single, iters=5)
     single_spread = spread()
 
@@ -1694,9 +1705,10 @@ def stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_rows:
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP){extra}", flush=True)
         res[kind] = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms, bound_by=by,
                          err=errs[kind])
-    for kind, i in (("dq", 0), ("dkv", 1)):
-        res[kind]["batch_err"] = max(e[i] for e in batch)
-        res[kind]["batch_rel"] = max(e[2] for e in batch)
+    for kind in ("fwd", "dq", "dkv"):
+        res[kind]["batch_err"] = max(e[kind] for e in batch)
+    for kind in ("dq", "dkv"):
+        res[kind]["batch_rel"] = max(e["rel"] for e in batch)
     res["fwd"]["single_ms"] = single_ms
     res["dq"]["delta_err"] = errs["delta"]
     return res
@@ -2049,8 +2061,10 @@ def band_work(fa, seg, seg_k, causal: bool, h: int, dh: int, kind: str, bi: int 
 def band_at_shape(fa, ops, tag, seg, seg_k, h: int, dh: int, causal: bool = False,
                   bi: int = 0, check_rows: int = 0, timed: bool = False):
     """#9 flash_fwd_band and #10 flash_bwd_band on every row of seg [B, P]
-    (key ids seg_k) against their plain versions on the first `check_rows`
-    rows (all by default): out, lse, #10's delta, dq, dk, dv; both band
+    (key ids seg_k): #9's out and lse against its plain version on every
+    row (8 rows at a time: a persistent kernel's schedule depends on B), and
+    bit for bit against a relaunch; #10's delta, dq, dk, dv against its
+    plain version on the first `check_rows` rows (all by default); both band
     tables equal band_limits on every row; padded rows (and keys of no
     query) exactly 0 on every row. `timed`: then each kernel, its plain
     version (the whole shape, once), SDPA with the boolean mask (forward;
@@ -2065,7 +2079,9 @@ def band_at_shape(fa, ops, tag, seg, seg_k, h: int, dh: int, causal: bool = Fals
     bwd_args = (qs, k, v, seg, seg_k, out, lse, do, None, causal, dh, bi)
     bux = {}
     dq, dk, dv = fa.flash_bwd_band(*bwd_args, aux=bux)
+    again = fa.flash_fwd_band(*fwd_args)
     torch.cuda.synchronize()
+    same = torch.equal(again[0], out) and torch.equal(again[1], lse)
     table_ok = (torch.equal(aux["table"], fa.band_limits(seg, seg_k))
                 and torch.equal(bux["table_k"], fa.band_limits(seg_k, seg)))
     valid, kvalid = seg > 0, seg_k > 0
@@ -2076,23 +2092,27 @@ def band_at_shape(fa, ops, tag, seg, seg_k, h: int, dh: int, causal: bool = Fals
     n = check_rows or b
     print(f"flash_fwd_band/flash_bwd_band[{shape}] band tables == band_limits on all {b} rows: "
           f"{table_ok}; padded rows (and keys of no query) exactly 0 on all rows: {pad_ok}; "
-          f"plain versions on {n} rows", flush=True)
-    if not (table_ok and pad_ok):
-        fail(f"flash_fwd_band/flash_bwd_band[{shape}]: a band table or a padded row is wrong")
+          f"a second launch of #9 bit for bit: {same}; #9 against its plain version on all "
+          f"{b} rows, #10 on {n}", flush=True)
+    if not (table_ok and pad_ok and same):
+        fail(f"flash_fwd_band/flash_bwd_band[{shape}]: a band table, a padded row or a relaunch "
+             f"is wrong")
+    rout, rlse = plain_in_row_chunks(ops, lambda *t: fa.flash_fwd_band(*t, causal, dh, bi),
+                                     (qs, k, v, seg, seg_k))
+    fwd_err = check_flash_fwd(f"band, {shape}", out, lse, rout, rlse, seg)
+    del rout, rlse
     r = slice(0, n)
     with ops.reference_mode():
-        rout, rlse = fa.flash_fwd_band(qs[r], k[r], v[r], seg[r], seg_k[r], causal, dh, bi)
         rux = {}
         rgrads = fa.flash_bwd_band(qs[r], k[r], v[r], seg[r], seg_k[r], out[r], lse[r], do[r],
                                    None, causal, dh, bi, aux=rux)
-    fwd_err = check_flash_fwd(f"band, {shape}", out[r], lse[r], rout, rlse, seg[r])
     delta_err = (bux["delta"][r] - rux["delta"]).abs().max().item()
     print(f"flash_bwd_band[{shape}] max|delta-plain| {delta_err:.3e} (tol {DELTA_ATOL})",
           flush=True)
     if not delta_err <= DELTA_ATOL:
         fail(f"flash_bwd_band[{shape}]'s delta disagrees with its plain version")
     err, rel = check_flash_bwd(shape, (dq[r], dk[r], dv[r]), rgrads, seg[r], "flash_bwd_band")
-    del rout, rlse, rgrads, rux
+    del rgrads, rux
     res = dict(fwd_err=fwd_err, err=err, rel=rel, delta_err=delta_err)
     if not timed:
         return res
@@ -2554,11 +2574,17 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
-    # the wgmma kernels (#12; #2, #11; #4, #5; #1; #3) keep no spill and let ptxas
-    # pipeline their wgmma (no C7512/C7513)
+    # the wgmma kernels (#12; #2, #11; #4, #5, #7, #8; #1, #6, #9; #3) keep no
+    # spill and let ptxas pipeline their wgmma (no C7512/C7513); flash_fwd.cu's
+    # log must show its three forms
     for name in ("norm_qkv", "norm_mlp", "mlp", "flash_bwd_split", "flash_fwd", "flash_bwd"):
         if re.search(r"[1-9]\d* bytes spill|C751[0-9]", logs.get(name, "")):
             fail(f"ptxas spilled in {name}.cu or serialised its wgmma (see the build lines above)")
+    forms = sorted(set(re.findall(r"fwd_kernelILi(\d)E", logs.get("flash_fwd", ""))))
+    print(f"flash_fwd.cu: the forms ptxas compiled (0 single, 1 stream, 2 band): {forms}",
+          flush=True)
+    if forms != ["0", "1", "2"]:
+        fail("flash_fwd.cu's build log does not show its three forms")
 
     # ---- the long-context loader alone, before this process starts a pool
     loaders = loader_start_methods()
@@ -2722,13 +2748,14 @@ def main() -> None:
     for name, kind, line in (("flash_fwd_stream", "fwd", 177), ("flash_dq_stream", "dq", 645),
                              ("flash_dkv_stream", "dkv", 835)):
         extra = {"delta_err": lc["dq"]["delta_err"]} if kind == "dq" else {}
+        # held on all 16 rows of the launch, both kinds of key ids
+        extra["batch_max_abs_err"] = lc[kind]["batch_err"]
         if kind == "fwd":
             extra["single_block_kernel_ms"] = lc["fwd"]["single_ms"]
-        else:  # held on all 16 rows of the launch, both kinds of key ids
-            extra.update(batch_max_abs_err=lc[kind]["batch_err"],
-                         batch_rel_err=lc[kind]["batch_rel"])
+        else:
+            extra["batch_rel_err"] = lc[kind]["batch_rel"]
         kernels.append(entry(
-            name, "flash_stream.cu" if kind == "fwd" else "flash_bwd_split.cu",
+            name, "flash_fwd.cu" if kind == "fwd" else "flash_bwd_split.cu",
             f"flash_attention.py:{line}", lc[kind],
             FLASH_TOL if kind == "fwd" else FLASH_BWD_TOL, long_step_ms=lc["step_ms"],
             long_tokens_per_s=lc["tokens_per_s"], long_peak_mib=lc["peak_mib"],
@@ -2744,7 +2771,8 @@ def main() -> None:
         extra = {"delta_err": max(bk[t]["delta_err"] for t in shapes),
                  "rel_err": max(bk[t]["rel"] for t in shapes)} if kind == "bwd" else {}
         kernels.append(entry(
-            name, "flash_band.cu", f"flash_attention.py:{line}", dict(bk["train"][kind], err=err),
+            name, "flash_fwd.cu" if kind == "fwd" else "flash_band.cu",
+            f"flash_attention.py:{line}", dict(bk["train"][kind], err=err),
             FLASH_TOL if kind == "fwd" else FLASH_BWD_TOL,
             legacy_kernel_ms=bk["train"][kind]["legacy_ms"],
             **{f"{t}_{k}": bk[t][kind][k] for t in ("serving", "long")

@@ -94,7 +94,7 @@
 #include "flash_common.cuh"  // DH, the segment-range test, the causal and bi-causal bounds
 #include "sm90_common.cuh"   // TMA, mbarriers, wgmma descriptors, the tensor-map encoder
 #include "flash_sm90.cuh"    // wgmma64, desc_mn, ex2, bf16x2 RoPE, the visiting mask, encode3
-#include "tile_table.cuh"    // the stream form's tile tables
+#include "tile_table.cuh"    // the stream form's tile tables and table_mask
 
 namespace split_bwd {
 namespace {
@@ -169,37 +169,6 @@ __device__ __forceinline__ Item decode(int i, int H, int nblk) {
   it.own0 = (bb % nblk) * ROWS;
   it.b = bb / nblk;
   return it;
-}
-
-// The stream form's visiting mask: bit vt - vt0 for each visiting tile vt
-// in [vt0, vt0 + 64) whose segment-id range meets the own block's [own0,
-// own0 + 128) and, causal, lies on its side of the diagonal (visiting_mask's
-// rule), from one batch row's tables: the own tiles' ranges in tabo, the
-// visiting tiles' in tabv, each lane testing two tiles. The warp's lanes
-// must all call it.
-__device__ __forceinline__ uint64_t table_mask(const int2* tabo, const int2* tabv, int own0,
-                                               int nt, bool tri, bool dkv, int lane, int vt0) {
-  const int ot = own0 / 64;
-  const int2 a = tabo[ot];
-  const int2 b = ot + 1 < nt ? tabo[ot + 1] : make_int2(0x7fffffff, 0);
-  const int olo = min(a.x, b.x), ohi = max(a.y, b.y);
-  int vb = 0, ve = nt;
-  if (tri) {
-    if (dkv) vb = ot;
-    else ve = min(nt, ot + 2);
-  }
-  uint32_t half[2];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int vt = vt0 + lane + 32 * e;
-    bool hit = false;
-    if (vt >= vb && vt < ve) {
-      const int2 r = tabv[vt];
-      hit = !ranges_miss(olo, ohi, r.x, r.y);
-    }
-    half[e] = __ballot_sync(0xffffffffu, hit);
-  }
-  return (uint64_t)half[0] | ((uint64_t)half[1] << 32);
 }
 
 template <bool DKV, bool STREAM>

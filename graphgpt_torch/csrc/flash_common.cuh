@@ -1,8 +1,8 @@
 // What the flash forward and backward kernels share: the tile sizes, the
-// segment-range test that lets a kernel skip a fully masked tile pair (from
-// the ids, or from a precomputed table of each tile's range), the causal or
-// bi-causal rule as per-row bounds, and the tile load that applies RoPE in
-// bf16 on the way into shared memory.
+// segment-range test that lets a kernel skip a fully masked tile pair, the
+// causal or bi-causal rule as per-row bounds, and the WMMA bodies' tile load
+// (flash_bwd_common.cuh), whose bf16 roundings of RoPE the Hopper bodies
+// keep.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,22 +43,6 @@ __device__ __forceinline__ void tile_range(const int* seg, int t0, int P, int la
   }
   *lo = mn;
   *hi = mx;
-}
-
-// The segment-id range of the 64-row tile that starts at t0. TABLE: read
-// it from `tab` (one int2 (lo, hi) a tile, written once by the streamed
-// kernels' pre-pass, tile_table_kernel in tile_table.cuh); else each warp
-// computes it from the ids with tile_range.
-template <bool TABLE>
-__device__ __forceinline__ void tile_bounds(const int2* tab, const int* seg, int t0, int P,
-                                            int lane, int* lo, int* hi) {
-  if constexpr (TABLE) {
-    const int2 r = tab[t0 / 64];
-    *lo = r.x;
-    *hi = r.y;
-  } else {
-    tile_range(seg, t0, P, lane, lo, hi);
-  }
 }
 
 // No segment id in common between two tiles with these ranges: every

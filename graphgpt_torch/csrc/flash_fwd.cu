@@ -1,24 +1,48 @@
-// Segment-masked flash attention forward with in-kernel RoPE, for Hopper.
+// Segment-masked flash attention forward, for Hopper: one kernel body in
+// three forms, each behind its own C entry.
 //
-// Replaces graphgpt_tpu/ops/flash_attention.py:124 _fwd_kernel_single (the
-// TPU's single-block forward, launched by _flash_fwd :409 when P <= 2048).
-// Same contract: q (pre-scaled), k, v are token-major bf16 [B, P, H*64];
-// seg int32 [B, P] (0 = padding, equal ids = one packed segment); optional
-// cos/sin bf16 [B, P, 64] with the halves duplicated, applied to q and k
-// in bf16 with load_tile's three roundings (flash_common.cuh); out bf16
-// [B, P, H*64]; lse fp32 [B, H, P]. The mask is the segment rule plus
-// causal, or, with bi_split > 0, the bi-causal rule of the denoise model's
-// energy decoding (visible_cols in flash_common.cuh; the split may fall
-// inside a 64-row tile). p = exp(S - m) with fp32 row sums, rounded to bf16
-// for the PV product; out = PV (1 / l) rounded once; lse = m + ln l. A padded
-// row, or one that sees no key, gives out = 0 exactly and lse = -1e30. The
-// entry takes any P (the dispatch gives it P <= 2048; P 4096 is held
-// against the streamed forward #6).
+// SINGLE, #1 flash_fwd, replaces graphgpt_tpu/ops/flash_attention.py:124
+// _fwd_kernel_single (the TPU's single-block forward, launched by _flash_fwd
+// :409 when P <= 2048). q (pre-scaled), k, v are token-major bf16
+// [B, P, H*64]; seg int32 [B, P] (0 = padding, equal ids = one packed
+// segment); optional cos/sin bf16 [B, P, 64] with the halves duplicated,
+// applied to q and k in bf16 with load_tile's three roundings
+// (flash_common.cuh); out bf16 [B, P, H*64]; lse fp32 [B, H, P]. The mask is
+// the segment rule plus causal, or, with bi_split > 0, the bi-causal rule of
+// the denoise model's energy decoding (visible_cols in flash_common.cuh; the
+// split may fall inside a 64-row tile). p = exp(S - m) with fp32 row sums,
+// rounded to bf16 for the PV product; out = PV (1 / l) rounded once; lse =
+// m + ln l. A padded row, or one that sees no key, gives out = 0 exactly and
+// lse = -1e30. The entry takes any P (the dispatch gives it P <= 2048).
+//
+// STREAM, #6 flash_fwd_stream, replaces :177 _fwd_kernel_stream, which
+// _flash_fwd launches above P = 2048 (the port's long-context pretraining at
+// P 4096) and under GGT_FLASH_MODE=skip at every P, and which ring
+// attention's chunks take. The same contract with two id arrays, seg_q and
+// seg_k (a ring chunk's keys carry another chunk's ids; the model passes
+// one array twice; a query row that sees no key gives 0, the port's rule),
+// and any P. The entry first writes the tile tables of seg_q and seg_k
+// (tile_table.cuh), and every walker of the ring takes a tile's segment-id
+// range from them: one int2 a tile, where SINGLE's walkers read a tile's 64
+// ids and reduce them by redux.sync.
+//
+// BAND, #9 flash_fwd_band, replaces :282 _fwd_kernel_band, which _flash_fwd
+// launches under GGT_FLASH_MODE=band for P <= 4096: STREAM's contract with
+// q and k already rotated (no cos, sin: the band path applies RoPE
+// outside). The entry first writes the band table (tile_table.cuh's
+// band_table_kernel, the plain `band_limits`): for each 64-row q tile the
+// first and last key positions whose id lies in the tile's id range, which
+// hold every key a row of the tile can match. An item walks the key tiles
+// from the first of its two q tiles' bands to the last, the top clipped to
+// the columns its last row sees (the JAX kernel's clip, :293-303); a
+// warpgroup whose own tile's band misses a key tile skips its products.
 //
 // What bounds it on the H100: bytes. On packed rows (~32-token segments) a
 // query meets a few dozen keys, so the masked work is ~1 GFLOP against
 // ~53 MB of q, k, v, out at B 8, P 1024, H 12 (16 us of HBM time); at the
-// denoise shape (B 256 x P 88, bi-causal) ~145 MB, 43 us.
+// denoise shape (B 256 x P 88, bi-causal) ~145 MB, 43 us; at B 16 x P 4096
+// (65,536 tokens) ~423 MB with cos, sin and lse, 0.126 ms (#9 without cos,
+// sin ~406 MB, 0.121 ms).
 //
 // Design (the machinery of the split backward, flash_bwd_split.cu, on the
 // pieces of flash_sm90.cuh). Persistent: one CTA an SM walks a contiguous
@@ -28,17 +52,18 @@
 // (row, head). A CTA is three warpgroups:
 //  - producer warp 8 finds the 64-row key tiles that meet the item's
 //    segment-id range (and the causal range), in 64-bit masks of 64 tiles
-//    (one for P <= 4096; the tiles' id ranges by redux.sync, as every
-//    walker of the ring takes them), TMA-loads the item's q block once and streams
-//    k and v (with their rows' cos and sin where those rows lie outside the
-//    own block) through a 4-stage ring with full and empty mbarriers; its
-//    lanes copy each key tile's ids with cp.async into the stage. 3D tensor
-//    maps {64 H, P, B}, boxes of [64, 64], 128-byte swizzled: rows past P
-//    arrive as zeros and cost no bytes. Warp 9 loads the own rows' cos and
-//    sin once a row block: its items (the heads) share one phase of the
-//    rope barriers, so the next item's tiles are rotated while this one
-//    runs. Warps 10 and 11 rotate each landed k in place, once, with bf16x2
-//    arithmetic, and mark the stage ready;
+//    counted over every chunk first (SINGLE: the tiles' id ranges by
+//    redux.sync; STREAM: the tables; BAND: the band's stretch), TMA-loads the
+//    item's q block once and streams k and v (with their rows' cos and sin
+//    where those rows lie outside the own block) through a 4-stage ring with
+//    full and empty mbarriers; its lanes copy each key tile's ids with
+//    cp.async into the stage. 3D tensor maps {64 H, P, B}, boxes of
+//    [64, 64], 128-byte swizzled: rows past P arrive as zeros and cost no
+//    bytes. Warp 9 loads the own rows' cos and sin once a row block: its
+//    items (the heads) share one phase of the rope barriers, so the next
+//    item's tiles are rotated while this one runs. Warps 10 and 11 rotate
+//    each landed k in place, once, with bf16x2 arithmetic, and mark the
+//    stage ready;
 //  - two consumer warpgroups own 64 q rows each: q into registers with
 //    ldmatrix, rotated there; per ready stage S = q k^T as wgmma m64n64k16
 //    (A from registers, k K-major), the mask and the online softmax in the
@@ -51,10 +76,14 @@
 //  - the epilogue multiplies by 1 / l, rounds once into a swizzled staging
 //    box and stores it by TMA (rows past P are not written); lse takes plain
 //    stores.
-// setmaxnreg gives the consumers 224 registers and the producers 56. Only
-// the producers' waits time out (4 s, then trap). No atomics.
+// The three forms visit the same key tiles of a row wherever their ids
+// can match, in the same order, so on one id array STREAM gives SINGLE's
+// bits. setmaxnreg gives the consumers 224 registers and the producers 56.
+// Only the producers' waits time out (4 s, then trap). No atomics: two
+// launches on the same inputs give the same bits.
 
 #include "flash_sm90.cuh"  // wgmma64, desc_mn, ex2, bf16x2 RoPE, the visiting mask, encode3
+#include "tile_table.cuh"  // STREAM's tile tables and table_mask, BAND's band table
 
 namespace fwd_sm90 {
 namespace {
@@ -68,11 +97,15 @@ constexpr int STAGES = 4;  // 3 read 10% slower at B 64 x P 1024 (split_probe)
 constexpr int BOX = 64 * DH * 2;  // one [64, 64] bf16 box, 8 KB
 constexpr int HALF = ROWS * DH * 2;
 
-// A key tile's ids (cp.async, zeros past P) and what producer lane 0 writes.
+// The forms of the body (the template argument).
+constexpr int SINGLE = 0, STREAM = 1, BAND = 2;
+
+// A key tile's ids (cp.async from the key ids, zeros past P) and what
+// producer lane 0 writes.
 struct Meta {
   int seg[64];
   int v0;        // the tile's first row
-  int lo, hi;    // its segment-id range (tile_range)
+  int lo, hi;    // its segment-id range (tile_range; STREAM: the table's; BAND: unused)
   int rope_own;  // 1: its rows lie in the own block, whose cos/sin are in the rope buffer
 };
 
@@ -96,11 +129,36 @@ struct Layout {
 };
 
 struct Args {
-  const int* seg;  // [B, P]
+  const int* seg;  // [B, P]: the query rows' ids (SINGLE: every row's)
   float* lse;      // [B, H, P]
   int B, P, H, causal, bi_split, rope;
+  // STREAM, BAND: the key rows' ids [B, P]. STREAM: the query and the key
+  // rows' tile tables [B, ceil(P/64)] (tile_table_kernel); BAND: tabq the
+  // query tiles' band table (band_table_kernel)
+  const int* segk;
+  const int2* tabq;
+  const int2* tabk;
 };
 
+// BAND: the key tiles of the item at own0, bit vt - vt0 for vt in [vt0,
+// vt0 + 64): from the first tile of its two q tiles' bands to the last, the
+// top clipped to the columns its last row sees.
+__device__ __forceinline__ uint64_t band_mask(const int2* tab, int own0, int nt, int P,
+                                              int causal, int bi_split, int vt0) {
+  const int ot = own0 / 64;
+  const int2 a = tab[ot];
+  const int2 b = ot + 1 < nt ? tab[ot + 1] : make_int2(P, -1);
+  const int lo = min(a.x, b.x);  // a tile with no band holds (P, -1)
+  const int top = visible_cols(min(own0 + ROWS, P) - 1, causal, bi_split, P) - 1;
+  const int hi = min(max(a.y, b.y), top);
+  if (hi < lo) return 0;
+  const int kb = max(lo / 64, vt0) - vt0, ke = min(hi / 64 + 1, vt0 + 64) - vt0;
+  if (ke <= kb) return 0;
+  const uint64_t below = ke == 64 ? ~0ull : (1ull << ke) - 1;
+  return below & ~((1ull << kb) - 1);
+}
+
+template <int FORM>
 __global__ void __launch_bounds__(NTHREADS, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tcos,
@@ -125,6 +183,20 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   const int first = (int)((long long)blockIdx.x * items / gridDim.x);
   const int last = (int)((long long)(blockIdx.x + 1) * items / gridDim.x);
   const bool tri = args.causal && args.bi_split == 0;
+  // the item's key tiles in the chunk of 64 from tile c, bit vt - c; every
+  // lane of the calling warp takes part
+  auto key_tiles = [&](const Item& it, int c) -> uint64_t {
+    if constexpr (FORM == SINGLE) {
+      return visiting_mask<uint64_t, true>(args.seg + (long long)it.b * P, it.own0, P, tri, false,
+                                           lane, c);
+    } else if constexpr (FORM == STREAM) {
+      return table_mask(args.tabq + (long long)it.b * nt, args.tabk + (long long)it.b * nt,
+                        it.own0, nt, tri, false, lane, c);
+    } else {
+      return band_mask(args.tabq + (long long)it.b * nt, it.own0, nt, P, args.causal,
+                       args.bi_split, c);
+    }
+  };
 
   if (tid == 0) {
     mbar_init(own_full, 1);
@@ -148,12 +220,12 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
       uint32_t phase = 0, ophase = 0;
       for (int i = first; i < last; ++i) {
         const Item it = decode(i, H, nblk);
-        const int* segb = args.seg + (long long)it.b * P;
+        // the key ids
+        const int* segb = (FORM == SINGLE ? args.seg : args.segk) + (long long)it.b * P;
         // the key tiles, 64 to a mask; rows past 4096 take more masks
-        const uint64_t mask0 = visiting_mask<uint64_t, true>(segb, it.own0, P, tri, false, lane);
+        const uint64_t mask0 = key_tiles(it, 0);
         int n = __popcll(mask0);
-        for (int c = 64; c < nt; c += 64)
-          n += __popcll(visiting_mask<uint64_t, true>(segb, it.own0, P, tri, false, lane, c));
+        for (int c = 64; c < nt; c += 64) n += __popcll(key_tiles(it, c));
         const bool two = it.own0 + 64 < P;  // the q block's second box holds rows
         mbar_wait_or_trap(own_empty, ophase ^ 1);
         if (lane == 0) {
@@ -164,8 +236,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
         }
         ophase ^= 1;
         for (int c = 0; c < nt; c += 64) {
-          uint64_t mask =
-              c == 0 ? mask0 : visiting_mask<uint64_t, true>(segb, it.own0, P, tri, false, lane, c);
+          uint64_t mask = c == 0 ? mask0 : key_tiles(it, c);
           while (mask) {
             const int vt = c + __ffsll((long long)mask) - 1;
             mask &= mask - 1;
@@ -179,8 +250,14 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
               cp_async4(&m.seg[r], segb + (ok ? p : 0), ok);
             }
             cp_async_arrive(ring_full(stage));
-            int lo, hi;
-            tile_range_redux(segb, v0, P, lane, &lo, &hi);
+            int lo = 0, hi = 0;
+            if constexpr (FORM == SINGLE) {
+              tile_range_redux(segb, v0, P, lane, &lo, &hi);
+            } else if constexpr (FORM == STREAM) {
+              const int2 r = args.tabk[(long long)it.b * nt + vt];
+              lo = r.x;
+              hi = r.y;
+            }
             const bool in_own = v0 >= it.own0 && v0 < it.own0 + ROWS;
             if (lane == 0) {
               m.v0 = v0;
@@ -228,9 +305,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
       uint32_t phase = 0, rphase = 0;
       for (int i = first; i < last; ++i) {
         const Item it = decode(i, H, nblk);
-        const int* segb = args.seg + (long long)it.b * P;
         for (int c = 0; c < nt; c += 64) {
-          uint64_t mask = visiting_mask<uint64_t, true>(segb, it.own0, P, tri, false, lane, c);
+          uint64_t mask = key_tiles(it, c);
           if (c == 0 && block_starts(i, first, H)) {  // the own rows' cos and sin
             mbar_wait(rope_full, rphase);
             rphase ^= 1;
@@ -281,8 +357,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   uint32_t phase = 0, ophase = 0, rphase = 0;
 
   // the ids of this thread's two rows and of the warp's 64-row tile (two a
-  // lane), loaded an item ahead so that their latency hides under the item
-  // before
+  // lane; STREAM: the tile's range from the table; BAND: the tile's band),
+  // loaded an item ahead so that their latency hides under the item before
   struct Rows {
     int s0, s1, t0, t1;
   };
@@ -293,8 +369,15 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     const int wrow0 = it.own0 + wg * 64, r0 = wrow0 + w4 * 16 + g, r1 = r0 + 8;
     r.s0 = r0 < P ? segb[r0] : 0;
     r.s1 = r1 < P ? segb[r1] : 0;
-    r.t0 = wrow0 + lane < P ? segb[wrow0 + lane] : 0;
-    r.t1 = wrow0 + lane + 32 < P ? segb[wrow0 + lane + 32] : 0;
+    if constexpr (FORM == SINGLE) {
+      r.t0 = wrow0 + lane < P ? segb[wrow0 + lane] : 0;
+      r.t1 = wrow0 + lane + 32 < P ? segb[wrow0 + lane + 32] : 0;
+    } else {
+      const int2 none = FORM == BAND ? make_int2(P, -1) : make_int2(0x7fffffff, 0);
+      const int2 tr = wrow0 < P ? args.tabq[(long long)it.b * nt + wrow0 / 64] : none;
+      r.t0 = tr.x;
+      r.t1 = tr.y;
+    }
     return r;
   };
   Rows next = first < last ? load_rows(first) : Rows{};
@@ -309,14 +392,24 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     // the rows see the key columns [0, lim)
     const int lim0 = visible_cols(r0, args.causal, args.bi_split, P);
     const int lim1 = visible_cols(r1, args.causal, args.bi_split, P);
-    // the segment-id range of this warpgroup's 64 rows (tile_range's)
-    int omin = min(rows.t0 > 0 ? rows.t0 : 0x7fffffff, rows.t1 > 0 ? rows.t1 : 0x7fffffff);
-    int omax = max(rows.t0, rows.t1);
+    // the segment-id range of this warpgroup's 64 rows (tile_range's;
+    // BAND: the first and last key position of their band)
+    int omin, omax;
+    if constexpr (FORM == SINGLE) {
+      omin = min(rows.t0 > 0 ? rows.t0 : 0x7fffffff, rows.t1 > 0 ? rows.t1 : 0x7fffffff);
+      omax = max(rows.t0, rows.t1);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      omin = min(omin, __shfl_xor_sync(0xffffffffu, omin, o));
-      omax = max(omax, __shfl_xor_sync(0xffffffffu, omax, o));
+      for (int o = 16; o > 0; o >>= 1) {
+        omin = min(omin, __shfl_xor_sync(0xffffffffu, omin, o));
+        omax = max(omax, __shfl_xor_sync(0xffffffffu, omax, o));
+      }
+    } else {
+      omin = rows.t0;
+      omax = rows.t1;
     }
+    // BAND: the warpgroup's rows see no column from wlim on
+    const int wlim =
+        FORM == BAND ? visible_cols(min(wrow0 + 63, P - 1), args.causal, args.bi_split, P) : 0;
     // a row's segment id, the key a column must match; -1 (no match) for a
     // padded row
     const int k0 = rows.s0 > 0 ? rows.s0 : -1, k1 = rows.s1 > 0 ? rows.s1 : -1;
@@ -351,7 +444,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
       const Meta& m = meta[stage];
       const int v0 = m.v0;
       const uint32_t sb = sbase + L::RING + stage * L::STAGE;
-      const bool skip = ranges_miss(omin, omax, m.lo, m.hi) || (tri && v0 > wrow0 + 63);
+      bool skip;
+      if constexpr (FORM == BAND) skip = v0 > omax || v0 + 63 < omin || v0 >= wlim;
+      else skip = ranges_miss(omin, omax, m.lo, m.hi) || (tri && v0 > wrow0 + 63);
       if (!skip) {
         float sc[32];
 #pragma unroll
@@ -483,18 +578,11 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   if ((tid & 127) == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-}  // namespace
-}  // namespace fwd_sm90
-
-// C entry for ctypes, on `stream`: returns the first CUDA error (0 when the
-// launch was accepted), or one of flash_sm90.cuh's codes above 999. cos and
-// sin may be null (no RoPE). One CTA an SM, at most one an item.
-extern "C" int ggt_flash_fwd(const void* q, const void* k, const void* v,
-                             const void* seg, const void* cos, const void* sin,
-                             void* out, void* lse, int B, int P, int H, int causal,
-                             int bi_split, void* stream) {
-  using namespace fwd_sm90;
-  if (B == 0 || P == 0 || H == 0) return 0;
+// The launch of form FORM: one CTA an SM, at most one an item. cos and sin
+// may be null (no RoPE).
+template <int FORM>
+int launch(const void* q, const void* k, const void* v, const void* cos, const void* sin,
+           void* out, const Args& args, cudaStream_t stream) {
   static bool configured[MAX_DEVICES] = {};
   static int sms[MAX_DEVICES] = {};
   int dev = 0;
@@ -502,7 +590,7 @@ extern "C" int ggt_flash_fwd(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return ERR_DEVICE;
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(fwd_kernel<FORM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)Layout::BYTES);
     if (err != cudaSuccess) return (int)err;
     err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
@@ -511,7 +599,7 @@ extern "C" int ggt_flash_fwd(const void* q, const void* k, const void* v,
   }
   const EncodeTiled fn = encode_fn();
   if (!fn) return ERR_NO_ENCODE;
-  const int W = H * DH;
+  const int B = args.B, P = args.P, W = args.H * DH;
   CUtensorMap m[6];
   if (!encode3(fn, &m[0], q, B, P, W) || !encode3(fn, &m[1], k, B, P, W) ||
       !encode3(fn, &m[2], v, B, P, W) || !encode3(fn, &m[5], out, B, P, W))
@@ -520,10 +608,62 @@ extern "C" int ggt_flash_fwd(const void* q, const void* k, const void* v,
   if (!encode3(fn, &m[3], cos ? cos : q, B, P, cos ? DH : W) ||
       !encode3(fn, &m[4], sin ? sin : q, B, P, sin ? DH : W))
     return ERR_ENCODE;
-  const Args args{(const int*)seg, (float*)lse, B, P, H, causal, bi_split, cos != nullptr};
-  const int items = B * ((P + ROWS - 1) / ROWS) * H;
+  const int items = B * ((P + ROWS - 1) / ROWS) * args.H;
   const int grid = items < sms[dev] ? items : sms[dev];
-  fwd_kernel<<<grid, NTHREADS, Layout::BYTES, (cudaStream_t)stream>>>(m[0], m[1], m[2], m[3],
-                                                                      m[4], m[5], args);
+  fwd_kernel<FORM><<<grid, NTHREADS, Layout::BYTES, stream>>>(m[0], m[1], m[2], m[3], m[4], m[5],
+                                                                args);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace fwd_sm90
+
+// C entries for ctypes, on `stream`: each returns the first CUDA error (0
+// when its launches were accepted), or one of flash_sm90.cuh's codes above
+// 999. cos and sin may be null (no RoPE).
+
+// #1: one id array.
+extern "C" int ggt_flash_fwd(const void* q, const void* k, const void* v,
+                             const void* seg, const void* cos, const void* sin,
+                             void* out, void* lse, int B, int P, int H, int causal,
+                             int bi_split, void* stream) {
+  using namespace fwd_sm90;
+  if (B == 0 || P == 0 || H == 0) return 0;
+  const Args args{(const int*)seg, (float*)lse, B, P, H, causal, bi_split, cos != nullptr};
+  return launch<SINGLE>(q, k, v, cos, sin, out, args, (cudaStream_t)stream);
+}
+
+// #6: query ids seg_q and key ids seg_k; `tab` is int32 scratch of
+// 4 x B x ceil(P/64) from the caller, into which the tile tables of seg_q
+// and seg_k (one when they are one array) are written first. Any P.
+extern "C" int ggt_flash_fwd_stream(const void* q, const void* k, const void* v,
+                                    const void* segq, const void* segk, const void* cos,
+                                    const void* sin, void* out, void* lse, void* tab, int B,
+                                    int P, int H, int causal, int bi_split, void* stream) {
+  using namespace fwd_sm90;
+  if (B == 0 || P == 0 || H == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int2 *tq, *tk;
+  const cudaError_t err = launch_tables(segq, segk, tab, B, P, st, &tq, &tk);
+  if (err != cudaSuccess) return (int)err;
+  const Args args{(const int*)segq, (float*)lse, B, P, H, causal, bi_split, cos != nullptr,
+                  (const int*)segk, tq, tk};
+  return launch<STREAM>(q, k, v, cos, sin, out, args, st);
+}
+
+// #9: query ids seg_q and key ids seg_k, q and k already rotated; `tab` as
+// #6's, into whose first B x ceil(P/64) int2 the query tiles' band table is
+// written first.
+extern "C" int ggt_flash_fwd_band(const void* q, const void* k, const void* v, const void* segq,
+                                  const void* segk, void* out, void* lse, void* tab, int B,
+                                  int P, int H, int causal, int bi_split, void* stream) {
+  using namespace fwd_sm90;
+  if (B == 0 || P == 0 || H == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  int2* tq = (int2*)tab;
+  const cudaError_t err = launch_band_table(segq, segk, tq, B, P, st);
+  if (err != cudaSuccess) return (int)err;
+  const Args args{(const int*)segq, (float*)lse, B, P, H, causal, bi_split, 0,
+                  (const int*)segk, tq, nullptr};
+  return launch<BAND>(q, k, v, nullptr, nullptr, out, args, st);
 }

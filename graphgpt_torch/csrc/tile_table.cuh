@@ -1,13 +1,17 @@
-// The tile tables of the streamed kernels, #6 (flash_stream.cu) and #7, #8
-// (flash_bwd_split.cu): tab[b, t] = (min positive id, max id) of the 64
-// segment ids seg[b, 64t : 64t + 64), written once a call by a pre-pass, so
-// that a kernel that walks the tiles of a long row reads one int2 a tile
-// instead of the tile's 64 ids. Without it every walker re-reads the ids of
-// every tile it tests: at P 4096 that is 64 tiles x 256 bytes a walker and
-// an item, and it grows with P^2.
+// The pre-passes of the kernels that walk the 64-row tiles of long rows or
+// of other rows' ids, written once a call so that a walker reads one int2 a
+// tile instead of the tile's 64 ids (at P 4096 that is 64 tiles x 256
+// bytes a walker and an item, growing with P^2):
+//  - the tile tables of the streamed kernels, #6 (flash_fwd.cu's stream
+//    form) and #7, #8 (flash_bwd_split.cu's): tab[b, t] = (min positive
+//    id, max id) of seg[b, 64t : 64t + 64), and table_mask, the visiting
+//    tiles of an item read from them;
+//  - the band table of the band kernels, #9 (flash_fwd.cu's band form) and
+//    #10 (flash_band.cu): for each query tile the first and last key
+//    positions whose id lies in the tile's id range.
 #pragma once
 
-#include "flash_common.cuh"  // tile_range
+#include "flash_common.cuh"  // tile_range, ranges_miss
 
 namespace {
 
@@ -39,6 +43,84 @@ inline cudaError_t launch_tables(const void* segq, const void* segk, void* tab, 
     tile_table_kernel<<<blocks, wpb * 32, 0, st>>>((const int*)segk, tk, P, nt, tiles);
   *tabq = tq;
   *tabk = tk;
+  return cudaGetLastError();
+}
+
+// The visiting mask from the tables: bit vt - vt0 for each visiting tile vt
+// in [vt0, vt0 + 64) whose segment-id range meets the own block's [own0,
+// own0 + 128) and, causal, lies on its side of the diagonal (an own query
+// block meets the key tiles up to its last row, an own key block (dkv) the
+// query tiles from its first on), from one batch row's tables: the own
+// tiles' ranges in tabo, the visiting tiles' in tabv, each lane testing two
+// tiles. The warp's lanes must all call it.
+__device__ __forceinline__ uint64_t table_mask(const int2* tabo, const int2* tabv, int own0,
+                                               int nt, bool tri, bool dkv, int lane, int vt0) {
+  const int ot = own0 / 64;
+  const int2 a = tabo[ot];
+  const int2 b = ot + 1 < nt ? tabo[ot + 1] : make_int2(0x7fffffff, 0);
+  const int olo = min(a.x, b.x), ohi = max(a.y, b.y);
+  int vb = 0, ve = nt;
+  if (tri) {
+    if (dkv) vb = ot;
+    else ve = min(nt, ot + 2);
+  }
+  uint32_t half[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int vt = vt0 + lane + 32 * e;
+    bool hit = false;
+    if (vt >= vb && vt < ve) {
+      const int2 r = tabv[vt];
+      hit = !ranges_miss(olo, ohi, r.x, r.y);
+    }
+    half[e] = __ballot_sync(0xffffffffu, hit);
+  }
+  return (uint64_t)half[0] | ((uint64_t)half[1] << 32);
+}
+
+// The band table (graphgpt_tpu _band_limits :265, the plain `band_limits`):
+// tab[b, t] = (lo, hi), the first and last positions of segv[b] whose id
+// lies in [min positive id, max id] of sego[b, 64t : 64t + 64); (P, -1)
+// when there is none (a tile of padding, or no key of its ids). Packing
+// gives increasing ids, so every key a row of the tile can match lies in
+// [lo, hi], one contiguous stretch a little wider than the tile. One warp a
+// tile.
+__global__ void band_table_kernel(const int* __restrict__ sego, const int* __restrict__ segv,
+                                  int2* __restrict__ tab, int P, int nt, long long tiles) {
+  const long long w = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (w >= tiles) return;  // whole warps leave together
+  const int lane = threadIdx.x & 31;
+  const long long b = w / nt;
+  int idlo, idhi;
+  tile_range(sego + b * P, (int)(w % nt) * 64, P, lane, &idlo, &idhi);
+  const int* sv = segv + b * P;
+  int lo = P, hi = -1;
+  if (idhi > 0) {
+    for (int p = lane; p < P; p += 32) {
+      const int s = sv[p];
+      if (s > 0 && s >= idlo && s <= idhi) {
+        lo = min(lo, p);
+        hi = max(hi, p);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if (lane == 0) tab[w] = make_int2(lo, hi);
+}
+
+// The band table of sego's tiles over segv's keys [B, P] into tab [B,
+// ceil(P/64)] of int2. B and P must not be 0.
+inline cudaError_t launch_band_table(const void* sego, const void* segv, int2* tab, int B,
+                                     int P, cudaStream_t st) {
+  const int nt = (P + 63) / 64;
+  const long long tiles = (long long)B * nt;
+  const int wpb = 8;  // warps per block
+  band_table_kernel<<<(unsigned)((tiles + wpb - 1) / wpb), wpb * 32, 0, st>>>(
+      (const int*)sego, (const int*)segv, tab, P, nt, tiles);
   return cudaGetLastError();
 }
 

@@ -6,11 +6,11 @@ Counterpart of `graphgpt_tpu/ops/flash_attention.py` (`_prep` :1205,
 `_attach_grad_rope` :1144) and its kernels: `_fwd_kernel_single` :124,
 `_bwd_kernel_fused` :706, `_dq_kernel_single` :602, `_dkv_kernel_single`
 :789, and the streamed `_fwd_kernel_stream` :177, `_dq_kernel_stream` :645,
-`_dkv_kernel_stream` :835. The kernels live in `csrc/flash_fwd.cu`,
-`csrc/flash_bwd.cu` (fused backward), `csrc/flash_bwd_split.cu` (the split
-pair flash_dq and flash_dkv, and in its stream form the streamed pair, with
-separate query and key segment ids) and `csrc/flash_stream.cu` (the
-streamed forward). The dispatch is
+`_dkv_kernel_stream` :835. The kernels live in `csrc/flash_fwd.cu` (the
+forward, and in its stream form the streamed forward, with separate query
+and key segment ids), `csrc/flash_bwd.cu` (fused backward) and
+`csrc/flash_bwd_split.cu` (the split pair flash_dq and flash_dkv, and in
+its stream form the streamed pair). The dispatch is
 the JAX package's: up to P = 2048 the single-block forward and the fused
 backward, or the split pair when a bi-causal split is set; above it the
 streamed forward and the streamed pair, whatever the split. Conventions
@@ -33,8 +33,9 @@ The kernel mode, `GGT_FLASH_MODE` read once at import into `_MODE` (tests
 set the attribute, as the JAX package's do), routes as `_flash_fwd` :418
 and `_flash_bwd` :911 do. `legacy` (the default): the dispatch above.
 `band`: up to `_MAX_BAND` = 4096 the band kernels #9 flash_fwd_band and
-#10 flash_bwd_band (`_fwd_kernel_band` :282, `_bwd_kernel_band` :484 in
-`csrc/flash_band.cu`), whatever the split, the streamed ones above it.
+#10 flash_bwd_band (`_fwd_kernel_band` :282 in the band form of
+`csrc/flash_fwd.cu`, `_bwd_kernel_band` :484 in `csrc/flash_band.cu`),
+whatever the split, the streamed ones above it.
 `skip`: the streamed kernels at every P. Under `band` and `skip`
 flash_attention rotates q and k outside the kernels (:1249-1255), with
 `models/rope.apply_rope`, and autograd carries the rotation's gradient.
@@ -303,7 +304,7 @@ def flash_fwd_stream(qs, k, v, seg_q, seg_k, cos, sin, causal: bool, dh: int,
                                                     seg_k, cos, sin)
     out = torch.empty_like(qs)
     lse = torch.empty((b, hd // dh, p), dtype=torch.float32, device=qs.device)
-    fn = _build.entry("flash_stream", "ggt_flash_fwd_stream", _FWD_STREAM_ARGTYPES)
+    fn = _build.entry("flash_fwd", "ggt_flash_fwd_stream", _FWD_STREAM_ARGTYPES)
     err = fn(
         _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
         _opt_ptr(cos), _opt_ptr(sin), _build.ptr(out), _build.ptr(lse),
@@ -719,7 +720,7 @@ def flash_fwd_band(qs, k, v, seg_q, seg_k, causal: bool, dh: int, bi_causal_spli
     out = torch.empty_like(qs)
     lse = torch.empty((b, hd // dh, p), dtype=torch.float32, device=qs.device)
     tab = _tile_scratch(seg_q)
-    fn = _build.entry("flash_band", "ggt_flash_fwd_band", _FWD_BAND_ARGTYPES)
+    fn = _build.entry("flash_fwd", "ggt_flash_fwd_band", _FWD_BAND_ARGTYPES)
     err = fn(
         _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
         _build.ptr(out), _build.ptr(lse), _build.ptr(tab), b, p, hd // dh, int(causal),

@@ -1,16 +1,19 @@
 """Where the time of the Hopper kernels goes: the split backward #4
 flash_dq and #5 flash_dkv (`csrc/flash_bwd_split.cu`, the default), the
 same body's stream form #7 flash_dq_stream and #8 flash_dkv_stream
-(`--kernel stream`), the forward #1 (`--kernel fwd`, `csrc/flash_fwd.cu`),
-the fused backward #3 (`--kernel bwd`, `csrc/flash_bwd.cu`) and the gated
+(`--kernel stream`), the forward #1 and its stream and band forms #6
+flash_fwd_stream and #9 flash_fwd_band (`--kernel fwd`,
+`csrc/flash_fwd.cu`), the fused backward #3 (`--kernel bwd`,
+`csrc/flash_bwd.cu`) and the gated
 MLPs #11 and #2 (`--kernel mlp`, `--kernel norm_mlp`: `csrc/mlp.cu`,
 `csrc/norm_mlp.cu` with `csrc/mlp_common.cuh`), timed on the card whole
 and with one phase of their body left out at a time, at their paths'
 shapes: the denoise batch (B 256 x P 88, 16 bit slots, a molecule and a
 padded stretch a row), the fine-tune batch (B 256 x P 72, a molecule a
 row), B 8 and B 64 x P 1024 and the long-context batch B 16 x P 4096
-(packed rows, the key ids the query ids); the MLPs at N 8,192 and 65,536
-rows (D 768, F 3,072, gelu), whole and each stage alone.
+(packed rows, the key ids the query ids; the band form takes the same q
+and k, unrotated, and no cos, sin); the MLPs at N 8,192 and 65,536 rows
+(D 768, F 3,072, gelu), whole and each stage alone.
 
 A variant leaves a phase out by a text substitution in the source and is
 built beside the package's own builds. Its outputs are wrong by design;
@@ -29,10 +32,13 @@ the time it saves is that phase's share:
   dqonly   the query role alone (bwd: no dk, dv)
   dkvonly  the key role alone (bwd: no dq)
   shfl     the walkers' tile ranges by tile_range's shuffles instead of
-           redux.sync (fwd, bwd; outputs right); stream: the masks and the
-           visiting tiles' ranges from the ids by tile_range's shuffles (the
-           single form's way) instead of the tile tables (outputs right, the
-           key ids being the query ids)
+           redux.sync (fwd's single form, bwd; outputs right); stream: the
+           masks and the visiting tiles' ranges from the ids by tile_range's
+           shuffles (the single form's way) instead of the tile tables
+           (outputs right, the key ids being the query ids)
+  redux    fwd's stream form: the masks and the key tiles' ranges from the
+           ids by redux.sync (the single form's way) instead of the tile
+           tables (outputs right, the key ids being the query ids)
   stages2  a ring of 2 stages instead of 3 (fwd: of 4) (outputs right)
   stages3  a ring of 3 stages instead of 4 (fwd; outputs right)
   all      rope0, noepi, noexp and noglob, nomask or nodelta together
@@ -56,12 +62,15 @@ substituted):
         [--variants base,noexp]
 
 --source probes another body of the file (one unpacked from an earlier
-commit, say); a substitution that does not match it raises. Needs a CUDA
-card and nvcc. Prints the card, then one line a shape and variant: the
+commit, say, with the headers beside it, which it is built against before
+the package's own); a substitution that does not match it raises; fwd
+times the forms that its source has. Needs a CUDA card and nvcc. Prints
+the card, then one line a shape and variant (fwd: a line a form): the
 medians of five CUDA-event readings of 30 launches each, every variant of
 a shape in one turn, then again in the reverse order; the split and stream
-lines end with a digest of dq, delta, dk and dv, so that two bodies that
-should give the same bits (one --source against another) show it.
+lines end with a digest of dq, delta, dk and dv, the fwd lines with one of
+out and lse, so that two bodies that should give the same bits (one
+--source against another) show it.
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ import argparse
 import ctypes
 import re
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -113,6 +123,15 @@ _STREAM_SHFL = [("table_mask(tabo, tabv, it.own0, nt, tri, DKV, lane, ",
                  "lane, "),
                 ("lo = tabv[vt].x;\n            hi = tabv[vt].y;",
                  "tile_range(segv, v0, P, lane, &lo, &hi);")]
+# the stream form's walkers: the masks and the key tiles' ranges from the
+# ids by redux.sync, as the single form takes them (the probe's key ids are
+# its query ids)
+_FWD_REDUX = [("return table_mask(args.tabq + (long long)it.b * nt, args.tabk + (long long)it.b"
+               " * nt,\n                        it.own0, nt, tri, false, lane, c);",
+               "return visiting_mask<uint64_t, true>(args.segk + (long long)it.b * P, it.own0, P,"
+               " tri, false, lane, c);"),
+              ("const int2 r = args.tabk[(long long)it.b * nt + vt];\n              lo = r.x;\n"
+               "              hi = r.y;", "tile_range_redux(segb, v0, P, lane, &lo, &hi);")]
 _FWD_NOMASK = [("sc[4 * j + e] = ok ? sc[4 * j + e] : -INFINITY;", "(void)ok;")]
 _BWD_NOEPI = [("    tma_store_3d(DKV ? &mp.dk : &mp.dq, box0, it.h * DH, wrow0, it.b);",
                "    (void)0;"),
@@ -170,7 +189,7 @@ KERNELS = {
         "shfl": _STREAM_SHFL}),
     "fwd": ("flash_fwd.cu", {
         "base": [], "rope0": _ROPE0_SM90, "noepi": _FWD_NOEPI, "noexp": _FWD_NOEXP,
-        "nomask": _FWD_NOMASK, "nocons": _FWD_NOCONS, "shfl": _FWD_SHFL,
+        "nomask": _FWD_NOMASK, "nocons": _FWD_NOCONS, "shfl": _FWD_SHFL, "redux": _FWD_REDUX,
         "stages2": _FWD_STAGES[2], "stages3": _FWD_STAGES[3],
         "all": _ROPE0_SM90 + _FWD_NOEPI + _FWD_NOEXP + _FWD_NOMASK}),
     "bwd": ("flash_bwd.cu", {
@@ -195,16 +214,22 @@ SHAPES = {
     "stream": {"B16 P4096": (16, 4096, 12, 0, "packed")},
     "fwd": {"denoise B256 P88": (256, 88, 12, 16, "denoise"),
             "finetune B256 P72": (256, 72, 12, 0, "molecule"),
-            "B8 P1024": (8, 1024, 12, 0, "packed"), "B64 P1024": (64, 1024, 12, 0, "packed")},
+            "B8 P1024": (8, 1024, 12, 0, "packed"), "B64 P1024": (64, 1024, 12, 0, "packed"),
+            "B16 P4096": (16, 4096, 12, 0, "packed")},
     "bwd": {"finetune B256 P72": (256, 72, 12, 0, "molecule"),
             "B8 P1024": (8, 1024, 12, 0, "packed"), "B64 P1024": (64, 1024, 12, 0, "packed")},
 }
+# fwd's forms: their C entries and argument types
+FWD_FORMS = {"flash_fwd": ("ggt_flash_fwd", fa._ARGTYPES),
+             "flash_fwd_stream": ("ggt_flash_fwd_stream", fa._FWD_STREAM_ARGTYPES),
+             "flash_fwd_band": ("ggt_flash_fwd_band", fa._FWD_BAND_ARGTYPES)}
 MLP_SHAPES = {"N8192": (8192, 768, 3072), "N65536": (65536, 768, 3072)}  # (N, D, F)
 DH = 64
 
 
-def build(kernel: str, source: str, names) -> dict:
-    """{variant: its C library}, one nvcc each, all at once."""
+def build(kernel: str, source: str, names, include: Path) -> dict:
+    """{variant: its C library}, one nvcc each, all at once; `include` (the
+    source's directory) is searched for headers before the package's."""
     out_dir = _build.BUILD_DIR.parent / "split_probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     variants = KERNELS[kernel][1]
@@ -220,7 +245,8 @@ def build(kernel: str, source: str, names) -> dict:
             text = text.replace(old, new)
         src, lib = out_dir / f"{kernel}_{name}.cu", out_dir / f"lib{kernel}_{name}.so"
         src.write_text(text)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib), str(src)]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(include), "-I", str(_build.CSRC),
+               "-o", str(lib), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), lib)
     libs = {}
@@ -239,7 +265,9 @@ def build(kernel: str, source: str, names) -> dict:
             libs[name].ggt_flash_dq_stream.argtypes = fa._DQ_STREAM_ARGTYPES
             libs[name].ggt_flash_dkv_stream.argtypes = fa._DKV_STREAM_ARGTYPES
         elif kernel == "fwd":
-            libs[name].ggt_flash_fwd.argtypes = fa._ARGTYPES
+            for entry, argtypes in FWD_FORMS.values():
+                if hasattr(libs[name], entry):
+                    getattr(libs[name], entry).argtypes = argtypes
         elif kernel == "bwd":
             libs[name].ggt_flash_bwd.argtypes = fa._BWD_ARGTYPES
         elif kernel == "mlp":
@@ -345,7 +373,7 @@ def main() -> None:
     dev = torch.device("cuda")
     print(torch.cuda.get_device_name(0), flush=True)
     libs = build(args.kernel, open(source).read(),
-                 (args.variants or ",".join(variants)).split(","))
+                 (args.variants or ",".join(variants)).split(","), Path(source).resolve().parent)
     if args.kernel in INLINE:
         probe_mlp(args.kernel, libs, dev)
         return
@@ -384,6 +412,15 @@ def main() -> None:
                     lib.ggt_flash_fwd(ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(cos), ptr(sin),
                                       ptr(o2), ptr(l2), b, p, h, 0, bi, stream)
 
+                def run_fwd_stream(lib=lib):
+                    lib.ggt_flash_fwd_stream(ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(seg),
+                                             ptr(cos), ptr(sin), ptr(o2), ptr(l2), ptr(tab), b, p,
+                                             h, 0, bi, stream)
+
+                def run_fwd_band(lib=lib):
+                    lib.ggt_flash_fwd_band(ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(seg), ptr(o2),
+                                           ptr(l2), ptr(tab), b, p, h, 0, bi, stream)
+
                 def run_bwd(lib=lib):
                     lib.ggt_flash_bwd(ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(cos), ptr(sin),
                                       ptr(out), ptr(lse), ptr(do), None, ptr(delta), ptr(dq),
@@ -403,10 +440,23 @@ def main() -> None:
                     kn = "flash_dq" if args.kernel == "split" else "flash_dq_stream"
                     print(f"{tag}: {name:8s} {kn} {tq:.4f} ms  {kn.replace('dq', 'dkv')} "
                           f"{tkv:.4f} ms  pair {tq + tkv:.4f} ms  digest {digest}", flush=True)
+                elif args.kernel == "fwd":
+                    runs = {"flash_fwd": run_fwd, "flash_fwd_stream": run_fwd_stream,
+                            "flash_fwd_band": run_fwd_band}
+                    for form, (entry, _) in FWD_FORMS.items():
+                        if not hasattr(lib, entry):
+                            continue
+                        t = cuda_ms(runs[form])
+                        # out and lse of one launch on fresh buffers
+                        o2.zero_()
+                        l2.zero_()
+                        runs[form]()
+                        digest = (o2.view(torch.int16).long().sum().item()
+                                  + l2.view(torch.int32).long().sum().item())
+                        print(f"{tag}: {name:8s} {form} {t:.4f} ms  digest {digest}", flush=True)
                 else:
-                    t = cuda_ms(run_fwd if args.kernel == "fwd" else run_bwd)
-                    kname = "flash_fwd" if args.kernel == "fwd" else "flash_bwd"
-                    print(f"{tag}: {name:8s} {kname} {t:.4f} ms", flush=True)
+                    t = cuda_ms(run_bwd)
+                    print(f"{tag}: {name:8s} flash_bwd {t:.4f} ms", flush=True)
 
 
 if __name__ == "__main__":

@@ -21,6 +21,12 @@ so that at P 256 the band is a real stretch of 64-key tiles.
   split backward pair).
 - `band_limits` bit for bit against `_band_limits` (:265) at key-tile
   width 1, on packed, clustered-but-unsorted and all-padding tiles.
+- The three forwards compute one function: JAX's `_fwd_kernel_single`,
+  `_fwd_kernel_stream` and `_fwd_kernel_band` (`_flash_fwd` under
+  `_MODE` legacy, skip and band) and the port's `flash_attention_ref`,
+  `flash_fwd_stream_ref` and `flash_fwd_band_ref` (the plain versions of
+  #1, #6 and #9, which the CUDA kernels share one body for) on the same
+  pre-rotated inputs agree with each other, on the rows that see a key.
 
 Tolerances: fp32, the sides differ in the order of fp32 sums, 2e-5. bf16:
 both round p, ds and the rotation at the same points (the forward's p
@@ -140,6 +146,52 @@ def _key_ids(seg):
     out = np.zeros_like(seg)
     out[:, :-1] = seg[:, 1:]
     return out
+
+
+@pytest.mark.parametrize("mask", ["bidirectional", "causal"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_the_three_forwards_compute_one_function(mask, dtype, band, monkeypatch):
+    """B 2 x P 320 (five 64-row tiles), H 2, q and k taken as rotated, one
+    id array with a padded stretch: out and lse of the six forwards, every
+    pair, on the rows whose id is not 0 (each sees at least itself); lse at
+    the tolerance of the band entries' test in bf16."""
+    b, p, h = 2, 320, 2
+    causal, _ = MASKS[mask]
+    q, k, v, _, seg, _, _ = _inputs(b, p, h, seed=4)
+    qs, k, v = (a.reshape(b, p, h * DH) for a in (q * DH**-0.5, k, v))
+    j, t, _ = _dtypes(dtype)
+    ran = {n: _spy(monkeypatch, jfa, n) for n in ("_fwd_kernel_single", "_fwd_kernel_stream")}
+    ran["_fwd_kernel_band"] = band["_fwd_kernel_band"]
+    jseg, tseg = jnp.asarray(seg), torch.from_numpy(seg)
+    outs = {}
+    # (mode, the kernel it runs, key block): legacy takes the whole row as one block
+    for mode, kernel, bk in (("legacy", "_fwd_kernel_single", p),
+                             ("skip", "_fwd_kernel_stream", 64), ("band", "_fwd_kernel_band", 64)):
+        monkeypatch.setattr(jfa, "_MODE", mode)
+        outs[kernel] = jfa._flash_fwd(j(qs), j(k), j(v), jseg, jseg, causal, 64, bk, h, DH)
+        assert ran[kernel], f"JAX took another path than {kernel}"
+    tq, tk, tv = t(qs), t(k), t(v)
+    outs["flash_attention_ref"] = tfa.flash_attention_ref(tq, tk, tv, tseg, None, None, causal, DH)
+    outs["flash_fwd_stream_ref"] = tfa.flash_fwd_stream_ref(tq, tk, tv, tseg, tseg, None, None,
+                                                            causal, DH)
+    outs["flash_fwd_band_ref"] = tfa.flash_fwd_band_ref(tq, tk, tv, tseg, tseg, causal, DH)
+    valid = seg > 0
+
+    def numpy(x):
+        return x.float().numpy() if torch.is_tensor(x) else np.asarray(x, np.float32)
+
+    rows = {n: (numpy(o)[valid], numpy(lse).transpose(0, 2, 1)[valid])
+            for n, (o, lse) in outs.items()}
+    names = list(rows)
+    for x in range(len(names)):
+        for y in range(x + 1, len(names)):
+            (go, gl), (wo, wl) = rows[names[x]], rows[names[y]]
+            pair = f"{names[x]} against {names[y]}"
+            _close(go, wo, dtype, f"out, {pair}")
+            if dtype == "float32":
+                _close(gl, wl, dtype, f"lse, {pair}")
+            else:
+                np.testing.assert_allclose(gl, wl, atol=1e-4, rtol=1e-5, err_msg=f"lse, {pair}")
 
 
 @pytest.mark.parametrize("mask, keys, dtype", [("causal", "other", "float32"),

@@ -210,9 +210,9 @@ def test_stream_kernels_match_plain(cuda_device, shape, keys, mask):
     lse) and flash_dkv_stream against their plain versions, at the
     tolerances of the single-block kernels; padded rows exactly 0; key ids
     the query ids or another array (bi-causal: 16 bit slots); the same bits
-    from run to run. Past P 4096 (65 tiles: two 64-bit masks of visiting
-    tiles in #7 and #8) a segment straddles tiles 63 and 64 on the first
-    row."""
+    from run to run, the forward's too. Past P 4096 (65 tiles: two 64-bit
+    masks of key or visiting tiles) a segment straddles tiles 63 and 64 on
+    the first row."""
     dev = cuda_device
     b, p, h = shape
     dh = 64
@@ -241,6 +241,8 @@ def test_stream_kernels_match_plain(cuda_device, shape, keys, mask):
     torch.testing.assert_close(lse.transpose(1, 2)[valid], rlse.transpose(1, 2)[valid],
                                atol=1e-3, rtol=1e-4)
     assert bool((out[~valid] == 0).all()) and bool((lse.transpose(1, 2)[~valid] == -1e30).all())
+    again = tfa.flash_fwd_stream(*fwd_args)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
     dlse = torch.from_numpy(rng.normal(size=(b, h, p)).astype(np.float32) * 0.3).to(dev)
     dlse = dlse * valid[:, None, :]
     dq_args = (qs, k, v, seg, seg_k, cos, sin, out, lse, do, dlse, causal, dh, bi)
@@ -258,11 +260,37 @@ def test_stream_kernels_match_plain(cuda_device, shape, keys, mask):
     assert bool((dq[~valid] == 0).all())
     assert bool((dk[seg_k == 0] == 0).all()) and bool((dv[seg_k == 0] == 0).all())
     assert [tfa.flash_fwd_stream.launches, tfa.flash_dq_stream.launches,
-            tfa.flash_dkv_stream.launches] == [c + 1 for c in counts]
+            tfa.flash_dkv_stream.launches] == [counts[0] + 2, counts[1] + 1, counts[2] + 1]
     again = tfa.flash_dkv_stream(*dkv_args)
     assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
     again = tfa.flash_dq_stream(*dq_args)
     assert torch.equal(again[0], dq) and torch.equal(again[1], delta)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [320, 1024])
+@pytest.mark.parametrize("mask", ["bidirectional", "causal", "bi-causal"])
+def test_stream_forward_gives_the_single_forms_bits(cuda_device, p, mask):
+    """flash_fwd_stream on one id array (seg twice) visits the key tiles
+    that #1 visits, in the same order: out and lse equal flash_fwd's (#1
+    up to P 2048) bit for bit; bi-causal with 16 bit slots."""
+    dev = cuda_device
+    b, h, dh = 2, 12, 64
+    causal, bi = {"bidirectional": (False, 0), "causal": (True, 0), "bi-causal": (False, 16)}[mask]
+    rng = np.random.default_rng(23)
+    qs = _bf16(rng, (b, p, h * dh), 0.5 * dh**-0.5, dev)
+    k, v = (_bf16(rng, (b, p, h * dh), 0.5, dev) for _ in range(2))
+    seg_np = packed_segments(b, p, rng)
+    seg_np[-1, p - 100 : p - 20] = 0
+    seg = torch.from_numpy(seg_np).to(dev)
+    pos = torch.arange(p, device=dev).expand(b, p)
+    cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(pos, dh))
+    before = [tfa.flash_fwd.launches, tfa.flash_fwd_stream.launches]
+    out, lse = tfa.flash_fwd_stream(qs, k, v, seg, seg, cos, sin, causal, dh, bi)
+    out1, lse1 = tfa.flash_fwd(qs, k, v, seg, cos, sin, causal, dh, bi)
+    torch.cuda.synchronize()
+    assert [tfa.flash_fwd.launches, tfa.flash_fwd_stream.launches] == [c + 1 for c in before]
+    assert torch.equal(out, out1) and torch.equal(lse, lse1)
 
 
 # (N, D, F) of the MLP kernels' cases: the tiny configs' widths, small12's
@@ -1006,13 +1034,15 @@ def test_pretrain_pipeline_step_launch_counts(cuda_device, tmp_path):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,keys,mask", [
     ((2, 1024, 12), "same", "bidirectional"), ((2, 320, 3), "other", "causal"),
-    ((4, 88, 12), "same", "bi-causal"), ((1, 4096, 2), "same", "causal")],
-    ids=["P1024", "P320-other-causal", "P88-bicausal", "P4096-causal"])
+    ((4, 88, 12), "same", "bi-causal"), ((1, 4096, 2), "same", "causal"),
+    ((2, 1000, 12), "other", "bidirectional")],
+    ids=["P1024", "P320-other-causal", "P88-bicausal", "P4096-causal", "P1000-other"])
 def test_band_kernels_match_plain(cuda_device, shape, keys, mask):
     """flash_fwd_band (#9) and flash_bwd_band (#10, with its delta and a
     cotangent of lse) against their plain versions, at the tolerances of the
     streamed kernels; the band tables equal band_limits; padded rows exactly
-    0; the same bits from run to run."""
+    0; the same bits from run to run, the forward's too. P 1000: the last
+    128-row item of #9 holds one 64-row tile and a 40-row one."""
     dev = cuda_device
     b, p, h = shape
     dh = 64
@@ -1037,6 +1067,8 @@ def test_band_kernels_match_plain(cuda_device, shape, keys, mask):
     torch.testing.assert_close(lse.transpose(1, 2)[valid], rlse.transpose(1, 2)[valid],
                                atol=1e-3, rtol=1e-4)
     assert bool((out[~valid] == 0).all()) and bool((lse.transpose(1, 2)[~valid] == -1e30).all())
+    again = tfa.flash_fwd_band(qs, k, v, seg, seg_k, causal, dh, bi)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
     dlse = torch.from_numpy(rng.normal(size=(b, h, p)).astype(np.float32) * 0.3).to(dev)
     dlse = dlse * valid[:, None, :]
     args = (qs, k, v, seg, seg_k, out, lse, do, dlse, causal, dh, bi)
@@ -1053,7 +1085,8 @@ def test_band_kernels_match_plain(cuda_device, shape, keys, mask):
         assert _rel(g, r) < 2e-3
     assert bool((dq[~valid] == 0).all())
     assert bool((dk[seg_k == 0] == 0).all()) and bool((dv[seg_k == 0] == 0).all())
-    assert [tfa.flash_fwd_band.launches, tfa.flash_bwd_band.launches] == [c + 1 for c in counts]
+    assert [tfa.flash_fwd_band.launches, tfa.flash_bwd_band.launches] == [counts[0] + 2,
+                                                                          counts[1] + 1]
     again = tfa.flash_bwd_band(*args)
     assert all(torch.equal(a, g) for a, g in zip(again, (dq, dk, dv)))
 

@@ -53,7 +53,7 @@ def test_the_scan_sees_every_module():
         assert must in names
     assert sorted(p.name for p in (ROOT / "graphgpt_torch" / "csrc").glob("*.cu")) == [
         "flash_band.cu", "flash_bwd.cu", "flash_bwd_split.cu", "flash_fwd.cu",
-        "flash_stream.cu", "mlp.cu", "norm_mlp.cu", "norm_qkv.cu", "rmsnorm_bwd.cu",
+        "mlp.cu", "norm_mlp.cu", "norm_qkv.cu", "rmsnorm_bwd.cu",
     ]
 
 
