@@ -20,6 +20,9 @@
    with inf and NaN in do's padded rows, which must change no output bit.
    norm_mlp also bit for bit against a second launch, its share of the
    bound and its stages (the rrms pre-pass, gate/up, down) timed alone;
+   rmsnorm_bwd bit for bit against a second launch, its two launches (the
+   row pass, the sum of its per-CTA dw rows) timed alone, and, untimed, at
+   a ragged N 65,537 and at D 384 and 1,600 (N 4,096);
    then norm_mlp and mlp, untimed, at a ragged N 65,537, at D 384 / F 384
    and D 128 / F 512 (N 4,096), mlp also at N 65,536 and 22,528, each
    against its plain version and a second launch.
@@ -86,11 +89,13 @@
    (the port's `_MODE` attribute and the environment variable): #9
    flash_fwd_band and #10 flash_bwd_band (with its delta) against their
    plain versions at B 8 x P 1024 (bidirectional, causal, and with another
-   packed row's ids as key ids), B 64 x P 1024 (#9 on every row, #10 on
-   4), the long-context batch's 16 x 4096 (#9 on every row, #10 on 2) and
-   the denoise batch's 256 x 88 (bi-causal, 16 bit slots), their band
-   tables equal to band_limits, padded rows exactly 0 on every row and #9
-   bit for bit against a relaunch; timed at 8 x 1024,
+   packed row's ids as key ids), B 64 x P 1024, the long-context batch's
+   16 x 4096 and the denoise batch's 256 x 88 (bi-causal, 16 bit slots),
+   on every row (#10's plain version a row at a time), their band tables
+   equal to band_limits, padded rows, query rows that see no key and keys
+   that no query sees exactly 0 on every row, both bit for bit against a
+   relaunch, #10 with inf and NaN in do's padded rows (8 x 1024, both
+   masks) changing no output bit; timed at 8 x 1024,
    64 x 1024 and 16 x 4096 beside the bound, the plain version, SDPA and
    the legacy kernels at the same shape; #12 norm_qkv at N 8,192 and
    65,536 beside F.rms_norm + one matmul (its achieved TFLOP/s, share of
@@ -867,33 +872,77 @@ def flash_bwd_non_finite_check(fa, qs, k, v, seg, cos, sin, do, dh: int):
             fail(f"non-finite do in padded rows reached an output of flash_bwd ({tag})")
 
 
-def rms_bwd_phase(dev, mlp, ops, n: int = 65536):
-    """rmsnorm_bwd against its plain version at N rows of D 768, with its
-    time beside the plain version's, F.rms_norm's backward and the bound."""
-    d = 768
-    gen = torch.Generator(device=dev).manual_seed(4)
+def rms_inputs(dev, n: int, d: int, seed: int = 4):
+    """x, g [n, d] bf16 at unit normal, w fp32 near 1, eps."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
     g = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
     w = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
-    eps = 1e-6
+    return x, g, w, 1e-6
+
+
+def check_rms(mlp, ops, tag, x, g, w, eps):
+    """rmsnorm_bwd against its plain version and against a second launch
+    (dx and dw bit for bit: no atomics); returns the larger of dx's
+    elementwise error and dw's relative one."""
+    n = x.shape[0]
     dx, dw = mlp.rmsnorm_bwd(x, g, w, eps)
-    sync(dev)
+    again = mlp.rmsnorm_bwd(x, g, w, eps)
+    sync(x.device)
+    same = torch.equal(again[0], dx) and torch.equal(again[1], dw)
     with ops.reference_mode():
         rdx, rdw = mlp.rmsnorm_bwd(x, g, w, eps)
     err_dx = (dx.float() - rdx.float()).abs().max().item()
     rel_dx = rel_err(dx, rdx)
     rel_dw = ((dw - rdw).abs() / (rdw.abs() + 1.0)).max().item()
     print(
-        f"rmsnorm_bwd[N={n}] max|dx-plain| {err_dx:.3e} (tol {RMS_BWD_TOL['dx_atol']}) "
-        f"|dx-plain|/|plain| {rel_dx:.3e} (tol {RMS_BWD_TOL['dx_rel']}) "
-        f"max|dw-plain|/(|plain|+1) {rel_dw:.3e} (tol {RMS_BWD_TOL['dw_rtol']})",
+        f"rmsnorm_bwd[{tag}, N={n} D={x.shape[1]}] max|dx-plain| {err_dx:.3e} (tol "
+        f"{RMS_BWD_TOL['dx_atol']}) |dx-plain|/|plain| {rel_dx:.3e} (tol "
+        f"{RMS_BWD_TOL['dx_rel']}) max|dw-plain|/(|plain|+1) {rel_dw:.3e} (tol "
+        f"{RMS_BWD_TOL['dw_rtol']}); a second launch bit for bit: {same}",
         flush=True,
     )
     if not (err_dx <= RMS_BWD_TOL["dx_atol"] and rel_dx <= RMS_BWD_TOL["dx_rel"]
-            and rel_dw <= RMS_BWD_TOL["dw_rtol"] and bool(torch.isfinite(dw).all())):
-        fail(f"rmsnorm_bwd[N={n}] disagrees with its plain version")
+            and rel_dw <= RMS_BWD_TOL["dw_rtol"] and bool(torch.isfinite(dw).all()) and same):
+        fail(f"rmsnorm_bwd[{tag}, N={n}] disagrees with its plain version or a relaunch")
+    return max(err_dx, rel_dw)
+
+
+def rms_stages(mlp, x, g, w, eps):
+    """(row pass ms, scratch-sum ms) of rmsnorm_bwd's two launches, each
+    alone through the stage entry, with the wrapper's grid and scratch."""
+    from graphgpt_torch.ops import _build
+
+    n, d = x.shape
+    blocks = mlp.rms_blocks(n, d, mlp._sm_count(x.device))
+    dx, dw = torch.empty_like(x), torch.empty(d, dtype=torch.float32, device=x.device)
+    partial = torch.empty(blocks, d, dtype=torch.float32, device=x.device)
+    fn = _build.entry("rmsnorm_bwd", "ggt_rmsnorm_bwd_stages", mlp._RMS_STAGE_ARGTYPES)
+    stream = _build.stream_ptr(x.device)
+
+    def run(mask):
+        _build.check(fn(_build.ptr(x), _build.ptr(g), _build.ptr(w), _build.ptr(dx),
+                        _build.ptr(dw), _build.ptr(partial), n, d, float(eps), blocks, mask,
+                        stream), "rmsnorm_bwd stages")
+
+    return cuda_ms(lambda: run(mlp.RMS_MAIN)), cuda_ms(lambda: run(mlp.RMS_REDUCE)), blocks
+
+
+def rms_bwd_phase(dev, mlp, ops, n: int = 65536, contract: bool = False):
+    """rmsnorm_bwd against its plain version and a relaunch at N rows of
+    D 768, with its time beside the plain version's, F.rms_norm's backward
+    and the bound, and its two launches timed apart; `contract`: also,
+    untimed, at a ragged N 65,537 and at D 384 and 1,600 (the 2- and
+    7-chunk instances)."""
+    d = 768
+    x, g, w, eps = rms_inputs(dev, n, d)
+    err = check_rms(mlp, ops, "D 768", x, g, w, eps)
+    if contract:
+        for cn, cd in ((65537, 768), (4096, 384), (4096, 1600)):
+            err = max(err, check_rms(mlp, ops, "contract", *rms_inputs(dev, cn, cd, seed=5)))
     ms = cuda_ms(lambda: mlp.rmsnorm_bwd(x, g, w, eps))
     ms_spread = spread()
+    main_ms, reduce_ms, blocks = rms_stages(mlp, x, g, w, eps)
     with ops.reference_mode():
         plain_ms = cuda_ms(lambda: mlp.rmsnorm_bwd(x, g, w, eps), iters=5)
     # library yardstick: autograd's backward of torch.nn.functional.rms_norm,
@@ -906,13 +955,14 @@ def rms_bwd_phase(dev, mlp, ops, n: int = 65536):
     flops = 12.0 * n * d  # a dozen fp32 operations an element, outside the tensor cores
     bms, by = bound(nbytes, flops, PEAK_F32_FLOPS)
     print(
-        f"rmsnorm_bwd N={n} D={d}: kernel {ms:.4f} ms (3 readings {ms_spread}), plain "
+        f"rmsnorm_bwd N={n} D={d}: kernel {ms:.4f} ms (3 readings {ms_spread}; alone: row pass "
+        f"{main_ms:.4f} ms on {blocks} CTAs, sum of the scratch {reduce_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, F.rms_norm backward {lib_ms:.4f} ms (bf16 weight), bound "
         f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB)",
         flush=True,
     )
-    return dict(err=max(err_dx, rel_dw), ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms,
-                bound_by=by)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms, bound_by=by,
+                main_ms=main_ms, reduce_ms=reduce_ms)
 
 
 def grads_of(model, batch, call=dict):
@@ -2058,19 +2108,40 @@ def band_work(fa, seg, seg_k, causal: bool, h: int, dh: int, kind: str, bi: int 
     return nbytes, 2.0 * products * dh * h * pairs
 
 
+def band_non_finite_check(fa, qs, k, v, seg, seg_k, out, lse, do, causal, dh, bi, shape):
+    """flash_bwd_band, untimed, with inf and NaN written into do's padded
+    rows: every bit of dq, dk and dv must stay as with zeros there."""
+    pad = (seg == 0)[..., None].expand_as(do)
+    if not bool(pad.any()):
+        fail("the non-finite check needs padded rows")
+    clean = do.masked_fill(pad, 0.0)
+    noisy = do.masked_fill(pad, float("nan"))
+    noisy[-1].masked_fill_(pad[-1], float("inf"))
+    runs = [fa.flash_bwd_band(qs, k, v, seg, seg_k, out, lse, d, None, causal, dh, bi)
+            for d in (clean, noisy)]
+    same = all(torch.equal(a, n) for a, n in zip(*runs))
+    finite = all(bool(torch.isfinite(a.float()).all()) for a in runs[1])
+    print(f"flash_bwd_band[{shape}] with inf and NaN in do's {int(pad[..., 0].sum())} padded "
+          f"rows: every output bit the same {same}, finite {finite}", flush=True)
+    if not (same and finite):
+        fail(f"non-finite do in padded rows reached an output of flash_bwd_band ({shape})")
+
+
 def band_at_shape(fa, ops, tag, seg, seg_k, h: int, dh: int, causal: bool = False,
-                  bi: int = 0, check_rows: int = 0, timed: bool = False):
+                  bi: int = 0, timed: bool = False, non_finite: bool = False):
     """#9 flash_fwd_band and #10 flash_bwd_band on every row of seg [B, P]
     (key ids seg_k): #9's out and lse against its plain version on every
-    row (8 rows at a time: a persistent kernel's schedule depends on B), and
-    bit for bit against a relaunch; #10's delta, dq, dk, dv against its
-    plain version on the first `check_rows` rows (all by default); both band
-    tables equal band_limits on every row; padded rows (and keys of no
-    query) exactly 0 on every row. `timed`: then each kernel, its plain
-    version (the whole shape, once), SDPA with the boolean mask (forward;
-    its backward for #10) and the legacy kernels at the same shape (#1 and
-    #3 up to P 2048, #6 and #7 + #8 above), three CUDA-event readings
-    each, beside the bound."""
+    row (8 rows at a time: a persistent kernel's schedule depends on B);
+    #10's delta, dq, dk, dv against its plain version on every row, run one
+    row at a time; both bit for bit against a relaunch; both band tables
+    equal band_limits on every row; padded query rows, query rows that see
+    no key, and keys that no query sees (padded or not) exactly 0 on every
+    row. `non_finite`: #10 also with inf and NaN written into do's padded
+    rows, which must change no output bit. `timed`: then each kernel, its
+    plain version (the whole shape, once), SDPA with the boolean mask
+    (forward; its backward for #10) and the legacy kernels at the same shape
+    (#1 and #3 up to P 2048, #6 and #7 + #8 above), three CUDA-event
+    readings each, beside the bound."""
     b, p = seg.shape
     qs, k, v, do = flash_tensors(seg, h, dh, seed=31)
     fwd_args = (qs, k, v, seg, seg_k, causal, dh, bi)
@@ -2080,39 +2151,58 @@ def band_at_shape(fa, ops, tag, seg, seg_k, h: int, dh: int, causal: bool = Fals
     bux = {}
     dq, dk, dv = fa.flash_bwd_band(*bwd_args, aux=bux)
     again = fa.flash_fwd_band(*fwd_args)
+    agux = {}
+    again_bwd = fa.flash_bwd_band(*bwd_args, aux=agux)
     torch.cuda.synchronize()
-    same = torch.equal(again[0], out) and torch.equal(again[1], lse)
+    same = (torch.equal(again[0], out) and torch.equal(again[1], lse)
+            and all(torch.equal(a, g) for a, g in zip(again_bwd, (dq, dk, dv)))
+            and torch.equal(agux["delta"], bux["delta"]))
+    del again, again_bwd, agux
     table_ok = (torch.equal(aux["table"], fa.band_limits(seg, seg_k))
                 and torch.equal(bux["table_k"], fa.band_limits(seg_k, seg)))
-    valid, kvalid = seg > 0, seg_k > 0
-    pad_ok = (bool((out[~valid] == 0).all()) and bool((lse.transpose(1, 2)[~valid] == -1e30).all())
-              and bool((dq[~valid] == 0).all()) and bool((dk[~kvalid] == 0).all())
-              and bool((dv[~kvalid] == 0).all()))
+    # the query rows that see a key and the keys that a query sees, a row at a time
+    seen_q, seen_k = [], []
+    for r in range(b):
+        m = fa._valid_mask(seg[r : r + 1], causal, bi, seg_k[r : r + 1])[0, 0]
+        seen_q.append(m.any(dim=1))
+        seen_k.append(m.any(dim=0))
+    seen_q, seen_k = torch.stack(seen_q), torch.stack(seen_k)
+    valid = seg > 0
+    pad_ok = (bool((out[~seen_q] == 0).all())
+              and bool((lse.transpose(1, 2)[~seen_q] == -1e30).all())
+              and bool((dq[~seen_q] == 0).all()) and bool((dk[~seen_k] == 0).all())
+              and bool((dv[~seen_k] == 0).all()))
     shape = f"{tag}, B={b} P={p}" + (f" split {p - bi}" if bi else "")
-    n = check_rows or b
     print(f"flash_fwd_band/flash_bwd_band[{shape}] band tables == band_limits on all {b} rows: "
-          f"{table_ok}; padded rows (and keys of no query) exactly 0 on all rows: {pad_ok}; "
-          f"a second launch of #9 bit for bit: {same}; #9 against its plain version on all "
-          f"{b} rows, #10 on {n}", flush=True)
+          f"{table_ok}; padded query rows ({int((~valid).sum())}), query rows that see no key "
+          f"({int((~seen_q & valid).sum())}) and keys that no query sees "
+          f"({int((~seen_k).sum())}) exactly 0 on all rows: {pad_ok}; a second launch of #9 "
+          f"and #10 bit for bit: {same}; both against their plain versions on all {b} rows",
+          flush=True)
     if not (table_ok and pad_ok and same):
-        fail(f"flash_fwd_band/flash_bwd_band[{shape}]: a band table, a padded row or a relaunch "
-             f"is wrong")
+        fail(f"flash_fwd_band/flash_bwd_band[{shape}]: a band table, a row that takes no part "
+             f"or a relaunch is wrong")
     rout, rlse = plain_in_row_chunks(ops, lambda *t: fa.flash_fwd_band(*t, causal, dh, bi),
                                      (qs, k, v, seg, seg_k))
-    fwd_err = check_flash_fwd(f"band, {shape}", out, lse, rout, rlse, seg)
+    fwd_err = check_flash_fwd(f"band, {shape}", out, lse, rout, rlse, seen_q.int())
     del rout, rlse
-    r = slice(0, n)
     with ops.reference_mode():
-        rux = {}
-        rgrads = fa.flash_bwd_band(qs[r], k[r], v[r], seg[r], seg_k[r], out[r], lse[r], do[r],
-                                   None, causal, dh, bi, aux=rux)
-    delta_err = (bux["delta"][r] - rux["delta"]).abs().max().item()
-    print(f"flash_bwd_band[{shape}] max|delta-plain| {delta_err:.3e} (tol {DELTA_ATOL})",
-          flush=True)
+        rdelta = fa.flash_delta(do, out, None, dh)
+    rgrads = plain_in_row_chunks(ops, lambda *t: fa.flash_bwd_band(*t, None, causal, dh, bi),
+                                 (qs, k, v, seg, seg_k, out, lse, do), rows=1)
+    delta_err = (bux["delta"] - rdelta).abs().max().item()
+    print(f"flash_bwd_band[{shape}] max|delta-plain| {delta_err:.3e} (tol {DELTA_ATOL}), the "
+          f"plain versions one row at a time", flush=True)
     if not delta_err <= DELTA_ATOL:
         fail(f"flash_bwd_band[{shape}]'s delta disagrees with its plain version")
-    err, rel = check_flash_bwd(shape, (dq[r], dk[r], dv[r]), rgrads, seg[r], "flash_bwd_band")
-    del rgrads, rux
+    dq_err, dq_rel = check_flash_bwd(shape, (dq,), rgrads[:1], seen_q.int(), "flash_bwd_band",
+                                     ("dq",))
+    dkv_err, dkv_rel = check_flash_bwd(shape, (dk, dv), rgrads[1:], seen_k.int(),
+                                       "flash_bwd_band", ("dk", "dv"))
+    err, rel = max(dq_err, dkv_err), max(dq_rel, dkv_rel)
+    del rgrads, rdelta
+    if non_finite:
+        band_non_finite_check(fa, qs, k, v, seg, seg_k, out, lse, do, causal, dh, bi, shape)
     res = dict(fwd_err=fwd_err, err=err, rel=rel, delta_err=delta_err)
     if not timed:
         return res
@@ -2311,16 +2401,17 @@ def band_kernel_phase(dev, fa, mlp, ops, synthetic, long_seg):
 
     res = {}
     seg8 = packed(8, 1024, 40)
-    res["serving"] = band_at_shape(fa, ops, "serving", seg8, seg8, h, dh, timed=True)
-    res["causal"] = band_at_shape(fa, ops, "serving, causal", seg8, seg8, h, dh, causal=True)
+    res["serving"] = band_at_shape(fa, ops, "serving", seg8, seg8, h, dh, timed=True,
+                                   non_finite=True)
+    res["causal"] = band_at_shape(fa, ops, "serving, causal", seg8, seg8, h, dh, causal=True,
+                                  non_finite=True)
     other = seg8.roll(1, 0)  # another packed row's ids as the key ids
     res["other"] = band_at_shape(fa, ops, "keys of another packed row", seg8, other, h, dh)
     seg64 = packed(64, 1024, 40)
-    res["train"] = band_at_shape(fa, ops, "train shape", seg64, seg64, h, dh, check_rows=4,
-                                 timed=True)
+    res["train"] = band_at_shape(fa, ops, "train shape", seg64, seg64, h, dh, timed=True)
     del seg64
     res["long"] = band_at_shape(fa, ops, "long-context batch", long_seg, long_seg, h, dh,
-                                check_rows=2, timed=True)
+                                timed=True)
     dn = torch.from_numpy(synthetic.mol3d_batch(256, 88, seed=0, bi_split=16)["segment_ids"])
     dn = dn.to(dev)
     res["denoise"] = band_at_shape(fa, ops, "denoise batch, bi-causal", dn, dn, h, dh, bi=16)
@@ -2574,17 +2665,21 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
-    # the wgmma kernels (#12; #2, #11; #4, #5, #7, #8; #1, #6, #9; #3) keep no
-    # spill and let ptxas pipeline their wgmma (no C7512/C7513); flash_fwd.cu's
-    # log must show its three forms
-    for name in ("norm_qkv", "norm_mlp", "mlp", "flash_bwd_split", "flash_fwd", "flash_bwd"):
+    # the wgmma kernels (#12; #2, #11; #4, #5, #7, #8; #1, #6, #9; #3, #10) keep
+    # no spill and let ptxas pipeline their wgmma (no C7512/C7513), #13 keeps
+    # no spill; flash_fwd.cu's log must show its three forms, flash_bwd.cu's
+    # its two
+    for name in ("norm_qkv", "norm_mlp", "mlp", "flash_bwd_split", "flash_fwd", "flash_bwd",
+                 "rmsnorm_bwd"):
         if re.search(r"[1-9]\d* bytes spill|C751[0-9]", logs.get(name, "")):
             fail(f"ptxas spilled in {name}.cu or serialised its wgmma (see the build lines above)")
-    forms = sorted(set(re.findall(r"fwd_kernelILi(\d)E", logs.get("flash_fwd", ""))))
-    print(f"flash_fwd.cu: the forms ptxas compiled (0 single, 1 stream, 2 band): {forms}",
-          flush=True)
-    if forms != ["0", "1", "2"]:
-        fail("flash_fwd.cu's build log does not show its three forms")
+    for name, kernel, want in (("flash_fwd", "fwd_kernel", ["0", "1", "2"]),
+                               ("flash_bwd", "fused_kernel", ["0", "2"])):
+        forms = sorted(set(re.findall(kernel + r"ILi(\d)E", logs.get(name, ""))))
+        print(f"{name}.cu: the forms ptxas compiled (0 single, 1 stream, 2 band): {forms}",
+              flush=True)
+        if forms != want:
+            fail(f"{name}.cu's build log does not show its forms {want}")
 
     # ---- the long-context loader alone, before this process starts a pool
     loaders = loader_start_methods()
@@ -2593,7 +2688,7 @@ def main() -> None:
     fres = flash_phase(dev, fa, ops, synthetic, rope_cos_sin)
     mres = mlp_phase(dev, mlp, ops)
     bres = flash_bwd_phase(dev, fa, ops, synthetic, rope_cos_sin)
-    rres = rms_bwd_phase(dev, mlp, ops)
+    rres = rms_bwd_phase(dev, mlp, ops, contract=True)
     sp = split_phase(dev, fa, ops, synthetic, rope_cos_sin)
     counters = {"flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
                 "norm_mlp": mlp.norm_mlp, "rmsnorm_bwd": mlp.rmsnorm_bwd, "mlp": mlp.mlp,
@@ -2722,8 +2817,11 @@ def main() -> None:
                  for k in ("ms", "bound_ms", "lib_ms", "bound_share")}),
         entry("rmsnorm_bwd", "rmsnorm_bwd.cu", "mlp.py:414",
               dict(rres, err=max(rres["err"], ftr["err"], dnr["err"])), RMS_BWD_TOL,
-              **at("finetune_shape", ftr, ("ms", "bound_ms", "plain_ms", "lib_ms")),
-              **at("denoise_shape", dnr, ("ms", "bound_ms", "plain_ms", "lib_ms"))),
+              main_ms=rres["main_ms"], reduce_ms=rres["reduce_ms"],
+              **at("finetune_shape", ftr, ("ms", "bound_ms", "plain_ms", "lib_ms", "main_ms",
+                                           "reduce_ms")),
+              **at("denoise_shape", dnr, ("ms", "bound_ms", "plain_ms", "lib_ms", "main_ms",
+                                          "reduce_ms"))),
         entry("mlp", "mlp.cu", "mlp.py:82", sres, MLP_TOL,
               **{k: sres[k] for k in ("bound_share", "gate_up_ms", "down_ms", "step_ms",
                                       "loader_graphs_s", "peak_mib")},
@@ -2771,7 +2869,7 @@ def main() -> None:
         extra = {"delta_err": max(bk[t]["delta_err"] for t in shapes),
                  "rel_err": max(bk[t]["rel"] for t in shapes)} if kind == "bwd" else {}
         kernels.append(entry(
-            name, "flash_fwd.cu" if kind == "fwd" else "flash_band.cu",
+            name, "flash_fwd.cu" if kind == "fwd" else "flash_bwd.cu",
             f"flash_attention.py:{line}", dict(bk["train"][kind], err=err),
             FLASH_TOL if kind == "fwd" else FLASH_BWD_TOL,
             legacy_kernel_ms=bk["train"][kind]["legacy_ms"],

@@ -1,10 +1,10 @@
-// Segment-masked flash attention backward (dq, dk, dv) with in-kernel RoPE,
-// for Hopper.
+// Segment-masked flash attention backward (dq, dk, dv), for Hopper: one
+// kernel body in two forms, each behind its own C entry.
 //
-// Replaces graphgpt_tpu/ops/flash_attention.py:706 _bwd_kernel_fused (the
-// TPU's single-block fused backward, reached from _flash_bwd :902 when
-// P <= 2048 without a bi-causal split). Same contract: q (pre-scaled, not
-// rotated), k, v, do, out are token-major bf16 [B, P, H*64]; lse and the
+// SINGLE, #3 flash_bwd, replaces graphgpt_tpu/ops/flash_attention.py:706
+// _bwd_kernel_fused (the TPU's single-block fused backward, reached from
+// _flash_bwd :902 when P <= 2048 without a bi-causal split). q (pre-scaled,
+// not rotated), k, v, do, out are token-major bf16 [B, P, H*64]; lse and the
 // optional dlse are fp32 [B, H, P]; seg int32 [B, P]; optional cos/sin bf16
 // [B, P, 64]; P <= 2048. With S = rot(q) rot(k)^T + mask (the segment rule,
 // causal or bidirectional), p = exp(S - lse) and
@@ -17,10 +17,31 @@
 // taken as zero before delta and before any product, so that a non-finite
 // value there reaches no output bit.
 //
+// BAND, #10 flash_bwd_band, replaces :484 _bwd_kernel_band, which
+// _flash_bwd launches under GGT_FLASH_MODE=band for P <= 4096: SINGLE's
+// contract with q and k already rotated (no cos, sin: the band path applies
+// RoPE outside), query ids seg_q and key ids seg_k (the model passes one
+// array twice), the causal, bidirectional or bi-causal rule (bi_split > 0:
+// visible_cols and first_row of flash_common.cuh; the split may fall inside
+// a 64-row tile) and P <= 4096, one 64-bit visiting mask of 64 tiles. The
+// entry first writes the band tables (tile_table.cuh's band_table_kernel,
+// the plain `band_limits`): for each 64-row query tile the first and last
+// key positions whose id lies in the tile's id range, and for each key tile
+// the first and last such query positions (one table when seg_q and seg_k
+// are one array). An item's query role walks the key tiles from the first
+// of its two q tiles' bands to the last, the top clipped to the columns its
+// last row sees; its key role walks the query tiles of its two key tiles'
+// bands, the bottom clipped to the first row that sees its first key
+// (band_mask); a warpgroup skips a tile outside its own tile's band or its
+// rows' causal or bi-causal range. delta comes from the same delta kernel
+// (the JAX package sums it outside the kernel, :933-940), so a padded query
+// row takes no part even where dlse reaches it (the port's rule; the JAX
+// kernel lets exp(S - lse) = 1 spread it), and its do is never read.
+//
 // What bounds it on the H100: bytes. At B 64, P 1024, H 12 it must read q,
 // k, v, do, out and write dq, dk, dv (8 x 100.7 MB, ~0.25 ms of HBM time)
 // against ~22 GFLOP of unmasked products on packed ~32-token segments
-// (~0.02 ms of tensor-core time).
+// (~0.02 ms of tensor-core time); BAND the same bytes without cos, sin.
 //
 // Design. The TPU kernel walks the q tiles in order and carries dk, dv in
 // scratch from one grid step to the next; blocks on this card run in any
@@ -30,7 +51,7 @@
 //    head) row, 16 bytes each; 0 - dlse on a padded row, whose do it never
 //    reads). The key role needs delta of the query rows that visit its
 //    keys, which other CTAs own, so it cannot come from inside the main
-//    kernel without a grid-wide barrier; both launches count as one call.
+//    kernel without a grid-wide barrier; the launches count as one call.
 //  - The main kernel is the split backward's machinery (flash_bwd_split.cu,
 //    on the pieces of flash_sm90.cuh) with both roles in one CTA.
 //    Persistent: one CTA an SM walks a contiguous run of work items (b,
@@ -39,19 +60,21 @@
 //    dv: own k and v, visiting q and do tiles, S^T and dP^T computed
 //    directly), one after the other, so that the register peak stays one
 //    role's. A CTA is three warpgroups:
-//  - producer warp 8 finds the visiting 64-row tiles that meet the own
-//    block's segment-id range (and the causal range) in a 32-bit mask, TMA-
-//    loads each role's own tiles once and streams the visiting tiles (with
-//    their rows' cos and sin where those rows lie outside the own block)
-//    through a 3-stage ring with full and empty mbarriers; its lanes copy
-//    each visiting tile's ids (and, in the key role, lse and delta) with
-//    cp.async into the stage. 3D tensor maps {64 H, P, B}, boxes of
-//    [64, 64], 128-byte swizzled: rows past P arrive as zeros. Warp 9 loads
-//    the own rows' cos and sin once a row block (its items, the heads,
-//    share one phase of the rope barriers); both roles use them. Warps 10
-//    and 11 rotate each landed k (or q) in place, once, with
-//    bf16x2 arithmetic, zero do of padded query rows in the key role, and
-//    mark the stage ready;
+//  - producer warp 8 finds the visiting 64-row tiles (SINGLE: those that
+//    meet the own block's segment-id range and the causal range, in a
+//    32-bit mask; BAND: the band's stretch in a 64-bit one), TMA-loads
+//    each role's own tiles once and streams the visiting tiles (SINGLE:
+//    with their rows' cos and sin where those rows lie outside the own
+//    block) through a ring with full and empty mbarriers, 3 stages of four
+//    boxes (SINGLE) or 8 of two (BAND, in the shared memory that the cos
+//    and sin buffers leave); its lanes copy each visiting tile's ids (and,
+//    in the key role, lse and delta) with cp.async into the stage. 3D
+//    tensor maps {64 H, P, B}, boxes of [64, 64], 128-byte swizzled: rows
+//    past P arrive as zeros. Warp 9 loads the own rows' cos and sin once a
+//    row block (its items, the heads, share one phase of the rope
+//    barriers); both roles use them. Warps 10 and 11 rotate each landed k
+//    (or q) in place, once, with bf16x2 arithmetic, zero do of padded query
+//    rows in the key role, and mark the stage ready;
 //  - two consumer warpgroups own 64 rows each: the own tiles into registers
 //    with ldmatrix (q or k rotated there; do of padded rows zeroed), per
 //    ready stage S and dP as wgmma m64n64k16 with A from registers and B
@@ -66,7 +89,10 @@
 // setmaxnreg gives the consumers 224 registers and the producers 56. Only
 // the producers' waits time out (4 s, then trap).
 
+#include <type_traits>
+
 #include "flash_sm90.cuh"  // wgmma64, desc_mn, ex2, bf16x2 RoPE, the visiting mask, encode3
+#include "tile_table.cuh"  // BAND's band tables and band_mask
 
 namespace fused_bwd {
 namespace {
@@ -76,10 +102,28 @@ using namespace sm90;
 constexpr int ROWS = ITEM_ROWS;    // own rows of a work item: two consumer warpgroups of 64
 constexpr int NTHREADS = 384;      // consumer warpgroups 0 and 1, producer warpgroup 2
 constexpr int CONSUMERS = 256;
-constexpr int STAGES = 3;
 constexpr int BOX = 64 * DH * 2;   // one [64, 64] bf16 box, 8 KB
 constexpr int HALF = ROWS * DH * 2;  // a [128, 64] own tile: two boxes
-constexpr int MAX_P = 2048;        // the visiting tiles of a role fit one 32-bit mask
+
+// The forms of the body (the template argument; flash_fwd.cu's numbers).
+constexpr int SINGLE = 0, BAND = 2;
+constexpr int STAGES_SINGLE = 3;
+constexpr int STAGES_BAND = 8;  // stages of two boxes
+
+// What a form fixes: RoPE (the cos/sin buffers and stages of four boxes),
+// the ring's depth, the longest row and its visiting mask.
+template <int FORM>
+struct Form {
+  static constexpr bool ROPE = FORM == SINGLE;
+  static constexpr int STAGES = FORM == SINGLE ? STAGES_SINGLE : STAGES_BAND;
+  static constexpr int MAX_P = FORM == SINGLE ? 2048 : 4096;  // the visiting tiles fit one mask
+  using Mask = std::conditional_t<FORM == SINGLE, uint32_t, uint64_t>;
+};
+
+__device__ __forceinline__ int popcount(uint32_t m) { return __popc(m); }
+__device__ __forceinline__ int popcount(uint64_t m) { return __popcll(m); }
+__device__ __forceinline__ int lowest(uint32_t m) { return __ffs(m) - 1; }
+__device__ __forceinline__ int lowest(uint64_t m) { return __ffsll((long long)m) - 1; }
 
 // A visiting tile's row data. seg (and in the key role lse, delta) arrive
 // by cp.async (zeros past P); v0, lo, hi, rope_own are written by producer
@@ -89,20 +133,23 @@ struct Meta {
   float lse[64];
   float delta[64];
   int v0;        // the tile's first row
-  int lo, hi;    // its segment-id range (tile_range)
+  int lo, hi;    // its segment-id range (tile_range; BAND: unused)
   int rope_own;  // 1: its rows lie in the own block, whose cos/sin are in the rope buffer
 };
 
 // Shared memory from a 1024-aligned base: a role's own tiles (q, do; or
-// k, v), the own rows' cos and sin, the ring (per stage the visiting B1,
-// B2 and their rows' cos, sin), the output staging (dq; dk and dv), the
-// stage metadata, the role header, the barriers.
+// k, v), the own rows' cos and sin (SINGLE), the ring (per stage the
+// visiting B1, B2 and, SINGLE, their rows' cos, sin), the output staging
+// (dq; dk and dv), the stage metadata, the role header, the barriers.
+template <int FORM>
 struct Layout {
+  static constexpr int STAGES = Form<FORM>::STAGES;
+  static constexpr int ROPE_BYTES = Form<FORM>::ROPE ? HALF : 0;
   static constexpr int OWN = 0;
   static constexpr int COS = OWN + 2 * HALF;
-  static constexpr int SIN = COS + HALF;
-  static constexpr int RING = SIN + HALF;
-  static constexpr int STAGE = 4 * BOX;  // B1, B2, cos, sin
+  static constexpr int SIN = COS + ROPE_BYTES;
+  static constexpr int RING = SIN + ROPE_BYTES;
+  static constexpr int STAGE = (Form<FORM>::ROPE ? 4 : 2) * BOX;  // B1, B2 (, cos, sin)
   static constexpr int OUT = RING + STAGES * STAGE;
   static constexpr int META = OUT + 2 * HALF;
   static constexpr int HDR = META + STAGES * (int)sizeof(Meta);
@@ -114,10 +161,17 @@ struct Layout {
 };
 
 struct Args {
-  const int* seg;       // [B, P]
+  const int* seg;       // [B, P]: SINGLE every row's ids; BAND the query rows'
   const float* lse;     // [B, H, P]
   const float* delta;   // [B, H, P], from the delta kernel
   int B, P, H, causal, rope;
+  // BAND: the key rows' ids [B, P], the bi-causal split, and the band
+  // tables [B, ceil(P/64)] of the query tiles (over the keys) and of the key
+  // tiles (over the queries)
+  const int* segk;
+  int bi_split;
+  const int2* tabq;
+  const int2* tabk;
 };
 
 // The tensor maps: q, k, v, do, cos, sin, dq, dk, dv.
@@ -126,7 +180,9 @@ struct Maps {
 };
 
 // The barriers of the CTA, at the Layout's offsets.
+template <int FORM>
 struct Bars {
+  static constexpr int STAGES = Form<FORM>::STAGES;
   uint32_t own_full, own_empty, rope_full, rope_empty, ring0;
   __device__ uint32_t full(int s) const { return ring0 + 8 * s; }
   __device__ uint32_t empty(int s) const { return ring0 + 8 * (STAGES + s); }
@@ -134,33 +190,56 @@ struct Bars {
 };
 
 // Where a ring walker stands: the stage and its parity.
+template <int FORM>
 struct Ring {
   int stage = 0;
   uint32_t phase = 0;
   __device__ void advance() {
-    if (++stage == STAGES) {
+    if (++stage == Form<FORM>::STAGES) {
       stage = 0;
       phase ^= 1;
     }
   }
 };
 
+// The visiting tiles of one role of an item (the key role: DKV); every
+// lane of the calling warp takes part.
+template <int FORM, bool DKV>
+__device__ __forceinline__ typename Form<FORM>::Mask visits(const Args& args, const Item& it,
+                                                            bool tri, int lane) {
+  if constexpr (FORM == SINGLE) {
+    return visiting_mask<uint32_t, true>(args.seg + (long long)it.b * args.P, it.own0, args.P,
+                                         tri, DKV, lane);
+  } else {
+    const int nt = (args.P + 63) / 64;
+    return band_mask((DKV ? args.tabk : args.tabq) + (long long)it.b * nt, it.own0, nt, args.P,
+                     args.causal, args.bi_split, DKV, 0);
+  }
+}
+
+// The visiting rows' ids of one role in batch row b: the key ids in the
+// query role, the query ids in the key role (SINGLE: one array).
+template <int FORM, bool DKV>
+__device__ __forceinline__ const int* visiting_ids(const Args& args, int b) {
+  return (FORM == BAND && !DKV ? args.segk : args.seg) + (long long)b * args.P;
+}
+
 // Producer warp 8, one role of one item: the own tiles, then the visiting
 // tiles through the ring.
-template <bool DKV>
+template <int FORM, bool DKV>
 __device__ __forceinline__ void produce(const Maps& mp, const Args& args, const Item& it,
-                                        uint32_t sbase, const Bars& bars, Meta* meta,
-                                        volatile int* hdr, bool tri, int lane, Ring& ring,
+                                        uint32_t sbase, const Bars<FORM>& bars, Meta* meta,
+                                        volatile int* hdr, bool tri, int lane, Ring<FORM>& ring,
                                         uint32_t& ophase) {
-  using L = Layout;
+  using L = Layout<FORM>;
   const int P = args.P;
-  const int* segb = args.seg + (long long)it.b * P;
+  const int* segb = visiting_ids<FORM, DKV>(args, it.b);
   const long long rowbase = ((long long)it.b * args.H + it.h) * P;
-  uint32_t mask = visiting_mask<uint32_t, true>(segb, it.own0, P, tri, DKV, lane);
+  auto mask = visits<FORM, DKV>(args, it, tri, lane);
   const bool two = it.own0 + 64 < P;  // the own block's second box holds rows
   mbar_wait_or_trap(bars.own_empty, ophase ^ 1);
   if (lane == 0) {
-    hdr[0] = __popc(mask);
+    hdr[0] = popcount(mask);
     mbar_expect_tx(bars.own_full, 2 * (two ? 2 : 1) * BOX);
     const CUtensorMap* own1 = DKV ? &mp.k : &mp.q;
     const CUtensorMap* own2 = DKV ? &mp.v : &mp.dout;
@@ -174,7 +253,7 @@ __device__ __forceinline__ void produce(const Maps& mp, const Args& args, const 
   }
   ophase ^= 1;
   while (mask) {
-    const int vt = __ffs(mask) - 1;
+    const int vt = lowest(mask);
     mask &= mask - 1;
     const int v0 = vt * 64;
     const int s = ring.stage;
@@ -191,15 +270,15 @@ __device__ __forceinline__ void produce(const Maps& mp, const Args& args, const 
       }
     }
     cp_async_arrive(bars.full(s));
-    int lo, hi;
-    tile_range_redux(segb, v0, P, lane, &lo, &hi);
+    int lo = 0, hi = 0;
+    if constexpr (FORM == SINGLE) tile_range_redux(segb, v0, P, lane, &lo, &hi);
     const bool in_own = v0 >= it.own0 && v0 < it.own0 + ROWS;
     if (lane == 0) {
       m.v0 = v0;
       m.lo = lo;
       m.hi = hi;
       m.rope_own = in_own;
-      const bool rope = args.rope && !in_own;
+      const bool rope = Form<FORM>::ROPE && args.rope && !in_own;
       const uint32_t bar = bars.full(s);
       const uint32_t dst = sbase + L::RING + s * L::STAGE;
       mbar_expect_tx(bar, (rope ? 4 : 2) * BOX);
@@ -222,14 +301,12 @@ __device__ __forceinline__ void produce(const Maps& mp, const Args& args, const 
 // They mark every stage ready, also one with nothing to do (the query role
 // without RoPE): a walker that skipped stages could run a lap ahead of the
 // ring and take an old phase for the one it waits for.
-template <bool DKV>
+template <int FORM, bool DKV>
 __device__ __forceinline__ void pass_role(const Args& args, const Item& it, uint32_t sbase,
-                                          const Bars& bars, const Meta* meta, bool tri, int u,
-                                          int lane, Ring& ring) {
-  using L = Layout;
-  const int P = args.P;
-  const int* segb = args.seg + (long long)it.b * P;
-  uint32_t mask = visiting_mask<uint32_t, true>(segb, it.own0, P, tri, DKV, lane);
+                                          const Bars<FORM>& bars, const Meta* meta, bool tri,
+                                          int u, int lane, Ring<FORM>& ring) {
+  using L = Layout<FORM>;
+  auto mask = visits<FORM, DKV>(args, it, tri, lane);
   for (; mask; mask &= mask - 1) {
     const int s = ring.stage;
     mbar_wait(bars.full(s), ring.phase);
@@ -243,7 +320,7 @@ __device__ __forceinline__ void pass_role(const Args& args, const Item& it, uint
       const int pr = (u >> 2) + 16 * q, pc = u & 3;
       const uint32_t plo = pr * 128 + ((pc ^ (pr & 7)) << 4);
       const uint32_t phi = pr * 128 + (((pc + 4) ^ (pr & 7)) << 4);
-      if (args.rope) {
+      if (Form<FORM>::ROPE && args.rope) {
         uint4 x = lds128(b1 + plo), y = lds128(b1 + phi);
         rope16(x, y, lds128(cs + plo), lds128(cs + phi), lds128(sn + plo), lds128(sn + phi));
         sts128(b1 + plo, x);
@@ -263,10 +340,14 @@ __device__ __forceinline__ void pass_role(const Args& args, const Item& it, uint
 
 // The ids of a consumer thread's own rows and of its warp's 64-row tile
 // (two a lane), and the rows' lse and delta: loaded an item ahead, so that
-// their latency hides under the item before.
+// their latency hides under the item before. BAND: s0, s1 are the own
+// rows' query ids, u0, u1 their key ids; (t0, t1) the warpgroup's query
+// tile's band of key positions, (t2, t3) its key tile's band of query
+// positions.
 struct Rows {
   int s0, s1, t0, t1;
   float lse0, lse1, dl0, dl1;
+  int u0, u1, t2, t3;
 };
 
 // What a consumer thread knows of its place in the CTA.
@@ -277,30 +358,49 @@ struct Lane {
 
 // A consumer warpgroup, one role of one item: the own tiles into
 // registers, the products over every ready stage, then the epilogue.
-template <bool DKV>
+template <int FORM, bool DKV>
 __device__ __forceinline__ void consume(const Maps& mp, const Args& args, const Item& it,
                                         const Rows& rows, uint8_t* base, uint32_t sbase,
-                                        const Bars& bars, const Meta* meta, volatile int* hdr,
-                                        bool tri, const Lane& ln, Ring& ring, uint32_t& ophase) {
-  using L = Layout;
+                                        const Bars<FORM>& bars, const Meta* meta,
+                                        volatile int* hdr, bool tri, const Lane& ln,
+                                        Ring<FORM>& ring, uint32_t& ophase) {
+  using L = Layout<FORM>;
+  constexpr bool ROPE = Form<FORM>::ROPE;
   const int P = args.P;
   const int wg = ln.wg, w4 = ln.w4, g = ln.g, t = ln.t, lane = ln.lane;
+  const int bsplit = FORM == BAND ? args.bi_split : 0;
   const uint32_t aoff = ln.aoff;
   const int wrow0 = it.own0 + wg * 64;
   const int r0 = wrow0 + w4 * 16 + g, r1 = r0 + 8;  // this thread's own rows
-  const int s0 = rows.s0, s1 = rows.s1;
+  // the own rows' ids (BAND: the key ids in the key role)
+  const int s0 = FORM == BAND && DKV ? rows.u0 : rows.s0;
+  const int s1 = FORM == BAND && DKV ? rows.u1 : rows.s1;
   // own queries see the visiting columns [0, lim); own keys are seen by
   // the visiting rows [lim, P)
-  const int lim0 = DKV ? first_row(r0, args.causal, 0, P) : visible_cols(r0, args.causal, 0, P);
-  const int lim1 = DKV ? first_row(r1, args.causal, 0, P) : visible_cols(r1, args.causal, 0, P);
-  // the segment-id range of this warpgroup's 64 rows (tile_range's)
-  int omin = min(rows.t0 > 0 ? rows.t0 : 0x7fffffff, rows.t1 > 0 ? rows.t1 : 0x7fffffff);
-  int omax = max(rows.t0, rows.t1);
+  const int lim0 =
+      DKV ? first_row(r0, args.causal, bsplit, P) : visible_cols(r0, args.causal, bsplit, P);
+  const int lim1 =
+      DKV ? first_row(r1, args.causal, bsplit, P) : visible_cols(r1, args.causal, bsplit, P);
+  // the segment-id range of this warpgroup's 64 rows (tile_range's; BAND:
+  // the first and last visiting position of their tile's band)
+  int omin, omax;
+  if constexpr (FORM == SINGLE) {
+    omin = min(rows.t0 > 0 ? rows.t0 : 0x7fffffff, rows.t1 > 0 ? rows.t1 : 0x7fffffff);
+    omax = max(rows.t0, rows.t1);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    omin = min(omin, __shfl_xor_sync(0xffffffffu, omin, o));
-    omax = max(omax, __shfl_xor_sync(0xffffffffu, omax, o));
+    for (int o = 16; o > 0; o >>= 1) {
+      omin = min(omin, __shfl_xor_sync(0xffffffffu, omin, o));
+      omax = max(omax, __shfl_xor_sync(0xffffffffu, omax, o));
+    }
+  } else {
+    omin = DKV ? rows.t2 : rows.t0;
+    omax = DKV ? rows.t3 : rows.t1;
   }
+  // BAND: the warpgroup's rows see no column from wlim on (query role); no
+  // row before wlim sees its keys (key role)
+  const int wlim = FORM != BAND ? 0
+                   : DKV       ? first_row(wrow0, args.causal, bsplit, P)
+                               : visible_cols(min(wrow0 + 63, P - 1), args.causal, bsplit, P);
   // a row's segment id, the key a visiting column must match; -1 (no
   // match) for a padded row
   const int k0 = s0 > 0 ? s0 : -1, k1 = s1 > 0 ? s1 : -1;
@@ -328,7 +428,7 @@ __device__ __forceinline__ void consume(const Maps& mp, const Args& args, const 
   __syncwarp();
   if (lane == 0) mbar_arrive(bars.own_empty);
 
-  if (args.rope) {
+  if (ROPE && args.rope) {
     rope_a(a1, sbase + L::COS, sbase + L::SIN, aoff);  // q (or k)
   }
 
@@ -343,8 +443,12 @@ __device__ __forceinline__ void consume(const Maps& mp, const Args& args, const 
     const Meta& m = meta[st];
     const int v0 = m.v0;
     const uint32_t sb = sbase + L::RING + st * L::STAGE;
-    const bool skip = ranges_miss(omin, omax, m.lo, m.hi) ||
-                      (tri && (DKV ? v0 + 63 < wrow0 : v0 > wrow0 + 63));
+    bool skip;
+    if constexpr (FORM == BAND)
+      skip = v0 > omax || v0 + 63 < omin || (DKV ? v0 + 63 < wlim : v0 >= wlim);
+    else
+      skip = ranges_miss(omin, omax, m.lo, m.hi) ||
+             (tri && (DKV ? v0 + 63 < wrow0 : v0 > wrow0 + 63));
     if (!skip) {
       float sc[32], dp[32];
 #pragma unroll
@@ -436,7 +540,7 @@ __device__ __forceinline__ void consume(const Maps& mp, const Args& args, const 
   // row g's staging address with its chunk bits holding g; row g + 8 is
   // 1024 on (the same swizzle); fragment j's chunk is j ^ g
   const uint32_t rowg = (box0 + (w4 * 16 + g) * 128 + t * 4) ^ (g << 4);
-  if (args.rope) {
+  if (ROPE && args.rope) {
     const uint8_t* cs = base + L::COS + (wg * 64 + w4 * 16 + g) * 128 + t * 4;
     const uint8_t* sn = base + L::SIN + (wg * 64 + w4 * 16 + g) * 128 + t * 4;
 #pragma unroll
@@ -480,15 +584,17 @@ __device__ __forceinline__ void consume(const Maps& mp, const Args& args, const 
   }
 }
 
+template <int FORM>
 __global__ void __launch_bounds__(NTHREADS, 1)
 fused_kernel(const __grid_constant__ Maps mp, const Args args) {
-  using L = Layout;
+  using L = Layout<FORM>;
+  constexpr int STAGES = Form<FORM>::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
   Meta* meta = reinterpret_cast<Meta*>(base + L::META);
   volatile int* hdr = reinterpret_cast<volatile int*>(base + L::HDR);
   const uint32_t sbase = saddr(base), sbars = sbase + L::BARS;
-  const Bars bars{sbars, sbars + 8, sbars + 16, sbars + 24, sbars + 32};
+  const Bars<FORM> bars{sbars, sbars + 8, sbars + 16, sbars + 24, sbars + 32};
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int P = args.P, H = args.H;
@@ -515,12 +621,12 @@ fused_kernel(const __grid_constant__ Maps mp, const Args args) {
   if (tid >= CONSUMERS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     if (warp == 8) {
-      Ring ring;
+      Ring<FORM> ring;
       uint32_t ophase = 0;
       for (int i = first; i < last; ++i) {
         const Item it = decode(i, H, nblk);
-        produce<false>(mp, args, it, sbase, bars, meta, hdr, tri, lane, ring, ophase);
-        produce<true>(mp, args, it, sbase, bars, meta, hdr, tri, lane, ring, ophase);
+        produce<FORM, false>(mp, args, it, sbase, bars, meta, hdr, tri, lane, ring, ophase);
+        produce<FORM, true>(mp, args, it, sbase, bars, meta, hdr, tri, lane, ring, ophase);
       }
       // every stage and the own buffer handed back: the consumers are past
       // their last product
@@ -529,22 +635,24 @@ fused_kernel(const __grid_constant__ Maps mp, const Args args) {
         ring.advance();
       }
       mbar_wait_or_trap(bars.own_empty, ophase ^ 1);
-    } else if (warp == 9 && lane == 0 && args.rope) {  // both roles of an item use them
+    } else if (warp == 9 && lane == 0 && Form<FORM>::ROPE && args.rope) {
+      // both roles of an item use them
       load_own_rope(&mp.cos, &mp.sin, sbase + L::COS, sbase + L::SIN, bars.rope_full,
                     bars.rope_empty, first, last, H, nblk, P);
     } else if (warp >= 10) {
       const int u = tid - 320;
-      Ring ring;
+      const bool rope = Form<FORM>::ROPE && args.rope;
+      Ring<FORM> ring;
       uint32_t rphase = 0;
       for (int i = first; i < last; ++i) {
         const Item it = decode(i, H, nblk);
-        if (args.rope && block_starts(i, first, H)) {  // the own rows' cos and sin
+        if (rope && block_starts(i, first, H)) {  // the own rows' cos and sin
           mbar_wait(bars.rope_full, rphase);
           rphase ^= 1;
         }
-        pass_role<false>(args, it, sbase, bars, meta, tri, u, lane, ring);
-        pass_role<true>(args, it, sbase, bars, meta, tri, u, lane, ring);
-        if (args.rope && block_ends(i, last, H)) {
+        pass_role<FORM, false>(args, it, sbase, bars, meta, tri, u, lane, ring);
+        pass_role<FORM, true>(args, it, sbase, bars, meta, tri, u, lane, ring);
+        if (rope && block_ends(i, last, H)) {
           __syncwarp();
           if (lane == 0) mbar_arrive(bars.rope_empty);
         }
@@ -555,6 +663,7 @@ fused_kernel(const __grid_constant__ Maps mp, const Args args) {
 
   // ---- consumer warpgroups: rows [64 wg, 64 wg + 64) of each item
   asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+  const bool rope = Form<FORM>::ROPE && args.rope;
   Lane ln;
   ln.tid = tid, ln.wg = warp >> 2, ln.w4 = warp & 3, ln.g = lane >> 2, ln.t = lane & 3;
   ln.lane = lane;
@@ -563,7 +672,7 @@ fused_kernel(const __grid_constant__ Maps mp, const Args args) {
   // in the chunk bits; k-step kk is aoff ^ 32 kk (norm_qkv.cu's load_x)
   ln.aoff = (ln.wg * 64 + ln.w4 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * 128 +
             (((lane >> 4) ^ (lane & 7)) << 4);
-  Ring ring;
+  Ring<FORM> ring;
   uint32_t ophase = 0, rphase = 0;
 
   auto load_rows = [&](int i) {
@@ -574,8 +683,22 @@ fused_kernel(const __grid_constant__ Maps mp, const Args args) {
     const int wrow0 = it.own0 + ln.wg * 64, r0 = wrow0 + ln.w4 * 16 + ln.g, r1 = r0 + 8;
     r.s0 = r0 < P ? segb[r0] : 0;
     r.s1 = r1 < P ? segb[r1] : 0;
-    r.t0 = wrow0 + lane < P ? segb[wrow0 + lane] : 0;
-    r.t1 = wrow0 + lane + 32 < P ? segb[wrow0 + lane + 32] : 0;
+    if constexpr (FORM == SINGLE) {
+      r.t0 = wrow0 + lane < P ? segb[wrow0 + lane] : 0;
+      r.t1 = wrow0 + lane + 32 < P ? segb[wrow0 + lane + 32] : 0;
+    } else {
+      const int* segkb = args.segk + (long long)it.b * P;
+      r.u0 = r0 < P ? segkb[r0] : 0;
+      r.u1 = r1 < P ? segkb[r1] : 0;
+      const long long tb = (long long)it.b * ((P + 63) / 64) + wrow0 / 64;
+      const int2 none = make_int2(P, -1);  // no band: every tile is skipped
+      const int2 bq = wrow0 < P ? args.tabq[tb] : none;
+      const int2 bk = wrow0 < P ? args.tabk[tb] : none;
+      r.t0 = bq.x;
+      r.t1 = bq.y;
+      r.t2 = bk.x;
+      r.t3 = bk.y;
+    }
     r.lse0 = r0 < P ? args.lse[rowbase + r0] : 0.f;
     r.lse1 = r1 < P ? args.lse[rowbase + r1] : 0.f;
     r.dl0 = r0 < P ? args.delta[rowbase + r0] : 0.f;
@@ -588,13 +711,13 @@ fused_kernel(const __grid_constant__ Maps mp, const Args args) {
     const Rows rows = next;
     if (i + 1 < last) next = load_rows(i + 1);
     const Item it = decode(i, H, nblk);
-    if (args.rope && block_starts(i, first, H)) {
+    if (rope && block_starts(i, first, H)) {
       mbar_wait(bars.rope_full, rphase);
       rphase ^= 1;
     }
-    consume<false>(mp, args, it, rows, base, sbase, bars, meta, hdr, tri, ln, ring, ophase);
-    consume<true>(mp, args, it, rows, base, sbase, bars, meta, hdr, tri, ln, ring, ophase);
-    if (args.rope && block_ends(i, last, H)) {
+    consume<FORM, false>(mp, args, it, rows, base, sbase, bars, meta, hdr, tri, ln, ring, ophase);
+    consume<FORM, true>(mp, args, it, rows, base, sbase, bars, meta, hdr, tri, ln, ring, ophase);
+    if (rope && block_ends(i, last, H)) {
       __syncwarp();
       if (lane == 0) mbar_arrive(bars.rope_empty);
     }
@@ -629,22 +752,12 @@ __global__ void delta_kernel(const bf16* __restrict__ dout, const bf16* __restri
   }
 }
 
-}  // namespace
-}  // namespace fused_bwd
-
-// C entry for ctypes: the delta kernel, then the main kernel, on `stream`;
-// returns the first CUDA error (0 when both launches were accepted), or one
-// of flash_sm90.cuh's codes above 999. dlse may be null (zeros); cos and
-// sin may be null (no RoPE). delta is fp32 scratch [B, H, P] from the
-// caller. One CTA an SM, at most one an item.
-extern "C" int ggt_flash_bwd(const void* q, const void* k, const void* v,
-                             const void* seg, const void* cos, const void* sin,
-                             const void* out, const void* lse, const void* dout,
-                             const void* dlse, void* delta, void* dq, void* dk,
-                             void* dv, int B, int P, int H, int causal, void* stream) {
-  using namespace fused_bwd;
-  if (P > MAX_P) return ERR_P;
-  if (B == 0 || P == 0 || H == 0) return 0;
+// The delta kernel, then the main kernel of form FORM, on `stream`: one CTA
+// an SM, at most one an item. cos and sin may be null (no RoPE).
+template <int FORM>
+int launch(const void* q, const void* k, const void* v, const void* cos, const void* sin,
+           const void* out, const void* dout, const void* dlse, void* dq, void* dk, void* dv,
+           const Args& args, cudaStream_t st) {
   static bool configured[MAX_DEVICES] = {};
   static int sms[MAX_DEVICES] = {};
   int dev = 0;
@@ -652,8 +765,8 @@ extern "C" int ggt_flash_bwd(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return ERR_DEVICE;
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)Layout::BYTES);
+    err = cudaFuncSetAttribute(fused_kernel<FORM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)Layout<FORM>::BYTES);
     if (err != cudaSuccess) return (int)err;
     err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
@@ -661,7 +774,7 @@ extern "C" int ggt_flash_bwd(const void* q, const void* k, const void* v,
   }
   const EncodeTiled fn = encode_fn();
   if (!fn) return ERR_NO_ENCODE;
-  const int W = H * DH;
+  const int B = args.B, P = args.P, H = args.H, W = H * DH;
   Maps mp;
   if (!encode3(fn, &mp.q, q, B, P, W) || !encode3(fn, &mp.k, k, B, P, W) ||
       !encode3(fn, &mp.v, v, B, P, W) || !encode3(fn, &mp.dout, dout, B, P, W) ||
@@ -672,17 +785,63 @@ extern "C" int ggt_flash_bwd(const void* q, const void* k, const void* v,
   if (!encode3(fn, &mp.cos, cos ? cos : q, B, P, cos ? DH : W) ||
       !encode3(fn, &mp.sin, sin ? sin : q, B, P, sin ? DH : W))
     return ERR_ENCODE;
-  cudaStream_t st = (cudaStream_t)stream;
   const long long rows = (long long)B * P * H;
   delta_kernel<<<(unsigned)((rows * 8 + 255) / 256), 256, 0, st>>>(
-      (const bf16*)dout, (const bf16*)out, (const int*)seg, (const float*)dlse, (float*)delta,
-      P, H, rows);
+      (const bf16*)dout, (const bf16*)out, args.seg, (const float*)dlse, (float*)args.delta, P,
+      H, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const Args args{(const int*)seg, (const float*)lse, (const float*)delta, B, P, H, causal,
-                  cos != nullptr};
   const int items = B * ((P + ROWS - 1) / ROWS) * H;
   const int grid = items < sms[dev] ? items : sms[dev];
-  fused_kernel<<<grid, NTHREADS, Layout::BYTES, st>>>(mp, args);
+  fused_kernel<FORM><<<grid, NTHREADS, Layout<FORM>::BYTES, st>>>(mp, args);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace fused_bwd
+
+// C entries for ctypes, on `stream`: each returns the first CUDA error (0
+// when its launches were accepted), or one of flash_sm90.cuh's codes above
+// 999. dlse may be null (zeros). delta is fp32 scratch [B, H, P] from the
+// caller, into which the delta kernel writes first.
+
+// #3: one id array; cos and sin may be null (no RoPE).
+extern "C" int ggt_flash_bwd(const void* q, const void* k, const void* v,
+                             const void* seg, const void* cos, const void* sin,
+                             const void* out, const void* lse, const void* dout,
+                             const void* dlse, void* delta, void* dq, void* dk,
+                             void* dv, int B, int P, int H, int causal, void* stream) {
+  using namespace fused_bwd;
+  if (P > Form<SINGLE>::MAX_P) return ERR_P;
+  if (B == 0 || P == 0 || H == 0) return 0;
+  const Args args{(const int*)seg, (const float*)lse, (const float*)delta, B, P, H, causal,
+                  cos != nullptr};
+  return launch<SINGLE>(q, k, v, cos, sin, out, dout, dlse, dq, dk, dv, args,
+                        (cudaStream_t)stream);
+}
+
+// #10: query ids seg_q and key ids seg_k, q and k already rotated; `tab` is
+// int32 scratch of 4 x B x ceil(P/64) from the caller: the query tiles'
+// band table first, then the key tiles' (the same table when seg_q and
+// seg_k are one array), both written first. P <= 4096.
+extern "C" int ggt_flash_bwd_band(const void* q, const void* k, const void* v, const void* segq,
+                                  const void* segk, const void* out, const void* lse,
+                                  const void* dout, const void* dlse, void* delta, void* dq,
+                                  void* dk, void* dv, void* tab, int B, int P, int H, int causal,
+                                  int bi_split, void* stream) {
+  using namespace fused_bwd;
+  if (P > Form<BAND>::MAX_P) return ERR_P;
+  if (B == 0 || P == 0 || H == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  int2* tq = (int2*)tab;
+  int2* tk = segk == segq ? tq : tq + (long long)B * ((P + 63) / 64);
+  cudaError_t err = launch_band_table(segq, segk, tq, B, P, st);
+  if (err != cudaSuccess) return (int)err;
+  if (tk != tq) {
+    err = launch_band_table(segk, segq, tk, B, P, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const Args args{(const int*)segq, (const float*)lse, (const float*)delta, B, P, H, causal, 0,
+                  (const int*)segk, bi_split, tq, tk};
+  return launch<BAND>(q, k, v, nullptr, nullptr, out, dout, dlse, dq, dk, dv, args, st);
 }

@@ -23,8 +23,8 @@
 //   flash_dq:  ds = p * (do v^T - delta) rounded to bf16, dq = ds rot(k)
 //   flash_dkv: dv = bf16(p)^T do,  dk = ds^T rot(q)
 // in fp32 sums, the inverse rotation applied to the fp32 dq and dk, each
-// rounded to bf16 once; the rotation keeps load_tile's roundings
-// (flash_common.cuh). The mask is the segment rule (seg_q[row] ==
+// rounded to bf16 once; the rotation keeps the plain rotate_tokens'
+// roundings. The mask is the segment rule (seg_q[row] ==
 // seg_k[col] > 0) with the bi-causal (or causal) rule of flash_common.cuh,
 // whose split may fall inside a 64-row tile. A padded row (segment 0) gives
 // dq = 0 and takes no part in dk and dv; its do is zeroed before any

@@ -6,8 +6,8 @@
 // :409 when P <= 2048). q (pre-scaled), k, v are token-major bf16
 // [B, P, H*64]; seg int32 [B, P] (0 = padding, equal ids = one packed
 // segment); optional cos/sin bf16 [B, P, 64] with the halves duplicated,
-// applied to q and k in bf16 with load_tile's three roundings
-// (flash_common.cuh); out bf16 [B, P, H*64]; lse fp32 [B, H, P]. The mask is
+// applied to q and k in bf16 with three roundings (the plain
+// rotate_tokens'); out bf16 [B, P, H*64]; lse fp32 [B, H, P]. The mask is
 // the segment rule plus causal, or, with bi_split > 0, the bi-causal rule of
 // the denoise model's energy decoding (visible_cols in flash_common.cuh; the
 // split may fall inside a 64-row tile). p = exp(S - m) with fp32 row sums,
@@ -83,7 +83,7 @@
 // launches on the same inputs give the same bits.
 
 #include "flash_sm90.cuh"  // wgmma64, desc_mn, ex2, bf16x2 RoPE, the visiting mask, encode3
-#include "tile_table.cuh"  // STREAM's tile tables and table_mask, BAND's band table
+#include "tile_table.cuh"  // STREAM's tile tables and table_mask, BAND's band table and mask
 
 namespace fwd_sm90 {
 namespace {
@@ -140,24 +140,6 @@ struct Args {
   const int2* tabk;
 };
 
-// BAND: the key tiles of the item at own0, bit vt - vt0 for vt in [vt0,
-// vt0 + 64): from the first tile of its two q tiles' bands to the last, the
-// top clipped to the columns its last row sees.
-__device__ __forceinline__ uint64_t band_mask(const int2* tab, int own0, int nt, int P,
-                                              int causal, int bi_split, int vt0) {
-  const int ot = own0 / 64;
-  const int2 a = tab[ot];
-  const int2 b = ot + 1 < nt ? tab[ot + 1] : make_int2(P, -1);
-  const int lo = min(a.x, b.x);  // a tile with no band holds (P, -1)
-  const int top = visible_cols(min(own0 + ROWS, P) - 1, causal, bi_split, P) - 1;
-  const int hi = min(max(a.y, b.y), top);
-  if (hi < lo) return 0;
-  const int kb = max(lo / 64, vt0) - vt0, ke = min(hi / 64 + 1, vt0 + 64) - vt0;
-  if (ke <= kb) return 0;
-  const uint64_t below = ke == 64 ? ~0ull : (1ull << ke) - 1;
-  return below & ~((1ull << kb) - 1);
-}
-
 template <int FORM>
 __global__ void __launch_bounds__(NTHREADS, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -194,7 +176,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
                         it.own0, nt, tri, false, lane, c);
     } else {
       return band_mask(args.tabq + (long long)it.b * nt, it.own0, nt, P, args.causal,
-                       args.bi_split, c);
+                       args.bi_split, false, c);
     }
   };
 

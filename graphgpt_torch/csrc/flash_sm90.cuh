@@ -1,14 +1,15 @@
-// The attention pieces for Hopper that the split backward #4, #5
-// (flash_bwd_split.cu), the forward #1 (flash_fwd.cu) and the fused backward
-// #3 (flash_bwd.cu) share, on top of sm90_common.cuh's primitives: the
+// The attention pieces for Hopper that the split backward #4, #5 and its
+// stream form #7, #8 (flash_bwd_split.cu), the forward #1 and its forms #6,
+// #9 (flash_fwd.cu) and the fused backward #3 and its band form #10
+// (flash_bwd.cu) share, on top of sm90_common.cuh's primitives: the
 // register-A wgmma m64n64k16, the MN-major descriptor, the pins that keep a
 // wgmma operand in its registers, 16-byte shared loads and stores, the
-// cp.async helpers, bf16x2 arithmetic and RoPE with load_tile's roundings,
-// the branch-free exponential, the visiting-tile mask, the 3D tensor-map
-// encoder and the error codes of the C entries; and, for the forward and
-// the fused backward only (the pair keeps its own), the item schedule, the
-// own rows' cos/sin loader and the rotation of an own A operand in
-// registers.
+// cp.async helpers, bf16x2 arithmetic and RoPE with the plain rotation's
+// roundings, the branch-free exponential, the visiting-tile mask, the 3D
+// tensor-map encoder and the error codes of the C entries; and, for the
+// forward and the fused backward only (the pair keeps its own), the item
+// schedule, the own rows' cos/sin loader and the rotation of an own A
+// operand in registers.
 #pragma once
 
 #include "flash_common.cuh"  // DH, tile_range, ranges_miss
@@ -97,7 +98,8 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 
 // bf16x2 products and sums, each rounded once to bf16: the product of two
 // bf16 is exact in fp32 and a sum of two bf16 rounds to the same bf16
-// either way, so these give load_tile's fp32 roundings bit for bit
+// either way, so these give the fp32 roundings of the plain
+// rotate_tokens (ops/flash_attention.py) bit for bit
 __device__ __forceinline__ uint32_t bmul(uint32_t a, uint32_t b) {
   uint32_t d;
   asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
@@ -111,7 +113,7 @@ __device__ __forceinline__ uint32_t badd(uint32_t a, uint32_t b) {
 
 // RoPE on bf16x2 pairs: x at column d < 32 and y at d + 32, with their cos
 // and sin: x' = bf16(bf16(x c_x) + bf16(-y s_x)), y' = bf16(bf16(y c_y) +
-// bf16(x s_y)), load_tile's roundings.
+// bf16(x s_y)), the plain rotate_tokens' roundings.
 __device__ __forceinline__ void rope2(uint32_t& x, uint32_t& y, uint32_t cx, uint32_t cy,
                                       uint32_t sx, uint32_t sy) {
   const uint32_t x0 = x;

@@ -10,17 +10,26 @@
 //
 // What bounds it on the H100: bytes. x and g are read and dx written once,
 // 3 x 100.7 MB at N = 65536, D = 768 (~0.09 ms of HBM time) against a few
-// operations an element.
+// operations an element. At the fine-tune and denoise N (18,432, 22,528)
+// that is 0.025-0.031 ms, so a fixed cost of a few microseconds shows.
 //
 // Design. The TPU kernel carries its dw sum in scratch across a sequential
-// grid; blocks here run in any order, so each block sums the dw of the rows
-// it meets and writes one row of a [blocks, D] fp32 scratch, and a second
+// grid; blocks here run in any order, so each CTA sums the dw of the rows
+// it meets and writes one row of a [CTAs, D] fp32 scratch, and a second
 // small kernel adds the scratch up column by column. That keeps dw the same
-// from run to run (no atomics). A warp owns a row at a time: a lane keeps
-// its D/32 elements of x and g in registers (16-byte loads, neighbouring
-// lanes on neighbouring addresses), the two row sums go through warp
-// shuffles, and x, g are read exactly once. The block's warps add their dw
-// sums in shared memory in warp order.
+// from launch to launch (no atomics).
+//  - The row pass is persistent: at most two CTAs of 8 warps an SM (the
+//    grid comes from the caller, from the SM count), rows grid-strided over
+//    the warps. A warp owns a row at a time: a lane holds its 16-byte chunks
+//    of x and g (neighbouring lanes on neighbouring addresses) as bf16, and
+//    issues the loads of its next row before the shuffle sums of this one,
+//    so that two rows a warp are in flight (one above D 1280, for want of
+//    registers). w sits in shared memory; dw in registers, per lane, until
+//    the end, where the CTA's warps add theirs by a fixed tree in shared
+//    memory and warp 0 writes the CTA's row.
+//  - The sum of the <= 2 x 132 rows runs spread over the card: 8 warps a
+//    block of 32 columns, each warp a slice of the rows in index order, then
+//    the 8 slices in warp order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -31,6 +40,7 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 constexpr int WARPS = 8;
+constexpr int RMS_MAIN = 1, RMS_REDUCE = 2;  // the stage mask's bits
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -38,141 +48,228 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float lo_f(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float hi_f(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
+
+// element e (0..7) of a 16-byte chunk of bf16
+__device__ __forceinline__ float elem(const uint4& c, int e) {
+  const uint32_t w = e < 2 ? c.x : e < 4 ? c.y : e < 6 ? c.z : c.w;
+  return (e & 1) ? hi_f(w) : lo_f(w);
+}
+
+// The chunks of x and g of one row that a lane holds (zeros past D).
 template <int NC>
-__global__ void __launch_bounds__(WARPS * 32)
-rmsnorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                   const float* __restrict__ w, bf16* __restrict__ dx,
-                   float* __restrict__ partial, int N, int D, float eps) {
-  extern __shared__ float dw_block[];  // [D]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+struct RowChunks {
+  uint4 x[NC], g[NC];
+};
+
+template <int NC>
+__device__ __forceinline__ void load_row(RowChunks<NC>& r, const bf16* x, const bf16* g,
+                                         long long row, int D, int lane) {
   const int nchunks = D / 8;
-  float wv[NC][8], dw[NC][8];
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
     const int c = lane + 32 * i;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      wv[i][e] = c < nchunks ? w[c * 8 + e] : 0.f;
-      dw[i][e] = 0.f;
+    r.x[i] = r.g[i] = make_uint4(0, 0, 0, 0);
+    if (c < nchunks) {
+      r.x[i] = *reinterpret_cast<const uint4*>(x + row * D + c * 8);
+      r.g[i] = *reinterpret_cast<const uint4*>(g + row * D + c * 8);
     }
   }
+}
+
+// Two CTAs an SM up to 3 chunks a lane (D <= 768), one above. A lane
+// holds two rows' chunks, their fp32 values and dw: ~40 NC registers, so
+// above 5 chunks (D > 1280) a warp keeps one row in flight, not two.
+template <int NC>
+__global__ void __launch_bounds__(WARPS * 32, NC <= 3 ? 2 : 1)
+rmsnorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                   const float* __restrict__ w, bf16* __restrict__ dx,
+                   float* __restrict__ partial, int N, int D, float eps) {
+  extern __shared__ float smem[];  // w [D], then the tree's WARPS / 2 rows of D
+  float* w_s = smem;
+  float* tree = smem + D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nchunks = D / 8;
+  for (int d = threadIdx.x; d < D; d += WARPS * 32) w_s[d] = w[d];
+  __syncthreads();
+  float dw[NC][8];
+#pragma unroll
+  for (int i = 0; i < NC; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dw[i][e] = 0.f;
   const float inv_d = 1.f / (float)D;
-  for (long long row = (long long)blockIdx.x * WARPS + warp; row < N;
-       row += (long long)gridDim.x * WARPS) {
-    float xv[NC][8], gv[NC][8];
+  const long long stride = (long long)gridDim.x * WARPS;
+  long long row = (long long)blockIdx.x * WARPS + warp;
+  constexpr bool AHEAD = NC <= 5;
+  RowChunks<NC> cur, nxt;
+  if (AHEAD && row < N) load_row(cur, x, g, row, D, lane);
+  for (; row < N; row += stride) {
+    // AHEAD: the next row's loads go out before this row's sums
+    if (!AHEAD) load_row(cur, x, g, row, D, lane);
+    else if (row + stride < N) load_row(nxt, x, g, row + stride, D, lane);
     float ss = 0.f;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int c = lane + 32 * i;
-      uint4 xr = make_uint4(0, 0, 0, 0), gr = make_uint4(0, 0, 0, 0);
-      if (c < nchunks) {
-        xr = *reinterpret_cast<const uint4*>(x + row * D + c * 8);
-        gr = *reinterpret_cast<const uint4*>(g + row * D + c * 8);
-      }
-      const bf16* xb = reinterpret_cast<const bf16*>(&xr);
-      const bf16* gb = reinterpret_cast<const bf16*>(&gr);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        xv[i][e] = __bfloat162float(xb[e]);
-        gv[i][e] = __bfloat162float(gb[e]);
-        ss += xv[i][e] * xv[i][e];
-      }
-    }
-    const float rrms = rsqrtf(warp_sum(ss) * inv_d + eps);
-    float dot = 0.f;
 #pragma unroll
     for (int i = 0; i < NC; ++i)
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        xv[i][e] *= rrms;  // n
-        dw[i][e] += gv[i][e] * xv[i][e];
-        gv[i][e] *= wv[i][e];  // dn
-        dot += gv[i][e] * xv[i][e];
+        const float xv = elem(cur.x[i], e);
+        ss += xv * xv;
       }
+    const float rrms = rsqrtf(warp_sum(ss) * inv_d + eps);
+    float dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = min(lane + 32 * i, nchunks - 1);  // w of a chunk past D: any, g is 0
+      const float4 wa = *reinterpret_cast<const float4*>(w_s + c * 8);
+      const float4 wb = *reinterpret_cast<const float4*>(w_s + c * 8 + 4);
+      const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float n = elem(cur.x[i], e) * rrms, gv = elem(cur.g[i], e);
+        dw[i][e] += gv * n;
+        dot += gv * wv[e] * n;
+      }
+    }
     const float m = warp_sum(dot) * inv_d;
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       const int c = lane + 32 * i;
       if (c < nchunks) {
+        const float4 wa = *reinterpret_cast<const float4*>(w_s + c * 8);
+        const float4 wb = *reinterpret_cast<const float4*>(w_s + c * 8 + 4);
+        const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
         uint4 pack;
         bf16* y = reinterpret_cast<bf16*>(&pack);
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          y[e] = __float2bfloat16(rrms * (gv[i][e] - xv[i][e] * m));
+        for (int e = 0; e < 8; ++e) {
+          const float n = elem(cur.x[i], e) * rrms, dn = elem(cur.g[i], e) * wv[e];
+          y[e] = __float2bfloat16(rrms * (dn - n * m));
+        }
         *reinterpret_cast<uint4*>(dx + row * D + c * 8) = pack;
       }
     }
+    if (AHEAD) cur = nxt;
   }
-  // the block's dw: the warps add theirs in warp order
-  for (int turn = 0; turn < WARPS; ++turn) {
-    if (warp == turn) {
+  // the CTA's dw: warps [h, 2h) hand theirs to warps [0, h), h = 4, 2, 1
+#pragma unroll
+  for (int h = WARPS / 2; h > 0; h >>= 1) {
+    if (warp >= h && warp < 2 * h) {
 #pragma unroll
       for (int i = 0; i < NC; ++i) {
         const int c = lane + 32 * i;
         if (c < nchunks) {
+          float* t = tree + (warp - h) * D + c * 8;
+          *reinterpret_cast<float4*>(t) = make_float4(dw[i][0], dw[i][1], dw[i][2], dw[i][3]);
+          *reinterpret_cast<float4*>(t + 4) =
+              make_float4(dw[i][4], dw[i][5], dw[i][6], dw[i][7]);
+        }
+      }
+    }
+    __syncthreads();
+    if (warp < h) {
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            if (turn == 0) dw_block[c * 8 + e] = dw[i][e];
-            else dw_block[c * 8 + e] += dw[i][e];
-          }
+      for (int i = 0; i < NC; ++i) {
+        const int c = lane + 32 * i;
+        if (c < nchunks) {
+          const float* t = tree + warp * D + c * 8;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) dw[i][e] += t[e];
         }
       }
     }
     __syncthreads();
   }
-  for (int d = threadIdx.x; d < D; d += WARPS * 32)
-    partial[(long long)blockIdx.x * D + d] = dw_block[d];
+  if (warp == 0) {
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane + 32 * i;
+      if (c < nchunks) {
+        float* out = partial + (long long)blockIdx.x * D + c * 8;
+        *reinterpret_cast<float4*>(out) = make_float4(dw[i][0], dw[i][1], dw[i][2], dw[i][3]);
+        *reinterpret_cast<float4*>(out + 4) = make_float4(dw[i][4], dw[i][5], dw[i][6], dw[i][7]);
+      }
+    }
+  }
 }
 
-// dw[d] = sum over the blocks' rows of the scratch, in row order.
-__global__ void rmsnorm_bwd_reduce_kernel(const float* __restrict__ partial,
-                                          float* __restrict__ dw, int blocks, int D) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= D) return;
+// dw[d] = sum over the scratch's `blocks` rows: a block of 8 warps takes 32
+// columns, warp k the rows [k blocks / 8, (k + 1) blocks / 8) in index
+// order, then warp 0 adds the 8 slices in warp order.
+__global__ void __launch_bounds__(WARPS * 32)
+rmsnorm_bwd_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dw, int blocks,
+                          int D) {
+  __shared__ float part[WARPS][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int d = blockIdx.x * 32 + lane;
+  const int b0 = warp * blocks / WARPS, b1 = (warp + 1) * blocks / WARPS;
   float acc = 0.f;
-  for (int b = 0; b < blocks; ++b) acc += partial[(long long)b * D + d];
-  dw[d] = acc;
+  if (d < D) {
+#pragma unroll 8
+    for (int b = b0; b < b1; ++b) acc += partial[(long long)b * D + d];
+  }
+  part[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && d < D) {
+    float sum = part[0][lane];
+#pragma unroll
+    for (int k = 1; k < WARPS; ++k) sum += part[k][lane];
+    dw[d] = sum;
+  }
 }
 
 template <int NC>
 cudaError_t launch(const bf16* x, const bf16* g, const float* w, bf16* dx,
                    float* partial, int N, int D, float eps, int blocks,
                    cudaStream_t st) {
-  rmsnorm_bwd_kernel<NC><<<blocks, WARPS * 32, D * sizeof(float), st>>>(
-      x, g, w, dx, partial, N, D, eps);
+  const size_t smem = (size_t)D * (1 + WARPS / 2) * sizeof(float);
+  rmsnorm_bwd_kernel<NC><<<blocks, WARPS * 32, smem, st>>>(x, g, w, dx, partial, N, D, eps);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry for ctypes: both kernels on `stream`; returns the first CUDA error
-// (0 when both launches were accepted). `partial` is fp32 scratch
-// [blocks, D] from the caller; D % 8 == 0 and ceil(D / 256) one of the
-// chunk counts below.
-extern "C" int ggt_rmsnorm_bwd(const void* x, const void* g, const void* w, void* dx,
-                               void* dw, void* partial, int N, int D, float eps,
-                               int blocks, void* stream) {
+// C entry for ctypes: the stages of `stages` (1 the row pass, 2 the sum of
+// its scratch; 3 both, the call) on `stream`; returns the first CUDA error
+// (0 when the launches were accepted). `partial` is fp32 scratch
+// [blocks, D] from the caller, `blocks` the row pass's grid; D % 8 == 0 and
+// ceil(D / 256) one of the chunk counts below.
+extern "C" int ggt_rmsnorm_bwd_stages(const void* x, const void* g, const void* w, void* dx,
+                                      void* dw, void* partial, int N, int D, float eps,
+                                      int blocks, int stages, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int nc = (D / 8 + 31) / 32;
-  if (D % 8 != 0 || nc < 1) return (int)cudaErrorInvalidValue;
+  if (D % 8 != 0 || nc < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
   const bf16* xp = (const bf16*)x;
   const bf16* gp = (const bf16*)g;
   const float* wp = (const float*)w;
   bf16* dxp = (bf16*)dx;
   float* pp = (float*)partial;
-  cudaError_t err;
-  // one instantiation for each hidden size the port's configs name
-  // (128 to 1600: 1, 2, 3, 4, 5 and 7 chunks a lane)
-  switch (nc) {
-    case 1: err = launch<1>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
-    case 2: err = launch<2>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
-    case 3: err = launch<3>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
-    case 4: err = launch<4>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
-    case 5: err = launch<5>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
-    case 7: err = launch<7>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (stages & RMS_MAIN) {
+    cudaError_t err;
+    // one instantiation for each hidden size the port's configs name
+    // (128 to 1600: 1, 2, 3, 4, 5 and 7 chunks a lane)
+    switch (nc) {
+      case 1: err = launch<1>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
+      case 2: err = launch<2>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
+      case 3: err = launch<3>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
+      case 4: err = launch<4>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
+      case 5: err = launch<5>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
+      case 7: err = launch<7>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+    if (err != cudaSuccess) return (int)err;
   }
-  if (err != cudaSuccess) return (int)err;
-  rmsnorm_bwd_reduce_kernel<<<(D + 255) / 256, 256, 0, st>>>(pp, (float*)dw, blocks, D);
+  if (stages & RMS_REDUCE) {
+    rmsnorm_bwd_reduce_kernel<<<(D + 31) / 32, WARPS * 32, 0, st>>>(pp, (float*)dw, blocks, D);
+  }
   return (int)cudaGetLastError();
+}
+
+// The call: both stages.
+extern "C" int ggt_rmsnorm_bwd(const void* x, const void* g, const void* w, void* dx,
+                               void* dw, void* partial, int N, int D, float eps,
+                               int blocks, void* stream) {
+  return ggt_rmsnorm_bwd_stages(x, g, w, dx, dw, partial, N, D, eps, blocks,
+                                RMS_MAIN | RMS_REDUCE, stream);
 }

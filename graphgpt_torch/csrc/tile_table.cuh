@@ -6,12 +6,14 @@
 //    form) and #7, #8 (flash_bwd_split.cu's): tab[b, t] = (min positive
 //    id, max id) of seg[b, 64t : 64t + 64), and table_mask, the visiting
 //    tiles of an item read from them;
-//  - the band table of the band kernels, #9 (flash_fwd.cu's band form) and
-//    #10 (flash_band.cu): for each query tile the first and last key
-//    positions whose id lies in the tile's id range.
+//  - the band tables of the band kernels, #9 (flash_fwd.cu's band form) and
+//    #10 (flash_bwd.cu's): for each query tile the first and last key
+//    positions whose id lies in the tile's id range (and for #10 the same
+//    of each key tile over the queries), and band_mask, the tiles an item
+//    of either walks.
 #pragma once
 
-#include "flash_common.cuh"  // tile_range, ranges_miss
+#include "flash_common.cuh"  // tile_range, ranges_miss, visible_cols, first_row
 
 namespace {
 
@@ -122,6 +124,29 @@ inline cudaError_t launch_band_table(const void* sego, const void* segv, int2* t
   band_table_kernel<<<(unsigned)((tiles + wpb - 1) / wpb), wpb * 32, 0, st>>>(
       (const int*)sego, (const int*)segv, tab, P, nt, tiles);
   return cudaGetLastError();
+}
+
+// The band form's visiting tiles of the item whose own 128 rows (two
+// tiles) start at own0, bit vt - vt0 for vt in [vt0, vt0 + 64), from one
+// batch row's band table of the own tiles `tab`: from the first tile of
+// the two own tiles' bands to the last, clipped to the rows' causal or
+// bi-causal range. Own queries (the forward, #10's query role): the top
+// clipped to the columns the last row sees. Own keys (dkv, #10's key
+// role): the bottom clipped to the first row that sees the first key.
+__device__ __forceinline__ uint64_t band_mask(const int2* tab, int own0, int nt, int P,
+                                              int causal, int bi_split, bool dkv, int vt0) {
+  const int ot = own0 / 64;
+  const int2 a = tab[ot];
+  const int2 b = ot + 1 < nt ? tab[ot + 1] : make_int2(P, -1);
+  int lo = min(a.x, b.x);  // a tile with no band holds (P, -1)
+  int hi = max(a.y, b.y);
+  if (dkv) lo = max(lo, first_row(own0, causal, bi_split, P));
+  else hi = min(hi, visible_cols(min(own0 + 128, P) - 1, causal, bi_split, P) - 1);
+  if (hi < lo) return 0;
+  const int kb = max(lo / 64, vt0) - vt0, ke = min(hi / 64 + 1, vt0 + 64) - vt0;
+  if (ke <= kb) return 0;
+  const uint64_t below = ke == 64 ? ~0ull : (1ull << ke) - 1;
+  return below & ~((1ull << kb) - 1);
 }
 
 }  // namespace

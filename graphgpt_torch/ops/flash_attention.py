@@ -8,15 +8,15 @@ Counterpart of `graphgpt_tpu/ops/flash_attention.py` (`_prep` :1205,
 :789, and the streamed `_fwd_kernel_stream` :177, `_dq_kernel_stream` :645,
 `_dkv_kernel_stream` :835. The kernels live in `csrc/flash_fwd.cu` (the
 forward, and in its stream form the streamed forward, with separate query
-and key segment ids), `csrc/flash_bwd.cu` (fused backward) and
-`csrc/flash_bwd_split.cu` (the split pair flash_dq and flash_dkv, and in
-its stream form the streamed pair). The dispatch is
-the JAX package's: up to P = 2048 the single-block forward and the fused
-backward, or the split pair when a bi-causal split is set; above it the
-streamed forward and the streamed pair, whatever the split. Conventions
-kept from the JAX package: q, k, v are token-major `[B, P, H*Dh]` at the
-kernel boundary; GQA is expanded and the softmax scale folded into q (in
-q's dtype) before the kernel; RoPE cos/sin `[B, P, Dh]` are cast to q's
+and key segment ids), `csrc/flash_bwd.cu` (fused backward, and in its band
+form the band backward) and `csrc/flash_bwd_split.cu` (the split pair
+flash_dq and flash_dkv, and in its stream form the streamed pair). The
+dispatch is the JAX package's: up to P = 2048 the single-block forward
+and the fused backward, or the split pair when a bi-causal split is set;
+above it the streamed forward and the streamed pair, whatever the split.
+Conventions kept from the JAX package: q, k, v are token-major
+`[B, P, H*Dh]` at the kernel boundary; GQA is expanded and the softmax
+scale folded into q (in q's dtype) before the kernel; RoPE cos/sin `[B, P, Dh]` are cast to q's
 dtype and applied in-kernel; lse is `[B, H, P]` fp32; padded rows (segment
 0) give out = 0 and lse = -1e30. The autograd Function saves the
 un-rotated (qs, k, v) with (out, lse); the backward rotates again
@@ -33,9 +33,9 @@ The kernel mode, `GGT_FLASH_MODE` read once at import into `_MODE` (tests
 set the attribute, as the JAX package's do), routes as `_flash_fwd` :418
 and `_flash_bwd` :911 do. `legacy` (the default): the dispatch above.
 `band`: up to `_MAX_BAND` = 4096 the band kernels #9 flash_fwd_band and
-#10 flash_bwd_band (`_fwd_kernel_band` :282 in the band form of
-`csrc/flash_fwd.cu`, `_bwd_kernel_band` :484 in `csrc/flash_band.cu`),
-whatever the split, the streamed ones above it.
+#10 flash_bwd_band (`_fwd_kernel_band` :282 and `_bwd_kernel_band` :484 in
+the band forms of `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`), whatever
+the split, the streamed ones above it.
 `skip`: the streamed kernels at every P. Under `band` and `skip`
 flash_attention rotates q and k outside the kernels (:1249-1255), with
 `models/rope.apply_rope`, and autograd carries the rotation's gradient.
@@ -144,7 +144,8 @@ def _valid_mask(seg: torch.Tensor, causal: bool, bi_causal_split: int = 0,
 
 def rotate_tokens(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, dh: int):
     """RoPE on a token-major [B, P, H*Dh] tensor in its own dtype, each
-    product and the sum rounded (the kernel's `load_tile`)."""
+    product and the sum rounded, as the kernels' bf16x2 rotation rounds them
+    (`csrc/flash_sm90.cuh` `rope2`)."""
     b, p, hd = x.shape
     x4 = x.view(b, p, hd // dh, dh)
     c = cos.to(x.dtype)[:, :, None, :]
@@ -751,8 +752,8 @@ def flash_bwd_band(qs, k, v, seg_q, seg_k, out, lse, do, dlse, causal: bool, dh:
     """(dq, dk, dv) of the band backward (#10), q and k rotated, delta =
     rowsum(do * out) - dlse computed outside its main kernel as the JAX
     package does (:933-940): the CUDA kernels (both band tables, the delta
-    kernel, then dq, dk, dv; counted as one call) for a CUDA tensor,
-    flash_delta and the plain version for a CPU tensor (or inside
+    kernel, then dq, dk, dv; counted as one call; P <= 4096) for a CUDA
+    tensor, flash_delta and the plain version for a CPU tensor (or inside
     ops.reference_mode()). dlse None means zeros. `aux`, when given,
     receives "delta" [B, H, P] and the key tiles' band table "table_k"."""
     if not use_kernel(qs, k, v, seg_q, seg_k, out, lse, do):
@@ -770,7 +771,7 @@ def flash_bwd_band(qs, k, v, seg_q, seg_k, out, lse, do, dlse, causal: bool, dh:
     dq, dk, dv = torch.empty_like(qs), torch.empty_like(qs), torch.empty_like(qs)
     delta = torch.empty_like(lse)
     tab = _tile_scratch(seg_q)
-    fn = _build.entry("flash_band", "ggt_flash_bwd_band", _BWD_BAND_ARGTYPES)
+    fn = _build.entry("flash_bwd", "ggt_flash_bwd_band", _BWD_BAND_ARGTYPES)
     err = fn(
         _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
         _build.ptr(out), _build.ptr(lse), _build.ptr(do), _opt_ptr(dlse), _build.ptr(delta),

@@ -48,7 +48,10 @@ _QKV_BLOCK_NS = (256, 128, 64)  # the kernel's output tile widths
 _RMS_ARGTYPES = (
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
-_RMS_MAX_BLOCKS = 1056  # 8 blocks of 8 warps for each of the H100's 132 SMs
+# the stage entry (ggt_rmsnorm_bwd_stages): a stage mask before the stream
+_RMS_STAGE_ARGTYPES = _RMS_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
+RMS_MAIN, RMS_REDUCE = 1, 2  # the stage mask's bits: the row pass, the sum of its scratch
+_RMS_WARPS = 8  # warps of a CTA of the row pass, a row each at a time
 # 16-byte chunks a lane holds, ceil(D / 256): the kernel is built for the
 # hidden sizes of config._MODEL_SIZES (128 to 1600)
 _RMS_CHUNKS = (1, 2, 3, 4, 5, 7)
@@ -146,6 +149,14 @@ def mlp_tiles(n: int, d: int, f: int, sms: int):
 
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def rms_blocks(n: int, d: int, sms: int) -> int:
+    """The grid of rmsnorm_bwd's row pass, and the rows of its dw scratch:
+    one CTA for each 8 rows, at most two an SM (one above 3 chunks a lane,
+    D > 768, where a CTA's registers fill the SM)."""
+    per_sm = 2 if -(-d // 256) <= 3 else 1
+    return max(1, min(-(-n // _RMS_WARPS), per_sm * sms))
 
 
 def mlp(x, wg, wu, wd, act: str):
@@ -450,9 +461,9 @@ def rmsnorm_bwd_ref(x, g, w, eps: float):
 
 
 def rmsnorm_bwd(x, g, w, eps: float):
-    """(dx, dw) for x, g [N, D] and w [D]: the CUDA kernel (the row pass and
-    the small reduction of its per-block dw sums, counted as one call) for a
-    CUDA tensor, the plain version for a CPU tensor (or inside
+    """(dx, dw) for x, g [N, D] and w [D]: the CUDA kernel (the persistent
+    row pass and the small sum of its per-CTA dw rows, counted as one call)
+    for a CUDA tensor, the plain version for a CPU tensor (or inside
     ops.reference_mode())."""
     if not use_kernel(x, g, w):
         return rmsnorm_bwd_ref(x, g, w, eps)
@@ -469,7 +480,7 @@ def rmsnorm_bwd(x, g, w, eps: float):
     w = w.float().contiguous()
     if x.data_ptr() % 16 or g.data_ptr() % 16:
         raise ValueError("rmsnorm_bwd needs 16-byte aligned x and g")
-    blocks = max(1, min((n + 7) // 8, _RMS_MAX_BLOCKS))
+    blocks = rms_blocks(n, d, _sm_count(x.device))
     dx = torch.empty_like(x)
     dw = torch.empty((d,), dtype=torch.float32, device=x.device)
     partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)

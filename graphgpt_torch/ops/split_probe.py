@@ -3,17 +3,20 @@ flash_dq and #5 flash_dkv (`csrc/flash_bwd_split.cu`, the default), the
 same body's stream form #7 flash_dq_stream and #8 flash_dkv_stream
 (`--kernel stream`), the forward #1 and its stream and band forms #6
 flash_fwd_stream and #9 flash_fwd_band (`--kernel fwd`,
-`csrc/flash_fwd.cu`), the fused backward #3 (`--kernel bwd`,
-`csrc/flash_bwd.cu`) and the gated
+`csrc/flash_fwd.cu`), the fused backward #3 and its band form #10
+flash_bwd_band (`--kernel bwd`, `csrc/flash_bwd.cu`), the gated
 MLPs #11 and #2 (`--kernel mlp`, `--kernel norm_mlp`: `csrc/mlp.cu`,
-`csrc/norm_mlp.cu` with `csrc/mlp_common.cuh`), timed on the card whole
+`csrc/norm_mlp.cu` with `csrc/mlp_common.cuh`) and the RMSNorm backward #13
+(`--kernel rmsnorm_bwd`, `csrc/rmsnorm_bwd.cu`), timed on the card whole
 and with one phase of their body left out at a time, at their paths'
 shapes: the denoise batch (B 256 x P 88, 16 bit slots, a molecule and a
 padded stretch a row), the fine-tune batch (B 256 x P 72, a molecule a
 row), B 8 and B 64 x P 1024 and the long-context batch B 16 x P 4096
-(packed rows, the key ids the query ids; the band form takes the same q
-and k, unrotated, and no cos, sin); the MLPs at N 8,192 and 65,536 rows
-(D 768, F 3,072, gelu), whole and each stage alone.
+(packed rows, the key ids the query ids; the band forms take the same q
+and k, unrotated, and no cos, sin; bwd's band form at B 8 and 64 x P 1024
+and B 16 x P 4096); the MLPs at N 8,192 and 65,536 rows (D 768, F 3,072,
+gelu), whole and each stage alone; #13 at N 18,432, 22,528 and 65,536
+(D 768), its row pass and its sum of the per-CTA dw rows alone.
 
 A variant leaves a phase out by a text substitution in the source and is
 built beside the package's own builds. Its outputs are wrong by design;
@@ -26,8 +29,8 @@ the time it saves is that phase's share:
   noexp    the exponential (and, split and bwd, the mask) of the
            elementwise section
   nomask   the mask of the forward's online softmax (fwd)
-  nocons   the consumers' products and softmax (fwd: what is left is the
-           loads, the in-place pass, the barriers and the epilogue)
+  nocons   the consumers' products and softmax (fwd, bwd: what is left is
+           the loads, the in-place pass, the barriers and the epilogue)
   nodelta  the delta launch before the main kernel (bwd)
   dqonly   the query role alone (bwd: no dk, dv)
   dkvonly  the key role alone (bwd: no dq)
@@ -39,8 +42,11 @@ the time it saves is that phase's share:
   redux    fwd's stream form: the masks and the key tiles' ranges from the
            ids by redux.sync (the single form's way) instead of the tile
            tables (outputs right, the key ids being the query ids)
-  stages2  a ring of 2 stages instead of 3 (fwd: of 4) (outputs right)
+  stages2  a ring of 2 stages instead of 3 (fwd: of 4; bwd: both forms, the
+           band form's of 8) (outputs right)
   stages3  a ring of 3 stages instead of 4 (fwd; outputs right)
+  stages4  bwd's band form: a ring of 4 stages instead of 8 (outputs right)
+  stages6  bwd's band form: a ring of 6 stages instead of 8 (outputs right)
   all      rope0, noepi, noexp and noglob, nomask or nodelta together
 
 and for the MLPs (the header's text is put in place of its include, then
@@ -57,20 +63,27 @@ substituted):
   wnglobal wn read from global memory, not shared: four gate/up stages, not
            three (norm_mlp; the same bits)
 
+and for the RMSNorm backward (a launch left out; the outputs of "main" lack
+dw, those of "reduce" are stale):
+
+  main     the row pass alone (the sum of the scratch left out)
+  reduce   the sum of the scratch alone (the row pass left out)
+
     python3 -m graphgpt_torch.ops.split_probe
-        [--kernel split|stream|fwd|bwd|mlp|norm_mlp] [--source FILE]
-        [--variants base,noexp]
+        [--kernel split|stream|fwd|bwd|mlp|norm_mlp|rmsnorm_bwd]
+        [--source FILE] [--variants base,noexp]
 
 --source probes another body of the file (one unpacked from an earlier
 commit, say, with the headers beside it, which it is built against before
 the package's own); a substitution that does not match it raises; fwd
-times the forms that its source has. Needs a CUDA card and nvcc. Prints
-the card, then one line a shape and variant (fwd: a line a form): the
-medians of five CUDA-event readings of 30 launches each, every variant of
-a shape in one turn, then again in the reverse order; the split and stream
-lines end with a digest of dq, delta, dk and dv, the fwd lines with one of
-out and lse, so that two bodies that should give the same bits (one
---source against another) show it.
+and bwd time the forms that its source has. Needs a CUDA card and nvcc.
+Prints the card, then one line a shape and variant (fwd, bwd: a line a
+form): the medians of five CUDA-event readings of 30 launches each, every
+variant of a shape in one turn, then again in the reverse order; the split,
+stream and bwd lines end with a digest of dq, delta, dk and dv, the fwd
+lines with one of out and lse, the rmsnorm_bwd lines with one of dx and dw,
+so that two bodies that should give the same bits (one --source against
+another) show it.
 """
 
 from __future__ import annotations
@@ -106,6 +119,11 @@ _NOEPI = [("      tma_store_3d(&st1, box0, it.h * DH, wrow0, it.b);", "      (vo
 _NOEXP = [("const float pe = ex2(ok ? fmaf(sc[4 * j + e], LOG2E, -l2e) : -INFINITY);",
            "const float pe = sc[4 * j + e];")]
 _STAGES2 = [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")]
+_BWD_STAGES = {n: [("constexpr int STAGES_BAND = 8;", f"constexpr int STAGES_BAND = {n};")]
+               for n in (2, 4, 6)}
+_BWD_STAGES[2].append(("constexpr int STAGES_SINGLE = 3;", "constexpr int STAGES_SINGLE = 2;"))
+_BWD_NOCONS = [("    if (!skip) {\n      float sc[32], dp[32];",
+                "    if (false) {\n      float sc[32], dp[32];")]
 _FWD_STAGES = {n: [("constexpr int STAGES = 4;", f"constexpr int STAGES = {n};")] for n in (2, 3)}
 _FWD_NOEPI = [("      tma_store_3d(&tout, box0, it.h * DH, wrow0, it.b);", "      (void)0;")]
 _FWD_NOEXP = [("pv[e] = ex2(fmaf(sc[4 * j + e], LOG2E, -(e < 2 ? ml0 : ml1)));",
@@ -141,10 +159,16 @@ _BWD_NODELTA = [("  delta_kernel<<<", "  if (false) delta_kernel<<<")]
 
 
 def _drop(role):
-    """The three calls of one role of the fused backward, left out."""
-    return [(f"        produce<{role}>(", f"        if (false) produce<{role}>("),
-            (f"        pass_role<{role}>(", f"        if (false) pass_role<{role}>("),
-            (f"    consume<{role}>(", f"    if (false) consume<{role}>(")]
+    """The three calls of one role of the fused backward (both forms), left
+    out."""
+    return [(f"        produce<FORM, {role}>(", f"        if (false) produce<FORM, {role}>("),
+            (f"        pass_role<FORM, {role}>(", f"        if (false) pass_role<FORM, {role}>("),
+            (f"    consume<FORM, {role}>(", f"    if (false) consume<FORM, {role}>(")]
+
+
+# the RMSNorm backward's two launches, one left out
+_RMS_MAIN = [("rmsnorm_bwd_reduce_kernel<<<", "if (false) rmsnorm_bwd_reduce_kernel<<<")]
+_RMS_REDUCE = [("rmsnorm_bwd_kernel<NC><<<", "if (false) rmsnorm_bwd_kernel<NC><<<")]
 
 
 _MLP_NOCONS = [("wgmma_ss<N>(acc, da + 2 * kk, db + 2 * kk, kc + kk > 0);", "(void)0;"),
@@ -194,15 +218,17 @@ KERNELS = {
         "all": _ROPE0_SM90 + _FWD_NOEPI + _FWD_NOEXP + _FWD_NOMASK}),
     "bwd": ("flash_bwd.cu", {
         "base": [], "rope0": _ROPE0_SM90, "noepi": _BWD_NOEPI, "noexp": _NOEXP,
-        "nodelta": _BWD_NODELTA, "dqonly": _drop("true"), "dkvonly": _drop("false"),
-        "shfl": _BWD_SHFL,
-        "stages2": _STAGES2, "all": _ROPE0_SM90 + _BWD_NOEPI + _NOEXP + _BWD_NODELTA}),
+        "nocons": _BWD_NOCONS, "nodelta": _BWD_NODELTA, "dqonly": _drop("true"),
+        "dkvonly": _drop("false"), "shfl": _BWD_SHFL, "stages2": _BWD_STAGES[2],
+        "stages4": _BWD_STAGES[4], "stages6": _BWD_STAGES[6],
+        "all": _ROPE0_SM90 + _BWD_NOEPI + _NOEXP + _BWD_NODELTA}),
     "mlp": ("mlp.cu", {"base": [], "nocons": _MLP_NOCONS, "noact": _MLP_NOACT,
                        "bf16x2": _MLP_BF16X2}),
     "norm_mlp": ("norm_mlp.cu", {
         "base": [], "nocons": _MLP_NOCONS, "nonorm": _MLP_NONORM, "noact": _MLP_NOACT,
         "nores": _MLP_NORES, "nopre": _MLP_NOPRE, "bf16x2": _MLP_BF16X2,
         "wnglobal": _MLP_WNGLOBAL}),
+    "rmsnorm_bwd": ("rmsnorm_bwd.cu", {"base": [], "main": _RMS_MAIN, "reduce": _RMS_REDUCE}),
 }
 # the header a kernel's source includes, put in place before the substitutions
 INLINE = {"mlp": "mlp_common.cuh", "norm_mlp": "mlp_common.cuh"}
@@ -217,8 +243,14 @@ SHAPES = {
             "B8 P1024": (8, 1024, 12, 0, "packed"), "B64 P1024": (64, 1024, 12, 0, "packed"),
             "B16 P4096": (16, 4096, 12, 0, "packed")},
     "bwd": {"finetune B256 P72": (256, 72, 12, 0, "molecule"),
-            "B8 P1024": (8, 1024, 12, 0, "packed"), "B64 P1024": (64, 1024, 12, 0, "packed")},
+            "B8 P1024": (8, 1024, 12, 0, "packed"), "B64 P1024": (64, 1024, 12, 0, "packed"),
+            "B16 P4096": (16, 4096, 12, 0, "packed")},
 }
+# bwd's forms: their C entries, argument types and the shapes they are timed at
+BWD_FORMS = {"flash_bwd": ("ggt_flash_bwd", fa._BWD_ARGTYPES, fa.MAX_P),
+             "flash_bwd_band": ("ggt_flash_bwd_band", fa._BWD_BAND_ARGTYPES, None)}
+BWD_BAND_SHAPES = ("B8 P1024", "B64 P1024", "B16 P4096")
+RMS_SHAPES = {"N18432": 18432, "N22528": 22528, "N65536": 65536}  # D 768
 # fwd's forms: their C entries and argument types
 FWD_FORMS = {"flash_fwd": ("ggt_flash_fwd", fa._ARGTYPES),
              "flash_fwd_stream": ("ggt_flash_fwd_stream", fa._FWD_STREAM_ARGTYPES),
@@ -269,7 +301,11 @@ def build(kernel: str, source: str, names, include: Path) -> dict:
                 if hasattr(libs[name], entry):
                     getattr(libs[name], entry).argtypes = argtypes
         elif kernel == "bwd":
-            libs[name].ggt_flash_bwd.argtypes = fa._BWD_ARGTYPES
+            for entry, argtypes, _ in BWD_FORMS.values():
+                if hasattr(libs[name], entry):
+                    getattr(libs[name], entry).argtypes = argtypes
+        elif kernel == "rmsnorm_bwd":
+            libs[name].ggt_rmsnorm_bwd.argtypes = tmlp._RMS_ARGTYPES
         elif kernel == "mlp":
             libs[name].ggt_mlp_stages.argtypes = tmlp._MLP_STAGE_ARGTYPES
         else:
@@ -314,6 +350,41 @@ def probe_mlp(kernel: str, libs, dev) -> None:
                 run(sum(stages.values()))
                 digest = sum(t.view(torch.int16).long().sum().item() for t in (g, out))
                 print(f"{tag} tiles {tiles}: {name:8s} {kernel} {whole:.4f} ms  alone: {alone}  "
+                      f"digest {digest}", flush=True)
+
+
+def probe_rms(libs, dev, legacy_grid: bool) -> None:
+    """Each rmsnorm_bwd variant at RMS_SHAPES (D 768), every variant of a
+    shape in one turn, then again in the reverse order. The grid is the
+    wrapper's (`rms_blocks`), or with `legacy_grid` the grid of the first
+    body (one 8-warp CTA for each 8 rows up to 1,056, which its wrapper
+    gave it)."""
+    stream, ptr = _build.stream_ptr(dev), _build.ptr
+    gen = torch.Generator(device=dev).manual_seed(4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    d = 768
+    for tag, n in RMS_SHAPES.items():
+        x = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
+        w = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        blocks = max(1, min((n + 7) // 8, 1056)) if legacy_grid else tmlp.rms_blocks(n, d, sms)
+        dx, dw = torch.empty_like(x), torch.empty(d, dtype=torch.float32, device=dev)
+        partial = torch.empty(blocks, d, dtype=torch.float32, device=dev)
+        order = list(libs.items())
+        for turn in (order, order[::-1]):
+            for name, lib in turn:
+                def run(lib=lib):
+                    err = lib.ggt_rmsnorm_bwd(ptr(x), ptr(g), ptr(w), ptr(dx), ptr(dw),
+                                              ptr(partial), n, d, 1e-6, blocks, stream)
+                    _build.check(err, f"rmsnorm_bwd {name}")
+
+                t = cuda_ms(run)
+                dx.zero_()
+                dw.zero_()
+                run()
+                digest = (dx.view(torch.int16).long().sum().item()
+                          + dw.view(torch.int32).long().sum().item())
+                print(f"{tag} D{d} grid {blocks}: {name:8s} rmsnorm_bwd {t:.4f} ms  "
                       f"digest {digest}", flush=True)
 
 
@@ -377,6 +448,11 @@ def main() -> None:
     if args.kernel in INLINE:
         probe_mlp(args.kernel, libs, dev)
         return
+    if args.kernel == "rmsnorm_bwd":
+        # the first body, which sums its 1,056-row scratch one row after
+        # another, takes its own grid
+        probe_rms(libs, dev, "for (int b = 0; b < blocks; ++b)" in open(source).read())
+        return
     stream = _build.stream_ptr(dev)
     ptr = _build.ptr
     for tag, (b, p, h, bi, layout) in SHAPES[args.kernel].items():
@@ -426,6 +502,11 @@ def main() -> None:
                                       ptr(out), ptr(lse), ptr(do), None, ptr(delta), ptr(dq),
                                       ptr(dk), ptr(dv), b, p, h, 0, stream)
 
+                def run_bwd_band(lib=lib):
+                    lib.ggt_flash_bwd_band(ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(seg), ptr(out),
+                                           ptr(lse), ptr(do), None, ptr(delta), ptr(dq), ptr(dk),
+                                           ptr(dv), ptr(tab), b, p, h, 0, 0, stream)
+
                 if args.kernel in ("split", "stream"):
                     one, two = ((run_dq, run_dkv) if args.kernel == "split"
                                 else (run_dq_stream, run_dkv_stream))
@@ -455,8 +536,19 @@ def main() -> None:
                                   + l2.view(torch.int32).long().sum().item())
                         print(f"{tag}: {name:8s} {form} {t:.4f} ms  digest {digest}", flush=True)
                 else:
-                    t = cuda_ms(run_bwd)
-                    print(f"{tag}: {name:8s} flash_bwd {t:.4f} ms", flush=True)
+                    runs = {"flash_bwd": run_bwd, "flash_bwd_band": run_bwd_band}
+                    for form, (entry, _, max_p) in BWD_FORMS.items():
+                        if not hasattr(lib, entry) or (max_p and p > max_p) or (
+                                form == "flash_bwd_band" and tag not in BWD_BAND_SHAPES):
+                            continue
+                        t = cuda_ms(runs[form])
+                        # delta, dq, dk, dv of one launch on fresh buffers
+                        for x in (delta, dq, dk, dv):
+                            x.zero_()
+                        runs[form]()
+                        digest = sum(x.view(torch.int16).long().sum().item() for x in (dq, dk, dv))
+                        digest += delta.view(torch.int32).long().sum().item()
+                        print(f"{tag}: {name:8s} {form} {t:.4f} ms  digest {digest}", flush=True)
 
 
 if __name__ == "__main__":

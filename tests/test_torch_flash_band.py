@@ -21,6 +21,18 @@ so that at P 256 the band is a real stretch of 64-key tiles.
   split backward pair).
 - `band_limits` bit for bit against `_band_limits` (:265) at key-tile
   width 1, on packed, clustered-but-unsorted and all-padding tiles.
+- The backwards compute one function: JAX's `_bwd_kernel_fused`, the
+  streamed pair `_dq_kernel_stream` + `_dkv_kernel_stream` and
+  `_bwd_kernel_band` (`_flash_bwd` under `_MODE` legacy, skip and band) and
+  the port's plain routes of flash_bwd (#3), flash_dq_stream +
+  flash_dkv_stream (#7, #8) and flash_bwd_band (#10), which the CUDA
+  kernels of #3 and #10 share one body for, on the same pre-rotated inputs,
+  out and lse agree with each other: on one id array (bidirectional and
+  causal), and with another array's key ids (the fused backward takes one
+  array, so there the band backward against the streamed pairs).
+- #10's plain route against the interpreted `_bwd_kernel_band` on the
+  denoise rows' bi-causal layout at P 88 (a molecule, padding, 16 bit slots
+  in the molecule's segment), with a cotangent of lse.
 - The three forwards compute one function: JAX's `_fwd_kernel_single`,
   `_fwd_kernel_stream` and `_fwd_kernel_band` (`_flash_fwd` under
   `_MODE` legacy, skip and band) and the port's `flash_attention_ref`,
@@ -286,3 +298,101 @@ def test_band_limits_is_jax_band_limits(keys):
             assert (int(lo), int(hi)) == tuple(got[r, t]), (r, t)
     assert tuple(got[2, 3]) == (p, -1)  # a tile of padding has an empty band
     assert np.any(got[1, :, 1] - got[1, :, 0] > got[0, :, 1] - got[0, :, 0])
+
+
+@pytest.mark.parametrize("keys, mask, dtype", [
+    ("same", "bidirectional", "float32"), ("same", "causal", "bfloat16"),
+    ("other", "causal", "float32"), ("other", "bidirectional", "bfloat16")])
+def test_the_backwards_compute_one_function(keys, mask, dtype, band, monkeypatch):
+    """B 2 x P 320 (five 64-row tiles), H 2, q and k taken as rotated, a
+    padded stretch, out and lse of the port's plain band forward fed to
+    every backward: dq, dk, dv of the six (four with other key ids), every
+    pair. Every query row that is not padding sees a key, so that the JAX
+    kernels, which let exp(S - lse) = 1 spread through a row that sees
+    none, compute the port's function."""
+    b, p, h = 2, 320, 2
+    causal, _ = MASKS[mask]
+    q, k, v, do, seg, _, _ = _inputs(b, p, h, seed=5)
+    qs, k, v, do = (a.reshape(b, p, h * DH) for a in (q * DH**-0.5, k, v, do))
+    seg_k = _key_ids(seg) if keys == "other" else seg
+    j, t, _ = _dtypes(dtype)
+    tseg, tseg_k = torch.from_numpy(seg), torch.from_numpy(seg_k)
+    sees = tfa._valid_mask(tseg, causal, 0, tseg_k).any(dim=-1)[:, 0]
+    assert bool((sees == (tseg > 0)).all()), "a query row sees no key"
+    tq, tk, tv, tdo = t(qs), t(k), t(v), t(do)
+    out, lse = tfa.flash_fwd_band(tq, tk, tv, tseg, tseg_k, causal, DH)
+    ran = {n: _spy(monkeypatch, jfa, n) for n in ("_bwd_kernel_fused", "_dq_kernel_stream",
+                                                   "_dkv_kernel_stream")}
+    ran["_bwd_kernel_band"] = band["_bwd_kernel_band"]
+    jout, jlse = j(out.float().numpy()), jnp.asarray(lse.numpy())
+    jseg, jseg_k = jnp.asarray(seg), jnp.asarray(seg_k)
+    grads = {}
+    runs = [("skip", "_dq_kernel_stream"), ("band", "_bwd_kernel_band")]
+    if keys == "same":
+        runs.insert(0, ("legacy", "_bwd_kernel_fused"))
+    for mode, kernel in runs:
+        monkeypatch.setattr(jfa, "_MODE", mode)
+        grads[kernel] = jfa._flash_bwd(j(qs), j(k), j(v), jseg, jseg_k, jout, jlse, j(do),
+                                       causal, h, DH)
+        assert ran[kernel], f"JAX took another path than {kernel}"
+    assert ran["_dkv_kernel_stream"]
+    if keys == "same":
+        grads["flash_bwd_ref"] = tfa.flash_bwd_ref(tq, tk, tv, tseg, None, None, out, lse, tdo,
+                                                   None, causal, DH)
+    dq, delta = tfa.flash_dq_stream(tq, tk, tv, tseg, tseg_k, None, None, out, lse, tdo, None,
+                                    causal, DH)
+    grads["flash_dq_stream + flash_dkv_stream"] = (dq, *tfa.flash_dkv_stream(
+        tq, tk, tv, tseg, tseg_k, None, None, lse, delta, tdo, causal, DH))
+    grads["flash_bwd_band"] = tfa.flash_bwd_band(tq, tk, tv, tseg, tseg_k, out, lse, tdo, None,
+                                                 causal, DH)
+
+    def numpy(x):
+        return x.float().numpy() if torch.is_tensor(x) else np.asarray(x, np.float32)
+
+    names = list(grads)
+    for x in range(len(names)):
+        for y in range(x + 1, len(names)):
+            for part, g, w in zip(("dq", "dk", "dv"), grads[names[x]], grads[names[y]]):
+                _close(numpy(g), numpy(w), dtype, f"{part}, {names[x]} against {names[y]}")
+
+
+def _denoise_segments(b, p, rng):
+    """The denoise rows' layout: a molecule at the front, padding, then BI
+    bit slots in the molecule's segment."""
+    seg = np.zeros((b, p), np.int32)
+    for r in range(b):
+        seg[r, : int(rng.integers(10, p - BI))] = 1
+        seg[r, p - BI :] = 1
+    return seg
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_band_backward_matches_jax_on_the_denoise_layout(dtype, band):
+    """B 3 x P 88 (a 64-row tile and a 24-row one; the JAX side's blocks are
+    8 rows, the largest that divides 88), H 2, bi-causal with 16 bit slots,
+    a cotangent of lse (0 on padded rows); the port's plain band forward
+    and backward against JAX's interpreted band kernels."""
+    b, p, h = 3, 88, 2
+    rng = np.random.default_rng(21)
+    qs, k, v, do = ((rng.normal(size=(b, p, h * DH)) * 0.5).astype(np.float32)
+                    for _ in range(4))
+    qs = qs * DH**-0.5
+    seg = _denoise_segments(b, p, rng)
+    dlse = (rng.normal(size=(b, h, p)) * 0.3).astype(np.float32) * (seg > 0)[:, None, :]
+    j, t, tdt = _dtypes(dtype)
+    jseg = jnp.asarray(seg)
+    out, lse = jfa._flash_fwd(j(qs), j(k), j(v), jseg, jseg, False, 64, 64, h, DH, bi_split=BI)
+    want = jfa._flash_bwd(j(qs), j(k), j(v), jseg, jseg, out, lse, j(do), False, h, DH,
+                          dlse=jnp.asarray(dlse), bi_split=BI)
+    assert band["_fwd_kernel_band"] and band["_bwd_kernel_band"], "JAX took another path"
+    tseg = torch.from_numpy(seg)
+    gout, glse = tfa.flash_fwd_band(t(qs), t(k), t(v), tseg, tseg, False, DH, BI)
+    _close(gout.float().numpy(), out, dtype, "out")
+    tlse = torch.from_numpy(np.array(lse, np.float32))
+    got = tfa.flash_bwd_band(t(qs), t(k), t(v), tseg, tseg, t(out), tlse, t(do),
+                             torch.from_numpy(dlse), False, DH, BI)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == tdt, name
+        _close(g.float().numpy(), w, dtype, name)
+    for g in got:  # padded rows take no part
+        assert np.all(g.float().numpy()[seg == 0] == 0)

@@ -829,8 +829,9 @@ def test_flash_attention_backward_carries_the_cotangent_of_lse(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(200, 128), (1000, 1600), (65536, 768)],
-                         ids=["small", "wide", "flagship"])
+@pytest.mark.parametrize("shape", [(200, 128), (1000, 1600), (65536, 768), (65537, 768),
+                                   (4096, 384)],
+                         ids=["small", "wide", "flagship", "ragged", "d384"])
 def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, shape):
     """dx bf16 within 1 ulp of the largest values; dw fp32, a sum over N rows
     in another order than torch.sum's (1e-3 of |dw| + 1)."""
@@ -1089,6 +1090,55 @@ def test_band_kernels_match_plain(cuda_device, shape, keys, mask):
                                                                           counts[1] + 1]
     again = tfa.flash_bwd_band(*args)
     assert all(torch.equal(a, g) for a, g in zip(again, (dq, dk, dv)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,keys,mask", [
+    ((2, 1024, 12), "same", "bidirectional"), ((4, 88, 12), "same", "bi-causal"),
+    ((2, 320, 3), "other", "causal")], ids=["P1024", "P88-bicausal", "P320-other-causal"])
+def test_band_backward_ignores_non_finite_do_in_padded_rows(cuda_device, shape, keys, mask):
+    """inf and NaN in do's padded rows (which TMA brings in raw) change no
+    bit of #10's dq, dk or dv."""
+    dev = cuda_device
+    b, p, h = shape
+    dh = 64
+    causal, bi = {"bidirectional": (False, 0), "causal": (True, 0), "bi-causal": (False, 16)}[mask]
+    rng = np.random.default_rng(23)
+    qs = _bf16(rng, (b, p, h * dh), 0.5 * dh**-0.5, dev)
+    k, v, do = (_bf16(rng, (b, p, h * dh), 0.5, dev) for _ in range(3))
+    seg_np = packed_segments(b, p, rng)
+    seg_np[-1, p - 40 : p - 20] = 0
+    seg = torch.from_numpy(seg_np).to(dev)
+    seg_k = seg if keys == "same" else _shifted(seg)
+    out, lse = tfa.flash_fwd_band(qs, k, v, seg, seg_k, causal, dh, bi)
+    pad = (seg == 0)[..., None]
+    clean = torch.where(pad, torch.zeros_like(do), do)
+    noisy = clean.clone()
+    noisy[pad.expand_as(noisy)] = float("nan")
+    noisy[-1][pad[-1, :, 0]] = float("inf")
+    runs = [tfa.flash_bwd_band(qs, k, v, seg, seg_k, out, lse, d, None, causal, dh, bi)
+            for d in (clean, noisy)]
+    torch.cuda.synchronize()
+    for a, n in zip(*runs):
+        assert bool(torch.isfinite(a.float()).all())
+        assert torch.equal(a, n)
+
+
+@pytest.mark.gpu
+def test_band_backward_entry_refuses_p_past_4096(cuda_device):
+    """#10's entry takes one 64-bit mask of 64 tiles: P 4160 gets its own
+    code (the wrapper sends such rows to the streamed pair)."""
+    dev = cuda_device
+    b, p, h, dh = 1, tfa._MAX_BAND + 64, 1, 64
+    big = torch.zeros(b, p, h * dh, device=dev, dtype=torch.bfloat16)
+    seg = torch.ones(b, p, device=dev, dtype=torch.int32)
+    rows = torch.zeros(b, h, p, device=dev)
+    fn = tfa._build.entry("flash_bwd", "ggt_flash_bwd_band", tfa._BWD_BAND_ARGTYPES)
+    ptr = tfa._build.ptr
+    err = fn(ptr(big), ptr(big), ptr(big), ptr(seg), ptr(seg), ptr(big), ptr(rows), ptr(big),
+             None, ptr(rows), ptr(big), ptr(big), ptr(big), ptr(tfa._tile_scratch(seg)), b, p, h,
+             0, 0, tfa._build.stream_ptr(dev))
+    assert err == 1002
 
 
 def _qkv_inputs(n, d, widths, dev, seed=19):

@@ -52,8 +52,8 @@ def test_the_scan_sees_every_module():
                  "graphgpt_torch/utils/inspection.py", "chip_smoke.py"):
         assert must in names
     assert sorted(p.name for p in (ROOT / "graphgpt_torch" / "csrc").glob("*.cu")) == [
-        "flash_band.cu", "flash_bwd.cu", "flash_bwd_split.cu", "flash_fwd.cu",
-        "mlp.cu", "norm_mlp.cu", "norm_qkv.cu", "rmsnorm_bwd.cu",
+        "flash_bwd.cu", "flash_bwd_split.cu", "flash_fwd.cu", "mlp.cu", "norm_mlp.cu",
+        "norm_qkv.cu", "rmsnorm_bwd.cu",
     ]
 
 

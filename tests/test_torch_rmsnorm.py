@@ -63,6 +63,33 @@ def test_rmsnorm_bwd_ref_matches_interpreted_kernel(dtype, monkeypatch):
     np.testing.assert_allclose(dw.numpy(), np.asarray(want_dw), atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("n, d", [(64, 384), (40, 1600), (97, 768)],
+                         ids=["d384", "d1600", "n97"])
+def test_rmsnorm_bwd_ref_matches_interpreted_kernel_at_the_kernel_widths(n, d, monkeypatch):
+    """bf16 at the hidden sizes of the CUDA kernel's 2- and 7-chunk
+    instances, and at N 97, which no tile divides (the Pallas kernel halves
+    its 32-row tile down to one row)."""
+    monkeypatch.setenv("GGT_PALLAS_INTERPRET", "1")
+    x, g, w = _inputs(n=n, d=d, seed=6)
+    want_dx, want_dw = rmsnorm_bwd_pallas(jnp.asarray(x, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16),
+                                          jnp.asarray(w), EPS, bt=32)
+    dx, dw = tmlp.rmsnorm_bwd(torch.from_numpy(x).to(torch.bfloat16),
+                              torch.from_numpy(g).to(torch.bfloat16), torch.from_numpy(w), EPS)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    np.testing.assert_allclose(dx.float().numpy(), np.asarray(want_dx, np.float32), atol=1e-2,
+                               rtol=1e-2)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(want_dw), atol=1e-4, rtol=1e-4)
+
+
+def test_rms_blocks_fill_the_card_once():
+    """The CUDA row pass's grid: a CTA for each 8 rows, at most two an SM
+    (one above 768 columns), never none."""
+    assert tmlp.rms_blocks(65536, 768, 132) == 264
+    assert tmlp.rms_blocks(65536, 1600, 132) == 132
+    assert tmlp.rms_blocks(100, 768, 132) == 13
+    assert tmlp.rms_blocks(0, 768, 132) == 1
+
+
 def test_rmsnorm_bwd_matches_autograd_of_the_plain_forward():
     x, g, w = _inputs(seed=3)
     tx, tw = torch.from_numpy(x).requires_grad_(), torch.from_numpy(w).requires_grad_()
