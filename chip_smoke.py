@@ -4,10 +4,20 @@
 
 1. Fails unless a CUDA card is present; prints its name and power limit.
 2. Builds every kernel from graphgpt_torch/csrc with nvcc (one process per
-   source, all at once) and prints the build time. Times the long-context
-   loader alone (its config's dataset, tokenizer and 8 workers) in a child
-   process that never initialises CUDA, its workers spawned, then forked:
-   the first batch's seconds and the warm graphs/s.
+   source, all at once) and prints the build time. Writes the graph-level
+   store, <tmp>/OGB/pcqm4m-v2/graphs.npz in the readers' npz contract:
+   200,000 seeded random molecules in PCQM4M-v2's schema (9 node and 3
+   edge columns, y [G, 1]), a single-node, an edge-free and a disconnected
+   one at the start of each split, train/valid/test in PCQM4M-v2's
+   proportions; prints its size and the seconds it took. Checks the C++
+   walk on 20,000 of its graphs (every node and edge visited, each step an
+   edge or a jump between components) and prints graphs/s of the C++ and
+   the numpy walk on one host core, with the host's CPU. Times the
+   long-context loader alone (its config's pcqm4m-v2 reader over the store,
+   tokenizer and 8 workers; 16 x 4096 packed rows, no device) in a child
+   process that never initialises CUDA: workers spawned, then forked, with
+   the C++ walk, then spawned with the numpy walk; the first batch's
+   seconds, the warm graphs/s and tokens/s, the workers' RSS.
 3. Kernel phase: each of the kernels (flash_fwd, norm_mlp, flash_bwd,
    rmsnorm_bwd) against its plain PyTorch version in bf16 (errors beside
    their tolerances) at the shapes both main paths give it, 8 x 1024 rows
@@ -51,6 +61,20 @@
    Then launch counts per training step and per EMA eval forward, the
    losses, the valid and EMA-valid MAE, ms per step, the loader's graphs/s
    and peak memory.
+7b. Graph-level fine-tune phase: configs/pcqm4m_v2_supervised.yaml as
+   shipped, read from the file (GraphGPT-base 768 x 12, gated, L1
+   regression, pairs remat, bf16, batch 256, onecycle 2e-4, EMA 0.9999, 8
+   loader workers), its data_dir the store, warm-started from the train
+   phase's checkpoint: FinetunePipeline takes the reader's three splits
+   (checked against the store's), the first step against an fp32 run of
+   the plain versions (as the long-context step), 24 steps of epoch 0 with the launches of each step and each eval
+   forward against the prediction, the eval of epoch 0 on the reader's
+   valid (and EMA valid) and test splits with PCQM4M-v2's MAE, ms a step on
+   a batch on the card, graphs/s through the pipeline and of the loader
+   alone, the pool's first batch and its workers' RSS (the peak where the
+   kernel reports it), peak memory;
+   then, host only, the split under dataset_policy remove_special (edge0,
+   node1, disconnected) and true_valid.
 8. Denoise phase: a fresh GraphGPT-base denoising double-heads model
    (configs/pcqm4m_v2_supervised.yaml's setup plus bi_causal_split 16, the
    binary-energy decoding) on a 256 x 88 mol3d batch: every kernel of its
@@ -66,7 +90,8 @@
 10. Long-context pretraining phase: GraphGPT-base SMTP pretraining through
    the port's PretrainPipeline on configs/pcqm4m_v2_pretrain_long.yaml at
    max_length 4096 without block-aligned packing, batch 16 (65,536 tokens
-   a step), synthetic_mol. First the streamed kernels #6 flash_fwd_stream,
+   a step), its rows from the store through the pcqm4m-v2 reader its config
+   names, the C++ walk in the worker pool. First the streamed kernels #6 flash_fwd_stream,
    #7 flash_dq_stream (with its delta) and #8 flash_dkv_stream against
    their plain versions on 2 of the first batch's 16 rows, with its
    segments and RoPE table, and again with another packed row's ids as the
@@ -80,8 +105,11 @@
    bf16 path's plus STEP32_F); run A, eight steps with the
    launch counts of each step and each eval forward, falling losses,
    log.csv (tokens/s, mfu), result.csv (valid, EMA-valid, 2 generation
-   bands) and the checkpoint at step 8; a step on a batch on the card, the
-   loader's graphs/s with its worker pool, peak memory; auto-resume at
+   bands) and the checkpoint at step 8; a step on a batch on the card,
+   tokens/s through the pipeline (log.csv), the loader's graphs/s and
+   tokens/s with its worker pool, the pool's time to its first batch and
+   its workers' RSS (the peak where the kernel reports it), peak memory;
+   auto-resume at
    step 8 for two steps more; run B, the config as shipped (pack_block
    256) for two steps: training in 256-token windows (#1, #3), the eval
    and the generation sweep on whole rows (#6).
@@ -114,7 +142,8 @@
 
 Any failed check raises, so the script exits non-zero. The launch counts
 are set to 0 just before each main path (eval + generation; training;
-fine-tuning; denoising; position pretraining; long-context pretraining;
+fine-tuning; graph-level fine-tuning; denoising; position pretraining;
+long-context pretraining;
 training and long-context pretraining under both knobs) and read just
 after it; launches made to compare a kernel with its plain
 version fall outside those windows.
@@ -122,11 +151,13 @@ version fall outside those windows.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import ctypes
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1441,6 +1472,348 @@ def finetune_phase(pretrain_model, counters, fa, mlp, ops):
     return shape, launches
 
 
+# PCQM4M-v2 as OGB splits it (split_dict: train, valid, test-dev; the rest of
+# its 3,746,620 molecules is test-challenge, unlabelled), and the store this
+# script writes in its schema
+PCQM_SPLITS, PCQM_GRAPHS = (3_378_606, 73_545, 147_037), 3_746_620
+STORE_GRAPHS = 200_000
+WALK_CHECK_GRAPHS = 20_000
+FT_STEPS = 24  # fine-tune steps of the graph-level phase
+
+
+def _degenerate(kind: int, rng):
+    """(nodes, local edge_index) of a degenerate molecule, as
+    tests/test_partition_readers.py writes them: one node; four nodes and no
+    edge; two 2-cliques."""
+    if kind == 0:
+        return 1, np.zeros((2, 0), np.int64)
+    if kind == 1:
+        return 4, np.zeros((2, 0), np.int64)
+    return 4, np.asarray([[0, 1, 2, 3], [1, 0, 3, 2]], np.int64)
+
+
+def _mol_chunk(args):
+    """Molecules start..stop of the store (molecule i drawn from the seed
+    (seed, i), as SyntheticMolDataset draws it), degenerate at the indices
+    of `special`: (node_attr, edge_attr, local edge_index, node and edge
+    counts, y)."""
+    from graphgpt_torch.data.datasets import MOL_EDGE_CARD, MOL_NODE_CARD, random_molecule_graph
+
+    start, stop, seed, special = args
+    na, ea, ei, nn, ne, ys = [], [], [], [], [], []
+    for i in range(start, stop):
+        rng = np.random.default_rng((seed, i))
+        if i in special:
+            n, e = _degenerate(special[i], rng)
+            na.append(np.stack([rng.integers(0, c, size=n) for c in MOL_NODE_CARD], 1))
+            ea.append(np.stack([rng.integers(0, c, size=e.shape[1]) for c in MOL_EDGE_CARD], 1))
+            ei.append(e)
+            ys.append(rng.normal(5.0, 1.0, size=1))
+        else:
+            g = random_molecule_graph(rng)
+            n = g.num_nodes
+            na.append(g.node_attr), ea.append(g.edge_attr), ei.append(g.edge_index)
+            ys.append(g.y)
+        nn.append(n)
+        ne.append(ei[-1].shape[1])
+    return (np.concatenate(na).astype(np.int32), np.concatenate(ea).astype(np.int32),
+            np.concatenate(ei, axis=1).astype(np.int32), np.asarray(nn), np.asarray(ne),
+            np.concatenate(ys).astype(np.float32))
+
+
+def write_graph_store(data_dir: str, n_graphs: int = STORE_GRAPHS, seed: int = 0,
+                      procs: int = 8):
+    """<data_dir>/pcqm4m-v2/graphs.npz in the readers' npz contract:
+    `n_graphs` random molecules in PCQM4M-v2's schema (9 node and 3 edge
+    columns, y [G, 1] float32), three degenerate ones (one node, four nodes
+    without an edge, two 2-cliques) at the start of each split, and train,
+    valid and test splits in PCQM4M-v2's proportions (contiguous, as OGB
+    numbers them; the rest belongs to no split, as test-challenge). The
+    molecules are drawn by `procs` spawned processes. Returns (path, split
+    sizes)."""
+    import multiprocessing as mp
+
+    sizes = [round(n_graphs * s / PCQM_GRAPHS) for s in PCQM_SPLITS]
+    starts = np.cumsum([0] + sizes)
+    special = {int(s) + k + 1: k for s in starts[:3] for k in range(3)}
+    t0 = time.perf_counter()
+    bounds = np.linspace(0, n_graphs, 8 * procs + 1).astype(int)
+    chunks = [(int(a), int(b), seed, {i: k for i, k in special.items() if a <= i < b})
+              for a, b in zip(bounds[:-1], bounds[1:])]
+    with mp.get_context("spawn").Pool(procs) as pool:
+        parts = pool.map(_mol_chunk, chunks)
+    gen_s = time.perf_counter() - t0
+    nn = np.concatenate([p[3] for p in parts])
+    ne = np.concatenate([p[4] for p in parts])
+    node_ptr = np.concatenate([[0], np.cumsum(nn)]).astype(np.int64)
+    edge_ptr = np.concatenate([[0], np.cumsum(ne)]).astype(np.int64)
+    edge_index = np.concatenate([p[2] for p in parts], axis=1).astype(np.int64)
+    edge_index += np.repeat(node_ptr[:-1], ne)[None, :]  # global node ids
+    path = os.path.join(data_dir, "pcqm4m-v2", "graphs.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t1 = time.perf_counter()
+    np.savez(path, node_attr=np.concatenate([p[0] for p in parts]),
+             edge_attr=np.concatenate([p[1] for p in parts]),
+             edge_index=edge_index.astype(np.int32), node_ptr=node_ptr, edge_ptr=edge_ptr,
+             y=np.concatenate([p[5] for p in parts])[:, None],
+             train_idx=np.arange(starts[0], starts[1]), valid_idx=np.arange(starts[1], starts[2]),
+             test_idx=np.arange(starts[2], starts[3]))
+    write_s = time.perf_counter() - t1
+    print(f"graph store: {n_graphs} molecules in PCQM4M-v2's schema ({int(node_ptr[-1])} nodes, "
+          f"{int(edge_ptr[-1])} directed edges; degenerate at {sorted(special)}), splits "
+          f"{sizes[0]} / {sizes[1]} / {sizes[2]} (PCQM4M-v2: {PCQM_SPLITS[0]} / {PCQM_SPLITS[1]} "
+          f"/ {PCQM_SPLITS[2]} of {PCQM_GRAPHS}); {os.path.getsize(path)} bytes; drawn in "
+          f"{gen_s:.1f} s ({procs} processes), written in {write_s:.1f} s", flush=True)
+    return path, sizes
+
+
+def host_cpu() -> str:
+    """The host's CPU as /proc/cpuinfo names it (vendor, family and model
+    where its model name reads "unknown", as in a sandboxed kernel), and
+    its core count."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            info.setdefault(key.strip(), val.strip())
+    name = info.get("model name", "unknown")
+    if name == "unknown":
+        name = (f"{info.get('vendor_id', '?')} family {info.get('cpu family', '?')} model "
+                f"{info.get('model', '?')}")
+    return f"{name}, {os.cpu_count()} cores"
+
+
+@contextlib.contextmanager
+def numpy_walk():
+    """The port's numpy walk instead of its C++ one, as the tests pin it
+    (`data/euler.py`: `_NATIVE_CHECKED, _NATIVE = True, None`), for a
+    measurement."""
+    from graphgpt_torch.data import euler
+
+    saved = (euler._NATIVE_CHECKED, euler._NATIVE)
+    euler._NATIVE_CHECKED, euler._NATIVE = True, None
+    try:
+        yield
+    finally:
+        euler._NATIVE_CHECKED, euler._NATIVE = saved
+
+
+def walk_phase(path: str, n_check: int = WALK_CHECK_GRAPHS, n_numpy: int = 2000):
+    """The C++ walk on the store's first `n_check` graphs: every node and
+    every undirected edge visited, each step an edge or a jump between two
+    components; then graphs/s of the C++ walk (all of them) and of the
+    numpy walk (the first `n_numpy`) on one host core, the graphs read
+    beforehand."""
+    from graphgpt_torch.data import euler
+    from graphgpt_torch.data.graph import CSR, connected_components
+    from graphgpt_torch.readers import NpzGraphStore
+
+    store = NpzGraphStore(path)
+    graphs = [store.get(i) for i in range(n_check)]
+    rng = np.random.default_rng(0)
+    jumps = steps = 0
+    for i, g in enumerate(graphs):
+        n = g.num_nodes
+        walk = euler.graph_to_walk(g, rng)
+        a, b = walk[:-1], walk[1:]
+        step_keys = np.minimum(a, b) * n + np.maximum(a, b)
+        src, dst = g.edge_index.astype(np.int64)
+        real = src != dst
+        edge_keys = np.unique(np.minimum(src, dst)[real] * n + np.maximum(src, dst)[real])
+        comp = connected_components(CSR(n, g.edge_index))
+        is_edge = np.isin(step_keys, edge_keys)
+        if not (np.array_equal(np.unique(walk), np.arange(n))
+                and np.isin(edge_keys, step_keys).all()
+                and (comp[a[~is_edge]] != comp[b[~is_edge]]).all()):
+            fail(f"the C++ walk of graph {i} misses a node or an edge, or jumps inside a "
+                 f"component: {walk.tolist()}")
+        jumps += int((~is_edge).sum())
+        steps += len(a)
+    cpu = sorted(os.sched_getaffinity(0))
+    os.sched_setaffinity(0, cpu[:1])  # one host core
+    try:
+        t0 = time.perf_counter()
+        for g in graphs:
+            euler.graph_to_walk(g, rng)
+        cpp_gs = len(graphs) / (time.perf_counter() - t0)
+        with numpy_walk():
+            t0 = time.perf_counter()
+            for g in graphs[:n_numpy]:
+                euler.graph_to_walk(g, rng)
+            numpy_gs = n_numpy / (time.perf_counter() - t0)
+    finally:
+        os.sched_setaffinity(0, cpu)
+    print(f"walk: the C++ walk visits every node and edge of {n_check} graphs, {steps} steps of "
+          f"which {jumps} jumps, each between two components; on one host core ({host_cpu()}) "
+          f"the C++ walk {cpp_gs:.0f} graphs/s, the numpy walk {numpy_gs:.0f} graphs/s "
+          f"({cpp_gs / numpy_gs:.1f}x)", flush=True)
+    return dict(cpp_graphs_s=cpp_gs, numpy_graphs_s=numpy_gs, checked=n_check, jumps=jumps)
+
+
+def worker_rss(loader):
+    """(resident memory of each worker of the loader's pool in MiB, what it
+    is): the peak (VmHWM) where the kernel reports it, else the current
+    (VmRSS)."""
+    out, kind = [], "VmHWM"
+    for proc in getattr(loader._pool, "_pool", []):
+        with open(f"/proc/{proc.pid}/status") as f:
+            status = dict(line.split(":", 1) for line in f if ":" in line)
+        kind = "VmHWM" if "VmHWM" in status else "VmRSS"
+        out.append(int(status[kind].split()[0]) / 1024)
+    return out, kind
+
+
+def save_pretrain(model, pt_dir: str):
+    """`model` as a pretrain checkpoint (step 0) under pt_dir/ckpt."""
+    from graphgpt_torch.config import OptimizerConfig
+    from graphgpt_torch.training.checkpoint import Checkpointer
+    from graphgpt_torch.training.optimizer import make_optimizer
+    from graphgpt_torch.training.steps import init_train_state
+
+    tx = make_optimizer(OptimizerConfig(), 10, 1)
+    Checkpointer(os.path.join(pt_dir, "ckpt")).save(
+        0, init_train_state(model, tx), {"phase": "train"})
+
+
+def graph_finetune_phase(pretrain_model, counters, ops, data_dir: str, sizes, overrides=()):
+    """configs/pcqm4m_v2_supervised.yaml as shipped, read from the file, on
+    the store through the pcqm4m-v2 reader (see the module docstring, 7b).
+    Returns (its numbers, the launches of the fine-tune run)."""
+    from graphgpt_torch import readers, synthetic
+    from graphgpt_torch.config import load_config
+    from graphgpt_torch.training.checkpoint import Checkpointer
+    from graphgpt_torch.training.finetune import FinetunePipeline
+
+    dev = pretrain_model.device
+    with tempfile.TemporaryDirectory() as tmp:
+        pt_dir, ft_dir = os.path.join(tmp, "pretrain"), os.path.join(tmp, "finetune")
+        save_pretrain(pretrain_model, pt_dir)
+        over = [f"tokenization.data_dir={data_dir}", f"training.output_dir={ft_dir}",
+                f"training.pretrain_cpt={pt_dir}", *overrides]
+        cfg = load_config(os.path.join(HERE, "configs", "pcqm4m_v2_supervised.yaml"), over)
+        t0 = time.perf_counter()
+        pipe = FinetunePipeline(cfg, device=dev).setup()
+        setup_s = time.perf_counter() - t0
+        got = [len(pipe.train_idx), len(pipe.valid_idx), len(pipe.test_idx)]
+        m, t = pipe.cfg.model, pipe.cfg.training
+        print(f"graph-level fine-tune setup {setup_s:.1f} s (the vocab scanned from 10,000 "
+              f"graphs: {m.vocab_size} tokens): {m.hidden_size} x {m.num_hidden_layers}, "
+              f"{m.stacked_feat_agg_method}, {m.problem_type} {m.loss_type}, remat "
+              f"{m.remat_policy}, {m.dtype}, LayerScale {m.layer_scale_init_value}, batch "
+              f"{t.batch_size}, {t.optimizer.scheduler} {t.optimizer.lr}, EMA "
+              f"{t.optimizer.ema_decay}, {t.num_workers} loader workers; the reader's splits "
+              f"train {got[0]}, valid {got[1]}, test {got[2]}", flush=True)
+        if got != list(sizes) or type(pipe.dataset).__name__ != "SplitDataset":
+            fail(f"FinetunePipeline did not take the reader's splits {sizes}: {got}")
+        # the first FT_STEPS batches of epoch 0: the train split cut to them
+        pipe.train_idx, pipe.epochs = pipe.train_idx[: FT_STEPS * t.batch_size], 1
+        model = pipe.state.model
+        idx0 = np.random.default_rng((t.seed, 0)).permutation(pipe.train_idx)
+        t0 = time.perf_counter()
+        nb = next(pipe.loader.epoch_batches(idx0, 0)).data
+        first_s = time.perf_counter() - t0
+        # the loader alone, its pool warm: one pass over the cut train split
+        t0 = time.perf_counter()
+        n_graphs = sum(bb["segment_ids"].shape[0]
+                       for bb in pipe.loader.epoch_batches(pipe.train_idx, epoch=1))
+        loader_gs = n_graphs / (time.perf_counter() - t0)
+        rss, rss_kind = worker_rss(pipe.loader)
+        batch = synthetic.to_torch(nb, dev)
+        b, p = nb["segment_ids"].shape
+        print(f"graph-level fine-tune batch: {b} graphs x {p} positions, "
+              f"{int((nb['segment_ids'] > 0).sum())} tokens; the pool's first batch in "
+              f"{first_s:.2f} s", flush=True)
+        # against an fp32 run, as the long-context step: without LayerScale
+        # the deeper q/k gradients are tiny and bf16 moves them by tens of
+        # percent on either path (against the plain bf16 run the worst,
+        # layers.11.self_attn.k_proj, read 0.326 on an H100)
+        grad = step_vs_fp32(model, batch, ops, "graph-level finetune")
+        torch.cuda.empty_cache()
+
+        L = m.num_hidden_layers
+        train_log, eval_log, metrics = counted_pipeline(pipe, counters)
+        times = []
+        step_fn = pipe.train_step
+
+        def timed_step(*a, **kw):
+            times.append(time.perf_counter())
+            out = step_fn(*a, **kw)
+            if len(times) == FT_STEPS:
+                torch.cuda.synchronize()
+                times.append(time.perf_counter())
+            return out
+
+        pipe.train_step = timed_step
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        best = pipe.run()
+        run_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        # pairs remat runs the attention of each layer again in the backward
+        # and the MLP of the first layer of each pair (the denoise step's
+        # count); the MLP's norm backward is in torch ops, the attention input
+        # norms' and the final norm's in #13. Predicted first 2 L norm_mlp; an
+        # H100 read L + L // 2
+        want = {**{k: 0 for k in counters}, "flash_fwd": 2 * L, "norm_mlp": L + L // 2,
+                "flash_bwd": L, "rmsnorm_bwd": L + 1}
+        want_eval = {**{k: 0 for k in counters}, "flash_fwd": L, "norm_mlp": L}
+        check_logs("graph-level fine-tune", train_log, eval_log, want, want_eval, FT_STEPS)
+        losses = [float(x["loss"]) for x in metrics]
+        print("graph-level fine-tune losses: " + " ".join(f"{x:.4f}" for x in losses),
+              flush=True)
+        if not all(np.isfinite(losses)):
+            fail(f"the graph-level fine-tune losses are not finite: {losses}")
+        trained = (FT_STEPS - 1) * t.batch_size
+        pipe_gs = trained / (times[-1] - times[1])
+        print(f"graph-level fine-tune eval (PCQM4M-v2's MAE): valid_mae {best.get('valid_mae')} "
+              f"on the reader's {got[1]} valid graphs, valid_ema_mae "
+              f"{best.get('valid_ema_mae')}, test_mae {best.get('test_mae')} on {got[2]}, "
+              f"train_mae {best.get('train_mae')}", flush=True)
+        if not all(np.isfinite(best.get(k, np.nan)) for k in ("valid_mae", "valid_ema_mae",
+                                                               "test_mae")):
+            fail(f"the graph-level valid, EMA-valid and test MAE are not finite: {best}")
+        if not os.path.exists(os.path.join(ft_dir, "result.csv")) or Checkpointer(
+                os.path.join(ft_dir, "ckpt")).all_steps() != [0]:
+            fail("the graph-level fine-tune wrote no result.csv or no epoch checkpoint")
+        ms = cuda_ms(lambda: pipe.train_step(pipe.state, batch, seed=t.seed), iters=1, warmup=1,
+                     repeats=5)
+        ms_spread = spread()
+        print(f"graph-level fine-tune: {ms:.2f} ms/step on a batch on the card (5 readings "
+              f"{ms_spread}), {b / ms * 1e3:.0f} graphs/s; through the pipeline {pipe_gs:.0f} "
+              f"graphs/s (steps 2-{FT_STEPS}); the loader alone {loader_gs:.0f} graphs/s with "
+              f"{t.num_workers} workers, their RSS ({rss_kind}) {max(rss, default=0):.0f} MiB "
+              f"each at most ({sum(rss):.0f} in all); the whole run ({FT_STEPS} steps, eval of "
+              f"{t.k_samplers} train + {got[1]} valid (twice, EMA) + {got[2]} test graphs, "
+              f"checkpoints) {run_s:.1f} s; max_memory_allocated {peak:.0f} MiB", flush=True)
+
+        # the split under PCQM4M-v2's special-molecule and true-valid policies
+        pol = {"remove_special": {"edge0": True, "node1": True, "disconnected": True},
+               "true_valid": True}
+        pcfg = load_config(os.path.join(HERE, "configs", "pcqm4m_v2_supervised.yaml"),
+                           over + [f"tokenization.dataset_policy={json.dumps(pol)}"])
+        t0 = time.perf_counter()
+        tr, va, te = readers.read_dataset("pcqm4m-v2", pcfg).splits()
+        pol_s = time.perf_counter() - t0
+        print(f"graph-level split with dataset_policy {pol}: train {len(tr)}, valid {len(va)}, "
+              f"test {len(te)} (host only, {pol_s:.1f} s)", flush=True)
+        # the nine degenerate molecules go (three a split: one node, no
+        # edge, two components); true_valid keeps 5000 of valid, here all
+        special = {int(s) + k for s in np.cumsum([0] + list(sizes))[:3] for k in (1, 2, 3)}
+        if (len(tr) != sizes[0] - 3 or len(va) != min(sizes[1] - 3, 5000)
+                or special & set(np.concatenate([tr, va, te]).tolist())):
+            fail(f"the policy split is not the one asked for: {len(tr)}, {len(va)}, {len(te)}")
+        res = dict(step_ms=ms, pipeline_graphs_s=pipe_gs, loader_graphs_s=loader_gs,
+                   first_s=first_s, worker_rss_mib=max(rss, default=0), peak_mib=peak,
+                   tokens_per_graph=int((nb["segment_ids"] > 0).sum()) / b,
+                   grad_ratio=grad["ratio"],
+                   valid_mae=best.get("valid_mae"), run_s=run_s,
+                   policy_sizes=[len(tr), len(va), len(te)])
+    return res, launches
+
+
 def mol3d_config(tok, **kw):
     """GraphGPT-base over the synthetic molecules' tokenizer (vocab 755, 13
     stacked features), bf16 over fp32 weights, with the fields in kw."""
@@ -1764,19 +2137,20 @@ def stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_rows:
     return res
 
 
-def long_config(out_dir: str, *overrides: str):
+def long_config(out_dir: str, data_dir: str, *overrides: str):
     """configs/pcqm4m_v2_pretrain_long.yaml read by the port's load_config
     (GraphGPT-base: 768 x 12, 12 heads of 64, gated aggregation, bf16,
     save_attn, AdamW 0.9/0.95 with warmup_decay, pretrain-mlm with packing),
     at max_length 4096 without block-aligned packing, batch 16 (65,536
-    tokens a step), on the synthetic molecules (PCQM4M-v2's schema); eight
-    steps, 2 of warm-up, EMA on for the EMA-valid loss, 550 valid graphs, a
+    tokens a step), on the store under data_dir through the pcqm4m-v2
+    reader the config names; eight steps, 2 of warm-up, EMA on for the
+    EMA-valid loss, 2,200 valid graphs (the first 512 evaluated), a
     generation sweep of 2 bands over 16 graphs in 16 steps. `overrides` go
     after these."""
     from graphgpt_torch.config import load_config
 
     return load_config(os.path.join(HERE, "configs", "pcqm4m_v2_pretrain_long.yaml"), [
-        "tokenization.dataset=synthetic_mol", "model.max_position_embeddings=4096",
+        f"tokenization.data_dir={data_dir}", "model.max_position_embeddings=4096",
         "training.max_length=4096", "training.pack_block=0", "training.batch_size=16",
         "training.schedule.total_num_steps=8", "training.schedule.warmup_num_steps=2",
         "training.schedule.logging_steps=1", "training.valid_percent=0.011",
@@ -1822,7 +2196,7 @@ def check_logs(tag, train_log, eval_log, want, want_eval, steps):
           f"forward: {want_eval} (all {len(eval_log)})", flush=True)
 
 
-def long_context_phase(dev, counters, fa, mlp, ops, _build, rope_cos_sin):
+def long_context_phase(dev, counters, fa, mlp, ops, _build, rope_cos_sin, data_dir):
     """The long-context pretraining path (see the module docstring, 10).
     Returns (the kernels' results at its shape, the launches of its runs)."""
     from graphgpt_torch.models.rope import reset_position_ids
@@ -1839,7 +2213,7 @@ def long_context_phase(dev, counters, fa, mlp, ops, _build, rope_cos_sin):
     with tempfile.TemporaryDirectory() as tmp:
         out_a = os.path.join(tmp, "run_a")
         t0 = time.perf_counter()
-        pipe = PretrainPipeline(long_config(out_a), device=dev).setup()
+        pipe = PretrainPipeline(long_config(out_a, data_dir), device=dev).setup()
         mc, tc = pipe.cfg.model, pipe.cfg.training
         print(f"long-context setup {time.perf_counter() - t0:.1f} s: hidden {mc.hidden_size}, "
               f"{mc.num_hidden_layers} layers, {mc.num_attention_heads} heads, vocab "
@@ -1849,24 +2223,31 @@ def long_context_phase(dev, counters, fa, mlp, ops, _build, rope_cos_sin):
               f"{len(pipe.train_idx)} train and {len(pipe.valid_idx)} valid graphs", flush=True)
         if len(pipe.valid_idx) < 512 or mc.attn_block != 0 or tc.max_length != 4096:
             fail("the long-context config is not the one asked for")
-        # the first batch, as run() draws it
+        # the first batch, as run() draws it, from a pool started anew (setup
+        # started one): the pool's time to its first batch
         idx0 = np.random.default_rng((tc.seed, 0)).permutation(pipe.train_idx)
+        pipe.loader.close()
         t0 = time.perf_counter()
         nb = next(pipe.loader.epoch_batches(idx0, 0)).data
         first_s = time.perf_counter() - t0
         batch = to_torch(nb, dev)
         b, p = nb["segment_ids"].shape
         n_seg = int(sum(len(np.unique(r[r > 0])) for r in nb["segment_ids"]))
-        # the loader alone, its worker pool started by the first batch
+        # the loader alone, its worker pool warm
         t0 = time.perf_counter()
-        n_graphs = 0
+        n_graphs = n_tokens = 0
         for bb in pipe.loader.epoch_batches(idx0[: 3 * n_seg], epoch=3):
             n_graphs += sum(len(np.unique(r[r > 0])) for r in bb["segment_ids"])
-        loader_gs = n_graphs / (time.perf_counter() - t0)
+            n_tokens += int((bb["segment_ids"] > 0).sum())
+        loader_s = time.perf_counter() - t0
+        loader_gs, loader_ts = n_graphs / loader_s, n_tokens / loader_s
+        rss, rss_kind = worker_rss(pipe.loader)
         print(f"long-context batch: {b} x {p}, {int((nb['segment_ids'] > 0).sum())} tokens, "
-              f"{n_seg} molecules (the first batch tokenized and packed in {first_s:.2f} s, the "
-              f"worker pool's start included); the loader alone {loader_gs:.0f} graphs/s with "
-              f"{tc.num_workers} workers", flush=True)
+              f"{n_seg} molecules of the pcqm4m-v2 reader's store (the pool's first batch in "
+              f"{first_s:.2f} s, its start included); the loader alone {loader_gs:.0f} graphs/s, "
+              f"{loader_ts:.0f} tokens/s with {tc.num_workers} workers walking in C++ (host "
+              f"{host_cpu()}), their RSS ({rss_kind}) {max(rss, default=0):.0f} MiB each at "
+              f"most ({sum(rss):.0f} in all)", flush=True)
         pos = reset_position_ids(batch["position_ids"], mc.rope_range)
         cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(
             pos, mc.head_dim, mc.rope_theta, resonance=mc.rope_resonance,
@@ -1907,6 +2288,7 @@ def long_context_phase(dev, counters, fa, mlp, ops, _build, rope_cos_sin):
         log = csv_rows(os.path.join(out_a, "log.csv"))
         res = csv_rows(os.path.join(out_a, "result.csv"))
         tok_s = [float(r["tokens_per_s"]) for r in log]
+        pipe_ts = float(np.mean(tok_s[1:]))  # steps 2-8, through the pipeline
         mfu = [float(r["mfu"]) for r in log if r.get("mfu")]
         gen_keys = sorted(k for k in res[-1] if k.startswith("gen_acc"))
         print(f"long-context log.csv: {len(log)} rows, tokens_per_s "
@@ -1927,16 +2309,23 @@ def long_context_phase(dev, counters, fa, mlp, ops, _build, rope_cos_sin):
         print(f"long-context run A: {run_s:.1f} s for 8 steps, the save-point eval of 512 valid "
               f"graphs (EMA too), the generation sweep and a checkpoint; a step on a batch on "
               f"the card {ms:.2f} ms (3 readings {ms_spread}), {tokens / ms * 1e3:.0f} trained "
-              f"tokens/s; max_memory_allocated {peak:.0f} MiB", flush=True)
+              f"tokens/s; through the pipeline {pipe_ts:.0f} tokens/s (log.csv, steps 2-8); the "
+              f"loader alone {loader_gs:.0f} graphs/s ({loader_ts:.0f} tokens/s), its pool's "
+              f"first batch {first_s:.2f} s, worker RSS ({rss_kind}) {max(rss, default=0):.0f} "
+              f"MiB; "
+              f"max_memory_allocated {peak:.0f} MiB", flush=True)
         shape.update(step_ms=ms, tokens_per_s=tokens / ms * 1e3, peak_mib=peak,
+                     pipeline_tokens_s=pipe_ts, loader_tokens_s=loader_ts,
+                     worker_rss_mib=max(rss, default=0),
                      loader_graphs_s=loader_gs, loader_first_s=first_s, run_s=run_s,
                      losses=[round(x, 4) for x in losses], run_a_losses=losses)
         del pipe, model, batch
         torch.cuda.empty_cache()
 
         # auto-resume: the same output_dir, two steps more
-        pipe = PretrainPipeline(long_config(out_a, "training.schedule.total_num_steps=10",
-                                            "training.gen_eval_bands=0"), device=dev).setup()
+        pipe = PretrainPipeline(long_config(out_a, data_dir, "training.schedule.total_num_steps=10",
+                                            "training.gen_eval_bands=0"),
+                                device=dev).setup()
         if pipe.start_step != 8 or pipe.state.step != 8:
             fail(f"auto-resume started at step {pipe.start_step}, not 8")
         train_log, eval_log, _ = counted_pipeline(pipe, counters)
@@ -1955,7 +2344,7 @@ def long_context_phase(dev, counters, fa, mlp, ops, _build, rope_cos_sin):
         # 256-token windows (#1, #3), the save point's eval and the
         # generation sweep on whole rows (#6)
         out_b = os.path.join(tmp, "run_b")
-        pipe = PretrainPipeline(long_config(out_b, "training.pack_block=256",
+        pipe = PretrainPipeline(long_config(out_b, data_dir, "training.pack_block=256",
                                             "training.schedule.total_num_steps=2"),
                                 device=dev).setup()
         train_log, eval_log, metrics = counted_pipeline(pipe, counters)
@@ -1986,25 +2375,35 @@ def long_context_phase(dev, counters, fa, mlp, ops, _build, rope_cos_sin):
 
 
 # The loader alone in a fresh interpreter that never initialises CUDA: the
-# long-context config's dataset, tokenizer and GraphTokenLoader (8 workers
-# started with the given method), the first batch's seconds with the pool's
-# start, then graphs/s over the next two batches. argv: checkout, method.
+# long-context config's dataset (the pcqm4m-v2 reader over the store under
+# data_dir), tokenizer and GraphTokenLoader (8 workers started with the given
+# method, walking in C++ or, as the tests pin it, in numpy): 16 x 4096 packed
+# rows, tokenized and collated, no device. The first batch's seconds with the
+# pool's start, then graphs/s and tokens/s over the next four batches, and
+# the largest worker's RSS (the peak where the kernel reports it). argv:
+# checkout, method, data_dir, walk.
 _LOADER_CHILD = r"""
 import faulthandler, json, os, sys, tempfile, time
 faulthandler.dump_traceback_later(150, exit=True)  # a stuck child shows where
 import numpy as np
 sys.path.insert(0, sys.argv[1])
 from graphgpt_torch.config import load_config
+from graphgpt_torch.data import euler
 from graphgpt_torch.data.datasets import train_valid_split
 from graphgpt_torch.data.loader import GraphTokenLoader
 from graphgpt_torch.training.pipeline import build_dataset, build_tokenizer
+from chip_smoke import worker_rss
 
 cfg = load_config(os.path.join(sys.argv[1], "configs", "pcqm4m_v2_pretrain_long.yaml"), [
-    "tokenization.dataset=synthetic_mol", "training.max_length=4096", "training.pack_block=0",
+    f"tokenization.data_dir={sys.argv[3]}", "training.max_length=4096", "training.pack_block=0",
     "training.batch_size=16", f"training.output_dir={tempfile.mkdtemp()}"])
+if sys.argv[4] == "numpy":
+    euler._NATIVE_CHECKED, euler._NATIVE = True, None
 t = cfg.training
 ds = build_dataset(cfg)
+print("dataset read", file=sys.stderr, flush=True)
 tok = build_tokenizer(cfg, ds)
+print("vocab scanned", file=sys.stderr, flush=True)
 loader = GraphTokenLoader(ds, tok, batch_size=t.batch_size, mpe=t.max_length, pack=True,
                           num_workers=t.num_workers, seed=t.seed, pack_block=t.pack_block,
                           bucket=t.pad_to_multiple_of, start_method=sys.argv[2])
@@ -2016,30 +2415,51 @@ batches = loader.epoch_batches(idx, 0)
 next(batches)
 first_s = time.perf_counter() - t0
 print("first batch", file=sys.stderr, flush=True)
-t0, n = time.perf_counter(), 0
-for _ in range(2):
-    n += sum(len(np.unique(r[r > 0])) for r in next(batches).data["segment_ids"])
-print(json.dumps({"first_s": first_s, "graphs_s": n / (time.perf_counter() - t0),
-                  "workers": t.num_workers}), flush=True)
+t0, n, tokens = time.perf_counter(), 0, 0
+for _ in range(4):
+    seg = next(batches).data["segment_ids"]
+    n += sum(len(np.unique(r[r > 0])) for r in seg)
+    tokens += int((seg > 0).sum())
+s = time.perf_counter() - t0
+rss, kind = worker_rss(loader)
 loader.close()
 print("closed", file=sys.stderr, flush=True)
+print(json.dumps({"first_s": first_s, "graphs_s": n / s, "tokens_s": tokens / s,
+                  "workers": t.num_workers, "rss_mib": max(rss), "rss_kind": kind,
+                  "walk": sys.argv[4]}), flush=True)
 """
 
 
-def loader_start_methods():
-    """The loader alone in a child process that never initialises CUDA, its
-    workers forked, then spawned, back to back on this host: the first
-    batch's seconds (the pool's start included) and the warm graphs/s."""
+def loader_start_methods(data_dir: str):
+    """The long-context loader alone in a child process that never
+    initialises CUDA, over the store: its workers spawned and forked,
+    walking in C++, then spawned walking in numpy, back to back on this
+    host: the first batch's seconds (the pool's start included), the warm
+    graphs/s and tokens/s, the largest worker's RSS."""
     res = {}
-    for method in ("spawn", "fork"):
-        proc = subprocess.run([sys.executable, "-c", _LOADER_CHILD, HERE, method],
-                              capture_output=True, text=True, timeout=200)
-        if proc.returncode != 0:
-            fail(f"the loader child ({method}) failed:\n{proc.stderr[-6000:]}")
-        res[method] = json.loads(proc.stdout.strip().splitlines()[-1])
-    print("long-context loader alone, one host, a child process without CUDA: "
-          + "; ".join(f"{m}ed workers: first batch {r['first_s']:.2f} s, then {r['graphs_s']:.0f} "
-                      f"graphs/s with {r['workers']} workers" for m, r in res.items()),
+    for method, walk in (("spawn", "cpp"), ("fork", "cpp"), ("spawn", "numpy")):
+        # its own session, so that a timeout ends its pool's workers too;
+        # its stderr in a file, which the workers may hold open after it
+        with tempfile.TemporaryFile("w+") as err:
+            proc = subprocess.Popen([sys.executable, "-c", _LOADER_CHILD, HERE, method, data_dir,
+                                     walk], stdout=subprocess.PIPE, stderr=err, text=True,
+                                    start_new_session=True)
+            try:
+                out, _ = proc.communicate(timeout=200)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, 9)
+                out, _ = proc.communicate()
+            err.seek(0)
+            if proc.returncode != 0:
+                fail(f"the loader child ({method}, {walk} walk) failed:\n{err.read()[-6000:]}")
+        res[f"{method}_{walk}"] = json.loads(out.strip().splitlines()[-1])
+    print(f"long-context loader alone (16 x 4096 packed rows, tokenized and collated, no "
+          f"device), one host ({host_cpu()}), a child process without CUDA: "
+          + "; ".join(f"{m.split('_')[0]}ed workers, {r['walk']} walk: first batch "
+                      f"{r['first_s']:.2f} s, then {r['graphs_s']:.0f} graphs/s, "
+                      f"{r['tokens_s']:.0f} tokens/s with {r['workers']} workers (RSS, "
+                      f"{r['rss_kind']}, {r['rss_mib']:.0f} MiB a worker at most)"
+                      for m, r in res.items()),
           flush=True)
     return res
 
@@ -2567,10 +2987,10 @@ def route_profiles(fa, state, step_fn, batch, routes, top: int = 14):
     return {f"prof_{r}_kernel_ms": t for r, t in totals.items()}
 
 
-def band_long_phase(dev, counters, rows4, run_a_losses, ops):
+def band_long_phase(dev, counters, rows4, run_a_losses, ops, data_dir):
     """Long-context pretraining through PretrainPipeline under both knobs:
-    run A's config (P 4096, pack_block 0, batch 16, synthetic_mol, EMA, 550
-    valid graphs, 2 generation bands of 16) and schedule, cut to 4 steps and
+    run A's config (P 4096, pack_block 0, batch 16, the pcqm4m-v2 reader,
+    EMA, 512 valid graphs, 2 generation bands of 16) and schedule, cut to 4 steps and
     their save point. The first step on the long-context batch's 4 rows
     against an fp32 run; launches per step, per eval and generation
     forward; losses finite, falling and each within BAND_LOSS_ATOL of run
@@ -2582,7 +3002,7 @@ def band_long_phase(dev, counters, rows4, run_a_losses, ops):
     with tempfile.TemporaryDirectory() as tmp:
         out_c = os.path.join(tmp, "run_band")
         t0 = time.perf_counter()
-        pipe = PretrainPipeline(long_config(out_c), device=dev).setup()
+        pipe = PretrainPipeline(long_config(out_c, data_dir), device=dev).setup()
         setup_s = time.perf_counter() - t0
         model = pipe.state.model
         L = pipe.cfg.model.num_hidden_layers
@@ -2681,8 +3101,14 @@ def main() -> None:
         if forms != want:
             fail(f"{name}.cu's build log does not show its forms {want}")
 
-    # ---- the long-context loader alone, before this process starts a pool
-    loaders = loader_start_methods()
+    # ---- the graph-level store (PCQM4M-v2's schema), the C++ walk on it, and
+    # the long-context loader alone on it, before this process starts a pool
+    store_root = tempfile.mkdtemp(prefix="ggt_store_")
+    atexit.register(shutil.rmtree, store_root, True)
+    data_dir = os.path.join(store_root, "OGB")
+    store_path, split_sizes = write_graph_store(data_dir)
+    walks = walk_phase(store_path)
+    loaders = loader_start_methods(data_dir)
 
     # ---- kernel phase
     fres = flash_phase(dev, fa, ops, synthetic, rope_cos_sin)
@@ -2735,6 +3161,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     ft, tune = finetune_phase(model, counters, fa, mlp, ops)
     sres = ft["mlp"]
+    # ---- graph-level phase: pcqm4m_v2_supervised.yaml as shipped on the store
+    torch.cuda.empty_cache()
+    gft, gtune = graph_finetune_phase(model, counters, ops, data_dir, split_sizes)
     del model
 
     # ---- denoise and position-pretraining phases: fresh models
@@ -2743,7 +3172,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     posl, posr = pos_phase(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin)
     torch.cuda.empty_cache()
-    lc, lcl = long_context_phase(dev, counters, fa, mlp, ops, _build, rope_cos_sin)
+    lc, lcl = long_context_phase(dev, counters, fa, mlp, ops, _build, rope_cos_sin, data_dir)
 
     # ---- band and norm-fused phase: both knobs on (GGT_FLASH_MODE=band,
     # GGT_ATTN_NORM_FUSE=1); the skip mode's check; then the training step
@@ -2756,10 +3185,11 @@ def main() -> None:
     with knobs(fa, "band", "1"):
         btl, btr = band_train_phase(dev, counters, fa, ops, synthetic, nb64)
         torch.cuda.empty_cache()
-        bll, blr = band_long_phase(dev, counters, lc["rows4"], lc["run_a_losses"], ops)
+        bll, blr = band_long_phase(dev, counters, lc["rows4"], lc["run_a_losses"], ops,
+                                   data_dir)
     print(f"band and norm-fused phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    launches = {k: serve[k] + train[k] + tune[k] + den[k] + posl[k] + lcl[k] + btl[k] + bll[k]
-                for k in counters}
+    launches = {k: serve[k] + train[k] + tune[k] + gtune[k] + den[k] + posl[k] + lcl[k] + btl[k]
+                + bll[k] for k in counters}
 
     base = "graphgpt_tpu/ops/"
 
@@ -2768,6 +3198,7 @@ def main() -> None:
             name=name, route="cuda", source=f"graphgpt_torch/csrc/{source}",
             replaces=base + replaces, launches=launches[name], launches_serving=serve[name],
             launches_training=train[name], launches_finetune=tune[name],
+            launches_graph_finetune=gtune[name],
             launches_denoise=den[name], launches_pos=posl[name], launches_long=lcl[name],
             launches_band_train=btl[name], launches_band_long=bll[name], max_abs_err=r["err"],
             ms=r["ms"],
@@ -2806,7 +3237,9 @@ def main() -> None:
                                                           "bound_ms")},
               train_shape_library_ms=mres["train"]["lib_ms"],
               **at("train_shape", mres["train"], ("ms", "bound_ms") + MLP_KEYS[4:]),
-              **at("denoise_shape", dnm, MLP_KEYS), **at("pos_shape", psm, MLP_KEYS)),
+              **at("denoise_shape", dnm, MLP_KEYS), **at("pos_shape", psm, MLP_KEYS),
+              **{f"graph_finetune_{k}": v for k, v in gft.items()},
+              **{f"walk_{k}": v for k, v in walks.items()}),
         entry("flash_bwd", "flash_bwd.cu", "flash_attention.py:706",
               dict(bb, err=max([r["err"] for r in bres.values()] + [ftf["err"], psf["err"]])),
               FLASH_BWD_TOL, bound_share=bb["bound_share"], causal_ms=bres["causal"]["ms"],
@@ -2859,8 +3292,10 @@ def main() -> None:
             long_tokens_per_s=lc["tokens_per_s"], long_peak_mib=lc["peak_mib"],
             long_grad_rel=lc["grad_rel"], long_grad_ratio=lc["grad"]["ratio"],
             long_loader_graphs_s=lc["loader_graphs_s"], long_loader_first_s=lc["loader_first_s"],
+            long_loader_tokens_s=lc["loader_tokens_s"],
+            long_pipeline_tokens_s=lc["pipeline_tokens_s"], long_worker_rss_mib=lc["worker_rss_mib"],
             **{f"loader_{m}_{k}": r[k] for m, r in loaders.items()
-               for k in ("first_s", "graphs_s")}, **extra))
+               for k in ("first_s", "graphs_s", "tokens_s", "rss_mib")}, **extra))
     # the band kernels: their main entry at the train phase's B 64 x P 1024
     # (65,536 tokens); the serving and long-context shapes beside it
     shapes = ("serving", "causal", "other", "train", "long", "denoise")

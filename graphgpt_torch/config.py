@@ -86,6 +86,10 @@ class TokenizationConfig:
     stack_method: str = "short"  # short|long
     semantics: SemanticsConfig = field(default_factory=SemanticsConfig)
     structure: StructureConfig = field(default_factory=StructureConfig)
+    # split-policy knobs applied by graph-level readers (reference
+    # _readers/pcqm4mv2.py:344-428): true_valid, test_large,
+    # remove_special {edge0,node1,node2,disconnected}, duplicate_train
+    dataset_policy: Dict[str, Any] = field(default_factory=dict)
 
     @property
     def stacked_feat(self) -> int:

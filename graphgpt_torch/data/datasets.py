@@ -1,13 +1,19 @@
 """Synthetic molecules with the PCQM4M-v2 schema (9 node attributes, 3
-edge attributes, one regression target per graph) and the fixed-seed
-validation split: copies from `graphgpt_tpu/data/datasets.py`.
+edge attributes, one regression target per graph), the map dataset over a
+columnar store with its epoch-seeded node permutation, the index samplers
+and the fixed-seed validation split: copies from
+`graphgpt_tpu/data/datasets.py` (`GraphsMapDataset` :109-144, the index
+helpers :147-196). No pipeline calls the index helpers yet, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
-from .graph import Graph
+from .graph import Graph, GraphBatchStore
 
 # OGB molecule-like attribute cardinalities (ogb.utils.features full maps)
 MOL_NODE_CARD = (119, 4, 12, 12, 10, 6, 6, 2, 2)
@@ -82,6 +88,95 @@ class SyntheticMolDataset:
         )
         g.idx = int(idx)
         return g
+
+
+class GraphsMapDataset:
+    """Many-small-graphs dataset over columnar storage with optional node
+    permutation augmentation (reference GraphsMapDataset,
+    dataset_map.py:1172-1342)."""
+
+    def __init__(
+        self,
+        store: GraphBatchStore,
+        sample_idx: Optional[np.ndarray] = None,
+        permute: bool = True,
+        seed: int = 0,
+    ):
+        self.store = store
+        self.sample_idx = (
+            np.asarray(sample_idx, np.int64)
+            if sample_idx is not None
+            else np.arange(len(store), dtype=np.int64)
+        )
+        self.permute = permute
+        self.seed = seed
+        self.epoch = 0
+
+    def __len__(self):
+        return len(self.sample_idx)
+
+    def reset_samples(self, epoch: int, seed: int = 0) -> None:
+        self.epoch = epoch
+
+    def __getitem__(self, i: int) -> Graph:
+        idx = int(self.sample_idx[i])
+        g = self.store.get(idx)
+        if self.permute:
+            rng = np.random.default_rng((self.seed, self.epoch, idx))
+            g = g.permute_nodes(rng)
+        g.idx = idx
+        return g
+
+
+def size_weighted_indices(
+    store: GraphBatchStore,
+    sample_idx: np.ndarray,
+    n: int,
+    rng: np.random.Generator,
+) -> np.ndarray:
+    """Sample graph indices with probability proportional to node count
+    (reference with-prob sampler, dataset_map.py:1363-1400)."""
+    sizes = np.diff(store._node_ptr)[sample_idx].astype(np.float64)
+    p = sizes / sizes.sum()
+    return rng.choice(sample_idx, size=n, replace=True, p=p)
+
+
+def shift_distribution_indices(
+    store: GraphBatchStore,
+    train_idx: np.ndarray,
+    target_idx: np.ndarray,
+    n: int,
+    rng: np.random.Generator,
+    bins: int = 32,
+) -> np.ndarray:
+    """Re-weight training samples so their num_nodes histogram matches the
+    valid+test distribution (reference shift-distribution sampler,
+    dataset_map.py:1400-1445)."""
+    sizes = np.diff(store._node_ptr)
+    t_sizes = sizes[train_idx]
+    g_sizes = sizes[target_idx]
+    lo, hi = sizes.min(), sizes.max() + 1
+    edges = np.linspace(lo, hi, bins + 1)
+    t_hist, _ = np.histogram(t_sizes, bins=edges)
+    g_hist, _ = np.histogram(g_sizes, bins=edges)
+    t_bin = np.clip(np.digitize(t_sizes, edges) - 1, 0, bins - 1)
+    w = (g_hist[t_bin] + 1e-9) / (t_hist[t_bin] + 1e-9)
+    p = w / w.sum()
+    return rng.choice(train_idx, size=n, replace=True, p=p)
+
+
+def strided_shard(indices: np.ndarray, rank: int, world: int) -> np.ndarray:
+    """Rank-strided sampler shard (reference distribute_sampler,
+    loader_utils.py:70-75)."""
+    return indices[rank::world]
+
+
+def epoch_shuffled_indices(
+    n: int, epoch: int, seed: int, rank: int = 0, world: int = 1
+) -> np.ndarray:
+    rng = np.random.default_rng((seed, epoch))
+    idx = rng.permutation(n)
+    return strided_shard(idx, rank, world)
 
 
 def train_valid_split(

@@ -1,8 +1,14 @@
-"""Randomized (semi-)Eulerian walks over CSR adjacency: the numpy walk of
-`graphgpt_tpu/data/euler.py` (components, eulerisation, randomized
-Hierholzer, shortening, jump edges), with the node re-indexing and the
-edge-attribute lookup the stacked tokenizer reads. The JAX package's C++
-walk is not copied: it draws its random numbers in another order.
+"""Randomized (semi-)Eulerian walks over CSR adjacency.
+
+Counterpart of `graphgpt_tpu/data/euler.py`: the C++ walk of
+`native/euler_native.py` by default (`_native` :30-45, `graph_to_walk`
+:245-257), the numpy walk (components, eulerisation, randomized
+Hierholzer, shortening, jump edges), and the node re-indexing and the
+edge-attribute lookup the stacked tokenizer reads. The two walks draw
+their random numbers differently (the C++ one draws one seed), so a graph
+gives other rows under each. A test takes the numpy walk by setting
+`_NATIVE_CHECKED, _NATIVE = True, None`; nothing else does. The C++
+library is built at the first walk; a failed build raises.
 """
 
 from __future__ import annotations
@@ -18,6 +24,23 @@ from .graph import (
     connected_components,
     lookup_directed_edges,
 )
+
+# the C++ walk (native/euler_native.py), loaded at the first walk
+_NATIVE = None
+_NATIVE_CHECKED = False
+
+
+def _native():
+    """The C++ binding, its library built and loaded at the first call (a
+    failed build raises, each call again); None only where a test set
+    `_NATIVE_CHECKED, _NATIVE = True, None`."""
+    global _NATIVE, _NATIVE_CHECKED
+    if not _NATIVE_CHECKED:
+        from ..native import euler_native
+
+        euler_native.load()
+        _NATIVE, _NATIVE_CHECKED = euler_native, True
+    return _NATIVE
 
 
 def _bfs_shortest_path(csr: CSR, src: int, targets: set) -> Tuple[Optional[int], List[int]]:
@@ -225,6 +248,9 @@ def graph_to_walk(graph: Graph, rng: np.random.Generator) -> np.ndarray:
     each toured independently, and walks joined by a (prev_end, next_start)
     jump edge.
     """
+    native = _native()
+    if native is not None:
+        return native.graph_to_walk(graph.num_nodes, graph.edge_index, rng)
     csr = CSR(graph.num_nodes, graph.edge_index)
     labels = connected_components(csr)
     comp_ids = np.unique(labels)

@@ -1,6 +1,8 @@
 """Array-native graph containers: a copy of the parts of
-`graphgpt_tpu/data/graph.py` that the tokenizer reads (`Graph`, `CSR`,
-`connected_components`, the directed-edge lookups).
+`graphgpt_tpu/data/graph.py` that the tokenizer and the graph-level
+readers read (`Graph` with `permute_nodes` :43-78, `CSR`,
+`connected_components`, the directed-edge lookups, `GraphBatchStore`
+:167-251).
 """
 
 from __future__ import annotations
@@ -35,6 +37,43 @@ class Graph:
     @property
     def num_edges(self) -> int:
         return int(self.edge_index.shape[1])
+
+    def permute_nodes(self, rng: np.random.Generator) -> "Graph":
+        """Random node relabelling augmentation (reference:
+        src/utils/nx_utils.py:594-612).
+
+        Node i becomes permu[i]; node-aligned arrays are re-ordered so the
+        new node k carries old node argsort(permu)[k]'s attributes.
+        """
+        permu = rng.permutation(self.num_nodes).astype(np.int32)
+        inv = np.argsort(permu)
+
+        def _perm_nodes(arr):
+            if arr is None:
+                return None
+            if arr.shape[0] == self.num_nodes:
+                return arr[inv]
+            return arr
+
+        extra = self.extra
+        if "a2d" in extra:
+            # a2d holds node IDS (values, not node-aligned rows): remap
+            extra = dict(extra)
+            extra["a2d"] = permu[extra["a2d"]]
+        return Graph(
+            num_nodes=self.num_nodes,
+            edge_index=permu[self.edge_index],
+            node_attr=_perm_nodes(self.node_attr),
+            edge_attr=self.edge_attr,
+            y=self.y if (self.y is None or self.y.shape[0] != self.num_nodes) else self.y[inv],
+            pos=_perm_nodes(self.pos),
+            node_embed=_perm_nodes(self.node_embed),
+            root_n_id=None if self.root_n_id is None else permu[self.root_n_id],
+            tgt_edge_attr=self.tgt_edge_attr,
+            wgt=self.wgt,
+            idx=self.idx,
+            extra=extra,
+        )
 
 
 class CSR:
@@ -121,3 +160,90 @@ def lookup_directed_edges(sorted_keys, order, num_nodes, src, tgt):
         return np.full(q.shape, -1, np.int64)
     found = sorted_keys[pos_c] == q
     return np.where(found, order[pos_c], -1)
+
+
+class GraphBatchStore:
+    """Columnar storage for a dataset of many small graphs.
+
+    All graphs' arrays are concatenated; per-graph slices are recovered from
+    offset arrays. This is the array-native analogue of the collated storage
+    the reference slices with `separate()` (dataset_map.py:1323-1329).
+    """
+
+    def __init__(self, graphs=None):
+        self._fields: Dict[str, np.ndarray] = {}
+        self._node_ptr = None
+        self._edge_ptr = None
+        self._ys = None
+        self._pos = None
+        if graphs is not None:
+            self._collate(list(graphs))
+
+    def _collate(self, graphs):
+        self._node_ptr = np.zeros(len(graphs) + 1, np.int64)
+        self._edge_ptr = np.zeros(len(graphs) + 1, np.int64)
+        for i, g in enumerate(graphs):
+            self._node_ptr[i + 1] = self._node_ptr[i] + g.num_nodes
+            self._edge_ptr[i + 1] = self._edge_ptr[i] + g.num_edges
+        # contract: edge_index holds GLOBAL node ids (graph i's edges are
+        # offset by node_ptr[i]); get() subtracts the offset back. The
+        # round-4 molhiv golden-fixture test caught this collate writing
+        # graph-LOCAL ids, which silently corrupted every graph after the
+        # first on the get() path.
+        self.edge_index = (
+            np.concatenate(
+                [
+                    g.edge_index + np.int64(self._node_ptr[i])
+                    for i, g in enumerate(graphs)
+                ],
+                axis=1,
+            ).astype(np.int32)
+            if graphs
+            else np.zeros((2, 0), np.int32)
+        )
+        self.node_attr = (
+            np.concatenate([g.node_attr for g in graphs], axis=0)
+            if graphs and graphs[0].node_attr is not None
+            else None
+        )
+        self.edge_attr = (
+            np.concatenate([g.edge_attr for g in graphs], axis=0)
+            if graphs and graphs[0].edge_attr is not None
+            else None
+        )
+        self._ys = (
+            np.stack([np.asarray(g.y).reshape(-1) for g in graphs])
+            if graphs and graphs[0].y is not None
+            else None
+        )
+        self._pos = (
+            np.concatenate([g.pos for g in graphs], axis=0)
+            if graphs and graphs[0].pos is not None
+            else None
+        )
+
+    def __len__(self) -> int:
+        return len(self._node_ptr) - 1 if self._node_ptr is not None else 0
+
+    def get(self, idx: int) -> Graph:
+        n0, n1 = self._node_ptr[idx], self._node_ptr[idx + 1]
+        e0, e1 = self._edge_ptr[idx], self._edge_ptr[idx + 1]
+        g = Graph(
+            num_nodes=int(n1 - n0),
+            edge_index=self.edge_index[:, e0:e1] - np.int32(n0),
+            node_attr=None if self.node_attr is None else self.node_attr[n0:n1],
+            edge_attr=None if self.edge_attr is None else self.edge_attr[e0:e1],
+            y=None if self._ys is None else self._ys[idx],
+            pos=None if self._pos is None else self._pos[n0:n1],
+            idx=int(idx),
+        )
+        # OneID instruction columns (graph-local node-id pairs + key type;
+        # reference graph.a2d / graph.key_type, instruct_tuning_utils.py:102-156)
+        a2d = getattr(self, "_a2d", None)
+        a2d_ptr = getattr(self, "_a2d_ptr", None)
+        if a2d is not None and a2d_ptr is not None:
+            g.extra["a2d"] = a2d[a2d_ptr[idx] : a2d_ptr[idx + 1]]
+        key_type = getattr(self, "_key_type", None)
+        if key_type is not None:
+            g.extra["key_type"] = key_type[idx]
+        return g

@@ -14,7 +14,11 @@ forked (`start_method`); at most four chunks a worker are in flight, where `Pool
 queues a whole epoch's, so that a pass left early (a run's last steps)
 does not hold the pool for the next one (its save-point eval); and
 `prefetched` raises what its producer raised instead of ending the epoch
-early.
+early. Two more, for the spawned workers: each chunk carries the dataset's
+epoch, which a worker's copy follows (`reset_samples`), where the JAX
+loader's forked workers keep the epoch the pool started at; a worker
+walks as the parent does, in C++ unless a test pinned the numpy walk; and
+`close` lets the workers finish their chunks instead of killing them.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
+from . import euler
 from .collator import Batch, collate, pack_samples
 from .tokenizer import TokenizedSample
 
@@ -36,17 +41,23 @@ CHUNK = 32  # indices a worker tokenizes per task
 _WORKER_STATE = {}
 
 
-def _init_worker(dataset, tokenizer, seed):
+def _init_worker(dataset, tokenizer, seed, numpy_walk=False):
     _WORKER_STATE["dataset"] = dataset
     _WORKER_STATE["tokenizer"] = tokenizer
     _WORKER_STATE["seed"] = seed
+    if numpy_walk:  # the parent walks in numpy (a test set it so)
+        euler._NATIVE_CHECKED, euler._NATIVE = True, None
 
 
 def _tokenize_chunk(args):
-    epoch, start_pos, idx_chunk = args
+    epoch, start_pos, idx_chunk, ds_epoch = args
     ds = _WORKER_STATE["dataset"]
     tok = _WORKER_STATE["tokenizer"]
     seed = _WORKER_STATE["seed"]
+    if ds_epoch is not None and getattr(ds, "epoch", None) != ds_epoch:
+        # the parent's dataset moved to another epoch (its node
+        # permutations) after this worker unpickled it
+        ds.reset_samples(ds_epoch)
     # the position in the epoch enters the seed, so that a repeated index
     # gets an independent view
     return [tok(ds[int(idx)], np.random.default_rng((seed, epoch, int(idx), start_pos + j)))
@@ -122,18 +133,25 @@ class GraphTokenLoader:
         if self.num_workers > 0 and self._pool is None:
             import multiprocessing as mp
 
+            # the C++ walk's library is built here, once, not by each worker;
+            # a worker walks as this process does
+            numpy_walk = euler._native() is None
             # spawn by default, not the JAX loader's fork: the pipeline's
             # process holds threads (prefetch, CUDA), whose locks a forked
             # child inherits; a spawned worker imports the data modules only
             with _main_left_out(self.dataset, self.tokenizer):
                 self._pool = mp.get_context(self.start_method).Pool(
                     self.num_workers, initializer=_init_worker,
-                    initargs=(self.dataset, self.tokenizer, self.seed),
+                    initargs=(self.dataset, self.tokenizer, self.seed, numpy_walk),
                 )
         return self
 
     def _sample_stream(self, indices: np.ndarray, epoch: int) -> Iterator[TokenizedSample]:
-        chunks = [(epoch, i, indices[i : i + CHUNK]) for i in range(0, len(indices), CHUNK)]
+        # each chunk carries the dataset's epoch as it is now (a reader's
+        # node permutations follow it; the workers' copies were pickled once)
+        ds_epoch = getattr(self.dataset, "epoch", None)
+        chunks = [(epoch, i, indices[i : i + CHUNK], ds_epoch)
+                  for i in range(0, len(indices), CHUNK)]
         pool = self.start()._pool
         if pool is None:
             _init_worker(self.dataset, self.tokenizer, self.seed)
@@ -219,8 +237,13 @@ class GraphTokenLoader:
             raise failure[0]
 
     def close(self):
+        """Stop the pool: its workers finish the chunks in flight (at most
+        four a worker) and exit. `Pool.terminate` could hang here: a worker
+        killed while writing a result leaves a partial message that the
+        pool's result thread then waits on."""
         if self._pool is not None:
-            self._pool.terminate()
+            self._pool.close()
+            self._pool.join()
             self._pool = None
 
 

@@ -4,9 +4,10 @@ A copy of `graphgpt_tpu/data/mol3d.py`: the PCQM4M-v2 percentile ranges
 (`DICT_RANGE` :20), the canonical anchor rotation (node 0 at the origin,
 node 1 on +z, node 2 in the y-z plane), the random translation and
 rotation, uniform discretisation (`discrete_pos`), percentile boundaries
-and the binning over them (`discrete_pos_v2`), and the position type of a
-sequence slot (`pos_type_from_node_index` :139). The npz cache of
-boundaries (`build_dict_bounds`) waits for the readers that would use it.
+and the binning over them (`discrete_pos_v2`), their npz cache beside a
+store (`build_dict_bounds` :103-127, which the graph-level readers'
+`pos_percentile_bounds` policy calls), and the position type of a
+sequence slot (`pos_type_from_node_index` :139).
 """
 
 from __future__ import annotations
@@ -93,6 +94,33 @@ def pos_percentile_boundaries(all_pos: np.ndarray, num_bins: int, eps: float = 1
     b = np.percentile(filtered, q).astype(np.float32)
     b[0], b[-1] = -100.0, 100.0
     return b
+
+
+def build_dict_bounds(
+    all_pos: np.ndarray,
+    cache_dir: "str | None" = None,
+    nums=(128, 256, 512, 1024),
+    eps: float = 1e-4,
+):
+    """{num_bins: boundaries} for the reference's four bin counts, cached
+    as npz next to the dataset (pcqm4mv2.py:262-266 file protocol)."""
+    import os
+
+    out = {}
+    for num in nums:
+        fn = (
+            os.path.join(cache_dir, f"pos_{num}percentile_eps{eps}_boundaries.npz")
+            if cache_dir
+            else None
+        )
+        if fn and os.path.exists(fn):
+            out[num] = np.load(fn)["boundaries"].astype(np.float32)
+            continue
+        b = pos_percentile_boundaries(all_pos, num, eps)
+        if fn:
+            np.savez(fn, boundaries=b)
+        out[num] = b
+    return out
 
 
 def discrete_pos_v2(pos, num_bins: int, dict_bounds) -> np.ndarray:

@@ -182,8 +182,13 @@ class StackedGSTTokenizer:
             erows = euler.walk_edge_attr_rows(graph, walk)  # [P0-1]
             eattr = np.empty((p0, self.edge_dim), np.int32)
             eattr[0] = self.edge_lookup.default_ids
-            if p0 > 1:
-                real = erows >= 0
+            real = erows >= 0
+            if p0 > 1 and not real.any():
+                # an edge-free graph of several nodes walks by jumps only
+                # (repair: the JAX tokenizer indexes its empty edge_attr here
+                # and raises)
+                eattr[1:] = self.edge_lookup.default_ids[None, :]
+            elif p0 > 1:
                 vals = np.where(real[:, None], graph.edge_attr[np.maximum(erows, 0)], 0)
                 looked = self.edge_lookup(vals)
                 eattr[1:] = np.where(

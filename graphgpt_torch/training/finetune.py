@@ -6,8 +6,11 @@ pretrain checkpoint with the heads skipped, optional freezing, the eval
 surface of each epoch (train subset, valid, EMA valid with the EMA-best
 checkpoint, test with EMA), prediction and hidden-state dumps, and the
 `eval_only` sweep over saved epochs. The mesh, several processes and the
-partitioned corpus wait for the multi-GPU slice. Eval covers each index
-once: no row is repeated to fill a batch.
+partitioned corpus wait for the multi-GPU slice. The splits are the
+dataset's own where it has them (a graph-level reader's), and each epoch
+resets the dataset's node permutations (`reset_samples`); the loader runs
+`num_workers` tokenizer processes. Eval covers each index once: no row is
+repeated to fill a batch.
 
     python -m graphgpt_torch.training.finetune --config cfg.yaml key.sub=value ...
 """
@@ -72,8 +75,13 @@ class FinetunePipeline:
         m.next_n_token = m.stacked_feat if m.use_aux else 1
         m.finalize()
 
-        tr, va = train_valid_split(len(self.dataset), max(tcfg.valid_percent, 0.05), tcfg.seed)
-        self.train_idx, self.valid_idx, self.test_idx = tr, va, va
+        # splits: the dataset's own where it has them (a reader's store)
+        if hasattr(self.dataset, "splits"):
+            self.train_idx, self.valid_idx, self.test_idx = self.dataset.splits()
+        else:
+            tr, va = train_valid_split(len(self.dataset), max(tcfg.valid_percent, 0.05),
+                                       tcfg.seed)
+            self.train_idx, self.valid_idx, self.test_idx = tr, va, va
         steps_per_epoch = max(len(self.train_idx) // tcfg.batch_size, 1)
         self.epochs = tcfg.schedule.epochs or 10
         self.total_steps = steps_per_epoch * self.epochs
@@ -105,7 +113,7 @@ class FinetunePipeline:
         self.eval_step_ema = make_eval_step(use_ema=True)
         self.loader = GraphTokenLoader(
             self.dataset, self.tokenizer, batch_size=tcfg.batch_size, mpe=tcfg.max_length,
-            bucket=tcfg.pad_to_multiple_of, seed=tcfg.seed,
+            bucket=tcfg.pad_to_multiple_of, num_workers=tcfg.num_workers, seed=tcfg.seed,
         )
         self.ckpt = Checkpointer(os.path.join(tcfg.output_dir, "ckpt"))
         self.ckpt_ema_best = Checkpointer(os.path.join(tcfg.output_dir, "ckpt_ema_best"), keep=1)
@@ -262,10 +270,19 @@ class FinetunePipeline:
 
     def run(self):
         tcfg = self.cfg.training
-        if tcfg.eval_only:
-            return self.run_eval_only()
+        try:
+            return self.run_eval_only() if tcfg.eval_only else self._run()
+        finally:
+            self.loader.close()
+
+    def _run(self):
+        tcfg = self.cfg.training
         global_step = 0
         for epoch in range(self.epochs):
+            # the dataset's epoch (its node permutations), as the JAX
+            # pipeline resets it; the loader sends it to its workers
+            if hasattr(self.dataset, "reset_samples"):
+                self.dataset.reset_samples(epoch, tcfg.seed)
             idx = np.random.default_rng((tcfg.seed, epoch)).permutation(self.train_idx)
             for batch in self.loader.prefetched(idx, epoch):
                 self.state, metrics = self.train_step(

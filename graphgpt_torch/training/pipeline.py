@@ -11,9 +11,11 @@ EMA-valid losses and the dLLM generation sweep over unmask-ratio bands
 (result.csv). The eval and the sweep run whole rows: `attn_block`, which
 block-aligned packing sets for training, is off there, as the JAX package's
 eval config has it. The mesh, several processes, the partitioned corpus and
-the TensorBoard writer wait for later slices; `synthetic_mol` is the
-source until the OGB readers' data files are in the repository. Two
-differences from the JAX package, both repairs: a save point's eval keeps
+the TensorBoard writer wait for later slices. The dataset is a config's
+graph-level npz store through `readers.read_dataset` (PCQM4M-v2,
+ogbg-molpcba, reddit_threads, spice-circuit, ...) or `synthetic_mol`; the
+big-graph readers wait for their slice. Two differences from the JAX
+package, both repairs: a save point's eval keeps
 the last partial batch (the JAX loader drops it, so a valid set smaller than
 one packed batch gives no valid loss at all), and the tokenizer takes the
 config's `pretrain_mlm` schedule.
@@ -53,20 +55,21 @@ COORD_TASKS = ("pretrain-coord", "pretrain-coord-cl", "pretrain-mlm-coord")
 
 def build_dataset(cfg: Config):
     name = cfg.tokenization.dataset
-    if name != "synthetic_mol":
-        raise NotImplementedError(
-            f"dataset {name!r}: the port reads synthetic_mol; the OGB readers wait for their "
-            "data files"
-        )
-    # coord tasks need 3D positions on every molecule
-    return SyntheticMolDataset(50_000, seed=cfg.training.seed,
-                               with_pos="coord" in cfg.training.task_type)
+    if name == "synthetic_mol":
+        # coord tasks need 3D positions on every molecule
+        return SyntheticMolDataset(50_000, seed=cfg.training.seed,
+                                   with_pos="coord" in cfg.training.task_type)
+    from .. import readers  # registry of the dataset readers
+
+    return readers.read_dataset(name, cfg)
 
 
 def build_tokenizer(cfg: Config, dataset) -> StackedGSTTokenizer:
     """The vocab from `output_dir/vocab_file` where it exists, else built
-    from the molecule attribute cardinalities and saved there; the tokenizer
-    of the config's task with its SMTP schedule."""
+    and saved there: from the molecule attribute cardinalities for
+    `synthetic_mol`, else from the attribute values of the dataset's first
+    10,000 graphs; the tokenizer of the config's task with its SMTP
+    schedule."""
     tok_cfg = cfg.tokenization
     if tok_cfg.tokenizer_class != "StackedGSTTokenizer":
         raise NotImplementedError(f"tokenizer {tok_cfg.tokenizer_class!r} waits for a later slice")
@@ -74,8 +77,23 @@ def build_tokenizer(cfg: Config, dataset) -> StackedGSTTokenizer:
     if os.path.exists(vocab_path):
         vm = vocab_mod.load_vocab(vocab_path)
     else:
-        node_vals = [np.arange(c) for c in MOL_NODE_CARD]
-        edge_vals = [np.arange(c) for c in MOL_EDGE_CARD]
+        if tok_cfg.dataset == "synthetic_mol":
+            node_vals = [np.arange(c) for c in MOL_NODE_CARD]
+            edge_vals = [np.arange(c) for c in MOL_EDGE_CARD]
+        elif getattr(dataset, "big", None) is not None:
+            raise NotImplementedError("the vocab of a big-graph dataset waits for the big-graph "
+                                      "slice (ROADMAP.md queue 1 item 6)")
+        else:
+            node_vals = vocab_mod.scan_attr_values(
+                (dataset[i] for i in range(min(len(dataset), 10000))),
+                tok_cfg.semantics.node.discrete or "node_attr",
+                tok_cfg.semantics.node.dim,
+            )
+            edge_vals = vocab_mod.scan_attr_values(
+                (dataset[i] for i in range(min(len(dataset), 10000))),
+                tok_cfg.semantics.edge.discrete or "edge_attr",
+                tok_cfg.semantics.edge.dim,
+            )
         vocab = vocab_mod.build_vocab(tok_cfg, node_vals, edge_vals)
         vocab_mod.save_vocab(vocab, vocab_path)
         vm = vocab_mod.vocab_map_from_list(vocab)

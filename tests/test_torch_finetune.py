@@ -3,8 +3,8 @@
 Both pipelines run the same config on `synthetic_mol` (hidden 64, 2 layers,
 fp32, dropout 0, LayerScale on, embeddings frozen, EMA on, two epochs of 6
 steps) from the same weights: the JAX pipeline's initial parameters are
-loaded into the port's model. Both walk in numpy (the JAX package's C++
-walk is switched off), so the batches are the same. The per-step losses
+loaded into the port's model. Both walk in numpy (both packages' C++
+walks are switched off), so the batches are the same. The per-step losses
 agree to 1e-4 relative (fp32 sums in another order through two layers and
 twelve AdamW steps), and the eval metrics of each epoch to 1e-4 relative.
 """
@@ -21,6 +21,7 @@ from graphgpt_tpu.config import Config as JConfig
 from graphgpt_tpu.data import euler as jeuler
 from graphgpt_tpu.training import finetune as jft
 from graphgpt_torch.config import Config as TConfig
+from graphgpt_torch.data import euler as teuler
 from graphgpt_torch.models.heads import GraphGPTPretrain, GraphGPTTask
 from graphgpt_torch.training import finetune as tft
 from graphgpt_torch.training.checkpoint import Checkpointer, restore_params_warmstart
@@ -65,7 +66,17 @@ def _rows(path):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def port_numpy_walk():
+    """The port's walk pinned to numpy for the module, as the JAX package's
+    is around its runs below."""
+    saved = (teuler._NATIVE_CHECKED, teuler._NATIVE)
+    teuler._NATIVE_CHECKED, teuler._NATIVE = True, None
+    yield
+    teuler._NATIVE_CHECKED, teuler._NATIVE = saved
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, port_numpy_walk):
     """Both pipelines run from the same weights: (jax dir, port dir, port
     pipeline, initial port state dict)."""
     tmp = tmp_path_factory.mktemp("ft")

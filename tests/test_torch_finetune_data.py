@@ -4,9 +4,10 @@ tokenizer's task rows, the collator, the loader, the metrics and the OGB
 evaluators. These are numpy code on both sides, so the results must be
 equal (metrics to 1e-12: the same float64 formulas).
 
-The JAX package's C++ Euler walk draws its random numbers in another order
-than the numpy walk the port copies, so its loader is held to the numpy
-walk here (`euler._NATIVE_CHECKED = True`, `_NATIVE = None`).
+Both packages walk in C++ by default; here both are held to the numpy
+walk (`euler._NATIVE_CHECKED = True`, `_NATIVE = None` in each package's
+`data/euler.py`). `tests/test_torch_readers.py` holds the two default (C++)
+walks against each other.
 """
 
 import glob
@@ -27,6 +28,7 @@ from graphgpt_tpu.utils import ogb_eval as jogb
 from graphgpt_torch import config as tconfig
 from graphgpt_torch.data import collator as tcollator
 from graphgpt_torch.data import datasets as tdatasets
+from graphgpt_torch.data import euler as teuler
 from graphgpt_torch.data import loader as tloader
 from graphgpt_torch.data import tokenizer as ttok
 from graphgpt_torch.data import vocab as tvocab
@@ -41,6 +43,8 @@ CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))
 def numpy_walk(monkeypatch):
     monkeypatch.setattr(jeuler, "_NATIVE_CHECKED", True)
     monkeypatch.setattr(jeuler, "_NATIVE", None)
+    monkeypatch.setattr(teuler, "_NATIVE_CHECKED", True)
+    monkeypatch.setattr(teuler, "_NATIVE", None)
 
 
 def _shared_fields(a, b, path=""):

@@ -5,7 +5,8 @@ finds no import of jax, jaxlib, optax, flax, orbax or graphgpt_tpu, at any
 depth (inside functions too). A subprocess that blocks `jax` in
 `sys.modules` imports every module of the port and runs a tiny CPU forward,
 a few sampler steps, one training step, a one-epoch fine-tune run and the
-two 3D-molecule models' training forwards.
+two 3D-molecule models' training forwards, and reads a graph-level store
+through the readers and walks one of its graphs in C++.
 """
 
 import ast
@@ -49,8 +50,12 @@ def test_the_scan_sees_every_module():
                  "graphgpt_torch/utils/metrics.py", "graphgpt_torch/models/denoise.py",
                  "graphgpt_torch/models/pos_pretrain.py", "graphgpt_torch/data/mol3d.py",
                  "graphgpt_torch/training/pipeline.py", "graphgpt_torch/data/loader.py",
-                 "graphgpt_torch/utils/inspection.py", "chip_smoke.py"):
+                 "graphgpt_torch/utils/inspection.py", "graphgpt_torch/readers.py",
+                 "graphgpt_torch/native/euler_native.py", "graphgpt_torch/native/__init__.py",
+                 "graphgpt_torch/data/partition.py", "chip_smoke.py"):
         assert must in names
+    assert sorted(p.name for p in (ROOT / "graphgpt_torch" / "native").iterdir()
+                  if p.suffix in (".py", ".cpp")) == ["__init__.py", "euler.cpp", "euler_native.py"]
     assert sorted(p.name for p in (ROOT / "graphgpt_torch" / "csrc").glob("*.cu")) == [
         "flash_bwd.cu", "flash_bwd_split.cu", "flash_fwd.cu", "mlp.cu", "norm_mlp.cu",
         "norm_qkv.cu", "rmsnorm_bwd.cu",
@@ -133,6 +138,26 @@ out = GraphGPTDenoise(cfg3, device="cpu")(mb, torch.Generator().manual_seed(0), 
 assert torch.isfinite(out["loss"]) and out["task_logits"].shape == (2, 1), out
 out = GraphGPTPosPred(cfg3, device="cpu")(mb, torch.Generator().manual_seed(0), train=True)
 assert torch.isfinite(out["loss"]), out
+from graphgpt_torch import readers
+from graphgpt_torch.data import euler
+from graphgpt_torch.data.datasets import random_molecule_graph
+d = tempfile.mkdtemp()
+os.makedirs(os.path.join(d, "pcqm4m-v2"))
+gs = [random_molecule_graph(np.random.default_rng(i)) for i in range(12)]
+ptr = lambda xs: np.concatenate([[0], np.cumsum(xs)]).astype(np.int64)
+np.savez(os.path.join(d, "pcqm4m-v2", "graphs.npz"),
+         node_attr=np.concatenate([g.node_attr for g in gs]),
+         edge_attr=np.concatenate([g.edge_attr for g in gs]),
+         edge_index=np.concatenate([g.edge_index + o for g, o in
+                                    zip(gs, ptr([g.num_nodes for g in gs]))], axis=1),
+         node_ptr=ptr([g.num_nodes for g in gs]), edge_ptr=ptr([g.num_edges for g in gs]),
+         y=np.ones((12, 1), np.float32), train_idx=np.arange(8), valid_idx=np.arange(8, 12))
+cfg = Config()
+cfg.tokenization.dataset, cfg.tokenization.data_dir = "pcqm4m-v2", d
+ds = readers.read_dataset("pcqm4m-v2", cfg)
+assert [len(s) for s in ds.splits()] == [8, 4, 0] and ds[3].num_nodes == gs[3].num_nodes
+assert euler._native() is not None  # the C++ walk
+assert len(euler.graph_to_walk(ds[0], np.random.default_rng(0))) >= ds[0].num_nodes
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "graphgpt_tpu")
              and sys.modules[m] is not None)
 assert not bad, bad

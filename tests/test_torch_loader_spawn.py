@@ -29,7 +29,7 @@ _WORKER = r"""
 import pickle, sys
 import graphgpt_torch.data.loader as loader
 loader._init_worker(*pickle.loads(sys.stdin.buffer.read()))
-rows = loader._tokenize_chunk((0, 0, [0, 1, 2]))
+rows = loader._tokenize_chunk((0, 0, [0, 1, 2], None))
 assert len(rows) == 3 and all(len(r.input_ids) > 0 for r in rows), rows
 print(sorted(m for m in sys.modules if m.split(".")[0] == "torch"))
 """

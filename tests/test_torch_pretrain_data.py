@@ -6,9 +6,11 @@ estimate, the tokenization inspection, the throughput columns, and the two
 repairs of the dataset and tokenizer a pretrain config builds. These are
 numpy code on both sides, so the results must be equal bit for bit.
 
-The JAX package's C++ Euler walk draws its random numbers in another order
-than the numpy walk the port copies, so the JAX side is held to the numpy
-walk here (`euler._NATIVE_CHECKED = True`, `_NATIVE = None`).
+Both packages walk in C++ by default; here both are held to the numpy
+walk (`euler._NATIVE_CHECKED = True`, `_NATIVE = None` in each package's
+`data/euler.py`; the port's loader passes that on to its spawned workers).
+`tests/test_torch_readers.py` holds the two default (C++) walks against
+each other.
 """
 
 import numpy as np
@@ -27,6 +29,7 @@ from graphgpt_tpu.utils import logging as jlogging
 from graphgpt_torch import config as tconfig
 from graphgpt_torch.data import collator as tcollator
 from graphgpt_torch.data import datasets as tdatasets
+from graphgpt_torch.data import euler as teuler
 from graphgpt_torch.data import loader as tloader
 from graphgpt_torch.data import tokenizer as ttok
 from graphgpt_torch.data import vocab as tvocab
@@ -47,6 +50,8 @@ SCHEDULES = {
 def numpy_walk(monkeypatch):
     monkeypatch.setattr(jeuler, "_NATIVE_CHECKED", True)
     monkeypatch.setattr(jeuler, "_NATIVE", None)
+    monkeypatch.setattr(teuler, "_NATIVE_CHECKED", True)
+    monkeypatch.setattr(teuler, "_NATIVE", None)
 
 
 def _tok_cfgs():

@@ -5,8 +5,8 @@ Both `PretrainPipeline`s run the same config on `synthetic_mol` (hidden 64,
 package's CPU test mesh has 8 devices), EMA, four steps with save points at
 steps 2 and 4, a generation sweep of 2 bands over 8 graphs) from the same
 weights: the JAX pipeline's initial
-parameters are loaded into the port's model. Both walk in numpy (the JAX
-package's C++ walk is switched off), so the batches are the same (the
+parameters are loaded into the port's model. Both walk in numpy (both
+packages' C++ walks are switched off), so the batches are the same (the
 loaders tokenize in their own thread: the worker pool's batches are held
 to JAX's in tests/test_torch_pretrain_data.py). The per-step
 losses, learning rates and gradient norms agree to 1e-4 relative (fp32
@@ -32,6 +32,7 @@ from graphgpt_tpu.config import Config as JConfig
 from graphgpt_tpu.data import euler as jeuler
 from graphgpt_tpu.training import pipeline as jpipeline
 from graphgpt_torch.config import Config as TConfig
+from graphgpt_torch.data import euler as teuler
 from graphgpt_torch.training import pipeline as tpipeline
 from graphgpt_torch.training.checkpoint import Checkpointer
 from graphgpt_torch.training.steps import init_train_state
@@ -91,7 +92,17 @@ def few_threads():
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def port_numpy_walk():
+    """The port's walk pinned to numpy for the module, as the JAX package's
+    is around its runs below."""
+    saved = (teuler._NATIVE_CHECKED, teuler._NATIVE)
+    teuler._NATIVE_CHECKED, teuler._NATIVE = True, None
+    yield
+    teuler._NATIVE_CHECKED, teuler._NATIVE = saved
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, port_numpy_walk):
     """Both pipelines from the same weights: (jax dir, port dir, JAX
     pipeline, port pipeline)."""
     tmp = tmp_path_factory.mktemp("pt")
