@@ -75,6 +75,33 @@
    kernel reports it), peak memory;
    then, host only, the split under dataset_policy remove_special (edge0,
    node1, disconnected) and true_valid.
+7c. Big-graph phases (A, B, C): two seeded stores in the schemas
+   tools/convert_ogb.py writes (write_big_graph_store): ogbl-ppa's 576,289
+   nodes ([global id, species], 58 species) with a quarter of its 30.3M
+   edges as the train graph, valid/test edges and negatives in OGB's
+   proportions; ogbn-proteins' 132,534 nodes in 8 species ([species, local
+   id], node_species, x_mask), an eighth of its 39.6M edges with 8
+   attributes in 0-999, y [N, 112], the species split in OGB's sizes; their
+   draw, write and CSR-build seconds. A: configs/ogbl_ppa_supervised.yaml
+   as shipped (768 x 12, pairs remat, batch 256, AUC loss, the vocab of
+   every global node id), B: configs/ogbn_proteins_supervised.yaml as
+   shipped (long stacking, gated, LayerScale, DropPath and attention
+   dropout, 112 labels, batch 128), each warm-started from the train
+   phase's model through FinetunePipeline on the reader's train split:
+   the dataset + tokenizer on one host core (samples/s, tokens a sample,
+   the share longer than max_length), the pool's first batch and its
+   workers' RSS, the loader alone; every kernel of the step at the first
+   batch's segments and N against its plain version (#1, #3, #13, and #2
+   for A, #11 for B); both embedding-gradient routes timed at that batch's
+   ids over vocab sizes (the switch point's measurement); the first step
+   on 16 rows against the plain bf16 run and an fp32 run; 16 counted steps
+   with their launches and each eval forward's, finite losses, hits@100
+   (A, the ogbl-ppa evaluator) or ROC-AUC (B) on 1,024 / 512 valid
+   samples, a step on a batch on the card against samples/s through the
+   pipeline, peak memory. C: configs/ogbn_proteins_pretrain.yaml as
+   shipped (256 x 4) through PretrainPipeline, four steps of packed long
+   pretrain-mlm rows, launches, finite losses and the save point's valid
+   loss.
 8. Denoise phase: a fresh GraphGPT-base denoising double-heads model
    (configs/pcqm4m_v2_supervised.yaml's setup plus bi_causal_split 16, the
    binary-energy decoding) on a 256 x 88 mol3d batch: every kernel of its
@@ -142,8 +169,8 @@
 
 Any failed check raises, so the script exits non-zero. The launch counts
 are set to 0 just before each main path (eval + generation; training;
-fine-tuning; graph-level fine-tuning; denoising; position pretraining;
-long-context pretraining;
+fine-tuning; graph-level fine-tuning; phases A, B and C; denoising;
+position pretraining; long-context pretraining;
 training and long-context pretraining under both knobs) and read just
 after it; launches made to compare a kernel with its plain
 version fall outside those windows.
@@ -235,8 +262,8 @@ POS_LOSS_ATOL = 1e-3
 # bf16 rounding points. F covers a gradient that bf16 leaves almost exact.
 # At random weights the deeper q/k gradients are ~1e-5 of the largest, and
 # bf16 moves them by tens of percent on either path, which the ratio absorbs
-# and a fixed limit could not; the loss is held to LOSS_ATOL against the
-# plain bf16 run.
+# and a fixed limit could not. The loss is held to LOSS_ATOL against the
+# plain bf16 run, and its distance from the fp32 run's to the same rule.
 STEP32_K = 2.0
 STEP32_F = 2e-3
 # The long-context run under GGT_FLASH_MODE=band and GGT_ATTN_NORM_FUSE=1
@@ -762,21 +789,23 @@ def mlp_timed(mlp, ops, name, tag, x, wn, wg, wu, wd, time_plain: bool = True):
                 bound_share=bms / ms, **{f"{k}_ms": v for k, v in stages.items()})
 
 
-def norm_mlp_at_shape(dev, mlp, ops, n: int, tag: str, time_plain: bool = True):
-    """norm_mlp (gelu, D 768, F 3072, weights at 0.02) against its plain
-    version on N rows and bit for bit against a second launch, then timed
-    (mlp_timed)."""
+def norm_mlp_at_shape(dev, mlp, ops, n: int, tag: str, time_plain: bool = True,
+                      name: str = "norm_mlp"):
+    """MLP kernel `name` (norm_mlp, or mlp; gelu, D 768, F 3072, weights at
+    0.02) against its plain version on N rows and bit for bit against a
+    second launch, then timed (mlp_timed)."""
     x, wn, wg, wu, wd = mlp_inputs(dev, n, 768, 3072, seed=1)
-    args = mlp_args("norm_mlp", x, wn, wg, wu, wd)
-    out = mlp.norm_mlp(*args)
+    args = mlp_args(name, x, wn, wg, wu, wd)
+    fn = getattr(mlp, name)
+    out = fn(*args)
     torch.cuda.synchronize()
     with ops.reference_mode():
-        ref = mlp.norm_mlp(*args)
-    err = check_mlp("norm_mlp", f"{tag}, N={n}", out, ref)
+        ref = fn(*args)
+    err = check_mlp(name, f"{tag}, N={n}", out, ref)
     del ref
-    mlp_relaunch(mlp, "norm_mlp", f"{tag}, N={n}", args, out)
+    mlp_relaunch(mlp, name, f"{tag}, N={n}", args, out)
     del out
-    return dict(err=err, **mlp_timed(mlp, ops, "norm_mlp", tag, x, wn, wg, wu, wd, time_plain))
+    return dict(err=err, **mlp_timed(mlp, ops, name, tag, x, wn, wg, wu, wd, time_plain))
 
 
 # (N, D, F, kernels) held to their plain versions and to a relaunch, untimed:
@@ -1814,6 +1843,458 @@ def graph_finetune_phase(pretrain_model, counters, ops, data_dir: str, sizes, ov
     return res, launches
 
 
+# ---------------------------------------------------------------------------
+# Big-graph phases (A ogbl-ppa fine-tune, B ogbn-proteins fine-tune, C
+# ogbn-proteins pretraining) on seeded stores in OGB's schemas
+# ---------------------------------------------------------------------------
+# OGB's sizes: ogbl-ppa's nodes and undirected edges (all splits), its split
+# ratios (train 70, valid 20, test 10) and eval negatives (3,000,000 a split
+# against 21,231,931 train edges); ogbn-proteins' nodes, undirected edges,
+# species (taxonomy ids), labels and species split
+PPA_NODES, PPA_EDGES, PPA_SPECIES = 576_289, 30_326_273, 58
+PPA_NEG_SHARE = 3_000_000 / 21_231_931
+PROTEINS_NODES, PROTEINS_EDGES, PROTEINS_LABELS = 132_534, 39_561_252, 112
+PROTEINS_SPECIES = (3702, 4932, 6239, 7227, 7955, 9606, 10090, 511145)
+PROTEINS_SPLIT = (86_619, 21_236, 24_679)
+# the cuts: ogbl-ppa's edge_index a quarter of its edges (average degree 26
+# over the real node count, above the reader's fanout 14), ogbn-proteins' an
+# eighth (average degree 75, far above fanout 10)
+PPA_CUT, PROTEINS_CUT = 4, 8
+# the synthetic structure: communities of consecutive nodes (within a
+# species for proteins), a share of each node's edges inside its own
+BIG_COMMUNITY = {"ogbl-ppa": (64, 0.7), "ogbn-proteins": (256, 0.5)}
+BIG_STEPS = 16  # counted fine-tune steps of phases A and B
+BIG_EVAL = {"ogbl-ppa": 1024, "ogbn-proteins": 512}  # valid samples evaluated
+# rows of the first step held to the plain and fp32 runs: ogbl-ppa's whole
+# batch (its AUC loss pairs positives with negatives of the same batch; on
+# 16 rows bf16 moved it 4e-3 from fp32 on the plain path and 1.6e-2 on the
+# kernels', on one seed, which is not explained yet), 16 of
+# ogbn-proteins' (the plain attention of all 128 rows at 1024 would keep
+# 77 GB of fp32 scores)
+BIG_STEP_ROWS = {"ogbl-ppa": 256, "ogbn-proteins": 16}
+PT_STEPS = 4  # pretraining steps of phase C
+
+
+def _community_edges(rng, n: int, m: int, community: int, inside: float, group_lo, group_hi):
+    """m distinct undirected edges (rows lo < hi) over nodes 0..n-1: each
+    from a uniform node, to a node of its own community of `community`
+    consecutive nodes with probability `inside`, else to a uniform node of
+    its group [group_lo[node], group_hi[node]); no self loop."""
+    out = np.zeros((0, 2), np.int64)
+    while len(out) < m:
+        k = 2 * (m - len(out)) + 1024
+        src = rng.integers(0, n, k)
+        lo, hi = group_lo[src], group_hi[src]
+        base = np.maximum(src // community * community, lo)
+        comm = base + rng.integers(0, community, k)
+        far = lo + (rng.random(k) * (hi - lo)).astype(np.int64)
+        dst = np.where((rng.random(k) < inside) & (comm < hi), comm, far)
+        keep = src != dst
+        pairs = np.stack([np.minimum(src, dst)[keep], np.maximum(src, dst)[keep]], 1)
+        keys = np.unique(np.concatenate([out[:, 0] * n + out[:, 1], pairs[:, 0] * n + pairs[:, 1]]))
+        keys = rng.permutation(keys)[:m]
+        out = np.stack([keys // n, keys % n], 1)
+    return out
+
+
+def write_big_graph_store(data_dir: str, name: str, n_nodes: int = 0, n_edges: int = 0,
+                          seed: int = 0):
+    """<data_dir>/<name>/big_graph.npz in the schema `tools/convert_ogb.py`
+    writes (the readers' npz contract), seeded: ogbl-ppa's (node_attr
+    [global id, species] over 58 species; edge_index the train edges, both
+    directions; {train,valid,test}_edge in OGB's 70/20/10 proportions,
+    {valid,test}_edge_neg at OGB's share of train) or ogbn-proteins' (8
+    species of consecutive node blocks, node_attr [species, local id],
+    node_species, edge_attr [E, 8] in 0-999 (the same both ways), y [N, 112]
+    binary, x_mask, the species split in OGB's sizes), its edges within a
+    species. Node ids are shuffled at the end. n_nodes / n_edges 0: OGB's
+    node count and edge count over the cut. Returns (path, seconds to draw,
+    seconds to write)."""
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    ppa = name == "ogbl-ppa"
+    n = n_nodes or (PPA_NODES if ppa else PROTEINS_NODES)
+    community, inside = BIG_COMMUNITY[name]
+    if ppa:
+        m = n_edges or PPA_EDGES // PPA_CUT
+        lo, hi = np.zeros(n, np.int64), np.full(n, n, np.int64)
+        m_all = m + int(m * 3 / 7)  # train, then valid and test positives
+    else:
+        m = m_all = n_edges or PROTEINS_EDGES // PROTEINS_CUT
+        # species blocks in OGB's split sizes (train, valid, test species)
+        sizes = np.asarray(PROTEINS_SPLIT) * n // PROTEINS_NODES
+        sizes[0] += n - sizes.sum()
+        block_sizes = [len(b) for b in np.array_split(np.arange(sizes[0]), 6)] + list(sizes[1:])
+        starts = np.cumsum([0] + block_sizes)
+        species_of_block = np.asarray(PROTEINS_SPECIES)
+        block = np.searchsorted(starts, np.arange(n), side="right") - 1
+        lo, hi = starts[block], starts[block + 1]
+    edges = _community_edges(rng, n, m_all, community, inside, lo, hi)
+    perm = rng.permutation(n)  # shuffled node ids
+    edges = perm[edges]
+    train = edges[:m]
+    data = dict(edge_index=np.concatenate([train, train[:, ::-1]]).T.astype(np.int32),
+                num_nodes=np.int64(n))
+    if ppa:
+        n_va = (m_all - m) * 2 // 3
+        data.update(train_edge=train, valid_edge=edges[m:m + n_va], test_edge=edges[m + n_va:])
+        n_neg = int(round(m * PPA_NEG_SHARE))
+        for split in ("valid", "test"):
+            data[f"{split}_edge_neg"] = rng.integers(0, n, (n_neg, 2))
+        species = rng.integers(0, PPA_SPECIES, n)
+        data["node_attr"] = np.stack([np.arange(n), species], 1).astype(np.int32)
+    else:
+        species = np.empty(n, np.int64)
+        species[perm] = species_of_block[block]
+        local = np.empty(n, np.int64)
+        local[perm] = np.arange(n) - lo + 1  # 1-based running count in the species
+        data["node_attr"] = np.stack([species, local], 1).astype(np.int32)
+        data["node_species"] = species
+        e_attr = rng.integers(0, 1000, (m, 8)).astype(np.int32)
+        data["edge_attr"] = np.concatenate([e_attr, e_attr])
+        data["y"] = (rng.random((n, PROTEINS_LABELS)) < 0.15).astype(np.int64)
+        data["x_mask"] = np.ones(2, np.int64)
+        split_of_block = np.repeat([0, 1, 2], (6, 1, 1))
+        node_split = np.empty(n, np.int64)
+        node_split[perm] = split_of_block[block]
+        for k, split in enumerate(("train", "valid", "test")):
+            data[f"{split}_idx"] = np.flatnonzero(node_split == k)
+    gen_s = time.perf_counter() - t0
+    path = os.path.join(data_dir, name, "big_graph.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t1 = time.perf_counter()
+    np.savez(path, **data)
+    write_s = time.perf_counter() - t1
+    e = data["edge_index"].shape[1]
+    print(f"big-graph store {name}: {n} nodes, {e // 2} undirected edges in edge_index "
+          f"(average degree {e / n:.1f}), "
+          + ", ".join(f"{k} {tuple(v.shape)}" for k, v in data.items()
+                      if k not in ("edge_index", "num_nodes"))
+          + f"; {os.path.getsize(path)} bytes, drawn in {gen_s:.1f} s, written in {write_s:.1f} s",
+          flush=True)
+    return path, gen_s, write_s
+
+
+def csr_build_seconds(path: str) -> float:
+    """The reader's CSR of the store built and cached (`readers._big_csr`),
+    timed; later reads map the cache."""
+    from graphgpt_torch import readers
+
+    t0 = time.perf_counter()
+    big, _ = readers._load_big_graph(path)
+    readers._big_csr(path, big)
+    return time.perf_counter() - t0
+
+
+def one_core_samples(ds, tok, idx, max_length: int):
+    """The dataset plus tokenizer on one host core over `idx`: (samples/s,
+    mean tokens a sample, the share longer than max_length)."""
+    cpu = sorted(os.sched_getaffinity(0))
+    os.sched_setaffinity(0, cpu[:1])
+    try:
+        t0 = time.perf_counter()
+        lens = [tok(ds[int(i)], np.random.default_rng(int(i))).seq_len for i in idx]
+        rate = len(idx) / (time.perf_counter() - t0)
+    finally:
+        os.sched_setaffinity(0, cpu)
+    lens = np.asarray(lens)
+    return rate, float(lens.mean()), float((lens > max_length).mean())
+
+
+def embed_grad_probe(ids, d: int, vocabs, chunk: int):
+    """Both routes of the embedding gradient (modeling.embedding_grad) timed
+    on `ids` [N, F] (taken modulo each vocab size) with a bf16 cotangent
+    [N, D]: {vocab: (count-matrix ms, segment-sum ms)}; the two held to each
+    other."""
+    from graphgpt_torch.models import modeling
+
+    gen = torch.Generator(device=ids.device).manual_seed(3)
+    gf = torch.randn(ids.shape[0], d, generator=gen, device=ids.device).to(torch.bfloat16)
+    out = {}
+    for v in vocabs:
+        vi = ids % v
+        seg = modeling._segment_sum_grad(vi, gf, v)
+        cnt = modeling._count_matrix_grad(vi, gf, v, chunk)
+        err = rel_err(seg, cnt)
+        if err > 1e-5:
+            fail(f"the two embedding-gradient routes differ at vocab {v}: {err:.3e}")
+        del seg, cnt
+        out[v] = (cuda_ms(lambda: modeling._count_matrix_grad(vi, gf, v, chunk), iters=2,
+                          warmup=1),
+                  cuda_ms(lambda: modeling._segment_sum_grad(vi, gf, v), iters=2, warmup=1))
+    torch.cuda.empty_cache()
+    return out
+
+
+def big_finetune_phase(pretrain_model, counters, fa, mlp, ops, data_dir: str, name: str,
+                       overrides=()):
+    """Phase A (ogbl-ppa) or B (ogbn-proteins): the dataset's supervised
+    config as shipped, read from the file, on its store through the
+    FinetunePipeline, warm-started from the train phase's model (see the
+    module docstring). Returns (its numbers, the launches of the run)."""
+    from graphgpt_torch import synthetic
+    from graphgpt_torch.config import load_config
+    from graphgpt_torch.models.modeling import derive_generator
+    from graphgpt_torch.models.rope import reset_position_ids, rope_cos_sin
+    from graphgpt_torch.training.finetune import FinetunePipeline
+
+    ppa = name == "ogbl-ppa"
+    tag = "phase A (ogbl-ppa)" if ppa else "phase B (ogbn-proteins)"
+    cfg_file = "ogbl_ppa_supervised.yaml" if ppa else "ogbn_proteins_supervised.yaml"
+    dev = pretrain_model.device
+    path = os.path.join(data_dir, name, "big_graph.npz")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        pt_dir, ft_dir = os.path.join(tmp, "pretrain"), os.path.join(tmp, "finetune")
+        save_pretrain(pretrain_model, pt_dir)
+        over = [f"tokenization.data_dir={data_dir}", f"training.output_dir={ft_dir}",
+                f"training.pretrain_cpt={pt_dir}", "training.schedule.logging_steps=1",
+                *overrides]
+        cfg = load_config(os.path.join(HERE, "configs", cfg_file), over)
+        t0 = time.perf_counter()
+        pipe = FinetunePipeline(cfg, device=dev).setup()
+        setup_s = time.perf_counter() - t0
+        m, t = pipe.cfg.model, pipe.cfg.training
+        ds, tok = pipe.dataset, pipe.tokenizer
+        print(f"{tag} setup {setup_s:.1f} s (the reader, the vocab from the full tables: "
+              f"{m.vocab_size} tokens): {m.hidden_size} x {m.num_hidden_layers}, stacked_feat "
+              f"{m.stacked_feat} ({pipe.cfg.tokenization.stack_method}, "
+              f"{type(tok).__name__}), {m.stacked_feat_agg_method}, {m.problem_type} "
+              f"{m.loss_type} ({m.num_labels} labels), remat {m.remat_policy}, {m.dtype}, "
+              f"LayerScale {m.layer_scale_init_value}, DropPath {m.path_dropout}, attention "
+              f"dropout {m.attention_dropout}, batch {t.batch_size}, max_length "
+              f"{t.max_length}, {t.optimizer.scheduler} {t.optimizer.lr}, EMA "
+              f"{t.optimizer.ema_decay if t.optimizer.use_ema else 'off'}, {t.num_workers} "
+              f"loader workers; dataset {type(ds).__name__} of {len(ds)} samples (the "
+              f"reader's train split), train {len(pipe.train_idx)} / valid "
+              f"{len(pipe.valid_idx)} by train_valid_split", flush=True)
+        want_cls = "EgoEdgeDataset" if ppa else "EgoNodeDataset"
+        if type(ds).__name__ != want_cls or (not ppa and type(tok).__name__ !=
+                                             "StackedGSTTokenizerLong"):
+            fail(f"{tag}: the pipeline built {type(ds).__name__} / {type(tok).__name__}")
+        if ppa and m.vocab_size <= ds.big.num_nodes:
+            fail(f"{tag}: the vocab ({m.vocab_size}) does not hold every global node id")
+        one_rate, tokens_mean, cut_share = one_core_samples(
+            ds, tok, np.random.default_rng(1).choice(pipe.train_idx, 256), t.max_length)
+        # the first BIG_STEPS batches of epoch 0 and BIG_EVAL valid samples
+        pipe.train_idx, pipe.epochs = pipe.train_idx[: BIG_STEPS * t.batch_size], 1
+        pipe.valid_idx = pipe.test_idx = pipe.valid_idx[: BIG_EVAL[name]]
+        model = pipe.state.model
+        idx0 = np.random.default_rng((t.seed, 0)).permutation(pipe.train_idx)
+        t0 = time.perf_counter()
+        nb = next(pipe.loader.epoch_batches(idx0, 0)).data
+        first_s = time.perf_counter() - t0
+        rss, rss_kind = worker_rss(pipe.loader)
+        t0 = time.perf_counter()
+        n_loaded = sum(bb["segment_ids"].shape[0]
+                       for bb in pipe.loader.epoch_batches(pipe.train_idx[: 4 * t.batch_size],
+                                                           epoch=1))
+        loader_rate = n_loaded / (time.perf_counter() - t0)
+        batch = synthetic.to_torch(nb, dev)
+        b, p = nb["segment_ids"].shape
+        n_rows = b * p
+        print(f"{tag} batch: {b} samples x {p} positions (N {n_rows}), "
+              f"{int((nb['segment_ids'] > 0).sum())} tokens; the pool's first batch in "
+              f"{first_s:.2f} s, its workers' RSS ({rss_kind}) {max(rss, default=0):.0f} MiB at "
+              f"most ({sum(rss):.0f} in all); dataset + tokenizer on one host core "
+              f"{one_rate:.0f} samples/s ({host_cpu()}), {tokens_mean:.1f} tokens a sample, "
+              f"{cut_share:.1%} longer than max_length {t.max_length}; the loader alone "
+              f"{loader_rate:.0f} samples/s with {t.num_workers} spawned workers", flush=True)
+
+        # every kernel of the step at this batch's shape against its plain version
+        pos = reset_position_ids(batch["position_ids"], m.rope_range)
+        cos, sin = (x.to(torch.bfloat16) for x in rope_cos_sin(
+            pos, m.head_dim, m.rope_theta, resonance=m.rope_resonance,
+            rope_scaling=m.rope_scaling, max_position_embeddings=m.max_position_embeddings))
+        shape = dict(flash=flash_at_shape(fa, ops, tag, batch["segment_ids"], cos, sin,
+                                          m.num_attention_heads, m.head_dim,
+                                          m.causal_attention),
+                     rms=rms_bwd_phase(dev, mlp, ops, n_rows))
+        shape["mlp"] = norm_mlp_at_shape(dev, mlp, ops, n_rows, tag,
+                                         name="norm_mlp" if ppa else "mlp")
+        del cos, sin
+        # the embedding gradient's two routes at this batch's ids and width
+        ids = batch["input_ids"].reshape(-1, 1 if m.stacked_feat_agg_method == "gated"
+                                         else m.stacked_feat).long()
+        gated = m.stacked_feat_agg_method == "gated"
+        probe = embed_grad_probe(ids, m.hidden_size, (1024, 4096, 16384, 65536, m.vocab_size),
+                                 65536 if gated else 8192)
+        from graphgpt_torch.models.modeling import segment_route
+
+        print(f"{tag} embedding gradient at N {ids.shape[0]} x F {ids.shape[1]}, D "
+              f"{m.hidden_size} (ms, count matrix / segment sum): "
+              + ", ".join(f"V {v}: {a:.3f} / {s:.3f}" for v, (a, s) in probe.items())
+              + f"; the route at this model's vocab: "
+              f"{'segment sum' if segment_route(*ids.shape, m.vocab_size) else 'count matrix'}",
+              flush=True)
+        # the first step against the plain bf16 run and an fp32 run, on rows
+        sub = {k: v[: BIG_STEP_ROWS[name]] for k, v in batch.items()}
+        gen_call = (lambda: dict(generator=derive_generator(t.seed, 0, dev)))
+        grad = step_vs_fp32(model, sub, ops, tag, gen_call)
+        torch.cuda.empty_cache()
+
+        L = m.num_hidden_layers
+        train_log, eval_log, metrics = counted_pipeline(pipe, counters)
+        times = []
+        step_fn = pipe.train_step
+
+        ends = []
+
+        def timed_step(*a, **kw):
+            times.append(time.perf_counter())
+            out = step_fn(*a, **kw)
+            torch.cuda.synchronize()  # the pipeline's log line syncs each step too
+            ends.append(time.perf_counter())
+            return out
+
+        pipe.train_step = timed_step
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        best = pipe.run()
+        run_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        # through the pipeline, steps 2-16: samples/s, the step's own seconds
+        # and the wait between one step's end and the next one's start
+        pipe_rate = (BIG_STEPS - 1) * t.batch_size / (ends[BIG_STEPS - 1] - times[1])
+        in_step = float(np.mean([e - s for s, e in zip(times[1:BIG_STEPS], ends[1:])]))
+        gap = float(np.mean([s - e for s, e in zip(times[2:BIG_STEPS], ends[1:])]))
+        zero = {k: 0 for k in counters}
+        if ppa:  # pairs remat, no LayerScale: as the graph-level phase
+            want = {**zero, "flash_fwd": 2 * L, "norm_mlp": L + L // 2, "flash_bwd": L,
+                    "rmsnorm_bwd": L + 1}
+            want_eval = {**zero, "flash_fwd": L, "norm_mlp": L}
+        else:  # pairs remat with LayerScale and DropPath: as the fine-tune phase
+            want = {**zero, "mlp": 2 * L, "flash_fwd": 2 * L, "flash_bwd": L,
+                    "rmsnorm_bwd": 2 * L + 1}
+            want_eval = {**zero, "mlp": L, "flash_fwd": L}
+        check_logs(tag, train_log, eval_log, want, want_eval, BIG_STEPS)
+        losses = [float(x["loss"]) for x in metrics]
+        print(f"{tag} losses: " + " ".join(f"{x:.4f}" for x in losses), flush=True)
+        if not all(np.isfinite(losses)):
+            fail(f"{tag}: the losses are not finite: {losses}")
+        key = "hits@100" if ppa else "auroc"
+        got = {k: best.get(k) for k in (f"valid_{key}", f"valid_ema_{key}", f"test_{key}",
+                                        f"train_{key}")}
+        print(f"{tag} eval ({key}; {'the ogbl-ppa evaluator' if ppa else 'ROC-AUC over the '}"
+              f"{'' if ppa else '112 labels'}) on {len(pipe.valid_idx)} valid samples: {got}",
+              flush=True)
+        if not all(np.isfinite(got[k] if got[k] is not None else np.nan)
+                   for k in (f"valid_{key}", f"valid_ema_{key}")):
+            fail(f"{tag}: the valid and EMA-valid {key} are not finite: {best}")
+        ms = cuda_ms(lambda: pipe.train_step(pipe.state, batch, seed=t.seed), iters=1, warmup=1,
+                     repeats=5)
+        ms_spread = spread()
+        print(f"{tag} through the pipeline: a step {in_step * 1e3:.1f} ms, the wait before the "
+              f"next {gap * 1e3:.1f} ms (means over steps 2-{BIG_STEPS}, host clock)", flush=True)
+        phase_s = time.perf_counter() - t_phase
+        print(f"{tag}: {ms:.2f} ms/step on a batch on the card (5 readings {ms_spread}), "
+              f"{b / ms * 1e3:.0f} samples/s; through the pipeline {pipe_rate:.0f} samples/s "
+              f"(steps 2-{BIG_STEPS}); the run ({BIG_STEPS} steps, eval, checkpoints) "
+              f"{run_s:.1f} s; max_memory_allocated {peak:.0f} MiB; the phase {phase_s:.1f} s",
+              flush=True)
+        if peak > 80 * 1024:
+            fail(f"{tag}: peak memory {peak:.0f} MiB")
+        res = dict(step_ms=ms, pipeline_samples_s=pipe_rate, loader_samples_s=loader_rate,
+                   pipeline_step_ms=in_step * 1e3, pipeline_wait_ms=gap * 1e3,
+                   one_core_samples_s=one_rate, first_s=first_s,
+                   worker_rss_mib=max(rss, default=0), peak_mib=peak, tokens_mean=tokens_mean,
+                   cut_share=cut_share, n_rows=n_rows, grad_ratio=grad["ratio"],
+                   vocab=m.vocab_size, setup_s=setup_s, phase_s=phase_s,
+                   metric=got[f"valid_{key}"],
+                   embed_grad={str(v): list(x) for v, x in probe.items()}, **shape)
+    return res, launches
+
+
+def big_pretrain_phase(dev, counters, data_dir: str, overrides=()):
+    """Phase C: configs/ogbn_proteins_pretrain.yaml as shipped (256 x 4,
+    gated, long stacking, pretrain-mlm packed, dropouts), read from the file,
+    on the ogbn-proteins store through PretrainPipeline: PT_STEPS steps with
+    their launch counts, finite losses, the save point's valid loss. Returns
+    (its numbers, the launches)."""
+    from graphgpt_torch.config import load_config
+    from graphgpt_torch.training.pipeline import PretrainPipeline
+
+    tag = "phase C (ogbn-proteins pretraining)"
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config(os.path.join(HERE, "configs", "ogbn_proteins_pretrain.yaml"), [
+            f"tokenization.data_dir={data_dir}", f"training.output_dir={tmp}",
+            f"training.schedule.total_num_steps={PT_STEPS}",
+            "training.schedule.warmup_num_steps=1", "training.schedule.logging_steps=1",
+            # the save point's generation sweep cut as the long-context
+            # phase's: 2 bands over 4 graphs in 16 steps
+            "training.gen_eval_bands=2", "training.gen_eval_samples=4", "generation.steps=16",
+            *overrides])
+        t0 = time.perf_counter()
+        pipe = PretrainPipeline(cfg, device=dev).setup()
+        setup_s = time.perf_counter() - t0
+        m, t = pipe.cfg.model, pipe.cfg.training
+        print(f"{tag} setup {setup_s:.1f} s: {m.hidden_size} x {m.num_hidden_layers}, vocab "
+              f"{m.vocab_size} from the tables, stacked_feat {m.stacked_feat} "
+              f"({type(pipe.tokenizer).__name__}), batch {t.batch_size} packed rows of "
+              f"{t.max_length}, valid {len(pipe.valid_idx)}", flush=True)
+        if type(pipe.tokenizer).__name__ != "StackedGSTTokenizerLong":
+            fail(f"{tag}: the pipeline built {type(pipe.tokenizer).__name__}")
+        L = m.num_hidden_layers
+        train_log, eval_log, _ = counted_pipeline(pipe, counters)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        pipe.run()
+        run_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        zero = {k: 0 for k in counters}
+        # DropPath in training: the split MLP (#11) outside remat; the
+        # eval's forwards take the norm-fused #2
+        want = {**zero, "mlp": L, "flash_fwd": L, "flash_bwd": L, "rmsnorm_bwd": 2 * L + 1}
+        want_eval = {**zero, "norm_mlp": L, "flash_fwd": L}
+        check_logs(tag, train_log, eval_log, want, want_eval, PT_STEPS)
+        rows = csv_rows(os.path.join(tmp, "log.csv"))
+        losses = [float(r["loss"]) for r in rows]
+        res_rows = csv_rows(os.path.join(tmp, "result.csv"))
+        valid = float(res_rows[-1].get("valid_loss", "nan")) if res_rows else float("nan")
+        print(f"{tag} losses: " + " ".join(f"{x:.4f}" for x in losses) + f"; tokens/s "
+              + " ".join(f"{float(r['tokens_per_s']):.0f}" for r in rows)
+              + f"; valid loss {valid:.4f}; the run {run_s:.1f} s; max_memory_allocated "
+              f"{peak:.0f} MiB; the phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+        if len(losses) != PT_STEPS or not all(np.isfinite(losses)) or not np.isfinite(valid):
+            fail(f"{tag}: expected {PT_STEPS} finite losses and a valid loss: {losses} {valid}")
+        res = dict(losses=losses, valid_loss=valid, peak_mib=peak,
+                   tokens_per_s=float(rows[-1]["tokens_per_s"]),
+                   phase_s=time.perf_counter() - t_phase)
+    return res, launches
+
+
+def big_graph_phases(pretrain_model, counters, fa, mlp, ops, data_dir: str, sizes=None,
+                     overrides=None):
+    """The two seeded stores (see write_big_graph_store; `sizes` maps a
+    store's name to (nodes, edges) for a rehearsal), their CSR builds, and
+    phases A, B and C (`overrides` maps a phase's name to config overrides).
+    Returns ({phase: its numbers}, {phase: its launches})."""
+    sizes, overrides = sizes or {}, overrides or {}
+    res, launches, store = {}, {}, {}
+    for name in ("ogbl-ppa", "ogbn-proteins"):
+        path, gen_s, write_s = write_big_graph_store(data_dir, name, *sizes.get(name, (0, 0)))
+        csr_s = csr_build_seconds(path)
+        print(f"big-graph store {name}: the reader's CSR built and cached in {csr_s:.1f} s",
+              flush=True)
+        store[name] = dict(store_draw_s=gen_s, store_write_s=write_s, csr_s=csr_s)
+    for phase, name in (("A", "ogbl-ppa"), ("B", "ogbn-proteins")):
+        torch.cuda.empty_cache()
+        res[phase], launches[phase] = big_finetune_phase(
+            pretrain_model, counters, fa, mlp, ops, data_dir, name, overrides.get(phase, ()))
+        res[phase].update(store[name])
+    torch.cuda.empty_cache()
+    res["C"], launches["C"] = big_pretrain_phase(pretrain_model.device, counters, data_dir,
+                                                 overrides.get("C", ()))
+    return res, launches
+
+
 def mol3d_config(tok, **kw):
     """GraphGPT-base over the synthetic molecules' tokenizer (vocab 755, 13
     stacked features), bf16 over fp32 weights, with the fields in kw."""
@@ -2464,23 +2945,26 @@ def loader_start_methods(data_dir: str):
     return res
 
 
-def step_vs_fp32(model, batch, ops, tag):
+def step_vs_fp32(model, batch, ops, tag, call=dict):
     """The first training step on `batch` three times: with the kernels in
     bf16, with the plain versions in bf16, and with the plain versions in
     fp32 (the compute dtype fp32, the same fp32 weights). The loss with
-    kernels is held to LOSS_ATOL against the plain bf16 run; each gradient
-    to e_kernel <= STEP32_K * e_plain + STEP32_F, both relative Frobenius
-    errors against the fp32 run. Returns the readings."""
+    kernels is held to LOSS_ATOL against the plain bf16 run, and to
+    |loss_k - loss_32| <= STEP32_K |loss_p - loss_32| + STEP32_F; each
+    gradient to e_kernel <= STEP32_K * e_plain + STEP32_F, both relative
+    Frobenius errors against the fp32 run. `call()` gives the model call's other
+    keyword arguments, made afresh for each run (the same dropout masks).
+    Returns the readings."""
     cfgs = list({id(m.cfg): m.cfg for m in model.modules() if hasattr(m, "cfg")}.values())
-    loss_k, gk = grads_of(model, batch)
+    loss_k, gk = grads_of(model, batch, call)
     torch.cuda.reset_peak_memory_stats()
     with ops.reference_mode():
-        loss_p, gp = grads_of(model, batch)
+        loss_p, gp = grads_of(model, batch, call)
         saved = [c.dtype for c in cfgs]
         for c in cfgs:
             c.dtype = "float32"
         try:
-            loss_32, g32 = grads_of(model, batch)
+            loss_32, g32 = grads_of(model, batch, call)
         finally:
             for c, dt in zip(cfgs, saved):
                 c.dtype = dt
@@ -2490,11 +2974,14 @@ def step_vs_fp32(model, batch, ops, tag):
     limit = {n: STEP32_K * ep[n] + STEP32_F for n in ek}
     worst = max(ek, key=lambda n: ek[n] / limit[n])
     top_k, top_p = max(ek, key=ek.get), max(ep, key=ep.get)
+    lk, lp = abs(loss_k - loss_32), abs(loss_p - loss_32)
+    loss_ratio = lk / (STEP32_K * lp + STEP32_F)
     rows = batch["input_ids"].shape[0]
     print(
         f"{tag} step vs an fp32 plain run ({rows} rows): loss kernels {loss_k:.6f}, plain bf16 "
         f"{loss_p:.6f} (|diff| {abs(loss_k - loss_p):.3e}, tol {LOSS_ATOL}), plain fp32 "
-        f"{loss_32:.6f}; {len(ek)} gradients, worst e_kernel / ({STEP32_K} e_plain + "
+        f"{loss_32:.6f} (|kernels - fp32| {lk:.3e}, |plain - fp32| {lp:.3e}, "
+        f"{loss_ratio:.3f} of the rule's limit); {len(ek)} gradients, worst e_kernel / ({STEP32_K} e_plain + "
         f"{STEP32_F}) {ek[worst] / limit[worst]:.3f} at {worst} (e_kernel {ek[worst]:.3e}, "
         f"e_plain {ep[worst]:.3e}); e_kernel median {float(np.median(list(ek.values()))):.3e}, "
         f"max {ek[top_k]:.3e} at {top_k}; e_plain median "
@@ -2503,11 +2990,13 @@ def step_vs_fp32(model, batch, ops, tag):
         flush=True,
     )
     if not (set(gk) == set(gp) == set(g32) == {k for k, _ in model.named_parameters()}
-            and abs(loss_k - loss_p) <= LOSS_ATOL and ek[worst] <= limit[worst]
+            and abs(loss_k - loss_p) <= LOSS_ATOL and loss_ratio <= 1
+            and ek[worst] <= limit[worst]
             and all(bool(torch.isfinite(g).all()) for g in gk.values())):
         fail(f"the {tag} step with kernels is further from the fp32 run than the rule allows")
     return dict(e_kernel_max=ek[top_k], e_plain_max=ep[top_p], ratio=ek[worst] / limit[worst],
-                worst=worst, loss_diff=abs(loss_k - loss_p))
+                worst=worst, loss_diff=abs(loss_k - loss_p), loss_err_kernel=lk,
+                loss_err_plain=lp, loss_ratio=loss_ratio)
 
 
 # per kernel: the products a (query, visible key) pair costs, the bf16
@@ -3164,6 +3653,12 @@ def main() -> None:
     # ---- graph-level phase: pcqm4m_v2_supervised.yaml as shipped on the store
     torch.cuda.empty_cache()
     gft, gtune = graph_finetune_phase(model, counters, ops, data_dir, split_sizes)
+    # ---- big-graph phases A-C: seeded stores in the ogbl-ppa and
+    # ogbn-proteins schemas, their supervised configs warm-started from the
+    # train phase's model, then the proteins pretrain config
+    t0 = time.perf_counter()
+    big, bigl = big_graph_phases(model, counters, fa, mlp, ops, data_dir)
+    print(f"big-graph phases A-C: {time.perf_counter() - t0:.1f} s", flush=True)
     del model
 
     # ---- denoise and position-pretraining phases: fresh models
@@ -3189,7 +3684,7 @@ def main() -> None:
                                    data_dir)
     print(f"band and norm-fused phase: {time.perf_counter() - t0:.1f} s", flush=True)
     launches = {k: serve[k] + train[k] + tune[k] + gtune[k] + den[k] + posl[k] + lcl[k] + btl[k]
-                + bll[k] for k in counters}
+                + bll[k] + sum(bigl[ph][k] for ph in bigl) for k in counters}
 
     base = "graphgpt_tpu/ops/"
 
@@ -3200,7 +3695,9 @@ def main() -> None:
             launches_training=train[name], launches_finetune=tune[name],
             launches_graph_finetune=gtune[name],
             launches_denoise=den[name], launches_pos=posl[name], launches_long=lcl[name],
-            launches_band_train=btl[name], launches_band_long=bll[name], max_abs_err=r["err"],
+            launches_band_train=btl[name], launches_band_long=bll[name],
+            launches_big_ppa=bigl["A"][name], launches_big_proteins=bigl["B"][name],
+            launches_big_pretrain=bigl["C"][name], max_abs_err=r["err"],
             ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["lib_ms"], tol=tol, status="ok", **extra,
@@ -3260,6 +3757,28 @@ def main() -> None:
                                       "loader_graphs_s", "peak_mib")},
               **{k: v for k, v in sres.items() if k.startswith("finetune_shape_")}),
     ]
+    # the big-graph phases: each kernel at phase A's (ogbl-ppa) and B's
+    # (ogbn-proteins) batch shape, held to its plain version there; the
+    # phases' own numbers beside the MLP kernel each runs (#2 A, #11 B and C)
+    by_name = {e["name"]: e for e in kernels}
+    for ph, tag, mlp_name in (("A", "ppa", "norm_mlp"), ("B", "proteins", "mlp")):
+        r = big[ph]
+        f = r["flash"]
+        for name, vals, err in (
+                ("flash_fwd", {k: f[f"fwd_{k}"] for k in ("ms", "bound_ms", "lib_ms")},
+                 f["fwd_err"]),
+                ("flash_bwd", {k: f[k] for k in ("ms", "bound_ms", "lib_ms")}, f["err"]),
+                ("rmsnorm_bwd", {k: r["rms"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                         "lib_ms")}, r["rms"]["err"]),
+                (mlp_name, {k: r["mlp"][k] for k in ("ms", "plain_ms", "bound_ms", "lib_ms")},
+                 r["mlp"]["err"])):
+            e = by_name[name]
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            e.update({f"{tag}_shape_{k}": v for k, v in vals.items()}, **{f"{tag}_shape_n":
+                                                                         r["n_rows"]})
+        by_name[mlp_name].update({f"big_{tag}_{k}": v for k, v in r.items()
+                                  if k not in ("flash", "rms", "mlp")})
+    by_name["mlp"].update({f"big_pretrain_{k}": v for k, v in big["C"].items()})
     # the split pair: its main entry at the denoise batch's shape, B 256 x P 88
     edge = sp["edge"]
     for name, kind, line in (("flash_dq", "dq", 602), ("flash_dkv", "dkv", 789)):

@@ -3,8 +3,9 @@
 Counterpart of `graphgpt_tpu/data/euler.py`: the C++ walk of
 `native/euler_native.py` by default (`_native` :30-45, `graph_to_walk`
 :245-257), the numpy walk (components, eulerisation, randomized
-Hierholzer, shortening, jump edges), and the node re-indexing and the
-edge-attribute lookup the stacked tokenizer reads. The two walks draw
+Hierholzer, shortening, jump edges), and the node re-indexing, the edge
+types (`walk_edge_types` :307, for the long stacking) and the
+edge-attribute lookup the stacked tokenizers read. The two walks draw
 their random numbers differently (the C++ one draws one seed), so a graph
 gives other rows under each. A test takes the numpy walk by setting
 `_NATIVE_CHECKED, _NATIVE = True, None`; nothing else does. The C++
@@ -282,6 +283,26 @@ def walk_node_ranks(
         return perm[ranks].astype(np.int64)
     start = int(rng.integers(0, scope)) if mapping_type == 1 else 0
     return (ranks + start) % scope
+
+
+EDGE_JUMP, EDGE_IN, EDGE_OUT, EDGE_BI = 0, 1, 2, 3
+
+
+def walk_edge_types(graph: Graph, walk: np.ndarray) -> np.ndarray:
+    """Per-step edge type from directed edge membership (get_edge_type,
+    nx_utils.py:277-290): forward only -> OUT, backward only -> IN, both ->
+    BI, neither -> JUMP."""
+    if len(walk) < 2:
+        return np.zeros(0, np.int64)
+    src, tgt = walk[:-1], walk[1:]
+    sorted_keys, order = build_directed_edge_lookup(graph.num_nodes, graph.edge_index)
+    fwd = lookup_directed_edges(sorted_keys, order, graph.num_nodes, src, tgt) >= 0
+    bwd = lookup_directed_edges(sorted_keys, order, graph.num_nodes, tgt, src) >= 0
+    out = np.full(len(src), EDGE_JUMP, np.int64)
+    out[fwd & ~bwd] = EDGE_OUT
+    out[~fwd & bwd] = EDGE_IN
+    out[fwd & bwd] = EDGE_BI
+    return out
 
 
 def walk_edge_attr_rows(graph: Graph, walk: np.ndarray) -> np.ndarray:

@@ -8,15 +8,20 @@ order; 0 tokenizes in the calling thread. Each sample's tokenization RNG
 is seeded by (seed, epoch, idx, position), so the batches are the same
 for any number of workers, and the same as the JAX loader's for the same
 indices. Three differences from the JAX loader: the workers are spawned
-(fresh interpreters, the dataset and the tokenizer pickled to them, and
-the parent's main module left out, so that they import no torch), not
-forked (`start_method`); at most four chunks a worker are in flight, where `Pool.imap`
+(fresh interpreters, and the parent's main module left out, so that they
+import no torch; the dataset and the tokenizer pickled once to a
+temporary file that each worker reads as it starts: through the pool's
+pipe, a pickle larger than its buffer makes the parent start the workers
+one at a time, each reading and unpickling before the next, as a
+577k-token vocab's tokenizer does), not forked (`start_method`); at most four chunks a worker are in flight, where `Pool.imap`
 queues a whole epoch's, so that a pass left early (a run's last steps)
 does not hold the pool for the next one (its save-point eval); and
 `prefetched` raises what its producer raised instead of ending the epoch
 early. Two more, for the spawned workers: each chunk carries the dataset's
-epoch, which a worker's copy follows (`reset_samples`), where the JAX
-loader's forked workers keep the epoch the pool started at; a worker
+epoch and the seed it was last reset with (`reset_seed`, where it keeps
+one: the edge-level datasets draw each epoch's edges from it), which a
+worker's copy follows (`reset_samples`), where the JAX loader's forked
+workers keep the epoch the pool started at; a worker
 walks as the parent does, in C++ unless a test pinned the numpy walk; and
 `close` lets the workers finish their chunks instead of killing them.
 """
@@ -26,9 +31,13 @@ from __future__ import annotations
 import collections
 import contextlib
 import itertools
+import os
+import pickle
 import queue
 import sys
+import tempfile
 import threading
+import weakref
 from typing import Iterator, List, Optional
 
 import numpy as np
@@ -49,19 +58,39 @@ def _init_worker(dataset, tokenizer, seed, numpy_walk=False):
         euler._NATIVE_CHECKED, euler._NATIVE = True, None
 
 
+def _init_worker_from(path, seed, numpy_walk=False):
+    """The pool's initializer: the dataset and the tokenizer from the file
+    the parent wrote (`GraphTokenLoader.start`)."""
+    with open(path, "rb") as f:
+        dataset, tokenizer = pickle.load(f)
+    _init_worker(dataset, tokenizer, seed, numpy_walk)
+
+
 def _tokenize_chunk(args):
-    epoch, start_pos, idx_chunk, ds_epoch = args
+    epoch, start_pos, idx_chunk, ds_state = args
     ds = _WORKER_STATE["dataset"]
     tok = _WORKER_STATE["tokenizer"]
     seed = _WORKER_STATE["seed"]
-    if ds_epoch is not None and getattr(ds, "epoch", None) != ds_epoch:
-        # the parent's dataset moved to another epoch (its node
-        # permutations) after this worker unpickled it
-        ds.reset_samples(ds_epoch)
+    if ds_state is not None and _dataset_state(ds) != ds_state:
+        # the parent's dataset moved to another epoch or seed (its node
+        # permutations, its edges) after this worker unpickled it
+        ds_epoch, ds_seed = ds_state
+        if ds_seed is None:
+            ds.reset_samples(ds_epoch)
+        else:
+            ds.reset_samples(ds_epoch, ds_seed)
     # the position in the epoch enters the seed, so that a repeated index
     # gets an independent view
     return [tok(ds[int(idx)], np.random.default_rng((seed, epoch, int(idx), start_pos + j)))
             for j, idx in enumerate(idx_chunk)]
+
+
+def _dataset_state(ds):
+    """(epoch, seed of the last reset) of a dataset that has an epoch, else
+    None; the seed is None where the dataset keeps none."""
+    if getattr(ds, "epoch", None) is None:
+        return None
+    return ds.epoch, getattr(ds, "reset_seed", None)
 
 
 @contextlib.contextmanager
@@ -139,18 +168,25 @@ class GraphTokenLoader:
             # spawn by default, not the JAX loader's fork: the pipeline's
             # process holds threads (prefetch, CUDA), whose locks a forked
             # child inherits; a spawned worker imports the data modules only
+            fd, payload = tempfile.mkstemp(prefix="ggt_loader_", suffix=".pkl")
+            # deleted by `close`, else when the loader is collected or the
+            # interpreter exits (a pipeline that raised)
+            self._drop_payload = weakref.finalize(self, os.unlink, payload)
+            with os.fdopen(fd, "wb") as f:
+                pickle.dump((self.dataset, self.tokenizer), f, protocol=pickle.HIGHEST_PROTOCOL)
             with _main_left_out(self.dataset, self.tokenizer):
                 self._pool = mp.get_context(self.start_method).Pool(
-                    self.num_workers, initializer=_init_worker,
-                    initargs=(self.dataset, self.tokenizer, self.seed, numpy_walk),
+                    self.num_workers, initializer=_init_worker_from,
+                    initargs=(payload, self.seed, numpy_walk),
                 )
         return self
 
     def _sample_stream(self, indices: np.ndarray, epoch: int) -> Iterator[TokenizedSample]:
-        # each chunk carries the dataset's epoch as it is now (a reader's
-        # node permutations follow it; the workers' copies were pickled once)
-        ds_epoch = getattr(self.dataset, "epoch", None)
-        chunks = [(epoch, i, indices[i : i + CHUNK], ds_epoch)
+        # each chunk carries the dataset's epoch and seed as they are now (a
+        # reader's node permutations and edges follow them; the workers'
+        # copies were pickled once)
+        ds_state = _dataset_state(self.dataset)
+        chunks = [(epoch, i, indices[i : i + CHUNK], ds_state)
                   for i in range(0, len(indices), CHUNK)]
         pool = self.start()._pool
         if pool is None:
@@ -245,6 +281,7 @@ class GraphTokenLoader:
             self._pool.close()
             self._pool.join()
             self._pool = None
+            self._drop_payload()
 
 
 def estimate_tokens_per_sample(dataset, tokenizer, n: int = 256, seed: int = 0) -> float:

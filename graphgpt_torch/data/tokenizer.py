@@ -3,12 +3,12 @@
 A copy of `graphgpt_tpu/data/tokenizer.py`'s `StackedGSTTokenizer`
 ("short" stacking) with its task branches (graph, edge, node, nodev2), the
 pretrain rows of `pretrain-mlm` (host-side SMTP masking) and `pretrain`
-(clean rows with next-row labels), and the masking helpers
-`_polynomial_mask_ratio`, `mask_packed_row`, `smtp_mask_stacked`; the rng
-draws come in the JAX package's order, so the rows are the same. The other
-pretrain tasks (contrastive, in-model SMTP and coordinate rows), instruction
-rows, `GSTTokenizer` and the `long` stacking wait for later slices. Row
-layout:
+(clean rows with next-row labels), `StackedGSTTokenizerLong` (:457-550,
+"long" stacking), and the masking helpers `_polynomial_mask_ratio`,
+`mask_packed_row`, `smtp_mask_stacked`; the rng draws come in the JAX
+package's order, so the rows are the same. The other pretrain tasks
+(contrastive, in-model SMTP and coordinate rows), instruction rows and
+`GSTTokenizer` wait for later slices. Short row layout:
 
     [ node_idx_token | node_attr_0..node_attr_{Dn-1} | edge_attr_0..edge_attr_{De-1} ]
 
@@ -93,6 +93,8 @@ class StackedGSTTokenizer:
     [P, stacked_feat] id matrix where P = Euler walk length (+1 eos row).
     """
 
+    STACK_METHOD = "short"
+
     def __init__(
         self,
         cfg: TokenizationConfig,
@@ -106,8 +108,10 @@ class StackedGSTTokenizer:
                 f"task_type {task_type!r}: the port tokenizes {TASKS}; the other pretrain "
                 "tasks' rows (contrastive, in-model SMTP, coordinates) wait for a later slice"
             )
-        assert cfg.stack_method == "short", "the long stacking waits for a later slice"
-        assert cfg.structure.edge.remove_edge_type_token, (
+        assert cfg.stack_method == self.STACK_METHOD, (
+            f"stack_method {cfg.stack_method!r}: see "
+            f"{'StackedGSTTokenizerLong' if cfg.stack_method == 'long' else 'StackedGSTTokenizer'}")
+        assert self.STACK_METHOD == "long" or cfg.structure.edge.remove_edge_type_token, (
             "stacked short rows assume the <edge_bi> token is elided "
             "(reference tokenizer.py:1062-1065)"
         )
@@ -373,6 +377,83 @@ class StackedGSTTokenizer:
                 extras=extras,
             )
         raise NotImplementedError(f"task_type {task!r}")
+
+
+class StackedGSTTokenizerLong(StackedGSTTokenizer):
+    """"Long" stacking: alternating node and edge rows
+    (reference stack_attr_to_node_and_edge, tokenizer.py:1269-1359).
+
+    Row layout (stacked_feat = 2 + node_dim + edge_dim):
+      node row: [node_idx | node_attrs | <edge_bi> | default edge attrs]
+      edge row: [<new>    | default node attrs | edge_type | edge attrs]
+
+    The JAX class switches the config to the short stacking while its base
+    initialises and leaves `remove_edge_type_token` False after; this one
+    leaves the config as it was given. The rows are built by array
+    operations, not a row at a time; they are the same.
+    """
+
+    STACK_METHOD = "long"
+
+    def __init__(self, cfg, vocab_map, **kw):
+        super().__init__(cfg, vocab_map, **kw)
+        self.stacked_feat = 2 + self.node_dim + self.edge_dim
+        s = cfg.structure
+        self.edge_type_ids = np.asarray(
+            [vocab_map[s.edge.jump_token], vocab_map[s.edge.in_token],
+             vocab_map[s.edge.out_token], vocab_map[s.edge.bi_token]], np.int32)
+        self.bi_id = vocab_map[s.edge.bi_token]
+        self.new_id = vocab_map[s.node.new_node_token]
+        self.default_node_attr_ids = (
+            self.node_lookup.default_ids if self.node_lookup else np.zeros(0, np.int32)
+        )
+
+    def tokenize(self, graph: Graph, rng: np.random.Generator):
+        walk = euler.graph_to_walk(graph, rng)
+        ranks = euler.walk_node_ranks(walk, self.scope, self.cyclic, rng)
+        etypes = euler.walk_edge_types(graph, walk)
+        erows = euler.walk_edge_attr_rows(graph, walk)
+        p0 = len(walk)
+        dn, de = self.node_dim, self.edge_dim
+        n_rows = 2 * p0 - 1 if p0 > 0 else 1
+        ids = np.empty((n_rows + 1, self.stacked_feat), np.int32)
+        node_rows, edge_rows = ids[0 : 2 * p0 : 2], ids[1 : 2 * p0 - 1 : 2]
+        node_rows[:, 0] = self.node_idx_ids[ranks]
+        if dn:
+            node_rows[:, 1 : 1 + dn] = self.node_lookup(graph.node_attr)[walk]
+            edge_rows[:, 1 : 1 + dn] = self.default_node_attr_ids
+        node_rows[:, 1 + dn] = self.bi_id
+        edge_rows[:, 0] = self.new_id
+        edge_rows[:, 1 + dn] = self.edge_type_ids[etypes]
+        if de:
+            node_rows[:, 2 + dn :] = self.edge_lookup.default_ids
+            eattr = np.repeat(self.edge_lookup.default_ids[None, :], p0 - 1, axis=0)
+            real = erows >= 0
+            if real.any():
+                eattr[real] = self.edge_lookup(graph.edge_attr[erows[real]])
+            edge_rows[:, 2 + dn :] = eattr
+        ids[n_rows] = self.eos_id
+        if not self.append_eos:
+            ids = ids[:n_rows]
+        return ids, walk, ranks
+
+    def pad_stacked_labels(self, labels: np.ndarray) -> np.ndarray:
+        """Label padding per row parity: node rows supervise the node part
+        (cols <= node_dim), edge rows the edge part (cols > node_dim or eos)
+        (reference _pad_stacked_targets, tokenizer_utils.py:206-219)."""
+        out = labels.copy()
+        dn = self.node_dim
+        out[0::2, dn + 1 :] = LABEL_PAD_ID
+        odd = labels[1::2]
+        keep = (np.arange(labels.shape[1]) > dn)[None, :] | (odd == self.eos_id)
+        out[1::2] = np.where(keep, odd, LABEL_PAD_ID)
+        return out
+
+    def __call__(self, graph: Graph, rng: np.random.Generator) -> TokenizedSample:
+        sample = super().__call__(graph, rng)
+        if self.task_type == "pretrain-mlm" and sample.labels.ndim == 2:
+            sample.labels = self.pad_stacked_labels(sample.labels)
+        return sample
 
 
 def _polynomial_mask_ratio(mlm_cfg, rng: np.random.Generator) -> Tuple[float, float]:

@@ -114,6 +114,10 @@ class _GraphGPTBase(nn.Module):
         self.model = Backbone(cfg, dev)
         if cfg.stacked_feat_agg_method == "gated" and cfg.stacked_feat > 1:
             self.stacked_feat_agg = _Weight((cfg.stacked_feat, cfg.hidden_size), dev)
+        if cfg.embed_dim > 0:  # the raw-embedding branch
+            self.embed_layernorm = _Weight((cfg.embed_dim,), dev)
+            self.embed_proj = _linear(dev, cfg.embed_dim, cfg.hidden_size)
+            self.emb_mask_token = nn.Parameter(torch.empty(cfg.embed_dim, device=dev))
 
     @torch.no_grad()
     def reset_parameters(self, seed: int) -> None:
@@ -140,6 +144,13 @@ class _GraphGPTBase(nn.Module):
     def _agg_w(self) -> Optional[torch.Tensor]:
         agg = getattr(self, "stacked_feat_agg", None)
         return None if agg is None else agg.weight
+
+    def _raw_params(self):
+        """The raw-embedding branch's weights (norm, projection, mask
+        token), or None."""
+        if not hasattr(self, "embed_proj"):
+            return None
+        return self.embed_layernorm.weight, self.embed_proj.weight, self.emb_mask_token
 
     def _step_seed(self, generator: Optional[torch.Generator], train: bool,
                    rates) -> Optional[int]:
@@ -180,6 +191,7 @@ class GraphGPTPretrain(_GraphGPTBase):
         return model_hidden_states(
             self.model, self.cfg, batch["input_ids"], batch["position_ids"],
             batch["segment_ids"], self._agg_w(), raw_embeds=batch.get("embed"),
+            raw_params=self._raw_params(),
         )
 
     def forward(
@@ -204,6 +216,9 @@ class GraphGPTPretrain(_GraphGPTBase):
         hidden = model_hidden_states(
             self.model, cfg, input_ids, batch["position_ids"], batch["segment_ids"],
             self._agg_w(), raw_embeds=batch.get("embed"), seed=seed, train=train,
+            raw_params=self._raw_params(),
+            embed_is_masked=(labels != -100).any(dim=-1)
+            if labels is not None and labels.dim() == 3 else None,
         )
         out = {"hidden_states": hidden}
         total = hidden.new_zeros((), dtype=torch.float32)
@@ -334,6 +349,7 @@ class GraphGPTTask(_GraphGPTBase):
         hidden = model_hidden_states(
             self.model, cfg, batch["input_ids"], batch["position_ids"], batch["segment_ids"],
             self._agg_w(), raw_embeds=batch.get("embed"), seed=seed, train=train,
+            raw_params=self._raw_params(),
         )
         gen = derive_generator(seed, -2, hidden.device) if seed is not None else None
         logits_all = self.score_apply(hidden, gen, train)  # [B, P, C]

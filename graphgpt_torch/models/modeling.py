@@ -2,8 +2,8 @@
 
 Counterpart of `graphgpt_tpu/models/modeling.py` (`_rms_norm_vjp` :101,
 `_dropout` :175, `_embed_lookup_sum` :240, `embed_inputs` :298,
-`backbone_apply` :360 with its rematerialisation :545-612,
-`model_hidden_states` :618). Parameters are fp32 master copies under
+`add_raw_embeds` :332, `backbone_apply` :360 with its rematerialisation
+:545-612, `model_hidden_states` :618). Parameters are fp32 master copies under
 HF-Llama names; activations run in `cfg.dtype`. Attention goes through
 `ops.attention` (the flash kernels), its pre-norm and q/k/v products
 through `rms_norm` and three products, or, under `GGT_ATTN_NORM_FUSE=1`
@@ -16,6 +16,7 @@ plain `xla_mlp`, as the JAX package's dispatch (:478-521) does.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional
 
@@ -209,8 +210,112 @@ def _count_matrix_grad(flat_ids, gf, vocab: int, chunk: int):
     return acc
 
 
+# The embedding gradient's route: the count-matrix product costs ~2.7e-9 ms
+# a (row, vocab) pair, the sorted segment sum ~1.77 ms plus ~5.1e-6 ms an
+# id (NVIDIA H100 80GB HBM3, 700 W: chip_smoke.py's phases A and B time both
+# at N 28,672 x F 3 and N 995,328 x F 1 over V 1,024-576,906). So the count
+# matrix while V <= SEGMENT_FIXED / N + SEGMENT_PER_ID * F: V 28.9k at
+# phase A's shape, 2.5k at phase B's, ~61k for a graph-level fine-tune batch.
+SEGMENT_FIXED = 6.6e8
+SEGMENT_PER_ID = 1870
+SEGMENT_BLOCK = 128  # sorted slots a block of the segment sum sums at once
+SEGMENT_CHUNK = 1 << 17  # sorted slots gathered at once
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b batched, summed and returned in fp32 (bf16 operands keep their
+    fp32 sums; fp32 operands are not rounded to TF32)."""
+    if not a.is_cuda:
+        return a.float() @ b.float()
+    if a.dtype == torch.float32:
+        with _no_tf32():
+            return torch.bmm(a, b)
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+def _block_run_sums(keys, vals, shift: int = 0):
+    """One level of the segment sum: `keys` [M] sorted dense run indices,
+    `vals` [M, D]; per block of SEGMENT_BLOCK slots the sum of each of its
+    runs (a 0/1 matrix times the block, in fp32): (their keys, sums fp32).
+    `shift` zero rows in front of the first run move every block boundary
+    by that many slots."""
+    blk, d = SEGMENT_BLOCK, vals.shape[1]
+    if shift:  # zero rows in the first run change no sum
+        keys = torch.cat([keys[:1].expand(shift), keys])
+        vals = torch.cat([vals.new_zeros((shift, d)), vals])
+    pad = (-keys.shape[0]) % blk
+    if pad:  # zero rows in the last run change no sum
+        keys = torch.cat([keys, keys[-1:].expand(pad)])
+        vals = torch.cat([vals, vals.new_zeros((pad, d))])
+    kb = keys.view(-1, blk)
+    first = kb[:, :1]
+    local = kb - first  # < blk: dense run indices grow by at most 1 a slot
+    slots = torch.arange(blk, device=keys.device)
+    onehot = (local[:, None, :] == slots[None, :, None]).to(vals.dtype)
+    sums = _bmm_f32(onehot, vals.view(-1, blk, d))  # [blocks, run in block, D]
+    keep = slots[None, :] <= local[:, -1:]
+    return (first + slots)[keep], sums[keep]
+
+
+def _segment_sum_grad(ids, gf, vocab: int):
+    """The same gradient as `_count_matrix_grad` for ids [N, F] and gf
+    [N, D] (each id of row n takes gf[n]), as a sorted segment sum: the
+    flat ids stably sorted, each run of equal ids summed in a fixed order
+    by levels of `_block_run_sums` until one row a run is left, each row of
+    the table written once. No atomics, no [rows, vocab] matrix. Every
+    other level moves the block boundaries by half a block: a level that
+    leaves no two rows of one run in a block (a run's last rows split
+    across a boundary) is followed by one that merges each such pair."""
+    n, f = ids.shape
+    d = gf.shape[1]
+    out = torch.zeros((vocab, d), dtype=torch.float32, device=gf.device)
+    if ids.numel() == 0:
+        return out
+    sorted_ids, perm = torch.sort(ids.reshape(-1), stable=True)
+    uniq, counts = torch.unique_consecutive(sorted_ids, return_counts=True)
+    runs = torch.repeat_interleave(torch.arange(len(uniq), device=ids.device), counts)
+    keys, sums = [], []
+    for c0 in range(0, len(runs), SEGMENT_CHUNK):
+        k, v = _block_run_sums(runs[c0 : c0 + SEGMENT_CHUNK],
+                               gf[perm[c0 : c0 + SEGMENT_CHUNK] // f])
+        keys.append(k)
+        sums.append(v)
+    keys, sums = torch.cat(keys), torch.cat(sums)
+    level = 1
+    while len(keys) > len(uniq):
+        keys, sums = _block_run_sums(keys, sums, level % 2 * (SEGMENT_BLOCK // 2))
+        level += 1
+    out[uniq] = sums
+    return out
+
+
+def segment_route(n: int, f: int, vocab: int) -> bool:
+    """Whether the embedding gradient of n rows of f ids over `vocab` takes
+    the sorted segment sum (else the count-matrix product)."""
+    return vocab > SEGMENT_FIXED / max(n, 1) + SEGMENT_PER_ID * f
+
+
+def embedding_grad(ids, gf, vocab: int, chunk: int):
+    """sum over (n, f) of onehot(ids[n, f]) gf[n] as fp32 [vocab, D]: the
+    count-matrix product (`chunk` rows at a time) or, where `segment_route`
+    says, the sorted segment sum. Both are the same from run to run."""
+    if segment_route(*ids.shape, vocab):
+        return _segment_sum_grad(ids, gf, vocab)
+    return _count_matrix_grad(ids, gf, vocab, chunk)
+
+
 class _EmbedLookup(torch.autograd.Function):
-    """table[ids] with the one-hot product backward of `_embed_lookup_bwd`."""
+    """table[ids] with the backward of `_embed_lookup_bwd` (`embedding_grad`)."""
 
     @staticmethod
     def forward(ctx, table, ids):
@@ -222,14 +327,14 @@ class _EmbedLookup(torch.autograd.Function):
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
         d = g.shape[-1]
-        dtab = _count_matrix_grad(ids.reshape(-1, 1), g.reshape(-1, d), ctx.vocab, 65536)
+        dtab = embedding_grad(ids.reshape(-1, 1), g.reshape(-1, d), ctx.vocab, 65536)
         return dtab.to(g.dtype), None
 
 
 class _EmbedLookupSum(torch.autograd.Function):
     """sum_f table[ids[..., f]] without a [B, P, F, D] tensor on either side;
-    the backward is the count-matrix product of `_embed_lookup_sum_bwd`,
-    summed in fp32."""
+    the backward is `_embed_lookup_sum_bwd`'s (`embedding_grad`), summed in
+    fp32."""
 
     @staticmethod
     def forward(ctx, table, ids):
@@ -244,9 +349,7 @@ class _EmbedLookupSum(torch.autograd.Function):
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
         d = g.shape[-1]
-        dtab = _count_matrix_grad(
-            ids.reshape(-1, ids.shape[-1]), g.reshape(-1, d), ctx.vocab, 8192
-        )
+        dtab = embedding_grad(ids.reshape(-1, ids.shape[-1]), g.reshape(-1, d), ctx.vocab, 8192)
         return dtab.to(g.dtype), None
 
 
@@ -364,6 +467,39 @@ class Backbone(nn.Module):
         return rms_norm(x, self.norm.weight, cfg.rms_norm_eps).view(b, p, d)
 
 
+def plain_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """HF-Llama RMSNorm in torch ops, its gradient by autograd."""
+    x32 = x.float()
+    rrms = torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return (x32 * rrms * weight.float()).to(x.dtype)
+
+
+def add_raw_embeds(
+    cfg: ModelConfig,
+    inputs_embeds: torch.Tensor,  # [B, P, D]
+    raw_embeds: torch.Tensor,  # [B, P, embed_dim]
+    raw_params,  # (embed_layernorm [E], embed_proj [D, E], emb_mask_token [E])
+    embed_is_masked: Optional[torch.Tensor] = None,  # [B, P] bool: the mask token
+    gen: Optional[torch.Generator] = None,
+    train: bool = False,
+) -> torch.Tensor:
+    """The raw float-feature branch (JAX `add_raw_embeds`,
+    `models/modeling.py:332-352`; reference prepare_inputs_embeds,
+    modeling_pretrain.py:119-150): mask-token substitution -> RMSNorm ->
+    dropout -> linear projection -> added to the token embeddings. Its
+    norm's gradient comes from autograd, as the JAX package's does by
+    default (`GGT_RMSNORM_PALLAS` off); the rmsnorm_bwd kernel takes no
+    D % 8 != 0 (ogbn-products' embed_dim is 100)."""
+    ln_w, proj_w, mask_tok = raw_params
+    dt = inputs_embeds.dtype
+    x = raw_embeds.to(dt)
+    if embed_is_masked is not None:
+        x = torch.where(embed_is_masked[..., None], mask_tok.to(dt), x)
+    x = plain_rms_norm(x, ln_w, cfg.rms_norm_eps)
+    x = _dropout(x, cfg.embed_dropout, gen, train)
+    return inputs_embeds + F.linear(x, proj_w.to(dt))
+
+
 def model_hidden_states(
     backbone: Backbone,
     cfg: ModelConfig,
@@ -374,15 +510,16 @@ def model_hidden_states(
     raw_embeds: Optional[torch.Tensor] = None,
     seed: Optional[int] = None,
     train: bool = False,
+    raw_params=None,
+    embed_is_masked: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Input embedding -> decoder -> final norm. `seed` (training) feeds
-    the embed-dropout generator and the per-layer ones."""
-    if raw_embeds is not None and cfg.embed_dim > 0:
-        raise NotImplementedError(
-            "the raw-embedding branch (embed_dim > 0) waits for a later slice"
-        )
+    """Input embedding (+ the raw-embedding branch where the batch carries
+    `embed` and cfg.embed_dim > 0) -> decoder -> final norm. `seed`
+    (training) feeds the embed-dropout generator and the per-layer ones."""
     gen = None
     if train and seed is not None and cfg.embed_dropout > 0:
         gen = derive_generator(seed, -1, backbone.norm.weight.device)
     x = embed_inputs(backbone.embed_tokens.weight, cfg, input_ids, stacked_agg_w, gen, train)
+    if raw_embeds is not None and cfg.embed_dim > 0:
+        x = add_raw_embeds(cfg, x, raw_embeds, raw_params, embed_is_masked, gen, train)
     return backbone(x, position_ids, segment_ids, seed=seed, train=train)

@@ -103,23 +103,27 @@ def graph_to_walk(num_nodes: int, edge_index: np.ndarray,
 
 
 def ego_k_hop(indptr, indices, seeds, depth: int, fanout: int, rng, replace=False):
-    """C++ ego-k-hop over CSR: the sorted unique nodes within `depth` hops of
-    `seeds`, at most `fanout` neighbours a node; None when they would pass
-    the capacity bound (the caller then samples in numpy, as the JAX
-    package's `data/sampling.py` does)."""
+    """C++ ego-k-hop over CSR: the sorted nodes within `depth` hops of
+    `seeds`, at most `fanout` neighbours a node (as the JAX binding, whose
+    output buffer this first sizes the same way). It draws one 63-bit seed
+    from `rng`. Where the nodes pass that first guess (a fanout < 0, many
+    hops), the sampler runs again from the same seed with room for every
+    node, where the JAX binding returns None and its caller samples in
+    numpy."""
     lib = load()
     indptr = np.ascontiguousarray(indptr, np.int64)
     indices = np.ascontiguousarray(indices, np.int64)
     seeds = np.ascontiguousarray(seeds, np.int64)
     # generous capacity bound: seeds + sum over hops of fanout growth
     cap = int(len(seeds) * max(fanout, 1) ** max(depth, 1) * 2 + len(seeds) + 16)
-    cap = min(cap, len(indices) + len(seeds) + 1)
-    out = np.empty(cap, np.int64)
+    full = min(len(indices), len(indptr) - 1) + len(seeds) + 1
     seed = int(rng.integers(0, 2**63 - 1))
-    n = lib.ggt_ego_k_hop(
-        _ptr(indptr), _ptr(indices), _ptr(seeds), len(seeds), depth, fanout,
-        1 if replace else 0, seed, _ptr(out), cap,
-    )
-    if n < 0:
-        return None
-    return out[:n]
+    for size in (min(cap, len(indices) + len(seeds) + 1), full):
+        out = np.empty(size, np.int64)
+        n = lib.ggt_ego_k_hop(
+            _ptr(indptr), _ptr(indices), _ptr(seeds), len(seeds), depth, fanout,
+            1 if replace else 0, seed, _ptr(out), size,
+        )
+        if n >= 0:
+            return out[:n]
+    raise RuntimeError(f"ggt_ego_k_hop found more than {full} nodes")

@@ -7,6 +7,10 @@ Counterpart of `graphgpt_tpu/ops/losses.py` (`chunked_stacked_ce` :39,
 process). Logits are formed
 chunk by chunk along P, each chunk rematerialised in the backward, so the
 largest logits tensor is one chunk of [B, c, N, V] in either direction.
+The JAX package's chunk is 128 positions; the port's is smaller where
+B * 128 * N * V would pass LOGITS_BUDGET elements (a 33k vocab over 128
+rows of 12 stacked features asked for 24 GiB at 128), the last chunk
+ragged.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 _EPS = 1e-7
+LOGITS_BUDGET = 1 << 29  # elements of one chunk's logits [B, c, N, V]
 
 
 def _ce_from_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -51,6 +56,7 @@ def chunked_stacked_ce(
     n = labels.shape[-1]
     if p % chunk:
         chunk = p
+    chunk = min(chunk, max(1, LOGITS_BUDGET // (b * n * lm_head.shape[0])))
     dt = hidden.dtype
     if token_wgt is None:
         token_wgt = torch.ones((b, p, n), dtype=torch.float32, device=hidden.device)
@@ -61,7 +67,7 @@ def chunked_stacked_ce(
         # so that each chunk's weight gradient reaches the fp32 master on
         # its own and the chunks are summed in fp32.
         if n_token_proj is not None:
-            h = F.linear(h, n_token_proj.to(dt)).reshape(b, chunk, n, d)
+            h = F.linear(h, n_token_proj.to(dt)).reshape(b, h.shape[1], n, d)
         else:
             h = h[:, :, None, :]
         logits = F.linear(h, lm_head.to(dt))

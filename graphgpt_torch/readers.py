@@ -1,12 +1,15 @@
-"""Dataset registry and the graph-level readers.
+"""Dataset registry and the readers.
 
 Counterpart of `graphgpt_tpu/readers.py`: `NpzGraphStore` (:46-71),
-`SplitDataset` (:87-108), the PCQM4M-v2 split policies
-(`_special_molecule_idx` :112-152, `apply_split_policies` :155-199), the
-CEPDB/ZINC auxiliary corpora (:202-232), `_graph_level_reader` (:234-266)
-with its ten registrations (:269-285), `synthetic_mol` (:288) and
-`read_dataset`. The readers take no download; they read the on-disk npz
-contract (`graphgpt_tpu/readers.py:1-27`):
+`_load_big_graph` (:74), `SplitDataset` (:87-108), the PCQM4M-v2 split
+policies (`_special_molecule_idx` :112-152, `apply_split_policies`
+:155-199), the CEPDB/ZINC auxiliary corpora (:202-232),
+`_graph_level_reader` (:234-266) with its ten registrations (:269-285),
+`synthetic_mol` (:288), the edge-level reader (:314-371) with its four
+registrations, the ogbn-proteins species mask (:373), the node-level
+reader (:394-439) with its four registrations, and `read_dataset`. The
+readers take no download; they read the on-disk npz contract
+(`graphgpt_tpu/readers.py:1-27`):
 
 Graph-level (`<data_dir>/<name>/graphs.npz`):
     node_attr   [sum_N, Dn] int
@@ -19,12 +22,25 @@ Graph-level (`<data_dir>/<name>/graphs.npz`):
     train_idx / valid_idx / test_idx  [.] int (optional; else a random
                 80/10/10 split)
 
-Two differences from the JAX store, both for the loader's spawned workers:
-a member stored uncompressed in the store's own dtype is memory-mapped, not
-copied; and a store pickles as its path and what was changed after it was
-read, so that each worker opens the file itself instead of unpickling
-gigabytes. The edge-level and node-level readers (`readers.py:314-439`) and
-`structure_er` (:293) wait for the big-graph slice: asking for them raises.
+Edge-level (`<data_dir>/<name>/big_graph.npz`, as `tools/convert_ogb.py`
+writes it):
+    edge_index [2, E] int (both directions of an undirected edge),
+    num_nodes (optional, else max id + 1), node_attr [N, Dn] (optional),
+    edge_attr [E, De] (optional), {train,valid,test}_edge [P, 2],
+    {valid,test}_edge_neg [P, 2] or [P, K, 2] (fixed eval negatives; K a
+    positive, structured), {split}_relation [P] (wikikg2)
+
+Node-level: the same big_graph.npz with y [N, T], {train,valid,test}_idx,
+node_species [N] and x_mask [Dn] (optional).
+
+Three differences from the JAX readers, all for the loader's spawned
+workers: a member stored uncompressed in the dtype the reader wants is
+memory-mapped, not copied; a graph-level store pickles as its path and
+what was changed after it was read; and a big-graph dataset pickles as its
+reader's arguments and its epoch (`data/sampling.py`), its CSR memory-mapped
+from a cache file beside the store (`big_graph.csr.npz`, written at the
+first read where the directory is writable). `structure_er` (:293) waits
+for `GSTTokenizer`'s slice: asking for it raises.
 """
 
 from __future__ import annotations
@@ -36,8 +52,9 @@ import zipfile
 import numpy as np
 
 from .data.datasets import GraphsMapDataset, SyntheticMolDataset
-from .data.graph import GraphBatchStore
-from .data.partition import EnsembleDataset
+from .data.graph import Graph, GraphBatchStore
+from .data.partition import EnsembleDataset, RandomEdgesDataset
+from .data.sampling import EgoEdgeDataset, EgoNodeDataset, build_csr_directed
 from .utils.registry import Register
 
 _readers = Register()
@@ -66,9 +83,9 @@ _HEADERS = {(1, 0): np.lib.format.read_array_header_1_0,
 
 
 def _read_member(path: str, zf: zipfile.ZipFile, info: zipfile.ZipInfo, dtype) -> np.ndarray:
-    """An npz member as `dtype`: memory-mapped (read only) where it is stored
-    uncompressed in that dtype, as `np.savez` writes it; else read and
-    converted."""
+    """An npz member as `dtype` (None: as stored): memory-mapped (read only)
+    where it is stored uncompressed in that dtype, as `np.savez` writes it;
+    else read and converted."""
     if info.compress_type == zipfile.ZIP_STORED:
         with open(path, "rb") as f:
             f.seek(info.header_offset)
@@ -79,11 +96,22 @@ def _read_member(path: str, zf: zipfile.ZipFile, info: zipfile.ZipInfo, dtype) -
                 read_header = _HEADERS.get(np.lib.format.read_magic(f))
                 if read_header is not None:
                     shape, fortran, stored = read_header(f)
-                    if stored == np.dtype(dtype) and int(np.prod(shape)) > 0:
+                    if (dtype is None or stored == np.dtype(dtype)) and len(shape) and \
+                            int(np.prod(shape)) > 0:
                         return np.memmap(path, dtype=stored, mode="r", offset=f.tell(),
                                          shape=shape, order="F" if fortran else "C")
     with zf.open(info) as f:
-        return np.lib.format.read_array(f, allow_pickle=False).astype(dtype)
+        arr = np.lib.format.read_array(f, allow_pickle=False)
+    return arr if dtype is None else arr.astype(dtype)
+
+
+def _read_npz(path: str, dtypes=None) -> dict:
+    """Every member of an npz file by `_read_member`, each as its dtype in
+    `dtypes` (else as stored)."""
+    dtypes = dtypes or {}
+    with zipfile.ZipFile(path) as zf:
+        return {i.filename[:-4]: _read_member(path, zf, i, dtypes.get(i.filename[:-4]))
+                for i in zf.infolist() if i.filename.endswith(".npy")}
 
 
 class NpzGraphStore(GraphBatchStore):
@@ -131,6 +159,42 @@ class NpzGraphStore(GraphBatchStore):
             if k == "splits":
                 v = {s: (given[s] if a is None else a) for s, a in v.items()}
             setattr(self, k, v)
+
+
+_BIG_DTYPES = {"edge_index": np.int32, "node_attr": np.int32, "edge_attr": np.int32}
+
+
+def _load_big_graph(path: str):
+    """(the big graph, every member of its npz by name), memory-mapped where
+    `_read_member` can."""
+    data = _read_npz(path, _BIG_DTYPES)
+    ei = data["edge_index"]
+    n = int(data["num_nodes"]) if "num_nodes" in data else int(ei.max()) + 1
+    big = Graph(num_nodes=n, edge_index=ei, node_attr=data.get("node_attr"),
+                edge_attr=data.get("edge_attr"), y=data.get("y"))
+    return big, data
+
+
+def _big_csr(path: str, big: Graph):
+    """The big graph's `build_csr_directed`, memory-mapped from
+    `big_graph.csr.npz` beside the store, which is written where it is
+    missing or older than the store; held in memory where it cannot be."""
+    cache = path[: -len(".npz")] + ".csr.npz"
+    st = os.stat(path)
+    stamp = np.asarray([st.st_size, st.st_mtime_ns], np.int64)
+    if os.path.exists(cache):
+        got = _read_npz(cache)
+        if np.array_equal(got.get("stamp"), stamp):
+            return got["indptr"], got["indices"], got["eids"]
+    csr = build_csr_directed(big.num_nodes, big.edge_index)
+    tmp = f"{cache}.{os.getpid()}.tmp.npz"
+    try:
+        np.savez(tmp, stamp=stamp, indptr=csr[0], indices=csr[1], eids=csr[2])
+        os.replace(tmp, cache)
+    except OSError:
+        return csr
+    got = _read_npz(cache)
+    return got["indptr"], got["indices"], got["eids"]
 
 
 class SplitDataset(GraphsMapDataset):
@@ -339,16 +403,164 @@ def _read_synthetic(cfg, **kw):
     return SyntheticMolDataset(50_000, seed=cfg.training.seed)
 
 
-def _waits_for_big_graphs(name: str):
+@_readers("structure_er")
+def _read_structure_er(cfg, **kw):
+    raise NotImplementedError(
+        "dataset 'structure_er': its structure tasks and GSTTokenizer wait for a later slice "
+        "(ROADMAP.md queue 1 item 5)")
+
+
+def _big_path(cfg, name: str) -> str:
+    path = os.path.join(cfg.tokenization.data_dir, name, "big_graph.npz")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{name}: expected {path} (see graphgpt_torch.readers npz "
+                                "contract)")
+    return path
+
+
+def _reopen(source, state):
+    """A big-graph dataset read again from its reader's arguments and brought
+    to its pickled state (`data/sampling.py`'s `_Reopened`)."""
+    kind, *args = source
+    if kind == "edge":
+        ds = _open_edge_level(*args, neg_keys=state.get("_neg_keys"))
+    else:
+        ds = _open_node_level(*args)
+    return ds.restore(state)
+
+
+# per edge-level dataset: its sampling settings (reference
+# configs/tokenization/edge_lvl/*)
+_EDGE_LEVEL = {}
+
+
+def _edge_level_reader(name: str, default_depth_neighbors=((1, 14),), neg_ratio=1,
+                       percent=100, relations: bool = False, sample_wgt: bool = False,
+                       method: str = "global"):
+    _EDGE_LEVEL[name] = dict(depth_neighbors=default_depth_neighbors, neg_ratio=neg_ratio,
+                             percent=percent, relations=relations, sample_wgt=sample_wgt,
+                             method=method)
+
     @_readers(name)
-    def _read(cfg, **kw):
-        raise NotImplementedError(
-            f"dataset {name!r}: the edge-level and node-level readers and structure_er wait "
-            "for the big-graph slice (ROADMAP.md queue 1 item 6)")
+    def _read(cfg, data_split: str = "train", pretrain_mode: bool = False, **kw):
+        return _open_edge_level(name, _big_path(cfg, name), cfg.training.seed, data_split,
+                                pretrain_mode)
 
     return _read
 
 
-for _name in ("ogbl-ppa", "ogbl-citation2", "ogbl-ddi", "ogbl-wikikg2", "ogbn-products",
-              "ogbn-arxiv", "ogbn-papers100M", "ogbn-proteins", "structure_er"):
-    _waits_for_big_graphs(_name)
+def _open_edge_level(name, path, seed, data_split, pretrain_mode, neg_keys=None):
+    s = _EDGE_LEVEL[name]
+    big, data = _load_big_graph(path)
+    pos = data.get(f"{data_split}_edge")
+    neg = data.get(f"{data_split}_edge_neg")
+    pos_attr = neg_cands = None
+    if s["relations"] and f"{data_split}_relation" in data:
+        # wikikg2 relation -> target edge attrs [ones, rel] and the
+        # unique-relation candidate table (reference edge_level.py:241-262)
+        rel = np.asarray(data[f"{data_split}_relation"], np.int64)
+        pos_attr = np.stack([np.ones_like(rel), rel], axis=1)
+        uniq = np.unique(rel)
+        neg_cands = np.stack([np.ones_like(uniq), uniq], axis=1)
+    ds = EgoEdgeDataset(
+        big,
+        depth_neighbors=s["depth_neighbors"],
+        pos_edges=pos,
+        neg_edges=neg,
+        neg_ratio=s["neg_ratio"],
+        percent=s["percent"] if data_split == "train" else 100,
+        method=s["method"],
+        seed=seed,
+        pretrain_mode=pretrain_mode,
+        pos_edge_attr=pos_attr,
+        neg_edge_attr_candidates=neg_cands,
+        sample_wgt=s["sample_wgt"] and data_split == "train",
+        csr=_big_csr(path, big),
+        neg_keys=neg_keys,
+    )
+    ds.source = ("edge", name, path, seed, data_split, pretrain_mode)
+    return ds
+
+
+_edge_level_reader("ogbl-ppa", ((1, 14),), neg_ratio=1, percent=50)
+_edge_level_reader("ogbl-citation2", ((1, 14),), neg_ratio=1, percent=100)
+_edge_level_reader("ogbl-ddi", ((1, 32),), neg_ratio=1, percent=100)
+# wikikg2: relation edge-attrs + inverse-freq sample weights + local
+# head/tail-corruption negatives (reference edge_level.py:210-300,
+# dataset_map.py:369-388)
+_edge_level_reader("ogbl-wikikg2", ((1, 8),), neg_ratio=1, percent=100, relations=True,
+                   sample_wgt=True, method="local")
+
+
+class SpeciesMask:
+    """The ogbn-proteins species mask (reference _mask_species,
+    node_level.py:302-309; `_make_species_mask_func` :373, a closure
+    there): zero every node-attr column beyond the two global/local id
+    columns for nodes sharing the TARGET node's species, preventing label
+    leakage through label-as-feature columns. A module-level class, so that
+    a spawned loader worker can unpickle it."""
+
+    def __call__(self, g):
+        species = g.extra.get("node_species")
+        if species is None or g.node_attr is None or g.node_attr.shape[1] <= 2:
+            return g
+        root = int(np.asarray(g.root_n_id).reshape(-1)[0])
+        tgt = species.reshape(-1)[root]
+        keep = (species.reshape(-1) != tgt).astype(g.node_attr.dtype)  # [N]
+        mask = np.repeat(keep[:, None], g.node_attr.shape[1], axis=1)
+        mask[:, :2] = 1
+        g.node_attr = g.node_attr * mask
+        return g
+
+
+# per node-level dataset: (depth_neighbors, species mask)
+_NODE_LEVEL = {}
+
+
+def _node_level_reader(name: str, depth_neighbors=((2, 10),), species_mask=False):
+    _NODE_LEVEL[name] = (depth_neighbors, species_mask)
+
+    @_readers(name)
+    def _read(cfg, data_split: str = "train", pretrain_mode: bool = False, **kw):
+        return _open_node_level(name, _big_path(cfg, name), cfg.training.seed, data_split,
+                                pretrain_mode)
+
+    return _read
+
+
+def _open_node_level(name, path, seed, data_split, pretrain_mode):
+    depth_neighbors, species_mask = _NODE_LEVEL[name]
+    big, data = _load_big_graph(path)
+    split_idx = data.get(f"{data_split}_idx")
+    task_mask_func = None
+    if species_mask and "node_species" in data:
+        big.extra["node_species"] = np.asarray(data["node_species"], np.int64)
+        task_mask_func = SpeciesMask()
+    # root x_mask: multiply the seed node's attrs during fine-tuning to hide
+    # label-as-feature columns (reference dataset_map.py:253-258, x_mask from
+    # _mask_concat_node_label_as_feat)
+    root_attr_mask = np.asarray(data["x_mask"], np.int64) if "x_mask" in data else None
+    csr = _big_csr(path, big)
+    ds = EgoNodeDataset(
+        big,
+        depth_neighbors=depth_neighbors,
+        sample_idx=split_idx,
+        seed=seed,
+        pretrain_mode=pretrain_mode,
+        task_mask_func=task_mask_func,
+        root_attr_mask=root_attr_mask,
+        csr=csr,
+    )
+    if pretrain_mode:
+        # pretraining on big graphs ensembles node-ego with random-edge
+        # subgraphs (reference EnsembleNodesEdgesMapDataset)
+        rand_ds = RandomEdgesDataset(big, edges_per_sample=256,
+                                     num_samples=len(ds) // 4 + 1, seed=seed, csr=csr)
+        ds = EnsembleDataset([ds, rand_ds])
+    ds.source = ("node", name, path, seed, data_split, pretrain_mode)
+    return ds
+
+
+for _name in ("ogbn-products", "ogbn-arxiv", "ogbn-papers100M"):
+    _node_level_reader(_name)
+_node_level_reader("ogbn-proteins", species_mask=True)

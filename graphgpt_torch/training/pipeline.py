@@ -12,13 +12,17 @@ EMA-valid losses and the dLLM generation sweep over unmask-ratio bands
 block-aligned packing sets for training, is off there, as the JAX package's
 eval config has it. The mesh, several processes, the partitioned corpus and
 the TensorBoard writer wait for later slices. The dataset is a config's
-graph-level npz store through `readers.read_dataset` (PCQM4M-v2,
-ogbg-molpcba, reddit_threads, spice-circuit, ...) or `synthetic_mol`; the
-big-graph readers wait for their slice. Two differences from the JAX
-package, both repairs: a save point's eval keeps
-the last partial batch (the JAX loader drops it, so a valid set smaller than
-one packed batch gives no valid loss at all), and the tokenizer takes the
-config's `pretrain_mlm` schedule.
+npz store through `readers.read_dataset` (PCQM4M-v2, ogbg-molpcba,
+reddit_threads, spice-circuit, the ogbl/ogbn big graphs, ...) or
+`synthetic_mol`; a big graph's dataset is its reader's train split, as in
+the JAX package. Four differences from the JAX package, all repairs: a
+save point's eval keeps the last partial batch (the JAX loader drops it,
+so a valid set smaller than one packed batch gives no valid loss at all),
+the tokenizer takes the config's `pretrain_mlm` schedule,
+`stack_method: long` selects `StackedGSTTokenizerLong` (the JAX
+`build_tokenizer` builds the short tokenizer, which asserts on it), and
+the generation sweep's batch keeps its logits under the loss's
+`LOGITS_BUDGET` (a large vocab).
 
     python -m graphgpt_torch.training.pipeline --smoke [--device cpu]
     python -m graphgpt_torch.training.pipeline --config cfg.yaml [key.sub=value ...]
@@ -42,7 +46,8 @@ from ..data import vocab as vocab_mod
 from ..data.collator import collate
 from ..data.datasets import MOL_EDGE_CARD, MOL_NODE_CARD, SyntheticMolDataset, train_valid_split
 from ..data.loader import GraphTokenLoader, estimate_tokens_per_sample
-from ..data.tokenizer import StackedGSTTokenizer, mask_packed_row
+from ..data.tokenizer import StackedGSTTokenizer, StackedGSTTokenizerLong, mask_packed_row
+from ..ops.losses import LOGITS_BUDGET
 from ..synthetic import to_torch
 from ..utils.logging import (CsvLogger, Throughput, log_line, peak_flops_per_chip,
                              train_flops_per_token)
@@ -64,25 +69,43 @@ def build_dataset(cfg: Config):
     return readers.read_dataset(name, cfg)
 
 
+def tokenizer_class(tok_cfg):
+    """The stacked tokenizer of the config's `stack_method`."""
+    if tok_cfg.tokenizer_class != "StackedGSTTokenizer":
+        raise NotImplementedError(f"tokenizer {tok_cfg.tokenizer_class!r} waits for a later slice")
+    return StackedGSTTokenizerLong if tok_cfg.stack_method == "long" else StackedGSTTokenizer
+
+
+def attr_table_values(arr, dim: int):
+    """The sorted distinct values of each of the first `dim` columns of an
+    attribute table (none where it has no table)."""
+    if arr is None or dim == 0:
+        return [np.zeros(0, np.int64) for _ in range(dim)]
+    a = np.asarray(arr).reshape(len(arr), -1)
+    return [np.unique(a[:, c]) for c in range(dim)]
+
+
 def build_tokenizer(cfg: Config, dataset) -> StackedGSTTokenizer:
     """The vocab from `output_dir/vocab_file` where it exists, else built
     and saved there: from the molecule attribute cardinalities for
-    `synthetic_mol`, else from the attribute values of the dataset's first
-    10,000 graphs; the tokenizer of the config's task with its SMTP
-    schedule."""
+    `synthetic_mol`; for a big-graph dataset from its FULL node and edge
+    tables, a column at a time (sampling could miss nodes that appear later
+    as random negative endpoints; JAX `training/pipeline.py:64-100`); else
+    from the attribute values of the dataset's first 10,000 graphs. The
+    tokenizer of the config's stacking and task, with its SMTP schedule."""
     tok_cfg = cfg.tokenization
-    if tok_cfg.tokenizer_class != "StackedGSTTokenizer":
-        raise NotImplementedError(f"tokenizer {tok_cfg.tokenizer_class!r} waits for a later slice")
+    cls = tokenizer_class(tok_cfg)
     vocab_path = os.path.join(cfg.training.output_dir, tok_cfg.vocab_file)
     if os.path.exists(vocab_path):
         vm = vocab_mod.load_vocab(vocab_path)
     else:
+        big = getattr(dataset, "big", None)
         if tok_cfg.dataset == "synthetic_mol":
             node_vals = [np.arange(c) for c in MOL_NODE_CARD]
             edge_vals = [np.arange(c) for c in MOL_EDGE_CARD]
-        elif getattr(dataset, "big", None) is not None:
-            raise NotImplementedError("the vocab of a big-graph dataset waits for the big-graph "
-                                      "slice (ROADMAP.md queue 1 item 6)")
+        elif big is not None:
+            node_vals = attr_table_values(big.node_attr, tok_cfg.semantics.node.dim)
+            edge_vals = attr_table_values(big.edge_attr, tok_cfg.semantics.edge.dim)
         else:
             node_vals = vocab_mod.scan_attr_values(
                 (dataset[i] for i in range(min(len(dataset), 10000))),
@@ -97,8 +120,7 @@ def build_tokenizer(cfg: Config, dataset) -> StackedGSTTokenizer:
         vocab = vocab_mod.build_vocab(tok_cfg, node_vals, edge_vals)
         vocab_mod.save_vocab(vocab, vocab_path)
         vm = vocab_mod.vocab_map_from_list(vocab)
-    return StackedGSTTokenizer(tok_cfg, vm, task_type=cfg.training.task_type,
-                               mlm_cfg=cfg.training.pretrain_mlm)
+    return cls(tok_cfg, vm, task_type=cfg.training.task_type, mlm_cfg=cfg.training.pretrain_mlm)
 
 
 def _band_edge(v: float) -> str:
@@ -161,8 +183,8 @@ class PretrainPipeline:
         post_pack_fn = None
         loader_tokenizer = self.tokenizer
         if pack and tcfg.mask_after_pack and tcfg.task_type == "pretrain-mlm":
-            loader_tokenizer = StackedGSTTokenizer(cfg.tokenization, self.tokenizer.vocab_map,
-                                                   task_type="pretrain")
+            loader_tokenizer = tokenizer_class(cfg.tokenization)(
+                cfg.tokenization, self.tokenizer.vocab_map, task_type="pretrain")
             mask_id, vocab_size, mlm_cfg = (self.tokenizer.mask_id, self.tokenizer.vocab_size,
                                             tcfg.pretrain_mlm)
 
@@ -407,7 +429,8 @@ class PretrainPipeline:
         from ..generation import dllm
 
         tcfg, gen_cfg, tok = self.cfg.training, self.cfg.generation, self.tokenizer
-        clean_tok = StackedGSTTokenizer(self.cfg.tokenization, tok.vocab_map, task_type="pretrain")
+        clean_tok = tokenizer_class(self.cfg.tokenization)(self.cfg.tokenization, tok.vocab_map,
+                                                           task_type="pretrain")
         rng_np = np.random.default_rng(0)
         idx = self.valid_idx if len(self.valid_idx) else self.train_idx
         if n_samples is None:
@@ -416,7 +439,10 @@ class PretrainPipeline:
             idx = idx[:n_samples]
         bs = batch_size or min(tcfg.batch_size_eval or tcfg.batch_size, max(len(idx), 1))
         p = tcfg.max_length
-        b = min(bs, len(idx))
+        # at most LOGITS_BUDGET logits [b, P * F, V] a batch (the sampler's
+        # softmax over a 33k vocab asked for 49 GiB at 32 rows of 1024 x 12)
+        b = max(1, min(bs, len(idx), LOGITS_BUDGET // (p * clean_tok.stacked_feat
+                                                         * tok.vocab_size)))
         model = self.state.model
         correct = np.zeros(n_bands, np.int64)
         masked_n = np.zeros(n_bands, np.int64)

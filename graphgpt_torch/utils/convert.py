@@ -16,6 +16,9 @@ nn.Linear's [out, in] layout (the mapping of graphgpt_tpu/utils/convert.py):
     score_w, score_b          score.weight (T), score.bias
     score_mlp[i].{w,b}        score_mlp.{i}.weight (T), score_mlp.{i}.bias
     stacked_agg_w             stacked_feat_agg.weight
+    embed_proj                embed_proj.weight (T)
+    embed_layernorm           embed_layernorm.weight
+    emb_mask_token            emb_mask_token
 
 The 3D-molecule heads keep the JAX names (no HF name exists):
 
@@ -74,6 +77,7 @@ _HEADS = (
     ("line_token_proj", "line_token_proj.weight"),
     ("line_token_head", "line_token_head.weight"),
     ("cube_token_proj", "cube_token_proj.weight"),
+    ("embed_proj", "embed_proj.weight"),
 )
 # top-level arrays kept as they are
 _ASIS = (
@@ -84,6 +88,8 @@ _ASIS = (
     ("embed_line_token", "embed_line_token.weight"),
     ("embed_cube_token", "embed_cube_token.weight"),
     ("pos_token_agg_w", "pos_token_agg_w"),
+    ("embed_layernorm", "embed_layernorm.weight"),
+    ("emb_mask_token", "emb_mask_token"),
 )
 # the denoise force head: (key, transposed)
 _DENOISE = (("q", True), ("k", True), ("v", True), ("force_w", False), ("force_b", False))

@@ -5,8 +5,10 @@ finds no import of jax, jaxlib, optax, flax, orbax or graphgpt_tpu, at any
 depth (inside functions too). A subprocess that blocks `jax` in
 `sys.modules` imports every module of the port and runs a tiny CPU forward,
 a few sampler steps, one training step, a one-epoch fine-tune run and the
-two 3D-molecule models' training forwards, and reads a graph-level store
-through the readers and walks one of its graphs in C++.
+two 3D-molecule models' training forwards, reads a graph-level store
+through the readers and walks one of its graphs in C++, and reads a big
+graph through the ogbl-ppa reader, samples an ego subgraph in C++ and
+tokenizes it in the long stacking.
 """
 
 import ast
@@ -52,7 +54,8 @@ def test_the_scan_sees_every_module():
                  "graphgpt_torch/training/pipeline.py", "graphgpt_torch/data/loader.py",
                  "graphgpt_torch/utils/inspection.py", "graphgpt_torch/readers.py",
                  "graphgpt_torch/native/euler_native.py", "graphgpt_torch/native/__init__.py",
-                 "graphgpt_torch/data/partition.py", "chip_smoke.py"):
+                 "graphgpt_torch/data/partition.py", "graphgpt_torch/data/sampling.py",
+                 "graphgpt_torch/utils/convert.py", "chip_smoke.py"):
         assert must in names
     assert sorted(p.name for p in (ROOT / "graphgpt_torch" / "native").iterdir()
                   if p.suffix in (".py", ".cpp")) == ["__init__.py", "euler.cpp", "euler_native.py"]
@@ -158,6 +161,26 @@ ds = readers.read_dataset("pcqm4m-v2", cfg)
 assert [len(s) for s in ds.splits()] == [8, 4, 0] and ds[3].num_nodes == gs[3].num_nodes
 assert euler._native() is not None  # the C++ walk
 assert len(euler.graph_to_walk(ds[0], np.random.default_rng(0))) >= ds[0].num_nodes
+from graphgpt_torch.data import sampling, vocab
+from graphgpt_torch.data.tokenizer import StackedGSTTokenizerLong
+os.makedirs(os.path.join(d, "ogbl-ppa"))
+rng = np.random.default_rng(0)
+edges = np.unique(rng.integers(0, 50, (2, 300)), axis=1)
+edges = edges[:, edges[0] < edges[1]]
+np.savez(os.path.join(d, "ogbl-ppa", "big_graph.npz"),
+         edge_index=np.concatenate([edges, edges[::-1]], axis=1).astype(np.int32),
+         num_nodes=np.int64(50), train_edge=edges.T.astype(np.int64),
+         node_attr=np.stack([np.arange(50), np.arange(50) % 4], 1).astype(np.int32))
+cfg.tokenization.dataset, cfg.tokenization.stack_method = "ogbl-ppa", "long"
+cfg.tokenization.semantics.node.dim, cfg.tokenization.semantics.edge.dim = 2, 0
+cfg.tokenization.semantics.node.discrete = "node_attr"
+cfg.tokenization.semantics.edge.discrete = None
+big = readers.read_dataset("ogbl-ppa", cfg)
+assert isinstance(big, sampling.EgoEdgeDataset) and big[0].root_n_id.shape == (2,)
+vm = vocab.vocab_map_from_list(vocab.build_vocab(
+    cfg.tokenization, [np.unique(big.big.node_attr[:, c]) for c in range(2)], []))
+tok = StackedGSTTokenizerLong(cfg.tokenization, vm, task_type="edge")
+assert tok(big[0], np.random.default_rng(0)).input_ids.shape[1] == 4
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "graphgpt_tpu")
              and sys.modules[m] is not None)
 assert not bad, bad

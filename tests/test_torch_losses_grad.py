@@ -77,6 +77,44 @@ def test_chunked_stacked_ce_value_and_grads_match_jax(case):
         np.testing.assert_allclose(g, np.asarray(w), atol=2e-6, rtol=1e-4)
 
 
+@pytest.mark.parametrize("case", ["plain", "dlm-weighted", "single-head"])
+def test_a_logits_budget_cuts_the_chunk_and_keeps_the_value(monkeypatch, case):
+    """Where B * chunk * N * V would pass LOGITS_BUDGET the chunk shrinks (a
+    large vocab), the last one ragged: against `jax.value_and_grad` at the
+    JAX package's chunk of 16, as above."""
+    kw = CASES[case]
+    hidden, labels, proj, head, wgt, dlm = _inputs(kw)
+    n = labels.shape[-1]
+    monkeypatch.setattr(tlosses, "LOGITS_BUDGET", 2 * n * 40 * 5)  # 5 positions: 64 = 12 x 5 + 4
+
+    def f(hidden, proj, head):
+        return jlosses.chunked_stacked_ce(
+            hidden, jnp.asarray(labels), proj, head,
+            token_wgt=None if wgt is None else jnp.asarray(wgt), dlm_normalizer=dlm, chunk=16)
+
+    argnums = (0, 2) if proj is None else (0, 1, 2)
+    want, want_grads = jax.value_and_grad(f, argnums=argnums)(
+        jnp.asarray(hidden), None if proj is None else jnp.asarray(proj), jnp.asarray(head))
+    t = torch.from_numpy
+    th = t(hidden).requires_grad_()
+    tp = None if proj is None else t(proj.T.copy()).requires_grad_()
+    thead = t(head.T.copy()).requires_grad_()
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda s: saved.append(tuple(s.shape)) or s,
+                                                  lambda s: s):
+        got = tlosses.chunked_stacked_ce(th, t(labels), tp, thead,
+                                         token_wgt=None if wgt is None else t(wgt),
+                                         dlm_normalizer=dlm, chunk=16)
+    # the chunks' hidden slices, saved for the recompute: 5 positions, the last 4
+    assert {s[1] for s in saved if len(s) == 3 and s[0] == 2 and s[-1] == 32} >= {5, 4}
+    got.backward()
+    assert abs(got.item() - float(want)) < 1e-5
+    got_grads = [th.grad.numpy()] + ([] if proj is None else [tp.grad.numpy().T])
+    got_grads.append(thead.grad.numpy().T)
+    for g, w in zip(got_grads, want_grads):
+        np.testing.assert_allclose(g, np.asarray(w), atol=2e-6, rtol=1e-4)
+
+
 def test_chunks_are_rematerialised():
     """No [B, c, N, V] logits tensor is kept for the backward."""
     hidden, labels, proj, head, _, _ = _inputs({})

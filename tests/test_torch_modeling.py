@@ -202,9 +202,53 @@ def test_mlp_kernel_auto_is_on_for_cuda_only(monkeypatch):
 
 
 def test_raw_embed_branch_raises():
-    jcfg, tcfg = _configs(embed_dim=8)
-    model = GraphGPTPretrain(tcfg, device="cpu")
-    batch = to_torch(_batch(b=1, p=32, pad_tail=0), "cpu")
-    batch["embed"] = torch.zeros(1, 32, 8)
-    with pytest.raises(NotImplementedError, match="embed_dim"):
-        model.hidden_states(batch)
+    """The raw-embedding branch (embed_dim > 0), which raised until it was
+    ported, against JAX `add_raw_embeds` through the pretrain
+    forward in fp32: the loss, every gradient (the branch's three weights
+    among them) with mask-token substitution at the masked rows, and the
+    hidden states without labels; its three weights map through the
+    converter both ways under the HF names of `params_to_flat_state_dict`
+    (emb_mask_token flat in the port, [1, 1, E] there)."""
+    jcfg, tcfg = _configs(embed_dim=8, dtype="float32", jkw=dict(attn_impl="xla",
+                                                                 mlp_kernel="off"))
+    params = _params(jcfg)
+    assert {"embed_layernorm", "embed_proj", "emb_mask_token"} <= set(params)
+    model = _port(tcfg, params)
+    nb = _batch(b=2, p=64, pad_tail=8)
+    nb["embed"] = np.random.default_rng(3).normal(size=(2, 64, 8)).astype(np.float32)
+
+    def loss_fn(p):
+        return jheads.pretrain_forward(p, jcfg, nb, rng=None, train=True)["loss"]
+
+    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    out = model(to_torch(nb, "cpu"), train=True)
+    out["loss"].backward()
+    assert abs(out["loss"].item() - float(want_loss)) < 1e-5
+    from graphgpt_torch.utils.convert import tree_from_jax
+
+    want = tree_from_jax(jax.tree_util.tree_map(np.asarray, want_grads), device="cpu")
+    grads = {k: q.grad for k, q in model.named_parameters()}
+    assert set(grads) == set(want)
+    for name in ("embed_layernorm.weight", "embed_proj.weight", "emb_mask_token",
+                 "model.embed_tokens.weight", "model.layers.0.self_attn.q_proj.weight"):
+        g, w = grads[name].numpy(), want[name].numpy()
+        assert np.abs(w).max() > 0, name
+        assert np.linalg.norm(g - w) <= 2e-4 * np.linalg.norm(w), name
+    hidden_want = jax.jit(lambda p, b: jmod.model_hidden_states(
+        p, jcfg, b["input_ids"], b["position_ids"], b["segment_ids"], raw_embeds=b["embed"]))(
+        params, nb)
+    hidden = model.hidden_states(to_torch(nb, "cpu"))
+    np.testing.assert_allclose(hidden.numpy(), np.asarray(hidden_want), atol=1e-4, rtol=1e-4)
+    # without `embed` in the batch the branch is not taken
+    del nb["embed"]
+    assert not np.allclose(model.hidden_states(to_torch(nb, "cpu")).numpy(),
+                           np.asarray(hidden_want), atol=1e-3)
+    # the converter, both ways
+    sd = params_from_jax(params, device="cpu")
+    flat = params_to_flat_state_dict(params, jcfg.num_hidden_layers)
+    for name in ("embed_layernorm.weight", "embed_proj.weight", "emb_mask_token"):
+        np.testing.assert_array_equal(sd[name].numpy().reshape(flat[name].shape), flat[name])
+    assert set(model.state_dict()) == set(sd)
+    back = params_to_jax(sd)
+    for key in ("embed_layernorm", "embed_proj", "emb_mask_token"):
+        np.testing.assert_array_equal(back[key], params[key])

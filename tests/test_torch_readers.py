@@ -366,14 +366,24 @@ def test_index_samplers_equal_jax(tmp_path):
 
 
 def test_missing_stores_and_big_graph_names_raise(tmp_path):
+    """A missing store raises, graph-level or big-graph; structure_er waits
+    for GSTTokenizer's slice; the eight OGB edge- and node-level names read
+    their big_graph.npz (tests/test_torch_big_graph.py holds them to JAX)."""
+    from test_torch_big_graph import EDGE_LEVEL, NODE_LEVEL, write_big_store
+
     _, tcfg = cfg_pair(tmp_path, "pcqm4m-v2")
     with pytest.raises(FileNotFoundError, match="graphs.npz"):
         treaders.read_dataset("pcqm4m-v2", tcfg)
-    for name in ("ogbl-ppa", "ogbl-citation2", "ogbl-ddi", "ogbl-wikikg2", "ogbn-products",
-                 "ogbn-arxiv", "ogbn-papers100M", "ogbn-proteins", "structure_er"):
+    tcfg.tokenization.dataset = "structure_er"
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        tpipeline.build_dataset(tcfg)
+    for name in EDGE_LEVEL + NODE_LEVEL:
         tcfg.tokenization.dataset = name
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        with pytest.raises(FileNotFoundError, match="big_graph.npz"):
             tpipeline.build_dataset(tcfg)
+        write_big_store(tmp_path, name, n=60, m=150)
+        ds = tpipeline.build_dataset(tcfg)
+        assert len(ds) > 0 and ds[0].num_nodes >= 1 and ds.big.num_nodes == 60
     with pytest.raises(KeyError):
         treaders.read_dataset("no-such-set", tcfg)
 

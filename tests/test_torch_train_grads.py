@@ -184,6 +184,95 @@ def test_embedding_variants_match_jax(kw):
     _assert_grads_match(grads, want_grads)
 
 
+@pytest.mark.parametrize(
+    "kw",
+    [dict(), dict(stacked_feat_agg_method="gated"), dict(stack_method="long")],
+    ids=["sum", "gated", "long"],
+)
+def test_segment_sum_route_matches_jax(monkeypatch, kw):
+    """The embedding gradient by the sorted segment sum, the route of a large
+    vocab (the switch point set to 0 here; blocks of 8 and chunks of 64
+    sorted slots, so that the runs cross blocks and chunks and take several
+    levels), against `jax.grad`, at the tolerance of the test above."""
+    monkeypatch.setattr(tmod, "SEGMENT_FIXED", 0)
+    monkeypatch.setattr(tmod, "SEGMENT_PER_ID", 0)
+    monkeypatch.setattr(tmod, "SEGMENT_BLOCK", 8)
+    monkeypatch.setattr(tmod, "SEGMENT_CHUNK", 64)
+    routes = []
+    for name in ("_segment_sum_grad", "_count_matrix_grad"):
+        real = getattr(tmod, name)
+        monkeypatch.setattr(tmod, name, lambda *a, _r=real, _n=name: routes.append(_n) or _r(*a))
+    params, want_loss, want_grads = _jax_loss_and_grads("xla", _freeze(kw))
+    loss, grads = _port_loss_and_grads(_port(params, **kw), _batch())
+    assert routes == ["_segment_sum_grad"]
+    assert abs(loss - want_loss) < 1e-5
+    _assert_grads_match(grads, want_grads)
+
+
+@pytest.mark.parametrize("f", [1, 3, 13])
+def test_segment_sum_is_the_scatter_add(monkeypatch, f):
+    """Both routes against a float64 index_add_: a run of 700 equal ids (as
+    the <bi> token of long rows), ids absent from the rows, a bf16
+    cotangent summed in fp32; the segment sum the same on a second call."""
+    monkeypatch.setattr(tmod, "SEGMENT_BLOCK", 16)
+    monkeypatch.setattr(tmod, "SEGMENT_CHUNK", 256)
+    rng = np.random.default_rng(f)
+    ids = torch.from_numpy(rng.integers(0, 400, size=(900, f)))
+    ids[:700, 0] = 5
+    g = torch.from_numpy(rng.normal(size=(900, 16)).astype(np.float32))
+    want = torch.zeros(401, 16, dtype=torch.float64)
+    for c in range(f):
+        want.index_add_(0, ids[:, c], g.double())
+    got = tmod._segment_sum_grad(ids, g, 401)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4)
+    assert torch.equal(got, tmod._segment_sum_grad(ids, g, 401))
+    np.testing.assert_allclose(tmod._count_matrix_grad(ids, g, 401, 128).numpy(), want.numpy(),
+                               atol=1e-4)
+    got16 = tmod._segment_sum_grad(ids, g.bfloat16(), 401)
+    assert got16.dtype == torch.float32
+    np.testing.assert_allclose(got16.numpy(), want.numpy(), atol=0.3)
+    assert tmod._segment_sum_grad(ids[:0], g[:0], 401).abs().sum() == 0
+
+
+@pytest.mark.parametrize(
+    "blk, ids",
+    [(2, [3, 7, 7, 9]), (128, list(range(128)) + [127] + list(range(128, 255)))],
+    ids=["block2", "block128"],
+)
+def test_segment_sum_merges_a_run_split_across_blocks(monkeypatch, blk, ids):
+    """A level that leaves two rows of one run in two blocks (sorted slots
+    blk - 1 and blk: [a, b | b, c] at blocks of 2, a pair at slots 127/128
+    at blocks of 128, every other id once) reduces nothing; the next level
+    moves the boundaries and merges them. Held to a float64 index_add_, in
+    few levels (a level that repeated itself forever fails here)."""
+    monkeypatch.setattr(tmod, "SEGMENT_BLOCK", blk)
+    levels = []
+    real = tmod._block_run_sums
+
+    def counted(*a):
+        levels.append(len(a[0]))
+        assert len(levels) <= 8, f"the segment sum's levels do not reduce: {levels}"
+        return real(*a)
+
+    monkeypatch.setattr(tmod, "_block_run_sums", counted)
+    rng = np.random.default_rng(blk)
+    ids = torch.as_tensor(rng.permutation(ids))[:, None]
+    g = torch.from_numpy(rng.normal(size=(len(ids), 16)).astype(np.float32))
+    want = torch.zeros(300, 16, dtype=torch.float64).index_add_(0, ids[:, 0], g.double())
+    got = tmod._segment_sum_grad(ids, g, 300)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
+def test_the_route_switch():
+    """The count matrix at a small vocab, the segment sum at a large one; the
+    switch point falls with the rows and rises with the ids a row."""
+    assert not tmod.segment_route(65536, 13, 755)  # a training batch of molecules
+    assert tmod.segment_route(28672, 3, 576906)  # an ogbl-ppa fine-tune batch
+    assert tmod.segment_route(995328, 1, 33254)  # ogbn-proteins, gated
+    assert not tmod.segment_route(28672, 3, 16384) and tmod.segment_route(28672, 3, 65536)
+    assert tmod.segment_route(995328, 1, 4096) and not tmod.segment_route(995328, 1, 1024)
+
+
 def test_count_matrix_grad_is_the_scatter_add():
     rng = np.random.default_rng(0)
     ids = torch.from_numpy(rng.integers(0, 11, size=(300, 3)))
