@@ -41,6 +41,15 @@ flash_attention rotates q and k outside the kernels (:1249-1255), with
 `models/rope.apply_rope`, and autograd carries the rotation's gradient.
 Here the port differs: an unknown mode raises, where the JAX package takes
 any value it does not know for `legacy`.
+
+Head widths: the kernels are built for KERNEL_DH = 64 and raise on any
+other. Below it `flash_attention` does what the JAX package's does before
+its kernels (`_PAD_DH` :1202, `_prep` :1217-1220, :1249 and :1280): q and
+k rotated outside the kernels, the softmax scale the true dh's, and on the
+kernels' route every head zero padded to 64 and the output cut back to dh;
+autograd carries the pad, the cut and the rotation. The plain route
+rotates the same way and stays at the true dh, the reference the card
+holds the padded path to.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ MODES = ("legacy", "skip", "band")
 _MODE = os.environ.get("GGT_FLASH_MODE", "legacy")
 _MAX_BAND = 4096  # the longest row the band kernels take (the JAX package's)
 BAND_TILE = 64  # the band kernels' q and key tile height
+KERNEL_DH = 64  # the kernels' head width (csrc/flash_common.cuh DH), the JAX package's _PAD_DH
 
 
 def _mode() -> str:
@@ -433,10 +443,10 @@ def _check_fwd(name, dh, qs, k, v, seg_q, seg_k, cos, sin):
     contiguous, seg_q, seg_k, cos, sin). Raises on what the kernels do not
     take."""
     b, p, _ = qs.shape
-    if dh != 64 or qs.dtype != torch.bfloat16:
+    if dh != KERNEL_DH or qs.dtype != torch.bfloat16:
         raise NotImplementedError(
-            f"the flash kernel takes bf16 with head_dim 64, got {qs.dtype}, {dh}"
-        )
+            f"the flash kernel takes bf16 with head_dim {KERNEL_DH} (flash_attention pads "
+            f"narrower heads), got {qs.dtype}, {dh}")
     tok = tuple(t.contiguous() for t in (qs, k, v))
     if any(t.shape != qs.shape for t in tok):
         raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in tok]}")
@@ -454,8 +464,9 @@ def _check_bwd(name, dh, qs, k, v, seg, cos, sin, lse, do, extra=(), extra_rows=
     take."""
     b, p, hd = qs.shape
     tok = (qs, k, v, do) + tuple(extra)
-    if dh != 64 or any(t.dtype != torch.bfloat16 for t in tok):
-        raise NotImplementedError(f"{name} takes bf16 with head_dim 64, got {qs.dtype}, {dh}")
+    if dh != KERNEL_DH or any(t.dtype != torch.bfloat16 for t in tok):
+        raise NotImplementedError(f"{name} takes bf16 with head_dim {KERNEL_DH} (flash_attention "
+                                  f"pads narrower heads), got {qs.dtype}, {dh}")
     tok = tuple(t.contiguous() for t in tok)
     if any(t.shape != qs.shape for t in tok):
         raise ValueError(f"{name}: token-major shapes {[tuple(t.shape) for t in tok]}")
@@ -834,27 +845,33 @@ def flash_attention(
 ):
     """[B, P, H, Dh] (and lse [B, H, P] when asked): GQA expansion and the
     scale fold as `_prep` (autograd carries their gradients), then the
-    kernels with in-kernel RoPE; under the `band` and `skip` modes q and k
-    are rotated first, outside the kernels (:1249-1255). `stash`: see
+    kernels with in-kernel RoPE; under the `band` and `skip` modes, and
+    for heads narrower than KERNEL_DH, q and k are rotated first, outside
+    the kernels (:1249-1255); on the kernels' route narrower heads are
+    padded to KERNEL_DH and cut back after them (:1280). `stash`: see
     `_FlashAttention`."""
-    if rope is not None and _mode() in ("band", "skip"):
+    b, p, h, dh = q.shape
+    pad = dh < KERNEL_DH and use_kernel(q, k, v, segment_ids)
+    if rope is not None and (dh < KERNEL_DH or _mode() in ("band", "skip")):
         from ..models.rope import apply_rope
 
         q, k = apply_rope(q, k, rope[0], rope[1])
         rope = None
-    b, p, h, dh = q.shape
     hkv = k.shape[2]
     if hkv != h:
         k = k.repeat_interleave(h // hkv, dim=2)
         v = v.repeat_interleave(h // hkv, dim=2)
     scale = softmax_scale if softmax_scale is not None else dh**-0.5
     qs = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    dh_k = KERNEL_DH if pad else dh
+    if pad:
+        qs, k, v = (torch.nn.functional.pad(t, (0, dh_k - dh)) for t in (qs, k, v))
     cos = sin = None
     if rope is not None:
         cos, sin = rope[0].to(qs.dtype), rope[1].to(qs.dtype)
     out, lse = _FlashAttention.apply(
-        qs.reshape(b, p, h * dh), k.reshape(b, p, h * dh), v.reshape(b, p, h * dh),
-        segment_ids, cos, sin, causal, dh, bi_causal_split, stash,
+        qs.reshape(b, p, h * dh_k), k.reshape(b, p, h * dh_k), v.reshape(b, p, h * dh_k),
+        segment_ids, cos, sin, causal, dh_k, bi_causal_split, stash,
     )
-    out = out.view(b, p, h, dh)
+    out = out.view(b, p, h, dh_k)[..., :dh]
     return (out, lse) if return_lse else out

@@ -40,7 +40,10 @@ what was changed after it was read; and a big-graph dataset pickles as its
 reader's arguments and its epoch (`data/sampling.py`), its CSR memory-mapped
 from a cache file beside the store (`big_graph.csr.npz`, written at the
 first read where the directory is writable). `structure_er` (:293) waits
-for `GSTTokenizer`'s slice: asking for it raises.
+for `GSTTokenizer`'s slice: asking for it raises. One repair: an
+ogbl-wikikg2 store as `tools/convert_ogb.py` writes it has no node or edge
+table, which its config's columns need; the reader builds both
+(`_relation_tables`), where the JAX tokenizer raises a TypeError.
 """
 
 from __future__ import annotations
@@ -423,7 +426,8 @@ def _reopen(source, state):
     to its pickled state (`data/sampling.py`'s `_Reopened`)."""
     kind, *args = source
     if kind == "edge":
-        ds = _open_edge_level(*args, neg_keys=state.get("_neg_keys"))
+        *args, columns = args
+        ds = _open_edge_level(*args, neg_keys=state.get("_neg_keys"), columns=columns)
     else:
         ds = _open_node_level(*args)
     return ds.restore(state)
@@ -436,32 +440,77 @@ _EDGE_LEVEL = {}
 
 def _edge_level_reader(name: str, default_depth_neighbors=((1, 14),), neg_ratio=1,
                        percent=100, relations: bool = False, sample_wgt: bool = False,
-                       method: str = "global"):
+                       method: str = "global", grouped_eval: bool = False):
+    """`grouped_eval`: the valid and test splits carry fixed negatives
+    grouped by their positive ([S, K, 2] `{split}_edge_neg`), which OGB's
+    MRR ranks each positive against (`grouped_eval_datasets`)."""
     _EDGE_LEVEL[name] = dict(depth_neighbors=default_depth_neighbors, neg_ratio=neg_ratio,
                              percent=percent, relations=relations, sample_wgt=sample_wgt,
-                             method=method)
+                             method=method, grouped_eval=grouped_eval)
 
     @_readers(name)
     def _read(cfg, data_split: str = "train", pretrain_mode: bool = False, **kw):
+        sem = cfg.tokenization.semantics
+        columns = (sem.node.dim if sem.node.discrete else 0,
+                   sem.edge.dim if sem.edge.discrete else 0)
         return _open_edge_level(name, _big_path(cfg, name), cfg.training.seed, data_split,
-                                pretrain_mode)
+                                pretrain_mode, columns=columns)
 
     return _read
 
 
-def _open_edge_level(name, path, seed, data_split, pretrain_mode, neg_keys=None):
+def _relation_tables(big: Graph, data, columns) -> bool:
+    """The port's repair of ogbl-wikikg2's store as `tools/convert_ogb.py`
+    writes it (:112-128): the graph's edges are the train triples, but the
+    store has no node_attr and no edge_attr, so that the config's node and
+    edge columns (`node_attr` and the relation id, one each: `columns`, the
+    config's (node dim, edge dim)) find no table and both packages'
+    tokenizers raise a TypeError. Where the config asks for an edge column
+    that the store lacks, each graph edge takes the relation of its train
+    triple (both directions of a triple the same relation); where it asks
+    for a node column, every node takes one attribute value, 0 (the
+    entities carry no features). Returns whether the edge table was built."""
+    node_dim, edge_dim = columns
+    built = False
+    if edge_dim and big.edge_attr is None and "train_relation" in data:
+        rel = np.asarray(data["train_relation"], np.int64)
+        tr = np.asarray(data["train_edge"], np.int64)
+        ei = np.asarray(big.edge_index, np.int64)
+        if ei.shape[1] == len(tr) and np.array_equal(ei.T, tr):  # OGB's: the triples in order
+            attr = rel
+        elif ei.shape[1] == 2 * len(tr) and np.array_equal(
+                ei.T, np.concatenate([tr, tr[:, ::-1]])):  # each triple both ways round
+            attr = np.concatenate([rel, rel])
+        else:
+            raise ValueError("ogbl-wikikg2: edge_index is neither the train triples nor the "
+                             "triples followed by their reverses; the relations cannot be matched")
+        big.edge_attr = attr.astype(np.int32)[:, None]
+        built = True
+    if node_dim and big.node_attr is None:
+        big.node_attr = np.zeros((big.num_nodes, node_dim), np.int32)
+    return built
+
+
+def _open_edge_level(name, path, seed, data_split, pretrain_mode, neg_keys=None,
+                     columns=(0, 0)):
     s = _EDGE_LEVEL[name]
     big, data = _load_big_graph(path)
+    repaired = s["relations"] and _relation_tables(big, data, columns)
     pos = data.get(f"{data_split}_edge")
     neg = data.get(f"{data_split}_edge_neg")
     pos_attr = neg_cands = None
     if s["relations"] and f"{data_split}_relation" in data:
         # wikikg2 relation -> target edge attrs [ones, rel] and the
-        # unique-relation candidate table (reference edge_level.py:241-262)
+        # unique-relation candidate table (reference edge_level.py:241-262);
+        # with the repaired table, the relation alone, as the graph's edges
+        # carry it (the config's one edge column)
         rel = np.asarray(data[f"{data_split}_relation"], np.int64)
-        pos_attr = np.stack([np.ones_like(rel), rel], axis=1)
         uniq = np.unique(rel)
-        neg_cands = np.stack([np.ones_like(uniq), uniq], axis=1)
+        if repaired:
+            pos_attr, neg_cands = rel[:, None], uniq[:, None]
+        else:
+            pos_attr = np.stack([np.ones_like(rel), rel], axis=1)
+            neg_cands = np.stack([np.ones_like(uniq), uniq], axis=1)
     ds = EgoEdgeDataset(
         big,
         depth_neighbors=s["depth_neighbors"],
@@ -477,19 +526,32 @@ def _open_edge_level(name, path, seed, data_split, pretrain_mode, neg_keys=None)
         sample_wgt=s["sample_wgt"] and data_split == "train",
         csr=_big_csr(path, big),
         neg_keys=neg_keys,
+        relation_col=0 if repaired else 1,
     )
-    ds.source = ("edge", name, path, seed, data_split, pretrain_mode)
+    ds.source = ("edge", name, path, seed, data_split, pretrain_mode, columns)
     return ds
 
 
 _edge_level_reader("ogbl-ppa", ((1, 14),), neg_ratio=1, percent=50)
-_edge_level_reader("ogbl-citation2", ((1, 14),), neg_ratio=1, percent=100)
+_edge_level_reader("ogbl-citation2", ((1, 14),), neg_ratio=1, percent=100, grouped_eval=True)
 _edge_level_reader("ogbl-ddi", ((1, 32),), neg_ratio=1, percent=100)
 # wikikg2: relation edge-attrs + inverse-freq sample weights + local
 # head/tail-corruption negatives (reference edge_level.py:210-300,
 # dataset_map.py:369-388)
 _edge_level_reader("ogbl-wikikg2", ((1, 8),), neg_ratio=1, percent=100, relations=True,
-                   sample_wgt=True, method="local")
+                   sample_wgt=True, method="local", grouped_eval=True)
+
+
+def grouped_eval_datasets(cfg) -> dict:
+    """{"valid": dataset, "test": dataset} of an edge-level dataset whose
+    eval splits are grouped (`_edge_level_reader`'s `grouped_eval`:
+    ogbl-citation2, ogbl-wikikg2), each split's items its positives and
+    then each positive's negatives in order, an item's `eval_group` its
+    positive; {} for any other dataset."""
+    name = cfg.tokenization.dataset
+    if not _EDGE_LEVEL.get(name, {}).get("grouped_eval"):
+        return {}
+    return {split: read_dataset(name, cfg, data_split=split) for split in ("valid", "test")}
 
 
 class SpeciesMask:

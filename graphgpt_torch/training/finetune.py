@@ -12,6 +12,14 @@ resets the dataset's node permutations (`reset_samples`); the loader runs
 `num_workers` tokenizer processes. Eval covers each index once: no row is
 repeated to fill a batch.
 
+Here the port differs (a repair): where the reader's valid and test splits
+are grouped (`readers.grouped_eval_datasets`: ogbl-citation2 and
+ogbl-wikikg2, whose OGB metric is the MRR) valid and test are those
+splits, each positive with its fixed negatives, and a train-subset eval
+gives no MRR. The JAX pipeline takes valid and test from
+`train_valid_split` over the train split, whose samples carry no groups, so
+that its `reformat_mrr_inputs` raises at the first eval of either config.
+
     python -m graphgpt_torch.training.finetune --config cfg.yaml key.sub=value ...
 """
 
@@ -24,7 +32,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import readers, resolve_device
 from ..config import Config, config_to_dict
 from ..data.datasets import train_valid_split
 from ..data.loader import GraphTokenLoader
@@ -115,6 +123,16 @@ class FinetunePipeline:
             self.dataset, self.tokenizer, batch_size=tcfg.batch_size, mpe=tcfg.max_length,
             bucket=tcfg.pad_to_multiple_of, num_workers=tcfg.num_workers, seed=tcfg.seed,
         )
+        # grouped eval splits (the MRR datasets): valid and test from the
+        # reader's own splits
+        self.eval_loaders = {
+            split: GraphTokenLoader(
+                ds, self.tokenizer, batch_size=tcfg.batch_size, mpe=tcfg.max_length,
+                bucket=tcfg.pad_to_multiple_of, num_workers=tcfg.num_workers, seed=tcfg.seed)
+            for split, ds in readers.grouped_eval_datasets(cfg).items()}
+        if self.eval_loaders:
+            self.valid_idx = np.arange(len(self.eval_loaders["valid"].dataset))
+            self.test_idx = np.arange(len(self.eval_loaders["test"].dataset))
         self.ckpt = Checkpointer(os.path.join(tcfg.output_dir, "ckpt"))
         self.ckpt_ema_best = Checkpointer(os.path.join(tcfg.output_dir, "ckpt_ema_best"), keep=1)
         self.logger = CsvLogger(os.path.join(tcfg.output_dir, "loss.csv"))
@@ -131,15 +149,19 @@ class FinetunePipeline:
             "nodev2": "nodev2_labels",
         }.get(self.cfg.training.task_type, "task_labels")
 
-    def _eval_collect(self, indices, use_ema: bool = False, want_hidden: bool = False):
-        """(scores, labels, eval_group, hidden) over `indices`, each index
-        once, in order; None where nothing was collected."""
+    def _eval_collect(self, indices, use_ema: bool = False, want_hidden: bool = False,
+                      split: Optional[str] = None):
+        """(scores, labels, eval_group, hidden) over `indices` of the split's
+        dataset (the training dataset unless `split` has an eval loader of
+        its own), each index once, in order; None where nothing was
+        collected."""
         tcfg = self.cfg.training
         ev = self.eval_step_ema if use_ema else self.eval_step
         bs = tcfg.batch_size_eval or tcfg.batch_size
+        loader = self.eval_loaders.get(split, self.loader)
         scores, labels, groups, hidden = [], [], [], []
-        for batch in self.loader.epoch_batches(np.asarray(indices), epoch=0, drop_last=False,
-                                               batch_size=bs):
+        for batch in loader.epoch_batches(np.asarray(indices), epoch=0, drop_last=False,
+                                          batch_size=bs):
             out = ev(self.state, to_torch(batch.data, self.device))
             scores.append(out["task_logits"].float().cpu().numpy().astype(np.float64))
             labels.append(np.asarray(batch[self._label_key()]))
@@ -153,10 +175,10 @@ class FinetunePipeline:
 
         return cat(scores), cat(labels), cat(groups), cat(hidden)
 
-    def evaluate(self, indices, use_ema: bool = False,
-                 ogb_name: Optional[str] = None) -> Dict[str, float]:
+    def evaluate(self, indices, use_ema: bool = False, ogb_name: Optional[str] = None,
+                 split: Optional[str] = None) -> Dict[str, float]:
         cfg = self.cfg
-        scores, labels, groups, _ = self._eval_collect(indices, use_ema)
+        scores, labels, groups, _ = self._eval_collect(indices, use_ema, split=split)
         if scores is None:
             return {}
         if cfg.training.task_type == "nodev2":
@@ -172,11 +194,15 @@ class FinetunePipeline:
                 pos = (scores[:, 1] - scores[:, 0] if scores.ndim > 1 and scores.shape[-1] == 2
                        else scores.reshape(-1))
                 if ogb_name in ("ogbl-citation2", "ogbl-wikikg2"):
-                    idx = groups if groups is not None else np.arange(len(labels))
-                    d = ogb_eval.reformat_mrr_inputs(pos, labels, idx)
+                    # only samples grouped by their positive have an MRR
+                    if groups is not None:
+                        n_pos = int((labels > 0.5).sum())
+                        d = ogb_eval.reformat_mrr_inputs(pos, labels, groups,
+                                                         num_neg=(len(labels) - n_pos) // n_pos)
+                        res.update(ogb_eval.evaluate_ogb(ogb_name, d))
                 else:
-                    d = ogb_eval.reformat_hits_inputs(pos, labels)
-                res.update(ogb_eval.evaluate_ogb(ogb_name, d))
+                    res.update(ogb_eval.evaluate_ogb(ogb_name,
+                                                     ogb_eval.reformat_hits_inputs(pos, labels)))
             else:
                 # graph-level evaluators take one score column per task: a
                 # binary single-label head's positive-class probability
@@ -190,9 +216,10 @@ class FinetunePipeline:
                 }))
         return res
 
-    def dump_predictions(self, indices, path: str, use_ema: bool = False):
+    def dump_predictions(self, indices, path: str, use_ema: bool = False,
+                         split: Optional[str] = None):
         """logit_..., label_... rows, one per index."""
-        logits, labels, _, _ = self._eval_collect(indices, use_ema)
+        logits, labels, _, _ = self._eval_collect(indices, use_ema, split=split)
         if logits is None:
             return
         with open(path, "w", newline="") as f:
@@ -205,9 +232,9 @@ class FinetunePipeline:
                 writer.writerow(list(np.atleast_1d(row_logits)) + list(np.atleast_1d(row_label)))
         log_line(f"predictions dumped to {path}")
 
-    def infer_hidden_states(self, indices, path: str):
+    def infer_hidden_states(self, indices, path: str, split: Optional[str] = None):
         """The pooled hidden states of `indices`, saved as npz."""
-        _, _, _, arr = self._eval_collect(indices, want_hidden=True)
+        _, _, _, arr = self._eval_collect(indices, want_hidden=True, split=split)
         arr = np.zeros((0,)) if arr is None else arr
         np.savez(path, hidden_states=arr)
         log_line(f"hidden states {arr.shape} dumped to {path}")
@@ -223,10 +250,11 @@ class FinetunePipeline:
         if tcfg.k_samplers > 0 and len(self.train_idx) > 0:
             tr = self.evaluate(self.train_idx[: tcfg.k_samplers], ogb_name=ogb_name)
             res.update({f"train_{k}": v for k, v in tr.items()})
-        val = self.evaluate(self.valid_idx, ogb_name=ogb_name)
+        val = self.evaluate(self.valid_idx, ogb_name=ogb_name, split="valid")
         res.update({f"valid_{k}": v for k, v in val.items()})
         if use_ema:
-            val_ema = self.evaluate(self.valid_idx, use_ema=True, ogb_name=ogb_name)
+            val_ema = self.evaluate(self.valid_idx, use_ema=True, ogb_name=ogb_name,
+                                    split="valid")
             res.update({f"valid_ema_{k}": v for k, v in val_ema.items()})
             flag, self.ema_best = metrics_mod.compare_metrics_res(
                 {f"ema_{k}": v for k, v in val_ema.items()}, self.ema_best
@@ -236,7 +264,7 @@ class FinetunePipeline:
                     epoch, self.state, {"epoch": epoch, "ema_best": dict(self.ema_best)}
                 )
         if tcfg.do_test and len(self.test_idx) > 0:
-            te = self.evaluate(self.test_idx, use_ema=use_ema, ogb_name=ogb_name)
+            te = self.evaluate(self.test_idx, use_ema=use_ema, ogb_name=ogb_name, split="test")
             res.update({f"test_{k}": v for k, v in te.items()})
         res.update(epoch=epoch, step=global_step)
         log_line(f"eval epoch {epoch}: {res}")
@@ -245,14 +273,15 @@ class FinetunePipeline:
             out = tcfg.output_dir
             self.dump_predictions(self.train_idx[: tcfg.k_samplers],
                                   os.path.join(out, "train_results.csv"))
-            self.dump_predictions(self.valid_idx, os.path.join(out, "valid_results.csv"))
+            self.dump_predictions(self.valid_idx, os.path.join(out, "valid_results.csv"),
+                                  split="valid")
             if len(self.test_idx) > 0:
                 self.dump_predictions(self.test_idx, os.path.join(out, "test_results.csv"),
-                                      use_ema=use_ema)
+                                      use_ema=use_ema, split="test")
         if tcfg.dump_infer and len(self.test_idx) > 0:
             self.infer_hidden_states(
-                self.test_idx, os.path.join(tcfg.output_dir, f"hidden_states_epoch{epoch}.npz")
-            )
+                self.test_idx, os.path.join(tcfg.output_dir, f"hidden_states_epoch{epoch}.npz"),
+                split="test")
         key = next((k for k in res if str(k).startswith("valid_")), None)
         if key and metrics_mod.is_better(res, self.best, key):
             self.best = dict(res)
@@ -273,7 +302,8 @@ class FinetunePipeline:
         try:
             return self.run_eval_only() if tcfg.eval_only else self._run()
         finally:
-            self.loader.close()
+            for loader in (self.loader, *self.eval_loaders.values()):
+                loader.close()
 
     def _run(self):
         tcfg = self.cfg.training

@@ -35,6 +35,7 @@ from graphgpt_torch.data import loader as tloader
 from graphgpt_torch.data import tokenizer as ttok
 from graphgpt_torch.training import pipeline as tpipeline
 from test_torch_readers import assert_graphs_equal
+from test_torch_jax_native import jax_native_library  # noqa: F401  (autouse: JAX's C++ library)
 
 EDGE_LEVEL = ("ogbl-ppa", "ogbl-citation2", "ogbl-ddi", "ogbl-wikikg2")
 NODE_LEVEL = ("ogbn-products", "ogbn-arxiv", "ogbn-papers100M", "ogbn-proteins")

@@ -40,6 +40,7 @@ from graphgpt_torch.training import pipeline as tpipeline
 from test_torch_big_graph import write_big_store
 from test_torch_graph_finetune import _close, _port_from_jax, _rows, few_threads  # noqa: F401
 from test_torch_readers import assert_splits_equal
+from test_torch_jax_native import jax_native_library  # noqa: F401  (autouse: JAX's C++ library)
 
 
 @pytest.fixture(autouse=True)

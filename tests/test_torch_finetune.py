@@ -28,6 +28,7 @@ from graphgpt_torch.training.checkpoint import Checkpointer, restore_params_warm
 from graphgpt_torch.training.optimizer import make_optimizer
 from graphgpt_torch.training.steps import init_train_state
 from graphgpt_torch.utils.convert import params_from_jax
+from test_torch_jax_native import jax_native_library  # noqa: F401  (autouse: JAX's C++ library)
 
 REL = 1e-4
 

@@ -34,6 +34,7 @@ from graphgpt_torch.data import tokenizer as ttok
 from graphgpt_torch.data import vocab as tvocab
 from graphgpt_torch.utils import metrics as tmetrics
 from graphgpt_torch.utils import ogb_eval as togb
+from test_torch_jax_native import jax_native_library  # noqa: F401  (autouse: JAX's C++ library)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))

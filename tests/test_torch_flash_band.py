@@ -46,7 +46,9 @@ relative to a running max in the kernel, to the row max in the plain
 version), so they differ by a flipped bf16 rounding here and there: atol
 3e-2, rtol 2e-2 elementwise and 1e-2 in the relative Frobenius norm, as in
 test_torch_flash_stream.py. The CUDA kernels are held against these plain
-versions in tests/test_torch_gpu.py and chip_smoke.py.
+versions in tests/test_torch_gpu.py and chip_smoke.py. The RoPE case and the
+entries' case run once more each at head width 32, which the JAX package
+pads to 64 (`JaxHeads`; `flash_attention` pads it itself).
 """
 
 import jax
@@ -59,6 +61,7 @@ from graphgpt_tpu.models.rope import rope_cos_sin as j_rope_cos_sin
 from graphgpt_tpu.ops import flash_attention as jfa
 from graphgpt_torch.ops import flash_attention as tfa
 from graphgpt_torch.synthetic import packed_segments
+from test_torch_flash_attention import JaxHeads
 
 TOL = 2e-5
 DH = 64
@@ -92,13 +95,13 @@ def _spy(monkeypatch, module, name):
     return calls
 
 
-def _inputs(b, p, h, seed):
+def _inputs(b, p, h, seed, dh=DH):
     rng = np.random.default_rng(seed)
-    q, k, v, do = ((rng.normal(size=(b, p, h, DH)) * 0.5).astype(np.float32) for _ in range(4))
+    q, k, v, do = ((rng.normal(size=(b, p, h, dh)) * 0.5).astype(np.float32) for _ in range(4))
     seg = packed_segments(b, p, rng)
     seg[-1, p - 40 : p - BI] = 0  # a padded stretch before the last row's bit slots
     pos = np.tile(np.arange(p, dtype=np.int32), (b, 1))
-    cos, sin = (np.asarray(t) for t in j_rope_cos_sin(jnp.asarray(pos), DH))
+    cos, sin = (np.asarray(t) for t in j_rope_cos_sin(jnp.asarray(pos), dh))
     return q, k, v, do, seg, cos, sin
 
 
@@ -138,12 +141,20 @@ def _attention_both(q, k, v, do, seg, cos, sin, causal, bi, dtype):
     return (got, want), [(x.grad, w) for x, w in zip(leaves, want_grads)]
 
 
-@pytest.mark.parametrize("mask, dtype", [("bidirectional", "float32"), ("causal", "bfloat16"),
-                                         ("bi-causal", "float32")])
-def test_band_attention_with_rope_matches_jax(mask, dtype, band):
+def _at_dh(cases, dh32):
+    """The cases at dh 64 under their own ids, and those of `dh32` again at
+    head width 32 (the JAX package pads it to 64 before its kernels)."""
+    return ([pytest.param(*c, DH, id="-".join(c)) for c in cases]
+            + [pytest.param(*c, 32, id="dh32-" + "-".join(c)) for c in dh32])
+
+
+@pytest.mark.parametrize("mask, dtype, dh", _at_dh(
+    [("bidirectional", "float32"), ("causal", "bfloat16"), ("bi-causal", "float32")],
+    [("bi-causal", "bfloat16")]))
+def test_band_attention_with_rope_matches_jax(mask, dtype, dh, band):
     b, p, h = 1, 256, 2
     causal, bi = MASKS[mask]
-    q, k, v, do, seg, cos, sin = _inputs(b, p, h, seed=1)
+    q, k, v, do, seg, cos, sin = _inputs(b, p, h, seed=1, dh=dh)
     (got, want), grads = _attention_both(q, k, v, do, seg, cos, sin, causal, bi, dtype)
     assert band["_fwd_kernel_band"] and band["_bwd_kernel_band"], "JAX took another path"
     _close(got.detach().float().numpy(), want, dtype, "out")
@@ -206,27 +217,31 @@ def test_the_three_forwards_compute_one_function(mask, dtype, band, monkeypatch)
                 np.testing.assert_allclose(gl, wl, atol=1e-4, rtol=1e-5, err_msg=f"lse, {pair}")
 
 
-@pytest.mark.parametrize("mask, keys, dtype", [("causal", "other", "float32"),
-                                               ("bi-causal", "same", "bfloat16")])
-def test_band_kernels_with_lse_cotangent_match_jax(mask, keys, dtype, band):
+@pytest.mark.parametrize("mask, keys, dtype, dh", _at_dh(
+    [("causal", "other", "float32"), ("bi-causal", "same", "bfloat16")],
+    [("causal", "other", "bfloat16")]))
+def test_band_kernels_with_lse_cotangent_match_jax(mask, keys, dtype, dh, band):
     """The band entries with a cotangent of lse, padded rows, and (for one
     case) key ids from another array, on pre-rotated inputs."""
     b, p, h = 1, 256, 2
     causal, bi = MASKS[mask]
-    q, k, v, do, seg, _, _ = _inputs(b, p, h, seed=2)
-    qs, k, v, do = (a.reshape(b, p, h * DH) for a in (q * DH**-0.5, k, v, do))
+    q, k, v, do, seg, _, _ = _inputs(b, p, h, seed=2, dh=dh)
+    qs, k, v, do = (a.reshape(b, p, h * dh) for a in (q * dh**-0.5, k, v, do))
     seg_k = _key_ids(seg) if keys == "other" else seg
     dlse = (np.random.default_rng(9).normal(size=(b, h, p)) * 0.3).astype(np.float32)
     dlse = dlse * (seg > 0)[:, None, :]
     j, t, tdt = _dtypes(dtype)
     jseg, jseg_k = jnp.asarray(seg), jnp.asarray(seg_k)
-    out, lse = jfa._flash_fwd(j(qs), j(k), j(v), jseg, jseg_k, causal, 64, 64, h, DH, bi_split=bi)
-    want = jfa._flash_bwd(j(qs), j(k), j(v), jseg, jseg_k, out, lse, j(do), causal, h, DH,
-                          dlse=jnp.asarray(dlse), bi_split=bi)
+    jh = JaxHeads(j(qs), j(k), j(v), None, h, dh)
+    out, lse = jfa._flash_fwd(jh.qs, jh.k, jh.v, jseg, jseg_k, causal, 64, 64, h, jh.dh_k,
+                              bi_split=bi)
+    want = jh.back(*jfa._flash_bwd(jh.qs, jh.k, jh.v, jseg, jseg_k, out, lse, jh.pad(j(do)),
+                                   causal, h, jh.dh_k, dlse=jnp.asarray(dlse), bi_split=bi))
+    out = jh.cut(out)
     assert band["_fwd_kernel_band"] and band["_bwd_kernel_band"], "JAX took another path"
     tseg, tseg_k = torch.from_numpy(seg), torch.from_numpy(seg_k)
     aux = {}
-    gout, glse = tfa.flash_fwd_band(t(qs), t(k), t(v), tseg, tseg_k, causal, DH, bi, aux=aux)
+    gout, glse = tfa.flash_fwd_band(t(qs), t(k), t(v), tseg, tseg_k, causal, dh, bi, aux=aux)
     assert torch.equal(aux["table"], tfa.band_limits(tseg, tseg_k))
     assert gout.dtype == tdt
     _close(gout.float().numpy(), out, dtype, "out")
@@ -237,9 +252,9 @@ def test_band_kernels_with_lse_cotangent_match_jax(mask, keys, dtype, band):
     tlse = torch.from_numpy(np.array(lse, np.float32))
     aux = {}
     got = tfa.flash_bwd_band(t(qs), t(k), t(v), tseg, tseg_k, t(out), tlse, t(do),
-                             torch.from_numpy(dlse), causal, DH, bi, aux=aux)
+                             torch.from_numpy(dlse), causal, dh, bi, aux=aux)
     torch.testing.assert_close(aux["delta"], tfa.flash_delta(t(do), t(out),
-                                                             torch.from_numpy(dlse), DH))
+                                                             torch.from_numpy(dlse), dh))
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == tdt, name
         _close(g.float().numpy(), w, dtype, name)

@@ -9,7 +9,8 @@ loose. bf16: both round p, ds and the inverse rotation at the same points,
 so they differ by a flipped bf16 rounding here and there: 2 ulps of the
 largest value elementwise (atol 3e-2 on values up to ~4, rtol 2e-2), and
 1e-2 in the relative Frobenius norm. The CUDA kernel is held against
-`flash_bwd_ref` in tests/test_torch_gpu.py.
+`flash_bwd_ref` in tests/test_torch_gpu.py. Two cases run at head width
+32, which the JAX package pads to 64 (`JaxHeads`).
 """
 
 import jax
@@ -26,21 +27,22 @@ from graphgpt_tpu.ops.attention import xla_attention
 from graphgpt_torch.ops import flash_attention as tfa
 from graphgpt_torch.ops.attention import attention
 from graphgpt_torch.synthetic import packed_segments
+from test_torch_flash_attention import JaxHeads
 
 TOL = 2e-5
 B, P, H, DH = 2, 128, 2, 64
 
 
-def _inputs(seed=0, h=H, hkv=H, block=0):
+def _inputs(seed=0, h=H, hkv=H, block=0, dh=DH):
     rng = np.random.default_rng(seed)
-    q = (rng.normal(size=(B, P, h, DH)) * 0.5).astype(np.float32)
-    k = (rng.normal(size=(B, P, hkv, DH)) * 0.5).astype(np.float32)
-    v = (rng.normal(size=(B, P, hkv, DH)) * 0.5).astype(np.float32)
-    do = (rng.normal(size=(B, P, h, DH)) * 0.5).astype(np.float32)
+    q = (rng.normal(size=(B, P, h, dh)) * 0.5).astype(np.float32)
+    k = (rng.normal(size=(B, P, hkv, dh)) * 0.5).astype(np.float32)
+    v = (rng.normal(size=(B, P, hkv, dh)) * 0.5).astype(np.float32)
+    do = (rng.normal(size=(B, P, h, dh)) * 0.5).astype(np.float32)
     seg = packed_segments(B, P, rng, block=block)
     seg[-1, P - 24 :] = 0  # padded tail
     pos = np.tile(np.arange(P, dtype=np.int32), (B, 1))
-    cos, sin = j_rope_cos_sin(jnp.asarray(pos), DH)
+    cos, sin = j_rope_cos_sin(jnp.asarray(pos), dh)
     return q, k, v, do, seg, np.asarray(cos), np.asarray(sin)
 
 
@@ -48,16 +50,27 @@ def _flat(a):
     return a.reshape(B, P, -1)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal", [False, True], ids=["bidirectional", "causal"])
-@pytest.mark.parametrize("rope", [True, False], ids=["rope", "norope"])
-@pytest.mark.parametrize("with_dlse", [False, True], ids=["nodlse", "dlse"])
-def test_flash_bwd_ref_matches_interpreted_kernel(dtype, causal, rope, with_dlse, monkeypatch):
+def _bwd_case(dtype, causal, rope, with_dlse, dh):
+    name = "-".join((("nodlse", "dlse")[with_dlse], ("norope", "rope")[rope],
+                     ("bidirectional", "causal")[causal], dtype))
+    return pytest.param(dtype, causal, rope, with_dlse, dh,
+                        id=name if dh == DH else f"dh{dh}-{name}")
+
+
+# every case at dh 64; two at dh 32, padded to 64 on the JAX side
+BWD_CASES = [_bwd_case(dt, c, r, d, DH) for d in (False, True) for r in (True, False)
+             for c in (False, True) for dt in ("float32", "bfloat16")] + [
+    _bwd_case("bfloat16", True, True, True, 32), _bwd_case("float32", False, False, False, 32)]
+
+
+@pytest.mark.parametrize("dtype, causal, rope, with_dlse, dh", BWD_CASES)
+def test_flash_bwd_ref_matches_interpreted_kernel(dtype, causal, rope, with_dlse, dh,
+                                                   monkeypatch):
     monkeypatch.setenv("GGT_PALLAS_INTERPRET", "1")
-    q, k, v, do, seg, cos, sin = _inputs(seed=3)
+    q, k, v, do, seg, cos, sin = _inputs(seed=3, dh=dh)
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
-    qs = _flat(q) * DH**-0.5
+    qs = _flat(q) * dh**-0.5
     dlse = None
     if with_dlse:
         dlse = (np.random.default_rng(9).normal(size=(B, H, P)) * 0.3).astype(np.float32)
@@ -69,18 +82,20 @@ def test_flash_bwd_ref_matches_interpreted_kernel(dtype, causal, rope, with_dlse
     jrope = (j(cos), j(sin)) if rope else None
     jseg = jnp.asarray(seg)
     bq, bk = jfa._fwd_blocks(P)
-    out, lse = jfa._flash_fwd(j(qs), j(_flat(k)), j(_flat(v)), jseg, jseg, causal, bq, bk, H, DH,
-                              rope=jrope)
-    want = jfa._flash_bwd(
-        j(qs), j(_flat(k)), j(_flat(v)), jseg, jseg, out, lse, j(_flat(do)), causal, H, DH,
-        dlse=None if dlse is None else jnp.asarray(dlse), rope=jrope,
-    )
+    jh = JaxHeads(j(qs), j(_flat(k)), j(_flat(v)), jrope, H, dh)
+    out, lse = jfa._flash_fwd(jh.qs, jh.k, jh.v, jseg, jseg, causal, bq, bk, H, jh.dh_k,
+                              rope=jh.rope)
+    want = jh.back(*jfa._flash_bwd(
+        jh.qs, jh.k, jh.v, jseg, jseg, out, lse, jh.pad(j(_flat(do))), causal, H, jh.dh_k,
+        dlse=None if dlse is None else jnp.asarray(dlse), rope=jh.rope,
+    ))
+    out = jh.cut(out)
     t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(tdt)  # noqa: E731
     got = tfa.flash_bwd(
         t(qs), t(_flat(k)), t(_flat(v)), torch.from_numpy(seg),
         t(cos) if rope else None, t(sin) if rope else None,
         t(np.asarray(out, np.float32)), torch.from_numpy(np.array(lse)), t(_flat(do)),
-        None if dlse is None else torch.from_numpy(dlse), causal, DH,
+        None if dlse is None else torch.from_numpy(dlse), causal, dh,
     )
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         g, w = g.float().numpy(), np.asarray(w, np.float32)

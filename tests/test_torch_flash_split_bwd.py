@@ -19,7 +19,8 @@ the order of fp32 sums, 2e-5. bf16: both round p, ds and the inverse
 rotation at the same points, so they differ by a flipped bf16 rounding here
 and there: 2 ulps of the largest value elementwise (atol 3e-2 on values up
 to ~4, rtol 2e-2) and 1e-2 in the relative Frobenius norm. The CUDA kernels
-are held against these plain versions in tests/test_torch_gpu.py.
+are held against these plain versions in tests/test_torch_gpu.py. Two
+cases run at head width 32, which the JAX package pads to 64 (`JaxHeads`).
 """
 
 import jax
@@ -34,6 +35,7 @@ from graphgpt_tpu.ops import flash_attention as jfa
 from graphgpt_tpu.ops.attention import _mask_logits, xla_attention
 from graphgpt_torch.ops import flash_attention as tfa
 from graphgpt_torch.synthetic import packed_segments
+from test_torch_flash_attention import JaxHeads
 
 TOL = 2e-5
 B, P, H, DH = 2, 128, 2, 64
@@ -53,12 +55,12 @@ def _segments(layout, bi_split, rng):
     return seg
 
 
-def _inputs(layout, bi_split, seed=0):
+def _inputs(layout, bi_split, seed=0, dh=DH):
     rng = np.random.default_rng(seed)
-    q, k, v, do = ((rng.normal(size=(B, P, H, DH)) * 0.5).astype(np.float32) for _ in range(4))
+    q, k, v, do = ((rng.normal(size=(B, P, H, dh)) * 0.5).astype(np.float32) for _ in range(4))
     seg = _segments(layout, bi_split, rng)
     pos = np.tile(np.arange(P, dtype=np.int32), (B, 1))
-    cos, sin = j_rope_cos_sin(jnp.asarray(pos), DH)
+    cos, sin = j_rope_cos_sin(jnp.asarray(pos), dh)
     return q, k, v, do, seg, np.asarray(cos), np.asarray(sin)
 
 
@@ -76,19 +78,30 @@ def _close(g, w, dtype, name):
         assert np.linalg.norm(g - w) / np.linalg.norm(w) < 1e-2, name
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("layout", ["packed", "denoise-row"])
-@pytest.mark.parametrize("split", sorted(SPLITS))
-@pytest.mark.parametrize("rope", [True, False], ids=["rope", "norope"])
-@pytest.mark.parametrize("with_dlse", [False, True], ids=["nodlse", "dlse"])
-def test_split_twins_match_interpreted_kernels(dtype, layout, split, rope, with_dlse,
+def _twin_case(dtype, layout, split, rope, with_dlse, dh):
+    name = "-".join((("nodlse", "dlse")[with_dlse], ("norope", "rope")[rope], split, layout,
+                     dtype))
+    return pytest.param(dtype, layout, split, rope, with_dlse, dh,
+                        id=name if dh == DH else f"dh{dh}-{name}")
+
+
+# every case at dh 64; two at dh 32, padded to 64 on the JAX side
+TWIN_CASES = [_twin_case(dt, lay, sp, r, d, DH) for d in (False, True) for r in (True, False)
+              for sp in sorted(SPLITS) for lay in ("packed", "denoise-row")
+              for dt in ("float32", "bfloat16")] + [
+    _twin_case("bfloat16", "packed", "split-in-tile", True, True, 32),
+    _twin_case("float32", "denoise-row", "split-on-edge", True, False, 32)]
+
+
+@pytest.mark.parametrize("dtype, layout, split, rope, with_dlse, dh", TWIN_CASES)
+def test_split_twins_match_interpreted_kernels(dtype, layout, split, rope, with_dlse, dh,
                                                monkeypatch):
     monkeypatch.setenv("GGT_PALLAS_INTERPRET", "1")
     bi = SPLITS[split]
-    q, k, v, do, seg, cos, sin = _inputs(layout, bi, seed=3)
+    q, k, v, do, seg, cos, sin = _inputs(layout, bi, seed=3, dh=dh)
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
-    qs = _flat(q) * DH**-0.5
+    qs = _flat(q) * dh**-0.5
     dlse = None
     if with_dlse:
         dlse = (np.random.default_rng(9).normal(size=(B, H, P)) * 0.3).astype(np.float32)
@@ -99,27 +112,29 @@ def test_split_twins_match_interpreted_kernels(dtype, layout, split, rope, with_
     jrope = (j(cos), j(sin)) if rope else None
     jseg = jnp.asarray(seg)
     bq, bk = jfa._fwd_blocks(P)
-    out, lse = jfa._flash_fwd(j(qs), j(_flat(k)), j(_flat(v)), jseg, jseg, False, bq, bk, H, DH,
-                              bi_split=bi, rope=jrope)
-    want = jfa._flash_bwd(
-        j(qs), j(_flat(k)), j(_flat(v)), jseg, jseg, out, lse, j(_flat(do)), False, H, DH,
-        dlse=None if dlse is None else jnp.asarray(dlse), bi_split=bi, rope=jrope,
-    )
+    jh = JaxHeads(j(qs), j(_flat(k)), j(_flat(v)), jrope, H, dh)
+    out, lse = jfa._flash_fwd(jh.qs, jh.k, jh.v, jseg, jseg, False, bq, bk, H, jh.dh_k,
+                              bi_split=bi, rope=jh.rope)
+    want = jh.back(*jfa._flash_bwd(
+        jh.qs, jh.k, jh.v, jseg, jseg, out, lse, jh.pad(j(_flat(do))), False, H, jh.dh_k,
+        dlse=None if dlse is None else jnp.asarray(dlse), bi_split=bi, rope=jh.rope,
+    ))
+    out = jh.cut(out)
     t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(tdt)  # noqa: E731
     tq, tk, tv, tdo = t(qs), t(_flat(k)), t(_flat(v)), t(_flat(do))
     tout, tlse, tseg = t(np.asarray(out, np.float32)), torch.from_numpy(np.array(lse)), \
         torch.from_numpy(seg)
     tc, ts = (t(cos), t(sin)) if rope else (None, None)
-    delta = tfa.flash_delta(tdo, tout, None if dlse is None else torch.from_numpy(dlse), DH)
-    dq = tfa.flash_dq_ref(tq, tk, tv, tseg, tc, ts, tlse, delta, tdo, False, DH, bi)
-    dk, dv = tfa.flash_dkv_ref(tq, tk, tv, tseg, tc, ts, tlse, delta, tdo, False, DH, bi)
+    delta = tfa.flash_delta(tdo, tout, None if dlse is None else torch.from_numpy(dlse), dh)
+    dq = tfa.flash_dq_ref(tq, tk, tv, tseg, tc, ts, tlse, delta, tdo, False, dh, bi)
+    dk, dv = tfa.flash_dkv_ref(tq, tk, tv, tseg, tc, ts, tlse, delta, tdo, False, dh, bi)
     for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert g.dtype == tdt, name
         _close(g.float().numpy(), w, dtype, name)
         assert np.all(g.float().numpy()[seg == 0] == 0), name  # padded rows: exactly 0
     # the wrapper on CPU tensors takes the same twins
     got = tfa.flash_bwd(tq, tk, tv, tseg, tc, ts, tout, tlse, tdo,
-                        None if dlse is None else torch.from_numpy(dlse), False, DH, bi)
+                        None if dlse is None else torch.from_numpy(dlse), False, dh, bi)
     for g, w in zip(got, (dq, dk, dv)):
         assert torch.equal(g, w)
 

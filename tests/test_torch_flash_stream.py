@@ -30,7 +30,9 @@ a running max in the kernel, to the row max in the plain version), so they
 differ by a flipped bf16 rounding here and there: atol 3e-2, rtol 2e-2
 elementwise and 1e-2 in the relative Frobenius norm, as in
 test_torch_flash_split_bwd.py. The CUDA kernels are held against these
-plain versions in tests/test_torch_gpu.py and chip_smoke.py.
+plain versions in tests/test_torch_gpu.py and chip_smoke.py. Two forward
+cases and one P 256 backward case run again at head width 32, which the
+JAX package pads to 64 (`JaxHeads`).
 """
 
 import jax
@@ -45,6 +47,7 @@ from graphgpt_tpu.ops import flash_attention as jfa
 from graphgpt_tpu.ops.attention import xla_attention
 from graphgpt_torch.ops import flash_attention as tfa
 from graphgpt_torch.synthetic import packed_segments
+from test_torch_flash_attention import JaxHeads
 
 TOL = 2e-5
 DH = 64
@@ -52,14 +55,14 @@ BI = 16
 MASKS = {"bidirectional": (False, 0), "causal": (True, 0), "bi-causal": (False, BI)}
 
 
-def _inputs(b, p, h, seed):
+def _inputs(b, p, h, seed, dh=DH):
     rng = np.random.default_rng(seed)
-    q, k, v, do = ((rng.normal(size=(b, p, h * DH)) * 0.5).astype(np.float32) for _ in range(4))
+    q, k, v, do = ((rng.normal(size=(b, p, h * dh)) * 0.5).astype(np.float32) for _ in range(4))
     seg = packed_segments(b, p, rng)
     seg[-1, p - 40 : p - BI] = 0  # a padded stretch before the last row's bit slots
     pos = np.tile(np.arange(p, dtype=np.int32), (b, 1))
-    cos, sin = (np.asarray(t) for t in j_rope_cos_sin(jnp.asarray(pos), DH))
-    return q * DH**-0.5, k, v, do, seg, cos, sin
+    cos, sin = (np.asarray(t) for t in j_rope_cos_sin(jnp.asarray(pos), dh))
+    return q * dh**-0.5, k, v, do, seg, cos, sin
 
 
 def _key_ids(seg, keys):
@@ -113,22 +116,32 @@ BWD_CASES = [("bidirectional", "same", False, "float32"),
              ("bi-causal", "same", False, "bfloat16"), ("bi-causal", "other", True, "float32")]
 
 
-@pytest.mark.parametrize("mask, keys, dtype", FWD_CASES)
-def test_forward_ref_matches_interpreted_stream_kernel(mask, keys, dtype, monkeypatch):
+def _at_dh(cases, dh32):
+    """The cases at dh 64 under their own ids, and those of `dh32` again at
+    head width 32 (padded to 64 on the JAX side, `JaxHeads`)."""
+    return ([pytest.param(*c, DH, id="-".join(map(str, c))) for c in cases]
+            + [pytest.param(*c, 32, id="dh32-" + "-".join(map(str, c))) for c in dh32])
+
+
+@pytest.mark.parametrize("mask, keys, dtype, dh", _at_dh(
+    FWD_CASES, [("bidirectional", "other", "bfloat16"), ("bi-causal", "same", "float32")]))
+def test_forward_ref_matches_interpreted_stream_kernel(mask, keys, dtype, dh, monkeypatch):
     monkeypatch.setenv("GGT_PALLAS_INTERPRET", "1")
     monkeypatch.setattr(tfa, "REF_ROWS", 64)
     ran = _spy(monkeypatch, "_fwd_kernel_stream")
     b, p, h = 2, 256, 2
     causal, bi = MASKS[mask]
-    qs, k, v, _, seg, cos, sin = _inputs(b, p, h, seed=1)
+    qs, k, v, _, seg, cos, sin = _inputs(b, p, h, seed=1, dh=dh)
     seg_k = _key_ids(seg, keys)
     j, t, tdt = _dtypes(dtype)
-    out, lse = jfa._flash_fwd(j(qs), j(k), j(v), jnp.asarray(seg), jnp.asarray(seg_k), causal,
-                              64, 64, h, DH, bi_split=bi, rope=(j(cos), j(sin)))
+    jh = JaxHeads(j(qs), j(k), j(v), (j(cos), j(sin)), h, dh)
+    out, lse = jfa._flash_fwd(jh.qs, jh.k, jh.v, jnp.asarray(seg), jnp.asarray(seg_k), causal,
+                              64, 64, h, jh.dh_k, bi_split=bi, rope=jh.rope)
+    out = jh.cut(out)
     assert ran, "the JAX dispatch did not reach _fwd_kernel_stream"
     tseg, tseg_k = torch.from_numpy(seg), torch.from_numpy(seg_k)
     got, glse = tfa.flash_fwd_stream(t(qs), t(k), t(v), tseg, tseg_k, t(cos), t(sin), causal,
-                                     DH, bi)
+                                     dh, bi)
     assert got.dtype == tdt
     _close(got.float().numpy(), out, dtype, "out")
     valid = seg > 0
@@ -138,30 +151,34 @@ def test_forward_ref_matches_interpreted_stream_kernel(mask, keys, dtype, monkey
     assert np.all(glse.numpy().transpose(0, 2, 1)[~valid] == -1e30)
 
 
-def _bwd_case(jq, jk, jv, jseg, jseg_k, jdo, causal, h, bi, dlse, rope):
-    out, lse = jfa._flash_fwd(jq, jk, jv, jseg, jseg_k, causal, *jfa._fwd_blocks(jq.shape[1]),
-                              h, DH, bi_split=bi, rope=rope)
-    want = jfa._flash_bwd(jq, jk, jv, jseg, jseg_k, out, lse, jdo, causal, h, DH,
-                          dlse=None if dlse is None else jnp.asarray(dlse), bi_split=bi,
-                          rope=rope)
-    return out, lse, want
+def _bwd_case(jq, jk, jv, jseg, jseg_k, jdo, causal, h, bi, dlse, rope, dh=DH):
+    jh = JaxHeads(jq, jk, jv, rope, h, dh)
+    out, lse = jfa._flash_fwd(jh.qs, jh.k, jh.v, jseg, jseg_k, causal,
+                              *jfa._fwd_blocks(jq.shape[1]), h, jh.dh_k, bi_split=bi,
+                              rope=jh.rope)
+    want = jh.back(*jfa._flash_bwd(jh.qs, jh.k, jh.v, jseg, jseg_k, out, lse, jh.pad(jdo),
+                                   causal, h, jh.dh_k,
+                                   dlse=None if dlse is None else jnp.asarray(dlse),
+                                   bi_split=bi, rope=jh.rope))
+    return jh.cut(out), lse, want
 
 
-def _port_bwd(t, qs, k, v, seg, seg_k, cos, sin, out, lse, do, dlse, causal, bi):
+def _port_bwd(t, qs, k, v, seg, seg_k, cos, sin, out, lse, do, dlse, causal, bi, dh=DH):
     tseg, tseg_k = torch.from_numpy(seg), torch.from_numpy(seg_k)
     tlse = torch.from_numpy(np.array(lse, np.float32))
     tdlse = None if dlse is None else torch.from_numpy(dlse)
     tc, ts = (None, None) if cos is None else (t(cos), t(sin))
     dq, delta = tfa.flash_dq_stream(t(qs), t(k), t(v), tseg, tseg_k, tc, ts, t(out), tlse,
-                                    t(do), tdlse, causal, DH, bi)
-    torch.testing.assert_close(delta, tfa.flash_delta(t(do), t(out), tdlse, DH))
+                                    t(do), tdlse, causal, dh, bi)
+    torch.testing.assert_close(delta, tfa.flash_delta(t(do), t(out), tdlse, dh))
     dk, dv = tfa.flash_dkv_stream(t(qs), t(k), t(v), tseg, tseg_k, tc, ts, tlse, delta, t(do),
-                                  causal, DH, bi)
+                                  causal, dh, bi)
     return dq, dk, dv
 
 
-@pytest.mark.parametrize("mask, keys, with_dlse, dtype", BWD_CASES)
-def test_backward_refs_match_interpreted_stream_kernels(mask, keys, with_dlse, dtype,
+@pytest.mark.parametrize("mask, keys, with_dlse, dtype, dh", _at_dh(
+    BWD_CASES, [("bi-causal", "other", True, "bfloat16")]))
+def test_backward_refs_match_interpreted_stream_kernels(mask, keys, with_dlse, dtype, dh,
                                                          monkeypatch):
     """P 256 in the JAX package's skip mode (64-row tiles, pre-rotated q, k)."""
     monkeypatch.setenv("GGT_PALLAS_INTERPRET", "1")
@@ -172,10 +189,10 @@ def test_backward_refs_match_interpreted_stream_kernels(mask, keys, with_dlse, d
     ran = {n: _spy(monkeypatch, n) for n in ("_dq_kernel_stream", "_dkv_kernel_stream")}
     b, p, h = 2, 256, 2
     causal, bi = MASKS[mask]
-    qs, k, v, do, seg, cos, sin = _inputs(b, p, h, seed=2)
+    qs, k, v, do, seg, cos, sin = _inputs(b, p, h, seed=2, dh=dh)
     # skip mode takes q and k rotated outside the kernel
-    rq, rk = j_apply_rope(jnp.asarray(qs.reshape(b, p, h, DH)),
-                          jnp.asarray(k.reshape(b, p, h, DH)), jnp.asarray(cos), jnp.asarray(sin))
+    rq, rk = j_apply_rope(jnp.asarray(qs.reshape(b, p, h, dh)),
+                          jnp.asarray(k.reshape(b, p, h, dh)), jnp.asarray(cos), jnp.asarray(sin))
     qs, k = np.asarray(rq).reshape(b, p, -1), np.asarray(rk).reshape(b, p, -1)
     seg_k = _key_ids(seg, keys)
     dlse = None
@@ -184,9 +201,9 @@ def test_backward_refs_match_interpreted_stream_kernels(mask, keys, with_dlse, d
         dlse = dlse * (seg > 0)[:, None, :]
     j, t, tdt = _dtypes(dtype)
     out, lse, want = _bwd_case(j(qs), j(k), j(v), jnp.asarray(seg), jnp.asarray(seg_k), j(do),
-                               causal, h, bi, dlse, None)
+                               causal, h, bi, dlse, None, dh)
     assert all(ran.values()), "the JAX dispatch did not reach the stream kernels"
-    got = _port_bwd(t, qs, k, v, seg, seg_k, None, None, out, lse, do, dlse, causal, bi)
+    got = _port_bwd(t, qs, k, v, seg, seg_k, None, None, out, lse, do, dlse, causal, bi, dh)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == tdt, name
         _close(g.float().numpy(), w, dtype, name)

@@ -1278,3 +1278,86 @@ def test_skip_mode_goes_through_the_stream_kernels(cuda_device, monkeypatch):
     monkeypatch.setattr(tfa, "_MODE", "legacy")
     ref = tfa.flash_attention(q, k, v, seg, rope=rope)
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=2e-2)
+
+
+# head width 32 (model.size tiny6, small12): flash_attention rotates q and k
+# outside the kernels on both routes, and on the card pads every head to the
+# kernels' 64
+_DH32_FORMS = {"single": ("legacy", True, 0, {"flash_fwd": 1, "flash_bwd": 1}),
+               "split": ("legacy", False, 16, {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}),
+               "stream": ("skip", True, 0, {"flash_fwd_stream": 1, "flash_dq_stream": 1,
+                                            "flash_dkv_stream": 1}),
+               "band": ("band", False, 16, {"flash_fwd_band": 1, "flash_bwd_band": 1})}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", list(_DH32_FORMS))
+def test_head_width_32_forms_match_plain(cuda_device, form, monkeypatch):
+    """flash_attention at dh 32 with RoPE (B 2 x P 200, 3 heads, packed
+    rows with a padded tail) through each form's kernels on heads padded
+    to 64 against the plain route at dh 32: #1 and #3; the bi-causal #1
+    and the split pair #4, #5 (16 bit slots); the skip mode's #6-#8; the
+    band mode's #9, #10. out, lse and every gradient (lse with a cotangent
+    too); one launch of each kernel of the form."""
+    dev = cuda_device
+    mode, causal, bi, want = _DH32_FORMS[form]
+    monkeypatch.setattr(tfa, "_MODE", mode)
+    b, p, h, dh = 2, 200, 3, 32
+    rng = np.random.default_rng(32)
+    q, k, v, do = (_bf16(rng, (b, p, h, dh), 0.5, dev) for _ in range(4))
+    seg_np = packed_segments(b, p, rng)
+    seg_np[-1, p - 30:] = 0
+    seg = torch.from_numpy(seg_np).to(dev)
+    valid = (seg > 0)[:, None, :]
+    pos = torch.arange(p, device=dev).expand(b, p)
+    rope = tuple(t.to(torch.bfloat16) for t in rope_cos_sin(pos, dh))
+
+    def run():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out, lse = tfa.flash_attention(*leaves, seg, causal=causal, bi_causal_split=bi,
+                                       rope=rope, return_lse=True)
+        ((out.float() * do.float()).sum() + 0.1 * torch.where(valid, lse, 0).sum()).backward()
+        return [out.detach(), lse.detach()] + [t.grad for t in leaves]
+
+    before = {n: getattr(tfa, n).launches for n in want}
+    got = run()
+    torch.cuda.synchronize()
+    assert {n: getattr(tfa, n).launches - c for n, c in before.items()} == want
+    with ops.reference_mode():
+        ref = run()
+    for part, g, w in zip(("out", "lse", "dq", "dk", "dv"), got, ref):
+        assert g.shape == w.shape and g.dtype == w.dtype, part
+        if part == "lse":
+            torch.testing.assert_close(g[valid.expand_as(g)], w[valid.expand_as(w)], atol=2e-2,
+                                       rtol=0)
+            continue
+        torch.testing.assert_close(g.float(), w.float(), atol=3.2e-2, rtol=2e-2)
+        assert _rel(g, w) < 2e-3, (part, _rel(g, w))
+    assert torch.all(got[0][seg == 0] == 0) and torch.all(got[2][seg == 0] == 0)
+
+
+@pytest.mark.gpu
+def test_a_head_width_32_model_steps_on_the_kernels(cuda_device):
+    """model.size tiny6 (128 x 6, 4 heads of 32): a training step launches
+    #1 and #3 once a layer through the padded route, and its loss and
+    gradients stay near the plain run's."""
+    dev = cuda_device
+    cfg = ModelConfig(size="tiny6", vocab_size=60, stacked_feat=3, next_n_token=3,
+                      mask_token_id=1, dtype="bfloat16").finalize()
+    assert cfg.head_dim == 32
+    model = GraphGPTPretrain(cfg, device=dev, seed=0)
+    batch = to_torch(fake_batch(4, 256, 3, 60, np.random.default_rng(4)), dev)
+    counters = (tfa.flash_fwd, tfa.flash_bwd)
+    before = [c.launches for c in counters]
+    loss = model(batch, train=True)["loss"]
+    loss.backward()
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [6, 6]
+    grads = {n: q.grad.clone() for n, q in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    with ops.reference_mode():
+        ref = model(batch, train=True)["loss"]
+        ref.backward()
+    assert abs(loss.item() - ref.item()) < 5e-3
+    for n, q in model.named_parameters():
+        assert _rel(grads[n], q.grad) < 8e-2, n

@@ -18,6 +18,7 @@ from graphgpt_torch.data import datasets as tdatasets
 from graphgpt_torch.data import euler as teuler
 from graphgpt_torch.data.graph import CSR, Graph, connected_components
 from graphgpt_torch.native import euler_native as tnative
+from test_torch_jax_native import jax_native_library  # noqa: F401  (autouse: JAX's C++ library)
 
 
 def _graphs():

@@ -36,6 +36,7 @@ from graphgpt_torch.data import vocab as tvocab
 from graphgpt_torch.training import pipeline as tpipeline
 from graphgpt_torch.utils import inspection as tinspection
 from graphgpt_torch.utils import logging as tlogging
+from test_torch_jax_native import jax_native_library  # noqa: F401  (autouse: JAX's C++ library)
 
 # (name, fixed_ratio, power, mtp, dlm_wgt): the default schedule, a fixed
 # ratio with random replacement, a cosine one without the dLM weight

@@ -37,6 +37,7 @@ from graphgpt_torch.training import pipeline as tpipeline
 from graphgpt_torch.training.checkpoint import Checkpointer
 from graphgpt_torch.training.steps import init_train_state
 from graphgpt_torch.utils.convert import params_from_jax
+from test_torch_jax_native import jax_native_library  # noqa: F401  (autouse: JAX's C++ library)
 
 REL = 1e-4
 # a generation accuracy is a count over ~4,800 masked cells of argmax picks

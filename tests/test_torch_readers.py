@@ -33,6 +33,7 @@ from graphgpt_torch.data import graph as tgraph
 from graphgpt_torch.data import mol3d as tmol3d
 from graphgpt_torch.data.loader import GraphTokenLoader
 from graphgpt_torch.training import pipeline as tpipeline
+from test_torch_jax_native import jax_native_library  # noqa: F401  (autouse: JAX's C++ library)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -22,6 +22,7 @@ from graphgpt_torch.data import graph as tgraph
 from graphgpt_torch.data import partition as tpartition
 from graphgpt_torch.data import sampling as tsampling
 from test_torch_readers import assert_graphs_equal
+from test_torch_jax_native import jax_native_library  # noqa: F401  (autouse: JAX's C++ library)
 
 
 def random_big_graph(n, m, seed, node_cols=3, edge_cols=2, y_cols=4, isolated=5,
