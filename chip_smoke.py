@@ -7,9 +7,10 @@
    source, all at once) and prints the build time. Writes the graph-level
    store, <tmp>/OGB/pcqm4m-v2/graphs.npz in the readers' npz contract:
    200,000 seeded random molecules in PCQM4M-v2's schema (9 node and 3
-   edge columns, y [G, 1]), a single-node, an edge-free and a disconnected
-   one at the start of each split, train/valid/test in PCQM4M-v2's
-   proportions; prints its size and the seconds it took. Checks the C++
+   edge columns, y [G, 1], seeded coordinates pos [N, 3]), a single-node,
+   an edge-free and a disconnected one at the start of each split,
+   train/valid/test in PCQM4M-v2's proportions; prints its size and the
+   seconds it took. Checks the C++
    walk on 20,000 of its graphs (every node and edge visited, each step an
    edge or a jump between components) and prints graphs/s of the C++ and
    the numpy walk on one host core, with the host's CPU. Times the
@@ -133,6 +134,28 @@
    key ids, then one counted step) and under both knobs (#9, #10 on 16
    rows and #12 at D 384 against their plain versions, then one counted
    step).
+7e. The other pretraining tasks and the flat tokenizer (I-K), each run
+   through PretrainPipeline or FinetunePipeline at GraphGPT-base from
+   random weights on the graph-level store (its seeded coordinates for J),
+   its first step on 16 rows against the plain bf16 run and the fp32 rule
+   (the same draws where the step draws), two counted steps (K(c) four)
+   with the launches of each step and each eval forward against the
+   prediction from the model config, finite losses, the save point's valid
+   loss, a step on the first batch on the card, tokens/s, graphs/s, peak
+   memory. I pcqm4m_v2_pretrain as shipped (pretrain-mlm, 256 x 1024
+   packed), then pretrain-smtp (the masks drawn on the card) and
+   pretrain-cl (view pairs; the contrastive loss beside the MLM loss),
+   both unpacked at 256 graphs. J GraphGPTPosPred: pretrain-coord (256
+   graphs) and pretrain-mlm-coord (64 x 1024 packed), pos-smtp-line at 128
+   bins, the reader's percentile tables in every step's batch. K the flat
+   GSTTokenizer: (a) causal next-token pretraining packed at 64 x 1024,
+   before its first step the causal #1 and #3 at its segments and cyclic
+   RoPE table against their plain versions and timed beside the bound of
+   the visible pairs and SDPA's causal time, the tokenizer's graphs/s on
+   one host core beside the loader's; (b) structure_er with the four nx
+   streams under pretrain-euler; (c) pcqm4m_v2_supervised on flat rows
+   through FinetunePipeline, warm-started from (a), four steps and the
+   valid MAE on 1,024 graphs.
 8. Denoise phase: a fresh GraphGPT-base denoising double-heads model
    (configs/pcqm4m_v2_supervised.yaml's setup plus bi_causal_split 16, the
    binary-energy decoding) on a 256 x 88 mol3d batch: every kernel of its
@@ -200,7 +223,7 @@
 
 Any failed check raises, so the script exits non-zero. The launch counts
 are set to 0 just before each main path (eval + generation; training;
-fine-tuning; graph-level fine-tuning; phases A-H; denoising;
+fine-tuning; graph-level fine-tuning; phases A-K; denoising;
 position pretraining; long-context pretraining;
 training and long-context pretraining under both knobs) and read just
 after it; launches made to compare a kernel with its plain
@@ -1560,13 +1583,13 @@ def _degenerate(kind: int, rng):
 
 def _mol_chunk(args):
     """Molecules start..stop of the store (molecule i drawn from the seed
-    (seed, i), as SyntheticMolDataset draws it), degenerate at the indices
-    of `special`: (node_attr, edge_attr, local edge_index, node and edge
-    counts, y)."""
+    (seed, i), as SyntheticMolDataset draws it with positions), degenerate at
+    the indices of `special`: (node_attr, edge_attr, local edge_index, node
+    and edge counts, y, pos)."""
     from graphgpt_torch.data.datasets import MOL_EDGE_CARD, MOL_NODE_CARD, random_molecule_graph
 
     start, stop, seed, special = args
-    na, ea, ei, nn, ne, ys = [], [], [], [], [], []
+    na, ea, ei, nn, ne, ys, pos = [], [], [], [], [], [], []
     for i in range(start, stop):
         rng = np.random.default_rng((seed, i))
         if i in special:
@@ -1575,23 +1598,25 @@ def _mol_chunk(args):
             ea.append(np.stack([rng.integers(0, c, size=e.shape[1]) for c in MOL_EDGE_CARD], 1))
             ei.append(e)
             ys.append(rng.normal(5.0, 1.0, size=1))
+            pos.append(rng.normal(size=(n, 3)))
         else:
-            g = random_molecule_graph(rng)
+            g = random_molecule_graph(rng, with_pos=True)  # the positions drawn last
             n = g.num_nodes
             na.append(g.node_attr), ea.append(g.edge_attr), ei.append(g.edge_index)
-            ys.append(g.y)
+            ys.append(g.y), pos.append(g.pos)
         nn.append(n)
         ne.append(ei[-1].shape[1])
     return (np.concatenate(na).astype(np.int32), np.concatenate(ea).astype(np.int32),
             np.concatenate(ei, axis=1).astype(np.int32), np.asarray(nn), np.asarray(ne),
-            np.concatenate(ys).astype(np.float32))
+            np.concatenate(ys).astype(np.float32), np.concatenate(pos).astype(np.float32))
 
 
 def write_graph_store(data_dir: str, n_graphs: int = STORE_GRAPHS, seed: int = 0,
                       procs: int = 8):
     """<data_dir>/pcqm4m-v2/graphs.npz in the readers' npz contract:
     `n_graphs` random molecules in PCQM4M-v2's schema (9 node and 3 edge
-    columns, y [G, 1] float32), three degenerate ones (one node, four nodes
+    columns, y [G, 1] float32, pos [N, 3] float32 coordinates drawn from the
+    seed, standard normal), three degenerate ones (one node, four nodes
     without an edge, two 2-cliques) at the start of each split, and train,
     valid and test splits in PCQM4M-v2's proportions (contiguous, as OGB
     numbers them; the rest belongs to no split, as test-challenge). The
@@ -1622,6 +1647,7 @@ def write_graph_store(data_dir: str, n_graphs: int = STORE_GRAPHS, seed: int = 0
              edge_attr=np.concatenate([p[1] for p in parts]),
              edge_index=edge_index.astype(np.int32), node_ptr=node_ptr, edge_ptr=edge_ptr,
              y=np.concatenate([p[5] for p in parts])[:, None],
+             pos=np.concatenate([p[6] for p in parts]),
              train_idx=np.arange(starts[0], starts[1]), valid_idx=np.arange(starts[1], starts[2]),
              test_idx=np.arange(starts[2], starts[3]))
     write_s = time.perf_counter() - t1
@@ -2918,6 +2944,341 @@ def narrow_heads_phase(dev, counters, fa, mlp, ops, data_dir: str, overrides=())
     return res, launches
 
 
+# ---------------------------------------------------------------------------
+# Phases I-K: the other pretraining tasks and the flat tokenizer
+# ---------------------------------------------------------------------------
+TASK_STEPS = 2  # counted steps of each pretraining run of phases I-K
+GST_FT_STEPS = 4  # fine-tune steps of phase K(c)
+GST_RATE_GRAPHS = 1000  # graphs the flat tokenizer takes on one host core
+
+
+def pcqm_pretrain_config(out_dir: str, data_dir: str, *overrides: str):
+    """configs/pcqm4m_v2_pretrain.yaml as shipped (GraphGPT-base 768 x 12,
+    heads of 64, gated, bf16, save_attn, batch 256 x 1024, pretrain-mlm
+    packed) on the store under data_dir, a step a log row, no generation
+    sweep at the save point; `overrides` go after these."""
+    from graphgpt_torch.config import load_config
+
+    return load_config(os.path.join(HERE, "configs", "pcqm4m_v2_pretrain.yaml"), [
+        f"tokenization.data_dir={data_dir}", f"training.output_dir={out_dir}",
+        f"training.schedule.total_num_steps={TASK_STEPS}", "training.schedule.warmup_num_steps=1",
+        "training.schedule.logging_steps=1", "training.gen_eval_bands=0", *overrides])
+
+
+def pretrain_want(m, counters):
+    """The launches of a pretraining step and of an eval forward, from the
+    model config (the prediction the counts are held to): save_attn keeps
+    each layer's attention output, so a step runs #1, #2 and #3 once a
+    layer (#1 and #3 causal where the config is) and #13 once a layer and
+    once for the final norm, an eval forward #1 and #2 once a layer; the
+    contrastive head, in-model SMTP and the position model launch nothing
+    more."""
+    if not (m.remat and m.remat_policy == "save_attn") or (
+            m.layer_scale_init_value or m.path_dropout or m.mlp_dropout):
+        fail(f"pretrain_want predicts save_attn without LayerScale or dropout: {m}")
+    L, zero = m.num_hidden_layers, {k: 0 for k in counters}
+    return ({**zero, "flash_fwd": L, "flash_bwd": L, "norm_mlp": L, "rmsnorm_bwd": L + 1},
+            {**zero, "flash_fwd": L, "norm_mlp": L})
+
+
+def rows_of(batch, n: int):
+    """The first n rows of a batch (the per-run tables whole)."""
+    return {k: v if k.startswith("pos_boundaries") else v[:n] for k, v in batch.items()}
+
+
+def pretrain_run(tag, dev, counters, ops, cfg, call=dict, fp32_rows: int = 16, before=None,
+                 vocab_from=None, tables: bool = False):
+    """One pretraining run of phases I-K through PretrainPipeline: setup
+    (the vocab copied from `vocab_from`'s run on the same store where
+    given), the first batch of epoch 0 (the contrastive view pairs
+    adjacent), `before(pipe, batch)` (kernel checks, host rates), the first
+    step on fp32_rows rows against the plain bf16 run and the fp32 rule
+    (`call()` gives the model call's generator: the same draws on every
+    run), TASK_STEPS counted steps and the save point's eval forwards
+    against pretrain_want, finite losses (log.csv), a step on the batch on
+    the card, trained tokens/s and graphs/s, peak memory. `tables`: the
+    run's pos_boundaries tables must reach every step's batch. Returns
+    (its numbers, the launches of the counted run)."""
+    from graphgpt_torch.synthetic import to_torch
+    from graphgpt_torch.training.pipeline import PretrainPipeline
+
+    t_phase = time.perf_counter()
+    out_dir = cfg.training.output_dir
+    if vocab_from:
+        os.makedirs(out_dir, exist_ok=True)
+        shutil.copy(os.path.join(vocab_from, "vocab"), os.path.join(out_dir, "vocab"))
+    t0 = time.perf_counter()
+    pipe = PretrainPipeline(cfg, device=dev).setup()
+    setup_s = time.perf_counter() - t0
+    m, t = pipe.cfg.model, pipe.cfg.training
+    model = pipe.state.model
+    consts = sorted(pipe._const_batch)
+    print(f"{tag} setup {setup_s:.1f} s: {type(model).__name__} {m.hidden_size} x "
+          f"{m.num_hidden_layers}, {m.num_attention_heads} heads of {m.head_dim}, "
+          f"{type(pipe.tokenizer).__name__} (stacked_feat {m.stacked_feat}, vocab "
+          f"{m.vocab_size}), {t.task_type}, causal {m.causal_attention}, use_discriminative "
+          f"{m.use_discriminative}, smtp_inside {m.smtp_inside}, batch {t.batch_size} "
+          f"{'packed rows of ' + str(t.max_length) if pipe.loader.pack else 'graphs'}, "
+          f"{len(pipe.valid_idx)} valid; per-run tables {consts}", flush=True)
+    if tables and not consts:
+        fail(f"{tag}: the dataset's pos_boundaries tables are not in the run's batches")
+    it = pipe._device_batches(0)
+    data, _ = next(it)
+    it.close()
+    batch = {**to_torch(data, dev), **pipe._const_batch}
+    b, p = batch["segment_ids"].shape
+    graphs = int(batch["segment_ids"].amax(dim=1).sum())
+    tokens = int((batch["segment_ids"] > 0).sum())
+    print(f"{tag} first batch: {b} x {p}, {graphs} graphs, {tokens} tokens; keys "
+          f"{sorted(batch)}", flush=True)
+    extra = before(pipe, batch) if before is not None else {}
+    grad = step_vs_fp32(model, rows_of(batch, fp32_rows), ops, tag, call=call)
+    torch.cuda.empty_cache()
+    want, want_eval = pretrain_want(m, counters)
+    seen = []
+    step_fn = pipe.train_step
+
+    def table_step(state, bb, **kw):
+        seen.append(sorted(k for k in bb if k.startswith("pos_boundaries")))
+        return step_fn(state, bb, **kw)
+
+    pipe.train_step = table_step
+    train_log, eval_log, _ = counted_pipeline(pipe, counters)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pipe.run()
+    run_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    check_logs(tag, train_log, eval_log, want, want_eval, TASK_STEPS)
+    if tables and seen != [consts] * TASK_STEPS:
+        fail(f"{tag}: the steps' batches carried the tables {seen}, not {consts} each")
+    rows = csv_rows(os.path.join(out_dir, "log.csv"))
+    losses = [float(r["loss"]) for r in rows]
+    parts = {key: [float(r[key]) for r in rows if r.get(key)] for key in ("gen_loss", "dis_loss")}
+    result = csv_rows(os.path.join(out_dir, "result.csv"))
+    valid = float(result[-1].get("valid_loss", "nan")) if result else float("nan")
+    ms = cuda_ms(lambda: pipe.train_step(pipe.state, batch, seed=t.seed), iters=1, warmup=1,
+                 repeats=3)
+    ms_spread = spread()
+    print(f"{tag} losses: " + " ".join(f"{x:.4f}" for x in losses)
+          + "".join(f"; {key} " + " ".join(f"{x:.4f}" for x in v) for key, v in parts.items()
+                    if v)
+          + f"; valid loss {valid:.4f}; the steps' batches carried {seen[0] if seen else []}; a "
+          f"step on the first batch on the card {ms:.2f} ms (3 readings {ms_spread}), "
+          f"{tokens / ms * 1e3:.0f} trained tokens/s, {graphs / ms * 1e3:.0f} graphs/s; the run "
+          f"{run_s:.1f} s; max_memory_allocated {peak:.0f} MiB; the run's phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if len(losses) != TASK_STEPS or not all(np.isfinite(losses + sum(parts.values(), []))) or (
+            not np.isfinite(valid)):
+        fail(f"{tag}: expected {TASK_STEPS} finite losses and a finite valid loss: {losses} "
+             f"{parts} {valid}")
+    if t.task_type == "pretrain-cl" and len(parts["dis_loss"]) != TASK_STEPS:
+        fail(f"{tag}: no contrastive loss in log.csv")
+    res = dict(losses=losses, valid_loss=valid, step_ms=ms, tokens_per_s=tokens / ms * 1e3,
+               graphs_per_s=graphs / ms * 1e3, peak_mib=peak, grad_ratio=grad["ratio"],
+               loss_ratio=grad["loss_ratio"], rows=b, positions=p,
+               **{f"{k}_losses": v for k, v in parts.items() if v}, **extra)
+    return res, launches
+
+
+def task_pretrain_phase(dev, counters, ops, data_dir: str, overrides=()):
+    """Phase I: pcqm4m_v2_pretrain.yaml at GraphGPT-base on the graph-level
+    store, first as shipped (pretrain-mlm, 256 x 1024 packed), then with
+    task_type pretrain-smtp (in-model SMTP: the masks drawn on the card, the
+    fp32 rule on the same draws) and pretrain-cl (the contrastive head on
+    adjacent view pairs, its loss beside the MLM loss), both unpacked at the
+    shipped batch of 256 graphs, as the JAX pipeline runs them
+    (pretrain_run). Returns ({task: its numbers}, the launches of the three
+    runs)."""
+    res, launches = {}, {k: 0 for k in counters}
+    with tempfile.TemporaryDirectory() as tmp:
+        first = None
+        for task in ("pretrain-mlm", "pretrain-smtp", "pretrain-cl"):
+            out = os.path.join(tmp, task)
+            cfg = pcqm_pretrain_config(out, data_dir, f"training.task_type={task}", *overrides)
+            seed = 11
+
+            def call():
+                return {"generator": torch.Generator(device=dev).manual_seed(seed)}
+
+            res[task], got = pretrain_run(f"phase I (pcqm4m-v2 pretraining, {task})", dev,
+                                          counters, ops, cfg, call=call, vocab_from=first)
+            first = first or out
+            for k in counters:
+                launches[k] += got[k]
+            torch.cuda.empty_cache()
+    return res, launches
+
+
+def coord_pretrain_phase(dev, counters, ops, data_dir: str, overrides=()):
+    """Phase J: 3D-coordinate pretraining of GraphGPTPosPred through
+    PretrainPipeline, pcqm4m_v2_pretrain.yaml at GraphGPT-base on the
+    store's seeded coordinates with dataset_policy pos_percentile_bounds
+    (the reader's boundary tables of 128-1024 bins; the run puts those of
+    its line bins, 128, and of pos_num_bins_line's 256 on the card and into
+    every step's batch) and pos-smtp-line at 128 bins, as the JAX package's
+    tests/test_pipeline.py:211 sets it up: pretrain-coord unpacked at the
+    shipped 256 graphs, pretrain-mlm-coord packed at 64 x 1024 (the extras
+    kept through the packing). The fp32 rule on the same draws
+    (pretrain_run). Returns ({task: its numbers}, the launches)."""
+    res, launches = {}, {k: 0 for k in counters}
+    with tempfile.TemporaryDirectory() as tmp:
+        first = None
+        for task, extra in (("pretrain-coord", ()),
+                            ("pretrain-mlm-coord", ("training.batch_size=64",))):
+            out = os.path.join(tmp, task)
+            cfg = pcqm_pretrain_config(
+                out, data_dir, f"training.task_type={task}",
+                'tokenization.dataset_policy={"pos_percentile_bounds": true}',
+                "model.pos_num_bins=128", "model.pos_problem_type=pos-smtp-line", *extra,
+                *overrides)
+
+            def call():
+                return {"generator": torch.Generator(device=dev).manual_seed(13)}
+
+            res[task], got = pretrain_run(f"phase J (3D-coordinate pretraining, {task})", dev,
+                                          counters, ops, cfg, call=call, vocab_from=first,
+                                          tables=True)
+            first = first or out
+            for k in counters:
+                launches[k] += got[k]
+            torch.cuda.empty_cache()
+    return res, launches
+
+
+def gst_checks(fa, ops, tag):
+    """phase K(a)'s checks before its first step (a `before` of
+    pretrain_run): the causal #1 and #3 at the first batch's segments and
+    RoPE table (the flat rows' cyclic position ids) against their plain
+    versions, timed beside the bound of the visible (causal) pairs and
+    SDPA's causal time (flash_at_shape); the flat tokenizer on one host
+    core (samples/s) beside the loader alone with its worker pool."""
+    from graphgpt_torch.models.rope import reset_position_ids, rope_cos_sin
+
+    def before(pipe, batch):
+        mc, tc = pipe.cfg.model, pipe.cfg.training
+        pos = reset_position_ids(batch["position_ids"], mc.rope_range)
+        cos, sin = (x.to(torch.bfloat16) for x in rope_cos_sin(
+            pos, mc.head_dim, mc.rope_theta, resonance=mc.rope_resonance,
+            rope_scaling=mc.rope_scaling, max_position_embeddings=mc.max_position_embeddings))
+        r = flash_at_shape(fa, ops, f"{tag}, causal", batch["segment_ids"], cos, sin,
+                           mc.num_attention_heads, mc.head_dim, causal=True)
+        del cos, sin
+        torch.cuda.empty_cache()
+        idx = pipe.train_idx[:GST_RATE_GRAPHS]
+        rate, mean_len, over = one_core_samples(pipe.dataset, pipe.tokenizer, idx, tc.max_length)
+        t0 = time.perf_counter()
+        n_graphs = n_tokens = 0
+        for bb in pipe.loader.epoch_batches(pipe.train_idx[: 16 * tc.batch_size * 4], epoch=1):
+            n_graphs += int(bb["segment_ids"].max(axis=1).sum())
+            n_tokens += int((bb["segment_ids"] > 0).sum())
+        loader_s = time.perf_counter() - t0
+        print(f"{tag}: the flat tokenizer (a Python loop over the tokens) on one host core "
+              f"{rate:.0f} graphs/s, {mean_len:.1f} tokens a graph ({over:.2%} longer than "
+              f"{tc.max_length}); the loader alone with {tc.num_workers} workers "
+              f"{n_graphs / loader_s:.0f} graphs/s, {n_tokens / loader_s:.0f} tokens/s over "
+              f"{n_graphs} graphs", flush=True)
+        return dict(flash=r, tokenizer_graphs_s=rate, tokens_per_graph=mean_len,
+                    loader_graphs_s=n_graphs / loader_s, loader_tokens_s=n_tokens / loader_s)
+
+    return before
+
+
+def gst_phase(dev, counters, fa, ops, data_dir: str, overrides=()):
+    """Phase K, the flat GSTTokenizer (see the module docstring, 7e): (a),
+    (b) through pretrain_run, (c) as the graph-level phase 7b runs its
+    config.
+    Returns ({part: its numbers}, the launches of its runs)."""
+    from graphgpt_torch.config import load_config
+    from graphgpt_torch.synthetic import to_torch
+    from graphgpt_torch.training.finetune import FinetunePipeline
+
+    res, launches = {}, {k: 0 for k in counters}
+
+    def add(got):
+        for k in counters:
+            launches[k] += got[k]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) next-token pretraining, causal, packed 64 x 1024
+        pt_dir = os.path.join(tmp, "gst_pretrain")
+        tag = "phase K(a) (GST next-token pretraining)"
+        cfg = pcqm_pretrain_config(
+            pt_dir, data_dir, "tokenization.tokenizer_class=GSTTokenizer",
+            "training.task_type=pretrain", "model.causal_attention=true",
+            "training.batch_size=64", *overrides)
+        res["pretrain"], got = pretrain_run(tag, dev, counters, ops, cfg,
+                                            before=gst_checks(fa, ops, tag))
+        add(got)
+        torch.cuda.empty_cache()
+        # (b) structure_er with the four nx streams, pretrain-euler
+        cfg = pcqm_pretrain_config(
+            os.path.join(tmp, "gst_er"), data_dir, "tokenization.tokenizer_class=GSTTokenizer",
+            "tokenization.dataset=structure_er", "tokenization.semantics.node.discrete=null",
+            "tokenization.semantics.node.dim=0", "tokenization.semantics.edge.discrete=null",
+            "tokenization.semantics.edge.dim=0",
+            'tokenization.structure.nx_funcs=["degree", "triangles", "shortest_path", '
+            '"shortest_path_length"]', "training.task_type=pretrain-euler", "model.causal_attention=true",
+            "training.batch_size=64", *overrides)
+        res["structure_er"], got = pretrain_run(
+            "phase K(b) (structure_er, nx streams, pretrain-euler)", dev, counters, ops, cfg)
+        add(got)
+        torch.cuda.empty_cache()
+        # (c) pcqm4m_v2_supervised.yaml on flat rows, warm-started from (a)
+        tag = "phase K(c) (GST fine-tuning)"
+        ft_dir = os.path.join(tmp, "gst_finetune")
+        cfg = load_config(os.path.join(HERE, "configs", "pcqm4m_v2_supervised.yaml"), [
+            f"tokenization.data_dir={data_dir}", "tokenization.tokenizer_class=GSTTokenizer",
+            f"training.output_dir={ft_dir}", f"training.pretrain_cpt={pt_dir}",
+            "training.schedule.logging_steps=1", *overrides])
+        t0 = time.perf_counter()
+        pipe = FinetunePipeline(cfg, device=dev).setup()
+        setup_s = time.perf_counter() - t0
+        m, t = pipe.cfg.model, pipe.cfg.training
+        # GST_FT_STEPS batches of epoch 0, 1,024 valid and test graphs
+        pipe.train_idx, pipe.epochs = pipe.train_idx[: GST_FT_STEPS * t.batch_size], 1
+        pipe.valid_idx, pipe.test_idx = pipe.valid_idx[:1024], pipe.test_idx[:1024]
+        print(f"{tag} setup {setup_s:.1f} s: {type(pipe.tokenizer).__name__}, stacked_feat "
+              f"{m.stacked_feat}, vocab {m.vocab_size}, {m.hidden_size} x "
+              f"{m.num_hidden_layers}, remat {m.remat_policy}, batch {t.batch_size}, warm "
+              f"start from phase K(a)'s checkpoint", flush=True)
+        idx0 = np.random.default_rng((t.seed, 0)).permutation(pipe.train_idx)
+        batch = to_torch(next(pipe.loader.epoch_batches(idx0, 0)).data, dev)
+        grad = step_vs_fp32(pipe.state.model, rows_of(batch, 64), ops, tag)
+        torch.cuda.empty_cache()
+        want, want_eval = finetune_want(m, counters)
+        train_log, eval_log, metrics = counted_pipeline(pipe, counters)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        best = pipe.run()
+        run_s = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in counters.items()}
+        add(got)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        check_logs(tag, train_log, eval_log, want, want_eval, GST_FT_STEPS)
+        losses = [float(x["loss"]) for x in metrics]
+        ms = cuda_ms(lambda: pipe.train_step(pipe.state, batch, seed=t.seed), iters=1,
+                     warmup=1, repeats=3)
+        b, p = batch["segment_ids"].shape
+        print(f"{tag} losses: " + " ".join(f"{x:.4f}" for x in losses) + f"; valid_mae "
+              f"{best.get('valid_mae')}, valid_ema_mae {best.get('valid_ema_mae')} on "
+              f"{len(pipe.valid_idx)} graphs, test_mae {best.get('test_mae')}; a step on a "
+              f"batch of {b} x {p} on the card {ms:.2f} ms (3 readings {spread()}), "
+              f"{b / ms * 1e3:.0f} graphs/s; the run {run_s:.1f} s; max_memory_allocated "
+              f"{peak:.0f} MiB", flush=True)
+        if not (all(np.isfinite(losses)) and np.isfinite(best.get("valid_mae", np.nan))):
+            fail(f"{tag}: the losses or the valid MAE are not finite: {losses} {best}")
+        res["finetune"] = dict(losses=losses, valid_mae=best.get("valid_mae"), step_ms=ms,
+                               graphs_per_s=b / ms * 1e3, peak_mib=peak,
+                               grad_ratio=grad["ratio"], rows=b, positions=p)
+    return res, launches
+
+
 def mol3d_config(tok, **kw):
     """GraphGPT-base over the synthetic molecules' tokenizer (vocab 755, 13
     stacked features), bf16 over fp32 weights, with the fields in kw."""
@@ -3095,6 +3456,35 @@ def check_stream_rows(fa, ops, tag, qs, k, v, seg_q, seg_k, cos, sin, do, dh):
     return dict(fwd=fwd_err, dq=dq_err, dkv=dkv_err, delta=delta_err)
 
 
+def stream_non_finite_check(fa, qs, k, v, seg, cos, sin, do, dh: int):
+    """#7 (with its delta) and #8, untimed, with inf and NaN written into
+    do's padded rows (the last 64 positions of the last row made padding),
+    both masks: every bit of dq, delta, dk and dv must stay as with zeros
+    there."""
+    seg = seg.clone()
+    seg[-1, -64:] = 0
+    pad = (seg == 0)[..., None].expand_as(do)
+    clean = do.masked_fill(pad, 0.0)
+    noisy = do.masked_fill(pad, float("nan"))
+    noisy[-1].masked_fill_(pad[-1], float("inf"))
+    for causal in (False, True):
+        out, lse = fa.flash_fwd_stream(qs, k, v, seg, seg, cos, sin, causal, dh)
+        runs = []
+        for d in (clean, noisy):
+            dq, delta = fa.flash_dq_stream(qs, k, v, seg, seg, cos, sin, out, lse, d, None,
+                                           causal, dh)
+            runs.append((dq, delta, *fa.flash_dkv_stream(qs, k, v, seg, seg, cos, sin, lse,
+                                                         delta, d, causal, dh)))
+        same = all(torch.equal(a, n) for a, n in zip(*runs))
+        finite = all(bool(torch.isfinite(a.float()).all()) for a in runs[1])
+        tag = "causal" if causal else "bidirectional"
+        print(f"flash_dq_stream/flash_dkv_stream[{tag}, B={seg.shape[0]} P={seg.shape[1]}] "
+              f"with inf and NaN in do's {int(pad[..., 0].sum())} padded rows: every output bit "
+              f"(dq, delta, dk, dv) the same {same}, finite {finite}", flush=True)
+        if not (same and finite):
+            fail(f"non-finite do in padded rows reached an output of the stream pair ({tag})")
+
+
 def check_stream_batch(fa, ops, tag, qs, k, v, seg_q, seg_k, cos, sin, do, dh):
     """#6, #7 (with its delta) and #8 at the whole launch that the
     long-context step makes, B 16 x P 4096 (a persistent kernel's schedule
@@ -3157,7 +3547,8 @@ def stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_rows:
     for #7 and #8), and #1's entry (ggt_flash_fwd) on the same rows, which
     the dispatch never gives it above P 2048: one body and one id array, it
     must give #6's bits. #6, #7 and #8 are held on all the rows too
-    (check_stream_batch), with both kinds of key ids."""
+    (check_stream_batch), with both kinds of key ids; #7 and #8 with inf
+    and NaN in do's padded rows (stream_non_finite_check)."""
     b, p = seg.shape
     qs, k, v, do = flash_tensors(seg, h, dh, seed=21)
     r = slice(0, check_rows)
@@ -3167,6 +3558,7 @@ def stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_rows:
     other = check_stream_rows(fa, ops, "keys of another packed row",
                               *rows(qs, k, v, seg), seg[r][swap], *rows(cos, sin, do), dh)
     errs = {key: max(errs[key], other[key]) for key in errs}
+    stream_non_finite_check(fa, *rows(qs, k, v, seg, cos, sin, do), dh)
     batch = [check_stream_batch(fa, ops, tag, qs, k, v, seg, seg_k, cos, sin, do, dh)
              for tag, seg_k in (("long-context", seg),
                                 ("keys of another packed row", seg.roll(1, dims=0)))]
@@ -4301,6 +4693,16 @@ def main() -> None:
     torch.cuda.empty_cache()
     shipped["H"], shippedl["H"] = narrow_heads_phase(dev, counters, fa, mlp, ops, data_dir)
     print(f"phases D-H: {time.perf_counter() - t0:.1f} s", flush=True)
+    # ---- phases I-K: the other pretraining tasks (I: in-model SMTP and
+    # contrastive; J: 3D coordinates) and the flat GSTTokenizer (K)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tasks, shippedl["I"] = task_pretrain_phase(dev, counters, ops, data_dir)
+    torch.cuda.empty_cache()
+    coords, shippedl["J"] = coord_pretrain_phase(dev, counters, ops, data_dir)
+    torch.cuda.empty_cache()
+    gst, shippedl["K"] = gst_phase(dev, counters, fa, ops, data_dir)
+    print(f"phases I-K: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- denoise and position-pretraining phases: fresh models
     torch.cuda.empty_cache()
@@ -4340,7 +4742,7 @@ def main() -> None:
             launches_band_train=btl[name], launches_band_long=bll[name],
             launches_big_ppa=bigl["A"][name], launches_big_proteins=bigl["B"][name],
             launches_big_pretrain=bigl["C"][name],
-            **{f"launches_phase_{ph}": shippedl[ph][name] for ph in "DEFGH"},
+            **{f"launches_phase_{ph}": shippedl[ph][name] for ph in "DEFGHIJK"},
             max_abs_err=r["err"],
             ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -4444,6 +4846,25 @@ def main() -> None:
         dh32_small12_entry_ms=hk["entry_ms"])
     by_name["norm_mlp"].update({f"narrow_{size}_{k}": v for size in ("small12", "tiny6")
                                 for k, v in shipped["H"][size].items()})
+    # phase K(a): the causal #1 and #3 at GST pretraining's B 64 x P 1024
+    # (the bound over the visible, causal pairs), the runs of phases I-K
+    # beside #2, the MLP kernel each step runs
+    gk = gst["pretrain"]["flash"]
+    by_name["flash_fwd"].update(
+        max_abs_err=max(by_name["flash_fwd"]["max_abs_err"], gk["fwd_err"]),
+        gst_causal_ms=gk["fwd_ms"], gst_causal_bound_ms=gk["fwd_bound_ms"],
+        gst_causal_library_ms=gk["fwd_lib_ms"])
+    by_name["flash_bwd"].update(
+        max_abs_err=max(by_name["flash_bwd"]["max_abs_err"], gk["err"]),
+        gst_causal_ms=gk["ms"], gst_causal_bound_ms=gk["bound_ms"],
+        gst_causal_library_ms=gk["lib_ms"])
+    runs = {**{f"phase_I_{t}": r for t, r in tasks.items()},
+            **{f"phase_J_{t}": r for t, r in coords.items()},
+            **{f"phase_K_{part}": r for part, r in gst.items()}}
+    by_name["norm_mlp"].update({f"{run}_{k}": v for run, r in runs.items() for k, v in r.items()
+                                if k in ("step_ms", "tokens_per_s", "graphs_per_s", "peak_mib",
+                                         "grad_ratio", "tokenizer_graphs_s",
+                                         "loader_graphs_s", "valid_mae")})
     # the split pair: its main entry at the denoise batch's shape, B 256 x P 88
     edge = sp["edge"]
     for name, kind, line in (("flash_dq", "dq", 602), ("flash_dkv", "dkv", 789)):

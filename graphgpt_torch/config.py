@@ -38,11 +38,14 @@ class SemanticsAttrConfig:
 
 @dataclass
 class SemanticsConfig:
-    attr_assignment: str = "first"
+    attr_assignment: str = "first"  # first|last|random|all|mix
+    attr_shuffle: bool = False  # GSTTokenizer: shuffle a node's attribute columns
     node: SemanticsAttrConfig = field(default_factory=SemanticsAttrConfig)
     edge: SemanticsAttrConfig = field(default_factory=SemanticsAttrConfig)
     graph: SemanticsAttrConfig = field(default_factory=SemanticsAttrConfig)
     reserved_tokens: Tuple[str, ...] = tuple(f"semantics_{i}" for i in range(10))
+    # instruction streams (data/structure_tasks.py): homo_lumo|cepdb_prop_all|a2d
+    instruct_funcs: Tuple[str, ...] = ()
 
 
 @dataclass
@@ -73,6 +76,9 @@ class StructureConfig:
     icl_token: str = "<icl>"
     sep_token: str = "<sep>"
     reserved_tokens: Tuple[str, ...] = tuple(f"structure_{i}" for i in range(10))
+    # structure streams appended in pretraining (data/structure_tasks.py):
+    # degree|triangles|shortest_path|shortest_path_length
+    nx_funcs: Tuple[str, ...] = ()
 
 
 @dataclass
@@ -84,8 +90,10 @@ class TokenizationConfig:
     attr_world_identifier: str = "molecule"
     add_eos: bool = True  # the trailing eos row on task sequences
     stack_method: str = "short"  # short|long
+    label_tokens_to_pad: Tuple[str, ...] = ()  # GSTTokenizer: labels of these tokens padded
     semantics: SemanticsConfig = field(default_factory=SemanticsConfig)
     structure: StructureConfig = field(default_factory=StructureConfig)
+    rotation: str = "anchor_rotate"  # 3D positions: anchor_rotate|trans_rotate
     # split-policy knobs applied by graph-level readers (reference
     # _readers/pcqm4mv2.py:344-428): true_valid, test_large,
     # remove_special {edge0,node1,node2,disconnected}, duplicate_train

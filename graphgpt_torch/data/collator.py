@@ -5,6 +5,15 @@ A copy of `graphgpt_tpu/data/collator.py`'s `collate`, `bucket_length` and
 sequences are packed into rows of mpe tokens or padded to a multiple of
 `bucket` (capped at mpe) or to a fixed length, and each row carries
 `segment_ids` (1.. per segment, 0 on padding) for the attention kernels.
+
+A packed row differs from the JAX package's where a segment's position ids
+are not 0..n-1 or it carries per-position extras: the port keeps each
+segment's own position ids, shifted by its start in the row (the flat
+tokenizer's cyclic ids; for the stacked rows this is the JAX row's
+0..P-1), and its extras (`pretrain-mlm-coord`'s `node_idx`, shifted the
+same way, `pos_type` and `pos`), where the JAX `_merge_packed` numbers the
+row 0..P-1 and drops the extras, so that `pos_pred_forward` finds no
+`pos_type` in a packed batch.
 """
 
 from __future__ import annotations
@@ -206,64 +215,70 @@ def pack_samples(
         yield _merge_packed_pieces(pieces, mpe, block)
 
 
-def _merge_packed_pieces(pieces: List[object], mpe: int, block: int) -> TokenizedSample:
-    """One row from a block-aligned piece list (samples and int pad gaps);
-    gaps become PAD_ID rows with segment id 0 (negative entries in
-    segment_lengths, see collate)."""
-    ids_parts, label_parts, seg_lengths, wgts = [], [], [], []
-    used = 0
-    proto = next(p for p in pieces if not isinstance(p, int))
-    for p in pieces:
-        if isinstance(p, int):
-            n = min(p, mpe - used)
-            if n <= 0:
-                break
-            pad_shape = (n,) + proto.input_ids.shape[1:]
-            ids_parts.append(np.full(pad_shape, PAD_ID, proto.input_ids.dtype))
-            label_parts.append(np.full(pad_shape, LABEL_PAD_ID, proto.labels.dtype))
+def _row(parts: List[tuple], mpe: int) -> TokenizedSample:
+    """One packed row from (sample or None for a padding gap, length) parts.
+    Each segment keeps its own position ids, shifted by where it starts in
+    the row, and its per-position extras (`node_idx` shifted the same way,
+    so that a segment's gathers stay inside it); a gap takes 0..n-1 from its
+    start, padding ids and labels, zero extras and segment id 0 (a negative
+    entry in segment_lengths, see collate)."""
+    proto = next(s for s, _ in parts if s is not None)
+    keys = [k for k, v in proto.extras.items() if v.ndim >= 1 and v.shape[0] == proto.seq_len
+            and all(s is None or k in s.extras for s, _ in parts)]
+    ids, labels, pos, seg_lengths, wgts = [], [], [], [], []
+    extras = {k: [] for k in keys}
+    start = 0
+    for s, n in parts:
+        if s is None:
+            shape = (n,) + proto.input_ids.shape[1:]
+            ids.append(np.full(shape, PAD_ID, proto.input_ids.dtype))
+            labels.append(np.full(shape, LABEL_PAD_ID, proto.labels.dtype))
+            pos.append(np.arange(start, start + n, dtype=np.int32))
+            for k in keys:
+                v = proto.extras[k]
+                extras[k].append(np.zeros((n,) + v.shape[1:], v.dtype))
             seg_lengths.append(-n)
-            used += n
         else:
-            n = min(p.seq_len, block, mpe - used)
-            if n <= 0:
-                break
-            ids_parts.append(p.input_ids[:n])
-            label_parts.append(p.labels[:n])
+            ids.append(s.input_ids[:n])
+            labels.append(s.labels[:n])
+            pos.append(s.position_ids[:n].astype(np.int32) + start)
+            for k in keys:
+                v = s.extras[k][:n]
+                extras[k].append(v + start if k == "node_idx" else v)
             seg_lengths.append(n)
-            used += n
-            if p.wgt is not None:
-                wgts.append(p.wgt)
-    ids = np.concatenate(ids_parts, axis=0)[:mpe]
-    labels = np.concatenate(label_parts, axis=0)[:mpe]
-    n_row = ids.shape[0]
+            if s.wgt is not None:
+                wgts.append(s.wgt)
+        start += n
+    n_row = min(start, mpe)
     return TokenizedSample(
-        input_ids=ids,
-        labels=labels,
-        position_ids=np.arange(n_row, dtype=np.int32),
+        input_ids=np.concatenate(ids, axis=0)[:mpe],
+        labels=np.concatenate(labels, axis=0)[:mpe],
+        position_ids=np.concatenate(pos)[:mpe],
         attention_mask=np.ones(n_row, np.int8),
         wgt=float(np.mean(wgts)) if wgts else None,
         segment_lengths=seg_lengths,
+        extras={k: np.concatenate(v, axis=0)[:mpe] for k, v in extras.items()},
     )
 
 
+def _merge_packed_pieces(pieces: List[object], mpe: int, block: int) -> TokenizedSample:
+    """One row from a block-aligned piece list (samples and int pad gaps)."""
+    parts, used = [], 0
+    for p in pieces:
+        n = min(p if isinstance(p, int) else min(p.seq_len, block), mpe - used)
+        if n <= 0:
+            break
+        parts.append((None if isinstance(p, int) else p, n))
+        used += n
+    return _row(parts, mpe)
+
+
 def _merge_packed(samples: List[TokenizedSample], mpe: int) -> TokenizedSample:
-    ids = np.concatenate([s.input_ids for s in samples], axis=0)[:mpe]
-    labels = np.concatenate([s.labels for s in samples], axis=0)[:mpe]
-    seg_lengths = []
-    remaining = mpe
+    parts, remaining = [], mpe
     for s in samples:
         n = min(s.seq_len, remaining)
         if n <= 0:
             break
-        seg_lengths.append(n)
+        parts.append((s, n))
         remaining -= n
-    p = ids.shape[0]
-    wgts = [s.wgt for s in samples if s.wgt is not None]
-    return TokenizedSample(
-        input_ids=ids,
-        labels=labels,
-        position_ids=np.arange(p, dtype=np.int32),
-        attention_mask=np.ones(p, np.int8),
-        wgt=float(np.mean(wgts)) if wgts else None,
-        segment_lengths=seg_lengths,
-    )
+    return _row(parts, mpe)

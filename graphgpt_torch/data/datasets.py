@@ -1,5 +1,6 @@
 """Synthetic molecules with the PCQM4M-v2 schema (9 node attributes, 3
-edge attributes, one regression target per graph), the map dataset over a
+edge attributes, one regression target per graph), Erdős–Rényi graphs
+(`erdos_renyi_graph` :72, the `structure_er` reader's), the map dataset over a
 columnar store with its epoch-seeded node permutation, the index samplers
 and the fixed-seed validation split: copies from
 `graphgpt_tpu/data/datasets.py` (`GraphsMapDataset` :109-144, the index
@@ -65,6 +66,16 @@ def random_molecule_graph(
         y=y,
         pos=pos,
     )
+
+
+def erdos_renyi_graph(rng: np.random.Generator, num_nodes: int, p: float) -> Graph:
+    """Attribute-free Erdős–Rényi graph, each undirected edge in both
+    directions (reference GraphsIterableDataset, dataset_iterable.py:134-189)."""
+    iu = np.triu_indices(num_nodes, k=1)
+    mask = rng.random(len(iu[0])) < p
+    lo, hi = iu[0][mask].astype(np.int32), iu[1][mask].astype(np.int32)
+    edge_index = np.stack([np.concatenate([lo, hi]), np.concatenate([hi, lo])]).astype(np.int32)
+    return Graph(num_nodes=num_nodes, edge_index=edge_index)
 
 
 class SyntheticMolDataset:

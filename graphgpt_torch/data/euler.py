@@ -4,9 +4,10 @@ Counterpart of `graphgpt_tpu/data/euler.py`: the C++ walk of
 `native/euler_native.py` by default (`_native` :30-45, `graph_to_walk`
 :245-257), the numpy walk (components, eulerisation, randomized
 Hierholzer, shortening, jump edges), and the node re-indexing, the edge
-types (`walk_edge_types` :307, for the long stacking) and the
-edge-attribute lookup the stacked tokenizers read. The two walks draw
-their random numbers differently (the C++ one draws one seed), so a graph
+types (`walk_edge_types` :307, for the long stacking and the flat
+tokenizer), the edge-attribute lookup the tokenizers read, and
+`rebase_index_tokens` (:294), an index's two-level tokens. The two walks
+draw their random numbers differently (the C++ one draws one seed), so a graph
 gives other rows under each. A test takes the numpy walk by setting
 `_NATIVE_CHECKED, _NATIVE = True, None`; nothing else does. The C++
 library is built at the first walk; a failed build raises.
@@ -283,6 +284,16 @@ def walk_node_ranks(
         return perm[ranks].astype(np.int64)
     start = int(rng.integers(0, scope)) if mapping_type == 1 else 0
     return (ranks + start) % scope
+
+
+def rebase_index_tokens(idx: int, base: int) -> Tuple[str, ...]:
+    """Two-level decomposition of a structural index into token strings:
+    idx -> ("{hi}*{base}", "{lo}") when hi > 0 (nx_utils.py:224-231)."""
+    if base == 0:
+        return (str(idx),)
+    assert idx < base * base
+    hi, lo = divmod(idx, base)
+    return (f"{hi}*{base}", str(lo)) if hi > 0 else (str(lo),)
 
 
 EDGE_JUMP, EDGE_IN, EDGE_OUT, EDGE_BI = 0, 1, 2, 3

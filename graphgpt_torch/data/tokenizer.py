@@ -1,14 +1,20 @@
-"""Graph -> stacked token rows for the fine-tune tasks and SMTP pretraining.
+"""Graph -> stacked token rows for the fine-tune tasks and the pretrain tasks.
 
 A copy of `graphgpt_tpu/data/tokenizer.py`'s `StackedGSTTokenizer`
 ("short" stacking) with its task branches (graph, edge, node, nodev2), the
-pretrain rows of `pretrain-mlm` (host-side SMTP masking) and `pretrain`
-(clean rows with next-row labels), `StackedGSTTokenizerLong` (:457-550,
-"long" stacking), and the masking helpers `_polynomial_mask_ratio`,
-`mask_packed_row`, `smtp_mask_stacked`; the rng draws come in the JAX
-package's order, so the rows are the same. The other pretrain tasks
-(contrastive, in-model SMTP and coordinate rows), instruction rows and
-`GSTTokenizer` wait for later slices. Short row layout:
+pretrain rows (:291-338: `pretrain-mlm` and `pretrain-cl` with host-side
+SMTP masking, the latter with its trailing `<gsum>` row;
+`pretrain-mlm-coord` with the coordinate extras; `pretrain`,
+`pretrain-smtp`, `pretrain-coord` and `pretrain-smtp-3d` with next-row
+labels, the last three with the extras `node_idx`, `pos_type` and `pos`,
+`_coord_extras` :267-282), the a2d instruction rows (`_instruct_rows`
+:207-239), `StackedGSTTokenizerLong` (:457-550, "long" stacking), and the
+masking helpers `_polynomial_mask_ratio`, `mask_packed_row`,
+`smtp_mask_stacked`; the rng draws come in the JAX package's order, so the
+rows are the same. A task the JAX tokenizer has no rows for
+(`pretrain-coord-cl`, and the flat tokenizer's `pretrain-ltp` and
+`pretrain-euler`) raises NotImplementedError when called, as there. Short
+row layout:
 
     [ node_idx_token | node_attr_0..node_attr_{Dn-1} | edge_attr_0..edge_attr_{De-1} ]
 
@@ -29,7 +35,8 @@ from .graph import Graph
 from .vocab import LABEL_PAD_ID
 
 PAD_ID = 0
-TASKS = ("graph", "edge", "node", "nodev2", "pretrain-mlm", "pretrain")
+MLM_TASKS = ("pretrain-mlm", "pretrain-cl", "pretrain-mlm-coord")
+NEXT_ROW_TASKS = ("pretrain", "pretrain-smtp", "pretrain-coord", "pretrain-smtp-3d")
 
 
 class AttrColumnLookup:
@@ -103,11 +110,6 @@ class StackedGSTTokenizer:
         mlm_cfg=None,
         num_intra_cls: int = 0,
     ):
-        if task_type not in TASKS:
-            raise NotImplementedError(
-                f"task_type {task_type!r}: the port tokenizes {TASKS}; the other pretrain "
-                "tasks' rows (contrastive, in-model SMTP, coordinates) wait for a later slice"
-            )
         assert cfg.stack_method == self.STACK_METHOD, (
             f"stack_method {cfg.stack_method!r}: see "
             f"{'StackedGSTTokenizerLong' if cfg.stack_method == 'long' else 'StackedGSTTokenizer'}")
@@ -118,7 +120,7 @@ class StackedGSTTokenizer:
         self.cfg = cfg
         self.vocab_map = vocab_map
         self.task_type = task_type
-        if mlm_cfg is None and task_type == "pretrain-mlm":
+        if mlm_cfg is None and task_type in MLM_TASKS:
             from ..config import MlmScheduleConfig
 
             mlm_cfg = MlmScheduleConfig()
@@ -135,6 +137,7 @@ class StackedGSTTokenizer:
         self.eos_id = vocab_map[node_cfg.eos_token]
         self.bos_id = vocab_map[node_cfg.bos_token]
         self.mask_id = vocab_map[s.mask_token]
+        self.gsum_id = vocab_map.get(s.summary_token, 0)
         # structural node-idx token ids: str(i) for i in [0, scope)
         self.node_idx_ids = np.asarray(
             [vocab_map[str(i)] for i in range(node_cfg.scope_base)], np.int32
@@ -202,7 +205,40 @@ class StackedGSTTokenizer:
         ids[p0] = self.eos_id  # eos row
         if not self.append_eos:
             ids = ids[:p0]
+        inst = self._instruct_rows(graph, walk, ranks)
+        if inst is not None:
+            ids = np.concatenate([ids, inst], axis=0)
         return ids, walk, ranks
+
+    def _instruct_rows(self, graph: Graph, walk, ranks):
+        """Stacked a2d instruction rows appended after the eos row
+        (reference _obtain_stacked_acc2device, instruct_tuning_utils.py:121-151):
+        a header row of the reserved token the graph's key_type selects, then
+        a full stacked row (idx token, node attrs, default edge attrs) for
+        each (account, device) node."""
+        if "a2d" not in self.cfg.semantics.instruct_funcs:
+            return None
+        a2d = graph.extra.get("a2d")
+        if a2d is None or len(a2d) == 0:
+            return None
+        key_type = int(np.asarray(graph.extra.get("key_type", 0)))
+        reserved = self.cfg.semantics.reserved_tokens[key_type]
+        rid = self.vocab_map.get(reserved)
+        if rid is None:
+            raise ValueError(f"reserved token {reserved!r} missing from vocab")
+        flat = np.asarray(a2d, np.int64).reshape(-1)
+        node_rank = np.zeros(graph.num_nodes, np.int64)  # raw node -> rank in this walk
+        node_rank[walk] = np.asarray(ranks)
+        rows = np.empty((1 + len(flat), self.stacked_feat), np.int32)
+        rows[0] = rid
+        rows[1:, 0] = self.node_idx_ids[node_rank[flat]]
+        col = 1
+        if self.node_dim:
+            rows[1:, col : col + self.node_dim] = self.node_lookup(graph.node_attr[flat])
+            col += self.node_dim
+        if self.edge_dim:
+            rows[1:, col : col + self.edge_dim] = self.edge_lookup.default_ids
+        return rows
 
     def target_token_ids(self, graph: Graph, walk: np.ndarray, ranks: np.ndarray):
         """Structural idx token ids for root_n_id (node / edge tasks)."""
@@ -230,6 +266,23 @@ class StackedGSTTokenizer:
             )
         return row
 
+    def _coord_extras(self, graph: Graph, walk: np.ndarray, p: int, rng) -> dict:
+        """Node decoration for in-model SMTP and 3D-position pretraining
+        (reference _attach_node_mask_to_inputs, tokenizer_utils.py:453-468):
+        node_idx = raw id + 1 (0 at eos), pos_type 0-4, and where the graph
+        has coordinates the rotated ones (zeros on the eos row)."""
+        from .mol3d import ROTATIONS, pos_type_from_node_index
+
+        raw_idx = np.concatenate([walk, [-1]])
+        extras = {"node_idx": (raw_idx + 1).astype(np.int32),
+                  "pos_type": pos_type_from_node_index(raw_idx).astype(np.int32)}
+        if graph.pos is not None:
+            pos = ROTATIONS[self.cfg.rotation](np.asarray(graph.pos, np.float32), rng)
+            row_pos = np.zeros((p, 3), np.float32)
+            row_pos[:-1] = pos[walk]
+            extras["pos"] = row_pos
+        return extras
+
     # ------------------------------------------------------------------
     def __call__(self, graph: Graph, rng: np.random.Generator) -> TokenizedSample:
         ids, walk, ranks = self.tokenize(graph, rng)
@@ -237,12 +290,24 @@ class StackedGSTTokenizer:
         position_ids = np.arange(p, dtype=np.int32)
         attention_mask = np.ones(p, np.int8)
         task = self.task_type
-        if task == "pretrain-mlm":
+        if task in MLM_TASKS:
             alpha_t, wgt = _polynomial_mask_ratio(self.mlm_cfg, rng)
             masked, labels = smtp_mask_stacked(
                 ids, self.mask_id, alpha_t, rng, mtp=tuple(self.mlm_cfg.mtp),
                 vocab_size=self.vocab_size,
             )
+            if task == "pretrain-cl":
+                # a trailing <gsum> row pools the contrastive embedding, its
+                # label padded (reference _add_gsum_tokens_for_cl,
+                # tokenizer_utils.py:366-387)
+                f = masked.shape[1]
+                masked = np.concatenate([masked, np.full((1, f), self.gsum_id, np.int32)])
+                labels = np.concatenate([labels, np.full((1, f), LABEL_PAD_ID, np.int32)])
+                p += 1
+                position_ids = np.arange(p, dtype=np.int32)
+                attention_mask = np.ones(p, np.int8)
+            extras = (self._coord_extras(graph, walk, p, rng) if task == "pretrain-mlm-coord"
+                      else {})
             return TokenizedSample(
                 input_ids=masked,
                 labels=labels,
@@ -250,16 +315,19 @@ class StackedGSTTokenizer:
                 attention_mask=attention_mask,
                 wgt=float(wgt) if self.mlm_cfg.dlm_wgt else None,
                 segment_lengths=[p],
+                extras=extras,
             )
-        if task == "pretrain":
-            # clean rows (the generation sweep's), labels the next row
+        if task in NEXT_ROW_TASKS:
+            # clean rows, labels the next row; in-model SMTP masks on the device
             labels = np.concatenate([ids[1:], np.full((1, ids.shape[1]), self.eos_id, np.int32)])
+            extras = {} if task == "pretrain" else self._coord_extras(graph, walk, p, rng)
             return TokenizedSample(
                 input_ids=ids,
                 labels=labels,
                 position_ids=position_ids,
                 attention_mask=attention_mask,
                 segment_lengths=[p],
+                extras=extras,
             )
         if task == "graph":
             labels = np.full_like(ids, LABEL_PAD_ID)
@@ -451,7 +519,7 @@ class StackedGSTTokenizerLong(StackedGSTTokenizer):
 
     def __call__(self, graph: Graph, rng: np.random.Generator) -> TokenizedSample:
         sample = super().__call__(graph, rng)
-        if self.task_type == "pretrain-mlm" and sample.labels.ndim == 2:
+        if self.task_type in ("pretrain-mlm", "pretrain-cl") and sample.labels.ndim == 2:
             sample.labels = self.pad_stacked_labels(sample.labels)
         return sample
 
@@ -484,11 +552,13 @@ def mask_packed_row(
     draw shared by all its segments (the reference's packed-sequence
     semantics, tokenizer_utils.py:282-325); padding rows get no label."""
     alpha_t, wgt = _polynomial_mask_ratio(mlm_cfg, rng)
-    masked, labels = smtp_mask_stacked(
-        sample.input_ids, mask_token_id, alpha_t, rng, mtp=tuple(mlm_cfg.mtp),
-        vocab_size=vocab_size,
-    )
     ids = sample.input_ids
+    masked, labels = smtp_mask_stacked(
+        ids if ids.ndim == 2 else ids[:, None], mask_token_id, alpha_t, rng,
+        mtp=tuple(mlm_cfg.mtp), vocab_size=vocab_size,
+    )
+    if ids.ndim == 1:  # a flat row, masked as one column (the JAX function takes [P, F] only)
+        masked, labels = masked[:, 0], labels[:, 0]
     pad = ids[..., 0] == PAD_ID if ids.ndim == 2 else ids == PAD_ID
     labels = np.where(pad[..., None] if labels.ndim == 2 else pad, LABEL_PAD_ID, labels)
     return TokenizedSample(

@@ -1,7 +1,9 @@
 """Rotary position embeddings (HF-Llama rotate_half convention).
 
 Counterpart of `graphgpt_tpu/models/rope.py`: theta 1e4, Resonance RoPE,
-the HF `rope_scaling` types and the reference's `rope_range` rescaling.
+the HF `rope_scaling` types, the reference's `rope_range` rescaling, and
+`rope_3d_cos_sin` (:172) and `step_pos_emb` (:198), which no model of
+either package calls yet.
 """
 
 from __future__ import annotations
@@ -132,3 +134,40 @@ def reset_position_ids(position_ids: torch.Tensor, rope_range: int):
     pos = position_ids.to(torch.float32)
     row_max = pos.amax(dim=-1, keepdim=True) + 1.0
     return pos * (float(rope_range) / row_max)
+
+
+def rope_3d_cos_sin(
+    position_ids_3d: torch.Tensor,  # [B, P, 3] discretised x, y, z coordinates
+    head_dim: int,
+    theta: float = 10000.0,
+    dtype: torch.dtype = torch.float32,
+):
+    """3D rotary embedding (reference RotaryEmbedding3D,
+    utils_graphgpt.py:465-550): exponents from -Dh/2 to Dh/2, so that the
+    frequencies span theta^(1/2)..theta^(-1/2), and the Dh/2 frequency slots
+    take the axes in turn (x, y, z, x, ...). (cos, sin), each [B, P, Dh],
+    the phases in float32 as the JAX package has them, their cos and sin in
+    float64 (see rope_cos_sin), rounded once."""
+    start = -(head_dim // 2)
+    exponent = np.arange(start, start + head_dim, 2, dtype=np.float64) / head_dim
+    freq = torch.as_tensor((1.0 / (theta**exponent)).astype(np.float32),
+                           device=position_ids_3d.device)
+    expand_rate = int(np.ceil((head_dim // 2) / 3.0))
+    b, p, _ = position_ids_3d.shape
+    pos = position_ids_3d.to(torch.float32)[:, :, None, :].expand(b, p, expand_rate, 3)
+    pos = pos.reshape(b, p, expand_rate * 3)[:, :, : head_dim // 2]
+    emb = torch.cat([pos * freq, pos * freq], dim=-1).double()
+    return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
+
+
+def step_pos_emb(dim: int, mpe: int) -> np.ndarray:
+    """The additive sinusoidal step-position table (reference
+    get_step_pos_emb, utils_graphgpt.py:553-571): integer periods 1..dim/2,
+    angular frequency 2 pi / period, columns (cos_0, sin_0, cos_1, ...);
+    [mpe, dim] float32."""
+    periods = np.arange(1, dim // 2 + 1, dtype=np.float64)
+    ang = np.arange(mpe, dtype=np.float64)[:, None] * (2.0 * np.pi / periods)[None, :]
+    out = np.empty((mpe, dim), dtype=np.float32)
+    out[:, 0::2] = np.cos(ang)
+    out[:, 1::2] = np.sin(ang)
+    return out

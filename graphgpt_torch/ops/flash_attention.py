@@ -345,10 +345,10 @@ def unrotate_tokens(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, dh: i
 def zero_padded_rows(do: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     """do with its padded rows (segment 0) taken as zero, as
     `_bwd_kernel_fused` (:748-753) and the CUDA kernels take it before delta
-    and any product: a non-finite value there reaches no output. The plain
-    routes of flash_bwd and flash_dq take it from here; the streamed (#7)
-    and band (#10) plain routes sum delta from the raw do, as the JAX
-    package's outside-kernel delta (:933-940) does."""
+    and any product: a non-finite value there reaches no output. Every plain
+    route (flash_bwd, flash_dq, flash_dq_stream, flash_bwd_band) takes it
+    from here before it sums delta, where the JAX package's outside-kernel
+    delta (`_flash_bwd` :933-940) sums the raw do."""
     return torch.where((seg > 0)[..., None], do, torch.zeros((), dtype=do.dtype, device=do.device))
 
 
@@ -648,8 +648,9 @@ def flash_dq_stream(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, dlse, causal
     kernels (the tile tables, then dq with delta summed for its own rows;
     counted as one call) for a CUDA tensor, flash_delta and
     flash_dq_stream_ref for a CPU tensor (or inside ops.reference_mode()).
-    dlse None means zeros. Any P."""
+    dlse None means zeros. Any P. Both take do as zero on padded rows."""
     if not use_kernel(qs, k, v, seg_q, seg_k, out, lse, do):
+        do = zero_padded_rows(do, seg_q)
         delta = flash_delta(do, out, dlse, dh)
         return flash_dq_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal,
                                    dh, bi_causal_split), delta
@@ -765,9 +766,11 @@ def flash_bwd_band(qs, k, v, seg_q, seg_k, out, lse, do, dlse, causal: bool, dh:
     package does (:933-940): the CUDA kernels (both band tables, the delta
     kernel, then dq, dk, dv; counted as one call; P <= 4096) for a CUDA
     tensor, flash_delta and the plain version for a CPU tensor (or inside
-    ops.reference_mode()). dlse None means zeros. `aux`, when given,
-    receives "delta" [B, H, P] and the key tiles' band table "table_k"."""
+    ops.reference_mode()). dlse None means zeros; both routes take do as
+    zero on padded rows. `aux`, when given, receives "delta" [B, H, P] and
+    the key tiles' band table "table_k"."""
     if not use_kernel(qs, k, v, seg_q, seg_k, out, lse, do):
+        do = zero_padded_rows(do, seg_q)
         delta = flash_delta(do, out, dlse, dh)
         if aux is not None:
             aux["delta"], aux["table_k"] = delta, band_limits(seg_k, seg_q)

@@ -5,8 +5,8 @@ Counterpart of `graphgpt_tpu/readers.py`: `NpzGraphStore` (:46-71),
 policies (`_special_molecule_idx` :112-152, `apply_split_policies`
 :155-199), the CEPDB/ZINC auxiliary corpora (:202-232),
 `_graph_level_reader` (:234-266) with its ten registrations (:269-285),
-`synthetic_mol` (:288), the edge-level reader (:314-371) with its four
-registrations, the ogbn-proteins species mask (:373), the node-level
+`synthetic_mol` (:288), `structure_er` (:293-311), the edge-level reader
+(:314-371) with its four registrations, the ogbn-proteins species mask (:373), the node-level
 reader (:394-439) with its four registrations, and `read_dataset`. The
 readers take no download; they read the on-disk npz contract
 (`graphgpt_tpu/readers.py:1-27`):
@@ -39,8 +39,9 @@ memory-mapped, not copied; a graph-level store pickles as its path and
 what was changed after it was read; and a big-graph dataset pickles as its
 reader's arguments and its epoch (`data/sampling.py`), its CSR memory-mapped
 from a cache file beside the store (`big_graph.csr.npz`, written at the
-first read where the directory is writable). `structure_er` (:293) waits
-for `GSTTokenizer`'s slice: asking for it raises. One repair: an
+first read where the directory is writable); `structure_er`'s dataset is a
+module-level class, where the JAX reader's is local to its function and
+does not pickle. One repair: an
 ogbl-wikikg2 store as `tools/convert_ogb.py` writes it has no node or edge
 table, which its config's columns need; the reader builds both
 (`_relation_tables`), where the JAX tokenizer raises a TypeError.
@@ -54,7 +55,7 @@ import zipfile
 
 import numpy as np
 
-from .data.datasets import GraphsMapDataset, SyntheticMolDataset
+from .data.datasets import GraphsMapDataset, SyntheticMolDataset, erdos_renyi_graph
 from .data.graph import Graph, GraphBatchStore
 from .data.partition import EnsembleDataset, RandomEdgesDataset
 from .data.sampling import EgoEdgeDataset, EgoNodeDataset, build_csr_directed
@@ -406,11 +407,27 @@ def _read_synthetic(cfg, **kw):
     return SyntheticMolDataset(50_000, seed=cfg.training.seed)
 
 
+class StructureERDataset:
+    """Attribute-free Erdős–Rényi graphs (reference StructureDataset,
+    src/utils/dataset_utils.py:1425): graph i, of 8-31 nodes at an edge
+    probability in [0.1, 0.4), is a function of (seed, i) alone."""
+
+    def __init__(self, n: int, seed: int):
+        self.n, self.seed = n, seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        rng = np.random.default_rng((self.seed, i))
+        g = erdos_renyi_graph(rng, int(rng.integers(8, 32)), float(rng.uniform(0.1, 0.4)))
+        g.idx = i
+        return g
+
+
 @_readers("structure_er")
-def _read_structure_er(cfg, **kw):
-    raise NotImplementedError(
-        "dataset 'structure_er': its structure tasks and GSTTokenizer wait for a later slice "
-        "(ROADMAP.md queue 1 item 5)")
+def _read_structure_er(cfg, size: int = 20000, **kw):
+    return StructureERDataset(size, cfg.training.seed)
 
 
 def _big_path(cfg, name: str) -> str:

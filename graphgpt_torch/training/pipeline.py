@@ -13,16 +13,24 @@ block-aligned packing sets for training, is off there, as the JAX package's
 eval config has it. The mesh, several processes, the partitioned corpus and
 the TensorBoard writer wait for later slices. The dataset is a config's
 npz store through `readers.read_dataset` (PCQM4M-v2, ogbg-molpcba,
-reddit_threads, spice-circuit, the ogbl/ogbn big graphs, ...) or
-`synthetic_mol`; a big graph's dataset is its reader's train split, as in
-the JAX package. Four differences from the JAX package, all repairs: a
-save point's eval keeps the last partial batch (the JAX loader drops it,
-so a valid set smaller than one packed batch gives no valid loss at all),
-the tokenizer takes the config's `pretrain_mlm` schedule,
-`stack_method: long` selects `StackedGSTTokenizerLong` (the JAX
-`build_tokenizer` builds the short tokenizer, which asserts on it), and
-the generation sweep's batch keeps its logits under the loss's
-`LOGITS_BUDGET` (a large vocab).
+reddit_threads, spice-circuit, the ogbl/ogbn big graphs, structure_er,
+...) or `synthetic_mol`; a big graph's dataset is its reader's train split,
+as in the JAX package. The tokenizer is the config's: the flat
+`GSTTokenizer` or the stacked one, for every pretrain task; `pretrain-cl`
+turns on the contrastive head and trains on adjacent view pairs,
+`pretrain-smtp` masks in the model, the coordinate tasks train
+`GraphGPTPosPred`, and the dataset's percentile boundary tables go into
+every batch. Differences from the JAX package, all repairs: a save point's
+eval keeps the last partial batch (the JAX loader drops it, so a valid set
+smaller than one packed batch gives no valid loss at all) and, under
+pretrain-cl, holds each view pair together (the JAX eval pairs unrelated
+samples); the eval of in-model SMTP draws from a generator seeded 0 (the
+JAX eval raises there); the tokenizer takes the config's `pretrain_mlm`
+schedule; `stack_method: long` selects `StackedGSTTokenizerLong` (the JAX
+`build_tokenizer` builds the short tokenizer, which asserts on it); the
+generation sweep's batch keeps its logits under the loss's
+`LOGITS_BUDGET` (a large vocab); and flat rows take the masking after
+packing and the generation sweep (the JAX functions take [P, F] rows only).
 
     python -m graphgpt_torch.training.pipeline --smoke [--device cpu]
     python -m graphgpt_torch.training.pipeline --config cfg.yaml [key.sub=value ...]
@@ -70,9 +78,12 @@ def build_dataset(cfg: Config):
 
 
 def tokenizer_class(tok_cfg):
-    """The stacked tokenizer of the config's `stack_method`."""
-    if tok_cfg.tokenizer_class != "StackedGSTTokenizer":
-        raise NotImplementedError(f"tokenizer {tok_cfg.tokenizer_class!r} waits for a later slice")
+    """The flat `GSTTokenizer` where the config names it (JAX :54-62), else
+    the stacked tokenizer of its `stack_method`."""
+    if tok_cfg.tokenizer_class == "GSTTokenizer":
+        from ..data.gst_tokenizer import GSTTokenizer
+
+        return GSTTokenizer
     return StackedGSTTokenizerLong if tok_cfg.stack_method == "long" else StackedGSTTokenizer
 
 
@@ -156,14 +167,23 @@ class PretrainPipeline:
         m.mask_token_id = self.tokenizer.mask_id
         m.eos_token_id = self.tokenizer.eos_id
         m.bos_token_id = self.tokenizer.bos_id
+        if tcfg.task_type == "pretrain-cl":
+            m.use_discriminative = True
+        if tcfg.task_type == "pretrain-smtp":
+            m.smtp_inside = True
         if tcfg.pack_block and tcfg.pack_tokens > 0:
             # no segment crosses a pack_block boundary: training attention
             # may run at P = pack_block (ops/attention.py attn_block)
             m.attn_block = tcfg.pack_block
         m.finalize()
+        if tcfg.task_type == "pretrain-cl" and tcfg.batch_size % 2:
+            raise ValueError(f"pretrain-cl trains on view pairs: batch_size {tcfg.batch_size} "
+                             "must be even")
         self.train_idx, self.valid_idx = train_valid_split(
             len(self.dataset), tcfg.valid_percent, tcfg.seed)
         # the step counts from the token budget
+        # CL needs adjacent view pairs in a batch; smtp and coord gather
+        # their masks by raw node id (the reference asserts mpe is None)
         pack = tcfg.pack_tokens > 0 and tcfg.task_type not in (
             "pretrain-cl", "pretrain-smtp", "pretrain-coord")
         if pack:
@@ -203,6 +223,16 @@ class PretrainPipeline:
         else:
             from ..models.heads import GraphGPTPretrain as model_cls
         model = model_cls(m, device=self.device, seed=tcfg.seed)
+        # the dataset's percentile boundary tables (pos_percentile_bounds),
+        # put on the device once and merged into every batch as
+        # pos_boundaries_{bins}, where the position model's discretiser looks
+        # for them (JAX :250-263)
+        dict_bounds = getattr(self.dataset, "dict_bounds", None) or {}
+        self._const_batch = {
+            f"pos_boundaries_{nb}": torch.as_tensor(np.asarray(dict_bounds[nb], np.float32),
+                                                   device=self.device)
+            for nb in sorted({m.pos_num_bins, m.pos_num_bins_line, m.pos_num_bins_cube})
+            if nb in dict_bounds}
         self.schedule = opt_lib.make_schedule(tcfg.optimizer, self.total_steps, self.warmup_steps)
         self.tx = opt_lib.make_optimizer(tcfg.optimizer, self.total_steps, self.warmup_steps,
                                          self.schedule, num_layers=m.num_hidden_layers)
@@ -257,13 +287,13 @@ class PretrainPipeline:
         collated into pinned memory and copied with non_blocking on a side
         stream, so that the copy of batch k+1 overlaps step k."""
         if self._copy_stream is None:
-            return to_torch(data, self.device), None
+            return {**to_torch(data, self.device), **self._const_batch}, None
         with torch.cuda.stream(self._copy_stream):
             out = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(
                 self.device, non_blocking=True) for k, v in data.items()}
             done = torch.cuda.Event()
             done.record(self._copy_stream)
-        return out, done
+        return {**out, **self._const_batch}, done
 
     def _device_prefetch(self, it: Iterator[tuple], depth: int = 2) -> Iterator[tuple]:
         """(device batch, token count) from `it`, `depth` ahead, by a
@@ -350,17 +380,21 @@ class PretrainPipeline:
 
     # ------------------------------------------------------------------
     def _eval_batches(self, vidx: np.ndarray):
-        """Valid batches covering every index once (the last one partial)."""
+        """Valid batches covering every index once (the last one partial);
+        under pretrain-cl two views of each, adjacent, a pair never split
+        across batches."""
         tcfg = self.cfg.training
-        yield from self.loader.epoch_batches(vidx, epoch=0, drop_last=False,
-                                             batch_size=tcfg.batch_size_eval or tcfg.batch_size)
+        bs = tcfg.batch_size_eval or tcfg.batch_size
+        if tcfg.task_type == "pretrain-cl":
+            vidx, bs = np.repeat(vidx, 2), max(2, bs - bs % 2)
+        yield from self.loader.epoch_batches(vidx, epoch=0, drop_last=False, batch_size=bs)
 
     def _eval_losses(self, vidx: np.ndarray, ema: bool = False):
         """(losses, EMA losses) of the valid batches of `vidx`."""
         losses, ema_losses = [], []
         with self._whole_rows():
             for batch in self._eval_batches(vidx):
-                b = to_torch(batch.data, self.device)
+                b = {**to_torch(batch.data, self.device), **self._const_batch}
                 losses.append(float(self.eval_step(self.state, b)["loss"]))
                 if ema and self.eval_step_ema is not None:
                     ema_losses.append(float(self.eval_step_ema(self.state, b)["loss"]))
@@ -409,7 +443,7 @@ class PretrainPipeline:
         with self._whole_rows():
             for batch in self.loader.epoch_batches(np.asarray(indices), epoch=0,
                                                    drop_last=False):
-                b = to_torch(batch.data, self.device)
+                b = {**to_torch(batch.data, self.device), **self._const_batch}
                 hidden = self.eval_step(self.state, b).get("hidden_states")
                 if hidden is not None:
                     pooled = last_token_pool(hidden, b["segment_ids"])
@@ -441,7 +475,7 @@ class PretrainPipeline:
         p = tcfg.max_length
         # at most LOGITS_BUDGET logits [b, P * F, V] a batch (the sampler's
         # softmax over a 33k vocab asked for 49 GiB at 32 rows of 1024 x 12)
-        b = max(1, min(bs, len(idx), LOGITS_BUDGET // (p * clean_tok.stacked_feat
+        b = max(1, min(bs, len(idx), LOGITS_BUDGET // (p * self.cfg.model.stacked_feat
                                                          * tok.vocab_size)))
         model = self.state.model
         correct = np.zeros(n_bands, np.int64)
@@ -451,7 +485,10 @@ class PretrainPipeline:
             for start in range(0, len(idx) - b + 1, b):
                 samples = [clean_tok(self.dataset[int(i)], rng_np) for i in idx[start : start + b]]
                 batch = collate(samples, mpe=p, bucket=8, fixed_length=p)
-                ids = np.asarray(batch["input_ids"])  # [B, P, F]
+                ids = np.asarray(batch["input_ids"])  # [B, P, F], or [B, P] flat
+                flat = ids.ndim == 2
+                if flat:  # one column for the sweep (the JAX sweep takes [B, P, F] only)
+                    ids = ids[..., None]
                 f = ids.shape[-1]
                 pos = torch.as_tensor(batch["position_ids"], device=self.device)
                 seg = torch.as_tensor(batch["segment_ids"], device=self.device)
@@ -459,7 +496,7 @@ class PretrainPipeline:
 
                 def logits_fn(x_flat, position_ids, segment_ids):
                     rows = x_flat.shape[0]
-                    return model.logits({"input_ids": x_flat.view(rows, p, f),
+                    return model.logits({"input_ids": x_flat.view(rows, p, *(() if flat else (f,))),
                                          "position_ids": position_ids,
                                          "segment_ids": segment_ids}).view(rows, p * f, -1)
 

@@ -87,14 +87,21 @@ _EVAL_KEYS = ("loss", "gen_loss", "task_loss", "task_logits", "task_hidden_state
 def make_eval_step(use_ema: bool = False):
     """eval_fn(state, batch) -> those of "loss", "gen_loss", "task_loss",
     "task_logits", "task_hidden_states", "hidden_states" the model returns,
-    run with the EMA copy in place of the parameters when asked."""
+    run with the EMA copy in place of the parameters when asked. The JAX
+    eval hands `pretrain_forward` no key, so that its in-model SMTP raises
+    (an unbound name); here it draws from the generator seeded 0 too."""
 
     @torch.no_grad()
     def eval_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
+        # a forward that draws (in-model SMTP, the position and denoise
+        # models) draws from a generator seeded 0, as the JAX package's
+        # position and denoise forwards fall back to PRNGKey(0)
+        gen = torch.Generator(device=state.model.device).manual_seed(0)
         if use_ema and state.ema_params is not None:
-            out = torch.func.functional_call(state.model, state.ema_params, (batch,))
+            out = torch.func.functional_call(state.model, state.ema_params, (batch,),
+                                             {"generator": gen})
         else:
-            out = state.model(batch)
+            out = state.model(batch, generator=gen)
         return {k: out[k] for k in _EVAL_KEYS if k in out}
 
     return eval_fn

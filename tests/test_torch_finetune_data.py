@@ -130,12 +130,23 @@ def test_tokenizer_task_rows_match_jax(task):
 @pytest.mark.parametrize("task", ["pretrain-cl", "pretrain-smtp", "pretrain-coord",
                                   "pretrain-mlm-coord", "pretrain-ltp", "pretrain-euler"])
 def test_tokenizer_refuses_the_pretrain_tasks(task):
-    """The pretrain rows of pretrain-mlm and pretrain are ported
-    (tests/test_torch_pretrain_data.py); the other pretrain tasks' rows
-    still raise."""
-    cfg, _, vm = _vocab_map()
-    with pytest.raises(NotImplementedError, match="pretrain"):
-        ttok.StackedGSTTokenizer(cfg, vm, task_type=task)
+    """The stacked tokenizer refuses a pretrain task exactly where the JAX
+    one does: the flat tokenizer's pretrain-ltp and pretrain-euler raise in
+    both when called; the other tasks' rows are JAX's
+    (tests/test_torch_pretrain_tasks.py holds them in full)."""
+    cfg, jcfg, vm = _vocab_map()
+    port = ttok.StackedGSTTokenizer(cfg, vm, task_type=task)
+    ref = jtok.StackedGSTTokenizer(jcfg, vm, task_type=task)
+    g = _task_graph("graph", 1)
+    if task in ("pretrain-ltp", "pretrain-euler"):
+        for tok in (port, ref):
+            with pytest.raises(NotImplementedError, match="pretrain"):
+                tok(g, np.random.default_rng(0))
+        return
+    got, want = port(g, np.random.default_rng(0)), ref(g, np.random.default_rng(0))
+    for key in ("input_ids", "labels", "position_ids"):
+        np.testing.assert_array_equal(getattr(got, key), getattr(want, key), err_msg=key)
+    assert sorted(got.extras) == sorted(want.extras)
 
 
 def _loaders(bs=8, **kw):

@@ -371,3 +371,36 @@ def test_skip_mode_matches_jax_skip_mode_through_the_stream_kernels(monkeypatch)
     _close(got.detach().numpy(), want, "float32", "out")
     for name, g, w in zip(("dq", "dk", "dv", "dcos", "dsin"), leaves, want_grads):
         _close(g.grad.numpy(), w, "float32", name)
+
+
+@pytest.mark.parametrize("route", ["stream", "band"])
+def test_plain_routes_ignore_non_finite_do_in_padded_rows(route):
+    """The plain routes of #7 (flash_dq_stream, its delta and then #8's
+    dk, dv) and #10 (flash_bwd_band) take do as zero on padded rows before
+    they sum delta, as their kernels do: inf and NaN written there change no
+    output bit. The JAX package's outside-kernel delta sums the raw do."""
+    b, p, h = 2, 256, 2
+    *arrays, seg, _, _ = _inputs(b, p, h, 9)
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in arrays)
+    seg = torch.from_numpy(seg)
+    pad = (seg == 0)[..., None].expand_as(do)
+    clean = do.masked_fill(pad, 0.0)
+    noisy = do.masked_fill(pad, float("nan"))
+    noisy[-1].masked_fill_(pad[-1], float("inf"))
+    if route == "stream":
+        out, lse = tfa.flash_fwd_stream(q, k, v, seg, seg, None, None, True, DH)
+    else:
+        out, lse = tfa.flash_fwd_band(q, k, v, seg, seg, True, DH)
+    runs = []
+    for d in (clean, noisy):
+        if route == "stream":
+            dq, delta = tfa.flash_dq_stream(q, k, v, seg, seg, None, None, out, lse, d, None,
+                                            True, DH)
+            dk, dv = tfa.flash_dkv_stream(q, k, v, seg, seg, None, None, lse, delta, d, True, DH)
+            runs.append((dq, delta, dk, dv))
+        else:
+            aux = {}
+            runs.append((*tfa.flash_bwd_band(q, k, v, seg, seg, out, lse, d, None, True, DH,
+                                             aux=aux), aux["delta"]))
+    for a, n in zip(*runs):
+        assert torch.equal(a, n) and bool(torch.isfinite(n.float()).all())

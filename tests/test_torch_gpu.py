@@ -11,6 +11,8 @@ Tolerances are in bf16, the kernels' working type: the kernels and the plain
 versions round at the same points but sum in another order.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1361,3 +1363,105 @@ def test_a_head_width_32_model_steps_on_the_kernels(cuda_device):
     assert abs(loss.item() - ref.item()) < 5e-3
     for n, q in model.named_parameters():
         assert _rel(grads[n], q.grad) < 8e-2, n
+
+
+def _task_model_step(model, batch, call=dict):
+    """[(loss, gradients, launches of #1 and #3)] of one training forward
+    and backward on the kernels, then on the plain versions; `call()` gives
+    the same draws to both."""
+    runs = []
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        before = (tfa.flash_fwd.launches, tfa.flash_bwd.launches)
+        with ops.reference_mode() if plain else contextlib.nullcontext():
+            loss = model(batch, train=True, **call())["loss"]
+            loss.backward()
+        torch.cuda.synchronize()
+        runs.append((loss.item(), {n: q.grad.clone() for n, q in model.named_parameters()
+                                   if q.grad is not None},
+                     (tfa.flash_fwd.launches - before[0], tfa.flash_bwd.launches - before[1])))
+    return runs
+
+
+@pytest.mark.gpu
+def test_a_gst_batch_trains_on_the_causal_kernels(cuda_device, monkeypatch):
+    """Flat GSTTokenizer rows packed into 4 x 512 (each segment's cyclic
+    position ids kept) through a causal GraphGPTPretrain (hidden 128, 2
+    layers, heads of 64, next-token labels): the forward and backward
+    launch the causal #1 and #3 once a layer, and the loss and every
+    gradient stay near the plain run's."""
+    from graphgpt_torch.config import TokenizationConfig
+    from graphgpt_torch.data import vocab
+    from graphgpt_torch.data.collator import collate, pack_samples
+    from graphgpt_torch.data.datasets import MOL_EDGE_CARD, MOL_NODE_CARD, SyntheticMolDataset
+    from graphgpt_torch.data.gst_tokenizer import GSTTokenizer
+
+    tc = TokenizationConfig()
+    tc.semantics.node.discrete, tc.semantics.node.dim = "node_attr", 9
+    tc.semantics.edge.discrete, tc.semantics.edge.dim = "edge_attr", 3
+    vm = vocab.vocab_map_from_list(vocab.build_vocab(
+        tc, [np.arange(c) for c in MOL_NODE_CARD], [np.arange(c) for c in MOL_EDGE_CARD]))
+    tok = GSTTokenizer(tc, vm, task_type="pretrain")
+    ds = SyntheticMolDataset(64, seed=3)
+    rows = list(pack_samples([tok(ds[i], np.random.default_rng(i)) for i in range(24)], 512))
+    batch = to_torch(dict(collate(rows[:4], mpe=512, fixed_length=512).data), cuda_device)
+    assert batch["input_ids"].dim() == 2
+    causal = []
+    real_fwd = tfa.flash_fwd
+
+    def spy(*a, **kw):
+        causal.append(a[6])
+        return real_fwd(*a, **kw)
+
+    spy.launches = 0
+    cfg = ModelConfig(vocab_size=max(vm.values()) + 1, hidden_size=128, num_hidden_layers=2,
+                      stacked_feat=1, next_n_token=1, mask_token_id=tok.mask_id,
+                      task_type="pretrain", causal_attention=True,
+                      dtype="bfloat16").finalize()
+    model = GraphGPTPretrain(cfg, device=cuda_device, seed=0)
+    (loss, grads, launches), (ref, rgrads, _) = _task_model_step(model, batch)
+    assert launches == (2, 2)
+    assert abs(loss - ref) < 5e-3
+    for n in rgrads:
+        assert _rel(grads[n], rgrads[n]) < 8e-2, n
+    monkeypatch.setattr(tfa, "flash_fwd", spy)
+    with torch.no_grad():
+        model(batch)
+    assert causal == [True, True]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("task", ["pretrain-coord", "pretrain-cl", "pretrain-smtp"])
+def test_the_pretrain_task_batches_train_on_the_kernels(cuda_device, task):
+    """A batch of the stacked tokenizer's rows of each task (the molecules'
+    coordinates, rotated; two adjacent views a graph for pretrain-cl)
+    through GraphGPTPosPred or GraphGPTPretrain (hidden 128, 2 layers):
+    #1 and #3 once a layer, and the loss and every gradient near the plain
+    run's on the same draws."""
+    from graphgpt_torch.data.collator import collate
+    from graphgpt_torch.data.datasets import SyntheticMolDataset
+    from graphgpt_torch.models.pos_pretrain import GraphGPTPosPred
+    from graphgpt_torch.synthetic import mol3d_tokenizer
+
+    base = mol3d_tokenizer()
+    tok = type(base)(base.cfg, base.vocab_map, task_type=task)
+    ds = SyntheticMolDataset(64, seed=5, with_pos=True)
+    idx = np.repeat(np.arange(8), 2) if task == "pretrain-cl" else np.arange(16)
+    samples = [tok(ds[int(i)], np.random.default_rng(k)) for k, i in enumerate(idx)]
+    batch = to_torch(dict(collate(samples, mpe=128).data), cuda_device)
+    cfg = ModelConfig(vocab_size=tok.vocab_size, hidden_size=128, num_hidden_layers=2,
+                      stacked_feat=tok.stacked_feat, next_n_token=tok.stacked_feat,
+                      mask_token_id=tok.mask_id, task_type=task, dtype="bfloat16",
+                      pos_num_bins=64, use_discriminative=task == "pretrain-cl",
+                      smtp_inside=task == "pretrain-smtp").finalize()
+    cls = GraphGPTPosPred if "coord" in task else GraphGPTPretrain
+    model = cls(cfg, device=cuda_device, seed=0)
+
+    def call():
+        return {"generator": torch.Generator(device=cuda_device).manual_seed(3)}
+
+    (loss, grads, launches), (ref, rgrads, _) = _task_model_step(model, batch, call)
+    assert launches == (2, 2) and np.isfinite(loss)
+    assert abs(loss - ref) < 5e-3
+    for n in rgrads:
+        assert _rel(grads[n], rgrads[n]) < 8e-2, n

@@ -6,9 +6,10 @@ depth (inside functions too). A subprocess that blocks `jax` in
 `sys.modules` imports every module of the port and runs a tiny CPU forward,
 a few sampler steps, one training step, a one-epoch fine-tune run and the
 two 3D-molecule models' training forwards, reads a graph-level store
-through the readers and walks one of its graphs in C++, and reads a big
+through the readers and walks one of its graphs in C++, reads a big
 graph through the ogbl-ppa reader, samples an ego subgraph in C++ and
-tokenizes it in the long stacking.
+tokenizes it in the long stacking, and tokenizes a structure_er graph flat
+with the nx streams.
 """
 
 import ast
@@ -55,7 +56,8 @@ def test_the_scan_sees_every_module():
                  "graphgpt_torch/utils/inspection.py", "graphgpt_torch/readers.py",
                  "graphgpt_torch/native/euler_native.py", "graphgpt_torch/native/__init__.py",
                  "graphgpt_torch/data/partition.py", "graphgpt_torch/data/sampling.py",
-                 "graphgpt_torch/utils/convert.py", "chip_smoke.py"):
+                 "graphgpt_torch/utils/convert.py", "graphgpt_torch/data/gst_tokenizer.py",
+                 "graphgpt_torch/data/structure_tasks.py", "chip_smoke.py"):
         assert must in names
     assert sorted(p.name for p in (ROOT / "graphgpt_torch" / "native").iterdir()
                   if p.suffix in (".py", ".cpp")) == ["__init__.py", "euler.cpp", "euler_native.py"]
@@ -181,6 +183,14 @@ vm = vocab.vocab_map_from_list(vocab.build_vocab(
     cfg.tokenization, [np.unique(big.big.node_attr[:, c]) for c in range(2)], []))
 tok = StackedGSTTokenizerLong(cfg.tokenization, vm, task_type="edge")
 assert tok(big[0], np.random.default_rng(0)).input_ids.shape[1] == 4
+from graphgpt_torch.data.gst_tokenizer import GSTTokenizer
+cfg = Config()
+cfg.tokenization.structure.nx_funcs = ("degree", "triangles", "shortest_path",
+                                       "shortest_path_length")
+er = readers.read_dataset("structure_er", cfg, size=4)
+vm = vocab.vocab_map_from_list(vocab.build_vocab(cfg.tokenization))
+s = GSTTokenizer(cfg.tokenization, vm, task_type="pretrain-euler")(er[0], np.random.default_rng(0))
+assert s.input_ids.ndim == 1 and vm["structure_0"] in s.input_ids.tolist()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "graphgpt_tpu")
              and sys.modules[m] is not None)
 assert not bad, bad

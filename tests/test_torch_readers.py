@@ -367,17 +367,18 @@ def test_index_samplers_equal_jax(tmp_path):
 
 
 def test_missing_stores_and_big_graph_names_raise(tmp_path):
-    """A missing store raises, graph-level or big-graph; structure_er waits
-    for GSTTokenizer's slice; the eight OGB edge- and node-level names read
-    their big_graph.npz (tests/test_torch_big_graph.py holds them to JAX)."""
+    """A missing store raises, graph-level or big-graph; structure_er needs
+    no store (its graphs are seeded: tests/test_torch_gst_tokenizer.py
+    holds them to JAX); the eight OGB edge- and node-level names read their
+    big_graph.npz (tests/test_torch_big_graph.py holds them to JAX)."""
     from test_torch_big_graph import EDGE_LEVEL, NODE_LEVEL, write_big_store
 
     _, tcfg = cfg_pair(tmp_path, "pcqm4m-v2")
     with pytest.raises(FileNotFoundError, match="graphs.npz"):
         treaders.read_dataset("pcqm4m-v2", tcfg)
     tcfg.tokenization.dataset = "structure_er"
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tpipeline.build_dataset(tcfg)
+    ds = tpipeline.build_dataset(tcfg)
+    assert len(ds) == 20000 and ds[0].num_nodes >= 8 and ds[0].node_attr is None
     for name in EDGE_LEVEL + NODE_LEVEL:
         tcfg.tokenization.dataset = name
         with pytest.raises(FileNotFoundError, match="big_graph.npz"):
