@@ -156,6 +156,39 @@
    streams under pretrain-euler; (c) pcqm4m_v2_supervised on flat rows
    through FinetunePipeline, warm-started from (a), four steps and the
    valid MAE on 1,024 graphs.
+7f. Phase L, float32 on the card: the fp32 forms of #1, #2, #3 and #13
+   (flash_fwd_f32.cu, norm_mlp_f32.cu, flash_bwd_f32.cu, rmsnorm_bwd.cu's
+   fp32 instances), to which the wrappers hand fp32 tensors. (a)
+   configs/toy_pretrain.yaml as shipped (128 x 2, heads of 64, fp32,
+   pretrain-mlm on synthetic molecules, 8 x 128 packed) through
+   PretrainPipeline: each fp32 form at its first batch's shapes, its first
+   step against the plain fp32 run (loss within F32_LOSS_REL, every
+   gradient within F32_GRAD_REL), then its 50 steps with the valid and
+   generation save point, the launches of each step and eval forward, the
+   logged loss falling. (b) GraphGPT-base at model.dtype=float32: each fp32
+   form at B 8 x P 1024 (N 8,192), the first step against the plain fp32
+   run, two counted steps. Each form's check (f32_check): out and lse, dq,
+   dk and dv, the MLP output, dx and dw each within F32_REL of the plain
+   version in fp32 (TF32 off), the same plain version with TF32 allowed
+   beside it (it must lie above F32_REL; #13 has no product, so its control
+   takes x and g rounded to TF32), a relaunch bit for bit, padded rows
+   exact; timed beside its bound (fp32 bytes at 3.35 TB/s, operations at
+   165 TFLOP/s, 3xTF32), the plain version and the library call (SDPA in
+   fp32; F.rms_norm and fp32 matmuls; F.rms_norm's backward).
+7g. Phase M, the six graph-level configs the card had not run:
+   ogbg_molpcba, reddit and spice_circuit, each _pretrain.yaml then
+   _supervised.yaml as shipped (widths, batch, max_length, packing, remat,
+   dropout), on a 40,000-graph store of its dataset's schema
+   (write_dataset_stores: molpcba's 9 node and 3 edge columns and 128 labels
+   with NaNs in OGB's split proportions; reddit_threads without columns, 2
+   classes; spice-circuit one node column, 14 classes; the reader's random
+   split for the last two). The pretrain run through pretrain_run (two
+   steps, its first on 16 rows against the plain bf16 run and the fp32
+   rule, the save point's valid loss), the supervised run through
+   finetune_run, warm-started from that run's checkpoint by pretrain_cpt
+   (two steps, the same rule, the eval metrics on 1,024 valid and test
+   graphs); every launch count against finetune_want (molpcba's supervised
+   layers take #11).
 8. Denoise phase: a fresh GraphGPT-base denoising double-heads model
    (configs/pcqm4m_v2_supervised.yaml's setup plus bi_causal_split 16, the
    binary-energy decoding) on a 256 x 88 mol3d batch: every kernel of its
@@ -223,7 +256,7 @@
 
 Any failed check raises, so the script exits non-zero. The launch counts
 are set to 0 just before each main path (eval + generation; training;
-fine-tuning; graph-level fine-tuning; phases A-K; denoising;
+fine-tuning; graph-level fine-tuning; phases A-M; denoising;
 position pretraining; long-context pretraining;
 training and long-context pretraining under both knobs) and read just
 after it; launches made to compare a kernel with its plain
@@ -461,18 +494,17 @@ def check_mlp(name, tag, out, ref):
     return err
 
 
-def flash_tensors(seg, h: int, dh: int, seed: int = 0):
-    """(qs, k, v, do), each [B, P, H*Dh] bf16 at 0.5 normal, drawn on seg's
-    device from `seed`; q pre-scaled by Dh**-0.5 as the dispatcher hands it
-    over."""
+def flash_tensors(seg, h: int, dh: int, seed: int = 0, dtype=torch.bfloat16):
+    """(qs, k, v, do), each [B, P, H*Dh] in `dtype` (bf16 by default) at 0.5
+    normal, drawn on seg's device from `seed`; q pre-scaled by Dh**-0.5 as
+    the dispatcher hands it over."""
     b, p = seg.shape
     gen = torch.Generator(device=seg.device).manual_seed(seed)
 
     def randn():
-        return (torch.randn(b, p, h * dh, generator=gen, device=seg.device) * 0.5).to(
-            torch.bfloat16)
+        return (torch.randn(b, p, h * dh, generator=gen, device=seg.device) * 0.5).to(dtype)
 
-    qs = (randn() * torch.tensor(dh**-0.5, dtype=torch.bfloat16)).contiguous()
+    qs = (randn() * torch.tensor(dh**-0.5, dtype=dtype, device=seg.device)).contiguous()
     k, v, do = randn(), randn(), randn()
     return qs, k, v, do
 
@@ -483,19 +515,21 @@ def flash_tensors(seg, h: int, dh: int, seed: int = 0):
 _FLASH_WORK = {"fwd": (2, 4, 1), "bwd": (5, 8, 1), "dq": (3, 6, 2), "dkv": (4, 6, 2)}
 
 
-def flash_work(fa, seg, causal: bool, h: int, dh: int, kind: str, bi: int = 0):
+def flash_work(fa, seg, causal: bool, h: int, dh: int, kind: str, bi: int = 0, elem: int = 2):
     """(bytes, operations) of flash_fwd ("fwd"), flash_bwd ("bwd"),
     flash_dq ("dq") or flash_dkv ("dkv") on these inputs. The products are
     q.k and p.v forward; S, dP, dv, dq, dk fused; S, dP, dq for dq; S, dP,
     dv, dk for dkv, each over the visible pairs of this mask only. The bytes
-    are each bf16 tensor read or written once (q, k, v, out forward; q, k, v,
-    do, out and dq, dk, dv fused; q, k, v, do, out and dq for dq, which
-    computes delta too; q, k, v, do and dk, dv for dkv), the segment ids,
-    cos, sin and the fp32 rows (lse; lse and delta)."""
+    are each token-major tensor read or written once, `elem` bytes an
+    element (2 in bf16, 4 in fp32; q, k, v, out forward; q, k, v, do, out
+    and dq, dk, dv fused; q, k, v, do, out and dq for dq, which computes
+    delta too; q, k, v, do and dk, dv for dkv), the segment ids, cos, sin
+    and the fp32 rows (lse; lse and delta)."""
     b, p = seg.shape
     products, tensors, rows = _FLASH_WORK[kind]
     pairs = int(fa._valid_mask(seg, causal, bi).sum().item())
-    nbytes = tensors * b * p * h * dh * 2 + b * p * 4 + 2 * b * p * dh * 2 + rows * b * h * p * 4
+    nbytes = (tensors * b * p * h * dh * elem + b * p * 4 + 2 * b * p * dh * elem
+              + rows * b * h * p * 4)
     return nbytes, 2.0 * products * dh * h * pairs
 
 
@@ -2987,15 +3021,16 @@ def rows_of(batch, n: int):
 
 
 def pretrain_run(tag, dev, counters, ops, cfg, call=dict, fp32_rows: int = 16, before=None,
-                 vocab_from=None, tables: bool = False):
+                 vocab_from=None, tables: bool = False, want=pretrain_want):
     """One pretraining run of phases I-K through PretrainPipeline: setup
     (the vocab copied from `vocab_from`'s run on the same store where
     given), the first batch of epoch 0 (the contrastive view pairs
     adjacent), `before(pipe, batch)` (kernel checks, host rates), the first
     step on fp32_rows rows against the plain bf16 run and the fp32 rule
     (`call()` gives the model call's generator: the same draws on every
-    run), TASK_STEPS counted steps and the save point's eval forwards
-    against pretrain_want, finite losses (log.csv), a step on the batch on
+    run), the config's steps counted and the save point's eval forwards
+    against `want` (pretrain_want; finetune_want for a config with pairs or
+    no remat), finite losses (log.csv), a step on the batch on
     the card, trained tokens/s and graphs/s, peak memory. `tables`: the
     run's pos_boundaries tables must reach every step's batch. Returns
     (its numbers, the launches of the counted run)."""
@@ -3034,7 +3069,8 @@ def pretrain_run(tag, dev, counters, ops, cfg, call=dict, fp32_rows: int = 16, b
     extra = before(pipe, batch) if before is not None else {}
     grad = step_vs_fp32(model, rows_of(batch, fp32_rows), ops, tag, call=call)
     torch.cuda.empty_cache()
-    want, want_eval = pretrain_want(m, counters)
+    want, want_eval = want(m, counters)
+    steps = t.schedule.total_num_steps
     seen = []
     step_fn = pipe.train_step
 
@@ -3052,8 +3088,8 @@ def pretrain_run(tag, dev, counters, ops, cfg, call=dict, fp32_rows: int = 16, b
     run_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2**20
-    check_logs(tag, train_log, eval_log, want, want_eval, TASK_STEPS)
-    if tables and seen != [consts] * TASK_STEPS:
+    check_logs(tag, train_log, eval_log, want, want_eval, steps)
+    if tables and seen != [consts] * steps:
         fail(f"{tag}: the steps' batches carried the tables {seen}, not {consts} each")
     rows = csv_rows(os.path.join(out_dir, "log.csv"))
     losses = [float(r["loss"]) for r in rows]
@@ -3071,11 +3107,11 @@ def pretrain_run(tag, dev, counters, ops, cfg, call=dict, fp32_rows: int = 16, b
           f"{tokens / ms * 1e3:.0f} trained tokens/s, {graphs / ms * 1e3:.0f} graphs/s; the run "
           f"{run_s:.1f} s; max_memory_allocated {peak:.0f} MiB; the run's phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    if len(losses) != TASK_STEPS or not all(np.isfinite(losses + sum(parts.values(), []))) or (
+    if len(losses) != steps or not all(np.isfinite(losses + sum(parts.values(), []))) or (
             not np.isfinite(valid)):
-        fail(f"{tag}: expected {TASK_STEPS} finite losses and a finite valid loss: {losses} "
+        fail(f"{tag}: expected {steps} finite losses and a finite valid loss: {losses} "
              f"{parts} {valid}")
-    if t.task_type == "pretrain-cl" and len(parts["dis_loss"]) != TASK_STEPS:
+    if t.task_type == "pretrain-cl" and len(parts["dis_loss"]) != steps:
         fail(f"{tag}: no contrastive loss in log.csv")
     res = dict(losses=losses, valid_loss=valid, step_ms=ms, tokens_per_s=tokens / ms * 1e3,
                graphs_per_s=graphs / ms * 1e3, peak_mib=peak, grad_ratio=grad["ratio"],
@@ -3189,12 +3225,9 @@ def gst_checks(fa, ops, tag):
 
 def gst_phase(dev, counters, fa, ops, data_dir: str, overrides=()):
     """Phase K, the flat GSTTokenizer (see the module docstring, 7e): (a),
-    (b) through pretrain_run, (c) as the graph-level phase 7b runs its
-    config.
+    (b) through pretrain_run, (c) through finetune_run.
     Returns ({part: its numbers}, the launches of its runs)."""
     from graphgpt_torch.config import load_config
-    from graphgpt_torch.synthetic import to_torch
-    from graphgpt_torch.training.finetune import FinetunePipeline
 
     res, launches = {}, {k: 0 for k in counters}
 
@@ -3228,54 +3261,548 @@ def gst_phase(dev, counters, fa, ops, data_dir: str, overrides=()):
         add(got)
         torch.cuda.empty_cache()
         # (c) pcqm4m_v2_supervised.yaml on flat rows, warm-started from (a)
-        tag = "phase K(c) (GST fine-tuning)"
-        ft_dir = os.path.join(tmp, "gst_finetune")
         cfg = load_config(os.path.join(HERE, "configs", "pcqm4m_v2_supervised.yaml"), [
             f"tokenization.data_dir={data_dir}", "tokenization.tokenizer_class=GSTTokenizer",
-            f"training.output_dir={ft_dir}", f"training.pretrain_cpt={pt_dir}",
-            "training.schedule.logging_steps=1", *overrides])
+            f"training.output_dir={os.path.join(tmp, 'gst_finetune')}",
+            f"training.pretrain_cpt={pt_dir}", "training.schedule.logging_steps=1", *overrides])
+        res["finetune"], got = finetune_run("phase K(c) (GST fine-tuning)", dev, counters, ops,
+                                            cfg, GST_FT_STEPS)
+        add(got)
+    return res, launches
+
+
+# ---- phase L: float32 on the card, the fp32 forms of #1, #2, #3, #13
+
+# the fp32 forms against their plain versions in fp32 (TF32 off), relative
+# Frobenius error of each output: fp32 sums of up to 3,072 terms in
+# another order
+F32_REL = 2e-5
+# the first fp32 step on the kernels against the plain fp32 run: the loss
+# (relative) and each gradient (relative Frobenius)
+F32_LOSS_REL = 1e-5
+F32_GRAD_REL = 1e-4
+# the fastest fp32-accurate product on an H100 SXM: 3xTF32, the data
+# sheet's dense TF32 495 TFLOP/s over three products (FFMA: PEAK_F32_FLOPS)
+PEAK_F32_ACCURATE_FLOPS = 165e12
+F32_NAMES = {"flash_fwd": "flash_fwd_f32", "flash_bwd": "flash_bwd_f32",
+             "norm_mlp": "norm_mlp_f32", "rmsnorm_bwd": "rmsnorm_bwd_f32"}
+M_STEPS = 2  # counted steps of each run of phase M
+M_STORE_GRAPHS = 40_000  # graphs of each store of phase M
+M_FP32_ROWS = 16  # rows of the first step held to the fp32 rule in phase M
+
+
+@contextlib.contextmanager
+def tf32_allowed():
+    """TF32 matrix products on, for the control runs of phase L."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """fp32 values rounded to TF32's 10-bit mantissa (to nearest, ties away)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def f32_check(name, tag, outs, plain, tf32, bits_equal, pad_ok=True):
+    """Each output of an fp32 form against its plain version (relative
+    Frobenius error within F32_REL), the same plain version's error with
+    TF32 (which must lie above F32_REL: the check tells fp32 from TF32), a
+    relaunch bit for bit and exact padded rows. Returns (largest elementwise
+    error, largest relative error, smallest TF32 control error)."""
+    rels = {k: rel_err(outs[k], plain[k]) for k in outs}
+    ctl = {k: rel_err(tf32[k], plain[k]) for k in tf32}
+    err = max((outs[k].float() - plain[k].float()).abs().max().item() for k in outs)
+    print(f"{name}[{tag}] |x-plain|/|plain| " + " ".join(f"{k} {v:.3e}" for k, v in rels.items())
+          + f" (tol {F32_REL}); the plain version with TF32 " + " ".join(
+              f"{k} {v:.3e}" for k, v in ctl.items())
+          + f" (must exceed {F32_REL}); max|x-plain| {err:.3e}; a relaunch bit for bit "
+          f"{bits_equal}; padded rows exact {pad_ok}", flush=True)
+    finite = all(bool(torch.isfinite(o).all()) for o in outs.values())
+    if not (max(rels.values()) <= F32_REL and min(ctl.values()) > F32_REL and bits_equal
+            and pad_ok and finite):
+        fail(f"{name}[{tag}] disagrees with its plain fp32 version, or the TF32 control does not "
+             f"tell them apart")
+    return err, max(rels.values()), min(ctl.values())
+
+
+def f32_flash_at_shape(fa, ops, tag, seg, cos, sin, h: int, dh: int, causal: bool = False):
+    """#1's and #3's fp32 forms (through flash_fwd and flash_bwd on fp32
+    tensors) at seg's shape: out, lse, dq, dk, dv against the plain versions
+    in fp32 and with TF32 (f32_check), then timed beside their bounds
+    (fp32 bytes; operations at PEAK_F32_ACCURATE_FLOPS), the plain versions
+    and SDPA in fp32 with this shape's mask."""
+    qs, k, v, do = flash_tensors(seg, h, dh, seed=3, dtype=torch.float32)
+    args = (qs, k, v, seg, cos, sin, causal, dh)
+    out, lse = fa.flash_fwd(*args)
+    bargs = (qs, k, v, seg, cos, sin, out, lse, do, None, causal, dh)
+    got = fa.flash_bwd(*bargs)
+    again, again_b = fa.flash_fwd(*args), fa.flash_bwd(*bargs)
+    torch.cuda.synchronize()
+    fbits = torch.equal(again[0], out) and torch.equal(again[1], lse)
+    bbits = all(torch.equal(a, b) for a, b in zip(again_b, got))
+    del again, again_b
+    with ops.reference_mode():
+        rout, rlse = fa.flash_fwd(*args)
+        ref = fa.flash_bwd(*bargs)
+        with tf32_allowed():
+            tout, tlse = fa.flash_fwd(*args)
+            tref = fa.flash_bwd(*bargs)
+    valid = seg > 0
+    b, p = seg.shape
+    where = f"{tag}, B={b} P={p} H={h}"
+
+    def rows(x):
+        return x.transpose(1, 2)[valid]
+
+    pad = bool((out[~valid] == 0).all()) and bool((lse.transpose(1, 2)[~valid] == -1e30).all())
+    fwd = f32_check("flash_fwd_f32", where, {"out": out[valid], "lse": rows(lse)},
+                    {"out": rout[valid], "lse": rows(rlse)}, {"out": tout[valid]}, fbits, pad)
+    names = ("dq", "dk", "dv")
+    bwd = f32_check("flash_bwd_f32", where, dict(zip(names, got)), dict(zip(names, ref)),
+                    dict(zip(names, tref)), bbits,
+                    all(bool((g[~valid] == 0).all()) for g in got))
+    del rout, rlse, tout, tlse, ref, tref, got
+    ms = cuda_ms(lambda: fa.flash_fwd(*args), iters=10)
+    ms_spread = spread()
+    bms = cuda_ms(lambda: fa.flash_bwd(*bargs), iters=10)
+    bms_spread = spread()
+    with ops.reference_mode():
+        plain = cuda_ms(lambda: fa.flash_fwd(*args), iters=2, repeats=3)
+        bplain = cuda_ms(lambda: fa.flash_bwd(*bargs), iters=2, repeats=3)
+    lib, blib = sdpa_ms(fa, seg, qs, k, v, do, cos, sin, causal, h, dh)
+    res = {}
+    for kind, t, sp, pl, lb, chk in (("fwd", ms, ms_spread, plain, lib, fwd),
+                                     ("bwd", bms, bms_spread, bplain, blib, bwd)):
+        nbytes, flops = flash_work(fa, seg, causal, h, dh, kind, elem=4)
+        bound_ms, by = bound(nbytes, flops, PEAK_F32_ACCURATE_FLOPS)
+        print(f"flash_{kind}_f32[{where}]: kernel {t:.4f} ms (3 readings {sp}), "
+              f"{bound_ms / t:.1%} of the bound, {flops / t / 1e9:.2f} TFLOP/s; plain fp32 "
+              f"{pl:.4f} ms; SDPA fp32 {lb:.4f} ms; bound {bound_ms:.4f} ms ({by}: "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at 165 TFLOP/s; at FFMA's 67 "
+              f"TFLOP/s {flops / PEAK_F32_FLOPS * 1e3:.4f} ms)", flush=True)
+        res[kind] = dict(err=chk[0], rel=chk[1], tf32_rel=chk[2], ms=t, plain_ms=pl, lib_ms=lb,
+                         bound_ms=bound_ms, bound_by=by, ffma_bound_ms=flops / PEAK_F32_FLOPS * 1e3)
+    return res
+
+
+def f32_mlp_at_shape(dev, mlp, ops, tag, n: int, d: int, f: int, act: str, eps: float):
+    """#2's fp32 form (through norm_mlp on fp32 tensors) at N x D, F against
+    its plain version in fp32 and with TF32 (f32_check; the inputs drawn in
+    fp32, not through bf16, so that TF32 rounds them), timed beside its
+    bound, the plain version and F.rms_norm + the fp32 matmuls."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    scale = 0.55 / d**0.5
+    x = torch.randn(n, d, generator=gen, device=dev)
+    wn = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    wg, wu = (torch.randn(f, d, generator=gen, device=dev) * scale for _ in range(2))
+    wd = torch.randn(d, f, generator=gen, device=dev) * scale
+    args = (x, wn, wg, wu, wd, eps, act)
+    out = mlp.norm_mlp(*args)
+    bits = torch.equal(mlp.norm_mlp(*args), out)
+    with ops.reference_mode():
+        ref = mlp.norm_mlp(*args)
+        with tf32_allowed():
+            tref = mlp.norm_mlp(*args)
+    where = f"{tag}, N={n} D={d} F={f}"
+    err, rel, ctl = f32_check("norm_mlp_f32", where, {"out": out}, {"out": ref}, {"out": tref},
+                              bits)
+    del out, ref, tref
+    ms = cuda_ms(lambda: mlp.norm_mlp(*args), iters=5)
+    ms_spread = spread()
+    with ops.reference_mode():
+        plain = cuda_ms(lambda: mlp.norm_mlp(*args), iters=2)
+    wgu, wd_t = torch.cat([wg, wu]).t().contiguous(), wd.t().contiguous()
+    lib = cuda_ms(lambda: gated_mlp_library(x, wgu, wd_t, f, norm=(wn, eps)), iters=5)
+    nbytes = 4 * (2 * n * d + 3 * d * f + d)
+    flops = 6.0 * n * d * f
+    bound_ms, by = bound(nbytes, flops, PEAK_F32_ACCURATE_FLOPS)
+    print(f"norm_mlp_f32[{where}]: kernel {ms:.4f} ms (3 readings {ms_spread}), "
+          f"{bound_ms / ms:.1%} of the bound, {flops / ms / 1e9:.2f} TFLOP/s; plain fp32 "
+          f"{plain:.4f} ms; F.rms_norm + fp32 matmuls {lib:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; at FFMA's 67 TFLOP/s "
+          f"{flops / PEAK_F32_FLOPS * 1e3:.4f} ms)", flush=True)
+    return dict(err=err, rel=rel, tf32_rel=ctl, ms=ms, plain_ms=plain, lib_ms=lib,
+                bound_ms=bound_ms, bound_by=by, ffma_bound_ms=flops / PEAK_F32_FLOPS * 1e3)
+
+
+def f32_rms_at_shape(dev, mlp, ops, tag, n: int, d: int, eps: float):
+    """#13's fp32 instances (through rmsnorm_bwd on fp32 tensors) at N x D:
+    dx and dw against the plain version (f32_check; its control is the plain
+    version on x and g rounded to TF32, since it has no product for TF32 to
+    take), timed beside the bound, the plain version and F.rms_norm's
+    backward."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(n, d, generator=gen, device=dev) * 1.5
+    g = torch.randn(n, d, generator=gen, device=dev)
+    w = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    dx, dw = mlp.rmsnorm_bwd(x, g, w, eps)
+    again = mlp.rmsnorm_bwd(x, g, w, eps)
+    bits = torch.equal(again[0], dx) and torch.equal(again[1], dw)
+    with ops.reference_mode():
+        rdx, rdw = mlp.rmsnorm_bwd(x, g, w, eps)
+        tdx, tdw = mlp.rmsnorm_bwd(tf32_round(x), tf32_round(g), w, eps)
+    where = f"{tag}, N={n} D={d}"
+    err, rel, ctl = f32_check("rmsnorm_bwd_f32", where, {"dx": dx, "dw": dw},
+                              {"dx": rdx, "dw": rdw}, {"dx": tdx, "dw": tdw}, bits)
+    ms = cuda_ms(lambda: mlp.rmsnorm_bwd(x, g, w, eps), iters=10)
+    ms_spread = spread()
+    with ops.reference_mode():
+        plain = cuda_ms(lambda: mlp.rmsnorm_bwd(x, g, w, eps), iters=5)
+    xl = x.detach().requires_grad_()
+    wl = w.detach().requires_grad_()
+    y = torch.nn.functional.rms_norm(xl, (d,), wl, eps)
+    lib = cuda_ms(lambda: torch.autograd.grad(y, (xl, wl), g, retain_graph=True), iters=10)
+    nbytes = 4 * (3 * n * d + 2 * d)
+    flops = 10.0 * n * d
+    bound_ms, by = bound(nbytes, flops, PEAK_F32_ACCURATE_FLOPS)
+    print(f"rmsnorm_bwd_f32[{where}]: kernel {ms:.4f} ms (3 readings {ms_spread}), "
+          f"{bound_ms / ms:.1%} of the bound; plain fp32 {plain:.4f} ms; F.rms_norm backward "
+          f"{lib:.4f} ms; bound {bound_ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB)", flush=True)
+    return dict(err=err, rel=rel, tf32_rel=ctl, ms=ms, plain_ms=plain, lib_ms=lib,
+                bound_ms=bound_ms, bound_by=by)
+
+
+def f32_kernels(dev, fa, mlp, ops, tag, batch, m):
+    """Each fp32 form at a batch's shapes under the model config m: #1 and
+    #3 at its segments and RoPE table (fp32), #2 and #13 at its B x P rows."""
+    from graphgpt_torch.models.rope import reset_position_ids, rope_cos_sin
+
+    seg = batch["segment_ids"]
+    pos = reset_position_ids(batch["position_ids"], m.rope_range)
+    cos, sin = (x.float() for x in rope_cos_sin(
+        pos, m.head_dim, m.rope_theta, resonance=m.rope_resonance, rope_scaling=m.rope_scaling,
+        max_position_embeddings=m.max_position_embeddings))
+    res = f32_flash_at_shape(fa, ops, tag, seg, cos, sin, m.num_attention_heads, m.head_dim,
+                             causal=m.causal_attention)
+    n = seg.numel()
+    res["mlp"] = f32_mlp_at_shape(dev, mlp, ops, tag, n, m.hidden_size, m.intermediate_size,
+                                  m.hidden_act, m.rms_norm_eps)
+    res["rms"] = f32_rms_at_shape(dev, mlp, ops, tag, n, m.hidden_size, m.rms_norm_eps)
+    torch.cuda.empty_cache()
+    return res
+
+
+def step_vs_plain32(model, batch, ops, tag, call=dict):
+    """The first training step of an fp32 model on the kernels (their fp32
+    forms) against the same step on the plain versions: the loss within
+    F32_LOSS_REL and each gradient within F32_GRAD_REL, both relative."""
+    loss_k, gk = grads_of(model, batch, call)
+    with ops.reference_mode():
+        loss_p, gp = grads_of(model, batch, call)
+    rels = {k: rel_err(gk[k], gp[k]) for k in gp}
+    worst = max(rels, key=rels.get)
+    lrel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"{tag} step vs the plain fp32 run ({batch['input_ids'].shape[0]} rows): loss "
+          f"{loss_k:.8f} vs {loss_p:.8f} (relative {lrel:.3e}, tol {F32_LOSS_REL}); "
+          f"{len(rels)} gradients, worst {rels[worst]:.3e} at {worst} (tol {F32_GRAD_REL}), "
+          f"median {float(np.median(list(rels.values()))):.3e}", flush=True)
+    if not (set(gk) == set(gp) and lrel <= F32_LOSS_REL and rels[worst] <= F32_GRAD_REL
+            and all(bool(torch.isfinite(g).all()) for g in gk.values())):
+        fail(f"the {tag} fp32 step on the kernels disagrees with the plain fp32 run")
+    return dict(loss_rel=lrel, grad_rel=rels[worst], worst=worst)
+
+
+def f32_want(m, counters):
+    """The launches of an fp32 model's training step and eval forward: a
+    bf16 model's (finetune_want, from the model config) on the fp32 forms."""
+    want, want_eval = finetune_want(m, counters)
+    for w in (want, want_eval):
+        for name, f32 in F32_NAMES.items():
+            w[f32], w[name] = w[name], 0
+    return want, want_eval
+
+
+def fp32_phase(dev, counters, fa, mlp, ops):
+    """Phase L (see the module docstring, 7f). Returns ({part: its
+    numbers}, the launches of its runs)."""
+    from graphgpt_torch import synthetic
+    from graphgpt_torch.config import OptimizerConfig, flagship_config, load_config
+    from graphgpt_torch.models.heads import GraphGPTPretrain
+    from graphgpt_torch.training.optimizer import make_optimizer, make_schedule
+    from graphgpt_torch.training.pipeline import PretrainPipeline
+    from graphgpt_torch.training.steps import init_train_state, make_train_step
+
+    res, launches = {}, {k: 0 for k in counters}
+    # (a) toy_pretrain.yaml as shipped, through PretrainPipeline
+    tag = "phase L(a) (toy_pretrain.yaml, fp32)"
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "toy")
+        cfg = load_config(os.path.join(HERE, "configs", "toy_pretrain.yaml"),
+                          [f"training.output_dir={out_dir}"])
         t0 = time.perf_counter()
-        pipe = FinetunePipeline(cfg, device=dev).setup()
-        setup_s = time.perf_counter() - t0
+        pipe = PretrainPipeline(cfg, device=dev).setup()
         m, t = pipe.cfg.model, pipe.cfg.training
-        # GST_FT_STEPS batches of epoch 0, 1,024 valid and test graphs
-        pipe.train_idx, pipe.epochs = pipe.train_idx[: GST_FT_STEPS * t.batch_size], 1
-        pipe.valid_idx, pipe.test_idx = pipe.valid_idx[:1024], pipe.test_idx[:1024]
-        print(f"{tag} setup {setup_s:.1f} s: {type(pipe.tokenizer).__name__}, stacked_feat "
-              f"{m.stacked_feat}, vocab {m.vocab_size}, {m.hidden_size} x "
-              f"{m.num_hidden_layers}, remat {m.remat_policy}, batch {t.batch_size}, warm "
-              f"start from phase K(a)'s checkpoint", flush=True)
-        idx0 = np.random.default_rng((t.seed, 0)).permutation(pipe.train_idx)
-        batch = to_torch(next(pipe.loader.epoch_batches(idx0, 0)).data, dev)
-        grad = step_vs_fp32(pipe.state.model, rows_of(batch, 64), ops, tag)
-        torch.cuda.empty_cache()
-        want, want_eval = finetune_want(m, counters)
-        train_log, eval_log, metrics = counted_pipeline(pipe, counters)
-        torch.cuda.reset_peak_memory_stats()
+        print(f"{tag} setup {time.perf_counter() - t0:.1f} s: {m.hidden_size} x "
+              f"{m.num_hidden_layers}, {m.num_attention_heads} heads of {m.head_dim}, FFN "
+              f"{m.intermediate_size}, {m.dtype}, remat {m.remat_policy if m.remat else 'off'}, "
+              f"{t.task_type}, batch {t.batch_size} x {t.max_length} packed, "
+              f"{pipe.total_steps} steps, {len(pipe.valid_idx)} valid", flush=True)
+        it = pipe._device_batches(0)
+        data, _ = next(it)
+        it.close()
+        batch = {**synthetic.to_torch(data, dev), **pipe._const_batch}
+        res["toy"] = f32_kernels(dev, fa, mlp, ops, "phase L(a) toy", batch, m)
+        res["toy"]["step"] = step_vs_plain32(pipe.state.model, batch, ops, tag)
+        want, want_eval = f32_want(m, counters)
+        train_log, eval_log, _ = counted_pipeline(pipe, counters)
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        best = pipe.run()
+        pipe.run()
         run_s = time.perf_counter() - t0
         got = {k: fn.launches for k, fn in counters.items()}
-        add(got)
-        peak = torch.cuda.max_memory_allocated() / 2**20
-        check_logs(tag, train_log, eval_log, want, want_eval, GST_FT_STEPS)
-        losses = [float(x["loss"]) for x in metrics]
-        ms = cuda_ms(lambda: pipe.train_step(pipe.state, batch, seed=t.seed), iters=1,
-                     warmup=1, repeats=3)
-        b, p = batch["segment_ids"].shape
-        print(f"{tag} losses: " + " ".join(f"{x:.4f}" for x in losses) + f"; valid_mae "
-              f"{best.get('valid_mae')}, valid_ema_mae {best.get('valid_ema_mae')} on "
-              f"{len(pipe.valid_idx)} graphs, test_mae {best.get('test_mae')}; a step on a "
-              f"batch of {b} x {p} on the card {ms:.2f} ms (3 readings {spread()}), "
-              f"{b / ms * 1e3:.0f} graphs/s; the run {run_s:.1f} s; max_memory_allocated "
-              f"{peak:.0f} MiB", flush=True)
-        if not (all(np.isfinite(losses)) and np.isfinite(best.get("valid_mae", np.nan))):
-            fail(f"{tag}: the losses or the valid MAE are not finite: {losses} {best}")
-        res["finetune"] = dict(losses=losses, valid_mae=best.get("valid_mae"), step_ms=ms,
-                               graphs_per_s=b / ms * 1e3, peak_mib=peak,
-                               grad_ratio=grad["ratio"], rows=b, positions=p)
+        check_logs(tag, train_log, eval_log, want, want_eval, pipe.total_steps)
+        rows = csv_rows(os.path.join(out_dir, "log.csv"))
+        losses = [float(r["loss"]) for r in rows]
+        result = csv_rows(os.path.join(out_dir, "result.csv"))
+        last = result[-1] if result else {}
+        gens = {k: float(v) for k, v in last.items() if k.startswith("gen_acc")}
+        valid = float(last.get("valid_loss", "nan"))
+        print(f"{tag}: logged losses " + " ".join(f"{x:.4f}" for x in losses)
+              + f" (steps {[r['step'] for r in rows]}); save point: valid loss {valid:.4f}, "
+              f"generation {gens}; the run {run_s:.1f} s, launches {got}", flush=True)
+        if not (len(losses) >= 2 and all(np.isfinite(losses)) and losses[-1] < losses[0]
+                and np.isfinite(valid) and gens and all(np.isfinite(list(gens.values())))):
+            fail(f"{tag}: the logged loss did not fall, or the save point's valid loss or "
+                 f"generation is missing: {losses} {last}")
+        res["toy"].update(losses=losses, valid_loss=valid, run_s=run_s,
+                          steps=pipe.total_steps, **gens)
+        for k in counters:
+            launches[k] += got[k]
+        del pipe
+    torch.cuda.empty_cache()
+    # (b) GraphGPT-base at model.dtype=float32: one step at B 8 x P 1024
+    tag = "phase L(b) (GraphGPT-base, fp32)"
+    cfg = flagship_config()
+    cfg.dtype = "float32"
+    model = GraphGPTPretrain(cfg, device=dev, seed=0)
+    nb = synthetic.fake_batch(8, cfg.max_position_embeddings, cfg.stacked_feat, cfg.vocab_size,
+                              np.random.default_rng(7))
+    batch = synthetic.to_torch(nb, dev)
+    res["base"] = f32_kernels(dev, fa, mlp, ops, "phase L(b) base", batch, cfg)
+    res["base"]["step"] = step_vs_plain32(model, batch, ops, tag)
+    torch.cuda.empty_cache()
+    opt_cfg = OptimizerConfig(lr=3e-4, use_ema=True)
+    schedule = make_schedule(opt_cfg, 20, 2)
+    tx = make_optimizer(opt_cfg, 20, 2, schedule=schedule)
+    state = init_train_state(model, tx, use_ema=True)
+    want, _ = f32_want(cfg, counters)
+    state, metrics, got, ms, peak = counted_steps(tag, state, make_train_step(tx, opt_cfg, schedule),
+                                                  batch, counters, want, 2)
+    losses = [float(x["loss"]) for x in metrics]
+    tokens = int((nb["segment_ids"] > 0).sum())
+    ms, peak = (float("nan"), 0.0) if ms is None else (ms, peak)  # None off the card
+    print(f"{tag}: launches per step {want} (both steps); losses " + " ".join(
+        f"{x:.4f}" for x in losses) + f"; the second step {ms:.2f} ms, {tokens / ms * 1e3:.0f} "
+        f"trained tokens/s; max_memory_allocated {peak:.0f} MiB", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"{tag}: a loss is not finite: {losses}")
+    res["base"].update(step_ms=ms, tokens_per_s=tokens / ms * 1e3, peak_mib=peak)
+    for k in counters:
+        launches[k] += got[k]
+    del model, state
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+# ---- phase M: the six graph-level configs the card had not run
+
+# dataset -> (node columns' cardinalities, edge columns', labels, label kind,
+# (train, valid, test) shares or None for the reader's random 80/10/10)
+M_SCHEMAS = {
+    "ogbg-molpcba": ("mol", "mol", 128, "binary-nan", (350_343, 43_793, 43_793)),
+    "reddit_threads": ((), (), 1, "class2", None),
+    "spice-circuit": ((20,), (), 1, "class14", None),
+}
+M_CONFIGS = (("ogbg-molpcba", "ogbg_molpcba"), ("reddit_threads", "reddit"),
+             ("spice-circuit", "spice_circuit"))
+
+
+def _schema_chunk(args):
+    """Graphs start..stop of a phase-M store in `name`'s schema (graph i
+    from the seed (seed, i)): random molecule topologies, each column's
+    values uniform over its cardinality (the molecule columns' own where the
+    schema says "mol"), labels of the schema's kind. (node_attr, edge_attr,
+    local edge_index, node and edge counts, y)."""
+    from graphgpt_torch.data.datasets import MOL_EDGE_CARD, MOL_NODE_CARD, random_molecule_graph
+
+    start, stop, seed, name = args
+    node_card, edge_card, n_labels, kind, _ = M_SCHEMAS[name]
+    node_card = MOL_NODE_CARD if node_card == "mol" else node_card
+    edge_card = MOL_EDGE_CARD if edge_card == "mol" else edge_card
+    na, ea, ei, nn, ne, ys = [], [], [], [], [], []
+    for i in range(start, stop):
+        rng = np.random.default_rng((seed, i))
+        g = random_molecule_graph(rng)
+        n, e = g.num_nodes, g.edge_index.shape[1]
+        na.append(np.stack([rng.integers(0, c, size=n) for c in node_card], 1) if node_card
+                  else np.zeros((n, 0), np.int64))
+        ea.append(np.stack([rng.integers(0, c, size=e) for c in edge_card], 1) if edge_card
+                  else np.zeros((e, 0), np.int64))
+        ei.append(g.edge_index)
+        if kind == "binary-nan":
+            y = rng.integers(0, 2, size=n_labels).astype(np.float32)
+            y[rng.random(n_labels) < 0.3] = np.nan
+        else:
+            y = rng.integers(0, int(kind[5:]), size=n_labels).astype(np.float32)
+        ys.append(y)
+        nn.append(n)
+        ne.append(e)
+    return (np.concatenate(na).astype(np.int32), np.concatenate(ea).astype(np.int32),
+            np.concatenate(ei, axis=1).astype(np.int64), np.asarray(nn), np.asarray(ne),
+            np.stack(ys))
+
+
+def write_dataset_stores(data_dir: str, names, n_graphs: int = M_STORE_GRAPHS, seed: int = 0,
+                         procs: int = 8):
+    """<data_dir>/<name>/graphs.npz for each of `names`, in the readers' npz
+    contract and the schema of M_SCHEMAS[name] (ogbg-molpcba: 9 node and 3
+    edge columns, 128 binary labels with 30% NaN, OGB's split proportions;
+    reddit_threads: no columns, 2 classes; spice-circuit: one node column of
+    20 values, 14 classes; the last two with no split members, so that the
+    reader draws its 80/10/10), `n_graphs` each (the k-th from the seed
+    seed + k), drawn by one pool of `procs` spawned processes. Returns
+    {name: path}."""
+    import multiprocessing as mp
+
+    bounds = np.linspace(0, n_graphs, 4 * procs + 1).astype(int)
+    paths = {}
+    with mp.get_context("spawn").Pool(procs) as pool:
+        for k, name in enumerate(names):
+            t0 = time.perf_counter()
+            parts = pool.map(_schema_chunk, [(int(a), int(b), seed + k, name)
+                                             for a, b in zip(bounds[:-1], bounds[1:])])
+            nn = np.concatenate([p[3] for p in parts])
+            ne = np.concatenate([p[4] for p in parts])
+            node_ptr = np.concatenate([[0], np.cumsum(nn)]).astype(np.int64)
+            edge_ptr = np.concatenate([[0], np.cumsum(ne)]).astype(np.int64)
+            edge_index = np.concatenate([p[2] for p in parts], axis=1)
+            edge_index += np.repeat(node_ptr[:-1], ne)[None, :]
+            data = dict(edge_index=edge_index.astype(np.int32), node_ptr=node_ptr,
+                        edge_ptr=edge_ptr, y=np.concatenate([p[5] for p in parts]))
+            node_attr = np.concatenate([p[0] for p in parts])
+            edge_attr = np.concatenate([p[1] for p in parts])
+            if node_attr.shape[1]:
+                data["node_attr"] = node_attr
+            if edge_attr.shape[1]:
+                data["edge_attr"] = edge_attr
+            shares = M_SCHEMAS[name][4]
+            if shares:
+                sizes = [round(n_graphs * s / sum(shares)) for s in shares]
+                starts = np.cumsum([0] + sizes)
+                data.update(train_idx=np.arange(starts[0], starts[1]),
+                            valid_idx=np.arange(starts[1], starts[2]),
+                            test_idx=np.arange(starts[2], min(starts[3], n_graphs)))
+            path = os.path.join(data_dir, name, "graphs.npz")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            np.savez(path, **data)
+            paths[name] = path
+            print(f"phase M store {name}: {n_graphs} graphs ({int(node_ptr[-1])} nodes, "
+                  f"{int(edge_ptr[-1])} directed edges), node columns {node_attr.shape[1]}, edge "
+                  f"columns {edge_attr.shape[1]}, y {data['y'].shape}, splits "
+                  f"{'OGB proportions' if shares else 'the reader draws 80/10/10'}; "
+                  f"{os.path.getsize(path)} bytes in {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
+def finetune_run(tag, dev, counters, ops, cfg, steps: int, fp32_rows: int = 64, call=dict,
+                 n_eval: int = 1024):
+    """One fine-tune run through FinetunePipeline (its warm start from the
+    config's pretrain_cpt): `steps` batches of epoch 0, n_eval valid and test
+    graphs; the first step on fp32_rows rows against the plain bf16 run and
+    the fp32 rule (`call()`: the model call's generator, the same draws on
+    every run); the launches of each step and eval forward against
+    finetune_want; finite losses and eval metrics; a step on the batch on
+    the card, graphs/s, peak memory. Returns (its numbers, the launches)."""
+    from graphgpt_torch.synthetic import to_torch
+    from graphgpt_torch.training.finetune import FinetunePipeline
+
+    t0 = time.perf_counter()
+    pipe = FinetunePipeline(cfg, device=dev).setup()
+    setup_s = time.perf_counter() - t0
+    m, t = pipe.cfg.model, pipe.cfg.training
+    pipe.train_idx, pipe.epochs = pipe.train_idx[: steps * t.batch_size], 1
+    pipe.valid_idx, pipe.test_idx = pipe.valid_idx[:n_eval], pipe.test_idx[:n_eval]
+    print(f"{tag} setup {setup_s:.1f} s: {type(pipe.tokenizer).__name__}, stacked_feat "
+          f"{m.stacked_feat}, vocab {m.vocab_size}, {m.hidden_size} x {m.num_hidden_layers}, "
+          f"{m.problem_type} ({m.num_labels} labels), LayerScale {m.layer_scale_init_value}, "
+          f"DropPath {m.path_dropout}, remat {m.remat_policy if m.remat else 'off'}, batch "
+          f"{t.batch_size}, warm start from {t.pretrain_cpt}", flush=True)
+    idx0 = np.random.default_rng((t.seed, 0)).permutation(pipe.train_idx)
+    batch = to_torch(next(pipe.loader.epoch_batches(idx0, 0)).data, dev)
+    grad = step_vs_fp32(pipe.state.model, rows_of(batch, fp32_rows), ops, tag, call=call)
+    torch.cuda.empty_cache()
+    want, want_eval = finetune_want(m, counters)
+    train_log, eval_log, metrics = counted_pipeline(pipe, counters)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    best = pipe.run()
+    run_s = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    check_logs(tag, train_log, eval_log, want, want_eval, steps)
+    losses = [float(x["loss"]) for x in metrics]
+    ms = cuda_ms(lambda: pipe.train_step(pipe.state, batch, seed=t.seed), iters=1, warmup=1,
+                 repeats=3)
+    b, p = batch["segment_ids"].shape
+    evals = {k: float(v) for k, v in best.items() if k.startswith(("valid_", "test_"))}
+    print(f"{tag} losses: " + " ".join(f"{x:.4f}" for x in losses) + f"; eval {evals} on "
+          f"{len(pipe.valid_idx)} valid and {len(pipe.test_idx)} test graphs; a step on a batch "
+          f"of {b} x {p} on the card {ms:.2f} ms (3 readings {spread()}), {b / ms * 1e3:.0f} "
+          f"graphs/s; the run {run_s:.1f} s; max_memory_allocated {peak:.0f} MiB", flush=True)
+    if not (len(losses) == steps and all(np.isfinite(losses)) and evals
+            and all(np.isfinite(list(evals.values())))):
+        fail(f"{tag}: the losses or the eval metrics are not finite: {losses} {best}")
+    return dict(losses=losses, valid_mae=best.get("valid_mae"), evals=evals, step_ms=ms,
+                graphs_per_s=b / ms * 1e3, peak_mib=peak, grad_ratio=grad["ratio"], rows=b,
+                positions=p), got
+
+
+def graph_configs_phase(dev, counters, ops, overrides=(), n_graphs: int = M_STORE_GRAPHS):
+    """Phase M (see the module docstring, 7g). Returns ({run: its numbers},
+    the launches of its runs)."""
+    from graphgpt_torch.config import load_config
+
+    res, launches = {}, {k: 0 for k in counters}
+
+    def call():
+        return {"generator": torch.Generator(device=dev).manual_seed(17)}
+
+    with tempfile.TemporaryDirectory() as root:
+        data_dir = os.path.join(root, "data")
+        write_dataset_stores(data_dir, [name for name, _ in M_CONFIGS], n_graphs)
+        for name, stem in M_CONFIGS:
+            tmp = os.path.join(root, stem)
+            pt_dir = os.path.join(tmp, "pretrain")
+            cfg = load_config(os.path.join(HERE, "configs", f"{stem}_pretrain.yaml"), [
+                f"tokenization.data_dir={data_dir}", f"training.output_dir={pt_dir}",
+                f"training.schedule.total_num_steps={M_STEPS}",
+                "training.schedule.warmup_num_steps=1", "training.schedule.logging_steps=1",
+                "training.gen_eval_bands=0", *overrides])
+            res[f"{stem}_pretrain"], got = pretrain_run(
+                f"phase M ({stem}_pretrain.yaml)", dev, counters, ops, cfg, call=call,
+                fp32_rows=M_FP32_ROWS, want=finetune_want)
+            for k in counters:
+                launches[k] += got[k]
+            torch.cuda.empty_cache()
+            cfg = load_config(os.path.join(HERE, "configs", f"{stem}_supervised.yaml"), [
+                f"tokenization.data_dir={data_dir}",
+                f"training.output_dir={os.path.join(tmp, 'finetune')}",
+                f"training.pretrain_cpt={pt_dir}", "training.schedule.logging_steps=1",
+                *overrides])
+            res[f"{stem}_supervised"], got = finetune_run(
+                f"phase M ({stem}_supervised.yaml)", dev, counters, ops, cfg, M_STEPS,
+                fp32_rows=M_FP32_ROWS, call=call)
+            for k in counters:
+                launches[k] += got[k]
+            torch.cuda.empty_cache()
     return res, launches
 
 
@@ -4598,11 +5125,11 @@ def main() -> None:
             if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
     # the wgmma kernels (#12; #2, #11; #4, #5, #7, #8; #1, #6, #9; #3, #10) keep
-    # no spill and let ptxas pipeline their wgmma (no C7512/C7513), #13 keeps
-    # no spill; flash_fwd.cu's log must show its three forms, flash_bwd.cu's
-    # its two
+    # no spill and let ptxas pipeline their wgmma (no C7512/C7513), #13 (both
+    # dtypes) and the fp32 forms of #1, #2, #3 keep no spill; flash_fwd.cu's
+    # log must show its three forms, flash_bwd.cu's its two
     for name in ("norm_qkv", "norm_mlp", "mlp", "flash_bwd_split", "flash_fwd", "flash_bwd",
-                 "rmsnorm_bwd"):
+                 "rmsnorm_bwd", "flash_fwd_f32", "flash_bwd_f32", "norm_mlp_f32"):
         if re.search(r"[1-9]\d* bytes spill|C751[0-9]", logs.get(name, "")):
             fail(f"ptxas spilled in {name}.cu or serialised its wgmma (see the build lines above)")
     for name, kernel, want in (("flash_fwd", "fwd_kernel", ["0", "1", "2"]),
@@ -4633,7 +5160,9 @@ def main() -> None:
                 "flash_dq": fa.flash_dq, "flash_dkv": fa.flash_dkv,
                 "flash_fwd_stream": fa.flash_fwd_stream, "flash_dq_stream": fa.flash_dq_stream,
                 "flash_dkv_stream": fa.flash_dkv_stream, "flash_fwd_band": fa.flash_fwd_band,
-                "flash_bwd_band": fa.flash_bwd_band, "norm_qkv": mlp.norm_qkv}
+                "flash_bwd_band": fa.flash_bwd_band, "norm_qkv": mlp.norm_qkv,
+                "flash_fwd_f32": fa.flash_fwd_f32, "flash_bwd_f32": fa.flash_bwd_f32,
+                "norm_mlp_f32": mlp.norm_mlp_f32, "rmsnorm_bwd_f32": mlp.rmsnorm_bwd_f32}
 
     # ---- eval and generation phases: the serving path, counted from 0
     cfg = flagship_config()
@@ -4703,6 +5232,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     gst, shippedl["K"] = gst_phase(dev, counters, fa, ops, data_dir)
     print(f"phases I-K: {time.perf_counter() - t0:.1f} s", flush=True)
+    # ---- phase L: float32 (toy_pretrain.yaml as shipped; GraphGPT-base at
+    # model.dtype=float32) on the fp32 forms of #1, #2, #3 and #13
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    fp32, shippedl["L"] = fp32_phase(dev, counters, fa, mlp, ops)
+    print(f"phase L: {time.perf_counter() - t0:.1f} s", flush=True)
+    # ---- phase M: the six graph-level configs the card had not run, each on
+    # a store of its dataset's schema, each supervised run warm-started from
+    # its pretrain run
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    gconf, shippedl["M"] = graph_configs_phase(dev, counters, ops)
+    print(f"phase M: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- denoise and position-pretraining phases: fresh models
     torch.cuda.empty_cache()
@@ -4742,7 +5284,7 @@ def main() -> None:
             launches_band_train=btl[name], launches_band_long=bll[name],
             launches_big_ppa=bigl["A"][name], launches_big_proteins=bigl["B"][name],
             launches_big_pretrain=bigl["C"][name],
-            **{f"launches_phase_{ph}": shippedl[ph][name] for ph in "DEFGHIJK"},
+            **{f"launches_phase_{ph}": shippedl[ph][name] for ph in "DEFGHIJKLM"},
             max_abs_err=r["err"],
             ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -4927,6 +5469,27 @@ def main() -> None:
         host_ms=qt_["host_ms"],
         **at("serving_shape", qs_, ("ms", "plain_ms", "lib_ms", "bound_ms", "tflops",
                                     "bound_share", "rrms_ms", "host_ms"))))
+    # the fp32 forms (phase L): their main entry at GraphGPT-base's B 8 x P
+    # 1024 (N 8,192), toy_pretrain's B 8 x P 128 (N 1,024) beside it
+    lt, lb = fp32["toy"], fp32["base"]
+    for name, source, line, kind in (
+            ("flash_fwd_f32", "flash_fwd_f32.cu", "flash_attention.py:124", "fwd"),
+            ("norm_mlp_f32", "norm_mlp_f32.cu", "mlp.py:203", "mlp"),
+            ("flash_bwd_f32", "flash_bwd_f32.cu", "flash_attention.py:706", "bwd"),
+            ("rmsnorm_bwd_f32", "rmsnorm_bwd.cu", "mlp.py:414", "rms")):
+        r, rt = lb[kind], lt[kind]
+        kernels.append(entry(
+            name, source, line, dict(r, err=max(r["err"], rt["err"])), {"rel": F32_REL},
+            rel_err=max(r["rel"], rt["rel"]), tf32_control_rel=min(r["tf32_rel"], rt["tf32_rel"]),
+            **({"ffma_bound_ms": r["ffma_bound_ms"]} if "ffma_bound_ms" in r else {}),
+            **{f"toy_shape_{k}": rt[k] for k in ("ms", "plain_ms", "lib_ms", "bound_ms")},
+            base_step_loss_rel=lb["step"]["loss_rel"], base_step_grad_rel=lb["step"]["grad_rel"],
+            toy_step_loss_rel=lt["step"]["loss_rel"], toy_step_grad_rel=lt["step"]["grad_rel"],
+            base_step_ms=lb["step_ms"], toy_losses=lt["losses"]))
+    by_name["norm_mlp"].update({f"phase_M_{run}_{k}": v for run, r in gconf.items()
+                                for k, v in r.items()
+                                if k in ("step_ms", "tokens_per_s", "graphs_per_s", "peak_mib",
+                                         "grad_ratio", "valid_loss", "evals")})
     # the stream and band forms, and #12, at small12's head width 32 (phase H)
     hs, hb = shipped["H"]["stream"], shipped["H"]["band"]
     dh32 = {"flash_fwd_stream": hs["fwd"], "flash_dq_stream": hs["dq"],

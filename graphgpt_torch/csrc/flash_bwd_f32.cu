@@ -1,0 +1,252 @@
+// Segment-masked flash attention backward in fp32, for Hopper.
+//
+// Replaces graphgpt_tpu/ops/flash_attention.py:706 _bwd_kernel_fused when
+// it is given fp32 (a `model.dtype: float32` model): there its products,
+// p = exp(S - lse) and ds = p * (do v^T - delta) stay fp32 (the casts to
+// the working dtype, :764-770, change nothing). The bf16 form is
+// csrc/flash_bwd.cu. Same contract: q (pre-scaled, unrotated), k, v, out,
+// do token-major [B, P, H * 64] fp32, segment ids int32 [B, P], RoPE
+// cos/sin [B, P, 64] fp32 (or null), lse [B, H, P] fp32 and its optional
+// cotangent dlse; writes delta = rowsum(do * out) - dlse [B, H, P] and dq,
+// dk, dv [B, P, H * 64] fp32, dq and dk brought back through the inverse
+// rotation. do is taken as zero on padded rows (segment 0) before any sum,
+// so that a non-finite value there reaches no output; a padded row takes
+// no part.
+//
+// What bounds it on the H100: operations, as for the forward
+// (flash_fwd_f32.cu): fp32-accurate products at 165 TFLOP/s (3xTF32) or
+// 67 (FFMA), against ~0.3 GB of traffic at B 8 x P 1024.
+//
+// Design: simple and right first, and the same bits on every launch, so
+// no atomics. Three launches: delta (a warp a row and head); the key pass,
+// a block of 256 threads a (row, head, 64-key tile) that walks the query
+// tiles which can see it and sums dk = ds^T q and dv = p^T do in
+// registers; the query pass, a block a (row, head, 64-query tile) that
+// walks the key tiles it sees and sums dq = ds k. Each pass computes S and
+// do v^T again for its tile pairs. Tiles are fp32 in shared memory, the
+// products FFMA (flash_f32.cuh).
+
+#include "flash_f32.cuh"
+
+namespace {
+
+using namespace f32;
+
+constexpr int KEY_SMEM = 6 * TILE * sizeof(float) + 2 * T * sizeof(float) + T * sizeof(int);
+constexpr int QUERY_SMEM = 5 * TILE * sizeof(float) + T * sizeof(int);
+
+// delta[b, h, p] = sum_d do * out - dlse, a warp a (b, p, h); do is 0 on padded rows
+__global__ void __launch_bounds__(256)
+delta_kernel(const float* __restrict__ dout, const float* __restrict__ out,
+             const int* __restrict__ seg, const float* __restrict__ dlse,
+             float* __restrict__ delta, int B, int P, int H) {
+  const long long idx = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (idx >= (long long)B * P * H) return;
+  const int h = (int)(idx % H);
+  const long long bp = idx / H;
+  const int b = (int)(bp / P), p = (int)(bp % P);
+  const float* d0 = dout + bp * H * DH + h * DH;
+  const float* o0 = out + bp * H * DH + h * DH;
+  float s = 0.f;
+  if (seg[bp] > 0) s = d0[lane] * o0[lane] + d0[lane + 32] * o0[lane + 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane == 0) {
+    const long long r = ((long long)b * H + h) * P + p;
+    delta[r] = dlse != nullptr ? s - dlse[r] : s;
+  }
+}
+
+// The pair (query row i, key column c) takes part: one nonzero segment,
+// and the column within the row's causal bound.
+__device__ __forceinline__ bool visible(int qseg, int kseg, int col, int vis) {
+  return kseg > 0 && kseg == qseg && col < vis;
+}
+
+// The key pass: dk, dv of the 64 keys [k0, k0 + 64) of head h, row b.
+__global__ void __launch_bounds__(THREADS)
+dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const int* __restrict__ seg,
+               const float* __restrict__ cos, const float* __restrict__ sin,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               const float* __restrict__ dout, float* __restrict__ dk, float* __restrict__ dv,
+               int P, int H, int causal) {
+  extern __shared__ float smem[];
+  float* ks = smem;
+  float* vs = ks + TILE;
+  float* qs = vs + TILE;
+  float* ds = qs + TILE;   // do
+  float* ps = ds + TILE;   // p
+  float* ss = ps + TILE;   // ds = p * (dp - delta)
+  float* lse_s = ss + TILE;
+  float* delta_s = lse_s + T;
+  int* qseg = reinterpret_cast<int*>(delta_s + T);
+  const int k0 = blockIdx.x * T, h = blockIdx.y, b = blockIdx.z;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int* seg_row = seg + (long long)b * P;
+  const float* lse_row = lse + ((long long)b * H + h) * P;
+  const float* delta_row = delta + ((long long)b * H + h) * P;
+
+  load_tile(ks, k, seg, cos, sin, b, k0, P, H, h, false);
+  load_tile(vs, v, seg, nullptr, nullptr, b, k0, P, H, h, false);
+  int cseg[4];  // the key ids of the columns tx + 16 j
+#pragma unroll
+  for (int j = 0; j < 4; ++j) cseg[j] = k0 + tx + 16 * j < P ? seg_row[k0 + tx + 16 * j] : 0;
+  float dka[4][4], dva[4][4];
+  zero(dka);
+  zero(dva);
+  // the first query row that may see this tile (the rule is monotone in the column)
+  const int q_first = first_row(k0, causal, 0, P) / T * T;
+  for (int q0 = q_first; q0 < P; q0 += T) {
+    if (tiles_miss(seg_row, q0, k0, P)) continue;
+    __syncthreads();
+    load_tile(qs, q, seg, cos, sin, b, q0, P, H, h, false);
+    load_tile(ds, dout, seg, nullptr, nullptr, b, q0, P, H, h, true);
+    load_seg(qseg, seg, b, q0, P);
+    for (int r = threadIdx.x; r < T; r += THREADS) {
+      lse_s[r] = q0 + r < P ? lse_row[q0 + r] : 0.f;
+      delta_s[r] = q0 + r < P ? delta_row[q0 + r] : 0.f;
+    }
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    zero(s);
+    zero(dp);
+    mma64<false, false>(s, qs, ks, ty, tx);   // S(i, c) = q(i) . k(c)
+    mma64<false, false>(dp, ds, vs, ty, tx);  // dP(i, c) = do(i) . v(c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int ri = ty + 16 * i, r = q0 + ri;
+      const int vis = r < P ? visible_cols(r, causal, 0, P) : 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = visible(qseg[ri], cseg[j], k0 + tx + 16 * j, vis);
+        const float p = ok ? expf(s[i][j] - lse_s[ri]) : 0.f;
+        ps[ri * LD + tx + 16 * j] = p;
+        ss[ri * LD + tx + 16 * j] = ok ? p * (dp[i][j] - delta_s[ri]) : 0.f;
+      }
+    }
+    __syncthreads();
+    // dv(c, d) += sum_i p(i, c) do(i, d); dk(c, d) += sum_i ds(i, c) q(i, d)
+    mma64<true, true>(dva, ps, ds, ty, tx);
+    mma64<true, true>(dka, ss, qs, ty, tx);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = k0 + ty + 16 * i;
+    if (c >= P) continue;
+    if (cos != nullptr) unrotate(dka[i], cos, sin, ((long long)b * P + c) * DH, tx);
+    const long long o = ((long long)b * P + c) * H * DH + h * DH;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      dk[o + tx + 16 * j] = dka[i][j];
+      dv[o + tx + 16 * j] = dva[i][j];
+    }
+  }
+}
+
+// The query pass: dq of the 64 queries [q0, q0 + 64) of head h, row b.
+__global__ void __launch_bounds__(THREADS)
+dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const int* __restrict__ seg,
+              const float* __restrict__ cos, const float* __restrict__ sin,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              const float* __restrict__ dout, float* __restrict__ dq, int P, int H, int causal) {
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* ds = qs + TILE;  // do
+  float* ks = ds + TILE;
+  float* vs = ks + TILE;
+  float* ss = vs + TILE;  // ds = p * (dp - delta)
+  int* kseg = reinterpret_cast<int*>(ss + TILE);
+  const int q0 = blockIdx.x * T, h = blockIdx.y, b = blockIdx.z;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int* seg_row = seg + (long long)b * P;
+  const float* lse_row = lse + ((long long)b * H + h) * P;
+  const float* delta_row = delta + ((long long)b * H + h) * P;
+
+  load_tile(qs, q, seg, cos, sin, b, q0, P, H, h, false);
+  load_tile(ds, dout, seg, nullptr, nullptr, b, q0, P, H, h, true);
+  int rseg[4], rvis[4];
+  float rlse[4], rdelta[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    rseg[i] = r < P ? seg_row[r] : 0;
+    rvis[i] = r < P ? visible_cols(r, causal, 0, P) : 0;
+    rlse[i] = r < P ? lse_row[r] : 0.f;
+    rdelta[i] = r < P ? delta_row[r] : 0.f;
+  }
+  float dqa[4][4];
+  zero(dqa);
+  const int kmax = visible_cols(min(q0 + T - 1, P - 1), causal, 0, P);
+  for (int k0 = 0; k0 < kmax; k0 += T) {
+    if (tiles_miss(seg_row, q0, k0, P)) continue;
+    __syncthreads();
+    load_tile(ks, k, seg, cos, sin, b, k0, P, H, h, false);
+    load_tile(vs, v, seg, nullptr, nullptr, b, k0, P, H, h, false);
+    load_seg(kseg, seg, b, k0, P);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    zero(s);
+    zero(dp);
+    mma64<false, false>(s, qs, ks, ty, tx);
+    mma64<false, false>(dp, ds, vs, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const bool ok = visible(rseg[i], kseg[c], k0 + c, rvis[i]);
+        const float p = ok ? expf(s[i][j] - rlse[i]) : 0.f;
+        ss[(ty + 16 * i) * LD + c] = ok ? p * (dp[i][j] - rdelta[i]) : 0.f;
+      }
+    __syncthreads();
+    // dq(i, d) += sum_c ds(i, c) k(c, d)
+    mma64<false, true>(dqa, ss, ks, ty, tx);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= P) continue;
+    if (cos != nullptr) unrotate(dqa[i], cos, sin, ((long long)b * P + r) * DH, tx);
+    float* o = dq + ((long long)b * P + r) * H * DH + h * DH;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[tx + 16 * j] = dqa[i][j];
+  }
+}
+
+}  // namespace
+
+// C entry for ctypes: #3's fp32 form (delta, then the key pass and the
+// query pass) on `stream`; returns the first CUDA error (0 when the
+// launches were accepted). cos and sin may both be null, and so may dlse
+// (zeros). Any P.
+extern "C" int ggt_flash_bwd_f32(const void* q, const void* k, const void* v, const void* seg,
+                                 const void* cos, const void* sin, const void* out,
+                                 const void* lse, const void* dout, const void* dlse,
+                                 void* delta, void* dq, void* dk, void* dv, int B, int P, int H,
+                                 int causal, void* stream) {
+  if (B == 0 || P == 0 || H == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err =
+      cudaFuncSetAttribute(dkv_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, KEY_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dq_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               QUERY_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (long long)B * P * H;
+  delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
+      (const float*)dout, (const float*)out, (const int*)seg, (const float*)dlse, (float*)delta,
+      B, P, H);
+  const dim3 grid((P + T - 1) / T, H, B);
+  dkv_f32_kernel<<<grid, THREADS, KEY_SMEM, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)seg, (const float*)cos,
+      (const float*)sin, (const float*)lse, (const float*)delta, (const float*)dout, (float*)dk,
+      (float*)dv, P, H, causal);
+  dq_f32_kernel<<<grid, THREADS, QUERY_SMEM, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)seg, (const float*)cos,
+      (const float*)sin, (const float*)lse, (const float*)delta, (const float*)dout, (float*)dq,
+      P, H, causal);
+  return (int)cudaGetLastError();
+}

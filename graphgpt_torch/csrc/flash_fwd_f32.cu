@@ -1,0 +1,135 @@
+// Segment-masked flash attention forward in fp32, for Hopper.
+//
+// Replaces graphgpt_tpu/ops/flash_attention.py:124 _fwd_kernel_single when
+// it is given fp32 (a `model.dtype: float32` model): it takes its working
+// type from its inputs, so there q.k^T, the probabilities (cast to v's
+// dtype, :155) and p.v are all fp32, and out is written in q's dtype. The
+// bf16 form is csrc/flash_fwd.cu. Same contract: q (pre-scaled), k, v
+// token-major [B, P, H * 64] fp32, segment ids int32 [B, P], RoPE cos/sin
+// [B, P, 64] fp32 applied in the kernel (or null); out [B, P, H * 64] fp32,
+// lse [B, H, P] fp32. Masks: bidirectional, causal, or bi-causal with
+// `bi_split` bit slots. A padded row (segment 0), and a row that sees no
+// key, give out 0 and lse -1e30.
+//
+// What bounds it on the H100: operations. The products must keep fp32
+// accuracy, so the tensor cores' TF32 (about three decimal digits) is out;
+// the fastest fp32-accurate product is 3xTF32 at 495 / 3 = 165 TFLOP/s,
+// and this kernel's FFMA tops out at the 67 TFLOP/s of the fp32 cores. At
+// B 8 x P 1024, 12 heads, the packed segments leave ~6 GFLOP of visible
+// work and 0.15 GB of traffic, so even FFMA is far from the byte bound.
+//
+// Design: simple and right first. One block of 256 threads a (row, head,
+// 64-query tile), an online softmax over the 64-key tiles the mask lets
+// through (a tile pair that shares no segment id, or lies past the causal
+// bound, is skipped); q, k, v and the probabilities as 64 x 64 fp32 tiles
+// in shared memory (flash_f32.cuh), S = q k^T and O += P v by FFMA.
+
+#include "flash_f32.cuh"
+
+namespace {
+
+using namespace f32;
+
+constexpr int SMEM = 4 * TILE * sizeof(float) + T * sizeof(int);  // q, k, v, p; key ids
+
+__global__ void __launch_bounds__(THREADS, 2)
+fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const int* __restrict__ seg,
+               const float* __restrict__ cos, const float* __restrict__ sin,
+               float* __restrict__ out, float* __restrict__ lse, int P, int H, int causal,
+               int bi_split) {
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* ks = qs + TILE;
+  float* vs = ks + TILE;
+  float* ps = vs + TILE;
+  int* kseg = reinterpret_cast<int*>(ps + TILE);
+  const int q0 = blockIdx.x * T, h = blockIdx.y, b = blockIdx.z;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int* seg_row = seg + (long long)b * P;
+
+  load_tile(qs, q, seg, cos, sin, b, q0, P, H, h, false);
+  int rseg[4], rvis[4];
+  float m[4], l[4], acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    rseg[i] = r < P ? seg_row[r] : 0;
+    rvis[i] = r < P ? visible_cols(r, causal, bi_split, P) : 0;
+    m[i] = NEG;
+    l[i] = 0.f;
+  }
+  zero(acc);
+  // the key tiles a row of this tile may see
+  const int kmax = visible_cols(min(q0 + T - 1, P - 1), causal, bi_split, P);
+  for (int k0 = 0; k0 < kmax; k0 += T) {
+    if (tiles_miss(seg_row, q0, k0, P)) continue;
+    __syncthreads();  // the last tile's reads of ks, vs, ps are done
+    load_tile(ks, k, seg, cos, sin, b, k0, P, H, h, false);
+    load_tile(vs, v, seg, nullptr, nullptr, b, k0, P, H, h, false);
+    load_seg(kseg, seg, b, k0, P);
+    __syncthreads();
+    float s[4][4];
+    zero(s);
+    mma64<false, false>(s, qs, ks, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      unsigned ok = 0;  // bit j: the pair (row, column tx + 16 j) is visible
+      float mt = NEG;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        if (kseg[c] > 0 && kseg[c] == rseg[i] && k0 + c < rvis[i]) {
+          ok |= 1u << j;
+          mt = fmaxf(mt, s[i][j]);
+        }
+      }
+      const float mn = fmaxf(m[i], row_max(mt));
+      // a row with no visible key yet keeps m = NEG, l = 0 and acc = 0
+      const float scale = mn > NEG ? expf(m[i] - mn) : 1.f;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = (ok >> j) & 1u ? expf(s[i][j] - mn) : 0.f;
+        sum += p;
+        ps[(ty + 16 * i) * LD + tx + 16 * j] = p;
+      }
+      l[i] = l[i] * scale + row_sum(sum);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] *= scale;
+      m[i] = mn;
+    }
+    __syncthreads();
+    // O(i, d) += sum_j P(i, j) v(j, d)
+    mma64<false, true>(acc, ps, vs, ty, tx);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= P) continue;
+    const bool live = rseg[i] > 0 && m[i] > NEG;
+    float* o = out + ((long long)b * P + r) * H * DH + h * DH;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[tx + 16 * j] = live ? acc[i][j] / l[i] : 0.f;
+    if (tx == 0) lse[((long long)b * H + h) * P + r] = live ? m[i] + logf(l[i]) : NEG;
+  }
+}
+
+}  // namespace
+
+// C entry for ctypes: #1's fp32 form on `stream`; returns the first CUDA
+// error (0 when the launch was accepted). cos and sin may both be null (no
+// RoPE). Any P.
+extern "C" int ggt_flash_fwd_f32(const void* q, const void* k, const void* v, const void* seg,
+                                 const void* cos, const void* sin, void* out, void* lse, int B,
+                                 int P, int H, int causal, int bi_split, void* stream) {
+  if (B == 0 || P == 0 || H == 0) return 0;
+  cudaError_t err =
+      cudaFuncSetAttribute(fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((P + T - 1) / T, H, B);
+  fwd_f32_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)seg, (const float*)cos,
+      (const float*)sin, (float*)out, (float*)lse, P, H, causal, bi_split);
+  return (int)cudaGetLastError();
+}

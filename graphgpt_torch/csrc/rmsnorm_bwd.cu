@@ -2,9 +2,11 @@
 // pass over the rows, for Hopper.
 //
 // Replaces graphgpt_tpu/ops/mlp.py:414 _rmsnorm_bwd_kernel (launched by
-// rmsnorm_bwd_pallas :436). Same contract: x and the cotangent g are bf16
-// [N, D], w fp32 [D]; dx bf16 [N, D], dw fp32 [D]. Statistics and dx are
-// computed in fp32 and dx is rounded once:
+// rmsnorm_bwd_pallas :436), in both dtypes it is given: the TPU kernel
+// writes dx in its ref's dtype, so an fp32 model (`model.dtype: float32`)
+// runs it in fp32. Same contract: x and the cotangent g are bf16 or fp32
+// [N, D], w fp32 [D]; dx [N, D] in x's dtype, dw fp32 [D]. Statistics and
+// dx are computed in fp32 and dx is rounded once (not at all in fp32):
 //   n = x * rrms,  dn = g * w,  dx = rrms * (dn - n * mean(dn * n)),
 //   dw = sum over rows of g * n.
 //
@@ -12,6 +14,7 @@
 // 3 x 100.7 MB at N = 65536, D = 768 (~0.09 ms of HBM time) against a few
 // operations an element. At the fine-tune and denoise N (18,432, 22,528)
 // that is 0.025-0.031 ms, so a fixed cost of a few microseconds shows.
+// In fp32 the bytes double (x, g and dx 4 bytes an element).
 //
 // Design. The TPU kernel carries its dw sum in scratch across a sequential
 // grid; blocks here run in any order, so each CTA sums the dw of the rows
@@ -20,13 +23,17 @@
 // from launch to launch (no atomics).
 //  - The row pass is persistent: at most two CTAs of 8 warps an SM (the
 //    grid comes from the caller, from the SM count), rows grid-strided over
-//    the warps. A warp owns a row at a time: a lane holds its 16-byte chunks
-//    of x and g (neighbouring lanes on neighbouring addresses) as bf16, and
-//    issues the loads of its next row before the shuffle sums of this one,
-//    so that two rows a warp are in flight (one above D 1280, for want of
-//    registers). w sits in shared memory; dw in registers, per lane, until
+//    the warps. A warp owns a row at a time: a lane holds its chunks of 8
+//    elements of x and g (one 16-byte vector each in bf16, two in fp32;
+//    neighbouring lanes on neighbouring addresses) as loaded, and issues
+//    the loads of its next row before the shuffle sums of this one, so that
+//    two rows a warp are in flight (bf16 up to D 1280, fp32 up to D 512,
+//    for want of registers). w sits in shared memory; dw in registers, per
+//    lane, until
 //    the end, where the CTA's warps add theirs by a fixed tree in shared
-//    memory and warp 0 writes the CTA's row.
+//    memory and warp 0 writes the CTA's row. The element type is a
+//    template parameter: the bf16 and fp32 forms do the same arithmetic in
+//    the same order, and differ only in how a chunk is loaded and stored.
 //  - The sum of the <= 2 x 132 rows runs spread over the card: 8 warps a
 //    block of 32 columns, each warp a slice of the rows in index order, then
 //    the 8 slices in warp order.
@@ -51,41 +58,75 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float lo_f(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float hi_f(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
 
-// element e (0..7) of a 16-byte chunk of bf16
-__device__ __forceinline__ float elem(const uint4& c, int e) {
-  const uint32_t w = e < 2 ? c.x : e < 4 ? c.y : e < 6 ? c.z : c.w;
-  return (e & 1) ? hi_f(w) : lo_f(w);
-}
+// How a chunk of 8 elements of T is held (VEC 16-byte vectors), read and written.
+template <typename T>
+struct Chunk;
 
-// The chunks of x and g of one row that a lane holds (zeros past D).
-template <int NC>
-struct RowChunks {
-  uint4 x[NC], g[NC];
+template <>
+struct Chunk<bf16> {
+  static constexpr int VEC = 1;
+  // element e (0..7) of a chunk of bf16
+  static __device__ __forceinline__ float elem(const uint4* c, int e) {
+    const uint32_t w = e < 2 ? c[0].x : e < 4 ? c[0].y : e < 6 ? c[0].z : c[0].w;
+    return (e & 1) ? hi_f(w) : lo_f(w);
+  }
+  static __device__ __forceinline__ void store(bf16* dst, const float* y) {
+    uint4 pack;
+    bf16* p = reinterpret_cast<bf16*>(&pack);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) p[e] = __float2bfloat16(y[e]);
+    *reinterpret_cast<uint4*>(dst) = pack;
+  }
 };
 
-template <int NC>
-__device__ __forceinline__ void load_row(RowChunks<NC>& r, const bf16* x, const bf16* g,
+template <>
+struct Chunk<float> {
+  static constexpr int VEC = 2;
+  static __device__ __forceinline__ float elem(const uint4* c, int e) {
+    const uint4& v = c[e >> 2];
+    const uint32_t w = (e & 3) == 0 ? v.x : (e & 3) == 1 ? v.y : (e & 3) == 2 ? v.z : v.w;
+    return __uint_as_float(w);
+  }
+  static __device__ __forceinline__ void store(float* dst, const float* y) {
+    *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
+    *reinterpret_cast<float4*>(dst + 4) = make_float4(y[4], y[5], y[6], y[7]);
+  }
+};
+
+// The chunks of x and g of one row that a lane holds (zeros past D).
+template <typename T, int NC>
+struct RowChunks {
+  uint4 x[NC][Chunk<T>::VEC], g[NC][Chunk<T>::VEC];
+};
+
+template <typename T, int NC>
+__device__ __forceinline__ void load_row(RowChunks<T, NC>& r, const T* x, const T* g,
                                          long long row, int D, int lane) {
   const int nchunks = D / 8;
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
     const int c = lane + 32 * i;
-    r.x[i] = r.g[i] = make_uint4(0, 0, 0, 0);
-    if (c < nchunks) {
-      r.x[i] = *reinterpret_cast<const uint4*>(x + row * D + c * 8);
-      r.g[i] = *reinterpret_cast<const uint4*>(g + row * D + c * 8);
+#pragma unroll
+    for (int u = 0; u < Chunk<T>::VEC; ++u) {
+      r.x[i][u] = r.g[i][u] = make_uint4(0, 0, 0, 0);
+      if (c < nchunks) {
+        r.x[i][u] = reinterpret_cast<const uint4*>(x + row * D + c * 8)[u];
+        r.g[i][u] = reinterpret_cast<const uint4*>(g + row * D + c * 8)[u];
+      }
     }
   }
 }
 
 // Two CTAs an SM up to 3 chunks a lane (D <= 768), one above. A lane
-// holds two rows' chunks, their fp32 values and dw: ~40 NC registers, so
-// above 5 chunks (D > 1280) a warp keeps one row in flight, not two.
-template <int NC>
+// holds two rows' chunks, their fp32 values and dw: ~40 NC registers in
+// bf16, so above 5 chunks (D > 1280) a warp keeps one row in flight, not
+// two; an fp32 chunk takes twice the registers, so there above 2 (D > 512).
+template <typename T, int NC>
 __global__ void __launch_bounds__(WARPS * 32, NC <= 3 ? 2 : 1)
-rmsnorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                   const float* __restrict__ w, bf16* __restrict__ dx,
+rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                   const float* __restrict__ w, T* __restrict__ dx,
                    float* __restrict__ partial, int N, int D, float eps) {
+  using C = Chunk<T>;
   extern __shared__ float smem[];  // w [D], then the tree's WARPS / 2 rows of D
   float* w_s = smem;
   float* tree = smem + D;
@@ -101,8 +142,8 @@ rmsnorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
   const float inv_d = 1.f / (float)D;
   const long long stride = (long long)gridDim.x * WARPS;
   long long row = (long long)blockIdx.x * WARPS + warp;
-  constexpr bool AHEAD = NC <= 5;
-  RowChunks<NC> cur, nxt;
+  constexpr bool AHEAD = NC <= (C::VEC == 1 ? 5 : 2);
+  RowChunks<T, NC> cur, nxt;
   if (AHEAD && row < N) load_row(cur, x, g, row, D, lane);
   for (; row < N; row += stride) {
     // AHEAD: the next row's loads go out before this row's sums
@@ -113,7 +154,7 @@ rmsnorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
     for (int i = 0; i < NC; ++i)
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const float xv = elem(cur.x[i], e);
+        const float xv = C::elem(cur.x[i], e);
         ss += xv * xv;
       }
     const float rrms = rsqrtf(warp_sum(ss) * inv_d + eps);
@@ -126,7 +167,7 @@ rmsnorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
       const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const float n = elem(cur.x[i], e) * rrms, gv = elem(cur.g[i], e);
+        const float n = C::elem(cur.x[i], e) * rrms, gv = C::elem(cur.g[i], e);
         dw[i][e] += gv * n;
         dot += gv * wv[e] * n;
       }
@@ -139,14 +180,13 @@ rmsnorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
         const float4 wa = *reinterpret_cast<const float4*>(w_s + c * 8);
         const float4 wb = *reinterpret_cast<const float4*>(w_s + c * 8 + 4);
         const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-        uint4 pack;
-        bf16* y = reinterpret_cast<bf16*>(&pack);
+        float y[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          const float n = elem(cur.x[i], e) * rrms, dn = elem(cur.g[i], e) * wv[e];
-          y[e] = __float2bfloat16(rrms * (dn - n * m));
+          const float n = C::elem(cur.x[i], e) * rrms, dn = C::elem(cur.g[i], e) * wv[e];
+          y[e] = rrms * (dn - n * m);
         }
-        *reinterpret_cast<uint4*>(dx + row * D + c * 8) = pack;
+        C::store(dx + row * D + c * 8, y);
       }
     }
     if (AHEAD) cur = nxt;
@@ -218,44 +258,38 @@ rmsnorm_bwd_reduce_kernel(const float* __restrict__ partial, float* __restrict__
   }
 }
 
-template <int NC>
-cudaError_t launch(const bf16* x, const bf16* g, const float* w, bf16* dx,
+template <typename T, int NC>
+cudaError_t launch(const T* x, const T* g, const float* w, T* dx,
                    float* partial, int N, int D, float eps, int blocks,
                    cudaStream_t st) {
   const size_t smem = (size_t)D * (1 + WARPS / 2) * sizeof(float);
-  rmsnorm_bwd_kernel<NC><<<blocks, WARPS * 32, smem, st>>>(x, g, w, dx, partial, N, D, eps);
+  rmsnorm_bwd_kernel<T, NC><<<blocks, WARPS * 32, smem, st>>>(x, g, w, dx, partial, N, D, eps);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// C entry for ctypes: the stages of `stages` (1 the row pass, 2 the sum of
-// its scratch; 3 both, the call) on `stream`; returns the first CUDA error
-// (0 when the launches were accepted). `partial` is fp32 scratch
-// [blocks, D] from the caller, `blocks` the row pass's grid; D % 8 == 0 and
-// ceil(D / 256) one of the chunk counts below.
-extern "C" int ggt_rmsnorm_bwd_stages(const void* x, const void* g, const void* w, void* dx,
-                                      void* dw, void* partial, int N, int D, float eps,
-                                      int blocks, int stages, void* stream) {
+// The stages of `stages` in element type T (see the C entries below).
+template <typename T>
+int stages_of(const void* x, const void* g, const void* w, void* dx, void* dw, void* partial,
+              int N, int D, float eps, int blocks, int stages, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int nc = (D / 8 + 31) / 32;
   if (D % 8 != 0 || nc < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
-  const bf16* xp = (const bf16*)x;
-  const bf16* gp = (const bf16*)g;
+  const T* xp = (const T*)x;
+  const T* gp = (const T*)g;
   const float* wp = (const float*)w;
-  bf16* dxp = (bf16*)dx;
+  T* dxp = (T*)dx;
   float* pp = (float*)partial;
   if (stages & RMS_MAIN) {
     cudaError_t err;
     // one instantiation for each hidden size the port's configs name
     // (128 to 1600: 1, 2, 3, 4, 5 and 7 chunks a lane)
     switch (nc) {
-      case 1: err = launch<1>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
-      case 2: err = launch<2>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
-      case 3: err = launch<3>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
-      case 4: err = launch<4>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
-      case 5: err = launch<5>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
-      case 7: err = launch<7>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
+      case 1: err = launch<T, 1>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
+      case 2: err = launch<T, 2>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
+      case 3: err = launch<T, 3>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
+      case 4: err = launch<T, 4>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
+      case 5: err = launch<T, 5>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
+      case 7: err = launch<T, 7>(xp, gp, wp, dxp, pp, N, D, eps, blocks, st); break;
       default: return (int)cudaErrorInvalidValue;
     }
     if (err != cudaSuccess) return (int)err;
@@ -266,10 +300,37 @@ extern "C" int ggt_rmsnorm_bwd_stages(const void* x, const void* g, const void* 
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// C entries for ctypes: the stages of `stages` (1 the row pass, 2 the sum
+// of its scratch; 3 both, the call) on `stream`, bf16 x, g and dx (the
+// `_f32` entries: fp32); return the first CUDA error (0 when the launches
+// were accepted). `partial` is fp32 scratch [blocks, D] from the caller,
+// `blocks` the row pass's grid; D % 8 == 0 and ceil(D / 256) one of the
+// chunk counts above.
+extern "C" int ggt_rmsnorm_bwd_stages(const void* x, const void* g, const void* w, void* dx,
+                                      void* dw, void* partial, int N, int D, float eps,
+                                      int blocks, int stages, void* stream) {
+  return stages_of<bf16>(x, g, w, dx, dw, partial, N, D, eps, blocks, stages, stream);
+}
+
+extern "C" int ggt_rmsnorm_bwd_f32_stages(const void* x, const void* g, const void* w, void* dx,
+                                          void* dw, void* partial, int N, int D, float eps,
+                                          int blocks, int stages, void* stream) {
+  return stages_of<float>(x, g, w, dx, dw, partial, N, D, eps, blocks, stages, stream);
+}
+
 // The call: both stages.
 extern "C" int ggt_rmsnorm_bwd(const void* x, const void* g, const void* w, void* dx,
                                void* dw, void* partial, int N, int D, float eps,
                                int blocks, void* stream) {
   return ggt_rmsnorm_bwd_stages(x, g, w, dx, dw, partial, N, D, eps, blocks,
                                 RMS_MAIN | RMS_REDUCE, stream);
+}
+
+extern "C" int ggt_rmsnorm_bwd_f32(const void* x, const void* g, const void* w, void* dx,
+                                   void* dw, void* partial, int N, int D, float eps,
+                                   int blocks, void* stream) {
+  return ggt_rmsnorm_bwd_f32_stages(x, g, w, dx, dw, partial, N, D, eps, blocks,
+                                    RMS_MAIN | RMS_REDUCE, stream);
 }

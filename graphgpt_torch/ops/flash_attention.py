@@ -42,6 +42,13 @@ flash_attention rotates q and k outside the kernels (:1249-1255), with
 Here the port differs: an unknown mode raises, where the JAX package takes
 any value it does not know for `legacy`.
 
+Dtypes: every kernel takes bf16. #1 and #3 also take fp32 (a
+`model.dtype: float32` model), in forms of their own, `csrc/flash_fwd_f32.cu`
+and `csrc/flash_bwd_f32.cu`, each with its wrapper and its count
+(flash_fwd_f32, flash_bwd_f32), to which flash_fwd and flash_bwd hand fp32
+CUDA tensors; the other forms raise on fp32 until theirs are ported, and
+every kernel raises on any other dtype.
+
 Head widths: the kernels are built for KERNEL_DH = 64 and raise on any
 other. Below it `flash_attention` does what the JAX package's does before
 its kernels (`_PAD_DH` :1202, `_prep` :1217-1220, :1249 and :1280): q and
@@ -224,12 +231,13 @@ def flash_attention_ref(
     return _tokens(out), torch.cat([l for _, l in parts], dim=2)
 
 
-def _check_rope(cos, sin, b, p, dh):
-    """cos, sin as contiguous bf16 [B, P, Dh] (None passes through)."""
+def _check_rope(cos, sin, b, p, dh, dtype=torch.bfloat16):
+    """cos, sin as contiguous [B, P, Dh] in the kernel's dtype (None passes
+    through): fp32 tables stay fp32 for the fp32 forms."""
     if cos is None:
         return None, None
-    cos = cos.to(torch.bfloat16).contiguous()
-    sin = sin.to(torch.bfloat16).contiguous()
+    cos = cos.to(dtype).contiguous()
+    sin = sin.to(dtype).contiguous()
     if cos.shape != (b, p, dh) or sin.shape != (b, p, dh):
         raise ValueError(f"cos/sin must be [B, P, {dh}], got {cos.shape}")
     return cos, sin
@@ -245,14 +253,31 @@ def _opt_ptr(t):
     return _build.ptr(t) if t is not None else ctypes.c_void_p(0)
 
 
+def _fwd_single(name, source, symbol, dtype, qs, k, v, seg, cos, sin, causal: bool, dh: int,
+                bi_causal_split: int):
+    """Launch #1's form `symbol` of csrc/<source>.cu, which takes `dtype`:
+    (out, lse, the entry's error code)."""
+    b, p, hd = qs.shape
+    (qs, k, v), seg, _, cos, sin = _check_fwd(name, dh, qs, k, v, seg, seg, cos, sin, dtype)
+    out = torch.empty_like(qs)
+    lse = torch.empty((b, hd // dh, p), dtype=torch.float32, device=qs.device)
+    fn = _build.entry(source, symbol, _ARGTYPES)
+    err = fn(
+        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg), _opt_ptr(cos),
+        _opt_ptr(sin), _build.ptr(out), _build.ptr(lse), b, p, hd // dh, int(causal),
+        int(bi_causal_split), _build.stream_ptr(qs.device),
+    )
+    return out, lse, err
+
+
 def flash_fwd(qs, k, v, seg, cos, sin, causal: bool, dh: int, bi_causal_split: int = 0):
     """(out, lse), dispatched as `_flash_fwd` does: under `band` up to
     _MAX_BAND the band forward (flash_fwd_band, #9, which takes q and k
     rotated: cos None); under `skip`, or above P = 2048, the streamed
     forward (flash_fwd_stream, #6); else the single-block kernel (#1) for a
-    CUDA tensor, its plain version for a CPU tensor (or inside
-    ops.reference_mode())."""
-    b, p, hd = qs.shape
+    CUDA tensor, its fp32 form (flash_fwd_f32) for an fp32 one, the plain
+    version for a CPU tensor (or inside ops.reference_mode())."""
+    p = qs.shape[1]
     mode = _mode()
     if mode == "band" and p <= _MAX_BAND:
         if cos is not None:
@@ -262,21 +287,33 @@ def flash_fwd(qs, k, v, seg, cos, sin, causal: bool, dh: int, bi_causal_split: i
         return flash_fwd_stream(qs, k, v, seg, seg, cos, sin, causal, dh, bi_causal_split)
     if not use_kernel(qs, k, v, seg):
         return flash_attention_ref(qs, k, v, seg, cos, sin, causal, dh, bi_causal_split)
-    (qs, k, v), seg, _, cos, sin = _check_fwd("flash_fwd", dh, qs, k, v, seg, seg, cos, sin)
-    out = torch.empty_like(qs)
-    lse = torch.empty((b, hd // dh, p), dtype=torch.float32, device=qs.device)
-    fn = _build.entry("flash_fwd", "ggt_flash_fwd", _ARGTYPES)
-    err = fn(
-        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg), _opt_ptr(cos),
-        _opt_ptr(sin), _build.ptr(out), _build.ptr(lse), b, p, hd // dh, int(causal),
-        int(bi_causal_split), _build.stream_ptr(qs.device),
-    )
+    if qs.dtype == torch.float32:
+        return flash_fwd_f32(qs, k, v, seg, cos, sin, causal, dh, bi_causal_split)
+    out, lse, err = _fwd_single("flash_fwd", "flash_fwd", "ggt_flash_fwd", torch.bfloat16, qs, k,
+                                v, seg, cos, sin, causal, dh, bi_causal_split)
     flash_fwd.launches += 1
     _build.check(err, "flash_fwd")
     return out, lse
 
 
 flash_fwd.launches = 0
+
+
+def flash_fwd_f32(qs, k, v, seg, cos, sin, causal: bool, dh: int, bi_causal_split: int = 0):
+    """(out, lse) of #1's fp32 form (`csrc/flash_fwd_f32.cu`) for fp32 CUDA
+    tensors, cos and sin kept fp32; the plain version for a CPU tensor (or
+    inside ops.reference_mode()). flash_fwd hands it fp32 rows of P <= 2048."""
+    if not use_kernel(qs, k, v, seg):
+        return flash_attention_ref(qs, k, v, seg, cos, sin, causal, dh, bi_causal_split)
+    out, lse, err = _fwd_single("flash_fwd_f32", "flash_fwd_f32", "ggt_flash_fwd_f32",
+                                torch.float32, qs, k, v, seg, cos, sin, causal, dh,
+                                bi_causal_split)
+    flash_fwd_f32.launches += 1
+    _build.check(err, "flash_fwd_f32")
+    return out, lse
+
+
+flash_fwd_f32.launches = 0
 
 
 def _tile_scratch(seg_q):
@@ -438,35 +475,35 @@ def _check_segs(name, seg_q, seg_k, b, p):
     return seg_q, seg_k
 
 
-def _check_fwd(name, dh, qs, k, v, seg_q, seg_k, cos, sin):
+def _check_fwd(name, dh, qs, k, v, seg_q, seg_k, cos, sin, dtype=torch.bfloat16):
     """The checks and layouts every forward kernel needs: ((qs, k, v)
     contiguous, seg_q, seg_k, cos, sin). Raises on what the kernels do not
-    take."""
+    take: a form takes `dtype` only."""
     b, p, _ = qs.shape
-    if dh != KERNEL_DH or qs.dtype != torch.bfloat16:
+    if dh != KERNEL_DH or any(t.dtype != dtype for t in (qs, k, v)):
         raise NotImplementedError(
-            f"the flash kernel takes bf16 with head_dim {KERNEL_DH} (flash_attention pads "
+            f"{name} takes {dtype} with head_dim {KERNEL_DH} (flash_attention pads "
             f"narrower heads), got {qs.dtype}, {dh}")
     tok = tuple(t.contiguous() for t in (qs, k, v))
     if any(t.shape != qs.shape for t in tok):
         raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in tok]}")
     seg_q, seg_k = _check_segs(name, seg_q, seg_k, b, p)
-    cos, sin = _check_rope(cos, sin, b, p, dh)
+    cos, sin = _check_rope(cos, sin, b, p, dh, dtype)
     _check_aligned(name, *tok, cos, sin)
     return tok, seg_q, seg_k, cos, sin
 
 
 def _check_bwd(name, dh, qs, k, v, seg, cos, sin, lse, do, extra=(), extra_rows=(),
-               seg_k=None):
+               seg_k=None, dtype=torch.bfloat16):
     """The checks and layouts every backward kernel needs: ((qs, k, v, do,
     extra...) contiguous, seg and seg_k (seg unless given), cos, sin, (lse,
     extra_rows...) fp32 [B, H, P]). Raises on what the kernels do not
-    take."""
+    take: a form takes `dtype` only."""
     b, p, hd = qs.shape
     tok = (qs, k, v, do) + tuple(extra)
-    if dh != KERNEL_DH or any(t.dtype != torch.bfloat16 for t in tok):
-        raise NotImplementedError(f"{name} takes bf16 with head_dim {KERNEL_DH} (flash_attention "
-                                  f"pads narrower heads), got {qs.dtype}, {dh}")
+    if dh != KERNEL_DH or any(t.dtype != dtype for t in tok):
+        raise NotImplementedError(f"{name} takes {dtype} with head_dim {KERNEL_DH} "
+                                  f"(flash_attention pads narrower heads), got {qs.dtype}, {dh}")
     tok = tuple(t.contiguous() for t in tok)
     if any(t.shape != qs.shape for t in tok):
         raise ValueError(f"{name}: token-major shapes {[tuple(t.shape) for t in tok]}")
@@ -475,7 +512,7 @@ def _check_bwd(name, dh, qs, k, v, seg, cos, sin, lse, do, extra=(), extra_rows=
     if any(r.shape != (b, hd // dh, p) for r in rows):
         raise ValueError(f"{name}: lse and row statistics must be [B, H, P] = "
                          f"{(b, hd // dh, p)}, got {[tuple(r.shape) for r in rows]}")
-    cos, sin = _check_rope(cos, sin, b, p, dh)
+    cos, sin = _check_rope(cos, sin, b, p, dh, dtype)
     _check_aligned(name, *tok, cos, sin)
     return tok, seg, seg_k, cos, sin, rows
 
@@ -492,8 +529,9 @@ def flash_bwd(
     under `band` above its limit (which never takes the fused kernel), the
     split pair flash_dq, flash_dkv; else the fused CUDA kernel (a small
     delta kernel and the main one, counted as one call) for a CUDA tensor,
-    the plain version for a CPU tensor (or inside ops.reference_mode()).
-    dlse [B, H, P] is the optional cotangent of lse; None means zeros."""
+    its fp32 form (flash_bwd_f32) for an fp32 one, the plain version for a
+    CPU tensor (or inside ops.reference_mode()). dlse [B, H, P] is the
+    optional cotangent of lse; None means zeros."""
     mode = _mode()
     if mode == "band" and qs.shape[1] <= _MAX_BAND:
         if cos is not None:
@@ -513,26 +551,58 @@ def flash_bwd(
         return dq, dk, dv
     if not use_kernel(qs, k, v, seg, out, lse, do):
         return flash_bwd_ref(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh)
-    b, p, hd = qs.shape
-    extra_rows = () if dlse is None else (dlse,)
-    (qs, k, v, do, out), seg, _, cos, sin, rows = _check_bwd(
-        "flash_bwd", dh, qs, k, v, seg, cos, sin, lse, do, extra=(out,), extra_rows=extra_rows)
-    lse, dlse = rows[0], (rows[1] if dlse is not None else None)
-    dq, dk, dv = torch.empty_like(qs), torch.empty_like(qs), torch.empty_like(qs)
-    delta = torch.empty_like(lse)
-    fn = _build.entry("flash_bwd", "ggt_flash_bwd", _BWD_ARGTYPES)
-    err = fn(
-        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg), _opt_ptr(cos),
-        _opt_ptr(sin), _build.ptr(out), _build.ptr(lse), _build.ptr(do), _opt_ptr(dlse),
-        _build.ptr(delta), _build.ptr(dq), _build.ptr(dk), _build.ptr(dv),
-        b, p, lse.shape[1], int(causal), _build.stream_ptr(qs.device),
-    )
+    if qs.dtype == torch.float32:
+        return flash_bwd_f32(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh)
+    dq, dk, dv, err = _bwd_fused("flash_bwd", "flash_bwd", "ggt_flash_bwd", torch.bfloat16, qs, k,
+                                 v, seg, cos, sin, out, lse, do, dlse, causal, dh)
     flash_bwd.launches += 1
     _build.check(err, "flash_bwd")
     return dq, dk, dv
 
 
 flash_bwd.launches = 0
+
+
+def _bwd_fused(name, source, symbol, dtype, qs, k, v, seg, cos, sin, out, lse, do, dlse,
+               causal: bool, dh: int):
+    """Launch #3's form `symbol` of csrc/<source>.cu, which takes `dtype`:
+    (dq, dk, dv, the entry's error code)."""
+    b, p, _ = qs.shape
+    extra_rows = () if dlse is None else (dlse,)
+    (qs, k, v, do, out), seg, _, cos, sin, rows = _check_bwd(
+        name, dh, qs, k, v, seg, cos, sin, lse, do, extra=(out,), extra_rows=extra_rows,
+        dtype=dtype)
+    lse, dlse = rows[0], (rows[1] if dlse is not None else None)
+    dq, dk, dv = torch.empty_like(qs), torch.empty_like(qs), torch.empty_like(qs)
+    delta = torch.empty_like(lse)
+    fn = _build.entry(source, symbol, _BWD_ARGTYPES)
+    err = fn(
+        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg), _opt_ptr(cos),
+        _opt_ptr(sin), _build.ptr(out), _build.ptr(lse), _build.ptr(do), _opt_ptr(dlse),
+        _build.ptr(delta), _build.ptr(dq), _build.ptr(dk), _build.ptr(dv),
+        b, p, lse.shape[1], int(causal), _build.stream_ptr(qs.device),
+    )
+    return dq, dk, dv, err
+
+
+def flash_bwd_f32(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal: bool, dh: int):
+    """(dq, dk, dv) of #3's fp32 form (`csrc/flash_bwd_f32.cu`: delta, the
+    key pass, the query pass; counted as one call) for fp32 CUDA tensors,
+    cos and sin kept fp32; the plain version for a CPU tensor (or inside
+    ops.reference_mode()). dlse None means zeros; do is taken as zero on
+    padded rows. flash_bwd hands it fp32 rows of P <= 2048 without a
+    bi-causal split."""
+    if not use_kernel(qs, k, v, seg, out, lse, do):
+        return flash_bwd_ref(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh)
+    dq, dk, dv, err = _bwd_fused("flash_bwd_f32", "flash_bwd_f32", "ggt_flash_bwd_f32",
+                                 torch.float32, qs, k, v, seg, cos, sin, out, lse, do, dlse,
+                                 causal, dh)
+    flash_bwd_f32.launches += 1
+    _build.check(err, "flash_bwd_f32")
+    return dq, dk, dv
+
+
+flash_bwd_f32.launches = 0
 
 
 def _check_split_p(name, p: int) -> None:

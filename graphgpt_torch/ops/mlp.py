@@ -10,6 +10,14 @@ Counterpart of `graphgpt_tpu/ops/mlp.py` (`_mlp_kernel` :82, `fused_mlp`
 `csrc/norm_mlp.cu`, `csrc/norm_qkv.cu` and `csrc/rmsnorm_bwd.cu`. Weights
 are in nn.Linear layout (`[out, in]`): the JAX package's `[in, out]`
 matrices transposed.
+
+Dtypes: every kernel takes bf16. #2 and #13 also take fp32 (a
+`model.dtype: float32` model): #2 in a form of its own,
+`csrc/norm_mlp_f32.cu` (wrapper and count norm_mlp_f32), #13 in the fp32
+instances of its templated source (rmsnorm_bwd_f32); norm_mlp and
+rmsnorm_bwd hand them fp32 CUDA tensors. mlp (#11) and norm_qkv (#12)
+raise on fp32 until their forms are ported, and every kernel raises on any
+other dtype.
 """
 
 from __future__ import annotations
@@ -27,6 +35,10 @@ _MLP_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # x, wn, wg, wu, wd, g, out, rrms; N, D, F, bh, bn; eps; act; stream
 _ARGTYPES = (
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+)
+# the fp32 form: x, wn, wg, wu, wd, g, out, rrms; N, D, F; eps; act; stream
+_F32_ARGTYPES = (
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
 # the stage entries (ggt_mlp_stages, ggt_norm_mlp_stages): a stage mask before the stream
 _MLP_STAGE_ARGTYPES = _MLP_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
@@ -114,11 +126,12 @@ def mlp_kernel_ref(x, wg, wu, wd, act: str):
     return F.linear(g.float(), wd.float()).to(dt)
 
 
-def _check_mlp_args(name, x, wg, wu, wd, act):
+def _check_mlp_args(name, x, wg, wu, wd, act, dtype=torch.bfloat16):
     n, d = x.shape
     f = wg.shape[0]
-    if x.dtype != torch.bfloat16 or any(w.dtype != torch.bfloat16 for w in (wg, wu, wd)):
-        raise NotImplementedError(f"the {name} kernel takes bf16 activations and weights")
+    if x.dtype != dtype or any(w.dtype != dtype for w in (wg, wu, wd)):
+        raise NotImplementedError(f"the {name} kernel takes {dtype} activations and weights, "
+                                  f"got {x.dtype}")
     if wg.shape != (f, d) or wu.shape != (f, d) or wd.shape != (d, f):
         raise ValueError(f"weight shapes {wg.shape} {wu.shape} {wd.shape}")
     if d % 64 or f % 64:
@@ -251,25 +264,33 @@ def norm_mlp_ref(x, wn, wg, wu, wd, eps: float, act: str):
     return (x32 + F.linear(g.float(), wd.float())).to(dt)
 
 
+def _norm_mlp_args(name, x, wn, wg, wu, wd, act, dtype):
+    """The checks and layouts both forms of the norm_mlp kernel need:
+    (x, wn fp32, wg, wu, wd) contiguous. Raises on what they do not take."""
+    _check_mlp_args(name, x, wg, wu, wd, act, dtype)
+    if wn.shape != x.shape[-1:]:
+        raise ValueError(f"norm weight shape {wn.shape}")
+    if x.shape[1] > _MLP_MAX_D:
+        raise NotImplementedError(f"the {name} kernel needs D <= {_MLP_MAX_D}, got {x.shape[1]}")
+    x, wg, wu, wd = (t.contiguous() for t in (x, wg, wu, wd))
+    # the kernels read x and the weights 16 bytes at a time (TMA in bf16)
+    if any(t.data_ptr() % 16 for t in (x, wg, wu, wd)):
+        raise ValueError(f"{name} needs 16-byte aligned x and weights")
+    return x, wn.float().contiguous(), wg, wu, wd
+
+
 def norm_mlp(x, wn, wg, wu, wd, eps: float, act: str):
     """x + mlp(rms(x) * wn) for x [N, D] in bf16 and bf16 weights: the CUDA
     kernel (the rrms pre-pass and two stages, counted as one call) for a
-    CUDA tensor, the plain version for a CPU tensor (or inside
-    ops.reference_mode())."""
+    CUDA tensor, its fp32 form (norm_mlp_f32) for fp32 ones, the plain
+    version for a CPU tensor (or inside ops.reference_mode())."""
     if not use_kernel(x, wn, wg, wu, wd):
         return norm_mlp_ref(x, wn, wg, wu, wd, eps, act)
-    _check_mlp_args("norm_mlp", x, wg, wu, wd, act)
-    if wn.shape != x.shape[-1:]:
-        raise ValueError(f"norm weight shape {wn.shape}")
+    if x.dtype == torch.float32:
+        return norm_mlp_f32(x, wn, wg, wu, wd, eps, act)
+    x, wn, wg, wu, wd = _norm_mlp_args("norm_mlp", x, wn, wg, wu, wd, act, torch.bfloat16)
     n, d = x.shape
     f = wg.shape[0]
-    if d > _MLP_MAX_D:
-        raise NotImplementedError(f"the norm_mlp kernel needs D <= {_MLP_MAX_D}, got {d}")
-    x, wg, wu, wd = (t.contiguous() for t in (x, wg, wu, wd))
-    wn = wn.float().contiguous()
-    # TMA reads x and the weights from 16-byte aligned bases
-    if any(t.data_ptr() % 16 for t in (x, wg, wu, wd)):
-        raise ValueError("norm_mlp needs 16-byte aligned x and weights")
     out = torch.empty_like(x)
     if n == 0:
         return out
@@ -288,6 +309,35 @@ def norm_mlp(x, wn, wg, wu, wd, eps: float, act: str):
 
 
 norm_mlp.launches = 0
+
+
+def norm_mlp_f32(x, wn, wg, wu, wd, eps: float, act: str):
+    """x + mlp(rms(x) * wn) for x [N, D] and the weights in fp32: #2's fp32
+    form (`csrc/norm_mlp_f32.cu`: the rrms pre-pass, gate/up, down; counted
+    as one call) for CUDA tensors, the plain version for a CPU tensor (or
+    inside ops.reference_mode())."""
+    if not use_kernel(x, wn, wg, wu, wd):
+        return norm_mlp_ref(x, wn, wg, wu, wd, eps, act)
+    x, wn, wg, wu, wd = _norm_mlp_args("norm_mlp_f32", x, wn, wg, wu, wd, act, torch.float32)
+    n, d = x.shape
+    f = wg.shape[0]
+    out = torch.empty_like(x)
+    if n == 0:
+        return out
+    g = torch.empty((n, f), dtype=torch.float32, device=x.device)
+    rrms = torch.empty((n,), dtype=torch.float32, device=x.device)
+    fn = _build.entry("norm_mlp_f32", "ggt_norm_mlp_f32", _F32_ARGTYPES)
+    err = fn(
+        _build.ptr(x), _build.ptr(wn), _build.ptr(wg), _build.ptr(wu), _build.ptr(wd),
+        _build.ptr(g), _build.ptr(out), _build.ptr(rrms), n, d, f, float(eps), _ACT_IDS[act],
+        _build.stream_ptr(x.device),
+    )
+    norm_mlp_f32.launches += 1
+    _build.check(err, "norm_mlp_f32")
+    return out
+
+
+norm_mlp_f32.launches = 0
 
 
 def norm_mlp_bwd_ref(x, wn, wg, wu, wd, dout, eps: float, act: str):
@@ -463,15 +513,47 @@ def rmsnorm_bwd_ref(x, g, w, eps: float):
 def rmsnorm_bwd(x, g, w, eps: float):
     """(dx, dw) for x, g [N, D] and w [D]: the CUDA kernel (the persistent
     row pass and the small sum of its per-CTA dw rows, counted as one call)
-    for a CUDA tensor, the plain version for a CPU tensor (or inside
+    for bf16 CUDA tensors, its fp32 instances (rmsnorm_bwd_f32) for fp32
+    ones, the plain version for a CPU tensor (or inside
     ops.reference_mode())."""
     if not use_kernel(x, g, w):
         return rmsnorm_bwd_ref(x, g, w, eps)
+    if x.dtype == torch.float32:
+        return rmsnorm_bwd_f32(x, g, w, eps)
+    dx, dw, err = _rms_launch("rmsnorm_bwd", "ggt_rmsnorm_bwd", torch.bfloat16, x, g, w, eps)
+    rmsnorm_bwd.launches += 1
+    _build.check(err, "rmsnorm_bwd")
+    return dx, dw
+
+
+rmsnorm_bwd.launches = 0
+
+
+def rmsnorm_bwd_f32(x, g, w, eps: float):
+    """(dx, dw) for fp32 x, g [N, D]: #13's fp32 instances
+    (`csrc/rmsnorm_bwd.cu`, templated on the element type; the row pass and
+    the sum, counted as one call) for CUDA tensors, the plain version for a
+    CPU tensor (or inside ops.reference_mode())."""
+    if not use_kernel(x, g, w):
+        return rmsnorm_bwd_ref(x, g, w, eps)
+    dx, dw, err = _rms_launch("rmsnorm_bwd_f32", "ggt_rmsnorm_bwd_f32", torch.float32, x, g, w,
+                              eps)
+    rmsnorm_bwd_f32.launches += 1
+    _build.check(err, "rmsnorm_bwd_f32")
+    return dx, dw
+
+
+rmsnorm_bwd_f32.launches = 0
+
+
+def _rms_launch(name, symbol, dtype, x, g, w, eps: float):
+    """Launch the rmsnorm_bwd entry `symbol`, whose x and g are `dtype`:
+    (dx, dw, the entry's error code)."""
     if x.dim() != 2 or g.shape != x.shape or w.shape != x.shape[-1:]:
         raise ValueError(f"shapes x {x.shape} g {g.shape} w {w.shape}")
     n, d = x.shape
-    if x.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
-        raise NotImplementedError("the rmsnorm_bwd kernel takes bf16 x and g")
+    if x.dtype != dtype or g.dtype != dtype:
+        raise NotImplementedError(f"{name} takes {dtype} x and g, got {x.dtype}, {g.dtype}")
     if d % 8 or -(-d // 256) not in _RMS_CHUNKS:
         raise NotImplementedError(
             f"the rmsnorm_bwd kernel needs D % 8 == 0 and ceil(D / 256) in {_RMS_CHUNKS}, got {d}"
@@ -484,14 +566,9 @@ def rmsnorm_bwd(x, g, w, eps: float):
     dx = torch.empty_like(x)
     dw = torch.empty((d,), dtype=torch.float32, device=x.device)
     partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
-    fn = _build.entry("rmsnorm_bwd", "ggt_rmsnorm_bwd", _RMS_ARGTYPES)
+    fn = _build.entry("rmsnorm_bwd", symbol, _RMS_ARGTYPES)
     err = fn(
         _build.ptr(x), _build.ptr(g), _build.ptr(w), _build.ptr(dx), _build.ptr(dw),
         _build.ptr(partial), n, d, float(eps), blocks, _build.stream_ptr(x.device),
     )
-    rmsnorm_bwd.launches += 1
-    _build.check(err, "rmsnorm_bwd")
-    return dx, dw
-
-
-rmsnorm_bwd.launches = 0
+    return dx, dw, err

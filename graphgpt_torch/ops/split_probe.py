@@ -168,7 +168,7 @@ def _drop(role):
 
 # the RMSNorm backward's two launches, one left out
 _RMS_MAIN = [("rmsnorm_bwd_reduce_kernel<<<", "if (false) rmsnorm_bwd_reduce_kernel<<<")]
-_RMS_REDUCE = [("rmsnorm_bwd_kernel<NC><<<", "if (false) rmsnorm_bwd_kernel<NC><<<")]
+_RMS_REDUCE = [("rmsnorm_bwd_kernel<T, NC><<<", "if (false) rmsnorm_bwd_kernel<T, NC><<<")]
 
 
 _MLP_NOCONS = [("wgmma_ss<N>(acc, da + 2 * kk, db + 2 * kk, kc + kk > 0);", "(void)0;"),

@@ -545,6 +545,13 @@ def _open_edge_level(name, path, seed, data_split, pretrain_mode, neg_keys=None,
         neg_keys=neg_keys,
         relation_col=0 if repaired else 1,
     )
+    if s["relations"]:
+        # the relations of every split's triples, which the vocab takes (the
+        # graph's edge table holds train's alone; build_tokenizer): an eval
+        # triple whose relation no train triple has still tokenizes
+        rels = [np.asarray(data[f"{sp}_relation"], np.int64) for sp in ("train", "valid", "test")
+                if f"{sp}_relation" in data]
+        ds.relation_values = np.unique(np.concatenate(rels)) if rels else None
     ds.source = ("edge", name, path, seed, data_split, pretrain_mode, columns)
     return ds
 

@@ -73,6 +73,11 @@ class FinetunePipeline:
     def setup(self):
         cfg = self.cfg
         tcfg = cfg.training
+        # JAX writes event files when use_tb_writer is set and eval_only is
+        # not (graphgpt_tpu/training/finetune.py:226-232): raise rather than
+        # run without them
+        if tcfg.use_tb_writer and not tcfg.eval_only:
+            raise NotImplementedError("use_tb_writer: the TensorBoard writer waits for a later slice")
         os.makedirs(tcfg.output_dir, exist_ok=True)
         self.dataset = build_dataset(cfg)
         self.tokenizer = build_tokenizer(cfg, self.dataset)

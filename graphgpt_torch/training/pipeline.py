@@ -101,7 +101,9 @@ def build_tokenizer(cfg: Config, dataset) -> StackedGSTTokenizer:
     and saved there: from the molecule attribute cardinalities for
     `synthetic_mol`; for a big-graph dataset from its FULL node and edge
     tables, a column at a time (sampling could miss nodes that appear later
-    as random negative endpoints; JAX `training/pipeline.py:64-100`); else
+    as random negative endpoints; JAX `training/pipeline.py:64-100`), with
+    the relations of every split's triples where the dataset carries them
+    (ogbl-wikikg2; JAX takes train's alone); else
     from the attribute values of the dataset's first 10,000 graphs. The
     tokenizer of the config's stacking and task, with its SMTP schedule."""
     tok_cfg = cfg.tokenization
@@ -117,6 +119,12 @@ def build_tokenizer(cfg: Config, dataset) -> StackedGSTTokenizer:
         elif big is not None:
             node_vals = attr_table_values(big.node_attr, tok_cfg.semantics.node.dim)
             edge_vals = attr_table_values(big.edge_attr, tok_cfg.semantics.edge.dim)
+            rels = getattr(dataset, "relation_values", None)
+            if rels is not None and dataset.relation_col < len(edge_vals):
+                # the port's repair: every split's relations (ogbl-wikikg2),
+                # where JAX takes the edge table's, train's alone
+                col = dataset.relation_col
+                edge_vals[col] = np.union1d(edge_vals[col], rels)
         else:
             node_vals = vocab_mod.scan_attr_values(
                 (dataset[i] for i in range(min(len(dataset), 10000))),

@@ -329,3 +329,21 @@ def test_the_flagship_vocab_is_one_short_of_the_molecule_tokenizer(tmp_path):
     tok = build_tokenizer(cfg.sync(), None)
     assert max(tok.vocab_map.values()) == 754 and tok.vocab_size == 755
     assert flagship_config(layers=1).vocab_size == 754
+
+
+def test_a_finetune_config_with_the_tensorboard_writer_raises(tmp_path):
+    """JAX's FinetunePipeline writes event files under use_tb_writer (unless
+    eval_only); the port has no writer yet, so its FinetunePipeline raises
+    at setup, before it writes anything, as its PretrainPipeline does,
+    rather than run without them."""
+    from graphgpt_torch.training.finetune import FinetunePipeline
+
+    cfg = tconfig.load_config(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "pcqm4m_v2_supervised.yaml"), [
+        f"training.output_dir={tmp_path / 'ft'}", "training.use_tb_writer=true"])
+    assert jconfig.load_config(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "pcqm4m_v2_supervised.yaml"),
+        ["training.use_tb_writer=true"]).training.use_tb_writer
+    with pytest.raises(NotImplementedError, match="TensorBoard"):
+        FinetunePipeline(cfg, device="cpu").setup()
+    assert not (tmp_path / "ft").exists()

@@ -8,7 +8,9 @@ out:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerances are in bf16, the kernels' working type: the kernels and the plain
-versions round at the same points but sum in another order.
+versions round at the same points but sum in another order. The fp32 forms
+of #1, #2, #3 and #13 (the tests at the end) are held to 2e-5 relative:
+fp32 sums of up to a few thousand terms in another order.
 """
 
 import contextlib
@@ -168,8 +170,8 @@ def test_flash_kernel_entry_takes_p4096(cuda_device, causal):
 @pytest.mark.gpu
 def test_flash_kernel_raises_outside_this_slice(cuda_device):
     """A bi-causal split runs on the card (the split backward pair), and so
-    does P > 2048 (the streamed kernels #6-#8, whatever the split); fp32
-    still raises."""
+    does P > 2048 (the streamed kernels #6-#8, whatever the split); fp16
+    raises (fp32 has forms of its own, below)."""
     dev = cuda_device
     x = torch.zeros(1, 64, 2, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
     seg = torch.ones(1, 64, dtype=torch.int32, device=dev)
@@ -178,7 +180,7 @@ def test_flash_kernel_raises_outside_this_slice(cuda_device):
     torch.cuda.synchronize()
     assert torch.isfinite(x.grad.float()).all()
     with pytest.raises(NotImplementedError):
-        tfa.flash_attention(x.float(), x.float(), x.float(), seg)
+        tfa.flash_attention(x.half(), x.half(), x.half(), seg)
     big = torch.zeros(1, 2112, 1, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
     seg_big = torch.ones(1, 2112, dtype=torch.int32, device=dev)
     counters = (tfa.flash_fwd_stream, tfa.flash_dq_stream, tfa.flash_dkv_stream, tfa.flash_fwd,
@@ -523,18 +525,20 @@ def test_flash_bwd_ignores_non_finite_do_in_padded_rows(cuda_device, case):
 
 @pytest.mark.gpu
 def test_flash_kernels_raise_outside_their_contract(cuda_device):
-    """#1 and #3 refuse fp32, head dim 32 and a misaligned view on the host;
-    #3's entry refuses P past MAX_P (the wrapper sends such rows to the
-    streamed pair) with its own code."""
+    """#1 and #3 refuse fp16 (and a mix of dtypes), head dim 32 and a
+    misaligned view on the host; #3's entry refuses P past MAX_P (the
+    wrapper sends such rows to the streamed pair) with its own code."""
     dev = cuda_device
     qs, k, v, do, seg, cos, sin, _ = _flash_inputs("P72", dev)
     dh = 64
     out, lse = tfa.flash_fwd(qs, k, v, seg, cos, sin, False, dh)
-    with pytest.raises(NotImplementedError):  # fp32
-        tfa.flash_fwd(qs.float(), k.float(), v.float(), seg, cos, sin, False, dh)
+    with pytest.raises(NotImplementedError):  # fp16
+        tfa.flash_fwd(qs.half(), k.half(), v.half(), seg, cos, sin, False, dh)
     with pytest.raises(NotImplementedError):
-        tfa.flash_bwd(qs.float(), k.float(), v.float(), seg, cos, sin, out.float(), lse,
-                      do.float(), None, False, dh)
+        tfa.flash_bwd(qs.half(), k.half(), v.half(), seg, cos, sin, out.half(), lse,
+                      do.half(), None, False, dh)
+    with pytest.raises(NotImplementedError):  # fp32 q with bf16 k and v
+        tfa.flash_fwd(qs.float(), k, v, seg, cos, sin, False, dh)
     with pytest.raises(NotImplementedError):  # head dim 32
         tfa.flash_fwd(qs, k, v, seg, None, None, False, 32)
     with pytest.raises(NotImplementedError):
@@ -861,8 +865,10 @@ def test_rmsnorm_bwd_kernel_raises_outside_its_shapes(cuda_device):
     dev = cuda_device
     x = torch.zeros(8, 128, device=dev, dtype=torch.bfloat16)
     w = torch.ones(128, device=dev)
-    with pytest.raises(NotImplementedError):
-        tmlp.rmsnorm_bwd(x.float(), x.float(), w, 1e-6)
+    with pytest.raises(NotImplementedError):  # fp16
+        tmlp.rmsnorm_bwd(x.half(), x.half(), w, 1e-6)
+    with pytest.raises(NotImplementedError):  # fp32 x with a bf16 cotangent
+        tmlp.rmsnorm_bwd(x.float(), x, w, 1e-6)
     wide = torch.zeros(8, 4096, device=dev, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError):
         tmlp.rmsnorm_bwd(wide, wide, torch.ones(4096, device=dev), 1e-6)
@@ -1465,3 +1471,179 @@ def test_the_pretrain_task_batches_train_on_the_kernels(cuda_device, task):
     assert abs(loss - ref) < 5e-3
     for n in rgrads:
         assert _rel(grads[n], rgrads[n]) < 8e-2, n
+
+
+# ---- the fp32 forms of #1, #3 (flash_fwd_f32.cu, flash_bwd_f32.cu), #2
+# (norm_mlp_f32.cu) and #13 (rmsnorm_bwd.cu's fp32 instances)
+
+F32_REL = 2e-5  # relative Frobenius error: fp32 sums of up to ~3,000 terms in another order
+
+
+def _f32_flash_inputs(case, dev, seed=5):
+    """_flash_inputs in fp32, cos and sin kept fp32."""
+    b, p, h, bi, rope, layout = _FLASH_CASES.get(case) or _BWD_CASES[case]
+    dh = 64
+    rng = np.random.default_rng(seed)
+
+    def f32(shape, scale):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(dev)
+
+    qs = f32((b, p, h * dh), 0.5 * dh**-0.5)
+    k, v, do = (f32((b, p, h * dh), 0.5) for _ in range(3))
+    if layout == "molecule":
+        seg_np = _molecule_segments(b, p, rng)
+    elif layout == "denoise":
+        seg_np = _denoise_row_segments(b, p, bi, rng)
+    else:
+        seg_np = packed_segments(b, p, rng)
+        seg_np[-1, p - 30:] = 0
+        if layout == "padded-row":
+            seg_np[1] = 0
+    seg = torch.from_numpy(seg_np).to(dev)
+    cos = sin = None
+    if rope:
+        cos, sin = rope_cos_sin(torch.arange(p, device=dev).expand(b, p), dh)
+    return qs, k, v, do, seg, cos, sin
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True], ids=["bidirectional", "causal"])
+@pytest.mark.parametrize("case", ["P50", "P72", "P88-bicausal", "P128", "P200", "P1000", "P2048",
+                                  "no-rope", "padded-row"])
+def test_fp32_flash_kernels_match_plain(cuda_device, causal, case):
+    """#1's and #3's fp32 forms through flash_fwd and flash_bwd against their
+    plain versions in fp32 (TF32 off): out, lse, dq, dk, dv each within
+    F32_REL, padded rows exactly 0 and -1e30, one fp32 launch a call and no
+    bf16 one, the same bits on a relaunch (no atomics). The bi-causal case
+    runs the forward only (fp32 has no split pair yet)."""
+    dev = cuda_device
+    bi = _FLASH_CASES[case][3]
+    qs, k, v, do, seg, cos, sin = _f32_flash_inputs(case, dev)
+    args = (qs, k, v, seg, cos, sin, causal, 64, bi)
+    counts = (tfa.flash_fwd, tfa.flash_fwd_f32, tfa.flash_bwd, tfa.flash_bwd_f32)
+    before = [c.launches for c in counts]
+    out, lse = tfa.flash_fwd(*args)
+    torch.cuda.synchronize()
+    with ops.reference_mode():
+        rout, rlse = tfa.flash_fwd(*args)
+    valid = seg > 0
+    assert out.dtype == torch.float32 and _rel(out, rout) < F32_REL
+    assert _rel(lse.transpose(1, 2)[valid], rlse.transpose(1, 2)[valid]) < F32_REL
+    assert bool((out[~valid] == 0).all()) and bool((lse.transpose(1, 2)[~valid] == -1e30).all())
+    again = tfa.flash_fwd(*args)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    assert [c.launches - n for c, n in zip(counts, before)] == [0, 2, 0, 0]
+    if bi:
+        return
+    dlse = torch.from_numpy(np.random.default_rng(3).normal(
+        size=tuple(lse.shape)).astype(np.float32)).to(dev) * 0.1
+    bargs = (qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, 64)
+    got = tfa.flash_bwd(*bargs)
+    torch.cuda.synchronize()
+    with ops.reference_mode():
+        want = tfa.flash_bwd(*bargs)
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and _rel(a, r) < F32_REL, name
+        assert bool((a[~valid] == 0).all()), name
+    assert all(torch.equal(a, b) for a, b in zip(tfa.flash_bwd(*bargs), got))
+    assert [c.launches - n for c, n in zip(counts, before)] == [0, 2, 0, 2]
+
+
+@pytest.mark.gpu
+def test_fp32_flash_bwd_ignores_non_finite_do_in_padded_rows(cuda_device):
+    """inf and NaN in do's padded rows change no output bit of #3's fp32 form."""
+    dev = cuda_device
+    qs, k, v, do, seg, cos, sin = _f32_flash_inputs("P1000", dev)
+    out, lse = tfa.flash_fwd(qs, k, v, seg, cos, sin, False, 64)
+    clean = tfa.flash_bwd(qs, k, v, seg, cos, sin, out, lse, do, None, False, 64)
+    noisy = do.clone()
+    pad = (seg == 0).nonzero()
+    noisy[pad[:, 0], pad[:, 1]] = float("nan")
+    noisy[pad[0, 0], pad[0, 1], :8] = float("inf")
+    got = tfa.flash_bwd(qs, k, v, seg, cos, sin, out, lse, noisy, None, False, 64)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, clean))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["gelu", "gelu_pytorch_tanh", "silu"])
+@pytest.mark.parametrize("case", list(_MLP_CASES))
+def test_fp32_norm_mlp_kernel_matches_plain(cuda_device, act, case):
+    """#2's fp32 form through norm_mlp against its plain version in fp32
+    (TF32 off) within F32_REL, one fp32 launch a call, bit-equal on a
+    relaunch."""
+    x, wn, wg, wu, wd = (t.float() for t in _mlp_inputs(*_MLP_CASES[case], cuda_device))
+    before = (tmlp.norm_mlp.launches, tmlp.norm_mlp_f32.launches)
+    out = tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, act)
+    torch.cuda.synchronize()
+    assert (tmlp.norm_mlp.launches, tmlp.norm_mlp_f32.launches) == (before[0], before[1] + 1)
+    with ops.reference_mode():
+        ref = tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, act)
+    assert out.dtype == torch.float32 and _rel(out, ref) < F32_REL
+    assert torch.equal(tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, act), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(200, 128), (1000, 1600), (65537, 768), (4096, 384),
+                                   (3000, 512), (2048, 1024)],
+                         ids=["small", "wide", "ragged", "d384", "d512", "d1024"])
+def test_fp32_rmsnorm_bwd_kernel_matches_plain(cuda_device, shape):
+    """#13's fp32 instances through rmsnorm_bwd against the plain version:
+    dx and dw within F32_REL, one fp32 launch a call, bit-equal on a
+    relaunch (no atomics). D 512 is the widest fp32 row with two rows in
+    flight a warp, D 1024 the first with one."""
+    dev = cuda_device
+    n, d = shape
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy((rng.normal(size=(n, d)) * 1.5).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev)
+    w = torch.from_numpy((1 + 0.1 * rng.normal(size=d)).astype(np.float32)).to(dev)
+    before = (tmlp.rmsnorm_bwd.launches, tmlp.rmsnorm_bwd_f32.launches)
+    dx, dw = tmlp.rmsnorm_bwd(x, g, w, 1e-6)
+    torch.cuda.synchronize()
+    assert (tmlp.rmsnorm_bwd.launches, tmlp.rmsnorm_bwd_f32.launches) == (before[0],
+                                                                          before[1] + 1)
+    with ops.reference_mode():
+        rdx, rdw = tmlp.rmsnorm_bwd(x, g, w, 1e-6)
+    assert dx.dtype == torch.float32 and _rel(dx, rdx) < F32_REL and _rel(dw, rdw) < F32_REL
+    again = tmlp.rmsnorm_bwd(x, g, w, 1e-6)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+
+
+@pytest.mark.gpu
+def test_an_fp32_model_trains_on_the_fp32_kernels(cuda_device):
+    """A toy_pretrain-width model (hidden 128, 2 layers of 2 heads of 64,
+    fp32): a save_attn training step launches each fp32 form as a bf16
+    model launches its bf16 one (#1, #2, #3 once a layer, #13 once a layer
+    and once for the final norm) and no bf16 kernel; its loss and every
+    gradient within 1e-5 and 1e-4 relative of the plain fp32 run."""
+    dev = cuda_device
+    cfg = _tiny_cfg(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                    num_key_value_heads=2, intermediate_size=512, dtype="float32", remat=True,
+                    remat_policy="save_attn")
+    model = GraphGPTPretrain(cfg, device=dev, seed=0)
+    batch = to_torch(fake_batch(8, 128, 3, 50, np.random.default_rng(2)), dev)
+    counts = {c.__name__: c for c in (tfa.flash_fwd, tfa.flash_bwd, tmlp.norm_mlp,
+                                      tmlp.rmsnorm_bwd, tfa.flash_fwd_f32, tfa.flash_bwd_f32,
+                                      tmlp.norm_mlp_f32, tmlp.rmsnorm_bwd_f32)}
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss = model(batch, train=True)["loss"]
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()
+                             if p.grad is not None}
+
+    before = {n: c.launches for n, c in counts.items()}
+    loss, g = grads()
+    torch.cuda.synchronize()
+    got = {n: c.launches - before[n] for n, c in counts.items()}
+    assert got == {"flash_fwd": 0, "flash_bwd": 0, "norm_mlp": 0, "rmsnorm_bwd": 0,
+                   "flash_fwd_f32": 2, "flash_bwd_f32": 2, "norm_mlp_f32": 2,
+                   "rmsnorm_bwd_f32": 3}
+    with ops.reference_mode():
+        rloss, rg = grads()
+    assert abs(loss - rloss) <= 1e-5 * abs(rloss)
+    assert set(g) == set(rg)
+    for n in g:
+        assert _rel(g[n], rg[n]) <= 1e-4, n

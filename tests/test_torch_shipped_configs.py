@@ -276,3 +276,47 @@ def test_a_binding_logits_cap_keeps_the_sweeps_cells(tmp_path, monkeypatch):
         assert got_b == want_b
         assert list(capped) == list(free)  # the same cells, in the same order
         assert all(0.0 <= v <= 1.0 for v in capped.values())
+
+
+def test_wikikg2_takes_an_eval_relation_that_no_train_triple_has(tmp_path, cs):
+    """A valid triple whose relation no train triple has (OGB does not
+    promise that every eval relation occurs in train): the port's vocab
+    takes the relations of every split's triples, so the triple tokenizes
+    and the valid split evaluates (its MRR in result.csv). A vocab built
+    from the graph's edge table alone, train's relations, as JAX builds
+    it, raises the KeyError on that triple."""
+    from graphgpt_torch.training.finetune import FinetunePipeline
+
+    name = "ogbl-wikikg2"
+    cs.write_shipped_store(str(tmp_path / "data"), name, **SIZES)
+    path = tmp_path / "data" / name / "big_graph.npz"
+    data = dict(np.load(path))
+    unseen = int(max(data[f"{sp}_relation"].max() for sp in ("train", "valid", "test"))) + 1
+    data["valid_relation"] = data["valid_relation"].copy()
+    data["valid_relation"][0] = unseen
+    np.savez(path, **data)
+    over = ("model.hidden_size=64", "model.num_hidden_layers=1", "training.batch_size=8",
+            "training.batch_size_eval=32", "model.dtype=float32", "training.pretrain_cpt=",
+            "training.k_samplers=8", "training.num_workers=0")
+    _, tcfg = _cfgs(tmp_path / "data", "ogbl_wikikg2_supervised.yaml", tmp_path, *over)
+    pipe = FinetunePipeline(tcfg, device="cpu").setup()
+    valid = pipe.eval_loaders["valid"].dataset
+    assert unseen not in set(pipe.dataset.big.edge_attr[:, 0].tolist())
+    assert unseen in set(pipe.dataset.relation_values.tolist())
+    pipe.tokenizer(valid[0], np.random.default_rng(0))  # the triple with the unseen relation
+
+    # the vocab of the edge table alone (train's relations) misses it
+    _, tcfg2 = _cfgs(tmp_path / "data", "ogbl_wikikg2_supervised.yaml", tmp_path / "train_only",
+                     *over)
+    ds = tpipeline.build_dataset(tcfg2)
+    ds.relation_values = None
+    with pytest.raises(KeyError):
+        tpipeline.build_tokenizer(tcfg2, ds)(valid[0], np.random.default_rng(0))
+
+    pipe.train_idx, pipe.epochs = pipe.train_idx[:16], 1
+    pipe.run()
+    import csv
+
+    with open(tmp_path / "port" / "result.csv") as f:
+        last = list(csv.DictReader(f))[-1]
+    assert 0 < float(last["valid_mrr"]) <= 1
