@@ -189,6 +189,28 @@
    (two steps, the same rule, the eval metrics on 1,024 valid and test
    graphs); every launch count against finetune_want (molpcba's supervised
    layers take #11).
+7h. Phase N, float32 fine-tuning and denoising: the fp32 forms of #11
+   (norm_mlp_f32.cu's form without the norm and the residual) and of the
+   split pair #4, #5 (flash_bwd_f32.cu's query and key passes), to which
+   mlp, flash_dq and flash_dkv hand fp32 tensors. (a) The fine-tune of
+   step 7 (GraphGPT-base, LayerScale, DropPath, attention dropout, pairs
+   remat, 256 graphs a batch on synthetic_mol) at model.dtype=float32
+   through FinetunePipeline, warm-started from the train phase's weights:
+   #11f at its batch's N and at N 8,192; the first step against the plain
+   fp32 run on the same dropout masks (F32_LOSS_REL, F32_GRAD_REL); 8
+   steps with the launches of each step and eval forward (finetune_want on
+   the fp32 forms: 24 #1f, 12 #3f, 24 #11f, 25 #13f a step), the loss
+   falling, the valid, EMA-valid and test MAE, result.csv. (b) The denoiser
+   of step 8 at fp32 (256 x 88, 16 bit slots): #4f and #5f at its batch,
+   the first step against the plain fp32 run on the same draws, 4 AdamW +
+   EMA steps (24 #1f, 12 #4f, 12 #5f, 18 #2f, 13 #13f, no #3f a step), an
+   EMA eval forward that decodes finite [256, 1] energies. (c) #4f and #5f
+   also at B 8 x P 1024 with 16 bit slots. Each form's check is phase L's
+   (f32_check: within F32_REL of the plain version, the TF32 control past
+   it, a relaunch bit for bit, padded rows exact), the pair's also with inf
+   and NaN in do's padded rows changing no output bit; each timed beside
+   its bound, its plain version and the library call (the fp32 matmuls and
+   gelu x up; SDPA's fp32 backward with the bi-causal mask).
 8. Denoise phase: a fresh GraphGPT-base denoising double-heads model
    (configs/pcqm4m_v2_supervised.yaml's setup plus bi_causal_split 16, the
    binary-energy decoding) on a 256 x 88 mol3d batch: every kernel of its
@@ -256,7 +278,7 @@
 
 Any failed check raises, so the script exits non-zero. The launch counts
 are set to 0 just before each main path (eval + generation; training;
-fine-tuning; graph-level fine-tuning; phases A-M; denoising;
+fine-tuning; graph-level fine-tuning; phases A-N; denoising;
 position pretraining; long-context pretraining;
 training and long-context pretraining under both knobs) and read just
 after it; launches made to compare a kernel with its plain
@@ -667,9 +689,7 @@ def split_phase(dev, fa, ops, synthetic, rope_cos_sin):
     """The split pair and the bi-causal forward at B 8 x P 1024 with 16 bit
     slots (split 1008, inside the sixteenth 64-row tile) on packed rows."""
     b, p, h, dh, bi = 8, 1024, 12, 64, 16
-    seg_np = synthetic.packed_segments(b, p, np.random.default_rng(7))
-    seg_np[-1, p - 40 : p - bi] = 0  # a padded stretch before the last row's bit slots
-    seg = torch.from_numpy(seg_np).to(dev)
+    seg = p1024_split_segments(dev, synthetic, bi)
     pos = torch.arange(p, device=dev).expand(b, p)
     cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(pos, dh))
     res = split_at_shape(fa, ops, "P1024", seg, cos, sin, bi, h, dh)
@@ -3285,7 +3305,8 @@ F32_GRAD_REL = 1e-4
 # sheet's dense TF32 495 TFLOP/s over three products (FFMA: PEAK_F32_FLOPS)
 PEAK_F32_ACCURATE_FLOPS = 165e12
 F32_NAMES = {"flash_fwd": "flash_fwd_f32", "flash_bwd": "flash_bwd_f32",
-             "norm_mlp": "norm_mlp_f32", "rmsnorm_bwd": "rmsnorm_bwd_f32"}
+             "norm_mlp": "norm_mlp_f32", "rmsnorm_bwd": "rmsnorm_bwd_f32", "mlp": "mlp_f32",
+             "flash_dq": "flash_dq_f32", "flash_dkv": "flash_dkv_f32"}
 M_STEPS = 2  # counted steps of each run of phase M
 M_STORE_GRAPHS = 40_000  # graphs of each store of phase M
 M_FP32_ROWS = 16  # rows of the first step held to the fp32 rule in phase M
@@ -3390,44 +3411,48 @@ def f32_flash_at_shape(fa, ops, tag, seg, cos, sin, h: int, dh: int, causal: boo
     return res
 
 
-def f32_mlp_at_shape(dev, mlp, ops, tag, n: int, d: int, f: int, act: str, eps: float):
-    """#2's fp32 form (through norm_mlp on fp32 tensors) at N x D, F against
-    its plain version in fp32 and with TF32 (f32_check; the inputs drawn in
-    fp32, not through bf16, so that TF32 rounds them), timed beside its
-    bound, the plain version and F.rms_norm + the fp32 matmuls."""
+def f32_mlp_at_shape(dev, mlp, ops, tag, n: int, d: int, f: int, act: str, eps: float,
+                     norm: bool = True):
+    """#2's fp32 form (through norm_mlp on fp32 tensors), or #11's without
+    `norm` (through mlp), at N x D, F against its plain version in fp32 and
+    with TF32 (f32_check; the inputs drawn in fp32, not through bf16, so
+    that TF32 rounds them), timed beside its bound, the plain version and
+    (F.rms_norm +) the fp32 matmuls."""
     gen = torch.Generator(device=dev).manual_seed(9)
     scale = 0.55 / d**0.5
     x = torch.randn(n, d, generator=gen, device=dev)
     wn = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
     wg, wu = (torch.randn(f, d, generator=gen, device=dev) * scale for _ in range(2))
     wd = torch.randn(d, f, generator=gen, device=dev) * scale
-    args = (x, wn, wg, wu, wd, eps, act)
-    out = mlp.norm_mlp(*args)
-    bits = torch.equal(mlp.norm_mlp(*args), out)
+    name, fn = ("norm_mlp_f32", mlp.norm_mlp) if norm else ("mlp_f32", mlp.mlp)
+    args = (x, wn, wg, wu, wd, eps, act) if norm else (x, wg, wu, wd, act)
+    out = fn(*args)
+    bits = torch.equal(fn(*args), out)
     with ops.reference_mode():
-        ref = mlp.norm_mlp(*args)
+        ref = fn(*args)
         with tf32_allowed():
-            tref = mlp.norm_mlp(*args)
+            tref = fn(*args)
     where = f"{tag}, N={n} D={d} F={f}"
-    err, rel, ctl = f32_check("norm_mlp_f32", where, {"out": out}, {"out": ref}, {"out": tref},
-                              bits)
+    err, rel, ctl = f32_check(name, where, {"out": out}, {"out": ref}, {"out": tref}, bits)
     del out, ref, tref
-    ms = cuda_ms(lambda: mlp.norm_mlp(*args), iters=5)
+    ms = cuda_ms(lambda: fn(*args), iters=5)
     ms_spread = spread()
     with ops.reference_mode():
-        plain = cuda_ms(lambda: mlp.norm_mlp(*args), iters=2)
+        plain = cuda_ms(lambda: fn(*args), iters=2)
     wgu, wd_t = torch.cat([wg, wu]).t().contiguous(), wd.t().contiguous()
-    lib = cuda_ms(lambda: gated_mlp_library(x, wgu, wd_t, f, norm=(wn, eps)), iters=5)
-    nbytes = 4 * (2 * n * d + 3 * d * f + d)
+    lib = cuda_ms(lambda: gated_mlp_library(x, wgu, wd_t, f, norm=(wn, eps) if norm else None),
+                  iters=5)
+    nbytes = 4 * (2 * n * d + 3 * d * f + (d if norm else 0))
     flops = 6.0 * n * d * f
     bound_ms, by = bound(nbytes, flops, PEAK_F32_ACCURATE_FLOPS)
-    print(f"norm_mlp_f32[{where}]: kernel {ms:.4f} ms (3 readings {ms_spread}), "
+    print(f"{name}[{where}]: kernel {ms:.4f} ms (3 readings {ms_spread}), "
           f"{bound_ms / ms:.1%} of the bound, {flops / ms / 1e9:.2f} TFLOP/s; plain fp32 "
-          f"{plain:.4f} ms; F.rms_norm + fp32 matmuls {lib:.4f} ms; bound {bound_ms:.4f} ms "
-          f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; at FFMA's 67 TFLOP/s "
-          f"{flops / PEAK_F32_FLOPS * 1e3:.4f} ms)", flush=True)
+          f"{plain:.4f} ms; {'F.rms_norm + ' if norm else ''}fp32 matmuls {lib:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; at FFMA's "
+          f"67 TFLOP/s {flops / PEAK_F32_FLOPS * 1e3:.4f} ms)", flush=True)
     return dict(err=err, rel=rel, tf32_rel=ctl, ms=ms, plain_ms=plain, lib_ms=lib,
-                bound_ms=bound_ms, bound_by=by, ffma_bound_ms=flops / PEAK_F32_FLOPS * 1e3)
+                bound_ms=bound_ms, bound_by=by, ffma_bound_ms=flops / PEAK_F32_FLOPS * 1e3,
+                tflops=flops / ms / 1e9)
 
 
 def f32_rms_at_shape(dev, mlp, ops, tag, n: int, d: int, eps: float):
@@ -3804,6 +3829,256 @@ def graph_configs_phase(dev, counters, ops, overrides=(), n_graphs: int = M_STOR
                 launches[k] += got[k]
             torch.cuda.empty_cache()
     return res, launches
+
+
+# ---- phase N: float32 fine-tuning and denoising, the fp32 forms of #11, #4, #5
+
+N_FT_STEPS = 8  # fine-tune steps of phase N(a), a batch of 256 graphs each
+N_FT_EVAL = 256  # valid (and test) graphs of phase N(a)
+N_DN_STEPS = 4  # AdamW + EMA steps of phase N(b)
+
+
+def p1024_split_segments(dev, synthetic, bi: int = 16):
+    """int32 [8, 1024] packed rows (seed 7) with a padded stretch before the
+    last row's `bi` bit slots: split_phase's rows."""
+    b, p = 8, 1024
+    seg = synthetic.packed_segments(b, p, np.random.default_rng(7))
+    seg[-1, p - 40 : p - bi] = 0
+    return torch.from_numpy(seg).to(dev)
+
+
+def f32_split_at_shape(fa, ops, tag, seg, cos, sin, bi: int, h: int, dh: int):
+    """#4's and #5's fp32 forms (through flash_dq and flash_dkv on fp32
+    tensors) at seg's shape with `bi` bit slots: dq and delta, dk and dv
+    against the plain versions in fp32 and with TF32 (f32_check; delta has
+    no product for TF32 to take, so its control is dq's), padded rows
+    exactly 0, a relaunch bit for bit, inf and NaN in do's padded rows
+    changing no output bit; then each timed beside its bound (fp32 bytes;
+    operations at PEAK_F32_ACCURATE_FLOPS), its plain version and SDPA's fp32
+    backward with this shape's bi-causal mask (dq, dk, dv in one call)."""
+    qs, k, v, do = flash_tensors(seg, h, dh, seed=3, dtype=torch.float32)
+    out, lse = fa.flash_fwd(qs, k, v, seg, cos, sin, False, dh, bi)
+    dq_args = (qs, k, v, seg, cos, sin, out, lse, do, None, False, dh, bi)
+    dq, delta = fa.flash_dq(*dq_args)
+    args = (qs, k, v, seg, cos, sin, lse, delta, do, False, dh, bi)
+    dk, dv = fa.flash_dkv(*args)
+    again_q, again_k = fa.flash_dq(*dq_args), fa.flash_dkv(*args)
+    valid = seg > 0
+    noisy = do.clone()
+    noisy[~valid] = float("nan")
+    noisy[0][~valid[0]] = float("inf")
+    nq = fa.flash_dq(qs, k, v, seg, cos, sin, out, lse, noisy, None, False, dh, bi)
+    nk = fa.flash_dkv(qs, k, v, seg, cos, sin, lse, nq[1], noisy, False, dh, bi)
+    torch.cuda.synchronize()
+    qbits = torch.equal(again_q[0], dq) and torch.equal(again_q[1], delta)
+    kbits = all(torch.equal(a, b) for a, b in zip(again_k, (dk, dv)))
+    quiet = all(torch.equal(a, b) for a, b in zip(nq + nk, (dq, delta, dk, dv)))
+    del again_q, again_k, noisy, nq, nk
+    with ops.reference_mode():
+        rdq, rdelta = fa.flash_dq(*dq_args)
+        rdk, rdv = fa.flash_dkv(*args)
+        with tf32_allowed():
+            tdq = fa.flash_dq(*dq_args)[0]
+            tdk, tdv = fa.flash_dkv(*args)
+    b, p = seg.shape
+    where = f"{tag}, B={b} P={p} H={h} split {p - bi}"
+
+    def rows(x):
+        return x.transpose(1, 2)[valid]
+
+    pad_q = bool((dq[~valid] == 0).all()) and bool((delta.transpose(1, 2)[~valid] == 0).all())
+    qc = f32_check("flash_dq_f32", where, {"dq": dq[valid], "delta": rows(delta)},
+                   {"dq": rdq[valid], "delta": rows(rdelta)}, {"dq": tdq[valid]}, qbits, pad_q)
+    kc = f32_check("flash_dkv_f32", where, {"dk": dk, "dv": dv}, {"dk": rdk, "dv": rdv},
+                   {"dk": tdk, "dv": tdv}, kbits,
+                   bool((dk[~valid] == 0).all()) and bool((dv[~valid] == 0).all()))
+    print(f"flash_dq_f32 + flash_dkv_f32[{where}]: inf and NaN in do's padded rows change no "
+          f"output bit {quiet}", flush=True)
+    if not quiet:
+        fail(f"the fp32 pair's outputs at {where} depend on do's padded rows")
+    del rdq, rdelta, rdk, rdv, tdq, tdk, tdv
+    lib_fwd, lib_bwd = sdpa_ms(fa, seg, qs, k, v, do, cos, sin, False, h, dh, bi)
+    res = {}
+    for kind, fn, chk in (("dq", lambda: fa.flash_dq(*dq_args), qc),
+                          ("dkv", lambda: fa.flash_dkv(*args), kc)):
+        ms = cuda_ms(fn, iters=10)
+        ms_spread = spread()
+        with ops.reference_mode():
+            plain = cuda_ms(fn, iters=2)
+        nbytes, flops = flash_work(fa, seg, False, h, dh, kind, bi, elem=4)
+        bound_ms, by = bound(nbytes, flops, PEAK_F32_ACCURATE_FLOPS)
+        print(f"flash_{kind}_f32[{where}]: kernel {ms:.4f} ms (3 readings {ms_spread}), "
+              f"{bound_ms / ms:.1%} of the bound, {flops / ms / 1e9:.2f} TFLOP/s; plain fp32 "
+              f"{plain:.4f} ms; SDPA fp32 backward (dq, dk, dv) {lib_bwd:.4f} ms; bound "
+              f"{bound_ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP at 165 "
+              f"TFLOP/s; at FFMA's 67 TFLOP/s {flops / PEAK_F32_FLOPS * 1e3:.4f} ms)",
+              flush=True)
+        res[kind] = dict(err=chk[0], rel=chk[1], tf32_rel=chk[2], ms=ms, plain_ms=plain,
+                         lib_ms=lib_bwd, bound_ms=bound_ms, bound_by=by,
+                         ffma_bound_ms=flops / PEAK_F32_FLOPS * 1e3, tflops=flops / ms / 1e9)
+    return res
+
+
+def fp32_finetune_run(dev, counters, mlp, ops, train_sd):
+    """Phase N(a) (see the module docstring, 7h). Returns (its numbers, the
+    launches of its run)."""
+    from graphgpt_torch import synthetic
+    from graphgpt_torch.config import OptimizerConfig, flagship_config
+    from graphgpt_torch.models.heads import GraphGPTPretrain
+    from graphgpt_torch.models.modeling import derive_generator
+    from graphgpt_torch.training.checkpoint import Checkpointer
+    from graphgpt_torch.training.finetune import FinetunePipeline
+    from graphgpt_torch.training.optimizer import make_optimizer
+    from graphgpt_torch.training.steps import init_train_state
+
+    tag = "phase N(a) (fine-tune, fp32)"
+    with tempfile.TemporaryDirectory() as tmp:
+        pt_dir, ft_dir = os.path.join(tmp, "pretrain"), os.path.join(tmp, "finetune")
+        pt = GraphGPTPretrain(flagship_config(), device=dev, seed=0)
+        pt.load_state_dict(train_sd)
+        Checkpointer(os.path.join(pt_dir, "ckpt")).save(
+            0, init_train_state(pt, make_optimizer(OptimizerConfig(), 10, 1)), {"phase": "train"})
+        del pt
+        cfg = finetune_config(ft_dir, pt_dir)
+        cfg.model.dtype = "float32"
+        t0 = time.perf_counter()
+        pipe = FinetunePipeline(cfg, device=dev).setup()
+        pipe.train_idx = pipe.train_idx[: N_FT_STEPS * cfg.training.batch_size]
+        pipe.valid_idx = pipe.test_idx = pipe.valid_idx[:N_FT_EVAL]
+        m, seed = pipe.cfg.model, cfg.training.seed
+        idx0 = np.random.default_rng((seed, 0)).permutation(pipe.train_idx)
+        nb = next(pipe.loader.epoch_batches(idx0, 0)).data
+        batch = synthetic.to_torch(nb, dev)
+        b, p = nb["segment_ids"].shape
+        print(f"{tag} setup {time.perf_counter() - t0:.1f} s: {m.hidden_size} x "
+              f"{m.num_hidden_layers}, {m.num_attention_heads} heads of {m.head_dim}, FFN "
+              f"{m.intermediate_size}, {m.dtype}, LayerScale {m.layer_scale_init_value}, "
+              f"DropPath {m.path_dropout}, attention dropout {m.attention_dropout}, remat "
+              f"{m.remat_policy}; batch {b} graphs x {p} positions (N {b * p}), "
+              f"{int((nb['segment_ids'] > 0).sum())} tokens; warm start from the train "
+              f"phase's weights", flush=True)
+        res = {"ft_shape": dict(f32_mlp_at_shape(dev, mlp, ops, tag, b * p, m.hidden_size,
+                                                 m.intermediate_size, m.hidden_act,
+                                                 m.rms_norm_eps, norm=False), n=b * p),
+               "n8192": f32_mlp_at_shape(dev, mlp, ops, tag, 8192, m.hidden_size,
+                                         m.intermediate_size, m.hidden_act, m.rms_norm_eps,
+                                         norm=False)}
+        torch.cuda.empty_cache()
+        # the same generator on both runs: the same dropout and DropPath masks
+        res["step"] = step_vs_plain32(pipe.state.model, batch, ops, tag,
+                                      lambda: dict(generator=derive_generator(seed, 0, dev)))
+        torch.cuda.empty_cache()
+        want, want_eval = f32_want(m, counters)
+        train_log, eval_log, metrics = counted_pipeline(pipe, counters)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        best = pipe.run()
+        run_s = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        check_logs(tag, train_log, eval_log, want, want_eval, N_FT_STEPS)
+        losses = [float(x["loss"]) for x in metrics]
+        mae = {k: best.get(k) for k in ("valid_mae", "valid_ema_mae", "test_mae")}
+        print(f"{tag} losses: " + " ".join(f"{x:.4f}" for x in losses) + f"; eval {mae} on "
+              f"{len(pipe.valid_idx)} graphs; the run {run_s:.1f} s; max_memory_allocated "
+              f"{peak:.0f} MiB", flush=True)
+        if not (len(losses) == N_FT_STEPS and all(np.isfinite(losses)) and losses[-1] < losses[0]
+                and all(v is not None and np.isfinite(v) for v in mae.values())
+                and os.path.exists(os.path.join(ft_dir, "result.csv"))):
+            fail(f"{tag}: the loss did not fall, or the MAE or result.csv is missing: {losses} "
+                 f"{best}")
+        ms = cuda_ms(lambda: pipe.train_step(pipe.state, batch, seed=seed), iters=1, warmup=1,
+                     repeats=3)
+        print(f"{tag}: {ms:.2f} ms/step on a batch on the card (3 readings {spread()}), "
+              f"{b / ms * 1e3:.0f} graphs/s", flush=True)
+        res.update(losses=losses, run_s=run_s, step_ms=ms, peak_mib=peak, **mae)
+        del pipe
+    torch.cuda.empty_cache()
+    return res, got
+
+
+def fp32_denoise_run(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin):
+    """Phase N(b) and N(c)'s pair at the denoise batch (see the module
+    docstring, 7h). Returns (its numbers, the launches of its run)."""
+    from graphgpt_torch.config import OptimizerConfig
+    from graphgpt_torch.models.denoise import GraphGPTDenoise, denoise_draws
+    from graphgpt_torch.models.rope import reset_position_ids
+    from graphgpt_torch.training.optimizer import make_optimizer, make_schedule
+    from graphgpt_torch.training.steps import init_train_state, make_eval_step, make_train_step
+
+    tag = "phase N(b) (denoise, fp32)"
+    tok = synthetic.mol3d_tokenizer()
+    cfg = mol3d_config(tok, stacked_feat_agg_method="gated", remat_policy="pairs",
+                       task_type="graph", problem_type="regression", loss_type="l1",
+                       num_labels=1, bi_causal_split=16, dtype="float32")
+    model = GraphGPTDenoise(cfg, device=dev, seed=0)
+    nb = synthetic.mol3d_batch(256, 88, seed=0, bi_split=16, tokenizer=tok)
+    batch = synthetic.to_torch(nb, dev)
+    b, p = nb["segment_ids"].shape
+    pos = reset_position_ids(batch["position_ids"], cfg.rope_range)
+    cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta, resonance=cfg.rope_resonance,
+                            rope_scaling=cfg.rope_scaling,
+                            max_position_embeddings=cfg.max_position_embeddings)
+    res = {"denoise": f32_split_at_shape(fa, ops, "phase N(c) denoise", batch["segment_ids"],
+                                         cos.float(), sin.float(), cfg.bi_causal_split,
+                                         cfg.num_attention_heads, cfg.head_dim)}
+    del cos, sin
+    torch.cuda.empty_cache()
+    draws = denoise_draws(b, p, torch.Generator(device=dev).manual_seed(1), dev)
+    res["step"] = step_vs_plain32(model, batch, ops, tag, lambda: dict(draws=draws))
+    torch.cuda.empty_cache()
+    opt_cfg = OptimizerConfig(lr=2e-4, scheduler="onecycle", use_ema=True, ema_decay=0.9999)
+    schedule = make_schedule(opt_cfg, N_DN_STEPS, 1)
+    tx = make_optimizer(opt_cfg, N_DN_STEPS, 1, schedule=schedule)
+    state = init_train_state(model, tx, use_ema=True)
+    L = cfg.num_hidden_layers
+    # as the bf16 denoise phase, on the fp32 forms: pairs recompute both
+    # attentions and the first layer's norm-fused MLP; the split pair
+    # replaces the fused backward
+    want = {**{k: 0 for k in counters}, "flash_fwd_f32": 2 * L, "flash_dq_f32": L,
+            "flash_dkv_f32": L, "norm_mlp_f32": L + L // 2, "rmsnorm_bwd_f32": L + 1}
+    state, metrics, launches, ms, peak = counted_steps(
+        tag, state, make_train_step(tx, opt_cfg, schedule), batch, counters, want, N_DN_STEPS)
+    losses = {key: [float(m[key]) for m in metrics] for key in ("task_loss", "pretrain_loss",
+                                                                 "loss")}
+    before = {k: fn.launches for k, fn in counters.items()}
+    out = make_eval_step(use_ema=True)(state, batch)
+    torch.cuda.synchronize()
+    ev = {k: fn.launches - before[k] for k, fn in counters.items()}
+    energy = out["task_logits"]
+    want_eval = {**{k: 0 for k in counters}, "flash_fwd_f32": L, "norm_mlp_f32": L}
+    print(f"{tag} launches per step: {want} (all {N_DN_STEPS} steps); EMA eval forward: {ev}; "
+          f"losses {losses}; decoded energies [{energy.shape[0]}, {energy.shape[1]}], first "
+          f"four {[round(float(x), 3) for x in energy[:4, 0]]}; {ms:.2f} ms/step (CUDA events "
+          f"over steps 2-{N_DN_STEPS}), {b / ms * 1e3:.0f} graphs/s, max_memory_allocated "
+          f"{peak:.0f} MiB", flush=True)
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        fail(f"{tag}: a loss is not finite: {losses}")
+    if ev != want_eval or tuple(energy.shape) != (b, 1) or not bool(torch.isfinite(energy).all()):
+        fail(f"{tag}: the EMA eval forward launched {ev} (want {want_eval}) or gave "
+             f"{tuple(energy.shape)} energies, or not finite ones")
+    launches = {k: launches[k] + ev[k] for k in launches}
+    res.update(losses=losses["loss"], step_ms=ms, peak_mib=peak)
+    del model, state
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def fp32_tune_phase(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin, train_sd):
+    """Phase N (see the module docstring, 7h): (a) the fp32 fine-tune, (b)
+    the fp32 denoiser with (c)'s pair at its batch, then (c)'s pair at B 8 x
+    P 1024 with 16 bit slots. Returns ({part: its numbers}, the launches of
+    its runs)."""
+    ft, ft_launches = fp32_finetune_run(dev, counters, mlp, ops, train_sd)
+    dn, dn_launches = fp32_denoise_run(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin)
+    seg = p1024_split_segments(dev, synthetic)
+    pos = torch.arange(seg.shape[1], device=dev).expand(*seg.shape)
+    cos, sin = rope_cos_sin(pos, 64)
+    dn["p1024"] = f32_split_at_shape(fa, ops, "phase N(c)", seg, cos, sin, 16, 12, 64)
+    torch.cuda.empty_cache()
+    return {"finetune": ft, "denoise": dn}, {k: ft_launches[k] + dn_launches[k] for k in counters}
 
 
 def mol3d_config(tok, **kw):
@@ -5162,7 +5437,9 @@ def main() -> None:
                 "flash_dkv_stream": fa.flash_dkv_stream, "flash_fwd_band": fa.flash_fwd_band,
                 "flash_bwd_band": fa.flash_bwd_band, "norm_qkv": mlp.norm_qkv,
                 "flash_fwd_f32": fa.flash_fwd_f32, "flash_bwd_f32": fa.flash_bwd_f32,
-                "norm_mlp_f32": mlp.norm_mlp_f32, "rmsnorm_bwd_f32": mlp.rmsnorm_bwd_f32}
+                "norm_mlp_f32": mlp.norm_mlp_f32, "rmsnorm_bwd_f32": mlp.rmsnorm_bwd_f32,
+                "mlp_f32": mlp.mlp_f32, "flash_dq_f32": fa.flash_dq_f32,
+                "flash_dkv_f32": fa.flash_dkv_f32}
 
     # ---- eval and generation phases: the serving path, counted from 0
     cfg = flagship_config()
@@ -5216,6 +5493,8 @@ def main() -> None:
     # phase A's store; pcqm4m-v2 pretraining at head width 32)
     t0 = time.perf_counter()
     shipped, shippedl = shipped_finetune_phases(model, counters, fa, mlp, ops, data_dir)
+    # phase N warm-starts its fp32 fine-tune from the train phase's weights
+    train_sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     del model
     torch.cuda.empty_cache()
     shipped["G"], shippedl["G"] = ppa_pretrain_phase(dev, counters, data_dir)
@@ -5245,6 +5524,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     gconf, shippedl["M"] = graph_configs_phase(dev, counters, ops)
     print(f"phase M: {time.perf_counter() - t0:.1f} s", flush=True)
+    # ---- phase N: float32 fine-tuning (LayerScale, DropPath: #11f) and
+    # denoising (the bi-causal split pair #4f, #5f) at GraphGPT-base's width
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    f32n, shippedl["N"] = fp32_tune_phase(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin,
+                                          train_sd)
+    del train_sd
+    print(f"phase N: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- denoise and position-pretraining phases: fresh models
     torch.cuda.empty_cache()
@@ -5284,7 +5571,7 @@ def main() -> None:
             launches_band_train=btl[name], launches_band_long=bll[name],
             launches_big_ppa=bigl["A"][name], launches_big_proteins=bigl["B"][name],
             launches_big_pretrain=bigl["C"][name],
-            **{f"launches_phase_{ph}": shippedl[ph][name] for ph in "DEFGHIJKLM"},
+            **{f"launches_phase_{ph}": shippedl[ph][name] for ph in "DEFGHIJKLMN"},
             max_abs_err=r["err"],
             ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -5486,6 +5773,34 @@ def main() -> None:
             base_step_loss_rel=lb["step"]["loss_rel"], base_step_grad_rel=lb["step"]["grad_rel"],
             toy_step_loss_rel=lt["step"]["loss_rel"], toy_step_grad_rel=lt["step"]["grad_rel"],
             base_step_ms=lb["step_ms"], toy_losses=lt["losses"]))
+    # the fp32 forms of phase N: #11f's main entry at N 8,192 (GraphGPT-base's
+    # serving rows), the fine-tune batch's N beside it; the pair's at the
+    # denoise batch B 256 x P 88, B 8 x P 1024 beside it
+    nft, ndn = f32n["finetune"], f32n["denoise"]
+    r, rf = nft["n8192"], nft["ft_shape"]
+    kernels.append(entry(
+        "mlp_f32", "norm_mlp_f32.cu", "mlp.py:82", dict(r, err=max(r["err"], rf["err"])),
+        {"rel": F32_REL}, rel_err=max(r["rel"], rf["rel"]),
+        tf32_control_rel=min(r["tf32_rel"], rf["tf32_rel"]), ffma_bound_ms=r["ffma_bound_ms"],
+        tflops=r["tflops"],
+        **{f"finetune_shape_{k}": rf[k] for k in ("n", "ms", "plain_ms", "lib_ms", "bound_ms",
+                                                  "ffma_bound_ms", "tflops")},
+        finetune_step_loss_rel=nft["step"]["loss_rel"],
+        finetune_step_grad_rel=nft["step"]["grad_rel"], finetune_step_ms=nft["step_ms"],
+        finetune_losses=nft["losses"], finetune_valid_mae=nft["valid_mae"],
+        finetune_valid_ema_mae=nft["valid_ema_mae"], finetune_peak_mib=nft["peak_mib"]))
+    for name, kind, line in (("flash_dq_f32", "dq", 602), ("flash_dkv_f32", "dkv", 789)):
+        r, rp = ndn["denoise"][kind], ndn["p1024"][kind]
+        kernels.append(entry(
+            name, "flash_bwd_f32.cu", f"flash_attention.py:{line}",
+            dict(r, err=max(r["err"], rp["err"])), {"rel": F32_REL},
+            rel_err=max(r["rel"], rp["rel"]), tf32_control_rel=min(r["tf32_rel"], rp["tf32_rel"]),
+            ffma_bound_ms=r["ffma_bound_ms"], tflops=r["tflops"],
+            **{f"p1024_{k}": rp[k] for k in ("ms", "plain_ms", "lib_ms", "bound_ms",
+                                              "ffma_bound_ms", "tflops")},
+            denoise_step_loss_rel=ndn["step"]["loss_rel"],
+            denoise_step_grad_rel=ndn["step"]["grad_rel"], denoise_step_ms=ndn["step_ms"],
+            denoise_losses=ndn["losses"], denoise_peak_mib=ndn["peak_mib"]))
     by_name["norm_mlp"].update({f"phase_M_{run}_{k}": v for run, r in gconf.items()
                                 for k, v in r.items()
                                 if k in ("step_ms", "tokens_per_s", "graphs_per_s", "peak_mib",

@@ -1,17 +1,21 @@
-// Segment-masked flash attention backward in fp32, for Hopper.
+// Segment-masked flash attention backward in fp32, for Hopper: the fused
+// backward #3 and the split pair #4 / #5 on one set of passes.
 //
-// Replaces graphgpt_tpu/ops/flash_attention.py:706 _bwd_kernel_fused when
-// it is given fp32 (a `model.dtype: float32` model): there its products,
-// p = exp(S - lse) and ds = p * (do v^T - delta) stay fp32 (the casts to
-// the working dtype, :764-770, change nothing). The bf16 form is
-// csrc/flash_bwd.cu. Same contract: q (pre-scaled, unrotated), k, v, out,
-// do token-major [B, P, H * 64] fp32, segment ids int32 [B, P], RoPE
-// cos/sin [B, P, 64] fp32 (or null), lse [B, H, P] fp32 and its optional
-// cotangent dlse; writes delta = rowsum(do * out) - dlse [B, H, P] and dq,
-// dk, dv [B, P, H * 64] fp32, dq and dk brought back through the inverse
-// rotation. do is taken as zero on padded rows (segment 0) before any sum,
-// so that a non-finite value there reaches no output; a padded row takes
-// no part.
+// Replaces graphgpt_tpu/ops/flash_attention.py:706 _bwd_kernel_fused,
+// :602 _dq_kernel_single and :789 _dkv_kernel_single when they are given
+// fp32 (a `model.dtype: float32` model): there their products, p = exp(S -
+// lse) and ds = p * (do v^T - delta) stay fp32 (the casts to the working
+// dtype, :764-770, change nothing). The bf16 forms are csrc/flash_bwd.cu
+// and csrc/flash_bwd_split.cu. Same contracts: q (pre-scaled, unrotated),
+// k, v, out, do token-major [B, P, H * 64] fp32, segment ids int32 [B, P],
+// RoPE cos/sin [B, P, 64] fp32 (or null), lse [B, H, P] fp32 and its
+// optional cotangent dlse; delta = rowsum(do * out) - dlse [B, H, P] and
+// dq, dk, dv [B, P, H * 64] fp32, dq and dk brought back through the
+// inverse rotation. do is taken as zero on padded rows (segment 0) before
+// any sum, so that a non-finite value there reaches no output; a padded
+// row takes no part. #3 takes the bidirectional and causal masks; the
+// pair also the bi-causal one (`bi_split` bit slots, whose split may fall
+// inside a 64-row tile): #4 writes delta beside dq, #5 reads it.
 //
 // What bounds it on the H100: operations, as for the forward
 // (flash_fwd_f32.cu): fp32-accurate products at 165 TFLOP/s (3xTF32) or
@@ -23,7 +27,8 @@
 // tiles which can see it and sums dk = ds^T q and dv = p^T do in
 // registers; the query pass, a block a (row, head, 64-query tile) that
 // walks the key tiles it sees and sums dq = ds k. Each pass computes S and
-// do v^T again for its tile pairs. Tiles are fp32 in shared memory, the
+// do v^T again for its tile pairs. #3 is all three; #4 is delta and the
+// query pass, #5 the key pass. Tiles are fp32 in shared memory, the
 // products FFMA (flash_f32.cuh).
 
 #include "flash_f32.cuh"
@@ -71,7 +76,7 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ cos, const float* __restrict__ sin,
                const float* __restrict__ lse, const float* __restrict__ delta,
                const float* __restrict__ dout, float* __restrict__ dk, float* __restrict__ dv,
-               int P, int H, int causal) {
+               int P, int H, int causal, int bi_split) {
   extern __shared__ float smem[];
   float* ks = smem;
   float* vs = ks + TILE;
@@ -96,8 +101,10 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float dka[4][4], dva[4][4];
   zero(dka);
   zero(dva);
-  // the first query row that may see this tile (the rule is monotone in the column)
-  const int q_first = first_row(k0, causal, 0, P) / T * T;
+  // the first query row that may see this tile: the rule is monotone in the
+  // column, so the tile's first column's (under a bi-causal split inside
+  // the tile, its prefix columns are seen from row 0)
+  const int q_first = first_row(k0, causal, bi_split, P) / T * T;
   for (int q0 = q_first; q0 < P; q0 += T) {
     if (tiles_miss(seg_row, q0, k0, P)) continue;
     __syncthreads();
@@ -117,7 +124,7 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int ri = ty + 16 * i, r = q0 + ri;
-      const int vis = r < P ? visible_cols(r, causal, 0, P) : 0;
+      const int vis = r < P ? visible_cols(r, causal, bi_split, P) : 0;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const bool ok = visible(qseg[ri], cseg[j], k0 + tx + 16 * j, vis);
@@ -151,7 +158,8 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const int* __restrict__ seg,
               const float* __restrict__ cos, const float* __restrict__ sin,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              const float* __restrict__ dout, float* __restrict__ dq, int P, int H, int causal) {
+              const float* __restrict__ dout, float* __restrict__ dq, int P, int H, int causal,
+              int bi_split) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* ds = qs + TILE;  // do
@@ -173,13 +181,14 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
     rseg[i] = r < P ? seg_row[r] : 0;
-    rvis[i] = r < P ? visible_cols(r, causal, 0, P) : 0;
+    rvis[i] = r < P ? visible_cols(r, causal, bi_split, P) : 0;
     rlse[i] = r < P ? lse_row[r] : 0.f;
     rdelta[i] = r < P ? delta_row[r] : 0.f;
   }
   float dqa[4][4];
   zero(dqa);
-  const int kmax = visible_cols(min(q0 + T - 1, P - 1), causal, 0, P);
+  // the key tiles a row of this tile may see (the rule is monotone in the row)
+  const int kmax = visible_cols(min(q0 + T - 1, P - 1), causal, bi_split, P);
   for (int k0 = 0; k0 < kmax; k0 += T) {
     if (tiles_miss(seg_row, q0, k0, P)) continue;
     __syncthreads();
@@ -216,6 +225,38 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// The three launches, each on `st`; the two passes raise their dynamic
+// shared memory first.
+void launch_delta(const float* dout, const float* out, const int* seg, const float* dlse,
+                  float* delta, int B, int P, int H, cudaStream_t st) {
+  const long long rows = (long long)B * P * H;
+  delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(dout, out, seg, dlse, delta, B, P, H);
+}
+
+cudaError_t launch_dkv(const float* q, const float* k, const float* v, const int* seg,
+                       const float* cos, const float* sin, const float* lse, const float* delta,
+                       const float* dout, float* dk, float* dv, int B, int P, int H, int causal,
+                       int bi_split, cudaStream_t st) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(dkv_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, KEY_SMEM);
+  if (err != cudaSuccess) return err;
+  dkv_f32_kernel<<<dim3((P + T - 1) / T, H, B), THREADS, KEY_SMEM, st>>>(
+      q, k, v, seg, cos, sin, lse, delta, dout, dk, dv, P, H, causal, bi_split);
+  return cudaSuccess;
+}
+
+cudaError_t launch_dq(const float* q, const float* k, const float* v, const int* seg,
+                      const float* cos, const float* sin, const float* lse, const float* delta,
+                      const float* dout, float* dq, int B, int P, int H, int causal, int bi_split,
+                      cudaStream_t st) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(dq_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, QUERY_SMEM);
+  if (err != cudaSuccess) return err;
+  dq_f32_kernel<<<dim3((P + T - 1) / T, H, B), THREADS, QUERY_SMEM, st>>>(
+      q, k, v, seg, cos, sin, lse, delta, dout, dq, P, H, causal, bi_split);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // C entry for ctypes: #3's fp32 form (delta, then the key pass and the
@@ -229,24 +270,50 @@ extern "C" int ggt_flash_bwd_f32(const void* q, const void* k, const void* v, co
                                  int causal, void* stream) {
   if (B == 0 || P == 0 || H == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err =
-      cudaFuncSetAttribute(dkv_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, KEY_SMEM);
+  const float *fq = (const float*)q, *fk = (const float*)k, *fv = (const float*)v;
+  const float *fcos = (const float*)cos, *fsin = (const float*)sin, *flse = (const float*)lse;
+  const float* fdo = (const float*)dout;
+  const int* iseg = (const int*)seg;
+  launch_delta(fdo, (const float*)out, iseg, (const float*)dlse, (float*)delta, B, P, H, st);
+  cudaError_t err = launch_dkv(fq, fk, fv, iseg, fcos, fsin, flse, (const float*)delta, fdo,
+                               (float*)dk, (float*)dv, B, P, H, causal, 0, st);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dq_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               QUERY_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const long long rows = (long long)B * P * H;
-  delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
-      (const float*)dout, (const float*)out, (const int*)seg, (const float*)dlse, (float*)delta,
-      B, P, H);
-  const dim3 grid((P + T - 1) / T, H, B);
-  dkv_f32_kernel<<<grid, THREADS, KEY_SMEM, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)seg, (const float*)cos,
-      (const float*)sin, (const float*)lse, (const float*)delta, (const float*)dout, (float*)dk,
-      (float*)dv, P, H, causal);
-  dq_f32_kernel<<<grid, THREADS, QUERY_SMEM, st>>>(
+    err = launch_dq(fq, fk, fv, iseg, fcos, fsin, flse, (const float*)delta, fdo, (float*)dq, B,
+                    P, H, causal, 0, st);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// C entry for ctypes: #4's fp32 form (delta, then the query pass: dq and
+// delta, which #5 reads) on `stream`; returns the first CUDA error. Masks:
+// bidirectional, causal, or bi-causal with `bi_split` bit slots. cos, sin
+// and dlse may be null. Any P.
+extern "C" int ggt_flash_dq_f32(const void* q, const void* k, const void* v, const void* seg,
+                                const void* cos, const void* sin, const void* out,
+                                const void* lse, const void* dout, const void* dlse, void* delta,
+                                void* dq, int B, int P, int H, int causal, int bi_split,
+                                void* stream) {
+  if (B == 0 || P == 0 || H == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  launch_delta((const float*)dout, (const float*)out, (const int*)seg, (const float*)dlse,
+               (float*)delta, B, P, H, st);
+  const cudaError_t err = launch_dq(
       (const float*)q, (const float*)k, (const float*)v, (const int*)seg, (const float*)cos,
       (const float*)sin, (const float*)lse, (const float*)delta, (const float*)dout, (float*)dq,
-      P, H, causal);
-  return (int)cudaGetLastError();
+      B, P, H, causal, bi_split, st);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// C entry for ctypes: #5's fp32 form (the key pass: dk, dv, reading #4's
+// delta) on `stream`; returns the first CUDA error. cos and sin may be
+// null. Any P.
+extern "C" int ggt_flash_dkv_f32(const void* q, const void* k, const void* v, const void* seg,
+                                 const void* cos, const void* sin, const void* lse,
+                                 const void* delta, const void* dout, void* dk, void* dv, int B,
+                                 int P, int H, int causal, int bi_split, void* stream) {
+  if (B == 0 || P == 0 || H == 0) return 0;
+  const cudaError_t err = launch_dkv(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)seg, (const float*)cos,
+      (const float*)sin, (const float*)lse, (const float*)delta, (const float*)dout, (float*)dk,
+      (float*)dv, B, P, H, causal, bi_split, (cudaStream_t)stream);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

@@ -1,27 +1,32 @@
-// The norm-fused gated MLP in fp32, x + down(act(gate(h)) * up(h)) with
-// h = rms(x) * wn, for Hopper.
+// The gated MLP in fp32 for Hopper, in two forms of one body: #2's fp32
+// form, x + down(act(gate(h)) * up(h)) with h = rms(x) * wn, and #11's,
+// down(act(gate(x)) * up(x)) with no norm and no residual.
 //
-// Replaces graphgpt_tpu/ops/mlp.py:203 _norm_mlp_kernel when it is given
-// fp32 (a `model.dtype: float32` model): its casts of hpre and the
-// activation to x's dtype (:208, :217) then change nothing, its products
-// sum in fp32, and the residual is added in fp32. The bf16 form is
-// csrc/norm_mlp.cu. Same contract: x [N, D] fp32, wn [D] fp32, wg, wu [F,
-// D] and wd [D, F] fp32 in nn.Linear layout; out [N, D] fp32; g [N, F] and
-// rrms [N] fp32 scratch from the caller. Activations: exact gelu (erff),
-// tanh gelu, silu. D and F multiples of 64.
+// Replaces graphgpt_tpu/ops/mlp.py:203 _norm_mlp_kernel and :82
+// _mlp_kernel when they are given fp32 (a `model.dtype: float32` model):
+// their casts of hpre and the activation to x's dtype (:208, :217; :88)
+// then change nothing, their products sum in fp32, and #2's residual is
+// added in fp32. The bf16 forms are csrc/norm_mlp.cu and csrc/mlp.cu. Same
+// contracts: x [N, D] fp32, wn [D] fp32 (#2), wg, wu [F, D] and wd [D, F]
+// fp32 in nn.Linear layout; out [N, D] fp32; g [N, F] and rrms [N] (#2)
+// fp32 scratch from the caller. Activations: exact gelu (erff), tanh gelu,
+// silu. D and F multiples of 64.
 //
 // What bounds it on the H100: operations, 6 N D F of them (116 GFLOP at N
 // 8192, D 768, F 3072) against ~0.2 GB of traffic. fp32-accurate products
 // run at 165 TFLOP/s at best (3xTF32); this kernel's FFMA tops out at the
 // 67 TFLOP/s of the fp32 cores.
 //
-// Design: simple and right first. Three launches: the rrms pre-pass (a
+// Design: simple and right first. #2: three launches, the rrms pre-pass (a
 // warp a row); gate/up, a block of 256 threads a 64 x 64 tile of g that
 // normalises each 64 x 16 slab of x as it lands in shared memory (x *
 // rrms * wn, rounded as the plain version rounds it) and sums gate and up
 // in two sets of FFMA accumulators, then writes act(gate) * up; down, the
-// same tile product over g and wd with x added in the epilogue. Each
-// output sums its k in order: the same bits on every launch.
+// same tile product over g and wd with x added in the epilogue. #11: the
+// same gate/up and down without the pre-pass, the norm and the residual;
+// each difference is an `if constexpr` on the form, so #2's instances are
+// the code they were before #11 joined them. Each output sums its k in
+// order: the same bits on every launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,8 +100,9 @@ __device__ __forceinline__ void slab_mma(float (&acc)[4][4], const float* a, con
   }
 }
 
-// g[n, f] = act(h wg^T)[n, f] * (h wu^T)[n, f], h = rms(x) * wn; a block a
-// 64 x 64 tile (blockIdx.x over F, blockIdx.y over N)
+// g[n, f] = act(h wg^T)[n, f] * (h wu^T)[n, f], h = rms(x) * wn with NORM,
+// else x; a block a 64 x 64 tile (blockIdx.x over F, blockIdx.y over N)
+template <bool NORM>
 __global__ void __launch_bounds__(THREADS)
 gate_up_kernel(const float* __restrict__ x, const float* __restrict__ wn,
                const float* __restrict__ wg, const float* __restrict__ wu,
@@ -108,7 +114,7 @@ gate_up_kernel(const float* __restrict__ x, const float* __restrict__ wn,
   float ag[4][4] = {}, au[4][4] = {};
   for (int k0 = 0; k0 < D; k0 += BK) {
     __syncthreads();
-    load_slab<true>(as, x, N, D, n0, k0, rrms, wn);
+    load_slab<NORM>(as, x, N, D, n0, k0, rrms, wn);
     load_slab<false>(gs, wg, F, D, f0, k0, nullptr, nullptr);
     load_slab<false>(us, wu, F, D, f0, k0, nullptr, nullptr);
     __syncthreads();
@@ -124,7 +130,9 @@ gate_up_kernel(const float* __restrict__ x, const float* __restrict__ wn,
   }
 }
 
-// out[n, d] = x[n, d] + (g wd^T)[n, d]; a block a 64 x 64 tile
+// out[n, d] = x[n, d] + (g wd^T)[n, d] with RESID, else (g wd^T)[n, d]; a
+// block a 64 x 64 tile
+template <bool RESID>
 __global__ void __launch_bounds__(THREADS)
 down_kernel(const float* __restrict__ g, const float* __restrict__ wd,
             const float* __restrict__ x, float* __restrict__ out, int N, int D, int F) {
@@ -146,7 +154,10 @@ down_kernel(const float* __restrict__ g, const float* __restrict__ wd,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const long long o = (long long)n * D + d0 + tx + 16 * j;
-      out[o] = x[o] + acc[i][j];
+      if constexpr (RESID)
+        out[o] = x[o] + acc[i][j];
+      else
+        out[o] = acc[i][j];
     }
   }
 }
@@ -164,10 +175,27 @@ extern "C" int ggt_norm_mlp_f32(const void* x, const void* wn, const void* wg, c
   if (N == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   rrms_kernel<<<(N + 7) / 8, 256, 0, st>>>((const float*)x, (float*)rrms, N, D, eps);
-  gate_up_kernel<<<dim3(F / BN, (N + BM - 1) / BM), THREADS, 0, st>>>(
+  gate_up_kernel<true><<<dim3(F / BN, (N + BM - 1) / BM), THREADS, 0, st>>>(
       (const float*)x, (const float*)wn, (const float*)wg, (const float*)wu,
       (const float*)rrms, (float*)g, N, D, F, act);
-  down_kernel<<<dim3(D / BN, (N + BM - 1) / BM), THREADS, 0, st>>>(
+  down_kernel<true><<<dim3(D / BN, (N + BM - 1) / BM), THREADS, 0, st>>>(
       (const float*)g, (const float*)wd, (const float*)x, (float*)out, N, D, F);
+  return (int)cudaGetLastError();
+}
+
+// C entry for ctypes: #11's fp32 form (gate/up, then down; no norm, no
+// residual) on `stream`; returns the first CUDA error (0 when the launches
+// were accepted). g [N, F] is fp32 scratch from the caller; D and F
+// multiples of 64.
+extern "C" int ggt_mlp_f32(const void* x, const void* wg, const void* wu, const void* wd,
+                           void* g, void* out, int N, int D, int F, int act, void* stream) {
+  if (D % BN != 0 || F % BN != 0) return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  gate_up_kernel<false><<<dim3(F / BN, (N + BM - 1) / BM), THREADS, 0, st>>>(
+      (const float*)x, nullptr, (const float*)wg, (const float*)wu, nullptr, (float*)g, N, D, F,
+      act);
+  down_kernel<false><<<dim3(D / BN, (N + BM - 1) / BM), THREADS, 0, st>>>(
+      (const float*)g, (const float*)wd, nullptr, (float*)out, N, D, F);
   return (int)cudaGetLastError();
 }

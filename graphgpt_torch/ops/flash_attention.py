@@ -42,12 +42,15 @@ flash_attention rotates q and k outside the kernels (:1249-1255), with
 Here the port differs: an unknown mode raises, where the JAX package takes
 any value it does not know for `legacy`.
 
-Dtypes: every kernel takes bf16. #1 and #3 also take fp32 (a
-`model.dtype: float32` model), in forms of their own, `csrc/flash_fwd_f32.cu`
-and `csrc/flash_bwd_f32.cu`, each with its wrapper and its count
-(flash_fwd_f32, flash_bwd_f32), to which flash_fwd and flash_bwd hand fp32
-CUDA tensors; the other forms raise on fp32 until theirs are ported, and
-every kernel raises on any other dtype.
+Dtypes: every kernel takes bf16. #1, #3, #4 and #5 also take fp32 (a
+`model.dtype: float32` model), in forms of their own: #1's in
+`csrc/flash_fwd_f32.cu`, #3's and the split pair's in the passes of
+`csrc/flash_bwd_f32.cu`, each with its wrapper and its count
+(flash_fwd_f32, flash_bwd_f32, flash_dq_f32, flash_dkv_f32), to which
+flash_fwd, flash_bwd, flash_dq and flash_dkv hand fp32 CUDA tensors with
+the RoPE tables kept fp32; the other forms (#6-#10) raise on fp32 until
+theirs are ported, and every kernel raises on any other dtype or on a
+mix.
 
 Head widths: the kernels are built for KERNEL_DH = 64 and raise on any
 other. Below it `flash_attention` does what the JAX package's does before
@@ -608,7 +611,8 @@ flash_bwd_f32.launches = 0
 def _check_split_p(name, p: int) -> None:
     """The split pair's kernels (the single form) hold an item's visiting
     tiles in one 32-bit mask: P <= MAX_P (flash_bwd sends longer rows to the
-    streamed pair, the same body's stream form)."""
+    streamed pair, the same body's stream form). The fp32 forms keep the
+    same contract."""
     if p > MAX_P:
         raise NotImplementedError(f"{name} takes P <= {MAX_P}, got {p}")
 
@@ -635,30 +639,21 @@ def flash_dq(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal: bool, dh: int,
              bi_causal_split: int = 0):
     """(dq, delta), delta = rowsum(do * out) - dlse [B, H, P] fp32 for
     flash_dkv: the CUDA kernel (#4, which sums delta for its own rows and
-    writes it beside dq: one launch) for a CUDA tensor, flash_delta and
-    flash_dq_ref for a CPU tensor (or inside ops.reference_mode()). dlse
-    None means zeros. The kernel takes P <= MAX_P. Both take do as zero on
-    padded rows, so that a non-finite value there reaches neither dq nor
-    delta, nor flash_dkv's sums."""
+    writes it beside dq: one launch) for a CUDA tensor, its fp32 form
+    (flash_dq_f32) for an fp32 one, flash_delta and flash_dq_ref for a CPU
+    tensor (or inside ops.reference_mode()). dlse None means zeros. The
+    kernels take P <= MAX_P. All take do as zero on padded rows, so that a
+    non-finite value there reaches neither dq nor delta, nor flash_dkv's
+    sums."""
     if not use_kernel(qs, k, v, seg, out, lse, do):
-        do = zero_padded_rows(do, seg)
-        delta = flash_delta(do, out, dlse, dh)
-        return flash_dq_ref(qs, k, v, seg, cos, sin, lse, delta, do, causal, dh,
-                            bi_causal_split), delta
-    b, p, _ = qs.shape
-    _check_split_p("flash_dq", p)
-    extra_rows = () if dlse is None else (dlse,)
-    (qs, k, v, do, out), seg, _, cos, sin, rows = _check_bwd(
-        "flash_dq", dh, qs, k, v, seg, cos, sin, lse, do, extra=(out,), extra_rows=extra_rows)
-    lse, dlse = rows[0], (rows[1] if dlse is not None else None)
-    dq, delta = torch.empty_like(qs), torch.empty_like(lse)
-    fn = _build.entry("flash_bwd_split", "ggt_flash_dq", _DQ_ARGTYPES)
-    err = fn(
-        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg), _opt_ptr(cos),
-        _opt_ptr(sin), _build.ptr(out), _build.ptr(lse), _build.ptr(do), _opt_ptr(dlse),
-        _build.ptr(delta), _build.ptr(dq), b, p, lse.shape[1], int(causal),
-        int(bi_causal_split), _build.stream_ptr(qs.device),
-    )
+        return _dq_plain(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh,
+                         bi_causal_split)
+    if qs.dtype == torch.float32:
+        return flash_dq_f32(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh,
+                            bi_causal_split)
+    dq, delta, err = _dq_split("flash_dq", "flash_bwd_split", "ggt_flash_dq", torch.bfloat16,
+                               qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh,
+                               bi_causal_split)
     flash_dq.launches += 1
     _build.check(err, "flash_dq")
     return dq, delta
@@ -667,32 +662,118 @@ def flash_dq(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal: bool, dh: int,
 flash_dq.launches = 0
 
 
+def _dq_plain(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal: bool, dh: int,
+              bi_causal_split: int):
+    """(dq, delta) of the split pair's plain route: delta summed from do
+    taken as zero on padded rows, then flash_dq_ref."""
+    do = zero_padded_rows(do, seg)
+    delta = flash_delta(do, out, dlse, dh)
+    return flash_dq_ref(qs, k, v, seg, cos, sin, lse, delta, do, causal, dh,
+                        bi_causal_split), delta
+
+
+def _dq_split(name, source, symbol, dtype, qs, k, v, seg, cos, sin, out, lse, do, dlse,
+              causal: bool, dh: int, bi_causal_split: int):
+    """Launch #4's form `symbol` of csrc/<source>.cu, which takes `dtype`:
+    (dq, delta, the entry's error code)."""
+    b, p, _ = qs.shape
+    _check_split_p(name, p)
+    extra_rows = () if dlse is None else (dlse,)
+    (qs, k, v, do, out), seg, _, cos, sin, rows = _check_bwd(
+        name, dh, qs, k, v, seg, cos, sin, lse, do, extra=(out,), extra_rows=extra_rows,
+        dtype=dtype)
+    lse, dlse = rows[0], (rows[1] if dlse is not None else None)
+    dq, delta = torch.empty_like(qs), torch.empty_like(lse)
+    fn = _build.entry(source, symbol, _DQ_ARGTYPES)
+    err = fn(
+        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg), _opt_ptr(cos),
+        _opt_ptr(sin), _build.ptr(out), _build.ptr(lse), _build.ptr(do), _opt_ptr(dlse),
+        _build.ptr(delta), _build.ptr(dq), b, p, lse.shape[1], int(causal),
+        int(bi_causal_split), _build.stream_ptr(qs.device),
+    )
+    return dq, delta, err
+
+
+def flash_dq_f32(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal: bool, dh: int,
+                 bi_causal_split: int = 0):
+    """(dq, delta) of #4's fp32 form (`csrc/flash_bwd_f32.cu`: delta, then
+    the query pass; counted as one call) for fp32 CUDA tensors, cos and sin
+    kept fp32; the plain route for a CPU tensor (or inside
+    ops.reference_mode()). P <= MAX_P, as flash_dq."""
+    if not use_kernel(qs, k, v, seg, out, lse, do):
+        return _dq_plain(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh,
+                         bi_causal_split)
+    dq, delta, err = _dq_split("flash_dq_f32", "flash_bwd_f32", "ggt_flash_dq_f32",
+                               torch.float32, qs, k, v, seg, cos, sin, out, lse, do, dlse,
+                               causal, dh, bi_causal_split)
+    flash_dq_f32.launches += 1
+    _build.check(err, "flash_dq_f32")
+    return dq, delta
+
+
+flash_dq_f32.launches = 0
+
+
 def flash_dkv(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int,
               bi_causal_split: int = 0):
     """(dk, dv): the CUDA kernel (#5, reading flash_dq's delta) for a CUDA
-    tensor, the plain version for a CPU tensor (or inside
-    ops.reference_mode()). The kernel takes P <= MAX_P."""
+    tensor, its fp32 form (flash_dkv_f32) for an fp32 one, the plain
+    version for a CPU tensor (or inside ops.reference_mode()). The kernels
+    take P <= MAX_P."""
     if not use_kernel(qs, k, v, seg, lse, delta, do):
         return flash_dkv_ref(qs, k, v, seg, cos, sin, lse, delta, do, causal, dh,
                              bi_causal_split)
-    b, p, _ = qs.shape
-    _check_split_p("flash_dkv", p)
-    (qs, k, v, do), seg, _, cos, sin, (lse, delta) = _check_bwd(
-        "flash_dkv", dh, qs, k, v, seg, cos, sin, lse, do, extra_rows=(delta,))
-    dk, dv = torch.empty_like(qs), torch.empty_like(qs)
-    fn = _build.entry("flash_bwd_split", "ggt_flash_dkv", _DKV_ARGTYPES)
-    err = fn(
-        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg), _opt_ptr(cos),
-        _opt_ptr(sin), _build.ptr(lse), _build.ptr(delta), _build.ptr(do), _build.ptr(dk),
-        _build.ptr(dv), b, p, lse.shape[1], int(causal), int(bi_causal_split),
-        _build.stream_ptr(qs.device),
-    )
+    if qs.dtype == torch.float32:
+        return flash_dkv_f32(qs, k, v, seg, cos, sin, lse, delta, do, causal, dh,
+                             bi_causal_split)
+    dk, dv, err = _dkv_split("flash_dkv", "flash_bwd_split", "ggt_flash_dkv", torch.bfloat16,
+                             qs, k, v, seg, cos, sin, lse, delta, do, causal, dh,
+                             bi_causal_split)
     flash_dkv.launches += 1
     _build.check(err, "flash_dkv")
     return dk, dv
 
 
 flash_dkv.launches = 0
+
+
+def _dkv_split(name, source, symbol, dtype, qs, k, v, seg, cos, sin, lse, delta, do,
+               causal: bool, dh: int, bi_causal_split: int):
+    """Launch #5's form `symbol` of csrc/<source>.cu, which takes `dtype`:
+    (dk, dv, the entry's error code)."""
+    b, p, _ = qs.shape
+    _check_split_p(name, p)
+    (qs, k, v, do), seg, _, cos, sin, (lse, delta) = _check_bwd(
+        name, dh, qs, k, v, seg, cos, sin, lse, do, extra_rows=(delta,), dtype=dtype)
+    dk, dv = torch.empty_like(qs), torch.empty_like(qs)
+    fn = _build.entry(source, symbol, _DKV_ARGTYPES)
+    err = fn(
+        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg), _opt_ptr(cos),
+        _opt_ptr(sin), _build.ptr(lse), _build.ptr(delta), _build.ptr(do), _build.ptr(dk),
+        _build.ptr(dv), b, p, lse.shape[1], int(causal), int(bi_causal_split),
+        _build.stream_ptr(qs.device),
+    )
+    return dk, dv, err
+
+
+def flash_dkv_f32(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int,
+                  bi_causal_split: int = 0):
+    """(dk, dv) of #5's fp32 form (`csrc/flash_bwd_f32.cu`'s key pass,
+    reading flash_dq_f32's delta) for fp32 CUDA tensors, cos and sin kept
+    fp32; the plain version for a CPU tensor (or inside
+    ops.reference_mode()). P <= MAX_P, as flash_dkv."""
+    if not use_kernel(qs, k, v, seg, lse, delta, do):
+        return flash_dkv_ref(qs, k, v, seg, cos, sin, lse, delta, do, causal, dh,
+                             bi_causal_split)
+    dk, dv, err = _dkv_split("flash_dkv_f32", "flash_bwd_f32", "ggt_flash_dkv_f32",
+                             torch.float32, qs, k, v, seg, cos, sin, lse, delta, do, causal, dh,
+                             bi_causal_split)
+    flash_dkv_f32.launches += 1
+    _build.check(err, "flash_dkv_f32")
+    return dk, dv
+
+
+flash_dkv_f32.launches = 0
 
 
 def flash_dq_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal: bool,

@@ -7,17 +7,18 @@ Counterpart of `graphgpt_tpu/ops/mlp.py` (`_mlp_kernel` :82, `fused_mlp`
 :253 with `_fused_norm_mlp_bwd` :267, `_norm_qkv_kernel` :315,
 `fused_norm_qkv` :363 with `_fused_norm_qkv_bwd` :376, `_rmsnorm_bwd_kernel`
 :414, `xla_mlp` :468). The kernels live in `csrc/mlp.cu`,
-`csrc/norm_mlp.cu`, `csrc/norm_qkv.cu` and `csrc/rmsnorm_bwd.cu`. Weights
+`csrc/norm_mlp.cu`, `csrc/norm_qkv.cu` and `csrc/rmsnorm_bwd.cu`, and the
+fp32 forms of #2 and #11 in `csrc/norm_mlp_f32.cu`. Weights
 are in nn.Linear layout (`[out, in]`): the JAX package's `[in, out]`
 matrices transposed.
 
-Dtypes: every kernel takes bf16. #2 and #13 also take fp32 (a
-`model.dtype: float32` model): #2 in a form of its own,
-`csrc/norm_mlp_f32.cu` (wrapper and count norm_mlp_f32), #13 in the fp32
-instances of its templated source (rmsnorm_bwd_f32); norm_mlp and
-rmsnorm_bwd hand them fp32 CUDA tensors. mlp (#11) and norm_qkv (#12)
-raise on fp32 until their forms are ported, and every kernel raises on any
-other dtype.
+Dtypes: every kernel takes bf16. #2, #11 and #13 also take fp32 (a
+`model.dtype: float32` model): #2 and #11 in two forms of one fp32 body,
+`csrc/norm_mlp_f32.cu` (wrappers and counts norm_mlp_f32, mlp_f32), #13
+in the fp32 instances of its templated source (rmsnorm_bwd_f32);
+norm_mlp, mlp and rmsnorm_bwd hand them fp32 CUDA tensors. norm_qkv (#12)
+raises on fp32 until its form is ported, and every kernel raises on any
+other dtype or on a mix.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ _ARGTYPES = (
 _F32_ARGTYPES = (
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
+# #11's fp32 form: x, wg, wu, wd, g, out; N, D, F, act; stream
+_MLP_F32_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 # the stage entries (ggt_mlp_stages, ggt_norm_mlp_stages): a stage mask before the stream
 _MLP_STAGE_ARGTYPES = _MLP_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
 _STAGE_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
@@ -172,20 +175,29 @@ def rms_blocks(n: int, d: int, sms: int) -> int:
     return max(1, min(-(-n // _RMS_WARPS), per_sm * sms))
 
 
+def _mlp_args(name, x, wg, wu, wd, act, dtype):
+    """The checks and layouts both forms of the mlp kernel need: (x, wg, wu,
+    wd) contiguous. Raises on what they do not take."""
+    _check_mlp_args(name, x, wg, wu, wd, act, dtype)
+    x, wg, wu, wd = (t.contiguous() for t in (x, wg, wu, wd))
+    # the kernels read x and the weights 16 bytes at a time (TMA in bf16)
+    if any(t.data_ptr() % 16 for t in (x, wg, wu, wd)):
+        raise ValueError(f"{name} needs 16-byte aligned x and weights")
+    return x, wg, wu, wd
+
+
 def mlp(x, wg, wu, wd, act: str):
     """act(x @ wg^T) * (x @ wu^T) @ wd^T for x [N, D] in bf16 and bf16
     weights: the CUDA kernel (two launches, counted as one call) for a CUDA
-    tensor, the plain version for a CPU tensor (or inside
-    ops.reference_mode())."""
+    tensor, its fp32 form (mlp_f32) for fp32 ones, the plain version for a
+    CPU tensor (or inside ops.reference_mode())."""
     if not use_kernel(x, wg, wu, wd):
         return mlp_kernel_ref(x, wg, wu, wd, act)
-    _check_mlp_args("mlp", x, wg, wu, wd, act)
+    if x.dtype == torch.float32:
+        return mlp_f32(x, wg, wu, wd, act)
+    x, wg, wu, wd = _mlp_args("mlp", x, wg, wu, wd, act, torch.bfloat16)
     n, d = x.shape
     f = wg.shape[0]
-    x, wg, wu, wd = (t.contiguous() for t in (x, wg, wu, wd))
-    # TMA reads x and the weights from 16-byte aligned bases
-    if any(t.data_ptr() % 16 for t in (x, wg, wu, wd)):
-        raise ValueError("mlp needs 16-byte aligned x and weights")
     out = torch.empty_like(x)
     if n == 0:
         return out
@@ -204,12 +216,40 @@ def mlp(x, wg, wu, wd, act: str):
 mlp.launches = 0
 
 
+def mlp_f32(x, wg, wu, wd, act: str):
+    """act(x @ wg^T) * (x @ wu^T) @ wd^T for x [N, D] and the weights in
+    fp32: #11's fp32 form (`csrc/norm_mlp_f32.cu` without the norm and the
+    residual: gate/up, down; counted as one call) for CUDA tensors, the
+    plain version for a CPU tensor (or inside ops.reference_mode())."""
+    if not use_kernel(x, wg, wu, wd):
+        return mlp_kernel_ref(x, wg, wu, wd, act)
+    x, wg, wu, wd = _mlp_args("mlp_f32", x, wg, wu, wd, act, torch.float32)
+    n, d = x.shape
+    f = wg.shape[0]
+    out = torch.empty_like(x)
+    if n == 0:
+        return out
+    g = torch.empty((n, f), dtype=torch.float32, device=x.device)
+    fn = _build.entry("norm_mlp_f32", "ggt_mlp_f32", _MLP_F32_ARGTYPES)
+    err = fn(
+        _build.ptr(x), _build.ptr(wg), _build.ptr(wu), _build.ptr(wd), _build.ptr(g),
+        _build.ptr(out), n, d, f, _ACT_IDS[act], _build.stream_ptr(x.device),
+    )
+    mlp_f32.launches += 1
+    _build.check(err, "mlp_f32")
+    return out
+
+
+mlp_f32.launches = 0
+
+
 def mlp_bwd_ref(x, wg, wu, wd, dout, act: str):
     """(dx, dwg, dwu, dwd) of `fused_mlp`, the formula of `_fused_mlp_bwd` in
     plain ops: xg, xu, a, g computed again from x (rounded to x's dtype),
     dg and dxg rounded, the three weight gradients summed in fp32. The
     matrix products are `torch.matmul`, as the JAX package leaves them to
-    XLA."""
+    XLA: on fp32 inputs they are fp32 products (cuBLAS, TF32 off unless the
+    caller turns `torch.backends.cuda.matmul.allow_tf32` on)."""
     dt = x.dtype
     wg_c, wu_c, wd_c = wg.to(dt), wu.to(dt), wd.to(dt)
     xg = F.linear(x, wg_c)
@@ -267,15 +307,11 @@ def norm_mlp_ref(x, wn, wg, wu, wd, eps: float, act: str):
 def _norm_mlp_args(name, x, wn, wg, wu, wd, act, dtype):
     """The checks and layouts both forms of the norm_mlp kernel need:
     (x, wn fp32, wg, wu, wd) contiguous. Raises on what they do not take."""
-    _check_mlp_args(name, x, wg, wu, wd, act, dtype)
+    x, wg, wu, wd = _mlp_args(name, x, wg, wu, wd, act, dtype)
     if wn.shape != x.shape[-1:]:
         raise ValueError(f"norm weight shape {wn.shape}")
     if x.shape[1] > _MLP_MAX_D:
         raise NotImplementedError(f"the {name} kernel needs D <= {_MLP_MAX_D}, got {x.shape[1]}")
-    x, wg, wu, wd = (t.contiguous() for t in (x, wg, wu, wd))
-    # the kernels read x and the weights 16 bytes at a time (TMA in bf16)
-    if any(t.data_ptr() % 16 for t in (x, wg, wu, wd)):
-        raise ValueError(f"{name} needs 16-byte aligned x and weights")
     return x, wn.float().contiguous(), wg, wu, wd
 
 

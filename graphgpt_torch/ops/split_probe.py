@@ -7,7 +7,9 @@ flash_fwd_stream and #9 flash_fwd_band (`--kernel fwd`,
 flash_bwd_band (`--kernel bwd`, `csrc/flash_bwd.cu`), the gated
 MLPs #11 and #2 (`--kernel mlp`, `--kernel norm_mlp`: `csrc/mlp.cu`,
 `csrc/norm_mlp.cu` with `csrc/mlp_common.cuh`) and the RMSNorm backward #13
-(`--kernel rmsnorm_bwd`, `csrc/rmsnorm_bwd.cu`), timed on the card whole
+(`--kernel rmsnorm_bwd`, `csrc/rmsnorm_bwd.cu`), and the fp32 forms #2f and
+#11f (`--kernel mlp_f32`, `csrc/norm_mlp_f32.cu`) and #3f, #4f and #5f
+(`--kernel bwd_f32`, `csrc/flash_bwd_f32.cu`), timed on the card whole
 and with one phase of their body left out at a time, at their paths'
 shapes: the denoise batch (B 256 x P 88, 16 bit slots, a molecule and a
 padded stretch a row), the fine-tune batch (B 256 x P 72, a molecule a
@@ -16,7 +18,13 @@ row), B 8 and B 64 x P 1024 and the long-context batch B 16 x P 4096
 and k, unrotated, and no cos, sin; bwd's band form at B 8 and 64 x P 1024
 and B 16 x P 4096); the MLPs at N 8,192 and 65,536 rows (D 768, F 3,072,
 gelu), whole and each stage alone; #13 at N 18,432, 22,528 and 65,536
-(D 768), its row pass and its sum of the per-CTA dw rows alone.
+(D 768), its row pass and its sum of the per-CTA dw rows alone; the fp32
+MLP forms at N 8,192 (D 768, F 3,072) and N 1,024 (D 128, F 512,
+toy_pretrain's), the fp32 backward at B 8 x P 1024 (12 heads) and B 8 x
+P 128 (2 heads, toy_pretrain's), the fp32 pair also at the denoise batch
+and at B 8 x P 1024 with 16 bit slots (their inputs drawn in fp32 by
+numpy from a fixed seed, so that a digest is the same from machine to
+machine for the same bits).
 
 A variant leaves a phase out by a text substitution in the source and is
 built beside the package's own builds. Its outputs are wrong by design;
@@ -70,7 +78,7 @@ dw, those of "reduce" are stale):
   reduce   the sum of the scratch alone (the row pass left out)
 
     python3 -m graphgpt_torch.ops.split_probe
-        [--kernel split|stream|fwd|bwd|mlp|norm_mlp|rmsnorm_bwd]
+        [--kernel split|stream|fwd|bwd|mlp|norm_mlp|rmsnorm_bwd|mlp_f32|bwd_f32]
         [--source FILE] [--variants base,noexp]
 
 --source probes another body of the file (one unpacked from an earlier
@@ -82,8 +90,10 @@ form): the medians of five CUDA-event readings of 30 launches each, every
 variant of a shape in one turn, then again in the reverse order; the split,
 stream and bwd lines end with a digest of dq, delta, dk and dv, the fwd
 lines with one of out and lse, the rmsnorm_bwd lines with one of dx and dw,
-so that two bodies that should give the same bits (one --source against
-another) show it.
+the fp32 lines with one of their outputs (f32_digest: out; dq, dk, dv of
+#3f; dq and delta of #4f; dk, dv of #5f), so that two bodies that should
+give the same bits (one --source against another) show it. The fp32
+kernels have the base variant only, and the forms their source has.
 """
 
 from __future__ import annotations
@@ -229,7 +239,22 @@ KERNELS = {
         "nores": _MLP_NORES, "nopre": _MLP_NOPRE, "bf16x2": _MLP_BF16X2,
         "wnglobal": _MLP_WNGLOBAL}),
     "rmsnorm_bwd": ("rmsnorm_bwd.cu", {"base": [], "main": _RMS_MAIN, "reduce": _RMS_REDUCE}),
+    "mlp_f32": ("norm_mlp_f32.cu", {"base": []}),
+    "bwd_f32": ("flash_bwd_f32.cu", {"base": []}),
 }
+# the fp32 forms: each C entry, its argument types and the form's name
+F32_ENTRIES = {
+    "mlp_f32": {"norm_mlp_f32": ("ggt_norm_mlp_f32", tmlp._F32_ARGTYPES),
+                "mlp_f32": ("ggt_mlp_f32", tmlp._MLP_F32_ARGTYPES)},
+    "bwd_f32": {"flash_bwd_f32": ("ggt_flash_bwd_f32", fa._BWD_ARGTYPES),
+                "flash_dq_f32": ("ggt_flash_dq_f32", fa._DQ_ARGTYPES),
+                "flash_dkv_f32": ("ggt_flash_dkv_f32", fa._DKV_ARGTYPES)},
+}
+MLP_F32_SHAPES = {"N8192": (8192, 768, 3072), "N1024": (1024, 128, 512)}  # (N, D, F)
+# (B, P, H, bit slots, row layout); #3f takes the shapes without bit slots
+BWD_F32_SHAPES = {"B8 P1024": (8, 1024, 12, 0, "packed"), "toy B8 P128": (8, 128, 2, 0, "packed"),
+                  "denoise B256 P88": (256, 88, 12, 16, "denoise"),
+                  "B8 P1024 bi16": (8, 1024, 12, 16, "packed")}
 # the header a kernel's source includes, put in place before the substitutions
 INLINE = {"mlp": "mlp_common.cuh", "norm_mlp": "mlp_common.cuh"}
 VARIANTS = KERNELS["split"][1]
@@ -302,6 +327,10 @@ def build(kernel: str, source: str, names, include: Path) -> dict:
                     getattr(libs[name], entry).argtypes = argtypes
         elif kernel == "bwd":
             for entry, argtypes, _ in BWD_FORMS.values():
+                if hasattr(libs[name], entry):
+                    getattr(libs[name], entry).argtypes = argtypes
+        elif kernel in F32_ENTRIES:
+            for entry, argtypes in F32_ENTRIES[kernel].values():
                 if hasattr(libs[name], entry):
                     getattr(libs[name], entry).argtypes = argtypes
         elif kernel == "rmsnorm_bwd":
@@ -388,29 +417,118 @@ def probe_rms(libs, dev, legacy_grid: bool) -> None:
                       f"digest {digest}", flush=True)
 
 
-def inputs(b, p, h, bi, layout, dev):
-    """q (pre-scaled), k, v, do, seg, cos, sin, and the forward's out and lse."""
-    rng = np.random.default_rng(0)
+def f32_digest(*tensors) -> int:
+    """The sum of fp32 tensors' bits read as int32: equal for equal bits."""
+    return sum(t.contiguous().view(torch.int32).long().sum().item() for t in tensors)
 
-    def draw(scale):
-        x = rng.normal(size=(b, p, h * DH)) * scale
-        return torch.from_numpy(x.astype(np.float32)).to(dev, torch.bfloat16)
 
-    qs, k, v, do = draw(0.5 * DH**-0.5), draw(0.5), draw(0.5), draw(0.5)
+def f32_mlp_inputs(n, d, f, dev, seed: int = 9):
+    """x, wn, wg, wu, wd in fp32, drawn by numpy from `seed`."""
+    rng = np.random.default_rng(seed)
+
+    def draw(shape, scale, loc=0.0):
+        return torch.from_numpy((loc + rng.normal(size=shape) * scale).astype(np.float32)).to(dev)
+
+    scale = 0.55 / d**0.5
+    return (draw((n, d), 1.0), draw((d,), 0.1, 1.0), draw((f, d), scale), draw((f, d), scale),
+            draw((d, f), scale))
+
+
+def _segments(b, p, bi, layout, rng):
+    """int32 [B, P] segment ids: a molecule and a padded stretch a row, then
+    `bi` bit slots ("denoise"); a molecule at the front ("molecule"); packed
+    rows (else)."""
     if layout == "denoise":
         seg = np.zeros((b, p), np.int32)
         for r in range(b):
             seg[r, : int(rng.integers(10, p - bi))] = 1
             seg[r, p - bi:] = 1
-    elif layout == "molecule":
+        return seg
+    if layout == "molecule":
         seg = np.zeros((b, p), np.int32)
         for r in range(b):
             seg[r, : int(rng.integers(10, p + 1))] = 1
-    else:
-        seg = packed_segments(b, p, rng)
-    seg = torch.from_numpy(seg).to(dev)
+        return seg
+    return packed_segments(b, p, rng)
+
+
+def probe_f32(kernel: str, libs, dev) -> None:
+    """Each fp32 form its source has, at its shapes: the median time and a
+    digest of its outputs after one launch on fresh buffers, every source
+    of a shape in one turn, then again in the reverse order."""
+    stream, ptr = _build.stream_ptr(dev), _build.ptr
+    entries = F32_ENTRIES[kernel]
+    if kernel == "mlp_f32":
+        for tag, (n, d, f) in MLP_F32_SHAPES.items():
+            x, wn, wg, wu, wd = f32_mlp_inputs(n, d, f, dev)
+            g = torch.empty(n, f, device=dev)
+            out, rr = torch.empty_like(x), torch.empty(n, device=dev)
+            runs = {
+                "norm_mlp_f32": lambda lib: lib.ggt_norm_mlp_f32(
+                    ptr(x), ptr(wn), ptr(wg), ptr(wu), ptr(wd), ptr(g), ptr(out), ptr(rr), n, d,
+                    f, 1e-6, 0, stream),
+                "mlp_f32": lambda lib: lib.ggt_mlp_f32(
+                    ptr(x), ptr(wg), ptr(wu), ptr(wd), ptr(g), ptr(out), n, d, f, 0, stream)}
+            _probe_f32_turns(tag, libs, entries, runs, {form: (out,) for form in runs})
+        return
+    for tag, (b, p, h, bi, layout) in BWD_F32_SHAPES.items():
+        qs, k, v, do, seg, cos, sin, out, lse = inputs(b, p, h, bi, layout, dev, torch.float32)
+        delta = torch.empty_like(lse)
+        dq, dk, dv = (torch.empty_like(qs) for _ in range(3))
+        common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(cos), ptr(sin))
+        runs = {
+            "flash_bwd_f32": lambda lib: lib.ggt_flash_bwd_f32(
+                *common, ptr(out), ptr(lse), ptr(do), None, ptr(delta), ptr(dq), ptr(dk),
+                ptr(dv), b, p, h, 0, stream),
+            "flash_dq_f32": lambda lib: lib.ggt_flash_dq_f32(
+                *common, ptr(out), ptr(lse), ptr(do), None, ptr(delta), ptr(dq), b, p, h, 0, bi,
+                stream),
+            "flash_dkv_f32": lambda lib: lib.ggt_flash_dkv_f32(
+                *common, ptr(lse), ptr(delta), ptr(do), ptr(dk), ptr(dv), b, p, h, 0, bi,
+                stream)}
+        if bi:
+            runs.pop("flash_bwd_f32")  # #3 takes no bit slots
+        # the pair's key pass reads the delta of its query pass, which runs
+        # before it in each turn; the digests read what each form writes
+        outs = {"flash_bwd_f32": (dq, dk, dv), "flash_dq_f32": (dq, delta),
+                "flash_dkv_f32": (dk, dv)}
+        for lib in libs.values():
+            if hasattr(lib, "ggt_flash_dq_f32"):
+                _build.check(runs["flash_dq_f32"](lib), "flash_dq_f32")
+        _probe_f32_turns(tag, libs, entries, runs, outs)
+
+
+def _probe_f32_turns(tag, libs, entries, runs, outs) -> None:
+    """Time each form of `runs` in each library that has it, then launch it
+    once on zeroed outputs (`outs[form]`, the tensors its digest reads)."""
+    order = list(libs.items())
+    for turn in (order, order[::-1]):
+        for name, lib in turn:
+            for form, run in runs.items():
+                if not hasattr(lib, entries[form][0]):
+                    continue
+                t = cuda_ms(lambda: _build.check(run(lib), f"{form} {name}"))
+                for x in outs[form]:
+                    x.zero_()
+                _build.check(run(lib), f"{form} {name}")
+                print(f"{tag}: {name:8s} {form} {t:.4f} ms  digest {f32_digest(*outs[form])}",
+                      flush=True)
+
+
+def inputs(b, p, h, bi, layout, dev, dtype=torch.bfloat16):
+    """q (pre-scaled), k, v, do, seg, cos, sin, and the forward's out and lse,
+    in `dtype` (the forms' working type: bf16, or fp32 for #1f and the fp32
+    backward forms), drawn by numpy from seed 0."""
+    rng = np.random.default_rng(0)
+
+    def draw(scale):
+        x = rng.normal(size=(b, p, h * DH)) * scale
+        return torch.from_numpy(x.astype(np.float32)).to(dev, dtype)
+
+    qs, k, v, do = draw(0.5 * DH**-0.5), draw(0.5), draw(0.5), draw(0.5)
+    seg = torch.from_numpy(_segments(b, p, bi, layout, rng)).to(dev)
     pos = torch.arange(p, device=dev).expand(b, p)
-    cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(pos, DH))
+    cos, sin = (t.to(dtype) for t in rope_cos_sin(pos, DH))
     out, lse = fa.flash_fwd(qs, k, v, seg, cos, sin, False, DH, bi)
     return qs, k, v, do, seg, cos, sin, out, lse
 
@@ -447,6 +565,9 @@ def main() -> None:
                  (args.variants or ",".join(variants)).split(","), Path(source).resolve().parent)
     if args.kernel in INLINE:
         probe_mlp(args.kernel, libs, dev)
+        return
+    if args.kernel in F32_ENTRIES:
+        probe_f32(args.kernel, libs, dev)
         return
     if args.kernel == "rmsnorm_bwd":
         # the first body, which sums its 1,056-row scratch one row after

@@ -1,5 +1,5 @@
-"""How the kernel wrappers hand fp32 tensors to the fp32 forms of #1, #2, #3
-and #13, on the CPU.
+"""How the kernel wrappers hand fp32 tensors to the fp32 forms of #1, #2, #3,
+#4, #5, #11 and #13, on the CPU.
 
 The card is stood in for: `use_kernel` says yes, and `_build.entry`,
 `_build.ptr` and `_build.stream_ptr` record which C entry was asked for and
@@ -9,7 +9,9 @@ one) with fp32 RoPE tables equal to the caller's (a bf16 rounding costs
 ~1e-3, far past the fp32 forms' 2e-5), bf16 to the entry it always took,
 and refuse any other dtype, and a mix, before it launches. The numbers
 themselves are held on the card (`tests/test_torch_gpu.py`, the fp32 tests
-at its end, and `chip_smoke.py`'s phase L).
+at its end, and `chip_smoke.py`'s phases L and N). Two small fp32 models,
+one with LayerScale and DropPath and a bi-causal denoiser, train a step
+under the stand-in card and ask for the fp32 entries only.
 """
 
 import ctypes
@@ -117,10 +119,52 @@ def test_the_flash_wrappers_refuse_other_dtypes(monkeypatch):
         tfa.flash_bwd(qs, k, v, seg, cos, sin, qs, torch.zeros(2, 2, 128), do, None, False, 64)
     with pytest.raises(NotImplementedError):  # fp32 q beside bf16 k and v
         tfa.flash_fwd(qs.float(), k.bfloat16(), v.bfloat16(), seg, cos, sin, False, 64)
-    with pytest.raises(NotImplementedError):  # the split pair has no fp32 form yet
-        tfa.flash_bwd(qs.float(), k.float(), v.float(), seg, cos, sin, qs.float(),
-                      torch.zeros(2, 2, 128), do.float(), None, False, 64, 16)
+    lse = torch.zeros(2, 2, 128)
+    with pytest.raises(NotImplementedError):  # the split pair: fp16, then fp32 beside bf16
+        tfa.flash_bwd(qs, k, v, seg, cos, sin, qs, lse, do, None, False, 64, 16)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_dq(qs.float(), k.bfloat16(), v.float(), seg, cos, sin, qs.float(), lse,
+                     do.float(), None, False, 64, 16)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_dkv(qs.float(), k.float(), v.float(), seg, cos, sin, lse, lse,
+                      do.bfloat16(), False, 64, 16)
+    with pytest.raises(NotImplementedError):  # the fp32 pair keeps the pair's P <= MAX_P
+        big = torch.zeros(1, tfa.MAX_P + 64, 128)
+        tfa.flash_dq(big, big, big, torch.ones(1, tfa.MAX_P + 64, dtype=torch.int32), None,
+                     None, big, torch.zeros(1, 2, tfa.MAX_P + 64), big, None, False, 64, 16)
     assert card.calls == []
+
+
+@pytest.mark.parametrize("dtype,source", [(torch.float32, "flash_bwd_f32"),
+                                          (torch.bfloat16, "flash_bwd_split")],
+                         ids=["fp32", "bf16"])
+def test_the_split_pair_sends_each_dtype_to_its_entries(monkeypatch, dtype, source):
+    """flash_bwd with a bi-causal split reaches flash_dq then flash_dkv; fp32
+    goes to #4's and #5's fp32 entries (one launch of each fp32 form, none
+    of the bf16 pair), which take the RoPE tables unrounded, and flash_dkv
+    reads the delta that flash_dq wrote."""
+    card = FakeCard(monkeypatch)
+    qs, k, v, do, seg, cos, sin = _flash(dtype)
+    lse = torch.zeros(2, 2, 128)
+    counts = (tfa.flash_dq, tfa.flash_dkv, tfa.flash_dq_f32, tfa.flash_dkv_f32, tfa.flash_bwd,
+              tfa.flash_bwd_f32)
+    before = [c.launches for c in counts]
+    dq, dk, dv = tfa.flash_bwd(qs, k, v, seg, cos, sin, qs, lse, do, None, False, 64, 16)
+    (src_dq, sym_dq, t_dq), (src_dkv, sym_dkv, t_dkv) = card.calls
+    fp32 = dtype == torch.float32
+    suffix = "_f32" if fp32 else ""
+    assert (src_dq, sym_dq) == (source, f"ggt_flash_dq{suffix}")
+    assert (src_dkv, sym_dkv) == (source, f"ggt_flash_dkv{suffix}")
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    assert [c.launches - n for c, n in zip(counts, before)] == (
+        [0, 0, 1, 1, 0, 0] if fp32 else [1, 1, 0, 0, 0, 0])
+    # q, k, v, seg, cos, sin, out, lse, do, delta, dq (dlse None: no pointer)
+    assert t_dq[4].dtype == t_dq[5].dtype == dtype
+    # q, k, v, seg, cos, sin, lse, delta, do, dk, dv
+    assert t_dkv[7] is t_dq[9] and t_dkv[7].dtype == torch.float32
+    if fp32:
+        for t in (t_dq, t_dkv):
+            assert torch.equal(t[4], cos) and torch.equal(t[5], sin)
 
 
 def _mlp(dtype, n=200, d=128, f=512):
@@ -147,6 +191,23 @@ def test_norm_mlp_sends_each_dtype_to_its_entry(monkeypatch, dtype, symbol):
         (0, 1) if fp32 else (1, 0))
 
 
+@pytest.mark.parametrize("dtype,source", [(torch.float32, "norm_mlp_f32"),
+                                          (torch.bfloat16, "mlp")], ids=["fp32", "bf16"])
+def test_mlp_sends_each_dtype_to_its_entry(monkeypatch, dtype, source):
+    """fp32 reaches #11's fp32 entry, one source with #2's fp32 form."""
+    card = FakeCard(monkeypatch)
+    x, _, wg, wu, wd = _mlp(dtype)
+    before = (tmlp.mlp.launches, tmlp.mlp_f32.launches)
+    out = tmlp.mlp(x, wg, wu, wd, "gelu")
+    (got_source, got, tensors), = card.calls
+    fp32 = dtype == torch.float32
+    assert (got_source, got) == (source, "ggt_mlp_f32" if fp32 else "ggt_mlp")
+    assert out.dtype == dtype and out.shape == (200, 128)
+    assert tensors[4].dtype == dtype and tensors[4].shape == (200, 512)  # the g scratch
+    assert (tmlp.mlp.launches - before[0], tmlp.mlp_f32.launches - before[1]) == (
+        (0, 1) if fp32 else (1, 0))
+
+
 def test_the_mlp_wrappers_refuse_other_dtypes(monkeypatch):
     card = FakeCard(monkeypatch)
     x, wn, wg, wu, wd = _mlp(torch.float16)
@@ -154,8 +215,12 @@ def test_the_mlp_wrappers_refuse_other_dtypes(monkeypatch):
         tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, "gelu")
     with pytest.raises(NotImplementedError):  # fp32 x beside bf16 weights
         tmlp.norm_mlp(x.float(), wn, wg.bfloat16(), wu.bfloat16(), wd.bfloat16(), 1e-6, "gelu")
-    with pytest.raises(NotImplementedError):  # #11 has no fp32 form yet
-        tmlp.mlp(x.float(), wg.float(), wu.float(), wd.float(), "gelu")
+    with pytest.raises(NotImplementedError):
+        tmlp.mlp(x, wg, wu, wd, "gelu")
+    with pytest.raises(NotImplementedError):  # fp32 x beside bf16 weights, and the reverse
+        tmlp.mlp(x.float(), wg.bfloat16(), wu.bfloat16(), wd.bfloat16(), "gelu")
+    with pytest.raises(NotImplementedError):
+        tmlp.mlp(x.bfloat16(), wg.float(), wu.float(), wd.float(), "gelu")
     with pytest.raises(NotImplementedError):
         tmlp.rmsnorm_bwd(x, x, wn, 1e-6)
     with pytest.raises(NotImplementedError):  # fp32 x beside a bf16 cotangent
@@ -179,3 +244,68 @@ def test_rmsnorm_bwd_sends_each_dtype_to_its_entry(monkeypatch, dtype, symbol, d
     fp32 = dtype == torch.float32
     assert (tmlp.rmsnorm_bwd.launches - before[0], tmlp.rmsnorm_bwd_f32.launches - before[1]) == (
         (0, 1) if fp32 else (1, 0))
+
+
+_BF16_ENTRIES = {"ggt_flash_fwd", "ggt_flash_bwd", "ggt_flash_dq", "ggt_flash_dkv", "ggt_mlp",
+                 "ggt_norm_mlp", "ggt_rmsnorm_bwd"}
+
+
+def _symbols(card):
+    return [sym for _, sym, _ in card.calls]
+
+
+def test_an_fp32_layer_scale_model_asks_for_the_fp32_mlp(monkeypatch):
+    """A two-layer fp32 model with LayerScale, DropPath and attention
+    dropout (the fine-tune regularisers) under pairs remat: its training
+    forward and backward reach mlp_f32 (each layer's forward and its
+    recompute), flash_fwd_f32, flash_bwd_f32 and rmsnorm_bwd_f32 and no bf16
+    entry, and raise nowhere."""
+    from graphgpt_torch.config import ModelConfig
+    from graphgpt_torch.models.heads import GraphGPTPretrain
+    from graphgpt_torch.synthetic import fake_batch, to_torch
+
+    card = FakeCard(monkeypatch)
+    cfg = ModelConfig(vocab_size=50, hidden_size=128, num_hidden_layers=2, stacked_feat=3,
+                      next_n_token=3, mask_token_id=1, dtype="float32",
+                      layer_scale_init_value=1.0, path_dropout=0.1, attention_dropout=0.1,
+                      remat=True, remat_policy="pairs").finalize()
+    model = GraphGPTPretrain(cfg, device="cpu", seed=0)
+    batch = to_torch(fake_batch(2, 128, 3, 50, np.random.default_rng(0)), "cpu")
+    before = tmlp.mlp_f32.launches
+    out = model(batch, generator=torch.Generator().manual_seed(0), train=True)
+    out["loss"].backward()
+    syms = _symbols(card)
+    assert syms.count("ggt_mlp_f32") == 4 and tmlp.mlp_f32.launches - before == 4
+    assert {"ggt_flash_fwd_f32", "ggt_flash_bwd_f32", "ggt_rmsnorm_bwd_f32"} <= set(syms)
+    assert not set(syms) & _BF16_ENTRIES and "ggt_norm_mlp_f32" not in syms
+
+
+def test_an_fp32_bi_causal_denoiser_asks_for_the_fp32_split_pair(monkeypatch):
+    """A two-layer fp32 denoiser with a 16-slot bi-causal split: its training
+    backward takes the split pair in its fp32 form, flash_dq_f32 then
+    flash_dkv_f32 once a layer, never the fused backward, and no bf16
+    entry."""
+    from graphgpt_torch.config import ModelConfig
+    from graphgpt_torch.models.denoise import GraphGPTDenoise, denoise_draws
+    from graphgpt_torch.synthetic import mol3d_batch, mol3d_tokenizer, to_torch
+
+    card = FakeCard(monkeypatch)
+    tok = mol3d_tokenizer()
+    cfg = ModelConfig(vocab_size=tok.vocab_size, hidden_size=128, num_hidden_layers=2,
+                      stacked_feat=tok.stacked_feat, mask_token_id=tok.mask_id,
+                      dtype="float32", stacked_feat_agg_method="gated", task_type="graph",
+                      problem_type="regression", loss_type="l1", num_labels=1,
+                      bi_causal_split=16).finalize()
+    model = GraphGPTDenoise(cfg, device="cpu", seed=0)
+    batch = to_torch(mol3d_batch(2, 88, seed=0, bi_split=16, tokenizer=tok), "cpu")
+    draws = denoise_draws(2, 88, torch.Generator().manual_seed(1), "cpu")
+    before = (tfa.flash_dq_f32.launches, tfa.flash_dkv_f32.launches)
+    out = model(batch, train=True, draws=draws)
+    out["loss"].backward()
+    syms = _symbols(card)
+    assert syms.count("ggt_flash_dq_f32") == syms.count("ggt_flash_dkv_f32") == 2
+    assert (tfa.flash_dq_f32.launches - before[0], tfa.flash_dkv_f32.launches - before[1]) == (
+        2, 2)
+    assert all(syms[syms.index("ggt_flash_dq_f32", i) + 1] == "ggt_flash_dkv_f32"
+               for i, s in enumerate(syms) if s == "ggt_flash_dq_f32")
+    assert "ggt_flash_bwd_f32" not in syms and not set(syms) & _BF16_ENTRIES

@@ -440,8 +440,10 @@ def test_mlp_kernel_raises_outside_its_shapes(cuda_device):
     dev = cuda_device
     x = torch.zeros(8, 128, device=dev, dtype=torch.bfloat16)
     w = torch.zeros(256, 128, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        tmlp.mlp(x.float(), w.float(), w.float(), w.t().float(), "gelu")
+    with pytest.raises(NotImplementedError):  # fp32 x with bf16 weights (fp32 takes mlp_f32)
+        tmlp.mlp(x.float(), w, w, w.t().contiguous(), "gelu")
+    with pytest.raises(NotImplementedError):  # fp16
+        tmlp.mlp(x.half(), w.half(), w.half(), w.t().half(), "gelu")
     with pytest.raises(NotImplementedError):
         odd = torch.zeros(8, 100, device=dev, dtype=torch.bfloat16)
         wo = torch.zeros(256, 100, device=dev, dtype=torch.bfloat16)
@@ -587,20 +589,24 @@ _SPLIT_CASES = {
 }
 
 
-def _split_inputs(case, dev, seed=11):
-    """(qs, k, v, do, seg, cos, sin) of a _SPLIT_CASES case."""
+def _split_inputs(case, dev, seed=11, dtype=torch.bfloat16):
+    """(qs, k, v, do, seg, cos, sin) of a _SPLIT_CASES case in `dtype`."""
     b, p, h, bi, _, rope, layout = _SPLIT_CASES[case]
     dh = 64
     rng = np.random.default_rng(seed)
-    qs = _bf16(rng, (b, p, h * dh), 0.5 * dh**-0.5, dev)
-    k, v, do = (_bf16(rng, (b, p, h * dh), 0.5, dev) for _ in range(3))
+
+    def draw(shape, scale):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(dev, dtype)
+
+    qs = draw((b, p, h * dh), 0.5 * dh**-0.5)
+    k, v, do = (draw((b, p, h * dh), 0.5) for _ in range(3))
     seg_np = _denoise_row_segments(b, p, bi, rng) if layout == "denoise" \
         else packed_segments(b, p, rng)
     seg = torch.from_numpy(seg_np).to(dev)
     cos = sin = None
     if rope:
         pos = torch.arange(p, device=dev).expand(b, p)
-        cos, sin = (t.to(torch.bfloat16) for t in rope_cos_sin(pos, dh))
+        cos, sin = (t.to(dtype) for t in rope_cos_sin(pos, dh))
     return qs, k, v, do, seg, cos, sin, rng
 
 
@@ -697,8 +703,10 @@ def test_split_backward_kernels_raise_outside_their_contract(cuda_device):
         tfa.flash_dq(qs, k, v, seg, cos, sin, out, lse, do, None, False, dh, bi)
         tfa.flash_dkv(qs, k, v, seg, cos, sin, lse, delta, do, False, dh, bi)
 
-    with pytest.raises(NotImplementedError):  # fp32
-        both(qs.float(), k.float(), v.float(), do.float(), out.float())
+    with pytest.raises(NotImplementedError):  # fp32 q beside bf16 k, v (fp32 takes the fp32 pair)
+        both(qs.float(), k, v, do, out)
+    with pytest.raises(NotImplementedError):  # fp16
+        both(qs.half(), k.half(), v.half(), do.half(), out.half())
     with pytest.raises(NotImplementedError):  # head dim 32
         tfa.flash_dq(qs, k, v, seg, None, None, out, lse.repeat(1, 2, 1), do, None, False, 32,
                      bi)
@@ -1515,7 +1523,8 @@ def test_fp32_flash_kernels_match_plain(cuda_device, causal, case):
     plain versions in fp32 (TF32 off): out, lse, dq, dk, dv each within
     F32_REL, padded rows exactly 0 and -1e30, one fp32 launch a call and no
     bf16 one, the same bits on a relaunch (no atomics). The bi-causal case
-    runs the forward only (fp32 has no split pair yet)."""
+    runs the forward only: its backward is the split pair's
+    (test_fp32_split_backward_kernels_match_plain)."""
     dev = cuda_device
     bi = _FLASH_CASES[case][3]
     qs, k, v, do, seg, cos, sin = _f32_flash_inputs(case, dev)
@@ -1647,3 +1656,261 @@ def test_an_fp32_model_trains_on_the_fp32_kernels(cuda_device):
     assert set(g) == set(rg)
     for n in g:
         assert _rel(g[n], rg[n]) <= 1e-4, n
+
+
+# ---- the fp32 forms of #11 (norm_mlp_f32.cu's second form) and of the split
+# pair #4, #5 (flash_bwd_f32.cu's query and key passes)
+
+
+@contextlib.contextmanager
+def _tf32():
+    """TF32 matrix products on: the controls that must miss F32_REL."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["gelu", "gelu_pytorch_tanh", "silu"])
+@pytest.mark.parametrize("case", list(_MLP_CASES))
+def test_fp32_mlp_kernel_matches_plain(cuda_device, act, case):
+    """#11's fp32 form through mlp against its plain version in fp32 (TF32
+    off) within F32_REL; the same plain version with TF32 on misses it (the
+    inputs drawn in fp32, so that TF32 rounds them); one fp32 launch a call
+    and no bf16 one; bit-equal on a relaunch."""
+    from graphgpt_torch.ops.split_probe import f32_mlp_inputs
+
+    x, _, wg, wu, wd = f32_mlp_inputs(*_MLP_CASES[case], cuda_device)
+    before = (tmlp.mlp.launches, tmlp.mlp_f32.launches)
+    out = tmlp.mlp(x, wg, wu, wd, act)
+    torch.cuda.synchronize()
+    assert (tmlp.mlp.launches, tmlp.mlp_f32.launches) == (before[0], before[1] + 1)
+    with ops.reference_mode():
+        ref = tmlp.mlp(x, wg, wu, wd, act)
+        with _tf32():
+            tref = tmlp.mlp(x, wg, wu, wd, act)
+    assert out.dtype == torch.float32 and _rel(out, ref) < F32_REL
+    assert _rel(tref, ref) > F32_REL
+    assert torch.equal(tmlp.mlp(x, wg, wu, wd, act), out)
+
+
+@pytest.mark.gpu
+def test_fp32_split_mlp_backward_takes_no_tf32(cuda_device):
+    """fused_mlp's backward (the plain formula, cuBLAS products) on fp32
+    inputs on the card against the same on the CPU: within F32_REL with
+    TF32 off, as the fixture and chip_smoke.py set it, and past it with TF32
+    on, so that the check tells them apart."""
+    from graphgpt_torch.ops.split_probe import f32_mlp_inputs
+
+    x, _, wg, wu, wd = f32_mlp_inputs(2048, 768, 3072, "cpu", seed=3)
+    dout = torch.from_numpy(np.random.default_rng(4).normal(size=(2048, 768))
+                            .astype(np.float32))
+
+    def grads(dev):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (x, wg, wu, wd)]
+        tmlp.fused_mlp(*leaves, "gelu").backward(dout.to(dev))
+        return [t.grad.cpu() for t in leaves]
+
+    want = grads("cpu")
+    got = grads(cuda_device)
+    with _tf32():
+        tgot = grads(cuda_device)
+    for name, g, t, w in zip(("dx", "dwg", "dwu", "dwd"), got, tgot, want):
+        assert _rel(g, w) < F32_REL, name
+        assert _rel(t, w) > F32_REL, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_SPLIT_CASES))
+def test_fp32_split_backward_kernels_match_plain(cuda_device, case):
+    """#4's and #5's fp32 forms through flash_dq (with its delta, a
+    cotangent of lse folded in) and flash_dkv against their plain versions
+    in fp32 (TF32 off): dq, delta, dk, dv within F32_REL, the TF32 control
+    of dq, dk, dv past it, padded rows exactly 0, one launch of each fp32
+    form a call and none of the bf16 pair. The cases are the bf16 pair's:
+    splits inside a 64-row tile (denoise's P 88 puts the prefix's last
+    columns and the slots in one tile) and on its edge, MAX_P, causal with
+    and without a split, no RoPE. With a split flash_bwd takes the fp32
+    pair, not #3f; two launches give the same bits. The TF32 control is
+    held where cuBLAS takes TF32 for the plain version's products: on P50's
+    2 x 50-row products it keeps fp32 (the control read 0 on an H100)."""
+    dev = cuda_device
+    b, p, h, bi, causal, _, _ = _SPLIT_CASES[case]
+    dh = 64
+    qs, k, v, do, seg, cos, sin, rng = _split_inputs(case, dev, dtype=torch.float32)
+    out, lse = tfa.flash_fwd(qs, k, v, seg, cos, sin, causal, dh, bi)
+    valid = seg > 0
+    dlse = torch.from_numpy(rng.normal(size=(b, h, p)).astype(np.float32) * 0.3).to(dev)
+    dlse = dlse * valid[:, None, :]  # padded rows take no part in the backward
+    dq_args = (qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh, bi)
+    counts = (tfa.flash_dq, tfa.flash_dkv, tfa.flash_dq_f32, tfa.flash_dkv_f32, tfa.flash_bwd,
+              tfa.flash_bwd_f32)
+    before = [c.launches for c in counts]
+    dq, delta = tfa.flash_dq(*dq_args)
+    args = (qs, k, v, seg, cos, sin, lse, delta, do, causal, dh, bi)
+    dk, dv = tfa.flash_dkv(*args)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counts, before)] == [0, 0, 1, 1, 0, 0]
+    with ops.reference_mode():
+        rdq, rdelta = tfa.flash_dq(*dq_args)
+        rdk, rdv = tfa.flash_dkv(*args)
+        with _tf32():
+            tdq = tfa.flash_dq(*dq_args)[0]
+            tdk, tdv = tfa.flash_dkv(*args)
+    assert delta.dtype == torch.float32 and _rel(delta, rdelta) < F32_REL
+    for name, g, r, t in zip(("dq", "dk", "dv"), (dq, dk, dv), (rdq, rdk, rdv), (tdq, tdk, tdv)):
+        assert g.dtype == torch.float32 and _rel(g, r) < F32_REL, name
+        assert case == "P50" or _rel(t, r) > F32_REL, name
+        assert bool((g[~valid] == 0).all()), name
+    if bi > 0:
+        before = [c.launches for c in counts]
+        got = tfa.flash_bwd(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh, bi)
+        torch.cuda.synchronize()
+        assert [c.launches - n for c, n in zip(counts, before)] == [0, 0, 1, 1, 0, 0]
+    else:
+        got = tfa.flash_dq(*dq_args)[:1] + tfa.flash_dkv(*args)
+    for g, r in zip(got, (dq, dk, dv)):
+        assert torch.equal(g, r)  # no atomics: the same bits every run
+
+
+@pytest.mark.gpu
+def test_fp32_split_backward_ignores_non_finite_do_in_padded_rows(cuda_device):
+    """inf and NaN in do's padded rows change no bit of the fp32 pair's dq,
+    delta, dk or dv."""
+    dev = cuda_device
+    b, p, h, bi, causal, _, _ = _SPLIT_CASES["denoise"]
+    qs, k, v, do, seg, cos, sin, _ = _split_inputs("denoise", dev, seed=13, dtype=torch.float32)
+    out, lse = tfa.flash_fwd(qs, k, v, seg, cos, sin, causal, 64, bi)
+    pad = (seg == 0)[..., None]
+    assert bool(pad.any())
+    clean = torch.where(pad, torch.zeros_like(do), do)
+    noisy = clean.clone()
+    noisy[pad.expand_as(noisy)] = float("nan")
+    noisy[0][pad[0, :, 0]] = float("inf")
+    runs = []
+    for d in (clean, noisy):
+        dq, delta = tfa.flash_dq(qs, k, v, seg, cos, sin, out, lse, d, None, causal, 64, bi)
+        dk, dv = tfa.flash_dkv(qs, k, v, seg, cos, sin, lse, delta, d, causal, 64, bi)
+        runs.append((dq, delta, dk, dv))
+    torch.cuda.synchronize()
+    for a, n in zip(*runs):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, n)
+
+
+def _f32_step_vs_plain(model, batch, call):
+    """(launches of each counted wrapper, loss, gradients) of one training
+    step on the kernels, and the plain run's (loss, gradients)."""
+    names = ("flash_fwd", "flash_bwd", "flash_dq", "flash_dkv", "flash_fwd_f32",
+             "flash_bwd_f32", "flash_dq_f32", "flash_dkv_f32")
+    counts = {n: getattr(tfa, n) for n in names}
+    counts.update({n: getattr(tmlp, n) for n in ("mlp", "norm_mlp", "rmsnorm_bwd", "mlp_f32",
+                                                 "norm_mlp_f32", "rmsnorm_bwd_f32")})
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss = model(batch, train=True, **call())["loss"]
+        loss.backward()
+        return loss.item(), {n: q.grad.clone() for n, q in model.named_parameters()
+                             if q.grad is not None}
+
+    before = {n: c.launches for n, c in counts.items()}
+    loss, grads = step()
+    torch.cuda.synchronize()
+    got = {n: c.launches - before[n] for n, c in counts.items() if c.launches != before[n]}
+    with ops.reference_mode():
+        ref = step()
+    return got, (loss, grads), ref
+
+
+def _assert_f32_step(run, ref):
+    (loss, grads), (rloss, rgrads) = run, ref
+    assert abs(loss - rloss) <= 1e-5 * abs(rloss)
+    assert set(grads) == set(rgrads)
+    for n in grads:
+        assert bool(torch.isfinite(grads[n]).all()) and _rel(grads[n], rgrads[n]) <= 1e-4, n
+
+
+@pytest.mark.gpu
+def test_an_fp32_layer_scale_model_trains_on_the_fp32_mlp(cuda_device):
+    """A two-layer fp32 model with LayerScale, DropPath and attention
+    dropout under pairs remat (the fine-tune regularisers): a training step
+    launches #11f in each layer and again in the pair's recompute, #1f
+    twice a layer, #3f once, #13f twice a layer and once for the final
+    norm, and no bf16 kernel; its loss and every gradient within 1e-5 and
+    1e-4 of the plain fp32 run on the same dropout masks."""
+    dev = cuda_device
+    cfg = _tiny_cfg(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                    num_key_value_heads=2, intermediate_size=512, dtype="float32", remat=True,
+                    remat_policy="pairs", layer_scale_init_value=1.0, path_dropout=0.1,
+                    attention_dropout=0.1)
+    model = GraphGPTPretrain(cfg, device=dev, seed=0)
+    batch = to_torch(fake_batch(8, 128, 3, 50, np.random.default_rng(2)), dev)
+    got, run, ref = _f32_step_vs_plain(
+        model, batch, lambda: {"generator": torch.Generator(device=dev).manual_seed(5)})
+    assert got == {"flash_fwd_f32": 4, "flash_bwd_f32": 2, "mlp_f32": 4, "rmsnorm_bwd_f32": 5}
+    _assert_f32_step(run, ref)
+
+
+@pytest.mark.gpu
+def test_an_fp32_denoiser_trains_on_the_fp32_split_pair(cuda_device):
+    """A two-layer fp32 denoiser with a 16-slot bi-causal split (heads of
+    64): a training step launches #1f, #2f, #4f, #5f once a layer and #13f
+    once a layer and for the final norm, never #3f or a bf16 kernel; its
+    loss and every gradient within 1e-5 and 1e-4 of the plain fp32 run on
+    the same draws."""
+    from graphgpt_torch.models.denoise import GraphGPTDenoise, denoise_draws
+    from graphgpt_torch.synthetic import mol3d_batch
+
+    dev = cuda_device
+    cfg = ModelConfig(vocab_size=755, hidden_size=128, num_hidden_layers=2,
+                      num_attention_heads=2, stacked_feat=13, next_n_token=1, mask_token_id=1,
+                      task_type="graph", stacked_feat_agg_method="gated",
+                      problem_type="regression", loss_type="l1", bi_causal_split=16,
+                      dtype="float32").finalize()
+    model = GraphGPTDenoise(cfg, device=dev, seed=0)
+    batch = to_torch(mol3d_batch(8, 88, seed=0, bi_split=16), dev)
+    draws = denoise_draws(8, 88, torch.Generator(device=dev).manual_seed(1), dev)
+    got, run, ref = _f32_step_vs_plain(model, batch, lambda: {"draws": draws})
+    assert got == {"flash_fwd_f32": 2, "flash_dq_f32": 2, "flash_dkv_f32": 2,
+                   "norm_mlp_f32": 2, "rmsnorm_bwd_f32": 3}
+    _assert_f32_step(run, ref)
+
+
+# #2f's and #3f's digests (split_probe's f32_digest) from the bodies before
+# #11f and the split pair joined their sources: `split_probe --kernel
+# mlp_f32` and `--kernel bwd_f32` with --source on that commit's csrc/, on
+# an NVIDIA H100 80GB HBM3, at split_probe's inputs (f32_mlp_inputs, gelu;
+# inputs in fp32 on packed rows, no lse cotangent). The templated
+# norm_mlp_f32.cu and the shared passes of flash_bwd_f32.cu keep them.
+_F32_PARENT_DIGESTS = {
+    ("norm_mlp_f32", "N8192"): -98387183775274,
+    ("norm_mlp_f32", "N1024"): -2074798766708,
+    ("flash_bwd_f32", "B8 P1024"): -916961056836012,
+    ("flash_bwd_f32", "toy B8 P128"): -17989573487664,
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form,shape", list(_F32_PARENT_DIGESTS))
+def test_fp32_forms_keep_the_bits_of_their_bodies_before_the_new_forms(cuda_device, form,
+                                                                        shape):
+    """#2f through norm_mlp and #3f through flash_bwd on fp32 tensors give
+    the bits their bodies gave before #11f and #4f / #5f were added beside
+    them."""
+    from graphgpt_torch.ops import split_probe as sp
+
+    dev = cuda_device
+    if form == "norm_mlp_f32":
+        x, wn, wg, wu, wd = sp.f32_mlp_inputs(*sp.MLP_F32_SHAPES[shape], dev)
+        outs = (tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, "gelu"),)
+    else:
+        b, p, h, bi, layout = sp.BWD_F32_SHAPES[shape]
+        qs, k, v, do, seg, cos, sin, out, lse = sp.inputs(b, p, h, bi, layout, dev,
+                                                          torch.float32)
+        outs = tfa.flash_bwd(qs, k, v, seg, cos, sin, out, lse, do, None, False, 64)
+    torch.cuda.synchronize()
+    assert sp.f32_digest(*outs) == _F32_PARENT_DIGESTS[form, shape]
