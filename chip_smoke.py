@@ -135,8 +135,9 @@
    rows and #12 at D 384 against their plain versions, then one counted
    step).
 7e. The other pretraining tasks and the flat tokenizer (I-K), each run
-   through PretrainPipeline or FinetunePipeline at GraphGPT-base from
-   random weights on the graph-level store (its seeded coordinates for J),
+   through PretrainPipeline or FinetunePipeline at GraphGPT-base's widths
+   cut to 6 of its 12 layers (IK_DEPTH) from random weights on the
+   graph-level store (its seeded coordinates for J),
    its first step on 16 rows against the plain bf16 run and the fp32 rule
    (the same draws where the step draws), two counted steps (K(c) four)
    with the launches of each step and each eval forward against the
@@ -211,6 +212,32 @@
    and NaN in do's padded rows changing no output bit; each timed beside
    its bound, its plain version and the library call (the fp32 matmuls and
    gelu x up; SDPA's fp32 backward with the bi-causal mask).
+7i. Phase O, float32 past 2048 positions: the fp32 forms of the streamed
+   kernels #6, #7, #8 (flash_fwd_f32.cu's stream form, flash_bwd_f32.cu's
+   passes in theirs, reading the keys' own ids), to which flash_fwd_stream,
+   flash_dq_stream and flash_dkv_stream hand fp32 tensors. (a)
+   configs/pcqm4m_v2_pretrain_long.yaml with the long-context phase's
+   overrides (16 x 4096, pack_block 0) at model.dtype=float32 through
+   PretrainPipeline on the graph-level store: first #6f, #7f (with its
+   delta) and #8f at its first batch's segments and fp32 RoPE table on 2
+   rows, with the query ids and with another packed row's ids as key ids,
+   then on the whole 16 x 4096 launch both ways (the plain versions a row
+   at a time), each by phase L's check (f32_check: within F32_REL, the
+   TF32 control past it, a relaunch bit for bit, padded rows, query rows
+   that see no key and keys that no query sees exactly 0) and with inf and
+   NaN in do's padded rows changing no output bit; #1f's entry on the same
+   rows bit for bit #6f's; each timed at 16 x 4096 beside its bound, its
+   FFMA bound, its plain version and SDPA in fp32; the first step on 4
+   rows against the plain fp32 run (F32_LOSS_REL, F32_GRAD_REL); 4 counted
+   steps (12 #6f, 12 #7f, 12 #8f, 12 #2f, 13 #13f a step; 12 #6f + 12 #2f
+   an eval forward), the losses falling, the save point's valid and
+   EMA-valid loss (no generation sweep: the long-context phase's run A
+   covers it), a step on the first batch on the card, tokens/s, peak
+   memory. (b) configs/toy_pretrain.yaml as shipped under
+   GGT_FLASH_MODE=skip (q and k rotated outside the kernels, the streamed
+   kernels at P 128): its first step against the plain fp32 run, its 50
+   steps on #6f-#8f with no #1f or #3f, the logged loss falling, the save
+   point's valid loss and generation.
 8. Denoise phase: a fresh GraphGPT-base denoising double-heads model
    (configs/pcqm4m_v2_supervised.yaml's setup plus bi_causal_split 16, the
    binary-energy decoding) on a 256 x 88 mol3d batch: every kernel of its
@@ -278,7 +305,7 @@
 
 Any failed check raises, so the script exits non-zero. The launch counts
 are set to 0 just before each main path (eval + generation; training;
-fine-tuning; graph-level fine-tuning; phases A-N; denoising;
+fine-tuning; graph-level fine-tuning; phases A-O; denoising;
 position pretraining; long-context pretraining;
 training and long-context pretraining under both knobs) and read just
 after it; launches made to compare a kernel with its plain
@@ -3002,6 +3029,9 @@ def narrow_heads_phase(dev, counters, fa, mlp, ops, data_dir: str, overrides=())
 # Phases I-K: the other pretraining tasks and the flat tokenizer
 # ---------------------------------------------------------------------------
 TASK_STEPS = 2  # counted steps of each pretraining run of phases I-K
+# phases I-K's depth: GraphGPT-base's widths at 6 of its 12 layers, the
+# time phase O takes (every check kept, the launch counts from the config)
+IK_DEPTH = ("model.num_hidden_layers=6",)
 GST_FT_STEPS = 4  # fine-tune steps of phase K(c)
 GST_RATE_GRAPHS = 1000  # graphs the flat tokenizer takes on one host core
 
@@ -3542,19 +3572,18 @@ def f32_want(m, counters):
     return want, want_eval
 
 
-def fp32_phase(dev, counters, fa, mlp, ops):
-    """Phase L (see the module docstring, 7f). Returns ({part: its
-    numbers}, the launches of its runs)."""
+def toy_pretrain_run(dev, counters, ops, tag, want_fn, before=None):
+    """configs/toy_pretrain.yaml as shipped through PretrainPipeline: its
+    setup, `before(batch, m)` on its first batch (each fp32 form at its
+    shapes; the numbers it returns are kept), the first step against the
+    plain fp32 run, then its 50 steps with the valid and generation save
+    point, the launches of each step and eval forward against want_fn(m,
+    counters), the logged loss falling. Returns (its numbers, the launches
+    of its run)."""
     from graphgpt_torch import synthetic
-    from graphgpt_torch.config import OptimizerConfig, flagship_config, load_config
-    from graphgpt_torch.models.heads import GraphGPTPretrain
-    from graphgpt_torch.training.optimizer import make_optimizer, make_schedule
+    from graphgpt_torch.config import load_config
     from graphgpt_torch.training.pipeline import PretrainPipeline
-    from graphgpt_torch.training.steps import init_train_state, make_train_step
 
-    res, launches = {}, {k: 0 for k in counters}
-    # (a) toy_pretrain.yaml as shipped, through PretrainPipeline
-    tag = "phase L(a) (toy_pretrain.yaml, fp32)"
     with tempfile.TemporaryDirectory() as tmp:
         out_dir = os.path.join(tmp, "toy")
         cfg = load_config(os.path.join(HERE, "configs", "toy_pretrain.yaml"),
@@ -3571,9 +3600,9 @@ def fp32_phase(dev, counters, fa, mlp, ops):
         data, _ = next(it)
         it.close()
         batch = {**synthetic.to_torch(data, dev), **pipe._const_batch}
-        res["toy"] = f32_kernels(dev, fa, mlp, ops, "phase L(a) toy", batch, m)
-        res["toy"]["step"] = step_vs_plain32(pipe.state.model, batch, ops, tag)
-        want, want_eval = f32_want(m, counters)
+        res = before(batch, m) if before is not None else {}
+        res["step"] = step_vs_plain32(pipe.state.model, batch, ops, tag)
+        want, want_eval = want_fn(m, counters)
         train_log, eval_log, _ = counted_pipeline(pipe, counters)
         for fn in counters.values():
             fn.launches = 0
@@ -3595,11 +3624,29 @@ def fp32_phase(dev, counters, fa, mlp, ops):
                 and np.isfinite(valid) and gens and all(np.isfinite(list(gens.values())))):
             fail(f"{tag}: the logged loss did not fall, or the save point's valid loss or "
                  f"generation is missing: {losses} {last}")
-        res["toy"].update(losses=losses, valid_loss=valid, run_s=run_s,
-                          steps=pipe.total_steps, **gens)
-        for k in counters:
-            launches[k] += got[k]
+        res.update(losses=losses, valid_loss=valid, run_s=run_s, steps=pipe.total_steps,
+                   **gens)
         del pipe
+    torch.cuda.empty_cache()
+    return res, got
+
+
+def fp32_phase(dev, counters, fa, mlp, ops):
+    """Phase L (see the module docstring, 7f). Returns ({part: its
+    numbers}, the launches of its runs)."""
+    from graphgpt_torch import synthetic
+    from graphgpt_torch.config import OptimizerConfig, flagship_config
+    from graphgpt_torch.models.heads import GraphGPTPretrain
+    from graphgpt_torch.training.optimizer import make_optimizer, make_schedule
+    from graphgpt_torch.training.steps import init_train_state, make_train_step
+
+    res, launches = {}, {k: 0 for k in counters}
+    # (a) toy_pretrain.yaml as shipped, through PretrainPipeline
+    res["toy"], got = toy_pretrain_run(
+        dev, counters, ops, "phase L(a) (toy_pretrain.yaml, fp32)", f32_want,
+        lambda batch, m: f32_kernels(dev, fa, mlp, ops, "phase L(a) toy", batch, m))
+    for k in counters:
+        launches[k] += got[k]
     torch.cuda.empty_cache()
     # (b) GraphGPT-base at model.dtype=float32: one step at B 8 x P 1024
     tag = "phase L(b) (GraphGPT-base, fp32)"
@@ -4079,6 +4126,273 @@ def fp32_tune_phase(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin, train_
     dn["p1024"] = f32_split_at_shape(fa, ops, "phase N(c)", seg, cos, sin, 16, 12, 64)
     torch.cuda.empty_cache()
     return {"finetune": ft, "denoise": dn}, {k: ft_launches[k] + dn_launches[k] for k in counters}
+
+
+# ---- phase O: float32 past 2048 positions, the fp32 forms of #6, #7, #8
+
+O_STEPS = 4  # counted steps of phase O(a)
+O_STREAM = {"fwd": "flash_fwd_stream_f32", "dq": "flash_dq_stream_f32",
+            "dkv": "flash_dkv_stream_f32"}
+
+
+def stream32_want(m, counters):
+    """The launches of an fp32 training step and eval forward on the
+    streamed route (above P 2048, or under skip): the forward once a layer
+    (remat off, or save_attn keeping its output), #7f then #8f once a
+    layer, #2f once a layer, #13f once a layer and for the final norm; an
+    eval forward #6f and #2f once a layer."""
+    if m.remat and m.remat_policy != "save_attn" or m.dtype != "float32":
+        fail(f"stream32_want predicts fp32 without remat or with save_attn: {m}")
+    L, zero = m.num_hidden_layers, {k: 0 for k in counters}
+    return ({**zero, "flash_fwd_stream_f32": L, "flash_dq_stream_f32": L,
+             "flash_dkv_stream_f32": L, "norm_mlp_f32": L, "rmsnorm_bwd_f32": L + 1},
+            {**zero, "flash_fwd_stream_f32": L, "norm_mlp_f32": L})
+
+
+def seen_ids(seg_q, seg_k):
+    """(query rows that see a key, keys that a query sees), bool [B, P]: the
+    ids match and are not 0 (the bidirectional rule)."""
+    seen_q = torch.stack([torch.isin(a, b[b > 0]) for a, b in zip(seg_q, seg_k)]) & (seg_q > 0)
+    seen_k = torch.stack([torch.isin(b, a[a > 0]) for a, b in zip(seg_q, seg_k)]) & (seg_k > 0)
+    return seen_q, seen_k
+
+
+def f32_stream_check(fa, ops, tag, qs, k, v, seg_q, seg_k, cos, sin, do, dh, row_at_a_time):
+    """#6f, #7f (with its delta) and #8f (through flash_fwd_stream,
+    flash_dq_stream, flash_dkv_stream on fp32 tensors) on these rows
+    against their plain versions in fp32 and with TF32 (f32_check; the
+    plain versions a row at a time where `row_at_a_time`): out and lse on
+    the query rows that see a key, dq and delta, dk and dv; padded query
+    rows and rows that see no key exactly 0 (lse -1e30), keys that no query
+    sees exactly 0; a relaunch bit for bit; inf and NaN in do's padded rows
+    changing no output bit of #7f or #8f. Returns {kernel: (largest
+    elementwise error, relative error, TF32 control)}."""
+    fwd = (qs, k, v, seg_q, seg_k, cos, sin, False, dh)
+    out, lse = fa.flash_fwd_stream(*fwd)
+    dqa = (qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, None, False, dh)
+    dq, delta = fa.flash_dq_stream(*dqa)
+    dkva = (qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, False, dh)
+    dk, dv = fa.flash_dkv_stream(*dkva)
+    again = (*fa.flash_fwd_stream(*fwd), *fa.flash_dq_stream(*dqa), *fa.flash_dkv_stream(*dkva))
+    pad = seg_q == 0
+    noisy = do.clone()
+    noisy[pad] = float("nan")
+    noisy[0][pad[0]] = float("inf")
+    nq = fa.flash_dq_stream(qs, k, v, seg_q, seg_k, cos, sin, out, lse, noisy, None, False, dh)
+    nk = fa.flash_dkv_stream(qs, k, v, seg_q, seg_k, cos, sin, lse, nq[1], noisy, False, dh)
+    torch.cuda.synchronize()
+    bits = [torch.equal(a, b) for a, b in zip(again, (out, lse, dq, delta, dk, dv))]
+    quiet = all(torch.equal(a, b) for a, b in zip(nq + nk, (dq, delta, dk, dv)))
+    del again, noisy, nq, nk
+
+    def plain(tf32: bool):
+        parts = []
+        steps = range(seg_q.shape[0]) if row_at_a_time else [None]
+        with ops.reference_mode(), (tf32_allowed() if tf32 else contextlib.nullcontext()):
+            for r in steps:
+                sl = slice(None) if r is None else slice(r, r + 1)
+                a = [None if t is None else t[sl] for t in (qs, k, v, seg_q, seg_k, cos, sin)]
+                ro, rl = fa.flash_fwd_stream(*a, False, dh)
+                rq, rd = fa.flash_dq_stream(*a, out[sl], lse[sl], do[sl], None, False, dh)
+                rk, rv = fa.flash_dkv_stream(*a, lse[sl], delta[sl], do[sl], False, dh)
+                parts.append((ro, rl, rq, rd, rk, rv))
+        return [torch.cat(t) for t in zip(*parts)]
+
+    rout, rlse, rdq, rdelta, rdk, rdv = plain(False)
+    tout, _, tdq, _, tdk, tdv = plain(True)
+    seen_q, seen_k = seen_ids(seg_q, seg_k)
+    valid = seg_q > 0
+    b, p = seg_q.shape
+    where = (f"{tag}, B={b} P={p}, {int((valid & ~seen_q).sum())} query rows see no key, "
+             f"{int(((seg_k > 0) & ~seen_k).sum())} keys no query")
+
+    def rows(x, sel):
+        return x.transpose(1, 2)[sel]
+
+    pad_f = bool((out[~seen_q] == 0).all()) and bool((rows(lse, ~seen_q) == -1e30).all())
+    res = {"fwd": f32_check("flash_fwd_stream_f32", where,
+                            {"out": out[seen_q], "lse": rows(lse, seen_q)},
+                            {"out": rout[seen_q], "lse": rows(rlse, seen_q)},
+                            {"out": tout[seen_q]}, bits[0] and bits[1], pad_f)}
+    pad_q = bool((dq[~seen_q] == 0).all()) and bool((rows(delta, ~valid) == 0).all())
+    res["dq"] = f32_check("flash_dq_stream_f32", where,
+                          {"dq": dq[seen_q], "delta": rows(delta, valid)},
+                          {"dq": rdq[seen_q], "delta": rows(rdelta, valid)}, {"dq": tdq[seen_q]},
+                          bits[2] and bits[3], pad_q)
+    res["dkv"] = f32_check("flash_dkv_stream_f32", where, {"dk": dk, "dv": dv},
+                           {"dk": rdk, "dv": rdv}, {"dk": tdk, "dv": tdv}, bits[4] and bits[5],
+                           bool((dk[~seen_k] == 0).all()) and bool((dv[~seen_k] == 0).all()))
+    print(f"flash_dq_stream_f32 + flash_dkv_stream_f32[{where}]: inf and NaN in do's "
+          f"{int(pad.sum())} padded rows change no output bit {quiet}", flush=True)
+    if not quiet:
+        fail(f"the fp32 stream pair's outputs at {where} depend on do's padded rows")
+    return res
+
+
+def f32_stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_rows: int = 2):
+    """Phase O's kernel checks (see the module docstring, 7i) at the
+    long-context batch's seg [B, P], cos and sin (fp32): f32_stream_check
+    on `check_rows` rows with the query ids as key ids and with another
+    packed row's ids, then on the whole launch both ways (the plain
+    versions a row at a time); #1f's entry on the same rows, which must give
+    #6f's bits (one body, one id array); each kernel timed at the whole
+    shape beside its bound (fp32 bytes; operations at
+    PEAK_F32_ACCURATE_FLOPS), its FFMA bound, its plain version and SDPA in
+    fp32 (boolean mask; the forward, and its backward for #7f and #8f).
+    Returns {kernel: its numbers}."""
+    qs, k, v, do = flash_tensors(seg, h, dh, seed=23, dtype=torch.float32)
+    r = slice(0, check_rows)
+    rows = lambda *ts: [None if t is None else t[r] for t in ts]  # noqa: E731
+    swap = torch.arange(check_rows, device=seg.device).roll(1)
+    checks = [f32_stream_check(fa, ops, "phase O long-context rows", *rows(qs, k, v, seg, seg),
+                               *rows(cos, sin, do), dh, False),
+              f32_stream_check(fa, ops, "phase O, keys of another packed row",
+                               *rows(qs, k, v, seg), seg[r][swap], *rows(cos, sin, do), dh,
+                               False)]
+    torch.cuda.empty_cache()
+    batch = [f32_stream_check(fa, ops, f"phase O {tag}, the whole launch", qs, k, v, seg, seg_k,
+                              cos, sin, do, dh, True)
+             for tag, seg_k in (("long-context", seg),
+                                ("keys of another packed row", seg.roll(1, dims=0)))]
+    torch.cuda.empty_cache()
+
+    fwd_args = (qs, k, v, seg, seg, cos, sin, False, dh)
+    out, lse = fa.flash_fwd_stream(*fwd_args)
+    dq_args = (qs, k, v, seg, seg, cos, sin, out, lse, do, None, False, dh)
+    _, delta = fa.flash_dq_stream(*dq_args)
+    dkv_args = (qs, k, v, seg, seg, cos, sin, lse, delta, do, False, dh)
+    b, p = seg.shape
+    seg32 = seg.to(torch.int32).contiguous()
+    out1, lse1 = torch.empty_like(out), torch.empty_like(lse)
+    one = _build.entry("flash_fwd_f32", "ggt_flash_fwd_f32", fa._ARGTYPES)
+
+    def single():
+        _build.check(one(_build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg32),
+                         _build.ptr(cos), _build.ptr(sin), _build.ptr(out1), _build.ptr(lse1), b,
+                         p, h, 0, 0, _build.stream_ptr(qs.device)), "ggt_flash_fwd_f32")
+
+    single()
+    torch.cuda.synchronize()
+    same = torch.equal(out1, out) and torch.equal(lse1, lse)
+    print(f"flash_fwd_f32 (#1f's entry) on the long-context rows: bit for bit "
+          f"flash_fwd_stream_f32's: {same}", flush=True)
+    if not same:
+        fail("#1f and #6f disagree on the long-context rows (one body, one id array)")
+    single_ms = cuda_ms(single, iters=5)
+    single_spread = spread()
+    lib_fwd, lib_bwd = sdpa_ms(fa, seg, qs, k, v, do, cos, sin, False, h, dh)
+    res = {}
+    for kind, fn in (("fwd", lambda: fa.flash_fwd_stream(*fwd_args)),
+                     ("dq", lambda: fa.flash_dq_stream(*dq_args)),
+                     ("dkv", lambda: fa.flash_dkv_stream(*dkv_args))):
+        ms = cuda_ms(fn, iters=5)
+        ms_spread = spread()
+        with ops.reference_mode():
+            plain_ms = cuda_ms(fn, iters=1, warmup=1)
+        nbytes, flops = flash_work(fa, seg, False, h, dh, kind, elem=4)
+        bms, by = bound(nbytes, flops, PEAK_F32_ACCURATE_FLOPS)
+        lib = "SDPA fp32" if kind == "fwd" else "SDPA fp32 backward (dq, dk, dv)"
+        lib_ms = lib_fwd if kind == "fwd" else lib_bwd
+        extra = (f"; #1f's entry on the same rows {single_ms:.4f} ms (3 readings "
+                 f"{single_spread})") if kind == "fwd" else ""
+        print(f"{O_STREAM[kind]} B={b} P={p} H={h}: kernel {ms:.4f} ms (3 readings {ms_spread}), "
+              f"{bms / ms:.1%} of the bound, {flops / ms / 1e9:.2f} TFLOP/s; plain fp32 "
+              f"{plain_ms:.4f} ms; {lib} {lib_ms:.4f} ms; bound {bms:.4f} ms ({by}: "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP at 165 TFLOP/s; at FFMA's 67 "
+              f"TFLOP/s {flops / PEAK_F32_FLOPS * 1e3:.4f} ms){extra}", flush=True)
+        every = checks + batch
+        res[kind] = dict(err=max(c[kind][0] for c in every), rel=max(c[kind][1] for c in every),
+                         tf32_rel=min(c[kind][2] for c in every),
+                         batch_rel=max(c[kind][1] for c in batch), ms=ms, plain_ms=plain_ms,
+                         lib_ms=lib_ms, bound_ms=bms, bound_by=by,
+                         ffma_bound_ms=flops / PEAK_F32_FLOPS * 1e3, tflops=flops / ms / 1e9)
+    res["fwd"]["single_ms"] = single_ms
+    return res
+
+
+def fp32_long_run(dev, counters, fa, ops, _build, rope_cos_sin, data_dir):
+    """Phase O(a) (see the module docstring, 7i). Returns (its numbers, the
+    launches of its run)."""
+    from graphgpt_torch.models.rope import reset_position_ids
+    from graphgpt_torch.synthetic import to_torch
+    from graphgpt_torch.training.pipeline import PretrainPipeline
+
+    tag = "phase O(a) (long-context pretraining, fp32)"
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "long32")
+        t0 = time.perf_counter()
+        pipe = PretrainPipeline(long_config(
+            out_dir, data_dir, "model.dtype=float32", "training.gen_eval_bands=0",
+            f"training.schedule.total_num_steps={O_STEPS}",
+            "training.schedule.warmup_num_steps=1"), device=dev).setup()
+        mc, tc = pipe.cfg.model, pipe.cfg.training
+        print(f"{tag} setup {time.perf_counter() - t0:.1f} s: {mc.hidden_size} x "
+              f"{mc.num_hidden_layers}, {mc.num_attention_heads} heads of {mc.head_dim}, FFN "
+              f"{mc.intermediate_size}, {mc.dtype}, remat {mc.remat_policy}, mpe "
+              f"{mc.max_position_embeddings}, attn_block {mc.attn_block}; {pipe.total_steps} "
+              f"steps, batch {tc.batch_size} x {tc.max_length}, {len(pipe.valid_idx)} valid",
+              flush=True)
+        if mc.dtype != "float32" or tc.max_length != 4096 or mc.attn_block != 0:
+            fail(f"{tag}: the config is not the one asked for")
+        idx0 = np.random.default_rng((tc.seed, 0)).permutation(pipe.train_idx)
+        nb = next(pipe.loader.epoch_batches(idx0, 0)).data
+        batch = to_torch(nb, dev)
+        b, p = nb["segment_ids"].shape
+        tokens = int((nb["segment_ids"] > 0).sum())
+        pos = reset_position_ids(batch["position_ids"], mc.rope_range)
+        cos, sin = (t.float() for t in rope_cos_sin(
+            pos, mc.head_dim, mc.rope_theta, resonance=mc.rope_resonance,
+            rope_scaling=mc.rope_scaling, max_position_embeddings=mc.max_position_embeddings))
+        res = {"kernels": f32_stream_at_shape(fa, ops, _build, batch["segment_ids"], cos, sin,
+                                              mc.num_attention_heads, mc.head_dim)}
+        del cos, sin
+        torch.cuda.empty_cache()
+        res["step"] = step_vs_plain32(pipe.state.model, {k: v[:4] for k, v in batch.items()},
+                                      ops, tag)
+        torch.cuda.empty_cache()
+        want, want_eval = stream32_want(mc, counters)
+        train_log, eval_log, metrics = counted_pipeline(pipe, counters)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        pipe.run()
+        run_s = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        check_logs(tag, train_log, eval_log, want, want_eval, O_STEPS)
+        losses = [float(m["loss"]) for m in metrics]
+        result = csv_rows(os.path.join(out_dir, "result.csv"))
+        valid = float(result[-1].get("valid_loss", "nan")) if result else float("nan")
+        ema = float(result[-1].get("ema_valid_loss", "nan")) if result else float("nan")
+        ms = cuda_ms(lambda: pipe.train_step(pipe.state, batch, seed=tc.seed), iters=1, warmup=0,
+                     repeats=3)
+        print(f"{tag} losses " + " ".join(f"{x:.4f}" for x in losses) + f"; save point: valid "
+              f"loss {valid:.4f}, EMA {ema:.4f} on {len(eval_log)} eval forwards; the run "
+              f"{run_s:.1f} s; a step on the first batch on the card {ms:.2f} ms (3 readings "
+              f"{spread()}), {tokens / ms * 1e3:.0f} trained tokens/s; max_memory_allocated "
+              f"{peak:.0f} MiB", flush=True)
+        if not (len(losses) == O_STEPS and all(np.isfinite(losses)) and losses[-1] < losses[0]
+                and np.isfinite(valid) and np.isfinite(ema)):
+            fail(f"{tag}: the losses are not finite or did not fall, or the save point's valid "
+                 f"loss is missing: {losses} {valid} {ema}")
+        res.update(losses=losses, valid_loss=valid, ema_valid_loss=ema, run_s=run_s, step_ms=ms,
+                   tokens_per_s=tokens / ms * 1e3, peak_mib=peak)
+        del pipe, batch
+    torch.cuda.empty_cache()
+    return res, got
+
+
+def fp32_stream_phase(dev, counters, fa, ops, _build, rope_cos_sin, data_dir):
+    """Phase O (see the module docstring, 7i): (a) fp32 long-context
+    pretraining with #6f-#8f's checks at its batch, (b) the quick start
+    under GGT_FLASH_MODE=skip. Returns ({part: its numbers}, the launches
+    of its runs)."""
+    long32, launches = fp32_long_run(dev, counters, fa, ops, _build, rope_cos_sin, data_dir)
+    with knobs(fa, "skip", "0"):
+        toy, got = toy_pretrain_run(
+            dev, counters, ops, "phase O(b) (toy_pretrain.yaml under skip, fp32)", stream32_want)
+    return {"long": long32, "toy_skip": toy}, {k: launches[k] + got[k] for k in counters}
 
 
 def mol3d_config(tok, **kw):
@@ -5401,8 +5715,9 @@ def main() -> None:
                 print(f"  {name}: {line.strip()}", flush=True)
     # the wgmma kernels (#12; #2, #11; #4, #5, #7, #8; #1, #6, #9; #3, #10) keep
     # no spill and let ptxas pipeline their wgmma (no C7512/C7513), #13 (both
-    # dtypes) and the fp32 forms of #1, #2, #3 keep no spill; flash_fwd.cu's
-    # log must show its three forms, flash_bwd.cu's its two
+    # dtypes) and the fp32 forms of #1-#8, #2 and #11 keep no spill;
+    # flash_fwd.cu's log must show its three forms, flash_bwd.cu's its two,
+    # the fp32 forward's and passes' two each
     for name in ("norm_qkv", "norm_mlp", "mlp", "flash_bwd_split", "flash_fwd", "flash_bwd",
                  "rmsnorm_bwd", "flash_fwd_f32", "flash_bwd_f32", "norm_mlp_f32"):
         if re.search(r"[1-9]\d* bytes spill|C751[0-9]", logs.get(name, "")):
@@ -5414,6 +5729,14 @@ def main() -> None:
               flush=True)
         if forms != want:
             fail(f"{name}.cu's build log does not show its forms {want}")
+    # the fp32 forward's and passes' single (0) and stream (1) forms
+    for name, kernel in (("flash_fwd_f32", "fwd_f32_kernel"), ("flash_bwd_f32", "dq_f32_kernel"),
+                         ("flash_bwd_f32", "dkv_f32_kernel")):
+        forms = sorted(set(re.findall(kernel + r"ILb([01])E", logs.get(name, ""))))
+        print(f"{name}.cu: the forms of {kernel} ptxas compiled (0 single, 1 stream): {forms}",
+              flush=True)
+        if forms != ["0", "1"]:
+            fail(f"{name}.cu's build log does not show {kernel}'s two forms")
 
     # ---- the graph-level store (PCQM4M-v2's schema), the C++ walk on it, and
     # the long-context loader alone on it, before this process starts a pool
@@ -5439,7 +5762,9 @@ def main() -> None:
                 "flash_fwd_f32": fa.flash_fwd_f32, "flash_bwd_f32": fa.flash_bwd_f32,
                 "norm_mlp_f32": mlp.norm_mlp_f32, "rmsnorm_bwd_f32": mlp.rmsnorm_bwd_f32,
                 "mlp_f32": mlp.mlp_f32, "flash_dq_f32": fa.flash_dq_f32,
-                "flash_dkv_f32": fa.flash_dkv_f32}
+                "flash_dkv_f32": fa.flash_dkv_f32, "flash_fwd_stream_f32": fa.flash_fwd_stream_f32,
+                "flash_dq_stream_f32": fa.flash_dq_stream_f32,
+                "flash_dkv_stream_f32": fa.flash_dkv_stream_f32}
 
     # ---- eval and generation phases: the serving path, counted from 0
     cfg = flagship_config()
@@ -5505,11 +5830,11 @@ def main() -> None:
     # contrastive; J: 3D coordinates) and the flat GSTTokenizer (K)
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    tasks, shippedl["I"] = task_pretrain_phase(dev, counters, ops, data_dir)
+    tasks, shippedl["I"] = task_pretrain_phase(dev, counters, ops, data_dir, IK_DEPTH)
     torch.cuda.empty_cache()
-    coords, shippedl["J"] = coord_pretrain_phase(dev, counters, ops, data_dir)
+    coords, shippedl["J"] = coord_pretrain_phase(dev, counters, ops, data_dir, IK_DEPTH)
     torch.cuda.empty_cache()
-    gst, shippedl["K"] = gst_phase(dev, counters, fa, ops, data_dir)
+    gst, shippedl["K"] = gst_phase(dev, counters, fa, ops, data_dir, IK_DEPTH)
     print(f"phases I-K: {time.perf_counter() - t0:.1f} s", flush=True)
     # ---- phase L: float32 (toy_pretrain.yaml as shipped; GraphGPT-base at
     # model.dtype=float32) on the fp32 forms of #1, #2, #3 and #13
@@ -5532,6 +5857,13 @@ def main() -> None:
                                           train_sd)
     del train_sd
     print(f"phase N: {time.perf_counter() - t0:.1f} s", flush=True)
+    # ---- phase O: float32 past 2048 positions (long-context pretraining at
+    # model.dtype=float32; the quick start under skip) on #6f, #7f, #8f
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    f32o, shippedl["O"] = fp32_stream_phase(dev, counters, fa, ops, _build, rope_cos_sin,
+                                            data_dir)
+    print(f"phase O: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- denoise and position-pretraining phases: fresh models
     torch.cuda.empty_cache()
@@ -5571,7 +5903,7 @@ def main() -> None:
             launches_band_train=btl[name], launches_band_long=bll[name],
             launches_big_ppa=bigl["A"][name], launches_big_proteins=bigl["B"][name],
             launches_big_pretrain=bigl["C"][name],
-            **{f"launches_phase_{ph}": shippedl[ph][name] for ph in "DEFGHIJKLMN"},
+            **{f"launches_phase_{ph}": shippedl[ph][name] for ph in "DEFGHIJKLMNO"},
             max_abs_err=r["err"],
             ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -5801,6 +6133,24 @@ def main() -> None:
             denoise_step_loss_rel=ndn["step"]["loss_rel"],
             denoise_step_grad_rel=ndn["step"]["grad_rel"], denoise_step_ms=ndn["step_ms"],
             denoise_losses=ndn["losses"], denoise_peak_mib=ndn["peak_mib"]))
+    # the fp32 stream forms of phase O: their main entry at the long-context
+    # batch B 16 x P 4096, the numbers of its two runs beside them
+    o_long, o_toy = f32o["long"], f32o["toy_skip"]
+    for kind, (source, line) in (("fwd", ("flash_fwd_f32.cu", 177)),
+                                 ("dq", ("flash_bwd_f32.cu", 645)),
+                                 ("dkv", ("flash_bwd_f32.cu", 835))):
+        r = o_long["kernels"][kind]
+        kernels.append(entry(
+            O_STREAM[kind], source, f"flash_attention.py:{line}", r, {"rel": F32_REL},
+            rel_err=r["rel"], batch_rel_err=r["batch_rel"], tf32_control_rel=r["tf32_rel"],
+            ffma_bound_ms=r["ffma_bound_ms"], tflops=r["tflops"],
+            **({"single_f32_entry_ms": r["single_ms"]} if kind == "fwd" else {}),
+            long32_step_loss_rel=o_long["step"]["loss_rel"],
+            long32_step_grad_rel=o_long["step"]["grad_rel"], long32_step_ms=o_long["step_ms"],
+            long32_tokens_per_s=o_long["tokens_per_s"], long32_peak_mib=o_long["peak_mib"],
+            long32_losses=o_long["losses"], long32_valid_loss=o_long["valid_loss"],
+            toy_skip_step_loss_rel=o_toy["step"]["loss_rel"],
+            toy_skip_step_grad_rel=o_toy["step"]["grad_rel"], toy_skip_losses=o_toy["losses"]))
     by_name["norm_mlp"].update({f"phase_M_{run}_{k}": v for run, r in gconf.items()
                                 for k, v in r.items()
                                 if k in ("step_ms", "tokens_per_s", "graphs_per_s", "peak_mib",

@@ -1,21 +1,26 @@
 // Segment-masked flash attention backward in fp32, for Hopper: the fused
-// backward #3 and the split pair #4 / #5 on one set of passes.
+// backward #3, the split pair #4 / #5 and the streamed pair #7 / #8 on one
+// set of passes.
 //
 // Replaces graphgpt_tpu/ops/flash_attention.py:706 _bwd_kernel_fused,
-// :602 _dq_kernel_single and :789 _dkv_kernel_single when they are given
-// fp32 (a `model.dtype: float32` model): there their products, p = exp(S -
-// lse) and ds = p * (do v^T - delta) stay fp32 (the casts to the working
-// dtype, :764-770, change nothing). The bf16 forms are csrc/flash_bwd.cu
-// and csrc/flash_bwd_split.cu. Same contracts: q (pre-scaled, unrotated),
-// k, v, out, do token-major [B, P, H * 64] fp32, segment ids int32 [B, P],
-// RoPE cos/sin [B, P, 64] fp32 (or null), lse [B, H, P] fp32 and its
-// optional cotangent dlse; delta = rowsum(do * out) - dlse [B, H, P] and
-// dq, dk, dv [B, P, H * 64] fp32, dq and dk brought back through the
-// inverse rotation. do is taken as zero on padded rows (segment 0) before
+// :602 _dq_kernel_single, :789 _dkv_kernel_single, :645 _dq_kernel_stream
+// and :835 _dkv_kernel_stream when they are given fp32 (a `model.dtype:
+// float32` model): there their products, p = exp(S - lse) and ds = p * (do
+// v^T - delta) stay fp32 (the casts to the working dtype, :764-770, change
+// nothing). The bf16 forms are csrc/flash_bwd.cu and
+// csrc/flash_bwd_split.cu. Same contracts: q (pre-scaled, unrotated), k,
+// v, out, do token-major [B, P, H * 64] fp32, segment ids int32 [B, P] (the
+// streamed pair: query ids seg and key ids seg_k, one array twice for a
+// model's rows), RoPE cos/sin [B, P, 64] fp32 (or null), lse [B, H, P]
+// fp32 and its optional cotangent dlse; delta = rowsum(do * out) - dlse
+// [B, H, P] and dq, dk, dv [B, P, H * 64] fp32, dq and dk brought back
+// through the inverse rotation. do is taken as zero on padded rows (segment 0) before
 // any sum, so that a non-finite value there reaches no output; a padded
-// row takes no part. #3 takes the bidirectional and causal masks; the
-// pair also the bi-causal one (`bi_split` bit slots, whose split may fall
-// inside a 64-row tile): #4 writes delta beside dq, #5 reads it.
+// row takes no part, and so does a query row that sees no key (possible
+// only with ids of the keys' own); a key that no query sees gets dk = dv =
+// 0. #3 takes the bidirectional and causal masks; the pairs also the
+// bi-causal one (`bi_split` bit slots, whose split may fall inside a
+// 64-row tile): #4 and #7 write delta beside dq, #5 and #8 read it.
 //
 // What bounds it on the H100: operations, as for the forward
 // (flash_fwd_f32.cu): fp32-accurate products at 165 TFLOP/s (3xTF32) or
@@ -28,8 +33,12 @@
 // registers; the query pass, a block a (row, head, 64-query tile) that
 // walks the key tiles it sees and sums dq = ds k. Each pass computes S and
 // do v^T again for its tile pairs. #3 is all three; #4 is delta and the
-// query pass, #5 the key pass. Tiles are fp32 in shared memory, the
-// products FFMA (flash_f32.cuh).
+// query pass, #5 the key pass; #7 and #8 are #4 and #5 in the passes'
+// stream form, which reads the key tiles' ids from seg_k (a template flag,
+// so that the other forms compile as before and keep their bits). The
+// passes walk 64-row tiles at any P, so the stream form takes any P as the
+// others do. Tiles are fp32 in shared memory, the products FFMA
+// (flash_f32.cuh).
 
 #include "flash_f32.cuh"
 
@@ -70,10 +79,13 @@ __device__ __forceinline__ bool visible(int qseg, int kseg, int col, int vis) {
 }
 
 // The key pass: dk, dv of the 64 keys [k0, k0 + 64) of head h, row b.
+// STREAM: the keys' ids are seg_k's (else seg's, and seg_k is unread).
+template <bool STREAM>
 __global__ void __launch_bounds__(THREADS)
 dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const int* __restrict__ seg,
-               const float* __restrict__ cos, const float* __restrict__ sin,
+               const int* __restrict__ seg_k, const float* __restrict__ cos,
+               const float* __restrict__ sin,
                const float* __restrict__ lse, const float* __restrict__ delta,
                const float* __restrict__ dout, float* __restrict__ dk, float* __restrict__ dv,
                int P, int H, int causal, int bi_split) {
@@ -90,6 +102,7 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = blockIdx.x * T, h = blockIdx.y, b = blockIdx.z;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int* seg_row = seg + (long long)b * P;
+  const int* kseg_row = (STREAM ? seg_k : seg) + (long long)b * P;
   const float* lse_row = lse + ((long long)b * H + h) * P;
   const float* delta_row = delta + ((long long)b * H + h) * P;
 
@@ -97,7 +110,7 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   load_tile(vs, v, seg, nullptr, nullptr, b, k0, P, H, h, false);
   int cseg[4];  // the key ids of the columns tx + 16 j
 #pragma unroll
-  for (int j = 0; j < 4; ++j) cseg[j] = k0 + tx + 16 * j < P ? seg_row[k0 + tx + 16 * j] : 0;
+  for (int j = 0; j < 4; ++j) cseg[j] = k0 + tx + 16 * j < P ? kseg_row[k0 + tx + 16 * j] : 0;
   float dka[4][4], dva[4][4];
   zero(dka);
   zero(dva);
@@ -106,7 +119,7 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // the tile, its prefix columns are seen from row 0)
   const int q_first = first_row(k0, causal, bi_split, P) / T * T;
   for (int q0 = q_first; q0 < P; q0 += T) {
-    if (tiles_miss(seg_row, q0, k0, P)) continue;
+    if (tiles_miss(seg_row, q0, kseg_row, k0, P)) continue;
     __syncthreads();
     load_tile(qs, q, seg, cos, sin, b, q0, P, H, h, false);
     load_tile(ds, dout, seg, nullptr, nullptr, b, q0, P, H, h, true);
@@ -153,10 +166,13 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // The query pass: dq of the 64 queries [q0, q0 + 64) of head h, row b.
+// STREAM: the key tiles' ids are seg_k's (else seg's, and seg_k is unread).
+template <bool STREAM>
 __global__ void __launch_bounds__(THREADS)
 dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const int* __restrict__ seg,
-              const float* __restrict__ cos, const float* __restrict__ sin,
+              const int* __restrict__ seg_k, const float* __restrict__ cos,
+              const float* __restrict__ sin,
               const float* __restrict__ lse, const float* __restrict__ delta,
               const float* __restrict__ dout, float* __restrict__ dq, int P, int H, int causal,
               int bi_split) {
@@ -170,6 +186,8 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * T, h = blockIdx.y, b = blockIdx.z;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int* seg_row = seg + (long long)b * P;
+  const int* kseg_ids = STREAM ? seg_k : seg;
+  const int* kseg_row = kseg_ids + (long long)b * P;
   const float* lse_row = lse + ((long long)b * H + h) * P;
   const float* delta_row = delta + ((long long)b * H + h) * P;
 
@@ -190,11 +208,11 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // the key tiles a row of this tile may see (the rule is monotone in the row)
   const int kmax = visible_cols(min(q0 + T - 1, P - 1), causal, bi_split, P);
   for (int k0 = 0; k0 < kmax; k0 += T) {
-    if (tiles_miss(seg_row, q0, k0, P)) continue;
+    if (tiles_miss(seg_row, q0, kseg_row, k0, P)) continue;
     __syncthreads();
     load_tile(ks, k, seg, cos, sin, b, k0, P, H, h, false);
     load_tile(vs, v, seg, nullptr, nullptr, b, k0, P, H, h, false);
-    load_seg(kseg, seg, b, k0, P);
+    load_seg(kseg, kseg_ids, b, k0, P);
     __syncthreads();
     float s[4][4], dp[4][4];
     zero(s);
@@ -233,28 +251,63 @@ void launch_delta(const float* dout, const float* out, const int* seg, const flo
   delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(dout, out, seg, dlse, delta, B, P, H);
 }
 
+// The passes of form STREAM; seg_k is read by the stream form only.
+template <bool STREAM>
 cudaError_t launch_dkv(const float* q, const float* k, const float* v, const int* seg,
-                       const float* cos, const float* sin, const float* lse, const float* delta,
-                       const float* dout, float* dk, float* dv, int B, int P, int H, int causal,
-                       int bi_split, cudaStream_t st) {
-  const cudaError_t err =
-      cudaFuncSetAttribute(dkv_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, KEY_SMEM);
+                       const int* seg_k, const float* cos, const float* sin, const float* lse,
+                       const float* delta, const float* dout, float* dk, float* dv, int B, int P,
+                       int H, int causal, int bi_split, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      dkv_f32_kernel<STREAM>, cudaFuncAttributeMaxDynamicSharedMemorySize, KEY_SMEM);
   if (err != cudaSuccess) return err;
-  dkv_f32_kernel<<<dim3((P + T - 1) / T, H, B), THREADS, KEY_SMEM, st>>>(
-      q, k, v, seg, cos, sin, lse, delta, dout, dk, dv, P, H, causal, bi_split);
+  dkv_f32_kernel<STREAM><<<dim3((P + T - 1) / T, H, B), THREADS, KEY_SMEM, st>>>(
+      q, k, v, seg, seg_k, cos, sin, lse, delta, dout, dk, dv, P, H, causal, bi_split);
   return cudaSuccess;
 }
 
+template <bool STREAM>
 cudaError_t launch_dq(const float* q, const float* k, const float* v, const int* seg,
-                      const float* cos, const float* sin, const float* lse, const float* delta,
-                      const float* dout, float* dq, int B, int P, int H, int causal, int bi_split,
-                      cudaStream_t st) {
-  const cudaError_t err =
-      cudaFuncSetAttribute(dq_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, QUERY_SMEM);
+                      const int* seg_k, const float* cos, const float* sin, const float* lse,
+                      const float* delta, const float* dout, float* dq, int B, int P, int H,
+                      int causal, int bi_split, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      dq_f32_kernel<STREAM>, cudaFuncAttributeMaxDynamicSharedMemorySize, QUERY_SMEM);
   if (err != cudaSuccess) return err;
-  dq_f32_kernel<<<dim3((P + T - 1) / T, H, B), THREADS, QUERY_SMEM, st>>>(
-      q, k, v, seg, cos, sin, lse, delta, dout, dq, P, H, causal, bi_split);
+  dq_f32_kernel<STREAM><<<dim3((P + T - 1) / T, H, B), THREADS, QUERY_SMEM, st>>>(
+      q, k, v, seg, seg_k, cos, sin, lse, delta, dout, dq, P, H, causal, bi_split);
   return cudaSuccess;
+}
+
+// delta, then the query pass of form STREAM: #4's and #7's fp32 forms.
+template <bool STREAM>
+int dq_entry(const void* q, const void* k, const void* v, const void* seg, const void* seg_k,
+             const void* cos, const void* sin, const void* out, const void* lse,
+             const void* dout, const void* dlse, void* delta, void* dq, int B, int P, int H,
+             int causal, int bi_split, void* stream) {
+  if (B == 0 || P == 0 || H == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  launch_delta((const float*)dout, (const float*)out, (const int*)seg, (const float*)dlse,
+               (float*)delta, B, P, H, st);
+  const cudaError_t err = launch_dq<STREAM>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)seg, (const int*)seg_k,
+      (const float*)cos, (const float*)sin, (const float*)lse, (const float*)delta,
+      (const float*)dout, (float*)dq, B, P, H, causal, bi_split, st);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// The key pass of form STREAM: #5's and #8's fp32 forms.
+template <bool STREAM>
+int dkv_entry(const void* q, const void* k, const void* v, const void* seg, const void* seg_k,
+              const void* cos, const void* sin, const void* lse, const void* delta,
+              const void* dout, void* dk, void* dv, int B, int P, int H, int causal,
+              int bi_split, void* stream) {
+  if (B == 0 || P == 0 || H == 0) return 0;
+  const cudaError_t err = launch_dkv<STREAM>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)seg, (const int*)seg_k,
+      (const float*)cos, (const float*)sin, (const float*)lse, (const float*)delta,
+      (const float*)dout, (float*)dk, (float*)dv, B, P, H, causal, bi_split,
+      (cudaStream_t)stream);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -275,11 +328,12 @@ extern "C" int ggt_flash_bwd_f32(const void* q, const void* k, const void* v, co
   const float* fdo = (const float*)dout;
   const int* iseg = (const int*)seg;
   launch_delta(fdo, (const float*)out, iseg, (const float*)dlse, (float*)delta, B, P, H, st);
-  cudaError_t err = launch_dkv(fq, fk, fv, iseg, fcos, fsin, flse, (const float*)delta, fdo,
-                               (float*)dk, (float*)dv, B, P, H, causal, 0, st);
+  cudaError_t err = launch_dkv<false>(fq, fk, fv, iseg, nullptr, fcos, fsin, flse,
+                                      (const float*)delta, fdo, (float*)dk, (float*)dv, B, P, H,
+                                      causal, 0, st);
   if (err == cudaSuccess)
-    err = launch_dq(fq, fk, fv, iseg, fcos, fsin, flse, (const float*)delta, fdo, (float*)dq, B,
-                    P, H, causal, 0, st);
+    err = launch_dq<false>(fq, fk, fv, iseg, nullptr, fcos, fsin, flse, (const float*)delta,
+                           fdo, (float*)dq, B, P, H, causal, 0, st);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
@@ -292,15 +346,8 @@ extern "C" int ggt_flash_dq_f32(const void* q, const void* k, const void* v, con
                                 const void* lse, const void* dout, const void* dlse, void* delta,
                                 void* dq, int B, int P, int H, int causal, int bi_split,
                                 void* stream) {
-  if (B == 0 || P == 0 || H == 0) return 0;
-  const cudaStream_t st = (cudaStream_t)stream;
-  launch_delta((const float*)dout, (const float*)out, (const int*)seg, (const float*)dlse,
-               (float*)delta, B, P, H, st);
-  const cudaError_t err = launch_dq(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)seg, (const float*)cos,
-      (const float*)sin, (const float*)lse, (const float*)delta, (const float*)dout, (float*)dq,
-      B, P, H, causal, bi_split, st);
-  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+  return dq_entry<false>(q, k, v, seg, nullptr, cos, sin, out, lse, dout, dlse, delta, dq, B, P,
+                         H, causal, bi_split, stream);
 }
 
 // C entry for ctypes: #5's fp32 form (the key pass: dk, dv, reading #4's
@@ -310,10 +357,32 @@ extern "C" int ggt_flash_dkv_f32(const void* q, const void* k, const void* v, co
                                  const void* cos, const void* sin, const void* lse,
                                  const void* delta, const void* dout, void* dk, void* dv, int B,
                                  int P, int H, int causal, int bi_split, void* stream) {
-  if (B == 0 || P == 0 || H == 0) return 0;
-  const cudaError_t err = launch_dkv(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)seg, (const float*)cos,
-      (const float*)sin, (const float*)lse, (const float*)delta, (const float*)dout, (float*)dk,
-      (float*)dv, B, P, H, causal, bi_split, (cudaStream_t)stream);
-  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+  return dkv_entry<false>(q, k, v, seg, nullptr, cos, sin, lse, delta, dout, dk, dv, B, P, H,
+                          causal, bi_split, stream);
+}
+
+// C entries for ctypes: #7's and #8's fp32 forms, #4's and #5's with query
+// ids segq and key ids segk (one array twice for a model's rows); delta is
+// summed over do zeroed where segq is 0. They take the bf16 entries'
+// arguments; `tab`, the bf16 forms' tile-table scratch, is not read: each
+// block tests its tile pairs itself (tiles_miss). Any P.
+extern "C" int ggt_flash_dq_stream_f32(const void* q, const void* k, const void* v,
+                                       const void* segq, const void* segk, const void* cos,
+                                       const void* sin, const void* out, const void* lse,
+                                       const void* dout, const void* dlse, void* delta,
+                                       void* dq, void* tab, int B, int P, int H, int causal,
+                                       int bi_split, void* stream) {
+  (void)tab;
+  return dq_entry<true>(q, k, v, segq, segk, cos, sin, out, lse, dout, dlse, delta, dq, B, P, H,
+                        causal, bi_split, stream);
+}
+
+extern "C" int ggt_flash_dkv_stream_f32(const void* q, const void* k, const void* v,
+                                        const void* segq, const void* segk, const void* cos,
+                                        const void* sin, const void* lse, const void* delta,
+                                        const void* dout, void* dk, void* dv, void* tab, int B,
+                                        int P, int H, int causal, int bi_split, void* stream) {
+  (void)tab;
+  return dkv_entry<true>(q, k, v, segq, segk, cos, sin, lse, delta, dout, dk, dv, B, P, H,
+                         causal, bi_split, stream);
 }

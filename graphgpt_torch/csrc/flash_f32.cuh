@@ -1,6 +1,7 @@
 // What the fp32 flash forward (flash_fwd_f32.cu) and backward
-// (flash_bwd_f32.cu) share: 64 x 64 fp32 tiles in shared memory, the
-// tile loads with RoPE, and the FFMA tile product.
+// (flash_bwd_f32.cu) share, in their single and stream forms: 64 x 64 fp32
+// tiles in shared memory, the tile loads with RoPE, the FFMA tile product,
+// and the test that skips a tile pair with no segment id in common.
 //
 // Layout. A block of 256 threads works on 64 x 64 tiles; thread (ty, tx) =
 // (tid / 16, tid % 16) owns the 16 elements (ty + 16 i, tx + 16 j), i, j in
@@ -108,13 +109,17 @@ __device__ __forceinline__ void load_seg(int* dst, const int* seg, int b, int r0
     dst[r] = r0 + r < P ? seg[(long long)b * P + r0 + r] : 0;
 }
 
-// Whether the tiles of rows [q0, q0 + 64) and [k0, k0 + 64) share no
-// segment id (every pair masked); every warp computes it, the same for all.
-__device__ __forceinline__ bool tiles_miss(const int* seg_row, int q0, int k0, int P) {
+// Whether the query tile [q0, q0 + 64), its ids in q_row, and the key tile
+// [k0, k0 + 64), its ids in k_row (q_row again unless the keys carry ids
+// of their own), share no segment id (every pair masked). Disjoint id
+// ranges mean disjoint sets in any order of the ids. Every warp computes
+// it, the same for all.
+__device__ __forceinline__ bool tiles_miss(const int* q_row, int q0, const int* k_row, int k0,
+                                           int P) {
   const int lane = threadIdx.x & 31;
   int qlo, qhi, klo, khi;
-  tile_range(seg_row, q0, P, lane, &qlo, &qhi);
-  tile_range(seg_row, k0, P, lane, &klo, &khi);
+  tile_range(q_row, q0, P, lane, &qlo, &qhi);
+  tile_range(k_row, k0, P, lane, &klo, &khi);
   return ranges_miss(qlo, qhi, klo, khi);
 }
 

@@ -1,15 +1,20 @@
-// Segment-masked flash attention forward in fp32, for Hopper.
+// Segment-masked flash attention forward in fp32, for Hopper: #1's form
+// and, with the keys' own segment ids, #6's.
 //
-// Replaces graphgpt_tpu/ops/flash_attention.py:124 _fwd_kernel_single when
-// it is given fp32 (a `model.dtype: float32` model): it takes its working
-// type from its inputs, so there q.k^T, the probabilities (cast to v's
-// dtype, :155) and p.v are all fp32, and out is written in q's dtype. The
-// bf16 form is csrc/flash_fwd.cu. Same contract: q (pre-scaled), k, v
-// token-major [B, P, H * 64] fp32, segment ids int32 [B, P], RoPE cos/sin
-// [B, P, 64] fp32 applied in the kernel (or null); out [B, P, H * 64] fp32,
-// lse [B, H, P] fp32. Masks: bidirectional, causal, or bi-causal with
-// `bi_split` bit slots. A padded row (segment 0), and a row that sees no
-// key, give out 0 and lse -1e30.
+// Replaces graphgpt_tpu/ops/flash_attention.py:124 _fwd_kernel_single
+// (single form) and :177 _fwd_kernel_stream (stream form) when they are
+// given fp32 (a `model.dtype: float32` model): they take their working
+// type from their inputs, so there q.k^T, the probabilities (cast to v's
+// dtype, :155, :254) and p.v are all fp32, and out is written in q's
+// dtype. The bf16 forms are csrc/flash_fwd.cu's. Same contract: q
+// (pre-scaled), k, v token-major [B, P, H * 64] fp32, segment ids int32
+// [B, P] (the stream form: query ids seg and key ids seg_k, one array
+// twice for a model's rows, another for a ring chunk's keys), RoPE cos/sin
+// [B, P, 64] fp32 applied in the kernel (or null); out [B, P, H * 64]
+// fp32, lse [B, H, P] fp32. Masks: bidirectional, causal, or bi-causal
+// with `bi_split` bit slots. A padded row (segment 0), and a row that sees
+// no key (possible only with ids of the keys' own), give out 0 and lse
+// -1e30.
 //
 // What bounds it on the H100: operations. The products must keep fp32
 // accuracy, so the tensor cores' TF32 (about three decimal digits) is out;
@@ -22,7 +27,12 @@
 // 64-query tile), an online softmax over the 64-key tiles the mask lets
 // through (a tile pair that shares no segment id, or lies past the causal
 // bound, is skipped); q, k, v and the probabilities as 64 x 64 fp32 tiles
-// in shared memory (flash_f32.cuh), S = q k^T and O += P v by FFMA.
+// in shared memory (flash_f32.cuh), S = q k^T and O += P v by FFMA. The
+// body already streams the keys at any P, so the stream form differs from
+// the single one only where it reads the key tiles' ids (from seg_k): a
+// template flag picks that array, so that the single form compiles as
+// before and keeps its bits, and with seg_k == seg the stream form gives
+// the single form's bits.
 
 #include "flash_f32.cuh"
 
@@ -32,12 +42,14 @@ using namespace f32;
 
 constexpr int SMEM = 4 * TILE * sizeof(float) + T * sizeof(int);  // q, k, v, p; key ids
 
+// STREAM: the key tiles' ids are seg_k's (else seg's, and seg_k is unread).
+template <bool STREAM>
 __global__ void __launch_bounds__(THREADS, 2)
 fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const int* __restrict__ seg,
-               const float* __restrict__ cos, const float* __restrict__ sin,
-               float* __restrict__ out, float* __restrict__ lse, int P, int H, int causal,
-               int bi_split) {
+               const int* __restrict__ seg_k, const float* __restrict__ cos,
+               const float* __restrict__ sin, float* __restrict__ out, float* __restrict__ lse,
+               int P, int H, int causal, int bi_split) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + TILE;
@@ -47,6 +59,8 @@ fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * T, h = blockIdx.y, b = blockIdx.z;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int* seg_row = seg + (long long)b * P;
+  const int* kseg_ids = STREAM ? seg_k : seg;
+  const int* kseg_row = kseg_ids + (long long)b * P;
 
   load_tile(qs, q, seg, cos, sin, b, q0, P, H, h, false);
   int rseg[4], rvis[4];
@@ -63,11 +77,11 @@ fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // the key tiles a row of this tile may see
   const int kmax = visible_cols(min(q0 + T - 1, P - 1), causal, bi_split, P);
   for (int k0 = 0; k0 < kmax; k0 += T) {
-    if (tiles_miss(seg_row, q0, k0, P)) continue;
+    if (tiles_miss(seg_row, q0, kseg_row, k0, P)) continue;
     __syncthreads();  // the last tile's reads of ks, vs, ps are done
     load_tile(ks, k, seg, cos, sin, b, k0, P, H, h, false);
     load_tile(vs, v, seg, nullptr, nullptr, b, k0, P, H, h, false);
-    load_seg(kseg, seg, b, k0, P);
+    load_seg(kseg, kseg_ids, b, k0, P);
     __syncthreads();
     float s[4][4];
     zero(s);
@@ -115,21 +129,45 @@ fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// One launch of form STREAM on `stream`; returns the first CUDA error.
+template <bool STREAM>
+int launch(const void* q, const void* k, const void* v, const void* seg, const void* seg_k,
+           const void* cos, const void* sin, void* out, void* lse, int B, int P, int H,
+           int causal, int bi_split, void* stream) {
+  if (B == 0 || P == 0 || H == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(fwd_f32_kernel<STREAM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((P + T - 1) / T, H, B);
+  fwd_f32_kernel<STREAM><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)seg, (const int*)seg_k,
+      (const float*)cos, (const float*)sin, (float*)out, (float*)lse, P, H, causal, bi_split);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// C entry for ctypes: #1's fp32 form on `stream`; returns the first CUDA
-// error (0 when the launch was accepted). cos and sin may both be null (no
-// RoPE). Any P.
+// C entries for ctypes, on `stream`: each returns the first CUDA error (0
+// when the launch was accepted). cos and sin may both be null (no RoPE).
+// Any P.
+
+// #1's fp32 form: one id array.
 extern "C" int ggt_flash_fwd_f32(const void* q, const void* k, const void* v, const void* seg,
                                  const void* cos, const void* sin, void* out, void* lse, int B,
                                  int P, int H, int causal, int bi_split, void* stream) {
-  if (B == 0 || P == 0 || H == 0) return 0;
-  cudaError_t err =
-      cudaFuncSetAttribute(fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((P + T - 1) / T, H, B);
-  fwd_f32_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)seg, (const float*)cos,
-      (const float*)sin, (float*)out, (float*)lse, P, H, causal, bi_split);
-  return (int)cudaGetLastError();
+  return launch<false>(q, k, v, seg, nullptr, cos, sin, out, lse, B, P, H, causal, bi_split,
+                       stream);
+}
+
+// #6's fp32 form: query ids segq and key ids segk (one array twice for a
+// model's rows). It takes the bf16 entry's arguments; `tab`, the bf16
+// form's tile-table scratch, is not read: each block tests its tile pairs
+// itself (tiles_miss).
+extern "C" int ggt_flash_fwd_stream_f32(const void* q, const void* k, const void* v,
+                                        const void* segq, const void* segk, const void* cos,
+                                        const void* sin, void* out, void* lse, void* tab, int B,
+                                        int P, int H, int causal, int bi_split, void* stream) {
+  (void)tab;
+  return launch<true>(q, k, v, segq, segk, cos, sin, out, lse, B, P, H, causal, bi_split,
+                      stream);
 }

@@ -42,15 +42,17 @@ flash_attention rotates q and k outside the kernels (:1249-1255), with
 Here the port differs: an unknown mode raises, where the JAX package takes
 any value it does not know for `legacy`.
 
-Dtypes: every kernel takes bf16. #1, #3, #4 and #5 also take fp32 (a
-`model.dtype: float32` model), in forms of their own: #1's in
-`csrc/flash_fwd_f32.cu`, #3's and the split pair's in the passes of
+Dtypes: every kernel takes bf16. #1, #3-#8 also take fp32 (a
+`model.dtype: float32` model), in forms of their own: #1's and #6's in
+`csrc/flash_fwd_f32.cu`, #3's and both pairs' in the passes of
 `csrc/flash_bwd_f32.cu`, each with its wrapper and its count
-(flash_fwd_f32, flash_bwd_f32, flash_dq_f32, flash_dkv_f32), to which
-flash_fwd, flash_bwd, flash_dq and flash_dkv hand fp32 CUDA tensors with
-the RoPE tables kept fp32; the other forms (#6-#10) raise on fp32 until
-theirs are ported, and every kernel raises on any other dtype or on a
-mix.
+(flash_fwd_f32, flash_bwd_f32, flash_dq_f32, flash_dkv_f32,
+flash_fwd_stream_f32, flash_dq_stream_f32, flash_dkv_stream_f32), to which
+flash_fwd, flash_bwd, flash_dq, flash_dkv, flash_fwd_stream,
+flash_dq_stream and flash_dkv_stream hand fp32 CUDA tensors with the RoPE
+tables kept fp32: an fp32 model trains through them at every P and under
+`skip`. The band forms (#9, #10) raise on fp32 until theirs are ported,
+and every kernel raises on any other dtype or on a mix.
 
 Head widths: the kernels are built for KERNEL_DH = 64 and raise on any
 other. Below it `flash_attention` does what the JAX package's does before
@@ -341,33 +343,73 @@ def flash_fwd_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, causal: bool, dh: int
                                seg_k=seg_k, row_chunk=REF_ROWS)
 
 
+def _stream_tab(dtype, seg_q):
+    """The tile-table scratch of a streamed entry: the bf16 forms write
+    their tables there first; the fp32 forms test each tile pair
+    themselves and read none (None: a null pointer)."""
+    return _tile_scratch(seg_q) if dtype == torch.bfloat16 else None
+
+
+def _fwd_stream(name, source, symbol, dtype, qs, k, v, seg_q, seg_k, cos, sin, causal: bool,
+                dh: int, bi_causal_split: int):
+    """Launch #6's form `symbol` of csrc/<source>.cu, which takes `dtype`:
+    (out, lse, the entry's error code)."""
+    b, p, hd = qs.shape
+    (qs, k, v), seg_q, seg_k, cos, sin = _check_fwd(name, dh, qs, k, v, seg_q, seg_k, cos, sin,
+                                                    dtype)
+    out = torch.empty_like(qs)
+    lse = torch.empty((b, hd // dh, p), dtype=torch.float32, device=qs.device)
+    fn = _build.entry(source, symbol, _FWD_STREAM_ARGTYPES)
+    err = fn(
+        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
+        _opt_ptr(cos), _opt_ptr(sin), _build.ptr(out), _build.ptr(lse),
+        _opt_ptr(_stream_tab(dtype, seg_q)), b, p, hd // dh, int(causal), int(bi_causal_split),
+        _build.stream_ptr(qs.device),
+    )
+    return out, lse, err
+
+
 def flash_fwd_stream(qs, k, v, seg_q, seg_k, cos, sin, causal: bool, dh: int,
                      bi_causal_split: int = 0):
     """(out, lse) of the streamed forward (#6) with query ids seg_q and key
     ids seg_k [B, P] (one tensor twice for a model's rows): the CUDA kernel
-    for a CUDA tensor, the plain version for a CPU tensor (or inside
+    for a CUDA tensor, its fp32 form (flash_fwd_stream_f32) for an fp32
+    one, the plain version for a CPU tensor (or inside
     ops.reference_mode()). Any P."""
     if not use_kernel(qs, k, v, seg_q, seg_k):
         return flash_fwd_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, causal, dh,
                                     bi_causal_split)
-    b, p, hd = qs.shape
-    (qs, k, v), seg_q, seg_k, cos, sin = _check_fwd("flash_fwd_stream", dh, qs, k, v, seg_q,
-                                                    seg_k, cos, sin)
-    out = torch.empty_like(qs)
-    lse = torch.empty((b, hd // dh, p), dtype=torch.float32, device=qs.device)
-    fn = _build.entry("flash_fwd", "ggt_flash_fwd_stream", _FWD_STREAM_ARGTYPES)
-    err = fn(
-        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
-        _opt_ptr(cos), _opt_ptr(sin), _build.ptr(out), _build.ptr(lse),
-        _build.ptr(_tile_scratch(seg_q)), b, p, hd // dh, int(causal), int(bi_causal_split),
-        _build.stream_ptr(qs.device),
-    )
+    if qs.dtype == torch.float32:
+        return flash_fwd_stream_f32(qs, k, v, seg_q, seg_k, cos, sin, causal, dh,
+                                    bi_causal_split)
+    out, lse, err = _fwd_stream("flash_fwd_stream", "flash_fwd", "ggt_flash_fwd_stream",
+                                torch.bfloat16, qs, k, v, seg_q, seg_k, cos, sin, causal, dh,
+                                bi_causal_split)
     flash_fwd_stream.launches += 1
     _build.check(err, "flash_fwd_stream")
     return out, lse
 
 
 flash_fwd_stream.launches = 0
+
+
+def flash_fwd_stream_f32(qs, k, v, seg_q, seg_k, cos, sin, causal: bool, dh: int,
+                         bi_causal_split: int = 0):
+    """(out, lse) of #6's fp32 form (`csrc/flash_fwd_f32.cu`'s stream form)
+    for fp32 CUDA tensors, cos and sin kept fp32; the plain version for a
+    CPU tensor (or inside ops.reference_mode()). Any P."""
+    if not use_kernel(qs, k, v, seg_q, seg_k):
+        return flash_fwd_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, causal, dh,
+                                    bi_causal_split)
+    out, lse, err = _fwd_stream("flash_fwd_stream_f32", "flash_fwd_f32",
+                                "ggt_flash_fwd_stream_f32", torch.float32, qs, k, v, seg_q,
+                                seg_k, cos, sin, causal, dh, bi_causal_split)
+    flash_fwd_stream_f32.launches += 1
+    _build.check(err, "flash_fwd_stream_f32")
+    return out, lse
+
+
+flash_fwd_stream_f32.launches = 0
 
 
 def unrotate_tokens(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, dh: int):
@@ -793,32 +835,54 @@ def flash_dkv_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causa
                       seg_k, want_dq=False, row_chunk=REF_ROWS)[1:]
 
 
+def _dq_stream_plain(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, dlse, causal: bool,
+                     dh: int, bi_causal_split: int):
+    """(dq, delta) of the streamed pair's plain route: delta summed from do
+    taken as zero on padded rows, then flash_dq_stream_ref."""
+    do = zero_padded_rows(do, seg_q)
+    delta = flash_delta(do, out, dlse, dh)
+    return flash_dq_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal, dh,
+                               bi_causal_split), delta
+
+
+def _dq_stream(name, source, symbol, dtype, qs, k, v, seg_q, seg_k, cos, sin, out, lse, do,
+               dlse, causal: bool, dh: int, bi_causal_split: int):
+    """Launch #7's form `symbol` of csrc/<source>.cu, which takes `dtype`:
+    (dq, delta, the entry's error code)."""
+    b, p, _ = qs.shape
+    extra_rows = () if dlse is None else (dlse,)
+    (qs, k, v, do, out), seg_q, seg_k, cos, sin, rows = _check_bwd(
+        name, dh, qs, k, v, seg_q, cos, sin, lse, do, extra=(out,), extra_rows=extra_rows,
+        seg_k=seg_k, dtype=dtype)
+    lse, dlse = rows[0], (rows[1] if dlse is not None else None)
+    dq, delta = torch.empty_like(qs), torch.empty_like(lse)
+    fn = _build.entry(source, symbol, _DQ_STREAM_ARGTYPES)
+    err = fn(
+        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
+        _opt_ptr(cos), _opt_ptr(sin), _build.ptr(out), _build.ptr(lse), _build.ptr(do),
+        _opt_ptr(dlse), _build.ptr(delta), _build.ptr(dq), _opt_ptr(_stream_tab(dtype, seg_q)),
+        b, p, lse.shape[1], int(causal), int(bi_causal_split), _build.stream_ptr(qs.device),
+    )
+    return dq, delta, err
+
+
 def flash_dq_stream(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, dlse, causal: bool,
                     dh: int, bi_causal_split: int = 0):
     """(dq, delta) of the streamed pair's first kernel (#7): the CUDA
     kernels (the tile tables, then dq with delta summed for its own rows;
-    counted as one call) for a CUDA tensor, flash_delta and
+    counted as one call) for a CUDA tensor, its fp32 form
+    (flash_dq_stream_f32) for an fp32 one, flash_delta and
     flash_dq_stream_ref for a CPU tensor (or inside ops.reference_mode()).
-    dlse None means zeros. Any P. Both take do as zero on padded rows."""
+    dlse None means zeros. Any P. All take do as zero on padded rows."""
     if not use_kernel(qs, k, v, seg_q, seg_k, out, lse, do):
-        do = zero_padded_rows(do, seg_q)
-        delta = flash_delta(do, out, dlse, dh)
-        return flash_dq_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal,
-                                   dh, bi_causal_split), delta
-    b, p, _ = qs.shape
-    extra_rows = () if dlse is None else (dlse,)
-    (qs, k, v, do, out), seg_q, seg_k, cos, sin, rows = _check_bwd(
-        "flash_dq_stream", dh, qs, k, v, seg_q, cos, sin, lse, do, extra=(out,),
-        extra_rows=extra_rows, seg_k=seg_k)
-    lse, dlse = rows[0], (rows[1] if dlse is not None else None)
-    dq, delta = torch.empty_like(qs), torch.empty_like(lse)
-    fn = _build.entry("flash_bwd_split", "ggt_flash_dq_stream", _DQ_STREAM_ARGTYPES)
-    err = fn(
-        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
-        _opt_ptr(cos), _opt_ptr(sin), _build.ptr(out), _build.ptr(lse), _build.ptr(do),
-        _opt_ptr(dlse), _build.ptr(delta), _build.ptr(dq), _build.ptr(_tile_scratch(seg_q)),
-        b, p, lse.shape[1], int(causal), int(bi_causal_split), _build.stream_ptr(qs.device),
-    )
+        return _dq_stream_plain(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, dlse, causal, dh,
+                                bi_causal_split)
+    if qs.dtype == torch.float32:
+        return flash_dq_stream_f32(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, dlse, causal,
+                                   dh, bi_causal_split)
+    dq, delta, err = _dq_stream("flash_dq_stream", "flash_bwd_split", "ggt_flash_dq_stream",
+                                torch.bfloat16, qs, k, v, seg_q, seg_k, cos, sin, out, lse, do,
+                                dlse, causal, dh, bi_causal_split)
     flash_dq_stream.launches += 1
     _build.check(err, "flash_dq_stream")
     return dq, delta
@@ -827,33 +891,87 @@ def flash_dq_stream(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, dlse, causal
 flash_dq_stream.launches = 0
 
 
+def flash_dq_stream_f32(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, dlse, causal: bool,
+                        dh: int, bi_causal_split: int = 0):
+    """(dq, delta) of #7's fp32 form (`csrc/flash_bwd_f32.cu`: delta, then
+    the query pass's stream form; counted as one call) for fp32 CUDA
+    tensors, cos and sin kept fp32; the plain route for a CPU tensor (or
+    inside ops.reference_mode()). Any P."""
+    if not use_kernel(qs, k, v, seg_q, seg_k, out, lse, do):
+        return _dq_stream_plain(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, dlse, causal, dh,
+                                bi_causal_split)
+    dq, delta, err = _dq_stream("flash_dq_stream_f32", "flash_bwd_f32", "ggt_flash_dq_stream_f32",
+                                torch.float32, qs, k, v, seg_q, seg_k, cos, sin, out, lse, do,
+                                dlse, causal, dh, bi_causal_split)
+    flash_dq_stream_f32.launches += 1
+    _build.check(err, "flash_dq_stream_f32")
+    return dq, delta
+
+
+flash_dq_stream_f32.launches = 0
+
+
+def _dkv_stream(name, source, symbol, dtype, qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do,
+                causal: bool, dh: int, bi_causal_split: int):
+    """Launch #8's form `symbol` of csrc/<source>.cu, which takes `dtype`:
+    (dk, dv, the entry's error code)."""
+    b, p, _ = qs.shape
+    (qs, k, v, do), seg_q, seg_k, cos, sin, (lse, delta) = _check_bwd(
+        name, dh, qs, k, v, seg_q, cos, sin, lse, do, extra_rows=(delta,), seg_k=seg_k,
+        dtype=dtype)
+    dk, dv = torch.empty_like(qs), torch.empty_like(qs)
+    fn = _build.entry(source, symbol, _DKV_STREAM_ARGTYPES)
+    err = fn(
+        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
+        _opt_ptr(cos), _opt_ptr(sin), _build.ptr(lse), _build.ptr(delta), _build.ptr(do),
+        _build.ptr(dk), _build.ptr(dv), _opt_ptr(_stream_tab(dtype, seg_q)), b, p,
+        lse.shape[1], int(causal), int(bi_causal_split), _build.stream_ptr(qs.device),
+    )
+    return dk, dv, err
+
+
 def flash_dkv_stream(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal: bool,
                      dh: int, bi_causal_split: int = 0):
     """(dk, dv) of the streamed pair's second kernel (#8), reading
     flash_dq_stream's delta: the CUDA kernels (the tile tables, then dk and
-    dv; counted as one call) for a CUDA tensor, the plain version for a CPU
+    dv; counted as one call) for a CUDA tensor, its fp32 form
+    (flash_dkv_stream_f32) for an fp32 one, the plain version for a CPU
     tensor (or inside ops.reference_mode()). Any P."""
     if not use_kernel(qs, k, v, seg_q, seg_k, lse, delta, do):
         return flash_dkv_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal,
                                     dh, bi_causal_split)
-    b, p, _ = qs.shape
-    (qs, k, v, do), seg_q, seg_k, cos, sin, (lse, delta) = _check_bwd(
-        "flash_dkv_stream", dh, qs, k, v, seg_q, cos, sin, lse, do, extra_rows=(delta,),
-        seg_k=seg_k)
-    dk, dv = torch.empty_like(qs), torch.empty_like(qs)
-    fn = _build.entry("flash_bwd_split", "ggt_flash_dkv_stream", _DKV_STREAM_ARGTYPES)
-    err = fn(
-        _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
-        _opt_ptr(cos), _opt_ptr(sin), _build.ptr(lse), _build.ptr(delta), _build.ptr(do),
-        _build.ptr(dk), _build.ptr(dv), _build.ptr(_tile_scratch(seg_q)), b, p, lse.shape[1],
-        int(causal), int(bi_causal_split), _build.stream_ptr(qs.device),
-    )
+    if qs.dtype == torch.float32:
+        return flash_dkv_stream_f32(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal,
+                                    dh, bi_causal_split)
+    dk, dv, err = _dkv_stream("flash_dkv_stream", "flash_bwd_split", "ggt_flash_dkv_stream",
+                              torch.bfloat16, qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do,
+                              causal, dh, bi_causal_split)
     flash_dkv_stream.launches += 1
     _build.check(err, "flash_dkv_stream")
     return dk, dv
 
 
 flash_dkv_stream.launches = 0
+
+
+def flash_dkv_stream_f32(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal: bool,
+                         dh: int, bi_causal_split: int = 0):
+    """(dk, dv) of #8's fp32 form (`csrc/flash_bwd_f32.cu`'s key pass in its
+    stream form, reading flash_dq_stream_f32's delta) for fp32 CUDA tensors,
+    cos and sin kept fp32; the plain version for a CPU tensor (or inside
+    ops.reference_mode()). Any P."""
+    if not use_kernel(qs, k, v, seg_q, seg_k, lse, delta, do):
+        return flash_dkv_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal,
+                                    dh, bi_causal_split)
+    dk, dv, err = _dkv_stream("flash_dkv_stream_f32", "flash_bwd_f32",
+                              "ggt_flash_dkv_stream_f32", torch.float32, qs, k, v, seg_q, seg_k,
+                              cos, sin, lse, delta, do, causal, dh, bi_causal_split)
+    flash_dkv_stream_f32.launches += 1
+    _build.check(err, "flash_dkv_stream_f32")
+    return dk, dv
+
+
+flash_dkv_stream_f32.launches = 0
 
 
 def flash_fwd_band_ref(qs, k, v, seg_q, seg_k, causal: bool, dh: int,

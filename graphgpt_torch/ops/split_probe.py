@@ -8,8 +8,9 @@ flash_bwd_band (`--kernel bwd`, `csrc/flash_bwd.cu`), the gated
 MLPs #11 and #2 (`--kernel mlp`, `--kernel norm_mlp`: `csrc/mlp.cu`,
 `csrc/norm_mlp.cu` with `csrc/mlp_common.cuh`) and the RMSNorm backward #13
 (`--kernel rmsnorm_bwd`, `csrc/rmsnorm_bwd.cu`), and the fp32 forms #2f and
-#11f (`--kernel mlp_f32`, `csrc/norm_mlp_f32.cu`) and #3f, #4f and #5f
-(`--kernel bwd_f32`, `csrc/flash_bwd_f32.cu`), timed on the card whole
+#11f (`--kernel mlp_f32`, `csrc/norm_mlp_f32.cu`), #1f and #6f
+(`--kernel fwd_f32`, `csrc/flash_fwd_f32.cu`) and #3f, #4f, #5f, #7f and
+#8f (`--kernel bwd_f32`, `csrc/flash_bwd_f32.cu`), timed on the card whole
 and with one phase of their body left out at a time, at their paths'
 shapes: the denoise batch (B 256 x P 88, 16 bit slots, a molecule and a
 padded stretch a row), the fine-tune batch (B 256 x P 72, a molecule a
@@ -20,11 +21,13 @@ and B 16 x P 4096); the MLPs at N 8,192 and 65,536 rows (D 768, F 3,072,
 gelu), whole and each stage alone; #13 at N 18,432, 22,528 and 65,536
 (D 768), its row pass and its sum of the per-CTA dw rows alone; the fp32
 MLP forms at N 8,192 (D 768, F 3,072) and N 1,024 (D 128, F 512,
-toy_pretrain's), the fp32 backward at B 8 x P 1024 (12 heads) and B 8 x
-P 128 (2 heads, toy_pretrain's), the fp32 pair also at the denoise batch
-and at B 8 x P 1024 with 16 bit slots (their inputs drawn in fp32 by
-numpy from a fixed seed, so that a digest is the same from machine to
-machine for the same bits).
+toy_pretrain's), the fp32 attention forms at B 8 x P 1024 (12 heads), B 8
+x P 128 (2 heads, toy_pretrain's) and the long-context B 16 x P 4096,
+where every form runs (the single ones too: their C entries take any P),
+the fp32 pair and the fp32 forward also at the denoise batch and at B 8 x
+P 1024 with 16 bit slots (their inputs drawn in fp32 by numpy from a fixed
+seed, so that a digest is the same from machine to machine for the same
+bits).
 
 A variant leaves a phase out by a text substitution in the source and is
 built beside the package's own builds. Its outputs are wrong by design;
@@ -78,7 +81,7 @@ dw, those of "reduce" are stale):
   reduce   the sum of the scratch alone (the row pass left out)
 
     python3 -m graphgpt_torch.ops.split_probe
-        [--kernel split|stream|fwd|bwd|mlp|norm_mlp|rmsnorm_bwd|mlp_f32|bwd_f32]
+        [--kernel split|stream|fwd|bwd|mlp|norm_mlp|rmsnorm_bwd|mlp_f32|fwd_f32|bwd_f32]
         [--source FILE] [--variants base,noexp]
 
 --source probes another body of the file (one unpacked from an earlier
@@ -90,10 +93,12 @@ form): the medians of five CUDA-event readings of 30 launches each, every
 variant of a shape in one turn, then again in the reverse order; the split,
 stream and bwd lines end with a digest of dq, delta, dk and dv, the fwd
 lines with one of out and lse, the rmsnorm_bwd lines with one of dx and dw,
-the fp32 lines with one of their outputs (f32_digest: out; dq, dk, dv of
-#3f; dq and delta of #4f; dk, dv of #5f), so that two bodies that should
-give the same bits (one --source against another) show it. The fp32
-kernels have the base variant only, and the forms their source has.
+the fp32 lines with one of their outputs (f32_digest: out; out and lse
+of #1f and #6f; dq, dk, dv of #3f; dq and delta of #4f and #7f; dk, dv of
+#5f and #8f), so that two bodies that should give the same bits (one
+--source against another, or a stream form against its single form on the
+same ids) show it. The fp32 kernels have the base variant only, and the
+forms their source has.
 """
 
 from __future__ import annotations
@@ -240,21 +245,28 @@ KERNELS = {
         "wnglobal": _MLP_WNGLOBAL}),
     "rmsnorm_bwd": ("rmsnorm_bwd.cu", {"base": [], "main": _RMS_MAIN, "reduce": _RMS_REDUCE}),
     "mlp_f32": ("norm_mlp_f32.cu", {"base": []}),
+    "fwd_f32": ("flash_fwd_f32.cu", {"base": []}),
     "bwd_f32": ("flash_bwd_f32.cu", {"base": []}),
 }
 # the fp32 forms: each C entry, its argument types and the form's name
 F32_ENTRIES = {
     "mlp_f32": {"norm_mlp_f32": ("ggt_norm_mlp_f32", tmlp._F32_ARGTYPES),
                 "mlp_f32": ("ggt_mlp_f32", tmlp._MLP_F32_ARGTYPES)},
+    "fwd_f32": {"flash_fwd_f32": ("ggt_flash_fwd_f32", fa._ARGTYPES),
+                "flash_fwd_stream_f32": ("ggt_flash_fwd_stream_f32", fa._FWD_STREAM_ARGTYPES)},
     "bwd_f32": {"flash_bwd_f32": ("ggt_flash_bwd_f32", fa._BWD_ARGTYPES),
                 "flash_dq_f32": ("ggt_flash_dq_f32", fa._DQ_ARGTYPES),
-                "flash_dkv_f32": ("ggt_flash_dkv_f32", fa._DKV_ARGTYPES)},
+                "flash_dkv_f32": ("ggt_flash_dkv_f32", fa._DKV_ARGTYPES),
+                "flash_dq_stream_f32": ("ggt_flash_dq_stream_f32", fa._DQ_STREAM_ARGTYPES),
+                "flash_dkv_stream_f32": ("ggt_flash_dkv_stream_f32", fa._DKV_STREAM_ARGTYPES)},
 }
 MLP_F32_SHAPES = {"N8192": (8192, 768, 3072), "N1024": (1024, 128, 512)}  # (N, D, F)
-# (B, P, H, bit slots, row layout); #3f takes the shapes without bit slots
+# (B, P, H, bit slots, row layout) of the fp32 attention forms; #3f takes
+# the shapes without bit slots
 BWD_F32_SHAPES = {"B8 P1024": (8, 1024, 12, 0, "packed"), "toy B8 P128": (8, 128, 2, 0, "packed"),
                   "denoise B256 P88": (256, 88, 12, 16, "denoise"),
-                  "B8 P1024 bi16": (8, 1024, 12, 16, "packed")}
+                  "B8 P1024 bi16": (8, 1024, 12, 16, "packed"),
+                  "B16 P4096": (16, 4096, 12, 0, "packed")}
 # the header a kernel's source includes, put in place before the substitutions
 INLINE = {"mlp": "mlp_common.cuh", "norm_mlp": "mlp_common.cuh"}
 VARIANTS = KERNELS["split"][1]
@@ -473,9 +485,20 @@ def probe_f32(kernel: str, libs, dev) -> None:
         return
     for tag, (b, p, h, bi, layout) in BWD_F32_SHAPES.items():
         qs, k, v, do, seg, cos, sin, out, lse = inputs(b, p, h, bi, layout, dev, torch.float32)
+        common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(cos), ptr(sin))
+        # the stream forms on the query ids as key ids, no tile-table scratch
+        stream_common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(seg), ptr(cos), ptr(sin))
+        if kernel == "fwd_f32":
+            o2, l2 = torch.empty_like(out), torch.empty_like(lse)
+            runs = {
+                "flash_fwd_f32": lambda lib: lib.ggt_flash_fwd_f32(
+                    *common, ptr(o2), ptr(l2), b, p, h, 0, bi, stream),
+                "flash_fwd_stream_f32": lambda lib: lib.ggt_flash_fwd_stream_f32(
+                    *stream_common, ptr(o2), ptr(l2), None, b, p, h, 0, bi, stream)}
+            _probe_f32_turns(tag, libs, entries, runs, {form: (o2, l2) for form in runs})
+            continue
         delta = torch.empty_like(lse)
         dq, dk, dv = (torch.empty_like(qs) for _ in range(3))
-        common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(cos), ptr(sin))
         runs = {
             "flash_bwd_f32": lambda lib: lib.ggt_flash_bwd_f32(
                 *common, ptr(out), ptr(lse), ptr(do), None, ptr(delta), ptr(dq), ptr(dk),
@@ -485,13 +508,21 @@ def probe_f32(kernel: str, libs, dev) -> None:
                 stream),
             "flash_dkv_f32": lambda lib: lib.ggt_flash_dkv_f32(
                 *common, ptr(lse), ptr(delta), ptr(do), ptr(dk), ptr(dv), b, p, h, 0, bi,
-                stream)}
+                stream),
+            "flash_dq_stream_f32": lambda lib: lib.ggt_flash_dq_stream_f32(
+                *stream_common, ptr(out), ptr(lse), ptr(do), None, ptr(delta), ptr(dq), None, b,
+                p, h, 0, bi, stream),
+            "flash_dkv_stream_f32": lambda lib: lib.ggt_flash_dkv_stream_f32(
+                *stream_common, ptr(lse), ptr(delta), ptr(do), ptr(dk), ptr(dv), None, b, p, h,
+                0, bi, stream)}
         if bi:
             runs.pop("flash_bwd_f32")  # #3 takes no bit slots
-        # the pair's key pass reads the delta of its query pass, which runs
-        # before it in each turn; the digests read what each form writes
+        # each pair's key pass reads the delta of a query pass, which runs
+        # before it in each turn (both query passes write the same delta);
+        # the digests read what each form writes
         outs = {"flash_bwd_f32": (dq, dk, dv), "flash_dq_f32": (dq, delta),
-                "flash_dkv_f32": (dk, dv)}
+                "flash_dkv_f32": (dk, dv), "flash_dq_stream_f32": (dq, delta),
+                "flash_dkv_stream_f32": (dk, dv)}
         for lib in libs.values():
             if hasattr(lib, "ggt_flash_dq_f32"):
                 _build.check(runs["flash_dq_f32"](lib), "flash_dq_f32")

@@ -1,5 +1,5 @@
-"""How the kernel wrappers hand fp32 tensors to the fp32 forms of #1, #2, #3,
-#4, #5, #11 and #13, on the CPU.
+"""How the kernel wrappers hand fp32 tensors to the fp32 forms of #1-#8, #11
+and #13, on the CPU.
 
 The card is stood in for: `use_kernel` says yes, and `_build.entry`,
 `_build.ptr` and `_build.stream_ptr` record which C entry was asked for and
@@ -9,8 +9,9 @@ one) with fp32 RoPE tables equal to the caller's (a bf16 rounding costs
 ~1e-3, far past the fp32 forms' 2e-5), bf16 to the entry it always took,
 and refuse any other dtype, and a mix, before it launches. The numbers
 themselves are held on the card (`tests/test_torch_gpu.py`, the fp32 tests
-at its end, and `chip_smoke.py`'s phases L and N). Two small fp32 models,
-one with LayerScale and DropPath and a bi-causal denoiser, train a step
+at its end, and `chip_smoke.py`'s phases L, N and O). Small fp32 models,
+one with LayerScale and DropPath, a bi-causal denoiser, and one past 2,048
+positions and under GGT_FLASH_MODE=skip (the streamed route), train a step
 under the stand-in card and ask for the fp32 entries only.
 """
 
@@ -309,3 +310,134 @@ def test_an_fp32_bi_causal_denoiser_asks_for_the_fp32_split_pair(monkeypatch):
     assert all(syms[syms.index("ggt_flash_dq_f32", i) + 1] == "ggt_flash_dkv_f32"
                for i, s in enumerate(syms) if s == "ggt_flash_dq_f32")
     assert "ggt_flash_bwd_f32" not in syms and not set(syms) & _BF16_ENTRIES
+
+
+# the streamed route: above P 2048 (the smallest such P of whole 64-row
+# tiles), or under skip at the toy's P 128
+STREAM_ROUTES = {"p2112": ("legacy", 2112), "skip": ("skip", 128)}
+
+
+def _stream_route(monkeypatch, route):
+    mode, p = STREAM_ROUTES[route]
+    monkeypatch.setattr(tfa, "_MODE", mode)
+    return p
+
+
+_STREAM_COUNTS = ("flash_fwd_stream", "flash_dq_stream", "flash_dkv_stream",
+                  "flash_fwd_stream_f32", "flash_dq_stream_f32", "flash_dkv_stream_f32",
+                  "flash_fwd", "flash_fwd_f32", "flash_bwd", "flash_bwd_f32", "flash_dq_f32",
+                  "flash_dkv_f32")
+
+
+@pytest.mark.parametrize("route", list(STREAM_ROUTES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_the_streamed_route_sends_each_dtype_to_its_entries(monkeypatch, dtype, route):
+    """flash_fwd and flash_bwd above P 2048, or under skip, reach #6, then #7
+    and #8: fp32 the three fp32 stream entries (one launch of each fp32
+    form, none of the bf16 ones or of #1f, #3f-#5f) with the RoPE tables
+    unrounded and no tile-table scratch; bf16 the entries it always took,
+    with their scratch. #8 reads the delta #7 wrote."""
+    card = FakeCard(monkeypatch)
+    p = _stream_route(monkeypatch, route)
+    qs, k, v, do, seg, cos, sin = _flash(dtype, b=1, p=p)
+    before = {n: getattr(tfa, n).launches for n in _STREAM_COUNTS}
+    out, lse = tfa.flash_fwd(qs, k, v, seg, cos, sin, False, 64)
+    dq, dk, dv = tfa.flash_bwd(qs, k, v, seg, cos, sin, out, lse, do, None, False, 64)
+    fp32 = dtype == torch.float32
+    suffix, fwd_src, bwd_src = (("_f32", "flash_fwd_f32", "flash_bwd_f32") if fp32
+                                else ("", "flash_fwd", "flash_bwd_split"))
+    (s_fwd, y_fwd, t_fwd), (s_dq, y_dq, t_dq), (s_dkv, y_dkv, t_dkv) = card.calls
+    assert (s_fwd, y_fwd) == (fwd_src, f"ggt_flash_fwd_stream{suffix}")
+    assert (s_dq, y_dq) == (bwd_src, f"ggt_flash_dq_stream{suffix}")
+    assert (s_dkv, y_dkv) == (bwd_src, f"ggt_flash_dkv_stream{suffix}")
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == dtype
+    got = {n: getattr(tfa, n).launches - before[n] for n in _STREAM_COUNTS}
+    forms = [f"{n}{suffix}" for n in ("flash_fwd_stream", "flash_dq_stream", "flash_dkv_stream")]
+    assert got == {n: int(n in forms) for n in _STREAM_COUNTS}
+    # fwd: q, k, v, seg_q, seg_k, cos, sin, out, lse[, tab]; dq: q, k, v,
+    # seg_q, seg_k, cos, sin, out, lse, do, delta, dq[, tab] (dlse None);
+    # dkv: q, k, v, seg_q, seg_k, cos, sin, lse, delta, do, dk, dv[, tab]
+    assert [len(t_fwd), len(t_dq), len(t_dkv)] == ([9, 12, 12] if fp32 else [10, 13, 13])
+    assert t_dkv[8] is t_dq[10] and t_dkv[8].dtype == torch.float32
+    for t in (t_fwd, t_dq, t_dkv):
+        assert t[5].dtype == t[6].dtype == dtype
+        assert t[3].dtype == t[4].dtype == torch.int32 and torch.equal(t[4], seg.int())
+        if fp32:
+            assert torch.equal(t[5], cos) and torch.equal(t[6], sin)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_the_stream_wrappers_hand_over_the_keys_own_ids(monkeypatch, dtype):
+    """With key ids of another array (a ring chunk's), #6-#8's entries of
+    either dtype get both arrays as given; with one array twice, the same
+    tensor twice."""
+    card = FakeCard(monkeypatch)
+    qs, k, v, do, seg, cos, sin = _flash(dtype, b=1, p=2112)
+    seg_k = seg.roll(1, dims=1).int() * 2
+    lse = torch.zeros(1, 2, 2112)
+    tfa.flash_fwd_stream(qs, k, v, seg, seg_k, cos, sin, False, 64)
+    _, delta = tfa.flash_dq_stream(qs, k, v, seg, seg_k, cos, sin, qs, lse, do, None, False, 64)
+    tfa.flash_dkv_stream(qs, k, v, seg, seg_k, cos, sin, lse, delta, do, False, 64)
+    tfa.flash_fwd_stream(qs, k, v, seg, seg, cos, sin, False, 64)
+    suffix = "_f32" if dtype == torch.float32 else ""
+    assert [sym for _, sym, _ in card.calls] == [
+        f"ggt_flash_{n}_stream{suffix}" for n in ("fwd", "dq", "dkv", "fwd")]
+    for _, _, t in card.calls[:3]:
+        assert torch.equal(t[3], seg) and torch.equal(t[4], seg_k) and t[3] is not t[4]
+    assert card.calls[3][2][3] is card.calls[3][2][4]
+
+
+def test_the_stream_wrappers_refuse_other_dtypes(monkeypatch):
+    """fp16, and fp32 beside bf16 either way, raise in #6-#8 before any
+    launch, at P > 2048 and under skip."""
+    card = FakeCard(monkeypatch)
+    for route in STREAM_ROUTES:
+        p = _stream_route(monkeypatch, route)
+        qs, k, v, do, seg, cos, sin = _flash(torch.float16, b=1, p=p)
+        lse = torch.zeros(1, 2, p)
+        with pytest.raises(NotImplementedError):
+            tfa.flash_fwd(qs, k, v, seg, cos, sin, False, 64)
+        with pytest.raises(NotImplementedError):
+            tfa.flash_bwd(qs, k, v, seg, cos, sin, qs, lse, do, None, False, 64)
+        f, h = qs.float(), qs.bfloat16()
+        with pytest.raises(NotImplementedError):  # fp32 q beside bf16 k and v
+            tfa.flash_fwd_stream(f, h, h, seg, seg, cos, sin, False, 64)
+        with pytest.raises(NotImplementedError):  # bf16 q beside fp32 k and v
+            tfa.flash_fwd_stream(h, f, f, seg, seg, cos, sin, False, 64)
+        with pytest.raises(NotImplementedError):  # an fp32 pair with a bf16 do
+            tfa.flash_dq_stream(f, f, f, seg, seg, cos, sin, f, lse, h, None, False, 64)
+        with pytest.raises(NotImplementedError):
+            tfa.flash_dkv_stream(f, f, h, seg, seg, cos, sin, lse, lse, f, False, 64)
+    assert card.calls == []
+
+
+@pytest.mark.parametrize("route", list(STREAM_ROUTES))
+def test_an_fp32_model_on_the_streamed_route_asks_for_the_fp32_stream_entries(monkeypatch,
+                                                                               route):
+    """A two-layer fp32 model (heads of 64, save_attn, as the long-context
+    config trains) past 2,048 positions, or under skip at P 128: its
+    training forward and backward reach #6f once a layer (save_attn keeps
+    its output for the recompute), #7f then #8f once a layer, #2f and #13f,
+    and no bf16 entry, none of #1f, #3f, #4f or #5f."""
+    from graphgpt_torch.config import ModelConfig
+    from graphgpt_torch.models.heads import GraphGPTPretrain
+    from graphgpt_torch.synthetic import fake_batch, to_torch
+
+    card = FakeCard(monkeypatch)
+    p = _stream_route(monkeypatch, route)
+    cfg = ModelConfig(vocab_size=50, hidden_size=128, num_hidden_layers=2, stacked_feat=3,
+                      next_n_token=3, mask_token_id=1, dtype="float32", remat=True,
+                      remat_policy="save_attn", max_position_embeddings=max(p, 1024)).finalize()
+    model = GraphGPTPretrain(cfg, device="cpu", seed=0)
+    batch = to_torch(fake_batch(1, p, 3, 50, np.random.default_rng(0)), "cpu")
+    out = model(batch, generator=torch.Generator().manual_seed(0), train=True)
+    out["loss"].backward()
+    syms = _symbols(card)
+    for sym in ("ggt_flash_fwd_stream_f32", "ggt_flash_dq_stream_f32",
+                "ggt_flash_dkv_stream_f32"):
+        assert syms.count(sym) == 2, (sym, syms)
+    assert all(syms[syms.index("ggt_flash_dq_stream_f32", i) + 1] == "ggt_flash_dkv_stream_f32"
+               for i, s in enumerate(syms) if s == "ggt_flash_dq_stream_f32")
+    assert {"ggt_norm_mlp_f32", "ggt_rmsnorm_bwd_f32"} <= set(syms)
+    assert set(syms) <= {"ggt_flash_fwd_stream_f32", "ggt_flash_dq_stream_f32",
+                         "ggt_flash_dkv_stream_f32", "ggt_norm_mlp_f32", "ggt_rmsnorm_bwd_f32"}

@@ -9,7 +9,7 @@ out:
 
 Tolerances are in bf16, the kernels' working type: the kernels and the plain
 versions round at the same points but sum in another order. The fp32 forms
-of #1, #2, #3 and #13 (the tests at the end) are held to 2e-5 relative:
+of #1-#8, #11 and #13 (the tests at the end) are held to 2e-5 relative:
 fp32 sums of up to a few thousand terms in another order.
 """
 
@@ -1805,7 +1805,9 @@ def _f32_step_vs_plain(model, batch, call):
     """(launches of each counted wrapper, loss, gradients) of one training
     step on the kernels, and the plain run's (loss, gradients)."""
     names = ("flash_fwd", "flash_bwd", "flash_dq", "flash_dkv", "flash_fwd_f32",
-             "flash_bwd_f32", "flash_dq_f32", "flash_dkv_f32")
+             "flash_bwd_f32", "flash_dq_f32", "flash_dkv_f32", "flash_fwd_stream",
+             "flash_dq_stream", "flash_dkv_stream", "flash_fwd_stream_f32",
+             "flash_dq_stream_f32", "flash_dkv_stream_f32")
     counts = {n: getattr(tfa, n) for n in names}
     counts.update({n: getattr(tmlp, n) for n in ("mlp", "norm_mlp", "rmsnorm_bwd", "mlp_f32",
                                                  "norm_mlp_f32", "rmsnorm_bwd_f32")})
@@ -1880,37 +1882,254 @@ def test_an_fp32_denoiser_trains_on_the_fp32_split_pair(cuda_device):
     _assert_f32_step(run, ref)
 
 
+# (B, P, H, RoPE, key ids, mask) of #6f-#8f's cases: past 4,096 rows with a
+# segment across tiles 63 and 64, the keys' own ids (another array: some
+# query rows see no key, some keys no query), causal, bi-causal with 16 bit
+# slots, P 4096 without RoPE (skip mode's rows)
+_F32_STREAM_CASES = {
+    "P4160": (1, 4160, 2, True, "same", "bidirectional"),
+    "P4160-other-keys": (1, 4160, 2, True, "other", "bidirectional"),
+    "P4160-causal": (1, 4160, 2, True, "same", "causal"),
+    "P2112-bicausal": (1, 2112, 2, True, "same", "bi-causal"),
+    "P4096-no-rope": (2, 4096, 2, False, "other", "bidirectional"),
+}
+_STREAM_MASKS = {"bidirectional": (False, 0), "causal": (True, 0), "bi-causal": (False, 16)}
+
+
+def _f32_stream_inputs(case, dev, seed=7):
+    """(qs, k, v, do, seg_q, seg_k, cos, sin) of a _F32_STREAM_CASES case, in
+    fp32: packed rows, one segment across positions 4032-4111 where P > 4096,
+    the last 40 positions padded; "other" key ids: the query ids shifted one
+    position left, the keys of one segment made padding (its query rows see
+    no key) and those of another given an id no query has (no query sees
+    them)."""
+    b, p, h, rope, keys, _ = _F32_STREAM_CASES[case]
+    dh = 64
+    rng = np.random.default_rng(seed)
+
+    def f32(scale):
+        return torch.from_numpy((rng.normal(size=(b, p, h * dh)) * scale)
+                                .astype(np.float32)).to(dev)
+
+    qs, k, v, do = f32(0.5 * dh**-0.5), f32(0.5), f32(0.5), f32(0.5)
+    seg = packed_segments(b, p, rng)
+    if p > 4096:
+        seg[:, 4032:4112] = seg[:, 4031:4032]
+    seg[:, p - 40:] = 0
+    seg_k = seg
+    if keys == "other":
+        seg_k = np.zeros_like(seg)
+        seg_k[:, :-1] = seg[:, 1:]
+        seg_k[seg_k == 3] = 0
+        seg_k[seg_k == 5] = 10**6
+    cos = sin = None
+    if rope:
+        cos, sin = rope_cos_sin(torch.arange(p, device=dev).expand(b, p), dh)
+    return (qs, k, v, do, torch.from_numpy(seg).to(dev), torch.from_numpy(seg_k).to(dev), cos,
+            sin)
+
+
+_STREAM_COUNTS = ("flash_fwd_stream", "flash_dq_stream", "flash_dkv_stream",
+                  "flash_fwd_stream_f32", "flash_dq_stream_f32", "flash_dkv_stream_f32",
+                  "flash_fwd_f32", "flash_bwd_f32", "flash_dq_f32", "flash_dkv_f32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_F32_STREAM_CASES))
+def test_fp32_stream_kernels_match_plain(cuda_device, case):
+    """#6's, #7's and #8's fp32 forms through flash_fwd_stream,
+    flash_dq_stream (with its delta, a cotangent of lse folded in) and
+    flash_dkv_stream against their plain versions in fp32 (TF32 off): out,
+    lse, dq, delta, dk, dv within F32_REL, the TF32 controls of out, dq,
+    dk, dv past it; padded query rows and rows that see no key give out 0,
+    lse -1e30, dq 0; keys that no query sees (padded, or of an id no query
+    has) dk = dv = 0; one launch of each fp32 stream form and none of the
+    bf16 ones or of #1f, #3f-#5f; a relaunch gives the same bits."""
+    dev = cuda_device
+    causal, bi = _STREAM_MASKS[_F32_STREAM_CASES[case][5]]
+    qs, k, v, do, seg, seg_k, cos, sin = _f32_stream_inputs(case, dev)
+    b, p, hd = qs.shape
+    valid = seg > 0
+    dlse = torch.from_numpy(np.random.default_rng(3).normal(size=(b, hd // 64, p))
+                            .astype(np.float32)).to(dev) * 0.1 * valid[:, None, :]
+    fwd_args = (qs, k, v, seg, seg_k, cos, sin, causal, 64, bi)
+    counts = [getattr(tfa, n) for n in _STREAM_COUNTS]
+    before = [c.launches for c in counts]
+    out, lse = tfa.flash_fwd_stream(*fwd_args)
+    dq_args = (qs, k, v, seg, seg_k, cos, sin, out, lse, do, dlse, causal, 64, bi)
+    dq, delta = tfa.flash_dq_stream(*dq_args)
+    dkv_args = (qs, k, v, seg, seg_k, cos, sin, lse, delta, do, causal, 64, bi)
+    dk, dv = tfa.flash_dkv_stream(*dkv_args)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counts, before)] == [0, 0, 0, 1, 1, 1, 0, 0, 0, 0]
+    with ops.reference_mode():
+        rout, rlse = tfa.flash_fwd_stream(*fwd_args)
+        rdq, rdelta = tfa.flash_dq_stream(*dq_args)
+        rdk, rdv = tfa.flash_dkv_stream(*dkv_args)
+        with _tf32():
+            tout = tfa.flash_fwd_stream(*fwd_args)[0]
+            tdq = tfa.flash_dq_stream(*dq_args)[0]
+            tdk, tdv = tfa.flash_dkv_stream(*dkv_args)
+    seen_q = torch.stack([torch.isin(a, c[c > 0]) for a, c in zip(seg, seg_k)]) & valid
+    seen_k = torch.stack([torch.isin(c, a[a > 0]) for a, c in zip(seg, seg_k)]) & (seg_k > 0)
+    assert bool(seen_q.any()) and bool(seen_k.any())
+    if _F32_STREAM_CASES[case][4] == "other":
+        assert bool((valid & ~seen_q).any()) and bool(((seg_k > 0) & ~seen_k).any())
+    lse_rows = lse.transpose(1, 2)
+    assert _rel(lse_rows[seen_q], rlse.transpose(1, 2)[seen_q]) < F32_REL
+    assert bool((lse_rows[~seen_q] == -1e30).all()) and bool((out[~seen_q] == 0).all())
+    assert _rel(delta, rdelta) < F32_REL
+    for name, g, r, t in zip(("out", "dq", "dk", "dv"), (out, dq, dk, dv), (rout, rdq, rdk, rdv),
+                             (tout, tdq, tdk, tdv)):
+        assert g.dtype == torch.float32 and _rel(g, r) < F32_REL, name
+        assert _rel(t, r) > F32_REL, name
+    assert bool((dq[~seen_q] == 0).all())
+    assert bool((dk[~seen_k] == 0).all()) and bool((dv[~seen_k] == 0).all())
+    again = (*tfa.flash_fwd_stream(*fwd_args), *tfa.flash_dq_stream(*dq_args),
+             *tfa.flash_dkv_stream(*dkv_args))
+    assert all(torch.equal(a, g) for a, g in zip(again, (out, lse, dq, delta, dk, dv)))
+
+
+@pytest.mark.gpu
+def test_fp32_stream_pair_ignores_non_finite_do_in_padded_rows(cuda_device):
+    """inf and NaN in do's padded rows change no bit of #7f's dq and delta or
+    #8f's dk and dv."""
+    dev = cuda_device
+    qs, k, v, do, seg, seg_k, cos, sin = _f32_stream_inputs("P4160", dev, seed=13)
+    out, lse = tfa.flash_fwd_stream(qs, k, v, seg, seg_k, cos, sin, False, 64)
+    pad = (seg == 0)[..., None]
+    clean = torch.where(pad, torch.zeros_like(do), do)
+    noisy = clean.clone()
+    noisy[pad.expand_as(noisy)] = float("nan")
+    noisy[0, -8:] = float("inf")
+    runs = []
+    for d in (clean, noisy):
+        dq, delta = tfa.flash_dq_stream(qs, k, v, seg, seg_k, cos, sin, out, lse, d, None, False,
+                                        64)
+        runs.append((dq, delta, *tfa.flash_dkv_stream(qs, k, v, seg, seg_k, cos, sin, lse, delta,
+                                                      d, False, 64)))
+    torch.cuda.synchronize()
+    for a, n in zip(*runs):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, n)
+
+
+@pytest.mark.gpu
+def test_the_fp32_stream_form_on_one_id_array_gives_the_single_forms_bits(cuda_device):
+    """#6f with the query ids as key ids and #1f's entry on the same rows:
+    one body, the same bits (the dispatch never hands #1f a row past 2048)."""
+    from graphgpt_torch.ops import _build
+
+    dev = cuda_device
+    qs, k, v, _, seg, _, cos, sin = _f32_stream_inputs("P4160", dev)
+    out, lse = tfa.flash_fwd_stream(qs, k, v, seg, seg, cos, sin, False, 64)
+    b, p, hd = qs.shape
+    out1, lse1 = torch.empty_like(out), torch.empty_like(lse)
+    seg32 = seg.to(torch.int32).contiguous()
+    fn = _build.entry("flash_fwd_f32", "ggt_flash_fwd_f32", tfa._ARGTYPES)
+    _build.check(fn(_build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg32),
+                    _build.ptr(cos), _build.ptr(sin), _build.ptr(out1), _build.ptr(lse1), b, p,
+                    hd // 64, 0, 0, _build.stream_ptr(dev)), "ggt_flash_fwd_f32")
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out) and torch.equal(lse1, lse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,p", [("legacy", 2112), ("skip", 128)])
+def test_an_fp32_model_trains_on_the_fp32_stream_kernels(cuda_device, mode, p, monkeypatch):
+    """A two-layer fp32 model (heads of 64, save_attn) past 2,048 positions,
+    or under skip at P 128: a training step launches #6f, #7f, #8f and #2f
+    once a layer and #13f once a layer and for the final norm, nothing
+    else; its loss and every gradient within 1e-5 and 1e-4 of the plain
+    fp32 run."""
+    dev = cuda_device
+    monkeypatch.setattr(tfa, "_MODE", mode)
+    cfg = _tiny_cfg(num_attention_heads=2, num_key_value_heads=2, intermediate_size=512,
+                    dtype="float32", remat=True, remat_policy="save_attn",
+                    max_position_embeddings=max(p, 1024))
+    model = GraphGPTPretrain(cfg, device=dev, seed=0)
+    batch = to_torch(fake_batch(2, p, 3, 50, np.random.default_rng(4)), dev)
+    got, run, ref = _f32_step_vs_plain(model, batch, dict)
+    assert got == {"flash_fwd_stream_f32": 2, "flash_dq_stream_f32": 2,
+                   "flash_dkv_stream_f32": 2, "norm_mlp_f32": 2, "rmsnorm_bwd_f32": 3}
+    _assert_f32_step(run, ref)
+
+
 # #2f's and #3f's digests (split_probe's f32_digest) from the bodies before
-# #11f and the split pair joined their sources: `split_probe --kernel
-# mlp_f32` and `--kernel bwd_f32` with --source on that commit's csrc/, on
-# an NVIDIA H100 80GB HBM3, at split_probe's inputs (f32_mlp_inputs, gelu;
-# inputs in fp32 on packed rows, no lse cotangent). The templated
-# norm_mlp_f32.cu and the shared passes of flash_bwd_f32.cu keep them.
+# #11f and the split pair joined their sources, and #1f's, #4f's and #5f's
+# from the bodies before the stream forms joined theirs: `split_probe
+# --kernel mlp_f32`, `--kernel fwd_f32` and `--kernel bwd_f32` with --source
+# on those commits' csrc/, on an NVIDIA H100 80GB HBM3, at split_probe's
+# inputs (f32_mlp_inputs, gelu; inputs in fp32 on packed rows, no lse
+# cotangent). The templated norm_mlp_f32.cu and flash_fwd_f32.cu and the
+# shared passes of flash_bwd_f32.cu keep them.
 _F32_PARENT_DIGESTS = {
     ("norm_mlp_f32", "N8192"): -98387183775274,
     ("norm_mlp_f32", "N1024"): -2074798766708,
     ("flash_bwd_f32", "B8 P1024"): -916961056836012,
     ("flash_bwd_f32", "toy B8 P128"): -17989573487664,
+    ("flash_fwd_f32", "B8 P1024"): -165906643651216,
+    ("flash_fwd_f32", "denoise B256 P88"): -328070100018431,
+    ("flash_dq_f32", "denoise B256 P88"): -2136141100098453,
+    ("flash_dkv_f32", "denoise B256 P88"): -2976345741893214,
+    ("flash_dq_f32", "B8 P1024 bi16"): -249146506611422,
+    ("flash_dkv_f32", "B8 P1024 bi16"): -672921714631544,
 }
+# #6f's, #7f's and #8f's digests at the long-context shape as their first
+# build gave them (split_probe --kernel fwd_f32 / bwd_f32, the same card):
+# equal to #1f's, #4f's and #5f's there, one id array being both ids
+_F32_STREAM_DIGESTS = {
+    "flash_fwd_stream_f32": -1508182275918902,
+    "flash_dq_stream_f32": -2002090571179038,
+    "flash_dkv_stream_f32": -5674428343003133,
+}
+
+
+def _f32_attention_digest(form, shape, dev):
+    """The digest of `form` (#1f, #3f, #4f, #5f or a stream form) through
+    its wrapper at split_probe's fp32 inputs of `shape`."""
+    from graphgpt_torch.ops import split_probe as sp
+
+    b, p, h, bi, layout = sp.BWD_F32_SHAPES[shape]
+    qs, k, v, do, seg, cos, sin, out, lse = sp.inputs(b, p, h, bi, layout, dev, torch.float32)
+    stream = form.endswith("_stream_f32")
+    if form in ("flash_fwd_f32", "flash_fwd_stream_f32"):
+        outs = (tfa.flash_fwd_stream(qs, k, v, seg, seg, cos, sin, False, 64, bi) if stream
+                else tfa.flash_fwd(qs, k, v, seg, cos, sin, False, 64, bi))
+    elif form == "flash_bwd_f32":
+        outs = tfa.flash_bwd(qs, k, v, seg, cos, sin, out, lse, do, None, False, 64)
+    else:
+        pair = ((tfa.flash_dq_stream, tfa.flash_dkv_stream) if stream
+                else (tfa.flash_dq, tfa.flash_dkv))
+        ids = (seg, seg) if stream else (seg,)
+        dq, delta = pair[0](qs, k, v, *ids, cos, sin, out, lse, do, None, False, 64, bi)
+        outs = ((dq, delta) if form.startswith("flash_dq")
+                else pair[1](qs, k, v, *ids, cos, sin, lse, delta, do, False, 64, bi))
+    torch.cuda.synchronize()
+    return sp.f32_digest(*outs)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("form,shape", list(_F32_PARENT_DIGESTS))
 def test_fp32_forms_keep_the_bits_of_their_bodies_before_the_new_forms(cuda_device, form,
                                                                         shape):
-    """#2f through norm_mlp and #3f through flash_bwd on fp32 tensors give
-    the bits their bodies gave before #11f and #4f / #5f were added beside
-    them."""
+    """#2f through norm_mlp, #1f, #3f and the pair #4f / #5f through their
+    wrappers on fp32 tensors give the bits their bodies gave before #11f,
+    #4f / #5f and the stream forms #6f-#8f were added beside them."""
     from graphgpt_torch.ops import split_probe as sp
 
     dev = cuda_device
     if form == "norm_mlp_f32":
         x, wn, wg, wu, wd = sp.f32_mlp_inputs(*sp.MLP_F32_SHAPES[shape], dev)
-        outs = (tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, "gelu"),)
+        digest = sp.f32_digest(tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, "gelu"))
+        torch.cuda.synchronize()
     else:
-        b, p, h, bi, layout = sp.BWD_F32_SHAPES[shape]
-        qs, k, v, do, seg, cos, sin, out, lse = sp.inputs(b, p, h, bi, layout, dev,
-                                                          torch.float32)
-        outs = tfa.flash_bwd(qs, k, v, seg, cos, sin, out, lse, do, None, False, 64)
-    torch.cuda.synchronize()
-    assert sp.f32_digest(*outs) == _F32_PARENT_DIGESTS[form, shape]
+        digest = _f32_attention_digest(form, shape, dev)
+    assert digest == _F32_PARENT_DIGESTS[form, shape]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", list(_F32_STREAM_DIGESTS))
+def test_fp32_stream_forms_keep_their_bits(cuda_device, form):
+    """#6f, #7f and #8f through flash_fwd_stream, flash_dq_stream and
+    flash_dkv_stream at B 16 x P 4096 give the bits of their first build."""
+    assert _f32_attention_digest(form, "B16 P4096", cuda_device) == _F32_STREAM_DIGESTS[form]

@@ -1,7 +1,7 @@
 """Where one training step of the PyTorch port goes, on one CUDA card.
 
     python3 tools/torch_profile_train.py [--layers 12] [--batch 64] [--steps 3]
-        [--seq 4096]
+        [--seq 4096] [--dtype float32]
 
 Builds GraphGPT-base (seeded random weights, `flagship_config`) and runs a
 few SMTP training steps on one packed batch as `chip_smoke.py`'s train
@@ -10,7 +10,8 @@ phase does (B 64 x P 1024); or, with `--seq P`, the long-context step as
 through `PretrainPipeline` on synthetic_mol at max_length P without
 block-aligned packing, batch `--batch` (`--seq 4096 --batch 16`: 65,536
 tokens a step, through the streamed kernels #6-#8), its first batch and
-its own train step. Prints
+its own train step. `--dtype float32` trains either at model.dtype=float32
+(the kernels' fp32 forms; default bfloat16, as shipped). Prints
 - the step split by CUDA events into forward, backward (with the gradient
   norm) and optimizer + EMA, recorded inside `make_train_step`'s own step
   through forward hooks and a wrapped `tx.update`, and the whole call
@@ -43,6 +44,8 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seq", type=int, default=0,
                     help="the long-context pipeline's step at this max_length")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
+                    help="the model's compute dtype")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_train: needs a CUDA card")
@@ -67,6 +70,7 @@ def training(args, dev):
     from graphgpt_torch.training.steps import init_train_state, make_train_step
 
     cfg = flagship_config(layers=args.layers)
+    cfg.dtype = args.dtype
     model = GraphGPTPretrain(cfg, device=dev, seed=0)
     nb = synthetic.fake_batch(args.batch, cfg.max_position_embeddings, cfg.stacked_feat,
                               cfg.vocab_size, np.random.default_rng(5))
@@ -88,7 +92,7 @@ def long_context(args, dev, out_dir):
         "tokenization.dataset=synthetic_mol", f"model.max_position_embeddings={args.seq}",
         f"training.max_length={args.seq}", "training.pack_block=0",
         f"training.batch_size={args.batch}", f"model.num_hidden_layers={args.layers}",
-        f"training.output_dir={out_dir}"])
+        f"model.dtype={args.dtype}", f"training.output_dir={out_dir}"])
     pipe = PretrainPipeline(cfg, device=dev).setup()
     seed = cfg.training.seed
     idx0 = np.random.default_rng((seed, 0)).permutation(pipe.train_idx)
@@ -135,7 +139,8 @@ def profile_steps(args, dev, model, tx, state, step, batch, p) -> None:
         h.remove()
     tx.update = update
     fwd, bwd, opt, whole = np.median(np.array(parts), axis=0)
-    print(f"step parts, B={args.batch} P={p} layers={args.layers} (median of 5 steps of "
+    print(f"step parts, B={args.batch} P={p} layers={args.layers} {args.dtype} (median of 5 "
+          f"steps of "
           f"make_train_step): forward {fwd:.2f} ms, backward + gradient norm {bwd:.2f} ms, "
           f"optimizer+EMA {opt:.2f} ms, sum {fwd + bwd + opt:.2f} ms; the whole call "
           f"{whole:.2f} ms", flush=True)
