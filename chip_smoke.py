@@ -301,11 +301,43 @@
    PretrainPipeline under both knobs (run A's config and schedule, four
    steps and their save point): the first step on 4 rows against an fp32
    run, launch counts, losses against run A's, log.csv, result.csv.
+11b. Phase P, float32 under the knobs: the fp32 forms of #9, #10 and #12
+   (flash_fwd_f32.cu's and flash_bwd_f32.cu's band forms, which walk only
+   the tiles of the band tables that tile_table.cuh's pre-pass writes;
+   norm_mlp_f32.cu's qkv kernel), to which flash_fwd_band, flash_bwd_band
+   and norm_qkv hand fp32 tensors. (a) #9f and #10f (with its delta) at
+   GraphGPT-base's B 8 x P 1024 (bidirectional, causal, and with another
+   packed row's ids as key ids), at the denoise batch's 256 x 88
+   (bi-causal, 16 bit slots) and on the long-context batch's ids (16 x
+   4096) on 2 rows and on the whole launch (the plain versions a row at a
+   time), each by phase L's check (f32_check: within F32_REL of the plain
+   version, the TF32 control past it, a relaunch bit for bit, padded rows,
+   query rows that see no key and keys that no query sees exactly 0), both
+   band tables equal to band_limits, inf and NaN in do's padded rows
+   changing no output bit, and bit for bit the other fp32 forms on the same
+   rows (#6f, #7f + #8f; on one id array #1f and #3f, or #4f and #5f with
+   a split); timed at 8 x 1024 and 16 x 4096 beside the bound, the FFMA
+   bound, the plain version, SDPA in fp32 with the band's boolean mask and
+   the other fp32 forms at the same shape. #12f at N 8,192 (D 768, widths
+   3 x 768; timed beside F.rms_norm + one fp32 matmul), N 65,537, GQA
+   768/256/256 and toy_pretrain's D 128, each also with its rrms pre-pass
+   within RRMS_REL. (b) GraphGPT-base at model.dtype=float32 under both
+   knobs at B 8 x P 1024: the first step against the plain fp32 run
+   (F32_LOSS_REL, F32_GRAD_REL) and against the fp32 legacy route (#1f,
+   #3f, the pre-norm and three fp32 products: one function by two
+   routes, the same limits), 4 counted steps (12 #9f, 12 #10f, 24 #12f, 12
+   #2f, 13 #13f a step, no other kernel), the losses falling, an EMA eval
+   forward (12 #9f, 12 #12f, 12 #2f). (c) configs/toy_pretrain.yaml as
+   shipped under both knobs through PretrainPipeline, as phase O(b) runs it
+   under skip: its first step against the plain fp32 run, its 50 steps on
+   #9f, #10f, #12f, #2f and #13f, the logged losses falling and each
+   within TOY_LOSS_REL of phase L(a)'s, the save point's valid loss and
+   generation.
 12. Prints one JSON line listing every kernel, then the device line last.
 
 Any failed check raises, so the script exits non-zero. The launch counts
 are set to 0 just before each main path (eval + generation; training;
-fine-tuning; graph-level fine-tuning; phases A-O; denoising;
+fine-tuning; graph-level fine-tuning; phases A-P; denoising;
 position pretraining; long-context pretraining;
 training and long-context pretraining under both knobs) and read just
 after it; launches made to compare a kernel with its plain
@@ -5143,16 +5175,30 @@ def step_vs_fp32(model, batch, ops, tag, call=dict, hold: bool = True):
 _BAND_WORK = {"fwd": (2, 4, 1), "bwd": (5, 8, 2)}
 
 
-def band_work(fa, seg, seg_k, causal: bool, h: int, dh: int, kind: str, bi: int = 0):
+def band_work(fa, seg, seg_k, causal: bool, h: int, dh: int, kind: str, bi: int = 0,
+              elem: int = 2):
     """(bytes, operations) of flash_fwd_band ("fwd": q, k, v read, out
     written, lse) or flash_bwd_band ("bwd": q, k, v, do, out read, dq, dk,
     dv written, lse read, delta written; the products S, dP, dv, dq, dk),
-    with both id arrays, over the pairs this mask lets through."""
+    with both id arrays, over the pairs this mask lets through; `elem`
+    bytes a token-major element (2 in bf16, 4 in fp32)."""
     b, p = seg.shape
     products, tensors, rows = _BAND_WORK[kind]
     pairs = int(fa._valid_mask(seg, causal, bi, seg_k).sum().item())
-    nbytes = tensors * b * p * h * dh * 2 + 2 * b * p * 4 + rows * b * h * p * 4
+    nbytes = tensors * b * p * h * dh * elem + 2 * b * p * 4 + rows * b * h * p * 4
     return nbytes, 2.0 * products * dh * h * pairs
+
+
+def seen_under_mask(fa, seg_q, seg_k, causal: bool, bi: int):
+    """(query rows that see a key, keys that a query sees), bool [B, P],
+    under the mask's rule (causal, bi-causal or bidirectional), a row at a
+    time."""
+    seen_q, seen_k = [], []
+    for r in range(seg_q.shape[0]):
+        m = fa._valid_mask(seg_q[r : r + 1], causal, bi, seg_k[r : r + 1])[0, 0]
+        seen_q.append(m.any(dim=1))
+        seen_k.append(m.any(dim=0))
+    return torch.stack(seen_q), torch.stack(seen_k)
 
 
 def band_non_finite_check(fa, qs, k, v, seg, seg_k, out, lse, do, causal, dh, bi, shape):
@@ -5208,13 +5254,7 @@ def band_at_shape(fa, ops, tag, seg, seg_k, h: int, dh: int, causal: bool = Fals
     del again, again_bwd, agux
     table_ok = (torch.equal(aux["table"], fa.band_limits(seg, seg_k))
                 and torch.equal(bux["table_k"], fa.band_limits(seg_k, seg)))
-    # the query rows that see a key and the keys that a query sees, a row at a time
-    seen_q, seen_k = [], []
-    for r in range(b):
-        m = fa._valid_mask(seg[r : r + 1], causal, bi, seg_k[r : r + 1])[0, 0]
-        seen_q.append(m.any(dim=1))
-        seen_k.append(m.any(dim=0))
-    seen_q, seen_k = torch.stack(seen_q), torch.stack(seen_k)
+    seen_q, seen_k = seen_under_mask(fa, seg, seg_k, causal, bi)
     valid = seg > 0
     pad_ok = (bool((out[~seen_q] == 0).all())
               and bool((lse.transpose(1, 2)[~seen_q] == -1e30).all())
@@ -5679,6 +5719,402 @@ def band_long_phase(dev, counters, rows4, run_a_losses, ops, data_dir):
                           peak_mib=peak)
 
 
+# ---- phase P: float32 under the knobs, the fp32 forms of #9, #10, #12
+
+P_STEPS = 4  # counted steps of phase P(b)
+P_BAND = {"fwd": "flash_fwd_band_f32", "bwd": "flash_bwd_band_f32"}
+# phase P(c)'s logged losses against phase L(a)'s: the same run on other
+# kernels (band and norm-fused against single-block and pre-norm), fp32
+# sums in another order through 50 AdamW steps
+TOY_LOSS_REL = 1e-3
+
+
+def band32_want(m, counters):
+    """The launches of an fp32 training step and eval forward under both
+    knobs: #9f once a layer (remat off, or save_attn keeping its output),
+    #10f once a layer, #12f once a layer and again in save_attn's
+    recompute, #2f once a layer, #13f once a layer (#12's adjoint) and for
+    the final norm; an eval forward #9f, #12f and #2f once a layer."""
+    if m.remat and m.remat_policy != "save_attn" or m.dtype != "float32":
+        fail(f"band32_want predicts fp32 without remat or with save_attn: {m}")
+    L, zero = m.num_hidden_layers, {k: 0 for k in counters}
+    return ({**zero, "flash_fwd_band_f32": L, "flash_bwd_band_f32": L,
+             "norm_qkv_f32": 2 * L if m.remat else L, "norm_mlp_f32": L,
+             "rmsnorm_bwd_f32": L + 1},
+            {**zero, "flash_fwd_band_f32": L, "norm_qkv_f32": L, "norm_mlp_f32": L})
+
+
+def f32_band_check(fa, ops, tag, qs, k, v, seg_q, seg_k, do, causal: bool, bi: int,
+                   row_at_a_time: bool):
+    """#9f and #10f (through flash_fwd_band and flash_bwd_band on fp32
+    tensors) on these rows against their plain versions in fp32 and with
+    TF32 (f32_check; the plain versions a row at a time where
+    `row_at_a_time`, else 8 rows at a time): out and lse on the query rows
+    that see a key, dq and delta, dk and dv; both band tables equal to
+    band_limits; padded query rows and rows that see no key exactly 0 (lse
+    -1e30), keys that no query sees exactly 0; a relaunch bit for bit; inf
+    and NaN in do's padded rows changing no output bit of #10f; then the
+    other fp32 forms on the same rows bit for bit: #6f, #7f, #8f, and on one
+    id array #1f and #3f (#4f, #5f with a split). Returns {"fwd": (largest
+    elementwise error, relative error, TF32 control), "bwd": ...}."""
+    dh = 64
+    fwd = (qs, k, v, seg_q, seg_k, causal, dh, bi)
+    faux, baux = {}, {}
+    out, lse = fa.flash_fwd_band(*fwd, aux=faux)
+    bwd = (qs, k, v, seg_q, seg_k, out, lse, do, None, causal, dh, bi)
+    dq, dk, dv = fa.flash_bwd_band(*bwd, aux=baux)
+    delta = baux["delta"]
+    again_aux = {}
+    again = (*fa.flash_fwd_band(*fwd), *fa.flash_bwd_band(*bwd, aux=again_aux),
+             again_aux["delta"])
+    pad = seg_q == 0
+    noisy = do.clone()
+    noisy[pad] = float("nan")
+    noisy[-1][pad[-1]] = float("inf")
+    naux = {}
+    loud = (*fa.flash_bwd_band(qs, k, v, seg_q, seg_k, out, lse, noisy, None, causal, dh, bi,
+                               aux=naux), naux["delta"])
+    torch.cuda.synchronize()
+    bits_f = torch.equal(again[0], out) and torch.equal(again[1], lse)
+    bits_b = all(torch.equal(a, b) for a, b in zip(again[2:], (dq, dk, dv, delta)))
+    quiet = all(torch.equal(a, b) for a, b in zip(loud, (dq, dk, dv, delta)))
+    tables = (torch.equal(faux["table"], fa.band_limits(seg_q, seg_k))
+              and torch.equal(baux["table_k"], fa.band_limits(seg_k, seg_q)))
+    del again, noisy, loud
+
+    def plain(tf32: bool):
+        parts = []
+        n, step = seg_q.shape[0], 1 if row_at_a_time else 8
+        with ops.reference_mode(), (tf32_allowed() if tf32 else contextlib.nullcontext()):
+            for r in range(0, n, step):
+                sl = slice(r, r + step)
+                a = [t[sl] for t in (qs, k, v, seg_q, seg_k)]
+                ro, rl = fa.flash_fwd_band(*a, causal, dh, bi)
+                rx = {}
+                rq, rk, rv = fa.flash_bwd_band(*a, out[sl], lse[sl], do[sl], None, causal, dh,
+                                               bi, aux=rx)
+                parts.append((ro, rl, rq, rk, rv, rx["delta"]))
+        return [torch.cat(t) for t in zip(*parts)]
+
+    rout, rlse, rdq, rdk, rdv, rdelta = plain(False)
+    tout, _, tdq, tdk, tdv, _ = plain(True)
+    seen_q, seen_k = seen_under_mask(fa, seg_q, seg_k, causal, bi)
+    valid = seg_q > 0
+    b, p = seg_q.shape
+    where = (f"{tag}, B={b} P={p}" + (f" split {p - bi}" if bi else "")
+             + (" causal" if causal else "") + f", {int((valid & ~seen_q).sum())} query rows "
+             f"see no key, {int((~seen_k).sum())} keys no query")
+
+    def rows(x, sel):
+        return x.transpose(1, 2)[sel]
+
+    pad_f = bool((out[~seen_q] == 0).all()) and bool((rows(lse, ~seen_q) == -1e30).all())
+    res = {"fwd": f32_check("flash_fwd_band_f32", where,
+                            {"out": out[seen_q], "lse": rows(lse, seen_q)},
+                            {"out": rout[seen_q], "lse": rows(rlse, seen_q)},
+                            {"out": tout[seen_q]}, bits_f, pad_f)}
+    pad_b = (bool((dq[~seen_q] == 0).all()) and bool((rows(delta, ~valid) == 0).all())
+             and bool((dk[~seen_k] == 0).all()) and bool((dv[~seen_k] == 0).all()))
+    res["bwd"] = f32_check("flash_bwd_band_f32", where,
+                           {"dq": dq[seen_q], "delta": rows(delta, valid), "dk": dk, "dv": dv},
+                           {"dq": rdq[seen_q], "delta": rows(rdelta, valid), "dk": rdk,
+                            "dv": rdv}, {"dq": tdq[seen_q], "dk": tdk, "dv": tdv}, bits_b, pad_b)
+    del rout, rlse, rdq, rdk, rdv, rdelta, tout, tdq, tdk, tdv
+    # the other forms on the same rows: one body, the tiles outside the band
+    # adding nothing (torch.equal: a zero's sign aside)
+    s_out, s_lse = fa.flash_fwd_stream(qs, k, v, seg_q, seg_k, None, None, causal, dh, bi)
+    s_dq, s_delta = fa.flash_dq_stream(qs, k, v, seg_q, seg_k, None, None, out, lse, do, None,
+                                       causal, dh, bi)
+    s_dk, s_dv = fa.flash_dkv_stream(qs, k, v, seg_q, seg_k, None, None, lse, s_delta, do, causal,
+                                     dh, bi)
+    same = [torch.equal(s_out, out) and torch.equal(s_lse, lse),
+            all(torch.equal(a, b) for a, b in zip((s_dq, s_delta, s_dk, s_dv),
+                                                  (dq, delta, dk, dv)))]
+    single = "one id array: no single form"
+    if seg_k is seg_q:
+        one = fa.flash_fwd_f32(qs, k, v, seg_q, None, None, causal, dh, bi)
+        if bi:
+            o_dq, o_delta = fa.flash_dq_f32(qs, k, v, seg_q, None, None, out, lse, do, None,
+                                            causal, dh, bi)
+            o_grads = (o_dq, o_delta, *fa.flash_dkv_f32(qs, k, v, seg_q, None, None, lse, o_delta,
+                                                        do, causal, dh, bi))
+            mine, names = (dq, delta, dk, dv), "#4f, #5f"
+        else:
+            o_grads = fa.flash_bwd_f32(qs, k, v, seg_q, None, None, out, lse, do, None, causal,
+                                       dh)
+            mine, names = (dq, dk, dv), "#3f"
+        same += [torch.equal(one[0], out) and torch.equal(one[1], lse),
+                 all(torch.equal(a, b) for a, b in zip(o_grads, mine))]
+        single = f"#1f {same[2]}, {names} {same[3]}"
+    torch.cuda.synchronize()
+    print(f"flash_fwd_band_f32/flash_bwd_band_f32[{where}]: band tables == band_limits {tables}; "
+          f"inf and NaN in do's {int(pad.sum())} padded rows change no output bit {quiet}; bit "
+          f"for bit the other forms on the same rows: #6f {same[0]}, #7f + #8f {same[1]}, "
+          f"{single}", flush=True)
+    if not (tables and quiet and all(same)):
+        fail(f"#9f/#10f[{where}]: a band table, the non-finite check or the other forms' bits "
+             f"disagree")
+    return res
+
+
+def f32_band_times(fa, ops, tag, qs, k, v, seg, do, causal: bool = False):
+    """#9f and #10f at seg's shape (one id array), timed (CUDA events,
+    median of three) beside their bounds (fp32 bytes; operations at
+    PEAK_F32_ACCURATE_FLOPS, FFMA's beside), the plain versions (once),
+    SDPA in fp32 with the band's boolean mask (forward; its backward for
+    #10f) and the other fp32 forms at the same shape (#1f and #3f up to P
+    2048, #6f and #7f + #8f above)."""
+    b, p = seg.shape
+    h, dh = qs.shape[2] // 64, 64
+    fwd = (qs, k, v, seg, seg, causal, dh)
+    out, lse = fa.flash_fwd_band(*fwd)
+    bwd = (qs, k, v, seg, seg, out, lse, do, None, causal, dh)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = fa._valid_mask(seg, causal, 0, seg)
+    leaves = [t.view(b, p, h, dh).transpose(1, 2).detach().requires_grad_() for t in (qs, k, v)]
+    lib_fwd = cuda_ms(lambda: sdpa(*leaves, attn_mask=mask, scale=1.0), iters=3)
+    sd = sdpa(*leaves, attn_mask=mask, scale=1.0)
+    do4 = do.view(b, p, h, dh).transpose(1, 2)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(sd, leaves, do4, retain_graph=True), iters=3)
+    del sd, leaves, mask
+    if p <= fa.MAX_P:
+        other = {"fwd": ("#1f", lambda: fa.flash_fwd_f32(qs, k, v, seg, None, None, causal, dh)),
+                 "bwd": ("#3f", lambda: fa.flash_bwd_f32(qs, k, v, seg, None, None, out, lse, do,
+                                                         None, causal, dh))}
+    else:
+        def pair():
+            _, dl = fa.flash_dq_stream(qs, k, v, seg, seg, None, None, out, lse, do, None,
+                                       causal, dh)
+            fa.flash_dkv_stream(qs, k, v, seg, seg, None, None, lse, dl, do, causal, dh)
+
+        other = {"fwd": ("#6f", lambda: fa.flash_fwd_stream(qs, k, v, seg, seg, None, None,
+                                                            causal, dh)),
+                 "bwd": ("#7f + #8f", pair)}
+    res = {}
+    for kind, fn in (("fwd", lambda: fa.flash_fwd_band(*fwd)),
+                     ("bwd", lambda: fa.flash_bwd_band(*bwd))):
+        ms = cuda_ms(fn, iters=5)
+        ms_spread = spread()
+        with ops.reference_mode():
+            plain_ms = cuda_ms(fn, iters=1, warmup=1)
+        oname, ofn = other[kind]
+        other_ms = cuda_ms(ofn, iters=5)
+        nbytes, flops = band_work(fa, seg, seg, causal, h, dh, kind, elem=4)
+        bms, by = bound(nbytes, flops, PEAK_F32_ACCURATE_FLOPS)
+        lib_ms = lib_fwd if kind == "fwd" else lib_bwd
+        lib = "SDPA fp32" if kind == "fwd" else "SDPA fp32 backward (dq, dk, dv)"
+        print(f"{P_BAND[kind]} {tag} B={b} P={p} H={h}: kernel {ms:.4f} ms (3 readings "
+              f"{ms_spread}), {bms / ms:.1%} of the bound, {flops / ms / 1e9:.2f} TFLOP/s; plain "
+              f"fp32 {plain_ms:.4f} ms; {lib} with the band's mask {lib_ms:.4f} ms; {oname} at "
+              f"the same shape {other_ms:.4f} ms; bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} "
+              f"MB, {flops / 1e9:.3f} GFLOP at 165 TFLOP/s; at FFMA's 67 TFLOP/s "
+              f"{flops / PEAK_F32_FLOPS * 1e3:.4f} ms)", flush=True)
+        res[kind] = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, other_ms=other_ms,
+                         bound_ms=bms, bound_by=by, ffma_bound_ms=flops / PEAK_F32_FLOPS * 1e3,
+                         tflops=flops / ms / 1e9)
+    return res
+
+
+def f32_qkv_at_shape(dev, mlp, ops, tag, n: int, d: int, widths, eps: float = 1e-6,
+                     timed: bool = False):
+    """#12's fp32 form (through norm_qkv on fp32 tensors) at N x D and these
+    q, k, v widths against its plain version in fp32 and with TF32
+    (f32_check; inputs drawn in fp32), a relaunch bit for bit, its rrms
+    pre-pass (its own C entry) within RRMS_REL of the plain statistics;
+    `timed`: then timed beside its bound, the plain version and F.rms_norm
+    + one fp32 matmul against [wq|wk|wv]."""
+    gen = torch.Generator(device=dev).manual_seed(n + d)
+    x = torch.randn(n, d, generator=gen, device=dev)
+    wn = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    ws = [torch.randn(w, d, generator=gen, device=dev) * (0.55 / d**0.5) for w in widths]
+    args = (x, wn, *ws, eps)
+    got = mlp.norm_qkv(*args)
+    bits = all(torch.equal(a, b) for a, b in zip(mlp.norm_qkv(*args), got))
+    with ops.reference_mode():
+        ref = mlp.norm_qkv(*args)
+        with tf32_allowed():
+            tref = mlp.norm_qkv(*args)
+    where = f"{tag}, N={n} D={d} widths {'/'.join(map(str, widths))}"
+    err, rel, ctl = f32_check("norm_qkv_f32", where, dict(zip("qkv", got)), dict(zip("qkv", ref)),
+                              dict(zip("qkv", tref)), bits)
+    del got, ref, tref
+    rr_fn = mlp._build.entry("norm_mlp_f32", "ggt_norm_qkv_f32_rrms", [ctypes.c_void_p] * 2
+                             + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+    rr = torch.empty(n, dtype=torch.float32, device=dev)
+    stream = mlp._build.stream_ptr(dev)
+
+    def prepass():
+        mlp._build.check(rr_fn(mlp._build.ptr(x), mlp._build.ptr(rr), n, d, eps, stream),
+                         "norm_qkv_f32 rrms pre-pass")
+
+    prepass()
+    plain_rr = torch.rsqrt(x.pow(2).mean(-1) + eps)
+    rr_rel = ((rr - plain_rr).abs().max() / plain_rr.abs().max()).item()
+    print(f"norm_qkv_f32 rrms pre-pass[{where}]: max|rrms-plain|/max|plain| {rr_rel:.2e} (tol "
+          f"{RRMS_REL})", flush=True)
+    if not rr_rel <= RRMS_REL:
+        fail(f"norm_qkv_f32's rrms pre-pass[{where}] disagrees with the plain statistics")
+    res = dict(err=err, rel=rel, tf32_rel=ctl)
+    if not timed:
+        return res
+    ms = cuda_ms(lambda: mlp.norm_qkv(*args), iters=5)
+    ms_spread = spread()
+    rr_ms = cuda_ms(prepass, iters=10)
+    with ops.reference_mode():
+        plain = cuda_ms(lambda: mlp.norm_qkv(*args), iters=3)
+    wcat = torch.cat(ws).t()
+    lib = cuda_ms(lambda: torch.matmul(torch.nn.functional.rms_norm(x, (d,), wn, eps), wcat),
+                  iters=5)
+    fsum = sum(widths)
+    nbytes = 4 * (n * d + d + fsum * d + n * fsum)
+    flops = 2.0 * n * d * fsum
+    bms, by = bound(nbytes, flops, PEAK_F32_ACCURATE_FLOPS)
+    print(f"norm_qkv_f32[{where}]: kernel {ms:.4f} ms (3 readings {ms_spread}; its rrms "
+          f"pre-pass alone {rr_ms:.4f} ms), {bms / ms:.1%} of the bound, {flops / ms / 1e9:.2f} "
+          f"TFLOP/s; plain fp32 {plain:.4f} ms; F.rms_norm + one fp32 matmul {lib:.4f} ms; bound "
+          f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at 165 TFLOP/s; "
+          f"at FFMA's 67 TFLOP/s {flops / PEAK_F32_FLOPS * 1e3:.4f} ms)", flush=True)
+    res.update(ms=ms, plain_ms=plain, lib_ms=lib, bound_ms=bms, bound_by=by, rrms_ms=rr_ms,
+               ffma_bound_ms=flops / PEAK_F32_FLOPS * 1e3, tflops=flops / ms / 1e9)
+    return res
+
+
+def f32_knob_kernels(dev, fa, mlp, ops, synthetic, long_seg):
+    """Phase P(a) (see the module docstring, 11b). Returns {part: its numbers}."""
+    h = 12
+    rng = np.random.default_rng(21)
+    seg8_np = synthetic.packed_segments(8, 1024, rng)
+    seg8_np[-1, -40:] = 0
+    seg8 = torch.from_numpy(seg8_np).to(dev)
+    t8 = flash_tensors(seg8, h, 64, seed=43, dtype=torch.float32)
+    checks = {"serving": f32_band_check(fa, ops, "phase P serving rows", *t8[:3], seg8, seg8,
+                                        t8[3], False, 0, False),
+              "causal": f32_band_check(fa, ops, "phase P serving rows", *t8[:3], seg8, seg8,
+                                       t8[3], True, 0, False),
+              "other": f32_band_check(fa, ops, "phase P, keys of another packed row", *t8[:3],
+                                      seg8, seg8.roll(1, 0), t8[3], False, 0, False)}
+    res = {"serving": f32_band_times(fa, ops, "serving rows", *t8[:3], seg8, t8[3])}
+    del t8
+    dn = torch.from_numpy(synthetic.mol3d_batch(256, 88, seed=0, bi_split=16)["segment_ids"])
+    dn = dn.to(dev)
+    tdn = flash_tensors(dn, h, 64, seed=47, dtype=torch.float32)
+    checks["denoise"] = f32_band_check(fa, ops, "phase P denoise batch, bi-causal", *tdn[:3], dn,
+                                       dn, tdn[3], False, 16, False)
+    del tdn
+    torch.cuda.empty_cache()
+    tl = flash_tensors(long_seg, h, 64, seed=53, dtype=torch.float32)
+    seg2 = long_seg[:2]
+    checks["long2"] = f32_band_check(fa, ops, "phase P long-context rows",
+                                     *(t[:2] for t in tl[:3]), seg2, seg2, tl[3][:2], False, 0,
+                                     False)
+    checks["long"] = f32_band_check(fa, ops, "phase P long-context batch, the whole launch",
+                                    *tl[:3], long_seg, long_seg, tl[3], False, 0, True)
+    res["long"] = f32_band_times(fa, ops, "long-context batch", *tl[:3], long_seg, tl[3])
+    del tl
+    torch.cuda.empty_cache()
+    for kind in ("fwd", "bwd"):
+        res[kind] = dict(err=max(c[kind][0] for c in checks.values()),
+                         rel=max(c[kind][1] for c in checks.values()),
+                         tf32_rel=min(c[kind][2] for c in checks.values()))
+    qkv = {"n8192": f32_qkv_at_shape(dev, mlp, ops, "phase P", 8192, 768, (768,) * 3,
+                                     timed=True),
+           "n65537": f32_qkv_at_shape(dev, mlp, ops, "phase P", 65537, 768, (768,) * 3),
+           "gqa": f32_qkv_at_shape(dev, mlp, ops, "phase P", 8192, 768, (768, 256, 256)),
+           "toy": f32_qkv_at_shape(dev, mlp, ops, "phase P toy_pretrain's D", 1024, 128,
+                                   (128,) * 3)}
+    res["qkv"] = dict(qkv["n8192"], err=max(r["err"] for r in qkv.values()),
+                      rel=max(r["rel"] for r in qkv.values()),
+                      tf32_rel=min(r["tf32_rel"] for r in qkv.values()))
+    torch.cuda.empty_cache()
+    return res
+
+
+def f32_knob_base_run(dev, counters, fa, ops):
+    """Phase P(b) (see the module docstring, 11b): GraphGPT-base at
+    model.dtype=float32 under both knobs. Returns (its numbers, the
+    launches of its run)."""
+    from graphgpt_torch import synthetic
+    from graphgpt_torch.config import OptimizerConfig, flagship_config
+    from graphgpt_torch.models.heads import GraphGPTPretrain
+    from graphgpt_torch.training.optimizer import make_optimizer, make_schedule
+    from graphgpt_torch.training.steps import init_train_state, make_eval_step, make_train_step
+
+    tag = "phase P(b) (GraphGPT-base, fp32, both knobs)"
+    cfg = flagship_config()
+    cfg.dtype = "float32"
+    model = GraphGPTPretrain(cfg, device=dev, seed=0)
+    nb = synthetic.fake_batch(8, cfg.max_position_embeddings, cfg.stacked_feat, cfg.vocab_size,
+                              np.random.default_rng(11))
+    batch = synthetic.to_torch(nb, dev)
+    res = {"step": step_vs_plain32(model, batch, ops, tag)}
+    loss_b, gb = grads_of(model, batch)
+    with knobs(fa, "legacy", "0"):
+        loss_l, gl = grads_of(model, batch)
+    rels = {n: rel_err(gb[n], gl[n]) for n in gl}
+    worst = max(rels, key=rels.get)
+    lrel = abs(loss_b - loss_l) / abs(loss_l)
+    print(f"{tag} step vs the fp32 legacy route (#1f, #3f, the pre-norm and three fp32 products; "
+          f"{batch['input_ids'].shape[0]} rows): loss {loss_b:.8f} vs {loss_l:.8f} (relative "
+          f"{lrel:.3e}, tol {F32_LOSS_REL}); {len(rels)} gradients, worst {rels[worst]:.3e} at "
+          f"{worst} (tol {F32_GRAD_REL}), median {float(np.median(list(rels.values()))):.3e}",
+          flush=True)
+    if set(gb) != set(gl) or lrel > F32_LOSS_REL or rels[worst] > F32_GRAD_REL:
+        fail(f"{tag}: the step disagrees with the fp32 legacy route")
+    del gb, gl
+    torch.cuda.empty_cache()
+    opt_cfg = OptimizerConfig(lr=3e-4, use_ema=True)
+    schedule = make_schedule(opt_cfg, 20, 2)
+    tx = make_optimizer(opt_cfg, 20, 2, schedule=schedule)
+    state = init_train_state(model, tx, use_ema=True)
+    want, want_eval = band32_want(cfg, counters)
+    step_fn = make_train_step(tx, opt_cfg, schedule)
+    state, metrics, got, ms, peak = counted_steps(tag, state, step_fn, batch, counters, want,
+                                                  P_STEPS)
+    before = {k: fn.launches for k, fn in counters.items()}
+    out = make_eval_step(use_ema=True)(state, batch)
+    ev = {k: fn.launches - before[k] for k, fn in counters.items()}
+    losses = [float(x["loss"]) for x in metrics]
+    tokens = int((nb["segment_ids"] > 0).sum())
+    ms, peak = (float("nan"), 0.0) if ms is None else (ms, peak)  # None off the card
+    print(f"{tag}: launches per step {want} (all {P_STEPS} steps); EMA eval forward {ev}; losses "
+          + " ".join(f"{x:.4f}" for x in losses) + f"; eval loss {float(out['loss']):.4f}; "
+          f"{ms:.2f} ms/step (CUDA events over steps 2-{P_STEPS}), {tokens / ms * 1e3:.0f} "
+          f"trained tokens/s; max_memory_allocated {peak:.0f} MiB", flush=True)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and np.isfinite(float(out["loss"]))):
+        fail(f"{tag}: the losses are not finite or did not fall: {losses}")
+    if ev != want_eval:
+        fail(f"{tag}: the EMA eval forward launched {ev}, expected {want_eval}")
+    launches = {k: got[k] + ev[k] for k in counters}
+    res.update(losses=losses, legacy_loss_rel=lrel, legacy_grad_rel=rels[worst], step_ms=ms,
+               tokens_per_s=tokens / ms * 1e3, peak_mib=peak)
+    del model, state
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def fp32_knob_phase(dev, counters, fa, mlp, ops, synthetic, long_seg, toy_losses):
+    """Phase P (see the module docstring, 11b): (a) #9f, #10f and #12f at
+    their paths' shapes, (b) GraphGPT-base at fp32 under both knobs, (c) the
+    quick start under both knobs, its logged losses against phase L(a)'s
+    (`toy_losses`). Returns ({part: its numbers}, the launches of its
+    runs)."""
+    kern = f32_knob_kernels(dev, fa, mlp, ops, synthetic, long_seg)
+    with knobs(fa, "band", "1"):
+        base, launches = f32_knob_base_run(dev, counters, fa, ops)
+        toy, got = toy_pretrain_run(
+            dev, counters, ops, "phase P(c) (toy_pretrain.yaml under both knobs, fp32)",
+            band32_want)
+    diffs = [abs(a - b) / abs(b) for a, b in zip(toy["losses"], toy_losses)]
+    print(f"phase P(c): its {len(toy['losses'])} logged losses against phase L(a)'s "
+          f"{len(toy_losses)}: largest relative difference {max(diffs):.3e} (tol {TOY_LOSS_REL})",
+          flush=True)
+    if len(toy["losses"]) != len(toy_losses) or max(diffs) > TOY_LOSS_REL:
+        fail("phase P(c)'s losses left phase L(a)'s: the same run on other kernels")
+    toy["loss_rel_vs_l"] = max(diffs)
+    return {"kernels": kern, "base": base, "toy": toy}, {k: launches[k] + got[k] for k in counters}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script runs on a CUDA card")
@@ -5715,7 +6151,7 @@ def main() -> None:
                 print(f"  {name}: {line.strip()}", flush=True)
     # the wgmma kernels (#12; #2, #11; #4, #5, #7, #8; #1, #6, #9; #3, #10) keep
     # no spill and let ptxas pipeline their wgmma (no C7512/C7513), #13 (both
-    # dtypes) and the fp32 forms of #1-#8, #2 and #11 keep no spill;
+    # dtypes) and the fp32 forms of #1-#12 keep no spill;
     # flash_fwd.cu's log must show its three forms, flash_bwd.cu's its two,
     # the fp32 forward's and passes' two each
     for name in ("norm_qkv", "norm_mlp", "mlp", "flash_bwd_split", "flash_fwd", "flash_bwd",
@@ -5729,14 +6165,14 @@ def main() -> None:
               flush=True)
         if forms != want:
             fail(f"{name}.cu's build log does not show its forms {want}")
-    # the fp32 forward's and passes' single (0) and stream (1) forms
+    # the fp32 forward's and passes' single (0), stream (1) and band (2) forms
     for name, kernel in (("flash_fwd_f32", "fwd_f32_kernel"), ("flash_bwd_f32", "dq_f32_kernel"),
                          ("flash_bwd_f32", "dkv_f32_kernel")):
-        forms = sorted(set(re.findall(kernel + r"ILb([01])E", logs.get(name, ""))))
-        print(f"{name}.cu: the forms of {kernel} ptxas compiled (0 single, 1 stream): {forms}",
-              flush=True)
-        if forms != ["0", "1"]:
-            fail(f"{name}.cu's build log does not show {kernel}'s two forms")
+        forms = sorted(set(re.findall(kernel + r"ILi(\d)E", logs.get(name, ""))))
+        print(f"{name}.cu: the forms of {kernel} ptxas compiled (0 single, 1 stream, 2 band): "
+              f"{forms}", flush=True)
+        if forms != ["0", "1", "2"]:
+            fail(f"{name}.cu's build log does not show {kernel}'s three forms")
 
     # ---- the graph-level store (PCQM4M-v2's schema), the C++ walk on it, and
     # the long-context loader alone on it, before this process starts a pool
@@ -5764,7 +6200,9 @@ def main() -> None:
                 "mlp_f32": mlp.mlp_f32, "flash_dq_f32": fa.flash_dq_f32,
                 "flash_dkv_f32": fa.flash_dkv_f32, "flash_fwd_stream_f32": fa.flash_fwd_stream_f32,
                 "flash_dq_stream_f32": fa.flash_dq_stream_f32,
-                "flash_dkv_stream_f32": fa.flash_dkv_stream_f32}
+                "flash_dkv_stream_f32": fa.flash_dkv_stream_f32,
+                "flash_fwd_band_f32": fa.flash_fwd_band_f32,
+                "flash_bwd_band_f32": fa.flash_bwd_band_f32, "norm_qkv_f32": mlp.norm_qkv_f32}
 
     # ---- eval and generation phases: the serving path, counted from 0
     cfg = flagship_config()
@@ -5887,6 +6325,13 @@ def main() -> None:
         bll, blr = band_long_phase(dev, counters, lc["rows4"], lc["run_a_losses"], ops,
                                    data_dir)
     print(f"band and norm-fused phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    # ---- phase P: float32 under both knobs (#9f, #10f, #12f; GraphGPT-base
+    # at model.dtype=float32; the quick start)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    f32p, shippedl["P"] = fp32_knob_phase(dev, counters, fa, mlp, ops, synthetic, lc["seg"],
+                                          fp32["toy"]["losses"])
+    print(f"phase P: {time.perf_counter() - t0:.1f} s", flush=True)
     launches = {k: serve[k] + train[k] + tune[k] + gtune[k] + den[k] + posl[k] + lcl[k] + btl[k]
                 + bll[k] + sum(bigl[ph][k] for ph in bigl)
                 + sum(shippedl[ph][k] for ph in shippedl) for k in counters}
@@ -5903,7 +6348,7 @@ def main() -> None:
             launches_band_train=btl[name], launches_band_long=bll[name],
             launches_big_ppa=bigl["A"][name], launches_big_proteins=bigl["B"][name],
             launches_big_pretrain=bigl["C"][name],
-            **{f"launches_phase_{ph}": shippedl[ph][name] for ph in "DEFGHIJKLMNO"},
+            **{f"launches_phase_{ph}": shippedl[ph][name] for ph in "DEFGHIJKLMNOP"},
             max_abs_err=r["err"],
             ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -6151,6 +6596,32 @@ def main() -> None:
             long32_losses=o_long["losses"], long32_valid_loss=o_long["valid_loss"],
             toy_skip_step_loss_rel=o_toy["step"]["loss_rel"],
             toy_skip_step_grad_rel=o_toy["step"]["grad_rel"], toy_skip_losses=o_toy["losses"]))
+    # the fp32 forms of the knobs' kernels (phase P): #9f's and #10f's main
+    # entry at GraphGPT-base's B 8 x P 1024, the long-context batch beside
+    # it; #12f's at N 8,192 (D 768, widths 3 x 768)
+    pk, pb, pt = f32p["kernels"], f32p["base"], f32p["toy"]
+    runs_p = dict(base_step_loss_rel=pb["step"]["loss_rel"],
+                  base_step_grad_rel=pb["step"]["grad_rel"],
+                  base_legacy_loss_rel=pb["legacy_loss_rel"],
+                  base_legacy_grad_rel=pb["legacy_grad_rel"], base_step_ms=pb["step_ms"],
+                  base_tokens_per_s=pb["tokens_per_s"], base_peak_mib=pb["peak_mib"],
+                  base_losses=pb["losses"], toy_step_loss_rel=pt["step"]["loss_rel"],
+                  toy_step_grad_rel=pt["step"]["grad_rel"], toy_losses=pt["losses"],
+                  toy_loss_rel_vs_phase_l=pt["loss_rel_vs_l"])
+    for kind, (source, line) in (("fwd", ("flash_fwd_f32.cu", 282)),
+                                 ("bwd", ("flash_bwd_f32.cu", 484))):
+        r, rl = pk["serving"][kind], pk["long"][kind]
+        kernels.append(entry(
+            P_BAND[kind], source, f"flash_attention.py:{line}", dict(r, err=pk[kind]["err"]),
+            {"rel": F32_REL}, rel_err=pk[kind]["rel"], tf32_control_rel=pk[kind]["tf32_rel"],
+            ffma_bound_ms=r["ffma_bound_ms"], tflops=r["tflops"], other_form_ms=r["other_ms"],
+            **{f"long_{k}": rl[k] for k in ("ms", "plain_ms", "lib_ms", "other_ms", "bound_ms",
+                                            "ffma_bound_ms", "tflops")}, **runs_p))
+    rq = pk["qkv"]
+    kernels.append(entry(
+        "norm_qkv_f32", "norm_mlp_f32.cu", "mlp.py:315", rq, {"rel": F32_REL}, rel_err=rq["rel"],
+        tf32_control_rel=rq["tf32_rel"], ffma_bound_ms=rq["ffma_bound_ms"], tflops=rq["tflops"],
+        rrms_ms=rq["rrms_ms"], **runs_p))
     by_name["norm_mlp"].update({f"phase_M_{run}_{k}": v for run, r in gconf.items()
                                 for k, v in r.items()
                                 if k in ("step_ms", "tokens_per_s", "graphs_per_s", "peak_mib",

@@ -1,25 +1,26 @@
 // Segment-masked flash attention backward in fp32, for Hopper: the fused
-// backward #3, the split pair #4 / #5 and the streamed pair #7 / #8 on one
-// set of passes.
+// backward #3, the split pair #4 / #5, the streamed pair #7 / #8 and the
+// band backward #10 on one set of passes.
 //
 // Replaces graphgpt_tpu/ops/flash_attention.py:706 _bwd_kernel_fused,
-// :602 _dq_kernel_single, :789 _dkv_kernel_single, :645 _dq_kernel_stream
-// and :835 _dkv_kernel_stream when they are given fp32 (a `model.dtype:
-// float32` model): there their products, p = exp(S - lse) and ds = p * (do
-// v^T - delta) stay fp32 (the casts to the working dtype, :764-770, change
-// nothing). The bf16 forms are csrc/flash_bwd.cu and
-// csrc/flash_bwd_split.cu. Same contracts: q (pre-scaled, unrotated), k,
-// v, out, do token-major [B, P, H * 64] fp32, segment ids int32 [B, P] (the
-// streamed pair: query ids seg and key ids seg_k, one array twice for a
-// model's rows), RoPE cos/sin [B, P, 64] fp32 (or null), lse [B, H, P]
+// :602 _dq_kernel_single, :789 _dkv_kernel_single, :645 _dq_kernel_stream,
+// :835 _dkv_kernel_stream and :484 _bwd_kernel_band when they are given
+// fp32 (a `model.dtype: float32` model): there their products, p = exp(S
+// - lse) and ds = p * (do v^T - delta) stay fp32 (the casts to the working
+// dtype, :764-770, change nothing). The bf16 forms are csrc/flash_bwd.cu
+// and csrc/flash_bwd_split.cu. Same contracts: q (pre-scaled, unrotated),
+// k, v, out, do token-major [B, P, H * 64] fp32, segment ids int32 [B, P]
+// (the streamed pair and the band backward: query ids seg and key ids
+// seg_k, one array twice for a model's rows), RoPE cos/sin [B, P, 64] fp32
+// (or null; the band backward takes q and k rotated and none), lse [B, H, P]
 // fp32 and its optional cotangent dlse; delta = rowsum(do * out) - dlse
 // [B, H, P] and dq, dk, dv [B, P, H * 64] fp32, dq and dk brought back
 // through the inverse rotation. do is taken as zero on padded rows (segment 0) before
 // any sum, so that a non-finite value there reaches no output; a padded
 // row takes no part, and so does a query row that sees no key (possible
 // only with ids of the keys' own); a key that no query sees gets dk = dv =
-// 0. #3 takes the bidirectional and causal masks; the pairs also the
-// bi-causal one (`bi_split` bit slots, whose split may fall inside a
+// 0. #3 takes the bidirectional and causal masks; the pairs and #10 also
+// the bi-causal one (`bi_split` bit slots, whose split may fall inside a
 // 64-row tile): #4 and #7 write delta beside dq, #5 and #8 read it.
 //
 // What bounds it on the H100: operations, as for the forward
@@ -34,17 +35,27 @@
 // walks the key tiles it sees and sums dq = ds k. Each pass computes S and
 // do v^T again for its tile pairs. #3 is all three; #4 is delta and the
 // query pass, #5 the key pass; #7 and #8 are #4 and #5 in the passes'
-// stream form, which reads the key tiles' ids from seg_k (a template flag,
-// so that the other forms compile as before and keep their bits). The
-// passes walk 64-row tiles at any P, so the stream form takes any P as the
-// others do. Tiles are fp32 in shared memory, the products FFMA
-// (flash_f32.cuh).
+// stream form, which reads the key tiles' ids from seg_k; #10 is all three
+// in the band form, the stream form walking only the tiles of a band: the
+// query pass the key tiles of its query tile's band, the key pass the
+// query tiles of its key tile's band (band_limits(seg_k, seg), the second
+// table), both written first by tile_table.cuh's band_table_kernel. A
+// template value picks the form, so that the other forms compile as before
+// and keep their bits. A tile outside a band holds no pair of matching
+// ids, so it adds p = 0 and ds = 0 to the sums: the band form gives the
+// stream forms' bits, and on one id array #3's (#4's and #5's with a
+// split). The passes walk 64-row tiles at any P, so the stream and band
+// forms take any P as the others do. Tiles are fp32 in shared memory, the
+// products FFMA (flash_f32.cuh).
 
 #include "flash_f32.cuh"
+#include "tile_table.cuh"  // the band form's band tables
 
 namespace {
 
 using namespace f32;
+
+enum Form { SINGLE = 0, STREAM = 1, BAND = 2 };
 
 constexpr int KEY_SMEM = 6 * TILE * sizeof(float) + 2 * T * sizeof(float) + T * sizeof(int);
 constexpr int QUERY_SMEM = 5 * TILE * sizeof(float) + T * sizeof(int);
@@ -79,13 +90,15 @@ __device__ __forceinline__ bool visible(int qseg, int kseg, int col, int vis) {
 }
 
 // The key pass: dk, dv of the 64 keys [k0, k0 + 64) of head h, row b.
-// STREAM: the keys' ids are seg_k's (else seg's, and seg_k is unread).
-template <bool STREAM>
+// STREAM and BAND: the keys' ids are seg_k's (else seg's, and seg_k is
+// unread). BAND: the query tiles of band[b, key tile] only (band unread
+// else).
+template <int FORM>
 __global__ void __launch_bounds__(THREADS)
 dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const int* __restrict__ seg,
-               const int* __restrict__ seg_k, const float* __restrict__ cos,
-               const float* __restrict__ sin,
+               const int* __restrict__ seg_k, const int2* __restrict__ band,
+               const float* __restrict__ cos, const float* __restrict__ sin,
                const float* __restrict__ lse, const float* __restrict__ delta,
                const float* __restrict__ dout, float* __restrict__ dk, float* __restrict__ dv,
                int P, int H, int causal, int bi_split) {
@@ -102,7 +115,7 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = blockIdx.x * T, h = blockIdx.y, b = blockIdx.z;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int* seg_row = seg + (long long)b * P;
-  const int* kseg_row = (STREAM ? seg_k : seg) + (long long)b * P;
+  const int* kseg_row = (FORM != SINGLE ? seg_k : seg) + (long long)b * P;
   const float* lse_row = lse + ((long long)b * H + h) * P;
   const float* delta_row = delta + ((long long)b * H + h) * P;
 
@@ -117,8 +130,14 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // the first query row that may see this tile: the rule is monotone in the
   // column, so the tile's first column's (under a bi-causal split inside
   // the tile, its prefix columns are seen from row 0)
-  const int q_first = first_row(k0, causal, bi_split, P) / T * T;
-  for (int q0 = q_first; q0 < P; q0 += T) {
+  int q_first = first_row(k0, causal, bi_split, P) / T * T, q_end = P;
+  if constexpr (FORM == BAND) {
+    // the query tiles from the band's first query to its last ((P, -1): none)
+    const int2 lh = band[(long long)b * gridDim.x + blockIdx.x];
+    q_first = max(q_first, lh.x / T * T);
+    q_end = lh.y + 1;
+  }
+  for (int q0 = q_first; q0 < q_end; q0 += T) {
     if (tiles_miss(seg_row, q0, kseg_row, k0, P)) continue;
     __syncthreads();
     load_tile(qs, q, seg, cos, sin, b, q0, P, H, h, false);
@@ -166,13 +185,15 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // The query pass: dq of the 64 queries [q0, q0 + 64) of head h, row b.
-// STREAM: the key tiles' ids are seg_k's (else seg's, and seg_k is unread).
-template <bool STREAM>
+// STREAM and BAND: the key tiles' ids are seg_k's (else seg's, and seg_k is
+// unread). BAND: the key tiles of band[b, query tile] only (band unread
+// else).
+template <int FORM>
 __global__ void __launch_bounds__(THREADS)
 dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const int* __restrict__ seg,
-              const int* __restrict__ seg_k, const float* __restrict__ cos,
-              const float* __restrict__ sin,
+              const int* __restrict__ seg_k, const int2* __restrict__ band,
+              const float* __restrict__ cos, const float* __restrict__ sin,
               const float* __restrict__ lse, const float* __restrict__ delta,
               const float* __restrict__ dout, float* __restrict__ dq, int P, int H, int causal,
               int bi_split) {
@@ -186,7 +207,7 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * T, h = blockIdx.y, b = blockIdx.z;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int* seg_row = seg + (long long)b * P;
-  const int* kseg_ids = STREAM ? seg_k : seg;
+  const int* kseg_ids = FORM != SINGLE ? seg_k : seg;
   const int* kseg_row = kseg_ids + (long long)b * P;
   const float* lse_row = lse + ((long long)b * H + h) * P;
   const float* delta_row = delta + ((long long)b * H + h) * P;
@@ -206,8 +227,14 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float dqa[4][4];
   zero(dqa);
   // the key tiles a row of this tile may see (the rule is monotone in the row)
-  const int kmax = visible_cols(min(q0 + T - 1, P - 1), causal, bi_split, P);
-  for (int k0 = 0; k0 < kmax; k0 += T) {
+  int kmin = 0, kmax = visible_cols(min(q0 + T - 1, P - 1), causal, bi_split, P);
+  if constexpr (FORM == BAND) {
+    // the key tiles from the band's first key to its last ((P, -1): none)
+    const int2 lh = band[(long long)b * gridDim.x + blockIdx.x];
+    kmin = lh.x / T * T;
+    kmax = min(kmax, lh.y + 1);
+  }
+  for (int k0 = kmin; k0 < kmax; k0 += T) {
     if (tiles_miss(seg_row, q0, kseg_row, k0, P)) continue;
     __syncthreads();
     load_tile(ks, k, seg, cos, sin, b, k0, P, H, h, false);
@@ -251,35 +278,37 @@ void launch_delta(const float* dout, const float* out, const int* seg, const flo
   delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(dout, out, seg, dlse, delta, B, P, H);
 }
 
-// The passes of form STREAM; seg_k is read by the stream form only.
-template <bool STREAM>
+// The passes of form FORM; seg_k is read by the stream and band forms only,
+// the band table by the band form only.
+template <int FORM>
 cudaError_t launch_dkv(const float* q, const float* k, const float* v, const int* seg,
-                       const int* seg_k, const float* cos, const float* sin, const float* lse,
-                       const float* delta, const float* dout, float* dk, float* dv, int B, int P,
-                       int H, int causal, int bi_split, cudaStream_t st) {
+                       const int* seg_k, const int2* band, const float* cos, const float* sin,
+                       const float* lse, const float* delta, const float* dout, float* dk,
+                       float* dv, int B, int P, int H, int causal, int bi_split,
+                       cudaStream_t st) {
   const cudaError_t err = cudaFuncSetAttribute(
-      dkv_f32_kernel<STREAM>, cudaFuncAttributeMaxDynamicSharedMemorySize, KEY_SMEM);
+      dkv_f32_kernel<FORM>, cudaFuncAttributeMaxDynamicSharedMemorySize, KEY_SMEM);
   if (err != cudaSuccess) return err;
-  dkv_f32_kernel<STREAM><<<dim3((P + T - 1) / T, H, B), THREADS, KEY_SMEM, st>>>(
-      q, k, v, seg, seg_k, cos, sin, lse, delta, dout, dk, dv, P, H, causal, bi_split);
+  dkv_f32_kernel<FORM><<<dim3((P + T - 1) / T, H, B), THREADS, KEY_SMEM, st>>>(
+      q, k, v, seg, seg_k, band, cos, sin, lse, delta, dout, dk, dv, P, H, causal, bi_split);
   return cudaSuccess;
 }
 
-template <bool STREAM>
+template <int FORM>
 cudaError_t launch_dq(const float* q, const float* k, const float* v, const int* seg,
-                      const int* seg_k, const float* cos, const float* sin, const float* lse,
-                      const float* delta, const float* dout, float* dq, int B, int P, int H,
-                      int causal, int bi_split, cudaStream_t st) {
+                      const int* seg_k, const int2* band, const float* cos, const float* sin,
+                      const float* lse, const float* delta, const float* dout, float* dq, int B,
+                      int P, int H, int causal, int bi_split, cudaStream_t st) {
   const cudaError_t err = cudaFuncSetAttribute(
-      dq_f32_kernel<STREAM>, cudaFuncAttributeMaxDynamicSharedMemorySize, QUERY_SMEM);
+      dq_f32_kernel<FORM>, cudaFuncAttributeMaxDynamicSharedMemorySize, QUERY_SMEM);
   if (err != cudaSuccess) return err;
-  dq_f32_kernel<STREAM><<<dim3((P + T - 1) / T, H, B), THREADS, QUERY_SMEM, st>>>(
-      q, k, v, seg, seg_k, cos, sin, lse, delta, dout, dq, P, H, causal, bi_split);
+  dq_f32_kernel<FORM><<<dim3((P + T - 1) / T, H, B), THREADS, QUERY_SMEM, st>>>(
+      q, k, v, seg, seg_k, band, cos, sin, lse, delta, dout, dq, P, H, causal, bi_split);
   return cudaSuccess;
 }
 
-// delta, then the query pass of form STREAM: #4's and #7's fp32 forms.
-template <bool STREAM>
+// delta, then the query pass of form FORM: #4's and #7's fp32 forms.
+template <int FORM>
 int dq_entry(const void* q, const void* k, const void* v, const void* seg, const void* seg_k,
              const void* cos, const void* sin, const void* out, const void* lse,
              const void* dout, const void* dlse, void* delta, void* dq, int B, int P, int H,
@@ -288,23 +317,23 @@ int dq_entry(const void* q, const void* k, const void* v, const void* seg, const
   const cudaStream_t st = (cudaStream_t)stream;
   launch_delta((const float*)dout, (const float*)out, (const int*)seg, (const float*)dlse,
                (float*)delta, B, P, H, st);
-  const cudaError_t err = launch_dq<STREAM>(
+  const cudaError_t err = launch_dq<FORM>(
       (const float*)q, (const float*)k, (const float*)v, (const int*)seg, (const int*)seg_k,
-      (const float*)cos, (const float*)sin, (const float*)lse, (const float*)delta,
+      nullptr, (const float*)cos, (const float*)sin, (const float*)lse, (const float*)delta,
       (const float*)dout, (float*)dq, B, P, H, causal, bi_split, st);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// The key pass of form STREAM: #5's and #8's fp32 forms.
-template <bool STREAM>
+// The key pass of form FORM: #5's and #8's fp32 forms.
+template <int FORM>
 int dkv_entry(const void* q, const void* k, const void* v, const void* seg, const void* seg_k,
               const void* cos, const void* sin, const void* lse, const void* delta,
               const void* dout, void* dk, void* dv, int B, int P, int H, int causal,
               int bi_split, void* stream) {
   if (B == 0 || P == 0 || H == 0) return 0;
-  const cudaError_t err = launch_dkv<STREAM>(
+  const cudaError_t err = launch_dkv<FORM>(
       (const float*)q, (const float*)k, (const float*)v, (const int*)seg, (const int*)seg_k,
-      (const float*)cos, (const float*)sin, (const float*)lse, (const float*)delta,
+      nullptr, (const float*)cos, (const float*)sin, (const float*)lse, (const float*)delta,
       (const float*)dout, (float*)dk, (float*)dv, B, P, H, causal, bi_split,
       (cudaStream_t)stream);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
@@ -328,12 +357,12 @@ extern "C" int ggt_flash_bwd_f32(const void* q, const void* k, const void* v, co
   const float* fdo = (const float*)dout;
   const int* iseg = (const int*)seg;
   launch_delta(fdo, (const float*)out, iseg, (const float*)dlse, (float*)delta, B, P, H, st);
-  cudaError_t err = launch_dkv<false>(fq, fk, fv, iseg, nullptr, fcos, fsin, flse,
-                                      (const float*)delta, fdo, (float*)dk, (float*)dv, B, P, H,
-                                      causal, 0, st);
+  cudaError_t err = launch_dkv<SINGLE>(fq, fk, fv, iseg, nullptr, nullptr, fcos, fsin, flse,
+                                       (const float*)delta, fdo, (float*)dk, (float*)dv, B, P,
+                                       H, causal, 0, st);
   if (err == cudaSuccess)
-    err = launch_dq<false>(fq, fk, fv, iseg, nullptr, fcos, fsin, flse, (const float*)delta,
-                           fdo, (float*)dq, B, P, H, causal, 0, st);
+    err = launch_dq<SINGLE>(fq, fk, fv, iseg, nullptr, nullptr, fcos, fsin, flse,
+                            (const float*)delta, fdo, (float*)dq, B, P, H, causal, 0, st);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
@@ -346,7 +375,7 @@ extern "C" int ggt_flash_dq_f32(const void* q, const void* k, const void* v, con
                                 const void* lse, const void* dout, const void* dlse, void* delta,
                                 void* dq, int B, int P, int H, int causal, int bi_split,
                                 void* stream) {
-  return dq_entry<false>(q, k, v, seg, nullptr, cos, sin, out, lse, dout, dlse, delta, dq, B, P,
+  return dq_entry<SINGLE>(q, k, v, seg, nullptr, cos, sin, out, lse, dout, dlse, delta, dq, B, P,
                          H, causal, bi_split, stream);
 }
 
@@ -357,7 +386,7 @@ extern "C" int ggt_flash_dkv_f32(const void* q, const void* k, const void* v, co
                                  const void* cos, const void* sin, const void* lse,
                                  const void* delta, const void* dout, void* dk, void* dv, int B,
                                  int P, int H, int causal, int bi_split, void* stream) {
-  return dkv_entry<false>(q, k, v, seg, nullptr, cos, sin, lse, delta, dout, dk, dv, B, P, H,
+  return dkv_entry<SINGLE>(q, k, v, seg, nullptr, cos, sin, lse, delta, dout, dk, dv, B, P, H,
                           causal, bi_split, stream);
 }
 
@@ -373,7 +402,7 @@ extern "C" int ggt_flash_dq_stream_f32(const void* q, const void* k, const void*
                                        void* dq, void* tab, int B, int P, int H, int causal,
                                        int bi_split, void* stream) {
   (void)tab;
-  return dq_entry<true>(q, k, v, segq, segk, cos, sin, out, lse, dout, dlse, delta, dq, B, P, H,
+  return dq_entry<STREAM>(q, k, v, segq, segk, cos, sin, out, lse, dout, dlse, delta, dq, B, P, H,
                         causal, bi_split, stream);
 }
 
@@ -383,6 +412,39 @@ extern "C" int ggt_flash_dkv_stream_f32(const void* q, const void* k, const void
                                         const void* dout, void* dk, void* dv, void* tab, int B,
                                         int P, int H, int causal, int bi_split, void* stream) {
   (void)tab;
-  return dkv_entry<true>(q, k, v, segq, segk, cos, sin, lse, delta, dout, dk, dv, B, P, H,
+  return dkv_entry<STREAM>(q, k, v, segq, segk, cos, sin, lse, delta, dout, dk, dv, B, P, H,
                          causal, bi_split, stream);
+}
+
+// C entry for ctypes: #10's fp32 form (both band tables, delta, then the
+// key pass and the query pass in the band form) on `stream`; returns the
+// first CUDA error. Query ids segq and key ids segk (one array twice for a
+// model's rows), q and k already rotated; dlse may be null (zeros). It
+// takes the bf16 entry's arguments: `tab` is int32 scratch of 4 x B x
+// ceil(P/64) from the caller, the query tiles' band table first, then the
+// key tiles' (the same table when segq and segk are one array), both
+// written first. Masks: bidirectional, causal, or bi-causal with
+// `bi_split` bit slots. Any P.
+extern "C" int ggt_flash_bwd_band_f32(const void* q, const void* k, const void* v,
+                                      const void* segq, const void* segk, const void* out,
+                                      const void* lse, const void* dout, const void* dlse,
+                                      void* delta, void* dq, void* dk, void* dv, void* tab, int B,
+                                      int P, int H, int causal, int bi_split, void* stream) {
+  if (B == 0 || P == 0 || H == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  int2* tq = (int2*)tab;
+  int2* tk = segk == segq ? tq : tq + (long long)B * ((P + 63) / 64);
+  cudaError_t err = launch_band_table(segq, segk, tq, B, P, st);
+  if (err == cudaSuccess && tk != tq) err = launch_band_table(segk, segq, tk, B, P, st);
+  if (err != cudaSuccess) return (int)err;
+  const float *fq = (const float*)q, *fk = (const float*)k, *fv = (const float*)v;
+  const float *flse = (const float*)lse, *fdo = (const float*)dout;
+  const int *iq = (const int*)segq, *ik = (const int*)segk;
+  launch_delta(fdo, (const float*)out, iq, (const float*)dlse, (float*)delta, B, P, H, st);
+  err = launch_dkv<BAND>(fq, fk, fv, iq, ik, tk, nullptr, nullptr, flse, (const float*)delta, fdo,
+                         (float*)dk, (float*)dv, B, P, H, causal, bi_split, st);
+  if (err == cudaSuccess)
+    err = launch_dq<BAND>(fq, fk, fv, iq, ik, tq, nullptr, nullptr, flse, (const float*)delta,
+                          fdo, (float*)dq, B, P, H, causal, bi_split, st);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

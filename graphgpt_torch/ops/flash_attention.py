@@ -42,17 +42,17 @@ flash_attention rotates q and k outside the kernels (:1249-1255), with
 Here the port differs: an unknown mode raises, where the JAX package takes
 any value it does not know for `legacy`.
 
-Dtypes: every kernel takes bf16. #1, #3-#8 also take fp32 (a
-`model.dtype: float32` model), in forms of their own: #1's and #6's in
-`csrc/flash_fwd_f32.cu`, #3's and both pairs' in the passes of
+Dtypes: every kernel takes bf16, and fp32 (a `model.dtype: float32`
+model) in forms of its own: #1's, #6's and #9's in
+`csrc/flash_fwd_f32.cu`, #3's, both pairs' and #10's in the passes of
 `csrc/flash_bwd_f32.cu`, each with its wrapper and its count
 (flash_fwd_f32, flash_bwd_f32, flash_dq_f32, flash_dkv_f32,
-flash_fwd_stream_f32, flash_dq_stream_f32, flash_dkv_stream_f32), to which
-flash_fwd, flash_bwd, flash_dq, flash_dkv, flash_fwd_stream,
-flash_dq_stream and flash_dkv_stream hand fp32 CUDA tensors with the RoPE
-tables kept fp32: an fp32 model trains through them at every P and under
-`skip`. The band forms (#9, #10) raise on fp32 until theirs are ported,
-and every kernel raises on any other dtype or on a mix.
+flash_fwd_stream_f32, flash_dq_stream_f32, flash_dkv_stream_f32,
+flash_fwd_band_f32, flash_bwd_band_f32), to which flash_fwd, flash_bwd,
+flash_dq, flash_dkv, flash_fwd_stream, flash_dq_stream, flash_dkv_stream,
+flash_fwd_band and flash_bwd_band hand fp32 CUDA tensors with the RoPE
+tables kept fp32: an fp32 model trains through them at every P and in
+every mode. Every kernel raises on any other dtype or on a mix.
 
 Head widths: the kernels are built for KERNEL_DH = 64 and raise on any
 other. Below it `flash_attention` does what the JAX package's does before
@@ -983,39 +983,79 @@ def flash_fwd_band_ref(qs, k, v, seg_q, seg_k, causal: bool, dh: int,
                                seg_k=seg_k, row_chunk=REF_ROWS, band=band_limits(seg_q, seg_k))
 
 
-def flash_fwd_band(qs, k, v, seg_q, seg_k, causal: bool, dh: int, bi_causal_split: int = 0,
-                   aux: Optional[dict] = None):
-    """(out, lse) of the band forward (#9) with query ids seg_q and key ids
-    seg_k [B, P] (one tensor twice for a model's rows), q pre-scaled and q,
-    k already rotated: the CUDA kernels (the band table, then the forward;
-    counted as one call) for a CUDA tensor, the plain version for a CPU
-    tensor (or inside ops.reference_mode()). `aux`, when given, receives
-    the band table the kernel used (int32 [B, ceil(P/64), 2], band_limits'
-    layout) under "table"."""
-    if not use_kernel(qs, k, v, seg_q, seg_k):
-        if aux is not None:
-            aux["table"] = band_limits(seg_q, seg_k)
-        return flash_fwd_band_ref(qs, k, v, seg_q, seg_k, causal, dh, bi_causal_split)
+def _fwd_band(name, source, symbol, dtype, qs, k, v, seg_q, seg_k, causal: bool, dh: int,
+              bi_causal_split: int):
+    """Launch #9's form `symbol` of csrc/<source>.cu, which takes `dtype`:
+    (out, lse, the band table it wrote, the entry's error code)."""
     b, p, hd = qs.shape
-    (qs, k, v), seg_q, seg_k, _, _ = _check_fwd("flash_fwd_band", dh, qs, k, v, seg_q, seg_k,
-                                                None, None)
+    (qs, k, v), seg_q, seg_k, _, _ = _check_fwd(name, dh, qs, k, v, seg_q, seg_k, None, None,
+                                                dtype)
     out = torch.empty_like(qs)
     lse = torch.empty((b, hd // dh, p), dtype=torch.float32, device=qs.device)
     tab = _tile_scratch(seg_q)
-    fn = _build.entry("flash_fwd", "ggt_flash_fwd_band", _FWD_BAND_ARGTYPES)
+    fn = _build.entry(source, symbol, _FWD_BAND_ARGTYPES)
     err = fn(
         _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
         _build.ptr(out), _build.ptr(lse), _build.ptr(tab), b, p, hd // dh, int(causal),
         int(bi_causal_split), _build.stream_ptr(qs.device),
     )
+    return out, lse, _table(tab, b, p), err
+
+
+def _fwd_band_plain(qs, k, v, seg_q, seg_k, causal: bool, dh: int, bi_causal_split: int, aux):
+    """The band forward's plain route: band_limits into `aux`, then
+    flash_fwd_band_ref."""
+    if aux is not None:
+        aux["table"] = band_limits(seg_q, seg_k)
+    return flash_fwd_band_ref(qs, k, v, seg_q, seg_k, causal, dh, bi_causal_split)
+
+
+def flash_fwd_band(qs, k, v, seg_q, seg_k, causal: bool, dh: int, bi_causal_split: int = 0,
+                   aux: Optional[dict] = None):
+    """(out, lse) of the band forward (#9) with query ids seg_q and key ids
+    seg_k [B, P] (one tensor twice for a model's rows), q pre-scaled and q,
+    k already rotated: the CUDA kernels (the band table, then the forward;
+    counted as one call) for a CUDA tensor, its fp32 form
+    (flash_fwd_band_f32) for an fp32 one, the plain version for a CPU tensor
+    (or inside ops.reference_mode()). `aux`, when given, receives the band
+    table the kernel used (int32 [B, ceil(P/64), 2], band_limits' layout)
+    under "table"."""
+    if not use_kernel(qs, k, v, seg_q, seg_k):
+        return _fwd_band_plain(qs, k, v, seg_q, seg_k, causal, dh, bi_causal_split, aux)
+    if qs.dtype == torch.float32:
+        return flash_fwd_band_f32(qs, k, v, seg_q, seg_k, causal, dh, bi_causal_split, aux)
+    out, lse, table, err = _fwd_band("flash_fwd_band", "flash_fwd", "ggt_flash_fwd_band",
+                                     torch.bfloat16, qs, k, v, seg_q, seg_k, causal, dh,
+                                     bi_causal_split)
     flash_fwd_band.launches += 1
     _build.check(err, "flash_fwd_band")
     if aux is not None:
-        aux["table"] = _table(tab, b, p)
+        aux["table"] = table
     return out, lse
 
 
 flash_fwd_band.launches = 0
+
+
+def flash_fwd_band_f32(qs, k, v, seg_q, seg_k, causal: bool, dh: int, bi_causal_split: int = 0,
+                       aux: Optional[dict] = None):
+    """(out, lse) of #9's fp32 form (`csrc/flash_fwd_f32.cu`'s band form: the
+    band table, then the forward; counted as one call) for fp32 CUDA
+    tensors, q and k rotated; the plain version for a CPU tensor (or inside
+    ops.reference_mode()). `aux` as flash_fwd_band's. Any P."""
+    if not use_kernel(qs, k, v, seg_q, seg_k):
+        return _fwd_band_plain(qs, k, v, seg_q, seg_k, causal, dh, bi_causal_split, aux)
+    out, lse, table, err = _fwd_band("flash_fwd_band_f32", "flash_fwd_f32",
+                                     "ggt_flash_fwd_band_f32", torch.float32, qs, k, v, seg_q,
+                                     seg_k, causal, dh, bi_causal_split)
+    flash_fwd_band_f32.launches += 1
+    _build.check(err, "flash_fwd_band_f32")
+    if aux is not None:
+        aux["table"] = table
+    return out, lse
+
+
+flash_fwd_band_f32.launches = 0
 
 
 def flash_bwd_band_ref(qs, k, v, seg_q, seg_k, lse, delta, do, causal: bool, dh: int,
@@ -1028,47 +1068,94 @@ def flash_bwd_band_ref(qs, k, v, seg_q, seg_k, lse, delta, do, causal: bool, dh:
                       seg_k, row_chunk=REF_ROWS, band=band_limits(seg_q, seg_k))
 
 
-def flash_bwd_band(qs, k, v, seg_q, seg_k, out, lse, do, dlse, causal: bool, dh: int,
-                   bi_causal_split: int = 0, aux: Optional[dict] = None):
-    """(dq, dk, dv) of the band backward (#10), q and k rotated, delta =
-    rowsum(do * out) - dlse computed outside its main kernel as the JAX
-    package does (:933-940): the CUDA kernels (both band tables, the delta
-    kernel, then dq, dk, dv; counted as one call; P <= 4096) for a CUDA
-    tensor, flash_delta and the plain version for a CPU tensor (or inside
-    ops.reference_mode()). dlse None means zeros; both routes take do as
-    zero on padded rows. `aux`, when given, receives "delta" [B, H, P] and
-    the key tiles' band table "table_k"."""
-    if not use_kernel(qs, k, v, seg_q, seg_k, out, lse, do):
-        do = zero_padded_rows(do, seg_q)
-        delta = flash_delta(do, out, dlse, dh)
-        if aux is not None:
-            aux["delta"], aux["table_k"] = delta, band_limits(seg_k, seg_q)
-        return flash_bwd_band_ref(qs, k, v, seg_q, seg_k, lse, delta, do, causal, dh,
-                                  bi_causal_split)
+def _bwd_band_plain(qs, k, v, seg_q, seg_k, out, lse, do, dlse, causal: bool, dh: int,
+                    bi_causal_split: int, aux):
+    """The band backward's plain route: delta summed from do taken as zero
+    on padded rows, it and band_limits(seg_k, seg_q) into `aux`, then
+    flash_bwd_band_ref."""
+    do = zero_padded_rows(do, seg_q)
+    delta = flash_delta(do, out, dlse, dh)
+    if aux is not None:
+        aux["delta"], aux["table_k"] = delta, band_limits(seg_k, seg_q)
+    return flash_bwd_band_ref(qs, k, v, seg_q, seg_k, lse, delta, do, causal, dh,
+                              bi_causal_split)
+
+
+def _bwd_band(name, source, symbol, dtype, qs, k, v, seg_q, seg_k, out, lse, do, dlse,
+              causal: bool, dh: int, bi_causal_split: int):
+    """Launch #10's form `symbol` of csrc/<source>.cu, which takes `dtype`:
+    (dq, dk, dv, delta, the key tiles' band table, the entry's error code)."""
     b, p, _ = qs.shape
     extra_rows = () if dlse is None else (dlse,)
     (qs, k, v, do, out), seg_q, seg_k, _, _, rows = _check_bwd(
-        "flash_bwd_band", dh, qs, k, v, seg_q, None, None, lse, do, extra=(out,),
-        extra_rows=extra_rows, seg_k=seg_k)
+        name, dh, qs, k, v, seg_q, None, None, lse, do, extra=(out,), extra_rows=extra_rows,
+        seg_k=seg_k, dtype=dtype)
     lse, dlse = rows[0], (rows[1] if dlse is not None else None)
     dq, dk, dv = torch.empty_like(qs), torch.empty_like(qs), torch.empty_like(qs)
     delta = torch.empty_like(lse)
     tab = _tile_scratch(seg_q)
-    fn = _build.entry("flash_bwd", "ggt_flash_bwd_band", _BWD_BAND_ARGTYPES)
+    fn = _build.entry(source, symbol, _BWD_BAND_ARGTYPES)
     err = fn(
         _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
         _build.ptr(out), _build.ptr(lse), _build.ptr(do), _opt_ptr(dlse), _build.ptr(delta),
         _build.ptr(dq), _build.ptr(dk), _build.ptr(dv), _build.ptr(tab), b, p, lse.shape[1],
         int(causal), int(bi_causal_split), _build.stream_ptr(qs.device),
     )
+    return dq, dk, dv, delta, _table(tab, b, p, second=seg_k is not seg_q), err
+
+
+def flash_bwd_band(qs, k, v, seg_q, seg_k, out, lse, do, dlse, causal: bool, dh: int,
+                   bi_causal_split: int = 0, aux: Optional[dict] = None):
+    """(dq, dk, dv) of the band backward (#10), q and k rotated, delta =
+    rowsum(do * out) - dlse computed outside its main kernel as the JAX
+    package does (:933-940): the CUDA kernels (both band tables, the delta
+    kernel, then dq, dk, dv; counted as one call; P <= 4096) for a CUDA
+    tensor, its fp32 form (flash_bwd_band_f32) for an fp32 one, flash_delta
+    and the plain version for a CPU tensor (or inside
+    ops.reference_mode()). dlse None means zeros; every route takes do as
+    zero on padded rows. `aux`, when given, receives "delta" [B, H, P] and
+    the key tiles' band table "table_k"."""
+    if not use_kernel(qs, k, v, seg_q, seg_k, out, lse, do):
+        return _bwd_band_plain(qs, k, v, seg_q, seg_k, out, lse, do, dlse, causal, dh,
+                               bi_causal_split, aux)
+    if qs.dtype == torch.float32:
+        return flash_bwd_band_f32(qs, k, v, seg_q, seg_k, out, lse, do, dlse, causal, dh,
+                                  bi_causal_split, aux)
+    dq, dk, dv, delta, table_k, err = _bwd_band(
+        "flash_bwd_band", "flash_bwd", "ggt_flash_bwd_band", torch.bfloat16, qs, k, v, seg_q,
+        seg_k, out, lse, do, dlse, causal, dh, bi_causal_split)
     flash_bwd_band.launches += 1
     _build.check(err, "flash_bwd_band")
     if aux is not None:
-        aux["delta"], aux["table_k"] = delta, _table(tab, b, p, second=seg_k is not seg_q)
+        aux["delta"], aux["table_k"] = delta, table_k
     return dq, dk, dv
 
 
 flash_bwd_band.launches = 0
+
+
+def flash_bwd_band_f32(qs, k, v, seg_q, seg_k, out, lse, do, dlse, causal: bool, dh: int,
+                       bi_causal_split: int = 0, aux: Optional[dict] = None):
+    """(dq, dk, dv) of #10's fp32 form (`csrc/flash_bwd_f32.cu`'s passes in
+    their band form: both band tables, delta, the key pass, the query pass;
+    counted as one call) for fp32 CUDA tensors, q and k rotated; the plain
+    route for a CPU tensor (or inside ops.reference_mode()). dlse None means
+    zeros; do is taken as zero on padded rows. `aux` as flash_bwd_band's.
+    Any P."""
+    if not use_kernel(qs, k, v, seg_q, seg_k, out, lse, do):
+        return _bwd_band_plain(qs, k, v, seg_q, seg_k, out, lse, do, dlse, causal, dh,
+                               bi_causal_split, aux)
+    dq, dk, dv, delta, table_k, err = _bwd_band(
+        "flash_bwd_band_f32", "flash_bwd_f32", "ggt_flash_bwd_band_f32", torch.float32, qs, k, v,
+        seg_q, seg_k, out, lse, do, dlse, causal, dh, bi_causal_split)
+    flash_bwd_band_f32.launches += 1
+    _build.check(err, "flash_bwd_band_f32")
+    if aux is not None:
+        aux["delta"], aux["table_k"] = delta, table_k
+    return dq, dk, dv
+
+
+flash_bwd_band_f32.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

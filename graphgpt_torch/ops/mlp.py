@@ -8,17 +8,17 @@ Counterpart of `graphgpt_tpu/ops/mlp.py` (`_mlp_kernel` :82, `fused_mlp`
 `fused_norm_qkv` :363 with `_fused_norm_qkv_bwd` :376, `_rmsnorm_bwd_kernel`
 :414, `xla_mlp` :468). The kernels live in `csrc/mlp.cu`,
 `csrc/norm_mlp.cu`, `csrc/norm_qkv.cu` and `csrc/rmsnorm_bwd.cu`, and the
-fp32 forms of #2 and #11 in `csrc/norm_mlp_f32.cu`. Weights
+fp32 forms of #2, #11 and #12 in `csrc/norm_mlp_f32.cu`. Weights
 are in nn.Linear layout (`[out, in]`): the JAX package's `[in, out]`
 matrices transposed.
 
-Dtypes: every kernel takes bf16. #2, #11 and #13 also take fp32 (a
-`model.dtype: float32` model): #2 and #11 in two forms of one fp32 body,
-`csrc/norm_mlp_f32.cu` (wrappers and counts norm_mlp_f32, mlp_f32), #13
-in the fp32 instances of its templated source (rmsnorm_bwd_f32);
-norm_mlp, mlp and rmsnorm_bwd hand them fp32 CUDA tensors. norm_qkv (#12)
-raises on fp32 until its form is ported, and every kernel raises on any
-other dtype or on a mix.
+Dtypes: every kernel takes bf16, and fp32 (a `model.dtype: float32`
+model): #2 and #11 in two forms of one fp32 body, `csrc/norm_mlp_f32.cu`,
+and #12 in a kernel of that file on the same pieces (wrappers and counts
+norm_mlp_f32, mlp_f32, norm_qkv_f32), #13 in the fp32 instances of its
+templated source (rmsnorm_bwd_f32); norm_mlp, mlp, norm_qkv and
+rmsnorm_bwd hand them fp32 CUDA tensors. Every kernel raises on any other
+dtype or on a mix.
 """
 
 from __future__ import annotations
@@ -57,6 +57,9 @@ _MLP_BLOCK_NS = (256, 192, 128, 64)  # down tile widths
 _MLP_TILE_EXTRA = {"gate_up": 64, "down": 16}
 # x, wn, wq, wk, wv, q, k, v, rrms; N, D, Fq, Fk, Fv, bn; eps; stream
 _QKV_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+# #12's fp32 form (64-wide tiles, no bn): x, wn, wq, wk, wv, q, k, v, rrms; N, D, Fq, Fk, Fv;
+# eps; stream
+_QKV_F32_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 _QKV_MAX_D = 4096  # wn's row sits in the kernel's shared memory beside its stages
 _QKV_BLOCK_NS = (256, 128, 64)  # the kernel's output tile widths
 # x, g, w, dx, dw, partial; N, D; eps; blocks; stream
@@ -449,17 +452,14 @@ def qkv_block_n(widths) -> int:
     return next((bn for bn in _QKV_BLOCK_NS if all(w % bn == 0 for w in widths)), 0)
 
 
-def norm_qkv(x, wn, wq, wk, wv, eps: float):
-    """(q, k, v) = rms(x) * wn @ (wq|wk|wv)^T for x [N, D] in bf16, wn fp32
-    and bf16 weights [width, D] (widths multiples of 64, so GQA's narrower k
-    and v too): the CUDA kernel (the rrms pre-pass and the main kernel,
-    counted as one call) for a CUDA tensor, the plain version for a CPU
-    tensor (or inside ops.reference_mode())."""
-    if not use_kernel(x, wn, wq, wk, wv):
-        return norm_qkv_ref(x, wn, wq, wk, wv, eps)
+def _qkv_args(name, x, wn, wq, wk, wv, dtype):
+    """The checks and layouts both forms of the norm_qkv kernel need: (x,
+    wn fp32, wq, wk, wv) contiguous and the output tile width. Raises on
+    what they do not take."""
     n, d = x.shape
-    if x.dtype != torch.bfloat16 or any(w.dtype != torch.bfloat16 for w in (wq, wk, wv)):
-        raise NotImplementedError("the norm_qkv kernel takes bf16 activations and weights")
+    if x.dtype != dtype or any(w.dtype != dtype for w in (wq, wk, wv)):
+        raise NotImplementedError(f"the {name} kernel takes {dtype} activations and weights, "
+                                  f"got {x.dtype}, {[w.dtype for w in (wq, wk, wv)]}")
     if wn.shape != (d,) or any(w.dim() != 2 or w.shape[1] != d for w in (wq, wk, wv)):
         raise ValueError(f"shapes x {x.shape} wn {wn.shape} weights "
                          f"{[tuple(w.shape) for w in (wq, wk, wv)]}")
@@ -467,29 +467,76 @@ def norm_qkv(x, wn, wq, wk, wv, eps: float):
     bn = qkv_block_n(widths)
     if d % 64 or d > _QKV_MAX_D or not bn:
         raise NotImplementedError(
-            f"the norm_qkv kernel needs D % 64 == 0, D <= {_QKV_MAX_D} and widths % 64 == 0, "
+            f"the {name} kernel needs D % 64 == 0, D <= {_QKV_MAX_D} and widths % 64 == 0, "
             f"got D {d}, widths {widths}")
     x, wq, wk, wv = (t.contiguous() for t in (x, wq, wk, wv))
-    wn = wn.float().contiguous()
-    # TMA reads x and the weights from 16-byte aligned bases
+    # TMA (bf16) and 16-byte loads (fp32) read x and the weights from aligned bases
     if any(t.data_ptr() % 16 for t in (x, wq, wk, wv)):
-        raise ValueError("norm_qkv needs 16-byte aligned x and weights")
+        raise ValueError(f"{name} needs 16-byte aligned x and weights")
+    return x, wn.float().contiguous(), wq, wk, wv, bn
+
+
+def _qkv_launch(name, symbol, dtype, x, wn, wq, wk, wv, eps: float):
+    """Launch the norm_qkv entry `symbol` for `dtype`: csrc/norm_qkv.cu's
+    for bf16 (with its tile width), csrc/norm_mlp_f32.cu's for fp32. Returns
+    (q, k, v, the entry's error code)."""
+    x, wn, wq, wk, wv, bn = _qkv_args(name, x, wn, wq, wk, wv, dtype)
+    n, d = x.shape
+    widths = [w.shape[0] for w in (wq, wk, wv)]
     q, k, v = (torch.empty((n, w), dtype=x.dtype, device=x.device) for w in widths)
     if n == 0:
-        return q, k, v
+        return q, k, v, 0
     rrms = torch.empty((n,), dtype=torch.float32, device=x.device)
-    fn = _build.entry("norm_qkv", "ggt_norm_qkv", _QKV_ARGTYPES)
+    bf16 = dtype == torch.bfloat16
+    fn = _build.entry("norm_qkv" if bf16 else "norm_mlp_f32", symbol,
+                      _QKV_ARGTYPES if bf16 else _QKV_F32_ARGTYPES)
     err = fn(
         _build.ptr(x), _build.ptr(wn), _build.ptr(wq), _build.ptr(wk), _build.ptr(wv),
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(rrms), n, d, *widths, bn,
-        float(eps), _build.stream_ptr(x.device),
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(rrms), n, d, *widths,
+        *([bn] if bf16 else []), float(eps), _build.stream_ptr(x.device),
     )
-    norm_qkv.launches += 1
+    return q, k, v, err
+
+
+def norm_qkv(x, wn, wq, wk, wv, eps: float):
+    """(q, k, v) = rms(x) * wn @ (wq|wk|wv)^T for x [N, D] in bf16, wn fp32
+    and bf16 weights [width, D] (widths multiples of 64, so GQA's narrower k
+    and v too): the CUDA kernel (the rrms pre-pass and the main kernel,
+    counted as one call) for a CUDA tensor, its fp32 form (norm_qkv_f32) for
+    fp32 x and weights, the plain version for a CPU tensor (or inside
+    ops.reference_mode())."""
+    if not use_kernel(x, wn, wq, wk, wv):
+        return norm_qkv_ref(x, wn, wq, wk, wv, eps)
+    if x.dtype == torch.float32:
+        return norm_qkv_f32(x, wn, wq, wk, wv, eps)
+    q, k, v, err = _qkv_launch("norm_qkv", "ggt_norm_qkv", torch.bfloat16, x, wn, wq, wk, wv, eps)
+    if x.shape[0]:
+        norm_qkv.launches += 1
     _build.check(err, "norm_qkv")
     return q, k, v
 
 
 norm_qkv.launches = 0
+
+
+def norm_qkv_f32(x, wn, wq, wk, wv, eps: float):
+    """(q, k, v) = rms(x) * wn @ (wq|wk|wv)^T for x [N, D], wn and the
+    weights in fp32: #12's fp32 form (`csrc/norm_mlp_f32.cu`: #2f's rrms
+    pre-pass, then the three products on #2f's gate/up pieces; counted as
+    one call) for CUDA tensors, the plain version for a CPU tensor (or
+    inside ops.reference_mode()). The bf16 kernel's contract: D and the
+    widths multiples of 64."""
+    if not use_kernel(x, wn, wq, wk, wv):
+        return norm_qkv_ref(x, wn, wq, wk, wv, eps)
+    q, k, v, err = _qkv_launch("norm_qkv_f32", "ggt_norm_qkv_f32", torch.float32, x, wn, wq, wk,
+                               wv, eps)
+    if x.shape[0]:
+        norm_qkv_f32.launches += 1
+    _build.check(err, "norm_qkv_f32")
+    return q, k, v
+
+
+norm_qkv_f32.launches = 0
 
 
 def norm_qkv_bwd(x, wn, wq, wk, wv, dq, dk, dv, eps: float):

@@ -7,10 +7,10 @@ flash_fwd_stream and #9 flash_fwd_band (`--kernel fwd`,
 flash_bwd_band (`--kernel bwd`, `csrc/flash_bwd.cu`), the gated
 MLPs #11 and #2 (`--kernel mlp`, `--kernel norm_mlp`: `csrc/mlp.cu`,
 `csrc/norm_mlp.cu` with `csrc/mlp_common.cuh`) and the RMSNorm backward #13
-(`--kernel rmsnorm_bwd`, `csrc/rmsnorm_bwd.cu`), and the fp32 forms #2f and
-#11f (`--kernel mlp_f32`, `csrc/norm_mlp_f32.cu`), #1f and #6f
-(`--kernel fwd_f32`, `csrc/flash_fwd_f32.cu`) and #3f, #4f, #5f, #7f and
-#8f (`--kernel bwd_f32`, `csrc/flash_bwd_f32.cu`), timed on the card whole
+(`--kernel rmsnorm_bwd`, `csrc/rmsnorm_bwd.cu`), and the fp32 forms #2f,
+#11f and #12f (`--kernel mlp_f32`, `csrc/norm_mlp_f32.cu`), #1f, #6f and #9f
+(`--kernel fwd_f32`, `csrc/flash_fwd_f32.cu`) and #3f, #4f, #5f, #7f, #8f
+and #10f (`--kernel bwd_f32`, `csrc/flash_bwd_f32.cu`), timed on the card whole
 and with one phase of their body left out at a time, at their paths'
 shapes: the denoise batch (B 256 x P 88, 16 bit slots, a molecule and a
 padded stretch a row), the fine-tune batch (B 256 x P 72, a molecule a
@@ -21,13 +21,15 @@ and B 16 x P 4096); the MLPs at N 8,192 and 65,536 rows (D 768, F 3,072,
 gelu), whole and each stage alone; #13 at N 18,432, 22,528 and 65,536
 (D 768), its row pass and its sum of the per-CTA dw rows alone; the fp32
 MLP forms at N 8,192 (D 768, F 3,072) and N 1,024 (D 128, F 512,
-toy_pretrain's), the fp32 attention forms at B 8 x P 1024 (12 heads), B 8
+toy_pretrain's), #12f there with q, k and v each D wide (the first rows of
+the gate and up weights), the fp32 attention forms at B 8 x P 1024 (12 heads), B 8
 x P 128 (2 heads, toy_pretrain's) and the long-context B 16 x P 4096,
 where every form runs (the single ones too: their C entries take any P),
 the fp32 pair and the fp32 forward also at the denoise batch and at B 8 x
 P 1024 with 16 bit slots (their inputs drawn in fp32 by numpy from a fixed
 seed, so that a digest is the same from machine to machine for the same
-bits).
+bits; the band forms #9f and #10f take the same q and k, unrotated, and no
+cos, sin).
 
 A variant leaves a phase out by a text substitution in the source and is
 built beside the package's own builds. Its outputs are wrong by design;
@@ -93,9 +95,9 @@ form): the medians of five CUDA-event readings of 30 launches each, every
 variant of a shape in one turn, then again in the reverse order; the split,
 stream and bwd lines end with a digest of dq, delta, dk and dv, the fwd
 lines with one of out and lse, the rmsnorm_bwd lines with one of dx and dw,
-the fp32 lines with one of their outputs (f32_digest: out; out and lse
-of #1f and #6f; dq, dk, dv of #3f; dq and delta of #4f and #7f; dk, dv of
-#5f and #8f), so that two bodies that should give the same bits (one
+the fp32 lines with one of their outputs (f32_digest: out; q, k, v of
+#12f; out and lse of #1f, #6f and #9f; dq, dk, dv of #3f and #10f; dq and
+delta of #4f and #7f; dk, dv of #5f and #8f), so that two bodies that should give the same bits (one
 --source against another, or a stream form against its single form on the
 same ids) show it. The fp32 kernels have the base variant only, and the
 forms their source has.
@@ -251,14 +253,17 @@ KERNELS = {
 # the fp32 forms: each C entry, its argument types and the form's name
 F32_ENTRIES = {
     "mlp_f32": {"norm_mlp_f32": ("ggt_norm_mlp_f32", tmlp._F32_ARGTYPES),
-                "mlp_f32": ("ggt_mlp_f32", tmlp._MLP_F32_ARGTYPES)},
+                "mlp_f32": ("ggt_mlp_f32", tmlp._MLP_F32_ARGTYPES),
+                "norm_qkv_f32": ("ggt_norm_qkv_f32", tmlp._QKV_F32_ARGTYPES)},
     "fwd_f32": {"flash_fwd_f32": ("ggt_flash_fwd_f32", fa._ARGTYPES),
-                "flash_fwd_stream_f32": ("ggt_flash_fwd_stream_f32", fa._FWD_STREAM_ARGTYPES)},
+                "flash_fwd_stream_f32": ("ggt_flash_fwd_stream_f32", fa._FWD_STREAM_ARGTYPES),
+                "flash_fwd_band_f32": ("ggt_flash_fwd_band_f32", fa._FWD_BAND_ARGTYPES)},
     "bwd_f32": {"flash_bwd_f32": ("ggt_flash_bwd_f32", fa._BWD_ARGTYPES),
                 "flash_dq_f32": ("ggt_flash_dq_f32", fa._DQ_ARGTYPES),
                 "flash_dkv_f32": ("ggt_flash_dkv_f32", fa._DKV_ARGTYPES),
                 "flash_dq_stream_f32": ("ggt_flash_dq_stream_f32", fa._DQ_STREAM_ARGTYPES),
-                "flash_dkv_stream_f32": ("ggt_flash_dkv_stream_f32", fa._DKV_STREAM_ARGTYPES)},
+                "flash_dkv_stream_f32": ("ggt_flash_dkv_stream_f32", fa._DKV_STREAM_ARGTYPES),
+                "flash_bwd_band_f32": ("ggt_flash_bwd_band_f32", fa._BWD_BAND_ARGTYPES)},
 }
 MLP_F32_SHAPES = {"N8192": (8192, 768, 3072), "N1024": (1024, 128, 512)}  # (N, D, F)
 # (B, P, H, bit slots, row layout) of the fp32 attention forms; #3f takes
@@ -475,26 +480,36 @@ def probe_f32(kernel: str, libs, dev) -> None:
             x, wn, wg, wu, wd = f32_mlp_inputs(n, d, f, dev)
             g = torch.empty(n, f, device=dev)
             out, rr = torch.empty_like(x), torch.empty(n, device=dev)
+            qkv = [torch.empty_like(x) for _ in range(3)]
             runs = {
                 "norm_mlp_f32": lambda lib: lib.ggt_norm_mlp_f32(
                     ptr(x), ptr(wn), ptr(wg), ptr(wu), ptr(wd), ptr(g), ptr(out), ptr(rr), n, d,
                     f, 1e-6, 0, stream),
                 "mlp_f32": lambda lib: lib.ggt_mlp_f32(
-                    ptr(x), ptr(wg), ptr(wu), ptr(wd), ptr(g), ptr(out), n, d, f, 0, stream)}
-            _probe_f32_turns(tag, libs, entries, runs, {form: (out,) for form in runs})
+                    ptr(x), ptr(wg), ptr(wu), ptr(wd), ptr(g), ptr(out), n, d, f, 0, stream),
+                "norm_qkv_f32": lambda lib: lib.ggt_norm_qkv_f32(
+                    ptr(x), ptr(wn), ptr(wg), ptr(wu), ptr(wg[d:]), *(ptr(t) for t in qkv),
+                    ptr(rr), n, d, d, d, d, 1e-6, stream)}
+            outs = {"norm_mlp_f32": (out,), "mlp_f32": (out,), "norm_qkv_f32": qkv}
+            _probe_f32_turns(tag, libs, entries, runs, outs)
         return
     for tag, (b, p, h, bi, layout) in BWD_F32_SHAPES.items():
         qs, k, v, do, seg, cos, sin, out, lse = inputs(b, p, h, bi, layout, dev, torch.float32)
         common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(cos), ptr(sin))
         # the stream forms on the query ids as key ids, no tile-table scratch
         stream_common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(seg), ptr(cos), ptr(sin))
+        # the band forms on the same q and k, unrotated, no cos and sin
+        band_common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(seg))
+        tab = fa._tile_scratch(seg)
         if kernel == "fwd_f32":
             o2, l2 = torch.empty_like(out), torch.empty_like(lse)
             runs = {
                 "flash_fwd_f32": lambda lib: lib.ggt_flash_fwd_f32(
                     *common, ptr(o2), ptr(l2), b, p, h, 0, bi, stream),
                 "flash_fwd_stream_f32": lambda lib: lib.ggt_flash_fwd_stream_f32(
-                    *stream_common, ptr(o2), ptr(l2), None, b, p, h, 0, bi, stream)}
+                    *stream_common, ptr(o2), ptr(l2), None, b, p, h, 0, bi, stream),
+                "flash_fwd_band_f32": lambda lib: lib.ggt_flash_fwd_band_f32(
+                    *band_common, ptr(o2), ptr(l2), ptr(tab), b, p, h, 0, bi, stream)}
             _probe_f32_turns(tag, libs, entries, runs, {form: (o2, l2) for form in runs})
             continue
         delta = torch.empty_like(lse)
@@ -514,7 +529,10 @@ def probe_f32(kernel: str, libs, dev) -> None:
                 p, h, 0, bi, stream),
             "flash_dkv_stream_f32": lambda lib: lib.ggt_flash_dkv_stream_f32(
                 *stream_common, ptr(lse), ptr(delta), ptr(do), ptr(dk), ptr(dv), None, b, p, h,
-                0, bi, stream)}
+                0, bi, stream),
+            "flash_bwd_band_f32": lambda lib: lib.ggt_flash_bwd_band_f32(
+                *band_common, ptr(out), ptr(lse), ptr(do), None, ptr(delta), ptr(dq), ptr(dk),
+                ptr(dv), ptr(tab), b, p, h, 0, bi, stream)}
         if bi:
             runs.pop("flash_bwd_f32")  # #3 takes no bit slots
         # each pair's key pass reads the delta of a query pass, which runs
@@ -522,7 +540,7 @@ def probe_f32(kernel: str, libs, dev) -> None:
         # the digests read what each form writes
         outs = {"flash_bwd_f32": (dq, dk, dv), "flash_dq_f32": (dq, delta),
                 "flash_dkv_f32": (dk, dv), "flash_dq_stream_f32": (dq, delta),
-                "flash_dkv_stream_f32": (dk, dv)}
+                "flash_dkv_stream_f32": (dk, dv), "flash_bwd_band_f32": (dq, dk, dv)}
         for lib in libs.values():
             if hasattr(lib, "ggt_flash_dq_f32"):
                 _build.check(runs["flash_dq_f32"](lib), "flash_dq_f32")

@@ -1,5 +1,5 @@
-"""How the kernel wrappers hand fp32 tensors to the fp32 forms of #1-#8, #11
-and #13, on the CPU.
+"""How the kernel wrappers hand fp32 tensors to the fp32 forms of every
+kernel (#1-#13), on the CPU.
 
 The card is stood in for: `use_kernel` says yes, and `_build.entry`,
 `_build.ptr` and `_build.stream_ptr` record which C entry was asked for and
@@ -9,10 +9,12 @@ one) with fp32 RoPE tables equal to the caller's (a bf16 rounding costs
 ~1e-3, far past the fp32 forms' 2e-5), bf16 to the entry it always took,
 and refuse any other dtype, and a mix, before it launches. The numbers
 themselves are held on the card (`tests/test_torch_gpu.py`, the fp32 tests
-at its end, and `chip_smoke.py`'s phases L, N and O). Small fp32 models,
-one with LayerScale and DropPath, a bi-causal denoiser, and one past 2,048
-positions and under GGT_FLASH_MODE=skip (the streamed route), train a step
-under the stand-in card and ask for the fp32 entries only.
+at its end, and `chip_smoke.py`'s phases L, N, O and P). Small fp32 models,
+one with LayerScale and DropPath, a bi-causal denoiser, one past 2,048
+positions and under GGT_FLASH_MODE=skip (the streamed route), and one under
+GGT_FLASH_MODE=band and GGT_ATTN_NORM_FUSE=1 (the band kernels and the
+norm-fused q/k/v), train a step under the stand-in card and ask for the
+fp32 entries only.
 """
 
 import ctypes
@@ -441,3 +443,181 @@ def test_an_fp32_model_on_the_streamed_route_asks_for_the_fp32_stream_entries(mo
     assert {"ggt_norm_mlp_f32", "ggt_rmsnorm_bwd_f32"} <= set(syms)
     assert set(syms) <= {"ggt_flash_fwd_stream_f32", "ggt_flash_dq_stream_f32",
                          "ggt_flash_dkv_stream_f32", "ggt_norm_mlp_f32", "ggt_rmsnorm_bwd_f32"}
+
+
+# ---- the knobs' kernels: #9, #10 (GGT_FLASH_MODE=band) and #12
+# (GGT_ATTN_NORM_FUSE=1)
+
+_BAND_COUNTS = ("flash_fwd_band", "flash_bwd_band", "flash_fwd_band_f32", "flash_bwd_band_f32",
+                "flash_fwd", "flash_fwd_f32", "flash_bwd", "flash_bwd_f32", "flash_dq_f32",
+                "flash_dkv_f32", "flash_fwd_stream_f32", "flash_dq_stream_f32",
+                "flash_dkv_stream_f32")
+
+
+@pytest.mark.parametrize("split", [0, 16], ids=["bidirectional", "bicausal"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_the_band_route_sends_each_dtype_to_its_entries(monkeypatch, dtype, split):
+    """flash_fwd and flash_bwd under band (q and k rotated: no cos, sin)
+    reach #9 and #10 whatever the split: fp32 the band forms' fp32 entries
+    (one launch of each, none of the bf16 band forms or of any other fp32
+    form), bf16 the entries it always took; each with the query ids as key
+    ids (one tensor twice) and its band-table scratch. #10 writes a delta
+    of its own."""
+    card = FakeCard(monkeypatch)
+    monkeypatch.setattr(tfa, "_MODE", "band")
+    qs, k, v, do, seg, _, _ = _flash(dtype)
+    before = {n: getattr(tfa, n).launches for n in _BAND_COUNTS}
+    out, lse = tfa.flash_fwd(qs, k, v, seg, None, None, False, 64, split)
+    dq, dk, dv = tfa.flash_bwd(qs, k, v, seg, None, None, out, lse, do, None, False, 64, split)
+    fp32 = dtype == torch.float32
+    suffix = "_f32" if fp32 else ""
+    (s_fwd, y_fwd, t_fwd), (s_bwd, y_bwd, t_bwd) = card.calls
+    assert (s_fwd, y_fwd) == (f"flash_fwd{suffix}", f"ggt_flash_fwd_band{suffix}")
+    assert (s_bwd, y_bwd) == (f"flash_bwd{suffix}", f"ggt_flash_bwd_band{suffix}")
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == dtype and lse.dtype == torch.float32
+    got = {n: getattr(tfa, n).launches - before[n] for n in _BAND_COUNTS}
+    forms = (f"flash_fwd_band{suffix}", f"flash_bwd_band{suffix}")
+    assert got == {n: int(n in forms) for n in _BAND_COUNTS}
+    # fwd: q, k, v, seg_q, seg_k, out, lse, tab; bwd: q, k, v, seg_q, seg_k,
+    # out, lse, do, delta, dq, dk, dv, tab (dlse None: no pointer)
+    assert [len(t_fwd), len(t_bwd)] == [8, 13]
+    for t in (t_fwd, t_bwd):
+        assert t[3] is t[4] and t[3].dtype == torch.int32 and torch.equal(t[3], seg)
+        assert t[-1].dtype == torch.int32 and t[-1].numel() == 4 * 2 * 2  # 4 x B x ceil(P/64)
+    assert t_bwd[8].dtype == torch.float32 and t_bwd[8].shape == lse.shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_the_band_wrappers_hand_over_the_keys_own_ids(monkeypatch, dtype):
+    """With key ids of another array, #9's and #10's entries of either dtype
+    get both arrays as given, and #10 reads its key tiles' table from the
+    second half of the scratch; with one array twice, the same tensor
+    twice and one table."""
+    card = FakeCard(monkeypatch)
+    qs, k, v, do, seg, _, _ = _flash(dtype)
+    seg_k = seg.roll(1, dims=1).int() * 2
+    lse = torch.zeros(2, 2, 128)
+    faux, baux, same = {}, {}, {}
+    tfa.flash_fwd_band(qs, k, v, seg, seg_k, True, 64, aux=faux)
+    tfa.flash_bwd_band(qs, k, v, seg, seg_k, qs, lse, do, None, True, 64, aux=baux)
+    tfa.flash_bwd_band(qs, k, v, seg, seg, qs, lse, do, None, True, 64, aux=same)
+    suffix = "_f32" if dtype == torch.float32 else ""
+    assert [sym for _, sym, _ in card.calls] == [f"ggt_flash_{n}_band{suffix}"
+                                                 for n in ("fwd", "bwd", "bwd")]
+    (_, _, t_fwd), (_, _, t_bwd), (_, _, t_same) = card.calls
+    for t in (t_fwd, t_bwd):
+        assert torch.equal(t[3], seg) and torch.equal(t[4], seg_k) and t[3] is not t[4]
+    assert t_same[3] is t_same[4]
+    tab = t_bwd[-1]
+    assert faux["table"].shape == (2, 2, 2) and faux["table"].dtype == torch.int32
+    assert baux["table_k"].data_ptr() == tab.data_ptr() + 2 * 2 * 2 * 4  # the second table
+    assert same["table_k"].data_ptr() == t_same[-1].data_ptr()  # one table for one array
+    assert baux["delta"] is t_bwd[8]
+
+
+def _qkv(dtype, n=200, d=128, widths=(128, 64, 64)):
+    rng = np.random.default_rng(2)
+
+    def t(*shape):
+        return torch.from_numpy((rng.normal(size=shape) * 0.05).astype(np.float32)).to(dtype)
+
+    return t(n, d), torch.ones(d), [t(w, d) for w in widths]
+
+
+@pytest.mark.parametrize("widths", [(128, 128, 128), (128, 64, 64)], ids=["mha", "gqa"])
+@pytest.mark.parametrize("dtype,source,symbol", [
+    (torch.float32, "norm_mlp_f32", "ggt_norm_qkv_f32"),
+    (torch.bfloat16, "norm_qkv", "ggt_norm_qkv")], ids=["fp32", "bf16"])
+def test_norm_qkv_sends_each_dtype_to_its_entry(monkeypatch, dtype, source, symbol, widths):
+    """fp32 x and weights reach #12's fp32 entry (one source with #2f and
+    #11f) with wn in fp32 and the three widths, no tile width; bf16 the
+    entry it always took, with its tile width. One launch of the form, none
+    of the other."""
+    card = FakeCard(monkeypatch)
+    x, wn, ws = _qkv(dtype, widths=widths)
+    before = (tmlp.norm_qkv.launches, tmlp.norm_qkv_f32.launches)
+    q, k, v = tmlp.norm_qkv(x, wn, *ws, 1e-6)
+    (got_source, got, tensors), = card.calls
+    assert (got_source, got) == (source, symbol)
+    assert [tuple(o.shape) for o in (q, k, v)] == [(200, w) for w in widths]
+    assert all(o.dtype == dtype for o in (q, k, v))
+    # x, wn, wq, wk, wv, q, k, v, rrms
+    assert tensors[1].dtype == torch.float32 and torch.equal(tensors[1], wn)
+    assert all(t.dtype == dtype for t in tensors[2:5])
+    assert tensors[8].dtype == torch.float32 and tensors[8].shape == (200,)
+    fp32 = dtype == torch.float32
+    assert (tmlp.norm_qkv.launches - before[0], tmlp.norm_qkv_f32.launches - before[1]) == (
+        (0, 1) if fp32 else (1, 0))
+    argtypes = tmlp._QKV_F32_ARGTYPES if fp32 else tmlp._QKV_ARGTYPES
+    assert len(argtypes) == 16 + (not fp32)
+
+
+def test_the_band_and_qkv_wrappers_refuse_other_dtypes(monkeypatch):
+    """fp16, and fp32 beside bf16 either way, raise in #9, #10 and #12
+    before any launch; #12f keeps the bf16 kernel's contract (D and the
+    widths multiples of 64)."""
+    card = FakeCard(monkeypatch)
+    monkeypatch.setattr(tfa, "_MODE", "band")
+    qs, k, v, do, seg, _, _ = _flash(torch.float16)
+    lse = torch.zeros(2, 2, 128)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_fwd(qs, k, v, seg, None, None, False, 64)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_bwd(qs, k, v, seg, None, None, qs, lse, do, None, False, 64)
+    f, h = qs.float(), qs.bfloat16()
+    with pytest.raises(NotImplementedError):  # fp32 q beside bf16 k and v
+        tfa.flash_fwd_band(f, h, h, seg, seg, False, 64)
+    with pytest.raises(NotImplementedError):  # bf16 q beside fp32 k and v
+        tfa.flash_fwd_band(h, f, f, seg, seg, False, 64)
+    with pytest.raises(NotImplementedError):  # an fp32 backward with a bf16 do
+        tfa.flash_bwd_band(f, f, f, seg, seg, f, lse, h, None, False, 64)
+    with pytest.raises(NotImplementedError):  # a bf16 backward with an fp32 out
+        tfa.flash_bwd_band(h, h, h, seg, seg, f, lse, h, None, False, 64)
+    x, wn, ws = _qkv(torch.float16)
+    with pytest.raises(NotImplementedError):
+        tmlp.norm_qkv(x, wn, *ws, 1e-6)
+    with pytest.raises(NotImplementedError):  # fp32 x beside bf16 weights
+        tmlp.norm_qkv(x.float(), wn, *(w.bfloat16() for w in ws), 1e-6)
+    with pytest.raises(NotImplementedError):  # bf16 x beside fp32 weights
+        tmlp.norm_qkv(x.bfloat16(), wn, *(w.float() for w in ws), 1e-6)
+    with pytest.raises(NotImplementedError):  # fp32 x beside one bf16 weight
+        tmlp.norm_qkv(x.float(), wn, ws[0].float(), ws[1].float(), ws[2].bfloat16(), 1e-6)
+    xf, wnf, wsf = _qkv(torch.float32, d=96, widths=(96, 64, 64))
+    with pytest.raises(NotImplementedError):  # D % 64 != 0
+        tmlp.norm_qkv(xf, wnf, *wsf, 1e-6)
+    xf, wnf, wsf = _qkv(torch.float32, widths=(128, 64, 32))
+    with pytest.raises(NotImplementedError):  # a width % 64 != 0
+        tmlp.norm_qkv(xf, wnf, *wsf, 1e-6)
+    assert card.calls == []
+
+
+def test_an_fp32_model_under_both_knobs_asks_for_the_band_and_qkv_entries(monkeypatch):
+    """A two-layer fp32 model (heads of 64, save_attn) under
+    GGT_FLASH_MODE=band and GGT_ATTN_NORM_FUSE=1: its training forward and
+    backward reach #9f once a layer (save_attn keeps its output for the
+    recompute), #10f once a layer, #12f twice a layer (the forward and the
+    recompute), #2f once a layer and #13f once a layer and for the final
+    norm (#12's adjoint), and nothing else: no bf16 entry, no other form."""
+    from graphgpt_torch.config import ModelConfig
+    from graphgpt_torch.models.heads import GraphGPTPretrain
+    from graphgpt_torch.synthetic import fake_batch, to_torch
+
+    card = FakeCard(monkeypatch)
+    monkeypatch.setattr(tfa, "_MODE", "band")
+    monkeypatch.setenv("GGT_ATTN_NORM_FUSE", "1")
+    cfg = ModelConfig(vocab_size=50, hidden_size=128, num_hidden_layers=2, stacked_feat=3,
+                      next_n_token=3, mask_token_id=1, dtype="float32", remat=True,
+                      remat_policy="save_attn").finalize()
+    assert cfg.head_dim == 64
+    model = GraphGPTPretrain(cfg, device="cpu", seed=0)
+    batch = to_torch(fake_batch(2, 128, 3, 50, np.random.default_rng(0)), "cpu")
+    counts = (tfa.flash_fwd_band_f32, tfa.flash_bwd_band_f32, tmlp.norm_qkv_f32,
+              tmlp.norm_mlp_f32, tmlp.rmsnorm_bwd_f32)
+    before = [c.launches for c in counts]
+    out = model(batch, generator=torch.Generator().manual_seed(0), train=True)
+    out["loss"].backward()
+    syms = _symbols(card)
+    want = {"ggt_flash_fwd_band_f32": 2, "ggt_flash_bwd_band_f32": 2, "ggt_norm_qkv_f32": 4,
+            "ggt_norm_mlp_f32": 2, "ggt_rmsnorm_bwd_f32": 3}
+    assert {s: syms.count(s) for s in set(syms)} == want, syms
+    assert [c.launches - n for c, n in zip(counts, before)] == [2, 2, 4, 2, 3]

@@ -9,11 +9,12 @@ out:
 
 Tolerances are in bf16, the kernels' working type: the kernels and the plain
 versions round at the same points but sum in another order. The fp32 forms
-of #1-#8, #11 and #13 (the tests at the end) are held to 2e-5 relative:
-fp32 sums of up to a few thousand terms in another order.
+of #1-#13 (the tests at the end) are held to 2e-5 relative: fp32 sums of
+up to a few thousand terms in another order.
 """
 
 import contextlib
+import ctypes
 
 import numpy as np
 import pytest
@@ -1807,10 +1808,12 @@ def _f32_step_vs_plain(model, batch, call):
     names = ("flash_fwd", "flash_bwd", "flash_dq", "flash_dkv", "flash_fwd_f32",
              "flash_bwd_f32", "flash_dq_f32", "flash_dkv_f32", "flash_fwd_stream",
              "flash_dq_stream", "flash_dkv_stream", "flash_fwd_stream_f32",
-             "flash_dq_stream_f32", "flash_dkv_stream_f32")
+             "flash_dq_stream_f32", "flash_dkv_stream_f32", "flash_fwd_band", "flash_bwd_band",
+             "flash_fwd_band_f32", "flash_bwd_band_f32")
     counts = {n: getattr(tfa, n) for n in names}
     counts.update({n: getattr(tmlp, n) for n in ("mlp", "norm_mlp", "rmsnorm_bwd", "mlp_f32",
-                                                 "norm_mlp_f32", "rmsnorm_bwd_f32")})
+                                                 "norm_mlp_f32", "rmsnorm_bwd_f32", "norm_qkv",
+                                                 "norm_qkv_f32")})
 
     def step():
         model.zero_grad(set_to_none=True)
@@ -2055,13 +2058,15 @@ def test_an_fp32_model_trains_on_the_fp32_stream_kernels(cuda_device, mode, p, m
 
 
 # #2f's and #3f's digests (split_probe's f32_digest) from the bodies before
-# #11f and the split pair joined their sources, and #1f's, #4f's and #5f's
-# from the bodies before the stream forms joined theirs: `split_probe
-# --kernel mlp_f32`, `--kernel fwd_f32` and `--kernel bwd_f32` with --source
-# on those commits' csrc/, on an NVIDIA H100 80GB HBM3, at split_probe's
-# inputs (f32_mlp_inputs, gelu; inputs in fp32 on packed rows, no lse
-# cotangent). The templated norm_mlp_f32.cu and flash_fwd_f32.cu and the
-# shared passes of flash_bwd_f32.cu keep them.
+# #11f and the split pair joined their sources, #1f's, #4f's and #5f's from
+# the bodies before the stream forms joined theirs, and #11f's and the
+# stream forms' from the bodies before the band forms and #12f joined
+# theirs: `split_probe --kernel mlp_f32`, `--kernel fwd_f32` and `--kernel
+# bwd_f32` with --source on those commits' csrc/, on an NVIDIA H100 80GB
+# HBM3, at split_probe's inputs (f32_mlp_inputs, gelu; inputs in fp32 on
+# packed rows, no lse cotangent; the stream forms on the query ids as key
+# ids). The templated norm_mlp_f32.cu and flash_fwd_f32.cu and the shared
+# passes of flash_bwd_f32.cu keep them.
 _F32_PARENT_DIGESTS = {
     ("norm_mlp_f32", "N8192"): -98387183775274,
     ("norm_mlp_f32", "N1024"): -2074798766708,
@@ -2073,6 +2078,11 @@ _F32_PARENT_DIGESTS = {
     ("flash_dkv_f32", "denoise B256 P88"): -2976345741893214,
     ("flash_dq_f32", "B8 P1024 bi16"): -249146506611422,
     ("flash_dkv_f32", "B8 P1024 bi16"): -672921714631544,
+    ("mlp_f32", "N8192"): -225411978267659,
+    ("mlp_f32", "N1024"): -3611697443544,
+    ("flash_fwd_stream_f32", "B8 P1024"): -165906643651216,
+    ("flash_dq_stream_f32", "B8 P1024"): -249067995751735,
+    ("flash_dkv_stream_f32", "B8 P1024"): -670983982973380,
 }
 # #6f's, #7f's and #8f's digests at the long-context shape as their first
 # build gave them (split_probe --kernel fwd_f32 / bwd_f32, the same card):
@@ -2112,15 +2122,20 @@ def _f32_attention_digest(form, shape, dev):
 @pytest.mark.parametrize("form,shape", list(_F32_PARENT_DIGESTS))
 def test_fp32_forms_keep_the_bits_of_their_bodies_before_the_new_forms(cuda_device, form,
                                                                         shape):
-    """#2f through norm_mlp, #1f, #3f and the pair #4f / #5f through their
-    wrappers on fp32 tensors give the bits their bodies gave before #11f,
-    #4f / #5f and the stream forms #6f-#8f were added beside them."""
+    """#2f and #11f through norm_mlp and mlp, #1f, #3f, the pair #4f / #5f
+    and the stream forms #6f-#8f through their wrappers on fp32 tensors
+    give the bits their bodies gave before #11f, #4f / #5f, the stream
+    forms, and the band forms #9f, #10f and #12f were added beside them."""
     from graphgpt_torch.ops import split_probe as sp
 
     dev = cuda_device
     if form == "norm_mlp_f32":
         x, wn, wg, wu, wd = sp.f32_mlp_inputs(*sp.MLP_F32_SHAPES[shape], dev)
         digest = sp.f32_digest(tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, "gelu"))
+        torch.cuda.synchronize()
+    elif form == "mlp_f32":
+        x, _, wg, wu, wd = sp.f32_mlp_inputs(*sp.MLP_F32_SHAPES[shape], dev)
+        digest = sp.f32_digest(tmlp.mlp(x, wg, wu, wd, "gelu"))
         torch.cuda.synchronize()
     else:
         digest = _f32_attention_digest(form, shape, dev)
@@ -2133,3 +2148,266 @@ def test_fp32_stream_forms_keep_their_bits(cuda_device, form):
     """#6f, #7f and #8f through flash_fwd_stream, flash_dq_stream and
     flash_dkv_stream at B 16 x P 4096 give the bits of their first build."""
     assert _f32_attention_digest(form, "B16 P4096", cuda_device) == _F32_STREAM_DIGESTS[form]
+
+
+# ---- the fp32 forms of the knobs' kernels: #9 and #10 (flash_fwd_f32.cu's
+# and flash_bwd_f32.cu's band forms, GGT_FLASH_MODE=band) and #12
+# (norm_mlp_f32.cu's qkv kernel, GGT_ATTN_NORM_FUSE=1)
+
+# (B, P, H, key ids, mask) of the band forms' cases: phase P(a)'s shapes cut
+# small (the serving rows, causal, another row's ids, the denoise batch,
+# the long-context rows), and a ragged last tile
+_F32_BAND_CASES = {
+    "P1024": (2, 1024, 12, "same", "bidirectional"),
+    "P1024-causal": (2, 1024, 12, "same", "causal"),
+    "P1024-other": (2, 1024, 12, "other", "bidirectional"),
+    "P88-bicausal": (4, 88, 12, "same", "bi-causal"),
+    "P4096": (1, 4096, 2, "same", "bidirectional"),
+    "P1000-other-causal": (2, 1000, 3, "other", "causal"),
+}
+_F32_BAND_COUNTS = ("flash_fwd_band", "flash_bwd_band", "flash_fwd_band_f32",
+                    "flash_bwd_band_f32", "flash_fwd_stream_f32", "flash_dq_stream_f32",
+                    "flash_dkv_stream_f32", "flash_fwd_f32", "flash_bwd_f32")
+
+
+def _f32_band_inputs(case, dev, seed=29):
+    """(qs, k, v, do, seg_q, seg_k) of an _F32_BAND_CASES case in fp32, q and
+    k as the band route hands them over (rotated: no cos, sin): packed rows
+    with 40 positions of the last row padded (the denoise batch: molecules
+    and their bit slots); "other" key ids: _f32_stream_inputs' (a segment's
+    keys made padding, another's given an id no query has)."""
+    b, p, h, keys, mask = _F32_BAND_CASES[case]
+    dh = 64
+    rng = np.random.default_rng(seed)
+
+    def f32(scale):
+        return torch.from_numpy((rng.normal(size=(b, p, h * dh)) * scale)
+                                .astype(np.float32)).to(dev)
+
+    qs, k, v, do = f32(0.5 * dh**-0.5), f32(0.5), f32(0.5), f32(0.5)
+    if mask == "bi-causal":
+        seg = _denoise_row_segments(b, p, 16, rng)
+    else:
+        seg = packed_segments(b, p, rng)
+        seg[-1, p - 40:] = 0
+    seg_k = seg
+    if keys == "other":
+        seg_k = np.zeros_like(seg)
+        seg_k[:, :-1] = seg[:, 1:]
+        seg_k[seg_k == 3] = 0
+        seg_k[seg_k == 5] = 10**6
+    seg = torch.from_numpy(seg).to(dev)
+    return qs, k, v, do, seg, seg if keys == "same" else torch.from_numpy(seg_k).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_F32_BAND_CASES))
+def test_fp32_band_kernels_match_plain(cuda_device, case):
+    """#9's and #10's fp32 forms through flash_fwd_band and flash_bwd_band
+    (with its delta and a cotangent of lse) against their plain versions in
+    fp32 (TF32 off): out, lse, delta, dq, dk, dv within F32_REL, the TF32
+    controls of out, dq, dk, dv past it; both band tables equal
+    band_limits; padded query rows and rows that see no key give out 0, lse
+    -1e30, dq 0; keys that no query sees dk = dv = 0; one launch of each
+    fp32 band form and of nothing else; a relaunch gives the same bits."""
+    dev = cuda_device
+    causal, bi = _STREAM_MASKS[_F32_BAND_CASES[case][4]]
+    qs, k, v, do, seg, seg_k = _f32_band_inputs(case, dev)
+    b, p, hd = qs.shape
+    valid = seg > 0
+    dlse = torch.from_numpy(np.random.default_rng(3).normal(size=(b, hd // 64, p))
+                            .astype(np.float32)).to(dev) * 0.1 * valid[:, None, :]
+    fwd_args = (qs, k, v, seg, seg_k, causal, 64, bi)
+    counts = [getattr(tfa, n) for n in _F32_BAND_COUNTS]
+    before = [c.launches for c in counts]
+    faux, baux = {}, {}
+    out, lse = tfa.flash_fwd_band(*fwd_args, aux=faux)
+    bwd_args = (qs, k, v, seg, seg_k, out, lse, do, dlse, causal, 64, bi)
+    dq, dk, dv = tfa.flash_bwd_band(*bwd_args, aux=baux)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counts, before)] == [0, 0, 1, 1, 0, 0, 0, 0, 0]
+    assert torch.equal(faux["table"], tfa.band_limits(seg, seg_k))
+    assert torch.equal(baux["table_k"], tfa.band_limits(seg_k, seg))
+    with ops.reference_mode():
+        rout, rlse = tfa.flash_fwd_band(*fwd_args)
+        rdq, rdk, rdv = tfa.flash_bwd_band(*bwd_args, aux=(raux := {}))
+        with _tf32():
+            tout = tfa.flash_fwd_band(*fwd_args)[0]
+            tdq, tdk, tdv = tfa.flash_bwd_band(*bwd_args)
+    seen_q, seen_k = [], []
+    for r in range(b):
+        m = tfa._valid_mask(seg[r : r + 1], causal, bi, seg_k[r : r + 1])[0, 0]
+        seen_q.append(m.any(dim=1))
+        seen_k.append(m.any(dim=0))
+    seen_q, seen_k = torch.stack(seen_q), torch.stack(seen_k)
+    assert bool(seen_q.any()) and bool(seen_k.any())
+    lse_rows = lse.transpose(1, 2)
+    assert _rel(lse_rows[seen_q], rlse.transpose(1, 2)[seen_q]) < F32_REL
+    assert bool((lse_rows[~seen_q] == -1e30).all()) and bool((out[~seen_q] == 0).all())
+    assert _rel(baux["delta"], raux["delta"]) < F32_REL
+    for name, g, r, t in zip(("out", "dq", "dk", "dv"), (out, dq, dk, dv), (rout, rdq, rdk, rdv),
+                             (tout, tdq, tdk, tdv)):
+        assert g.dtype == torch.float32 and _rel(g, r) < F32_REL, name
+        assert _rel(t, r) > F32_REL, name
+    assert bool((dq[~seen_q] == 0).all())
+    assert bool((dk[~seen_k] == 0).all()) and bool((dv[~seen_k] == 0).all())
+    again_aux = {}
+    again = (*tfa.flash_fwd_band(*fwd_args), *tfa.flash_bwd_band(*bwd_args, aux=again_aux))
+    assert all(torch.equal(a, g) for a, g in zip(again, (out, lse, dq, dk, dv)))
+    assert torch.equal(again_aux["delta"], baux["delta"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["P1024", "P88-bicausal", "P1000-other-causal"])
+def test_fp32_band_backward_ignores_non_finite_do_in_padded_rows(cuda_device, case):
+    """inf and NaN in do's padded rows change no bit of #10f's dq, dk, dv
+    or its delta."""
+    dev = cuda_device
+    causal, bi = _STREAM_MASKS[_F32_BAND_CASES[case][4]]
+    qs, k, v, do, seg, seg_k = _f32_band_inputs(case, dev, seed=31)
+    out, lse = tfa.flash_fwd_band(qs, k, v, seg, seg_k, causal, 64, bi)
+    pad = (seg == 0)[..., None]
+    assert bool(pad.any())
+    clean = torch.where(pad, torch.zeros_like(do), do)
+    noisy = clean.clone()
+    noisy[pad.expand_as(noisy)] = float("nan")
+    noisy[-1][pad[-1, :, 0]] = float("inf")
+    runs = []
+    for d in (clean, noisy):
+        aux = {}
+        runs.append((*tfa.flash_bwd_band(qs, k, v, seg, seg_k, out, lse, d, None, causal, 64,
+                                         bi, aux=aux), aux["delta"]))
+    torch.cuda.synchronize()
+    for a, n in zip(*runs):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["P1024", "P1024-causal", "P1024-other", "P88-bicausal",
+                                  "P4096"])
+def test_fp32_band_forms_give_the_bits_of_the_other_forms(cuda_device, case):
+    """A key tile outside the band holds no visible pair, so the band forms
+    give the stream forms' bits (#9f #6f's; #10f's dq and delta #7f's, its
+    dk and dv #8f's) on the same ids, and on one id array the single forms'
+    (#1f's; #3f's without a split, #4f's and #5f's with one)."""
+    dev = cuda_device
+    causal, bi = _STREAM_MASKS[_F32_BAND_CASES[case][4]]
+    qs, k, v, do, seg, seg_k = _f32_band_inputs(case, dev, seed=37)
+    out, lse = tfa.flash_fwd_band(qs, k, v, seg, seg_k, causal, 64, bi)
+    aux = {}
+    dq, dk, dv = tfa.flash_bwd_band(qs, k, v, seg, seg_k, out, lse, do, None, causal, 64, bi,
+                                    aux=aux)
+    sout, slse = tfa.flash_fwd_stream(qs, k, v, seg, seg_k, None, None, causal, 64, bi)
+    sdq, sdelta = tfa.flash_dq_stream(qs, k, v, seg, seg_k, None, None, out, lse, do, None,
+                                      causal, 64, bi)
+    sdk, sdv = tfa.flash_dkv_stream(qs, k, v, seg, seg_k, None, None, lse, sdelta, do, causal,
+                                    64, bi)
+    torch.cuda.synchronize()
+    assert torch.equal(out, sout) and torch.equal(lse, slse)
+    assert all(torch.equal(a, b) for a, b in zip((dq, aux["delta"], dk, dv),
+                                                 (sdq, sdelta, sdk, sdv)))
+    if seg_k is not seg:
+        return
+    one = tfa.flash_fwd_f32(qs, k, v, seg, None, None, causal, 64, bi)
+    if bi:
+        qd, qdelta = tfa.flash_dq_f32(qs, k, v, seg, None, None, out, lse, do, None, causal, 64,
+                                      bi)
+        grads = (qd, qdelta, *tfa.flash_dkv_f32(qs, k, v, seg, None, None, lse, qdelta, do,
+                                                causal, 64, bi))
+        mine = (dq, aux["delta"], dk, dv)
+    else:
+        grads = tfa.flash_bwd_f32(qs, k, v, seg, None, None, out, lse, do, None, causal, 64)
+        mine = (dq, dk, dv)
+    torch.cuda.synchronize()
+    assert torch.equal(one[0], out) and torch.equal(one[1], lse)
+    assert all(torch.equal(a, b) for a, b in zip(mine, grads))
+
+
+# (N, D, q, k, v widths) of #12f's cases: the serving rows, a ragged row
+# tile, GQA, toy_pretrain's D 128, the widest hidden size
+_F32_QKV_CASES = {
+    "N8192": (8192, 768, (768, 768, 768)),
+    "N65537": (65537, 768, (768, 768, 768)),
+    "gqa": (4096, 768, (768, 256, 256)),
+    "toy": (1024, 128, (128, 128, 128)),
+    "d1600": (1000, 1600, (1600, 1600, 1600)),
+    "n1": (1, 128, (128, 64, 64)),
+}
+RRMS_REL = 1e-5  # fp32 sums of D squares in another order, 1 / sqrtf against torch.rsqrt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_F32_QKV_CASES))
+def test_fp32_norm_qkv_kernel_matches_plain(cuda_device, case):
+    """#12's fp32 form through norm_qkv against its plain version in fp32
+    (TF32 off): q, k, v within F32_REL, the TF32 control past it (inputs
+    drawn in fp32, so that TF32 rounds them), its rrms pre-pass within
+    RRMS_REL of the plain statistics, one fp32 launch a call and no bf16
+    one, bit-equal on a relaunch."""
+    from graphgpt_torch.ops import _build
+
+    dev = cuda_device
+    n, d, widths = _F32_QKV_CASES[case]
+    rng = np.random.default_rng(41)
+
+    def f32(shape, scale, loc=0.0):
+        return torch.from_numpy((loc + rng.normal(size=shape) * scale).astype(np.float32)).to(dev)
+
+    x, wn = f32((n, d), 1.0), f32((d,), 0.1, 1.0)
+    ws = [f32((w, d), 0.55 / d**0.5) for w in widths]
+    before = (tmlp.norm_qkv.launches, tmlp.norm_qkv_f32.launches)
+    got = tmlp.norm_qkv(x, wn, *ws, 1e-6)
+    torch.cuda.synchronize()
+    assert (tmlp.norm_qkv.launches, tmlp.norm_qkv_f32.launches) == (before[0], before[1] + 1)
+    with ops.reference_mode():
+        want = tmlp.norm_qkv(x, wn, *ws, 1e-6)
+        with _tf32():
+            tf = tmlp.norm_qkv(x, wn, *ws, 1e-6)
+    for name, g, r, t in zip("qkv", got, want, tf):
+        assert g.dtype == torch.float32 and g.shape == (n, r.shape[1]), name
+        assert _rel(g, r) < F32_REL, name
+        if n > 1:
+            assert _rel(t, r) > F32_REL, name
+    assert all(torch.equal(a, b) for a, b in zip(tmlp.norm_qkv(x, wn, *ws, 1e-6), got))
+    rr = torch.empty(n, device=dev)
+    fn = _build.entry("norm_mlp_f32", "ggt_norm_qkv_f32_rrms",
+                      [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_float,
+                                                                     ctypes.c_void_p])
+    _build.check(fn(_build.ptr(x), _build.ptr(rr), n, d, 1e-6, _build.stream_ptr(dev)), "rrms")
+    torch.cuda.synchronize()
+    plain = torch.rsqrt(x.pow(2).mean(-1) + 1e-6)
+    assert ((rr - plain).abs().max() / plain.abs().max()).item() <= RRMS_REL
+
+
+@pytest.mark.gpu
+def test_fp32_norm_qkv_kernel_takes_no_rows(cuda_device):
+    """N 0 gives empty fp32 q, k, v and launches nothing."""
+    dev = cuda_device
+    x = torch.zeros(0, 768, device=dev)
+    ws = [torch.zeros(w, 768, device=dev) for w in (768, 256, 256)]
+    before = tmlp.norm_qkv_f32.launches
+    out = tmlp.norm_qkv(x, torch.ones(768, device=dev), *ws, 1e-6)
+    assert [tuple(o.shape) for o in out] == [(0, 768), (0, 256), (0, 256)]
+    assert tmlp.norm_qkv_f32.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [128, 1024])
+def test_an_fp32_model_trains_under_both_knobs(cuda_device, p, monkeypatch):
+    """A two-layer fp32 model (heads of 64, save_attn) under
+    GGT_FLASH_MODE=band and GGT_ATTN_NORM_FUSE=1: a training step launches
+    #9f, #10f and #2f once a layer, #12f twice a layer (the forward and the
+    save_attn recompute), #13f once a layer and for the final norm, nothing
+    else; its loss and every gradient within 1e-5 and 1e-4 of the plain
+    fp32 run."""
+    dev = cuda_device
+    monkeypatch.setattr(tfa, "_MODE", "band")
+    monkeypatch.setenv("GGT_ATTN_NORM_FUSE", "1")
+    cfg = _tiny_cfg(num_attention_heads=2, num_key_value_heads=2, intermediate_size=512,
+                    dtype="float32", remat=True, remat_policy="save_attn")
+    model = GraphGPTPretrain(cfg, device=dev, seed=0)
+    batch = to_torch(fake_batch(2, p, 3, 50, np.random.default_rng(4)), dev)
+    got, run, ref = _f32_step_vs_plain(model, batch, dict)
+    assert got == {"flash_fwd_band_f32": 2, "flash_bwd_band_f32": 2, "norm_qkv_f32": 4,
+                   "norm_mlp_f32": 2, "rmsnorm_bwd_f32": 3}
+    _assert_f32_step(run, ref)
