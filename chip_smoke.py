@@ -192,7 +192,8 @@
    layers take #11).
 7h. Phase N, float32 fine-tuning and denoising: the fp32 forms of #11
    (norm_mlp_f32.cu's form without the norm and the residual) and of the
-   split pair #4, #5 (flash_bwd_f32.cu's query and key passes), to which
+   split pair #4, #5 (flash_bwd_split_f32.cu: a persistent TMA ring and
+   3xTF32 products on the tensor cores, delta summed in #4f), to which
    mlp, flash_dq and flash_dkv hand fp32 tensors. (a) The fine-tune of
    step 7 (GraphGPT-base, LayerScale, DropPath, attention dropout, pairs
    remat, 256 graphs a batch on synthetic_mol) at model.dtype=float32
@@ -315,10 +316,10 @@
    query rows that see no key and keys that no query sees exactly 0), both
    band tables equal to band_limits, inf and NaN in do's padded rows
    changing no output bit, and bit for bit the other fp32 forms on the same
-   rows (#6f, #7f + #8f; on one id array #1f and #3f, or #4f and #5f with
-   a split); timed at 8 x 1024 and 16 x 4096 beside the bound, the FFMA
-   bound, the plain version, SDPA in fp32 with the band's boolean mask and
-   the other fp32 forms at the same shape. #12f at N 8,192 (D 768, widths
+   rows (#6f, #7f + #8f; on one id array #1f and #3f), within F32_REL of
+   #4f and #5f with a split (another body); timed at 8 x 1024 and 16 x
+   4096 beside the bound, the FFMA bound, the plain version, SDPA in fp32
+   with the band's boolean mask and the other fp32 forms at the same shape. #12f at N 8,192 (D 768, widths
    3 x 768; timed beside F.rms_norm + one fp32 matmul), N 65,537, GQA
    768/256/256 and toy_pretrain's D 128, each also with its rrms pre-pass
    within RRMS_REL. (b) GraphGPT-base at model.dtype=float32 under both
@@ -5755,7 +5756,8 @@ def f32_band_check(fa, ops, tag, qs, k, v, seg_q, seg_k, do, causal: bool, bi: i
     -1e30), keys that no query sees exactly 0; a relaunch bit for bit; inf
     and NaN in do's padded rows changing no output bit of #10f; then the
     other fp32 forms on the same rows bit for bit: #6f, #7f, #8f, and on one
-    id array #1f and #3f (#4f, #5f with a split). Returns {"fwd": (largest
+    id array #1f and #3f; with a split #4f and #5f (flash_bwd_split_f32.cu,
+    another body) within F32_REL. Returns {"fwd": (largest
     elementwise error, relative error, TF32 control), "bwd": ...}."""
     dh = 64
     fwd = (qs, k, v, seg_q, seg_k, causal, dh, bi)
@@ -5833,19 +5835,22 @@ def f32_band_check(fa, ops, tag, qs, k, v, seg_q, seg_k, do, causal: bool, bi: i
     single = "one id array: no single form"
     if seg_k is seg_q:
         one = fa.flash_fwd_f32(qs, k, v, seg_q, None, None, causal, dh, bi)
+        same.append(torch.equal(one[0], out) and torch.equal(one[1], lse))
         if bi:
+            # #4f and #5f are another body (3xTF32 products): within F32_REL
             o_dq, o_delta = fa.flash_dq_f32(qs, k, v, seg_q, None, None, out, lse, do, None,
                                             causal, dh, bi)
             o_grads = (o_dq, o_delta, *fa.flash_dkv_f32(qs, k, v, seg_q, None, None, lse, o_delta,
                                                         do, causal, dh, bi))
-            mine, names = (dq, delta, dk, dv), "#4f, #5f"
+            rels = [rel_err(a, b) for a, b in zip((dq, delta, dk, dv), o_grads)]
+            same.append(max(rels) <= F32_REL)
+            single = (f"#1f {same[2]}; #4f, #5f within {F32_REL}: "
+                      + " ".join(f"{n} {r:.3e}" for n, r in zip(("dq", "delta", "dk", "dv"), rels)))
         else:
             o_grads = fa.flash_bwd_f32(qs, k, v, seg_q, None, None, out, lse, do, None, causal,
                                        dh)
-            mine, names = (dq, dk, dv), "#3f"
-        same += [torch.equal(one[0], out) and torch.equal(one[1], lse),
-                 all(torch.equal(a, b) for a, b in zip(o_grads, mine))]
-        single = f"#1f {same[2]}, {names} {same[3]}"
+            same.append(all(torch.equal(a, b) for a, b in zip(o_grads, (dq, dk, dv))))
+            single = f"#1f {same[2]}, #3f {same[3]}"
     torch.cuda.synchronize()
     print(f"flash_fwd_band_f32/flash_bwd_band_f32[{where}]: band tables == band_limits {tables}; "
           f"inf and NaN in do's {int(pad.sum())} padded rows change no output bit {quiet}; bit "
@@ -6155,7 +6160,8 @@ def main() -> None:
     # flash_fwd.cu's log must show its three forms, flash_bwd.cu's its two,
     # the fp32 forward's and passes' two each
     for name in ("norm_qkv", "norm_mlp", "mlp", "flash_bwd_split", "flash_fwd", "flash_bwd",
-                 "rmsnorm_bwd", "flash_fwd_f32", "flash_bwd_f32", "norm_mlp_f32"):
+                 "rmsnorm_bwd", "flash_fwd_f32", "flash_bwd_f32", "norm_mlp_f32",
+                 "flash_bwd_split_f32"):
         if re.search(r"[1-9]\d* bytes spill|C751[0-9]", logs.get(name, "")):
             fail(f"ptxas spilled in {name}.cu or serialised its wgmma (see the build lines above)")
     for name, kernel, want in (("flash_fwd", "fwd_kernel", ["0", "1", "2"]),
@@ -6569,7 +6575,7 @@ def main() -> None:
     for name, kind, line in (("flash_dq_f32", "dq", 602), ("flash_dkv_f32", "dkv", 789)):
         r, rp = ndn["denoise"][kind], ndn["p1024"][kind]
         kernels.append(entry(
-            name, "flash_bwd_f32.cu", f"flash_attention.py:{line}",
+            name, "flash_bwd_split_f32.cu", f"flash_attention.py:{line}",
             dict(r, err=max(r["err"], rp["err"])), {"rel": F32_REL},
             rel_err=max(r["rel"], rp["rel"]), tf32_control_rel=min(r["tf32_rel"], rp["tf32_rel"]),
             ffma_bound_ms=r["ffma_bound_ms"], tflops=r["tflops"],

@@ -1,10 +1,10 @@
 // Segment-masked flash attention backward in fp32, for Hopper: the fused
-// backward #3, the split pair #4 / #5, the streamed pair #7 / #8 and the
-// band backward #10 on one set of passes.
+// backward #3, the streamed pair #7 / #8 and the band backward #10 on one
+// set of passes. (The split pair #4 / #5 is flash_bwd_split_f32.cu's.)
 //
 // Replaces graphgpt_tpu/ops/flash_attention.py:706 _bwd_kernel_fused,
-// :602 _dq_kernel_single, :789 _dkv_kernel_single, :645 _dq_kernel_stream,
-// :835 _dkv_kernel_stream and :484 _bwd_kernel_band when they are given
+// :645 _dq_kernel_stream, :835 _dkv_kernel_stream and :484
+// _bwd_kernel_band when they are given
 // fp32 (a `model.dtype: float32` model): there their products, p = exp(S
 // - lse) and ds = p * (do v^T - delta) stay fp32 (the casts to the working
 // dtype, :764-770, change nothing). The bf16 forms are csrc/flash_bwd.cu
@@ -19,9 +19,9 @@
 // any sum, so that a non-finite value there reaches no output; a padded
 // row takes no part, and so does a query row that sees no key (possible
 // only with ids of the keys' own); a key that no query sees gets dk = dv =
-// 0. #3 takes the bidirectional and causal masks; the pairs and #10 also
+// 0. #3 takes the bidirectional and causal masks; the pair and #10 also
 // the bi-causal one (`bi_split` bit slots, whose split may fall inside a
-// 64-row tile): #4 and #7 write delta beside dq, #5 and #8 read it.
+// 64-row tile): #7 writes delta beside dq, #8 reads it.
 //
 // What bounds it on the H100: operations, as for the forward
 // (flash_fwd_f32.cu): fp32-accurate products at 165 TFLOP/s (3xTF32) or
@@ -33,9 +33,9 @@
 // tiles which can see it and sums dk = ds^T q and dv = p^T do in
 // registers; the query pass, a block a (row, head, 64-query tile) that
 // walks the key tiles it sees and sums dq = ds k. Each pass computes S and
-// do v^T again for its tile pairs. #3 is all three; #4 is delta and the
-// query pass, #5 the key pass; #7 and #8 are #4 and #5 in the passes'
-// stream form, which reads the key tiles' ids from seg_k; #10 is all three
+// do v^T again for its tile pairs. #3 is all three; #7 is delta and the
+// query pass in the passes' stream form, which reads the key tiles' ids
+// from seg_k, #8 the key pass in it; #10 is all three
 // in the band form, the stream form walking only the tiles of a band: the
 // query pass the key tiles of its query tile's band, the key pass the
 // query tiles of its key tile's band (band_limits(seg_k, seg), the second
@@ -43,8 +43,7 @@
 // template value picks the form, so that the other forms compile as before
 // and keep their bits. A tile outside a band holds no pair of matching
 // ids, so it adds p = 0 and ds = 0 to the sums: the band form gives the
-// stream forms' bits, and on one id array #3's (#4's and #5's with a
-// split). The passes walk 64-row tiles at any P, so the stream and band
+// stream forms' bits, and on one id array #3's. The passes walk 64-row tiles at any P, so the stream and band
 // forms take any P as the others do. Tiles are fp32 in shared memory, the
 // products FFMA (flash_f32.cuh).
 
@@ -307,7 +306,7 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v, const int*
   return cudaSuccess;
 }
 
-// delta, then the query pass of form FORM: #4's and #7's fp32 forms.
+// delta, then the query pass of form FORM: #7's fp32 form (form STREAM).
 template <int FORM>
 int dq_entry(const void* q, const void* k, const void* v, const void* seg, const void* seg_k,
              const void* cos, const void* sin, const void* out, const void* lse,
@@ -324,7 +323,7 @@ int dq_entry(const void* q, const void* k, const void* v, const void* seg, const
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// The key pass of form FORM: #5's and #8's fp32 forms.
+// The key pass of form FORM: #8's fp32 form (form STREAM).
 template <int FORM>
 int dkv_entry(const void* q, const void* k, const void* v, const void* seg, const void* seg_k,
               const void* cos, const void* sin, const void* lse, const void* delta,
@@ -366,32 +365,8 @@ extern "C" int ggt_flash_bwd_f32(const void* q, const void* k, const void* v, co
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// C entry for ctypes: #4's fp32 form (delta, then the query pass: dq and
-// delta, which #5 reads) on `stream`; returns the first CUDA error. Masks:
-// bidirectional, causal, or bi-causal with `bi_split` bit slots. cos, sin
-// and dlse may be null. Any P.
-extern "C" int ggt_flash_dq_f32(const void* q, const void* k, const void* v, const void* seg,
-                                const void* cos, const void* sin, const void* out,
-                                const void* lse, const void* dout, const void* dlse, void* delta,
-                                void* dq, int B, int P, int H, int causal, int bi_split,
-                                void* stream) {
-  return dq_entry<SINGLE>(q, k, v, seg, nullptr, cos, sin, out, lse, dout, dlse, delta, dq, B, P,
-                         H, causal, bi_split, stream);
-}
-
-// C entry for ctypes: #5's fp32 form (the key pass: dk, dv, reading #4's
-// delta) on `stream`; returns the first CUDA error. cos and sin may be
-// null. Any P.
-extern "C" int ggt_flash_dkv_f32(const void* q, const void* k, const void* v, const void* seg,
-                                 const void* cos, const void* sin, const void* lse,
-                                 const void* delta, const void* dout, void* dk, void* dv, int B,
-                                 int P, int H, int causal, int bi_split, void* stream) {
-  return dkv_entry<SINGLE>(q, k, v, seg, nullptr, cos, sin, lse, delta, dout, dk, dv, B, P, H,
-                          causal, bi_split, stream);
-}
-
-// C entries for ctypes: #7's and #8's fp32 forms, #4's and #5's with query
-// ids segq and key ids segk (one array twice for a model's rows); delta is
+// C entries for ctypes: #7's and #8's fp32 forms, the query and key passes
+// with query ids segq and key ids segk (one array twice for a model's rows); delta is
 // summed over do zeroed where segq is 0. They take the bf16 entries'
 // arguments; `tab`, the bf16 forms' tile-table scratch, is not read: each
 // block tests its tile pairs itself (tiles_miss). Any P.

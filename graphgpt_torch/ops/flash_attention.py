@@ -44,8 +44,9 @@ any value it does not know for `legacy`.
 
 Dtypes: every kernel takes bf16, and fp32 (a `model.dtype: float32`
 model) in forms of its own: #1's, #6's and #9's in
-`csrc/flash_fwd_f32.cu`, #3's, both pairs' and #10's in the passes of
-`csrc/flash_bwd_f32.cu`, each with its wrapper and its count
+`csrc/flash_fwd_f32.cu`, #3's, the streamed pair's and #10's in the passes
+of `csrc/flash_bwd_f32.cu`, the split pair's in `csrc/flash_bwd_split_f32.cu`
+(3xTF32 products on the tensor cores), each with its wrapper and its count
 (flash_fwd_f32, flash_bwd_f32, flash_dq_f32, flash_dkv_f32,
 flash_fwd_stream_f32, flash_dq_stream_f32, flash_dkv_stream_f32,
 flash_fwd_band_f32, flash_bwd_band_f32), to which flash_fwd, flash_bwd,
@@ -738,14 +739,14 @@ def _dq_split(name, source, symbol, dtype, qs, k, v, seg, cos, sin, out, lse, do
 
 def flash_dq_f32(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal: bool, dh: int,
                  bi_causal_split: int = 0):
-    """(dq, delta) of #4's fp32 form (`csrc/flash_bwd_f32.cu`: delta, then
-    the query pass; counted as one call) for fp32 CUDA tensors, cos and sin
-    kept fp32; the plain route for a CPU tensor (or inside
+    """(dq, delta) of #4's fp32 form (`csrc/flash_bwd_split_f32.cu`'s
+    flash_dq: delta summed in the kernel, one launch) for fp32 CUDA tensors,
+    cos and sin kept fp32; the plain route for a CPU tensor (or inside
     ops.reference_mode()). P <= MAX_P, as flash_dq."""
     if not use_kernel(qs, k, v, seg, out, lse, do):
         return _dq_plain(qs, k, v, seg, cos, sin, out, lse, do, dlse, causal, dh,
                          bi_causal_split)
-    dq, delta, err = _dq_split("flash_dq_f32", "flash_bwd_f32", "ggt_flash_dq_f32",
+    dq, delta, err = _dq_split("flash_dq_f32", "flash_bwd_split_f32", "ggt_flash_dq_f32",
                                torch.float32, qs, k, v, seg, cos, sin, out, lse, do, dlse,
                                causal, dh, bi_causal_split)
     flash_dq_f32.launches += 1
@@ -800,14 +801,14 @@ def _dkv_split(name, source, symbol, dtype, qs, k, v, seg, cos, sin, lse, delta,
 
 def flash_dkv_f32(qs, k, v, seg, cos, sin, lse, delta, do, causal: bool, dh: int,
                   bi_causal_split: int = 0):
-    """(dk, dv) of #5's fp32 form (`csrc/flash_bwd_f32.cu`'s key pass,
-    reading flash_dq_f32's delta) for fp32 CUDA tensors, cos and sin kept
-    fp32; the plain version for a CPU tensor (or inside
+    """(dk, dv) of #5's fp32 form (`csrc/flash_bwd_split_f32.cu`'s
+    flash_dkv, reading flash_dq_f32's delta) for fp32 CUDA tensors, cos and
+    sin kept fp32; the plain version for a CPU tensor (or inside
     ops.reference_mode()). P <= MAX_P, as flash_dkv."""
     if not use_kernel(qs, k, v, seg, lse, delta, do):
         return flash_dkv_ref(qs, k, v, seg, cos, sin, lse, delta, do, causal, dh,
                              bi_causal_split)
-    dk, dv, err = _dkv_split("flash_dkv_f32", "flash_bwd_f32", "ggt_flash_dkv_f32",
+    dk, dv, err = _dkv_split("flash_dkv_f32", "flash_bwd_split_f32", "ggt_flash_dkv_f32",
                              torch.float32, qs, k, v, seg, cos, sin, lse, delta, do, causal, dh,
                              bi_causal_split)
     flash_dkv_f32.launches += 1

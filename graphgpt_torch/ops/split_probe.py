@@ -9,8 +9,9 @@ MLPs #11 and #2 (`--kernel mlp`, `--kernel norm_mlp`: `csrc/mlp.cu`,
 `csrc/norm_mlp.cu` with `csrc/mlp_common.cuh`) and the RMSNorm backward #13
 (`--kernel rmsnorm_bwd`, `csrc/rmsnorm_bwd.cu`), and the fp32 forms #2f,
 #11f and #12f (`--kernel mlp_f32`, `csrc/norm_mlp_f32.cu`), #1f, #6f and #9f
-(`--kernel fwd_f32`, `csrc/flash_fwd_f32.cu`) and #3f, #4f, #5f, #7f, #8f
-and #10f (`--kernel bwd_f32`, `csrc/flash_bwd_f32.cu`), timed on the card whole
+(`--kernel fwd_f32`, `csrc/flash_fwd_f32.cu`), #3f, #7f, #8f and #10f
+(`--kernel bwd_f32`, `csrc/flash_bwd_f32.cu`) and the pair #4f, #5f
+(`--kernel split_f32`, `csrc/flash_bwd_split_f32.cu`), timed on the card whole
 and with one phase of their body left out at a time, at their paths'
 shapes: the denoise batch (B 256 x P 88, 16 bit slots, a molecule and a
 padded stretch a row), the fine-tune batch (B 256 x P 72, a molecule a
@@ -82,14 +83,28 @@ dw, those of "reduce" are stale):
   main     the row pass alone (the sum of the scratch left out)
   reduce   the sum of the scratch alone (the row pass left out)
 
+and for the fp32 split pair (split_f32; tf32x3.cuh put in place of its
+include):
+
+  nosplit  no TF32 split: the raw fp32 bits as hi, lo 0 (three products still)
+  mma1     one TF32 product (hi hi) instead of three
+  nopass   the pass warps leave the landed stages as they are (no RoPE, no
+           split)
+  nosecond no second products (dq; dk, dv)
+  cvtsplit the split by cvt.rna.tf32.f32 instead of integer rounding (the
+           same bits)
+
     python3 -m graphgpt_torch.ops.split_probe
-        [--kernel split|stream|fwd|bwd|mlp|norm_mlp|rmsnorm_bwd|mlp_f32|fwd_f32|bwd_f32]
+        [--kernel split|stream|fwd|bwd|mlp|norm_mlp|rmsnorm_bwd|mlp_f32|fwd_f32|bwd_f32|split_f32]
         [--source FILE] [--variants base,noexp]
 
 --source probes another body of the file (one unpacked from an earlier
 commit, say, with the headers beside it, which it is built against before
 the package's own); a substitution that does not match it raises; fwd
-and bwd time the forms that its source has. Needs a CUDA card and nvcc.
+and bwd time the forms that its source has. split_f32 times the pair at
+the denoise batch and at B 8 x P 1024 with 16 bit slots, and with --source
+(the parent's flash_bwd_f32.cu, whose entries of the same names are the
+FFMA pair) times that body beside the package's in the same turns. Needs a CUDA card and nvcc.
 Prints the card, then one line a shape and variant (fwd, bwd: a line a
 form): the medians of five CUDA-event readings of 30 launches each, every
 variant of a shape in one turn, then again in the reverse order; the split,
@@ -99,8 +114,8 @@ the fp32 lines with one of their outputs (f32_digest: out; q, k, v of
 #12f; out and lse of #1f, #6f and #9f; dq, dk, dv of #3f and #10f; dq and
 delta of #4f and #7f; dk, dv of #5f and #8f), so that two bodies that should give the same bits (one
 --source against another, or a stream form against its single form on the
-same ids) show it. The fp32 kernels have the base variant only, and the
-forms their source has.
+same ids) show it. The fp32 kernels but split_f32 have the base variant
+only, and the forms their source has.
 """
 
 from __future__ import annotations
@@ -220,6 +235,28 @@ _MLP_WNGLOBAL = [
     ("smem_bytes<T>(NORM ? MAX_D : 0), configured", "smem_bytes<T>(0), configured"),
     ("smem_bytes<T>(NORM ? a.D : 0), s>>>(", "smem_bytes<T>(0), s>>>(")]
 
+# the fp32 split pair (flash_bwd_split_f32.cu with tf32x3.cuh put in place
+# of its include): the TF32 split by cvt.rna (the same bits), no split (the
+# raw fp32 bits as hi, lo 0), one TF32 product instead of three, no pass
+# over the landed stages (no RoPE, no split: the planes hold the raw tile
+# and what the last pass left), no second products
+_F32_SPLIT_BODY = ("  hi = tf32_rna(x);\n  lo = tf32_rna(x - __uint_as_float(hi));")
+_F32_CVTSPLIT = [(_F32_SPLIT_BODY,
+                  '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));\n'
+                  '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));')]
+_F32_NOSPLIT = [(_F32_SPLIT_BODY, "  hi = __float_as_uint(x);\n  lo = 0u;")]
+_F32_MMA1 = [("      mma_tf32(s0, l1, b1h[0], b1h[1]);\n      mma_tf32(s1, l1, b1h[2], b1h[3]);\n"
+              "      mma_tf32(d0, l2, b2h[0], b2h[1]);\n      mma_tf32(d1, l2, b2h[2], b2h[3]);\n"
+              "      mma_tf32(s0, h1, b1l[0], b1l[1]);\n      mma_tf32(s1, h1, b1l[2], b1l[3]);\n"
+              "      mma_tf32(d0, h2, b2l[0], b2l[1]);\n      mma_tf32(d1, h2, b2l[2], b2l[3]);\n", ""),
+             ("  for (int q = 0; q < 4; ++q) mma_tf32(acc[nb0 + q], al, bh[q][0], bh[q][1]);\n"
+              "#pragma unroll\n  for (int q = 0; q < 4; ++q) mma_tf32(acc[nb0 + q], ah, bl[q][0], bl[q][1]);\n",
+              "  for (int q = 0; q < 0; ++q) {}\n")]
+_F32_NOPASS = [("          for (int u = u0; u < 1024; u += 96) {",
+                "          for (int u = u0 + 1024; u < 1024; u += 96) {")]
+_F32_NOSECOND = [("            const int nbk = 4 * half + j;\n",
+                  "            const int nbk = 4 * half + j;\n            continue;\n")]
+
 # per kernel: its source, its C entries, and its variants
 KERNELS = {
     "split": ("flash_bwd_split.cu", {
@@ -249,6 +286,9 @@ KERNELS = {
     "mlp_f32": ("norm_mlp_f32.cu", {"base": []}),
     "fwd_f32": ("flash_fwd_f32.cu", {"base": []}),
     "bwd_f32": ("flash_bwd_f32.cu", {"base": []}),
+    "split_f32": ("flash_bwd_split_f32.cu", {
+        "base": [], "cvtsplit": _F32_CVTSPLIT, "nosplit": _F32_NOSPLIT, "mma1": _F32_MMA1,
+        "nopass": _F32_NOPASS, "nosecond": _F32_NOSECOND}),
 }
 # the fp32 forms: each C entry, its argument types and the form's name
 F32_ENTRIES = {
@@ -264,6 +304,8 @@ F32_ENTRIES = {
                 "flash_dq_stream_f32": ("ggt_flash_dq_stream_f32", fa._DQ_STREAM_ARGTYPES),
                 "flash_dkv_stream_f32": ("ggt_flash_dkv_stream_f32", fa._DKV_STREAM_ARGTYPES),
                 "flash_bwd_band_f32": ("ggt_flash_bwd_band_f32", fa._BWD_BAND_ARGTYPES)},
+    "split_f32": {"flash_dq_f32": ("ggt_flash_dq_f32", fa._DQ_ARGTYPES),
+                  "flash_dkv_f32": ("ggt_flash_dkv_f32", fa._DKV_ARGTYPES)},
 }
 MLP_F32_SHAPES = {"N8192": (8192, 768, 3072), "N1024": (1024, 128, 512)}  # (N, D, F)
 # (B, P, H, bit slots, row layout) of the fp32 attention forms; #3f takes
@@ -272,8 +314,10 @@ BWD_F32_SHAPES = {"B8 P1024": (8, 1024, 12, 0, "packed"), "toy B8 P128": (8, 128
                   "denoise B256 P88": (256, 88, 12, 16, "denoise"),
                   "B8 P1024 bi16": (8, 1024, 12, 16, "packed"),
                   "B16 P4096": (16, 4096, 12, 0, "packed")}
+# the split pair's shapes: the denoise batch and the 16 bit slots at P 1024
+SPLIT_F32_SHAPES = ("denoise B256 P88", "B8 P1024 bi16")
 # the header a kernel's source includes, put in place before the substitutions
-INLINE = {"mlp": "mlp_common.cuh", "norm_mlp": "mlp_common.cuh"}
+INLINE = {"mlp": "mlp_common.cuh", "norm_mlp": "mlp_common.cuh", "split_f32": "tf32x3.cuh"}
 VARIANTS = KERNELS["split"][1]
 # (B, P, H, bit slots, row layout) of each kernel's shapes
 SHAPES = {
@@ -301,9 +345,10 @@ MLP_SHAPES = {"N8192": (8192, 768, 3072), "N65536": (65536, 768, 3072)}  # (N, D
 DH = 64
 
 
-def build(kernel: str, source: str, names, include: Path) -> dict:
+def build(kernel: str, source: str, names, include: Path, label: str = "") -> dict:
     """{variant: its C library}, one nvcc each, all at once; `include` (the
-    source's directory) is searched for headers before the package's."""
+    source's directory) is searched for headers before the package's;
+    `label` names the builds (default: the kernel's key)."""
     out_dir = _build.BUILD_DIR.parent / "split_probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     variants = KERNELS[kernel][1]
@@ -317,7 +362,7 @@ def build(kernel: str, source: str, names, include: Path) -> dict:
             if old not in text:
                 raise ValueError(f"variant {name}: {old!r} is not in the source")
             text = text.replace(old, new)
-        src, lib = out_dir / f"{kernel}_{name}.cu", out_dir / f"lib{kernel}_{name}.so"
+        src, lib = out_dir / f"{label or kernel}_{name}.cu", out_dir / f"lib{label or kernel}_{name}.so"
         src.write_text(text)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(include), "-I", str(_build.CSRC),
                "-o", str(lib), str(src)]
@@ -494,6 +539,8 @@ def probe_f32(kernel: str, libs, dev) -> None:
             _probe_f32_turns(tag, libs, entries, runs, outs)
         return
     for tag, (b, p, h, bi, layout) in BWD_F32_SHAPES.items():
+        if kernel == "split_f32" and tag not in SPLIT_F32_SHAPES:
+            continue
         qs, k, v, do, seg, cos, sin, out, lse = inputs(b, p, h, bi, layout, dev, torch.float32)
         common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(cos), ptr(sin))
         # the stream forms on the query ids as key ids, no tile-table scratch
@@ -535,6 +582,7 @@ def probe_f32(kernel: str, libs, dev) -> None:
                 ptr(dv), ptr(tab), b, p, h, 0, bi, stream)}
         if bi:
             runs.pop("flash_bwd_f32")  # #3 takes no bit slots
+        runs = {form: run for form, run in runs.items() if form in entries}
         # each pair's key pass reads the delta of a query pass, which runs
         # before it in each turn (both query passes write the same delta);
         # the digests read what each form writes
@@ -610,9 +658,19 @@ def main() -> None:
     source = args.source or str(_build.CSRC / file)
     dev = torch.device("cuda")
     print(torch.cuda.get_device_name(0), flush=True)
-    libs = build(args.kernel, open(source).read(),
-                 (args.variants or ",".join(variants)).split(","), Path(source).resolve().parent)
-    if args.kernel in INLINE:
+    if args.kernel == "split_f32":
+        # the package's body (its variants), and the --source body beside it
+        # in the same turns
+        libs = build(args.kernel, (_build.CSRC / file).read_text(),
+                     (args.variants or "base").split(","), _build.CSRC)
+        if args.source:
+            libs["source"] = build(args.kernel, open(source).read(), ["base"],
+                                   Path(source).resolve().parent, label="split_f32_source")["base"]
+    else:
+        libs = build(args.kernel, open(source).read(),
+                     (args.variants or ",".join(variants)).split(","),
+                     Path(source).resolve().parent)
+    if args.kernel in INLINE and args.kernel not in F32_ENTRIES:
         probe_mlp(args.kernel, libs, dev)
         return
     if args.kernel in F32_ENTRIES:

@@ -138,7 +138,7 @@ def test_the_flash_wrappers_refuse_other_dtypes(monkeypatch):
     assert card.calls == []
 
 
-@pytest.mark.parametrize("dtype,source", [(torch.float32, "flash_bwd_f32"),
+@pytest.mark.parametrize("dtype,source", [(torch.float32, "flash_bwd_split_f32"),
                                           (torch.bfloat16, "flash_bwd_split")],
                          ids=["fp32", "bf16"])
 def test_the_split_pair_sends_each_dtype_to_its_entries(monkeypatch, dtype, source):

@@ -2058,15 +2058,15 @@ def test_an_fp32_model_trains_on_the_fp32_stream_kernels(cuda_device, mode, p, m
 
 
 # #2f's and #3f's digests (split_probe's f32_digest) from the bodies before
-# #11f and the split pair joined their sources, #1f's, #4f's and #5f's from
-# the bodies before the stream forms joined theirs, and #11f's and the
-# stream forms' from the bodies before the band forms and #12f joined
-# theirs: `split_probe --kernel mlp_f32`, `--kernel fwd_f32` and `--kernel
-# bwd_f32` with --source on those commits' csrc/, on an NVIDIA H100 80GB
-# HBM3, at split_probe's inputs (f32_mlp_inputs, gelu; inputs in fp32 on
-# packed rows, no lse cotangent; the stream forms on the query ids as key
-# ids). The templated norm_mlp_f32.cu and flash_fwd_f32.cu and the shared
-# passes of flash_bwd_f32.cu keep them.
+# #11f and the split pair joined their sources, #1f's from the body before
+# the stream forms joined its source, and #11f's and the stream forms' from
+# the bodies before the band forms and #12f joined theirs: `split_probe
+# --kernel mlp_f32`, `--kernel fwd_f32` and `--kernel bwd_f32` with
+# --source on those commits' csrc/, on an NVIDIA H100 80GB HBM3, at
+# split_probe's inputs (f32_mlp_inputs, gelu; inputs in fp32 on packed
+# rows, no lse cotangent; the stream forms on the query ids as key ids).
+# The templated norm_mlp_f32.cu and flash_fwd_f32.cu and the shared passes
+# of flash_bwd_f32.cu keep them. (#4f's and #5f's are _F32_SPLIT_DIGESTS.)
 _F32_PARENT_DIGESTS = {
     ("norm_mlp_f32", "N8192"): -98387183775274,
     ("norm_mlp_f32", "N1024"): -2074798766708,
@@ -2074,19 +2074,27 @@ _F32_PARENT_DIGESTS = {
     ("flash_bwd_f32", "toy B8 P128"): -17989573487664,
     ("flash_fwd_f32", "B8 P1024"): -165906643651216,
     ("flash_fwd_f32", "denoise B256 P88"): -328070100018431,
-    ("flash_dq_f32", "denoise B256 P88"): -2136141100098453,
-    ("flash_dkv_f32", "denoise B256 P88"): -2976345741893214,
-    ("flash_dq_f32", "B8 P1024 bi16"): -249146506611422,
-    ("flash_dkv_f32", "B8 P1024 bi16"): -672921714631544,
     ("mlp_f32", "N8192"): -225411978267659,
     ("mlp_f32", "N1024"): -3611697443544,
     ("flash_fwd_stream_f32", "B8 P1024"): -165906643651216,
     ("flash_dq_stream_f32", "B8 P1024"): -249067995751735,
     ("flash_dkv_stream_f32", "B8 P1024"): -670983982973380,
 }
+# #4f's and #5f's digests as the first build of their Hopper body
+# (csrc/flash_bwd_split_f32.cu: 3xTF32 products, another order of sums than
+# the FFMA passes') gave them: `split_probe --kernel split_f32`, the same
+# card and inputs
+_F32_SPLIT_DIGESTS = {
+    ("flash_dq_f32", "denoise B256 P88"): -2136141201081277,
+    ("flash_dkv_f32", "denoise B256 P88"): -2976345812947738,
+    ("flash_dq_f32", "B8 P1024 bi16"): -249146572008087,
+    ("flash_dkv_f32", "B8 P1024 bi16"): -672921792860440,
+}
 # #6f's, #7f's and #8f's digests at the long-context shape as their first
 # build gave them (split_probe --kernel fwd_f32 / bwd_f32, the same card):
-# equal to #1f's, #4f's and #5f's there, one id array being both ids
+# #6f's equal to #1f's there, one id array being both ids (#7f's and #8f's
+# were #4f's and #5f's while those were the same passes, before
+# flash_bwd_split_f32.cu)
 _F32_STREAM_DIGESTS = {
     "flash_fwd_stream_f32": -1508182275918902,
     "flash_dq_stream_f32": -2002090571179038,
@@ -2122,10 +2130,10 @@ def _f32_attention_digest(form, shape, dev):
 @pytest.mark.parametrize("form,shape", list(_F32_PARENT_DIGESTS))
 def test_fp32_forms_keep_the_bits_of_their_bodies_before_the_new_forms(cuda_device, form,
                                                                         shape):
-    """#2f and #11f through norm_mlp and mlp, #1f, #3f, the pair #4f / #5f
-    and the stream forms #6f-#8f through their wrappers on fp32 tensors
-    give the bits their bodies gave before #11f, #4f / #5f, the stream
-    forms, and the band forms #9f, #10f and #12f were added beside them."""
+    """#2f and #11f through norm_mlp and mlp, #1f, #3f and the stream forms
+    #6f-#8f through their wrappers on fp32 tensors give the bits their
+    bodies gave before #11f, #4f / #5f, the stream forms, and the band forms
+    #9f, #10f and #12f were added beside them."""
     from graphgpt_torch.ops import split_probe as sp
 
     dev = cuda_device
@@ -2140,6 +2148,15 @@ def test_fp32_forms_keep_the_bits_of_their_bodies_before_the_new_forms(cuda_devi
     else:
         digest = _f32_attention_digest(form, shape, dev)
     assert digest == _F32_PARENT_DIGESTS[form, shape]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form,shape", list(_F32_SPLIT_DIGESTS))
+def test_fp32_split_pair_keeps_its_bits(cuda_device, form, shape):
+    """#4f through flash_dq (dq and delta) and #5f through flash_dkv (dk,
+    dv) at the denoise batch and at B 8 x P 1024 with 16 bit slots give the
+    bits of their Hopper body's first build."""
+    assert _f32_attention_digest(form, shape, cuda_device) == _F32_SPLIT_DIGESTS[form, shape]
 
 
 @pytest.mark.gpu
@@ -2289,7 +2306,8 @@ def test_fp32_band_forms_give_the_bits_of_the_other_forms(cuda_device, case):
     """A key tile outside the band holds no visible pair, so the band forms
     give the stream forms' bits (#9f #6f's; #10f's dq and delta #7f's, its
     dk and dv #8f's) on the same ids, and on one id array the single forms'
-    (#1f's; #3f's without a split, #4f's and #5f's with one)."""
+    (#1f's; #3f's without a split). With a split #10f lies within F32_REL of
+    #4f's and #5f's, another body (csrc/flash_bwd_split_f32.cu)."""
     dev = cuda_device
     causal, bi = _STREAM_MASKS[_F32_BAND_CASES[case][4]]
     qs, k, v, do, seg, seg_k = _f32_band_inputs(case, dev, seed=37)
@@ -2314,13 +2332,13 @@ def test_fp32_band_forms_give_the_bits_of_the_other_forms(cuda_device, case):
                                       bi)
         grads = (qd, qdelta, *tfa.flash_dkv_f32(qs, k, v, seg, None, None, lse, qdelta, do,
                                                 causal, 64, bi))
-        mine = (dq, aux["delta"], dk, dv)
+        torch.cuda.synchronize()
+        assert all(_rel(a, b) < F32_REL for a, b in zip((dq, aux["delta"], dk, dv), grads))
     else:
         grads = tfa.flash_bwd_f32(qs, k, v, seg, None, None, out, lse, do, None, causal, 64)
-        mine = (dq, dk, dv)
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), grads))
     assert torch.equal(one[0], out) and torch.equal(one[1], lse)
-    assert all(torch.equal(a, b) for a, b in zip(mine, grads))
 
 
 # (N, D, q, k, v widths) of #12f's cases: the serving rows, a ragged row
