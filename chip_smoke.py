@@ -191,15 +191,19 @@
    graphs); every launch count against finetune_want (molpcba's supervised
    layers take #11).
 7h. Phase N, float32 fine-tuning and denoising: the fp32 forms of #11
-   (norm_mlp_f32.cu's form without the norm and the residual) and of the
-   split pair #4, #5 (flash_bwd_split_f32.cu: a persistent TMA ring and
-   3xTF32 products on the tensor cores, delta summed in #4f), to which
-   mlp, flash_dq and flash_dkv hand fp32 tensors. (a) The fine-tune of
-   step 7 (GraphGPT-base, LayerScale, DropPath, attention dropout, pairs
-   remat, 256 graphs a batch on synthetic_mol) at model.dtype=float32
-   through FinetunePipeline, warm-started from the train phase's weights:
-   #11f at its batch's N and at N 8,192; the first step against the plain
-   fp32 run on the same dropout masks (F32_LOSS_REL, F32_GRAD_REL); 8
+   (mlp_qkv_f32.cu: the weights split once into TF32 planes, then two
+   persistent TMA + wgmma stages with every product 3xTF32 on the tensor
+   cores) and of the split pair #4, #5 (flash_bwd_split_f32.cu: a
+   persistent TMA ring and 3xTF32 products on the tensor cores, delta
+   summed in #4f), to which mlp, flash_dq and flash_dkv hand fp32 tensors.
+   (a) The fine-tune of step 7 (GraphGPT-base, LayerScale, DropPath,
+   attention dropout, pairs remat, 256 graphs a batch on synthetic_mol) at
+   model.dtype=float32 through FinetunePipeline, warm-started from the
+   train phase's weights: #11f at its batch's N and at N 8,192, untimed
+   also at a ragged N 65,537 and at toy_pretrain's D 128 / F 512, and #2f's
+   digests at split_probe's inputs against its body's
+   (NORM_MLP_F32_DIGESTS); the first step against the plain fp32 run on the
+   same dropout masks (F32_LOSS_REL, F32_GRAD_REL); 8
    steps with the launches of each step and eval forward (finetune_want on
    the fp32 forms: 24 #1f, 12 #3f, 24 #11f, 25 #13f a step), the loss
    falling, the valid, EMA-valid and test MAE, result.csv. (b) The denoiser
@@ -305,8 +309,8 @@
 11b. Phase P, float32 under the knobs: the fp32 forms of #9, #10 and #12
    (flash_fwd_f32.cu's and flash_bwd_f32.cu's band forms, which walk only
    the tiles of the band tables that tile_table.cuh's pre-pass writes;
-   norm_mlp_f32.cu's qkv kernel), to which flash_fwd_band, flash_bwd_band
-   and norm_qkv hand fp32 tensors. (a) #9f and #10f (with its delta) at
+   mlp_qkv_f32.cu's QKV mode, #11f's 3xTF32 body), to which flash_fwd_band,
+   flash_bwd_band and norm_qkv hand fp32 tensors. (a) #9f and #10f (with its delta) at
    GraphGPT-base's B 8 x P 1024 (bidirectional, causal, and with another
    packed row's ids as key ids), at the denoise batch's 256 x 88
    (bi-causal, 16 bit slots) and on the long-context batch's ids (16 x
@@ -3475,12 +3479,12 @@ def f32_flash_at_shape(fa, ops, tag, seg, cos, sin, h: int, dh: int, causal: boo
 
 
 def f32_mlp_at_shape(dev, mlp, ops, tag, n: int, d: int, f: int, act: str, eps: float,
-                     norm: bool = True):
+                     norm: bool = True, timed: bool = True):
     """#2's fp32 form (through norm_mlp on fp32 tensors), or #11's without
     `norm` (through mlp), at N x D, F against its plain version in fp32 and
     with TF32 (f32_check; the inputs drawn in fp32, not through bf16, so
-    that TF32 rounds them), timed beside its bound, the plain version and
-    (F.rms_norm +) the fp32 matmuls."""
+    that TF32 rounds them); `timed`: then timed beside its bound, the plain
+    version and (F.rms_norm +) the fp32 matmuls."""
     gen = torch.Generator(device=dev).manual_seed(9)
     scale = 0.55 / d**0.5
     x = torch.randn(n, d, generator=gen, device=dev)
@@ -3498,6 +3502,8 @@ def f32_mlp_at_shape(dev, mlp, ops, tag, n: int, d: int, f: int, act: str, eps: 
     where = f"{tag}, N={n} D={d} F={f}"
     err, rel, ctl = f32_check(name, where, {"out": out}, {"out": ref}, {"out": tref}, bits)
     del out, ref, tref
+    if not timed:
+        return dict(err=err, rel=rel, tf32_rel=ctl)
     ms = cuda_ms(lambda: fn(*args), iters=5)
     ms_spread = spread()
     with ops.reference_mode():
@@ -4042,7 +4048,14 @@ def fp32_finetune_run(dev, counters, mlp, ops, train_sd):
                                                  m.rms_norm_eps, norm=False), n=b * p),
                "n8192": f32_mlp_at_shape(dev, mlp, ops, tag, 8192, m.hidden_size,
                                          m.intermediate_size, m.hidden_act, m.rms_norm_eps,
-                                         norm=False)}
+                                         norm=False),
+               # untimed: a ragged last row tile, and toy_pretrain's widths
+               "n65537": f32_mlp_at_shape(dev, mlp, ops, tag, 65537, m.hidden_size,
+                                          m.intermediate_size, m.hidden_act, m.rms_norm_eps,
+                                          norm=False, timed=False),
+               "toy": f32_mlp_at_shape(dev, mlp, ops, f"{tag} toy_pretrain's D", 1024, 128, 512,
+                                       m.hidden_act, m.rms_norm_eps, norm=False, timed=False)}
+        f32_norm_mlp_bits(dev, mlp, tag)
         torch.cuda.empty_cache()
         # the same generator on both runs: the same dropout and DropPath masks
         res["step"] = step_vs_plain32(pipe.state.model, batch, ops, tag,
@@ -4144,6 +4157,28 @@ def fp32_denoise_run(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin):
     del model, state
     torch.cuda.empty_cache()
     return res, launches
+
+
+# #2f's digests (ops/split_probe.py's f32_digest of norm_mlp at its
+# f32_mlp_inputs, gelu) as its FFMA body has given them on an H100 since #11f
+# joined its source (tests/test_torch_gpu.py _F32_PARENT_DIGESTS): #11f and
+# #12f moving to mlp_qkv_f32.cu must leave them
+NORM_MLP_F32_DIGESTS = {"N8192": -98387183775274, "N1024": -2074798766708}
+N_MLP_CHECKS = ("n8192", "ft_shape", "n65537", "toy")  # #11f's shapes in phase N(a)
+
+
+def f32_norm_mlp_bits(dev, mlp, tag):
+    """#2f through norm_mlp at split_probe's fp32 inputs gives the digests
+    its body has always given (NORM_MLP_F32_DIGESTS)."""
+    from graphgpt_torch.ops import split_probe as sp
+
+    for shape, want in NORM_MLP_F32_DIGESTS.items():
+        x, wn, wg, wu, wd = sp.f32_mlp_inputs(*sp.MLP_F32_SHAPES[shape], dev)
+        got = sp.f32_digest(mlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, "gelu"))
+        print(f"norm_mlp_f32[{tag}, split_probe's {shape}]: digest {got} (its body's {want})",
+              flush=True)
+        if got != want:
+            fail(f"norm_mlp_f32's digest at {shape} changed: {got}, not {want}")
 
 
 def fp32_tune_phase(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin, train_sd):
@@ -5943,7 +5978,7 @@ def f32_qkv_at_shape(dev, mlp, ops, tag, n: int, d: int, widths, eps: float = 1e
     err, rel, ctl = f32_check("norm_qkv_f32", where, dict(zip("qkv", got)), dict(zip("qkv", ref)),
                               dict(zip("qkv", tref)), bits)
     del got, ref, tref
-    rr_fn = mlp._build.entry("norm_mlp_f32", "ggt_norm_qkv_f32_rrms", [ctypes.c_void_p] * 2
+    rr_fn = mlp._build.entry("mlp_qkv_f32", "ggt_norm_qkv_f32_rrms", [ctypes.c_void_p] * 2
                              + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
     rr = torch.empty(n, dtype=torch.float32, device=dev)
     stream = mlp._build.stream_ptr(dev)
@@ -6154,14 +6189,14 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
-    # the wgmma kernels (#12; #2, #11; #4, #5, #7, #8; #1, #6, #9; #3, #10) keep
-    # no spill and let ptxas pipeline their wgmma (no C7512/C7513), #13 (both
-    # dtypes) and the fp32 forms of #1-#12 keep no spill;
+    # the wgmma kernels (#12; #2, #11; #4, #5, #7, #8; #1, #6, #9; #3, #10;
+    # #11f, #12f) keep no spill and let ptxas pipeline their wgmma (no
+    # C7512/C7513), #13 (both dtypes) and the other fp32 forms keep no spill;
     # flash_fwd.cu's log must show its three forms, flash_bwd.cu's its two,
     # the fp32 forward's and passes' two each
     for name in ("norm_qkv", "norm_mlp", "mlp", "flash_bwd_split", "flash_fwd", "flash_bwd",
                  "rmsnorm_bwd", "flash_fwd_f32", "flash_bwd_f32", "norm_mlp_f32",
-                 "flash_bwd_split_f32"):
+                 "flash_bwd_split_f32", "mlp_qkv_f32"):
         if re.search(r"[1-9]\d* bytes spill|C751[0-9]", logs.get(name, "")):
             fail(f"ptxas spilled in {name}.cu or serialised its wgmma (see the build lines above)")
     for name, kernel, want in (("flash_fwd", "fwd_kernel", ["0", "1", "2"]),
@@ -6562,9 +6597,11 @@ def main() -> None:
     nft, ndn = f32n["finetune"], f32n["denoise"]
     r, rf = nft["n8192"], nft["ft_shape"]
     kernels.append(entry(
-        "mlp_f32", "norm_mlp_f32.cu", "mlp.py:82", dict(r, err=max(r["err"], rf["err"])),
-        {"rel": F32_REL}, rel_err=max(r["rel"], rf["rel"]),
-        tf32_control_rel=min(r["tf32_rel"], rf["tf32_rel"]), ffma_bound_ms=r["ffma_bound_ms"],
+        "mlp_f32", "mlp_qkv_f32.cu", "mlp.py:82",
+        dict(r, err=max(nft[k]["err"] for k in N_MLP_CHECKS)), {"rel": F32_REL},
+        rel_err=max(nft[k]["rel"] for k in N_MLP_CHECKS),
+        tf32_control_rel=min(nft[k]["tf32_rel"] for k in N_MLP_CHECKS),
+        ffma_bound_ms=r["ffma_bound_ms"],
         tflops=r["tflops"],
         **{f"finetune_shape_{k}": rf[k] for k in ("n", "ms", "plain_ms", "lib_ms", "bound_ms",
                                                   "ffma_bound_ms", "tflops")},
@@ -6625,7 +6662,7 @@ def main() -> None:
                                             "ffma_bound_ms", "tflops")}, **runs_p))
     rq = pk["qkv"]
     kernels.append(entry(
-        "norm_qkv_f32", "norm_mlp_f32.cu", "mlp.py:315", rq, {"rel": F32_REL}, rel_err=rq["rel"],
+        "norm_qkv_f32", "mlp_qkv_f32.cu", "mlp.py:315", rq, {"rel": F32_REL}, rel_err=rq["rel"],
         tf32_control_rel=rq["tf32_rel"], ffma_bound_ms=rq["ffma_bound_ms"], tflops=rq["tflops"],
         rrms_ms=rq["rrms_ms"], **runs_p))
     by_name["norm_mlp"].update({f"phase_M_{run}_{k}": v for run, r in gconf.items()

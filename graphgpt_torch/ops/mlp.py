@@ -7,18 +7,17 @@ Counterpart of `graphgpt_tpu/ops/mlp.py` (`_mlp_kernel` :82, `fused_mlp`
 :253 with `_fused_norm_mlp_bwd` :267, `_norm_qkv_kernel` :315,
 `fused_norm_qkv` :363 with `_fused_norm_qkv_bwd` :376, `_rmsnorm_bwd_kernel`
 :414, `xla_mlp` :468). The kernels live in `csrc/mlp.cu`,
-`csrc/norm_mlp.cu`, `csrc/norm_qkv.cu` and `csrc/rmsnorm_bwd.cu`, and the
-fp32 forms of #2, #11 and #12 in `csrc/norm_mlp_f32.cu`. Weights
-are in nn.Linear layout (`[out, in]`): the JAX package's `[in, out]`
-matrices transposed.
+`csrc/norm_mlp.cu`, `csrc/norm_qkv.cu` and `csrc/rmsnorm_bwd.cu`, the fp32
+form of #2 in `csrc/norm_mlp_f32.cu` and those of #11 and #12 in
+`csrc/mlp_qkv_f32.cu`. Weights are in nn.Linear layout (`[out, in]`): the
+JAX package's `[in, out]` matrices transposed.
 
 Dtypes: every kernel takes bf16, and fp32 (a `model.dtype: float32`
-model): #2 and #11 in two forms of one fp32 body, `csrc/norm_mlp_f32.cu`,
-and #12 in a kernel of that file on the same pieces (wrappers and counts
-norm_mlp_f32, mlp_f32, norm_qkv_f32), #13 in the fp32 instances of its
-templated source (rmsnorm_bwd_f32); norm_mlp, mlp, norm_qkv and
-rmsnorm_bwd hand them fp32 CUDA tensors. Every kernel raises on any other
-dtype or on a mix.
+model): #2 in `csrc/norm_mlp_f32.cu` (FFMA), #11 and #12 on one 3xTF32
+tensor-core body, `csrc/mlp_qkv_f32.cu` (wrappers and counts norm_mlp_f32,
+mlp_f32, norm_qkv_f32), #13 in the fp32 instances of its templated source
+(rmsnorm_bwd_f32); norm_mlp, mlp, norm_qkv and rmsnorm_bwd hand them fp32
+CUDA tensors. Every kernel raises on any other dtype or on a mix.
 """
 
 from __future__ import annotations
@@ -41,8 +40,8 @@ _ARGTYPES = (
 _F32_ARGTYPES = (
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
-# #11's fp32 form: x, wg, wu, wd, g, out; N, D, F, act; stream
-_MLP_F32_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# #11's fp32 form: x, wg, wu, wd, planes, g, out; N, D, F, bn, act; stream
+_MLP_F32_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # the stage entries (ggt_mlp_stages, ggt_norm_mlp_stages): a stage mask before the stream
 _MLP_STAGE_ARGTYPES = _MLP_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
 _STAGE_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
@@ -57,11 +56,13 @@ _MLP_BLOCK_NS = (256, 192, 128, 64)  # down tile widths
 _MLP_TILE_EXTRA = {"gate_up": 64, "down": 16}
 # x, wn, wq, wk, wv, q, k, v, rrms; N, D, Fq, Fk, Fv, bn; eps; stream
 _QKV_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-# #12's fp32 form (64-wide tiles, no bn): x, wn, wq, wk, wv, q, k, v, rrms; N, D, Fq, Fk, Fv;
-# eps; stream
-_QKV_F32_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+# #12's fp32 form: x, wn, wq, wk, wv, planes, q, k, v, rrms; N, D, Fq, Fk, Fv, bn; eps; stream
+_QKV_F32_ARGTYPES = (
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+)
 _QKV_MAX_D = 4096  # wn's row sits in the kernel's shared memory beside its stages
 _QKV_BLOCK_NS = (256, 128, 64)  # the kernel's output tile widths
+_F32_BLOCK_NS = (128, 64)  # the 3xTF32 body's (#11f's down stage, #12f) output tile widths
 # x, g, w, dx, dw, partial; N, D; eps; blocks; stream
 _RMS_ARGTYPES = (
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -221,9 +222,10 @@ mlp.launches = 0
 
 def mlp_f32(x, wg, wu, wd, act: str):
     """act(x @ wg^T) * (x @ wu^T) @ wd^T for x [N, D] and the weights in
-    fp32: #11's fp32 form (`csrc/norm_mlp_f32.cu` without the norm and the
-    residual: gate/up, down; counted as one call) for CUDA tensors, the
-    plain version for a CPU tensor (or inside ops.reference_mode())."""
+    fp32: #11's fp32 form (`csrc/mlp_qkv_f32.cu`: the weights' TF32 split,
+    gate/up, down, 3xTF32 on the tensor cores; counted as one call) for CUDA
+    tensors, the plain version for a CPU tensor (or inside
+    ops.reference_mode())."""
     if not use_kernel(x, wg, wu, wd):
         return mlp_kernel_ref(x, wg, wu, wd, act)
     x, wg, wu, wd = _mlp_args("mlp_f32", x, wg, wu, wd, act, torch.float32)
@@ -233,10 +235,12 @@ def mlp_f32(x, wg, wu, wd, act: str):
     if n == 0:
         return out
     g = torch.empty((n, f), dtype=torch.float32, device=x.device)
-    fn = _build.entry("norm_mlp_f32", "ggt_mlp_f32", _MLP_F32_ARGTYPES)
+    planes = torch.empty((2, 3 * f * d), dtype=torch.float32, device=x.device)  # hi, lo
+    fn = _build.entry("mlp_qkv_f32", "ggt_mlp_f32", _MLP_F32_ARGTYPES)
     err = fn(
-        _build.ptr(x), _build.ptr(wg), _build.ptr(wu), _build.ptr(wd), _build.ptr(g),
-        _build.ptr(out), n, d, f, _ACT_IDS[act], _build.stream_ptr(x.device),
+        _build.ptr(x), _build.ptr(wg), _build.ptr(wu), _build.ptr(wd), _build.ptr(planes),
+        _build.ptr(g), _build.ptr(out), n, d, f, f32_block_n([d]), _ACT_IDS[act],
+        _build.stream_ptr(x.device),
     )
     mlp_f32.launches += 1
     _build.check(err, "mlp_f32")
@@ -452,10 +456,19 @@ def qkv_block_n(widths) -> int:
     return next((bn for bn in _QKV_BLOCK_NS if all(w % bn == 0 for w in widths)), 0)
 
 
+def f32_block_n(widths) -> int:
+    """The 3xTF32 body's output tile width (#12f; #11f's down stage) for
+    outputs of these widths: 128 where it divides them all, else 64 where
+    that does; 0 when neither does. It stops at 128: a consumer thread holds
+    two sets of [64, BN] fp32 sums, the tile's and a stage's partial ones
+    (csrc/mlp_qkv_f32.cu)."""
+    return next((bn for bn in _F32_BLOCK_NS if all(w % bn == 0 for w in widths)), 0)
+
+
 def _qkv_args(name, x, wn, wq, wk, wv, dtype):
     """The checks and layouts both forms of the norm_qkv kernel need: (x,
-    wn fp32, wq, wk, wv) contiguous and the output tile width. Raises on
-    what they do not take."""
+    wn fp32, wq, wk, wv) contiguous and the output tile width of the form's
+    kernel. Raises on what they do not take."""
     n, d = x.shape
     if x.dtype != dtype or any(w.dtype != dtype for w in (wq, wk, wv)):
         raise NotImplementedError(f"the {name} kernel takes {dtype} activations and weights, "
@@ -464,13 +477,13 @@ def _qkv_args(name, x, wn, wq, wk, wv, dtype):
         raise ValueError(f"shapes x {x.shape} wn {wn.shape} weights "
                          f"{[tuple(w.shape) for w in (wq, wk, wv)]}")
     widths = [w.shape[0] for w in (wq, wk, wv)]
-    bn = qkv_block_n(widths)
+    bn = (qkv_block_n if dtype == torch.bfloat16 else f32_block_n)(widths)
     if d % 64 or d > _QKV_MAX_D or not bn:
         raise NotImplementedError(
             f"the {name} kernel needs D % 64 == 0, D <= {_QKV_MAX_D} and widths % 64 == 0, "
             f"got D {d}, widths {widths}")
     x, wq, wk, wv = (t.contiguous() for t in (x, wq, wk, wv))
-    # TMA (bf16) and 16-byte loads (fp32) read x and the weights from aligned bases
+    # TMA reads x and the weights from 16-byte aligned bases
     if any(t.data_ptr() % 16 for t in (x, wq, wk, wv)):
         raise ValueError(f"{name} needs 16-byte aligned x and weights")
     return x, wn.float().contiguous(), wq, wk, wv, bn
@@ -478,8 +491,8 @@ def _qkv_args(name, x, wn, wq, wk, wv, dtype):
 
 def _qkv_launch(name, symbol, dtype, x, wn, wq, wk, wv, eps: float):
     """Launch the norm_qkv entry `symbol` for `dtype`: csrc/norm_qkv.cu's
-    for bf16 (with its tile width), csrc/norm_mlp_f32.cu's for fp32. Returns
-    (q, k, v, the entry's error code)."""
+    for bf16, csrc/mlp_qkv_f32.cu's for fp32 (with the scratch of the
+    weights' TF32 planes). Returns (q, k, v, the entry's error code)."""
     x, wn, wq, wk, wv, bn = _qkv_args(name, x, wn, wq, wk, wv, dtype)
     n, d = x.shape
     widths = [w.shape[0] for w in (wq, wk, wv)]
@@ -487,13 +500,16 @@ def _qkv_launch(name, symbol, dtype, x, wn, wq, wk, wv, eps: float):
     if n == 0:
         return q, k, v, 0
     rrms = torch.empty((n,), dtype=torch.float32, device=x.device)
-    bf16 = dtype == torch.bfloat16
-    fn = _build.entry("norm_qkv" if bf16 else "norm_mlp_f32", symbol,
-                      _QKV_ARGTYPES if bf16 else _QKV_F32_ARGTYPES)
+    ptrs = [_build.ptr(t) for t in (x, wn, wq, wk, wv)]
+    if dtype == torch.bfloat16:
+        fn = _build.entry("norm_qkv", symbol, _QKV_ARGTYPES)
+    else:
+        planes = torch.empty((2, sum(widths) * d), dtype=torch.float32, device=x.device)
+        fn = _build.entry("mlp_qkv_f32", symbol, _QKV_F32_ARGTYPES)
+        ptrs.append(_build.ptr(planes))
     err = fn(
-        _build.ptr(x), _build.ptr(wn), _build.ptr(wq), _build.ptr(wk), _build.ptr(wv),
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(rrms), n, d, *widths,
-        *([bn] if bf16 else []), float(eps), _build.stream_ptr(x.device),
+        *ptrs, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(rrms), n, d, *widths, bn,
+        float(eps), _build.stream_ptr(x.device),
     )
     return q, k, v, err
 
@@ -521,11 +537,11 @@ norm_qkv.launches = 0
 
 def norm_qkv_f32(x, wn, wq, wk, wv, eps: float):
     """(q, k, v) = rms(x) * wn @ (wq|wk|wv)^T for x [N, D], wn and the
-    weights in fp32: #12's fp32 form (`csrc/norm_mlp_f32.cu`: #2f's rrms
-    pre-pass, then the three products on #2f's gate/up pieces; counted as
-    one call) for CUDA tensors, the plain version for a CPU tensor (or
-    inside ops.reference_mode()). The bf16 kernel's contract: D and the
-    widths multiples of 64."""
+    weights in fp32: #12's fp32 form (`csrc/mlp_qkv_f32.cu`: the weights'
+    TF32 split, the rrms pre-pass, then the three products in 3xTF32 on the
+    tensor cores; counted as one call) for CUDA tensors, the plain version
+    for a CPU tensor (or inside ops.reference_mode()). The bf16 kernel's
+    contract: D and the widths multiples of 64."""
     if not use_kernel(x, wn, wq, wk, wv):
         return norm_qkv_ref(x, wn, wq, wk, wv, eps)
     q, k, v, err = _qkv_launch("norm_qkv_f32", "ggt_norm_qkv_f32", torch.float32, x, wn, wq, wk,

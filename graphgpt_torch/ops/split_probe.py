@@ -7,8 +7,9 @@ flash_fwd_stream and #9 flash_fwd_band (`--kernel fwd`,
 flash_bwd_band (`--kernel bwd`, `csrc/flash_bwd.cu`), the gated
 MLPs #11 and #2 (`--kernel mlp`, `--kernel norm_mlp`: `csrc/mlp.cu`,
 `csrc/norm_mlp.cu` with `csrc/mlp_common.cuh`) and the RMSNorm backward #13
-(`--kernel rmsnorm_bwd`, `csrc/rmsnorm_bwd.cu`), and the fp32 forms #2f,
-#11f and #12f (`--kernel mlp_f32`, `csrc/norm_mlp_f32.cu`), #1f, #6f and #9f
+(`--kernel rmsnorm_bwd`, `csrc/rmsnorm_bwd.cu`), and the fp32 forms #11f
+and #12f (`--kernel mlp_f32`, `csrc/mlp_qkv_f32.cu`, with #2f of
+`csrc/norm_mlp_f32.cu` beside them), #1f, #6f and #9f
 (`--kernel fwd_f32`, `csrc/flash_fwd_f32.cu`), #3f, #7f, #8f and #10f
 (`--kernel bwd_f32`, `csrc/flash_bwd_f32.cu`) and the pair #4f, #5f
 (`--kernel split_f32`, `csrc/flash_bwd_split_f32.cu`), timed on the card whole
@@ -21,8 +22,8 @@ and k, unrotated, and no cos, sin; bwd's band form at B 8 and 64 x P 1024
 and B 16 x P 4096); the MLPs at N 8,192 and 65,536 rows (D 768, F 3,072,
 gelu), whole and each stage alone; #13 at N 18,432, 22,528 and 65,536
 (D 768), its row pass and its sum of the per-CTA dw rows alone; the fp32
-MLP forms at N 8,192 (D 768, F 3,072) and N 1,024 (D 128, F 512,
-toy_pretrain's), #12f there with q, k and v each D wide (the first rows of
+MLP forms at N 8,192 and 18,432 (D 768, F 3,072) and N 1,024 (D 128, F
+512, toy_pretrain's), #12f there with q, k and v each D wide (the first rows of
 the gate and up weights), the fp32 attention forms at B 8 x P 1024 (12 heads), B 8
 x P 128 (2 heads, toy_pretrain's) and the long-context B 16 x P 4096,
 where every form runs (the single ones too: their C entries take any P),
@@ -94,6 +95,17 @@ include):
   cvtsplit the split by cvt.rna.tf32.f32 instead of integer rounding (the
            same bits)
 
+and for the fp32 dense products #11f and #12f (mlp_f32; gemm_tf32x3.cuh put
+in place of its include):
+
+  mma1     one TF32 product (A_hi B_hi) instead of three
+  smema    A read by descriptor from the landed stage (its raw fp32 bits, no
+           norm, no split) in all three products: the shared-memory-A
+           route's main loop without its pre-pass and second A box, a lower
+           bound of that route
+  oneacc   one accumulator a tile, no partial sums a stage (the first
+           build's summation; the same products)
+
     python3 -m graphgpt_torch.ops.split_probe
         [--kernel split|stream|fwd|bwd|mlp|norm_mlp|rmsnorm_bwd|mlp_f32|fwd_f32|bwd_f32|split_f32]
         [--source FILE] [--variants base,noexp]
@@ -104,7 +116,10 @@ the package's own); a substitution that does not match it raises; fwd
 and bwd time the forms that its source has. split_f32 times the pair at
 the denoise batch and at B 8 x P 1024 with 16 bit slots, and with --source
 (the parent's flash_bwd_f32.cu, whose entries of the same names are the
-FFMA pair) times that body beside the package's in the same turns. Needs a CUDA card and nvcc.
+FFMA pair) times that body beside the package's in the same turns;
+mlp_f32 likewise with --source an FFMA body's norm_mlp_f32.cu (whose #11f
+and #12f entries take no weight planes), and always times the package's
+#2f beside them. Needs a CUDA card and nvcc.
 Prints the card, then one line a shape and variant (fwd, bwd: a line a
 form): the medians of five CUDA-event readings of 30 launches each, every
 variant of a shape in one turn, then again in the reverse order; the split,
@@ -114,8 +129,8 @@ the fp32 lines with one of their outputs (f32_digest: out; q, k, v of
 #12f; out and lse of #1f, #6f and #9f; dq, dk, dv of #3f and #10f; dq and
 delta of #4f and #7f; dk, dv of #5f and #8f), so that two bodies that should give the same bits (one
 --source against another, or a stream form against its single form on the
-same ids) show it. The fp32 kernels but split_f32 have the base variant
-only, and the forms their source has.
+same ids) show it. The fp32 kernels but split_f32 and mlp_f32 have the
+base variant only, and the forms their source has.
 """
 
 from __future__ import annotations
@@ -252,6 +267,27 @@ _F32_MMA1 = [("      mma_tf32(s0, l1, b1h[0], b1h[1]);\n      mma_tf32(s1, l1, b
              ("  for (int q = 0; q < 4; ++q) mma_tf32(acc[nb0 + q], al, bh[q][0], bh[q][1]);\n"
               "#pragma unroll\n  for (int q = 0; q < 4; ++q) mma_tf32(acc[nb0 + q], ah, bl[q][0], bl[q][1]);\n",
               "  for (int q = 0; q < 0; ++q) {}\n")]
+# the 3xTF32 dense products (mlp_qkv_f32.cu with gemm_tf32x3.cuh put in
+# place of its include): one TF32 product (A_hi B_hi) instead of three; and
+# the shared-memory-A route's main loop, A read by descriptor from the
+# landed stage (its raw fp32 bits, no norm and no split) in all three
+# products, without the route's pre-pass and its second A box a stage (a
+# lower bound of that route's time)
+_GEMM_MMA1 = [("  wgmma_rs<N>(d, lo, bhi, scale_d);\n  wgmma_rs<N>(d, hi, blo, 1);\n"
+               "  wgmma_rs<N>(d, hi, bhi, 1);", "  wgmma_rs<N>(d, hi, bhi, scale_d);")]
+_GEMM_SMEMA = [("      uint32_t a[4][4];\n      load_a(a, st, aoff);\n#pragma unroll\n"
+                "      for (int kk = 0; kk < 4; ++kk) {",
+                "      const uint64_t da = desc_sw128(st + (warp >> 2) * 64 * 128);\n"
+                "      wgmma_fence();\n#pragma unroll\n      for (int kk = 0; kk < 4; ++kk) {\n"
+                "        wgmma_ss<BN>(part, da + 2 * kk, bhi + 2 * kk, kk > 0);\n"
+                "        wgmma_ss<BN>(part, da + 2 * kk, blo + 2 * kk, 1);\n"
+                "        wgmma_ss<BN>(part, da + 2 * kk, bhi + 2 * kk, 1);\n      }\n"
+                "      uint32_t a[4][4];\n      for (int kk = 0; kk < 0; ++kk) {")]
+# one accumulator a tile, as the first build had it: no partial sums a
+# stage (the same products, summed less accurately)
+_GEMM_ONEACC = [("mma3<BN>(part, a[kk], lo, bhi + 2 * kk, blo + 2 * kk, kk > 0);",
+                 "mma3<BN>(acc, a[kk], lo, bhi + 2 * kk, blo + 2 * kk, kc + kk > 0);"),
+                ("        pin(part[i]);\n        acc[i] += part[i];", "        pin(acc[i]);")]
 _F32_NOPASS = [("          for (int u = u0; u < 1024; u += 96) {",
                 "          for (int u = u0 + 1024; u < 1024; u += 96) {")]
 _F32_NOSECOND = [("            const int nbk = 4 * half + j;\n",
@@ -283,7 +319,8 @@ KERNELS = {
         "nores": _MLP_NORES, "nopre": _MLP_NOPRE, "bf16x2": _MLP_BF16X2,
         "wnglobal": _MLP_WNGLOBAL}),
     "rmsnorm_bwd": ("rmsnorm_bwd.cu", {"base": [], "main": _RMS_MAIN, "reduce": _RMS_REDUCE}),
-    "mlp_f32": ("norm_mlp_f32.cu", {"base": []}),
+    "mlp_f32": ("mlp_qkv_f32.cu", {"base": [], "mma1": _GEMM_MMA1, "smema": _GEMM_SMEMA,
+                                   "oneacc": _GEMM_ONEACC}),
     "fwd_f32": ("flash_fwd_f32.cu", {"base": []}),
     "bwd_f32": ("flash_bwd_f32.cu", {"base": []}),
     "split_f32": ("flash_bwd_split_f32.cu", {
@@ -307,7 +344,9 @@ F32_ENTRIES = {
     "split_f32": {"flash_dq_f32": ("ggt_flash_dq_f32", fa._DQ_ARGTYPES),
                   "flash_dkv_f32": ("ggt_flash_dkv_f32", fa._DKV_ARGTYPES)},
 }
-MLP_F32_SHAPES = {"N8192": (8192, 768, 3072), "N1024": (1024, 128, 512)}  # (N, D, F)
+# (N, D, F): GraphGPT-base's serving rows, the fine-tune batch's, toy_pretrain's
+MLP_F32_SHAPES = {"N8192": (8192, 768, 3072), "N18432": (18432, 768, 3072),
+                  "N1024": (1024, 128, 512)}
 # (B, P, H, bit slots, row layout) of the fp32 attention forms; #3f takes
 # the shapes without bit slots
 BWD_F32_SHAPES = {"B8 P1024": (8, 1024, 12, 0, "packed"), "toy B8 P128": (8, 128, 2, 0, "packed"),
@@ -317,7 +356,15 @@ BWD_F32_SHAPES = {"B8 P1024": (8, 1024, 12, 0, "packed"), "toy B8 P128": (8, 128
 # the split pair's shapes: the denoise batch and the 16 bit slots at P 1024
 SPLIT_F32_SHAPES = ("denoise B256 P88", "B8 P1024 bi16")
 # the header a kernel's source includes, put in place before the substitutions
-INLINE = {"mlp": "mlp_common.cuh", "norm_mlp": "mlp_common.cuh", "split_f32": "tf32x3.cuh"}
+INLINE = {"mlp": "mlp_common.cuh", "norm_mlp": "mlp_common.cuh", "split_f32": "tf32x3.cuh",
+          "mlp_f32": "gemm_tf32x3.cuh"}
+# the entries of #11f and #12f in the FFMA body (norm_mlp_f32.cu before they
+# moved to mlp_qkv_f32.cu), which --source of mlp_f32 may name: no weight
+# planes, no tile widths
+FFMA_F32_ARGTYPES = {
+    "ggt_mlp_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "ggt_norm_qkv_f32": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                                                       ctypes.c_void_p]}
 VARIANTS = KERNELS["split"][1]
 # (B, P, H, bit slots, row layout) of each kernel's shapes
 SHAPES = {
@@ -521,20 +568,37 @@ def probe_f32(kernel: str, libs, dev) -> None:
     stream, ptr = _build.stream_ptr(dev), _build.ptr
     entries = F32_ENTRIES[kernel]
     if kernel == "mlp_f32":
+        ffma = libs.get("source")  # the FFMA body's #11f and #12f take no planes
         for tag, (n, d, f) in MLP_F32_SHAPES.items():
             x, wn, wg, wu, wd = f32_mlp_inputs(n, d, f, dev)
             g = torch.empty(n, f, device=dev)
             out, rr = torch.empty_like(x), torch.empty(n, device=dev)
             qkv = [torch.empty_like(x) for _ in range(3)]
+            planes = torch.empty(2, 3 * f * d, device=dev)
+            bn = tmlp.f32_block_n((d,))
+            # #12f's weights: the first d rows of wg, of wu, and rows d.. of wg
+            ws = (ptr(wg), ptr(wu), ptr(wg[d:]))
+
+            def run_mlp(lib):
+                if lib is ffma:
+                    return lib.ggt_mlp_f32(ptr(x), ptr(wg), ptr(wu), ptr(wd), ptr(g), ptr(out), n,
+                                           d, f, 0, stream)
+                return lib.ggt_mlp_f32(ptr(x), ptr(wg), ptr(wu), ptr(wd), ptr(planes), ptr(g),
+                                       ptr(out), n, d, f, bn, 0, stream)
+
+            def run_qkv(lib):
+                if lib is ffma:
+                    return lib.ggt_norm_qkv_f32(ptr(x), ptr(wn), *ws, *(ptr(t) for t in qkv),
+                                                ptr(rr), n, d, d, d, d, 1e-6, stream)
+                return lib.ggt_norm_qkv_f32(ptr(x), ptr(wn), *ws, ptr(planes),
+                                            *(ptr(t) for t in qkv), ptr(rr), n, d, d, d, d, bn,
+                                            1e-6, stream)
+
             runs = {
                 "norm_mlp_f32": lambda lib: lib.ggt_norm_mlp_f32(
                     ptr(x), ptr(wn), ptr(wg), ptr(wu), ptr(wd), ptr(g), ptr(out), ptr(rr), n, d,
                     f, 1e-6, 0, stream),
-                "mlp_f32": lambda lib: lib.ggt_mlp_f32(
-                    ptr(x), ptr(wg), ptr(wu), ptr(wd), ptr(g), ptr(out), n, d, f, 0, stream),
-                "norm_qkv_f32": lambda lib: lib.ggt_norm_qkv_f32(
-                    ptr(x), ptr(wn), ptr(wg), ptr(wu), ptr(wg[d:]), *(ptr(t) for t in qkv),
-                    ptr(rr), n, d, d, d, d, 1e-6, stream)}
+                "mlp_f32": run_mlp, "norm_qkv_f32": run_qkv}
             outs = {"norm_mlp_f32": (out,), "mlp_f32": (out,), "norm_qkv_f32": qkv}
             _probe_f32_turns(tag, libs, entries, runs, outs)
         return
@@ -658,14 +722,21 @@ def main() -> None:
     source = args.source or str(_build.CSRC / file)
     dev = torch.device("cuda")
     print(torch.cuda.get_device_name(0), flush=True)
-    if args.kernel == "split_f32":
+    if args.kernel in ("split_f32", "mlp_f32"):
         # the package's body (its variants), and the --source body beside it
-        # in the same turns
+        # in the same turns; mlp_f32 also the package's #2f (norm_mlp_f32.cu)
         libs = build(args.kernel, (_build.CSRC / file).read_text(),
                      (args.variants or "base").split(","), _build.CSRC)
+        if args.kernel == "mlp_f32":
+            libs["norm_mlp_f32"] = build(args.kernel, (_build.CSRC / "norm_mlp_f32.cu").read_text(),
+                                         ["base"], _build.CSRC, label="norm_mlp_f32")["base"]
         if args.source:
             libs["source"] = build(args.kernel, open(source).read(), ["base"],
-                                   Path(source).resolve().parent, label="split_f32_source")["base"]
+                                   Path(source).resolve().parent,
+                                   label=f"{args.kernel}_source")["base"]
+        if args.source and args.kernel == "mlp_f32":
+            for entry, argtypes in FFMA_F32_ARGTYPES.items():
+                getattr(libs["source"], entry).argtypes = argtypes
     else:
         libs = build(args.kernel, open(source).read(),
                      (args.variants or ",".join(variants)).split(","),

@@ -194,10 +194,11 @@ def test_norm_mlp_sends_each_dtype_to_its_entry(monkeypatch, dtype, symbol):
         (0, 1) if fp32 else (1, 0))
 
 
-@pytest.mark.parametrize("dtype,source", [(torch.float32, "norm_mlp_f32"),
+@pytest.mark.parametrize("dtype,source", [(torch.float32, "mlp_qkv_f32"),
                                           (torch.bfloat16, "mlp")], ids=["fp32", "bf16"])
 def test_mlp_sends_each_dtype_to_its_entry(monkeypatch, dtype, source):
-    """fp32 reaches #11's fp32 entry, one source with #2's fp32 form."""
+    """fp32 reaches #11's fp32 entry, one source with #12's fp32 form, with
+    the scratch of the three weights' TF32 hi and lo planes before g."""
     card = FakeCard(monkeypatch)
     x, _, wg, wu, wd = _mlp(dtype)
     before = (tmlp.mlp.launches, tmlp.mlp_f32.launches)
@@ -206,7 +207,11 @@ def test_mlp_sends_each_dtype_to_its_entry(monkeypatch, dtype, source):
     fp32 = dtype == torch.float32
     assert (got_source, got) == (source, "ggt_mlp_f32" if fp32 else "ggt_mlp")
     assert out.dtype == dtype and out.shape == (200, 128)
-    assert tensors[4].dtype == dtype and tensors[4].shape == (200, 512)  # the g scratch
+    g = tensors[5] if fp32 else tensors[4]  # fp32: x, wg, wu, wd, planes, g, out
+    assert g.dtype == dtype and g.shape == (200, 512)  # the g scratch
+    if fp32:
+        assert tensors[4].dtype == dtype and tensors[4].shape == (2, 3 * 512 * 128)
+    assert len(tmlp._MLP_F32_ARGTYPES if fp32 else tmlp._MLP_ARGTYPES) == 13
     assert (tmlp.mlp.launches - before[0], tmlp.mlp_f32.launches - before[1]) == (
         (0, 1) if fp32 else (1, 0))
 
@@ -526,13 +531,13 @@ def _qkv(dtype, n=200, d=128, widths=(128, 64, 64)):
 
 @pytest.mark.parametrize("widths", [(128, 128, 128), (128, 64, 64)], ids=["mha", "gqa"])
 @pytest.mark.parametrize("dtype,source,symbol", [
-    (torch.float32, "norm_mlp_f32", "ggt_norm_qkv_f32"),
+    (torch.float32, "mlp_qkv_f32", "ggt_norm_qkv_f32"),
     (torch.bfloat16, "norm_qkv", "ggt_norm_qkv")], ids=["fp32", "bf16"])
 def test_norm_qkv_sends_each_dtype_to_its_entry(monkeypatch, dtype, source, symbol, widths):
-    """fp32 x and weights reach #12's fp32 entry (one source with #2f and
-    #11f) with wn in fp32 and the three widths, no tile width; bf16 the
-    entry it always took, with its tile width. One launch of the form, none
-    of the other."""
+    """fp32 x and weights reach #12's fp32 entry (one source with #11f) with
+    wn in fp32, the scratch of the weights' TF32 hi and lo planes, the three
+    widths and the tile width; bf16 the entry it always took. One launch of
+    the form, none of the other."""
     card = FakeCard(monkeypatch)
     x, wn, ws = _qkv(dtype, widths=widths)
     before = (tmlp.norm_qkv.launches, tmlp.norm_qkv_f32.launches)
@@ -541,15 +546,27 @@ def test_norm_qkv_sends_each_dtype_to_its_entry(monkeypatch, dtype, source, symb
     assert (got_source, got) == (source, symbol)
     assert [tuple(o.shape) for o in (q, k, v)] == [(200, w) for w in widths]
     assert all(o.dtype == dtype for o in (q, k, v))
-    # x, wn, wq, wk, wv, q, k, v, rrms
+    fp32 = dtype == torch.float32
+    # x, wn, wq, wk, wv, (fp32: planes,) q, k, v, rrms
     assert tensors[1].dtype == torch.float32 and torch.equal(tensors[1], wn)
     assert all(t.dtype == dtype for t in tensors[2:5])
-    assert tensors[8].dtype == torch.float32 and tensors[8].shape == (200,)
-    fp32 = dtype == torch.float32
+    assert tensors[-1].dtype == torch.float32 and tensors[-1].shape == (200,)
+    if fp32:
+        assert tensors[5].shape == (2, sum(widths) * 128) and len(tensors) == 10
     assert (tmlp.norm_qkv.launches - before[0], tmlp.norm_qkv_f32.launches - before[1]) == (
         (0, 1) if fp32 else (1, 0))
     argtypes = tmlp._QKV_F32_ARGTYPES if fp32 else tmlp._QKV_ARGTYPES
-    assert len(argtypes) == 16 + (not fp32)
+    assert len(argtypes) == (18 if fp32 else 17)
+
+
+@pytest.mark.parametrize("widths,bn", [((768, 768, 768), 128), ((768, 256, 256), 128),
+                                       ((128, 64, 64), 64), ((1600, 1600, 1600), 64),
+                                       ((3072,), 128), ((96,), 0)])
+def test_f32_block_n_is_the_widest_tile_of_the_3xtf32_body_dividing_every_width(widths, bn):
+    """#12f's and #11f's down tile width: 128 or 64, the widest dividing
+    every output width (the body takes no wider: two sets of sums a
+    thread); 0 where neither divides, which the wrappers refuse."""
+    assert tmlp.f32_block_n(widths) == bn
 
 
 def test_the_band_and_qkv_wrappers_refuse_other_dtypes(monkeypatch):

@@ -1,21 +1,35 @@
-"""The numeric design of the fp32 split backward #4f / #5f
-(`csrc/flash_bwd_split_f32.cu`) against the JAX package, on the CPU.
+"""The numeric design of the fp32 forms on 3xTF32 tensor-core products,
+against the JAX package on the CPU: the split backward #4f / #5f
+(`csrc/flash_bwd_split_f32.cu`), the norm-fused projections #12f and the
+gated MLP #11f (`csrc/mlp_qkv_f32.cu`).
 
-The CUDA pair takes every product (S = q k^T, dP = do v^T, dq = ds k,
-dk = ds^T q, dv = p^T do) as three TF32 products: each operand split into
-hi = x rounded to TF32 and lo = (x - hi) rounded to TF32 (nearest, ties
-away, as `cvt.rna.tf32.f32`), then a_hi b_hi + a_hi b_lo + a_lo b_hi
-summed in fp32 (`csrc/tf32x3.cuh`); p = 2^(S log2 e - lse log2 e). Here
-that arithmetic is emulated in torch, rounding to TF32 by bits, and held
-against `_dq_kernel_single` and `_dkv_kernel_single` interpreted in fp32
-(GGT_PALLAS_INTERPRET=1; the bidirectional and causal masks reach them
-with `_MAX_SINGLE_BLOCK` set below P, the bi-causal one through
-`_flash_bwd`'s own route), at the denoise width: B 2 x P 88, 2 heads of
-64, RoPE on, packed rows with a padded stretch, a cotangent of lse. dq,
-delta, dk and dv must lie within 2e-5 in the relative Frobenius norm (the
-card's F32_REL), and the same emulation with one TF32 product (a_hi b_hi)
-past it: the split is what keeps the pair fp32-accurate. Cost: ~3 s a
-case on one worker, most of it the interpreted JAX kernels.
+The CUDA kernels take every product as three TF32 products: each operand
+split into hi = x rounded to TF32 and lo = (x - hi) rounded to TF32
+(nearest, ties away, as `cvt.rna.tf32.f32`), then a_hi b_hi + a_hi b_lo +
+a_lo b_hi summed in fp32 (`csrc/tf32x3.cuh`). Here that arithmetic is
+emulated in torch, rounding to TF32 by bits, and held against the Pallas
+kernels interpreted in fp32 (GGT_PALLAS_INTERPRET=1), each spied on so that
+the test shows it ran; every output must lie within 2e-5 in the relative
+Frobenius norm (the card's F32_REL), and the same emulation with one TF32
+product (a_hi b_hi) past it: the split is what keeps the forms
+fp32-accurate.
+
+The pair: S = q k^T, dP = do v^T, dq = ds k, dk = ds^T q, dv = p^T do, p =
+2^(S log2 e - lse log2 e), against `_dq_kernel_single` and
+`_dkv_kernel_single` (the bidirectional and causal masks reach them with
+`_MAX_SINGLE_BLOCK` set below P, the bi-causal one through `_flash_bwd`'s
+own route), at the denoise width: B 2 x P 88, 2 heads of 64, RoPE on,
+packed rows with a padded stretch, a cotangent of lse; dq, delta, dk and
+dv. ~3 s a case on one worker, most of it the interpreted JAX kernels.
+
+#12f and #11f: the weights split into TF32 hi and lo planes (the split
+pass), the A operand normalised with the plain version's two roundings
+((x * rrms) * wn, #12f) and then split, as the consumers do in registers;
+#11f's gate and up products, act(gate) * up in fp32, then the down product
+on that g. Against `_norm_qkv_kernel` (through `fused_norm_qkv`) and
+`_mlp_kernel` (through `fused_mlp`) at a ragged N 200, D 128, widths
+128/128/128 and GQA's 128/64/64, F 256 and all three activations. ~1 s a
+case.
 """
 
 import jax.numpy as jnp
@@ -25,7 +39,9 @@ import torch
 
 from graphgpt_tpu.models.rope import rope_cos_sin as j_rope_cos_sin
 from graphgpt_tpu.ops import flash_attention as jfa
+from graphgpt_tpu.ops import mlp as jmlp
 from graphgpt_torch.ops import flash_attention as tfa
+from graphgpt_torch.ops import mlp as tmlp
 from graphgpt_torch.synthetic import packed_segments
 
 F32_REL = 2e-5  # chip_smoke.py's tolerance of the fp32 forms against their plain versions
@@ -126,3 +142,75 @@ def test_3xtf32_pair_matches_the_interpreted_kernels(mask, monkeypatch):
             assert bool((g[torch.from_numpy(seg == 0)] == 0).all()), name
     for name, g, w in zip(("dq", "dk", "dv"), one[:1] + one[2:], want):
         assert _rel(g, w) > F32_REL, (name, _rel(g, w))
+
+
+def emulated_norm_qkv(x, wn, ws, eps, mm):
+    """(q, k, v) of #12f's arithmetic with `mm` for every product: rrms in
+    fp32, h = (x * rrms) * wn with its two roundings, then h W^T for each
+    weight [width, D] (the split pass's planes are tf32(W), tf32(W -
+    tf32(W)), what mm_3xtf32 takes of W^T)."""
+    rrms = torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + eps)
+    h = (x * rrms) * wn
+    return [mm(h, w.t()) for w in ws]
+
+
+def emulated_mlp(x, wg, wu, wd, act, mm):
+    """#11f's arithmetic with `mm` for every product: g = act(x wg^T) *
+    (x wu^T) in fp32, out = g wd^T (weights [F, D], [F, D], [D, F])."""
+    g = tmlp.act_fn(act)(mm(x, wg.t())) * mm(x, wu.t())
+    return mm(g, wd.t())
+
+
+def _spy(monkeypatch, name, ran):
+    kernel = getattr(jmlp, name)
+
+    def spy(*refs, **kw):
+        ran.append(name)
+        return kernel(*refs, **kw)
+
+    monkeypatch.setattr(jmlp, name, spy)
+
+
+def _f32(rng, shape, scale, loc=0.0):
+    return (loc + rng.normal(size=shape) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("widths", [(128, 128, 128), (128, 64, 64)], ids=["mha", "gqa"])
+def test_3xtf32_norm_qkv_matches_the_interpreted_kernel(widths, monkeypatch):
+    monkeypatch.setenv("GGT_PALLAS_INTERPRET", "1")
+    ran = []
+    _spy(monkeypatch, "_norm_qkv_kernel", ran)
+    n, d, eps = 200, 128, 1e-6
+    rng = np.random.default_rng(31)
+    x, wn = _f32(rng, (n, d), 1.0), _f32(rng, (d,), 0.1, 1.0)
+    ws = [_f32(rng, (w, d), 0.55 / d**0.5) for w in widths]  # nn.Linear layout
+    want = jmlp.fused_norm_qkv(jnp.asarray(x), jnp.asarray(wn),
+                               *(jnp.asarray(w.T) for w in ws), eps)
+    assert ran
+    args = (torch.from_numpy(x), torch.from_numpy(wn), [torch.from_numpy(w) for w in ws], eps)
+    got = emulated_norm_qkv(*args, mm_3xtf32)
+    one = emulated_norm_qkv(*args, mm_tf32)
+    for name, g, o, w in zip("qkv", got, one, want):
+        assert g.shape == w.shape, name
+        assert _rel(g, w) < F32_REL, (name, _rel(g, w))
+        assert _rel(o, w) > F32_REL, (name, _rel(o, w))
+
+
+@pytest.mark.parametrize("act", ["gelu", "gelu_pytorch_tanh", "silu"])
+def test_3xtf32_mlp_matches_the_interpreted_kernel(act, monkeypatch):
+    monkeypatch.setenv("GGT_PALLAS_INTERPRET", "1")
+    ran = []
+    _spy(monkeypatch, "_mlp_kernel", ran)
+    n, d, f = 200, 128, 256
+    rng = np.random.default_rng(37)
+    x = _f32(rng, (n, d), 1.0)
+    wg, wu = (_f32(rng, (f, d), 0.55 / d**0.5) for _ in range(2))
+    wd = _f32(rng, (d, f), 0.55 / f**0.5)
+    want = jmlp.fused_mlp(jnp.asarray(x), *(jnp.asarray(w.T) for w in (wg, wu, wd)), act)
+    assert ran
+    args = (torch.from_numpy(x), *(torch.from_numpy(w) for w in (wg, wu, wd)), act)
+    got = emulated_mlp(*args, mm_3xtf32)
+    one = emulated_mlp(*args, mm_tf32)
+    assert got.shape == want.shape
+    assert _rel(got, want) < F32_REL, _rel(got, want)
+    assert _rel(one, want) > F32_REL, _rel(one, want)

@@ -1659,8 +1659,8 @@ def test_an_fp32_model_trains_on_the_fp32_kernels(cuda_device):
         assert _rel(g[n], rg[n]) <= 1e-4, n
 
 
-# ---- the fp32 forms of #11 (norm_mlp_f32.cu's second form) and of the split
-# pair #4, #5 (flash_bwd_f32.cu's query and key passes)
+# ---- the fp32 forms of #11 (mlp_qkv_f32.cu's GATE_UP and DOWN modes) and of
+# the split pair #4, #5 (flash_bwd_split_f32.cu)
 
 
 @contextlib.contextmanager
@@ -2059,14 +2059,15 @@ def test_an_fp32_model_trains_on_the_fp32_stream_kernels(cuda_device, mode, p, m
 
 # #2f's and #3f's digests (split_probe's f32_digest) from the bodies before
 # #11f and the split pair joined their sources, #1f's from the body before
-# the stream forms joined its source, and #11f's and the stream forms' from
-# the bodies before the band forms and #12f joined theirs: `split_probe
-# --kernel mlp_f32`, `--kernel fwd_f32` and `--kernel bwd_f32` with
-# --source on those commits' csrc/, on an NVIDIA H100 80GB HBM3, at
-# split_probe's inputs (f32_mlp_inputs, gelu; inputs in fp32 on packed
-# rows, no lse cotangent; the stream forms on the query ids as key ids).
-# The templated norm_mlp_f32.cu and flash_fwd_f32.cu and the shared passes
-# of flash_bwd_f32.cu keep them. (#4f's and #5f's are _F32_SPLIT_DIGESTS.)
+# the stream forms joined its source, and the stream forms' from the bodies
+# before the band forms and #12f joined theirs: `split_probe --kernel
+# mlp_f32`, `--kernel fwd_f32` and `--kernel bwd_f32` with --source on
+# those commits' csrc/, on an NVIDIA H100 80GB HBM3, at split_probe's
+# inputs (f32_mlp_inputs, gelu; inputs in fp32 on packed rows, no lse
+# cotangent; the stream forms on the query ids as key ids). norm_mlp_f32.cu
+# (#2f alone now) and flash_fwd_f32.cu and the shared passes of
+# flash_bwd_f32.cu keep them. (#4f's and #5f's are _F32_SPLIT_DIGESTS,
+# #11f's and #12f's _F32_TF32X3_DIGESTS.)
 _F32_PARENT_DIGESTS = {
     ("norm_mlp_f32", "N8192"): -98387183775274,
     ("norm_mlp_f32", "N1024"): -2074798766708,
@@ -2074,8 +2075,6 @@ _F32_PARENT_DIGESTS = {
     ("flash_bwd_f32", "toy B8 P128"): -17989573487664,
     ("flash_fwd_f32", "B8 P1024"): -165906643651216,
     ("flash_fwd_f32", "denoise B256 P88"): -328070100018431,
-    ("mlp_f32", "N8192"): -225411978267659,
-    ("mlp_f32", "N1024"): -3611697443544,
     ("flash_fwd_stream_f32", "B8 P1024"): -165906643651216,
     ("flash_dq_stream_f32", "B8 P1024"): -249067995751735,
     ("flash_dkv_stream_f32", "B8 P1024"): -670983982973380,
@@ -2130,20 +2129,16 @@ def _f32_attention_digest(form, shape, dev):
 @pytest.mark.parametrize("form,shape", list(_F32_PARENT_DIGESTS))
 def test_fp32_forms_keep_the_bits_of_their_bodies_before_the_new_forms(cuda_device, form,
                                                                         shape):
-    """#2f and #11f through norm_mlp and mlp, #1f, #3f and the stream forms
-    #6f-#8f through their wrappers on fp32 tensors give the bits their
-    bodies gave before #11f, #4f / #5f, the stream forms, and the band forms
-    #9f, #10f and #12f were added beside them."""
+    """#2f through norm_mlp, #1f, #3f and the stream forms #6f-#8f through
+    their wrappers on fp32 tensors give the bits their bodies gave before
+    #11f, #4f / #5f, the stream forms, and the band forms #9f, #10f and #12f
+    were added beside them, and #11f and #12f moved to their own source."""
     from graphgpt_torch.ops import split_probe as sp
 
     dev = cuda_device
     if form == "norm_mlp_f32":
         x, wn, wg, wu, wd = sp.f32_mlp_inputs(*sp.MLP_F32_SHAPES[shape], dev)
         digest = sp.f32_digest(tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, "gelu"))
-        torch.cuda.synchronize()
-    elif form == "mlp_f32":
-        x, _, wg, wu, wd = sp.f32_mlp_inputs(*sp.MLP_F32_SHAPES[shape], dev)
-        digest = sp.f32_digest(tmlp.mlp(x, wg, wu, wd, "gelu"))
         torch.cuda.synchronize()
     else:
         digest = _f32_attention_digest(form, shape, dev)
@@ -2169,7 +2164,7 @@ def test_fp32_stream_forms_keep_their_bits(cuda_device, form):
 
 # ---- the fp32 forms of the knobs' kernels: #9 and #10 (flash_fwd_f32.cu's
 # and flash_bwd_f32.cu's band forms, GGT_FLASH_MODE=band) and #12
-# (norm_mlp_f32.cu's qkv kernel, GGT_ATTN_NORM_FUSE=1)
+# (mlp_qkv_f32.cu's QKV mode, GGT_ATTN_NORM_FUSE=1)
 
 # (B, P, H, key ids, mask) of the band forms' cases: phase P(a)'s shapes cut
 # small (the serving rows, causal, another row's ids, the denoise batch,
@@ -2342,8 +2337,10 @@ def test_fp32_band_forms_give_the_bits_of_the_other_forms(cuda_device, case):
 
 
 # (N, D, q, k, v widths) of #12f's cases: the serving rows, a ragged row
-# tile, GQA, toy_pretrain's D 128, the widest hidden size
+# tile, GQA, toy_pretrain's D 128, the widest hidden size, the CPU
+# emulation's ragged GQA shape
 _F32_QKV_CASES = {
+    "ragged_gqa": (200, 128, (128, 64, 64)),
     "N8192": (8192, 768, (768, 768, 768)),
     "N65537": (65537, 768, (768, 768, 768)),
     "gqa": (4096, 768, (768, 256, 256)),
@@ -2388,7 +2385,7 @@ def test_fp32_norm_qkv_kernel_matches_plain(cuda_device, case):
             assert _rel(t, r) > F32_REL, name
     assert all(torch.equal(a, b) for a, b in zip(tmlp.norm_qkv(x, wn, *ws, 1e-6), got))
     rr = torch.empty(n, device=dev)
-    fn = _build.entry("norm_mlp_f32", "ggt_norm_qkv_f32_rrms",
+    fn = _build.entry("mlp_qkv_f32", "ggt_norm_qkv_f32_rrms",
                       [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_float,
                                                                      ctypes.c_void_p])
     _build.check(fn(_build.ptr(x), _build.ptr(rr), n, d, 1e-6, _build.stream_ptr(dev)), "rrms")
@@ -2429,3 +2426,72 @@ def test_an_fp32_model_trains_under_both_knobs(cuda_device, p, monkeypatch):
     assert got == {"flash_fwd_band_f32": 2, "flash_bwd_band_f32": 2, "norm_qkv_f32": 4,
                    "norm_mlp_f32": 2, "rmsnorm_bwd_f32": 3}
     _assert_f32_step(run, ref)
+
+
+# ---- #11f and #12f on their 3xTF32 body (mlp_qkv_f32.cu): every tile width
+# each is built for, and the bits of its first build
+
+# #11f's and #12f's digests as the first build of their 3xTF32 body gave
+# them: `split_probe --kernel mlp_f32` (f32_mlp_inputs, gelu; #12f's q, k, v
+# weights the first D rows of wg, of wu, and rows D.. of wg), on an NVIDIA
+# H100 80GB HBM3
+_F32_TF32X3_DIGESTS = {
+    ("mlp_f32", "N8192"): -225409867562753,
+    ("mlp_f32", "N1024"): -3611698320819,
+    ("norm_qkv_f32", "N8192"): -445785109629213,
+    ("norm_qkv_f32", "N1024"): -8578998215950,
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [128, 64])
+def test_fp32_mlp_kernel_takes_every_tile_width(cuda_device, monkeypatch, bn):
+    """#11f with each down width BN it is built for, forced in place of
+    f32_block_n's choice, at D 768, F 3072 and a ragged N, within F32_REL
+    of the plain fp32 version and bit-equal on a relaunch."""
+    from graphgpt_torch.ops.split_probe import f32_mlp_inputs
+
+    x, _, wg, wu, wd = f32_mlp_inputs(1000, 768, 3072, cuda_device, seed=bn)
+    monkeypatch.setattr(tmlp, "f32_block_n", lambda widths: bn)
+    out = tmlp.mlp(x, wg, wu, wd, "gelu")
+    torch.cuda.synchronize()
+    with ops.reference_mode():
+        ref = tmlp.mlp(x, wg, wu, wd, "gelu")
+    assert _rel(out, ref) < F32_REL
+    assert torch.equal(tmlp.mlp(x, wg, wu, wd, "gelu"), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [128, 64])
+@pytest.mark.parametrize("widths", [(768, 768, 768), (768, 256, 256)], ids=["mha", "gqa"])
+def test_fp32_norm_qkv_kernel_takes_every_tile_width(cuda_device, monkeypatch, bn, widths):
+    """#12f with each tile width BN it is built for, forced in place of
+    f32_block_n's choice, at D 768, a ragged N and GQA's widths, within
+    F32_REL of the plain fp32 version and bit-equal on a relaunch."""
+    from graphgpt_torch.ops.split_probe import f32_mlp_inputs
+
+    x, wn, wg, wu, _ = f32_mlp_inputs(1000, 768, 768, cuda_device, seed=bn)
+    ws = (wg, wu[: widths[1]], wu[-widths[2]:])
+    monkeypatch.setattr(tmlp, "f32_block_n", lambda w: bn)
+    got = tmlp.norm_qkv(x, wn, *ws, 1e-6)
+    torch.cuda.synchronize()
+    with ops.reference_mode():
+        want = tmlp.norm_qkv(x, wn, *ws, 1e-6)
+    for name, g, w in zip("qkv", got, want):
+        assert _rel(g, w) < F32_REL, name
+    assert all(torch.equal(a, b) for a, b in zip(tmlp.norm_qkv(x, wn, *ws, 1e-6), got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form,shape", list(_F32_TF32X3_DIGESTS))
+def test_fp32_tf32x3_forms_keep_their_bits(cuda_device, form, shape):
+    """#11f through mlp and #12f through norm_qkv at split_probe's fp32
+    inputs give the bits of their 3xTF32 body's first build."""
+    from graphgpt_torch.ops import split_probe as sp
+
+    n, d, f = sp.MLP_F32_SHAPES[shape]
+    x, wn, wg, wu, wd = sp.f32_mlp_inputs(n, d, f, cuda_device)
+    outs = ((tmlp.mlp(x, wg, wu, wd, "gelu"),) if form == "mlp_f32"
+            else tmlp.norm_qkv(x, wn, wg[:d], wu[:d], wg[d:2 * d], 1e-6))
+    torch.cuda.synchronize()
+    assert sp.f32_digest(*outs) == _F32_TF32X3_DIGESTS[form, shape]

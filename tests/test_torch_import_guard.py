@@ -63,8 +63,8 @@ def test_the_scan_sees_every_module():
                   if p.suffix in (".py", ".cpp")) == ["__init__.py", "euler.cpp", "euler_native.py"]
     assert sorted(p.name for p in (ROOT / "graphgpt_torch" / "csrc").glob("*.cu")) == [
         "flash_bwd.cu", "flash_bwd_f32.cu", "flash_bwd_split.cu", "flash_bwd_split_f32.cu",
-        "flash_fwd.cu", "flash_fwd_f32.cu", "mlp.cu", "norm_mlp.cu", "norm_mlp_f32.cu",
-        "norm_qkv.cu", "rmsnorm_bwd.cu",
+        "flash_fwd.cu", "flash_fwd_f32.cu", "mlp.cu", "mlp_qkv_f32.cu", "norm_mlp.cu",
+        "norm_mlp_f32.cu", "norm_qkv.cu", "rmsnorm_bwd.cu",
     ]
 
 
