@@ -158,8 +158,10 @@
    through FinetunePipeline, warm-started from (a), four steps and the
    valid MAE on 1,024 graphs.
 7f. Phase L, float32 on the card: the fp32 forms of #1, #2, #3 and #13
-   (flash_fwd_f32.cu, norm_mlp_f32.cu, flash_bwd_f32.cu, rmsnorm_bwd.cu's
-   fp32 instances), to which the wrappers hand fp32 tensors. (a)
+   (flash_fwd_f32.cu; mlp_qkv_f32.cu's #2f, the 3xTF32 wgmma body with the
+   norm on A and x added to the down stage; flash_bwd_f32.cu;
+   rmsnorm_bwd.cu's fp32 instances), to which the wrappers hand fp32
+   tensors. (a)
    configs/toy_pretrain.yaml as shipped (128 x 2, heads of 64, fp32,
    pretrain-mlm on synthetic molecules, 8 x 128 packed) through
    PretrainPipeline: each fp32 form at its first batch's shapes, its first
@@ -200,17 +202,20 @@
    attention dropout, pairs remat, 256 graphs a batch on synthetic_mol) at
    model.dtype=float32 through FinetunePipeline, warm-started from the
    train phase's weights: #11f at its batch's N and at N 8,192, untimed
-   also at a ragged N 65,537 and at toy_pretrain's D 128 / F 512, and #2f's
-   digests at split_probe's inputs against its body's
+   also at a ragged N 65,537 and at toy_pretrain's D 128 / F 512; #2f
+   untimed at MLP_CONTRACT's N 65,537, D 384 / F 384 and D 128 / F 512 and
+   at xxlarge's D 1600 / F 6400 (down tiles 64 wide), and its digests at
+   split_probe's inputs against its 3xTF32 body's first build
    (NORM_MLP_F32_DIGESTS); the first step against the plain fp32 run on the
    same dropout masks (F32_LOSS_REL, F32_GRAD_REL); 8
    steps with the launches of each step and eval forward (finetune_want on
    the fp32 forms: 24 #1f, 12 #3f, 24 #11f, 25 #13f a step), the loss
    falling, the valid, EMA-valid and test MAE, result.csv. (b) The denoiser
    of step 8 at fp32 (256 x 88, 16 bit slots): #4f and #5f at its batch,
-   the first step against the plain fp32 run on the same draws, 4 AdamW +
-   EMA steps (24 #1f, 12 #4f, 12 #5f, 18 #2f, 13 #13f, no #3f a step), an
-   EMA eval forward that decodes finite [256, 1] energies. (c) #4f and #5f
+   #2f at its N 22,528, the first step against the plain fp32 run on the
+   same draws, 4 AdamW + EMA steps (24 #1f, 12 #4f, 12 #5f, 18 #2f, 13
+   #13f, no #3f a step), an EMA eval forward that decodes finite [256, 1]
+   energies. (c) #4f and #5f
    also at B 8 x P 1024 with 16 bit slots. Each form's check is phase L's
    (f32_check: within F32_REL of the plain version, the TF32 control past
    it, a relaunch bit for bit, padded rows exact), the pair's also with inf
@@ -232,7 +237,8 @@
    that see no key and keys that no query sees exactly 0) and with inf and
    NaN in do's padded rows changing no output bit; #1f's entry on the same
    rows bit for bit #6f's; each timed at 16 x 4096 beside its bound, its
-   FFMA bound, its plain version and SDPA in fp32; the first step on 4
+   FFMA bound, its plain version and SDPA in fp32; #2f at the batch's N
+   65,536 (f32_check, timed as in phase L); the first step on 4
    rows against the plain fp32 run (F32_LOSS_REL, F32_GRAD_REL); 4 counted
    steps (12 #6f, 12 #7f, 12 #8f, 12 #2f, 13 #13f a step; 12 #6f + 12 #2f
    an eval forward), the losses falling, the save point's valid and
@@ -4055,6 +4061,10 @@ def fp32_finetune_run(dev, counters, mlp, ops, train_sd):
                                           norm=False, timed=False),
                "toy": f32_mlp_at_shape(dev, mlp, ops, f"{tag} toy_pretrain's D", 1024, 128, 512,
                                        m.hidden_act, m.rms_norm_eps, norm=False, timed=False)}
+        # #2f at N_NORM_MLP_SHAPES, untimed
+        for n, d, f in N_NORM_MLP_SHAPES:
+            res[f"norm_n{n}_d{d}"] = f32_mlp_at_shape(dev, mlp, ops, f"{tag} #2f's contract", n, d,
+                                                      f, m.hidden_act, m.rms_norm_eps, timed=False)
         f32_norm_mlp_bits(dev, mlp, tag)
         torch.cuda.empty_cache()
         # the same generator on both runs: the same dropout and DropPath masks
@@ -4116,7 +4126,9 @@ def fp32_denoise_run(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin):
                             max_position_embeddings=cfg.max_position_embeddings)
     res = {"denoise": f32_split_at_shape(fa, ops, "phase N(c) denoise", batch["segment_ids"],
                                          cos.float(), sin.float(), cfg.bi_causal_split,
-                                         cfg.num_attention_heads, cfg.head_dim)}
+                                         cfg.num_attention_heads, cfg.head_dim),
+           "mlp": f32_mlp_at_shape(dev, mlp, ops, tag, b * p, cfg.hidden_size,
+                                   cfg.intermediate_size, cfg.hidden_act, cfg.rms_norm_eps)}
     del cos, sin
     torch.cuda.empty_cache()
     draws = denoise_draws(b, p, torch.Generator(device=dev).manual_seed(1), dev)
@@ -4160,16 +4172,20 @@ def fp32_denoise_run(dev, counters, fa, mlp, ops, synthetic, rope_cos_sin):
 
 
 # #2f's digests (ops/split_probe.py's f32_digest of norm_mlp at its
-# f32_mlp_inputs, gelu) as its FFMA body has given them on an H100 since #11f
-# joined its source (tests/test_torch_gpu.py _F32_PARENT_DIGESTS): #11f and
-# #12f moving to mlp_qkv_f32.cu must leave them
-NORM_MLP_F32_DIGESTS = {"N8192": -98387183775274, "N1024": -2074798766708}
+# f32_mlp_inputs, gelu) as the first build of its 3xTF32 body in
+# mlp_qkv_f32.cu gave them on an NVIDIA H100 80GB HBM3 (tests/test_torch_gpu.py
+# _F32_TF32X3_DIGESTS): a later edit of the body must keep them
+NORM_MLP_F32_DIGESTS = {"N8192": -98385026759675, "N1024": -2074798871119}
 N_MLP_CHECKS = ("n8192", "ft_shape", "n65537", "toy")  # #11f's shapes in phase N(a)
+# #2f's untimed shapes in phase N(a): MLP_CONTRACT's first three, and
+# xxlarge's D 1600 / F 6400, whose down tiles are 64 wide (f32_block_n)
+N_NORM_MLP_SHAPES = tuple(c[:3] for c in MLP_CONTRACT[:3]) + ((4096, 1600, 6400),)
+N_NORM_MLP_CHECKS = tuple(f"norm_n{n}_d{d}" for n, d, _ in N_NORM_MLP_SHAPES)
 
 
 def f32_norm_mlp_bits(dev, mlp, tag):
     """#2f through norm_mlp at split_probe's fp32 inputs gives the digests
-    its body has always given (NORM_MLP_F32_DIGESTS)."""
+    of its body's first build (NORM_MLP_F32_DIGESTS)."""
     from graphgpt_torch.ops import split_probe as sp
 
     for shape, want in NORM_MLP_F32_DIGESTS.items():
@@ -4378,7 +4394,7 @@ def f32_stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_r
     return res
 
 
-def fp32_long_run(dev, counters, fa, ops, _build, rope_cos_sin, data_dir):
+def fp32_long_run(dev, counters, fa, mlp, ops, _build, rope_cos_sin, data_dir):
     """Phase O(a) (see the module docstring, 7i). Returns (its numbers, the
     launches of its run)."""
     from graphgpt_torch.models.rope import reset_position_ids
@@ -4412,7 +4428,9 @@ def fp32_long_run(dev, counters, fa, ops, _build, rope_cos_sin, data_dir):
             pos, mc.head_dim, mc.rope_theta, resonance=mc.rope_resonance,
             rope_scaling=mc.rope_scaling, max_position_embeddings=mc.max_position_embeddings))
         res = {"kernels": f32_stream_at_shape(fa, ops, _build, batch["segment_ids"], cos, sin,
-                                              mc.num_attention_heads, mc.head_dim)}
+                                              mc.num_attention_heads, mc.head_dim),
+               "mlp": f32_mlp_at_shape(dev, mlp, ops, tag, b * p, mc.hidden_size,
+                                       mc.intermediate_size, mc.hidden_act, mc.rms_norm_eps)}
         del cos, sin
         torch.cuda.empty_cache()
         res["step"] = step_vs_plain32(pipe.state.model, {k: v[:4] for k, v in batch.items()},
@@ -4451,12 +4469,13 @@ def fp32_long_run(dev, counters, fa, ops, _build, rope_cos_sin, data_dir):
     return res, got
 
 
-def fp32_stream_phase(dev, counters, fa, ops, _build, rope_cos_sin, data_dir):
+def fp32_stream_phase(dev, counters, fa, mlp, ops, _build, rope_cos_sin, data_dir):
     """Phase O (see the module docstring, 7i): (a) fp32 long-context
-    pretraining with #6f-#8f's checks at its batch, (b) the quick start
-    under GGT_FLASH_MODE=skip. Returns ({part: its numbers}, the launches
-    of its runs)."""
-    long32, launches = fp32_long_run(dev, counters, fa, ops, _build, rope_cos_sin, data_dir)
+    pretraining with #6f-#8f's and #2f's checks at its batch, (b) the quick
+    start under GGT_FLASH_MODE=skip. Returns ({part: its numbers}, the
+    launches of its runs)."""
+    long32, launches = fp32_long_run(dev, counters, fa, mlp, ops, _build, rope_cos_sin,
+                                     data_dir)
     with knobs(fa, "skip", "0"):
         toy, got = toy_pretrain_run(
             dev, counters, ops, "phase O(b) (toy_pretrain.yaml under skip, fp32)", stream32_want)
@@ -6190,13 +6209,13 @@ def main() -> None:
             if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
     # the wgmma kernels (#12; #2, #11; #4, #5, #7, #8; #1, #6, #9; #3, #10;
-    # #11f, #12f) keep no spill and let ptxas pipeline their wgmma (no
+    # #2f, #11f, #12f) keep no spill and let ptxas pipeline their wgmma (no
     # C7512/C7513), #13 (both dtypes) and the other fp32 forms keep no spill;
     # flash_fwd.cu's log must show its three forms, flash_bwd.cu's its two,
-    # the fp32 forward's and passes' two each
+    # the fp32 forward's and passes' two each, mlp_qkv_f32.cu's its twelve
     for name in ("norm_qkv", "norm_mlp", "mlp", "flash_bwd_split", "flash_fwd", "flash_bwd",
-                 "rmsnorm_bwd", "flash_fwd_f32", "flash_bwd_f32", "norm_mlp_f32",
-                 "flash_bwd_split_f32", "mlp_qkv_f32"):
+                 "rmsnorm_bwd", "flash_fwd_f32", "flash_bwd_f32", "flash_bwd_split_f32",
+                 "mlp_qkv_f32"):
         if re.search(r"[1-9]\d* bytes spill|C751[0-9]", logs.get(name, "")):
             fail(f"ptxas spilled in {name}.cu or serialised its wgmma (see the build lines above)")
     for name, kernel, want in (("flash_fwd", "fwd_kernel", ["0", "1", "2"]),
@@ -6214,6 +6233,19 @@ def main() -> None:
               f"{forms}", flush=True)
         if forms != ["0", "1", "2"]:
             fail(f"{name}.cu's build log does not show {kernel}'s three forms")
+    # prod_kernel<MODE, BN, ACT, NORM, RESID>: #12f's QKV at BN 128 and 64;
+    # #11f's and #2f's (NORM) gate/up at each activation; their down stages
+    # at BN 128 and 64 (#2f's with RESID)
+    prods = set(re.findall(r"prod_kernelILi(\d)ELi(\d+)ELi(\d)ELb(\d)ELb(\d)E",
+                           logs.get("mlp_qkv_f32", "")))
+    want_prods = ({("0", bn, "0", "1", "0") for bn in ("128", "64")}
+                  | {("1", "128", a, nm, "0") for a in "012" for nm in "01"}
+                  | {("2", bn, "0", "0", rs) for bn in ("128", "64") for rs in "01"})
+    print(f"mlp_qkv_f32.cu: the prod_kernel instances ptxas compiled (mode, BN, act, NORM, "
+          f"RESID): {sorted(prods)}", flush=True)
+    if prods != want_prods:
+        fail(f"mlp_qkv_f32.cu's build log does not show prod_kernel's {len(want_prods)} "
+             f"instances")
 
     # ---- the graph-level store (PCQM4M-v2's schema), the C++ walk on it, and
     # the long-context loader alone on it, before this process starts a pool
@@ -6340,7 +6372,7 @@ def main() -> None:
     # model.dtype=float32; the quick start under skip) on #6f, #7f, #8f
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    f32o, shippedl["O"] = fp32_stream_phase(dev, counters, fa, ops, _build, rope_cos_sin,
+    f32o, shippedl["O"] = fp32_stream_phase(dev, counters, fa, mlp, ops, _build, rope_cos_sin,
                                             data_dir)
     print(f"phase O: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -6579,7 +6611,7 @@ def main() -> None:
     lt, lb = fp32["toy"], fp32["base"]
     for name, source, line, kind in (
             ("flash_fwd_f32", "flash_fwd_f32.cu", "flash_attention.py:124", "fwd"),
-            ("norm_mlp_f32", "norm_mlp_f32.cu", "mlp.py:203", "mlp"),
+            ("norm_mlp_f32", "mlp_qkv_f32.cu", "mlp.py:203", "mlp"),
             ("flash_bwd_f32", "flash_bwd_f32.cu", "flash_attention.py:706", "bwd"),
             ("rmsnorm_bwd_f32", "rmsnorm_bwd.cu", "mlp.py:414", "rms")):
         r, rt = lb[kind], lt[kind]
@@ -6593,8 +6625,20 @@ def main() -> None:
             base_step_ms=lb["step_ms"], toy_losses=lt["losses"]))
     # the fp32 forms of phase N: #11f's main entry at N 8,192 (GraphGPT-base's
     # serving rows), the fine-tune batch's N beside it; the pair's at the
-    # denoise batch B 256 x P 88, B 8 x P 1024 beside it
+    # denoise batch B 256 x P 88, B 8 x P 1024 beside it; #2f's (phase L's
+    # entry) gains the denoise batch's N 22,528, phase O's N 65,536 and
+    # N_NORM_MLP_SHAPES
     nft, ndn = f32n["finetune"], f32n["denoise"]
+    e2f = next(e for e in kernels if e["name"] == "norm_mlp_f32")
+    n2f = [nft[k] for k in N_NORM_MLP_CHECKS]
+    for tag, r in (("denoise_shape", ndn["mlp"]), ("long_shape", f32o["long"]["mlp"])):
+        n2f.append(r)
+        e2f.update({f"{tag}_{k}": r[k] for k in ("ms", "plain_ms", "lib_ms", "bound_ms",
+                                                  "ffma_bound_ms", "tflops")})
+    e2f.update(max_abs_err=max([e2f["max_abs_err"]] + [r["err"] for r in n2f]),
+               rel_err=max([e2f["rel_err"]] + [r["rel"] for r in n2f]),
+               tf32_control_rel=min([e2f["tf32_control_rel"]] + [r["tf32_rel"] for r in n2f]),
+               tflops=lb["mlp"]["tflops"])
     r, rf = nft["n8192"], nft["ft_shape"]
     kernels.append(entry(
         "mlp_f32", "mlp_qkv_f32.cu", "mlp.py:82",

@@ -1,5 +1,5 @@
 // The fp32-accurate dense-product pieces for Hopper that the fp32 forms
-// #12f norm_qkv and #11f mlp (mlp_qkv_f32.cu) share, on top of
+// #12f norm_qkv, #11f mlp and #2f norm_mlp (mlp_qkv_f32.cu) share, on top of
 // sm90_common.cuh's primitives and tf32x3.cuh's split: wgmma m64nNk8 in
 // TF32 with fp32 sums (N 128 and 64), A from registers or from shared
 // memory, B from a 128-byte swizzled tile; the A fragment of a stage by ldmatrix; the three

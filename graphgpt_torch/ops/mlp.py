@@ -8,14 +8,14 @@ Counterpart of `graphgpt_tpu/ops/mlp.py` (`_mlp_kernel` :82, `fused_mlp`
 `fused_norm_qkv` :363 with `_fused_norm_qkv_bwd` :376, `_rmsnorm_bwd_kernel`
 :414, `xla_mlp` :468). The kernels live in `csrc/mlp.cu`,
 `csrc/norm_mlp.cu`, `csrc/norm_qkv.cu` and `csrc/rmsnorm_bwd.cu`, the fp32
-form of #2 in `csrc/norm_mlp_f32.cu` and those of #11 and #12 in
-`csrc/mlp_qkv_f32.cu`. Weights are in nn.Linear layout (`[out, in]`): the
-JAX package's `[in, out]` matrices transposed.
+forms of #2, #11 and #12 in `csrc/mlp_qkv_f32.cu`. Weights are in
+nn.Linear layout (`[out, in]`): the JAX package's `[in, out]` matrices
+transposed.
 
 Dtypes: every kernel takes bf16, and fp32 (a `model.dtype: float32`
-model): #2 in `csrc/norm_mlp_f32.cu` (FFMA), #11 and #12 on one 3xTF32
-tensor-core body, `csrc/mlp_qkv_f32.cu` (wrappers and counts norm_mlp_f32,
-mlp_f32, norm_qkv_f32), #13 in the fp32 instances of its templated source
+model): #2, #11 and #12 on one 3xTF32 tensor-core body,
+`csrc/mlp_qkv_f32.cu` (wrappers and counts norm_mlp_f32, mlp_f32,
+norm_qkv_f32), #13 in the fp32 instances of its templated source
 (rmsnorm_bwd_f32); norm_mlp, mlp, norm_qkv and rmsnorm_bwd hand them fp32
 CUDA tensors. Every kernel raises on any other dtype or on a mix.
 """
@@ -36,16 +36,18 @@ _MLP_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _ARGTYPES = (
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
-# the fp32 form: x, wn, wg, wu, wd, g, out, rrms; N, D, F; eps; act; stream
+# #2's fp32 form: x, wn, wg, wu, wd, planes, g, out, rrms; N, D, F, bn; eps; act; stream
 _F32_ARGTYPES = (
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
 # #11's fp32 form: x, wg, wu, wd, planes, g, out; N, D, F, bn, act; stream
 _MLP_F32_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # the stage entries (ggt_mlp_stages, ggt_norm_mlp_stages): a stage mask before the stream
 _MLP_STAGE_ARGTYPES = _MLP_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
 _STAGE_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
-MLP_RRMS, MLP_GATE_UP, MLP_DOWN = 1, 2, 4  # the stage mask's bits
+_F32_STAGE_ARGTYPES = _F32_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
+# the stage mask's bits (MLP_SPLIT: the fp32 form's weight-split pass)
+MLP_RRMS, MLP_GATE_UP, MLP_DOWN, MLP_SPLIT = 1, 2, 4, 8
 _MLP_MAX_D = 8192  # norm_mlp: wn's row sits in the gate/up kernel's shared memory
 _MLP_BLOCK_HS = (128, 64)  # gate/up tile widths: BH gate and BH up columns of 128 rows
 _MLP_BLOCK_NS = (256, 192, 128, 64)  # down tile widths
@@ -60,7 +62,7 @@ _QKV_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float, ct
 _QKV_F32_ARGTYPES = (
     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 )
-_QKV_MAX_D = 4096  # wn's row sits in the kernel's shared memory beside its stages
+_QKV_MAX_D = 4096  # wn's row sits in the kernel's shared memory beside its stages (also #2f)
 _QKV_BLOCK_NS = (256, 128, 64)  # the kernel's output tile widths
 _F32_BLOCK_NS = (128, 64)  # the 3xTF32 body's (#11f's down stage, #12f) output tile widths
 # x, g, w, dx, dw, partial; N, D; eps; blocks; stream
@@ -356,24 +358,29 @@ norm_mlp.launches = 0
 
 def norm_mlp_f32(x, wn, wg, wu, wd, eps: float, act: str):
     """x + mlp(rms(x) * wn) for x [N, D] and the weights in fp32: #2's fp32
-    form (`csrc/norm_mlp_f32.cu`: the rrms pre-pass, gate/up, down; counted
-    as one call) for CUDA tensors, the plain version for a CPU tensor (or
-    inside ops.reference_mode())."""
+    form (`csrc/mlp_qkv_f32.cu`: the weights' TF32 split, the rrms pre-pass,
+    gate/up on x normalised, down with x added, 3xTF32 on the tensor cores;
+    counted as one call) for CUDA tensors, the plain version for a CPU
+    tensor (or inside ops.reference_mode()). D at most 4096: wn's row sits
+    in the gate/up kernel's shared memory."""
     if not use_kernel(x, wn, wg, wu, wd):
         return norm_mlp_ref(x, wn, wg, wu, wd, eps, act)
     x, wn, wg, wu, wd = _norm_mlp_args("norm_mlp_f32", x, wn, wg, wu, wd, act, torch.float32)
     n, d = x.shape
     f = wg.shape[0]
+    if d > _QKV_MAX_D:
+        raise NotImplementedError(f"the norm_mlp_f32 kernel needs D <= {_QKV_MAX_D}, got {d}")
     out = torch.empty_like(x)
     if n == 0:
         return out
     g = torch.empty((n, f), dtype=torch.float32, device=x.device)
     rrms = torch.empty((n,), dtype=torch.float32, device=x.device)
-    fn = _build.entry("norm_mlp_f32", "ggt_norm_mlp_f32", _F32_ARGTYPES)
+    planes = torch.empty((2, 3 * f * d), dtype=torch.float32, device=x.device)  # hi, lo
+    fn = _build.entry("mlp_qkv_f32", "ggt_norm_mlp_f32", _F32_ARGTYPES)
     err = fn(
         _build.ptr(x), _build.ptr(wn), _build.ptr(wg), _build.ptr(wu), _build.ptr(wd),
-        _build.ptr(g), _build.ptr(out), _build.ptr(rrms), n, d, f, float(eps), _ACT_IDS[act],
-        _build.stream_ptr(x.device),
+        _build.ptr(planes), _build.ptr(g), _build.ptr(out), _build.ptr(rrms), n, d, f,
+        f32_block_n([d]), float(eps), _ACT_IDS[act], _build.stream_ptr(x.device),
     )
     norm_mlp_f32.launches += 1
     _build.check(err, "norm_mlp_f32")
@@ -457,11 +464,11 @@ def qkv_block_n(widths) -> int:
 
 
 def f32_block_n(widths) -> int:
-    """The 3xTF32 body's output tile width (#12f; #11f's down stage) for
-    outputs of these widths: 128 where it divides them all, else 64 where
-    that does; 0 when neither does. It stops at 128: a consumer thread holds
-    two sets of [64, BN] fp32 sums, the tile's and a stage's partial ones
-    (csrc/mlp_qkv_f32.cu)."""
+    """The 3xTF32 body's output tile width (#12f; #11f's and #2f's down
+    stage) for outputs of these widths: 128 where it divides them all, else
+    64 where that does; 0 when neither does. It stops at 128: a consumer
+    thread holds two sets of [64, BN] fp32 sums, the tile's and a stage's
+    partial ones (csrc/mlp_qkv_f32.cu)."""
     return next((bn for bn in _F32_BLOCK_NS if all(w % bn == 0 for w in widths)), 0)
 
 

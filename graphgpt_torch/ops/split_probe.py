@@ -7,9 +7,8 @@ flash_fwd_stream and #9 flash_fwd_band (`--kernel fwd`,
 flash_bwd_band (`--kernel bwd`, `csrc/flash_bwd.cu`), the gated
 MLPs #11 and #2 (`--kernel mlp`, `--kernel norm_mlp`: `csrc/mlp.cu`,
 `csrc/norm_mlp.cu` with `csrc/mlp_common.cuh`) and the RMSNorm backward #13
-(`--kernel rmsnorm_bwd`, `csrc/rmsnorm_bwd.cu`), and the fp32 forms #11f
-and #12f (`--kernel mlp_f32`, `csrc/mlp_qkv_f32.cu`, with #2f of
-`csrc/norm_mlp_f32.cu` beside them), #1f, #6f and #9f
+(`--kernel rmsnorm_bwd`, `csrc/rmsnorm_bwd.cu`), and the fp32 forms #2f,
+#11f and #12f (`--kernel mlp_f32`, `csrc/mlp_qkv_f32.cu`), #1f, #6f and #9f
 (`--kernel fwd_f32`, `csrc/flash_fwd_f32.cu`), #3f, #7f, #8f and #10f
 (`--kernel bwd_f32`, `csrc/flash_bwd_f32.cu`) and the pair #4f, #5f
 (`--kernel split_f32`, `csrc/flash_bwd_split_f32.cu`), timed on the card whole
@@ -23,9 +22,12 @@ and B 16 x P 4096); the MLPs at N 8,192 and 65,536 rows (D 768, F 3,072,
 gelu), whole and each stage alone; #13 at N 18,432, 22,528 and 65,536
 (D 768), its row pass and its sum of the per-CTA dw rows alone; the fp32
 MLP forms at N 8,192 and 18,432 (D 768, F 3,072) and N 1,024 (D 128, F
-512, toy_pretrain's), #12f there with q, k and v each D wide (the first rows of
+512, toy_pretrain's), #2f also at the denoise batch's N 22,528 and N
+65,536 and each of its launches alone (the split pass, the rrms pre-pass,
+gate/up, down), #12f there with q, k and v each D wide (the first rows of
 the gate and up weights), the fp32 attention forms at B 8 x P 1024 (12 heads), B 8
-x P 128 (2 heads, toy_pretrain's) and the long-context B 16 x P 4096,
+x P 128 (2 heads, toy_pretrain's), the fine-tune batch B 256 x P 72 (a
+molecule a row) and the long-context B 16 x P 4096,
 where every form runs (the single ones too: their C entries take any P),
 the fp32 pair and the fp32 forward also at the denoise batch and at B 8 x
 P 1024 with 16 bit slots (their inputs drawn in fp32 by numpy from a fixed
@@ -95,8 +97,8 @@ include):
   cvtsplit the split by cvt.rna.tf32.f32 instead of integer rounding (the
            same bits)
 
-and for the fp32 dense products #11f and #12f (mlp_f32; gemm_tf32x3.cuh put
-in place of its include):
+and for the fp32 dense products #2f, #11f and #12f (mlp_f32;
+gemm_tf32x3.cuh put in place of its include):
 
   mma1     one TF32 product (A_hi B_hi) instead of three
   smema    A read by descriptor from the landed stage (its raw fp32 bits, no
@@ -117,9 +119,9 @@ and bwd time the forms that its source has. split_f32 times the pair at
 the denoise batch and at B 8 x P 1024 with 16 bit slots, and with --source
 (the parent's flash_bwd_f32.cu, whose entries of the same names are the
 FFMA pair) times that body beside the package's in the same turns;
-mlp_f32 likewise with --source an FFMA body's norm_mlp_f32.cu (whose #11f
-and #12f entries take no weight planes), and always times the package's
-#2f beside them. Needs a CUDA card and nvcc.
+mlp_f32 likewise with --source an FFMA body's norm_mlp_f32.cu (whose
+entries of the same names take no weight planes and no tile width). Needs
+a CUDA card and nvcc.
 Prints the card, then one line a shape and variant (fwd, bwd: a line a
 form): the medians of five CUDA-event readings of 30 launches each, every
 variant of a shape in one turn, then again in the reverse order; the split,
@@ -129,7 +131,9 @@ the fp32 lines with one of their outputs (f32_digest: out; q, k, v of
 #12f; out and lse of #1f, #6f and #9f; dq, dk, dv of #3f and #10f; dq and
 delta of #4f and #7f; dk, dv of #5f and #8f), so that two bodies that should give the same bits (one
 --source against another, or a stream form against its single form on the
-same ids) show it. The fp32 kernels but split_f32 and mlp_f32 have the
+same ids) show it, and the form's bound at that shape (chip_smoke.py's
+count: fp32 bytes at 3.35 TB/s, operations on the visible pairs at 165
+TFLOP/s). The fp32 kernels but split_f32 and mlp_f32 have the
 base variant only, and the forms their source has.
 """
 
@@ -344,12 +348,19 @@ F32_ENTRIES = {
     "split_f32": {"flash_dq_f32": ("ggt_flash_dq_f32", fa._DQ_ARGTYPES),
                   "flash_dkv_f32": ("ggt_flash_dkv_f32", fa._DKV_ARGTYPES)},
 }
-# (N, D, F): GraphGPT-base's serving rows, the fine-tune batch's, toy_pretrain's
+# (N, D, F): GraphGPT-base's serving rows, the fine-tune batch's,
+# toy_pretrain's; #2f also the denoise batch's and the training batch's
 MLP_F32_SHAPES = {"N8192": (8192, 768, 3072), "N18432": (18432, 768, 3072),
-                  "N1024": (1024, 128, 512)}
+                  "N1024": (1024, 128, 512), "N22528": (22528, 768, 3072),
+                  "N65536": (65536, 768, 3072)}
+NORM_MLP_F32_ONLY = ("N22528", "N65536")
+# #2f's launches, each timed alone (ggt_norm_mlp_f32_stages) after a whole call
+NORM_MLP_F32_STAGES = {"split": tmlp.MLP_SPLIT, "rrms": tmlp.MLP_RRMS,
+                       "gate_up": tmlp.MLP_GATE_UP, "down": tmlp.MLP_DOWN}
 # (B, P, H, bit slots, row layout) of the fp32 attention forms; #3f takes
 # the shapes without bit slots
 BWD_F32_SHAPES = {"B8 P1024": (8, 1024, 12, 0, "packed"), "toy B8 P128": (8, 128, 2, 0, "packed"),
+                  "finetune B256 P72": (256, 72, 12, 0, "molecule"),
                   "denoise B256 P88": (256, 88, 12, 16, "denoise"),
                   "B8 P1024 bi16": (8, 1024, 12, 16, "packed"),
                   "B16 P4096": (16, 4096, 12, 0, "packed")}
@@ -358,10 +369,13 @@ SPLIT_F32_SHAPES = ("denoise B256 P88", "B8 P1024 bi16")
 # the header a kernel's source includes, put in place before the substitutions
 INLINE = {"mlp": "mlp_common.cuh", "norm_mlp": "mlp_common.cuh", "split_f32": "tf32x3.cuh",
           "mlp_f32": "gemm_tf32x3.cuh"}
-# the entries of #11f and #12f in the FFMA body (norm_mlp_f32.cu before they
-# moved to mlp_qkv_f32.cu), which --source of mlp_f32 may name: no weight
-# planes, no tile widths
+# the entries of #2f, #11f and #12f in the FFMA body (norm_mlp_f32.cu, which
+# held #2f alone once #11f and #12f moved to mlp_qkv_f32.cu), which --source
+# of mlp_f32 may name: no weight planes, no tile widths
 FFMA_F32_ARGTYPES = {
+    "ggt_norm_mlp_f32": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float,
+                                                                       ctypes.c_int,
+                                                                       ctypes.c_void_p],
     "ggt_mlp_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "ggt_norm_qkv_f32": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float,
                                                                        ctypes.c_void_p]}
@@ -390,6 +404,15 @@ FWD_FORMS = {"flash_fwd": ("ggt_flash_fwd", fa._ARGTYPES),
              "flash_fwd_band": ("ggt_flash_fwd_band", fa._FWD_BAND_ARGTYPES)}
 MLP_SHAPES = {"N8192": (8192, 768, 3072), "N65536": (65536, 768, 3072)}  # (N, D, F)
 DH = 64
+# the fp32 lines' bounds, as chip_smoke.py's flash_work and bound count them:
+# fp32 bytes at 3.35 TB/s, operations at 165 TFLOP/s (3xTF32, the fastest
+# fp32-accurate product); per attention kind its products, token-major
+# tensors and fp32 rows
+PEAK_BYTES, PEAK_F32_ACCURATE_FLOPS = 3.35e12, 165e12
+F32_WORK = {"fwd": (2, 4, 1), "bwd": (5, 8, 1), "dq": (3, 6, 2), "dkv": (4, 6, 2)}
+F32_KIND = {"flash_fwd_f32": "fwd", "flash_fwd_stream_f32": "fwd", "flash_fwd_band_f32": "fwd",
+            "flash_bwd_f32": "bwd", "flash_bwd_band_f32": "bwd", "flash_dq_f32": "dq",
+            "flash_dq_stream_f32": "dq", "flash_dkv_f32": "dkv", "flash_dkv_stream_f32": "dkv"}
 
 
 def build(kernel: str, source: str, names, include: Path, label: str = "") -> dict:
@@ -442,6 +465,8 @@ def build(kernel: str, source: str, names, include: Path, label: str = "") -> di
             for entry, argtypes in F32_ENTRIES[kernel].values():
                 if hasattr(libs[name], entry):
                     getattr(libs[name], entry).argtypes = argtypes
+            if hasattr(libs[name], "ggt_norm_mlp_f32_stages"):
+                libs[name].ggt_norm_mlp_f32_stages.argtypes = tmlp._F32_STAGE_ARGTYPES
         elif kernel == "rmsnorm_bwd":
             libs[name].ggt_rmsnorm_bwd.argtypes = tmlp._RMS_ARGTYPES
         elif kernel == "mlp":
@@ -564,11 +589,12 @@ def _segments(b, p, bi, layout, rng):
 def probe_f32(kernel: str, libs, dev) -> None:
     """Each fp32 form its source has, at its shapes: the median time and a
     digest of its outputs after one launch on fresh buffers, every source
-    of a shape in one turn, then again in the reverse order."""
+    of a shape in one turn, then again in the reverse order (mlp_f32: then
+    #2f's launches alone, in the package's base body)."""
     stream, ptr = _build.stream_ptr(dev), _build.ptr
     entries = F32_ENTRIES[kernel]
     if kernel == "mlp_f32":
-        ffma = libs.get("source")  # the FFMA body's #11f and #12f take no planes
+        ffma = libs.get("source")  # the FFMA body's entries take no planes
         for tag, (n, d, f) in MLP_F32_SHAPES.items():
             x, wn, wg, wu, wd = f32_mlp_inputs(n, d, f, dev)
             g = torch.empty(n, f, device=dev)
@@ -594,13 +620,32 @@ def probe_f32(kernel: str, libs, dev) -> None:
                                             *(ptr(t) for t in qkv), ptr(rr), n, d, d, d, d, bn,
                                             1e-6, stream)
 
-            runs = {
-                "norm_mlp_f32": lambda lib: lib.ggt_norm_mlp_f32(
-                    ptr(x), ptr(wn), ptr(wg), ptr(wu), ptr(wd), ptr(g), ptr(out), ptr(rr), n, d,
-                    f, 1e-6, 0, stream),
-                "mlp_f32": run_mlp, "norm_qkv_f32": run_qkv}
+            def run_norm_mlp(lib, stages=None):
+                if lib is ffma:
+                    return lib.ggt_norm_mlp_f32(ptr(x), ptr(wn), ptr(wg), ptr(wu), ptr(wd),
+                                                ptr(g), ptr(out), ptr(rr), n, d, f, 1e-6, 0,
+                                                stream)
+                args = (ptr(x), ptr(wn), ptr(wg), ptr(wu), ptr(wd), ptr(planes), ptr(g),
+                        ptr(out), ptr(rr), n, d, f, bn, 1e-6, 0)
+                if stages is None:
+                    return lib.ggt_norm_mlp_f32(*args, stream)
+                return lib.ggt_norm_mlp_f32_stages(*args, stages, stream)
+
+            runs = {"norm_mlp_f32": run_norm_mlp, "mlp_f32": run_mlp, "norm_qkv_f32": run_qkv}
+            if tag in NORM_MLP_F32_ONLY:
+                runs = {"norm_mlp_f32": run_norm_mlp}
             outs = {"norm_mlp_f32": (out,), "mlp_f32": (out,), "norm_qkv_f32": qkv}
-            _probe_f32_turns(tag, libs, entries, runs, outs)
+            mlp_bytes = 4 * (2 * n * d + 3 * d * f)
+            bounds = {"norm_mlp_f32": f32_bound_ms(mlp_bytes + 4 * d, 6.0 * n * d * f),
+                      "mlp_f32": f32_bound_ms(mlp_bytes, 6.0 * n * d * f),
+                      "norm_qkv_f32": f32_bound_ms(4 * (4 * n * d + 3 * d * d + d),
+                                                   6.0 * n * d * d)}
+            _probe_f32_turns(tag, libs, entries, runs, outs, bounds)
+            name, lib = next(iter(libs.items()))  # the package's first variant
+            _build.check(run_norm_mlp(lib), "norm_mlp_f32")
+            for stage, bit in NORM_MLP_F32_STAGES.items():
+                t = cuda_ms(lambda: _build.check(run_norm_mlp(lib, bit), f"norm_mlp_f32 {stage}"))
+                print(f"{tag}: {name:8s} norm_mlp_f32 {stage} alone {t:.4f} ms", flush=True)
         return
     for tag, (b, p, h, bi, layout) in BWD_F32_SHAPES.items():
         if kernel == "split_f32" and tag not in SPLIT_F32_SHAPES:
@@ -621,7 +666,8 @@ def probe_f32(kernel: str, libs, dev) -> None:
                     *stream_common, ptr(o2), ptr(l2), None, b, p, h, 0, bi, stream),
                 "flash_fwd_band_f32": lambda lib: lib.ggt_flash_fwd_band_f32(
                     *band_common, ptr(o2), ptr(l2), ptr(tab), b, p, h, 0, bi, stream)}
-            _probe_f32_turns(tag, libs, entries, runs, {form: (o2, l2) for form in runs})
+            _probe_f32_turns(tag, libs, entries, runs, {form: (o2, l2) for form in runs},
+                             {form: f32_attention_bound(form, seg, h, bi) for form in runs})
             continue
         delta = torch.empty_like(lse)
         dq, dk, dv = (torch.empty_like(qs) for _ in range(3))
@@ -656,12 +702,30 @@ def probe_f32(kernel: str, libs, dev) -> None:
         for lib in libs.values():
             if hasattr(lib, "ggt_flash_dq_f32"):
                 _build.check(runs["flash_dq_f32"](lib), "flash_dq_f32")
-        _probe_f32_turns(tag, libs, entries, runs, outs)
+        _probe_f32_turns(tag, libs, entries, runs, outs,
+                         {form: f32_attention_bound(form, seg, h, bi) for form in runs})
 
 
-def _probe_f32_turns(tag, libs, entries, runs, outs) -> None:
+def f32_bound_ms(nbytes: float, flops: float) -> float:
+    return max(nbytes / PEAK_BYTES, flops / PEAK_F32_ACCURATE_FLOPS) * 1e3
+
+
+def f32_attention_bound(form: str, seg, h: int, bi: int) -> float:
+    """The bound (ms) of an fp32 attention form on these rows, bidirectional
+    or with `bi` bit slots: its operations over the visible pairs, its
+    bytes each token-major tensor, the ids, cos, sin and the fp32 rows
+    once."""
+    products, tensors, rows = F32_WORK[F32_KIND[form]]
+    b, p = seg.shape
+    pairs = int(fa._valid_mask(seg, False, bi).sum().item())
+    nbytes = tensors * b * p * h * DH * 4 + b * p * 4 + 2 * b * p * DH * 4 + rows * b * h * p * 4
+    return f32_bound_ms(nbytes, 2.0 * products * DH * h * pairs)
+
+
+def _probe_f32_turns(tag, libs, entries, runs, outs, bounds) -> None:
     """Time each form of `runs` in each library that has it, then launch it
-    once on zeroed outputs (`outs[form]`, the tensors its digest reads)."""
+    once on zeroed outputs (`outs[form]`, the tensors its digest reads);
+    each line ends with the form's bound (`bounds[form]`, ms)."""
     order = list(libs.items())
     for turn in (order, order[::-1]):
         for name, lib in turn:
@@ -672,8 +736,8 @@ def _probe_f32_turns(tag, libs, entries, runs, outs) -> None:
                 for x in outs[form]:
                     x.zero_()
                 _build.check(run(lib), f"{form} {name}")
-                print(f"{tag}: {name:8s} {form} {t:.4f} ms  digest {f32_digest(*outs[form])}",
-                      flush=True)
+                print(f"{tag}: {name:8s} {form} {t:.4f} ms  digest {f32_digest(*outs[form])}  "
+                      f"bound {bounds[form]:.4f} ms", flush=True)
 
 
 def inputs(b, p, h, bi, layout, dev, dtype=torch.bfloat16):
@@ -724,19 +788,17 @@ def main() -> None:
     print(torch.cuda.get_device_name(0), flush=True)
     if args.kernel in ("split_f32", "mlp_f32"):
         # the package's body (its variants), and the --source body beside it
-        # in the same turns; mlp_f32 also the package's #2f (norm_mlp_f32.cu)
+        # in the same turns
         libs = build(args.kernel, (_build.CSRC / file).read_text(),
                      (args.variants or "base").split(","), _build.CSRC)
-        if args.kernel == "mlp_f32":
-            libs["norm_mlp_f32"] = build(args.kernel, (_build.CSRC / "norm_mlp_f32.cu").read_text(),
-                                         ["base"], _build.CSRC, label="norm_mlp_f32")["base"]
         if args.source:
             libs["source"] = build(args.kernel, open(source).read(), ["base"],
                                    Path(source).resolve().parent,
                                    label=f"{args.kernel}_source")["base"]
         if args.source and args.kernel == "mlp_f32":
             for entry, argtypes in FFMA_F32_ARGTYPES.items():
-                getattr(libs["source"], entry).argtypes = argtypes
+                if hasattr(libs["source"], entry):
+                    getattr(libs["source"], entry).argtypes = argtypes
     else:
         libs = build(args.kernel, open(source).read(),
                      (args.variants or ",".join(variants)).split(","),

@@ -30,10 +30,12 @@ from graphgpt_torch.ops import mlp as tmlp
 
 
 class FakeCard:
-    """The entries asked for, with the tensors each call handed over."""
+    """The entries asked for, with the tensors each call handed over (and,
+    in `args`, every argument of each call)."""
 
     def __init__(self, monkeypatch):
         self.calls = []
+        self.args = []
         self._args = []
         for mod in (tfa, tmlp):
             monkeypatch.setattr(mod, "use_kernel", lambda *t: True)
@@ -42,6 +44,7 @@ class FakeCard:
         def entry(source, symbol, argtypes):
             def fn(*args):
                 self.calls.append((source, symbol, list(self._args)))
+                self.args.append(args)
                 self._args.clear()
                 return 0
 
@@ -179,19 +182,44 @@ def _mlp(dtype, n=200, d=128, f=512):
     return t(n, d), torch.ones(d), t(f, d), t(f, d), t(d, f)
 
 
-@pytest.mark.parametrize("dtype,symbol", [(torch.float32, "ggt_norm_mlp_f32"),
-                                          (torch.bfloat16, "ggt_norm_mlp")], ids=["fp32", "bf16"])
-def test_norm_mlp_sends_each_dtype_to_its_entry(monkeypatch, dtype, symbol):
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128), (torch.bfloat16, 128),
+                                     (torch.float32, 1600)], ids=["fp32", "bf16", "fp32-d1600"])
+def test_norm_mlp_sends_each_dtype_to_its_entry(monkeypatch, dtype, d):
+    """fp32 reaches #2's fp32 entry, in one source with #11's and #12's
+    fp32 forms, with the scratch of the three weights' TF32 hi and lo
+    planes before g and the down stage's tile width (f32_block_n: 128, and
+    64 at xxlarge's D 1600, which 128 does not divide); bf16 the entry it
+    always took."""
     card = FakeCard(monkeypatch)
-    x, wn, wg, wu, wd = _mlp(dtype)
+    x, wn, wg, wu, wd = _mlp(dtype, d=d)
     before = (tmlp.norm_mlp.launches, tmlp.norm_mlp_f32.launches)
     out = tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, "gelu")
     (source, got, tensors), = card.calls
-    assert got == symbol and source == symbol[4:] and out.dtype == dtype
-    assert tensors[5].dtype == dtype and tensors[5].shape == (200, 512)  # the g scratch
     fp32 = dtype == torch.float32
+    assert (source, got) == (("mlp_qkv_f32", "ggt_norm_mlp_f32") if fp32
+                             else ("norm_mlp", "ggt_norm_mlp"))
+    assert out.dtype == dtype and out.shape == (200, d)
+    g = tensors[6] if fp32 else tensors[5]  # fp32: x, wn, wg, wu, wd, planes, g, out, rrms
+    assert g.dtype == dtype and g.shape == (200, 512)  # the g scratch
+    if fp32:
+        assert tensors[5].dtype == dtype and tensors[5].shape == (2, 3 * 512 * d)
+        assert len(tensors) == 9 and len(tmlp._F32_ARGTYPES) == 16
+        assert card.args[-1][12] == (128 if d == 128 else 64)  # bn, after N, D, F
     assert (tmlp.norm_mlp.launches - before[0], tmlp.norm_mlp_f32.launches - before[1]) == (
         (0, 1) if fp32 else (1, 0))
+
+
+def test_norm_mlp_f32_refuses_d_past_its_norm_row(monkeypatch):
+    """#2's fp32 form keeps wn's row in shared memory beside its stages, as
+    #12f does: D past 4096 raises before a launch (bf16 takes up to 8192)."""
+    card = FakeCard(monkeypatch)
+    x, wn, wg, wu, wd = _mlp(torch.float32, n=8, d=4160, f=64)
+    with pytest.raises(NotImplementedError):
+        tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, "gelu")
+    assert card.calls == []
+    tmlp.norm_mlp(*(t.bfloat16() if t.dim() == 2 else t for t in (x, wn, wg, wu, wd)), 1e-6,
+                  "gelu")
+    assert [sym for _, sym, _ in card.calls] == ["ggt_norm_mlp"]
 
 
 @pytest.mark.parametrize("dtype,source", [(torch.float32, "mlp_qkv_f32"),

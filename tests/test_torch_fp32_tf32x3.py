@@ -1,7 +1,7 @@
 """The numeric design of the fp32 forms on 3xTF32 tensor-core products,
 against the JAX package on the CPU: the split backward #4f / #5f
 (`csrc/flash_bwd_split_f32.cu`), the norm-fused projections #12f and the
-gated MLP #11f (`csrc/mlp_qkv_f32.cu`).
+gated MLPs #11f and #2f (`csrc/mlp_qkv_f32.cu`).
 
 The CUDA kernels take every product as three TF32 products: each operand
 split into hi = x rounded to TF32 and lo = (x - hi) rounded to TF32
@@ -22,14 +22,15 @@ own route), at the denoise width: B 2 x P 88, 2 heads of 64, RoPE on,
 packed rows with a padded stretch, a cotangent of lse; dq, delta, dk and
 dv. ~3 s a case on one worker, most of it the interpreted JAX kernels.
 
-#12f and #11f: the weights split into TF32 hi and lo planes (the split
-pass), the A operand normalised with the plain version's two roundings
-((x * rrms) * wn, #12f) and then split, as the consumers do in registers;
-#11f's gate and up products, act(gate) * up in fp32, then the down product
-on that g. Against `_norm_qkv_kernel` (through `fused_norm_qkv`) and
-`_mlp_kernel` (through `fused_mlp`) at a ragged N 200, D 128, widths
-128/128/128 and GQA's 128/64/64, F 256 and all three activations. ~1 s a
-case.
+#12f, #11f and #2f: the weights split into TF32 hi and lo planes (the
+split pass), the A operand normalised with the plain version's two
+roundings ((x * rrms) * wn, #12f and #2f) and then split, as the consumers
+do in registers; the MLPs' gate and up products, act(gate) * up in fp32,
+then the down product on that g, and #2f's residual x added to it in fp32.
+Against `_norm_qkv_kernel` (through `fused_norm_qkv`), `_mlp_kernel`
+(through `fused_mlp`) and `_norm_mlp_kernel` (through `fused_norm_mlp`) at
+a ragged N 200, D 128, widths 128/128/128 and GQA's 128/64/64, F 256 and
+all three activations. ~1 s a case.
 """
 
 import jax.numpy as jnp
@@ -161,6 +162,13 @@ def emulated_mlp(x, wg, wu, wd, act, mm):
     return mm(g, wd.t())
 
 
+def emulated_norm_mlp(x, wn, wg, wu, wd, eps, act, mm):
+    """#2f's arithmetic with `mm` for every product: h = (x * rrms) * wn with
+    #12f's two roundings, then #11f's on h, then x + that in fp32."""
+    rrms = torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + eps)
+    return x + emulated_mlp((x * rrms) * wn, wg, wu, wd, act, mm)
+
+
 def _spy(monkeypatch, name, ran):
     kernel = getattr(jmlp, name)
 
@@ -214,3 +222,30 @@ def test_3xtf32_mlp_matches_the_interpreted_kernel(act, monkeypatch):
     assert got.shape == want.shape
     assert _rel(got, want) < F32_REL, _rel(got, want)
     assert _rel(one, want) > F32_REL, _rel(one, want)
+
+
+@pytest.mark.parametrize("act", ["gelu", "gelu_pytorch_tanh", "silu"])
+def test_3xtf32_norm_mlp_matches_the_interpreted_kernel(act, monkeypatch):
+    monkeypatch.setenv("GGT_PALLAS_INTERPRET", "1")
+    ran = []
+    _spy(monkeypatch, "_norm_mlp_kernel", ran)
+    n, d, f, eps = 200, 128, 256, 1e-6
+    rng = np.random.default_rng(41)
+    x, wn = _f32(rng, (n, d), 1.0), _f32(rng, (d,), 0.1, 1.0)
+    wg, wu = (_f32(rng, (f, d), 0.55 / d**0.5) for _ in range(2))
+    wd = _f32(rng, (d, f), 0.55 / f**0.5)
+    want = jmlp.fused_norm_mlp(jnp.asarray(x), jnp.asarray(wn),
+                               *(jnp.asarray(w.T) for w in (wg, wu, wd)), eps, act)
+    assert ran
+    args = (torch.from_numpy(x), torch.from_numpy(wn),
+            *(torch.from_numpy(w) for w in (wg, wu, wd)), eps, act)
+    got = emulated_norm_mlp(*args, mm_3xtf32)
+    one = emulated_norm_mlp(*args, mm_tf32)
+    assert got.shape == want.shape
+    assert _rel(got, want) < F32_REL, _rel(got, want)
+    assert _rel(one, want) > F32_REL, _rel(one, want)
+    # and against the output less its residual, which no product touches
+    # (read ~7e-7 and ~5e-4, where the whole output reads ~7e-8 and ~5e-5)
+    want_mlp, x32 = np.asarray(want, np.float32) - x, torch.from_numpy(x)
+    assert _rel(got - x32, want_mlp) < F32_REL, _rel(got - x32, want_mlp)
+    assert _rel(one - x32, want_mlp) > F32_REL, _rel(one - x32, want_mlp)

@@ -1483,7 +1483,7 @@ def test_the_pretrain_task_batches_train_on_the_kernels(cuda_device, task):
 
 
 # ---- the fp32 forms of #1, #3 (flash_fwd_f32.cu, flash_bwd_f32.cu), #2
-# (norm_mlp_f32.cu) and #13 (rmsnorm_bwd.cu's fp32 instances)
+# (mlp_qkv_f32.cu) and #13 (rmsnorm_bwd.cu's fp32 instances)
 
 F32_REL = 2e-5  # relative Frobenius error: fp32 sums of up to ~3,000 terms in another order
 
@@ -1591,6 +1591,78 @@ def test_fp32_norm_mlp_kernel_matches_plain(cuda_device, act, case):
         ref = tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, act)
     assert out.dtype == torch.float32 and _rel(out, ref) < F32_REL
     assert torch.equal(tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, act), out)
+
+
+# (N, D, F) of #2f on its paths: GraphGPT-base's serving rows, the quick
+# start's, the denoise batch's, a ragged last row tile; small12's widths;
+# xxlarge's D 1600, whose down tiles are 64 wide
+_F32_NORM_MLP_SHAPES = {"n8192": (8192, 768, 3072), "toy": (1024, 128, 512),
+                        "denoise": (22528, 768, 3072), "ragged": (65537, 768, 3072),
+                        "d384": (4096, 384, 384), "d1600": (4096, 1600, 6400)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(_F32_NORM_MLP_SHAPES))
+def test_fp32_norm_mlp_kernel_matches_plain_at_its_path_shapes(cuda_device, shape):
+    """#2f through norm_mlp on inputs drawn in fp32 at the shapes its paths
+    give it, against norm_mlp_ref in fp32 (TF32 off) within F32_REL, the
+    same plain version with TF32 past it, bit-equal on a relaunch."""
+    from graphgpt_torch.ops.split_probe import f32_mlp_inputs
+
+    x, wn, wg, wu, wd = f32_mlp_inputs(*_F32_NORM_MLP_SHAPES[shape], cuda_device)
+    out = tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, "gelu")
+    torch.cuda.synchronize()
+    ref = tmlp.norm_mlp_ref(x, wn, wg, wu, wd, 1e-6, "gelu")
+    with _tf32():
+        tf32 = tmlp.norm_mlp_ref(x, wn, wg, wu, wd, 1e-6, "gelu")
+    assert bool(torch.isfinite(out).all()) and _rel(out, ref) < F32_REL
+    assert _rel(tf32, ref) > F32_REL
+    assert torch.equal(tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, "gelu"), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [128, 64])
+def test_fp32_norm_mlp_kernel_takes_every_tile_width(cuda_device, monkeypatch, bn):
+    """#2f with each down width BN it is built for, forced in place of
+    f32_block_n's choice, at D 768, F 3072 and a ragged N, within F32_REL
+    of the plain fp32 version and bit-equal on a relaunch."""
+    from graphgpt_torch.ops.split_probe import f32_mlp_inputs
+
+    x, wn, wg, wu, wd = f32_mlp_inputs(1000, 768, 3072, cuda_device, seed=bn)
+    monkeypatch.setattr(tmlp, "f32_block_n", lambda widths: bn)
+    out = tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, "silu")
+    torch.cuda.synchronize()
+    with ops.reference_mode():
+        ref = tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, "silu")
+    assert _rel(out, ref) < F32_REL
+    assert torch.equal(tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, "silu"), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [200, 4097])
+def test_fp32_norm_mlp_kernel_leaves_rows_past_n_alone(cuda_device, n):
+    """#2f's C entry on out and g scratch with 128 rows more than N, filled
+    with NaN: rows past N keep their NaN (neither stage writes them), rows
+    below N equal the wrapper's output bit for bit."""
+    from graphgpt_torch.ops import _build
+    from graphgpt_torch.ops.split_probe import f32_mlp_inputs
+
+    dev = cuda_device
+    d, f = 768, 3072
+    x, wn, wg, wu, wd = f32_mlp_inputs(n, d, f, dev)
+    want = tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, "gelu")
+    out = torch.full((n + 128, d), float("nan"), device=dev)
+    g = torch.full((n + 128, f), float("nan"), device=dev)
+    planes = torch.empty(2, 3 * f * d, device=dev)
+    rrms = torch.empty(n, device=dev)
+    fn = _build.entry("mlp_qkv_f32", "ggt_norm_mlp_f32", tmlp._F32_ARGTYPES)
+    ptr = _build.ptr
+    _build.check(fn(ptr(x), ptr(wn), ptr(wg), ptr(wu), ptr(wd), ptr(planes), ptr(g), ptr(out),
+                    ptr(rrms), n, d, f, tmlp.f32_block_n([d]), 1e-6, 0, _build.stream_ptr(dev)),
+                 "norm_mlp_f32")
+    torch.cuda.synchronize()
+    assert torch.equal(out[:n], want) and bool(torch.isfinite(g[:n]).all())
+    assert bool(out[n:].isnan().all()) and bool(g[n:].isnan().all())
 
 
 @pytest.mark.gpu
@@ -2057,20 +2129,16 @@ def test_an_fp32_model_trains_on_the_fp32_stream_kernels(cuda_device, mode, p, m
     _assert_f32_step(run, ref)
 
 
-# #2f's and #3f's digests (split_probe's f32_digest) from the bodies before
-# #11f and the split pair joined their sources, #1f's from the body before
-# the stream forms joined its source, and the stream forms' from the bodies
-# before the band forms and #12f joined theirs: `split_probe --kernel
-# mlp_f32`, `--kernel fwd_f32` and `--kernel bwd_f32` with --source on
-# those commits' csrc/, on an NVIDIA H100 80GB HBM3, at split_probe's
-# inputs (f32_mlp_inputs, gelu; inputs in fp32 on packed rows, no lse
-# cotangent; the stream forms on the query ids as key ids). norm_mlp_f32.cu
-# (#2f alone now) and flash_fwd_f32.cu and the shared passes of
-# flash_bwd_f32.cu keep them. (#4f's and #5f's are _F32_SPLIT_DIGESTS,
-# #11f's and #12f's _F32_TF32X3_DIGESTS.)
+# #3f's digests (split_probe's f32_digest) from the body before the split
+# pair joined its source, #1f's from the body before the stream forms
+# joined its source, and the stream forms' from the bodies before the band
+# forms joined theirs: `split_probe --kernel fwd_f32` and `--kernel bwd_f32`
+# with --source on those commits' csrc/, on an NVIDIA H100 80GB HBM3, at
+# split_probe's inputs (inputs in fp32 on packed rows, no lse cotangent;
+# the stream forms on the query ids as key ids). flash_fwd_f32.cu and the
+# shared passes of flash_bwd_f32.cu keep them. (#4f's and #5f's are
+# _F32_SPLIT_DIGESTS, #2f's, #11f's and #12f's _F32_TF32X3_DIGESTS.)
 _F32_PARENT_DIGESTS = {
-    ("norm_mlp_f32", "N8192"): -98387183775274,
-    ("norm_mlp_f32", "N1024"): -2074798766708,
     ("flash_bwd_f32", "B8 P1024"): -916961056836012,
     ("flash_bwd_f32", "toy B8 P128"): -17989573487664,
     ("flash_fwd_f32", "B8 P1024"): -165906643651216,
@@ -2129,20 +2197,10 @@ def _f32_attention_digest(form, shape, dev):
 @pytest.mark.parametrize("form,shape", list(_F32_PARENT_DIGESTS))
 def test_fp32_forms_keep_the_bits_of_their_bodies_before_the_new_forms(cuda_device, form,
                                                                         shape):
-    """#2f through norm_mlp, #1f, #3f and the stream forms #6f-#8f through
-    their wrappers on fp32 tensors give the bits their bodies gave before
-    #11f, #4f / #5f, the stream forms, and the band forms #9f, #10f and #12f
-    were added beside them, and #11f and #12f moved to their own source."""
-    from graphgpt_torch.ops import split_probe as sp
-
-    dev = cuda_device
-    if form == "norm_mlp_f32":
-        x, wn, wg, wu, wd = sp.f32_mlp_inputs(*sp.MLP_F32_SHAPES[shape], dev)
-        digest = sp.f32_digest(tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, "gelu"))
-        torch.cuda.synchronize()
-    else:
-        digest = _f32_attention_digest(form, shape, dev)
-    assert digest == _F32_PARENT_DIGESTS[form, shape]
+    """#1f, #3f and the stream forms #6f-#8f through their wrappers on fp32
+    tensors give the bits their bodies gave before #4f / #5f, the stream
+    forms, and the band forms #9f and #10f were added beside them."""
+    assert _f32_attention_digest(form, shape, cuda_device) == _F32_PARENT_DIGESTS[form, shape]
 
 
 @pytest.mark.gpu
@@ -2431,15 +2489,18 @@ def test_an_fp32_model_trains_under_both_knobs(cuda_device, p, monkeypatch):
 # ---- #11f and #12f on their 3xTF32 body (mlp_qkv_f32.cu): every tile width
 # each is built for, and the bits of its first build
 
-# #11f's and #12f's digests as the first build of their 3xTF32 body gave
-# them: `split_probe --kernel mlp_f32` (f32_mlp_inputs, gelu; #12f's q, k, v
-# weights the first D rows of wg, of wu, and rows D.. of wg), on an NVIDIA
-# H100 80GB HBM3
+# #11f's, #12f's and #2f's digests as the first build of their 3xTF32 body
+# gave them (#2f's joined it later, its norm and residual template flags
+# leaving #11f's and #12f's instances as they were): `split_probe --kernel
+# mlp_f32` (f32_mlp_inputs, gelu; #12f's q, k, v weights the first D rows
+# of wg, of wu, and rows D.. of wg), on an NVIDIA H100 80GB HBM3
 _F32_TF32X3_DIGESTS = {
     ("mlp_f32", "N8192"): -225409867562753,
     ("mlp_f32", "N1024"): -3611698320819,
     ("norm_qkv_f32", "N8192"): -445785109629213,
     ("norm_qkv_f32", "N1024"): -8578998215950,
+    ("norm_mlp_f32", "N8192"): -98385026759675,
+    ("norm_mlp_f32", "N1024"): -2074798871119,
 }
 
 
@@ -2485,13 +2546,15 @@ def test_fp32_norm_qkv_kernel_takes_every_tile_width(cuda_device, monkeypatch, b
 @pytest.mark.gpu
 @pytest.mark.parametrize("form,shape", list(_F32_TF32X3_DIGESTS))
 def test_fp32_tf32x3_forms_keep_their_bits(cuda_device, form, shape):
-    """#11f through mlp and #12f through norm_qkv at split_probe's fp32
-    inputs give the bits of their 3xTF32 body's first build."""
+    """#11f through mlp, #12f through norm_qkv and #2f through norm_mlp at
+    split_probe's fp32 inputs give the bits of their 3xTF32 body's first
+    build."""
     from graphgpt_torch.ops import split_probe as sp
 
     n, d, f = sp.MLP_F32_SHAPES[shape]
     x, wn, wg, wu, wd = sp.f32_mlp_inputs(n, d, f, cuda_device)
-    outs = ((tmlp.mlp(x, wg, wu, wd, "gelu"),) if form == "mlp_f32"
-            else tmlp.norm_qkv(x, wn, wg[:d], wu[:d], wg[d:2 * d], 1e-6))
+    outs = {"mlp_f32": lambda: (tmlp.mlp(x, wg, wu, wd, "gelu"),),
+            "norm_qkv_f32": lambda: tmlp.norm_qkv(x, wn, wg[:d], wu[:d], wg[d:2 * d], 1e-6),
+            "norm_mlp_f32": lambda: (tmlp.norm_mlp(x, wn, wg, wu, wd, 1e-6, "gelu"),)}[form]()
     torch.cuda.synchronize()
     assert sp.f32_digest(*outs) == _F32_TF32X3_DIGESTS[form, shape]
