@@ -223,9 +223,11 @@
    its bound, its plain version and the library call (the fp32 matmuls and
    gelu x up; SDPA's fp32 backward with the bi-causal mask).
 7i. Phase O, float32 past 2048 positions: the fp32 forms of the streamed
-   kernels #6, #7, #8 (flash_fwd_f32.cu's stream form, flash_bwd_f32.cu's
-   passes in theirs, reading the keys' own ids), to which flash_fwd_stream,
-   flash_dq_stream and flash_dkv_stream hand fp32 tensors. (a)
+   kernels #6, #7, #8 (flash_fwd_f32.cu's stream form; #7f and #8f the
+   stream form of flash_bwd_split_f32.cu's 3xTF32 body, #4f's and #5f's,
+   with the tile tables of tile_table.cuh; each reading the keys' own ids),
+   to which flash_fwd_stream, flash_dq_stream and flash_dkv_stream hand
+   fp32 tensors. (a)
    configs/pcqm4m_v2_pretrain_long.yaml with the long-context phase's
    overrides (16 x 4096, pack_block 0) at model.dtype=float32 through
    PretrainPipeline on the graph-level store: first #6f, #7f (with its
@@ -236,8 +238,9 @@
    TF32 control past it, a relaunch bit for bit, padded rows, query rows
    that see no key and keys that no query sees exactly 0) and with inf and
    NaN in do's padded rows changing no output bit; #1f's entry on the same
-   rows bit for bit #6f's; each timed at 16 x 4096 beside its bound, its
-   FFMA bound, its plain version and SDPA in fp32; #2f at the batch's N
+   rows bit for bit #6f's; each timed at 16 x 4096 beside its bound (fp32
+   bytes; operations at 165 TFLOP/s), its bound at FFMA's 67 TFLOP/s, its
+   plain version and SDPA in fp32; #2f at the batch's N
    65,536 (f32_check, timed as in phase L); the first step on 4
    rows against the plain fp32 run (F32_LOSS_REL, F32_GRAD_REL); 4 counted
    steps (12 #6f, 12 #7f, 12 #8f, 12 #2f, 13 #13f a step; 12 #6f + 12 #2f
@@ -325,9 +328,11 @@
    version, the TF32 control past it, a relaunch bit for bit, padded rows,
    query rows that see no key and keys that no query sees exactly 0), both
    band tables equal to band_limits, inf and NaN in do's padded rows
-   changing no output bit, and bit for bit the other fp32 forms on the same
-   rows (#6f, #7f + #8f; on one id array #1f and #3f), within F32_REL of
-   #4f and #5f with a split (another body); timed at 8 x 1024 and 16 x
+   changing no output bit, and bit for bit the other FFMA fp32 forms on the
+   same rows (#6f; on one id array #1f and #3f), within F32_REL of #7f +
+   #8f and, with a split, of #4f and #5f (another body,
+   flash_bwd_split_f32.cu, which sums in another order); timed at 8 x 1024
+   and 16 x
    4096 beside the bound, the FFMA bound, the plain version, SDPA in fp32
    with the band's boolean mask and the other fp32 forms at the same shape. #12f at N 8,192 (D 768, widths
    3 x 768; timed beside F.rms_norm + one fp32 matmul), N 65,537, GQA
@@ -5809,9 +5814,9 @@ def f32_band_check(fa, ops, tag, qs, k, v, seg_q, seg_k, do, causal: bool, bi: i
     band_limits; padded query rows and rows that see no key exactly 0 (lse
     -1e30), keys that no query sees exactly 0; a relaunch bit for bit; inf
     and NaN in do's padded rows changing no output bit of #10f; then the
-    other fp32 forms on the same rows bit for bit: #6f, #7f, #8f, and on one
-    id array #1f and #3f; with a split #4f and #5f (flash_bwd_split_f32.cu,
-    another body) within F32_REL. Returns {"fwd": (largest
+    other fp32 forms on the same rows: bit for bit #6f, and on one id array
+    #1f and #3f; within F32_REL #7f + #8f and, with a split, #4f and #5f
+    (flash_bwd_split_f32.cu, another body). Returns {"fwd": (largest
     elementwise error, relative error, TF32 control), "bwd": ...}."""
     dh = 64
     fwd = (qs, k, v, seg_q, seg_k, causal, dh, bi)
@@ -5876,16 +5881,16 @@ def f32_band_check(fa, ops, tag, qs, k, v, seg_q, seg_k, do, causal: bool, bi: i
                            {"dq": rdq[seen_q], "delta": rows(rdelta, valid), "dk": rdk,
                             "dv": rdv}, {"dq": tdq[seen_q], "dk": tdk, "dv": tdv}, bits_b, pad_b)
     del rout, rlse, rdq, rdk, rdv, rdelta, tout, tdq, tdk, tdv
-    # the other forms on the same rows: one body, the tiles outside the band
-    # adding nothing (torch.equal: a zero's sign aside)
+    # the other forms on the same rows: #6f one body with #9f, the tiles
+    # outside the band adding nothing (torch.equal: a zero's sign aside);
+    # #7f + #8f another body (3xTF32, another order of sums): within F32_REL
     s_out, s_lse = fa.flash_fwd_stream(qs, k, v, seg_q, seg_k, None, None, causal, dh, bi)
     s_dq, s_delta = fa.flash_dq_stream(qs, k, v, seg_q, seg_k, None, None, out, lse, do, None,
                                        causal, dh, bi)
     s_dk, s_dv = fa.flash_dkv_stream(qs, k, v, seg_q, seg_k, None, None, lse, s_delta, do, causal,
                                      dh, bi)
-    same = [torch.equal(s_out, out) and torch.equal(s_lse, lse),
-            all(torch.equal(a, b) for a, b in zip((s_dq, s_delta, s_dk, s_dv),
-                                                  (dq, delta, dk, dv)))]
+    s_rels = [rel_err(a, b) for a, b in zip((dq, delta, dk, dv), (s_dq, s_delta, s_dk, s_dv))]
+    same = [torch.equal(s_out, out) and torch.equal(s_lse, lse), max(s_rels) <= F32_REL]
     single = "one id array: no single form"
     if seg_k is seg_q:
         one = fa.flash_fwd_f32(qs, k, v, seg_q, None, None, causal, dh, bi)
@@ -5907,11 +5912,13 @@ def f32_band_check(fa, ops, tag, qs, k, v, seg_q, seg_k, do, causal: bool, bi: i
             single = f"#1f {same[2]}, #3f {same[3]}"
     torch.cuda.synchronize()
     print(f"flash_fwd_band_f32/flash_bwd_band_f32[{where}]: band tables == band_limits {tables}; "
-          f"inf and NaN in do's {int(pad.sum())} padded rows change no output bit {quiet}; bit "
-          f"for bit the other forms on the same rows: #6f {same[0]}, #7f + #8f {same[1]}, "
-          f"{single}", flush=True)
+          f"inf and NaN in do's {int(pad.sum())} padded rows change no output bit {quiet}; the "
+          f"other forms on the same rows: #6f bit for bit {same[0]}, #7f + #8f within "
+          f"{F32_REL}: " + " ".join(f"{n} {r:.3e}" for n, r in zip(("dq", "delta", "dk", "dv"),
+                                                                    s_rels))
+          + f"; {single}", flush=True)
     if not (tables and quiet and all(same)):
-        fail(f"#9f/#10f[{where}]: a band table, the non-finite check or the other forms' bits "
+        fail(f"#9f/#10f[{where}]: a band table, the non-finite check or the other forms "
              f"disagree")
     return res
 
@@ -6212,7 +6219,8 @@ def main() -> None:
     # #2f, #11f, #12f) keep no spill and let ptxas pipeline their wgmma (no
     # C7512/C7513), #13 (both dtypes) and the other fp32 forms keep no spill;
     # flash_fwd.cu's log must show its three forms, flash_bwd.cu's its two,
-    # the fp32 forward's and passes' two each, mlp_qkv_f32.cu's its twelve
+    # the fp32 forward's its three, the passes' their two each, the fp32
+    # split body its four (#4f, #5f, #7f, #8f), mlp_qkv_f32.cu's its twelve
     for name in ("norm_qkv", "norm_mlp", "mlp", "flash_bwd_split", "flash_fwd", "flash_bwd",
                  "rmsnorm_bwd", "flash_fwd_f32", "flash_bwd_f32", "flash_bwd_split_f32",
                  "mlp_qkv_f32"):
@@ -6225,14 +6233,23 @@ def main() -> None:
               flush=True)
         if forms != want:
             fail(f"{name}.cu's build log does not show its forms {want}")
-    # the fp32 forward's and passes' single (0), stream (1) and band (2) forms
-    for name, kernel in (("flash_fwd_f32", "fwd_f32_kernel"), ("flash_bwd_f32", "dq_f32_kernel"),
-                         ("flash_bwd_f32", "dkv_f32_kernel")):
+    # the fp32 forward's single (0), stream (1) and band (2) forms; the
+    # passes' single and band forms
+    for name, kernel, want in (("flash_fwd_f32", "fwd_f32_kernel", ["0", "1", "2"]),
+                               ("flash_bwd_f32", "dq_f32_kernel", ["0", "2"]),
+                               ("flash_bwd_f32", "dkv_f32_kernel", ["0", "2"])):
         forms = sorted(set(re.findall(kernel + r"ILi(\d)E", logs.get(name, ""))))
         print(f"{name}.cu: the forms of {kernel} ptxas compiled (0 single, 1 stream, 2 band): "
               f"{forms}", flush=True)
-        if forms != ["0", "1", "2"]:
-            fail(f"{name}.cu's build log does not show {kernel}'s three forms")
+        if forms != want:
+            fail(f"{name}.cu's build log does not show {kernel}'s forms {want}")
+    # split_f32_kernel<DKV, FORM>: #4f, #5f (single) and #7f, #8f (stream)
+    splits = set(re.findall(r"split_f32_kernelILb(\d)ELi(\d)E",
+                            logs.get("flash_bwd_split_f32", "")))
+    print(f"flash_bwd_split_f32.cu: the split_f32_kernel instances ptxas compiled (DKV, form): "
+          f"{sorted(splits)}", flush=True)
+    if splits != {(d, f) for d in "01" for f in "01"}:
+        fail("flash_bwd_split_f32.cu's build log does not show split_f32_kernel's four instances")
     # prod_kernel<MODE, BN, ACT, NORM, RESID>: #12f's QKV at BN 128 and 64;
     # #11f's and #2f's (NORM) gate/up at each activation; their down stages
     # at BN 128 and 64 (#2f's with RESID)
@@ -6669,8 +6686,8 @@ def main() -> None:
     # batch B 16 x P 4096, the numbers of its two runs beside them
     o_long, o_toy = f32o["long"], f32o["toy_skip"]
     for kind, (source, line) in (("fwd", ("flash_fwd_f32.cu", 177)),
-                                 ("dq", ("flash_bwd_f32.cu", 645)),
-                                 ("dkv", ("flash_bwd_f32.cu", 835))):
+                                 ("dq", ("flash_bwd_split_f32.cu", 645)),
+                                 ("dkv", ("flash_bwd_split_f32.cu", 835))):
         r = o_long["kernels"][kind]
         kernels.append(entry(
             O_STREAM[kind], source, f"flash_attention.py:{line}", r, {"rel": F32_REL},

@@ -1,27 +1,25 @@
 // Segment-masked flash attention backward in fp32, for Hopper: the fused
-// backward #3, the streamed pair #7 / #8 and the band backward #10 on one
-// set of passes. (The split pair #4 / #5 is flash_bwd_split_f32.cu's.)
+// backward #3 and the band backward #10 on one set of passes. (The split
+// pair #4 / #5 and the streamed pair #7 / #8 are flash_bwd_split_f32.cu's.)
 //
-// Replaces graphgpt_tpu/ops/flash_attention.py:706 _bwd_kernel_fused,
-// :645 _dq_kernel_stream, :835 _dkv_kernel_stream and :484
-// _bwd_kernel_band when they are given
-// fp32 (a `model.dtype: float32` model): there their products, p = exp(S
-// - lse) and ds = p * (do v^T - delta) stay fp32 (the casts to the working
-// dtype, :764-770, change nothing). The bf16 forms are csrc/flash_bwd.cu
-// and csrc/flash_bwd_split.cu. Same contracts: q (pre-scaled, unrotated),
-// k, v, out, do token-major [B, P, H * 64] fp32, segment ids int32 [B, P]
-// (the streamed pair and the band backward: query ids seg and key ids
+// Replaces graphgpt_tpu/ops/flash_attention.py:706 _bwd_kernel_fused and
+// :484 _bwd_kernel_band when they are given fp32 (a `model.dtype: float32`
+// model): there their products, p = exp(S - lse) and ds = p * (do v^T -
+// delta) stay fp32 (the casts to the working dtype, :764-770, change
+// nothing). The bf16 forms are csrc/flash_bwd.cu. Same contracts: q
+// (pre-scaled, unrotated), k, v, out, do token-major [B, P, H * 64] fp32,
+// segment ids int32 [B, P] (the band backward: query ids seg and key ids
 // seg_k, one array twice for a model's rows), RoPE cos/sin [B, P, 64] fp32
-// (or null; the band backward takes q and k rotated and none), lse [B, H, P]
-// fp32 and its optional cotangent dlse; delta = rowsum(do * out) - dlse
+// (or null; the band backward takes q and k rotated and none), lse [B, H,
+// P] fp32 and its optional cotangent dlse; delta = rowsum(do * out) - dlse
 // [B, H, P] and dq, dk, dv [B, P, H * 64] fp32, dq and dk brought back
-// through the inverse rotation. do is taken as zero on padded rows (segment 0) before
-// any sum, so that a non-finite value there reaches no output; a padded
-// row takes no part, and so does a query row that sees no key (possible
-// only with ids of the keys' own); a key that no query sees gets dk = dv =
-// 0. #3 takes the bidirectional and causal masks; the pair and #10 also
-// the bi-causal one (`bi_split` bit slots, whose split may fall inside a
-// 64-row tile): #7 writes delta beside dq, #8 reads it.
+// through the inverse rotation. do is taken as zero on padded rows (segment
+// 0) before any sum, so that a non-finite value there reaches no output; a
+// padded row takes no part, and so does a query row that sees no key
+// (possible only with ids of the keys' own); a key that no query sees gets
+// dk = dv = 0. #3 takes the bidirectional and causal masks; #10 also the
+// bi-causal one (`bi_split` bit slots, whose split may fall inside a
+// 64-row tile).
 //
 // What bounds it on the H100: operations, as for the forward
 // (flash_fwd_f32.cu): fp32-accurate products at 165 TFLOP/s (3xTF32) or
@@ -33,19 +31,17 @@
 // tiles which can see it and sums dk = ds^T q and dv = p^T do in
 // registers; the query pass, a block a (row, head, 64-query tile) that
 // walks the key tiles it sees and sums dq = ds k. Each pass computes S and
-// do v^T again for its tile pairs. #3 is all three; #7 is delta and the
-// query pass in the passes' stream form, which reads the key tiles' ids
-// from seg_k, #8 the key pass in it; #10 is all three
-// in the band form, the stream form walking only the tiles of a band: the
-// query pass the key tiles of its query tile's band, the key pass the
-// query tiles of its key tile's band (band_limits(seg_k, seg), the second
-// table), both written first by tile_table.cuh's band_table_kernel. A
-// template value picks the form, so that the other forms compile as before
-// and keep their bits. A tile outside a band holds no pair of matching
-// ids, so it adds p = 0 and ds = 0 to the sums: the band form gives the
-// stream forms' bits, and on one id array #3's. The passes walk 64-row tiles at any P, so the stream and band
-// forms take any P as the others do. Tiles are fp32 in shared memory, the
-// products FFMA (flash_f32.cuh).
+// do v^T again for its tile pairs. #3 is all three; #10 is all three in
+// the band form, which reads the key tiles' ids from seg_k and walks only
+// the tiles of a band: the query pass the key tiles of its query tile's
+// band, the key pass the query tiles of its key tile's band (band_limits(
+// seg_k, seg), the second table), both written first by tile_table.cuh's
+// band_table_kernel. A template value picks the form, so that the single
+// form compiles as before and keeps its bits. A tile outside a band holds
+// no pair of matching ids, so it adds p = 0 and ds = 0 to the sums: on one
+// id array the band form gives #3's bits. The passes walk 64-row tiles at
+// any P. Tiles are fp32 in shared memory, the products FFMA
+// (flash_f32.cuh).
 
 #include "flash_f32.cuh"
 #include "tile_table.cuh"  // the band form's band tables
@@ -54,7 +50,7 @@ namespace {
 
 using namespace f32;
 
-enum Form { SINGLE = 0, STREAM = 1, BAND = 2 };
+enum Form { SINGLE = 0, BAND = 2 };  // the stream form (1) is flash_bwd_split_f32.cu's
 
 constexpr int KEY_SMEM = 6 * TILE * sizeof(float) + 2 * T * sizeof(float) + T * sizeof(int);
 constexpr int QUERY_SMEM = 5 * TILE * sizeof(float) + T * sizeof(int);
@@ -89,9 +85,8 @@ __device__ __forceinline__ bool visible(int qseg, int kseg, int col, int vis) {
 }
 
 // The key pass: dk, dv of the 64 keys [k0, k0 + 64) of head h, row b.
-// STREAM and BAND: the keys' ids are seg_k's (else seg's, and seg_k is
-// unread). BAND: the query tiles of band[b, key tile] only (band unread
-// else).
+// BAND: the keys' ids are seg_k's (else seg's, and seg_k is unread), and
+// the query tiles of band[b, key tile] only (band unread else).
 template <int FORM>
 __global__ void __launch_bounds__(THREADS)
 dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -184,9 +179,8 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // The query pass: dq of the 64 queries [q0, q0 + 64) of head h, row b.
-// STREAM and BAND: the key tiles' ids are seg_k's (else seg's, and seg_k is
-// unread). BAND: the key tiles of band[b, query tile] only (band unread
-// else).
+// BAND: the key tiles' ids are seg_k's (else seg's, and seg_k is unread),
+// and the key tiles of band[b, query tile] only (band unread else).
 template <int FORM>
 __global__ void __launch_bounds__(THREADS)
 dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -277,8 +271,8 @@ void launch_delta(const float* dout, const float* out, const int* seg, const flo
   delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(dout, out, seg, dlse, delta, B, P, H);
 }
 
-// The passes of form FORM; seg_k is read by the stream and band forms only,
-// the band table by the band form only.
+// The passes of form FORM; seg_k and the band table are read by the band
+// form only.
 template <int FORM>
 cudaError_t launch_dkv(const float* q, const float* k, const float* v, const int* seg,
                        const int* seg_k, const int2* band, const float* cos, const float* sin,
@@ -306,38 +300,6 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v, const int*
   return cudaSuccess;
 }
 
-// delta, then the query pass of form FORM: #7's fp32 form (form STREAM).
-template <int FORM>
-int dq_entry(const void* q, const void* k, const void* v, const void* seg, const void* seg_k,
-             const void* cos, const void* sin, const void* out, const void* lse,
-             const void* dout, const void* dlse, void* delta, void* dq, int B, int P, int H,
-             int causal, int bi_split, void* stream) {
-  if (B == 0 || P == 0 || H == 0) return 0;
-  const cudaStream_t st = (cudaStream_t)stream;
-  launch_delta((const float*)dout, (const float*)out, (const int*)seg, (const float*)dlse,
-               (float*)delta, B, P, H, st);
-  const cudaError_t err = launch_dq<FORM>(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)seg, (const int*)seg_k,
-      nullptr, (const float*)cos, (const float*)sin, (const float*)lse, (const float*)delta,
-      (const float*)dout, (float*)dq, B, P, H, causal, bi_split, st);
-  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
-}
-
-// The key pass of form FORM: #8's fp32 form (form STREAM).
-template <int FORM>
-int dkv_entry(const void* q, const void* k, const void* v, const void* seg, const void* seg_k,
-              const void* cos, const void* sin, const void* lse, const void* delta,
-              const void* dout, void* dk, void* dv, int B, int P, int H, int causal,
-              int bi_split, void* stream) {
-  if (B == 0 || P == 0 || H == 0) return 0;
-  const cudaError_t err = launch_dkv<FORM>(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)seg, (const int*)seg_k,
-      nullptr, (const float*)cos, (const float*)sin, (const float*)lse, (const float*)delta,
-      (const float*)dout, (float*)dk, (float*)dv, B, P, H, causal, bi_split,
-      (cudaStream_t)stream);
-  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // C entry for ctypes: #3's fp32 form (delta, then the key pass and the
@@ -363,32 +325,6 @@ extern "C" int ggt_flash_bwd_f32(const void* q, const void* k, const void* v, co
     err = launch_dq<SINGLE>(fq, fk, fv, iseg, nullptr, nullptr, fcos, fsin, flse,
                             (const float*)delta, fdo, (float*)dq, B, P, H, causal, 0, st);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
-}
-
-// C entries for ctypes: #7's and #8's fp32 forms, the query and key passes
-// with query ids segq and key ids segk (one array twice for a model's rows); delta is
-// summed over do zeroed where segq is 0. They take the bf16 entries'
-// arguments; `tab`, the bf16 forms' tile-table scratch, is not read: each
-// block tests its tile pairs itself (tiles_miss). Any P.
-extern "C" int ggt_flash_dq_stream_f32(const void* q, const void* k, const void* v,
-                                       const void* segq, const void* segk, const void* cos,
-                                       const void* sin, const void* out, const void* lse,
-                                       const void* dout, const void* dlse, void* delta,
-                                       void* dq, void* tab, int B, int P, int H, int causal,
-                                       int bi_split, void* stream) {
-  (void)tab;
-  return dq_entry<STREAM>(q, k, v, segq, segk, cos, sin, out, lse, dout, dlse, delta, dq, B, P, H,
-                        causal, bi_split, stream);
-}
-
-extern "C" int ggt_flash_dkv_stream_f32(const void* q, const void* k, const void* v,
-                                        const void* segq, const void* segk, const void* cos,
-                                        const void* sin, const void* lse, const void* delta,
-                                        const void* dout, void* dk, void* dv, void* tab, int B,
-                                        int P, int H, int causal, int bi_split, void* stream) {
-  (void)tab;
-  return dkv_entry<STREAM>(q, k, v, segq, segk, cos, sin, lse, delta, dout, dk, dv, B, P, H,
-                         causal, bi_split, stream);
 }
 
 // C entry for ctypes: #10's fp32 form (both band tables, delta, then the

@@ -1,25 +1,33 @@
-// The split flash attention backward in fp32, for Hopper: #4f flash_dq
-// (with delta) and #5f flash_dkv, one kernel body, launched one after the
-// other.
+// The split flash attention backward in fp32, for Hopper: one kernel body
+// in two forms, each two kernels launched one after the other, flash_dq
+// (with delta) then flash_dkv.
 //
-// Replaces graphgpt_tpu/ops/flash_attention.py:602 _dq_kernel_single and
-// :789 _dkv_kernel_single when they are given fp32 (a `model.dtype:
-// float32` model), which _flash_bwd :902 launches instead of the fused
-// kernel when bi_split > 0 and P <= 2048: there p = exp(S - lse) and ds =
-// p * (do v^T - delta) stay fp32. The bf16 pair is csrc/flash_bwd_split.cu.
-// The same contract: q (pre-scaled, not rotated), k, v, out, do
-// token-major fp32 [B, P, H * 64]; seg int32 [B, P]; cos and sin fp32
-// [B, P, 64] or null; lse and the optional dlse fp32 [B, H, P]; P <=
-// MAX_P. With S = rot(q) rot(k)^T + mask and p = exp(S - lse):
+// The single form, #4f flash_dq and #5f flash_dkv, replaces
+// graphgpt_tpu/ops/flash_attention.py:602 _dq_kernel_single and :789
+// _dkv_kernel_single when they are given fp32 (a `model.dtype: float32`
+// model), which _flash_bwd :902 launches instead of the fused kernel when
+// bi_split > 0 and P <= 2048. The stream form (STREAM), #7f
+// flash_dq_stream and #8f flash_dkv_stream, replaces :645
+// _dq_kernel_stream and :835 _dkv_kernel_stream given fp32, which
+// _flash_bwd launches above P = 2048 and under GGT_FLASH_MODE=skip at every
+// P. There p = exp(S - lse) and ds = p * (do v^T - delta) stay fp32. The
+// bf16 pair and its stream form are csrc/flash_bwd_split.cu. The same
+// contract: q (pre-scaled, not rotated), k, v, out, do token-major fp32
+// [B, P, H * 64]; cos and sin fp32 [B, P, 64] or null; lse and the
+// optional dlse fp32 [B, H, P]; the single form one seg int32 [B, P] and P
+// <= MAX_P, the stream form seg_q and seg_k, two arrays (a ring chunk's
+// keys carry another chunk's ids; the model passes one array twice), and
+// any P. With S = rot(q) rot(k)^T + mask and p = exp(S - lse):
 //   flash_dq:  delta = rowsum(do * out) - dlse, written [B, H, P] for
 //              flash_dkv; dq = ds rot(k)
 //   flash_dkv: dv = p^T do, dk = ds^T rot(q), reading that delta
 // in fp32, dq and dk through the inverse rotation; the rotations keep the
 // plain version's roundings (each product and sum rounded, no
-// contraction). The mask is the segment rule with the bidirectional,
-// causal or bi-causal rule of flash_common.cuh (a split may fall inside a
-// 64-row tile). do is taken as 0 on padded rows (segment 0) before any
-// sum, so that a non-finite value there reaches no output; a padded row,
+// contraction). The mask is the segment rule (seg_q[row] == seg_k[col] >
+// 0) with the bidirectional, causal or bi-causal rule of flash_common.cuh
+// (a split may fall inside a 64-row tile). do is taken as 0 on padded
+// query rows (segment 0) before any sum, so that a non-finite value there
+// reaches no output; a padded row,
 // a query row that sees no key and a key that no query sees give exactly
 // 0. No atomics: two launches on the same inputs give the same bits.
 //
@@ -27,11 +35,13 @@
 // H 12) each kernel moves ~429 MB (0.128 ms at 3.35 TB/s) against 2.3 and
 // 3.1 GFLOP over the visible pairs (14 and 19 us at 165 TFLOP/s, the
 // fp32-accurate rate of 3xTF32); at B 8 x P 1024, 156 MB (0.047 ms)
-// against 1.7 and 2.2 GFLOP. The FFMA pair this replaces (flash_bwd_f32.cu's
-// passes) reached 11-14% of that bound: synchronous tile loads, two blocks
-// an SM, each 64-row tile's partners loaded again for each of its tiles, a
-// delta launch of its own, and an FFMA product that reads two shared floats
-// for every four FMAs.
+// against 1.7 and 2.2 GFLOP; at the long-context shape (B 16, P 4096, H
+// 12) ~1.25 GB (0.373 ms) against 12-16 GFLOP on ~32-token packed
+// segments. The FFMA passes this replaces (flash_bwd_f32.cu's, which keep
+// #3f and #10f) reached 8-14% of that bound: synchronous tile loads, a
+// block a 64-row tile, each tile's partners loaded again for each of its
+// tiles and tested by reading their ids, a delta launch of its own, and an
+// FFMA product that reads two shared floats for every four FMAs.
 //
 // Design: one body, DKV choosing the roles; an item is 128 own rows of one
 // (batch row, head) (queries in flash_dq, keys in flash_dkv), so that at
@@ -84,14 +94,34 @@
 // registers and the producers 56 (from the launch's 168: what the
 // producers hand back is what the consumers take, 4 x 112 = 8 x 56 a
 // lane). Only the producers' waits time out (4 s, then trap); they wait
-// last for every stage to be handed back. The visiting tiles are walked in
-// one place (walk), which a stream or band form would change under an if
-// constexpr on the form, as the bf16 body's forms do.
+// last for every stage to be handed back.
+// What the stream form changes, each difference an if constexpr on the
+// form, so that the single form compiles as before and keeps its bits:
+// the own rows' ids and the visiting rows' ids come from their two arrays
+// (flash_dq: own seg_q, visiting seg_k; flash_dkv: own seg_k, visiting
+// seg_q), and the producer takes the visiting tiles' segment-id ranges
+// from the tile tables (tile_table.cuh), which the entry writes first: one
+// int2 a tile, where the single form reads a tile's 64 ids and reduces
+// them by shuffles. The visiting tiles of an item go in 64-bit masks of 64
+// tiles (walk), counted over every chunk first, so that no P limit
+// applies. The masks stay in registers and the tables in global memory
+// (L2): flash_dq's shared memory is full. And flash_dq keeps each row's
+// ds consistent: the tensor core truncates each product to its
+// accumulator's exponent, so S and dP carry a biased error some 10x fp32's,
+// and a row's sum of ds, which must equal its dlse, errs by it; a model's
+// keys share a large part within a segment, along which dq = ds k (and,
+// through the rows, dk's weight gradient) amplifies that error (on an H100
+// a long-context fp32 step's q and k weight gradients read ~2e-3 from the
+// plain run's, the FFMA passes' ~4e-5). flash_dq also sums p k, and the
+// sums of ds and p of each row, and ends with delta' = delta + (sum ds -
+// dlse) / sum p, dq -= (delta' - delta) p k, writing delta' for flash_dkv:
+// the same function, 0 in exact arithmetic, one more product.
 
 #include "flash_common.cuh"  // DH, the segment-range test, the causal and bi-causal bounds
 #include "sm90_common.cuh"   // TMA, mbarriers, the tensor-map encoder
 #include "flash_sm90.cuh"    // ex2, LOG2E, the visiting mask, cp.async, lds128/sts128, error codes
 #include "tf32x3.cuh"        // the 3xTF32 split and mma
+#include "tile_table.cuh"    // the stream form's tile tables and table_mask
 
 namespace split_bwd_f32 {
 namespace {
@@ -99,7 +129,7 @@ namespace {
 using namespace sm90;
 using namespace tf32x3;
 
-enum Form { SINGLE = 0 };  // the stream (1) and band (2) forms are still flash_bwd_f32.cu's
+enum Form { SINGLE = 0, STREAM = 1 };  // the band form (2) is flash_bwd_f32.cu's
 
 constexpr int ROWS = 128;                // own rows of an item: two consumer warpgroups of 64
 constexpr int NTHREADS = 384;            // consumer warpgroups 0 and 1, producer warpgroup 2
@@ -110,7 +140,7 @@ constexpr int OWN_BOX = ROWS * 128;      // a [128, 32] fp32 box, 16 KB
 constexpr int OWN_TILE = 2 * OWN_BOX;    // an own [128, 64] tile: columns 0-31, then 32-63
 constexpr int VIS_BOX = 64 * 128;        // a [64, 32] fp32 box, 8 KB
 constexpr int VIS_TILE = 2 * VIS_BOX;    // a visiting [64, 64] tile (or one of its planes)
-constexpr int MAX_P = 2048;              // an item's visiting tiles fit one 32-bit mask
+constexpr int MAX_P = 2048;              // the single form's: its tiles fit one 32-bit mask
 
 // A visiting tile's row data. seg, lse, delta arrive by cp.async (zeros
 // past P); v0, lo, hi are written by producer lane 0.
@@ -119,7 +149,7 @@ struct Meta {
   float lse[64];
   float delta[64];
   int v0;      // the tile's first row
-  int lo, hi;  // its segment-id range (tile_range)
+  int lo, hi;  // its segment-id range (tile_range, or the stream form's table)
   int pad;     // the next stage's Meta 8-byte aligned (int2 reads of seg)
 };
 
@@ -144,7 +174,7 @@ struct Layout {
 };
 
 struct Args {
-  const int* seg;     // [B, P]
+  const int* seg;     // [B, P]: the own rows' ids (the single form: every row's)
   const float* lse;   // [B, H, P]
   const float* dlse;  // flash_dq: [B, H, P] or null
   float* delta;       // flash_dq writes it, flash_dkv reads it
@@ -153,6 +183,11 @@ struct Args {
   float* out1;        // dq; or dk
   float* out2;        // dv (flash_dkv)
   int B, P, H, causal, bi_split;
+  // the stream form: the visiting rows' ids [B, P], and the own and the
+  // visiting rows' tile tables [B, ceil(P/64)] (tile_table_kernel)
+  const int* segv;
+  const int2* tabo;
+  const int2* tabv;
 };
 
 // The schedule: items (b, 128-row block, h), h fastest; CTA c takes the
@@ -170,14 +205,22 @@ __device__ __forceinline__ Item decode(int i, int H, int nblk) {
   return it;
 }
 
-// The visiting tiles of an item, bit vt for the tile of rows [64 vt,
-// 64 vt + 64): those whose ids meet the own block's (and, causal without a
-// split, on its side of the diagonal). The producer walks the ring by it
-// and writes the count in the item header for the other warps.
+// The visiting tiles of an item, bit vt - vt0 for the tile of rows
+// [64 vt, 64 vt + 64): those whose ids meet the own block's (and, causal
+// without a split, on its side of the diagonal). The single form: one
+// 32-bit mask from the ids (vt0 0, P <= MAX_P); the stream form: a 64-bit
+// mask of the tiles [vt0, vt0 + 64) from the tile tables. The producer
+// walks the ring by them and writes the count in the item header for the
+// other warps. The warp's lanes must all call it.
 template <bool DKV, int FORM>
-__device__ __forceinline__ uint32_t walk(const Args& a, const Item& it, bool tri, int lane) {
-  static_assert(FORM == SINGLE, "only the single form");
-  return visiting_mask(a.seg + (long long)it.b * a.P, it.own0, a.P, tri, DKV, lane);
+__device__ __forceinline__ auto walk(const Args& a, const Item& it, int nt, bool tri, int lane,
+                                     int vt0) {
+  if constexpr (FORM == STREAM) {
+    const long long t = (long long)it.b * nt;
+    return table_mask(a.tabo + t, a.tabv + t, it.own0, nt, tri, DKV, lane, vt0);
+  } else {
+    return visiting_mask(a.seg + (long long)it.b * a.P, it.own0, a.P, tri, DKV, lane);
+  }
 }
 
 __device__ __forceinline__ float4 lds_f4(uint32_t addr) {
@@ -313,7 +356,7 @@ split_f32_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int P = args.P, H = args.H;
-  const int nblk = (P + ROWS - 1) / ROWS;
+  const int nblk = (P + ROWS - 1) / ROWS, nt = (P + 63) / 64;
   // this CTA's run of items [first, last), computed where each role starts:
   // a value live from here into both roles takes a register the producers
   // hand back, and ptxas spilled it
@@ -326,6 +369,9 @@ split_f32_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant
   };
   const bool tri = args.causal && args.bi_split == 0;
   const bool rope = args.cos != nullptr;
+  // the stream form's flash_dq writes a delta consistent with its own p and
+  // dP (see the epilogue)
+  constexpr bool CONSISTENT = !DKV && FORM == STREAM;
 
   if (tid == 0) {
     mbar_init(own_full, 1);
@@ -351,11 +397,23 @@ split_f32_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant
       for (int i = first; i < last; ++i) {
         const Item it = decode(i, H, nblk);
         const int* segb = args.seg + (long long)it.b * P;
+        // the visiting rows' ids: the stream form's second array
+        const int* segv = FORM == STREAM ? args.segv + (long long)it.b * P : segb;
         const long long rowbase = ((long long)it.b * H + it.h) * P;
-        uint32_t mask = walk<DKV, FORM>(args, it, tri, lane);
+        // the single form's mask, or the stream form's first chunk, the
+        // tiles of every chunk counted first
+        auto mask = walk<DKV, FORM>(args, it, nt, tri, lane, 0);
+        int n;
+        if constexpr (FORM == STREAM) {
+          n = __popcll(mask);
+          for (int c = 64; c < nt; c += 64)
+            n += __popcll(walk<DKV, FORM>(args, it, nt, tri, lane, c));
+        } else {
+          n = __popc(mask);
+        }
         mbar_wait_or_trap(own_empty, ophase ^ 1);
         if (lane == 0) {
-          hdr[0] = __popc(mask);
+          hdr[0] = n;
           mbar_expect_tx(own_full, L::NOWN * OWN_TILE);
           const CUtensorMap* maps[3] = {&own1, &own2, &own3};
 #pragma unroll
@@ -366,15 +424,16 @@ split_f32_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant
                           it.h * DH + 32 * cb, it.own0, it.b);
         }
         ophase ^= 1;
-        for (; mask; mask &= mask - 1) {
-          const int v0 = (__ffs(mask) - 1) * 64;
+        // visiting tile vt into the next stage
+        auto visit = [&](int vt) {
+          const int v0 = vt * 64;
           mbar_wait_or_trap(ring_empty(stage), phase ^ 1);
           Meta& m = meta[stage];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int r = lane + 32 * e, p = v0 + r;
             const bool ok = p < P;
-            cp_async4(&m.seg[r], segb + (ok ? p : 0), ok);
+            cp_async4(&m.seg[r], segv + (ok ? p : 0), ok);
             if (DKV) {
               cp_async4(&m.lse[r], args.lse + rowbase + (ok ? p : 0), ok);
               cp_async4(&m.delta[r], args.delta + rowbase + (ok ? p : 0), ok);
@@ -382,7 +441,13 @@ split_f32_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant
           }
           cp_async_arrive(ring_full(stage));
           int lo, hi;
-          tile_range(segb, v0, P, lane, &lo, &hi);
+          if constexpr (FORM == STREAM) {
+            const int2 r = args.tabv[(long long)it.b * nt + vt];
+            lo = r.x;
+            hi = r.y;
+          } else {
+            tile_range(segb, v0, P, lane, &lo, &hi);
+          }
           if (lane == 0) {
             m.v0 = v0;
             m.lo = lo;
@@ -402,6 +467,14 @@ split_f32_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant
             stage = 0;
             phase ^= 1;
           }
+        };
+        if constexpr (FORM == STREAM) {
+          for (int c = 0; c < nt; c += 64) {
+            if (c > 0) mask = walk<DKV, FORM>(args, it, nt, tri, lane, c);
+            for (; mask; mask &= mask - 1) visit(c + __ffsll((long long)mask) - 1);
+          }
+        } else {
+          for (; mask; mask &= mask - 1) visit(__ffs(mask) - 1);
         }
       }
       // every stage and the own buffer handed back: the consumers are past
@@ -520,8 +593,8 @@ split_f32_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant
 
   // the ids of this thread's own rows, the id range of the warp's 16 rows,
   // and (flash_dq) the rows' lse and dlse: loaded an item ahead, so that
-  // their latency hides under the item before (flash_dkv: at the item's
-  // start, where its registers are free)
+  // their latency hides under the item before (flash_dkv and the stream
+  // form's flash_dq: at the item's start, where their registers are free)
   struct Rows {
     int s0, s1, lo, hi;
     float lse0, lse1, dlse0, dlse1;
@@ -548,11 +621,12 @@ split_f32_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant
     }
     return r;
   };
-  Rows next = !DKV && first < last ? load_rows(first) : Rows{};
+  constexpr bool AHEAD = !DKV && !CONSISTENT;
+  Rows next = AHEAD && first < last ? load_rows(first) : Rows{};
 
   for (int i = first; i < last; ++i) {
-    const Rows rows = DKV ? load_rows(i) : next;
-    if (!DKV && i + 1 < last) next = load_rows(i + 1);
+    const Rows rows = AHEAD ? next : load_rows(i);
+    if (AHEAD && i + 1 < last) next = load_rows(i + 1);
     const Item it = decode(i, H, nblk);
     const long long rowbase = ((long long)it.b * H + it.h) * P;
     const int wrow = warp_row(i);  // the warp's first row within the item
@@ -572,6 +646,9 @@ split_f32_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant
     // flash_dq: lse log2(e) and delta of the own rows
     const float l2e0 = rows.lse0 * LOG2E, l2e1 = rows.lse1 * LOG2E;
     float dl0 = 0.f, dl1 = 0.f;
+    // the stream form's flash_dq: the sums over this thread's columns of ds
+    // and of p for rows r0, r1 (see the epilogue)
+    float rs0 = 0.f, rs1 = 0.f, ps0 = 0.f, ps1 = 0.f;
     // the own tiles, q (or k) rotated by the pass warps
     mbar_wait(own_full, ophase);
     mbar_wait(own_ready, ophase);
@@ -605,7 +682,7 @@ split_f32_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant
       }
       dl0 = (s0 > 0 ? sum0 : 0.f) - rows.dlse0;
       dl1 = (s1 > 0 ? sum1 : 0.f) - rows.dlse1;
-      if (t == 0) {
+      if (!CONSISTENT && t == 0) {
         if (r0 < P) args.delta[rowbase + r0] = dl0;
         if (r1 < P) args.delta[rowbase + r1] = dl1;
       }
@@ -669,10 +746,20 @@ split_f32_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant
               const float pe = ex2(ok ? fmaf(sc[j][e], LOG2E, -l2e) : -INFINITY);
               dp[j][e] = ok ? pe * (dp[j][e] - del) : 0.f;
               sc[j][e] = pe;
+              if (CONSISTENT) {
+                if (e < 2) {
+                  rs0 += dp[j][e];
+                  ps0 += pe;
+                } else {
+                  rs1 += dp[j][e];
+                  ps1 += pe;
+                }
+              }
             }
           }
           // the second products over the visiting rows of this half:
-          // flash_dq dq += ds B1; flash_dkv dk += ds^T B1, dv += p^T B2
+          // flash_dq dq += ds B1 (the stream form also p B1); flash_dkv
+          // dk += ds^T B1, dv += p^T B2
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int nbk = 4 * half + j;
@@ -681,11 +768,12 @@ split_f32_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant
             const uint32_t at = sb + nbk * 1024;
             product_nn(acc1, dh, dl, at, soff[0], soff[1], 0);
             product_nn(acc1, dh, dl, at, soff[0], soff[1], 4);
-            if (DKV) {
+            if (DKV || CONSISTENT) {
+              const uint32_t b = DKV ? at + 2 * VIS_TILE : at;
               uint32_t ph[4], pl[4];
               acc_as_a(sc[j], ph, pl);
-              product_nn(acc2, ph, pl, at + 2 * VIS_TILE, soff[0], soff[1], 0);
-              product_nn(acc2, ph, pl, at + 2 * VIS_TILE, soff[0], soff[1], 4);
+              product_nn(acc2, ph, pl, b, soff[0], soff[1], 0);
+              product_nn(acc2, ph, pl, b, soff[0], soff[1], 4);
             }
           }
         }
@@ -705,6 +793,38 @@ split_f32_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant
     int ie = i;
     asm volatile("" : "+r"(ie));
     const Item ite = decode(ie, H, nblk);
+    if (CONSISTENT) {
+      // delta made consistent with this kernel's own p and dP (see the
+      // header): delta' = delta + (rowsum ds - dlse) / rowsum p, dq -=
+      // (delta' - delta) rowsum(p k); flash_dkv reads delta'
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        rs0 += __shfl_xor_sync(0xffffffffu, rs0, o);
+        rs1 += __shfl_xor_sync(0xffffffffu, rs1, o);
+        ps0 += __shfl_xor_sync(0xffffffffu, ps0, o);
+        ps1 += __shfl_xor_sync(0xffffffffu, ps1, o);
+      }
+      // dlse read again here, not kept across the tile loop, where the
+      // registers run short (the first build of these sums spilled)
+      const long long rb = ((long long)ite.b * H + ite.h) * P;
+      const int row0 = ite.own0 + warp_row(ie) + g;
+      const bool in0 = row0 < P, in1 = row0 + 8 < P, ld = args.dlse != nullptr;
+      const float dlse0 = ld && in0 ? args.dlse[rb + row0] : 0.f;
+      const float dlse1 = ld && in1 ? args.dlse[rb + row0 + 8] : 0.f;
+      const float c0 = ps0 > 0.f ? (rs0 - dlse0) / ps0 : 0.f;
+      const float c1 = ps1 > 0.f ? (rs1 - dlse1) / ps1 : 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc1[j][0] = fmaf(-c0, acc2[j][0], acc1[j][0]);
+        acc1[j][1] = fmaf(-c0, acc2[j][1], acc1[j][1]);
+        acc1[j][2] = fmaf(-c1, acc2[j][2], acc1[j][2]);
+        acc1[j][3] = fmaf(-c1, acc2[j][3], acc1[j][3]);
+      }
+      if (t == 0) {
+        if (in0) args.delta[rb + row0] = dl0 + c0;
+        if (in1) args.delta[rb + row0 + 8] = dl1 + c1;
+      }
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = ite.own0 + warp_row(ie) + g + 8 * r;
@@ -750,10 +870,10 @@ bool encode_f32(EncodeTiled fn, CUtensorMap* map, const void* base, int B, int P
 
 // The launch: tensors in the roles of the DKV kernel (own1..3, vis1, vis2;
 // own3 null in flash_dkv); one CTA an SM, at most one an item.
-template <bool DKV>
+template <bool DKV, int FORM>
 int launch(const void* own1, const void* own2, const void* own3, const void* vis1,
            const void* vis2, const Args& args, cudaStream_t stream) {
-  if (args.P > MAX_P) return ERR_P;
+  if (FORM == SINGLE && args.P > MAX_P) return ERR_P;
   if (args.B == 0 || args.P == 0 || args.H == 0) return 0;
   static bool configured[MAX_DEVICES] = {};
   static int sms[MAX_DEVICES] = {};
@@ -762,7 +882,7 @@ int launch(const void* own1, const void* own2, const void* own3, const void* vis
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return ERR_DEVICE;
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(split_f32_kernel<DKV, SINGLE>,
+    err = cudaFuncSetAttribute(split_f32_kernel<DKV, FORM>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)Layout<DKV>::BYTES);
     if (err != cudaSuccess) return (int)err;
@@ -780,20 +900,41 @@ int launch(const void* own1, const void* own2, const void* own3, const void* vis
     if (!encode_f32(fn, &m[i], tok[i], B, P, W, rows[i])) return ERR_ENCODE;
   const int items = B * ((P + ROWS - 1) / ROWS) * args.H;
   const int grid = items < sms[dev] ? items : sms[dev];
-  split_f32_kernel<DKV, SINGLE><<<grid, NTHREADS, Layout<DKV>::BYTES, stream>>>(
+  split_f32_kernel<DKV, FORM><<<grid, NTHREADS, Layout<DKV>::BYTES, stream>>>(
       m[0], m[1], m[2], m[3], m[4], args);
   return (int)cudaGetLastError();
+}
+
+// The stream form's launch: the tile tables of seg_q and seg_k into `tab`
+// (int32 scratch of 4 x B x ceil(P/64) from the caller; one table when they
+// are one array), then the kernel with the own and visiting roles: flash_dq
+// own queries (seg_q) and visiting keys (seg_k), flash_dkv the other way
+// round. Any P.
+int launch_stream(bool dkv, const void* own1, const void* own2, const void* own3,
+                  const void* vis1, const void* vis2, const void* segq, const void* segk,
+                  void* tab, Args args, cudaStream_t stream) {
+  if (args.B == 0 || args.P == 0 || args.H == 0) return 0;
+  const int2 *tq, *tk;
+  const cudaError_t err = launch_tables(segq, segk, tab, args.B, args.P, stream, &tq, &tk);
+  if (err != cudaSuccess) return (int)err;
+  args.seg = (const int*)(dkv ? segk : segq);
+  args.segv = (const int*)(dkv ? segq : segk);
+  args.tabo = dkv ? tk : tq;
+  args.tabv = dkv ? tq : tk;
+  return dkv ? launch<true, STREAM>(own1, own2, own3, vis1, vis2, args, stream)
+             : launch<false, STREAM>(own1, own2, own3, vis1, vis2, args, stream);
 }
 
 }  // namespace
 }  // namespace split_bwd_f32
 
 // C entries for ctypes, on `stream`; each returns the first CUDA error (0
-// when its launch was accepted), or one of flash_sm90.cuh's codes above
-// 999. flash_dq: dq, and delta into the caller's fp32 [B, H, P] `delta`
-// (dlse may be null: zeros), summed in the kernel: one launch. flash_dkv:
-// dk, dv, reading that delta. cos and sin may both be null. Masks:
-// bidirectional, causal, or bi-causal with `bi_split` bit slots. P <= 2048.
+// when its launches were accepted), or one of flash_sm90.cuh's codes above
+// 999. cos and sin may both be null. Masks: bidirectional, causal, or
+// bi-causal with `bi_split` bit slots. The single form (P <= 2048):
+// flash_dq: dq, and delta into the caller's fp32 [B, H, P] `delta` (dlse
+// may be null: zeros), summed in the kernel: one launch. flash_dkv: dk,
+// dv, reading that delta.
 extern "C" int ggt_flash_dq_f32(const void* q, const void* k, const void* v, const void* seg,
                                 const void* cos, const void* sin, const void* out,
                                 const void* lse, const void* dout, const void* dlse, void* delta,
@@ -803,7 +944,7 @@ extern "C" int ggt_flash_dq_f32(const void* q, const void* k, const void* v, con
   const Args args{(const int*)seg, (const float*)lse, (const float*)dlse, (float*)delta,
                   (const float*)cos, (const float*)sin, (float*)dq, nullptr,
                   B, P, H, causal, bi_split};
-  return launch<false>(q, dout, out, k, v, args, (cudaStream_t)stream);
+  return launch<false, SINGLE>(q, dout, out, k, v, args, (cudaStream_t)stream);
 }
 
 extern "C" int ggt_flash_dkv_f32(const void* q, const void* k, const void* v, const void* seg,
@@ -814,5 +955,36 @@ extern "C" int ggt_flash_dkv_f32(const void* q, const void* k, const void* v, co
   const Args args{(const int*)seg, (const float*)lse, nullptr, (float*)delta,
                   (const float*)cos, (const float*)sin, (float*)dk, (float*)dv,
                   B, P, H, causal, bi_split};
-  return launch<true>(k, v, nullptr, q, dout, args, (cudaStream_t)stream);
+  return launch<true, SINGLE>(k, v, nullptr, q, dout, args, (cudaStream_t)stream);
+}
+
+// #7f: dq, and delta into the caller's fp32 [B, H, P] `delta` (dlse may be
+// null: zeros), summed in the kernel over do zeroed where seg_q is 0: one
+// launch after the tables. Query ids segq, key ids segk (one array twice
+// for a model's rows); `tab` the tables' scratch. Any P.
+extern "C" int ggt_flash_dq_stream_f32(const void* q, const void* k, const void* v,
+                                       const void* segq, const void* segk, const void* cos,
+                                       const void* sin, const void* out, const void* lse,
+                                       const void* dout, const void* dlse, void* delta,
+                                       void* dq, void* tab, int B, int P, int H, int causal,
+                                       int bi_split, void* stream) {
+  using namespace split_bwd_f32;
+  const Args args{nullptr, (const float*)lse, (const float*)dlse, (float*)delta,
+                  (const float*)cos, (const float*)sin, (float*)dq, nullptr,
+                  B, P, H, causal, bi_split};
+  return launch_stream(false, q, dout, out, k, v, segq, segk, tab, args, (cudaStream_t)stream);
+}
+
+// #8f: dk, dv, reading flash_dq_stream_f32's delta.
+extern "C" int ggt_flash_dkv_stream_f32(const void* q, const void* k, const void* v,
+                                        const void* segq, const void* segk, const void* cos,
+                                        const void* sin, const void* lse, const void* delta,
+                                        const void* dout, void* dk, void* dv, void* tab, int B,
+                                        int P, int H, int causal, int bi_split, void* stream) {
+  using namespace split_bwd_f32;
+  const Args args{nullptr, (const float*)lse, nullptr, (float*)delta,
+                  (const float*)cos, (const float*)sin, (float*)dk, (float*)dv,
+                  B, P, H, causal, bi_split};
+  return launch_stream(true, k, v, nullptr, q, dout, segq, segk, tab, args,
+                       (cudaStream_t)stream);
 }

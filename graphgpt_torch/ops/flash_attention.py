@@ -44,9 +44,10 @@ any value it does not know for `legacy`.
 
 Dtypes: every kernel takes bf16, and fp32 (a `model.dtype: float32`
 model) in forms of its own: #1's, #6's and #9's in
-`csrc/flash_fwd_f32.cu`, #3's, the streamed pair's and #10's in the passes
-of `csrc/flash_bwd_f32.cu`, the split pair's in `csrc/flash_bwd_split_f32.cu`
-(3xTF32 products on the tensor cores), each with its wrapper and its count
+`csrc/flash_fwd_f32.cu`, #3's and #10's in the passes of
+`csrc/flash_bwd_f32.cu`, the split pair's and the streamed pair's in
+`csrc/flash_bwd_split_f32.cu` (3xTF32 products on the tensor cores; the
+streamed pair in its stream form), each with its wrapper and its count
 (flash_fwd_f32, flash_bwd_f32, flash_dq_f32, flash_dkv_f32,
 flash_fwd_stream_f32, flash_dq_stream_f32, flash_dkv_stream_f32,
 flash_fwd_band_f32, flash_bwd_band_f32), to which flash_fwd, flash_bwd,
@@ -345,9 +346,10 @@ def flash_fwd_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, causal: bool, dh: int
 
 
 def _stream_tab(dtype, seg_q):
-    """The tile-table scratch of a streamed entry: the bf16 forms write
-    their tables there first; the fp32 forms test each tile pair
-    themselves and read none (None: a null pointer)."""
+    """The tile-table scratch of #6's entries: the bf16 form writes its
+    tables there first; the fp32 form tests each tile pair itself and reads
+    none (None: a null pointer). #7 and #8 take _tile_scratch in both
+    dtypes."""
     return _tile_scratch(seg_q) if dtype == torch.bfloat16 else None
 
 
@@ -848,8 +850,9 @@ def _dq_stream_plain(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, dlse, causa
 
 def _dq_stream(name, source, symbol, dtype, qs, k, v, seg_q, seg_k, cos, sin, out, lse, do,
                dlse, causal: bool, dh: int, bi_causal_split: int):
-    """Launch #7's form `symbol` of csrc/<source>.cu, which takes `dtype`:
-    (dq, delta, the entry's error code)."""
+    """Launch #7's form `symbol` of csrc/<source>.cu, which takes `dtype`
+    and writes its tile tables into _tile_scratch first: (dq, delta, the
+    entry's error code)."""
     b, p, _ = qs.shape
     extra_rows = () if dlse is None else (dlse,)
     (qs, k, v, do, out), seg_q, seg_k, cos, sin, rows = _check_bwd(
@@ -861,8 +864,8 @@ def _dq_stream(name, source, symbol, dtype, qs, k, v, seg_q, seg_k, cos, sin, ou
     err = fn(
         _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
         _opt_ptr(cos), _opt_ptr(sin), _build.ptr(out), _build.ptr(lse), _build.ptr(do),
-        _opt_ptr(dlse), _build.ptr(delta), _build.ptr(dq), _opt_ptr(_stream_tab(dtype, seg_q)),
-        b, p, lse.shape[1], int(causal), int(bi_causal_split), _build.stream_ptr(qs.device),
+        _opt_ptr(dlse), _build.ptr(delta), _build.ptr(dq), _build.ptr(_tile_scratch(seg_q)), b,
+        p, lse.shape[1], int(causal), int(bi_causal_split), _build.stream_ptr(qs.device),
     )
     return dq, delta, err
 
@@ -894,16 +897,17 @@ flash_dq_stream.launches = 0
 
 def flash_dq_stream_f32(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, dlse, causal: bool,
                         dh: int, bi_causal_split: int = 0):
-    """(dq, delta) of #7's fp32 form (`csrc/flash_bwd_f32.cu`: delta, then
-    the query pass's stream form; counted as one call) for fp32 CUDA
-    tensors, cos and sin kept fp32; the plain route for a CPU tensor (or
-    inside ops.reference_mode()). Any P."""
+    """(dq, delta) of #7's fp32 form (`csrc/flash_bwd_split_f32.cu`'s stream
+    form of #4f's flash_dq: the tile tables, then dq with delta summed for
+    its own rows; counted as one call) for fp32 CUDA tensors, cos and sin
+    kept fp32; the plain route for a CPU tensor (or inside
+    ops.reference_mode()). Any P."""
     if not use_kernel(qs, k, v, seg_q, seg_k, out, lse, do):
         return _dq_stream_plain(qs, k, v, seg_q, seg_k, cos, sin, out, lse, do, dlse, causal, dh,
                                 bi_causal_split)
-    dq, delta, err = _dq_stream("flash_dq_stream_f32", "flash_bwd_f32", "ggt_flash_dq_stream_f32",
-                                torch.float32, qs, k, v, seg_q, seg_k, cos, sin, out, lse, do,
-                                dlse, causal, dh, bi_causal_split)
+    dq, delta, err = _dq_stream("flash_dq_stream_f32", "flash_bwd_split_f32",
+                                "ggt_flash_dq_stream_f32", torch.float32, qs, k, v, seg_q, seg_k,
+                                cos, sin, out, lse, do, dlse, causal, dh, bi_causal_split)
     flash_dq_stream_f32.launches += 1
     _build.check(err, "flash_dq_stream_f32")
     return dq, delta
@@ -914,8 +918,9 @@ flash_dq_stream_f32.launches = 0
 
 def _dkv_stream(name, source, symbol, dtype, qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do,
                 causal: bool, dh: int, bi_causal_split: int):
-    """Launch #8's form `symbol` of csrc/<source>.cu, which takes `dtype`:
-    (dk, dv, the entry's error code)."""
+    """Launch #8's form `symbol` of csrc/<source>.cu, which takes `dtype`
+    and writes its tile tables into _tile_scratch first: (dk, dv, the
+    entry's error code)."""
     b, p, _ = qs.shape
     (qs, k, v, do), seg_q, seg_k, cos, sin, (lse, delta) = _check_bwd(
         name, dh, qs, k, v, seg_q, cos, sin, lse, do, extra_rows=(delta,), seg_k=seg_k,
@@ -925,8 +930,8 @@ def _dkv_stream(name, source, symbol, dtype, qs, k, v, seg_q, seg_k, cos, sin, l
     err = fn(
         _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
         _opt_ptr(cos), _opt_ptr(sin), _build.ptr(lse), _build.ptr(delta), _build.ptr(do),
-        _build.ptr(dk), _build.ptr(dv), _opt_ptr(_stream_tab(dtype, seg_q)), b, p,
-        lse.shape[1], int(causal), int(bi_causal_split), _build.stream_ptr(qs.device),
+        _build.ptr(dk), _build.ptr(dv), _build.ptr(_tile_scratch(seg_q)), b, p, lse.shape[1],
+        int(causal), int(bi_causal_split), _build.stream_ptr(qs.device),
     )
     return dk, dv, err
 
@@ -957,14 +962,15 @@ flash_dkv_stream.launches = 0
 
 def flash_dkv_stream_f32(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal: bool,
                          dh: int, bi_causal_split: int = 0):
-    """(dk, dv) of #8's fp32 form (`csrc/flash_bwd_f32.cu`'s key pass in its
-    stream form, reading flash_dq_stream_f32's delta) for fp32 CUDA tensors,
-    cos and sin kept fp32; the plain version for a CPU tensor (or inside
-    ops.reference_mode()). Any P."""
+    """(dk, dv) of #8's fp32 form (`csrc/flash_bwd_split_f32.cu`'s stream
+    form of #5f's flash_dkv: the tile tables, then dk and dv, reading
+    flash_dq_stream_f32's delta; counted as one call) for fp32 CUDA
+    tensors, cos and sin kept fp32; the plain version for a CPU tensor (or
+    inside ops.reference_mode()). Any P."""
     if not use_kernel(qs, k, v, seg_q, seg_k, lse, delta, do):
         return flash_dkv_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, lse, delta, do, causal,
                                     dh, bi_causal_split)
-    dk, dv, err = _dkv_stream("flash_dkv_stream_f32", "flash_bwd_f32",
+    dk, dv, err = _dkv_stream("flash_dkv_stream_f32", "flash_bwd_split_f32",
                               "ggt_flash_dkv_stream_f32", torch.float32, qs, k, v, seg_q, seg_k,
                               cos, sin, lse, delta, do, causal, dh, bi_causal_split)
     flash_dkv_stream_f32.launches += 1

@@ -9,9 +9,10 @@ MLPs #11 and #2 (`--kernel mlp`, `--kernel norm_mlp`: `csrc/mlp.cu`,
 `csrc/norm_mlp.cu` with `csrc/mlp_common.cuh`) and the RMSNorm backward #13
 (`--kernel rmsnorm_bwd`, `csrc/rmsnorm_bwd.cu`), and the fp32 forms #2f,
 #11f and #12f (`--kernel mlp_f32`, `csrc/mlp_qkv_f32.cu`), #1f, #6f and #9f
-(`--kernel fwd_f32`, `csrc/flash_fwd_f32.cu`), #3f, #7f, #8f and #10f
-(`--kernel bwd_f32`, `csrc/flash_bwd_f32.cu`) and the pair #4f, #5f
-(`--kernel split_f32`, `csrc/flash_bwd_split_f32.cu`), timed on the card whole
+(`--kernel fwd_f32`, `csrc/flash_fwd_f32.cu`), #3f and #10f (`--kernel
+bwd_f32`, `csrc/flash_bwd_f32.cu`) and the pair #4f, #5f and its stream
+form #7f, #8f (`--kernel split_f32`, `csrc/flash_bwd_split_f32.cu`), timed
+on the card whole
 and with one phase of their body left out at a time, at their paths'
 shapes: the denoise batch (B 256 x P 88, 16 bit slots, a molecule and a
 padded stretch a row), the fine-tune batch (B 256 x P 72, a molecule a
@@ -30,7 +31,9 @@ x P 128 (2 heads, toy_pretrain's), the fine-tune batch B 256 x P 72 (a
 molecule a row) and the long-context B 16 x P 4096,
 where every form runs (the single ones too: their C entries take any P),
 the fp32 pair and the fp32 forward also at the denoise batch and at B 8 x
-P 1024 with 16 bit slots (their inputs drawn in fp32 by numpy from a fixed
+P 1024 with 16 bit slots, the fp32 pair's stream form also with another
+row's ids as key ids at B 16 x P 4096 (their inputs drawn in fp32 by numpy
+from a fixed
 seed, so that a digest is the same from machine to machine for the same
 bits; the band forms #9f and #10f take the same q and k, unrotated, and no
 cos, sin).
@@ -96,6 +99,10 @@ include):
   nosecond no second products (dq; dk, dv)
   cvtsplit the split by cvt.rna.tf32.f32 instead of integer rounding (the
            same bits)
+  part2    the second products (dq; dk, dv) into a zeroed partial a k-step,
+           added to the sums by fp32 adds (the tensor core truncates each
+           product to its accumulator's exponent)
+  part12   part2, and S and dP likewise
 
 and for the fp32 dense products #2f, #11f and #12f (mlp_f32;
 gemm_tf32x3.cuh put in place of its include):
@@ -116,9 +123,13 @@ gemm_tf32x3.cuh put in place of its include):
 commit, say, with the headers beside it, which it is built against before
 the package's own); a substitution that does not match it raises; fwd
 and bwd time the forms that its source has. split_f32 times the pair at
-the denoise batch and at B 8 x P 1024 with 16 bit slots, and with --source
-(the parent's flash_bwd_f32.cu, whose entries of the same names are the
-FFMA pair) times that body beside the package's in the same turns;
+the denoise batch and at B 8 x P 1024 with and without 16 bit slots, and
+its stream form there (on one id array within F32_REL of the pair: its
+delta is made consistent with its own p and dP) and at B 16 x P 4096
+(the stream form alone, the query ids as key ids, then another row's), and
+with --source (an earlier flash_bwd_split_f32.cu, or an earlier
+flash_bwd_f32.cu, whose stream entries of the same names were the FFMA
+pair #7f, #8f) times that body beside the package's in the same turns;
 mlp_f32 likewise with --source an FFMA body's norm_mlp_f32.cu (whose
 entries of the same names take no weight planes and no tile width). Needs
 a CUDA card and nvcc.
@@ -292,6 +303,26 @@ _GEMM_SMEMA = [("      uint32_t a[4][4];\n      load_a(a, st, aoff);\n#pragma un
 _GEMM_ONEACC = [("mma3<BN>(part, a[kk], lo, bhi + 2 * kk, blo + 2 * kk, kk > 0);",
                  "mma3<BN>(acc, a[kk], lo, bhi + 2 * kk, blo + 2 * kk, kc + kk > 0);"),
                 ("        pin(part[i]);\n        acc[i] += part[i];", "        pin(acc[i]);")]
+# each k-step's three products into a zeroed partial, added to the sums by
+# fp32 adds, which round to nearest: the second products (part2), and S and
+# dP too (part12)
+_F32_PART2 = [("#pragma unroll\n  for (int q = 0; q < 4; ++q) mma_tf32(acc[nb0 + q], al, bh[q][0], bh[q][1]);\n"
+               "#pragma unroll\n  for (int q = 0; q < 4; ++q) mma_tf32(acc[nb0 + q], ah, bl[q][0], bl[q][1]);\n"
+               "#pragma unroll\n  for (int q = 0; q < 4; ++q) mma_tf32(acc[nb0 + q], ah, bh[q][0], bh[q][1]);\n",
+               "  float t[4][4] = {};\n"
+               "#pragma unroll\n  for (int q = 0; q < 4; ++q) mma_tf32(t[q], al, bh[q][0], bh[q][1]);\n"
+               "#pragma unroll\n  for (int q = 0; q < 4; ++q) mma_tf32(t[q], ah, bl[q][0], bl[q][1]);\n"
+               "#pragma unroll\n  for (int q = 0; q < 4; ++q) mma_tf32(t[q], ah, bh[q][0], bh[q][1]);\n"
+               "#pragma unroll\n  for (int q = 0; q < 4; ++q)\n#pragma unroll\n"
+               "    for (int e = 0; e < 4; ++e) acc[nb0 + q][e] += t[q][e];\n")]
+_F32_PART12 = _F32_PART2 + [
+    ("      float(&s0)[4] = sc[2 * pb];\n      float(&s1)[4] = sc[2 * pb + 1];\n"
+     "      float(&d0)[4] = dp[2 * pb];\n      float(&d1)[4] = dp[2 * pb + 1];\n",
+     "      float s0[4] = {}, s1[4] = {}, d0[4] = {}, d1[4] = {};\n"),
+    ("      mma_tf32(d1, h2, b2h[2], b2h[3]);\n    }\n",
+     "      mma_tf32(d1, h2, b2h[2], b2h[3]);\n#pragma unroll\n      for (int e = 0; e < 4; ++e) {\n"
+     "        sc[2 * pb][e] += s0[e];\n        sc[2 * pb + 1][e] += s1[e];\n"
+     "        dp[2 * pb][e] += d0[e];\n        dp[2 * pb + 1][e] += d1[e];\n      }\n    }\n")]
 _F32_NOPASS = [("          for (int u = u0; u < 1024; u += 96) {",
                 "          for (int u = u0 + 1024; u < 1024; u += 96) {")]
 _F32_NOSECOND = [("            const int nbk = 4 * half + j;\n",
@@ -329,7 +360,8 @@ KERNELS = {
     "bwd_f32": ("flash_bwd_f32.cu", {"base": []}),
     "split_f32": ("flash_bwd_split_f32.cu", {
         "base": [], "cvtsplit": _F32_CVTSPLIT, "nosplit": _F32_NOSPLIT, "mma1": _F32_MMA1,
-        "nopass": _F32_NOPASS, "nosecond": _F32_NOSECOND}),
+        "nopass": _F32_NOPASS, "nosecond": _F32_NOSECOND, "part2": _F32_PART2,
+        "part12": _F32_PART12}),
 }
 # the fp32 forms: each C entry, its argument types and the form's name
 F32_ENTRIES = {
@@ -340,13 +372,12 @@ F32_ENTRIES = {
                 "flash_fwd_stream_f32": ("ggt_flash_fwd_stream_f32", fa._FWD_STREAM_ARGTYPES),
                 "flash_fwd_band_f32": ("ggt_flash_fwd_band_f32", fa._FWD_BAND_ARGTYPES)},
     "bwd_f32": {"flash_bwd_f32": ("ggt_flash_bwd_f32", fa._BWD_ARGTYPES),
-                "flash_dq_f32": ("ggt_flash_dq_f32", fa._DQ_ARGTYPES),
-                "flash_dkv_f32": ("ggt_flash_dkv_f32", fa._DKV_ARGTYPES),
-                "flash_dq_stream_f32": ("ggt_flash_dq_stream_f32", fa._DQ_STREAM_ARGTYPES),
-                "flash_dkv_stream_f32": ("ggt_flash_dkv_stream_f32", fa._DKV_STREAM_ARGTYPES),
                 "flash_bwd_band_f32": ("ggt_flash_bwd_band_f32", fa._BWD_BAND_ARGTYPES)},
     "split_f32": {"flash_dq_f32": ("ggt_flash_dq_f32", fa._DQ_ARGTYPES),
-                  "flash_dkv_f32": ("ggt_flash_dkv_f32", fa._DKV_ARGTYPES)},
+                  "flash_dkv_f32": ("ggt_flash_dkv_f32", fa._DKV_ARGTYPES),
+                  "flash_dq_stream_f32": ("ggt_flash_dq_stream_f32", fa._DQ_STREAM_ARGTYPES),
+                  "flash_dkv_stream_f32": ("ggt_flash_dkv_stream_f32",
+                                           fa._DKV_STREAM_ARGTYPES)},
 }
 # (N, D, F): GraphGPT-base's serving rows, the fine-tune batch's,
 # toy_pretrain's; #2f also the denoise batch's and the training batch's
@@ -364,8 +395,10 @@ BWD_F32_SHAPES = {"B8 P1024": (8, 1024, 12, 0, "packed"), "toy B8 P128": (8, 128
                   "denoise B256 P88": (256, 88, 12, 16, "denoise"),
                   "B8 P1024 bi16": (8, 1024, 12, 16, "packed"),
                   "B16 P4096": (16, 4096, 12, 0, "packed")}
-# the split pair's shapes: the denoise batch and the 16 bit slots at P 1024
-SPLIT_F32_SHAPES = ("denoise B256 P88", "B8 P1024 bi16")
+# the split pair's shapes: the denoise batch, P 1024 with and without 16 bit
+# slots, the quick start's; its stream form's also the long-context batch
+SPLIT_F32_SHAPES = ("denoise B256 P88", "B8 P1024 bi16", "B8 P1024", "toy B8 P128",
+                    "B16 P4096")
 # the header a kernel's source includes, put in place before the substitutions
 INLINE = {"mlp": "mlp_common.cuh", "norm_mlp": "mlp_common.cuh", "split_f32": "tf32x3.cuh",
           "mlp_f32": "gemm_tf32x3.cuh"}
@@ -651,13 +684,13 @@ def probe_f32(kernel: str, libs, dev) -> None:
         if kernel == "split_f32" and tag not in SPLIT_F32_SHAPES:
             continue
         qs, k, v, do, seg, cos, sin, out, lse = inputs(b, p, h, bi, layout, dev, torch.float32)
-        common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(cos), ptr(sin))
-        # the stream forms on the query ids as key ids, no tile-table scratch
-        stream_common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(seg), ptr(cos), ptr(sin))
-        # the band forms on the same q and k, unrotated, no cos and sin
-        band_common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(seg))
-        tab = fa._tile_scratch(seg)
         if kernel == "fwd_f32":
+            common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(cos), ptr(sin))
+            # the stream form on the query ids as key ids, no tile-table scratch
+            stream_common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(seg), ptr(cos), ptr(sin))
+            # the band form on the same q and k, unrotated, no cos and sin
+            band_common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(seg))
+            tab = fa._tile_scratch(seg)
             o2, l2 = torch.empty_like(out), torch.empty_like(lse)
             runs = {
                 "flash_fwd_f32": lambda lib: lib.ggt_flash_fwd_f32(
@@ -669,55 +702,85 @@ def probe_f32(kernel: str, libs, dev) -> None:
             _probe_f32_turns(tag, libs, entries, runs, {form: (o2, l2) for form in runs},
                              {form: f32_attention_bound(form, seg, h, bi) for form in runs})
             continue
-        delta = torch.empty_like(lse)
-        dq, dk, dv = (torch.empty_like(qs) for _ in range(3))
-        runs = {
-            "flash_bwd_f32": lambda lib: lib.ggt_flash_bwd_f32(
-                *common, ptr(out), ptr(lse), ptr(do), None, ptr(delta), ptr(dq), ptr(dk),
-                ptr(dv), b, p, h, 0, stream),
-            "flash_dq_f32": lambda lib: lib.ggt_flash_dq_f32(
-                *common, ptr(out), ptr(lse), ptr(do), None, ptr(delta), ptr(dq), b, p, h, 0, bi,
-                stream),
-            "flash_dkv_f32": lambda lib: lib.ggt_flash_dkv_f32(
-                *common, ptr(lse), ptr(delta), ptr(do), ptr(dk), ptr(dv), b, p, h, 0, bi,
-                stream),
-            "flash_dq_stream_f32": lambda lib: lib.ggt_flash_dq_stream_f32(
-                *stream_common, ptr(out), ptr(lse), ptr(do), None, ptr(delta), ptr(dq), None, b,
-                p, h, 0, bi, stream),
-            "flash_dkv_stream_f32": lambda lib: lib.ggt_flash_dkv_stream_f32(
-                *stream_common, ptr(lse), ptr(delta), ptr(do), ptr(dk), ptr(dv), None, b, p, h,
-                0, bi, stream),
-            "flash_bwd_band_f32": lambda lib: lib.ggt_flash_bwd_band_f32(
-                *band_common, ptr(out), ptr(lse), ptr(do), None, ptr(delta), ptr(dq), ptr(dk),
-                ptr(dv), ptr(tab), b, p, h, 0, bi, stream)}
-        if bi:
-            runs.pop("flash_bwd_f32")  # #3 takes no bit slots
-        runs = {form: run for form, run in runs.items() if form in entries}
-        # each pair's key pass reads the delta of a query pass, which runs
-        # before it in each turn (both query passes write the same delta);
-        # the digests read what each form writes
-        outs = {"flash_bwd_f32": (dq, dk, dv), "flash_dq_f32": (dq, delta),
-                "flash_dkv_f32": (dk, dv), "flash_dq_stream_f32": (dq, delta),
-                "flash_dkv_stream_f32": (dk, dv), "flash_bwd_band_f32": (dq, dk, dv)}
-        for lib in libs.values():
-            if hasattr(lib, "ggt_flash_dq_f32"):
-                _build.check(runs["flash_dq_f32"](lib), "flash_dq_f32")
-        _probe_f32_turns(tag, libs, entries, runs, outs,
-                         {form: f32_attention_bound(form, seg, h, bi) for form in runs})
+        if kernel == "split_f32":
+            # the stream form also with another row's ids as key ids where
+            # the single form cannot take the row (and its out and lse)
+            keys = [(tag, seg, out, lse)]
+            if p > fa.MAX_P:
+                seg_k = seg.roll(1, dims=0)
+                keys.append((f"{tag} other keys", seg_k,
+                             *fa.flash_fwd_stream(qs, k, v, seg, seg_k, cos, sin, False, DH, bi)))
+            for ktag, seg_k, kout, klse in keys:
+                _probe_f32_bwd(ktag, libs, entries, qs, k, v, do, seg, seg_k, cos, sin, kout,
+                               klse, bi, dev)
+        else:
+            _probe_f32_bwd(tag, libs, entries, qs, k, v, do, seg, seg, cos, sin, out, lse, bi, dev)
+
+
+def _probe_f32_bwd(tag, libs, entries, qs, k, v, do, seg, seg_k, cos, sin, out, lse, bi,
+                   dev) -> None:
+    """The fp32 backward forms of `entries` on these inputs (the key ids
+    seg_k those of the stream forms; the single forms and the band form run
+    only on one id array, the single forms up to MAX_P)."""
+    stream, ptr = _build.stream_ptr(dev), _build.ptr
+    b, p, hd = qs.shape
+    h = hd // DH
+    common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(cos), ptr(sin))
+    stream_common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(seg_k), ptr(cos), ptr(sin))
+    # the band form on the same q and k, unrotated, no cos and sin
+    band_common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(seg))
+    tab = fa._tile_scratch(seg)
+    delta = torch.empty_like(lse)
+    dq, dk, dv = (torch.empty_like(qs) for _ in range(3))
+    runs = {
+        "flash_bwd_f32": lambda lib: lib.ggt_flash_bwd_f32(
+            *common, ptr(out), ptr(lse), ptr(do), None, ptr(delta), ptr(dq), ptr(dk), ptr(dv), b,
+            p, h, 0, stream),
+        "flash_dq_f32": lambda lib: lib.ggt_flash_dq_f32(
+            *common, ptr(out), ptr(lse), ptr(do), None, ptr(delta), ptr(dq), b, p, h, 0, bi,
+            stream),
+        "flash_dkv_f32": lambda lib: lib.ggt_flash_dkv_f32(
+            *common, ptr(lse), ptr(delta), ptr(do), ptr(dk), ptr(dv), b, p, h, 0, bi, stream),
+        "flash_dq_stream_f32": lambda lib: lib.ggt_flash_dq_stream_f32(
+            *stream_common, ptr(out), ptr(lse), ptr(do), None, ptr(delta), ptr(dq), ptr(tab), b,
+            p, h, 0, bi, stream),
+        "flash_dkv_stream_f32": lambda lib: lib.ggt_flash_dkv_stream_f32(
+            *stream_common, ptr(lse), ptr(delta), ptr(do), ptr(dk), ptr(dv), ptr(tab), b, p, h,
+            0, bi, stream),
+        "flash_bwd_band_f32": lambda lib: lib.ggt_flash_bwd_band_f32(
+            *band_common, ptr(out), ptr(lse), ptr(do), None, ptr(delta), ptr(dq), ptr(dk),
+            ptr(dv), ptr(tab), b, p, h, 0, bi, stream)}
+    if bi:
+        runs.pop("flash_bwd_f32")  # #3 takes no bit slots
+    if seg_k is not seg or p > fa.MAX_P:
+        for form in ("flash_dq_f32", "flash_dkv_f32"):  # one id array, P <= MAX_P
+            runs.pop(form)
+    if seg_k is not seg:
+        runs.pop("flash_bwd_f32", None)
+        runs.pop("flash_bwd_band_f32")
+    runs = {form: run for form, run in runs.items() if form in entries}
+    # each pair's key pass reads the delta of its query pass, which runs
+    # before it in each library's turn; the digests read what each form
+    # writes
+    outs = {"flash_bwd_f32": (dq, dk, dv), "flash_dq_f32": (dq, delta),
+            "flash_dkv_f32": (dk, dv), "flash_dq_stream_f32": (dq, delta),
+            "flash_dkv_stream_f32": (dk, dv), "flash_bwd_band_f32": (dq, dk, dv)}
+    _probe_f32_turns(tag, libs, entries, runs, outs,
+                     {form: f32_attention_bound(form, seg, h, bi, seg_k) for form in runs})
 
 
 def f32_bound_ms(nbytes: float, flops: float) -> float:
     return max(nbytes / PEAK_BYTES, flops / PEAK_F32_ACCURATE_FLOPS) * 1e3
 
 
-def f32_attention_bound(form: str, seg, h: int, bi: int) -> float:
+def f32_attention_bound(form: str, seg, h: int, bi: int, seg_k=None) -> float:
     """The bound (ms) of an fp32 attention form on these rows, bidirectional
-    or with `bi` bit slots: its operations over the visible pairs, its
-    bytes each token-major tensor, the ids, cos, sin and the fp32 rows
-    once."""
+    or with `bi` bit slots, the key ids seg_k (seg's where None): its
+    operations over the visible pairs, its bytes each token-major tensor,
+    the ids, cos, sin and the fp32 rows once."""
     products, tensors, rows = F32_WORK[F32_KIND[form]]
     b, p = seg.shape
-    pairs = int(fa._valid_mask(seg, False, bi).sum().item())
+    pairs = int(fa._valid_mask(seg, False, bi, seg_k).sum().item())
     nbytes = tensors * b * p * h * DH * 4 + b * p * 4 + 2 * b * p * DH * 4 + rows * b * h * p * 4
     return f32_bound_ms(nbytes, 2.0 * products * DH * h * pairs)
 

@@ -370,8 +370,9 @@ def test_the_streamed_route_sends_each_dtype_to_its_entries(monkeypatch, dtype, 
     """flash_fwd and flash_bwd above P 2048, or under skip, reach #6, then #7
     and #8: fp32 the three fp32 stream entries (one launch of each fp32
     form, none of the bf16 ones or of #1f, #3f-#5f) with the RoPE tables
-    unrounded and no tile-table scratch; bf16 the entries it always took,
-    with their scratch. #8 reads the delta #7 wrote."""
+    unrounded, #7f and #8f in the split body's source with their tile-table
+    scratch, #6f without; bf16 the entries it always took, with their
+    scratch. #8 reads the delta #7 wrote."""
     card = FakeCard(monkeypatch)
     p = _stream_route(monkeypatch, route)
     qs, k, v, do, seg, cos, sin = _flash(dtype, b=1, p=p)
@@ -379,7 +380,7 @@ def test_the_streamed_route_sends_each_dtype_to_its_entries(monkeypatch, dtype, 
     out, lse = tfa.flash_fwd(qs, k, v, seg, cos, sin, False, 64)
     dq, dk, dv = tfa.flash_bwd(qs, k, v, seg, cos, sin, out, lse, do, None, False, 64)
     fp32 = dtype == torch.float32
-    suffix, fwd_src, bwd_src = (("_f32", "flash_fwd_f32", "flash_bwd_f32") if fp32
+    suffix, fwd_src, bwd_src = (("_f32", "flash_fwd_f32", "flash_bwd_split_f32") if fp32
                                 else ("", "flash_fwd", "flash_bwd_split"))
     (s_fwd, y_fwd, t_fwd), (s_dq, y_dq, t_dq), (s_dkv, y_dkv, t_dkv) = card.calls
     assert (s_fwd, y_fwd) == (fwd_src, f"ggt_flash_fwd_stream{suffix}")
@@ -390,9 +391,12 @@ def test_the_streamed_route_sends_each_dtype_to_its_entries(monkeypatch, dtype, 
     forms = [f"{n}{suffix}" for n in ("flash_fwd_stream", "flash_dq_stream", "flash_dkv_stream")]
     assert got == {n: int(n in forms) for n in _STREAM_COUNTS}
     # fwd: q, k, v, seg_q, seg_k, cos, sin, out, lse[, tab]; dq: q, k, v,
-    # seg_q, seg_k, cos, sin, out, lse, do, delta, dq[, tab] (dlse None);
-    # dkv: q, k, v, seg_q, seg_k, cos, sin, lse, delta, do, dk, dv[, tab]
-    assert [len(t_fwd), len(t_dq), len(t_dkv)] == ([9, 12, 12] if fp32 else [10, 13, 13])
+    # seg_q, seg_k, cos, sin, out, lse, do, delta, dq, tab (dlse None);
+    # dkv: q, k, v, seg_q, seg_k, cos, sin, lse, delta, do, dk, dv, tab
+    assert [len(t_fwd), len(t_dq), len(t_dkv)] == ([9, 13, 13] if fp32 else [10, 13, 13])
+    nt = -(-p // 64)
+    for t in (t_dq[12], t_dkv[12]):
+        assert t.dtype == torch.int32 and t.shape == (4 * nt,)
     assert t_dkv[8] is t_dq[10] and t_dkv[8].dtype == torch.float32
     for t in (t_fwd, t_dq, t_dkv):
         assert t[5].dtype == t[6].dtype == dtype

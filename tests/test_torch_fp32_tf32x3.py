@@ -1,7 +1,7 @@
 """The numeric design of the fp32 forms on 3xTF32 tensor-core products,
-against the JAX package on the CPU: the split backward #4f / #5f
-(`csrc/flash_bwd_split_f32.cu`), the norm-fused projections #12f and the
-gated MLPs #11f and #2f (`csrc/mlp_qkv_f32.cu`).
+against the JAX package on the CPU: the split backward #4f / #5f and its
+stream form #7f / #8f (`csrc/flash_bwd_split_f32.cu`), the norm-fused
+projections #12f and the gated MLPs #11f and #2f (`csrc/mlp_qkv_f32.cu`).
 
 The CUDA kernels take every product as three TF32 products: each operand
 split into hi = x rounded to TF32 and lo = (x - hi) rounded to TF32
@@ -21,6 +21,21 @@ The pair: S = q k^T, dP = do v^T, dq = ds k, dk = ds^T q, dv = p^T do, p =
 own route), at the denoise width: B 2 x P 88, 2 heads of 64, RoPE on,
 packed rows with a padded stretch, a cotangent of lse; dq, delta, dk and
 dv. ~3 s a case on one worker, most of it the interpreted JAX kernels.
+
+The stream form: the same arithmetic with the query rows' ids and the
+keys' apart (#7f's own and visiting ids, #8f's visiting and own), and
+#7f's delta made consistent with its own p and dP (delta' = delta +
+(rowsum ds - dlse) / rowsum p, dq less (delta' - delta) p k, #8f on
+delta'), against
+`_dq_kernel_stream` and `_dkv_kernel_stream`, which `_flash_bwd` launches
+at every P under skip mode with 64-row tiles: B 2 x P 256, 2 heads, q and
+k as skip mode hands them over (rotated outside: no RoPE), bidirectional
+and causal, the key ids another packed row's (the two rows' ids swapped),
+so that some query rows see no key and some keys no query. Such a row takes
+no part in the port's backward, where the JAX kernels give it p = 1 on
+every key (its lse is the mask's floor, the forward having seen nothing):
+both sides get lse +1e30 on those rows, the mask's answer written into the
+exponent. ~2 s a case.
 
 #12f, #11f and #2f: the weights split into TF32 hi and lo planes (the
 split pass), the A operand normalised with the plain version's two
@@ -66,29 +81,44 @@ def mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return tf32(a) @ tf32(b)
 
 
-def emulated_pair(qs, k, v, do, out, seg, cos, sin, lse, dlse, causal, bi, mm):
+def emulated_pair(qs, k, v, do, out, seg, cos, sin, lse, dlse, causal, bi, mm, seg_k=None,
+                  consistent=False):
     """(dq, delta, dk, dv) of the CUDA pair's arithmetic with `mm` for every
-    product: RoPE with the plain roundings, do zero on padded rows, delta =
-    rowsum(do * out) - dlse, p = 2^(S log2 e - lse log2 e) and ds = p (dP -
-    delta) where the mask lets a pair through, dq and dk through the inverse
-    rotation."""
+    product: RoPE with the plain roundings (none where cos is None: q and k
+    come rotated), do zero on padded query rows, delta = rowsum(do * out) -
+    dlse, p = 2^(S log2 e - lse log2 e) and ds = p (dP - delta) where the
+    mask lets a pair through, dq and dk through the inverse rotation. The
+    query rows' ids are seg, the keys' seg_k (seg where None). `consistent`:
+    the stream form's, delta' = delta + (rowsum ds - dlse) / rowsum p, dq
+    less (delta' - delta) p k, and dk from delta'."""
     heads = tfa._heads
-    q4 = heads(tfa.rotate_tokens(qs, cos, sin, DH), DH)
-    k4 = heads(tfa.rotate_tokens(k, cos, sin, DH), DH)
+
+    def rot(x):
+        return x if cos is None else tfa.rotate_tokens(x, cos, sin, DH)
+
+    q4, k4 = heads(rot(qs), DH), heads(rot(k), DH)
     do = tfa.zero_padded_rows(do, seg)
     do4, v4 = heads(do, DH), heads(v, DH)
     delta = tfa.flash_delta(do, out, dlse, DH)
     s = mm(q4, k4.transpose(-1, -2))
     dp = mm(do4, v4.transpose(-1, -2))
-    valid = tfa._valid_mask(seg, causal, bi) & (seg > 0)[:, None, :, None]
+    valid = tfa._valid_mask(seg, causal, bi, seg_k) & (seg > 0)[:, None, :, None]
     l2e = torch.tensor(LOG2E, dtype=torch.float32)
     p = torch.where(valid, torch.exp2(s * l2e - lse[..., None] * l2e), 0.0)
     ds = torch.where(valid, p * (dp - delta[..., None]), 0.0)
+    dq = mm(ds, k4)
+    if consistent:
+        rs, ps = ds.sum(-1), p.sum(-1)
+        corr = torch.where(ps > 0, (rs - dlse) / torch.where(ps > 0, ps, 1.0), 0.0)
+        dq = dq - corr[..., None] * mm(p, k4)
+        delta = delta + corr
+        ds = torch.where(valid, p * (dp - delta[..., None]), 0.0)
 
     def back(x):
-        return tfa.unrotate_tokens(tfa._tokens(x), cos, sin, DH)
+        x = tfa._tokens(x)
+        return x if cos is None else tfa.unrotate_tokens(x, cos, sin, DH)
 
-    return (back(mm(ds, k4)), delta, back(mm(ds.transpose(-1, -2), q4)),
+    return (back(dq), delta, back(mm(ds.transpose(-1, -2), q4)),
             tfa._tokens(mm(p.transpose(-1, -2), do4)))
 
 
@@ -141,6 +171,64 @@ def test_3xtf32_pair_matches_the_interpreted_kernels(mask, monkeypatch):
         assert _rel(g, w) < F32_REL, (name, _rel(g, w))
         if name != "delta":  # delta takes no product
             assert bool((g[torch.from_numpy(seg == 0)] == 0).all()), name
+    for name, g, w in zip(("dq", "dk", "dv"), one[:1] + one[2:], want):
+        assert _rel(g, w) > F32_REL, (name, _rel(g, w))
+
+
+# the stream pair's cases: B 2 x P 256 under skip mode's 64-row tiles
+STREAM_P = 256
+STREAM_MASKS = {"bidirectional": False, "causal": True}
+
+
+@pytest.mark.parametrize("mask", list(STREAM_MASKS))
+def test_3xtf32_stream_pair_with_another_rows_key_ids_matches_the_interpreted_kernels(
+        mask, monkeypatch):
+    monkeypatch.setenv("GGT_PALLAS_INTERPRET", "1")
+    causal, p = STREAM_MASKS[mask], STREAM_P
+    # the stream pair at every P: skip mode, 64-row tiles (kv and q blocks
+    # of 64, so more than one)
+    for name, value in (("_MODE", "skip"), ("_BAND_BK", 64), ("_BQ_BWD", 64)):
+        monkeypatch.setattr(jfa, name, value)
+    ran = []
+    for name in ("_dq_kernel_stream", "_dkv_kernel_stream"):
+        kernel = getattr(jfa, name)
+
+        def spy(*refs, _kernel=kernel, _name=name, **kw):
+            ran.append(_name)
+            return _kernel(*refs, **kw)
+
+        monkeypatch.setattr(jfa, name, spy)
+    rng = np.random.default_rng(29)
+    qs, k, v, do = ((rng.normal(size=(B, p, H * DH)) * 0.5).astype(np.float32) for _ in range(4))
+    qs = qs * DH**-0.5
+    seg = packed_segments(B, p, rng)
+    seg[-1, p - 40 : p - 8] = 0  # a padded stretch before the last row's end
+    seg_k = np.ascontiguousarray(seg[::-1])  # the keys carry the other row's ids
+    t = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
+    tseg, tseg_k = torch.from_numpy(seg), torch.from_numpy(seg_k)
+    valid = tfa._valid_mask(tseg, causal, 0, tseg_k)[:, 0]
+    seen_q, seen_k = valid.any(dim=2), valid.any(dim=1)
+    # some query rows see no key, some keys no query
+    assert bool(((tseg > 0) & ~seen_q).any()) and bool(((tseg_k > 0) & ~seen_k).any())
+    dlse = (rng.normal(size=(B, H, p)) * 0.3).astype(np.float32) * (seg > 0)[:, None, :]
+    jq = jnp.asarray
+    bq, bk = jfa._fwd_blocks(p)
+    out, lse = jfa._flash_fwd(jq(qs), jq(k), jq(v), jq(seg), jq(seg_k), causal, bq, bk, H, DH)
+    # a query row that sees no key: out no matter (p = 0), lse +1e30
+    lse = np.where(seen_q.numpy()[:, None, :], np.asarray(lse), np.float32(1e30))
+    want = jfa._flash_bwd(jq(qs), jq(k), jq(v), jq(seg), jq(seg_k), out, jq(lse), jq(do), causal,
+                          H, DH, dlse=jq(dlse))
+    assert set(ran) == {"_dq_kernel_stream", "_dkv_kernel_stream"}
+    do0 = do * (seg > 0)[..., None]  # the kernels' delta: do taken as 0 on padded rows
+    want_delta = np.einsum("bphd,bphd->bhp", do0.reshape(B, p, H, DH),
+                           np.asarray(out).reshape(B, p, H, DH)) - dlse
+    args = (t(qs), t(k), t(v), t(do), t(out), tseg, None, None, t(lse), t(dlse), causal, 0)
+    got = emulated_pair(*args, mm_3xtf32, seg_k=tseg_k, consistent=True)
+    one = emulated_pair(*args, mm_tf32, seg_k=tseg_k, consistent=True)
+    for name, g, w in zip(("dq", "delta", "dk", "dv"), got, (want[0], want_delta, *want[1:])):
+        assert _rel(g, w) < F32_REL, (name, _rel(g, w))
+    assert bool((got[0][~seen_q] == 0).all())
+    assert bool((got[2][~seen_k] == 0).all()) and bool((got[3][~seen_k] == 0).all())
     for name, g, w in zip(("dq", "dk", "dv"), one[:1] + one[2:], want):
         assert _rel(g, w) > F32_REL, (name, _rel(g, w))
 

@@ -1958,15 +1958,20 @@ def test_an_fp32_denoiser_trains_on_the_fp32_split_pair(cuda_device):
 
 
 # (B, P, H, RoPE, key ids, mask) of #6f-#8f's cases: past 4,096 rows with a
-# segment across tiles 63 and 64, the keys' own ids (another array: some
-# query rows see no key, some keys no query), causal, bi-causal with 16 bit
-# slots, P 4096 without RoPE (skip mode's rows)
+# segment across tiles 63 and 64 (#7f and #8f walk a second 64-tile mask
+# chunk there), the keys' own ids (another array: some query rows see no
+# key, some keys no query), causal, bi-causal with 16 bit slots, P 4096
+# (the long-context rows) with both kinds of key ids, without RoPE (skip
+# mode's rows), one row of P 8192 (two whole chunks) causal and bi-causal
 _F32_STREAM_CASES = {
     "P4160": (1, 4160, 2, True, "same", "bidirectional"),
     "P4160-other-keys": (1, 4160, 2, True, "other", "bidirectional"),
     "P4160-causal": (1, 4160, 2, True, "same", "causal"),
     "P2112-bicausal": (1, 2112, 2, True, "same", "bi-causal"),
+    "P4096": (2, 4096, 2, True, "same", "bidirectional"),
     "P4096-no-rope": (2, 4096, 2, False, "other", "bidirectional"),
+    "P8192-causal": (1, 8192, 2, True, "same", "causal"),
+    "P8192-bicausal-other-keys": (1, 8192, 2, True, "other", "bi-causal"),
 }
 _STREAM_MASKS = {"bidirectional": (False, 0), "causal": (True, 0), "bi-causal": (False, 16)}
 
@@ -2066,12 +2071,14 @@ def test_fp32_stream_kernels_match_plain(cuda_device, case):
 
 
 @pytest.mark.gpu
-def test_fp32_stream_pair_ignores_non_finite_do_in_padded_rows(cuda_device):
+@pytest.mark.parametrize("case", ["P4160", "P8192-bicausal-other-keys"])
+def test_fp32_stream_pair_ignores_non_finite_do_in_padded_rows(cuda_device, case):
     """inf and NaN in do's padded rows change no bit of #7f's dq and delta or
     #8f's dk and dv."""
     dev = cuda_device
-    qs, k, v, do, seg, seg_k, cos, sin = _f32_stream_inputs("P4160", dev, seed=13)
-    out, lse = tfa.flash_fwd_stream(qs, k, v, seg, seg_k, cos, sin, False, 64)
+    causal, bi = _STREAM_MASKS[_F32_STREAM_CASES[case][5]]
+    qs, k, v, do, seg, seg_k, cos, sin = _f32_stream_inputs(case, dev, seed=13)
+    out, lse = tfa.flash_fwd_stream(qs, k, v, seg, seg_k, cos, sin, causal, 64, bi)
     pad = (seg == 0)[..., None]
     clean = torch.where(pad, torch.zeros_like(do), do)
     noisy = clean.clone()
@@ -2079,10 +2086,10 @@ def test_fp32_stream_pair_ignores_non_finite_do_in_padded_rows(cuda_device):
     noisy[0, -8:] = float("inf")
     runs = []
     for d in (clean, noisy):
-        dq, delta = tfa.flash_dq_stream(qs, k, v, seg, seg_k, cos, sin, out, lse, d, None, False,
-                                        64)
+        dq, delta = tfa.flash_dq_stream(qs, k, v, seg, seg_k, cos, sin, out, lse, d, None, causal,
+                                        64, bi)
         runs.append((dq, delta, *tfa.flash_dkv_stream(qs, k, v, seg, seg_k, cos, sin, lse, delta,
-                                                      d, False, 64)))
+                                                      d, causal, 64, bi)))
     torch.cuda.synchronize()
     for a, n in zip(*runs):
         assert bool(torch.isfinite(a).all()) and torch.equal(a, n)
@@ -2131,21 +2138,20 @@ def test_an_fp32_model_trains_on_the_fp32_stream_kernels(cuda_device, mode, p, m
 
 # #3f's digests (split_probe's f32_digest) from the body before the split
 # pair joined its source, #1f's from the body before the stream forms
-# joined its source, and the stream forms' from the bodies before the band
-# forms joined theirs: `split_probe --kernel fwd_f32` and `--kernel bwd_f32`
-# with --source on those commits' csrc/, on an NVIDIA H100 80GB HBM3, at
+# joined its source, and #6f's from the body before the band forms joined
+# its source: `split_probe --kernel fwd_f32` and `--kernel bwd_f32` with
+# --source on those commits' csrc/, on an NVIDIA H100 80GB HBM3, at
 # split_probe's inputs (inputs in fp32 on packed rows, no lse cotangent;
 # the stream forms on the query ids as key ids). flash_fwd_f32.cu and the
-# shared passes of flash_bwd_f32.cu keep them. (#4f's and #5f's are
-# _F32_SPLIT_DIGESTS, #2f's, #11f's and #12f's _F32_TF32X3_DIGESTS.)
+# passes of flash_bwd_f32.cu keep them. (#4f's and #5f's are
+# _F32_SPLIT_DIGESTS, #7f's and #8f's _F32_STREAM_SPLIT_DIGESTS, #2f's,
+# #11f's and #12f's _F32_TF32X3_DIGESTS.)
 _F32_PARENT_DIGESTS = {
     ("flash_bwd_f32", "B8 P1024"): -916961056836012,
     ("flash_bwd_f32", "toy B8 P128"): -17989573487664,
     ("flash_fwd_f32", "B8 P1024"): -165906643651216,
     ("flash_fwd_f32", "denoise B256 P88"): -328070100018431,
     ("flash_fwd_stream_f32", "B8 P1024"): -165906643651216,
-    ("flash_dq_stream_f32", "B8 P1024"): -249067995751735,
-    ("flash_dkv_stream_f32", "B8 P1024"): -670983982973380,
 }
 # #4f's and #5f's digests as the first build of their Hopper body
 # (csrc/flash_bwd_split_f32.cu: 3xTF32 products, another order of sums than
@@ -2157,15 +2163,23 @@ _F32_SPLIT_DIGESTS = {
     ("flash_dq_f32", "B8 P1024 bi16"): -249146572008087,
     ("flash_dkv_f32", "B8 P1024 bi16"): -672921792860440,
 }
-# #6f's, #7f's and #8f's digests at the long-context shape as their first
-# build gave them (split_probe --kernel fwd_f32 / bwd_f32, the same card):
-# #6f's equal to #1f's there, one id array being both ids (#7f's and #8f's
-# were #4f's and #5f's while those were the same passes, before
-# flash_bwd_split_f32.cu)
+# #6f's digest at the long-context shape as its first build gave it
+# (split_probe --kernel fwd_f32, the same card), equal to #1f's there, one
+# id array being both ids
 _F32_STREAM_DIGESTS = {
     "flash_fwd_stream_f32": -1508182275918902,
-    "flash_dq_stream_f32": -2002090571179038,
-    "flash_dkv_stream_f32": -5674428343003133,
+}
+# #7f's and #8f's digests as the first build of their Hopper body gave them
+# (csrc/flash_bwd_split_f32.cu's stream form: 3xTF32 products, another order
+# of sums than the FFMA passes', which gave -249067995751735,
+# -670983982973380 at B 8 x P 1024 and -2002090571179038,
+# -5674428343003133 at B 16 x P 4096): split_probe --kernel split_f32, the
+# same card and inputs
+_F32_STREAM_SPLIT_DIGESTS = {
+    ("flash_dq_stream_f32", "B8 P1024"): -249068053440236,
+    ("flash_dkv_stream_f32", "B8 P1024"): -670984090665018,
+    ("flash_dq_stream_f32", "B16 P4096"): -2002096683127753,
+    ("flash_dkv_stream_f32", "B16 P4096"): -5674440358447462,
 }
 
 
@@ -2215,9 +2229,19 @@ def test_fp32_split_pair_keeps_its_bits(cuda_device, form, shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("form", list(_F32_STREAM_DIGESTS))
 def test_fp32_stream_forms_keep_their_bits(cuda_device, form):
-    """#6f, #7f and #8f through flash_fwd_stream, flash_dq_stream and
-    flash_dkv_stream at B 16 x P 4096 give the bits of their first build."""
+    """#6f through flash_fwd_stream at B 16 x P 4096 gives the bits of its
+    first build."""
     assert _f32_attention_digest(form, "B16 P4096", cuda_device) == _F32_STREAM_DIGESTS[form]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form,shape", list(_F32_STREAM_SPLIT_DIGESTS))
+def test_fp32_stream_pair_keeps_its_bits(cuda_device, form, shape):
+    """#7f through flash_dq_stream (dq and delta) and #8f through
+    flash_dkv_stream (dk, dv) at B 8 x P 1024 and B 16 x P 4096 give the
+    bits of their Hopper body's first build."""
+    got = _f32_attention_digest(form, shape, cuda_device)
+    assert got == _F32_STREAM_SPLIT_DIGESTS[form, shape]
 
 
 # ---- the fp32 forms of the knobs' kernels: #9 and #10 (flash_fwd_f32.cu's
@@ -2356,11 +2380,12 @@ def test_fp32_band_backward_ignores_non_finite_do_in_padded_rows(cuda_device, ca
 @pytest.mark.parametrize("case", ["P1024", "P1024-causal", "P1024-other", "P88-bicausal",
                                   "P4096"])
 def test_fp32_band_forms_give_the_bits_of_the_other_forms(cuda_device, case):
-    """A key tile outside the band holds no visible pair, so the band forms
-    give the stream forms' bits (#9f #6f's; #10f's dq and delta #7f's, its
-    dk and dv #8f's) on the same ids, and on one id array the single forms'
-    (#1f's; #3f's without a split). With a split #10f lies within F32_REL of
-    #4f's and #5f's, another body (csrc/flash_bwd_split_f32.cu)."""
+    """A key tile outside the band holds no visible pair, so #9f gives #6f's
+    bits on the same ids, and on one id array the band forms give the
+    single forms' (#1f's; #3f's without a split). #10f lies within F32_REL
+    of #7f's and #8f's (dq, delta, dk, dv) and, with a split, of #4f's and
+    #5f's: another body (csrc/flash_bwd_split_f32.cu), which sums in
+    another order."""
     dev = cuda_device
     causal, bi = _STREAM_MASKS[_F32_BAND_CASES[case][4]]
     qs, k, v, do, seg, seg_k = _f32_band_inputs(case, dev, seed=37)
@@ -2375,8 +2400,8 @@ def test_fp32_band_forms_give_the_bits_of_the_other_forms(cuda_device, case):
                                     64, bi)
     torch.cuda.synchronize()
     assert torch.equal(out, sout) and torch.equal(lse, slse)
-    assert all(torch.equal(a, b) for a, b in zip((dq, aux["delta"], dk, dv),
-                                                 (sdq, sdelta, sdk, sdv)))
+    assert all(_rel(a, b) < F32_REL for a, b in zip((dq, aux["delta"], dk, dv),
+                                                    (sdq, sdelta, sdk, sdv)))
     if seg_k is not seg:
         return
     one = tfa.flash_fwd_f32(qs, k, v, seg, None, None, causal, 64, bi)
