@@ -158,7 +158,8 @@
    through FinetunePipeline, warm-started from (a), four steps and the
    valid MAE on 1,024 graphs.
 7f. Phase L, float32 on the card: the fp32 forms of #1, #2, #3 and #13
-   (flash_fwd_f32.cu; mlp_qkv_f32.cu's #2f, the 3xTF32 wgmma body with the
+   (flash_bwd_split_f32.cu's forward role, 3xTF32 on mma.sync;
+   mlp_qkv_f32.cu's #2f, the 3xTF32 wgmma body with the
    norm on A and x added to the down stage; flash_bwd_f32.cu;
    rmsnorm_bwd.cu's fp32 instances), to which the wrappers hand fp32
    tensors. (a)
@@ -201,7 +202,8 @@
    (a) The fine-tune of step 7 (GraphGPT-base, LayerScale, DropPath,
    attention dropout, pairs remat, 256 graphs a batch on synthetic_mol) at
    model.dtype=float32 through FinetunePipeline, warm-started from the
-   train phase's weights: #11f at its batch's N and at N 8,192, untimed
+   train phase's weights: #1f at its batch (f32_fwd_at_shape, timed beside
+   SDPA in fp32), #11f at its batch's N and at N 8,192, untimed
    also at a ragged N 65,537 and at toy_pretrain's D 128 / F 512; #2f
    untimed at MLP_CONTRACT's N 65,537, D 384 / F 384 and D 128 / F 512 and
    at xxlarge's D 1600 / F 6400 (down tiles 64 wide), and its digests at
@@ -211,11 +213,12 @@
    steps with the launches of each step and eval forward (finetune_want on
    the fp32 forms: 24 #1f, 12 #3f, 24 #11f, 25 #13f a step), the loss
    falling, the valid, EMA-valid and test MAE, result.csv. (b) The denoiser
-   of step 8 at fp32 (256 x 88, 16 bit slots): #4f and #5f at its batch,
+   of step 8 at fp32 (256 x 88, 16 bit slots): #1f (f32_fwd_at_shape),
+   #4f and #5f at its batch,
    #2f at its N 22,528, the first step against the plain fp32 run on the
    same draws, 4 AdamW + EMA steps (24 #1f, 12 #4f, 12 #5f, 18 #2f, 13
    #13f, no #3f a step), an EMA eval forward that decodes finite [256, 1]
-   energies. (c) #4f and #5f
+   energies. (c) #1f, #4f and #5f
    also at B 8 x P 1024 with 16 bit slots. Each form's check is phase L's
    (f32_check: within F32_REL of the plain version, the TF32 control past
    it, a relaunch bit for bit, padded rows exact), the pair's also with inf
@@ -223,9 +226,9 @@
    its bound, its plain version and the library call (the fp32 matmuls and
    gelu x up; SDPA's fp32 backward with the bi-causal mask).
 7i. Phase O, float32 past 2048 positions: the fp32 forms of the streamed
-   kernels #6, #7, #8 (flash_fwd_f32.cu's stream form; #7f and #8f the
-   stream form of flash_bwd_split_f32.cu's 3xTF32 body, #4f's and #5f's,
-   with the tile tables of tile_table.cuh; each reading the keys' own ids),
+   kernels #6, #7, #8 (the stream form of flash_bwd_split_f32.cu's 3xTF32
+   body: #6f of #1f's forward role, #7f and #8f of #4f's and #5f's, with
+   the tile tables of tile_table.cuh; each reading the keys' own ids),
    to which flash_fwd_stream, flash_dq_stream and flash_dkv_stream hand
    fp32 tensors. (a)
    configs/pcqm4m_v2_pretrain_long.yaml with the long-context phase's
@@ -237,8 +240,9 @@
    at a time), each by phase L's check (f32_check: within F32_REL, the
    TF32 control past it, a relaunch bit for bit, padded rows, query rows
    that see no key and keys that no query sees exactly 0) and with inf and
-   NaN in do's padded rows changing no output bit; #1f's entry on the same
-   rows bit for bit #6f's; each timed at 16 x 4096 beside its bound (fp32
+   NaN in do's padded rows changing no output bit; #1f's entry (P <= 2048)
+   on the rows' first 2048 positions bit for bit #6f's there; each timed at
+   16 x 4096 beside its bound (fp32
    bytes; operations at 165 TFLOP/s), its bound at FFMA's 67 TFLOP/s, its
    plain version and SDPA in fp32; #2f at the batch's N
    65,536 (f32_check, timed as in phase L); the first step on 4
@@ -328,10 +332,10 @@
    version, the TF32 control past it, a relaunch bit for bit, padded rows,
    query rows that see no key and keys that no query sees exactly 0), both
    band tables equal to band_limits, inf and NaN in do's padded rows
-   changing no output bit, and bit for bit the other FFMA fp32 forms on the
-   same rows (#6f; on one id array #1f and #3f), within F32_REL of #7f +
-   #8f and, with a split, of #4f and #5f (another body,
-   flash_bwd_split_f32.cu, which sums in another order); timed at 8 x 1024
+   changing no output bit, bit for bit #3f on one id array (the same FFMA
+   passes), within F32_REL of #6f, of #7f + #8f and, with a split, of #4f
+   and #5f (another body, flash_bwd_split_f32.cu, which sums in another
+   order), and there #1f bit for bit #6f up to P 2048; timed at 8 x 1024
    and 16 x
    4096 beside the bound, the FFMA bound, the plain version, SDPA in fp32
    with the band's boolean mask and the other fp32 forms at the same shape. #12f at N 8,192 (D 768, widths
@@ -3431,61 +3435,48 @@ def f32_check(name, tag, outs, plain, tf32, bits_equal, pad_ok=True):
 
 def f32_flash_at_shape(fa, ops, tag, seg, cos, sin, h: int, dh: int, causal: bool = False):
     """#1's and #3's fp32 forms (through flash_fwd and flash_bwd on fp32
-    tensors) at seg's shape: out, lse, dq, dk, dv against the plain versions
-    in fp32 and with TF32 (f32_check), then timed beside their bounds
-    (fp32 bytes; operations at PEAK_F32_ACCURATE_FLOPS), the plain versions
-    and SDPA in fp32 with this shape's mask."""
+    tensors) at seg's shape: dq, dk, dv against the plain version in fp32
+    and with TF32 (f32_check), then #1f by f32_fwd_at_shape, then #3f timed
+    beside its bound (fp32 bytes; operations at PEAK_F32_ACCURATE_FLOPS),
+    the plain version and SDPA's fp32 backward with this shape's mask. The
+    checks come first: taken first, at the start of phase L(a), a toy-shape
+    timing of #1f read ~1 ms a launch, its C entry 0.018 ms."""
     qs, k, v, do = flash_tensors(seg, h, dh, seed=3, dtype=torch.float32)
-    args = (qs, k, v, seg, cos, sin, causal, dh)
-    out, lse = fa.flash_fwd(*args)
+    out, lse = fa.flash_fwd(qs, k, v, seg, cos, sin, causal, dh)
     bargs = (qs, k, v, seg, cos, sin, out, lse, do, None, causal, dh)
     got = fa.flash_bwd(*bargs)
-    again, again_b = fa.flash_fwd(*args), fa.flash_bwd(*bargs)
+    again = fa.flash_bwd(*bargs)
     torch.cuda.synchronize()
-    fbits = torch.equal(again[0], out) and torch.equal(again[1], lse)
-    bbits = all(torch.equal(a, b) for a, b in zip(again_b, got))
-    del again, again_b
+    bits = all(torch.equal(a, b) for a, b in zip(again, got))
+    del again
     with ops.reference_mode():
-        rout, rlse = fa.flash_fwd(*args)
         ref = fa.flash_bwd(*bargs)
         with tf32_allowed():
-            tout, tlse = fa.flash_fwd(*args)
             tref = fa.flash_bwd(*bargs)
     valid = seg > 0
     b, p = seg.shape
     where = f"{tag}, B={b} P={p} H={h}"
-
-    def rows(x):
-        return x.transpose(1, 2)[valid]
-
-    pad = bool((out[~valid] == 0).all()) and bool((lse.transpose(1, 2)[~valid] == -1e30).all())
-    fwd = f32_check("flash_fwd_f32", where, {"out": out[valid], "lse": rows(lse)},
-                    {"out": rout[valid], "lse": rows(rlse)}, {"out": tout[valid]}, fbits, pad)
     names = ("dq", "dk", "dv")
-    bwd = f32_check("flash_bwd_f32", where, dict(zip(names, got)), dict(zip(names, ref)),
-                    dict(zip(names, tref)), bbits,
+    chk = f32_check("flash_bwd_f32", where, dict(zip(names, got)), dict(zip(names, ref)),
+                    dict(zip(names, tref)), bits,
                     all(bool((g[~valid] == 0).all()) for g in got))
-    del rout, rlse, tout, tlse, ref, tref, got
-    ms = cuda_ms(lambda: fa.flash_fwd(*args), iters=10)
-    ms_spread = spread()
-    bms = cuda_ms(lambda: fa.flash_bwd(*bargs), iters=10)
-    bms_spread = spread()
+    del ref, tref, got
+    res = {"fwd": f32_fwd_at_shape(fa, ops, tag, seg, cos, sin, h, dh, tensors=(qs, k, v, do),
+                                   causal=causal)}
+    t = cuda_ms(lambda: fa.flash_bwd(*bargs), iters=10)
+    sp = spread()
     with ops.reference_mode():
-        plain = cuda_ms(lambda: fa.flash_fwd(*args), iters=2, repeats=3)
-        bplain = cuda_ms(lambda: fa.flash_bwd(*bargs), iters=2, repeats=3)
-    lib, blib = sdpa_ms(fa, seg, qs, k, v, do, cos, sin, causal, h, dh)
-    res = {}
-    for kind, t, sp, pl, lb, chk in (("fwd", ms, ms_spread, plain, lib, fwd),
-                                     ("bwd", bms, bms_spread, bplain, blib, bwd)):
-        nbytes, flops = flash_work(fa, seg, causal, h, dh, kind, elem=4)
-        bound_ms, by = bound(nbytes, flops, PEAK_F32_ACCURATE_FLOPS)
-        print(f"flash_{kind}_f32[{where}]: kernel {t:.4f} ms (3 readings {sp}), "
-              f"{bound_ms / t:.1%} of the bound, {flops / t / 1e9:.2f} TFLOP/s; plain fp32 "
-              f"{pl:.4f} ms; SDPA fp32 {lb:.4f} ms; bound {bound_ms:.4f} ms ({by}: "
-              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at 165 TFLOP/s; at FFMA's 67 "
-              f"TFLOP/s {flops / PEAK_F32_FLOPS * 1e3:.4f} ms)", flush=True)
-        res[kind] = dict(err=chk[0], rel=chk[1], tf32_rel=chk[2], ms=t, plain_ms=pl, lib_ms=lb,
-                         bound_ms=bound_ms, bound_by=by, ffma_bound_ms=flops / PEAK_F32_FLOPS * 1e3)
+        pl = cuda_ms(lambda: fa.flash_bwd(*bargs), iters=2, repeats=3)
+    _, lb = sdpa_ms(fa, seg, qs, k, v, do, cos, sin, causal, h, dh)
+    nbytes, flops = flash_work(fa, seg, causal, h, dh, "bwd", elem=4)
+    bound_ms, by = bound(nbytes, flops, PEAK_F32_ACCURATE_FLOPS)
+    print(f"flash_bwd_f32[{where}]: kernel {t:.4f} ms (3 readings {sp}), "
+          f"{bound_ms / t:.1%} of the bound, {flops / t / 1e9:.2f} TFLOP/s; plain fp32 "
+          f"{pl:.4f} ms; SDPA fp32 backward {lb:.4f} ms; bound {bound_ms:.4f} ms ({by}: "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at 165 TFLOP/s; at FFMA's 67 "
+          f"TFLOP/s {flops / PEAK_F32_FLOPS * 1e3:.4f} ms)", flush=True)
+    res["bwd"] = dict(err=chk[0], rel=chk[1], tf32_rel=chk[2], ms=t, plain_ms=pl, lib_ms=lb,
+                      bound_ms=bound_ms, bound_by=by, ffma_bound_ms=flops / PEAK_F32_FLOPS * 1e3)
     return res
 
 
@@ -3575,13 +3566,8 @@ def f32_rms_at_shape(dev, mlp, ops, tag, n: int, d: int, eps: float):
 def f32_kernels(dev, fa, mlp, ops, tag, batch, m):
     """Each fp32 form at a batch's shapes under the model config m: #1 and
     #3 at its segments and RoPE table (fp32), #2 and #13 at its B x P rows."""
-    from graphgpt_torch.models.rope import reset_position_ids, rope_cos_sin
-
     seg = batch["segment_ids"]
-    pos = reset_position_ids(batch["position_ids"], m.rope_range)
-    cos, sin = (x.float() for x in rope_cos_sin(
-        pos, m.head_dim, m.rope_theta, resonance=m.rope_resonance, rope_scaling=m.rope_scaling,
-        max_position_embeddings=m.max_position_embeddings))
+    cos, sin = batch_rope32(batch, m)
     res = f32_flash_at_shape(fa, ops, tag, seg, cos, sin, m.num_attention_heads, m.head_dim,
                              causal=m.causal_attention)
     n = seg.numel()
@@ -3590,6 +3576,17 @@ def f32_kernels(dev, fa, mlp, ops, tag, batch, m):
     res["rms"] = f32_rms_at_shape(dev, mlp, ops, tag, n, m.hidden_size, m.rms_norm_eps)
     torch.cuda.empty_cache()
     return res
+
+
+def batch_rope32(batch, m):
+    """The RoPE table (cos, sin) in fp32 that model config m gives a batch's
+    positions."""
+    from graphgpt_torch.models.rope import reset_position_ids, rope_cos_sin
+
+    pos = reset_position_ids(batch["position_ids"], m.rope_range)
+    return tuple(x.float() for x in rope_cos_sin(
+        pos, m.head_dim, m.rope_theta, resonance=m.rope_resonance, rope_scaling=m.rope_scaling,
+        max_position_embeddings=m.max_position_embeddings))
 
 
 def step_vs_plain32(model, batch, ops, tag, call=dict):
@@ -3944,6 +3941,56 @@ def p1024_split_segments(dev, synthetic, bi: int = 16):
     return torch.from_numpy(seg).to(dev)
 
 
+def f32_fwd_at_shape(fa, ops, tag, seg, cos, sin, h: int, dh: int, bi: int = 0, tensors=None,
+                     causal: bool = False):
+    """#1's fp32 form (through flash_fwd on fp32 tensors) at seg's shape,
+    causal or with `bi` bit slots: out and lse against the plain version in
+    fp32 and with TF32 (f32_check), padded rows exact, a relaunch bit for
+    bit; then timed beside its bound (fp32 bytes; operations at
+    PEAK_F32_ACCURATE_FLOPS), its plain version and SDPA in fp32 with this
+    shape's mask. `tensors`: (qs, k, v, do) in place of flash_tensors'
+    draws."""
+    qs, k, v, do = (flash_tensors(seg, h, dh, seed=3, dtype=torch.float32) if tensors is None
+                    else tensors)
+    args = (qs, k, v, seg, cos, sin, causal, dh, bi)
+    out, lse = fa.flash_fwd(*args)
+    again = fa.flash_fwd(*args)
+    torch.cuda.synchronize()
+    bits = torch.equal(again[0], out) and torch.equal(again[1], lse)
+    del again
+    with ops.reference_mode():
+        rout, rlse = fa.flash_fwd(*args)
+        with tf32_allowed():
+            tout = fa.flash_fwd(*args)[0]
+    valid = seg > 0
+    b, p = seg.shape
+    where = (f"{tag}, B={b} P={p} H={h}" + (f" split {p - bi}" if bi else "")
+             + (" causal" if causal else ""))
+
+    def rows(x):
+        return x.transpose(1, 2)[valid]
+
+    pad = bool((out[~valid] == 0).all()) and bool((lse.transpose(1, 2)[~valid] == -1e30).all())
+    chk = f32_check("flash_fwd_f32", where, {"out": out[valid], "lse": rows(lse)},
+                    {"out": rout[valid], "lse": rows(rlse)}, {"out": tout[valid]}, bits, pad)
+    del rout, rlse, tout
+    ms = cuda_ms(lambda: fa.flash_fwd(*args), iters=10)
+    ms_spread = spread()
+    with ops.reference_mode():
+        plain = cuda_ms(lambda: fa.flash_fwd(*args), iters=2, repeats=3)
+    lib, _ = sdpa_ms(fa, seg, qs, k, v, do, cos, sin, causal, h, dh, bi)
+    nbytes, flops = flash_work(fa, seg, causal, h, dh, "fwd", bi, elem=4)
+    bound_ms, by = bound(nbytes, flops, PEAK_F32_ACCURATE_FLOPS)
+    print(f"flash_fwd_f32[{where}]: kernel {ms:.4f} ms (3 readings {ms_spread}), "
+          f"{bound_ms / ms:.1%} of the bound, {flops / ms / 1e9:.2f} TFLOP/s; plain fp32 "
+          f"{plain:.4f} ms; SDPA fp32 {lib:.4f} ms; bound {bound_ms:.4f} ms ({by}: "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP at 165 TFLOP/s; at FFMA's 67 "
+          f"TFLOP/s {flops / PEAK_F32_FLOPS * 1e3:.4f} ms)", flush=True)
+    return dict(err=chk[0], rel=chk[1], tf32_rel=chk[2], ms=ms, plain_ms=plain, lib_ms=lib,
+                bound_ms=bound_ms, bound_by=by, ffma_bound_ms=flops / PEAK_F32_FLOPS * 1e3,
+                tflops=flops / ms / 1e9)
+
+
 def f32_split_at_shape(fa, ops, tag, seg, cos, sin, bi: int, h: int, dh: int):
     """#4's and #5's fp32 forms (through flash_dq and flash_dkv on fp32
     tensors) at seg's shape with `bi` bit slots: dq and delta, dk and dv
@@ -3952,8 +3999,10 @@ def f32_split_at_shape(fa, ops, tag, seg, cos, sin, bi: int, h: int, dh: int):
     exactly 0, a relaunch bit for bit, inf and NaN in do's padded rows
     changing no output bit; then each timed beside its bound (fp32 bytes;
     operations at PEAK_F32_ACCURATE_FLOPS), its plain version and SDPA's fp32
-    backward with this shape's bi-causal mask (dq, dk, dv in one call)."""
+    backward with this shape's bi-causal mask (dq, dk, dv in one call); and
+    #1f on the same inputs (f32_fwd_at_shape, under "fwd")."""
     qs, k, v, do = flash_tensors(seg, h, dh, seed=3, dtype=torch.float32)
+    res = {"fwd": f32_fwd_at_shape(fa, ops, tag, seg, cos, sin, h, dh, bi, (qs, k, v, do))}
     out, lse = fa.flash_fwd(qs, k, v, seg, cos, sin, False, dh, bi)
     dq_args = (qs, k, v, seg, cos, sin, out, lse, do, None, False, dh, bi)
     dq, delta = fa.flash_dq(*dq_args)
@@ -3994,8 +4043,7 @@ def f32_split_at_shape(fa, ops, tag, seg, cos, sin, bi: int, h: int, dh: int):
     if not quiet:
         fail(f"the fp32 pair's outputs at {where} depend on do's padded rows")
     del rdq, rdelta, rdk, rdv, tdq, tdk, tdv
-    lib_fwd, lib_bwd = sdpa_ms(fa, seg, qs, k, v, do, cos, sin, False, h, dh, bi)
-    res = {}
+    _, lib_bwd = sdpa_ms(fa, seg, qs, k, v, do, cos, sin, False, h, dh, bi)
     for kind, fn, chk in (("dq", lambda: fa.flash_dq(*dq_args), qc),
                           ("dkv", lambda: fa.flash_dkv(*args), kc)):
         ms = cuda_ms(fn, iters=10)
@@ -4023,6 +4071,7 @@ def fp32_finetune_run(dev, counters, mlp, ops, train_sd):
     from graphgpt_torch.config import OptimizerConfig, flagship_config
     from graphgpt_torch.models.heads import GraphGPTPretrain
     from graphgpt_torch.models.modeling import derive_generator
+    from graphgpt_torch.ops import flash_attention as fa
     from graphgpt_torch.training.checkpoint import Checkpointer
     from graphgpt_torch.training.finetune import FinetunePipeline
     from graphgpt_torch.training.optimizer import make_optimizer
@@ -4054,7 +4103,10 @@ def fp32_finetune_run(dev, counters, mlp, ops, train_sd):
               f"{m.remat_policy}; batch {b} graphs x {p} positions (N {b * p}), "
               f"{int((nb['segment_ids'] > 0).sum())} tokens; warm start from the train "
               f"phase's weights", flush=True)
-        res = {"ft_shape": dict(f32_mlp_at_shape(dev, mlp, ops, tag, b * p, m.hidden_size,
+        cos, sin = batch_rope32(batch, m)
+        res = {"fwd": f32_fwd_at_shape(fa, ops, tag, batch["segment_ids"], cos, sin,
+                                       m.num_attention_heads, m.head_dim),
+               "ft_shape": dict(f32_mlp_at_shape(dev, mlp, ops, tag, b * p, m.hidden_size,
                                                  m.intermediate_size, m.hidden_act,
                                                  m.rms_norm_eps, norm=False), n=b * p),
                "n8192": f32_mlp_at_shape(dev, mlp, ops, tag, 8192, m.hidden_size,
@@ -4323,8 +4375,9 @@ def f32_stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_r
     long-context batch's seg [B, P], cos and sin (fp32): f32_stream_check
     on `check_rows` rows with the query ids as key ids and with another
     packed row's ids, then on the whole launch both ways (the plain
-    versions a row at a time); #1f's entry on the same rows, which must give
-    #6f's bits (one body, one id array); each kernel timed at the whole
+    versions a row at a time); #1f's entry (P <= MAX_P) on the rows' first
+    MAX_P positions, which must give #6f's bits there (one body, one id
+    array, the same tiles in the same order); each kernel timed at the whole
     shape beside its bound (fp32 bytes; operations at
     PEAK_F32_ACCURATE_FLOPS), its FFMA bound, its plain version and SDPA in
     fp32 (boolean mask; the forward, and its backward for #7f and #8f).
@@ -4351,20 +4404,23 @@ def f32_stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_r
     _, delta = fa.flash_dq_stream(*dq_args)
     dkv_args = (qs, k, v, seg, seg, cos, sin, lse, delta, do, False, dh)
     b, p = seg.shape
-    seg32 = seg.to(torch.int32).contiguous()
-    out1, lse1 = torch.empty_like(out), torch.empty_like(lse)
-    one = _build.entry("flash_fwd_f32", "ggt_flash_fwd_f32", fa._ARGTYPES)
+    hp = min(p, fa.MAX_P)
+    hq, hk, hv, hseg, hcos, hsin = (t[:, :hp].contiguous() for t in (qs, k, v, seg, cos, sin))
+    hout, hlse = fa.flash_fwd_stream(hq, hk, hv, hseg, hseg, hcos, hsin, False, dh)
+    seg32 = hseg.to(torch.int32)
+    out1, lse1 = torch.empty_like(hout), torch.empty_like(hlse)
+    one = _build.entry("flash_bwd_split_f32", "ggt_flash_fwd_f32", fa._ARGTYPES)
 
     def single():
-        _build.check(one(_build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg32),
-                         _build.ptr(cos), _build.ptr(sin), _build.ptr(out1), _build.ptr(lse1), b,
-                         p, h, 0, 0, _build.stream_ptr(qs.device)), "ggt_flash_fwd_f32")
+        _build.check(one(_build.ptr(hq), _build.ptr(hk), _build.ptr(hv), _build.ptr(seg32),
+                         _build.ptr(hcos), _build.ptr(hsin), _build.ptr(out1), _build.ptr(lse1),
+                         b, hp, h, 0, 0, _build.stream_ptr(qs.device)), "ggt_flash_fwd_f32")
 
     single()
     torch.cuda.synchronize()
-    same = torch.equal(out1, out) and torch.equal(lse1, lse)
-    print(f"flash_fwd_f32 (#1f's entry) on the long-context rows: bit for bit "
-          f"flash_fwd_stream_f32's: {same}", flush=True)
+    same = torch.equal(out1, hout) and torch.equal(lse1, hlse)
+    print(f"flash_fwd_f32 (#1f's entry) on the long-context rows' first {hp} positions: bit "
+          f"for bit flash_fwd_stream_f32's: {same}", flush=True)
     if not same:
         fail("#1f and #6f disagree on the long-context rows (one body, one id array)")
     single_ms = cuda_ms(single, iters=5)
@@ -4382,8 +4438,8 @@ def f32_stream_at_shape(fa, ops, _build, seg, cos, sin, h: int, dh: int, check_r
         bms, by = bound(nbytes, flops, PEAK_F32_ACCURATE_FLOPS)
         lib = "SDPA fp32" if kind == "fwd" else "SDPA fp32 backward (dq, dk, dv)"
         lib_ms = lib_fwd if kind == "fwd" else lib_bwd
-        extra = (f"; #1f's entry on the same rows {single_ms:.4f} ms (3 readings "
-                 f"{single_spread})") if kind == "fwd" else ""
+        extra = (f"; #1f's entry on the rows' first {hp} positions {single_ms:.4f} ms (3 "
+                 f"readings {single_spread})") if kind == "fwd" else ""
         print(f"{O_STREAM[kind]} B={b} P={p} H={h}: kernel {ms:.4f} ms (3 readings {ms_spread}), "
               f"{bms / ms:.1%} of the bound, {flops / ms / 1e9:.2f} TFLOP/s; plain fp32 "
               f"{plain_ms:.4f} ms; {lib} {lib_ms:.4f} ms; bound {bms:.4f} ms ({by}: "
@@ -5814,9 +5870,10 @@ def f32_band_check(fa, ops, tag, qs, k, v, seg_q, seg_k, do, causal: bool, bi: i
     band_limits; padded query rows and rows that see no key exactly 0 (lse
     -1e30), keys that no query sees exactly 0; a relaunch bit for bit; inf
     and NaN in do's padded rows changing no output bit of #10f; then the
-    other fp32 forms on the same rows: bit for bit #6f, and on one id array
-    #1f and #3f; within F32_REL #7f + #8f and, with a split, #4f and #5f
-    (flash_bwd_split_f32.cu, another body). Returns {"fwd": (largest
+    other fp32 forms on the same rows: within F32_REL #6f, #7f + #8f and,
+    with a split, #4f and #5f (flash_bwd_split_f32.cu, another body); on
+    one id array #3f bit for bit without a split, and #1f #6f's bits up to
+    P 2048. Returns {"fwd": (largest
     elementwise error, relative error, TF32 control), "bwd": ...}."""
     dh = 64
     fwd = (qs, k, v, seg_q, seg_k, causal, dh, bi)
@@ -5881,20 +5938,26 @@ def f32_band_check(fa, ops, tag, qs, k, v, seg_q, seg_k, do, causal: bool, bi: i
                            {"dq": rdq[seen_q], "delta": rows(rdelta, valid), "dk": rdk,
                             "dv": rdv}, {"dq": tdq[seen_q], "dk": tdk, "dv": tdv}, bits_b, pad_b)
     del rout, rlse, rdq, rdk, rdv, rdelta, tout, tdq, tdk, tdv
-    # the other forms on the same rows: #6f one body with #9f, the tiles
-    # outside the band adding nothing (torch.equal: a zero's sign aside);
-    # #7f + #8f another body (3xTF32, another order of sums): within F32_REL
+    # the other forms on the same rows: #6f and #7f + #8f another body
+    # (3xTF32, another order of sums): within F32_REL (lse on the rows that
+    # see a key; the rows that see none alike); #1f, where it takes the row,
+    # #6f's bits (one body, one id array)
     s_out, s_lse = fa.flash_fwd_stream(qs, k, v, seg_q, seg_k, None, None, causal, dh, bi)
     s_dq, s_delta = fa.flash_dq_stream(qs, k, v, seg_q, seg_k, None, None, out, lse, do, None,
                                        causal, dh, bi)
     s_dk, s_dv = fa.flash_dkv_stream(qs, k, v, seg_q, seg_k, None, None, lse, s_delta, do, causal,
                                      dh, bi)
     s_rels = [rel_err(a, b) for a, b in zip((dq, delta, dk, dv), (s_dq, s_delta, s_dk, s_dv))]
-    same = [torch.equal(s_out, out) and torch.equal(s_lse, lse), max(s_rels) <= F32_REL]
+    f_rels = [rel_err(s_out, out), rel_err(rows(s_lse, seen_q), rows(lse, seen_q))]
+    dead_alike = torch.equal(rows(s_lse, ~seen_q), rows(lse, ~seen_q))
+    same = [max(f_rels) <= F32_REL and dead_alike, max(s_rels) <= F32_REL]
     single = "one id array: no single form"
     if seg_k is seg_q:
-        one = fa.flash_fwd_f32(qs, k, v, seg_q, None, None, causal, dh, bi)
-        same.append(torch.equal(one[0], out) and torch.equal(one[1], lse))
+        ones = "no #1f past P 2048"
+        if p <= fa.MAX_P:
+            one = fa.flash_fwd_f32(qs, k, v, seg_q, None, None, causal, dh, bi)
+            same.append(torch.equal(one[0], s_out) and torch.equal(one[1], s_lse))
+            ones = f"#1f bit for bit #6f {same[-1]}"
         if bi:
             # #4f and #5f are another body (3xTF32 products): within F32_REL
             o_dq, o_delta = fa.flash_dq_f32(qs, k, v, seg_q, None, None, out, lse, do, None,
@@ -5903,17 +5966,18 @@ def f32_band_check(fa, ops, tag, qs, k, v, seg_q, seg_k, do, causal: bool, bi: i
                                                         do, causal, dh, bi))
             rels = [rel_err(a, b) for a, b in zip((dq, delta, dk, dv), o_grads)]
             same.append(max(rels) <= F32_REL)
-            single = (f"#1f {same[2]}; #4f, #5f within {F32_REL}: "
+            single = (f"{ones}; #4f, #5f within {F32_REL}: "
                       + " ".join(f"{n} {r:.3e}" for n, r in zip(("dq", "delta", "dk", "dv"), rels)))
         else:
             o_grads = fa.flash_bwd_f32(qs, k, v, seg_q, None, None, out, lse, do, None, causal,
                                        dh)
             same.append(all(torch.equal(a, b) for a, b in zip(o_grads, (dq, dk, dv))))
-            single = f"#1f {same[2]}, #3f {same[3]}"
+            single = f"{ones}, #3f bit for bit {same[-1]}"
     torch.cuda.synchronize()
     print(f"flash_fwd_band_f32/flash_bwd_band_f32[{where}]: band tables == band_limits {tables}; "
           f"inf and NaN in do's {int(pad.sum())} padded rows change no output bit {quiet}; the "
-          f"other forms on the same rows: #6f bit for bit {same[0]}, #7f + #8f within "
+          f"other forms on the same rows: #6f within {F32_REL}: out {f_rels[0]:.3e} lse "
+          f"{f_rels[1]:.3e}, the rows that see no key alike {dead_alike}; #7f + #8f within "
           f"{F32_REL}: " + " ".join(f"{n} {r:.3e}" for n, r in zip(("dq", "delta", "dk", "dv"),
                                                                     s_rels))
           + f"; {single}", flush=True)
@@ -6219,8 +6283,9 @@ def main() -> None:
     # #2f, #11f, #12f) keep no spill and let ptxas pipeline their wgmma (no
     # C7512/C7513), #13 (both dtypes) and the other fp32 forms keep no spill;
     # flash_fwd.cu's log must show its three forms, flash_bwd.cu's its two,
-    # the fp32 forward's its three, the passes' their two each, the fp32
-    # split body its four (#4f, #5f, #7f, #8f), mlp_qkv_f32.cu's its twelve
+    # the FFMA fp32 forward its band form, the passes' their two each, the
+    # fp32 split body its six (#4f, #5f, #7f, #8f; #1f, #6f), mlp_qkv_f32.cu's
+    # its twelve
     for name in ("norm_qkv", "norm_mlp", "mlp", "flash_bwd_split", "flash_fwd", "flash_bwd",
                  "rmsnorm_bwd", "flash_fwd_f32", "flash_bwd_f32", "flash_bwd_split_f32",
                  "mlp_qkv_f32"):
@@ -6233,23 +6298,27 @@ def main() -> None:
               flush=True)
         if forms != want:
             fail(f"{name}.cu's build log does not show its forms {want}")
-    # the fp32 forward's single (0), stream (1) and band (2) forms; the
-    # passes' single and band forms
-    for name, kernel, want in (("flash_fwd_f32", "fwd_f32_kernel", ["0", "1", "2"]),
-                               ("flash_bwd_f32", "dq_f32_kernel", ["0", "2"]),
+    # the FFMA fp32 forward's band form (#9f); the passes' single and band
+    # forms
+    band_f32 = "fwd_band_f32_kernel" in logs.get("flash_fwd_f32", "")
+    print(f"flash_fwd_f32.cu: ptxas compiled fwd_band_f32_kernel: {band_f32}", flush=True)
+    if not band_f32:
+        fail("flash_fwd_f32.cu's build log does not show fwd_band_f32_kernel")
+    for name, kernel, want in (("flash_bwd_f32", "dq_f32_kernel", ["0", "2"]),
                                ("flash_bwd_f32", "dkv_f32_kernel", ["0", "2"])):
         forms = sorted(set(re.findall(kernel + r"ILi(\d)E", logs.get(name, ""))))
         print(f"{name}.cu: the forms of {kernel} ptxas compiled (0 single, 1 stream, 2 band): "
               f"{forms}", flush=True)
         if forms != want:
             fail(f"{name}.cu's build log does not show {kernel}'s forms {want}")
-    # split_f32_kernel<DKV, FORM>: #4f, #5f (single) and #7f, #8f (stream)
-    splits = set(re.findall(r"split_f32_kernelILb(\d)ELi(\d)E",
+    # split_f32_kernel<ROLE, FORM>: #4f, #5f, #1f (single) and #7f, #8f, #6f
+    # (stream); roles 0 flash_dq, 1 flash_dkv, 2 the forward
+    splits = set(re.findall(r"split_f32_kernelILi(\d)ELi(\d)E",
                             logs.get("flash_bwd_split_f32", "")))
-    print(f"flash_bwd_split_f32.cu: the split_f32_kernel instances ptxas compiled (DKV, form): "
+    print(f"flash_bwd_split_f32.cu: the split_f32_kernel instances ptxas compiled (role, form): "
           f"{sorted(splits)}", flush=True)
-    if splits != {(d, f) for d in "01" for f in "01"}:
-        fail("flash_bwd_split_f32.cu's build log does not show split_f32_kernel's four instances")
+    if splits != {(r, f) for r in "012" for f in "01"}:
+        fail("flash_bwd_split_f32.cu's build log does not show split_f32_kernel's six instances")
     # prod_kernel<MODE, BN, ACT, NORM, RESID>: #12f's QKV at BN 128 and 64;
     # #11f's and #2f's (NORM) gate/up at each activation; their down stages
     # at BN 128 and 64 (#2f's with RESID)
@@ -6627,7 +6696,7 @@ def main() -> None:
     # 1024 (N 8,192), toy_pretrain's B 8 x P 128 (N 1,024) beside it
     lt, lb = fp32["toy"], fp32["base"]
     for name, source, line, kind in (
-            ("flash_fwd_f32", "flash_fwd_f32.cu", "flash_attention.py:124", "fwd"),
+            ("flash_fwd_f32", "flash_bwd_split_f32.cu", "flash_attention.py:124", "fwd"),
             ("norm_mlp_f32", "mlp_qkv_f32.cu", "mlp.py:203", "mlp"),
             ("flash_bwd_f32", "flash_bwd_f32.cu", "flash_attention.py:706", "bwd"),
             ("rmsnorm_bwd_f32", "rmsnorm_bwd.cu", "mlp.py:414", "rms")):
@@ -6646,6 +6715,17 @@ def main() -> None:
     # entry) gains the denoise batch's N 22,528, phase O's N 65,536 and
     # N_NORM_MLP_SHAPES
     nft, ndn = f32n["finetune"], f32n["denoise"]
+    # #1f's (phase L's entry) gains the fine-tune batch and the denoise
+    # batch, B 8 x P 1024 with 16 bit slots beside it
+    e1f = next(e for e in kernels if e["name"] == "flash_fwd_f32")
+    n1f = [nft["fwd"], ndn["denoise"]["fwd"], ndn["p1024"]["fwd"]]
+    for tag, r in (("finetune_shape", n1f[0]), ("denoise_shape", n1f[1]),
+                   ("bicausal_p1024", n1f[2])):
+        e1f.update({f"{tag}_{k}": r[k] for k in ("ms", "plain_ms", "lib_ms", "bound_ms",
+                                                  "tflops")})
+    e1f.update(max_abs_err=max([e1f["max_abs_err"]] + [r["err"] for r in n1f]),
+               rel_err=max([e1f["rel_err"]] + [r["rel"] for r in n1f]),
+               tf32_control_rel=min([e1f["tf32_control_rel"]] + [r["tf32_rel"] for r in n1f]))
     e2f = next(e for e in kernels if e["name"] == "norm_mlp_f32")
     n2f = [nft[k] for k in N_NORM_MLP_CHECKS]
     for tag, r in (("denoise_shape", ndn["mlp"]), ("long_shape", f32o["long"]["mlp"])):
@@ -6685,7 +6765,7 @@ def main() -> None:
     # the fp32 stream forms of phase O: their main entry at the long-context
     # batch B 16 x P 4096, the numbers of its two runs beside them
     o_long, o_toy = f32o["long"], f32o["toy_skip"]
-    for kind, (source, line) in (("fwd", ("flash_fwd_f32.cu", 177)),
+    for kind, (source, line) in (("fwd", ("flash_bwd_split_f32.cu", 177)),
                                  ("dq", ("flash_bwd_split_f32.cu", 645)),
                                  ("dkv", ("flash_bwd_split_f32.cu", 835))):
         r = o_long["kernels"][kind]
@@ -6693,7 +6773,7 @@ def main() -> None:
             O_STREAM[kind], source, f"flash_attention.py:{line}", r, {"rel": F32_REL},
             rel_err=r["rel"], batch_rel_err=r["batch_rel"], tf32_control_rel=r["tf32_rel"],
             ffma_bound_ms=r["ffma_bound_ms"], tflops=r["tflops"],
-            **({"single_f32_entry_ms": r["single_ms"]} if kind == "fwd" else {}),
+            **({"single_f32_entry_first_2048_ms": r["single_ms"]} if kind == "fwd" else {}),
             long32_step_loss_rel=o_long["step"]["loss_rel"],
             long32_step_grad_rel=o_long["step"]["grad_rel"], long32_step_ms=o_long["step_ms"],
             long32_tokens_per_s=o_long["tokens_per_s"], long32_peak_mib=o_long["peak_mib"],

@@ -1,5 +1,5 @@
-// What the fp32 flash forward (flash_fwd_f32.cu) and backward
-// (flash_bwd_f32.cu) share, in their single and stream forms: 64 x 64 fp32
+// What the FFMA fp32 flash kernels, the band forward (flash_fwd_f32.cu)
+// and the fused backward's passes (flash_bwd_f32.cu), share: 64 x 64 fp32
 // tiles in shared memory, the tile loads with RoPE, the FFMA tile product,
 // and the test that skips a tile pair with no segment id in common.
 //

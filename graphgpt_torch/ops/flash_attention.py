@@ -43,11 +43,11 @@ Here the port differs: an unknown mode raises, where the JAX package takes
 any value it does not know for `legacy`.
 
 Dtypes: every kernel takes bf16, and fp32 (a `model.dtype: float32`
-model) in forms of its own: #1's, #6's and #9's in
-`csrc/flash_fwd_f32.cu`, #3's and #10's in the passes of
-`csrc/flash_bwd_f32.cu`, the split pair's and the streamed pair's in
-`csrc/flash_bwd_split_f32.cu` (3xTF32 products on the tensor cores; the
-streamed pair in its stream form), each with its wrapper and its count
+model) in forms of its own: #9's in `csrc/flash_fwd_f32.cu`, #3's and
+#10's in the passes of `csrc/flash_bwd_f32.cu`, the split pair's and the
+streamed pair's, #1's and #6's in `csrc/flash_bwd_split_f32.cu` (3xTF32
+products on the tensor cores; the forward in the body's forward role, the
+streamed kernels in its stream form), each with its wrapper and its count
 (flash_fwd_f32, flash_bwd_f32, flash_dq_f32, flash_dkv_f32,
 flash_fwd_stream_f32, flash_dq_stream_f32, flash_dkv_stream_f32,
 flash_fwd_band_f32, flash_bwd_band_f32), to which flash_fwd, flash_bwd,
@@ -307,12 +307,14 @@ flash_fwd.launches = 0
 
 
 def flash_fwd_f32(qs, k, v, seg, cos, sin, causal: bool, dh: int, bi_causal_split: int = 0):
-    """(out, lse) of #1's fp32 form (`csrc/flash_fwd_f32.cu`) for fp32 CUDA
-    tensors, cos and sin kept fp32; the plain version for a CPU tensor (or
-    inside ops.reference_mode()). flash_fwd hands it fp32 rows of P <= 2048."""
+    """(out, lse) of #1's fp32 form (`csrc/flash_bwd_split_f32.cu`'s forward
+    role, single form) for fp32 CUDA tensors, cos and sin kept fp32; the
+    plain version for a CPU tensor (or inside ops.reference_mode()). The
+    kernel takes P <= MAX_P, the rows flash_fwd hands it."""
     if not use_kernel(qs, k, v, seg):
         return flash_attention_ref(qs, k, v, seg, cos, sin, causal, dh, bi_causal_split)
-    out, lse, err = _fwd_single("flash_fwd_f32", "flash_fwd_f32", "ggt_flash_fwd_f32",
+    _check_split_p("flash_fwd_f32", qs.shape[1])
+    out, lse, err = _fwd_single("flash_fwd_f32", "flash_bwd_split_f32", "ggt_flash_fwd_f32",
                                 torch.float32, qs, k, v, seg, cos, sin, causal, dh,
                                 bi_causal_split)
     flash_fwd_f32.launches += 1
@@ -345,14 +347,6 @@ def flash_fwd_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, causal: bool, dh: int
                                seg_k=seg_k, row_chunk=REF_ROWS)
 
 
-def _stream_tab(dtype, seg_q):
-    """The tile-table scratch of #6's entries: the bf16 form writes its
-    tables there first; the fp32 form tests each tile pair itself and reads
-    none (None: a null pointer). #7 and #8 take _tile_scratch in both
-    dtypes."""
-    return _tile_scratch(seg_q) if dtype == torch.bfloat16 else None
-
-
 def _fwd_stream(name, source, symbol, dtype, qs, k, v, seg_q, seg_k, cos, sin, causal: bool,
                 dh: int, bi_causal_split: int):
     """Launch #6's form `symbol` of csrc/<source>.cu, which takes `dtype`:
@@ -366,7 +360,7 @@ def _fwd_stream(name, source, symbol, dtype, qs, k, v, seg_q, seg_k, cos, sin, c
     err = fn(
         _build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg_q), _build.ptr(seg_k),
         _opt_ptr(cos), _opt_ptr(sin), _build.ptr(out), _build.ptr(lse),
-        _opt_ptr(_stream_tab(dtype, seg_q)), b, p, hd // dh, int(causal), int(bi_causal_split),
+        _build.ptr(_tile_scratch(seg_q)), b, p, hd // dh, int(causal), int(bi_causal_split),
         _build.stream_ptr(qs.device),
     )
     return out, lse, err
@@ -398,13 +392,13 @@ flash_fwd_stream.launches = 0
 
 def flash_fwd_stream_f32(qs, k, v, seg_q, seg_k, cos, sin, causal: bool, dh: int,
                          bi_causal_split: int = 0):
-    """(out, lse) of #6's fp32 form (`csrc/flash_fwd_f32.cu`'s stream form)
-    for fp32 CUDA tensors, cos and sin kept fp32; the plain version for a
-    CPU tensor (or inside ops.reference_mode()). Any P."""
+    """(out, lse) of #6's fp32 form (`csrc/flash_bwd_split_f32.cu`'s forward
+    role, stream form) for fp32 CUDA tensors, cos and sin kept fp32; the
+    plain version for a CPU tensor (or inside ops.reference_mode()). Any P."""
     if not use_kernel(qs, k, v, seg_q, seg_k):
         return flash_fwd_stream_ref(qs, k, v, seg_q, seg_k, cos, sin, causal, dh,
                                     bi_causal_split)
-    out, lse, err = _fwd_stream("flash_fwd_stream_f32", "flash_fwd_f32",
+    out, lse, err = _fwd_stream("flash_fwd_stream_f32", "flash_bwd_split_f32",
                                 "ggt_flash_fwd_stream_f32", torch.float32, qs, k, v, seg_q,
                                 seg_k, cos, sin, causal, dh, bi_causal_split)
     flash_fwd_stream_f32.launches += 1
@@ -657,7 +651,7 @@ def _check_split_p(name, p: int) -> None:
     """The split pair's kernels (the single form) hold an item's visiting
     tiles in one 32-bit mask: P <= MAX_P (flash_bwd sends longer rows to the
     streamed pair, the same body's stream form). The fp32 forms keep the
-    same contract."""
+    same contract, and so does #1's fp32 form, the same body's forward."""
     if p > MAX_P:
         raise NotImplementedError(f"{name} takes P <= {MAX_P}, got {p}")
 

@@ -8,10 +8,11 @@ flash_bwd_band (`--kernel bwd`, `csrc/flash_bwd.cu`), the gated
 MLPs #11 and #2 (`--kernel mlp`, `--kernel norm_mlp`: `csrc/mlp.cu`,
 `csrc/norm_mlp.cu` with `csrc/mlp_common.cuh`) and the RMSNorm backward #13
 (`--kernel rmsnorm_bwd`, `csrc/rmsnorm_bwd.cu`), and the fp32 forms #2f,
-#11f and #12f (`--kernel mlp_f32`, `csrc/mlp_qkv_f32.cu`), #1f, #6f and #9f
-(`--kernel fwd_f32`, `csrc/flash_fwd_f32.cu`), #3f and #10f (`--kernel
-bwd_f32`, `csrc/flash_bwd_f32.cu`) and the pair #4f, #5f and its stream
-form #7f, #8f (`--kernel split_f32`, `csrc/flash_bwd_split_f32.cu`), timed
+#11f and #12f (`--kernel mlp_f32`, `csrc/mlp_qkv_f32.cu`), #1f and #6f
+(`--kernel fwd_f32`: `csrc/flash_bwd_split_f32.cu`'s forward role, beside
+#9f, `csrc/flash_fwd_f32.cu`), #3f and #10f (`--kernel bwd_f32`,
+`csrc/flash_bwd_f32.cu`) and the pair #4f, #5f and its stream form #7f,
+#8f (`--kernel split_f32`, `csrc/flash_bwd_split_f32.cu`), timed
 on the card whole
 and with one phase of their body left out at a time, at their paths'
 shapes: the denoise batch (B 256 x P 88, 16 bit slots, a molecule and a
@@ -29,8 +30,9 @@ gate/up, down), #12f there with q, k and v each D wide (the first rows of
 the gate and up weights), the fp32 attention forms at B 8 x P 1024 (12 heads), B 8
 x P 128 (2 heads, toy_pretrain's), the fine-tune batch B 256 x P 72 (a
 molecule a row) and the long-context B 16 x P 4096,
-where every form runs (the single ones too: their C entries take any P),
-the fp32 pair and the fp32 forward also at the denoise batch and at B 8 x
+where every form runs (#3f's and #9f's C entries take any P; #1f's, as
+the pair's, P <= 2048), the fp32 pair and the fp32 forward also at the
+denoise batch and at B 8 x
 P 1024 with 16 bit slots, the fp32 pair's stream form also with another
 row's ids as key ids at B 16 x P 4096 (their inputs drawn in fp32 by numpy
 from a fixed
@@ -63,7 +65,7 @@ the time it saves is that phase's share:
            ids by redux.sync (the single form's way) instead of the tile
            tables (outputs right, the key ids being the query ids)
   stages2  a ring of 2 stages instead of 3 (fwd: of 4; bwd: both forms, the
-           band form's of 8) (outputs right)
+           band form's of 8; fwd_f32: the forward role's 3) (outputs right)
   stages3  a ring of 3 stages instead of 4 (fwd; outputs right)
   stages4  bwd's band form: a ring of 4 stages instead of 8 (outputs right)
   stages6  bwd's band form: a ring of 6 stages instead of 8 (outputs right)
@@ -122,7 +124,15 @@ gemm_tf32x3.cuh put in place of its include):
 --source probes another body of the file (one unpacked from an earlier
 commit, say, with the headers beside it, which it is built against before
 the package's own); a substitution that does not match it raises; fwd
-and bwd time the forms that its source has. split_f32 times the pair at
+and bwd time the forms that its source has; fwd_f32 times the package's
+forward role (its variants) and band form, and with --source an earlier
+flash_fwd_f32.cu (whose entries of the same names were the FFMA #1f, #6f)
+beside them in the same turns. fwd_f32 with --pins times nothing: it
+prints the digests that tests/test_torch_gpu.py pins, each fp32 backward
+form's through its wrapper on the out and lse of `inputs` (the plain
+forward in float64) and, with --source, on those of that body's forward;
+#1f's, #6f's and #9f's through their wrappers, and #9f's of the --source
+body. split_f32 times the pair at
 the denoise batch and at B 8 x P 1024 with and without 16 bit slots, and
 its stream form there (on one id array within F32_REL of the pair: its
 delta is made consistent with its own p and dP) and at B 16 x P 4096
@@ -328,6 +338,20 @@ _F32_NOPASS = [("          for (int u = u0; u < 1024; u += 96) {",
 _F32_NOSECOND = [("            const int nbk = 4 * half + j;\n",
                   "            const int nbk = 4 * half + j;\n            continue;\n")]
 
+# the fp32 forward role's ring of 2 stages instead of 3
+_F32_FWD_STAGES2 = [("static constexpr int STAGES = FWD ? 3 : 2;",
+                     "static constexpr int STAGES = 2;")]
+# the digests tests/test_torch_gpu.py pins of the fp32 backward forms, which
+# read out and lse (`inputs`), and of the fp32 forwards
+F32_BWD_PINNED = (("flash_bwd_f32", "B8 P1024"), ("flash_bwd_f32", "toy B8 P128"),
+                  ("flash_dq_f32", "denoise B256 P88"), ("flash_dkv_f32", "denoise B256 P88"),
+                  ("flash_dq_f32", "B8 P1024 bi16"), ("flash_dkv_f32", "B8 P1024 bi16"),
+                  ("flash_dq_stream_f32", "B8 P1024"), ("flash_dkv_stream_f32", "B8 P1024"),
+                  ("flash_dq_stream_f32", "B16 P4096"), ("flash_dkv_stream_f32", "B16 P4096"))
+F32_FWD_PINNED = (("flash_fwd_f32", "B8 P1024"), ("flash_fwd_f32", "denoise B256 P88"),
+                  ("flash_fwd_stream_f32", "B8 P1024"), ("flash_fwd_stream_f32", "B16 P4096"),
+                  ("flash_fwd_band_f32", "B8 P1024"), ("flash_fwd_band_f32", "B16 P4096"))
+
 # per kernel: its source, its C entries, and its variants
 KERNELS = {
     "split": ("flash_bwd_split.cu", {
@@ -356,7 +380,7 @@ KERNELS = {
     "rmsnorm_bwd": ("rmsnorm_bwd.cu", {"base": [], "main": _RMS_MAIN, "reduce": _RMS_REDUCE}),
     "mlp_f32": ("mlp_qkv_f32.cu", {"base": [], "mma1": _GEMM_MMA1, "smema": _GEMM_SMEMA,
                                    "oneacc": _GEMM_ONEACC}),
-    "fwd_f32": ("flash_fwd_f32.cu", {"base": []}),
+    "fwd_f32": ("flash_bwd_split_f32.cu", {"base": [], "stages2": _F32_FWD_STAGES2}),
     "bwd_f32": ("flash_bwd_f32.cu", {"base": []}),
     "split_f32": ("flash_bwd_split_f32.cu", {
         "base": [], "cvtsplit": _F32_CVTSPLIT, "nosplit": _F32_NOSPLIT, "mma1": _F32_MMA1,
@@ -686,7 +710,7 @@ def probe_f32(kernel: str, libs, dev) -> None:
         qs, k, v, do, seg, cos, sin, out, lse = inputs(b, p, h, bi, layout, dev, torch.float32)
         if kernel == "fwd_f32":
             common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(cos), ptr(sin))
-            # the stream form on the query ids as key ids, no tile-table scratch
+            # the stream form on the query ids as key ids
             stream_common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(seg), ptr(cos), ptr(sin))
             # the band form on the same q and k, unrotated, no cos and sin
             band_common = (ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(seg))
@@ -696,11 +720,15 @@ def probe_f32(kernel: str, libs, dev) -> None:
                 "flash_fwd_f32": lambda lib: lib.ggt_flash_fwd_f32(
                     *common, ptr(o2), ptr(l2), b, p, h, 0, bi, stream),
                 "flash_fwd_stream_f32": lambda lib: lib.ggt_flash_fwd_stream_f32(
-                    *stream_common, ptr(o2), ptr(l2), None, b, p, h, 0, bi, stream),
+                    *stream_common, ptr(o2), ptr(l2), ptr(tab), b, p, h, 0, bi, stream),
                 "flash_fwd_band_f32": lambda lib: lib.ggt_flash_fwd_band_f32(
                     *band_common, ptr(o2), ptr(l2), ptr(tab), b, p, h, 0, bi, stream)}
+            # the 3xTF32 #1f takes P <= MAX_P (the FFMA one, --source's, any P)
+            skip = ({("flash_fwd_f32", name) for name in libs if name != "source"}
+                    if p > fa.MAX_P else set())
             _probe_f32_turns(tag, libs, entries, runs, {form: (o2, l2) for form in runs},
-                             {form: f32_attention_bound(form, seg, h, bi) for form in runs})
+                             {form: f32_attention_bound(form, seg, h, bi) for form in runs},
+                             skip)
             continue
         if kernel == "split_f32":
             # the stream form also with another row's ids as key ids where
@@ -785,15 +813,16 @@ def f32_attention_bound(form: str, seg, h: int, bi: int, seg_k=None) -> float:
     return f32_bound_ms(nbytes, 2.0 * products * DH * h * pairs)
 
 
-def _probe_f32_turns(tag, libs, entries, runs, outs, bounds) -> None:
-    """Time each form of `runs` in each library that has it, then launch it
-    once on zeroed outputs (`outs[form]`, the tensors its digest reads);
-    each line ends with the form's bound (`bounds[form]`, ms)."""
+def _probe_f32_turns(tag, libs, entries, runs, outs, bounds, skip=frozenset()) -> None:
+    """Time each form of `runs` in each library that has it (but the pairs
+    (form, library name) of `skip`), then launch it once on zeroed outputs
+    (`outs[form]`, the tensors its digest reads); each line ends with the
+    form's bound (`bounds[form]`, ms)."""
     order = list(libs.items())
     for turn in (order, order[::-1]):
         for name, lib in turn:
             for form, run in runs.items():
-                if not hasattr(lib, entries[form][0]):
+                if not hasattr(lib, entries[form][0]) or (form, name) in skip:
                     continue
                 t = cuda_ms(lambda: _build.check(run(lib), f"{form} {name}"))
                 for x in outs[form]:
@@ -803,10 +832,14 @@ def _probe_f32_turns(tag, libs, entries, runs, outs, bounds) -> None:
                       f"bound {bounds[form]:.4f} ms", flush=True)
 
 
-def inputs(b, p, h, bi, layout, dev, dtype=torch.bfloat16):
+def inputs(b, p, h, bi, layout, dev, dtype=torch.bfloat16, fwd=None):
     """q (pre-scaled), k, v, do, seg, cos, sin, and the forward's out and lse,
-    in `dtype` (the forms' working type: bf16, or fp32 for #1f and the fp32
-    backward forms), drawn by numpy from seed 0."""
+    in `dtype` (the forms' working type: bf16, or fp32 for the fp32 forms),
+    drawn by numpy from seed 0. out and lse: in bf16 the forward kernels'
+    (flash_fwd); in fp32 the plain forward in float64 rounded to fp32
+    (plain_fwd64), which no kernel's redesign moves, so that the digests of
+    the backward forms read only their own bodies; or fwd(qs, k, v, seg,
+    cos, sin, bi)'s where given."""
     rng = np.random.default_rng(0)
 
     def draw(scale):
@@ -817,8 +850,113 @@ def inputs(b, p, h, bi, layout, dev, dtype=torch.bfloat16):
     seg = torch.from_numpy(_segments(b, p, bi, layout, rng)).to(dev)
     pos = torch.arange(p, device=dev).expand(b, p)
     cos, sin = (t.to(dtype) for t in rope_cos_sin(pos, DH))
-    out, lse = fa.flash_fwd(qs, k, v, seg, cos, sin, False, DH, bi)
+    if fwd is not None:
+        out, lse = fwd(qs, k, v, seg, cos, sin, bi)
+    elif dtype == torch.float32:
+        out, lse = plain_fwd64(qs, k, v, seg, cos, sin, bi)
+    else:
+        out, lse = fa.flash_fwd(qs, k, v, seg, cos, sin, False, DH, bi)
     return qs, k, v, do, seg, cos, sin, out, lse
+
+
+def plain_fwd64(qs, k, v, seg, cos, sin, bi: int):
+    """(out, lse) of the bidirectional (or `bi` bit slots) forward in float64,
+    RoPE included, fa.REF_ROWS query rows at a time, rounded to fp32: out 0
+    and lse -1e30 on a padded row."""
+    b, p, hd = qs.shape
+    h = hd // DH
+
+    def heads(t):
+        return t.double().reshape(b, p, h, DH).transpose(1, 2)
+
+    c64, s64 = cos.double(), sin.double()
+    q4 = heads(fa.rotate_tokens(qs.double(), c64, s64, DH))
+    k4 = heads(fa.rotate_tokens(k.double(), c64, s64, DH))
+    v4 = heads(v)
+    outs, lses = [], []
+    for i in range(0, p, fa.REF_ROWS):
+        rows = slice(i, i + fa.REF_ROWS)
+        s = q4[:, :, rows] @ k4.transpose(-1, -2)
+        s = s.masked_fill(~fa._valid_mask(seg, False, bi, None, rows), float("-inf"))
+        m = s.amax(dim=-1, keepdim=True)
+        live = (m > float("-inf")) & (seg[:, rows] > 0)[:, None, :, None]
+        e = torch.exp(s - torch.where(live, m, 0.0))
+        l = torch.where(live, e.sum(dim=-1, keepdim=True), 1.0)
+        outs.append(torch.where(live, (e @ v4) / l, 0.0))
+        lses.append(torch.where(live, m + torch.log(l), fa.NEG_INF)[..., 0])
+        del s, e
+    out = torch.cat(outs, dim=2).transpose(1, 2).reshape(b, p, hd)
+    return out.float().contiguous(), torch.cat(lses, dim=2).float().contiguous()
+
+
+def f32_form_digest(form, shape, dev, fwd=None) -> int:
+    """The digest of the fp32 `form` (#1f, #3f, #4f, #5f, a stream form or
+    #9f) through its wrapper at `inputs`' fp32 draws of `shape`
+    (BWD_F32_SHAPES); the backward forms read `inputs`' out and lse (fwd:
+    see there), the stream forms and #9f take the query ids as key ids, #9f
+    q and k unrotated."""
+    b, p, h, bi, layout = BWD_F32_SHAPES[shape]
+    qs, k, v, do, seg, cos, sin, out, lse = inputs(b, p, h, bi, layout, dev, torch.float32, fwd)
+    stream = form.endswith("_stream_f32")
+    if form == "flash_fwd_band_f32":
+        outs = fa.flash_fwd_band(qs, k, v, seg, seg, False, DH, bi)
+    elif form in ("flash_fwd_f32", "flash_fwd_stream_f32"):
+        outs = (fa.flash_fwd_stream(qs, k, v, seg, seg, cos, sin, False, DH, bi) if stream
+                else fa.flash_fwd(qs, k, v, seg, cos, sin, False, DH, bi))
+    elif form == "flash_bwd_f32":
+        outs = fa.flash_bwd(qs, k, v, seg, cos, sin, out, lse, do, None, False, DH)
+    else:
+        pair = ((fa.flash_dq_stream, fa.flash_dkv_stream) if stream
+                else (fa.flash_dq, fa.flash_dkv))
+        ids = (seg, seg) if stream else (seg,)
+        dq, delta = pair[0](qs, k, v, *ids, cos, sin, out, lse, do, None, False, DH, bi)
+        outs = ((dq, delta) if form.startswith("flash_dq")
+                else pair[1](qs, k, v, *ids, cos, sin, lse, delta, do, False, DH, bi))
+    torch.cuda.synchronize()
+    return f32_digest(*outs)
+
+
+def print_pins(source_lib, dev) -> None:
+    """The pinned digests (F32_BWD_PINNED, F32_FWD_PINNED) of the package's
+    builds; beside each backward form's, its digest on the out and lse of
+    `source_lib`'s forward (its #1f's entry up to MAX_P, its #6f's above, as
+    flash_fwd dispatches), and beside #9f's, `source_lib`'s #9f's."""
+    stream = _build.stream_ptr(dev)
+    ptr = _build.ptr
+
+    def source_fwd(qs, k, v, seg, cos, sin, bi):
+        b, p, hd = qs.shape
+        out = torch.empty_like(qs)
+        lse = torch.empty(b, hd // DH, p, device=dev)
+        if p <= fa.MAX_P:
+            err = source_lib.ggt_flash_fwd_f32(ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(cos),
+                                               ptr(sin), ptr(out), ptr(lse), b, p, hd // DH,
+                                               0, bi, stream)
+        else:
+            err = source_lib.ggt_flash_fwd_stream_f32(
+                ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(seg), ptr(cos), ptr(sin), ptr(out),
+                ptr(lse), ptr(fa._tile_scratch(seg)), b, p, hd // DH, 0, bi, stream)
+        _build.check(err, "the --source forward")
+        return out, lse
+
+    for form, shape in F32_BWD_PINNED:
+        theirs = f32_form_digest(form, shape, dev, source_fwd) if source_lib else None
+        print(f"pin {form} [{shape}]: {f32_form_digest(form, shape, dev)}  on the --source "
+              f"forward's out and lse: {theirs}", flush=True)
+    for form, shape in F32_FWD_PINNED:
+        theirs = None
+        if source_lib is not None and form == "flash_fwd_band_f32":
+            b, p, h, bi, layout = BWD_F32_SHAPES[shape]
+            qs, k, v, _, seg, _, _, out, lse = inputs(b, p, h, bi, layout, dev, torch.float32,
+                                                      lambda *a: (None, None))
+            out, lse = torch.empty_like(qs), torch.empty(b, h, p, device=dev)
+            _build.check(source_lib.ggt_flash_fwd_band_f32(
+                ptr(qs), ptr(k), ptr(v), ptr(seg), ptr(seg), ptr(out), ptr(lse),
+                ptr(fa._tile_scratch(seg)), b, p, h, 0, bi, stream), "the --source #9f")
+            torch.cuda.synchronize()
+            theirs = f32_digest(out, lse)
+        print(f"pin {form} [{shape}]: {f32_form_digest(form, shape, dev)}  --source's: {theirs}",
+              flush=True)
 
 
 def cuda_ms(fn, iters: int = 30, repeats: int = 5) -> float:
@@ -842,6 +980,7 @@ def main() -> None:
     ap.add_argument("--kernel", default="split", choices=sorted(KERNELS))
     ap.add_argument("--source", default=None)
     ap.add_argument("--variants", default=None)
+    ap.add_argument("--pins", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("split_probe needs a CUDA card")
@@ -849,11 +988,21 @@ def main() -> None:
     source = args.source or str(_build.CSRC / file)
     dev = torch.device("cuda")
     print(torch.cuda.get_device_name(0), flush=True)
-    if args.kernel in ("split_f32", "mlp_f32"):
-        # the package's body (its variants), and the --source body beside it
-        # in the same turns
+    if args.pins:
+        if args.kernel != "fwd_f32":
+            raise SystemExit("--pins goes with --kernel fwd_f32")
+        print_pins(build(args.kernel, open(source).read(), ["base"],
+                         Path(source).resolve().parent, label="fwd_f32_source")["base"]
+                   if args.source else None, dev)
+        return
+    if args.kernel in ("split_f32", "mlp_f32", "fwd_f32"):
+        # the package's body (its variants), fwd_f32's band form, and the
+        # --source body beside them in the same turns
         libs = build(args.kernel, (_build.CSRC / file).read_text(),
                      (args.variants or "base").split(","), _build.CSRC)
+        if args.kernel == "fwd_f32":
+            libs["band"] = build(args.kernel, (_build.CSRC / "flash_fwd_f32.cu").read_text(),
+                                 ["base"], _build.CSRC, label="fwd_f32_band")["base"]
         if args.source:
             libs["source"] = build(args.kernel, open(source).read(), ["base"],
                                    Path(source).resolve().parent,

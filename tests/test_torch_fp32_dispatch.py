@@ -68,15 +68,17 @@ def _flash(dtype, b=2, p=128, h=2, dh=64, seed=0):
     return qs, k, v, do, seg, cos, sin
 
 
-@pytest.mark.parametrize("dtype,symbol", [(torch.float32, "ggt_flash_fwd_f32"),
-                                          (torch.bfloat16, "ggt_flash_fwd")], ids=["fp32", "bf16"])
-def test_flash_fwd_sends_each_dtype_to_its_entry(monkeypatch, dtype, symbol):
+@pytest.mark.parametrize("dtype,symbol,source", [
+    (torch.float32, "ggt_flash_fwd_f32", "flash_bwd_split_f32"),
+    (torch.bfloat16, "ggt_flash_fwd", "flash_fwd")], ids=["fp32", "bf16"])
+def test_flash_fwd_sends_each_dtype_to_its_entry(monkeypatch, dtype, symbol, source):
+    """fp32 reaches #1f, the split body's forward role; bf16 #1."""
     card = FakeCard(monkeypatch)
     qs, k, v, _, seg, cos, sin = _flash(dtype)
     before = (tfa.flash_fwd.launches, tfa.flash_fwd_f32.launches)
     out, lse = tfa.flash_fwd(qs, k, v, seg, cos, sin, False, 64)
-    (source, got, tensors), = card.calls
-    assert got == symbol and source == symbol[4:]
+    (got_source, got, tensors), = card.calls
+    assert got == symbol and got_source == source
     assert out.dtype == dtype and lse.dtype == torch.float32
     fp32 = dtype == torch.float32
     assert (tfa.flash_fwd.launches - before[0], tfa.flash_fwd_f32.launches - before[1]) == (
@@ -370,8 +372,8 @@ def test_the_streamed_route_sends_each_dtype_to_its_entries(monkeypatch, dtype, 
     """flash_fwd and flash_bwd above P 2048, or under skip, reach #6, then #7
     and #8: fp32 the three fp32 stream entries (one launch of each fp32
     form, none of the bf16 ones or of #1f, #3f-#5f) with the RoPE tables
-    unrounded, #7f and #8f in the split body's source with their tile-table
-    scratch, #6f without; bf16 the entries it always took, with their
+    unrounded, #6f, #7f and #8f in the split body's source with their
+    tile-table scratch; bf16 the entries it always took, with their
     scratch. #8 reads the delta #7 wrote."""
     card = FakeCard(monkeypatch)
     p = _stream_route(monkeypatch, route)
@@ -380,7 +382,7 @@ def test_the_streamed_route_sends_each_dtype_to_its_entries(monkeypatch, dtype, 
     out, lse = tfa.flash_fwd(qs, k, v, seg, cos, sin, False, 64)
     dq, dk, dv = tfa.flash_bwd(qs, k, v, seg, cos, sin, out, lse, do, None, False, 64)
     fp32 = dtype == torch.float32
-    suffix, fwd_src, bwd_src = (("_f32", "flash_fwd_f32", "flash_bwd_split_f32") if fp32
+    suffix, fwd_src, bwd_src = (("_f32", "flash_bwd_split_f32", "flash_bwd_split_f32") if fp32
                                 else ("", "flash_fwd", "flash_bwd_split"))
     (s_fwd, y_fwd, t_fwd), (s_dq, y_dq, t_dq), (s_dkv, y_dkv, t_dkv) = card.calls
     assert (s_fwd, y_fwd) == (fwd_src, f"ggt_flash_fwd_stream{suffix}")
@@ -390,12 +392,12 @@ def test_the_streamed_route_sends_each_dtype_to_its_entries(monkeypatch, dtype, 
     got = {n: getattr(tfa, n).launches - before[n] for n in _STREAM_COUNTS}
     forms = [f"{n}{suffix}" for n in ("flash_fwd_stream", "flash_dq_stream", "flash_dkv_stream")]
     assert got == {n: int(n in forms) for n in _STREAM_COUNTS}
-    # fwd: q, k, v, seg_q, seg_k, cos, sin, out, lse[, tab]; dq: q, k, v,
+    # fwd: q, k, v, seg_q, seg_k, cos, sin, out, lse, tab; dq: q, k, v,
     # seg_q, seg_k, cos, sin, out, lse, do, delta, dq, tab (dlse None);
     # dkv: q, k, v, seg_q, seg_k, cos, sin, lse, delta, do, dk, dv, tab
-    assert [len(t_fwd), len(t_dq), len(t_dkv)] == ([9, 13, 13] if fp32 else [10, 13, 13])
+    assert [len(t_fwd), len(t_dq), len(t_dkv)] == [10, 13, 13]
     nt = -(-p // 64)
-    for t in (t_dq[12], t_dkv[12]):
+    for t in (t_fwd[9], t_dq[12], t_dkv[12]):
         assert t.dtype == torch.int32 and t.shape == (4 * nt,)
     assert t_dkv[8] is t_dq[10] and t_dkv[8].dtype == torch.float32
     for t in (t_fwd, t_dq, t_dkv):

@@ -1,6 +1,7 @@
 """The numeric design of the fp32 forms on 3xTF32 tensor-core products,
-against the JAX package on the CPU: the split backward #4f / #5f and its
-stream form #7f / #8f (`csrc/flash_bwd_split_f32.cu`), the norm-fused
+against the JAX package on the CPU: the split backward #4f / #5f, its
+stream form #7f / #8f and the forward #1f / #6f
+(`csrc/flash_bwd_split_f32.cu`, the body's forward role), the norm-fused
 projections #12f and the gated MLPs #11f and #2f (`csrc/mlp_qkv_f32.cu`).
 
 The CUDA kernels take every product as three TF32 products: each operand
@@ -36,6 +37,16 @@ no part in the port's backward, where the JAX kernels give it p = 1 on
 every key (its lse is the mask's floor, the forward having seen nothing):
 both sides get lse +1e30 on those rows, the mask's answer written into the
 exponent. ~2 s a case.
+
+The forward (emulated_fwd): S = q k^T and O += p v by 64-key tiles with
+the online softmax in the kernel's order (the new max, the sums so far
+scaled by 2^(m log2 e - n log2 e), p = 2^(S log2 e - n log2 e)), out = O /
+l and lse = m + log l, against `_fwd_kernel_single` at the pair's shape
+with RoPE (bidirectional, causal, bi-causal) and `_fwd_kernel_stream`
+under skip mode's 64-row tiles at B 2 x P 256 with the other row's key
+ids; out and lse within 2e-5, the 1xTF32 control's out past it; then its
+out and lse through the pair's (or the stream pair's) arithmetic against
+the interpreted backward kernels on the JAX forward's. ~2.5 s a case.
 
 #12f, #11f and #2f: the weights split into TF32 hi and lo planes (the
 split pass), the A operand normalised with the plain version's two
@@ -337,3 +348,157 @@ def test_3xtf32_norm_mlp_matches_the_interpreted_kernel(act, monkeypatch):
     want_mlp, x32 = np.asarray(want, np.float32) - x, torch.from_numpy(x)
     assert _rel(got - x32, want_mlp) < F32_REL, _rel(got - x32, want_mlp)
     assert _rel(one - x32, want_mlp) > F32_REL, _rel(one - x32, want_mlp)
+
+
+def emulated_fwd(qs, k, v, seg, cos, sin, causal, bi, mm, seg_k=None, tile=64):
+    """(out, lse) of the forward role's arithmetic (#1f, #6f) with `mm` for
+    both products: RoPE with the plain roundings (none where cos is None),
+    then by 64-key tiles as the kernel takes them: S = q k^T with masked
+    logits at -inf, the rows' new max n, the sums so far scaled by a =
+    2^(m log2 e - n log2 e) (exactly 1 where the max stays; the offset 0
+    while a row has seen no key), p = 2^(S log2 e - n log2 e), l = l a +
+    rowsum p, O = O a + p v; at the end out = O / l and lse = m + log l, 0
+    and -1e30 on a padded row or one that sees no key. A tile the kernel
+    skips (no pair of it visible) leaves m, l and O as they were, as it does
+    here."""
+    heads = tfa._heads
+
+    def rot(x):
+        return x if cos is None else tfa.rotate_tokens(x, cos, sin, DH)
+
+    q4, k4, v4 = heads(rot(qs), DH), heads(rot(k), DH), heads(v, DH)
+    valid = tfa._valid_mask(seg, causal, bi, seg_k) & (seg > 0)[:, None, :, None]
+    l2e = torch.tensor(LOG2E, dtype=torch.float32)
+    m = torch.full(q4.shape[:3], float("-inf"))
+    l = torch.zeros(q4.shape[:3])
+    o = torch.zeros(q4.shape)
+    for t0 in range(0, q4.shape[2], tile):
+        cols = slice(t0, t0 + tile)
+        s = torch.where(valid[..., cols], mm(q4, k4[:, :, cols].transpose(-1, -2)),
+                        float("-inf"))
+        n = torch.maximum(m, s.amax(-1))
+        base = torch.where(n == float("-inf"), 0.0, n * l2e)
+        a = torch.exp2(m * l2e - base)
+        pt = torch.exp2(s * l2e - base[..., None])
+        l = l * a + pt.sum(-1)
+        o = o * a[..., None] + mm(pt, v4[:, :, cols])
+        m = n
+    live = (l > 0) & (seg > 0)[:, None, :]
+    out = torch.where(live[..., None], o * (1.0 / torch.where(live, l, 1.0))[..., None], 0.0)
+    lse = torch.where(live, m + torch.log(torch.where(live, l, 1.0)), tfa.NEG_INF)
+    return tfa._tokens(out), lse
+
+
+def _spy_flash(monkeypatch, names, ran):
+    for name in names:
+        kernel = getattr(jfa, name)
+
+        def spy(*refs, _kernel=kernel, _name=name, **kw):
+            ran.append(_name)
+            return _kernel(*refs, **kw)
+
+        monkeypatch.setattr(jfa, name, spy)
+
+
+def _check_fwd(got, one, want_out, want_lse, live):
+    """out and lse (on the rows that see a key) within F32_REL of the
+    interpreted kernel's, the 1xTF32 emulation's out past it; the other
+    rows out 0, lse -1e30."""
+    out, lse = got
+    w_out, w_lse = np.asarray(want_out, np.float32), np.asarray(want_lse, np.float32)
+    rows = live.numpy()  # [B, H, P]
+    tok = torch.from_numpy(rows.any(axis=1))  # H heads alike: a row's mask is its ids'
+    assert _rel(out[tok], w_out[tok.numpy()]) < F32_REL, _rel(out[tok], w_out[tok.numpy()])
+    assert _rel(lse[live], w_lse[rows]) < F32_REL, _rel(lse[live], w_lse[rows])
+    assert _rel(one[0][tok], w_out[tok.numpy()]) > F32_REL
+    assert bool((out[~tok] == 0).all()) and bool((lse[~live] == tfa.NEG_INF).all())
+
+
+@pytest.mark.parametrize("mask", list(MASKS))
+def test_3xtf32_forward_matches_the_interpreted_single_kernel(mask, monkeypatch):
+    """#1f's arithmetic against `_fwd_kernel_single` at the denoise width (B 2
+    x P 88, RoPE, a padded stretch), then fed to the pair's (emulated_pair)
+    against the interpreted `_dq_kernel_single` / `_dkv_kernel_single` on
+    the JAX forward's out and lse. ~3 s a case."""
+    monkeypatch.setenv("GGT_PALLAS_INTERPRET", "1")
+    causal, bi = MASKS[mask]
+    monkeypatch.setattr(jfa, "_MAX_SINGLE_BLOCK", P - 1)  # the pair for every mask
+    ran = []
+    _spy_flash(monkeypatch, ("_fwd_kernel_single", "_dq_kernel_single", "_dkv_kernel_single"),
+               ran)
+    rng = np.random.default_rng(43)
+    q, k, v, do = ((rng.normal(size=(B, P, H * DH)) * 0.5).astype(np.float32) for _ in range(4))
+    qs = q * DH**-0.5
+    seg = packed_segments(B, P, rng)
+    seg[-1, P - 24 : P - BI] = 0  # a padded stretch before the last row's end
+    pos = np.tile(np.arange(P, dtype=np.int32), (B, 1))
+    cos, sin = (np.asarray(a, np.float32) for a in j_rope_cos_sin(jnp.asarray(pos), DH))
+    jq, jseg = jnp.asarray, jnp.asarray(seg)
+    jrope = (jq(cos), jq(sin))
+    out, lse = jfa._flash_fwd(jq(qs), jq(k), jq(v), jseg, jseg, causal, P, P, H, DH,
+                              bi_split=bi, rope=jrope)
+    assert ran == ["_fwd_kernel_single"]
+    t = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
+    tseg = torch.from_numpy(seg)
+    args = (t(qs), t(k), t(v), tseg, t(cos), t(sin), causal, bi)
+    got = emulated_fwd(*args, mm_3xtf32)
+    live = tfa._valid_mask(tseg, causal, bi)[:, 0].any(-1)[:, None, :].expand(B, H, P)
+    _check_fwd(got, emulated_fwd(*args, mm_tf32), out, lse, live)
+    # the forward's out and lse through the pair's arithmetic, against the
+    # interpreted pair on the JAX forward's
+    want = jfa._flash_bwd(jq(qs), jq(k), jq(v), jseg, jseg, out, lse, jq(do), causal, H, DH,
+                          bi_split=bi, rope=jrope)
+    assert {"_dq_kernel_single", "_dkv_kernel_single"} <= set(ran)
+    pair = emulated_pair(t(qs), t(k), t(v), t(do), got[0], tseg, t(cos), t(sin), got[1],
+                         torch.zeros(B, H, P), causal, bi, mm_3xtf32)
+    for name, g, w in zip(("dq", "dk", "dv"), pair[:1] + pair[2:], want):
+        assert _rel(g, w) < F32_REL, (name, _rel(g, w))
+
+
+@pytest.mark.parametrize("mask", list(STREAM_MASKS))
+def test_3xtf32_stream_forward_with_another_rows_key_ids_matches_the_interpreted_kernel(
+        mask, monkeypatch):
+    """#6f's arithmetic against `_fwd_kernel_stream` under skip mode's 64-row
+    tiles at B 2 x P 256, q and k as skip mode hands them over (rotated
+    outside: no RoPE), the key ids the other row's
+    (some query rows see no key: the port gives them out 0 and lse -1e30,
+    where the JAX kernel gives the mean of the values it visited); then fed
+    to the stream pair's arithmetic (consistent delta) against the
+    interpreted `_dq_kernel_stream` / `_dkv_kernel_stream` on the JAX
+    forward's out and lse. ~3 s a case."""
+    monkeypatch.setenv("GGT_PALLAS_INTERPRET", "1")
+    causal, p = STREAM_MASKS[mask], STREAM_P
+    for name, value in (("_MODE", "skip"), ("_BAND_BK", 64), ("_BQ_BWD", 64)):
+        monkeypatch.setattr(jfa, name, value)
+    ran = []
+    _spy_flash(monkeypatch, ("_fwd_kernel_stream", "_dq_kernel_stream", "_dkv_kernel_stream"),
+               ran)
+    rng = np.random.default_rng(47)
+    qs, k, v, do = ((rng.normal(size=(B, p, H * DH)) * 0.5).astype(np.float32) for _ in range(4))
+    qs = qs * DH**-0.5
+    seg = packed_segments(B, p, rng)
+    seg[-1, p - 40 : p - 8] = 0  # a padded stretch before the last row's end
+    seg_k = np.ascontiguousarray(seg[::-1])  # the keys carry the other row's ids
+    jq = jnp.asarray
+    bq, bk = jfa._fwd_blocks(p)
+    out, lse = jfa._flash_fwd(jq(qs), jq(k), jq(v), jq(seg), jq(seg_k), causal, bq, bk, H, DH)
+    assert set(ran) == {"_fwd_kernel_stream"}
+    t = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
+    tseg, tseg_k = torch.from_numpy(seg), torch.from_numpy(seg_k)
+    seen_q = tfa._valid_mask(tseg, causal, 0, tseg_k)[:, 0].any(-1)
+    assert bool(((tseg > 0) & ~seen_q).any())  # some query rows see no key
+    args = (t(qs), t(k), t(v), tseg, None, None, causal, 0)
+    got = emulated_fwd(*args, mm_3xtf32, seg_k=tseg_k)
+    live = seen_q[:, None, :].expand(B, H, p)
+    _check_fwd(got, emulated_fwd(*args, mm_tf32, seg_k=tseg_k), out, lse, live)
+    # the pair on the JAX forward's out and lse, its rows that see no key at
+    # lse +1e30 (p = 0 there: see the stream pair's test)
+    jlse = np.where(seen_q.numpy()[:, None, :], np.asarray(lse), np.float32(1e30))
+    want = jfa._flash_bwd(jq(qs), jq(k), jq(v), jq(seg), jq(seg_k), out, jq(jlse), jq(do),
+                          causal, H, DH)
+    assert {"_dq_kernel_stream", "_dkv_kernel_stream"} <= set(ran)
+    pair = emulated_pair(t(qs), t(k), t(v), t(do), got[0], tseg, None, None, got[1],
+                         torch.zeros(B, H, p), causal, 0, mm_3xtf32, seg_k=tseg_k,
+                         consistent=True)
+    for name, g, w in zip(("dq", "dk", "dv"), pair[:1] + pair[2:], want):
+        assert _rel(g, w) < F32_REL, (name, _rel(g, w))

@@ -1482,7 +1482,7 @@ def test_the_pretrain_task_batches_train_on_the_kernels(cuda_device, task):
         assert _rel(grads[n], rgrads[n]) < 8e-2, n
 
 
-# ---- the fp32 forms of #1, #3 (flash_fwd_f32.cu, flash_bwd_f32.cu), #2
+# ---- the fp32 forms of #1, #3 (flash_bwd_split_f32.cu, flash_bwd_f32.cu), #2
 # (mlp_qkv_f32.cu) and #13 (rmsnorm_bwd.cu's fp32 instances)
 
 F32_REL = 2e-5  # relative Frobenius error: fp32 sums of up to ~3,000 terms in another order
@@ -2097,17 +2097,19 @@ def test_fp32_stream_pair_ignores_non_finite_do_in_padded_rows(cuda_device, case
 
 @pytest.mark.gpu
 def test_the_fp32_stream_form_on_one_id_array_gives_the_single_forms_bits(cuda_device):
-    """#6f with the query ids as key ids and #1f's entry on the same rows:
-    one body, the same bits (the dispatch never hands #1f a row past 2048)."""
+    """#6f with the query ids as key ids and #1f's entry on the same rows
+    (the first 2,048 positions of a long row: #1f takes P <= 2048): one
+    body, the same tiles in the same order, the same bits."""
     from graphgpt_torch.ops import _build
 
     dev = cuda_device
-    qs, k, v, _, seg, _, cos, sin = _f32_stream_inputs("P4160", dev)
+    qs, k, v, _, seg, _, cos, sin = (t[:, :tfa.MAX_P].contiguous()
+                                     for t in _f32_stream_inputs("P4160", dev))
     out, lse = tfa.flash_fwd_stream(qs, k, v, seg, seg, cos, sin, False, 64)
     b, p, hd = qs.shape
     out1, lse1 = torch.empty_like(out), torch.empty_like(lse)
     seg32 = seg.to(torch.int32).contiguous()
-    fn = _build.entry("flash_fwd_f32", "ggt_flash_fwd_f32", tfa._ARGTYPES)
+    fn = _build.entry("flash_bwd_split_f32", "ggt_flash_fwd_f32", tfa._ARGTYPES)
     _build.check(fn(_build.ptr(qs), _build.ptr(k), _build.ptr(v), _build.ptr(seg32),
                     _build.ptr(cos), _build.ptr(sin), _build.ptr(out1), _build.ptr(lse1), b, p,
                     hd // 64, 0, 0, _build.stream_ptr(dev)), "ggt_flash_fwd_f32")
@@ -2136,84 +2138,81 @@ def test_an_fp32_model_trains_on_the_fp32_stream_kernels(cuda_device, mode, p, m
     _assert_f32_step(run, ref)
 
 
-# #3f's digests (split_probe's f32_digest) from the body before the split
-# pair joined its source, #1f's from the body before the stream forms
-# joined its source, and #6f's from the body before the band forms joined
-# its source: `split_probe --kernel fwd_f32` and `--kernel bwd_f32` with
-# --source on those commits' csrc/, on an NVIDIA H100 80GB HBM3, at
-# split_probe's inputs (inputs in fp32 on packed rows, no lse cotangent;
-# the stream forms on the query ids as key ids). flash_fwd_f32.cu and the
-# passes of flash_bwd_f32.cu keep them. (#4f's and #5f's are
-# _F32_SPLIT_DIGESTS, #7f's and #8f's _F32_STREAM_SPLIT_DIGESTS, #2f's,
-# #11f's and #12f's _F32_TF32X3_DIGESTS.)
+# The fp32 attention forms' digests (split_probe's f32_digest) through their
+# wrappers at split_probe's fp32 inputs (`inputs`: packed rows, no lse
+# cotangent; the stream forms and #9f on the query ids as key ids, #9f on q
+# and k unrotated), from `split_probe --kernel fwd_f32 --pins --source` on
+# an NVIDIA H100 80GB HBM3, --source the flash_fwd_f32.cu that held the
+# FFMA #1f and #6f. The backward forms read out and lse from the plain
+# forward in float64 rounded to fp32 (`plain_fwd64`), which no kernel's
+# redesign moves. On the FFMA forward's out and lse the same call gave the
+# digests each backward form was pinned to before (the comments below):
+# its body is the one those pins held. #3f's (the FFMA passes) and #9f's
+# (flash_fwd_f32.cu's band form, equal to --source's in that call) here;
+# #4f's and #5f's in _F32_SPLIT_DIGESTS, #7f's and #8f's in
+# _F32_STREAM_SPLIT_DIGESTS, #1f's and #6f's in _F32_FWD_DIGESTS, #2f's,
+# #11f's and #12f's in _F32_TF32X3_DIGESTS. On the FFMA forward's out and
+# lse #3f gave -916961056836012 and -17989573487664.
 _F32_PARENT_DIGESTS = {
-    ("flash_bwd_f32", "B8 P1024"): -916961056836012,
-    ("flash_bwd_f32", "toy B8 P128"): -17989573487664,
-    ("flash_fwd_f32", "B8 P1024"): -165906643651216,
-    ("flash_fwd_f32", "denoise B256 P88"): -328070100018431,
-    ("flash_fwd_stream_f32", "B8 P1024"): -165906643651216,
+    ("flash_bwd_f32", "B8 P1024"): -916961054546720,
+    ("flash_bwd_f32", "toy B8 P128"): -17989573239738,
+    ("flash_fwd_band_f32", "B8 P1024"): -163432506408151,
+    ("flash_fwd_band_f32", "B16 P4096"): -1512338697010656,
 }
-# #4f's and #5f's digests as the first build of their Hopper body
-# (csrc/flash_bwd_split_f32.cu: 3xTF32 products, another order of sums than
-# the FFMA passes') gave them: `split_probe --kernel split_f32`, the same
-# card and inputs
+# #4f's and #5f's (csrc/flash_bwd_split_f32.cu: 3xTF32 products, another
+# order of sums than the FFMA passes'); on the FFMA forward's out and lse
+# they gave their first build's -2136141201081277, -2976345812947738,
+# -249146572008087, -672921792860440
 _F32_SPLIT_DIGESTS = {
-    ("flash_dq_f32", "denoise B256 P88"): -2136141201081277,
-    ("flash_dkv_f32", "denoise B256 P88"): -2976345812947738,
-    ("flash_dq_f32", "B8 P1024 bi16"): -249146572008087,
-    ("flash_dkv_f32", "B8 P1024 bi16"): -672921792860440,
+    ("flash_dq_f32", "denoise B256 P88"): -2136141195266819,
+    ("flash_dkv_f32", "denoise B256 P88"): -2976348014024672,
+    ("flash_dq_f32", "B8 P1024 bi16"): -249146571354909,
+    ("flash_dkv_f32", "B8 P1024 bi16"): -672923969654895,
 }
-# #6f's digest at the long-context shape as its first build gave it
-# (split_probe --kernel fwd_f32, the same card), equal to #1f's there, one
-# id array being both ids
-_F32_STREAM_DIGESTS = {
-    "flash_fwd_stream_f32": -1508182275918902,
+# #1f's and #6f's as the first build of the split body's forward role gave
+# them (3xTF32 products; the FFMA body's were -165906643651216 at 8 x 1024,
+# -328070100018431 at the denoise batch, -1508182275918902 at 16 x 4096);
+# #1f's equal #6f's on one id array
+_F32_FWD_DIGESTS = {
+    ("flash_fwd_f32", "B8 P1024"): -165906662815964,
+    ("flash_fwd_f32", "denoise B256 P88"): -328070114397490,
+    ("flash_fwd_stream_f32", "B8 P1024"): -165906662815964,
+    ("flash_fwd_stream_f32", "B16 P4096"): -1508183273533821,
 }
-# #7f's and #8f's digests as the first build of their Hopper body gave them
-# (csrc/flash_bwd_split_f32.cu's stream form: 3xTF32 products, another order
-# of sums than the FFMA passes', which gave -249067995751735,
-# -670983982973380 at B 8 x P 1024 and -2002090571179038,
-# -5674428343003133 at B 16 x P 4096): split_probe --kernel split_f32, the
-# same card and inputs
+# #7f's and #8f's (the split body's stream form); on the FFMA forward's out
+# and lse they gave their first build's -249068053440236, -670984090665018
+# at B 8 x P 1024 and -2002096683127753, -5674440358447462 at B 16 x P 4096
 _F32_STREAM_SPLIT_DIGESTS = {
-    ("flash_dq_stream_f32", "B8 P1024"): -249068053440236,
-    ("flash_dkv_stream_f32", "B8 P1024"): -670984090665018,
-    ("flash_dq_stream_f32", "B16 P4096"): -2002096683127753,
-    ("flash_dkv_stream_f32", "B16 P4096"): -5674440358447462,
+    ("flash_dq_stream_f32", "B8 P1024"): -249068050128931,
+    ("flash_dkv_stream_f32", "B8 P1024"): -670986253471526,
+    ("flash_dq_stream_f32", "B16 P4096"): -2002094545623725,
+    ("flash_dkv_stream_f32", "B16 P4096"): -5674437461299102,
 }
 
 
 def _f32_attention_digest(form, shape, dev):
-    """The digest of `form` (#1f, #3f, #4f, #5f or a stream form) through
-    its wrapper at split_probe's fp32 inputs of `shape`."""
+    """The digest of `form` through its wrapper at split_probe's fp32 inputs
+    of `shape` (split_probe.f32_form_digest)."""
     from graphgpt_torch.ops import split_probe as sp
 
-    b, p, h, bi, layout = sp.BWD_F32_SHAPES[shape]
-    qs, k, v, do, seg, cos, sin, out, lse = sp.inputs(b, p, h, bi, layout, dev, torch.float32)
-    stream = form.endswith("_stream_f32")
-    if form in ("flash_fwd_f32", "flash_fwd_stream_f32"):
-        outs = (tfa.flash_fwd_stream(qs, k, v, seg, seg, cos, sin, False, 64, bi) if stream
-                else tfa.flash_fwd(qs, k, v, seg, cos, sin, False, 64, bi))
-    elif form == "flash_bwd_f32":
-        outs = tfa.flash_bwd(qs, k, v, seg, cos, sin, out, lse, do, None, False, 64)
-    else:
-        pair = ((tfa.flash_dq_stream, tfa.flash_dkv_stream) if stream
-                else (tfa.flash_dq, tfa.flash_dkv))
-        ids = (seg, seg) if stream else (seg,)
-        dq, delta = pair[0](qs, k, v, *ids, cos, sin, out, lse, do, None, False, 64, bi)
-        outs = ((dq, delta) if form.startswith("flash_dq")
-                else pair[1](qs, k, v, *ids, cos, sin, lse, delta, do, False, 64, bi))
-    torch.cuda.synchronize()
-    return sp.f32_digest(*outs)
+    return sp.f32_form_digest(form, shape, dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form,shape", list(_F32_FWD_DIGESTS))
+def test_fp32_forward_keeps_its_bits(cuda_device, form, shape):
+    """#1f through flash_fwd and #6f through flash_fwd_stream (out and lse)
+    give the bits of the split body's forward role's first build."""
+    assert _f32_attention_digest(form, shape, cuda_device) == _F32_FWD_DIGESTS[form, shape]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("form,shape", list(_F32_PARENT_DIGESTS))
 def test_fp32_forms_keep_the_bits_of_their_bodies_before_the_new_forms(cuda_device, form,
                                                                         shape):
-    """#1f, #3f and the stream forms #6f-#8f through their wrappers on fp32
-    tensors give the bits their bodies gave before #4f / #5f, the stream
-    forms, and the band forms #9f and #10f were added beside them."""
+    """#3f and #9f through their wrappers on fp32 tensors give the bits
+    their FFMA bodies gave before #1f and #6f left them for the split
+    body."""
     assert _f32_attention_digest(form, shape, cuda_device) == _F32_PARENT_DIGESTS[form, shape]
 
 
@@ -2227,11 +2226,12 @@ def test_fp32_split_pair_keeps_its_bits(cuda_device, form, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("form", list(_F32_STREAM_DIGESTS))
+@pytest.mark.parametrize("form", ["flash_fwd_stream_f32"])
 def test_fp32_stream_forms_keep_their_bits(cuda_device, form):
-    """#6f through flash_fwd_stream at B 16 x P 4096 gives the bits of its
-    first build."""
-    assert _f32_attention_digest(form, "B16 P4096", cuda_device) == _F32_STREAM_DIGESTS[form]
+    """#6f through flash_fwd_stream at B 16 x P 4096 gives the bits of the
+    split body's forward role's first build."""
+    assert (_f32_attention_digest(form, "B16 P4096", cuda_device)
+            == _F32_FWD_DIGESTS[form, "B16 P4096"])
 
 
 @pytest.mark.gpu
@@ -2380,12 +2380,13 @@ def test_fp32_band_backward_ignores_non_finite_do_in_padded_rows(cuda_device, ca
 @pytest.mark.parametrize("case", ["P1024", "P1024-causal", "P1024-other", "P88-bicausal",
                                   "P4096"])
 def test_fp32_band_forms_give_the_bits_of_the_other_forms(cuda_device, case):
-    """A key tile outside the band holds no visible pair, so #9f gives #6f's
-    bits on the same ids, and on one id array the band forms give the
-    single forms' (#1f's; #3f's without a split). #10f lies within F32_REL
-    of #7f's and #8f's (dq, delta, dk, dv) and, with a split, of #4f's and
-    #5f's: another body (csrc/flash_bwd_split_f32.cu), which sums in
-    another order."""
+    """#9f lies within F32_REL of #6f (out, and lse on the rows that see a
+    key; the rows that see none exactly alike), and #10f of #7f's and #8f's
+    (dq, delta, dk, dv) and, with a split, of #4f's and #5f's: another body
+    (csrc/flash_bwd_split_f32.cu), which sums in another order. A key tile
+    outside the band holds no visible pair, so on one id array #10f gives
+    #3f's bits without a split; and there #1f gives #6f's (one body, the
+    same tiles in the same order), where it takes the row (P <= 2048)."""
     dev = cuda_device
     causal, bi = _STREAM_MASKS[_F32_BAND_CASES[case][4]]
     qs, k, v, do, seg, seg_k = _f32_band_inputs(case, dev, seed=37)
@@ -2399,12 +2400,17 @@ def test_fp32_band_forms_give_the_bits_of_the_other_forms(cuda_device, case):
     sdk, sdv = tfa.flash_dkv_stream(qs, k, v, seg, seg_k, None, None, lse, sdelta, do, causal,
                                     64, bi)
     torch.cuda.synchronize()
-    assert torch.equal(out, sout) and torch.equal(lse, slse)
+    live = lse > -1e30
+    assert torch.equal(live, slse > -1e30) and torch.equal(lse[~live], slse[~live])
+    assert _rel(out, sout) < F32_REL and _rel(lse[live], slse[live]) < F32_REL
     assert all(_rel(a, b) < F32_REL for a, b in zip((dq, aux["delta"], dk, dv),
                                                     (sdq, sdelta, sdk, sdv)))
     if seg_k is not seg:
         return
-    one = tfa.flash_fwd_f32(qs, k, v, seg, None, None, causal, 64, bi)
+    if qs.shape[1] <= tfa.MAX_P:
+        one = tfa.flash_fwd_f32(qs, k, v, seg, None, None, causal, 64, bi)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], sout) and torch.equal(one[1], slse)
     if bi:
         qd, qdelta = tfa.flash_dq_f32(qs, k, v, seg, None, None, out, lse, do, None, causal, 64,
                                       bi)
@@ -2416,7 +2422,6 @@ def test_fp32_band_forms_give_the_bits_of_the_other_forms(cuda_device, case):
         grads = tfa.flash_bwd_f32(qs, k, v, seg, None, None, out, lse, do, None, causal, 64)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), grads))
-    assert torch.equal(one[0], out) and torch.equal(one[1], lse)
 
 
 # (N, D, q, k, v widths) of #12f's cases: the serving rows, a ragged row
